@@ -1,0 +1,136 @@
+"""Vertical database construction (Phase-1/2/3 of the paper's variants).
+
+Three construction paths mirror the paper:
+
+* :func:`build_vertical` — EclatV1 Phase-1: scatter the horizontal DB into a
+  packed bitmap, compute item supports, keep frequent items.
+* :func:`filter_transactions` — EclatV2 Phase-2: Borgelt's filtered
+  transactions; here a bitmap compaction (drop infrequent item rows, drop
+  transaction columns that became empty, optionally re-sort items).
+* :func:`~repro_torch.core.accumulator.build_vertical_accumulated` —
+  EclatV3 Phase-3: the accumulator-built vertical DB; identical output,
+  produced through the accumulator path so the V3 lineage is honest.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+
+from . import bitmap as bm
+
+__all__ = ["VerticalDB", "build_vertical", "filter_transactions", "sort_items",
+           "filtering_reduction"]
+
+
+@dataclasses.dataclass
+class VerticalDB:
+    """Frequent-item vertical database.
+
+    Attributes:
+      bitmaps:   (n_freq, W) uint32 packed tidsets, row order == ``items`` order.
+      items:     (n_freq,) original item ids for each row.
+      supports:  (n_freq,) int64 item supports.
+      n_txn:     number of (possibly compacted) transaction columns.
+      order:     how ``items`` rows are sorted ("support_asc" | "lex").
+    """
+
+    bitmaps: np.ndarray
+    items: np.ndarray
+    supports: np.ndarray
+    n_txn: int
+    order: str = "support_asc"
+
+    @property
+    def n_items(self) -> int:
+        return int(self.items.shape[0])
+
+    @property
+    def n_words(self) -> int:
+        return int(self.bitmaps.shape[1])
+
+    def validate(self) -> None:
+        # a real integrity check, not an ``assert``: it must also hold
+        # under ``python -O``
+        want = (self.items.shape[0], bm.n_words(self.n_txn))
+        if self.bitmaps.shape != want:
+            raise RuntimeError(
+                f"vertical bitmap shape drifted: expected {want}, got "
+                f"{self.bitmaps.shape}")
+        np.testing.assert_array_equal(bm.support_np(self.bitmaps), self.supports)
+
+
+def sort_items(items: np.ndarray, supports: np.ndarray, order: str):
+    """Total order used for equivalence-class construction.
+
+    ``support_asc`` (paper: "sorted ... by the total order of increasing
+    support count") breaks ties lexicographically so the order is
+    deterministic.  ``lex`` is the alphanumeric order of EclatV2 Phase-1.
+    """
+    if order == "support_asc":
+        perm = np.lexsort((items, supports))
+    elif order == "lex":
+        perm = np.argsort(items, kind="stable")
+    else:
+        raise ValueError(f"unknown item order {order!r}")
+    return perm
+
+
+def build_vertical(
+    transactions: Sequence[Sequence[int]],
+    n_items: int,
+    min_sup: int,
+    order: str = "support_asc",
+) -> VerticalDB:
+    """EclatV1 Phase-1: horizontal -> packed vertical DB of frequent items."""
+    packed = bm.pack_transactions(transactions, n_items)
+    supports = bm.support_np(packed)
+    freq_mask = supports >= int(min_sup)
+    items = np.nonzero(freq_mask)[0].astype(np.int64)
+    packed = packed[freq_mask]
+    supports = supports[freq_mask]
+    perm = sort_items(items, supports, order)
+    return VerticalDB(
+        bitmaps=packed[perm],
+        items=items[perm],
+        supports=supports[perm],
+        n_txn=len(transactions),
+        order=order,
+    )
+
+
+def filter_transactions(db: VerticalDB, drop_empty_cols: bool = True) -> VerticalDB:
+    """EclatV2's filtered-transaction technique as bitmap compaction.
+
+    The infrequent item *rows* are already gone after ``build_vertical``; the
+    remaining saving — exactly the paper's observation that filtering only
+    pays when the DB shrinks "significantly" — is removing transaction
+    columns containing no frequent item, which shrinks W for every later AND.
+    """
+    if not drop_empty_cols:
+        return db
+    # word-level column occupancy: OR-reduce the rows, then test each
+    # transaction's bit — no dense (n_items, n_txn) matrix is materialized
+    orred = np.bitwise_or.reduce(db.bitmaps, axis=0) if db.n_items else np.zeros(
+        bm.n_words(db.n_txn), db.bitmaps.dtype)
+    t = np.arange(db.n_txn)
+    touched = ((orred[t // bm.WORD_BITS] >> (t % bm.WORD_BITS).astype(orred.dtype)) & 1).astype(bool)
+    if touched.all():
+        return db  # nothing to compact; avoid a useless repack
+    compact, kept = bm.column_compact(db.bitmaps, db.n_txn, touched)
+    return VerticalDB(
+        bitmaps=compact,
+        items=db.items,
+        supports=db.supports,
+        n_txn=kept,
+        order=db.order,
+    )
+
+
+def filtering_reduction(db_before: VerticalDB, db_after: VerticalDB) -> float:
+    """Fraction of transaction columns removed by filtering (paper §5.2.1
+    reports e.g. 3.2%..25.8% for T40I10D100K)."""
+    if db_before.n_txn == 0:
+        return 0.0
+    return 1.0 - db_after.n_txn / db_before.n_txn

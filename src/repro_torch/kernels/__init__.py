@@ -1,0 +1,32 @@
+"""repro_torch.kernels — hand-written CUDA kernels for Hopper (``sm_90a``).
+
+fused_intersect : gather + AND/ANDNOT + popcount + min-support threshold,
+                  with on-card survivor compaction (the level-expansion
+                  hot loop behind ``core.engine``'s ``fused`` backend)
+trimatrix       : 2-itemset co-occurrence counts (the paper's Phase-2
+                  triangular matrix, behind ``core.triangular``)
+
+Each subpackage: ``<name>.py`` (ctypes binding of the CUDA source under
+``csrc/``, with launch counters), ``ops.py`` (CUDA tensor -> kernel, CPU
+tensor -> reference) and ``ref.py`` (plain torch oracle).  The CUDA sources
+are built by :mod:`._build` at first use.
+"""
+from . import fused_intersect, trimatrix
+
+__all__ = ["fused_intersect", "trimatrix", "launch_counts", "reset_launch_counts"]
+
+
+def _counted():
+    return {"fused_intersect": fused_intersect.fused_intersect_pairs,
+            "fused_intersect_compact": fused_intersect.fused_intersect_compact_pairs,
+            "trimatrix": trimatrix.trimatrix}
+
+
+def launch_counts() -> dict:
+    """Kernel launches counted by each wrapper since the last reset."""
+    return {name: fn.launches for name, fn in _counted().items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in _counted().values():
+        fn.launches = 0
