@@ -150,6 +150,7 @@ def check_pair_kernels():
         ("no survivors", 64, 50, 500, 500, 10**9),
         ("all survivors", 64, 50, 500, 500, 0),
         ("n_valid < Q", 64, 50, 500, 123, None),
+        ("Q=12289 n_valid=8200 (scan tiles of 4096)", 100, 33, 12289, 8200, None),
     ]
     for label, p, w, q, nv, ms_override in cases:
         for mode in (0, 1, 2):

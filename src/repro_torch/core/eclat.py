@@ -116,7 +116,7 @@ _UNPORTED_DEFAULTS = dict(shard="pairs", block_w=None, autotune=False,
 @dataclasses.dataclass
 class EclatResult:
     store: ItemsetStore
-    db: Optional[VerticalDB]
+    db: VerticalDB
     stats: dict
     mode: str = "all"                   # the workload mode this run mined for
 

@@ -4,8 +4,9 @@
 // Replaces the TPU kernels of src/repro/kernels/fused_intersect/fused_intersect.py:
 //   fused_pairs_kernel      <- _kernel, launched by _fused_pairs_call
 //                              (fused_intersect_pairs)
-//   survivor_scan_kernel +  <- the compact_epilogue that
-//   gather_survivors_kernel    fused_intersect_compact_pairs appends
+//   survivor_count_kernel,  <- the compact_epilogue that
+//   survivor_scatter_kernel,   fused_intersect_compact_pairs appends
+//   gather_survivors_kernel
 //
 // For each pair q: rows a = frontier[left[q]], b = frontier[right[q]];
 //   mode 0: x = a & b     sup = popcount(x)
@@ -31,12 +32,13 @@
 //
 // The compacting path never writes the (Q, W) intersection of pairs that do
 // not survive.  fused_pairs_kernel runs with inter == nullptr and produces
-// only sup and mask; survivor_scan_kernel (one block) turns the mask into
+// only sup and mask; survivor_count_kernel and survivor_scatter_kernel (a
+// two-pass scan, one block per tile of 4,096 flags) turn the mask into
 // ascending survivor indices and their count S on the device; and
 // gather_survivors_kernel recomputes row r from pair sel[r] (r < S) or from
 // pair 0 (r >= S: the pad rows duplicate the intersection of pair 0, as in
 // the reference).  Nothing returns to the host in between, so the caller
-// reads the mask once, after all three launches.
+// reads the mask once, after all four launches.
 //
 // Row offsets are 64-bit: q * W passes 2^31 at Q ~ 700k for W = 3125.
 // left[q] and right[q] must lie in [0, P): the engine checks its pair lists
@@ -50,8 +52,10 @@ constexpr int kWarp = 32;
 constexpr int kPairsPerBlock = 8;
 constexpr int kThreads = kPairsPerBlock * kWarp;
 constexpr int kUnroll = 4;
-constexpr int kScanThreads = 1024;
+constexpr int kScanThreads = 256;
+constexpr int kScanWarps = kScanThreads / kWarp;
 constexpr int kScanItems = 16;
+constexpr int kScanTile = kScanThreads * kScanItems;
 
 template <int MODE>
 __device__ __forceinline__ unsigned combine(unsigned a, unsigned b) {
@@ -118,67 +122,105 @@ fused_pairs_kernel(const unsigned* __restrict__ frontier,
   }
 }
 
-// One block walks the mask in tiles of kScanThreads * kScanItems entries.
-// Thread t owns kScanItems consecutive entries of a tile; a block-wide
-// exclusive scan of the per-thread counts (warp shuffles, then one warp over
-// the 32 warp totals) gives each thread its first output slot.  Rewrites
-// mask[q] to the valid-masked survivor flag (mask & q < n_valid), writes
-// sel[0..S) and S.
+// The survivor scan runs in two passes over tiles of kScanTile flags, one
+// block per tile.  A flag is mask[q] & (q < n_valid).
+//   survivor_count_kernel:   count[b] = number of flags set in tile b
+//   survivor_scatter_kernel: offset = count[0] + ... + count[b-1]; thread t
+//     owns kScanItems consecutive flags of the tile, and a block-wide
+//     exclusive scan of the per-thread counts (warp shuffles, then one warp
+//     over the warp totals) gives each thread its first output slot.  It
+//     rewrites mask[q] to the flag, writes sel[offset ..] and, in the last
+//     block, S.
+__device__ __forceinline__ int survivor_flags(const int* __restrict__ mask,
+                                              long long start, long long Q,
+                                              long long n_valid,
+                                              unsigned* flags) {
+  int count = 0;
+  unsigned f = 0;
+#pragma unroll
+  for (int i = 0; i < kScanItems; ++i) {
+    const long long q = start + i;
+    const int m = (q < Q && q < n_valid && mask[q] != 0) ? 1 : 0;
+    f |= static_cast<unsigned>(m) << i;
+    count += m;
+  }
+  *flags = f;
+  return count;
+}
+
 __global__ void __launch_bounds__(kScanThreads)
-survivor_scan_kernel(int* __restrict__ mask, long long Q, long long n_valid,
-                     int* __restrict__ sel, int* __restrict__ n_surv) {
-  __shared__ int warp_base[kScanThreads / kWarp];
-  __shared__ int tile_total;
+survivor_count_kernel(const int* __restrict__ mask, long long Q,
+                      long long n_valid, int* __restrict__ tile_count) {
+  __shared__ int warp_sum[kScanWarps];
+  const int tid = threadIdx.x;
+  const long long start = static_cast<long long>(blockIdx.x) * kScanTile +
+                          static_cast<long long>(tid) * kScanItems;
+  unsigned flags;
+  int c = survivor_flags(mask, start, Q, n_valid, &flags);
+#pragma unroll
+  for (int off = kWarp / 2; off > 0; off >>= 1)
+    c += __shfl_down_sync(0xffffffffu, c, off);
+  if (tid % kWarp == 0) warp_sum[tid / kWarp] = c;
+  __syncthreads();
+  if (tid == 0) {
+    int total = 0;
+    for (int w = 0; w < kScanWarps; ++w) total += warp_sum[w];
+    tile_count[blockIdx.x] = total;
+  }
+}
+
+__global__ void __launch_bounds__(kScanThreads)
+survivor_scatter_kernel(int* __restrict__ mask, long long Q, long long n_valid,
+                        const int* __restrict__ tile_count,
+                        int* __restrict__ sel, int* __restrict__ n_surv) {
+  __shared__ int warp_base[kScanWarps];
+  __shared__ int tile_offset;
   const int tid = threadIdx.x;
   const int lane = tid % kWarp;
   const int warp = tid / kWarp;
-  int carry = 0;
-  for (long long base = 0; base < Q;
-       base += static_cast<long long>(kScanThreads) * kScanItems) {
-    const long long start = base + static_cast<long long>(tid) * kScanItems;
-    unsigned flags = 0;
-    int count = 0;
+  // survivors in the tiles before this one
+  if (warp == 0) {
+    int s = 0;
+    for (int b = lane; b < static_cast<int>(blockIdx.x); b += kWarp) s += tile_count[b];
 #pragma unroll
-    for (int i = 0; i < kScanItems; ++i) {
-      const long long q = start + i;
-      const int m = (q < Q && q < n_valid && mask[q] != 0) ? 1 : 0;
-      flags |= static_cast<unsigned>(m) << i;
-      count += m;
-    }
-    int incl = count;
+    for (int off = kWarp / 2; off > 0; off >>= 1)
+      s += __shfl_down_sync(0xffffffffu, s, off);
+    if (lane == 0) tile_offset = s;
+  }
+  const long long start = static_cast<long long>(blockIdx.x) * kScanTile +
+                          static_cast<long long>(tid) * kScanItems;
+  unsigned flags;
+  const int count = survivor_flags(mask, start, Q, n_valid, &flags);
+  int incl = count;
+#pragma unroll
+  for (int off = 1; off < kWarp; off <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += y;
+  }
+  if (lane == kWarp - 1) warp_base[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int total = lane < kScanWarps ? warp_base[lane] : 0;
+    int s = total;
 #pragma unroll
     for (int off = 1; off < kWarp; off <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, incl, off);
-      if (lane >= off) incl += y;
+      const int y = __shfl_up_sync(0xffffffffu, s, off);
+      if (lane >= off) s += y;
     }
-    if (lane == kWarp - 1) warp_base[warp] = incl;
-    __syncthreads();
-    if (warp == 0) {
-      const int total = warp_base[lane];
-      int s = total;
-#pragma unroll
-      for (int off = 1; off < kWarp; off <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, s, off);
-        if (lane >= off) s += y;
-      }
-      warp_base[lane] = s - total;
-      if (lane == kWarp - 1) tile_total = s;
-    }
-    __syncthreads();
-    int pos = carry + warp_base[warp] + incl - count;
-#pragma unroll
-    for (int i = 0; i < kScanItems; ++i) {
-      const long long q = start + i;
-      if (q < Q) {
-        const int m = (flags >> i) & 1u;
-        mask[q] = m;
-        if (m) sel[pos++] = static_cast<int>(q);
-      }
-    }
-    carry += tile_total;
-    __syncthreads();  // warp_base and tile_total are rewritten next tile
+    if (lane < kScanWarps) warp_base[lane] = s - total;
+    if (lane == kWarp - 1 && blockIdx.x == gridDim.x - 1) *n_surv = tile_offset + s;
   }
-  if (tid == 0) *n_surv = carry;
+  __syncthreads();
+  int pos = tile_offset + warp_base[warp] + incl - count;
+#pragma unroll
+  for (int i = 0; i < kScanItems; ++i) {
+    const long long q = start + i;
+    if (q < Q) {
+      const int m = (flags >> i) & 1u;
+      mask[q] = m;
+      if (m) sel[pos++] = static_cast<int>(q);
+    }
+  }
 }
 
 template <int MODE>
@@ -212,8 +254,11 @@ extern "C" {
 int fused_pairs_launch(const void* frontier, const void* left,
                        const void* right, const void* sup_left, void* inter,
                        void* sup, void* mask, long long Q, int W, int mode,
-                       int min_sup, void* stream) {
+                       int min_sup, int device, void* stream) {
   if (Q <= 0) return cudaSuccess;
+  if (mode < 0 || mode > 2) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
   const auto* f = static_cast<const unsigned*>(frontier);
   const auto* l = static_cast<const int*>(left);
   const auto* r = static_cast<const int*>(right);
@@ -230,29 +275,43 @@ int fused_pairs_launch(const void* frontier, const void* left,
     case 1:
       fused_pairs_kernel<1><<<grid, kThreads, 0, st>>>(f, l, r, s, x, o_sup, o_mask, Q, W, min_sup);
       break;
-    case 2:
+    default:
       fused_pairs_kernel<2><<<grid, kThreads, 0, st>>>(f, l, r, s, x, o_sup, o_mask, Q, W, min_sup);
       break;
-    default:
-      return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
 
+// Ints of scratch survivor_compact_launch needs: Q survivor slots plus one
+// count per scan tile.
+long long survivor_scratch_ints(long long Q) {
+  return Q + (Q + kScanTile - 1) / kScanTile;
+}
+
 // mask (from fused_pairs_launch) is rewritten in place to the valid-masked
-// survivor flags; sel needs Q ints of scratch; n_surv one int; out (Q, W).
+// survivor flags; scratch holds survivor_scratch_ints(Q) ints; n_surv one
+// int; out (Q, W).  Returns a cudaError_t.
 int survivor_compact_launch(const void* frontier, const void* left,
-                            const void* right, void* mask, void* sel,
+                            const void* right, void* mask, void* scratch,
                             void* n_surv, void* out, long long Q, int W,
-                            long long n_valid, int mode, void* stream) {
+                            long long n_valid, int mode, int device,
+                            void* stream) {
   if (Q <= 0) return cudaSuccess;
   if (mode < 0 || mode > 2) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
   const auto st = static_cast<cudaStream_t>(stream);
-  auto* sel_i = static_cast<int*>(sel);
+  auto* m = static_cast<int*>(mask);
+  auto* sel = static_cast<int*>(scratch);
+  auto* tile_count = sel + Q;
   auto* n_i = static_cast<int*>(n_surv);
-  survivor_scan_kernel<<<1, kScanThreads, 0, st>>>(static_cast<int*>(mask), Q,
-                                                   n_valid, sel_i, n_i);
-  const cudaError_t err = cudaGetLastError();
+  const auto tiles = static_cast<unsigned>((Q + kScanTile - 1) / kScanTile);
+  survivor_count_kernel<<<tiles, kScanThreads, 0, st>>>(m, Q, n_valid, tile_count);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  survivor_scatter_kernel<<<tiles, kScanThreads, 0, st>>>(m, Q, n_valid, tile_count,
+                                                          sel, n_i);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const auto* f = static_cast<const unsigned*>(frontier);
   const auto* l = static_cast<const int*>(left);
@@ -261,13 +320,13 @@ int survivor_compact_launch(const void* frontier, const void* left,
   const unsigned grid = pair_blocks(Q);
   switch (mode) {
     case 0:
-      gather_survivors_kernel<0><<<grid, kThreads, 0, st>>>(f, l, r, sel_i, n_i, o, Q, W);
+      gather_survivors_kernel<0><<<grid, kThreads, 0, st>>>(f, l, r, sel, n_i, o, Q, W);
       break;
     case 1:
-      gather_survivors_kernel<1><<<grid, kThreads, 0, st>>>(f, l, r, sel_i, n_i, o, Q, W);
+      gather_survivors_kernel<1><<<grid, kThreads, 0, st>>>(f, l, r, sel, n_i, o, Q, W);
       break;
     default:
-      gather_survivors_kernel<2><<<grid, kThreads, 0, st>>>(f, l, r, sel_i, n_i, o, Q, W);
+      gather_survivors_kernel<2><<<grid, kThreads, 0, st>>>(f, l, r, sel, n_i, o, Q, W);
       break;
   }
   return cudaGetLastError();

@@ -10,7 +10,8 @@ Launch counters, plain integers on the wrappers:
 ``fused_intersect_pairs.launches``          launches of ``fused_pairs_kernel``,
                                             from either wrapper below
 ``fused_intersect_compact_pairs.launches``  launches of the survivor
-                                            compaction (scan + gather)
+                                            compaction (two-pass scan +
+                                            gather)
 
 The caller guarantees ``0 <= left, right < P``: checking that here would
 copy the indices back to the host and stall the stream, so the engine checks
@@ -41,11 +42,13 @@ def _lib() -> ctypes.CDLL:
     if not _BOUND:
         lib.fused_pairs_launch.argtypes = [
             _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, _P]
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
         lib.fused_pairs_launch.restype = ctypes.c_int
+        lib.survivor_scratch_ints.argtypes = [ctypes.c_longlong]
+        lib.survivor_scratch_ints.restype = ctypes.c_longlong
         lib.survivor_compact_launch.argtypes = [
             _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_int, _P]
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P]
         lib.survivor_compact_launch.restype = ctypes.c_int
         _BOUND = True
     return lib
@@ -76,11 +79,13 @@ def _ptr(t):
 
 def _launch_pairs(bitmaps, left, right, sup_left, inter, sup, mask, min_sup, mode):
     q, w = left.shape[0], bitmaps.shape[1]
+    if not -2**31 <= int(min_sup) < 2**31:
+        raise ValueError(f"min_sup {min_sup} does not fit the kernel's int32")
     stream = torch.cuda.current_stream(bitmaps.device).cuda_stream
     code = _lib().fused_pairs_launch(
         _ptr(bitmaps), _ptr(left), _ptr(right), _ptr(sup_left), _ptr(inter),
         _ptr(sup), _ptr(mask), q, w, int(mode), int(min_sup),
-        ctypes.c_void_p(stream))
+        bitmaps.device.index, ctypes.c_void_p(stream))
     _build.check(code, "fused_pairs_kernel")
     fused_intersect_pairs.launches += 1
 
@@ -128,14 +133,16 @@ def fused_intersect_compact_pairs(bitmaps: torch.Tensor, left: torch.Tensor,
     mask = torch.empty(q, dtype=torch.int32, device=dev)
     if q == 0:
         return out, sup, mask, torch.zeros((), dtype=torch.int32, device=dev)
-    sel = torch.empty(q, dtype=torch.int32, device=dev)
+    lib = _lib()
+    scratch = torch.empty(lib.survivor_scratch_ints(q), dtype=torch.int32,
+                          device=dev)
     n_surv = torch.empty((), dtype=torch.int32, device=dev)
     _launch_pairs(bitmaps, left, right, sup_left, None, sup, mask, min_sup, mode)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    code = _lib().survivor_compact_launch(
-        _ptr(bitmaps), _ptr(left), _ptr(right), _ptr(mask), _ptr(sel),
+    code = lib.survivor_compact_launch(
+        _ptr(bitmaps), _ptr(left), _ptr(right), _ptr(mask), _ptr(scratch),
         _ptr(n_surv), _ptr(out), q, w, int(n_valid), int(mode),
-        ctypes.c_void_p(stream))
+        dev.index, ctypes.c_void_p(stream))
     _build.check(code, "survivor compaction")
     fused_intersect_compact_pairs.launches += 1
     return out, sup, mask, n_surv

@@ -19,7 +19,7 @@ def _lib() -> ctypes.CDLL:
     if not _BOUND:
         lib.trimatrix_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                          ctypes.c_int, ctypes.c_int,
-                                         ctypes.c_void_p]
+                                         ctypes.c_int, ctypes.c_void_p]
         lib.trimatrix_launch.restype = ctypes.c_int
         _BOUND = True
     return lib
@@ -36,15 +36,15 @@ def trimatrix(bitmaps: torch.Tensor) -> torch.Tensor:
                          f"{tuple(bitmaps.shape)} {bitmaps.dtype}")
     bitmaps = bitmaps.contiguous()
     n, w = bitmaps.shape
-    if n >= 2**31 // 64 or n * max(w, 1) >= 2**31:
-        raise ValueError(f"({n}, {w}) is too large for the trimatrix kernel")
+    if n > 65535 * 64:
+        raise ValueError(f"N={n} exceeds the kernel's grid (65535 tiles of 64)")
     out = torch.empty((n, n), dtype=torch.int32, device=bitmaps.device)
     if n == 0:
         return out
     stream = torch.cuda.current_stream(bitmaps.device).cuda_stream
     code = _lib().trimatrix_launch(ctypes.c_void_p(bitmaps.data_ptr()),
                                    ctypes.c_void_p(out.data_ptr()), n, w,
-                                   ctypes.c_void_p(stream))
+                                   bitmaps.device.index, ctypes.c_void_p(stream))
     _build.check(code, "trimatrix_kernel")
     trimatrix.launches += 1
     return out

@@ -134,3 +134,11 @@ def test_generators_draw_identical_transactions(name):
     want, spec_j = jsyn.generate(name, scale=0.005, seed=3)
     assert got == want
     assert dataclasses.asdict(spec_t) == dataclasses.asdict(spec_j)
+
+
+def test_accumulator_rejects_out_of_range_items():
+    """The v3 accumulator shares the validated scatter of pack_transactions
+    (the reference's per-transaction loop wrapped negative ids)."""
+    for bad in ([[0, 1], [2, 10]], [[0, -1]]):
+        with pytest.raises(ValueError, match="has item outside"):
+            t_build_acc(bad, 10, 1)
