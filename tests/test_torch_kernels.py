@@ -1,10 +1,8 @@
-"""The port's kernel modules against the reference package's kernels.
-
-On the CPU: the plain torch versions (``ref.py``, reached through ``ops``
-for CPU tensors) equal the Pallas kernels run in interpret mode and their
-jnp oracles, bit for bit; and the CPU path never touches a launch counter.
-With a card: the CUDA kernels equal the plain versions on the card (these
-tests skip on a host without one)."""
+"""The port's kernel modules against the reference package's kernels: the
+plain torch versions (``ref.py``, reached through ``ops`` for CPU tensors)
+equal the Pallas kernels run in interpret mode and their jnp oracles, bit
+for bit; and the CPU path never touches a launch counter.  The CUDA kernels
+against the plain versions on the card are in ``test_torch_cuda.py``."""
 import numpy as np
 import pytest
 import torch
@@ -152,35 +150,3 @@ def test_cuda_kernel_wrappers_refuse_cpu_tensors():
         fused_intersect_pairs(*args, 3, mode=0)
     with pytest.raises(ValueError, match="CUDA"):
         trimatrix(args[0])
-
-
-# ---------------------------------------------------------------------------
-# on the card: kernel == plain version (skips on a host without one)
-# ---------------------------------------------------------------------------
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels are CUDA C++ only")
-    return "cuda"
-
-
-@pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("p,w,q,nv", PAIR_SHAPES + [(300, 3125, 700, 650)])
-def test_cuda_fused_intersect_matches_ref(cuda, p, w, q, nv, mode):
-    words, left, right, sup_left = _pair_case(p, w, q, seed=p + q + mode)
-    ms = _median_min_sup(words, left, right)
-    args = _torch_args(words, left, right, sup_left, cuda)
-    for g, e in zip(fused_intersect(*args, ms, mode=mode),
-                    fused_intersect_ref(*args, ms, mode=mode)):
-        assert torch.equal(g, e)
-    for g, e in zip(fused_intersect_compact(*args, ms, nv, mode=mode),
-                    fused_intersect_compact_ref(*args, ms, nv, mode=mode)):
-        assert torch.equal(g.reshape(-1), e.reshape(-1).to(g.dtype))
-
-
-@pytest.mark.parametrize("n,w", [(1, 1), (33, 7), (187, 3125), (130, 64)])
-def test_cuda_trimatrix_matches_ref(cuda, n, w):
-    words = np.random.default_rng(n).integers(0, 2**32, (n, w), dtype=np.uint32)
-    t = words_from_numpy(words, cuda)
-    assert torch.equal(cooccurrence(t), trimatrix_ref(t))
