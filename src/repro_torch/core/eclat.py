@@ -93,7 +93,6 @@ class EclatConfig:
     tri_matrix_max_items: int = 4096    # auto threshold (paper: item-id range)
     use_diffsets: bool = False          # v6 only (dEclat); other variants reject it
     backend: str = "fused"              # fused (CUDA kernels) | ref (plain torch)
-    compact: bool = True                # survivor compaction inside the intersection call
     mode: str = "all"                   # workload: all | closed | maximal (DESIGN.md §9)
     max_k: Optional[int] = None         # deepest itemset length to mine (>= 1); None = unbounded
     bucket_min: int = 128               # pair-buffer ladder floor
@@ -273,8 +272,7 @@ def mine(
     est = pair_work(sizes1 + 1, w)  # +1: member count of class r is n1-1-r
     eff_p = config.p if spec["partitioner"] in ("hash", "reverse_hash", "greedy") else max(n_classes, 1)
     table = assign_partitions(n_classes, spec["partitioner"], eff_p, work=est)
-    execu = eng.make_engine(config.backend, bucket_min=config.bucket_min,
-                            compact=config.compact)
+    execu = eng.make_engine(config.backend, bucket_min=config.bucket_min)
     stats["backend"] = execu.name
     stats["backend_requested"] = config.backend
 

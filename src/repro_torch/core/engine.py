@@ -34,10 +34,8 @@ import numpy as np
 import torch
 
 from ..kernels.fused_intersect import (MODE_DIFFSET, MODE_TID_TO_DIFF,
-                                       MODE_TIDSET, fused_intersect,
-                                       fused_intersect_compact,
-                                       fused_intersect_compact_ref,
-                                       fused_intersect_ref)
+                                       MODE_TIDSET, fused_intersect_compact,
+                                       fused_intersect_compact_ref)
 
 __all__ = [
     "MODE_TIDSET", "MODE_TID_TO_DIFF", "MODE_DIFFSET",
@@ -103,31 +101,24 @@ class PairBuffers:
 class Engine:
     """Backend interface + shared accounting.
 
-    ``compact``      fold the survivor compaction into the intersection call
-                     (on the card: no host round trip before compaction)
-                     instead of reading the mask first and gathering the
-                     survivors in a second step.
-    ``compact_min``  floor of the survivor ladder, separate from the pair
-                     floor because survivor counts collapse at deep levels.
+    The survivor compaction runs inside the intersection call, so on the
+    card nothing returns to the host before it.  ``compact_min`` is the
+    floor of the survivor ladder, separate from the pair floor because
+    survivor counts collapse at deep levels.
     """
 
     name = "abstract"
 
-    def __init__(self, bucket_min: int = 128, *, compact: bool = True,
+    def __init__(self, bucket_min: int = 128, *,
                  compact_min: int | None = None):
         self.buffers = PairBuffers(bucket_min)
-        self.compact = bool(compact)
         self.compact_min = (min(self.buffers.floor, 128)
                             if compact_min is None else max(int(compact_min), 1))
         self.n_intersections = 0
         self.n_padded = 0
         self.level_padding: List[Tuple[int, int]] = []
 
-    # the two device functions a backend supplies
-    @staticmethod
-    def _intersect(bitmaps, left, right, sup_left, min_sup, *, mode):
-        raise NotImplementedError
-
+    # the device function a backend supplies
     @staticmethod
     def _intersect_compact(bitmaps, left, right, sup_left, min_sup, n_valid,
                            *, mode):
@@ -154,23 +145,13 @@ class Engine:
         qb, block = self.buffers.fill(left, right, sup_left)
         self._record_padding(q, qb)
         lrs = torch.from_numpy(block).to(bitmaps.device)
-        l, r, s = lrs[0], lrs[1], lrs[2]
-        if self.compact:
-            out, sup, mask_dev, _ = self._intersect_compact(
-                bitmaps, l, r, s, int(min_sup), q, mode=mode)
-            host = torch.stack((mask_dev[:q], sup[:q])).cpu().numpy()
-            mask = host[0].astype(bool)
-            return LevelResult(mask=mask,
-                               supports=host[1][mask].astype(np.int64),
-                               bitmaps=self._slice_survivors(out, int(mask.sum())))
-        inter, sup, _ = self._intersect(bitmaps, l, r, s, int(min_sup),
-                                        mode=mode)
-        sup_np = sup[:q].cpu().numpy()
-        mask = sup_np >= min_sup
-        sel = np.nonzero(mask)[0]
+        out, sup, mask_dev, _ = self._intersect_compact(
+            bitmaps, lrs[0], lrs[1], lrs[2], int(min_sup), q, mode=mode)
+        host = torch.stack((mask_dev[:q], sup[:q])).cpu().numpy()
+        mask = host[0].astype(bool)
         return LevelResult(mask=mask,
-                           supports=sup_np[sel].astype(np.int64),
-                           bitmaps=self._compact(inter, sel))
+                           supports=host[1][mask].astype(np.int64),
+                           bitmaps=self._slice_survivors(out, int(mask.sum())))
 
     def _empty(self, bitmaps: torch.Tensor) -> LevelResult:
         return LevelResult(mask=np.zeros(0, bool),
@@ -179,18 +160,9 @@ class Engine:
                                                dtype=torch.int32,
                                                device=bitmaps.device))
 
-    def _compact(self, block: torch.Tensor, sel: np.ndarray) -> torch.Tensor:
-        """Gather survivor rows ``sel`` out of ``block``, padded to a ladder
-        rung (pad slots gather row 0)."""
-        sb = bucket_size(max(int(sel.shape[0]), 1), self.compact_min)
-        idx = np.zeros(sb, np.int64)
-        idx[:sel.shape[0]] = sel
-        return block.index_select(0, torch.from_numpy(idx).to(block.device))
-
     def _slice_survivors(self, compact: torch.Tensor, n_surv: int) -> torch.Tensor:
         """Rung-slice a compacted block: rows ``[:n_surv]`` are the
-        survivors and the padding beyond them duplicates row 0, the same
-        convention :meth:`_compact` produces."""
+        survivors and the padding beyond them duplicates row 0."""
         sb = bucket_size(max(int(n_surv), 1), self.compact_min)
         return compact[:sb]
 
@@ -218,7 +190,6 @@ class RefEngine(Engine):
     """Plain torch executor: the semantics every backend matches."""
 
     name = "ref"
-    _intersect = staticmethod(fused_intersect_ref)
     _intersect_compact = staticmethod(fused_intersect_compact_ref)
 
 
@@ -226,7 +197,6 @@ class FusedEngine(Engine):
     """The CUDA kernels for a frontier on the card (plain torch on the host)."""
 
     name = "fused"
-    _intersect = staticmethod(fused_intersect)
     _intersect_compact = staticmethod(fused_intersect_compact)
 
 
@@ -237,8 +207,7 @@ def available_backends() -> List[str]:
     return sorted(BACKENDS)
 
 
-def make_engine(backend: str, *, bucket_min: int = 128,
-                compact: bool = True) -> Engine:
+def make_engine(backend: str, *, bucket_min: int = 128) -> Engine:
     """Construct a single-device backend by name."""
     if backend in UNPORTED_BACKENDS:
         raise NotImplementedError(
@@ -248,4 +217,4 @@ def make_engine(backend: str, *, bucket_min: int = 128,
     if cls is None:
         raise ValueError(f"unknown engine backend {backend!r}; "
                          f"available: {available_backends()}")
-    return cls(bucket_min, compact=compact)
+    return cls(bucket_min)

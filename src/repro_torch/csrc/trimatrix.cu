@@ -9,25 +9,30 @@
 // trimatrix_kernel <- _kernel, launched by trimatrix().
 //
 // Bound on the H100: operations.  The input is N*W*4 bytes and the output
-// N*N*4, but the work is one AND and one popcount per (i, j, w): at
-// N = 4096, W = 3125 that is 2.6e10 popcounts for the upper triangle against
-// 118 MB of traffic, and the SM's integer popcount unit (16 results per
-// clock per SM on compute capability 9.0, a quarter of the AND/ADD rate) is
-// the narrowest pipe.
+// N*N*4, but the function holds N(N+1)/2 * W * 32 bit products (one per
+// distinct (i, j) entry, word and bit): at N = 4096, W = 3125 that is
+// 8.4e11 products against 118 MB of traffic.  The fastest route the card has
+// for them is the dense int8 tensor-core product of the unpacked 0/1
+// indicator (1,979 TOP/s on the data sheet, two per product): about 0.85 ms
+// at that shape.  This kernel takes the packed route instead, one AND and one
+// popcount per (i, j, w), and its own ceiling is the SM's integer popcount
+// pipe (16 results per clock per SM on compute capability 9.0, a quarter of
+// the AND/ADD rate), some 7x slower than the tensor-core bound: the packed
+// words keep the input 8x smaller than the indicator and need no unpack, and
+// a tensor-core version is later work.
 //
 // Design: a grid of 64 x 64 output tiles; blocks below the diagonal return
 // at once and each block above it also writes its transpose, so every
-// distinct entry is computed once.  When the tiles on or above the diagonal
-// are too few to fill the card (N = 187 gives 6 of them for 132 SMs), the
-// W axis is split over the grid's z dimension as well: each block sums its
-// own word range and adds it into the zeroed C with integer atomics, whose
-// sum does not depend on their order.  A block stages 16 words of its 64
-// rows and of its 64 columns in shared memory per step (row-major loads of
-// 64 contiguous bytes per row), then each of its 256 threads accumulates a
+// distinct entry is computed once.  A block stages 16 words of its 64 rows
+// and of its 64 columns in shared memory per step (row-major loads of 64
+// contiguous bytes per row), then each of its 256 threads accumulates a
 // 4 x 4 block of C in registers: per word, 8 shared-memory loads feed 16
 // AND + popcount + add, so the popcount pipe, not shared memory, sets the
 // pace.  The TPU kernel's sequential W grid axis with a VMEM accumulator
-// becomes this loop over W inside the block.
+// becomes this loop over W inside the block.  At small N the grid is short
+// of the card (N = 187 gives 6 tiles on or above the diagonal for 132 SMs):
+// the kernel is simple and right first, and Phase 2 is a small share of the
+// mine's wall time.
 
 #include <cuda_runtime.h>
 
@@ -39,11 +44,9 @@ constexpr int kSide = 16;                  // threads per tile edge
 constexpr int kThreads = kSide * kSide;    // 256
 constexpr int kPer = kTile / kSide;        // 4 x 4 outputs per thread
 
-// Block (tj, ti, z) sums words [z * span, (z + 1) * span) of tile (ti, tj);
-// with accumulate set, it adds into C instead of storing.
 __global__ void __launch_bounds__(kThreads)
 trimatrix_kernel(const unsigned* __restrict__ B, int* __restrict__ C, int N,
-                 int W, int span, int accumulate) {
+                 int W) {
   const int ti = blockIdx.y;
   const int tj = blockIdx.x;
   if (tj < ti) return;  // mirrored from block (tj, ti)
@@ -59,9 +62,7 @@ trimatrix_kernel(const unsigned* __restrict__ B, int* __restrict__ C, int N,
 #pragma unroll
     for (int b = 0; b < kPer; ++b) acc[a][b] = 0;
 
-  const int w_begin = blockIdx.z * span;
-  const int w_end = min(W, w_begin + span);
-  for (int k0 = w_begin; k0 < w_end; k0 += kChunk) {
+  for (int k0 = 0; k0 < W; k0 += kChunk) {
 #pragma unroll
     for (int l = 0; l < (kTile * kChunk) / kThreads; ++l) {
       const int idx = threadIdx.x + l * kThreads;
@@ -70,8 +71,8 @@ trimatrix_kernel(const unsigned* __restrict__ B, int* __restrict__ C, int N,
       const int w = k0 + c;
       const int gi = i0 + r;
       const int gj = j0 + r;
-      As[c][r] = (gi < N && w < w_end) ? __ldg(B + static_cast<long long>(gi) * W + w) : 0u;
-      Bs[c][r] = (gj < N && w < w_end) ? __ldg(B + static_cast<long long>(gj) * W + w) : 0u;
+      As[c][r] = (gi < N && w < W) ? __ldg(B + static_cast<long long>(gi) * W + w) : 0u;
+      Bs[c][r] = (gj < N && w < W) ? __ldg(B + static_cast<long long>(gj) * W + w) : 0u;
     }
     __syncthreads();
 #pragma unroll
@@ -96,15 +97,8 @@ trimatrix_kernel(const unsigned* __restrict__ B, int* __restrict__ C, int N,
     for (int b = 0; b < kPer; ++b) {
       const int j = j0 + tx + b * kSide;
       if (i < N && j < N) {
-        int* ij = C + static_cast<long long>(i) * N + j;
-        int* ji = C + static_cast<long long>(j) * N + i;
-        if (accumulate) {
-          atomicAdd(ij, acc[a][b]);
-          if (ti != tj) atomicAdd(ji, acc[a][b]);
-        } else {
-          *ij = acc[a][b];
-          if (ti != tj) *ji = acc[a][b];
-        }
+        C[static_cast<long long>(i) * N + j] = acc[a][b];
+        if (ti != tj) C[static_cast<long long>(j) * N + i] = acc[a][b];
       }
     }
   }
@@ -122,26 +116,9 @@ int trimatrix_launch(const void* B, void* C, int N, int W, int device,
   if (tiles > 65535) return cudaErrorInvalidValue;  // grid.y limit
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  // enough (tile, word range) blocks for about two per SM
-  const long long active = static_cast<long long>(tiles) * (tiles + 1) / 2;
-  const int chunks = W > 0 ? (W + kChunk - 1) / kChunk : 1;
-  long long want = (2LL * sms + active - 1) / active;
-  if (want > chunks) want = chunks;
-  if (want > 65535) want = 65535;                   // grid.z limit
-  const int per_split = (chunks + static_cast<int>(want) - 1) / static_cast<int>(want);
-  const int splits = (chunks + per_split - 1) / per_split;
-  const auto st = static_cast<cudaStream_t>(stream);
-  if (splits > 1) {
-    err = cudaMemsetAsync(C, 0, static_cast<size_t>(N) * N * sizeof(int), st);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid(tiles, tiles, splits);
-  trimatrix_kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<const unsigned*>(B), static_cast<int*>(C), N, W,
-      per_split * kChunk, splits > 1 ? 1 : 0);
+  const dim3 grid(tiles, tiles);
+  trimatrix_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned*>(B), static_cast<int*>(C), N, W);
   return cudaGetLastError();
 }
 

@@ -8,7 +8,7 @@ the current stream and do not synchronise.
 Launch counters, plain integers on the wrappers:
 
 ``fused_intersect_pairs.launches``          launches of ``fused_pairs_kernel``,
-                                            from either wrapper below
+                                            from any wrapper below
 ``fused_intersect_compact_pairs.launches``  launches of the survivor
                                             compaction (two-pass scan +
                                             gather)
@@ -26,7 +26,8 @@ import torch
 from .. import _build
 
 __all__ = ["MODE_TIDSET", "MODE_TID_TO_DIFF", "MODE_DIFFSET",
-           "fused_intersect_pairs", "fused_intersect_compact_pairs"]
+           "fused_intersect_pairs", "fused_support_pairs",
+           "fused_intersect_compact_pairs"]
 
 MODE_TIDSET = 0
 MODE_TID_TO_DIFF = 1
@@ -113,6 +114,22 @@ def fused_intersect_pairs(bitmaps: torch.Tensor, left: torch.Tensor,
 fused_intersect_pairs.launches = 0
 
 
+def fused_support_pairs(bitmaps: torch.Tensor, left: torch.Tensor,
+                        right: torch.Tensor, sup_left: torch.Tensor,
+                        min_sup: int, *, mode: int):
+    """:func:`fused_intersect_pairs` without the ``(Q, W)`` store:
+    ``((Q,) int32 supports, (Q,) int32 mask)``.  The compacting path runs
+    this pass first."""
+    _check_args(bitmaps, left, right, sup_left, mode)
+    q = left.shape[0]
+    sup = torch.empty(q, dtype=torch.int32, device=bitmaps.device)
+    mask = torch.empty(q, dtype=torch.int32, device=bitmaps.device)
+    if q:
+        _launch_pairs(bitmaps, left, right, sup_left, None, sup, mask,
+                      min_sup, mode)
+    return sup, mask
+
+
 def fused_intersect_compact_pairs(bitmaps: torch.Tensor, left: torch.Tensor,
                                   right: torch.Tensor, sup_left: torch.Tensor,
                                   min_sup: int, n_valid: int, *, mode: int):
@@ -125,19 +142,17 @@ def fused_intersect_compact_pairs(bitmaps: torch.Tensor, left: torch.Tensor,
     intersection of pair 0, and the returned mask is the valid-masked one.
     No host synchronisation happens inside.
     """
-    _check_args(bitmaps, left, right, sup_left, mode)
+    sup, mask = fused_support_pairs(bitmaps, left, right, sup_left, min_sup,
+                                    mode=mode)
     q, w = left.shape[0], bitmaps.shape[1]
     dev = bitmaps.device
     out = torch.empty((q, w), dtype=torch.int32, device=dev)
-    sup = torch.empty(q, dtype=torch.int32, device=dev)
-    mask = torch.empty(q, dtype=torch.int32, device=dev)
     if q == 0:
         return out, sup, mask, torch.zeros((), dtype=torch.int32, device=dev)
     lib = _lib()
     scratch = torch.empty(lib.survivor_scratch_ints(q), dtype=torch.int32,
                           device=dev)
     n_surv = torch.empty((), dtype=torch.int32, device=dev)
-    _launch_pairs(bitmaps, left, right, sup_left, None, sup, mask, min_sup, mode)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.survivor_compact_launch(
         _ptr(bitmaps), _ptr(left), _ptr(right), _ptr(mask), _ptr(scratch),

@@ -35,3 +35,10 @@ def _seed_rngs():
     np.random.seed(0)
     random.seed(0)
     yield
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips with a reason on a host "
+                   "without one (run them on the card: "
+                   "PYTHONPATH=src python3 -m pytest -q -m cuda tests/test_torch_cuda.py)")

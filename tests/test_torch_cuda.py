@@ -17,8 +17,11 @@ from repro_torch.device import words_from_numpy
 from repro_torch.kernels.fused_intersect import (fused_intersect,
                                                  fused_intersect_compact,
                                                  fused_intersect_compact_ref,
-                                                 fused_intersect_ref)
+                                                 fused_intersect_ref,
+                                                 fused_support_pairs)
 from repro_torch.kernels.trimatrix import cooccurrence, trimatrix_ref
+
+pytestmark = pytest.mark.cuda
 
 MODES = [0, 1, 2]
 # (P, W, Q, n_valid): singleton, W not a multiple of 4, a padded tail, and
@@ -51,8 +54,10 @@ def _pair_args(p, w, q, seed, device):
 @pytest.mark.parametrize("p,w,q,nv", PAIR_SHAPES)
 def test_fused_intersect_matches_ref(cuda, p, w, q, nv, mode):
     args, ms = _pair_args(p, w, q, seed=p + q + mode, device=cuda)
-    for g, e in zip(fused_intersect(*args, ms, mode=mode),
-                    fused_intersect_ref(*args, ms, mode=mode)):
+    want = fused_intersect_ref(*args, ms, mode=mode)
+    for g, e in zip(fused_intersect(*args, ms, mode=mode), want):
+        assert torch.equal(g, e)
+    for g, e in zip(fused_support_pairs(*args, ms, mode=mode), want[1:]):
         assert torch.equal(g, e)
     for g, e in zip(fused_intersect_compact(*args, ms, nv, mode=mode),
                     fused_intersect_compact_ref(*args, ms, nv, mode=mode)):

@@ -47,16 +47,16 @@ def _assert_level_equal(got, want):
 
 
 @pytest.mark.parametrize("backend", ["fused", "ref"])
-@pytest.mark.parametrize("compact", [True, False])
+@pytest.mark.parametrize("bucket_min", [8, 32])
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("p,w,q", SHAPES)
 @pytest.mark.parametrize("survivors", ["median", "none", "all"])
-def test_level_result_matches_jnp_engine(backend, compact, mode, p, w, q,
+def test_level_result_matches_jnp_engine(backend, bucket_min, mode, p, w, q,
                                          survivors):
     bitmaps, left, right, sup_left = _case(p, w, q, seed=p * 31 + w + q + mode)
     ms = _min_sup(bitmaps, left, right, survivors)
-    t_eng = teng.make_engine(backend, bucket_min=8, compact=compact)
-    j_eng = jeng.make_engine("jnp", bucket_min=8, compact=compact)
+    t_eng = teng.make_engine(backend, bucket_min=bucket_min)
+    j_eng = jeng.make_engine("jnp", bucket_min=bucket_min)
     got = t_eng.expand(words_from_numpy(bitmaps, "cpu"), left, right, sup_left,
                        mode=mode, min_sup=ms)
     want = j_eng.expand(jnp.asarray(bitmaps), left, right, sup_left,

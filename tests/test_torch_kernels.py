@@ -142,11 +142,19 @@ def test_cpu_tensors_never_touch_launch_counters():
 
 
 def test_cuda_kernel_wrappers_refuse_cpu_tensors():
-    from repro_torch.kernels.fused_intersect import fused_intersect_pairs
+    from repro_torch.kernels.fused_intersect import (
+        fused_intersect_compact_pairs, fused_intersect_pairs,
+        fused_support_pairs)
     from repro_torch.kernels.trimatrix import trimatrix
+    tk.reset_launch_counts()
     words, left, right, sup_left = _pair_case(9, 5, 7, seed=0)
     args = _torch_args(words, left, right, sup_left)
     with pytest.raises(ValueError, match="CUDA"):
         fused_intersect_pairs(*args, 3, mode=0)
     with pytest.raises(ValueError, match="CUDA"):
+        fused_support_pairs(*args, 3, mode=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_intersect_compact_pairs(*args, 3, 5, mode=0)
+    with pytest.raises(ValueError, match="CUDA"):
         trimatrix(args[0])
+    assert not any(tk.launch_counts().values())
