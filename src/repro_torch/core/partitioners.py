@@ -27,6 +27,7 @@ __all__ = [
     "reverse_hash_partitioner",
     "greedy_partitioner",
     "assign_partitions",
+    "pack_items",
     "partition_stats",
     "PARTITIONERS",
 ]
@@ -100,6 +101,20 @@ def assign_partitions(
     fn = PARTITIONERS[partitioner]
     v = np.arange(n_classes, dtype=np.int64)
     return fn(v, p, work)
+
+
+def pack_items(work: np.ndarray, n_slots: int):
+    """Greedy-LPT pack ``len(work)`` items into ``n_slots`` balanced groups.
+
+    The one packing entry point the serving side shares
+    (``serving.engine.pack_requests``): items are placed heaviest-first on
+    the lightest slot and the balance of the assignment that will actually
+    run is reported.  Returns ``(assignment, stats)``.
+    """
+    work = np.asarray(work, dtype=np.float64)
+    assign = greedy_partitioner(np.arange(work.shape[0]), int(n_slots),
+                                work=work)
+    return assign, partition_stats(assign, work, int(n_slots))
 
 
 def partition_stats(assignment: np.ndarray, work: np.ndarray, p: int) -> dict:

@@ -5,21 +5,28 @@ fused_intersect : gather + AND/ANDNOT + popcount + min-support threshold,
                   hot loop behind ``core.engine``'s ``fused`` backend)
 trimatrix       : 2-itemset co-occurrence counts (the paper's Phase-2
                   triangular matrix, behind ``core.triangular``)
+flash_attention : online-softmax attention, causal / sliding window / GQA
+                  (every prefill layer of ``models.attention``)
+decode_attention: one-token grouped-query attention over the KV cache
+                  (every decode step of ``models.attention``)
 
 Each subpackage: ``<name>.py`` (ctypes binding of the CUDA source under
 ``csrc/``, with launch counters), ``ops.py`` (CUDA tensor -> kernel, CPU
 tensor -> reference) and ``ref.py`` (plain torch oracle).  The CUDA sources
 are built by :mod:`._build` at first use.
 """
-from . import fused_intersect, trimatrix
+from . import decode_attention, flash_attention, fused_intersect, trimatrix
 
-__all__ = ["fused_intersect", "trimatrix", "launch_counts", "reset_launch_counts"]
+__all__ = ["fused_intersect", "trimatrix", "flash_attention",
+           "decode_attention", "launch_counts", "reset_launch_counts"]
 
 
 def _counted():
     return {"fused_intersect": fused_intersect.fused_intersect_pairs,
             "fused_intersect_compact": fused_intersect.fused_intersect_compact_pairs,
-            "trimatrix": trimatrix.trimatrix}
+            "trimatrix": trimatrix.trimatrix,
+            "flash_attention": flash_attention.flash_attention,
+            "decode_attention": decode_attention.decode_attention}
 
 
 def launch_counts() -> dict:

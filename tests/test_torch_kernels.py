@@ -25,6 +25,8 @@ from repro_torch.kernels.fused_intersect import (fused_intersect,
                                                  fused_intersect_compact_ref,
                                                  fused_intersect_ref)
 from repro_torch.kernels.trimatrix import cooccurrence, trimatrix_ref
+from repro_torch.kernels.decode_attention import grouped_decode_attention
+from repro_torch.kernels.flash_attention import multi_head_attention
 
 MODES = [0, 1, 2]
 # (P, W, Q, n_valid): singleton, W not a multiple of 128 (two interpret-mode
@@ -137,8 +139,14 @@ def test_cpu_tensors_never_touch_launch_counters():
     fused_intersect(*args, 3, mode=0)
     fused_intersect_compact(*args, 3, 5, mode=1)
     cooccurrence(args[0])
+    q = torch.zeros((1, 4, 8, 16))
+    multi_head_attention(q, q[:, :2], q[:, :2])
+    grouped_decode_attention(q[:, :2, :2], q.transpose(1, 2)[:, :, :2],
+                             q.transpose(1, 2)[:, :, :2],
+                             torch.tensor([3], dtype=torch.int32))
     assert tk.launch_counts() == {"fused_intersect": 0,
-                                  "fused_intersect_compact": 0, "trimatrix": 0}
+                                  "fused_intersect_compact": 0, "trimatrix": 0,
+                                  "flash_attention": 0, "decode_attention": 0}
 
 
 def test_cuda_kernel_wrappers_refuse_cpu_tensors():
