@@ -10,6 +10,12 @@ paths end to end:
 
 * the batch miner ``mine()`` on the paper's T10I4D100K and chess datasets
   at full scale, against the reference package's checksums;
+* the same mines on meshes of ranks through ``torch.distributed``: the
+  ``tidsharded`` backend on one NCCL rank in this process, then
+  ``tidsharded`` 1x4, ``sharded`` 4, ``grid`` 2x2 and a v3 mine through the
+  mesh accumulator on 4 gloo ranks sharing the card, each rank held to the
+  same checksums, with the partial-popcount kernel (K1 for ``sharded``)
+  launched once per expansion and the collectives per expansion checked;
 * LM serving of gemma3-4b at full width and depth (bf16, random weights
   from a seeded generator): ``ServingEngine.serve`` of 8 requests, twice,
   with the flash- and decode-attention kernels' launch counts and
@@ -46,6 +52,17 @@ E2E_RUNS = [
     ("chess", 0.7, "v6", True, "fc427bbc1d53e5f2"),
 ]
 
+# K3 shapes (P, Ws, Q) of the word-sharded mines at 4 word shards: chess
+# level 5 (W = 100) and T10I4D100K level 3 (W = 3,125); these are timed
+PARTIAL_SHAPES = [(60038, 25, 393216), (852, 782, 4096)]
+# the same levels at the other slice widths the mesh mines launch K3 with:
+# 1 word shard (the NCCL rank holds the whole rows) and 2 (grid 2x2)
+PARTIAL_CHECKED = PARTIAL_SHAPES + [(60038, 100, 393216), (852, 3125, 4096),
+                                    (60038, 50, 393216), (852, 1563, 4096)]
+# K5 shapes (M, W): the row pairs of T10I4D100K level 3 and of chess level
+# 5, pre-gathered (no mining path calls K5)
+PS_SHAPES = [(4096, 3125), (393216, 100)]
+
 # Phase-2 shapes (N, W) that are checked: T10I4D100K, 1000 items, the
 # tri-matrix item cap, and two small edge cases
 TRI_SHAPES = [(187, 3125), (1000, 3125), (4096, 3125), (1, 1), (33, 7)]
@@ -61,6 +78,8 @@ BF16_TENSOR_FLOPS = 9.89e14       # dense bf16, two per multiply-add
 # global layer's prefill and its last decode step)
 REPORT_SHAPE = {"fused_intersect": "P=60038 W=100 Q=393216",
                 "fused_intersect_compact": "P=60038 W=100 Q=393216",
+                "fused_intersect_partial": "P=60038 Ws=25 Q=393216",
+                "popcount_support": "M=4096 W=3125",
                 "trimatrix": "N=187 W=3125",
                 "flash_attention": "B=2 H=8 Hkv=4 S=2048 D=256 bf16 causal window=0",
                 "decode_attention": "B=2 KV=4 G=2 D=256 S=2080 len=2079 bf16 window=0"}
@@ -68,6 +87,9 @@ MINING_KERNELS = ("fused_intersect", "fused_intersect_compact", "trimatrix")
 
 # largest |kernel - plain| seen by the checks, per kernel
 MAX_ABS_ERR = {name: 0 for name in REPORT_SHAPE}
+
+# the generated datasets, by name: (transactions, spec)
+DATA = {}
 
 # attention kernels against their plain versions, which compute in float32
 # and are run in float32 on the kernel's inputs.  float32 outputs: the sums
@@ -208,15 +230,14 @@ def run_end_to_end():
     from repro_torch.core import EclatConfig, mine, support_checksum
     from repro_torch.data import generate
 
-    data = {}
     launches = {name: 0 for name in MINING_KERNELS}
     for name, min_sup, variant, diffsets, expect in E2E_RUNS:
-        if name not in data:
+        if name not in DATA:
             t0 = time.perf_counter()
-            data[name] = generate(name, scale=1.0, seed=0)
+            DATA[name] = generate(name, scale=1.0, seed=0)
             print(f"e2e generate {name} scale=1.0 seed=0: "
-                  f"{len(data[name][0])} txns in {time.perf_counter() - t0:.2f}s (host)")
-        txns, spec = data[name]
+                  f"{len(DATA[name][0])} txns in {time.perf_counter() - t0:.2f}s (host)")
+        txns, spec = DATA[name]
         sums = {}
         for backend in ("fused", "ref"):
             cfg = EclatConfig(min_sup=min_sup, variant=variant,
@@ -253,6 +274,207 @@ def run_end_to_end():
     return launches
 
 
+def check_partial_kernel():
+    """K3 against its plain version, exact: the shapes the word-sharded
+    mines give it at 1, 2 and 4 word shards, a frontier whose W is no multiple of the shard count cut
+    into its slices, Q = 0 and Q = 1; every mode, with and without the
+    (Q, Ws) store.  Then the survivor compaction from a mask computed
+    outside (the word-sharded backends' path) against its plain version."""
+    import torch
+    from repro_torch.kernels.fused_intersect import (
+        compact_survivors, compact_survivors_ref, fused_intersect_partial,
+        fused_intersect_partial_ref)
+    from repro_torch.launch.kernel_timing import pair_inputs
+
+    def check(label, bm, l, r):
+        pops = {}
+        for mode in (0, 1, 2):
+            want_inter, want_pop = fused_intersect_partial_ref(bm, l, r, mode=mode)
+            pops[mode] = want_pop
+            inter, pop = fused_intersect_partial(bm, l, r, mode=mode)
+            none, pop2 = fused_intersect_partial(bm, l, r, mode=mode, store=False)
+            torch.cuda.synchronize()
+            require(none is None, f"{label}: store=False returned intersections")
+            compare("fused_intersect_partial", inter, want_inter,
+                    f"fused_intersect_partial {label} mode {mode}: inter")
+            compare("fused_intersect_partial", pop, want_pop,
+                    f"fused_intersect_partial {label} mode {mode}: pop")
+            compare("fused_intersect_partial", pop2, want_pop,
+                    f"fused_intersect_partial without store {label} mode {mode}: pop")
+        return pops
+
+    for p, ws, q in PARTIAL_CHECKED:
+        bm, l, r, _, _ = pair_inputs(p, ws, q, seed=p + ws + q)
+        check(f"P={p} Ws={ws} Q={q}", bm, l, r)
+        # the compaction after the reduce: threshold at the median count
+        _, pop = fused_intersect_partial_ref(bm, l, r, mode=0)
+        mask = (pop >= pop.float().median()).to(torch.int32)
+        nv = q - q // 10
+        got = compact_survivors(bm, l, r, mask.clone(), nv, mode=1)
+        want = compact_survivors_ref(bm, l, r, mask.clone(), nv, mode=1)
+        torch.cuda.synchronize()
+        for g, e, what in zip(got, want, ("compact", "mask", "n_surv")):
+            compare("fused_intersect_compact", g, e,
+                    f"compact_survivors P={p} Ws={ws} Q={q}: {what}")
+        print(f"check fused_intersect_partial P={p} Ws={ws} Q={q} modes 0-2, "
+              f"with and without store: equal to ref (exact); compact_survivors "
+              f"from the reduced mask: equal to ref, {int(got[2])} survivors")
+    # W = 101 over 4 shards: slices of 26 words, the last ending in 3 pad words
+    p, w, q, n = 300, 101, 5000, 4
+    full, l, r, _, _ = pair_inputs(p, w, q, seed=7)
+    ws = -(-w // n)
+    padded = torch.nn.functional.pad(full, (0, ws * n - w))
+    slices = [check(f"W={w} slice {i}/{n} (Ws={ws})",
+                    padded[:, i * ws:(i + 1) * ws].contiguous(), l, r)
+              for i in range(n)]
+    for mode in (0, 1, 2):
+        _, whole = fused_intersect_partial_ref(full, l, r, mode=mode)
+        require(torch.equal(sum(s[mode] for s in slices), whole),
+                f"W={w}: slice counts do not sum to the whole rows' (mode {mode})")
+    print(f"check fused_intersect_partial W={w} cut into {n} slices of {ws} "
+          f"words: every slice equal to ref, slice counts sum to the whole rows'")
+    for q in (0, 1):
+        bm, l, r, _, _ = pair_inputs(40, 25, q, seed=q)
+        check(f"Q={q}", bm, l, r)
+        print(f"check fused_intersect_partial Q={q}: equal to ref (exact)")
+
+
+def check_popcount_support():
+    import numpy as np
+    import torch
+    from repro_torch.device import words_from_numpy
+    from repro_torch.kernels.popcount_support import (intersect_support,
+                                                      popcount_support_ref)
+    for m, w in PS_SHAPES + [(1, 1), (0, 5), (7, 33), (1000, 101)]:
+        rng = np.random.default_rng(m + w)
+        a = words_from_numpy(rng.integers(0, 2**32, (m, w), dtype=np.uint32), "cuda")
+        b = words_from_numpy(rng.integers(0, 2**32, (m, w), dtype=np.uint32), "cuda")
+        got = intersect_support(a, b)
+        want = popcount_support_ref(a, b)
+        torch.cuda.synchronize()
+        for g, e, what in zip(got, want, ("inter", "support")):
+            compare("popcount_support", g, e, f"popcount_support M={m} W={w}: {what}")
+        print(f"check popcount_support M={m} W={w}: equal to ref (exact)")
+
+
+def _mesh_jobs(runs, data):
+    """mine jobs of the E2E datasets under each (label, backend, shard,
+    grid) of ``runs``."""
+    jobs = []
+    for label, backend, shard, grid in runs:
+        for name, min_sup, variant, diffsets, expect in E2E_RUNS:
+            txns, spec = data[name]
+            jobs.append(dict(kind="mine", txns=txns, n_items=spec.n_items,
+                             grid=grid, label=label, expect=expect,
+                             run=f"{name} min_sup={min_sup} {variant}"
+                                 f"{' diffsets' if diffsets else ''}",
+                             config=dict(min_sup=min_sup, variant=variant,
+                                         use_diffsets=diffsets,
+                                         backend=backend, shard=shard)))
+    return jobs
+
+
+def _check_mesh_run(job, per_rank, n_data, topology):
+    """Every rank's result of one mesh mine: the pinned checksum, K3 (K1
+    for sharded) once per expand, this rank's frontier slice, the
+    collectives per expand.  Prints one line per rank."""
+    import math
+    what = f"mesh mine {job['run']} {job['label']} ({topology})"
+    for rank, res in enumerate(per_rank):
+        require("error" not in res, f"{what}: rank {rank} refused: {res.get('error')}")
+        st = res["stats"]
+        backend = st["backend"]
+        n_exp = res["n_expands"]
+        lev = st["collectives"]["levels"]
+        per_exp = {axis: {op: {k: v / max(n_exp, 1) for k, v in c.items()}
+                          for op, c in ops.items()} for axis, ops in lev.items()}
+        k = "fused_intersect" if backend == "sharded" else "fused_intersect_partial"
+        launches = res["launches"]
+        print(f"e2e {what} rank {rank}: backend={backend} checksum={res['checksum']} "
+              f"levels={res['counts']} expands={n_exp} {k}_launches={launches[k]} "
+              f"compact_launches={launches['fused_intersect_compact']} "
+              f"frontier_words={st.get('frontier_words')} (W={st['n_words']}) "
+              f"collectives_per_expand={per_exp} vertical={st['collectives']['vertical']} "
+              f"wall_s={res['wall_s'][-1]:.4f} "
+              f"phase_s={ {p: round(v, 4) for p, v in st['phase_s'].items()} }")
+        require(res["checksum"] == job["expect"],
+                f"{what} rank {rank}: checksum {res['checksum']} != {job['expect']}")
+        require(launches[k] == n_exp > 0,
+                f"{what} rank {rank}: {k} launched {launches[k]} times for {n_exp} expands")
+        require(launches["fused_intersect_compact"] == n_exp,
+                f"{what} rank {rank}: survivor compaction launched "
+                f"{launches['fused_intersect_compact']} times for {n_exp} expands")
+        require(launches["trimatrix"] > 0, f"{what} rank {rank}: Phase 2 not on K4")
+        if backend in ("tidsharded", "grid"):
+            require(st["frontier_words"] == math.ceil(st["n_words"] / n_data),
+                    f"{what} rank {rank}: frontier slice of {st['frontier_words']} words")
+            red = lev.get("data", {}).get("all_reduce", {}).get("calls")
+            require(red == n_exp, f"{what} rank {rank}: {red} all-reduces over "
+                                  f"data for {n_exp} expands")
+        if backend == "tidsharded":
+            require(set(lev) == {"data"} and set(lev["data"]) == {"all_reduce"},
+                    f"{what} rank {rank}: collectives beyond the one all-reduce: {lev}")
+        if backend == "sharded":
+            require(all("all_reduce" not in ops for ops in lev.values()),
+                    f"{what} rank {rank}: the sharded backend all-reduced: {lev}")
+    require(len({r["checksum"] for r in per_rank}) == 1, f"{what}: ranks disagree")
+
+
+def run_mesh_mines(data):
+    """The mesh mines: (a) tidsharded on one NCCL rank in this process,
+    each mine run twice and the second reported; (b) tidsharded 1x4,
+    sharded 4 and grid 2x2 on 4 gloo ranks sharing the card; (c) a v3 mine
+    through the mesh accumulator on the same 4 ranks.  Returns the K3
+    launches of rank 0 of the tidsharded 1x4 mines (counts reset before
+    each mine), whose slices of 25 and 782 words are the timed shapes."""
+    import tempfile
+    from repro_torch.launch.mesh import process_group, run_ranks
+    from repro_torch.launch.mesh_runs import run_jobs
+
+    jobs = _mesh_jobs([("tidsharded 1 rank", "fused", "words", None)], data)
+    for job in jobs:
+        job["reps"] = 2     # the first run of the process starts NCCL
+    with tempfile.TemporaryDirectory() as tmp:
+        with process_group("nccl", 1, 0, f"file://{tmp}/rendezvous",
+                           device="cuda") as dev:
+            t0 = time.perf_counter()
+            results = run_jobs(dev, jobs)
+            print(f"e2e mesh nccl 1 rank: {len(jobs)} mines in "
+                  f"{time.perf_counter() - t0:.2f}s")
+    for job, res in zip(jobs, results):
+        _check_mesh_run(job, [res], 1, "nccl, 1 rank on the card")
+    jobs = _mesh_jobs([("tidsharded 1x4", "fused", "words", None),
+                       ("sharded 4", "sharded", "pairs", None),
+                       ("grid 2x2", "grid", "grid", "2x2")], data)
+    txns, spec = data["T10I4D100K"]
+    jobs.append(dict(kind="mine", txns=txns, n_items=spec.n_items, grid=None,
+                     label="tidsharded 1x4 v3 (mesh accumulator)",
+                     expect=E2E_RUNS[0][4], run="T10I4D100K min_sup=0.01 v3",
+                     config=dict(min_sup=0.01, variant="v3", backend="fused",
+                                 shard="words")))
+    t0 = time.perf_counter()
+    per_rank = run_ranks(run_jobs, 4, backend="gloo", device="cuda",
+                         args=(jobs,), timeout=600)
+    print(f"e2e mesh gloo 4 ranks on one card: {len(jobs)} mines in "
+          f"{time.perf_counter() - t0:.2f}s with spawn (a correctness "
+          f"topology: 4 processes share one card and exchange through host "
+          f"copies; its times are no measure of a 4-card mesh)")
+    for j, job in enumerate(jobs):
+        n_data = 2 if job["label"].startswith("grid") else 4
+        _check_mesh_run(job, [r[j] for r in per_rank], n_data,
+                        "gloo, 4 ranks sharing the card")
+    k3 = sum(per_rank[0][j]["launches"]["fused_intersect_partial"]
+             for j, job in enumerate(jobs) if job["label"] == "tidsharded 1x4")
+    acc = per_rank[0][-1]["stats"]["collectives"]["vertical"]
+    w = per_rank[0][-1]["stats"]["n_words"]
+    print(f"e2e mesh v3 accumulator: vertical-build collectives {acc} "
+          f"(one all-reduce of the {spec.n_items} x {-(-len(txns) // 32)} "
+          f"word partial per rank; filtered W={w})")
+    require(acc.get("data", {}).get("all_reduce", {}).get("calls") == 1,
+            "the v3 mesh mine did not merge through one all-reduce")
+    return k3
+
+
 def bound(nbytes, products):
     """Least time in ms for work that moves ``nbytes`` and holds ``products``
     one-bit multiply-adds, and which of the two bounds it.  The fastest
@@ -268,7 +490,10 @@ def time_kernels(launches):
     import torch
     from repro_torch.kernels.fused_intersect import (
         fused_intersect, fused_intersect_compact, fused_intersect_compact_ref,
+        fused_intersect_partial, fused_intersect_partial_ref,
         fused_intersect_ref, fused_support_pairs)
+    from repro_torch.kernels.popcount_support import (intersect_support,
+                                                      popcount_support_ref)
     from repro_torch.kernels.trimatrix import cooccurrence, trimatrix_ref
     from repro_torch.launch.kernel_timing import (
         PAIR_SHAPES, TRI_TIMED_SHAPES, median_ms, pair_inputs, tri_inputs)
@@ -309,6 +534,38 @@ def time_kernels(launches):
                              shape=f"P={p} W={w} Q={q}",
                              ms=median_ms(fn), plain_ms=median_ms(ref),
                              bound_ms=bms, bound_by=by, library_ms=None))
+    for p, ws, q in PARTIAL_SHAPES:
+        bm, l, r, _, _ = pair_inputs(p, ws, q, seed=13)
+        rows_read = int(torch.unique(torch.cat((l, r))).numel())
+        in_bytes = rows_read * ws * 4 + 2 * q * 4
+        # K3 as the word-sharded backends launch it (no (Q, Ws) store: the
+        # survivor rows are recomputed after the reduce), and with its store
+        for name, fn, ref, out_bytes, listed in (
+                ("fused_intersect_partial",
+                 lambda: fused_intersect_partial(bm, l, r, mode=0, store=False),
+                 lambda: fused_intersect_partial_ref(bm, l, r, mode=0)[1],
+                 q * 4, True),
+                ("fused_intersect_partial with (Q, Ws) store",
+                 lambda: fused_intersect_partial(bm, l, r, mode=0),
+                 lambda: fused_intersect_partial_ref(bm, l, r, mode=0),
+                 q * ws * 4 + q * 4, False)):
+            bms, by = bound(in_bytes + out_bytes, q * ws * 32)
+            rows.append(dict(name=name, listed=listed, route="cuda",
+                             source=pair_src, replaces=f"{tpu_src}:196",
+                             shape=f"P={p} Ws={ws} Q={q}",
+                             ms=median_ms(fn), plain_ms=median_ms(ref),
+                             bound_ms=bms, bound_by=by, library_ms=None))
+    for m, w in PS_SHAPES:
+        a = tri_inputs(m, w, seed=m)
+        b = tri_inputs(m, w, seed=w)
+        bms, by = bound((3 * m * w + m) * 4, m * w * 32)
+        rows.append(dict(name="popcount_support", listed=True, route="cuda",
+                         source="src/repro_torch/csrc/popcount_support.cu",
+                         replaces="src/repro/kernels/popcount_support/popcount_support.py:72",
+                         shape=f"M={m} W={w}",
+                         ms=median_ms(lambda: intersect_support(a, b)),
+                         plain_ms=median_ms(lambda: popcount_support_ref(a, b)),
+                         bound_ms=bms, bound_by=by, library_ms=None))
     for n, w in TRI_TIMED_SHAPES:
         bm = tri_inputs(n, w, seed=5)
         npad = max(17, -(-n // 8) * 8)
@@ -339,8 +596,11 @@ def time_kernels(launches):
                 require(row["bound_ms"] <= row[key],
                         f"{row['name']} {row['shape']}: bound_ms "
                         f"{row['bound_ms']:.5f} exceeds {key} {row[key]:.5f}")
-    print("timing note: fused_intersect is timed as the main path launches it, "
-          "without the (Q, W) store; trimatrix library_ms is torch._int_mm "
+    print("timing note: fused_intersect and fused_intersect_partial are timed "
+          "as the main paths launch them, without their (Q, W) / (Q, Ws) "
+          "stores; fused_intersect_partial launches are those of the "
+          "tidsharded mines on one NCCL rank; popcount_support is on no "
+          "path (0 launches); trimatrix library_ms is torch._int_mm "
           "over the unpacked 0/1 int8 indicator, rows padded to a multiple "
           "of 8; the unpack is not timed")
     return rows
@@ -800,7 +1060,11 @@ def main() -> int:
 
     check_pair_kernels()
     check_trimatrix()
+    check_partial_kernel()
+    check_popcount_support()
     launches = run_end_to_end()
+    launches["fused_intersect_partial"] = run_mesh_mines(DATA)
+    launches["popcount_support"] = 0
     check_flash_attention()
     check_decode_attention()
     params, cfg, serve_counts = run_serving()

@@ -1,8 +1,9 @@
-"""repro_torch.core — single-device RDD-Eclat on PyTorch.
+"""repro_torch.core — RDD-Eclat on PyTorch, on one device or a mesh of ranks.
 
 Public surface:
   mine / EclatConfig / EclatResult      level-wise RDD-Eclat, variants v1..v6
-  make_engine / available_backends      the ``fused`` and ``ref`` executors
+  make_engine / available_backends      the ``fused`` and ``ref`` executors and
+                                        the mesh backends
   bruteforce_fim                        exact oracle for tests
   closed/maximal_itemsets, top_k_mine   workload modes (lineage post-filters)
   build_vertical / filter_transactions  vertical DB construction

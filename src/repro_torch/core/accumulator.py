@@ -1,12 +1,13 @@
-"""Spark-accumulator analogue (EclatV3's vertical-DB build), single process.
+"""Spark-accumulator analogue (EclatV3's vertical-DB build).
 
 Spark accumulators are add-only shared variables merged associatively on the
-driver.  Here each shard owns a contiguous block of transaction ids, scatters
-its own bits into a zero-initialised packed matrix, and the partials are
-OR-merged through a :class:`HostAccumulator` (the partials are bit-disjoint,
-so OR and add agree).  The mesh variant, which merges the partials with a
-collective across devices, belongs to the multi-GPU backends and is not part
-of this package yet: asking for it raises.
+driver.  Here each shard owns a contiguous block of transaction ids and
+scatters its own bits into a zero-initialised packed matrix.  Without a mesh
+the partials are OR-merged through a :class:`HostAccumulator` in one
+process; on a mesh, rank ``i`` of the merge axis builds the partial of chunk
+``i`` and one all-reduce (sum) over that axis merges them.  The partials
+are bit-disjoint, so OR and add agree, and the int32 words the port carries
+add without a carry.
 """
 from __future__ import annotations
 
@@ -14,6 +15,9 @@ from typing import Sequence
 
 import numpy as np
 
+from ..device import DeviceLike, words_from_numpy, words_to_numpy
+from ..dist import collectives as coll
+from ..dist.sharding import axis_index, axis_size
 from . import bitmap as bm
 from .vertical import VerticalDB, sort_items
 
@@ -55,27 +59,40 @@ def build_vertical_accumulated(
     order: str = "support_asc",
     n_shards: int = 4,
     mesh=None,
+    axis: str = "data",
+    device: DeviceLike = None,
 ) -> VerticalDB:
     """EclatV3 Phase-3: accumulator-built vertical DB.
 
-    The transactions are cut into ``n_shards`` chunks whose partial bitmaps
-    are OR-merged through a :class:`HostAccumulator`.
+    Host mode (``mesh=None``): the transactions are cut into ``n_shards``
+    chunks whose partial bitmaps are OR-merged through a
+    :class:`HostAccumulator`.  Mesh mode (a ``DeviceMesh``): the chunks
+    follow the ranks of ``axis`` (the reference's ``np.linspace`` bounds
+    over its size), each rank builds its own chunk's partial, and one
+    all-reduce over ``axis`` on ``device`` merges them; every rank returns
+    the same DB.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "the mesh accumulator (a cross-device merge of the partial "
-            "bitmaps) belongs to the multi-GPU backends, which are not "
-            "ported yet")
     n_txn = len(transactions)
     w = bm.n_words(n_txn)
-    n_shards = max(1, min(n_shards, max(n_txn, 1)))
-    bounds = np.linspace(0, n_txn, n_shards + 1).astype(int)
-    acc = HostAccumulator(
-        zero=np.zeros((n_items, w), dtype=np.uint32), merge=np.bitwise_or)
-    for i in range(n_shards):
-        acc.add(_partial_bitmap(transactions[bounds[i]: bounds[i + 1]],
-                                int(bounds[i]), n_items, w))
-    packed = acc.value()
+    if mesh is not None:
+        if not hasattr(mesh, "get_group"):
+            raise TypeError(f"mesh must be a torch DeviceMesh, got "
+                            f"{type(mesh).__name__}")
+        d, i = axis_size(mesh, axis), axis_index(mesh, axis)
+        bounds = np.linspace(0, n_txn, d + 1).astype(int)
+        part = words_from_numpy(
+            _partial_bitmap(transactions[bounds[i]: bounds[i + 1]],
+                            int(bounds[i]), n_items, w), device)
+        packed = words_to_numpy(coll.all_reduce(part, mesh, axis))
+    else:
+        n_shards = max(1, min(n_shards, max(n_txn, 1)))
+        bounds = np.linspace(0, n_txn, n_shards + 1).astype(int)
+        acc = HostAccumulator(
+            zero=np.zeros((n_items, w), dtype=np.uint32), merge=np.bitwise_or)
+        for i in range(n_shards):
+            acc.add(_partial_bitmap(transactions[bounds[i]: bounds[i + 1]],
+                                    int(bounds[i]), n_items, w))
+        packed = acc.value()
 
     supports = bm.support_np(packed)
     freq_mask = supports >= int(min_sup)

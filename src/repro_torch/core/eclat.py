@@ -1,12 +1,14 @@
 """RDD-Eclat on PyTorch: the paper's five variants (plus a beyond-paper sixth),
-single device.
+on one device or on a mesh of ranks.
 
 Execution model (DESIGN.md §2-3): the host process plays the Spark driver —
 it owns data-dependent control flow (class segmentation, survivor
 bookkeeping) — while the card executes the tidset-intersection hot loop
 behind the ``core.engine`` backend interface.  Equivalence classes are
 assigned to partitions once, from their 1-length prefix, and descendants
-never migrate.
+never migrate; on a mesh, partitions go round-robin to the ranks of the
+engine's pair axis.  With a ``mesh`` every rank calls ``mine()`` on the same
+transactions and returns the same result (``launch.mesh``).
 
 Variants:
   v1  vertical build via scatter, no filtering, default partitioner
@@ -17,8 +19,8 @@ Variants:
   v6  (beyond paper) v3 + greedy-LPT partitioner, optional dEclat diffsets
 
 Not ported yet, and refused with ``NotImplementedError`` when asked for:
-the mesh backends and ``shard``, ``backend="auto"``, ``autotune`` and
-``block_w``, per-level checkpoints and ``resume_mine``.
+``backend="auto"``, ``autotune`` and ``block_w``, per-level checkpoints and
+``resume_mine``.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device, words_from_numpy
+from ..dist import collectives as coll
 from . import engine as eng
 from .accumulator import build_vertical_accumulated
 from .equivalence import class_segments, pair_work, segment_pairs
@@ -92,13 +95,13 @@ class EclatConfig:
     tri_matrix: Optional[bool] = None   # None = auto (paper's triMatrixMode)
     tri_matrix_max_items: int = 4096    # auto threshold (paper: item-id range)
     use_diffsets: bool = False          # v6 only (dEclat); other variants reject it
-    backend: str = "fused"              # fused (CUDA kernels) | ref (plain torch)
+    backend: str = "fused"              # fused (CUDA kernels) | ref (plain torch) | sharded | tidsharded | grid
+    shard: str = "pairs"                # mesh split: "pairs" (frontier replicated) | "words" (tid axis) | "grid" (pairs x words 2D mesh)
     mode: str = "all"                   # workload: all | closed | maximal (DESIGN.md §9)
     max_k: Optional[int] = None         # deepest itemset length to mine (>= 1); None = unbounded
     bucket_min: int = 128               # pair-buffer ladder floor
     chunk_pairs: int = 1 << 18          # level-2 chunking when tri-matrix off
     # not ported yet: any value but these defaults raises NotImplementedError
-    shard: str = "pairs"
     block_w: Optional[int] = None
     autotune: bool = False
     checkpoint_dir: Optional[str] = None
@@ -108,7 +111,7 @@ class EclatConfig:
         return resolve_min_sup(self.min_sup, n_txn)
 
 
-_UNPORTED_DEFAULTS = dict(shard="pairs", block_w=None, autotune=False,
+_UNPORTED_DEFAULTS = dict(block_w=None, autotune=False,
                           checkpoint_dir=None, checkpoint_every_level=False)
 
 
@@ -156,12 +159,14 @@ def run_bottom_up(
     abs_min_sup: int,
     mode: int,
     max_k: int,
+    part_to_dev: np.ndarray,
 ) -> None:
     """Levels >= 3: per-class level-wise expansion (the paper's Phase-4).
 
     Starts from a level-2 frontier (``class_id``/``item_rank``/``partition``/
     ``support`` row-aligned with ``lvl_bitmaps``) and appends one
-    ``LevelRecord`` per surviving level.
+    ``LevelRecord`` per surviving level.  ``part_to_dev`` maps a partition
+    to its rank on the engine's pair axis.
     """
     k = 2
     while support.shape[0] and k < max_k:
@@ -173,6 +178,7 @@ def run_bottom_up(
             lvl_bitmaps, left.astype(np.int32), right.astype(np.int32),
             support[left].astype(np.int32),
             mode=mode, min_sup=abs_min_sup,
+            device_of_pair=part_to_dev[partition[left]],
         )
         k += 1
         if not res.mask.any():
@@ -188,11 +194,13 @@ def run_bottom_up(
         lvl_bitmaps = res.bitmaps
 
 
-def _build_db(transactions, n_items, abs_min_sup, spec) -> Tuple[VerticalDB, dict]:
+def _build_db(transactions, n_items, abs_min_sup, spec, mesh=None,
+              dev=None) -> Tuple[VerticalDB, dict]:
     info: dict = {}
     if spec["accumulator"]:
         db = build_vertical_accumulated(transactions, n_items, abs_min_sup,
-                                        order="support_asc")
+                                        order="support_asc", mesh=mesh,
+                                        device=dev)
     else:
         db = build_vertical(transactions, n_items, abs_min_sup, order="support_asc")
     if spec["filter_txns"]:
@@ -203,10 +211,15 @@ def _build_db(transactions, n_items, abs_min_sup, spec) -> Tuple[VerticalDB, dic
 
 
 def _finish(store: ItemsetStore, db: VerticalDB, stats: dict,
-            config: EclatConfig, t_start: float) -> EclatResult:
-    """Common tail of every ``mine()`` return path: record the workload
-    mode (and, for closed/maximal, the post-filtered count) and stamp wall
-    time last so it covers the mode bookkeeping too."""
+            config: EclatConfig, t_start: float, execu: eng.Engine,
+            mesh, coll_start: dict) -> EclatResult:
+    """Common tail of every ``mine()`` return path after the engine is
+    built: record its stats and the levels' collectives, the workload mode
+    (and, for closed/maximal, the post-filtered count), and stamp wall time
+    last so it covers the mode bookkeeping too."""
+    stats.update(execu.stats())
+    if mesh is not None:
+        stats["collectives"]["levels"] = coll.counts_since(coll_start)
     stats["mode"] = config.mode
     res = EclatResult(store=store, db=db, stats=stats, mode=config.mode)
     if config.mode != "all":
@@ -243,14 +256,21 @@ def mine(
     n_items: int,
     config: EclatConfig,
     device: DeviceLike = None,
+    mesh=None,
 ) -> EclatResult:
-    """Mine all frequent itemsets on one device (``None`` = CUDA; with no
-    card that raises unless ``device="cpu"`` is passed)."""
+    """Mine all frequent itemsets on ``device`` (``None`` = CUDA; with no
+    card that raises unless ``device="cpu"`` is passed).  ``mesh`` (a
+    ``torch.distributed`` ``DeviceMesh``, see ``launch.mesh``) enables the
+    mesh backends, ``config.shard`` picking pair-, word- or grid-sharding;
+    every rank of the mesh calls ``mine()`` alike.  On a mesh,
+    ``stats["collectives"]`` holds the collective calls and payload bytes
+    of this rank, per axis, of the vertical build and of the levels."""
     _check_config(config)
     dev = resolve_device(device)
     spec = VARIANTS[config.variant]
     t_start = time.perf_counter()
     stats: dict = {"variant": config.variant, "device": str(dev), "phase_s": {}}
+    coll_start = coll.collective_counts()
 
     n_txn = len(transactions)
     abs_min_sup = config.resolve_min_sup(n_txn)
@@ -258,9 +278,12 @@ def mine(
 
     # ---- Phase 1 (+2 filtering / +3 accumulator): vertical DB -------------
     t0 = time.perf_counter()
-    db, info = _build_db(transactions, n_items, abs_min_sup, spec)
+    db, info = _build_db(transactions, n_items, abs_min_sup, spec, mesh, dev)
     stats.update(info)
     stats["phase_s"]["vertical"] = time.perf_counter() - t0
+    if mesh is not None:
+        stats["collectives"] = {"vertical": coll.counts_since(coll_start)}
+    coll_start = coll.collective_counts()
     n1, w = db.n_items, db.n_words
     stats["n_freq_items"] = n1
     stats["n_words"] = w
@@ -272,9 +295,13 @@ def mine(
     est = pair_work(sizes1 + 1, w)  # +1: member count of class r is n1-1-r
     eff_p = config.p if spec["partitioner"] in ("hash", "reverse_hash", "greedy") else max(n_classes, 1)
     table = assign_partitions(n_classes, spec["partitioner"], eff_p, work=est)
-    execu = eng.make_engine(config.backend, bucket_min=config.bucket_min)
+    execu = eng.resolve_engine(config.backend, mesh,
+                               bucket_min=config.bucket_min,
+                               shard=config.shard)
     stats["backend"] = execu.name
     stats["backend_requested"] = config.backend
+    # partition -> rank round robin (the mesh backends' pair axis)
+    part_to_dev = np.arange(eff_p, dtype=np.int64) % max(execu.n_devices, 1)
 
     if n_classes > 0:
         pstats = partition_stats(table, est, eff_p)
@@ -296,10 +323,14 @@ def mine(
     # max_k bounds every level, including 2
     max_k = n1 if config.max_k is None else config.max_k
     if n1 < 2 or max_k < 2:
-        stats.update(execu.stats())
-        return _finish(store, db, stats, config, t_start)
+        return _finish(store, db, stats, config, t_start, execu, mesh,
+                       coll_start)
 
-    bitmaps = words_from_numpy(db.bitmaps, dev)
+    full = words_from_numpy(db.bitmaps, dev)
+    # the frontier as the backend carries it (a rank's word slice for the
+    # word-sharded backends), placed once: the chunked level-2 path below
+    # expands it many times
+    bitmaps = execu.prepare_frontier(full)
     diffsets = config.use_diffsets
 
     # ---- Phase 2: triangular matrix (2-itemset counts) --------------------
@@ -312,12 +343,14 @@ def mine(
     sup1 = db.supports.astype(np.int32)
     mode2 = eng.MODE_TID_TO_DIFF if diffsets else eng.MODE_TIDSET
     if tri:
-        counts2 = cooccurrence_counts(bitmaps, backend=execu.name)
+        # the counts of the whole level-1 frontier, which every rank holds
+        counts2 = cooccurrence_counts(full, backend=getattr(execu, "inner", execu.name))
         iu, ju, _ = frequent_pairs(counts2, abs_min_sup)
         # materialize bitmaps only for the survivors; every pre-filtered pair
         # must pass the engine's threshold again
         res = execu.expand(bitmaps, iu.astype(np.int32), ju.astype(np.int32),
-                           sup1[iu], mode=mode2, min_sup=abs_min_sup)
+                           sup1[iu], mode=mode2, min_sup=abs_min_sup,
+                           device_of_pair=part_to_dev[table[iu]] if iu.size else None)
         # the level-2 LevelRecord below aligns iu/ju (all pre-filtered
         # pairs) with res.supports (survivors only) on the assumption that
         # the two sets are identical; a corrupt count matrix breaks that
@@ -340,7 +373,8 @@ def mine(
             ic = iu_all[s: s + config.chunk_pairs].astype(np.int32)
             jc = ju_all[s: s + config.chunk_pairs].astype(np.int32)
             res = execu.expand(bitmaps, ic, jc, sup1[ic],
-                               mode=mode2, min_sup=abs_min_sup)
+                               mode=mode2, min_sup=abs_min_sup,
+                               device_of_pair=part_to_dev[table[ic]] if ic.size else None)
             if res.mask.any():
                 keep_i.append(ic[res.mask]); keep_j.append(jc[res.mask])
                 keep_s.append(res.supports.astype(np.int32))
@@ -354,7 +388,7 @@ def mine(
             lvl_bitmaps = torch.cat(keep_bm, dim=0)
         else:
             iu = ju = np.zeros(0, np.int64); sup2 = np.zeros(0, np.int32)
-            lvl_bitmaps = torch.zeros((0, w), dtype=torch.int32, device=dev)
+            lvl_bitmaps = bitmaps.new_zeros((0, bitmaps.shape[1]))
     stats["phase_s"]["tri_matrix"] = time.perf_counter() - t0
 
     store.add_level(LevelRecord(
@@ -367,8 +401,6 @@ def mine(
                   table[iu] if iu.size else np.zeros(0, np.int64),
                   sup2.astype(np.int64), abs_min_sup=abs_min_sup,
                   mode=eng.MODE_DIFFSET if diffsets else eng.MODE_TIDSET,
-                  max_k=max_k)
+                  max_k=max_k, part_to_dev=part_to_dev)
     stats["phase_s"]["bottom_up"] = time.perf_counter() - t0
-
-    stats.update(execu.stats())
-    return _finish(store, db, stats, config, t_start)
+    return _finish(store, db, stats, config, t_start, execu, mesh, coll_start)

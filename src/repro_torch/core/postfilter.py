@@ -133,6 +133,7 @@ def top_k_mine(
     config=None,
     device=None,
     min_len: int = 1,
+    mesh=None,
 ) -> TopKResult:
     """Mine the k highest-support itemsets without a user threshold.
 
@@ -149,8 +150,9 @@ def top_k_mine(
     nothing below the rung can displace the answer.
 
     ``config`` is an :class:`~repro_torch.core.eclat.EclatConfig` template
-    whose ``min_sup``/``mode`` are overridden per rung — variant and backend
-    plumb through unchanged, so top-k runs on any engine backend.
+    whose ``min_sup``/``mode`` are overridden per rung — variant, backend
+    and ``mesh`` plumb through unchanged, so top-k runs on any engine
+    backend.
     """
     from . import bitmap as bm             # late: postfilter <- eclat cycle
     from .eclat import EclatConfig, mine
@@ -175,7 +177,7 @@ def top_k_mine(
     ladder: List[dict] = []
     while True:
         cfg = dataclasses.replace(template, min_sup=int(abs_ms), mode="all")
-        res = mine(transactions, n_items, cfg, device=device)
+        res = mine(transactions, n_items, cfg, device=device, mesh=mesh)
         found = [(s, v) for s, v in res.support_map().items()
                  if len(s) >= min_len]
         ladder.append({"abs_min_sup": int(abs_ms), "n_found": len(found)})

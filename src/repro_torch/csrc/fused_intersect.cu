@@ -7,6 +7,8 @@
 //   survivor_count_kernel,  <- the compact_epilogue that
 //   survivor_scatter_kernel,   fused_intersect_compact_pairs appends
 //   gather_survivors_kernel
+//   partial_pairs_kernel    <- _kernel_partial, launched by
+//                              fused_intersect_partial_pairs
 //
 // For each pair q: rows a = frontier[left[q]], b = frontier[right[q]];
 //   mode 0: x = a & b     sup = popcount(x)
@@ -39,6 +41,17 @@
 // pair 0 (r >= S: the pad rows duplicate the intersection of pair 0, as in
 // the reference).  Nothing returns to the host in between, so the caller
 // reads the mask once, after all four launches.
+//
+// partial_pairs_kernel is the shard-local half of fused_pairs_kernel for a
+// frontier whose word axis is split over ranks (the tidsharded and grid
+// backends): the same warp per pair over this rank's Ws words, stopping at
+// the raw popcount.  The support (sup_left minus the count for diffsets) and
+// the threshold need the total count, which exists only after the
+// all-reduce over the ranks' partial counts, so they are not done here.  The
+// (Q, Ws) store is skipped when inter is null: the compacting backends
+// recompute the survivor rows from the frontier with gather_survivors_kernel
+// once the reduced mask is known.  At chess's Ws = 25 a warp idles 7 of its
+// 32 lanes.
 //
 // Row offsets are 64-bit: q * W passes 2^31 at Q ~ 700k for W = 3125.
 // left[q] and right[q] must lie in [0, P): the engine checks its pair lists
@@ -242,6 +255,28 @@ gather_survivors_kernel(const unsigned* __restrict__ frontier,
   intersect_row<MODE>(a, b, out + r * W, W, lane);
 }
 
+template <int MODE>
+__global__ void __launch_bounds__(kThreads)
+partial_pairs_kernel(const unsigned* __restrict__ frontier,
+                     const int* __restrict__ left,
+                     const int* __restrict__ right,
+                     unsigned* __restrict__ inter,
+                     int* __restrict__ pop,
+                     long long Q, int W) {
+  const long long q = static_cast<long long>(blockIdx.x) * kPairsPerBlock +
+                      threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  if (q >= Q) return;
+  const unsigned* a = frontier + static_cast<long long>(left[q]) * W;
+  const unsigned* b = frontier + static_cast<long long>(right[q]) * W;
+  unsigned* out = inter != nullptr ? inter + q * W : nullptr;
+  int p = intersect_row<MODE>(a, b, out, W, lane);
+#pragma unroll
+  for (int off = kWarp / 2; off > 0; off >>= 1)
+    p += __shfl_down_sync(0xffffffffu, p, off);
+  if (lane == 0) pop[q] = p;
+}
+
 unsigned pair_blocks(long long Q) {
   return static_cast<unsigned>((Q + kPairsPerBlock - 1) / kPairsPerBlock);
 }
@@ -327,6 +362,36 @@ int survivor_compact_launch(const void* frontier, const void* left,
       break;
     default:
       gather_survivors_kernel<2><<<grid, kThreads, 0, st>>>(f, l, r, sel, n_i, o, Q, W);
+      break;
+  }
+  return cudaGetLastError();
+}
+
+// inter may be null (partial popcounts only).  Returns a cudaError_t.
+int partial_pairs_launch(const void* frontier, const void* left,
+                         const void* right, void* inter, void* pop,
+                         long long Q, int W, int mode, int device,
+                         void* stream) {
+  if (Q <= 0) return cudaSuccess;
+  if (mode < 0 || mode > 2) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const auto* f = static_cast<const unsigned*>(frontier);
+  const auto* l = static_cast<const int*>(left);
+  const auto* r = static_cast<const int*>(right);
+  auto* x = static_cast<unsigned*>(inter);
+  auto* p = static_cast<int*>(pop);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const unsigned grid = pair_blocks(Q);
+  switch (mode) {
+    case 0:
+      partial_pairs_kernel<0><<<grid, kThreads, 0, st>>>(f, l, r, x, p, Q, W);
+      break;
+    case 1:
+      partial_pairs_kernel<1><<<grid, kThreads, 0, st>>>(f, l, r, x, p, Q, W);
+      break;
+    default:
+      partial_pairs_kernel<2><<<grid, kThreads, 0, st>>>(f, l, r, x, p, Q, W);
       break;
   }
   return cudaGetLastError();

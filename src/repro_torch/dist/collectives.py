@@ -1,0 +1,98 @@
+"""The one place that calls ``torch.distributed`` collectives.
+
+The reference's ``shard_map`` bodies reduce with ``psum`` and its engines
+gather results across devices implicitly (``device_get`` of a sharded
+array, a row ``take`` across shards).  Here each rank is a process, so those
+exchanges are explicit calls, each over one named axis of a
+``torch.distributed.device_mesh.DeviceMesh`` (its subgroup from
+``mesh.get_group(axis)``).
+
+Backends: an NCCL group exchanges the tensors on the card.  A gloo group
+(ranks on the host, or several ranks sharing one card, which NCCL refuses)
+exchanges host copies: a tensor on the card is copied to the host, reduced
+or gathered there, and copied back.  That copy is made here and nowhere
+else.  Nothing switches from one backend to the other; a failed collective
+raises.
+
+Counters: every call adds one to its (axis, op) count and the bytes of its
+local input to its payload, read with :func:`collective_counts` (as
+``kernels.launch_counts`` reads the kernel launches).
+"""
+from __future__ import annotations
+
+from collections import defaultdict
+from typing import Dict
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["all_reduce", "all_gather", "collective_counts",
+           "reset_collective_counts", "counts_since"]
+
+_COUNTS: Dict[tuple, Dict[str, int]] = defaultdict(lambda: {"calls": 0, "bytes": 0})
+
+
+def _count(axis: str, op: str, t: torch.Tensor) -> None:
+    c = _COUNTS[(axis, op)]
+    c["calls"] += 1
+    c["bytes"] += t.numel() * t.element_size()
+
+
+def collective_counts() -> dict:
+    """``{axis: {op: {"calls": n, "bytes": b}}}`` since the last reset."""
+    out: dict = {}
+    for (axis, op), c in sorted(_COUNTS.items()):
+        out.setdefault(axis, {})[op] = dict(c)
+    return out
+
+
+def counts_since(before: dict) -> dict:
+    """The calls and bytes added since ``before`` (an earlier
+    :func:`collective_counts`), in the same form, zero entries left out."""
+    out: dict = {}
+    for axis, ops in collective_counts().items():
+        for op, c in ops.items():
+            b = before.get(axis, {}).get(op, {"calls": 0, "bytes": 0})
+            if c["calls"] != b["calls"]:
+                out.setdefault(axis, {})[op] = {
+                    "calls": c["calls"] - b["calls"],
+                    "bytes": c["bytes"] - b["bytes"]}
+    return out
+
+
+def reset_collective_counts() -> None:
+    _COUNTS.clear()
+
+
+def _on_host(group) -> bool:
+    return dist.get_backend(group) == dist.Backend.GLOO
+
+
+def all_reduce(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Sum ``t`` over the ranks of ``axis``, in place; returns ``t``."""
+    group = mesh.get_group(axis)
+    _count(axis, "all_reduce", t)
+    if _on_host(group) and t.device.type != "cpu":
+        host = t.cpu()
+        dist.all_reduce(host, group=group)
+        t.copy_(host)
+    else:
+        dist.all_reduce(t, group=group)
+    return t
+
+
+def all_gather(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``(n, *t.shape)`` stack of every rank's ``t`` along ``axis``, in
+    axis-coordinate order, on ``t``'s device."""
+    group = mesh.get_group(axis)
+    _count(axis, "all_gather", t)
+    t = t.contiguous()
+    n = dist.get_world_size(group)
+    if _on_host(group):
+        host = t.cpu()
+        parts = [torch.empty_like(host) for _ in range(n)]
+        dist.all_gather(parts, host, group=group)
+        return torch.stack(parts).to(t.device)
+    out = torch.empty((n, *t.shape), dtype=t.dtype, device=t.device)
+    dist.all_gather_into_tensor(out, t, group=group)
+    return out

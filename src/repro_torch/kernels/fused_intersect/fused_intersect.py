@@ -1,7 +1,7 @@
 """ctypes binding of the fused-intersect CUDA kernels
 (``csrc/fused_intersect.cu``), with their launch counters.
 
-Both functions take CUDA tensors only (the CPU path is :mod:`.ref`, chosen
+The functions take CUDA tensors only (the CPU path is :mod:`.ref`, chosen
 by :mod:`.ops`); they allocate their outputs with ``torch.empty``, launch on
 the current stream and do not synchronise.
 
@@ -11,7 +11,8 @@ Launch counters, plain integers on the wrappers:
                                             from any wrapper below
 ``fused_intersect_compact_pairs.launches``  launches of the survivor
                                             compaction (two-pass scan +
-                                            gather)
+                                            gather), from any wrapper below
+``fused_intersect_partial_pairs.launches``  launches of ``partial_pairs_kernel``
 
 The caller guarantees ``0 <= left, right < P``: checking that here would
 copy the indices back to the host and stall the stream, so the engine checks
@@ -27,7 +28,8 @@ from .. import _build
 
 __all__ = ["MODE_TIDSET", "MODE_TID_TO_DIFF", "MODE_DIFFSET",
            "fused_intersect_pairs", "fused_support_pairs",
-           "fused_intersect_compact_pairs"]
+           "fused_intersect_compact_pairs", "compact_survivors_pairs",
+           "fused_intersect_partial_pairs"]
 
 MODE_TIDSET = 0
 MODE_TID_TO_DIFF = 1
@@ -51,24 +53,33 @@ def _lib() -> ctypes.CDLL:
             _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P]
         lib.survivor_compact_launch.restype = ctypes.c_int
+        lib.partial_pairs_launch.argtypes = [
+            _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, _P]
+        lib.partial_pairs_launch.restype = ctypes.c_int
         _BOUND = True
     return lib
 
 
-def _check_args(bitmaps, left, right, sup_left, mode):
+def _check_args(bitmaps, left, right, sup_left, mode, **more):
+    """Validate the operands; ``sup_left`` may be None (the partial kernel
+    has none) and ``more`` names further (Q,) int32 operands."""
     if bitmaps.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {bitmaps.device}")
     if bitmaps.ndim != 2:
         raise ValueError(f"expected a (P, W) frontier, got {tuple(bitmaps.shape)}")
+    if sup_left is None:
+        sup_left = left
     for name, t in (("bitmaps", bitmaps), ("left", left), ("right", right),
-                    ("sup_left", sup_left)):
+                    ("sup_left", sup_left), *more.items()):
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
         if t.device != bitmaps.device:
             raise ValueError(f"{name} is on {t.device}, the frontier on {bitmaps.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if left.ndim != 1 or left.shape != right.shape or left.shape != sup_left.shape:
+    if (left.ndim != 1 or left.shape != right.shape
+            or any(t.shape != left.shape for t in (sup_left, *more.values()))):
         raise ValueError("left/right/sup_left must share a (Q,) shape")
     if mode not in (MODE_TIDSET, MODE_TID_TO_DIFF, MODE_DIFFSET):
         raise ValueError(f"unknown mode {mode}")
@@ -144,11 +155,25 @@ def fused_intersect_compact_pairs(bitmaps: torch.Tensor, left: torch.Tensor,
     """
     sup, mask = fused_support_pairs(bitmaps, left, right, sup_left, min_sup,
                                     mode=mode)
+    out, mask, n_surv = compact_survivors_pairs(bitmaps, left, right, mask,
+                                                n_valid, mode=mode)
+    return out, sup, mask, n_surv
+
+
+def compact_survivors_pairs(bitmaps: torch.Tensor, left: torch.Tensor,
+                            right: torch.Tensor, mask: torch.Tensor,
+                            n_valid: int, *, mode: int):
+    """The survivor compaction alone, from a mask computed elsewhere (the
+    word-sharded backends reduce their counts over ranks first): returns
+    ``(compact (Q, W), mask (Q,), n_surv ())`` as
+    :func:`fused_intersect_compact_pairs` does.  ``mask`` (int32) is
+    rewritten in place to the valid-masked flags."""
+    _check_args(bitmaps, left, right, None, mode, mask=mask)
     q, w = left.shape[0], bitmaps.shape[1]
     dev = bitmaps.device
     out = torch.empty((q, w), dtype=torch.int32, device=dev)
     if q == 0:
-        return out, sup, mask, torch.zeros((), dtype=torch.int32, device=dev)
+        return out, mask, torch.zeros((), dtype=torch.int32, device=dev)
     lib = _lib()
     scratch = torch.empty(lib.survivor_scratch_ints(q), dtype=torch.int32,
                           device=dev)
@@ -160,7 +185,36 @@ def fused_intersect_compact_pairs(bitmaps: torch.Tensor, left: torch.Tensor,
         dev.index, ctypes.c_void_p(stream))
     _build.check(code, "survivor compaction")
     fused_intersect_compact_pairs.launches += 1
-    return out, sup, mask, n_surv
+    return out, mask, n_surv
 
 
 fused_intersect_compact_pairs.launches = 0
+
+
+def fused_intersect_partial_pairs(bitmaps: torch.Tensor, left: torch.Tensor,
+                                  right: torch.Tensor, *, mode: int,
+                                  store: bool = True):
+    """(P, Ws) int32 frontier word slice x (Q,) int32 pair indices ->
+    ``((Q, Ws) int32 intersections or None, (Q,) int32 partial popcounts)``.
+
+    The shard-local half of :func:`fused_intersect_pairs`: it stops at the
+    raw popcount of this slice (no support conversion, no threshold), which
+    the caller sums over the ranks that hold the other slices.  With
+    ``store=False`` the (Q, Ws) intersections are not written.
+    """
+    _check_args(bitmaps, left, right, None, mode)
+    q, w = left.shape[0], bitmaps.shape[1]
+    dev = bitmaps.device
+    inter = torch.empty((q, w), dtype=torch.int32, device=dev) if store else None
+    pop = torch.empty(q, dtype=torch.int32, device=dev)
+    if q:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = _lib().partial_pairs_launch(
+            _ptr(bitmaps), _ptr(left), _ptr(right), _ptr(inter), _ptr(pop),
+            q, w, int(mode), dev.index, ctypes.c_void_p(stream))
+        _build.check(code, "partial_pairs_kernel")
+        fused_intersect_partial_pairs.launches += 1
+    return inter, pop
+
+
+fused_intersect_partial_pairs.launches = 0

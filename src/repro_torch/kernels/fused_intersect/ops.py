@@ -6,10 +6,15 @@ from __future__ import annotations
 
 import torch
 
-from .fused_intersect import fused_intersect_compact_pairs, fused_intersect_pairs
-from .ref import fused_intersect_compact_ref, fused_intersect_ref
+from .fused_intersect import (compact_survivors_pairs,
+                              fused_intersect_compact_pairs,
+                              fused_intersect_pairs,
+                              fused_intersect_partial_pairs)
+from .ref import (compact_survivors_ref, fused_intersect_compact_ref,
+                  fused_intersect_partial_ref, fused_intersect_ref)
 
-__all__ = ["fused_intersect", "fused_intersect_compact"]
+__all__ = ["fused_intersect", "fused_intersect_compact",
+           "fused_intersect_partial", "compact_survivors"]
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -39,3 +44,25 @@ def fused_intersect_compact(bitmaps, left, right, sup_left, min_sup: int,
             bitmaps, left, right, sup_left, min_sup, n_valid, mode=mode)
     return fused_intersect_compact_ref(bitmaps, left, right, sup_left,
                                            min_sup, n_valid, mode=mode)
+
+
+def fused_intersect_partial(bitmaps, left, right, *, mode: int,
+                            store: bool = True):
+    """Gather + intersect + raw popcount of a frontier word slice:
+    ``((Q, W) inter or None, (Q,) partial popcount)``; ``store=False``
+    leaves the intersections out."""
+    if _on_cuda(bitmaps):
+        return fused_intersect_partial_pairs(bitmaps, left, right, mode=mode,
+                                             store=store)
+    return fused_intersect_partial_ref(bitmaps, left, right, mode=mode,
+                                       store=store)
+
+
+def compact_survivors(bitmaps, left, right, mask, n_valid: int, *, mode: int):
+    """Survivor compaction from a given int32 mask:
+    ``(compact (Q, W), valid-masked mask, n_surv)``."""
+    if _on_cuda(bitmaps):
+        return compact_survivors_pairs(bitmaps, left, right, mask, n_valid,
+                                       mode=mode)
+    return compact_survivors_ref(bitmaps, left, right, mask, n_valid,
+                                 mode=mode)

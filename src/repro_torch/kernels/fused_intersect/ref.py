@@ -1,8 +1,8 @@
 """Plain torch version of the fused-intersect kernels: the oracle the CUDA
 kernels are held to, and the path :mod:`.ops` takes for CPU tensors.
 
-Same contract as the reference package's ``fused_intersect_ref`` and
-``fused_intersect_compact_ref``; words are ``int32`` tensors holding the
+Same contract as the reference package's ``fused_intersect_ref``,
+``fused_intersect_compact_ref`` and ``fused_intersect_partial_ref``; words are ``int32`` tensors holding the
 ``uint32`` bits.  The compaction uses no host round trip (cumsum + scatter +
 ``index_select``), so on a CUDA tensor it runs without synchronising.
 """
@@ -14,7 +14,8 @@ from ...device import popcount_words
 from .fused_intersect import MODE_DIFFSET, MODE_TID_TO_DIFF, MODE_TIDSET
 
 __all__ = ["fused_intersect_ref", "compact_epilogue",
-           "fused_intersect_compact_ref"]
+           "fused_intersect_compact_ref", "fused_intersect_partial_ref",
+           "compact_survivors_ref"]
 
 
 def _intersect(a: torch.Tensor, b: torch.Tensor, mode: int) -> torch.Tensor:
@@ -27,14 +28,24 @@ def _intersect(a: torch.Tensor, b: torch.Tensor, mode: int) -> torch.Tensor:
     raise ValueError(f"unknown mode {mode}")
 
 
-def fused_intersect_ref(bitmaps: torch.Tensor, left: torch.Tensor,
-                        right: torch.Tensor, sup_left: torch.Tensor,
-                        min_sup, *, mode: int):
-    """(P, W) x (Q,) -> ((Q, W) int32, (Q,) int32 sup, (Q,) int32 mask)."""
+def fused_intersect_partial_ref(bitmaps: torch.Tensor, left: torch.Tensor,
+                                right: torch.Tensor, *, mode: int,
+                                store: bool = True):
+    """(P, W) frontier (or a word slice of one) x (Q,) ->
+    ``((Q, W) int32 intersections, or None with store=False; (Q,) int32
+    raw popcounts)``: no support conversion and no threshold."""
     a = bitmaps.index_select(0, left.long())
     b = bitmaps.index_select(0, right.long())
     inter = _intersect(a, b, mode)
     pop = popcount_words(inter).sum(dim=-1, dtype=torch.int32)
+    return (inter if store else None), pop
+
+
+def fused_intersect_ref(bitmaps: torch.Tensor, left: torch.Tensor,
+                        right: torch.Tensor, sup_left: torch.Tensor,
+                        min_sup, *, mode: int):
+    """(P, W) x (Q,) -> ((Q, W) int32, (Q,) int32 sup, (Q,) int32 mask)."""
+    inter, pop = fused_intersect_partial_ref(bitmaps, left, right, mode=mode)
     sup = pop if mode == MODE_TIDSET else sup_left.to(torch.int32) - pop
     mask = (sup >= min_sup).to(torch.int32)
     return inter, sup, mask
@@ -65,3 +76,11 @@ def fused_intersect_compact_ref(bitmaps, left, right, sup_left, min_sup,
     inter, sup, mask = fused_intersect_ref(bitmaps, left, right, sup_left,
                                            min_sup, mode=mode)
     return compact_epilogue(inter, sup, mask, n_valid)
+
+
+def compact_survivors_ref(bitmaps, left, right, mask, n_valid, *, mode: int):
+    """The compaction alone, from a mask computed elsewhere: returns
+    ``(compact (Q, W), valid-masked mask (Q,), n_surv)``."""
+    inter, _ = fused_intersect_partial_ref(bitmaps, left, right, mode=mode)
+    compact, _, m, n_surv = compact_epilogue(inter, mask, mask, n_valid)
+    return compact, m, n_surv

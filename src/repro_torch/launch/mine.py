@@ -1,11 +1,19 @@
-"""Mining driver, single device:
+"""Mining driver, on one device or on a mesh of ranks:
 
     PYTHONPATH=src python -m repro_torch.launch.mine --dataset chess \
         --scale 1.0 --min-sup 0.7 --variant v4
+    PYTHONPATH=src python -m repro_torch.launch.mine --dataset chess \
+        --scale 1.0 --min-sup 0.7 --ranks 4 --dist-backend gloo --shard words
 
-Runs on the card unless ``--device cpu`` is given.  ``--mode
-closed|maximal`` post-filters the mined lattice (DESIGN.md §9).  Prints the
-same ``[mine] ...`` summary line as the reference package's driver.
+Runs on the card unless ``--device cpu`` is given.  ``--ranks N`` starts N
+ranks (``launch.mesh.run_ranks``) joined by ``--dist-backend``: ``nccl``
+for ranks on distinct cards, ``gloo`` for ranks on the host or several
+ranks sharing one card (NCCL refuses two ranks on one card).
+``--backend``/``--shard``/``--grid`` pick the mesh backend as in the
+reference's driver; every rank mines, and rank 0's summary is printed.
+``--mode closed|maximal`` post-filters the mined lattice (DESIGN.md §9).
+Prints the same ``[mine] ...`` summary line as the reference package's
+driver.
 """
 from __future__ import annotations
 
@@ -14,6 +22,34 @@ import time
 
 from ..core import EclatConfig, mine
 from ..data import PAPER_DATASETS, generate
+
+
+def _summary(name: str, args, res, dt: float, mesh) -> str:
+    grid_note = (f" grid={mesh.size(0)}x{mesh.size(1)}"
+                 if mesh is not None and "class" in mesh.mesh_dim_names else "")
+    mode_note = (f" {args.mode}={res.stats['mode_itemsets']}"
+                 if args.mode != "all" else "")
+    return (f"[mine] {name} x{args.scale} min_sup={args.min_sup} "
+            f"{args.variant}: {res.total} itemsets in {dt:.2f}s "
+            f"levels={res.counts}{grid_note}{mode_note}")
+
+
+def _config(args, spec) -> EclatConfig:
+    return EclatConfig(min_sup=args.min_sup, variant=args.variant, p=args.p,
+                       tri_matrix=spec.tri_matrix or None,
+                       use_diffsets=args.diffsets, backend=args.backend,
+                       shard=args.shard, mode=args.mode, max_k=args.max_k)
+
+
+def _mine_rank(device, args) -> str:
+    """One rank of ``--ranks``: the mesh from the flags, then ``mine()``."""
+    from .mesh import mesh_for_mining
+    txns, spec = generate(args.dataset, scale=args.scale, seed=1)
+    mesh = mesh_for_mining(args.backend, args.shard, args.grid)
+    t0 = time.perf_counter()
+    res = mine(txns, spec.n_items, _config(args, spec), device=device,
+               mesh=mesh)
+    return _summary(spec.name, args, res, time.perf_counter() - t0, mesh)
 
 
 def main(argv=None):
@@ -28,9 +64,25 @@ def main(argv=None):
     ap.add_argument("--variant", default="v4",
                     choices=["v1", "v2", "v3", "v4", "v5", "v6"])
     ap.add_argument("--p", type=int, default=10)
-    ap.add_argument("--backend", default="fused", choices=["fused", "ref"],
-                    help="engine backend: the CUDA kernels (fused) or the "
-                         "plain torch path (ref)")
+    ap.add_argument("--backend", default="fused",
+                    choices=["fused", "ref", "sharded", "tidsharded", "grid"],
+                    help="engine backend: the CUDA kernels (fused), the "
+                         "plain torch path (ref), or a mesh backend (needs "
+                         "--ranks)")
+    ap.add_argument("--shard", default="pairs",
+                    choices=["pairs", "words", "grid"],
+                    help="mesh split under --ranks: candidate pairs, the "
+                         "frontier's word axis, or both on a 2D grid "
+                         "(DESIGN.md §7-8)")
+    ap.add_argument("--grid", default=None, metavar="RxC",
+                    help="class x data mesh shape for --shard grid, e.g. 2x2 "
+                         "(default: auto-factorize the ranks)")
+    ap.add_argument("--ranks", type=int, default=None,
+                    help="start this many ranks and mine on a mesh of them")
+    ap.add_argument("--dist-backend", default="nccl", choices=["nccl", "gloo"],
+                    help="process-group backend of --ranks: nccl (one card "
+                         "per rank) or gloo (host ranks, or ranks sharing a "
+                         "card)")
     ap.add_argument("--diffsets", action="store_true",
                     help="dEclat diffsets (variant v6 only)")
     ap.add_argument("--max-k", type=int, default=None,
@@ -40,19 +92,21 @@ def main(argv=None):
                          "plain torch path on the host)")
     args = ap.parse_args(argv)
 
+    if args.ranks is not None:
+        from .mesh import run_ranks
+        if args.device not in (None, "cuda", "cpu"):
+            ap.error(f"--ranks places rank r on cuda:r % count, or on the cpu: "
+                     f"--device must be cuda or cpu, not {args.device!r}")
+        lines = run_ranks(_mine_rank, args.ranks, backend=args.dist_backend,
+                          device=args.device or "cuda", args=(args,))
+        print(lines[0])
+        return
+    if args.grid is not None:
+        ap.error("--grid needs a mesh: pass --ranks")
     txns, spec = generate(args.dataset, scale=args.scale, seed=1)
-    cfg = EclatConfig(min_sup=args.min_sup, variant=args.variant, p=args.p,
-                      tri_matrix=spec.tri_matrix or None,
-                      use_diffsets=args.diffsets, backend=args.backend,
-                      mode=args.mode, max_k=args.max_k)
     t0 = time.perf_counter()
-    res = mine(txns, spec.n_items, cfg, device=args.device)
-    dt = time.perf_counter() - t0
-    mode_note = (f" {args.mode}={res.stats['mode_itemsets']}"
-                 if args.mode != "all" else "")
-    print(f"[mine] {spec.name} x{args.scale} min_sup={args.min_sup} "
-          f"{args.variant}: {res.total} itemsets in {dt:.2f}s "
-          f"levels={res.counts}{mode_note}")
+    res = mine(txns, spec.n_items, _config(args, spec), device=args.device)
+    print(_summary(spec.name, args, res, time.perf_counter() - t0, None))
 
 
 if __name__ == "__main__":

@@ -124,7 +124,9 @@ def test_build_paths_bit_exact(order):
 
 
 def test_accumulator_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    """A mesh that is not a torch DeviceMesh is refused (the mesh merge
+    itself runs on gloo ranks in test_torch_mesh.py)."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         t_build_acc(DB, 10, 30, mesh=object())
 
 

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain torch versions, and the
-paths that run them (the miner, LM serving), on the card.
+paths that run them (the miner, on one device and on gloo ranks sharing
+the card; LM serving), on the card.
 
 Every test here needs a CUDA device and skips on a host without one.  The
 file imports neither jax nor the reference package, so it runs on a machine
@@ -15,11 +16,17 @@ from repro_torch import kernels
 from repro_torch.core import EclatConfig, mine, support_checksum
 from repro_torch.core.bitmap import popcount_np
 from repro_torch.device import words_from_numpy
-from repro_torch.kernels.fused_intersect import (fused_intersect,
+from repro_torch.kernels.fused_intersect import (compact_survivors,
+                                                 compact_survivors_ref,
+                                                 fused_intersect,
                                                  fused_intersect_compact,
                                                  fused_intersect_compact_ref,
+                                                 fused_intersect_partial,
+                                                 fused_intersect_partial_ref,
                                                  fused_intersect_ref,
                                                  fused_support_pairs)
+from repro_torch.kernels.popcount_support import (intersect_support,
+                                                  popcount_support_ref)
 from repro_torch.kernels.trimatrix import cooccurrence, trimatrix_ref
 from repro_torch.kernels.decode_attention import (decode_attention_ref,
                                                   grouped_decode_attention)
@@ -108,6 +115,61 @@ def test_mine_on_the_card_launches_every_kernel(cuda):
     cpu = mine(txns, 12, EclatConfig(min_sup=20, variant="v6", p=3,
                                      use_diffsets=True), device="cpu")
     assert sums["fused"] == sums["ref"] == support_checksum(cpu.support_map())
+
+
+# (P, Ws, Q): a slice of one word, Ws = 25 (chess at 4 word shards, 7 idle
+# lanes), Q = 0 and 1, several pair blocks
+PARTIAL_SHAPES = [(9, 1, 7), (40, 25, 300), (5, 13, 0), (5, 13, 1),
+                  (300, 782, 700)]
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("p,ws,q", PARTIAL_SHAPES)
+def test_fused_intersect_partial_matches_ref(cuda, p, ws, q, mode):
+    rng = np.random.default_rng(p + ws + q)
+    bm = words_from_numpy(rng.integers(0, 2**32, (p, ws), dtype=np.uint32), cuda)
+    left, right = (torch.from_numpy(rng.integers(0, p, q).astype(np.int32)).to(cuda)
+                   for _ in range(2))
+    want = fused_intersect_partial_ref(bm, left, right, mode=mode)
+    got = fused_intersect_partial(bm, left, right, mode=mode)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    none, pop = fused_intersect_partial(bm, left, right, mode=mode, store=False)
+    assert none is None and torch.equal(pop, want[1])
+    mask = (want[1] % 2).to(torch.int32)
+    for g, e in zip(compact_survivors(bm, left, right, mask.clone(), q - q // 3,
+                                      mode=mode),
+                    compact_survivors_ref(bm, left, right, mask.clone(),
+                                          q - q // 3, mode=mode)):
+        assert torch.equal(g.reshape(-1), e.reshape(-1).to(g.dtype))
+
+
+@pytest.mark.parametrize("m,w", [(1, 1), (0, 4), (9, 5), (300, 3125), (5000, 25)])
+def test_popcount_support_matches_ref(cuda, m, w):
+    rng = np.random.default_rng(m + w)
+    a, b = (words_from_numpy(rng.integers(0, 2**32, (m, w), dtype=np.uint32), cuda)
+            for _ in range(2))
+    got, want = intersect_support(a, b), popcount_support_ref(a, b)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_tidsharded_mine_on_two_gloo_ranks_sharing_the_card(cuda):
+    """chess on 2 gloo ranks sharing the card, word-sharded through K3,
+    equal to the single-device fused mine on every rank."""
+    from repro_torch.data import generate
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.mesh_runs import run_jobs
+    txns, spec = generate("chess", scale=1.0, seed=0)
+    cfg = dict(min_sup=0.8, variant="v4", backend="fused", shard="words")
+    want = mine(txns, spec.n_items, EclatConfig(min_sup=0.8, variant="v4"))
+    per_rank = run_ranks(run_jobs, 2, backend="gloo", device="cuda",
+                         args=([dict(kind="mine", txns=txns,
+                                     n_items=spec.n_items, config=cfg)],),
+                         timeout=300)
+    for (res,) in per_rank:
+        assert res["checksum"] == support_checksum(want.support_map())
+        assert res["stats"]["backend"] == "tidsharded"
+        assert res["launches"]["fused_intersect_partial"] == res["n_expands"] > 0
+        assert res["stats"]["frontier_words"] == -(-want.stats["n_words"] // 2)
 
 
 # attention kernels vs their plain versions run in float32 on the same

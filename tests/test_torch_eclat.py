@@ -175,12 +175,29 @@ def test_default_device_is_cuda_and_never_falls_back():
     ("checkpoint_dir", "ckpt"), ("checkpoint_every_level", True)])
 def test_unported_options_raise(field, value):
     cfg = dataclasses.replace(EclatConfig(min_sup=20), **{field: value})
+    if field == "shard":
+        # ported with the mesh backends: without a mesh the split has
+        # nothing to split, and both packages mine on one device
+        got = mine(DB, 10, cfg, device="cpu")
+        want = j_mine(DB, 10, dataclasses.replace(JConfig(min_sup=20),
+                                                  **{field: value}))
+        assert got.support_map() == want.support_map()
+        assert got.stats["backend"] == "fused"
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         mine(DB, 10, cfg, device="cpu")
 
 
 @pytest.mark.parametrize("backend", ["auto", "sharded"])
 def test_unported_backends_raise(backend):
+    if backend == "sharded":
+        # ported: with no mesh it is the single-device default, as in the
+        # reference (tests/test_torch_mesh.py runs it on a mesh)
+        got = mine(DB, 10, EclatConfig(min_sup=20, backend=backend), device="cpu")
+        want = j_mine(DB, 10, JConfig(min_sup=20, backend=backend))
+        assert got.support_map() == want.support_map()
+        assert (got.stats["backend"], want.stats["backend"]) == ("fused", "pallas")
+        return
     with pytest.raises(NotImplementedError):
         mine(DB, 10, EclatConfig(min_sup=20, backend=backend), device="cpu")
 

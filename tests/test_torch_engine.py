@@ -112,6 +112,11 @@ def test_out_of_range_pairs_are_refused_on_the_host():
 
 @pytest.mark.parametrize("name", ["auto", "batched", "sharded", "tidsharded", "grid"])
 def test_unported_backends_raise_not_implemented(name):
+    if name in ("sharded", "tidsharded", "grid"):
+        # ported: a mesh backend needs a mesh, as in the reference
+        with pytest.raises(ValueError, match="requires a mesh"):
+            teng.make_engine(name)
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         teng.make_engine(name)
 
@@ -119,7 +124,8 @@ def test_unported_backends_raise_not_implemented(name):
 def test_unknown_backend_is_a_value_error():
     with pytest.raises(ValueError, match="available"):
         teng.make_engine("pallas")
-    assert teng.available_backends() == ["fused", "ref"]
+    assert teng.available_backends() == ["fused", "grid", "ref", "sharded",
+                                         "tidsharded"]
 
 
 def test_empty_expansion_keeps_device_and_width():

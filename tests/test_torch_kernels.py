@@ -20,10 +20,13 @@ from repro.core.bitmap import popcount_np
 
 from repro_torch import kernels as tk
 from repro_torch.device import words_from_numpy, words_to_numpy
-from repro_torch.kernels.fused_intersect import (fused_intersect,
+from repro_torch.kernels.fused_intersect import (compact_survivors,
+                                                 fused_intersect,
                                                  fused_intersect_compact,
                                                  fused_intersect_compact_ref,
+                                                 fused_intersect_partial,
                                                  fused_intersect_ref)
+from repro_torch.kernels.popcount_support import intersect_support
 from repro_torch.kernels.trimatrix import cooccurrence, trimatrix_ref
 from repro_torch.kernels.decode_attention import grouped_decode_attention
 from repro_torch.kernels.flash_attention import multi_head_attention
@@ -138,6 +141,9 @@ def test_cpu_tensors_never_touch_launch_counters():
     args = _torch_args(words, left, right, sup_left)
     fused_intersect(*args, 3, mode=0)
     fused_intersect_compact(*args, 3, 5, mode=1)
+    fused_intersect_partial(*args[:3], mode=2, store=False)
+    compact_survivors(*args[:3], torch.ones(7, dtype=torch.int32), 5, mode=0)
+    intersect_support(args[0], args[0])
     cooccurrence(args[0])
     q = torch.zeros((1, 4, 8, 16))
     multi_head_attention(q, q[:, :2], q[:, :2])
@@ -145,8 +151,10 @@ def test_cpu_tensors_never_touch_launch_counters():
                              q.transpose(1, 2)[:, :, :2],
                              torch.tensor([3], dtype=torch.int32))
     assert tk.launch_counts() == {"fused_intersect": 0,
-                                  "fused_intersect_compact": 0, "trimatrix": 0,
-                                  "flash_attention": 0, "decode_attention": 0}
+                                  "fused_intersect_compact": 0,
+                                  "fused_intersect_partial": 0, "trimatrix": 0,
+                                  "flash_attention": 0, "decode_attention": 0,
+                                  "popcount_support": 0}
 
 
 def test_cuda_kernel_wrappers_refuse_cpu_tensors():
@@ -166,3 +174,98 @@ def test_cuda_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         trimatrix(args[0])
     assert not any(tk.launch_counts().values())
+
+
+# ---------------------------------------------------------------------------
+# K3: the shard-local partial popcount of the word-sharded backends
+# ---------------------------------------------------------------------------
+
+# (P, W, Q, n_shards): W = 101 and 9 are no multiple of 4 (the last slice
+# ends in zero pad words), Q = 0 and Q = 1, a slice of one word
+PARTIAL_SHAPES = [(20, 101, 13, 4), (9, 9, 40, 4), (7, 6, 0, 2),
+                  (5, 13, 1, 4), (12, 3, 17, 3)]
+
+
+def _word_slices(words, n):
+    """Every rank's (P, ceil(W / n)) slice of a zero-padded frontier."""
+    ws = -(-words.shape[1] // n)
+    padded = np.zeros((words.shape[0], ws * n), np.uint32)
+    padded[:, :words.shape[1]] = words
+    return [padded[:, i * ws:(i + 1) * ws] for i in range(n)]
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("p,w,q,n", PARTIAL_SHAPES)
+def test_fused_intersect_partial_ref_matches_pallas_kernel_and_oracle(p, w, q, n, mode):
+    from repro.kernels.fused_intersect import fused_intersect_partial_pairs as j_partial
+    from repro.kernels.fused_intersect.ref import fused_intersect_partial_ref as j_partial_ref
+    from repro_torch.kernels.fused_intersect import fused_intersect_partial_ref
+    words, left, right, _ = _pair_case(p, w, q, seed=p * 31 + w + q)
+    total = np.zeros(q, np.int64)
+    for block in _word_slices(words, n):
+        bm, l, r = (words_from_numpy(block, "cpu"), torch.from_numpy(left),
+                    torch.from_numpy(right))
+        got_inter, got_pop = fused_intersect_partial_ref(bm, l, r, mode=mode)
+        jargs = (jnp.asarray(block), jnp.asarray(left), jnp.asarray(right))
+        want_ref = j_partial_ref(*jargs, mode=mode)
+        wants = [want_ref]
+        if q:
+            wants.append(j_partial(*jargs, mode=mode, interpret=True))
+        for want_inter, want_pop in wants:
+            assert np.array_equal(words_to_numpy(got_inter),
+                                  np.asarray(want_inter).reshape(q, block.shape[1]))
+            assert np.array_equal(got_pop.numpy(), np.asarray(want_pop))
+        # the dispatch on a CPU tensor is the plain version, with or without
+        # the (Q, Ws) store
+        inter, pop = fused_intersect_partial(bm, l, r, mode=mode)
+        assert torch.equal(inter, got_inter) and torch.equal(pop, got_pop)
+        none, pop = fused_intersect_partial(bm, l, r, mode=mode, store=False)
+        assert none is None and torch.equal(pop, got_pop)
+        total += got_pop.numpy()
+    # the slices' counts sum to the count of the whole rows
+    _, whole = fused_intersect_partial_ref(words_from_numpy(words, "cpu"),
+                                           torch.from_numpy(left),
+                                           torch.from_numpy(right), mode=mode)
+    assert np.array_equal(total, whole.numpy())
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("p,w,q,nv", PAIR_SHAPES)
+def test_compact_survivors_ref_matches_compact_epilogue(p, w, q, nv, mode):
+    """The compaction from a given mask equals the reference's epilogue on
+    the same mask (the word-sharded backends compact after the reduce)."""
+    from repro.kernels.fused_intersect import compact_epilogue as j_epilogue
+    from repro_torch.kernels.fused_intersect import compact_survivors_ref
+    words, left, right, sup_left = _pair_case(p, w, q, seed=p + 5 * w + q)
+    mask = (np.arange(q) % 3 != 1).astype(np.int32)
+    targs = _torch_args(words, left, right, sup_left)
+    got = compact_survivors_ref(*targs[:3], torch.from_numpy(mask), nv, mode=mode)
+    inter, _ = j_ref(*_jax_args(words, left, right, sup_left), 0, mode=mode)[:2]
+    want = j_epilogue(inter, jnp.asarray(sup_left), jnp.asarray(mask), jnp.int32(nv))
+    assert np.array_equal(words_to_numpy(got[0]), np.asarray(want[0]))
+    assert np.array_equal(got[1].numpy(), np.asarray(want[2]))
+    assert int(got[2]) == int(want[3])
+
+
+# ---------------------------------------------------------------------------
+# K5: popcount_support (no mining path calls it)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,w", [(1, 1), (9, 5), (300, 130), (0, 4), (7, 513)])
+def test_popcount_support_ref_matches_pallas_kernel_and_oracle(m, w):
+    from repro.kernels.popcount_support import popcount_support as j_ps
+    from repro.kernels.popcount_support import popcount_support_ref as j_ps_ref
+    from repro_torch.kernels.popcount_support import popcount_support_ref
+    rng = np.random.default_rng(m * 7 + w)
+    a = rng.integers(0, 2**32, (m, w), dtype=np.uint32)
+    b = rng.integers(0, 2**32, (m, w), dtype=np.uint32)
+    got = popcount_support_ref(words_from_numpy(a, "cpu"), words_from_numpy(b, "cpu"))
+    wants = [j_ps_ref(jnp.asarray(a), jnp.asarray(b))]
+    if m:
+        wants.append(j_ps(jnp.asarray(a), jnp.asarray(b), block_m=128,
+                          block_w=128, interpret=True))
+    for want_inter, want_sup in wants:
+        assert np.array_equal(words_to_numpy(got[0]), np.asarray(want_inter))
+        assert np.array_equal(got[1].numpy(), np.asarray(want_sup))
+    via = intersect_support(words_from_numpy(a, "cpu"), words_from_numpy(b, "cpu"))
+    assert torch.equal(via[0], got[0]) and torch.equal(via[1], got[1])
