@@ -71,6 +71,7 @@ TRI_SHAPES = [(187, 3125), (1000, 3125), (4096, 3125), (1, 1), (33, 7)]
 HBM_BYTES_PER_S = 3.35e12
 INT8_TENSOR_OPS_PER_S = 1.979e15  # two operations per multiply-add
 BF16_TENSOR_FLOPS = 9.89e14       # dense bf16, two per multiply-add
+FP32_FLOPS = 6.7e13               # float32 outside the tensor cores
 
 
 # the shape of each kernel's row in the "kernels" line: the largest call
@@ -82,6 +83,7 @@ REPORT_SHAPE = {"fused_intersect": "P=60038 W=100 Q=393216",
                 "popcount_support": "M=4096 W=3125",
                 "trimatrix": "N=187 W=3125",
                 "flash_attention": "B=2 H=8 Hkv=4 S=2048 D=256 bf16 causal window=0",
+                "flash_attention_f32": "B=2 H=8 Hkv=4 S=2048 D=256 f32 causal window=0",
                 "decode_attention": "B=2 KV=4 G=2 D=256 S=2080 len=2079 bf16 window=0"}
 MINING_KERNELS = ("fused_intersect", "fused_intersect_compact", "trimatrix")
 
@@ -655,8 +657,14 @@ def attn_inputs(b, h, hkv, s, d, dtype, seed, model_layout=False):
 
 
 def check_flash_attention():
+    """K6 against its plain version: bfloat16 through the wgmma kernel (and
+    against the emulation of its split-P arithmetic), float32 through the
+    FMA kernel; each case launches only its dtype's variant, and two calls
+    give the same bits."""
     import torch
+    from repro_torch import kernels
     from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     attention_split_p_ref,
                                                      flash_attention,
                                                      multi_head_attention)
     # (label, B, H, Hkv, S, D, causal, window, model layout)
@@ -672,18 +680,37 @@ def check_flash_attention():
     ]
     for dtype in (torch.bfloat16, torch.float32):
         limit = LIMIT_TEXT[str(dtype).split(".")[1]]
+        name, variant = (("flash_attention", "wgmma_bf16") if dtype == torch.bfloat16
+                         else ("flash_attention_f32", "fma_f32"))
         for label, b, h, hkv, s, d, causal, window, layout in cases:
             q, k, v = attn_inputs(b, h, hkv, s, d, dtype, seed=s + h + d, model_layout=layout)
+            kernels.reset_launch_counts()
             got = multi_head_attention(q, k, v, causal=causal, window=window)
+            again = multi_head_attention(q, k, v, causal=causal, window=window)
+            counts = kernels.variant_counts()
             want = attention_ref(q.float(), k.float(), v.float(), causal=causal,
                                  window=window or None)
             torch.cuda.synchronize()
-            err, ratio = compare_attention("flash_attention", got, want,
+            require(counts == {f"flash_attention.{x}": 2 if x == variant else 0
+                               for x in ("wgmma_bf16", "fma_f32")},
+                    f"flash_attention {label} {dtype}: variant launches {counts}")
+            require(torch.equal(got, again),
+                    f"flash_attention {label} {dtype}: two calls differ")
+            err, ratio = compare_attention(name, got, want,
                                            f"flash_attention {label} {dtype}")
+            split = ""
+            if dtype == torch.bfloat16:
+                # the kernel against the plain emulation of its arithmetic
+                # (split P), run in float32, under the same bf16 limit
+                emu = attention_split_p_ref(q.float(), k.float(), v.float(), causal=causal,
+                                            window=window or None)
+                _, emu_ratio = compare_attention(name, got, emu,
+                                                 f"flash_attention {label} {dtype} vs split-P")
+                split = f"; vs the split-P emulation at {emu_ratio:.3f} x the limit"
             print(f"check flash_attention {label} B={b} H={h} Hkv={hkv} S={s} "
-                  f"D={d} causal={causal} window={window} {dtype}: max abs err "
-                  f"{err:.3e} from the plain output; error vs float32 at "
-                  f"{ratio:.3f} x its limit ({limit})")
+                  f"D={d} causal={causal} window={window} {dtype} ({variant}): max "
+                  f"abs err {err:.3e} from the plain output; error vs float32 at "
+                  f"{ratio:.3f} x its limit ({limit}){split}; two calls equal")
         # window 0 and None both mean none; the kernel's 0 is the same
         q, k, v = attn_inputs(1, 8, 4, 129, 256, dtype, seed=5)
         a = multi_head_attention(q, k, v, causal=True, window=0)
@@ -700,9 +727,13 @@ def check_decode_attention():
     from repro_torch.kernels.decode_attention import (decode_attention_ref,
                                                       grouped_decode_attention)
     # (B, KV, G, D, lengths)
+    # lengths at the kernel's 64-row chunk edges (64, 65, 2,047, 2,080) with
+    # every group size; windows of 1,024 start inside a chunk
     cases = [(2, 4, 2, 256, [1, 2080]), (2, 4, 2, 256, [2079, 1537]),
              (4, 1, 8, 256, [1, 777, 2079, 2080]), (3, 2, 4, 16, [5, 64, 65]),
-             (2, 4, 1, 128, [1000, 3])]
+             (2, 4, 1, 128, [1000, 3]), (2, 4, 2, 256, [64, 2047]),
+             (4, 4, 1, 256, [64, 65, 2047, 2080]), (4, 2, 4, 256, [65, 64, 2080, 2047]),
+             (4, 1, 8, 256, [2047, 65, 64, 2080])]
     s = 2080
     for dtype in (torch.bfloat16, torch.float32):
         limit = LIMIT_TEXT[str(dtype).split(".")[1]]
@@ -717,9 +748,13 @@ def check_decode_attention():
             length = torch.tensor(lens, dtype=torch.int32, device="cuda")
             for window in (0, 1024):
                 got = grouped_decode_attention(q, k, v, length, window=window)
+                again = grouped_decode_attention(q, k, v, length, window=window)
                 want = decode_attention_ref(q.float(), k.float(), v.float(),
                                             length, window=window)
                 torch.cuda.synchronize()
+                require(torch.equal(got, again),
+                        f"decode_attention B={b} KV={kv} G={g} len={lens} "
+                        f"window={window} {dtype}: two calls differ")
                 err, ratio = compare_attention(
                     "decode_attention", got, want,
                     f"decode_attention B={b} KV={kv} G={g} D={d} "
@@ -727,7 +762,7 @@ def check_decode_attention():
                 print(f"check decode_attention B={b} KV={kv} G={g} D={d} S={s} "
                       f"lengths={lens} window={window} {dtype}: max abs err "
                       f"{err:.3e} from the plain output; error vs float32 at "
-                      f"{ratio:.3f} x its limit ({limit})")
+                      f"{ratio:.3f} x its limit ({limit}); two calls equal")
 
 
 def serve_requests(vocab):
@@ -782,6 +817,7 @@ def run_serving():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = kernels.launch_counts()
+        counts.update(kernels.variant_counts())
         n_sub = stats["latency"]["n_batches"]
         steps = stats["decode_steps"]
         n_tok = sum(len(o) for o in results.values())
@@ -807,6 +843,12 @@ def run_serving():
         require(counts["flash_attention"] == n_layers * n_sub,
                 f"flash_attention launched {counts['flash_attention']} times, "
                 f"expected {n_layers} per prefill sub-batch x {n_sub}")
+        require(counts["flash_attention.wgmma_bf16"] == n_layers * n_sub and
+                counts["flash_attention.fma_f32"] == 0,
+                f"the bf16 serve launched the flash_attention variants "
+                f"wgmma_bf16 {counts['flash_attention.wgmma_bf16']} times and "
+                f"fma_f32 {counts['flash_attention.fma_f32']} times, expected "
+                f"{n_layers * n_sub} and 0")
         require(counts["decode_attention"] == n_layers * steps,
                 f"decode_attention launched {counts['decode_attention']} times, "
                 f"expected {n_layers} per decode step x {steps}")
@@ -883,13 +925,24 @@ def check_decode_matches_prefill(params, cfg):
     def rel(a, b):
         return float((a - b).norm() / b.norm())
 
+    def variants_used(dtype, want):
+        got = kernels.variant_counts()
+        other = ({"wgmma_bf16", "fma_f32"} - {want}).pop()
+        require(got[f"flash_attention.{want}"] > 0 and got[f"flash_attention.{other}"] == 0,
+                f"{dtype} model runs launched flash_attention variants {got}")
+        print(f"check {dtype} model runs: flash_attention variants {got}")
+
     p32 = _cast(params, torch.float32)
+    kernels.reset_launch_counts()
     full32, dec32 = both_paths(p32, "float32")
+    variants_used("float32", "fma_f32")
     with plain_attention():
         plain_full32, plain_dec32 = both_paths(p32, "float32")
     del p32
     torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
     full16, dec16 = both_paths(params, "bfloat16")
+    variants_used("bfloat16", "wgmma_bf16")
     with plain_attention():
         plain_full16, plain_dec16 = both_paths(params, "bfloat16")
 
@@ -939,11 +992,12 @@ def _cast(tree, dtype):
     return tree.to(dtype)
 
 
-def bound_attn(nbytes, flops):
+def bound_attn(nbytes, flops, rate=BF16_TENSOR_FLOPS):
     """Least time in ms for work that moves ``nbytes`` and does ``flops``
-    bf16 operations (two per multiply-add) at the dense tensor-core rate."""
+    operations (two per multiply-add) at ``rate``: the dense bf16
+    tensor-core rate for bf16 inputs, the float32 rate for float32."""
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = flops / BF16_TENSOR_FLOPS * 1e3
+    t_o = flops / rate * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -954,7 +1008,18 @@ def time_attention(counts):
                                                       grouped_decode_attention)
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      multi_head_attention)
-    from repro_torch.launch.kernel_timing import median_ms
+    from repro_torch.launch.kernel_timing import device_ms, median_ms
+
+    def timed(kernel, plain, library, reps=20, plain_reps=20):
+        """ms, plain_ms, library_ms: device time per call (the kernels a
+        call launches, from a profiler trace); *_call_ms: CUDA events
+        around each call, the host's launch work included."""
+        out = {}
+        for key, fn, n in (("ms", kernel, reps), ("plain_ms", plain, plain_reps),
+                           ("library_ms", library, reps)):
+            out[key] = device_ms(fn, reps=n)
+            out[key.replace("ms", "call_ms")] = median_ms(fn, reps=n)
+        return out
 
     rows = []
     b, h, hkv, s, d = 2, 8, 4, 2048, 256
@@ -982,8 +1047,29 @@ def time_attention(counts):
                          source="src/repro_torch/csrc/flash_attention.cu",
                          replaces="src/repro/kernels/flash_attention/flash_attention.py:110",
                          shape=f"B={b} H={h} Hkv={hkv} S={s} D={d} bf16 causal window={window}",
-                         ms=median_ms(fn), plain_ms=median_ms(ref, reps=5),
-                         bound_ms=bms, bound_by=by, library_ms=median_ms(lib)))
+                         **timed(fn, ref, lib, plain_reps=5),
+                         bound_ms=bms, bound_by=by,
+                         launches=counts["flash_attention.wgmma_bf16"]))
+        if window == 0:
+            # K6's float32 variant (the FMA kernel) at the global layer
+            q32, k32, v32 = q.float(), k.float(), v.float()
+            fn32 = lambda: multi_head_attention(q32, k32, v32, causal=True, window=0)
+            lib32 = lambda: F.scaled_dot_product_attention(
+                q32, k32, v32, is_causal=True, enable_gqa=True)
+            err = float((lib32() - fn32()).abs().max())
+            require(err <= SDPA_TOL,
+                    f"SDPA yardstick disagrees with flash_attention float32: {err:.3e}")
+            bms32, by32 = bound_attn(2 * nbytes, 4 * d * kept * b * h, FP32_FLOPS)
+            rows.append(dict(name="flash_attention_f32", route="cuda",
+                             source="src/repro_torch/csrc/flash_attention.cu",
+                             replaces="src/repro/kernels/flash_attention/flash_attention.py:110",
+                             shape=f"B={b} H={h} Hkv={hkv} S={s} D={d} f32 causal window=0",
+                             **timed(fn32, lambda: attention_ref(
+                                 q32, k32, v32, causal=True, window=None), lib32,
+                                 plain_reps=5),
+                             bound_ms=bms32, bound_by=by32,
+                             launches=counts["flash_attention.fma_f32"]))
+            del q32, k32, v32
     b, kv, g, d, smax = 2, 4, 2, 256, 2080
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
@@ -1008,25 +1094,33 @@ def time_attention(counts):
                          source="src/repro_torch/csrc/decode_attention.cu",
                          replaces="src/repro/kernels/decode_attention/decode_attention.py:98",
                          shape=f"B={b} KV={kv} G={g} D={d} S={smax} len={n} bf16 window={window}",
-                         ms=median_ms(fn, reps=50), plain_ms=median_ms(ref),
-                         bound_ms=bms, bound_by=by, library_ms=median_ms(lib, reps=50)))
+                         **timed(fn, ref, lib, reps=50),
+                         bound_ms=bms, bound_by=by,
+                         launches=counts["decode_attention"]))
     for row in rows:
         row["listed"] = True
-        row["launches"] = counts[row["name"]]
         print(f"timing {row['name']} {row['shape']}: ms={row['ms']:.5f} "
               f"plain_ms={row['plain_ms']:.5f} bound_ms={row['bound_ms']:.5f} "
               f"({row['bound_by']}) library_ms={row['library_ms']:.5f} "
-              f"launches_on_main_path={row['launches']}")
+              f"launches_on_main_path={row['launches']}; per call with the host's "
+              f"launch work: call_ms={row['call_ms']:.5f} "
+              f"plain_call_ms={row['plain_call_ms']:.5f} "
+              f"library_call_ms={row['library_call_ms']:.5f}")
         for key in ("ms", "plain_ms", "library_ms"):
             require(row["bound_ms"] <= row[key],
                     f"{row['name']} {row['shape']}: bound_ms "
                     f"{row['bound_ms']:.5f} exceeds {key} {row[key]:.5f}")
     print("timing note: attention bounds count the (row, column) pairs the "
           "masks keep, 4 D operations each, at the dense bf16 tensor-core "
-          "rate, and q, k, v, out (decode: the valid cache rows) read or "
+          "rate (flash_attention_f32: the float32 rate, 6.7e13 FLOP/s, and 4-byte "
+          "elements), and q, k, v, out (decode: the valid cache rows) read or "
           "written once; library_ms is torch scaled_dot_product_attention "
           "(enable_gqa; the windowed layer with a boolean mask), which the "
-          "port never calls")
+          "port never calls; launches are the first bf16 serve's, per variant "
+          "(the float32 variant serves no bf16 model); ms, plain_ms and "
+          "library_ms of the attention rows are device time per call "
+          "(torch.profiler, kernels summed), call_ms CUDA events around "
+          "each call")
     return rows
 
 

@@ -4,7 +4,12 @@
 
 The cache is read through its strides (a layer's slice of the stacked
 per-stage cache is passed as it is); ``length`` stays on the card and the
-kernel reads it, so a decode step makes no host round trip.
+kernel reads it, so a decode step makes no host round trip.  The kernel
+splits the cache into chunks of ``CHUNK`` rows over its blocks and merges
+their fp32 partials in one launch: the partials go to scratch allocated
+here with ``torch.empty``, and the last block of each (b, KV head) finds
+itself through a ticket counter, an int32 buffer kept per (device, stream),
+zeroed once and reset to zero by the kernel itself (no memset per call).
 """
 from __future__ import annotations
 
@@ -19,7 +24,9 @@ __all__ = ["decode_attention"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 GROUPS = (1, 2, 4, 8)
+CHUNK = 64                  # cache rows per block; csrc's kChunk
 _BOUND = False
+_TICKETS: dict = {}         # (device index, stream) -> int32 tickets
 
 
 def _lib() -> ctypes.CDLL:
@@ -28,11 +35,25 @@ def _lib() -> ctypes.CDLL:
     if not _BOUND:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.decode_attention_launch.argtypes = [
-            vp, vp, vp, vp, vp, i, i, i, i, i, i,
+            vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i,
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i, i, vp]
         lib.decode_attention_launch.restype = ctypes.c_int
+        lib.decode_attention_chunk.restype = ctypes.c_int
+        if lib.decode_attention_chunk() != CHUNK:
+            raise RuntimeError("decode_attention.CHUNK differs from the "
+                               "CUDA source's chunk")
         _BOUND = True
     return lib
+
+
+def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` int32 tickets for launches on ``stream``, all zero
+    between launches (the kernel resets the ones it takes)."""
+    key = (device.index, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = _TICKETS[key] = torch.zeros(n, dtype=torch.int32, device=device)
+    return t
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -71,6 +92,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "to 256")
     if window < 0:
         raise ValueError(f"window must be >= 0 (0 = none), got {window}")
+    if s == 0:
+        raise ValueError("the cache has no rows")
     if sm_scale is None:
         sm_scale = d ** -0.5
     q = rows_of_16_bytes(q.contiguous())
@@ -79,13 +102,21 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    lib = _lib()
+    n_split = -(-s // CHUNK)    # blocks per (b, KV head), from the capacity
+    part_acc = torch.empty((b * kv, n_split, g, d), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((b * kv, n_split, g, 2), dtype=torch.float32,
+                          device=q.device)
     strides = (ctypes.c_longlong * 6)(*k.stride()[:3], *v.stride()[:3])
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = _lib().decode_attention_launch(
+    tickets = _tickets(q.device, stream, b * kv)
+    code = lib.decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
-        out.data_ptr(), _DTYPES[q.dtype], b, kv, g, s, d, strides,
+        out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+        tickets.data_ptr(), _DTYPES[q.dtype], b, kv, g, s, d, strides,
         float(sm_scale), int(window), q.device.index, stream)
-    _build.check(code, "decode_attention_kernel")
+    _build.check(code, "decode_attention_split_kernel")
     decode_attention.launches += 1
     return out
 

@@ -1,6 +1,10 @@
-"""ctypes binding of the flash-attention CUDA kernel
-(``csrc/flash_attention.cu``), with its launch counter
-``flash_attention.launches``.
+"""ctypes binding of the flash-attention CUDA kernels
+(``csrc/flash_attention.cu``), with the launch counter
+``flash_attention.launches`` (every launch) and one counter per variant in
+``flash_attention.variant_launches``: ``wgmma_bf16`` (bfloat16 inputs, the
+tensor-core kernel the served model runs) and ``fma_f32`` (float32 inputs,
+the CUDA-core kernel).  The dtype picks the variant; neither falls back to
+the other, and a failed launch raises.
 
 The kernel reads q, k and v and writes the output through their strides, so
 a (B, H, S, D) view of the model's (B, S, H, D) activations
@@ -19,6 +23,7 @@ from .._layout import rows_of_16_bytes
 __all__ = ["flash_attention"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_VARIANTS = {torch.float32: "fma_f32", torch.bfloat16: "wgmma_bf16"}
 _BOUND = False
 
 
@@ -39,7 +44,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     sm_scale=None) -> torch.Tensor:
     """q: (B, H, S, D); k/v: (B, Hkv, S, D) on the card, float32 or
-    bfloat16 -> (B, H, S, D) in q's dtype.  ``window`` 0 means no window
+    bfloat16 -> (B, H, S, D) in q's dtype (bfloat16: the wgmma kernel;
+    float32: the FMA kernel).  ``window`` 0 means no window
     (:func:`.ops.multi_head_attention` maps ``None`` to 0).  Self-attention
     only: k and v have q's sequence length."""
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -77,9 +83,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         _DTYPES[q.dtype], b, h, hkv, s, d, strides, float(sm_scale),
         int(bool(causal)), int(window), q.device.index, stream)
-    _build.check(code, "flash_attention_kernel")
+    variant = _VARIANTS[q.dtype]
+    _build.check(code, f"flash_attention ({variant})")
     flash_attention.launches += 1
+    flash_attention.variant_launches[variant] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.variant_launches = dict.fromkeys(_VARIANTS.values(), 0)

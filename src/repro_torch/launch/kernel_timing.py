@@ -57,6 +57,27 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(event_times_ms(fn, reps, warmup))
 
 
+def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Device time of one call of ``fn`` in ms: the CUDA kernels (and
+    copies) that ``reps`` calls launch, summed from a ``torch.profiler``
+    trace, over ``reps``, after ``warmup`` untimed calls.  Unlike
+    :func:`event_times_ms` it leaves out the host's time between launches,
+    which is most of a call whose kernels take a few microseconds."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if us <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    return us / 1e3 / reps
+
+
 def pair_inputs(p, w, q, seed):
     """Random frontier words, pair lists and true left supports on the card;
     min_sup at the median mode-0 support, so about half the pairs survive."""

@@ -38,6 +38,9 @@ PROFILE_BATCH = SERVE_PROMPTS.count(max(SERVE_PROMPTS)) // SERVE_BATCHES
 PROFILE_PROMPT = max(SERVE_PROMPTS)
 PROFILE_STEPS = 16
 TOP_KERNELS = 12
+# the attention kernels' names in the trace: K6's bf16 variant (the served
+# model's) and K7
+ATTENTION_KERNELS = ("flash_attention_wgmma_kernel", "decode_attention_split_kernel")
 
 
 def _kernel_times(prof) -> dict:
@@ -62,7 +65,7 @@ def _window(label, fn):
     times = _kernel_times(prof)
     busy = sum(ms for ms, _ in times.values())
     attn = {name: sum(ms for k, (ms, _) in times.items() if name in k)
-            for name in ("flash_attention_kernel", "decode_attention_kernel")}
+            for name in ATTENTION_KERNELS}
     print(f"{label}: wall_ms={wall_ms:.3f} (profiled) device_busy_ms={busy:.3f} "
           f"idle_share={1 - busy / wall_ms:.4f} "
           + " ".join(f"{k}_ms={v:.3f} ({v / busy:.1%} of busy)"

@@ -8,6 +8,12 @@ kernels (run in interpret mode, as the reference's own tests run them),
 its oracles and its model paths.  Everything is float32; the tolerance,
 2e-5 absolute on outputs of magnitude below 4, covers sums taken in another
 order by two frameworks.
+
+The emulations of the CUDA kernels' arithmetic (``attention_split_p_ref``:
+the bf16 kernel's probabilities split into two bf16 terms;
+``decode_attention_split_ref``: the cache split into chunks merged in
+order) are held to the reference package under the limits the card's
+checks use.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -23,8 +29,10 @@ from repro.models.attention import flash_chunked as j_flash_chunked
 from repro_torch import kernels as tk
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_ref,
+                                                  decode_attention_split_ref,
                                                   grouped_decode_attention)
 from repro_torch.kernels.flash_attention import (attention_ref,
+                                                 attention_split_p_ref,
                                                  flash_attention,
                                                  multi_head_attention)
 from repro_torch.models.attention import _decode_attend, flash_chunked
@@ -177,3 +185,106 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_count_nothing():
     multi_head_attention(q, k, v)
     grouped_decode_attention(qd, kd, vd, torch.tensor([3], dtype=torch.int32))
     assert not any(tk.launch_counts().values())
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernel's split-P arithmetic and the decode kernel's split cache
+
+# bf16 outputs are held to half a bf16 unit of the float32 result plus the
+# float32 order difference, the limit chip_smoke.py sets on the card
+BF16_REL, BF16_ATOL = 2.0 ** -8, 1e-5
+
+# (S, window): gemma3-4b's global and local layers at D = 256 with S cut to
+# 512 (a window of 1,024 then masks nothing; 128 does), and a ragged S
+SPLIT_P_CASES = [(512, None), (512, 1024), (512, 128), (333, 100)]
+
+
+def _bf16_qkv(s, seed):
+    """bf16 q, k, v (B=1, H=8, Hkv=4, D=256, gemma3-4b's heads) and their
+    float32 values as numpy arrays."""
+    q, k, v = _qkv(1, 8, 4, s, 256, seed=seed)
+    tq, tk_, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    return (tq, tk_, tv), [t.float().numpy() for t in (tq, tk_, tv)]
+
+
+def _bf16_limit_ratio(got, want):
+    """Largest |got - want| / (2^-8 |want| + 1e-5) of a bf16 ``got``."""
+    want = np.asarray(want, np.float64)
+    err = np.abs(got.float().numpy().astype(np.float64) - want)
+    return float((err / (BF16_REL * np.abs(want) + BF16_ATOL)).max())
+
+
+def _reference_flash(qkv32, window):
+    return np.asarray(j_flash(*(jnp.asarray(x) for x in qkv32), causal=True,
+                              window=window, block_q=128, block_k=128,
+                              interpret=True))
+
+
+@pytest.mark.parametrize("s,window", SPLIT_P_CASES)
+def test_split_p_emulation_holds_the_bf16_limit(s, window):
+    """p = p_hi + p_lo in bf16 before PV, the output rounded once to bf16,
+    against the reference kernel in float32 on the same bf16 values."""
+    qkv, qkv32 = _bf16_qkv(s, seed=s + (window or 0))
+    got = attention_split_p_ref(*qkv, causal=True, window=window)
+    assert got.dtype == torch.float32
+    assert _bf16_limit_ratio(got.to(torch.bfloat16), _reference_flash(qkv32, window)) <= 1.0
+
+
+def _p_rounded_once(q, k, v, window):
+    """Attention with p = exp(s - max) rounded once to bf16 before the PV
+    product (fp32 sums, normalised by the fp32 sum of p), float32 out."""
+    group = q.shape[1] // k.shape[1]
+    kk, vv = (t.float().repeat_interleave(group, dim=1) for t in (k, v))
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * q.shape[-1] ** -0.5
+    i = torch.arange(q.shape[2])
+    keep = i[None, :] <= i[:, None]
+    if window is not None:
+        keep &= i[None, :] > i[:, None] - window
+    p = torch.exp(torch.where(keep, s, -1e30) - torch.where(keep, s, -1e30).amax(-1, keepdim=True))
+    pv = torch.einsum("bhqk,bhkd->bhqd", p.to(torch.bfloat16).float(), vv)
+    return pv / p.sum(-1, keepdim=True)
+
+
+@pytest.mark.parametrize("s,window", SPLIT_P_CASES)
+def test_one_bf16_rounding_of_p_breaks_the_bf16_limit(s, window):
+    """The same inputs with p rounded once to bf16 (what flash kernels
+    usually run through PV) miss the limit: why the kernel splits P."""
+    qkv, qkv32 = _bf16_qkv(s, seed=s + (window or 0))
+    got = _p_rounded_once(*qkv, window)
+    assert _bf16_limit_ratio(got.to(torch.bfloat16), _reference_flash(qkv32, window)) > 1.0
+
+
+# lengths at the 64-row chunk edges of a 200-row cache (4 chunks, the last
+# ragged), the full cache, and 1 (three chunks wholly past the length)
+EDGE_LENGTHS = np.array([1, 63, 64, 65, 128, 129, 199, 200], np.int32)
+
+
+@pytest.mark.parametrize("window", [0, 1, 40, 64, 100, 1024])
+@pytest.mark.parametrize("kv,g", [(4, 1), (2, 2), (1, 8)])
+def test_decode_split_emulation_matches_reference_oracle(kv, g, window):
+    """Chunks wholly past the length or before the window (weight 0) and
+    windows that straddle chunk edges, against the reference oracle and
+    the port's plain version within 1e-5 (float32)."""
+    q, k, v = _decode_inputs(len(EDGE_LENGTHS), kv, g, 200, 16,
+                             seed=kv * 7 + g + window)
+    tq, tk_, tv = (torch.from_numpy(x) for x in (q, k, v))
+    length = torch.from_numpy(EDGE_LENGTHS)
+    got = decode_attention_split_ref(tq, tk_, tv, length, window=window)
+    want = j_decode_ref(*(jnp.asarray(x) for x in (q, k, v, EDGE_LENGTHS)),
+                        window=window)
+    _close(got, want, tol=1e-5)
+    _close(got, decode_attention_ref(tq, tk_, tv, length, window=window),
+           tol=1e-5)
+
+
+@pytest.mark.parametrize("chunk", [1, 16, 64, 256])
+def test_decode_split_emulation_at_other_chunk_sizes(chunk):
+    """One chunk per row, many chunks, and one chunk over the whole cache."""
+    q, k, v = _decode_inputs(len(EDGE_LENGTHS), 2, 4, 200, 16, seed=chunk)
+    tq, tk_, tv = (torch.from_numpy(x) for x in (q, k, v))
+    length = torch.from_numpy(EDGE_LENGTHS)
+    got = decode_attention_split_ref(tq, tk_, tv, length, window=30,
+                                     chunk=chunk)
+    want = j_decode_ref(*(jnp.asarray(x) for x in (q, k, v, EDGE_LENGTHS)),
+                        window=30)
+    _close(got, want, tol=1e-5)

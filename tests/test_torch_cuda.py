@@ -31,6 +31,7 @@ from repro_torch.kernels.trimatrix import cooccurrence, trimatrix_ref
 from repro_torch.kernels.decode_attention import (decode_attention_ref,
                                                   grouped_decode_attention)
 from repro_torch.kernels.flash_attention import (attention_ref,
+                                                 attention_split_p_ref,
                                                  multi_head_attention)
 
 pytestmark = pytest.mark.cuda
@@ -223,6 +224,72 @@ def test_decode_attention_matches_ref(cuda, b, kv, g, d, lens, window, dtype):
     _assert_attention_close(got, want)
 
 
+def _model_layout_qkv(b, h, hkv, s, d, dtype, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn((b, s, n, d), generator=g, device=device).to(dtype)
+                 .transpose(1, 2) for n in (h, hkv, hkv))
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,window", [
+    (1, 8, 4, 37, 256, 8),       # S < 64, a window inside one tile
+    (1, 8, 8, 100, 256, 0),      # G = 1, S not a multiple of 64
+    (2, 8, 1, 200, 256, 30),     # G = 8, S not a multiple of 128
+    (1, 4, 2, 129, 128, 0),      # one row past a 128-row q tile
+    (2, 4, 4, 64, 64, 0),        # exactly one tile
+    (1, 8, 4, 191, 64, 63),      # a window one row short of a tile
+    (2, 4, 1, 50, 16, 8),        # the reduced configs' D
+    (1, 2, 2, 1, 16, 0),         # one row
+    (1, 8, 4, 700, 256, 1024)])  # a window wider than S
+def test_flash_attention_wgmma_bf16(cuda, b, h, hkv, s, d, window):
+    """The bf16 tensor-core kernel (and only it) runs bf16 inputs, within
+    half a bf16 unit of the float32 plain output and of the float32
+    emulation of its split-P arithmetic, the same bits on a second call."""
+    q, k, v = _model_layout_qkv(b, h, hkv, s, d, torch.bfloat16, s + d, cuda)
+    kernels.reset_launch_counts()
+    got = multi_head_attention(q, k, v, causal=True, window=window)
+    again = multi_head_attention(q, k, v, causal=True, window=window)
+    assert kernels.variant_counts() == {"flash_attention.wgmma_bf16": 2,
+                                        "flash_attention.fma_f32": 0}
+    assert torch.equal(got, again)
+    args = dict(causal=True, window=window or None)
+    _assert_attention_close(got, attention_ref(q.float(), k.float(), v.float(), **args))
+    _assert_attention_close(got, attention_split_p_ref(q.float(), k.float(),
+                                                       v.float(), **args))
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (False, 40)])
+def test_flash_attention_f32_runs_the_fma_kernel(cuda, causal, window):
+    q, k, v = _model_layout_qkv(2, 8, 4, 150, 256, torch.float32, 7, cuda)
+    kernels.reset_launch_counts()
+    got = multi_head_attention(q, k, v, causal=causal, window=window)
+    again = multi_head_attention(q, k, v, causal=causal, window=window)
+    assert kernels.variant_counts() == {"flash_attention.wgmma_bf16": 0,
+                                        "flash_attention.fma_f32": 2}
+    assert torch.equal(got, again)
+    _assert_attention_close(got, attention_ref(q, k, v, causal=causal,
+                                               window=window or None))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 100])
+@pytest.mark.parametrize("kv,g", [(4, 1), (4, 2), (2, 4), (1, 8)])
+def test_decode_attention_at_chunk_edges(cuda, kv, g, window, dtype):
+    """Lengths at the kernel's 64-row chunk edges of a 300-row cache (5
+    chunks, the last ragged), every group size, and two calls bit-equal:
+    the partials merge in a fixed order."""
+    lens = [1, 63, 64, 65, 128, 129, 299, 300]
+    gen = torch.Generator(device=cuda).manual_seed(kv * 10 + g)
+    q = torch.randn((len(lens), kv, g, 128), generator=gen, device=cuda).to(dtype)
+    k, v = torch.randn((2, len(lens), 300, kv, 128), generator=gen,
+                       device=cuda).to(dtype)
+    length = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    got = grouped_decode_attention(q, k, v, length, window=window)
+    again = grouped_decode_attention(q, k, v, length, window=window)
+    assert torch.equal(got, again)
+    _assert_attention_close(got, decode_attention_ref(
+        q.float(), k.float(), v.float(), length, window=window))
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -251,6 +318,10 @@ def test_reduced_serve_on_the_card_runs_the_attention_kernels(cuda, arch):
     counts = kernels.launch_counts()
     assert counts["flash_attention"] == n_layers * stats["latency"]["n_batches"]
     assert counts["decode_attention"] == n_layers * stats["decode_steps"]
+    # the reduced configs are float32: every prefill ran the FMA variant
+    assert kernels.variant_counts() == {
+        "flash_attention.wgmma_bf16": 0,
+        "flash_attention.fma_f32": counts["flash_attention"]}
     want, _ = ServingEngine(Model(cfg), params, s_max=32).serve(reqs, 1)
     for r in reqs:
         np.testing.assert_array_equal(got[r.rid], want[r.rid])
