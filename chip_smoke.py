@@ -14,8 +14,9 @@ paths end to end:
   ``tidsharded`` backend on one NCCL rank in this process, then
   ``tidsharded`` 1x4, ``sharded`` 4, ``grid`` 2x2 and a v3 mine through the
   mesh accumulator on 4 gloo ranks sharing the card, each rank held to the
-  same checksums, with the partial-popcount kernel (K1 for ``sharded``)
-  launched once per expansion and the collectives per expansion checked;
+  same checksums, with the partial-popcount kernel (K3; none for
+  ``sharded``) and the survivor compaction (K2) launched once per expansion
+  and the collectives per expansion checked;
 * LM serving of gemma3-4b at full width and depth (bf16, random weights
   from a seeded generator): ``ServingEngine.serve`` of 8 requests, twice,
   with the flash- and decode-attention kernels' launch counts and
@@ -64,8 +65,9 @@ PARTIAL_CHECKED = PARTIAL_SHAPES + [(60038, 100, 393216), (852, 3125, 4096),
 PS_SHAPES = [(4096, 3125), (393216, 100)]
 
 # Phase-2 shapes (N, W) that are checked: T10I4D100K, 1000 items, the
-# tri-matrix item cap, and two small edge cases
-TRI_SHAPES = [(187, 3125), (1000, 3125), (4096, 3125), (1, 1), (33, 7)]
+# tri-matrix item cap, chess (13 word ranges), and tile and word edges
+TRI_SHAPES = [(187, 3125), (1000, 3125), (4096, 3125), (1, 1), (33, 7),
+              (37, 100), (65, 7), (129, 3125)]
 
 # H100 SXM data sheet, dense rates, at the 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
@@ -86,6 +88,12 @@ REPORT_SHAPE = {"fused_intersect": "P=60038 W=100 Q=393216",
                 "flash_attention_f32": "B=2 H=8 Hkv=4 S=2048 D=256 f32 causal window=0",
                 "decode_attention": "B=2 KV=4 G=2 D=256 S=2080 len=2079 bf16 window=0"}
 MINING_KERNELS = ("fused_intersect", "fused_intersect_compact", "trimatrix")
+# the mining kernels the fused mines launch: K1's arithmetic runs inside
+# K2's one pass, so a mine launches K1 (fused_intersect) no time
+MAIN_PATH_MINING = ("fused_intersect_compact", "trimatrix")
+# the kernels of one K2 call, as a profiler trace names them: one pass
+# writes survivors and pad rows
+COMPACT_KERNELS = ("compact_pairs_kernel",)
 
 # largest |kernel - plain| seen by the checks, per kernel
 MAX_ABS_ERR = {name: 0 for name in REPORT_SHAPE}
@@ -176,7 +184,10 @@ def check_pair_kernels():
         ("no survivors", 64, 50, 500, 500, 10**9),
         ("all survivors", 64, 50, 500, 500, 0),
         ("n_valid < Q", 64, 50, 500, 123, None),
-        ("Q=12289 n_valid=8200 (scan tiles of 4096)", 100, 33, 12289, 8200, None),
+        ("n_valid=0", 12, 33, 300, 0, None),
+        ("Q=12289 n_valid=8200 (many tiles)", 100, 33, 12289, 8200, None),
+        ("Q=129 W=100 (one past a tile of 128 pairs)", 30, 100, 129, 129, None),
+        ("Q=9 W=3125 (one past a tile of 8 pairs)", 10, 3125, 9, 9, None),
     ]
     for label, p, w, q, nv, ms_override in cases:
         for mode in (0, 1, 2):
@@ -196,18 +207,45 @@ def check_pair_kernels():
             torch.cuda.set_sync_debug_mode("error")
             try:
                 got = fused_intersect_compact(bm, l, r, s, ms, nv, mode=mode)
+                again = fused_intersect_compact(bm, l, r, s, ms, nv, mode=mode)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
             want = fused_intersect_compact_ref(bm, l, r, s, ms, nv, mode=mode)
             torch.cuda.synchronize()
-            for g, e, what in zip(got, want, ("compact", "sup", "mask", "n_surv")):
+            for g, a, e, what in zip(got, again, want, ("compact", "sup", "mask", "n_surv")):
                 compare("fused_intersect_compact", g, e,
                         f"fused_intersect_compact {label} mode {mode}: {what}")
+                require(torch.equal(g, a),
+                        f"fused_intersect_compact {label} mode {mode}: two calls differ ({what})")
             n_surv = int(got[3])
             print(f"check fused_intersect (with and without store) + "
                   f"fused_intersect_compact {label} mode {mode}: "
-                  f"equal to ref (exact), survivors {n_surv}/{q}, "
-                  f"compact call clean under set_sync_debug_mode('error')")
+                  f"equal to ref (exact), survivors {n_surv}/{q}, two calls "
+                  f"equal, compact calls clean under set_sync_debug_mode('error')")
+    check_compact_launches()
+
+
+def check_compact_launches():
+    """One K2 call launches exactly its one pass (a profiler trace of a
+    warm call at chess's level-5 shape)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.fused_intersect import fused_intersect_compact
+    from repro_torch.launch.kernel_timing import PAIR_SHAPES, pair_inputs
+    p, w, q, nv = PAIR_SHAPES[1]
+    bm, l, r, s, ms = pair_inputs(p, w, q, seed=3)
+    fused_intersect_compact(bm, l, r, s, ms, nv, mode=0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fused_intersect_compact(bm, l, r, s, ms, nv, mode=0)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    require(len(names) == len(COMPACT_KERNELS) and
+            all(any(k in n for n in names) for k in COMPACT_KERNELS),
+            f"one fused_intersect_compact call launched {names}")
+    print(f"check fused_intersect_compact P={p} W={w} Q={q}: one call runs "
+          f"{len(names)} kernels ({', '.join(COMPACT_KERNELS)})")
 
 
 def check_trimatrix():
@@ -260,8 +298,12 @@ def run_end_to_end():
                   f"phase_s={phases} launches={counts}")
             if backend == "fused":
                 require(res.stats["backend"] == "fused", "fused backend not used")
-                for k in MINING_KERNELS:
+                for k in MAIN_PATH_MINING:
                     require(counts[k] > 0, f"{name} {variant}: kernel {k} was not launched")
+                require(counts["fused_intersect"] == 0,
+                        f"{name} {variant}: K1 launched on its own "
+                        f"({counts['fused_intersect']} times); it runs inside K2's pass")
+                for k in MINING_KERNELS:
                     launches[k] += counts[k]
                 require(counts["flash_attention"] == counts["decode_attention"] == 0,
                         "the miner launched an attention kernel")
@@ -377,9 +419,10 @@ def _mesh_jobs(runs, data):
 
 
 def _check_mesh_run(job, per_rank, n_data, topology):
-    """Every rank's result of one mesh mine: the pinned checksum, K3 (K1
-    for sharded) once per expand, this rank's frontier slice, the
-    collectives per expand.  Prints one line per rank."""
+    """Every rank's result of one mesh mine: the pinned checksum, K3 (none
+    for sharded) and K2 once per expand, K1 never on its own, this rank's
+    frontier slice, the collectives per expand.  Prints one line per
+    rank."""
     import math
     what = f"mesh mine {job['run']} {job['label']} ({topology})"
     for rank, res in enumerate(per_rank):
@@ -390,19 +433,23 @@ def _check_mesh_run(job, per_rank, n_data, topology):
         lev = st["collectives"]["levels"]
         per_exp = {axis: {op: {k: v / max(n_exp, 1) for k, v in c.items()}
                           for op, c in ops.items()} for axis, ops in lev.items()}
-        k = "fused_intersect" if backend == "sharded" else "fused_intersect_partial"
+        k = "fused_intersect_partial"
         launches = res["launches"]
         print(f"e2e {what} rank {rank}: backend={backend} checksum={res['checksum']} "
               f"levels={res['counts']} expands={n_exp} {k}_launches={launches[k]} "
               f"compact_launches={launches['fused_intersect_compact']} "
+              f"fused_intersect_launches={launches['fused_intersect']} "
               f"frontier_words={st.get('frontier_words')} (W={st['n_words']}) "
               f"collectives_per_expand={per_exp} vertical={st['collectives']['vertical']} "
               f"wall_s={res['wall_s'][-1]:.4f} "
               f"phase_s={ {p: round(v, 4) for p, v in st['phase_s'].items()} }")
         require(res["checksum"] == job["expect"],
                 f"{what} rank {rank}: checksum {res['checksum']} != {job['expect']}")
-        require(launches[k] == n_exp > 0,
+        want_k3 = 0 if backend == "sharded" else n_exp
+        require(n_exp > 0 and launches[k] == want_k3,
                 f"{what} rank {rank}: {k} launched {launches[k]} times for {n_exp} expands")
+        require(launches["fused_intersect"] == 0,
+                f"{what} rank {rank}: K1 launched on its own; it runs inside K2's pass")
         require(launches["fused_intersect_compact"] == n_exp,
                 f"{what} rank {rank}: survivor compaction launched "
                 f"{launches['fused_intersect_compact']} times for {n_exp} expands")
@@ -489,20 +536,37 @@ def bound(nbytes, products):
 
 
 def time_kernels(launches):
+    """Each mining kernel at the main path's shapes: ``ms`` is its device
+    time per call (``kernel_timing.device_ms``: calls run back to back
+    behind a sleep of the card, as the attention rows), ``call_ms`` CUDA
+    events around each call (the host's launch work included); the same
+    for the plain version."""
     import torch
     from repro_torch.kernels.fused_intersect import (
-        fused_intersect, fused_intersect_compact, fused_intersect_compact_ref,
+        compact_survivors, compact_survivors_ref, fused_intersect,
+        fused_intersect_compact, fused_intersect_compact_ref,
         fused_intersect_partial, fused_intersect_partial_ref,
         fused_intersect_ref, fused_support_pairs)
     from repro_torch.kernels.popcount_support import (intersect_support,
                                                       popcount_support_ref)
-    from repro_torch.kernels.trimatrix import cooccurrence, trimatrix_ref
+    from repro_torch.kernels.trimatrix import (cooccurrence, split_plan,
+                                               trimatrix_ref)
     from repro_torch.launch.kernel_timing import (
-        PAIR_SHAPES, TRI_TIMED_SHAPES, median_ms, pair_inputs, tri_inputs)
+        PAIR_SHAPES, TRI_TIMED_SHAPES, device_ms, median_ms, pair_inputs,
+        tri_inputs)
 
     print(f"timing peaks (H100 SXM data sheet, dense, 700 W): HBM "
           f"{HBM_BYTES_PER_S:.3e} B/s; int8 tensor cores "
           f"{INT8_TENSOR_OPS_PER_S:.3e} op/s, two per one-bit product")
+
+    def timed(fn, ref, lib=None, plain_reps=20, plain_warmup=3):
+        # library_ms stays what earlier runs reported: CUDA events around
+        # each call
+        out = dict(ms=device_ms(fn), call_ms=median_ms(fn),
+                   plain_ms=device_ms(ref, reps=plain_reps, warmup=plain_warmup),
+                   plain_call_ms=median_ms(ref, reps=plain_reps, warmup=plain_warmup),
+                   library_ms=median_ms(lib) if lib is not None else None)
+        return out
 
     rows = []
     pair_src = "src/repro_torch/csrc/fused_intersect.cu"
@@ -513,35 +577,43 @@ def time_kernels(launches):
         rows_read = int(torch.unique(torch.cat((l, r))).numel())
         in_bytes = rows_read * w * 4 + 3 * q * 4
         products = q * w * 32
-        # (name, function, plain version, TPU call site, bytes written, in
-        # the kernels line): K1 as the main path launches it (no (Q, W)
-        # store), K1 with its store (the op the reference package exports;
-        # not on the main path), K2
-        for name, fn, ref, replaces, out_bytes, listed in (
+        flags = fused_intersect_ref(bm, l, r, s, ms, mode=0)[2]
+        # (name, function, plain version, TPU call site, bytes in and out,
+        # in the kernels line): K1 store-free (fused_support_pairs; since K2
+        # runs its arithmetic inside its own pass, no main path launches
+        # K1), K1 with its store (the op the reference package exports), K2,
+        # and K2's given-mask front end (the word-sharded backends'
+        # compaction after their all-reduce: it reads the mask, not
+        # sup_left, and writes no supports)
+        for name, fn, ref, replaces, nbytes, listed in (
                 ("fused_intersect",
                  lambda: fused_support_pairs(bm, l, r, s, ms, mode=0),
                  lambda: fused_intersect_ref(bm, l, r, s, ms, mode=0)[1:],
-                 f"{tpu_src}:244", 2 * q * 4, True),
+                 f"{tpu_src}:244", in_bytes + 2 * q * 4, True),
                 ("fused_intersect with (Q, W) store",
                  lambda: fused_intersect(bm, l, r, s, ms, mode=0),
                  lambda: fused_intersect_ref(bm, l, r, s, ms, mode=0),
-                 f"{tpu_src}:244", q * w * 4 + 2 * q * 4, False),
+                 f"{tpu_src}:244", in_bytes + q * w * 4 + 2 * q * 4, False),
                 ("fused_intersect_compact",
                  lambda: fused_intersect_compact(bm, l, r, s, ms, nv, mode=0),
                  lambda: fused_intersect_compact_ref(bm, l, r, s, ms, nv, mode=0),
-                 f"{tpu_src}:314", q * w * 4 + 2 * q * 4 + 4, True)):
-            bms, by = bound(in_bytes + out_bytes, products)
+                 f"{tpu_src}:314", in_bytes + q * w * 4 + 2 * q * 4 + 4, True),
+                ("compact_survivors (given mask)",
+                 lambda: compact_survivors(bm, l, r, flags, nv, mode=0),
+                 lambda: compact_survivors_ref(bm, l, r, flags, nv, mode=0),
+                 f"{tpu_src}:314", in_bytes + q * w * 4 + q * 4 + 4, False)):
+            bms, by = bound(nbytes, products)
             rows.append(dict(name=name, listed=listed, route="cuda",
                              source=pair_src, replaces=replaces,
-                             shape=f"P={p} W={w} Q={q}",
-                             ms=median_ms(fn), plain_ms=median_ms(ref),
-                             bound_ms=bms, bound_by=by, library_ms=None))
+                             shape=f"P={p} W={w} Q={q}", **timed(fn, ref),
+                             bound_ms=bms, bound_by=by))
     for p, ws, q in PARTIAL_SHAPES:
         bm, l, r, _, _ = pair_inputs(p, ws, q, seed=13)
         rows_read = int(torch.unique(torch.cat((l, r))).numel())
         in_bytes = rows_read * ws * 4 + 2 * q * 4
         # K3 as the word-sharded backends launch it (no (Q, Ws) store: the
-        # survivor rows are recomputed after the reduce), and with its store
+        # survivor rows are computed by K2's given-mask front end after the
+        # reduce), and with its store
         for name, fn, ref, out_bytes, listed in (
                 ("fused_intersect_partial",
                  lambda: fused_intersect_partial(bm, l, r, mode=0, store=False),
@@ -554,9 +626,8 @@ def time_kernels(launches):
             bms, by = bound(in_bytes + out_bytes, q * ws * 32)
             rows.append(dict(name=name, listed=listed, route="cuda",
                              source=pair_src, replaces=f"{tpu_src}:196",
-                             shape=f"P={p} Ws={ws} Q={q}",
-                             ms=median_ms(fn), plain_ms=median_ms(ref),
-                             bound_ms=bms, bound_by=by, library_ms=None))
+                             shape=f"P={p} Ws={ws} Q={q}", **timed(fn, ref),
+                             bound_ms=bms, bound_by=by))
     for m, w in PS_SHAPES:
         a = tri_inputs(m, w, seed=m)
         b = tri_inputs(m, w, seed=w)
@@ -565,15 +636,18 @@ def time_kernels(launches):
                          source="src/repro_torch/csrc/popcount_support.cu",
                          replaces="src/repro/kernels/popcount_support/popcount_support.py:72",
                          shape=f"M={m} W={w}",
-                         ms=median_ms(lambda: intersect_support(a, b)),
-                         plain_ms=median_ms(lambda: popcount_support_ref(a, b)),
-                         bound_ms=bms, bound_by=by, library_ms=None))
+                         **timed(lambda: intersect_support(a, b),
+                                 lambda: popcount_support_ref(a, b)),
+                         bound_ms=bms, bound_by=by))
     for n, w in TRI_TIMED_SHAPES:
         bm = tri_inputs(n, w, seed=5)
         npad = max(17, -(-n // 8) * 8)
         shifts = torch.arange(32, device="cuda", dtype=torch.int32)
-        dense = ((bm[:, :, None] >> shifts) & 1).reshape(n, w * 32).to(torch.int8)
-        dense = torch.nn.functional.pad(dense, (0, 0, 0, npad - n)).contiguous()
+
+        def unpack():
+            dense = ((bm[:, :, None] >> shifts) & 1).reshape(n, w * 32).to(torch.int8)
+            return torch.nn.functional.pad(dense, (0, 0, 0, npad - n)).contiguous()
+        dense = unpack()
         lib = lambda: torch._int_mm(dense, dense.t())
         got = lib()[:n, :n]
         require(torch.equal(got, cooccurrence(bm)),
@@ -583,28 +657,46 @@ def time_kernels(launches):
                          source="src/repro_torch/csrc/trimatrix.cu",
                          replaces="src/repro/kernels/trimatrix/trimatrix.py:71",
                          shape=f"N={n} W={w}",
-                         ms=median_ms(lambda: cooccurrence(bm)),
-                         plain_ms=median_ms(lambda: trimatrix_ref(bm), reps=10),
-                         bound_ms=bms, bound_by=by, library_ms=median_ms(lib)))
+                         **timed(lambda: cooccurrence(bm), lambda: trimatrix_ref(bm),
+                                 lib, plain_reps=3, plain_warmup=1),
+                         library_unpack_ms=device_ms(unpack),
+                         split_plan=split_plan(n, w),
+                         bound_ms=bms, bound_by=by))
+        del dense
     for row in rows:
         row["launches"] = launches[row["name"]] if row["listed"] else 0
+        lib = (f"{row['library_ms']:.5f} (CUDA events per call)"
+               if row["library_ms"] is not None else "None")
+        extra = ""
+        if "library_unpack_ms" in row:
+            extra = (f"; the unpack feeding torch._int_mm "
+                     f"{row['library_unpack_ms']:.5f} ms device (not in library_ms); "
+                     f"split plan (splits, words per split) {row['split_plan']}")
         print(f"timing {row['name']} {row['shape']}: ms={row['ms']:.5f} "
               f"plain_ms={row['plain_ms']:.5f} bound_ms={row['bound_ms']:.5f} "
-              f"({row['bound_by']}) library_ms={row['library_ms']} "
-              f"launches_on_main_path={row['launches']}")
+              f"({row['bound_by']}) library_ms={lib} "
+              f"launches_on_main_path={row['launches']}; per call with the "
+              f"host's launch work: call_ms={row['call_ms']:.5f} "
+              f"plain_call_ms={row['plain_call_ms']:.5f}{extra}")
         # a bound is a floor: nothing that computes the function may beat it
         for key in ("ms", "plain_ms", "library_ms"):
             if row[key] is not None:
                 require(row["bound_ms"] <= row[key],
                         f"{row['name']} {row['shape']}: bound_ms "
                         f"{row['bound_ms']:.5f} exceeds {key} {row[key]:.5f}")
-    print("timing note: fused_intersect and fused_intersect_partial are timed "
-          "as the main paths launch them, without their (Q, W) / (Q, Ws) "
-          "stores; fused_intersect_partial launches are those of the "
-          "tidsharded mines on one NCCL rank; popcount_support is on no "
-          "path (0 launches); trimatrix library_ms is torch._int_mm "
-          "over the unpacked 0/1 int8 indicator, rows padded to a multiple "
-          "of 8; the unpack is not timed")
+    print("timing note: ms and plain_ms of the mining rows are device "
+          "time per call (calls run back to back behind a sleep of the "
+          "card; K4's zero fill included where it splits the words), "
+          "call_ms CUDA events around each call; fused_intersect and "
+          "fused_intersect_partial are timed store-free, as the compaction "
+          "and the word-sharded backends use them; no main path launches "
+          "fused_intersect on its own (its arithmetic runs inside "
+          "fused_intersect_compact's pass); fused_intersect_partial "
+          "launches are rank 0's of the tidsharded 1x4 mines; "
+          "popcount_support is on no path (0 launches); trimatrix "
+          "library_ms is torch._int_mm over the unpacked 0/1 int8 "
+          "indicator, rows padded to a multiple of 8, timed with CUDA "
+          "events as in earlier runs, the unpack timed apart (device)")
     return rows
 
 
@@ -1011,9 +1103,9 @@ def time_attention(counts):
     from repro_torch.launch.kernel_timing import device_ms, median_ms
 
     def timed(kernel, plain, library, reps=20, plain_reps=20):
-        """ms, plain_ms, library_ms: device time per call (the kernels a
-        call launches, from a profiler trace); *_call_ms: CUDA events
-        around each call, the host's launch work included."""
+        """ms, plain_ms, library_ms: device time per call (calls run back
+        to back behind a sleep of the card); *_call_ms: CUDA events around
+        each call, the host's launch work included."""
         out = {}
         for key, fn, n in (("ms", kernel, reps), ("plain_ms", plain, plain_reps),
                            ("library_ms", library, reps)):
@@ -1119,8 +1211,8 @@ def time_attention(counts):
           "port never calls; launches are the first bf16 serve's, per variant "
           "(the float32 variant serves no bf16 model); ms, plain_ms and "
           "library_ms of the attention rows are device time per call "
-          "(torch.profiler, kernels summed), call_ms CUDA events around "
-          "each call")
+          "(calls run back to back behind a sleep of the card), call_ms "
+          "CUDA events around each call")
     return rows
 
 
@@ -1152,20 +1244,26 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"ptxas: {line.strip()}")
 
-    check_pair_kernels()
-    check_trimatrix()
-    check_partial_kernel()
-    check_popcount_support()
-    launches = run_end_to_end()
-    launches["fused_intersect_partial"] = run_mesh_mines(DATA)
+    def phase(fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {fn.__name__}: {time.perf_counter() - t:.1f}s")
+        return out
+
+    phase(check_pair_kernels)
+    phase(check_trimatrix)
+    phase(check_partial_kernel)
+    phase(check_popcount_support)
+    launches = phase(run_end_to_end)
+    launches["fused_intersect_partial"] = phase(run_mesh_mines, DATA)
     launches["popcount_support"] = 0
-    check_flash_attention()
-    check_decode_attention()
-    params, cfg, serve_counts = run_serving()
-    check_decode_matches_prefill(params, cfg)
+    phase(check_flash_attention)
+    phase(check_decode_attention)
+    params, cfg, serve_counts = phase(run_serving)
+    phase(check_decode_matches_prefill, params, cfg)
     del params
     torch.cuda.empty_cache()
-    rows = time_kernels(launches) + time_attention(serve_counts)
+    rows = phase(time_kernels, launches) + phase(time_attention, serve_counts)
     kernels_line = [dict(name=r["name"], route=r["route"], source=r["source"],
                          replaces=r["replaces"], shape=r["shape"],
                          launches=r["launches"],

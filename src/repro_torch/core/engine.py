@@ -25,7 +25,7 @@ executor, and every rank returns the same :class:`LevelResult`:
 
   sharded     pairs grouped by the rank their equivalence class was
               partitioned to (the paper's executor mapping), the frontier
-              replicated; each rank intersects its block (K1 + compaction),
+              replicated; each rank intersects and compacts its block (K2),
               then supports and survivor rows are all-gathered over the
               pair axis.
   tidsharded  the frontier's word (tid) axis split over ``data``: every
@@ -376,8 +376,8 @@ class _MeshEngine(Engine):
 class ShardedEngine(_MeshEngine):
     """Executor-task mapping: pairs grouped by the rank their class was
     partitioned to, padded per rank to a common rung, the frontier
-    replicated.  Each rank runs the inner executor (K1 and the survivor
-    compaction) on its block; the supports and the survivor rows are then
+    replicated.  Each rank runs the inner executor (the intersection with
+    its survivor compaction, K2) on its block; the supports and the survivor rows are then
     all-gathered over the pair axis."""
 
     name = "sharded"

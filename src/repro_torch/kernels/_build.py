@@ -1,6 +1,8 @@
 """Build the CUDA kernels under ``csrc/`` at first use and load them.
 
-Every ``csrc/*.cu`` file has a plain C interface.  At first use each is
+Every ``csrc/*.cu`` file has a plain C interface; ``csrc/*.cuh`` holds
+device code they share (``hopper.cuh``: the Hopper helpers of the
+tensor-core kernels).  At first use each is
 compiled to an object by its own ``nvcc`` process, all started together, and
 the objects are linked into one shared library, loaded with ``ctypes``:
 
@@ -8,8 +10,8 @@ the objects are linked into one shared library, loaded with ``ctypes``:
          -Xcompiler -fPIC -Xptxas -v -c csrc/<name>.cu
 
 The library goes into ``build/`` at the root of the checkout (git-ignored),
-named by a hash of the sources and flags, so an edited source is rebuilt and
-an unchanged one is loaded as it is.  ``ptxas`` reports (registers, shared
+named by a hash of the sources, the shared headers and the flags, so an
+edited source or header is rebuilt and an unchanged tree is loaded as it is.  ``ptxas`` reports (registers, shared
 memory, spills per kernel) are kept beside it in a ``.log`` file.
 
 Nothing here runs at import time: the CPU tests import every module of the
@@ -61,9 +63,13 @@ def _sources() -> list:
     return srcs
 
 
+def _headers() -> list:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def _tag(srcs) -> str:
     h = hashlib.sha256()
-    for p in srcs:
+    for p in [*srcs, *_headers()]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())

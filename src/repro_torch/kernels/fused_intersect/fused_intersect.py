@@ -7,12 +7,16 @@ the current stream and do not synchronise.
 
 Launch counters, plain integers on the wrappers:
 
-``fused_intersect_pairs.launches``          launches of ``fused_pairs_kernel``,
-                                            from any wrapper below
+``fused_intersect_pairs.launches``          launches of ``fused_pairs_kernel``
+                                            (``fused_intersect_pairs``,
+                                            ``fused_support_pairs``)
 ``fused_intersect_compact_pairs.launches``  launches of the survivor
-                                            compaction (two-pass scan +
-                                            gather), from any wrapper below
+                                            compaction (``compact_pairs_kernel``),
+                                            from either front end
 ``fused_intersect_partial_pairs.launches``  launches of ``partial_pairs_kernel``
+
+The compacting path runs K1's arithmetic inside its own pass, so on the
+miner's main path ``fused_intersect_pairs.launches`` stays 0.
 
 The caller guarantees ``0 <= left, right < P``: checking that here would
 copy the indices back to the host and stall the stream, so the engine checks
@@ -37,6 +41,7 @@ MODE_DIFFSET = 2
 
 _P = ctypes.c_void_p
 _BOUND = False
+_STATE: dict = {}           # (device index, stream) -> [state words, last epoch]
 
 
 def _lib() -> ctypes.CDLL:
@@ -47,12 +52,14 @@ def _lib() -> ctypes.CDLL:
             _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
         lib.fused_pairs_launch.restype = ctypes.c_int
-        lib.survivor_scratch_ints.argtypes = [ctypes.c_longlong]
-        lib.survivor_scratch_ints.restype = ctypes.c_longlong
-        lib.survivor_compact_launch.argtypes = [
-            _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P]
-        lib.survivor_compact_launch.restype = ctypes.c_int
+        lib.compact_state_words.argtypes = [ctypes.c_longlong]
+        lib.compact_state_words.restype = ctypes.c_longlong
+        lib.compact_max_epoch.restype = ctypes.c_ulonglong
+        lib.compact_pairs_launch.argtypes = [
+            _P, _P, _P, _P, _P, _P, ctypes.c_int, _P, ctypes.c_ulonglong, _P,
+            _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
+        lib.compact_pairs_launch.restype = ctypes.c_int
         lib.partial_pairs_launch.argtypes = [
             _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, _P]
@@ -129,8 +136,7 @@ def fused_support_pairs(bitmaps: torch.Tensor, left: torch.Tensor,
                         right: torch.Tensor, sup_left: torch.Tensor,
                         min_sup: int, *, mode: int):
     """:func:`fused_intersect_pairs` without the ``(Q, W)`` store:
-    ``((Q,) int32 supports, (Q,) int32 mask)``.  The compacting path runs
-    this pass first."""
+    ``((Q,) int32 supports, (Q,) int32 mask)``."""
     _check_args(bitmaps, left, right, sup_left, mode)
     q = left.shape[0]
     sup = torch.empty(q, dtype=torch.int32, device=bitmaps.device)
@@ -139,6 +145,51 @@ def fused_support_pairs(bitmaps: torch.Tensor, left: torch.Tensor,
         _launch_pairs(bitmaps, left, right, sup_left, None, sup, mask,
                       min_sup, mode)
     return sup, mask
+
+
+def _state(lib, device: torch.device, stream: int, q: int):
+    """The look-back state for a compaction of ``q`` pairs on ``stream``
+    and the epoch of this launch: int64 words, zeroed once, whose statuses
+    are told apart by epoch and whose counters the kernel resets, so no
+    call pays for a memset (only a new, larger state, or an epoch past the
+    largest, is zeroed)."""
+    need = lib.compact_state_words(q)
+    key = (device.index, stream)
+    entry = _STATE.get(key)
+    if entry is None or entry[0].numel() < need:
+        entry = _STATE[key] = [torch.zeros(need, dtype=torch.int64, device=device), 0]
+    entry[1] += 1
+    if entry[1] > lib.compact_max_epoch():
+        entry[0].zero_()
+        entry[1] = 1
+    return entry[0], entry[1]
+
+
+def _compact(bitmaps, left, right, sup_left, sup, mask, mask_in, n_valid,
+             min_sup, mode):
+    """Launch the compaction (one kernel) and return ``(out, n_surv)``."""
+    q, w = left.shape[0], bitmaps.shape[1]
+    dev = bitmaps.device
+    out = torch.empty((q, w), dtype=torch.int32, device=dev)
+    if q == 0:
+        return out, torch.zeros((), dtype=torch.int32, device=dev)
+    n_surv = torch.empty((), dtype=torch.int32, device=dev)
+    if not -2**31 <= int(min_sup) < 2**31:
+        raise ValueError(f"min_sup {min_sup} does not fit the kernel's int32")
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    state, epoch = _state(lib, dev, stream, q)
+    code = lib.compact_pairs_launch(
+        _ptr(bitmaps), _ptr(left), _ptr(right), _ptr(sup_left), _ptr(sup),
+        _ptr(mask), int(mask_in), _ptr(state), epoch, _ptr(n_surv), _ptr(out),
+        q, w, int(n_valid), int(min_sup), int(mode), dev.index,
+        ctypes.c_void_p(stream))
+    if code != 0:
+        # a launch that failed may leave the state dirty: start afresh
+        _STATE.pop((dev.index, stream), None)
+    _build.check(code, "compact_pairs_kernel")
+    fused_intersect_compact_pairs.launches += 1
+    return out, n_surv
 
 
 def fused_intersect_compact_pairs(bitmaps: torch.Tensor, left: torch.Tensor,
@@ -151,12 +202,15 @@ def fused_intersect_compact_pairs(bitmaps: torch.Tensor, left: torch.Tensor,
     ``n_valid`` are bucket padding).  ``compact[:n_surv]`` holds their
     intersections in ascending pair order, rows ``[n_surv:]`` duplicate the
     intersection of pair 0, and the returned mask is the valid-masked one.
-    No host synchronisation happens inside.
+    One launch computes, thresholds and compacts, pad rows included.  No
+    host synchronisation happens inside.
     """
-    sup, mask = fused_support_pairs(bitmaps, left, right, sup_left, min_sup,
-                                    mode=mode)
-    out, mask, n_surv = compact_survivors_pairs(bitmaps, left, right, mask,
-                                                n_valid, mode=mode)
+    _check_args(bitmaps, left, right, sup_left, mode)
+    q = left.shape[0]
+    sup = torch.empty(q, dtype=torch.int32, device=bitmaps.device)
+    mask = torch.empty(q, dtype=torch.int32, device=bitmaps.device)
+    out, n_surv = _compact(bitmaps, left, right, sup_left, sup, mask, False,
+                           n_valid, min_sup, mode)
     return out, sup, mask, n_surv
 
 
@@ -169,22 +223,8 @@ def compact_survivors_pairs(bitmaps: torch.Tensor, left: torch.Tensor,
     :func:`fused_intersect_compact_pairs` does.  ``mask`` (int32) is
     rewritten in place to the valid-masked flags."""
     _check_args(bitmaps, left, right, None, mode, mask=mask)
-    q, w = left.shape[0], bitmaps.shape[1]
-    dev = bitmaps.device
-    out = torch.empty((q, w), dtype=torch.int32, device=dev)
-    if q == 0:
-        return out, mask, torch.zeros((), dtype=torch.int32, device=dev)
-    lib = _lib()
-    scratch = torch.empty(lib.survivor_scratch_ints(q), dtype=torch.int32,
-                          device=dev)
-    n_surv = torch.empty((), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    code = lib.survivor_compact_launch(
-        _ptr(bitmaps), _ptr(left), _ptr(right), _ptr(mask), _ptr(scratch),
-        _ptr(n_surv), _ptr(out), q, w, int(n_valid), int(mode),
-        dev.index, ctypes.c_void_p(stream))
-    _build.check(code, "survivor compaction")
-    fused_intersect_compact_pairs.launches += 1
+    out, n_surv = _compact(bitmaps, left, right, None, None, mask, True,
+                           n_valid, 0, mode)
     return out, mask, n_surv
 
 

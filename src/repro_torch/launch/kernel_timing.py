@@ -3,11 +3,14 @@
     PYTHONPATH=src python3 src/repro_torch/launch/kernel_timing.py \
         --label new --out chiprun_out/kernel_timing.jsonl
 
-Times the kernel entry points that every version of the port has
-(``fused_intersect``, ``fused_intersect_compact``, ``cooccurrence``) with
-CUDA events at the shapes of the main path, and appends one JSON line per
-run to ``--out`` (the card's ``nvidia-smi`` name and power limit, the
-package that was timed, the median and spread of each kernel).  Run as a
+Times the kernel entry points that every version of the port since the
+mesh backends has (``fused_intersect``, ``fused_intersect_compact``, its
+given-mask front end ``compact_survivors``, ``cooccurrence``) at the shapes
+of the main path, and appends one JSON line per run to ``--out`` (the card's
+``nvidia-smi`` name and power limit, the package that was timed, and per
+kernel the device time per call, calls run back to back behind a sleep of
+the card, beside the median and spread of CUDA-event times around each
+call, which include the host's launch work).  Run as a
 file, it times whichever ``repro_torch`` ``PYTHONPATH`` names, so two
 checkouts are compared on one card by alternating processes (A, B, B, A).
 ``chip_smoke.py`` takes its inputs and its timer from here.
@@ -19,6 +22,7 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -57,25 +61,38 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(event_times_ms(fn, reps, warmup))
 
 
+# the SM clock is at most 1.98 GHz on an H100 SXM: sleeping this many
+# cycles per second of host time outlasts it; a sleep is capped at 1 s
+_SLEEP_CYCLES_PER_S = 2e9
+
+
 def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Device time of one call of ``fn`` in ms: the CUDA kernels (and
-    copies) that ``reps`` calls launch, summed from a ``torch.profiler``
-    trace, over ``reps``, after ``warmup`` untimed calls.  Unlike
+    """Device time of one call of ``fn`` in ms, the host's launch work left
+    out: after ``warmup`` calls (the last one's host time measured), the
+    card sleeps for twice the time the host needs to queue ``reps`` calls,
+    the calls are queued behind the sleep, and CUDA events around them
+    measure them run back to back, over ``reps``.  Unlike
     :func:`event_times_ms` it leaves out the host's time between launches,
-    which is most of a call whose kernels take a few microseconds."""
-    from torch.profiler import ProfilerActivity, profile
+    which is most of a call whose kernels take a few microseconds.  (A
+    ``torch.profiler`` trace's kernel times read up to 30% low in a long
+    process that had run NCCL ranks and serving; in a fresh process the
+    two agree within 2%.)"""
+    host = 0.0
     for _ in range(warmup):
+        t = time.perf_counter()
         fn()
+        host = time.perf_counter() - t
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if us <= 0:
-        raise RuntimeError("the profiler recorded no device time")
-    return us / 1e3 / reps
+    sleep_s = min(1.0, 2.0 * host * reps + 1e-3)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(sleep_s * _SLEEP_CYCLES_PER_S))
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
 
 
 def pair_inputs(p, w, q, seed):
@@ -103,13 +120,17 @@ def tri_inputs(n, w, seed):
 
 
 def time_entry_points(reps: int) -> list:
-    """One row per (kernel entry point, shape): median, min and max ms."""
-    from repro_torch.kernels.fused_intersect import (fused_intersect,
-                                                     fused_intersect_compact)
+    """One row per (kernel entry point, shape): device ms per call, and the
+    median, min and max of the per-call event times."""
+    from repro_torch.kernels.fused_intersect import (compact_survivors,
+                                                     fused_intersect,
+                                                     fused_intersect_compact,
+                                                     fused_intersect_ref)
     from repro_torch.kernels.trimatrix import cooccurrence
     calls = []
     for p, w, q, nv in PAIR_SHAPES:
         bm, l, r, s, ms = pair_inputs(p, w, q, seed=11)
+        flags = fused_intersect_ref(bm, l, r, s, ms, mode=0)[2]
         shape = f"P={p} W={w} Q={q}"
         calls.append(("fused_intersect", shape,
                       lambda bm=bm, l=l, r=r, s=s, ms=ms:
@@ -117,6 +138,10 @@ def time_entry_points(reps: int) -> list:
         calls.append(("fused_intersect_compact", shape,
                       lambda bm=bm, l=l, r=r, s=s, ms=ms, nv=nv:
                       fused_intersect_compact(bm, l, r, s, ms, nv, mode=0)))
+        # rewrites flags to the valid-masked flags, the same on every call
+        calls.append(("compact_survivors", shape,
+                      lambda bm=bm, l=l, r=r, f=flags, nv=nv:
+                      compact_survivors(bm, l, r, f, nv, mode=0)))
     for n, w in TRI_TIMED_SHAPES:
         bm = tri_inputs(n, w, seed=5)
         calls.append(("trimatrix", f"N={n} W={w}",
@@ -124,8 +149,9 @@ def time_entry_points(reps: int) -> list:
     rows = []
     for name, shape, fn in calls:
         t = event_times_ms(fn, reps)
-        rows.append(dict(kernel=name, shape=shape, ms=statistics.median(t),
-                         min_ms=min(t), max_ms=max(t), reps=reps))
+        rows.append(dict(kernel=name, shape=shape, device_ms=device_ms(fn, reps),
+                         ms=statistics.median(t), min_ms=min(t), max_ms=max(t),
+                         reps=reps))
     return rows
 
 
@@ -148,8 +174,9 @@ def main(argv=None) -> int:
     with open(args.out, "a") as f:
         f.write(json.dumps(rec) + "\n")
     for row in rec["rows"]:
-        print(f"{args.label} {row['kernel']} {row['shape']}: "
-              f"median {row['ms']:.5f} ms (min {row['min_ms']:.5f}, "
+        print(f"{args.label} {row['kernel']} {row['shape']}: device "
+              f"{row['device_ms']:.5f} ms per call; events median "
+              f"{row['ms']:.5f} ms (min {row['min_ms']:.5f}, "
               f"max {row['max_ms']:.5f}, {row['reps']} calls)")
     return 0
 

@@ -36,7 +36,9 @@ from repro_torch.kernels.flash_attention import (attention_ref,
 
 pytestmark = pytest.mark.cuda
 
-MINING_KERNELS = ("fused_intersect", "fused_intersect_compact", "trimatrix")
+# the kernels the fused mine launches; K1 (fused_intersect) runs inside the
+# compaction's own pass, so the mine launches it no time
+MINING_KERNELS = ("fused_intersect_compact", "trimatrix")
 
 MODES = [0, 1, 2]
 # (P, W, Q, n_valid): singleton, W not a multiple of 4, a padded tail, and
@@ -88,12 +90,94 @@ def test_compaction_does_not_synchronise(cuda):
         torch.cuda.set_sync_debug_mode("default")
 
 
+def test_compaction_state_survives_an_epoch_wrap(cuda):
+    """The look-back state is zeroed and the epoch restarts at 1 once the
+    epoch passes its largest value; the compaction stays exact across it,
+    and across calls of other sizes on the same state."""
+    import sys
+    fi = sys.modules["repro_torch.kernels.fused_intersect.fused_intersect"]
+    state = fi._STATE
+    args, ms = _pair_args(40, 100, 1000, seed=5, device=cuda)
+    want = fused_intersect_compact_ref(*args, ms, 900, mode=0)
+    fused_intersect_compact(*args, ms, 900, mode=0)
+    key = (args[0].device.index, torch.cuda.current_stream().cuda_stream)
+    state[key][1] = fi._lib().compact_max_epoch() - 1
+    for _ in range(3):
+        got = fused_intersect_compact(*args, ms, 900, mode=0)
+        for g, e in zip(got, want):
+            assert torch.equal(g.reshape(-1), e.reshape(-1).to(g.dtype))
+    assert state[key][1] == 2
+    small, ms2 = _pair_args(9, 5, 7, seed=6, device=cuda)
+    for g, e in zip(fused_intersect_compact(*small, ms2, 7, mode=1),
+                    fused_intersect_compact_ref(*small, ms2, 7, mode=1)):
+        assert torch.equal(g.reshape(-1), e.reshape(-1).to(g.dtype))
+
+
 @pytest.mark.parametrize("n,w", [(1, 1), (33, 7), (187, 3125), (130, 64),
                                  (1000, 100)])
 def test_trimatrix_matches_ref(cuda, n, w):
     words = np.random.default_rng(n).integers(0, 2**32, (n, w), dtype=np.uint32)
     t = words_from_numpy(words, cuda)
     assert torch.equal(cooccurrence(t), trimatrix_ref(t))
+
+
+# K4 (wgmma, split-K) at the tile edges (N = 63, 64, 65, 129: ragged and
+# whole 128-row tiles, one or several), the word edges (W = 1 and 7: one
+# short stage; 100: a short last stage; 3125) and both branches of the
+# split plan (one range: a store; several: atomic adds into zeros)
+TRI_EDGE = [(n, w) for n in (1, 37, 63, 64, 65, 129, 187, 1000)
+            for w in (1, 7, 100, 3125)] + [(4096, 1), (4096, 7), (4096, 100)]
+
+
+@pytest.mark.parametrize("n,w", TRI_EDGE)
+def test_trimatrix_wgmma_exact_at_edges(cuda, n, w):
+    from repro_torch.kernels.trimatrix import split_plan
+    words = np.random.default_rng(n * 31 + w).integers(0, 2**32, (n, w), dtype=np.uint32)
+    t = words_from_numpy(words, cuda)
+    kernels.reset_launch_counts()
+    got = cooccurrence(t)
+    again = cooccurrence(t)
+    assert kernels.launch_counts()["trimatrix"] == 2
+    assert torch.equal(got, again)
+    assert torch.equal(got, trimatrix_ref(t)), f"split plan {split_plan(n, w)}"
+
+
+# K2's one pass at the look-back's tile edges: Q = 1; one past a tile of 8
+# pairs (W = 3125, a warp per pair, rows recomputed) and of 128 pairs
+# (W = 100, 8 lanes per pair, rows staged in shared memory); Q over several
+# tiles; n_valid = 0; W = 25 (scalar loads, 8 lanes per pair)
+COMPACT_EDGE = [(4, 3, 1, 1), (10, 3125, 9, 9), (10, 3125, 17, 12),
+                (30, 100, 129, 129), (30, 100, 129, 120), (40, 25, 389, 389),
+                (40, 100, 1000, 900), (12, 33, 300, 0), (852, 3125, 4096, 3176),
+                (600, 100, 20000, 19000)]
+
+
+@pytest.mark.parametrize("survivors", ["median", "none", "all"])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("p,w,q,nv", COMPACT_EDGE)
+def test_compaction_pass_exact_at_tile_edges(cuda, p, w, q, nv, mode, survivors):
+    """Both front ends of the one-pass compaction equal their plain
+    versions bit for bit (rows, pad rows, supports, mask, S) with S = 0,
+    S = n_valid and in between; two calls give the same bits; each call is
+    one counted launch."""
+    args, ms = _pair_args(p, w, q, seed=3 * p + w + q + mode, device=cuda)
+    ms = {"median": ms, "none": 10**6, "all": -10**6}[survivors]
+    kernels.reset_launch_counts()
+    got = fused_intersect_compact(*args, ms, nv, mode=mode)
+    again = fused_intersect_compact(*args, ms, nv, mode=mode)
+    want = fused_intersect_compact_ref(*args, ms, nv, mode=mode)
+    for g, a, e in zip(got, again, want):
+        assert torch.equal(g, a)
+        assert torch.equal(g.reshape(-1), e.reshape(-1).to(g.dtype))
+    if survivors != "median":
+        assert int(got[3]) == (0 if survivors == "none" else min(nv, q))
+    flags = fused_intersect_ref(*args, ms, mode=mode)[2]
+    given = compact_survivors(*args[:3], flags.clone(), nv, mode=mode)
+    want = compact_survivors_ref(*args[:3], flags.clone(), nv, mode=mode)
+    for g, e in zip(given, want):
+        assert torch.equal(g.reshape(-1), e.reshape(-1).to(g.dtype))
+    assert kernels.launch_counts()["fused_intersect_compact"] == 3
+    assert kernels.launch_counts()["fused_intersect"] == 0
 
 
 def test_mine_on_the_card_launches_every_kernel(cuda):
@@ -112,6 +196,7 @@ def test_mine_on_the_card_launches_every_kernel(cuda):
             assert all(v > 0 for v in mining.values()), counts
         else:
             assert not any(mining.values()), counts
+        assert counts["fused_intersect"] == 0, counts
         assert counts["flash_attention"] == counts["decode_attention"] == 0
     cpu = mine(txns, 12, EclatConfig(min_sup=20, variant="v6", p=3,
                                      use_diffsets=True), device="cpu")

@@ -269,3 +269,104 @@ def test_popcount_support_ref_matches_pallas_kernel_and_oracle(m, w):
         assert np.array_equal(got[1].numpy(), np.asarray(want_sup))
     via = intersect_support(words_from_numpy(a, "cpu"), words_from_numpy(b, "cpu"))
     assert torch.equal(via[0], got[0]) and torch.equal(via[1], got[1])
+
+
+# ---------------------------------------------------------------------------
+# K4 on the tensor cores: the emulation of its arithmetic and its split plan
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,w,splits", [(1, 1, 1), (9, 5, 1), (9, 5, 2), (9, 5, 5),
+                                        (33, 7, 1), (33, 7, 3), (33, 7, 7),
+                                        (20, 130, 1), (20, 130, 17),
+                                        (20, 130, 130)])
+def test_trimatrix_unpacked_ref_matches_mxu_ref_and_pallas(n, w, splits):
+    """The card kernel's arithmetic (0/1 indicator, one integer product per
+    range of words, the ranges summed) equals the reference's MXU oracle
+    over all 32 W bits and its Pallas kernel in interpret mode, for one
+    range, several and one per word."""
+    from repro.kernels.trimatrix.ref import cooccurrence_mxu_ref
+    from repro_torch.kernels.trimatrix import trimatrix_unpacked_ref
+    words = np.random.default_rng(n * 7 + w).integers(0, 2**32, (n, w), dtype=np.uint32)
+    got = trimatrix_unpacked_ref(words_from_numpy(words, "cpu"), splits).numpy()
+    np.testing.assert_array_equal(got, np.asarray(
+        cooccurrence_mxu_ref(jnp.asarray(words), n_txn=32 * w)))
+    np.testing.assert_array_equal(got, np.asarray(
+        j_trimatrix(jnp.asarray(words), interpret=True)))
+
+
+@pytest.mark.parametrize("n,w", [(187, 3125), (4096, 3125), (37, 100), (1000, 3125),
+                                 (1, 1), (65, 7), (129, 8), (300, 9), (187, 0)])
+def test_trimatrix_split_plan_covers_every_word_once(n, w):
+    """The word ranges of the split plan cover [0, W) once, none empty, each
+    a whole number of stages but the last; T10I4D100K's N = 187 fills the
+    132 SMs, the 4,096-item cap keeps one range."""
+    from repro_torch.kernels.trimatrix.trimatrix import (SMS, STAGE_WORDS,
+                                                          split_plan, tile_count)
+    splits, split_words = split_plan(n, w)
+    assert split_words % STAGE_WORDS == 0 and 1 <= splits <= 65535
+    ranges = [(s * split_words, min(w, (s + 1) * split_words)) for s in range(splits)]
+    covered = np.zeros(w, np.int64)
+    for lo, hi in ranges:
+        assert lo < hi or (w == 0 and splits == 1)
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    if (n, w) == (187, 3125):
+        assert tile_count(n) * splits >= SMS
+    if (n, w) == (4096, 3125):
+        assert splits == 1
+
+
+# ---------------------------------------------------------------------------
+# K2's one-pass compaction: the plain versions at the look-back's edges
+# ---------------------------------------------------------------------------
+
+# (P, W, Q, n_valid): Q = 1; one past a tile of 8 (rows of W = 3125 words,
+# a warp per pair) and of 128 pairs (W = 100: 8 lanes per pair); Q over 3 and
+# more tiles; n_valid = 0
+EDGE_SHAPES = [(4, 3, 1, 1), (10, 3125, 9, 9), (30, 100, 129, 129),
+               (30, 100, 129, 120), (40, 25, 389, 389), (40, 25, 389, 300),
+               (12, 33, 300, 0)]
+
+
+@pytest.mark.parametrize("survivors", ["median", "none", "all"])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("p,w,q,nv", EDGE_SHAPES)
+def test_compaction_refs_match_compact_epilogue_at_tile_edges(p, w, q, nv, mode,
+                                                              survivors):
+    """Both front ends' plain versions (fused: threshold inside; given: the
+    mask from outside) equal the reference's compact_epilogue and its fused
+    oracle at the tile edges: S = 0 and S = n_valid, n_valid = 0 and < Q."""
+    from repro.kernels.fused_intersect import compact_epilogue as j_epilogue
+    from repro_torch.kernels.fused_intersect import compact_survivors_ref
+    words, left, right, sup_left = _pair_case(p, w, q, seed=11 * p + w + q + mode)
+    ms = {"median": _median_min_sup(words, left, right), "none": 10**6,
+          "all": -10**6}[survivors]
+    targs = _torch_args(words, left, right, sup_left)
+    compact, sup, mask, n_surv = fused_intersect_compact_ref(*targs, ms, nv, mode=mode)
+    jc, js, jm, jn = j_compact_ref(*_jax_args(words, left, right, sup_left), ms, nv,
+                                   mode=mode)
+    assert int(n_surv) == int(jn) == {"none": 0, "all": nv}.get(survivors, int(jn))
+    _eq_words(compact, jc)
+    _eq_ints(sup, js)
+    _eq_ints(mask, jm)
+    # the given-mask front end on the unmasked threshold flags
+    inter, _, flags = j_ref(*_jax_args(words, left, right, sup_left), ms, mode=mode)
+    got = compact_survivors_ref(*targs[:3], torch.from_numpy(np.array(flags)), nv,
+                                mode=mode)
+    want = j_epilogue(inter, jnp.asarray(sup_left), flags, jnp.int32(nv))
+    _eq_words(got[0], want[0])
+    _eq_ints(got[1], want[2])
+    assert int(got[2]) == int(want[3]) == int(n_surv)
+
+
+def test_kernel_library_hash_covers_shared_headers(tmp_path, monkeypatch):
+    """An edited csrc/*.cuh header names a new library, so a stale one is
+    never loaded."""
+    from repro_torch.kernels import _build
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build._tag(_build._sources())
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _build._tag(_build._sources()) != before
+    assert [p.name for p in _build._sources()] == ["k.cu"]
