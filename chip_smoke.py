@@ -25,7 +25,11 @@ paths end to end:
   their plain versions in their place, in float32 and in bf16;
 
 and times each kernel beside its bound, its plain version and, where one
-exists, a PyTorch call that computes the same function.
+exists, a PyTorch call that computes the same function.  The pair kernels
+(K1, K2, K3) are held and timed on random pair lists and on the pair lists
+of the largest expansion of the fused mines of chess and T10I4D100K,
+recorded on the card (class-ordered, as the miner makes them); the kernels
+line reports K1 and K3 on the latter.
 
 Output, in order: the device lines (``nvidia-smi`` name and power limit,
 torch and CUDA versions, build time), one line per kernel check, one line
@@ -77,11 +81,13 @@ FP32_FLOPS = 6.7e13               # float32 outside the tensor cores
 
 
 # the shape of each kernel's row in the "kernels" line: the largest call
-# the main path makes (chess level 5; T10I4D100K Phase 2; a gemma3-4b
-# global layer's prefill and its last decode step)
-REPORT_SHAPE = {"fused_intersect": "P=60038 W=100 Q=393216",
+# the main path makes (chess level 5, for K1 and K3 on the pair lists the
+# port's own mine makes there; T10I4D100K Phase 2; a gemma3-4b global
+# layer's prefill and its last decode step)
+MINER_CHESS = "chess 0.7 v4 miner pairs: P=65536 W=100 Q=393216 valid=369616"
+REPORT_SHAPE = {"fused_intersect": MINER_CHESS,
                 "fused_intersect_compact": "P=60038 W=100 Q=393216",
-                "fused_intersect_partial": "P=60038 Ws=25 Q=393216",
+                "fused_intersect_partial": f"{MINER_CHESS} Ws=25",
                 "popcount_support": "M=4096 W=3125",
                 "trimatrix": "N=187 W=3125",
                 "flash_attention": "B=2 H=8 Hkv=4 S=2048 D=256 bf16 causal window=0",
@@ -171,27 +177,40 @@ def check_pair_kernels():
     from repro_torch.kernels.fused_intersect import (
         fused_intersect, fused_intersect_compact, fused_intersect_compact_ref,
         fused_intersect_ref, fused_support_pairs)
-    from repro_torch.launch.kernel_timing import PAIR_SHAPES, pair_inputs
+    from repro_torch.launch.kernel_timing import (PAIR_SHAPES, class_pair_inputs,
+                                                  pair_inputs)
 
     cases = []
     for p, w, q, nv in PAIR_SHAPES:
-        cases.append((f"P={p} W={w} Q={q} n_valid={nv}", p, w, q, nv, None))
+        cases.append((f"P={p} W={w} Q={q} n_valid={nv}", p, w, q, nv, None, "random"))
+        # the same shape with class-ordered pairs and a (0, 0) pad tail, as
+        # the miner gives them: K1 stages its windows
+        cases.append((f"class-ordered P={p} W={w} Q={q} n_valid={nv}", p, w, q, nv,
+                      None, "class"))
+    # one class of 600 rows: its pairs overflow K1's 256-row window, so
+    # the staged and the gathered rows meet in one launch
+    cases.append(("one class of 600 rows W=100", 600, 100, 179700, 179700, None, "wide"))
     cases += [
-        ("Q=1", 5, 9, 1, 1, None),
-        ("W=1", 40, 1, 300, 300, None),
-        ("W=7 (not a multiple of 4)", 40, 7, 300, 250, None),
-        ("W=3125 Q=0", 8, 3125, 0, 0, None),
-        ("no survivors", 64, 50, 500, 500, 10**9),
-        ("all survivors", 64, 50, 500, 500, 0),
-        ("n_valid < Q", 64, 50, 500, 123, None),
-        ("n_valid=0", 12, 33, 300, 0, None),
-        ("Q=12289 n_valid=8200 (many tiles)", 100, 33, 12289, 8200, None),
-        ("Q=129 W=100 (one past a tile of 128 pairs)", 30, 100, 129, 129, None),
-        ("Q=9 W=3125 (one past a tile of 8 pairs)", 10, 3125, 9, 9, None),
+        ("Q=1", 5, 9, 1, 1, None, "random"),
+        ("W=1", 40, 1, 300, 300, None, "random"),
+        ("W=7 (not a multiple of 4)", 40, 7, 300, 250, None, "random"),
+        ("W=3125 Q=0", 8, 3125, 0, 0, None, "random"),
+        ("no survivors", 64, 50, 500, 500, 10**9, "random"),
+        ("all survivors", 64, 50, 500, 500, 0, "random"),
+        ("n_valid < Q", 64, 50, 500, 123, None, "random"),
+        ("n_valid=0", 12, 33, 300, 0, None, "random"),
+        ("Q=12289 n_valid=8200 (many tiles)", 100, 33, 12289, 8200, None, "random"),
+        ("Q=129 W=100 (one past a tile of 128 pairs)", 30, 100, 129, 129, None, "random"),
+        ("Q=9 W=3125 (one past a tile of 8 pairs)", 10, 3125, 9, 9, None, "random"),
     ]
-    for label, p, w, q, nv, ms_override in cases:
+    for label, p, w, q, nv, ms_override, family in cases:
         for mode in (0, 1, 2):
-            bm, l, r, s, ms = pair_inputs(p, w, q, seed=p * 7 + w + q + mode)
+            seed = p * 7 + w + q + mode
+            if family == "random":
+                bm, l, r, s, ms = pair_inputs(p, w, q, seed=seed)
+            else:
+                bm, l, r, s, ms = class_pair_inputs(p, w, q, nv, seed,
+                                                    sizes=[p] if family == "wide" else None)
             if ms_override is not None:
                 ms = ms_override
             got = fused_intersect(bm, l, r, s, ms, mode=mode)
@@ -328,7 +347,7 @@ def check_partial_kernel():
     from repro_torch.kernels.fused_intersect import (
         compact_survivors, compact_survivors_ref, fused_intersect_partial,
         fused_intersect_partial_ref)
-    from repro_torch.launch.kernel_timing import pair_inputs
+    from repro_torch.launch.kernel_timing import class_pair_inputs, pair_inputs
 
     def check(label, bm, l, r):
         pops = {}
@@ -348,6 +367,10 @@ def check_partial_kernel():
         return pops
 
     for p, ws, q in PARTIAL_CHECKED:
+        # class-ordered pairs with a (0, 0) pad tail, as the miner gives them
+        nv = q - q // 16
+        bm, l, r, _, _ = class_pair_inputs(p, ws, q, nv, seed=p + ws)
+        check(f"class-ordered P={p} Ws={ws} Q={q} n_valid={nv}", bm, l, r)
         bm, l, r, _, _ = pair_inputs(p, ws, q, seed=p + ws + q)
         check(f"P={p} Ws={ws} Q={q}", bm, l, r)
         # the compaction after the reduce: threshold at the median count
@@ -361,7 +384,8 @@ def check_partial_kernel():
             compare("fused_intersect_compact", g, e,
                     f"compact_survivors P={p} Ws={ws} Q={q}: {what}")
         print(f"check fused_intersect_partial P={p} Ws={ws} Q={q} modes 0-2, "
-              f"with and without store: equal to ref (exact); compact_survivors "
+              f"with and without store, class-ordered with a pad tail and "
+              f"random: equal to ref (exact); compact_survivors "
               f"from the reduced mask: equal to ref, {int(got[2])} survivors")
     # W = 101 over 4 shards: slices of 26 words, the last ending in 3 pad words
     p, w, q, n = 300, 101, 5000, 4
@@ -381,6 +405,66 @@ def check_partial_kernel():
         bm, l, r, _, _ = pair_inputs(40, 25, q, seed=q)
         check(f"Q={q}", bm, l, r)
         print(f"check fused_intersect_partial Q={q}: equal to ref (exact)")
+    # one class of 600 rows at every chess slice width: wider than K3's
+    # window, staged and gathered rows in one launch
+    for ws in (25, 50, 100):
+        bm, l, r, _, _ = class_pair_inputs(600, ws, 179700, 179700, seed=ws, sizes=[600])
+        check(f"one class of 600 rows Ws={ws}", bm, l, r)
+        print(f"check fused_intersect_partial one class of 600 rows Ws={ws} modes 0-2, "
+              f"with and without store: equal to ref (exact)")
+
+
+def check_miner_pairs():
+    """K1 and K3 against their plain versions, exact, on the pair lists of
+    the largest expansion of the port's fused mines of chess and
+    T10I4D100K (class-ordered, with the pad tail of their rung), every mode,
+    with and without the store; K3 on rank 0's word slice at 4 shards.
+    Returns the recordings, which the timing phase times."""
+    import torch
+    from repro_torch.kernels.fused_intersect import (
+        fused_intersect, fused_intersect_partial, fused_intersect_partial_ref,
+        fused_intersect_ref, fused_support_pairs)
+    from repro_torch.kernels.fused_intersect.fused_intersect import window_plan
+    from repro_torch.launch.kernel_timing import (rank0_slice, recorded_miner_inputs,
+                                                  window_rows)
+    miner = recorded_miner_inputs(DATA)
+    require(any(rec["label"] == MINER_CHESS for rec in miner),
+            f"the chess mine's largest expansion is not {MINER_CHESS!r}: "
+            f"{[rec['label'] for rec in miner]}")
+    for rec in miner:
+        bm, l, r, s, ms = (rec[k] for k in ("bitmaps", "left", "right", "sup_left", "min_sup"))
+        part = rank0_slice(bm)
+        for mode in (0, 1, 2):
+            want = fused_intersect_ref(bm, l, r, s, ms, mode=mode)
+            got = fused_intersect(bm, l, r, s, ms, mode=mode)
+            free = fused_support_pairs(bm, l, r, s, ms, mode=mode)
+            want_p = fused_intersect_partial_ref(part, l, r, mode=mode)
+            got_p = fused_intersect_partial(part, l, r, mode=mode)
+            _, pop = fused_intersect_partial(part, l, r, mode=mode, store=False)
+            torch.cuda.synchronize()
+            for g, e, what in zip(got, want, ("inter", "sup", "mask")):
+                compare("fused_intersect", g, e, f"fused_intersect {rec['label']} mode {mode}: {what}")
+            for g, e, what in zip(free, want[1:], ("sup", "mask")):
+                compare("fused_intersect", g, e,
+                        f"fused_intersect without store {rec['label']} mode {mode}: {what}")
+            for g, e, what in zip((*got_p, pop), (*want_p, want_p[1]), ("inter", "pop", "pop")):
+                compare("fused_intersect_partial", g, e,
+                        f"fused_intersect_partial {rec['label']} Ws={part.shape[1]} mode {mode}: {what}")
+        print(f"check fused_intersect and fused_intersect_partial (Ws={part.shape[1]}) on "
+              f"{rec['label']} (min_sup {ms}) modes 0-2, with and without store: "
+              f"equal to ref (exact)")
+        # the rows the windows stage for the valid pairs, at K1/K3's plan and
+        # at 256-pair tiles (the tiles a staged K2 would take)
+        nv = rec["n_valid"]
+        plan = window_plan(l.shape[0], bm.shape[1])
+        for tile, rows in sorted({(plan.tile, plan.rows), (256, 256)}):
+            staged, largest, outside = window_rows(l[:nv].cpu().numpy(),
+                                                   r[:nv].cpu().numpy(), tile, rows)
+            print(f"windows of {rec['label']} at {tile}-pair tiles and {rows}-row "
+                  f"windows: {staged} rows staged, largest window {largest} rows, "
+                  f"{outside} operands read outside a window; gathered row by row: "
+                  f"{2 * nv} rows")
+    return miner
 
 
 def check_popcount_support():
@@ -535,12 +619,13 @@ def bound(nbytes, products):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def time_kernels(launches):
-    """Each mining kernel at the main path's shapes: ``ms`` is its device
-    time per call (``kernel_timing.device_ms``: calls run back to back
-    behind a sleep of the card, as the attention rows), ``call_ms`` CUDA
-    events around each call (the host's launch work included); the same
-    for the plain version."""
+def time_kernels(launches, miner):
+    """Each mining kernel at the main path's shapes, on random pairs and on
+    ``miner``, the recorded pair lists of the mines' largest expansions:
+    ``ms`` is its device time per call (``kernel_timing.device_ms``: calls
+    run back to back behind a sleep of the card, as the attention rows),
+    ``call_ms`` CUDA events around each call (the host's launch work
+    included); the same for the plain version."""
     import torch
     from repro_torch.kernels.fused_intersect import (
         compact_survivors, compact_survivors_ref, fused_intersect,
@@ -553,7 +638,7 @@ def time_kernels(launches):
                                                trimatrix_ref)
     from repro_torch.launch.kernel_timing import (
         PAIR_SHAPES, TRI_TIMED_SHAPES, device_ms, median_ms, pair_inputs,
-        tri_inputs)
+        rank0_slice, tri_inputs)
 
     print(f"timing peaks (H100 SXM data sheet, dense, 700 W): HBM "
           f"{HBM_BYTES_PER_S:.3e} B/s; int8 tensor cores "
@@ -571,8 +656,16 @@ def time_kernels(launches):
     rows = []
     pair_src = "src/repro_torch/csrc/fused_intersect.cu"
     tpu_src = "src/repro/kernels/fused_intersect/fused_intersect.py"
-    for p, w, q, nv in PAIR_SHAPES:
-        bm, l, r, s, ms = pair_inputs(p, w, q, seed=11)
+    # the pair inputs: random pairs at the main path's shapes (the rows
+    # PERF.md has kept since the first slice) and the pair lists of the
+    # largest expansion of the port's own fused mines (class-ordered), on
+    # which the kernels line reports K1 and K3
+    pair_sets = [("random", f"P={p} W={w} Q={q}", *pair_inputs(p, w, q, seed=11), nv)
+                 for p, w, q, nv in PAIR_SHAPES]
+    pair_sets += [("miner", rec["label"], rec["bitmaps"], rec["left"], rec["right"],
+                   rec["sup_left"], rec["min_sup"], rec["n_valid"]) for rec in miner]
+    for inputs, shape, bm, l, r, s, ms, nv in pair_sets:
+        q, w = l.shape[0], bm.shape[1]
         # frontier rows the pairs touch, each read once, plus left/right/sup_left
         rows_read = int(torch.unique(torch.cat((l, r))).numel())
         in_bytes = rows_read * w * 4 + 3 * q * 4
@@ -603,12 +696,17 @@ def time_kernels(launches):
                  lambda: compact_survivors_ref(bm, l, r, flags, nv, mode=0),
                  f"{tpu_src}:314", in_bytes + q * w * 4 + q * 4 + 4, False)):
             bms, by = bound(nbytes, products)
-            rows.append(dict(name=name, listed=listed, route="cuda",
-                             source=pair_src, replaces=replaces,
-                             shape=f"P={p} W={w} Q={q}", **timed(fn, ref),
-                             bound_ms=bms, bound_by=by))
-    for p, ws, q in PARTIAL_SHAPES:
-        bm, l, r, _, _ = pair_inputs(p, ws, q, seed=13)
+            rows.append(dict(name=name, listed=listed, route="cuda", inputs=inputs,
+                             source=pair_src, replaces=replaces, shape=shape,
+                             **timed(fn, ref), bound_ms=bms, bound_by=by))
+    part_sets = [("random", f"P={p} Ws={ws} Q={q}", *pair_inputs(p, ws, q, seed=13)[:3])
+                 for p, ws, q in PARTIAL_SHAPES]
+    for rec in miner:
+        part = rank0_slice(rec["bitmaps"])
+        part_sets.append(("miner", f"{rec['label']} Ws={part.shape[1]}", part,
+                          rec["left"], rec["right"]))
+    for inputs, shape, bm, l, r in part_sets:
+        q, ws = l.shape[0], bm.shape[1]
         rows_read = int(torch.unique(torch.cat((l, r))).numel())
         in_bytes = rows_read * ws * 4 + 2 * q * 4
         # K3 as the word-sharded backends launch it (no (Q, Ws) store: the
@@ -624,15 +722,15 @@ def time_kernels(launches):
                  lambda: fused_intersect_partial_ref(bm, l, r, mode=0),
                  q * ws * 4 + q * 4, False)):
             bms, by = bound(in_bytes + out_bytes, q * ws * 32)
-            rows.append(dict(name=name, listed=listed, route="cuda",
+            rows.append(dict(name=name, listed=listed, route="cuda", inputs=inputs,
                              source=pair_src, replaces=f"{tpu_src}:196",
-                             shape=f"P={p} Ws={ws} Q={q}", **timed(fn, ref),
+                             shape=shape, **timed(fn, ref),
                              bound_ms=bms, bound_by=by))
     for m, w in PS_SHAPES:
         a = tri_inputs(m, w, seed=m)
         b = tri_inputs(m, w, seed=w)
         bms, by = bound((3 * m * w + m) * 4, m * w * 32)
-        rows.append(dict(name="popcount_support", listed=True, route="cuda",
+        rows.append(dict(name="popcount_support", listed=True, route="cuda", inputs="random",
                          source="src/repro_torch/csrc/popcount_support.cu",
                          replaces="src/repro/kernels/popcount_support/popcount_support.py:72",
                          shape=f"M={m} W={w}",
@@ -653,7 +751,7 @@ def time_kernels(launches):
         require(torch.equal(got, cooccurrence(bm)),
                 f"torch._int_mm yardstick disagrees with trimatrix at ({n}, {w})")
         bms, by = bound(n * w * 4 + n * n * 4, n * (n + 1) // 2 * w * 32)
-        rows.append(dict(name="trimatrix", listed=True, route="cuda",
+        rows.append(dict(name="trimatrix", listed=True, route="cuda", inputs="random",
                          source="src/repro_torch/csrc/trimatrix.cu",
                          replaces="src/repro/kernels/trimatrix/trimatrix.py:71",
                          shape=f"N={n} W={w}",
@@ -672,7 +770,8 @@ def time_kernels(launches):
             extra = (f"; the unpack feeding torch._int_mm "
                      f"{row['library_unpack_ms']:.5f} ms device (not in library_ms); "
                      f"split plan (splits, words per split) {row['split_plan']}")
-        print(f"timing {row['name']} {row['shape']}: ms={row['ms']:.5f} "
+        print(f"timing {row['name']} ({row['inputs']} pairs) {row['shape']}: "
+              f"ms={row['ms']:.5f} "
               f"plain_ms={row['plain_ms']:.5f} bound_ms={row['bound_ms']:.5f} "
               f"({row['bound_by']}) library_ms={lib} "
               f"launches_on_main_path={row['launches']}; per call with the "
@@ -692,7 +791,11 @@ def time_kernels(launches):
           "and the word-sharded backends use them; no main path launches "
           "fused_intersect on its own (its arithmetic runs inside "
           "fused_intersect_compact's pass); fused_intersect_partial "
-          "launches are rank 0's of the tidsharded 1x4 mines; "
+          "launches are rank 0's of the tidsharded 1x4 mines; miner pairs "
+          "are the pair lists of the largest expansion of the fused mines "
+          "of chess and T10I4D100K (fused_intersect_partial: rank 0's word "
+          "slice at 4 shards), on which the kernels line reports "
+          "fused_intersect and fused_intersect_partial; "
           "popcount_support is on no path (0 launches); trimatrix "
           "library_ms is torch._int_mm over the unpacked 0/1 int8 "
           "indicator, rows padded to a multiple of 8, timed with CUDA "
@@ -1257,13 +1360,14 @@ def main() -> int:
     launches = phase(run_end_to_end)
     launches["fused_intersect_partial"] = phase(run_mesh_mines, DATA)
     launches["popcount_support"] = 0
+    miner = phase(check_miner_pairs)
     phase(check_flash_attention)
     phase(check_decode_attention)
     params, cfg, serve_counts = phase(run_serving)
     phase(check_decode_matches_prefill, params, cfg)
     del params
     torch.cuda.empty_cache()
-    rows = phase(time_kernels, launches) + phase(time_attention, serve_counts)
+    rows = phase(time_kernels, launches, miner) + phase(time_attention, serve_counts)
     kernels_line = [dict(name=r["name"], route=r["route"], source=r["source"],
                          replaces=r["replaces"], shape=r["shape"],
                          launches=r["launches"],

@@ -23,18 +23,61 @@
 // HBM once and then, row after row, from the 50 MB L2, since each frontier
 // row is gathered by many pairs.
 //
-// fused_pairs_kernel: one warp per pair (8 pairs per 256-thread block).  Lanes stride
-// the row word by word, so each load and store instruction of a warp touches
-// 128 contiguous bytes whatever the row alignment (W = 3125 rows are not
-// 16-byte aligned, so no vector loads), and four words per lane are loaded
-// before any is used to keep eight loads in flight per lane.  The popcount
-// is reduced with warp shuffles; no shared memory, no atomics.  The
-// threshold is a runtime argument, so sweeping min_sup builds nothing new.
+// fused_pairs_kernel (K1) and partial_pairs_kernel (K3) are one device
+// template, window_pairs, with an epilogue flag: K3 stops at the raw
+// popcount of its rows (a rank's word slice in the tidsharded and grid
+// backends: the support and the threshold need the count summed over the
+// ranks, after the all-reduce); K1 adds the support (sup_left minus the
+// count for diffsets) and the threshold.  Both may store the (Q, W)
+// intersections (streaming stores) or not.
 //
-// The compacting path is one launch of compact_pairs_kernel: it gathers
-// each pair's rows once and writes each output row once.  One block per
-// tile of consecutive pairs computes the tile's supports and flags
-// (mask & q < n_valid), finds its first output slot with a decoupled
+// The miner's pair lists are class-ordered (core/equivalence.py
+// segment_pairs): a class's rows are contiguous and its pairs consecutive,
+// so 256 consecutive pairs touch one short run of rows (chess level 5: at
+// most 201 rows).  A block therefore takes a tile of TP consecutive pairs,
+// loads all the tile's indices into shared memory first, and stages the
+// window of rows [lo, hi] in shared memory, lo the tile's first left row
+// and hi the largest operand row below lo + R (R = 2 TP, at most 256).
+// Operand rows inside the window are read from shared memory, rows outside
+// it are gathered from the frontier: the (0, 0) pad pairs of the last
+// tile, a class wider than R.  So any pair list is right, and a
+// class-ordered one reads each row about once per tile instead of twice
+// per pair (chess level 5: 75,805 rows staged against 739,232 gathered).
+// A tile with fewer operands inside its window than pairs (random pair
+// lists) stages nothing.  Where a thread takes a pair alone, such a tile,
+// and every tile whose intersections are stored, is counted a warp per
+// pair instead, four pairs at a time, so its gathers and its stores
+// coalesce.
+//
+// The window is copied by the TMA engine without a tensor map (a 2-d map
+// needs a row stride that is a multiple of 16 bytes, and W = 25, 782, 1,563
+// and 3,125 words are not): whole rows are one contiguous byte range of the
+// frontier, landing at word (address / 4) % 4 of shared memory, so its
+// 16-byte aligned interior is one cp.async.bulk counted on an mbarrier, and
+// the 0-3 words before and after it are 4-byte cp.asyncs.  Rows too wide
+// for R whole rows in 100 KB (T10I4D100K's 1,563 and 3,125 words) go in
+// chunks of C words per row, a bulk copy per row, two 48 KB stages in
+// flight: chunk c + 1 is copied while chunk c is counted.  A row's pitch is
+// C + 4 words, skewed past a multiple of 32 by the lanes per pair so the
+// rows a warp reads at once start in different banks.
+//
+// Lanes fit the row: rows of at most 128 words take a thread per pair
+// (256-pair tiles: no shuffles, and lanes reading one left row broadcast),
+// wider rows 16 lanes per pair (16-pair tiles, 256 of them at T10I4D100K's
+// Q = 4,096); tiles are halved, down to a warp per pair, while they are
+// fewer than the card's SMs.  Each lane sums its share of the words over
+// the chunks in a register; the pair's lanes add them with shuffles once.
+// Staged rows are read with ld.shared from 32-bit addresses (16 bytes at a
+// time where W is a multiple of 4).  The grid is persistent (the SMs x the
+// blocks that fit on one), each block walking tiles, and a tile's indices
+// are loaded while the tile before it is counted.  The plan (TP, R, C) is
+// window_plan below, mirrored in Python beside the binding.  Nothing
+// returns to the host and no memset runs.
+//
+// The compacting path is one launch of compact_pairs_kernel (K2): it
+// gathers each pair's rows once and writes each output row once.  One
+// block per tile of consecutive pairs computes the tile's supports and
+// flags (mask & q < n_valid), finds its first output slot with a decoupled
 // look-back over the tiles before it (each tile publishes its count, then
 // its inclusive prefix), and writes its survivors' intersections to
 // consecutive rows from there: from shared memory where the tile's rows fit
@@ -50,17 +93,6 @@
 // memset runs: the look-back state is tagged with a per-launch epoch and
 // its counters are reset by the kernel.
 //
-// partial_pairs_kernel is the shard-local half of fused_pairs_kernel for a
-// frontier whose word axis is split over ranks (the tidsharded and grid
-// backends): the same warp per pair over this rank's Ws words, stopping at
-// the raw popcount.  The support (sup_left minus the count for diffsets) and
-// the threshold need the total count, which exists only after the
-// all-reduce over the ranks' partial counts, so they are not done here.  The
-// (Q, Ws) store is skipped when inter is null: the compacting backends
-// compute the survivor rows from the frontier with compact_pairs_kernel
-// once the reduced mask is known.  At chess's Ws = 25 a warp idles 7 of its
-// 32 lanes.
-//
 // Row offsets are 64-bit: q * W passes 2^31 at Q ~ 700k for W = 3125.
 // left[q] and right[q] must lie in [0, P): the engine checks its pair lists
 // on the host before upload.
@@ -68,76 +100,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kPairsPerBlock = 8;
-constexpr int kThreads = kPairsPerBlock * kWarp;
-constexpr int kUnroll = 4;
 
 template <int MODE>
 __device__ __forceinline__ unsigned combine(unsigned a, unsigned b) {
   if (MODE == 0) return a & b;
   if (MODE == 1) return a & ~b;
   return b & ~a;
-}
-
-// Intersect two rows of W words; lane `lane` of the warp handles words
-// lane, lane + 32, ...  Writes the result to `out` unless it is null and
-// returns this lane's share of the popcount.
-template <int MODE>
-__device__ __forceinline__ int intersect_row(const unsigned* __restrict__ a,
-                                             const unsigned* __restrict__ b,
-                                             unsigned* __restrict__ out,
-                                             int W, int lane) {
-  int pop = 0;
-  for (int base = lane; base < W; base += kWarp * kUnroll) {
-    unsigned av[kUnroll], bv[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int w = base + u * kWarp;
-      av[u] = w < W ? __ldg(a + w) : 0u;
-      bv[u] = w < W ? __ldg(b + w) : 0u;
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int w = base + u * kWarp;
-      if (w < W) {
-        const unsigned x = combine<MODE>(av[u], bv[u]);
-        if (out != nullptr) out[w] = x;
-        pop += __popc(x);
-      }
-    }
-  }
-  return pop;
-}
-
-template <int MODE>
-__global__ void __launch_bounds__(kThreads)
-fused_pairs_kernel(const unsigned* __restrict__ frontier,
-                   const int* __restrict__ left,
-                   const int* __restrict__ right,
-                   const int* __restrict__ sup_left,
-                   unsigned* __restrict__ inter,
-                   int* __restrict__ sup,
-                   int* __restrict__ mask,
-                   long long Q, int W, int min_sup) {
-  const long long q = static_cast<long long>(blockIdx.x) * kPairsPerBlock +
-                      threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  if (q >= Q) return;  // q is uniform across the warp: it leaves whole
-  const unsigned* a = frontier + static_cast<long long>(left[q]) * W;
-  const unsigned* b = frontier + static_cast<long long>(right[q]) * W;
-  unsigned* out = inter != nullptr ? inter + q * W : nullptr;
-  int pop = intersect_row<MODE>(a, b, out, W, lane);
-#pragma unroll
-  for (int off = kWarp / 2; off > 0; off >>= 1)
-    pop += __shfl_down_sync(0xffffffffu, pop, off);
-  if (lane == 0) {
-    const int s = MODE == 0 ? pop : sup_left[q] - pop;
-    sup[q] = s;
-    mask[q] = s >= min_sup ? 1 : 0;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -468,66 +443,522 @@ cudaError_t dispatch_compact(const unsigned* f, const int* l, const int* r, cons
   return launch_front<MODE, 1, 32>(f, l, r, sl, sup, mask, fused, state, epoch, out, n_surv, Q, W, n_valid, min_sup, st);
 }
 
-template <int MODE>
-__global__ void __launch_bounds__(kThreads)
-partial_pairs_kernel(const unsigned* __restrict__ frontier,
-                     const int* __restrict__ left,
-                     const int* __restrict__ right,
-                     unsigned* __restrict__ inter,
-                     int* __restrict__ pop,
-                     long long Q, int W) {
-  const long long q = static_cast<long long>(blockIdx.x) * kPairsPerBlock +
-                      threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  if (q >= Q) return;
-  const unsigned* a = frontier + static_cast<long long>(left[q]) * W;
-  const unsigned* b = frontier + static_cast<long long>(right[q]) * W;
-  unsigned* out = inter != nullptr ? inter + q * W : nullptr;
-  int p = intersect_row<MODE>(a, b, out, W, lane);
-#pragma unroll
-  for (int off = kWarp / 2; off > 0; off >>= 1)
-    p += __shfl_down_sync(0xffffffffu, p, off);
-  if (lane == 0) pop[q] = p;
+// ---------------------------------------------------------------------------
+// K1 and K3: a tile of consecutive pairs per block, from a staged window
+// (fused_pairs_kernel, partial_pairs_kernel)
+// ---------------------------------------------------------------------------
+
+constexpr int kWinThreads = 256;
+constexpr int kWinWarps = kWinThreads / kWarp;
+constexpr int kWinTileNarrow = 256;               // pairs of a tile of narrow rows: a thread each
+constexpr int kWinTileWide = 16;                  // of wide rows: 16 lanes each
+constexpr int kWinTileMin = kWinThreads / kWarp;  // a warp per pair at most
+constexpr int kWinNarrow = 128;                   // widest row a thread takes alone
+constexpr int kWinRowsMax = 256;                  // window rows
+constexpr int kWinSms = 132;                      // SMs of an H100 SXM
+constexpr long long kWinWholeLimit = 100 * 1024;  // bytes of whole rows staged
+constexpr int kWinStageBytes = 48 * 1024;         // bytes of a stage of row chunks
+constexpr int kWinUnroll = 4;                     // elements in flight per lane and row
+
+// TP pairs a tile (the block's 256 threads in groups of G = 256 / TP lanes,
+// a pair per group), the window's capacity R in rows, C words of each row
+// staged at once (W: whole rows), the stages in flight and the dynamic
+// shared memory.  Mirrored by kernels/fused_intersect/fused_intersect.py
+// window_plan.
+struct WindowPlan {
+  int tile, rows, chunk, stages, smem;
+};
+
+WindowPlan window_plan(long long Q, int W) {
+  WindowPlan p;
+  int tile = W <= kWinNarrow ? kWinTileNarrow : kWinTileWide;
+  while (tile > kWinTileMin && (Q + tile - 1) / tile < kWinSms) tile >>= 1;
+  p.tile = tile;
+  p.rows = 2 * tile < kWinRowsMax ? 2 * tile : kWinRowsMax;
+  if (static_cast<long long>(p.rows) * W * 4 <= kWinWholeLimit) {
+    p.chunk = W;
+    p.stages = 1;
+    p.smem = p.rows * W * 4 + 16;   // the window starts 0-3 words into its slot
+  } else {
+    // a row's pitch C + 4 is G words (4 at least) past a multiple of 32, so
+    // the 32 / G rows a warp reads at once start in different banks
+    const int lanes = kWinThreads / tile;
+    const int skew = (lanes < 4 ? 4 : lanes) & 31;
+    const int pitch = kWinStageBytes / (p.rows * 4);
+    p.chunk = pitch - 4 - ((pitch - skew) & 31);
+    p.stages = 2;
+    p.smem = p.stages * p.rows * (p.chunk + 4) * 4;
+  }
+  return p;
 }
 
-unsigned pair_blocks(long long Q) {
-  return static_cast<unsigned>((Q + kPairsPerBlock - 1) / kPairsPerBlock);
+struct WindowArgs {
+  const unsigned* frontier;
+  const int* left;
+  const int* right;
+  const int* sup_left;   // K1 in modes 1 and 2
+  unsigned* inter;       // (Q, W) intersections, or null
+  int* out;              // K1: supports; K3: raw popcounts
+  int* mask;             // K1
+  long long Q;
+  int W, min_sup, tile, rows, chunk;
+};
+
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const unsigned* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A bulk copy (the TMA engine, no tensor map): bytes (a multiple of 16)
+// from 16-byte aligned src to 16-byte aligned shared address dst, counted
+// on the barrier at shared address bar.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const unsigned* src, unsigned bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// One staged segment: the frontier's words [g0, g0 + n) land at shared
+// words base + o + j, o = (g0's address / 4) % 4, so the 16-byte aligned
+// interior [head, head + body) is aligned on both sides and goes by bulk
+// copy; the 0-3 words before it and after it go one by one.
+struct Segment {
+  long long g0;
+  int n, base, o, head, body;
+  __device__ __forceinline__ Segment(long long g0_, int n_, int base_, unsigned mis)
+      : g0(g0_), n(n_), base(base_) {
+    o = static_cast<int>((mis + g0) & 3);
+    head = min((4 - o) & 3, n);
+    body = (n - head) & ~3;
+  }
+};
+
+// Issue the copies of chunk c of window rows [lo, lo + n_rows) into the
+// stage at shared address buf, counted on the barrier at shared address
+// bar: whole rows are one segment of n_rows * W words; chunks are one
+// segment of up to C words per row, row i at buf + 4 i (C + 4).  Each warp
+// posts the bytes of its segments' bulk copies on the barrier (one arrival
+// per warp) and issues them, a lane per segment; every thread copies a
+// share of the segments' edge words with cp.async and commits them as one
+// group.  mis = (frontier's address / 4) % 4.
+__device__ __forceinline__ void stage_window(uint32_t buf, uint32_t bar,
+                                             const unsigned* frontier, unsigned mis, int lo,
+                                             int n_rows, int W, int C, int c, bool whole) {
+  const int tid = threadIdx.x;
+  const int lane = tid % kWarp;
+  const int warp = tid / kWarp;
+  const int n_seg = whole ? 1 : n_rows;
+  const int c0 = whole ? 0 : c * C;
+  const int cw = whole ? n_rows * W : min(C, W - c0);
+  auto segment = [&](int i) {
+    return whole ? Segment(static_cast<long long>(lo) * W, cw, 0, mis)
+                 : Segment(static_cast<long long>(lo + i) * W + c0, cw, i * (C + 4), mis);
+  };
+  // segments warp, warp + 8, ...: lane j takes segment warp + 8 j
+  const int i = warp + kWinWarps * lane;
+  const Segment seg = segment(i < n_seg ? i : 0);
+  const unsigned bytes = i < n_seg ? 4u * seg.body : 0u;
+  const unsigned total = __reduce_add_sync(0xffffffffu, bytes);
+  hopper::fence_proxy_async_smem();   // the block's reads of the stage come first
+  if (lane == 0) mbar_arrive_expect_tx(bar, total);
+  __syncwarp();
+  if (bytes > 0)
+    bulk_copy(buf + 4u * (seg.base + seg.o + seg.head), frontier + seg.g0 + seg.head, bytes, bar);
+  for (int f = tid; f < 8 * n_seg; f += kWinThreads) {
+    const Segment s = segment(f / 8);
+    const int k = f % 8;
+    const int j = k < 4 ? k : s.head + s.body + k - 4;
+    if (k < 4 ? j < s.head : j < s.n) cp_async_4(buf + 4u * (s.base + s.o + j), frontier + s.g0 + j);
+  }
+  cp_async_commit();
+}
+
+// Lane lg of a pair's G lanes combines elements lg, lg + G, ... of rows a
+// and b (n elements of V words), read by load(row, i), stores them to dst
+// with STORE (streaming stores), and returns its share of the popcount.
+// The loop's body takes kWinUnroll elements with no bound check, so their
+// loads issue together; the last few go one at a time.
+template <int MODE, int V, bool STORE, typename Row, typename Load>
+__device__ __forceinline__ int lane_units(Row a, Row b, Load load,
+                                          typename Vec<V>::T* __restrict__ dst, int n,
+                                          int lg, int G) {
+  using T = typename Vec<V>::T;
+  int pop = 0;
+  int i = lg;
+  for (; i + (kWinUnroll - 1) * G < n; i += kWinUnroll * G) {
+    T av[kWinUnroll], bv[kWinUnroll];
+#pragma unroll
+    for (int u = 0; u < kWinUnroll; ++u) {
+      av[u] = load(a, i + u * G);
+      bv[u] = load(b, i + u * G);
+    }
+#pragma unroll
+    for (int u = 0; u < kWinUnroll; ++u) {
+      const T x = Vec<V>::template combine<MODE>(av[u], bv[u]);
+      if (STORE) __stcs(dst + i + u * G, x);
+      pop += Vec<V>::popc(x);
+    }
+  }
+  for (; i < n; i += G) {
+    const T x = Vec<V>::template combine<MODE>(load(a, i), load(b, i));
+    if (STORE) __stcs(dst + i, x);
+    pop += Vec<V>::popc(x);
+  }
+  return pop;
+}
+
+// A load from a 32-bit shared-memory address.
+template <int V> __device__ __forceinline__ typename Vec<V>::T lds(uint32_t addr);
+template <> __device__ __forceinline__ unsigned lds<1>(uint32_t addr) {
+  unsigned v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+template <> __device__ __forceinline__ uint4 lds<4>(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+// The body of K1 (FUSED: support and threshold) and K3 (raw popcount).
+// Per tile of TP consecutive pairs:
+// 1. The tile's indices, loaded while the tile before was counted, go to
+//    shared memory.  The window is rows [lo, hi], lo the first pair's left
+//    row and hi the largest operand row below lo + R; it is staged only if
+//    at least as many operands as pairs lie in it (a class-ordered tile has
+//    nearly all of them there, a random one nearly none).
+// 2. Per chunk of words (one for whole rows): the next chunk's copies are
+//    issued, the block waits for this one's (its cp.async group, then its
+//    barrier's phase), and the G = 256 / TP lanes of each pair count its
+//    chunk, reading an operand row from the window where it lies inside,
+//    else from the frontier.  Each lane keeps its sum over the chunks in a
+//    register; after the last chunk the pair's lanes sum with shuffles (none
+//    when a thread takes a pair alone) and the first writes the outputs.
+// 3. A tile of whole rows with a thread per pair is counted a warp per pair
+//    instead, 4 pairs at a time, where its window is not staged (so the
+//    gathers from the frontier coalesce) or its intersections are stored
+//    (so the stores coalesce).
+// V = 4 (16-byte elements) where W is a multiple of 4 and the frontier (and
+// the intersections) 16-byte aligned: then every row, staged or not, is.
+template <int MODE, int V, bool FUSED, bool STORE>
+__device__ __forceinline__ void window_pairs(const WindowArgs& a) {
+  using T = typename Vec<V>::T;
+  extern __shared__ uint4 window_raw[];
+  unsigned* win = reinterpret_cast<unsigned*>(window_raw);
+  __shared__ int s_left[kWinTileNarrow], s_right[kWinTileNarrow], s_supl[kWinTileNarrow];
+  __shared__ int s_top[kWinWarps], s_in[kWinWarps];
+  __shared__ __align__(8) uint64_t s_bar[2];
+  // the shared addresses of the window and the barriers, kept in registers:
+  // left to itself the compiler rebuilds them from the cluster CTA id (the
+  // bulk copies make the kernel cluster-aware) before every load
+  uint32_t win_s, bar_s;
+  asm volatile("mov.u32 %0, %1;\n" : "=r"(win_s) : "r"(hopper::smem_u32(win)));
+  asm volatile("mov.u32 %0, %1;\n" : "=r"(bar_s) : "r"(hopper::smem_u32(s_bar)));
+
+  const int tid = threadIdx.x;
+  const int lane = tid % kWarp;
+  const int warp = tid / kWarp;
+  const long long Q = a.Q;
+  const int W = a.W, tp = a.tile, R = a.rows, C = a.chunk;
+  const int G = kWinThreads / tp;   // lanes per pair
+  const int p = tid / G;            // this lane's pair in the tile
+  const int lg = tid % G;
+  const bool whole = C >= W;
+  const int n_chunks = whole ? 1 : (W + C - 1) / C;
+  const int pitch = C + 4;
+  const int stage_words = whole ? 0 : R * pitch;
+  const unsigned mis = static_cast<unsigned>(reinterpret_cast<uintptr_t>(a.frontier) >> 2) & 3u;
+  const long long n_tiles = (Q + tp - 1) / tp;
+  constexpr bool kSupLeft = FUSED && MODE != 0;
+
+  if (tid == 0) {
+    hopper::mbar_init(&s_bar[0], kWinWarps);
+    hopper::mbar_init(&s_bar[1], kWinWarps);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  unsigned phases = 0;   // the parity each stage's barrier completes next
+
+  int next_l = 0, next_r = 0, next_s = 0, next_lo = 0;
+  auto fetch = [&](long long t) {
+    const long long q = t * tp + tid;
+    const bool has = tid < tp && q < Q;
+    next_l = has ? __ldg(a.left + q) : 0;
+    next_r = has ? __ldg(a.right + q) : 0;
+    if (kSupLeft) next_s = has ? __ldg(a.sup_left + q) : 0;
+    next_lo = __ldg(a.left + t * tp);
+  };
+  if (blockIdx.x < n_tiles) fetch(blockIdx.x);
+
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long long q0 = tile * tp;
+    const int n = static_cast<int>(Q - q0 < tp ? Q - q0 : tp);   // pairs in this tile
+    const int l = next_l, r = next_r, sl = next_s, lo = next_lo;
+    if (tile + gridDim.x < n_tiles) fetch(tile + gridDim.x);
+    auto epilogue = [&](int pair, int pop) {
+      const long long q = q0 + pair;
+      if (FUSED) {
+        const int s = MODE == 0 ? pop : s_supl[pair] - pop;
+        a.out[q] = s;
+        a.mask[q] = s >= a.min_sup ? 1 : 0;
+      } else {
+        a.out[q] = pop;
+      }
+    };
+
+    // 1. indices and window
+    int top = lo, in = 0;
+    if (tid < n) {
+      if (static_cast<unsigned>(l - lo) < static_cast<unsigned>(R)) top = max(top, l), ++in;
+      if (static_cast<unsigned>(r - lo) < static_cast<unsigned>(R)) top = max(top, r), ++in;
+    }
+    top = __reduce_max_sync(0xffffffffu, top);
+    in = __reduce_add_sync(0xffffffffu, in);
+    __syncthreads();   // the tile before is done with the indices and the window
+    if (tid < tp) {
+      s_left[tid] = l;
+      s_right[tid] = r;
+      if (kSupLeft) s_supl[tid] = sl;
+    }
+    if (lane == 0) {
+      s_top[warp] = top;
+      s_in[warp] = in;
+    }
+    __syncthreads();
+    int hi = s_top[0], in_all = s_in[0];
+#pragma unroll
+    for (int w = 1; w < kWinWarps; ++w) {
+      hi = max(hi, s_top[w]);
+      in_all += s_in[w];
+    }
+    const int n_rows = in_all >= n ? hi - lo + 1 : 0;
+
+    const int o_whole = static_cast<int>((mis + static_cast<long long>(lo) * W) & 3);
+    auto inside = [&](int x) {
+      return static_cast<unsigned>(x - lo) < static_cast<unsigned>(n_rows);
+    };
+
+    // 3. whole rows with a thread per pair: a warp per pair instead where
+    //    the window is not staged (so the gathers coalesce) or the
+    //    intersections are stored (so the stores do), four pairs at a time
+    if (whole && G == 1 && (STORE || n_rows == 0)) {
+      // kStaged: the window is staged and an operand may come from it
+      auto warp_pairs = [&](auto staged) {
+        constexpr bool kStaged = decltype(staged)::value;
+        constexpr int kB = 4;
+        const int per_warp = tp / kWinWarps;
+        const int units = W / V;
+        for (int k0 = 0; k0 < per_warp; k0 += kB) {
+          const T* ga[kB];
+          const T* gb[kB];
+          uint32_t sa[kB], sb[kB];
+          bool st[kB];
+          int pw[kB];
+#pragma unroll
+          for (int j = 0; j < kB; ++j) {
+            const int pp = warp * per_warp + k0 + j;
+            const int xa = pp < n ? s_left[pp] : lo;
+            const int xb = pp < n ? s_right[pp] : lo;
+            ga[j] = reinterpret_cast<const T*>(a.frontier + static_cast<long long>(xa) * W);
+            gb[j] = reinterpret_cast<const T*>(a.frontier + static_cast<long long>(xb) * W);
+            if constexpr (kStaged) {
+              st[j] = inside(xa) && inside(xb);   // the same for the warp's lanes
+              sa[j] = win_s + 4u * (o_whole + (xa - lo) * W);
+              sb[j] = win_s + 4u * (o_whole + (xb - lo) * W);
+            }
+            pw[j] = 0;
+          }
+          for (int i = lane; i < units; i += kWarp) {
+            T av[kB], bv[kB];
+#pragma unroll
+            for (int j = 0; j < kB; ++j) {
+              if constexpr (kStaged) {
+                av[j] = st[j] ? lds<V>(sa[j] + 4 * V * i) : __ldg(ga[j] + i);
+                bv[j] = st[j] ? lds<V>(sb[j] + 4 * V * i) : __ldg(gb[j] + i);
+              } else {
+                av[j] = __ldg(ga[j] + i);
+                bv[j] = __ldg(gb[j] + i);
+              }
+            }
+#pragma unroll
+            for (int j = 0; j < kB; ++j) {
+              const int pp = warp * per_warp + k0 + j;
+              const T x = Vec<V>::template combine<MODE>(av[j], bv[j]);
+              if (STORE && pp < n) __stcs(reinterpret_cast<T*>(a.inter + (q0 + pp) * W) + i, x);
+              pw[j] += Vec<V>::popc(x);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < kB; ++j) {
+            pw[j] = __reduce_add_sync(0xffffffffu, pw[j]);
+            const int pp = warp * per_warp + k0 + j;
+            if (lane == j && pp < n) epilogue(pp, pw[j]);
+          }
+        }
+      };
+      if constexpr (STORE) {   // (only a stored tile takes this path staged)
+        if (n_rows) {
+          stage_window(win_s, bar_s, a.frontier, mis, lo, n_rows, W, C, 0, true);
+          cp_async_wait<0>();
+          hopper::mbar_wait(&s_bar[0], phases & 1);
+          phases ^= 1u;
+          __syncthreads();
+          warp_pairs(std::true_type{});
+          continue;
+        }
+      }
+      warp_pairs(std::false_type{});
+      continue;
+    }
+
+    // 2. chunks
+    const bool live = p < n;
+    const int pl = live ? s_left[p] : lo;
+    const int pr = live ? s_right[p] : lo;
+    int pop = 0;
+    if (n_rows) stage_window(win_s, bar_s, a.frontier, mis, lo, n_rows, W, C, 0, whole);
+    for (int c = 0; c < n_chunks; ++c) {
+      if (n_rows) {
+        if (c + 1 < n_chunks) {
+          stage_window(win_s + 4u * ((c + 1) & 1) * stage_words, bar_s + 8u * ((c + 1) & 1),
+                       a.frontier, mis, lo, n_rows, W, C, c + 1, whole);
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        hopper::mbar_wait(&s_bar[c & 1], (phases >> (c & 1)) & 1);
+        phases ^= 1u << (c & 1);
+        __syncthreads();
+      }
+      if (live) {
+        const int c0 = whole ? 0 : c * C;
+        const int cw = whole ? W : min(C, W - c0);
+        const int buf = (c & 1) * stage_words;
+        // a window row's first word, as a word offset into the window
+        auto staged = [&](int x) {
+          const int i = x - lo;
+          return whole ? buf + o_whole + i * W
+                       : buf + i * pitch + static_cast<int>((mis + static_cast<long long>(x) * W + c0) & 3);
+        };
+        T* dst = STORE ? reinterpret_cast<T*>(a.inter + (q0 + p) * W + c0) : nullptr;
+        if (inside(pl) && inside(pr)) {
+          // both operands staged: shared-memory loads from 32-bit addresses
+          auto load = [](uint32_t row, int i) { return lds<V>(row + 4 * V * i); };
+          pop += lane_units<MODE, V, STORE>(win_s + 4u * staged(pl), win_s + 4u * staged(pr),
+                                            load, dst, cw / V, lg, G);
+        } else {
+          auto row = [&](int x) -> const T* {
+            return reinterpret_cast<const T*>(
+                inside(x) ? win + staged(x) : a.frontier + static_cast<long long>(x) * W + c0);
+          };
+          auto load = [](const T* row, int i) { return row[i]; };
+          pop += lane_units<MODE, V, STORE>(row(pl), row(pr), load, dst, cw / V, lg, G);
+        }
+      }
+      if (n_rows && c + 1 < n_chunks) __syncthreads();   // chunk c + 2 is copied into this buffer
+    }
+    for (int off = G >> 1; off > 0; off >>= 1) pop += __shfl_xor_sync(0xffffffffu, pop, off);
+    if (live && lg == 0) epilogue(p, pop);
+  }
+}
+
+template <int MODE, int V, bool STORE>
+__global__ void __launch_bounds__(kWinThreads) fused_pairs_kernel(WindowArgs a) {
+  window_pairs<MODE, V, true, STORE>(a);
+}
+
+template <int MODE, int V, bool STORE>
+__global__ void __launch_bounds__(kWinThreads) partial_pairs_kernel(WindowArgs a) {
+  window_pairs<MODE, V, false, STORE>(a);
+}
+
+using WindowKernel = void (*)(WindowArgs);
+
+template <int MODE, int V>
+WindowKernel window_kernel(bool fused, bool store) {
+  if (fused)
+    return store ? fused_pairs_kernel<MODE, V, true> : fused_pairs_kernel<MODE, V, false>;
+  return store ? partial_pairs_kernel<MODE, V, true> : partial_pairs_kernel<MODE, V, false>;
+}
+
+template <int MODE>
+WindowKernel window_kernel(bool fused, bool store, bool vec) {
+  return vec ? window_kernel<MODE, 4>(fused, store) : window_kernel<MODE, 1>(fused, store);
+}
+
+// One launch of K1 (fused) or K3 on the persistent grid: the SMs times the
+// blocks of the plan's shared memory that fit on one, at most one per tile.
+cudaError_t launch_window(bool fused, int mode, WindowArgs args, int device, cudaStream_t st) {
+  if (mode < 0 || mode > 2 || args.W < 0) return cudaErrorInvalidValue;
+  const WindowPlan p = window_plan(args.Q, args.W);
+  args.tile = p.tile;
+  args.rows = p.rows;
+  args.chunk = p.chunk;
+  const bool store = args.inter != nullptr;
+  const bool vec = args.W % 4 == 0 && reinterpret_cast<uintptr_t>(args.frontier) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(args.inter) % 16 == 0;
+  const WindowKernel kernel = mode == 0 ? window_kernel<0>(fused, store, vec)
+                            : mode == 1 ? window_kernel<1>(fused, store, vec)
+                                        : window_kernel<2>(fused, store, vec);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         p.smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kWinThreads, p.smem);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const long long n_tiles = (args.Q + p.tile - 1) / p.tile;
+  long long grid = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  if (grid > n_tiles) grid = n_tiles;
+  kernel<<<static_cast<unsigned>(grid), kWinThreads, p.smem, st>>>(args);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// inter may be null (popcount and threshold only).  Returns a cudaError_t.
+// K1: inter may be null (supports and mask only).  Returns a cudaError_t.
 int fused_pairs_launch(const void* frontier, const void* left,
                        const void* right, const void* sup_left, void* inter,
                        void* sup, void* mask, long long Q, int W, int mode,
                        int min_sup, int device, void* stream) {
   if (Q <= 0) return cudaSuccess;
-  if (mode < 0 || mode > 2) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const auto* f = static_cast<const unsigned*>(frontier);
-  const auto* l = static_cast<const int*>(left);
-  const auto* r = static_cast<const int*>(right);
-  const auto* s = static_cast<const int*>(sup_left);
-  auto* x = static_cast<unsigned*>(inter);
-  auto* o_sup = static_cast<int*>(sup);
-  auto* o_mask = static_cast<int*>(mask);
-  const auto st = static_cast<cudaStream_t>(stream);
-  const unsigned grid = pair_blocks(Q);
-  switch (mode) {
-    case 0:
-      fused_pairs_kernel<0><<<grid, kThreads, 0, st>>>(f, l, r, s, x, o_sup, o_mask, Q, W, min_sup);
-      break;
-    case 1:
-      fused_pairs_kernel<1><<<grid, kThreads, 0, st>>>(f, l, r, s, x, o_sup, o_mask, Q, W, min_sup);
-      break;
-    default:
-      fused_pairs_kernel<2><<<grid, kThreads, 0, st>>>(f, l, r, s, x, o_sup, o_mask, Q, W, min_sup);
-      break;
-  }
-  return cudaGetLastError();
+  WindowArgs a{static_cast<const unsigned*>(frontier), static_cast<const int*>(left),
+               static_cast<const int*>(right), static_cast<const int*>(sup_left),
+               static_cast<unsigned*>(inter), static_cast<int*>(sup), static_cast<int*>(mask),
+               Q, W, min_sup, 0, 0, 0};
+  return launch_window(true, mode, a, device, static_cast<cudaStream_t>(stream));
+}
+
+// The plan of a K1 or K3 launch for Q pairs of W-word rows:
+// out = {TP, R, C, stages, dynamic shared memory bytes}.
+void window_plan_of(long long Q, int W, int* out) {
+  const WindowPlan p = window_plan(Q, W);
+  out[0] = p.tile;
+  out[1] = p.rows;
+  out[2] = p.chunk;
+  out[3] = p.stages;
+  out[4] = p.smem;
 }
 
 // Words of look-back state compact_pairs_launch needs for Q pairs: the tile
@@ -575,34 +1006,19 @@ int compact_pairs_launch(const void* frontier, const void* left, const void* rig
   }
 }
 
-// inter may be null (partial popcounts only).  Returns a cudaError_t.
+
+// K3: inter may be null (partial popcounts only).  Returns a cudaError_t.
 int partial_pairs_launch(const void* frontier, const void* left,
                          const void* right, void* inter, void* pop,
                          long long Q, int W, int mode, int device,
                          void* stream) {
   if (Q <= 0) return cudaSuccess;
-  if (mode < 0 || mode > 2) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const auto* f = static_cast<const unsigned*>(frontier);
-  const auto* l = static_cast<const int*>(left);
-  const auto* r = static_cast<const int*>(right);
-  auto* x = static_cast<unsigned*>(inter);
-  auto* p = static_cast<int*>(pop);
-  const auto st = static_cast<cudaStream_t>(stream);
-  const unsigned grid = pair_blocks(Q);
-  switch (mode) {
-    case 0:
-      partial_pairs_kernel<0><<<grid, kThreads, 0, st>>>(f, l, r, x, p, Q, W);
-      break;
-    case 1:
-      partial_pairs_kernel<1><<<grid, kThreads, 0, st>>>(f, l, r, x, p, Q, W);
-      break;
-    default:
-      partial_pairs_kernel<2><<<grid, kThreads, 0, st>>>(f, l, r, x, p, Q, W);
-      break;
-  }
-  return cudaGetLastError();
+  WindowArgs a{static_cast<const unsigned*>(frontier), static_cast<const int*>(left),
+               static_cast<const int*>(right), nullptr, static_cast<unsigned*>(inter),
+               static_cast<int*>(pop), nullptr, Q, W, 0, 0, 0, 0};
+  return launch_window(false, mode, a, device, static_cast<cudaStream_t>(stream));
 }
 
 const char* cuda_error_string(int code) {

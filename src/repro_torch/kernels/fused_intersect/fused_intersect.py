@@ -1,5 +1,6 @@
 """ctypes binding of the fused-intersect CUDA kernels
-(``csrc/fused_intersect.cu``), with their launch counters.
+(``csrc/fused_intersect.cu``), with their launch counters and the launch
+plan of K1 and K3.
 
 The functions take CUDA tensors only (the CPU path is :mod:`.ref`, chosen
 by :mod:`.ops`); they allocate their outputs with ``torch.empty``, launch on
@@ -18,6 +19,18 @@ Launch counters, plain integers on the wrappers:
 The compacting path runs K1's arithmetic inside its own pass, so on the
 miner's main path ``fused_intersect_pairs.launches`` stays 0.
 
+K1 (``fused_pairs_kernel``) and K3 (``partial_pairs_kernel``) are one
+device template with an epilogue flag.  A block takes a tile of consecutive
+pairs and stages a window of consecutive frontier rows, from the tile's
+first left row on, in shared memory (bulk copies of the TMA engine, no
+tensor map); operand rows inside the window are read there, the others
+gathered from the frontier.  The miner's pair lists are class-ordered
+(``core.equivalence.segment_pairs``), so a tile's rows lie in one short run
+and each is read about once per tile, not twice per pair.  Rows too wide
+for the window are staged in word chunks, two in flight; a tile whose
+operands mostly lie outside its window (random pairs) stages nothing.
+:func:`window_plan` is the plan, the same function as the CUDA source's.
+
 The caller guarantees ``0 <= left, right < P``: checking that here would
 copy the indices back to the host and stall the stream, so the engine checks
 its pair lists on the host before upload.
@@ -25,6 +38,7 @@ its pair lists on the host before upload.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -33,13 +47,61 @@ from .. import _build
 __all__ = ["MODE_TIDSET", "MODE_TID_TO_DIFF", "MODE_DIFFSET",
            "fused_intersect_pairs", "fused_support_pairs",
            "fused_intersect_compact_pairs", "compact_survivors_pairs",
-           "fused_intersect_partial_pairs"]
+           "fused_intersect_partial_pairs", "WindowPlan", "window_plan"]
 
 MODE_TIDSET = 0
 MODE_TID_TO_DIFF = 1
 MODE_DIFFSET = 2
 
 _P = ctypes.c_void_p
+
+# K1 and K3's plan constants: csrc/fused_intersect.cu kWin*
+WINDOW_THREADS = 256
+WINDOW_TILE_NARROW = 256      # pairs of a tile of narrow rows: a thread each
+WINDOW_TILE_WIDE = 16         # of wide rows: 16 lanes each
+WINDOW_TILE_MIN = 8           # a warp per pair at most
+WINDOW_NARROW = 128           # widest row a thread takes alone
+WINDOW_ROWS_MAX = 256         # window rows
+WINDOW_SMS = 132              # SMs of an H100 SXM
+WINDOW_WHOLE_LIMIT = 100 * 1024   # bytes of whole rows staged
+WINDOW_STAGE_BYTES = 48 * 1024    # bytes of a stage of row chunks
+
+
+class WindowPlan(NamedTuple):
+    """The launch plan of K1 and K3: ``tile`` consecutive pairs a block
+    (its 256 threads in groups of ``256 // tile`` lanes, a pair each), a
+    window of at most ``rows`` rows, ``chunk`` words of each row staged at
+    once (W: whole rows, one stage; else ``stages`` = 2 in flight, row
+    pitch ``chunk + 4`` words) and ``smem`` bytes of dynamic shared
+    memory."""
+    tile: int
+    rows: int
+    chunk: int
+    stages: int
+    smem: int
+
+
+def window_plan(q: int, w: int) -> WindowPlan:
+    """The plan for ``q`` pairs of ``w``-word rows, as
+    ``csrc/fused_intersect.cu`` ``window_plan`` computes it: a thread per
+    pair (256-pair tiles) for rows of at most 128 words, 16 lanes per pair
+    (16-pair tiles) for wider ones, tiles halved (down to 8 pairs) while
+    they are fewer than the card's SMs; a window of twice the tile's pairs
+    in rows, at most 256; whole rows while the window's rows fit 100 KB,
+    else two 48 KB stages of row chunks whose pitch is skewed by the lanes
+    per pair (at least 4 words) past a multiple of 32 words."""
+    tile = WINDOW_TILE_NARROW if w <= WINDOW_NARROW else WINDOW_TILE_WIDE
+    while tile > WINDOW_TILE_MIN and -(-q // tile) < WINDOW_SMS:
+        tile //= 2
+    rows = min(2 * tile, WINDOW_ROWS_MAX)
+    if rows * w * 4 <= WINDOW_WHOLE_LIMIT:
+        return WindowPlan(tile, rows, w, 1, rows * w * 4 + 16)
+    skew = max(WINDOW_THREADS // tile, 4) & 31
+    pitch = WINDOW_STAGE_BYTES // (rows * 4)
+    chunk = pitch - 4 - ((pitch - skew) & 31)
+    return WindowPlan(tile, rows, chunk, 2, 2 * rows * (chunk + 4) * 4)
+
+
 _BOUND = False
 _STATE: dict = {}           # (device index, stream) -> [state words, last epoch]
 
@@ -64,8 +126,18 @@ def _lib() -> ctypes.CDLL:
             _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, _P]
         lib.partial_pairs_launch.restype = ctypes.c_int
+        lib.window_plan_of.argtypes = [ctypes.c_longlong, ctypes.c_int, _P]
+        lib.window_plan_of.restype = None
         _BOUND = True
     return lib
+
+
+def cuda_window_plan(q: int, w: int) -> WindowPlan:
+    """The plan as the built CUDA library computes it (for the tests that
+    hold it to :func:`window_plan`)."""
+    out = (ctypes.c_int * 5)()
+    _lib().window_plan_of(int(q), int(w), ctypes.cast(out, _P))
+    return WindowPlan(*out)
 
 
 def _check_args(bitmaps, left, right, sup_left, mode, **more):

@@ -203,8 +203,8 @@ def test_mine_on_the_card_launches_every_kernel(cuda):
     assert sums["fused"] == sums["ref"] == support_checksum(cpu.support_map())
 
 
-# (P, Ws, Q): a slice of one word, Ws = 25 (chess at 4 word shards, 7 idle
-# lanes), Q = 0 and 1, several pair blocks
+# (P, Ws, Q): a slice of one word, Ws = 25 (chess at 4 word shards), Q = 0
+# and 1, several tiles
 PARTIAL_SHAPES = [(9, 1, 7), (40, 25, 300), (5, 13, 0), (5, 13, 1),
                   (300, 782, 700)]
 
@@ -256,6 +256,76 @@ def test_tidsharded_mine_on_two_gloo_ranks_sharing_the_card(cuda):
         assert res["stats"]["backend"] == "tidsharded"
         assert res["launches"]["fused_intersect_partial"] == res["n_expands"] > 0
         assert res["stats"]["frontier_words"] == -(-want.stats["n_words"] // 2)
+
+
+# K1 and K3 stage a window of consecutive rows per tile of consecutive pairs
+# and gather the rest: the widths the mines give them (chess 25 / 50 / 100
+# words, T10I4D100K 782 / 1,563 / 3,125; whole rows up to 100, word chunks
+# above) and narrow edges
+WINDOW_WIDTHS = [1, 7, 25, 50, 100, 782, 1563, 3125]
+WINDOW_FAMILIES = ["class", "class_pad", "random", "wide_class"]
+
+
+def _window_inputs(family, w, seed, device):
+    """``(bitmaps, left, right, sup_left, min_sup)`` of one input family:
+    class-ordered pairs over 30 classes of 1-25 rows (every pair valid), the
+    same padded with (0, 0) pairs to the PairBuffers rung, random pairs, and
+    a class of 300 rows (wider than any window) among small ones."""
+    from repro_torch.core.engine import bucket_size
+    from repro_torch.core.equivalence import segment_pairs
+    from repro_torch.launch.kernel_timing import class_pair_inputs, pair_inputs
+    if family == "random":
+        return pair_inputs(300, w, 1037, seed, device=device)
+    rng = np.random.default_rng(seed)
+    sizes = ([300, 3, 1, 7, 2] if family == "wide_class"
+             else rng.integers(1, 26, 30).tolist())
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    n_pairs = segment_pairs(starts, np.asarray(sizes))[0].shape[0]
+    q = bucket_size(n_pairs, 128) if family == "class_pad" else n_pairs
+    return class_pair_inputs(sum(sizes), w, q, n_pairs, seed, sizes=sizes,
+                             device=device)
+
+
+def _check_window_kernels(bm, l, r, s, ms):
+    """K3 and K1, with and without the store, in every mode, equal to their
+    plain versions."""
+    for mode in MODES:
+        want = fused_intersect_partial_ref(bm, l, r, mode=mode)
+        inter, pop = fused_intersect_partial(bm, l, r, mode=mode)
+        none, pop2 = fused_intersect_partial(bm, l, r, mode=mode, store=False)
+        assert none is None
+        assert torch.equal(inter, want[0]) and torch.equal(pop, want[1])
+        assert torch.equal(pop2, want[1])
+        want = fused_intersect_ref(bm, l, r, s, ms, mode=mode)
+        for g, e in zip(fused_intersect(bm, l, r, s, ms, mode=mode), want):
+            assert torch.equal(g, e)
+        for g, e in zip(fused_support_pairs(bm, l, r, s, ms, mode=mode), want[1:]):
+            assert torch.equal(g, e)
+
+
+@pytest.mark.parametrize("w", WINDOW_WIDTHS)
+@pytest.mark.parametrize("family", WINDOW_FAMILIES)
+def test_window_kernels_match_ref(cuda, family, w):
+    _check_window_kernels(*_window_inputs(family, w, seed=w + len(family), device=cuda))
+
+
+@pytest.mark.parametrize("w", [7, 25, 100, 3125])
+@pytest.mark.parametrize("q", [1, 31, 33, 255, 257, 4097])
+def test_window_kernels_at_tile_edges(cuda, q, w):
+    """Q = 1 and Q one off a tile (32, 256) or a plan's tile size change,
+    class-ordered with a pad tail."""
+    from repro_torch.launch.kernel_timing import class_pair_inputs
+    args = class_pair_inputs(300 + q // 2, w, q, max(q - q // 7, 1), seed=q + w,
+                             device=cuda)
+    _check_window_kernels(*args)
+
+
+def test_window_plan_matches_cuda(cuda):
+    from repro_torch.kernels.fused_intersect.fused_intersect import (cuda_window_plan,
+                                                                     window_plan)
+    for q in (1, 4096, 16_896, 33_792, 393_216):
+        for w in list(range(0, 130)) + [782, 1563, 3125, 3126, 10_000]:
+            assert cuda_window_plan(q, w) == window_plan(q, w), (q, w)
 
 
 # attention kernels vs their plain versions run in float32 on the same

@@ -370,3 +370,265 @@ def test_kernel_library_hash_covers_shared_headers(tmp_path, monkeypatch):
     (tmp_path / "h.cuh").write_text("// two\n")
     assert _build._tag(_build._sources()) != before
     assert [p.name for p in _build._sources()] == ["k.cu"]
+
+
+# ---------------------------------------------------------------------------
+# K1 and K3 on the card: tiles of consecutive pairs, a staged window of
+# consecutive rows, word chunks -- a numpy emulation of the plan
+# ---------------------------------------------------------------------------
+
+_SENTINEL = np.uint32(0xDEADBEEF)   # shared words no copy wrote
+
+
+def _stage(smem, base, flat, g0, nw, mis):
+    """One staged segment as ``stage_window`` copies it: the frontier's
+    words ``[g0, g0 + nw)`` land at shared words ``base + o + j``; the
+    16-byte aligned interior goes by one bulk copy, which must be aligned
+    and a whole number of 16 bytes on both sides, the 0-3 words before and
+    after it one by one."""
+    o = (mis + g0) & 3
+    head = min((4 - o) & 3, nw)
+    body = (nw - head) & ~3
+    if body:
+        assert (mis + g0 + head) % 4 == 0 and (base + o + head) % 4 == 0
+    assert nw - head - body < 4
+    smem[base + o:base + o + nw] = flat[g0:g0 + nw]
+    return o
+
+
+def _emulate_window_pairs(words, left, right, mode, plan, mis=0):
+    """K1/K3's tiles, window and chunks in numpy: per tile of ``plan.tile``
+    consecutive pairs, the window rows ``[lo, hi]`` (lo the first left row,
+    hi the largest operand row below lo + rows) are staged only if at least
+    as many operands as pairs lie inside; they are copied chunk by chunk
+    into an emulated shared memory of ``plan.smem`` bytes (unwritten words
+    hold a sentinel, and chunk c + 1 is staged before chunk c is read, as
+    the kernel's two stages are); an operand row inside the window is read
+    from it, any other from the frontier.  ``mis`` is the frontier's address
+    / 4 mod 4.  Returns ``(inter, pop, staged rows, tiles staged, tiles
+    not)``."""
+    p_rows, w = words.shape
+    flat = words.reshape(-1)
+    q = left.shape[0]
+    tp, rows, chunk = plan.tile, plan.rows, plan.chunk
+    assert 256 % tp == 0 and 1 <= 256 // tp <= 32   # groups of 256 / TP lanes
+    whole = chunk >= w
+    n_chunks = 1 if whole else -(-w // chunk)
+    pitch = chunk + 4
+    stage_words = 0 if whole else rows * pitch
+    inter = np.zeros((q, w), np.uint32)
+    pop = np.zeros(q, np.int64)
+    staged = tiles_staged = tiles_not = 0
+    for q0 in range(0, q, tp):
+        n = min(tp, q - q0)
+        ls, rs = left[q0:q0 + n].astype(np.int64), right[q0:q0 + n].astype(np.int64)
+        lo = int(ls[0])
+        inside = lambda x: x[(x >= lo) & (x < lo + rows)]
+        hi = max(lo, int(inside(ls).max(initial=lo)), int(inside(rs).max(initial=lo)))
+        n_in = inside(ls).size + inside(rs).size
+        n_rows = hi - lo + 1 if n_in >= n else 0
+        staged += n_rows
+        tiles_staged += n_rows > 0
+        tiles_not += n_rows == 0
+        smem = np.full(plan.smem // 4, _SENTINEL, np.uint32)
+
+        def stage(c):
+            buf = (c & 1) * stage_words
+            if whole:
+                _stage(smem, buf, flat, lo * w, n_rows * w, mis)
+            else:
+                c0 = c * chunk
+                for i in range(n_rows):
+                    o = _stage(smem, buf + i * pitch, flat, (lo + i) * w + c0,
+                               min(chunk, w - c0), mis)
+                    assert o + min(chunk, w - c0) <= pitch
+
+        if n_rows:
+            stage(0)
+        for c in range(n_chunks):
+            if n_rows and c + 1 < n_chunks:
+                stage(c + 1)
+            c0 = 0 if whole else c * chunk
+            cw = w if whole else min(chunk, w - c0)
+            buf = (c & 1) * stage_words
+
+            def row(x):
+                i = x - lo
+                if 0 <= i < n_rows:
+                    start = (buf + ((mis + lo * w) & 3) + i * w if whole
+                             else buf + i * pitch + ((mis + x * w + c0) & 3))
+                    return smem[start:start + cw]
+                return flat[x * w + c0:x * w + c0 + cw]
+
+            for k in range(n):
+                a, b = row(int(ls[k])), row(int(rs[k]))
+                x = a & b if mode == 0 else (a & ~b if mode == 1 else b & ~a)
+                inter[q0 + k, c0:c0 + cw] = x
+                pop[q0 + k] += int(popcount_np(x).sum())
+    return inter, pop, staged, tiles_staged, tiles_not
+
+
+def _window_family(family, w, seed):
+    """Pair inputs of one family on the CPU: class-ordered pairs over
+    classes of 1-25 rows, the same with a PairBuffers zero-pad tail, random
+    pairs, and a class of 300 rows among small ones."""
+    from repro_torch.core.engine import PairBuffers
+    from repro_torch.core.equivalence import segment_pairs
+    from repro_torch.launch.kernel_timing import class_pair_inputs, pair_inputs
+    if family == "random":
+        return pair_inputs(60, w, 301, seed, device="cpu")
+    rng = np.random.default_rng(seed)
+    sizes = ([300, 3, 1, 7, 2] if family == "wide_class"
+             else rng.integers(1, 26, 8).tolist())
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    n_pairs = segment_pairs(starts, np.asarray(sizes))[0].shape[0]
+    if family == "wide_class":
+        n_pairs = 1200       # the class's first pairs: its window overflows
+    q = n_pairs
+    if family == "class_pad":
+        zeros = np.zeros(n_pairs, np.int32)
+        q = PairBuffers(128).fill(zeros, zeros, zeros)[0]
+    return class_pair_inputs(sum(sizes), w, q, n_pairs, seed, sizes=sizes,
+                             device="cpu")
+
+
+def _small_plan(tile, rows, chunk, w):
+    """A plan of the kernel's form at sizes the emulation can afford."""
+    from repro_torch.kernels.fused_intersect.fused_intersect import WindowPlan
+    if chunk >= w:
+        return WindowPlan(tile, rows, w, 1, rows * w * 4 + 16)
+    return WindowPlan(tile, rows, chunk, 2, 2 * rows * (chunk + 4) * 4)
+
+
+WINDOW_FAMILIES = ["class", "class_pad", "random", "wide_class"]
+
+
+@pytest.mark.parametrize("plan_kind", ["kernel", "small"])
+@pytest.mark.parametrize("w", [1, 7, 25, 50, 100, 130])
+@pytest.mark.parametrize("family", WINDOW_FAMILIES)
+def test_window_emulation_matches_partial_ref(family, w, plan_kind):
+    """The tile / window / chunk plan gives K3's raw popcounts and rows, and
+    with K1's epilogue its supports and mask, equal to the plain versions,
+    in every mode and at every frontier alignment: with the kernel's own
+    plan and with a small one that chunks the words and overflows the
+    window."""
+    from repro_torch.kernels.fused_intersect import fused_intersect_partial_ref
+    from repro_torch.kernels.fused_intersect.fused_intersect import window_plan
+    bm, l, r, s, ms = _window_family(family, w, seed=w + len(family))
+    q = l.shape[0]
+    plan = window_plan(q, w) if plan_kind == "kernel" else _small_plan(16, 8, 12, w)
+    words = words_to_numpy(bm)
+    for mode in MODES:
+        want_inter, want_pop = fused_intersect_partial_ref(bm, l, r, mode=mode)
+        want = fused_intersect_ref(bm, l, r, s, ms, mode=mode)
+        for mis in ((0, 1, 2, 3) if mode == 0 else (1,)):
+            inter, pop, _, tiles_staged, tiles_not = _emulate_window_pairs(
+                words, l.numpy(), r.numpy(), mode, plan, mis)
+            assert np.array_equal(inter, words_to_numpy(want_inter))
+            assert np.array_equal(pop, want_pop.numpy())
+            sup = pop if mode == 0 else s.numpy() - pop
+            assert np.array_equal(sup, want[1].numpy())
+            assert np.array_equal((sup >= ms).astype(np.int32), want[2].numpy())
+        # class-ordered tiles stage their windows; random ones do not
+        if family == "random":
+            assert tiles_staged <= tiles_not
+        else:
+            assert tiles_staged > tiles_not
+
+
+@pytest.mark.parametrize("family", WINDOW_FAMILIES)
+def test_window_rows_count_the_emulated_windows(family):
+    """kernel_timing.window_rows, which chip_smoke.py prints for the
+    recorded pair lists, counts the rows the emulated kernel stages."""
+    from repro_torch.launch.kernel_timing import window_rows
+    bm, l, r, _, _ = _window_family(family, 7, seed=9)
+    words, l, r = words_to_numpy(bm), l.numpy(), r.numpy()
+    for plan in (_small_plan(16, 8, 12, 7), _small_plan(32, 64, 12, 7)):
+        _, _, staged, _, _ = _emulate_window_pairs(words, l, r, 0, plan)
+        assert window_rows(l, r, plan.tile, plan.rows)[0] == staged
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("family", WINDOW_FAMILIES)
+def test_window_emulation_matches_pallas(family, mode):
+    """Through the plain version, the emulation is held to the reference
+    package's Pallas kernels in interpret mode: K3 (partial popcount) and
+    K1 (supports, mask, rows) on the first 40 pairs of each family, with a
+    plan of 8-pair tiles, 4-row windows and 4-word chunks."""
+    from repro.kernels.fused_intersect import fused_intersect_partial_pairs as j_partial
+    bm, l, r, s, ms = _window_family(family, 9, seed=3 + mode)
+    l, r, s = l[:40], r[:40], s[:40]
+    words = words_to_numpy(bm)
+    inter, pop, _, _, _ = _emulate_window_pairs(words, l.numpy(), r.numpy(), mode,
+                                                _small_plan(8, 4, 4, 9), mis=3)
+    jargs = (jnp.asarray(words), jnp.asarray(l.numpy()), jnp.asarray(r.numpy()))
+    j_inter, j_pop = j_partial(*jargs, mode=mode, interpret=True)
+    np.testing.assert_array_equal(inter, np.asarray(j_inter))
+    np.testing.assert_array_equal(pop, np.asarray(j_pop))
+    j_inter, j_sup, j_mask = j_kernel(*_jax_args(words, l.numpy(), r.numpy(), s.numpy()),
+                                      ms, mode=mode, interpret=True)
+    sup = pop if mode == 0 else s.numpy() - pop
+    np.testing.assert_array_equal(sup, np.asarray(j_sup))
+    np.testing.assert_array_equal((sup >= ms).astype(np.int32), np.asarray(j_mask))
+    np.testing.assert_array_equal(inter, np.asarray(j_inter)[:, :9])
+
+
+# static shared memory of the window kernels: left, right and sup_left of
+# 256 pairs, and a word per warp
+_WINDOW_STATIC_SMEM = 3 * 256 * 4 + 8 * 4
+
+
+@pytest.mark.parametrize("q", [1, 100, 4096, 16_896, 33_792, 393_216])
+def test_window_plan_fits_shared_memory(q):
+    """For every row width from 1 to 3,125 words, the plan's stages fit the
+    227 KB a block may use, chunks are whole 16-byte slots, and the tile's
+    pairs take all 256 threads in groups of 1 to 32 lanes."""
+    from repro_torch.kernels.fused_intersect.fused_intersect import window_plan
+    for w in range(1, 3126):
+        plan = window_plan(q, w)
+        assert plan.smem + _WINDOW_STATIC_SMEM <= 227 * 1024, (q, w, plan)
+        lanes = 256 // plan.tile
+        assert lanes * plan.tile == 256 and 1 <= lanes <= 32
+        assert plan.rows >= plan.tile
+        if plan.stages == 1:
+            assert plan.chunk == w and plan.smem >= (plan.rows * w + 3) * 4
+        else:
+            assert plan.stages == 2 and 0 < plan.chunk < w and plan.chunk % 4 == 0
+            assert plan.smem == 2 * plan.rows * (plan.chunk + 4) * 4
+            assert (plan.chunk + 4) % 32 == max(lanes, 4) % 32
+
+
+def test_window_plan_at_the_main_path_shapes():
+    """chess level 5 (Q = 393,216) stages whole rows at every slice width
+    with a thread per pair; T10I4D100K level 3 (Q = 4,096) takes 16-pair
+    tiles, whole rows of its 4-shard slice and word chunks above."""
+    from repro_torch.kernels.fused_intersect.fused_intersect import window_plan
+    for w in (25, 50, 100):
+        assert window_plan(393_216, w)[:4] == (256, 256, w, 1)
+    assert window_plan(4096, 782)[:4] == (16, 32, 782, 1)
+    for w in (1563, 3125):
+        plan = window_plan(4096, w)
+        assert plan.tile == 16 and plan.stages == 2 and plan.chunk < w
+
+
+def test_miner_inputs_record_the_largest_expansion():
+    """The timing inputs are the padded pair block of the mine's largest
+    expansion, class-ordered; the spy is gone after the mine."""
+    from repro_torch.core.engine import FusedEngine
+    from repro_torch.launch.kernel_timing import miner_inputs, rank0_slice
+    from repro_torch.dist.sharding import padded_word_count
+    before = FusedEngine._intersect_compact
+    rng = np.random.default_rng(4)
+    txns = [sorted(set(rng.integers(0, 14, rng.integers(3, 9)).tolist()))
+            for _ in range(600)]
+    rec = miner_inputs(txns, 14, 30, "v4", device="cpu")
+    assert FusedEngine._intersect_compact is before
+    l, r, nv = rec["left"].numpy(), rec["right"].numpy(), rec["n_valid"]
+    assert 0 < nv <= l.shape[0] and (l[nv:] == 0).all() and (r[nv:] == 0).all()
+    assert (np.diff(l[:nv]) >= 0).all() and (r[:nv] > l[:nv]).all()
+    assert rec["mode"] == 0 and rec["bitmaps"].shape[0] > r.max()
+    part = rank0_slice(rec["bitmaps"])
+    w = rec["bitmaps"].shape[1]
+    assert part.shape == (rec["bitmaps"].shape[0], padded_word_count(w, 4) // 4)
+    assert torch.equal(part[:, :min(w, part.shape[1])],
+                       rec["bitmaps"][:, :part.shape[1]])
