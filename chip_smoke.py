@@ -17,6 +17,17 @@ paths end to end:
   same checksums, with the partial-popcount kernel (K3; none for
   ``sharded``) and the survivor compaction (K2) launched once per expansion
   and the collectives per expansion checked;
+* the sliding-window miner (``StreamingMiner``) over T10I4D100K and chess
+  streams (a 16 x 8,192-transaction window for T10I4D100K, 8 x 512 for
+  chess, the last batches drifting): on the ``fused`` and ``ref`` backends,
+  every slide held to the port's batch ``mine()`` of the window, to the
+  ``ref`` stream and to the reference's pinned checksums, with the
+  co-occurrence kernel (K4) launched once per warming push and twice per
+  evicting push and K2 once per expansion; then on 4 gloo ranks sharing
+  the card (word-sharded ring: tidsharded 1x4 and grid 2x2; sharded 4),
+  every rank held to the same checksums with no collective in a push, and
+  K2/K3/K1 held on the level-2 pair lists over the ring (universe item ids
+  in support order);
 * LM serving of gemma3-4b at full width and depth (bf16, random weights
   from a seeded generator): ``ServingEngine.serve`` of 8 requests, twice,
   with the flash- and decode-attention kernels' launch counts and
@@ -25,7 +36,8 @@ paths end to end:
   their plain versions in their place, in float32 and in bf16;
 
 and times each kernel beside its bound, its plain version and, where one
-exists, a PyTorch call that computes the same function.  The pair kernels
+exists, a PyTorch call that computes the same function (K4 also at the
+streams' per-push shapes, with a sweep of its word split).  The pair kernels
 (K1, K2, K3) are held and timed on random pair lists and on the pair lists
 of the largest expansion of the fused mines of chess and T10I4D100K,
 recorded on the card (class-ordered, as the miner makes them); the kernels
@@ -56,6 +68,33 @@ E2E_RUNS = [
     ("chess", 0.7, "v4", False, "fc427bbc1d53e5f2"),
     ("chess", 0.7, "v6", True, "fc427bbc1d53e5f2"),
 ]
+
+# support_checksum of the reference package's StreamingMiner (backend "jnp")
+# on each slide of the streams run_streams drives
+# (launch.stream_profile.STREAMS: data.transaction_stream(name, block_txns,
+# batches, seed=0, drift_every)); tests/test_torch_streaming.py pins the same
+# values on both packages
+STREAM_CHECKSUMS = {
+    "T10I4D100K": [
+        "03305fb35202fa33", "2cff9a67305caa38", "330914aa9d78b1dc",
+        "a49de3e2f76fbde4", "b03d61799cf80e13", "cde3eb63dd828774",
+        "2b8bb8e40af4c4f1", "fd3beca102104c57", "48cb32f42b213481",
+        "18485b8e49c2b140", "cdc38c87ef19d4c5", "a32c33d11163ec46",
+        "a9d267c1349edbdd", "38c1f186f8d98dc1", "c3b72a197c457c90",
+        "71c063f1323ea9dc", "359712b5284a0b6e", "490da9deab146303",
+        "e62d757c708ee9f7", "c0975c23b8dde087"],
+    "chess": [
+        "8f740a07f28b2496", "ea61966d69f71a28", "2f0261fcda8c158d",
+        "df3151933e5b96d3", "822ec7f19c6ee450", "941c228891adb46d",
+        "d94f4366b1c78355", "19217ac50694306e", "6f3ec44c33026b8a",
+        "1f2cdef8ca8ceb9a", "9dc0ded648efae63", "4e05527418f8d44c"],
+}
+# the mesh streams, on 4 gloo ranks sharing the card: (label, stream,
+# backend, shard, grid)
+MESH_STREAMS = [("tidsharded 1x4", "chess", "fused", "words", None),
+                ("grid 2x2", "chess", "grid", "grid", "2x2"),
+                ("sharded 4", "chess", "sharded", "pairs", None),
+                ("tidsharded 1x4", "T10I4D100K", "fused", "words", None)]
 
 # K3 shapes (P, Ws, Q) of the word-sharded mines at 4 word shards: chess
 # level 5 (W = 100) and T10I4D100K level 3 (W = 3,125); these are timed
@@ -608,6 +647,289 @@ def run_mesh_mines(data):
     return k3
 
 
+def _stream_slide_checks(what, i, n_blocks, push_l, mine_l, n_expands, level2):
+    """The launches of one slide of a fused stream: K4 once per push while
+    the window warms up and twice once it evicts, K2 once per expansion (at
+    least once when the window has a frequent pair), K1 never alone."""
+    want_k4 = 1 if i < n_blocks else 2
+    require(push_l["trimatrix"] == want_k4,
+            f"{what} slide {i}: K4 launched {push_l['trimatrix']} times in the "
+            f"push, expected {want_k4}")
+    require(sum(push_l.values()) == push_l["trimatrix"],
+            f"{what} slide {i}: the push launched {push_l}")
+    require(mine_l["trimatrix"] == 0, f"{what} slide {i}: the mine launched K4")
+    require(mine_l["fused_intersect_compact"] == n_expands and
+            (n_expands > 0 or not level2),
+            f"{what} slide {i}: K2 launched {mine_l['fused_intersect_compact']} "
+            f"times for {n_expands} expansions (level 2: {level2} pairs)")
+    require(mine_l["fused_intersect"] == 0,
+            f"{what} slide {i}: K1 launched on its own; it runs inside K2's pass")
+
+
+def run_streams(launches):
+    """The sliding-window miner on the card: T10I4D100K and chess streams on
+    the ``fused`` and ``ref`` backends, each slide held to the port's batch
+    ``mine()`` of the window, to the ``ref`` stream and to the reference's
+    pinned checksum, with the kernels' launches per push and per mine; then
+    the same streams on 4 gloo ranks sharing the card (tidsharded 1x4, grid
+    2x2 and sharded 4 for chess, tidsharded 1x4 for T10I4D100K), every rank
+    held to the pinned checksums, zero collectives per push and one
+    all-reduce and one K3 per expansion.  Adds the fused streams' launches
+    to ``launches``; returns the largest level-2 expansion of each fused
+    stream (its pair lists over the ring, recorded through a spy on
+    ``FusedEngine._intersect_compact``) and the per-slide times."""
+    import statistics
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import EclatConfig, mine, support_checksum
+    from repro_torch.core.engine import FusedEngine
+    from repro_torch.data import stream_spec, transaction_stream
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.mesh_runs import run_jobs
+    from repro_torch.launch.stream_profile import STREAMS
+    from repro_torch.streaming import StreamConfig, StreamingMiner
+
+    batches, recorded, times = {}, {}, {}
+    for name, n_blocks, block_txns, min_sup, n_batches, drift in STREAMS:
+        t0 = time.perf_counter()
+        batches[name] = list(transaction_stream(name, block_txns, n_batches,
+                                                seed=0, drift_every=drift))
+        print(f"e2e stream generate {name}: {n_batches} batches of {block_txns} "
+              f"txns in {time.perf_counter() - t0:.2f}s (host)")
+    original = FusedEngine._intersect_compact
+    for name, n_blocks, block_txns, min_sup, n_batches, drift in STREAMS:
+        n_items = stream_spec(name).n_items
+        pinned = STREAM_CHECKSUMS[name]
+        sums = {}
+        for backend in ("fused", "ref"):
+            what = f"stream {name} {backend}"
+            cfg = StreamConfig(min_sup=min_sup, n_blocks=n_blocks,
+                               block_txns=block_txns, backend=backend)
+            miner = StreamingMiner(n_items, cfg)
+            ring = miner.ring.device
+            seen = {}
+
+            def spy(bitmaps, left, right, sup_left, min_sup_, n_valid, *, mode):
+                # the level-2 expansion runs over the ring itself
+                if (bitmaps.data_ptr() == ring.data_ptr() and
+                        (not seen or left.shape[0] > seen["left"].shape[0])):
+                    seen.update(bitmaps=bitmaps.clone(), left=left.clone(),
+                                right=right.clone(), sup_left=sup_left.clone(),
+                                min_sup=int(min_sup_), n_valid=int(n_valid))
+                return original(bitmaps, left, right, sup_left, min_sup_,
+                                n_valid, mode=mode)
+
+            FusedEngine._intersect_compact = staticmethod(spy)
+            try:
+                rows = []
+                for i, batch in enumerate(batches[name]):
+                    kernels.reset_launch_counts()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    push = miner.push(batch)
+                    torch.cuda.synchronize()
+                    push_s = time.perf_counter() - t0
+                    push_l = kernels.launch_counts()
+                    kernels.reset_launch_counts()
+                    t0 = time.perf_counter()
+                    res = miner.mine_window()
+                    torch.cuda.synchronize()
+                    mine_s = time.perf_counter() - t0
+                    mine_l = kernels.launch_counts()
+                    st = res.stats
+                    csum = support_checksum(res.support_map())
+                    n_exp = len(st.get("pair_padding", {}).get("per_level", []))
+                    level2 = res.counts[1] if len(res.counts) > 1 else 0
+                    if backend == "fused":
+                        _stream_slide_checks(what, i, n_blocks, push_l, mine_l,
+                                             n_exp, level2)
+                        for k in launches:
+                            launches[k] += push_l[k] + mine_l[k]
+                    else:
+                        require(not any(push_l.values()) and not any(mine_l.values()),
+                                f"{what} slide {i}: the ref backend launched "
+                                f"{push_l} {mine_l}")
+                    kernels.reset_launch_counts()
+                    t0 = time.perf_counter()
+                    whole = mine(miner.window_transactions(), n_items,
+                                 EclatConfig(min_sup=min_sup))
+                    batch_s = time.perf_counter() - t0
+                    batch_sum = support_checksum(whole.support_map())
+                    phase = st["phase_s"]
+                    row = dict(push_s=push_s, level2=phase.get("level2", 0.0),
+                               bottom_up=phase.get("bottom_up", 0.0),
+                               slide_s=push_s + mine_s)
+                    rows.append(row)
+                    print(f"e2e stream {name} backend={backend} slide {i}: "
+                          f"n_txn={res.n_txn} evicted={push['n_evicted']} "
+                          f"itemsets={res.total} levels={res.counts} "
+                          f"classes={st['classes']} checksum={csum} "
+                          f"push_s={push_s:.4f} level2={row['level2']:.4f} "
+                          f"bottom_up={row['bottom_up']:.4f} "
+                          f"slide_s={row['slide_s']:.4f} "
+                          f"batch_mine_s={batch_s:.4f} "
+                          f"launches push={ {k: v for k, v in push_l.items() if v} } "
+                          f"mine={ {k: v for k, v in mine_l.items() if v} }")
+                    require(csum == batch_sum,
+                            f"{what} slide {i}: checksum {csum} != batch mine() "
+                            f"of the window {batch_sum}")
+                    require(csum == pinned[i],
+                            f"{what} slide {i}: checksum {csum} != reference {pinned[i]}")
+                    sums.setdefault(backend, []).append(csum)
+            finally:
+                FusedEngine._intersect_compact = staticmethod(original)
+            miner.ring.validate()
+            times[(name, backend)] = rows
+            if backend == "fused":
+                require(seen, f"{what}: no level-2 expansion over the ring")
+                p, w = seen["bitmaps"].shape
+                seen["label"] = (f"{name} stream level 2 over the ring: P={p} "
+                                 f"W={w} Q={seen['left'].shape[0]} "
+                                 f"valid={seen['n_valid']}")
+                recorded[name] = seen
+            full = rows[n_blocks:]
+            med = {k: statistics.median(r[k] for r in full) for k in rows[0]}
+            print(f"e2e stream {name} backend={backend}: {len(rows)} slides, "
+                  f"window {n_blocks} x {block_txns} txns, ring "
+                  f"{tuple(miner.ring.device.shape)} int32 words; median over "
+                  f"the {len(full)} evicting slides: push_s={med['push_s']:.4f} "
+                  f"level2={med['level2']:.4f} bottom_up={med['bottom_up']:.4f} "
+                  f"slide_s={med['slide_s']:.4f}; ring validated")
+        require(sums["fused"] == sums["ref"], f"stream {name}: fused != ref")
+        print(f"e2e stream {name}: fused == ref == batch mine() == reference "
+              f"checksum on all {len(sums['fused'])} slides")
+
+    jobs = []
+    for label, name, backend, shard, grid in MESH_STREAMS:
+        _, n_blocks, block_txns, min_sup, n_batches, drift = next(
+            st for st in STREAMS if st[0] == name)
+        jobs.append(dict(kind="stream", stream=(name, block_txns, n_batches, 0, drift),
+                         n_items=stream_spec(name).n_items, grid=grid,
+                         label=label, name=name, n_blocks=n_blocks,
+                         config=dict(min_sup=min_sup, n_blocks=n_blocks,
+                                     block_txns=block_txns, backend=backend,
+                                     shard=shard)))
+    t0 = time.perf_counter()
+    per_rank = run_ranks(run_jobs, 4, backend="gloo", device="cuda",
+                         args=(jobs,), timeout=600)
+    print(f"e2e stream mesh gloo 4 ranks on one card: {len(jobs)} streams in "
+          f"{time.perf_counter() - t0:.2f}s with spawn, each rank regenerating "
+          f"the streams (a correctness topology: its times are no measure of "
+          f"a 4-card mesh)")
+    for j, job in enumerate(jobs):
+        _check_mesh_stream(job, [r[j] for r in per_rank], times)
+    return recorded, times
+
+
+def _check_mesh_stream(job, per_rank, times):
+    """Every rank's slides of one mesh stream: the pinned checksums, zero
+    collectives and only K4 in a push, K2 (and K3 but for sharded) once per
+    expansion with one all-reduce over data each, K1 never alone, the ring
+    slice validated.  Prints rank 0's slides and one line per stream."""
+    import statistics
+    what = f"mesh stream {job['name']} {job['label']}"
+    name, n_blocks = job["name"], job["n_blocks"]
+    for rank, res in enumerate(per_rank):
+        require("error" not in res, f"{what}: rank {rank} refused: {res.get('error')}")
+        backend = res["engine"]
+        require(res["validate"] == "ok", f"{what} rank {rank}: {res['validate']}")
+        for i, sl in enumerate(res["slides"]):
+            n_exp = sl["n_expands"]
+            push_l, mine_l = sl["push_launches"], sl["mine_launches"]
+            if rank == 0:
+                print(f"e2e {what} rank 0 slide {i}: backend={backend} "
+                      f"checksum={sl['checksum']} levels={sl['counts']} "
+                      f"push_s={sl['push_s']:.4f} "
+                      f"level2={sl['stats']['phase_s'].get('level2', 0.0):.4f} "
+                      f"bottom_up={sl['stats']['phase_s'].get('bottom_up', 0.0):.4f} "
+                      f"slide_s={sl['slide_s']:.4f} expands={n_exp} "
+                      f"push_collectives={sl['push_collectives']} "
+                      f"mine_collectives={sl['mine_collectives']} "
+                      f"launches push={ {k: v for k, v in push_l.items() if v} } "
+                      f"mine={ {k: v for k, v in mine_l.items() if v} }")
+            require(sl["checksum"] == STREAM_CHECKSUMS[name][i],
+                    f"{what} rank {rank} slide {i}: checksum {sl['checksum']} != "
+                    f"reference {STREAM_CHECKSUMS[name][i]}")
+            require(sl["push_collectives"] == {},
+                    f"{what} rank {rank} slide {i}: the push made collectives "
+                    f"{sl['push_collectives']}")
+            level2 = sl["counts"][1] if len(sl["counts"]) > 1 else 0
+            _stream_slide_checks(f"{what} rank {rank}", i, n_blocks, push_l, mine_l,
+                                 n_exp, level2)
+            want_k3 = 0 if backend == "sharded" else n_exp
+            require(mine_l["fused_intersect_partial"] == want_k3,
+                    f"{what} rank {rank} slide {i}: K3 launched "
+                    f"{mine_l['fused_intersect_partial']} times for {n_exp} expansions")
+            red = sl["mine_collectives"].get("data", {}).get("all_reduce", {}).get("calls", 0)
+            require(red == want_k3,
+                    f"{what} rank {rank} slide {i}: {red} all-reduces over data "
+                    f"for {n_exp} expansions")
+    sums = [[sl["checksum"] for sl in res["slides"]] for res in per_rank]
+    require(all(x == sums[0] for x in sums), f"{what}: ranks disagree")
+    slides = per_rank[0]["slides"][n_blocks:]
+    med = {k: statistics.median(sl[k] for sl in slides) for k in ("push_s", "slide_s")}
+    times[(name, f"mesh {job['label']}")] = [
+        dict(push_s=sl["push_s"], slide_s=sl["slide_s"],
+             level2=sl["stats"]["phase_s"].get("level2", 0.0),
+             bottom_up=sl["stats"]["phase_s"].get("bottom_up", 0.0))
+        for sl in per_rank[0]["slides"]]
+    print(f"e2e {what}: every rank equal to the reference checksums on all "
+          f"{len(sums[0])} slides; ring slice {per_rank[0]['ring_geometry']} "
+          f"validated; no collective in a push; rank 0 median over the "
+          f"evicting slides push_s={med['push_s']:.4f} slide_s={med['slide_s']:.4f}")
+
+
+def check_stream_pairs(recorded):
+    """K2, K3 and K1 against their plain versions, exact, on the pair lists
+    of the largest level-2 expansion of each fused stream: universe item ids
+    in support order over the whole ring (not class-ordered rows), every
+    mode; K3 on rank 0's 4-shard slice of the ring, with and without its
+    store.  Prints how many operands K1/K3's windows leave outside."""
+    import torch
+    from repro_torch.kernels.fused_intersect import (
+        fused_intersect, fused_intersect_compact, fused_intersect_compact_ref,
+        fused_intersect_partial, fused_intersect_partial_ref,
+        fused_intersect_ref)
+    from repro_torch.kernels.fused_intersect.fused_intersect import window_plan
+    from repro_torch.launch.kernel_timing import rank0_slice, window_rows
+    for name, rec in recorded.items():
+        bm, l, r, s, ms, nv = (rec[k] for k in ("bitmaps", "left", "right",
+                                                "sup_left", "min_sup", "n_valid"))
+        part = rank0_slice(bm)
+        for mode in (0, 1, 2):
+            got = fused_intersect_compact(bm, l, r, s, ms, nv, mode=mode)
+            want = fused_intersect_compact_ref(bm, l, r, s, ms, nv, mode=mode)
+            got1 = fused_intersect(bm, l, r, s, ms, mode=mode)
+            want1 = fused_intersect_ref(bm, l, r, s, ms, mode=mode)
+            got_p = fused_intersect_partial(part, l, r, mode=mode)
+            _, pop = fused_intersect_partial(part, l, r, mode=mode, store=False)
+            want_p = fused_intersect_partial_ref(part, l, r, mode=mode)
+            torch.cuda.synchronize()
+            for g, e, what in zip(got, want, ("compact", "sup", "mask", "n_surv")):
+                compare("fused_intersect_compact", g, e,
+                        f"fused_intersect_compact {rec['label']} mode {mode}: {what}")
+            for g, e, what in zip(got1, want1, ("inter", "sup", "mask")):
+                compare("fused_intersect", g, e,
+                        f"fused_intersect {rec['label']} mode {mode}: {what}")
+            for g, e, what in zip((*got_p, pop), (*want_p, want_p[1]), ("inter", "pop", "pop")):
+                compare("fused_intersect_partial", g, e,
+                        f"fused_intersect_partial {rec['label']} Ws={part.shape[1]} "
+                        f"mode {mode}: {what}")
+        plan = window_plan(l.shape[0], bm.shape[1])
+        staged, largest, outside = window_rows(l[:nv].cpu().numpy(),
+                                               r[:nv].cpu().numpy(), plan.tile, plan.rows)
+        plan_p = window_plan(l.shape[0], part.shape[1])
+        staged_p, _, outside_p = window_rows(l[:nv].cpu().numpy(), r[:nv].cpu().numpy(),
+                                             plan_p.tile, plan_p.rows)
+        print(f"check fused_intersect_compact, fused_intersect and "
+              f"fused_intersect_partial (Ws={part.shape[1]}) on {rec['label']} "
+              f"(min_sup {ms}; universe-id pairs in support order) modes 0-2: "
+              f"equal to ref (exact); windows: K1 {plan.tile}-pair tiles stage "
+              f"{staged} rows (largest {largest}), {outside} of {2 * nv} "
+              f"operands outside; K3 at Ws={part.shape[1]} stages {staged_p} "
+              f"rows, {outside_p} operands outside")
+
+
 def bound(nbytes, products):
     """Least time in ms for work that moves ``nbytes`` and holds ``products``
     one-bit multiply-adds, and which of the two bounds it.  The fastest
@@ -619,7 +941,7 @@ def bound(nbytes, products):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def time_kernels(launches, miner):
+def time_kernels(launches, miner, stream_rec):
     """Each mining kernel at the main path's shapes, on random pairs and on
     ``miner``, the recorded pair lists of the mines' largest expansions:
     ``ms`` is its device time per call (``kernel_timing.device_ms``: calls
@@ -637,8 +959,8 @@ def time_kernels(launches, miner):
     from repro_torch.kernels.trimatrix import (cooccurrence, split_plan,
                                                trimatrix_ref)
     from repro_torch.launch.kernel_timing import (
-        PAIR_SHAPES, TRI_TIMED_SHAPES, device_ms, median_ms, pair_inputs,
-        rank0_slice, tri_inputs)
+        PAIR_SHAPES, SLIDE_SHAPES, TRI_TIMED_SHAPES, device_ms, median_ms,
+        pair_inputs, rank0_slice, split_sweep, tri_inputs, unpacked_indicator)
 
     print(f"timing peaks (H100 SXM data sheet, dense, 700 W): HBM "
           f"{HBM_BYTES_PER_S:.3e} B/s; int8 tensor cores "
@@ -664,6 +986,10 @@ def time_kernels(launches, miner):
                  for p, w, q, nv in PAIR_SHAPES]
     pair_sets += [("miner", rec["label"], rec["bitmaps"], rec["left"], rec["right"],
                    rec["sup_left"], rec["min_sup"], rec["n_valid"]) for rec in miner]
+    # and the level-2 pair lists of the fused streams over their rings
+    pair_sets += [("stream", rec["label"], rec["bitmaps"], rec["left"], rec["right"],
+                   rec["sup_left"], rec["min_sup"], rec["n_valid"])
+                  for rec in stream_rec.values()]
     for inputs, shape, bm, l, r, s, ms, nv in pair_sets:
         q, w = l.shape[0], bm.shape[1]
         # frontier rows the pairs touch, each read once, plus left/right/sup_left
@@ -701,10 +1027,11 @@ def time_kernels(launches, miner):
                              **timed(fn, ref), bound_ms=bms, bound_by=by))
     part_sets = [("random", f"P={p} Ws={ws} Q={q}", *pair_inputs(p, ws, q, seed=13)[:3])
                  for p, ws, q in PARTIAL_SHAPES]
-    for rec in miner:
-        part = rank0_slice(rec["bitmaps"])
-        part_sets.append(("miner", f"{rec['label']} Ws={part.shape[1]}", part,
-                          rec["left"], rec["right"]))
+    for inputs, recs in (("miner", miner), ("stream", list(stream_rec.values()))):
+        for rec in recs:
+            part = rank0_slice(rec["bitmaps"])
+            part_sets.append((inputs, f"{rec['label']} Ws={part.shape[1]}", part,
+                              rec["left"], rec["right"]))
     for inputs, shape, bm, l, r in part_sets:
         q, ws = l.shape[0], bm.shape[1]
         rows_read = int(torch.unique(torch.cat((l, r))).numel())
@@ -737,14 +1064,10 @@ def time_kernels(launches, miner):
                          **timed(lambda: intersect_support(a, b),
                                  lambda: popcount_support_ref(a, b)),
                          bound_ms=bms, bound_by=by))
-    for n, w in TRI_TIMED_SHAPES:
+    for n, w in TRI_TIMED_SHAPES + SLIDE_SHAPES:
         bm = tri_inputs(n, w, seed=5)
-        npad = max(17, -(-n // 8) * 8)
-        shifts = torch.arange(32, device="cuda", dtype=torch.int32)
-
-        def unpack():
-            dense = ((bm[:, :, None] >> shifts) & 1).reshape(n, w * 32).to(torch.int8)
-            return torch.nn.functional.pad(dense, (0, 0, 0, npad - n)).contiguous()
+        slide = (n, w) in SLIDE_SHAPES
+        unpack = unpacked_indicator(bm)
         dense = unpack()
         lib = lambda: torch._int_mm(dense, dense.t())
         got = lib()[:n, :n]
@@ -754,11 +1077,12 @@ def time_kernels(launches, miner):
         rows.append(dict(name="trimatrix", listed=True, route="cuda", inputs="random",
                          source="src/repro_torch/csrc/trimatrix.cu",
                          replaces="src/repro/kernels/trimatrix/trimatrix.py:71",
-                         shape=f"N={n} W={w}",
+                         shape=f"N={n} W={w}" + (" (stream push)" if slide else ""),
                          **timed(lambda: cooccurrence(bm), lambda: trimatrix_ref(bm),
                                  lib, plain_reps=3, plain_warmup=1),
                          library_unpack_ms=device_ms(unpack),
                          split_plan=split_plan(n, w),
+                         sweep=split_sweep(bm) if slide else None,
                          bound_ms=bms, bound_by=by))
         del dense
     for row in rows:
@@ -770,6 +1094,11 @@ def time_kernels(launches, miner):
             extra = (f"; the unpack feeding torch._int_mm "
                      f"{row['library_unpack_ms']:.5f} ms device (not in library_ms); "
                      f"split plan (splits, words per split) {row['split_plan']}")
+        if row.get("sweep"):
+            best = min(row["sweep"], key=row["sweep"].get)
+            extra += ("; device ms per call by forced split (splits, words per "
+                      "split): " + ", ".join(f"{k} {v:.5f}" for k, v in row["sweep"].items())
+                      + f"; fastest {best}, split_plan picks {row['split_plan']}")
         print(f"timing {row['name']} ({row['inputs']} pairs) {row['shape']}: "
               f"ms={row['ms']:.5f} "
               f"plain_ms={row['plain_ms']:.5f} bound_ms={row['bound_ms']:.5f} "
@@ -799,7 +1128,12 @@ def time_kernels(launches, miner):
           "popcount_support is on no path (0 launches); trimatrix "
           "library_ms is torch._int_mm over the unpacked 0/1 int8 "
           "indicator, rows padded to a multiple of 8, timed with CUDA "
-          "events as in earlier runs, the unpack timed apart (device)")
+          "events as in earlier runs, the unpack timed apart (device); "
+          "trimatrix launches are the fused mines' and the fused streams' "
+          "(one per warming push, two per evicting push); stream pairs are "
+          "the largest level-2 expansion of each fused stream over its ring "
+          "(universe item ids in support order), timed but not in the "
+          "kernels line")
     return rows
 
 
@@ -1360,6 +1694,8 @@ def main() -> int:
     launches = phase(run_end_to_end)
     launches["fused_intersect_partial"] = phase(run_mesh_mines, DATA)
     launches["popcount_support"] = 0
+    stream_rec, _ = phase(run_streams, launches)
+    phase(check_stream_pairs, stream_rec)
     miner = phase(check_miner_pairs)
     phase(check_flash_attention)
     phase(check_decode_attention)
@@ -1367,7 +1703,7 @@ def main() -> int:
     phase(check_decode_matches_prefill, params, cfg)
     del params
     torch.cuda.empty_cache()
-    rows = phase(time_kernels, launches, miner) + phase(time_attention, serve_counts)
+    rows = phase(time_kernels, launches, miner, stream_rec) + phase(time_attention, serve_counts)
     kernels_line = [dict(name=r["name"], route=r["route"], source=r["source"],
                          replaces=r["replaces"], shape=r["shape"],
                          launches=r["launches"],

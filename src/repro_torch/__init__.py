@@ -5,7 +5,8 @@ The port of the ``repro`` package, slice by slice.  This package imports
 ``torch`` and ``numpy`` only.
 
 Ported so far: the batch miner, on one device and on a mesh of ranks
-(``torch.distributed``), and batched LM serving of the dense decoders.
+(``torch.distributed``), the sliding-window miner and its query service,
+and batched LM serving of the dense decoders.
 
   core      packed vertical DB (with the v3 accumulator's mesh merge),
             Phase-2 co-occurrence counts, the level expansion engine
@@ -24,10 +25,17 @@ Ported so far: the batch miner, on one device and on a mesh of ranks
   configs   gemma3-4b and gemma-2b (copies of the reference's), reduced
   models    dense decoder: layers, MLP, attention, prefill/decode, and the
             reference's weights carried over (``params_from_numpy``)
-  serving   ``ServingEngine`` (prefill + decode, request packing), metrics
-  data      the paper's Table-2 dataset generators (numpy, seed-identical to
-            the reference package)
-  launch    ``python -m repro_torch.launch.{mine,serve,serve_profile}``;
+  streaming ``WindowRing`` (the window as a ring of packed word-blocks on
+            the device, word-sharded on a mesh) and ``StreamingMiner``
+            (incremental co-occurrence counts, re-expansion of the active
+            classes through the engine)
+  serving   ``ServingEngine`` (prefill + decode, request packing), metrics;
+            ``StreamQueryService`` (top-k, rules, packed query batches over
+            version-stamped window snapshots)
+  data      the paper's Table-2 dataset generators and micro-batch streams
+            (numpy, seed-identical to the reference package)
+  faults    named kill points for fault injection
+  launch    ``python -m repro_torch.launch.{mine,stream,serve,serve_profile}``;
             ``launch.mesh`` builds the meshes and starts the ranks
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; see

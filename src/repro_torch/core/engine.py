@@ -43,7 +43,9 @@ backend's *pair* axis (``n_devices`` wide: the class axis for
 ``sharded``/``grid``, trivial for the rest); ``prepare_frontier`` owns the
 *word* axis (a rank's slice for ``tidsharded``/``grid``, identity
 otherwise).  Word-sharded engines take in :meth:`Engine.expand` only
-frontiers that :meth:`prepare_frontier` or an earlier expand produced.
+frontiers that :meth:`prepare_frontier` or :meth:`adopt_frontier` (a slice
+cut elsewhere, such as the streaming miner's ring) or an earlier expand
+produced.
 
 Pair batches are padded up to a half-power-of-two ladder
 (``bucket_min`` x {1, 1.5, 2, 3, 4, 6, ...}), which caps padding waste at
@@ -60,7 +62,7 @@ import numpy as np
 import torch
 
 from ..dist import collectives as coll
-from ..dist.sharding import axis_index, axis_size, shard_words
+from ..dist.sharding import axis_index, axis_size, padded_word_count, shard_words
 from ..kernels.fused_intersect import (MODE_DIFFSET, MODE_TID_TO_DIFF,
                                        MODE_TIDSET, compact_survivors,
                                        compact_survivors_ref,
@@ -233,6 +235,16 @@ class Engine:
         the level-1 frontier."""
         return bitmaps
 
+    def adopt_frontier(self, local: torch.Tensor, n_words: int) -> torch.Tensor:
+        """Take a frontier of ``n_words`` words that is already held the way
+        this backend carries it (the streaming miner's ring is born that
+        way), without cutting or copying it: identity here, where that is
+        the whole frontier."""
+        if local.shape[1] != int(n_words):
+            raise ValueError(f"the {self.name} backend carries whole frontiers "
+                             f"of {n_words} words, got shape {tuple(local.shape)}")
+        return local
+
     def expand(self, bitmaps: torch.Tensor, left: np.ndarray,
                right: np.ndarray, sup_left: np.ndarray, *, mode: int,
                min_sup: int,
@@ -275,25 +287,34 @@ class Engine:
         on the rank, and a word slice stays the same slice."""
         return block.index_select(0, idx)
 
-    def stats(self) -> dict:
+    def snapshot(self) -> Tuple[int, int, int, int]:
+        """Counter snapshot, for per-call deltas on a long-lived engine
+        (``stats(since=snapshot)``: the streaming miner reports each slide's
+        work, not lifetime totals)."""
+        return (self.n_intersections, self.n_padded,
+                len(self.device_pair_counts), len(self.level_padding))
+
+    def stats(self, since: Optional[Tuple[int, ...]] = None) -> dict:
+        i0, p0, d0, l0 = (tuple(since) + (0,) * 4)[:4] if since else (0,) * 4
         out = {
             "backend": self.name,
-            "n_intersections": self.n_intersections,
-            "n_padded": self.n_padded,
+            "n_intersections": self.n_intersections - i0,
+            "n_padded": self.n_padded - p0,
         }
-        if self.level_padding:
-            tot_q = sum(q for q, _ in self.level_padding)
-            tot_p = sum(p for _, p in self.level_padding)
+        levels = self.level_padding[l0:]
+        if levels:
+            tot_q = sum(q for q, _ in levels)
+            tot_p = sum(p for _, p in levels)
             out["pair_padding"] = {
                 "per_level": [
                     {"pairs": q, "padded_to": p,
                      "efficiency": q / p if p else 1.0}
-                    for q, p in self.level_padding
+                    for q, p in levels
                 ],
                 "efficiency": tot_q / tot_p if tot_p else 1.0,
             }
-        if self.device_pair_counts:
-            per_dev = np.sum(self.device_pair_counts, axis=0)
+        if self.device_pair_counts[d0:]:
+            per_dev = np.sum(self.device_pair_counts[d0:], axis=0)
             out["device_balance"] = {
                 "pairs_per_device": per_dev.tolist(),
                 "padding_efficiency": float(
@@ -417,8 +438,10 @@ class _WordShardedFrontierMixin:
     own slice, so the next frontier is born sharded.
 
     ``prepare_frontier`` cuts a full frontier to this
-    rank's slice; ``expand`` then takes only such slices (and the frontiers
-    it returned) and refuses a frontier of another width.  Supports need
+    rank's slice and ``adopt_frontier`` takes a slice already cut that way
+    (the streaming miner's ring); ``expand`` then takes only such slices
+    (and the frontiers it returned) and refuses a frontier of another
+    width.  Supports need
     the counts of every slice: K3 (``fused_intersect_partial``) counts this
     slice, one all-reduce over the data axis sums them, and the support
     conversion and threshold follow on the reduced value."""
@@ -432,6 +455,18 @@ class _WordShardedFrontierMixin:
     def prepare_frontier(self, bitmaps: torch.Tensor) -> torch.Tensor:
         local = shard_words(bitmaps, self.mesh, self.data_axis)
         self.n_words, self.frontier_words = int(bitmaps.shape[1]), int(local.shape[1])
+        return local
+
+    def adopt_frontier(self, local: torch.Tensor, n_words: int) -> torch.Tensor:
+        """Take this rank's slice of an ``n_words``-wide frontier that was cut
+        elsewhere (``shard_words``'s width), not a second time: the slice is
+        registered as the prepared frontier and returned as it is."""
+        ws = padded_word_count(n_words, self.n_shards) // self.n_shards
+        if local.ndim != 2 or local.shape[1] != ws:
+            raise ValueError(
+                f"the {self.name} backend carries this rank's {ws}-word slice "
+                f"of a {n_words}-word frontier, got shape {tuple(local.shape)}")
+        self.n_words, self.frontier_words = int(n_words), ws
         return local
 
     def _check_slice(self, bitmaps: torch.Tensor) -> None:
@@ -471,8 +506,8 @@ class TidShardedEngine(_WordShardedFrontierMixin, _MeshEngine):
         super().__init__(mesh, bucket_min, inner=inner, compact_min=compact_min)
         self._init_word_axis(axis)
 
-    def stats(self) -> dict:
-        out = super().stats()
+    def stats(self, since=None) -> dict:
+        out = super().stats(since=since)
         out["n_word_shards"] = self.n_shards
         out["frontier_words"] = self.frontier_words
         return out
@@ -526,8 +561,8 @@ class GridShardedEngine(_WordShardedFrontierMixin, _MeshEngine):
         # drivers route partition -> rank over the pair (class) axis
         self.n_devices = self.n_class
 
-    def stats(self) -> dict:
-        out = super().stats()
+    def stats(self, since=None) -> dict:
+        out = super().stats(since=since)
         out["n_class_shards"] = self.n_class
         out["n_word_shards"] = self.n_shards
         out["grid"] = [self.n_class, self.n_shards]

@@ -5,12 +5,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
 from .. import _build
 
-__all__ = ["trimatrix", "split_plan", "TILE", "STAGE_WORDS", "SMS"]
+__all__ = ["trimatrix", "split_plan", "plan_for", "TILE", "STAGE_WORDS", "SMS"]
 
 TILE = 128          # output tile edge; csrc's kTile
 STAGE_WORDS = 8     # words of a row per pipeline stage; csrc's kStageWords
@@ -40,6 +41,15 @@ def tile_count(n: int) -> int:
     return t * (t + 1) // 2
 
 
+def plan_for(w: int, splits: int) -> tuple:
+    """``(splits, split_words)`` of the word axis of width ``w`` cut into at
+    most ``splits`` ranges of whole stages: ranges of ``ceil(stages /
+    splits)`` stages, as many as hold words (none is empty)."""
+    stages = max(1, -(-w // STAGE_WORDS))
+    per = -(-stages // max(1, min(int(splits), stages, 65535)))
+    return -(-stages // per), per * STAGE_WORDS
+
+
 @functools.lru_cache(maxsize=None)
 def split_plan(n: int, w: int) -> tuple:
     """``(splits, split_words)``: the word axis of an (n, w) co-occurrence
@@ -56,18 +66,18 @@ def split_plan(n: int, w: int) -> tuple:
     stages = max(1, -(-w // STAGE_WORDS))
     best = None
     for s in range(1, min(stages, 65535) + 1):
-        per = -(-stages // s)
-        used = -(-stages // per)                # ranges that hold words
-        cost = -(-tiles * used // SMS) * (per + 2)
+        used, split_words = plan_for(w, s)
+        cost = -(-tiles * used // SMS) * (split_words // STAGE_WORDS + 2)
         if best is None or (cost, used) < best[0]:
-            best = ((cost, used), used, per * STAGE_WORDS)
+            best = ((cost, used), used, split_words)
     return best[1], best[2]
 
 
-def trimatrix(bitmaps: torch.Tensor) -> torch.Tensor:
+def trimatrix(bitmaps: torch.Tensor, plan: Optional[tuple] = None) -> torch.Tensor:
     """(N, W) int32 words on the card -> (N, N) int32 co-occurrence counts
     ``C[i, j] = sum_w popcount(B[i, w] & B[j, w])`` (full symmetric matrix;
-    the diagonal holds the row supports)."""
+    the diagonal holds the row supports).  ``plan`` (a :func:`plan_for`
+    result) overrides :func:`split_plan`'s word split, for measuring it."""
     if bitmaps.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs a CUDA tensor, got {bitmaps.device}")
     if bitmaps.ndim != 2 or bitmaps.dtype != torch.int32:
@@ -79,7 +89,7 @@ def trimatrix(bitmaps: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"N={n} exceeds the kernel's grid")
     if n == 0:
         return torch.empty((0, 0), dtype=torch.int32, device=bitmaps.device)
-    splits, split_words = split_plan(n, w)
+    splits, split_words = split_plan(n, w) if plan is None else plan
     # several ranges add their counts into a zeroed matrix
     alloc = torch.zeros if splits > 1 else torch.empty
     out = alloc((n, n), dtype=torch.int32, device=bitmaps.device)

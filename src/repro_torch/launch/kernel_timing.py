@@ -7,7 +7,9 @@ Times the kernel entry points that every version of the port since the
 mesh backends has (``fused_intersect`` with and without its (Q, W) store,
 ``fused_intersect_compact``, its given-mask front end ``compact_survivors``,
 ``fused_intersect_partial``, ``cooccurrence``) at the shapes of the main
-path, on two input families: random pairs over a random frontier (the
+path (and ``cooccurrence`` at the streaming miner's per-push shapes, with a
+sweep of its word split against ``split_plan``'s pick), on two input
+families: random pairs over a random frontier (the
 readings PERF.md has kept since the first slice), and the miner's own pair
 lists, recorded from the largest expansion of the port's fused mine of
 chess and T10I4D100K on the card (``miner_inputs``; K3 on rank 0's word
@@ -45,6 +47,11 @@ MINER_RUNS = [("T10I4D100K", 0.01, "v4"), ("chess", 0.7, "v4")]
 SLICE_SHARDS = 4
 # Phase-2 shapes (N, W) that are timed: T10I4D100K, the tri-matrix item cap
 TRI_TIMED_SHAPES = [(187, 3125), (4096, 3125)]
+# the streaming miner's per-push K4 shapes (N = the universe's items, W = one
+# block's words): T10I4D100K in 8,192-transaction blocks, chess in 512
+SLIDE_SHAPES = [(870, 256), (75, 16)]
+# word splits timed at the slide shapes, beside split_plan's pick
+SWEEP_SPLITS = range(1, 9)
 
 
 def nvidia_smi(query: str) -> str:
@@ -263,6 +270,32 @@ def tri_inputs(n, w, seed):
                             "cuda")
 
 
+def unpacked_indicator(bm):
+    """A function giving the (N, W) words' 0/1 indicator as an int8 (N', 32
+    W) matrix, rows zero-padded to ``N' = max(17, ceil(N / 8) * 8)``: the
+    operand ``torch._int_mm(d, d.t())`` needs to compute K4's counts, the
+    library yardstick K4 is timed beside."""
+    n, w = bm.shape
+    npad = max(17, -(-n // 8) * 8)
+    shifts = torch.arange(32, device=bm.device, dtype=torch.int32)
+
+    def unpack():
+        dense = ((bm[:, :, None] >> shifts) & 1).reshape(n, w * 32).to(torch.int8)
+        return torch.nn.functional.pad(dense, (0, 0, 0, npad - n)).contiguous()
+    return unpack
+
+
+def split_sweep(bm, reps: int = 20) -> dict:
+    """Device ms per call of K4 on ``bm`` under each distinct word split of
+    ``SWEEP_SPLITS`` (``plan_for``), keyed by the plan ``(splits,
+    split_words)``; split_plan's pick is among them or added."""
+    from repro_torch.kernels.trimatrix import plan_for, split_plan, trimatrix
+    n, w = bm.shape
+    plans = sorted({plan_for(w, k) for k in SWEEP_SPLITS} | {split_plan(n, w)})
+    return {plan: device_ms(lambda plan=plan: trimatrix(bm, plan), reps)
+            for plan in plans}
+
+
 def _pair_calls(inputs, bm, l, r, s, ms, nv, shape) -> list:
     """K1 with and without its store, K2 and its given-mask front end on one
     set of pair inputs."""
@@ -317,12 +350,30 @@ def time_entry_points(reps: int) -> list:
         bm = tri_inputs(n, w, seed=5)
         calls.append(("trimatrix", "random", f"N={n} W={w}",
                       lambda bm=bm: cooccurrence(bm)))
+    for n, w in SLIDE_SHAPES:
+        bm = tri_inputs(n, w, seed=6)
+        calls.append(("trimatrix", "random", f"N={n} W={w} (slide)",
+                      lambda bm=bm: cooccurrence(bm)))
     rows = []
     for name, inputs, shape, fn in calls:
         t = event_times_ms(fn, reps)
         rows.append(dict(kernel=name, inputs=inputs, shape=shape,
                          device_ms=device_ms(fn, reps), ms=statistics.median(t),
                          min_ms=min(t), max_ms=max(t), reps=reps))
+    from repro_torch.kernels import trimatrix as tri
+    if not hasattr(tri, "plan_for"):
+        return rows     # a tree before the streaming slice: no forced splits
+    for n, w in SLIDE_SHAPES:
+        bm = tri_inputs(n, w, seed=6)
+        dense = unpacked_indicator(bm)()
+        sweep = split_sweep(bm, reps)
+        rows.append(dict(kernel="trimatrix split sweep", inputs="random",
+                         shape=f"N={n} W={w} (slide)",
+                         split_plan=list(tri.split_plan(n, w)),
+                         sweep=[[*plan, ms] for plan, ms in sweep.items()],
+                         plain_ms=device_ms(lambda: tri.trimatrix_ref(bm), 3, 1),
+                         int_mm_ms=device_ms(lambda: torch._int_mm(dense, dense.t()), reps),
+                         reps=reps))
     return rows
 
 
@@ -345,6 +396,12 @@ def main(argv=None) -> int:
     with open(args.out, "a") as f:
         f.write(json.dumps(rec) + "\n")
     for row in rec["rows"]:
+        if "sweep" in row:
+            print(f"{args.label} {row['kernel']} {row['shape']}: device ms per "
+                  f"call by (splits, split_words) {row['sweep']}; split_plan "
+                  f"picks {row['split_plan']}; plain {row['plain_ms']:.5f} ms, "
+                  f"torch._int_mm of the unpacked indicator {row['int_mm_ms']:.5f} ms")
+            continue
         print(f"{args.label} {row['kernel']} ({row['inputs']} pairs) {row['shape']}: device "
               f"{row['device_ms']:.5f} ms per call; events median "
               f"{row['ms']:.5f} ms (min {row['min_ms']:.5f}, "

@@ -1,6 +1,6 @@
 """Mining jobs run on every rank of a mesh: the rank function that
-``run_ranks`` starts for the mesh mines of ``chip_smoke.py``, the tests and
-the ``--ranks`` driver.
+``run_ranks`` starts for the mesh mines and streams of ``chip_smoke.py`` and
+the tests.
 
     from repro_torch.launch.mesh import run_ranks
     from repro_torch.launch.mesh_runs import run_jobs
@@ -23,6 +23,16 @@ driver's flags.  Kinds:
                 result with this rank's survivor rows, the engine's stats and
                 the collectives of that expand alone
 ``accumulate``  the v3 mesh accumulator (``build_vertical_accumulated``)
+``stream``      a ``StreamingMiner`` with ``config`` (the ``StreamConfig``
+                fields) on the rank's mesh, sliding the batches of
+                ``stream`` (``(name, batch_txns, n_batches, seed,
+                drift_every)``, regenerated on the rank: the stream is
+                deterministic) or of ``batches`` (a list of micro-batches);
+                returns per slide the checksum, the levels, the engine stats
+                of the slide, and the kernel launches and collectives of its
+                push and of its mine apart (``support_map=True`` /
+                ``cooc=True`` add the map and the count matrix); then the
+                rank's device ring and ``validate()``'s verdict
 ``mesh``        ``mesh_descriptor`` of the mesh
 
 A job that the port refuses (``ValueError``, ``TypeError``,
@@ -39,10 +49,11 @@ import torch
 from .. import kernels
 from ..core import EclatConfig, build_vertical_accumulated, mine, support_checksum
 from ..core.engine import resolve_engine
-from ..data import generate
+from ..data import generate, transaction_stream
 from ..device import words_from_numpy, words_to_numpy
 from ..dist import collectives as coll
 from ..dist.sharding import mesh_descriptor
+from ..streaming import StreamConfig, StreamingMiner
 from .mesh import mesh_for_mining
 
 __all__ = ["run_jobs"]
@@ -70,6 +81,16 @@ class _Rank:
         if key not in self.meshes:
             self.meshes[key] = mesh_for_mining(*key)
         return self.meshes[key]
+
+    def batches(self, job: dict):
+        if "batches" in job:
+            return job["batches"]
+        key = ("stream",) + tuple(job["stream"])
+        if key not in self.data:
+            name, batch_txns, n_batches, seed, drift = job["stream"]
+            self.data[key] = list(transaction_stream(
+                name, batch_txns, n_batches, seed=seed, drift_every=drift))
+        return self.data[key]
 
     def transactions(self, job: dict):
         txns = job["txns"]
@@ -142,12 +163,70 @@ def _accumulate(rank: _Rank, job: dict) -> dict:
                 n_txn=db.n_txn, collectives=coll.counts_since(before))
 
 
+_SLIDE_STATS = ("abs_min_sup", "classes", "window", "phase_s", "backend",
+                "n_intersections", "n_padded", "pair_padding",
+                "device_balance", "frontier_words", "n_word_shards",
+                "total_s")
+
+
+def _stream(rank: _Rank, job: dict) -> dict:
+    cfg = StreamConfig(**job["config"])
+    mesh = rank.mesh(dict(job, backend=cfg.backend, shard=cfg.shard))
+    dev = rank.device
+    miner = StreamingMiner(job["n_items"], cfg, mesh=mesh, device=dev)
+    slides = []
+    for batch in rank.batches(job):
+        kernels.reset_launch_counts()
+        before = coll.collective_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        push = miner.push(batch)
+        _sync(dev)
+        push_s = time.perf_counter() - t0
+        push_launches = kernels.launch_counts()
+        push_coll = coll.counts_since(before)
+        kernels.reset_launch_counts()
+        before = coll.collective_counts()
+        res = miner.mine_window()
+        _sync(dev)
+        st = res.stats
+        slide = dict(checksum=support_checksum(res.support_map()),
+                     counts=res.counts, total=res.total, n_txn=res.n_txn,
+                     version=res.version, push_s=push_s,
+                     n_evicted=push["n_evicted"],
+                     slide_s=push_s + st["total_s"],
+                     n_expands=len(st.get("pair_padding", {}).get("per_level", [])),
+                     push_launches=push_launches,
+                     mine_launches=kernels.launch_counts(),
+                     push_collectives=push_coll,
+                     mine_collectives=coll.counts_since(before),
+                     stats={k: st[k] for k in _SLIDE_STATS if k in st})
+        if job.get("support_map"):
+            slide["support_map"] = res.support_map()
+        if job.get("cooc"):
+            slide["cooc"] = miner.cooc.copy()
+        slides.append(slide)
+    try:
+        miner.ring.validate()
+        valid = "ok"
+    except RuntimeError as e:
+        valid = f"RuntimeError: {e}"
+    ring = miner.ring
+    return dict(slides=slides, ring=words_to_numpy(ring.device),
+                ring_geometry=dict(n_words=ring.n_words,
+                                   n_words_dev=ring.n_words_dev,
+                                   local_words=ring.local_words,
+                                   word_lo=ring.word_lo),
+                validate=valid, engine=miner.engine.name,
+                mesh=mesh_descriptor(mesh))
+
+
 def _mesh(rank: _Rank, job: dict) -> dict:
     return dict(mesh=mesh_descriptor(rank.mesh(job)))
 
 
 _KINDS = {"mine": _mine, "expand": _expand, "accumulate": _accumulate,
-          "mesh": _mesh}
+          "stream": _stream, "mesh": _mesh}
 
 
 def run_jobs(device: torch.device, jobs: Sequence[dict]) -> List[dict]:

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain torch versions, and the
 paths that run them (the miner, on one device and on gloo ranks sharing
-the card; LM serving), on the card.
+the card; the sliding-window miner; LM serving), on the card.
 
 Every test here needs a CUDA device and skips on a host without one.  The
 file imports neither jax nor the reference package, so it runs on a machine
@@ -256,6 +256,93 @@ def test_tidsharded_mine_on_two_gloo_ranks_sharing_the_card(cuda):
         assert res["stats"]["backend"] == "tidsharded"
         assert res["launches"]["fused_intersect_partial"] == res["n_expands"] > 0
         assert res["stats"]["frontier_words"] == -(-want.stats["n_words"] // 2)
+
+
+# ---------------------------------------------------------------------------
+# the sliding-window miner on the card
+# ---------------------------------------------------------------------------
+
+def test_stream_fused_matches_ref_on_the_card(cuda):
+    """A drifting chess stream on the fused and ref backends: equal support
+    maps on every slide, K4 once per warming push and twice per evicting
+    push, K2 once per expansion, K1 never alone, nothing launched by ref;
+    the ring validates against its host mirror."""
+    from repro_torch.data import stream_spec, transaction_stream
+    from repro_torch.streaming import StreamConfig, StreamingMiner
+    n_items = stream_spec("chess").n_items
+    batches = list(transaction_stream("chess", 256, 7, seed=2, drift_every=5))
+    maps = {}
+    for backend in ("fused", "ref"):
+        miner = StreamingMiner(n_items, StreamConfig(min_sup=0.75, n_blocks=4,
+                                                     block_txns=256,
+                                                     backend=backend))
+        for i, batch in enumerate(batches):
+            kernels.reset_launch_counts()
+            miner.push(batch)
+            push = kernels.launch_counts()
+            kernels.reset_launch_counts()
+            res = miner.mine_window()
+            mined = kernels.launch_counts()
+            maps.setdefault(backend, []).append(res.support_map())
+            n_exp = len(res.stats["pair_padding"]["per_level"])
+            if backend == "ref":
+                assert not any(push.values()) and not any(mined.values())
+                continue
+            assert push["trimatrix"] == (1 if i < 4 else 2), push
+            assert sum(push.values()) == push["trimatrix"]
+            assert mined["fused_intersect_compact"] == n_exp > 0, mined
+            assert mined["fused_intersect"] == mined["trimatrix"] == 0
+        miner.ring.validate()
+    assert maps["fused"] == maps["ref"]
+
+
+def test_ring_frontier_pairs_on_the_card(cuda):
+    """K2, K1 and K3 on the level-2 pairs of a T10I4D100K ring (universe
+    item ids in support order over every item row, infrequent rows
+    included, with a (0, 0) pad tail), equal to their plain versions."""
+    from repro_torch.core.engine import bucket_size
+    from repro_torch.core.triangular import frequent_pairs
+    from repro_torch.data import stream_spec, transaction_stream
+    from repro_torch.launch.kernel_timing import rank0_slice
+    from repro_torch.streaming import StreamConfig, StreamingMiner
+    n_items = stream_spec("T10I4D100K").n_items
+    miner = StreamingMiner(n_items, StreamConfig(min_sup=0.005, n_blocks=4,
+                                                 block_txns=1024))
+    for batch in transaction_stream("T10I4D100K", 1024, 5, seed=3):
+        miner.push(batch)
+    min_sup = miner.config.resolve_min_sup(miner.ring.n_txn)
+    sup = miner.supports
+    items = np.nonzero(sup >= min_sup)[0]
+    items = items[np.lexsort((items, sup[items]))]
+    iu, ju, _ = frequent_pairs(miner.cooc[np.ix_(items, items)], min_sup)
+    q, nv = bucket_size(iu.size, 128), iu.size
+    assert nv > 0
+    lrs = np.zeros((3, q), np.int32)
+    lrs[0, :nv], lrs[1, :nv], lrs[2, :nv] = items[iu], items[ju], sup[items[iu]]
+    l, r, s = (torch.from_numpy(x).to(cuda) for x in lrs)
+    bm = miner.ring.device
+    part = rank0_slice(bm)
+    for mode in MODES:
+        for g, e in zip(fused_intersect_compact(bm, l, r, s, min_sup, nv, mode=mode),
+                        fused_intersect_compact_ref(bm, l, r, s, min_sup, nv, mode=mode)):
+            assert torch.equal(g.reshape(-1).long(), e.reshape(-1).long())
+        for g, e in zip(fused_intersect(bm, l, r, s, min_sup, mode=mode),
+                        fused_intersect_ref(bm, l, r, s, min_sup, mode=mode)):
+            assert torch.equal(g.reshape(-1).long(), e.reshape(-1).long())
+        got, want = (fused_intersect_partial(part, l, r, mode=mode),
+                     fused_intersect_partial_ref(part, l, r, mode=mode))
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("n,w", [(870, 256), (75, 16), (187, 3125)])
+def test_trimatrix_every_forced_split_is_exact(cuda, n, w):
+    """The split sweep's plans (1 to 8 word ranges) give the same counts."""
+    from repro_torch.kernels.trimatrix import plan_for, trimatrix
+    rng = np.random.default_rng(n + w)
+    bm = words_from_numpy(rng.integers(0, 2**32, (n, w), dtype=np.uint32), cuda)
+    want = trimatrix_ref(bm)
+    for splits in range(1, 9):
+        assert torch.equal(trimatrix(bm, plan_for(w, splits)), want), splits
 
 
 # K1 and K3 stage a window of consecutive rows per tile of consecutive pairs

@@ -152,7 +152,10 @@ def test_package_imports_no_jax_and_no_reference_package():
     code = ("import sys, repro_torch, repro_torch.core.eclat, "
             "repro_torch.launch.mine, repro_torch.kernels, "
             "repro_torch.configs, repro_torch.models, repro_torch.serving, "
-            "repro_torch.launch.serve, repro_torch.launch.serve_profile; "
+            "repro_torch.launch.serve, repro_torch.launch.serve_profile, "
+            "repro_torch.streaming, repro_torch.faults, repro_torch.data.stream, "
+            "repro_torch.serving.stream_query, repro_torch.launch.stream, "
+            "repro_torch.launch.mesh_runs, repro_torch.launch.stream_profile; "
             "import repro_torch.configs as c; c.list_configs(); "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro'); "

@@ -295,7 +295,8 @@ def test_trimatrix_unpacked_ref_matches_mxu_ref_and_pallas(n, w, splits):
 
 
 @pytest.mark.parametrize("n,w", [(187, 3125), (4096, 3125), (37, 100), (1000, 3125),
-                                 (1, 1), (65, 7), (129, 8), (300, 9), (187, 0)])
+                                 (1, 1), (65, 7), (129, 8), (300, 9), (187, 0),
+                                 (870, 256), (75, 16)])
 def test_trimatrix_split_plan_covers_every_word_once(n, w):
     """The word ranges of the split plan cover [0, W) once, none empty, each
     a whole number of stages but the last; T10I4D100K's N = 187 fills the
@@ -314,6 +315,23 @@ def test_trimatrix_split_plan_covers_every_word_once(n, w):
         assert tile_count(n) * splits >= SMS
     if (n, w) == (4096, 3125):
         assert splits == 1
+
+
+
+@pytest.mark.parametrize("w", [256, 16, 3125, 7, 8, 1])
+@pytest.mark.parametrize("splits", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_trimatrix_plan_for_covers_every_word_once(w, splits):
+    """A forced split (the timing sweep at the streaming miner's block
+    shapes) is a plan the CUDA launcher accepts: whole stages, at most
+    ``splits`` ranges, none empty, covering [0, W) once."""
+    from repro_torch.kernels.trimatrix import plan_for
+    from repro_torch.kernels.trimatrix.trimatrix import STAGE_WORDS
+    used, split_words = plan_for(w, splits)
+    assert split_words % STAGE_WORDS == 0 and 1 <= used <= splits
+    # the launcher's check (csrc/trimatrix.cu trimatrix_launch)
+    assert (used - 1) * split_words < max(w, 1) <= used * split_words
+    if w == 256:
+        assert used == splits
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,13 @@ assert on what each rank returned:
   of (qmax,) over ``data`` plus the all-gathers of supports and survivors
   over ``class``; ``sharded`` no all-reduce, its exchange being the
   all-gathers of supports and survivors over its pair axis;
-* the v3 mesh accumulator bit for bit, the mesh helpers and the errors.
+* the v3 mesh accumulator bit for bit, the mesh helpers and the errors;
+* the sliding-window miner (``stream`` jobs) on ``pairs`` 4, ``words`` 1x4
+  and 2 and ``grid`` 2x2: each rank's per-slide support map, levels, class
+  churn, co-occurrence counts and engine accounting equal the reference's
+  streaming miner on the same mesh, each rank's ring is ``shard_words`` of
+  the reference ring's host mirror (block spans that straddle two ranks,
+  zero pad words past ``n_words``), and a push makes no collective call.
 """
 import dataclasses
 import functools
@@ -35,6 +41,8 @@ from repro.core.accumulator import build_vertical_accumulated as j_build_acc
 from repro.dist.compat import make_mesh
 from repro.dist.sharding import mesh_descriptor as j_mesh_descriptor
 from repro.launch import mesh as jmesh
+from repro.streaming import StreamConfig as JStreamConfig
+from repro.streaming import StreamingMiner as JMiner
 
 from repro_torch.core import EclatConfig, mine, support_checksum
 from repro_torch.core.bitmap import popcount_np
@@ -44,6 +52,7 @@ from repro_torch.launch.mesh import run_ranks
 from repro_torch.launch.mesh_runs import run_jobs
 
 from test_eclat_correctness import make_db
+from test_streaming import _batches
 
 DB = make_db()          # 150 transactions over 10 items: W = 5 words
 MIN_SUP = 25
@@ -121,6 +130,31 @@ for _label in ("words1x4", "grid2x2"):
     _add(("accumulate", _label), _world,
          dict(kind="accumulate", txns=DB, n_items=10, min_sup=MIN_SUP,
               backend=_backend, shard=_shard, grid=_grid))
+# streams: (n_blocks, block_txns, batch_txns) per world; n_blocks * wpb
+# words over the data axis leave zero pad words (3 words over 2 or 4 ranks)
+# or spans that straddle two ranks (2-word blocks over slices of 3 words)
+STREAM_GEOMETRIES = {4: [(3, 32, 28), (5, 64, 60)], 2: [(3, 32, 28), (3, 64, 60)]}
+STREAM_MESHES = ("pairs4", "words1x4", "words2", "grid2x2")
+STREAM_MIN_SUP = 6
+
+
+def _stream_batches(n_blocks, block_txns, batch_txns):
+    return _batches(n_blocks + 3, batch_txns, seed=n_blocks + block_txns)
+
+
+def _stream_config(n_blocks, block_txns, **kw):
+    return dict(min_sup=STREAM_MIN_SUP, n_blocks=n_blocks,
+                block_txns=block_txns, bucket_min=16, **kw)
+
+
+for _label in STREAM_MESHES:
+    _world, _backend, _shard, _grid = MESHES[_label][:4]
+    for _geo in STREAM_GEOMETRIES[_world]:
+        _add(("stream", _label, _geo), _world,
+             dict(kind="stream", batches=_stream_batches(*_geo), n_items=12,
+                  grid=_grid, support_map=True, cooc=True,
+                  config=_stream_config(*_geo[:2], backend=_backend,
+                                        shard=_shard)))
 # errors, on 4 ranks: the grid engine on a 1-D mesh, class ids outside the
 # class axis, grids that do not fit the ranks
 _add(("error", "grid on 1-D"), 4,
@@ -429,3 +463,89 @@ def test_mine_with_a_mesh_backend_and_no_mesh_is_single_device():
                               shard="grid")
     with pytest.raises(ValueError, match="implies shard"):
         mine(DB, 10, cfg, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the sliding-window miner on the mesh
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _j_stream(label, geo):
+    """The reference's streaming miner on the same mesh: per slide (support
+    map, levels, co-occurrence counts, stats), and its ring's host mirror."""
+    backend, shard = MESHES[label][1:3]
+    cfg = JStreamConfig(**_stream_config(
+        *geo[:2], backend="pallas" if backend == "fused" else backend,
+        shard=shard))
+    miner = JMiner(12, cfg, mesh=_j_mesh(label))
+    slides = []
+    for batch in _stream_batches(*geo):
+        res = miner.advance(batch)
+        slides.append((res.support_map(), res.counts, miner.cooc.copy(),
+                       res.stats))
+    return slides, miner.ring.words.copy(), miner.engine.name
+
+
+STREAM_STATS = ("abs_min_sup", "classes", "window", "n_intersections",
+                "n_padded", "pair_padding", "device_balance", "n_word_shards")
+STREAM_CASES = [(label, geo) for label in STREAM_MESHES
+                for geo in STREAM_GEOMETRIES[MESHES[label][0]]]
+STREAM_IDS = [f"{label}-{g[0]}x{g[1]}" for label, g in STREAM_CASES]
+
+
+@pytest.mark.parametrize("label,geo", STREAM_CASES, ids=STREAM_IDS)
+def test_mesh_stream_matches_reference(ranks, label, geo):
+    slides, want_words, want_engine = _j_stream(label, geo)
+    assert want_engine == {"pairs4": "sharded", "grid2x2": "grid"}.get(label, "tidsharded")
+    for res in _per_rank(ranks, ("stream", label, geo)):
+        assert res["engine"] == want_engine
+        assert len(res["slides"]) == len(slides)
+        for i, (got, (smap, counts, cooc, stats)) in enumerate(zip(res["slides"], slides)):
+            assert got["support_map"] == smap, f"slide {i}"
+            assert got["checksum"] == support_checksum(smap)
+            assert got["counts"] == counts
+            assert np.array_equal(got["cooc"], cooc), f"slide {i}"
+            for key in STREAM_STATS:
+                assert got["stats"].get(key) == stats.get(key), (i, key)
+        assert res["validate"] == "ok"
+
+
+@pytest.mark.parametrize("label,geo", STREAM_CASES, ids=STREAM_IDS)
+def test_mesh_stream_ring_is_the_word_slice(ranks, label, geo):
+    """Each rank's ring: the slice ``shard_words`` cuts of the reference
+    ring's host mirror (the whole mirror for ``pairs``, replicated over
+    ``class`` on the grid)."""
+    _, want_words, _ = _j_stream(label, geo)
+    n_data = 1 if label == "pairs4" else _n_data(label)
+    n_words = want_words.shape[1]
+    ws = -(-n_words // n_data)
+    padded = np.zeros((12, ws * n_data), np.uint32)
+    padded[:, :n_words] = want_words
+    per_rank = _per_rank(ranks, ("stream", label, geo))
+    for rank, res in enumerate(per_rank):
+        d = rank % n_data
+        assert res["ring_geometry"] == dict(
+            n_words=n_words, n_words_dev=ws * n_data, local_words=ws,
+            word_lo=d * ws)
+        assert res["ring"].dtype == np.uint32
+        assert np.array_equal(res["ring"], padded[:, d * ws:(d + 1) * ws])
+
+
+@pytest.mark.parametrize("label,geo", STREAM_CASES, ids=STREAM_IDS)
+def test_mesh_stream_push_makes_no_collective(ranks, label, geo):
+    """A push writes only the rank's own words: zero collectives.  A mine's
+    collectives are its expansions': one all-reduce over ``data`` each on
+    the word-sharded backends, all-gathers only for ``sharded``."""
+    backend = {"pairs4": "sharded", "grid2x2": "grid"}.get(label, "tidsharded")
+    for res in _per_rank(ranks, ("stream", label, geo)):
+        for slide in res["slides"]:
+            assert slide["push_collectives"] == {}
+            coll = slide["mine_collectives"]
+            n_exp = slide["n_expands"]
+            if backend == "sharded":
+                assert all("all_reduce" not in ops for ops in coll.values())
+                continue
+            got = coll.get("data", {}).get("all_reduce", {}).get("calls", 0)
+            assert got == n_exp
+            if backend == "tidsharded":
+                assert set(coll) <= {"data"}
