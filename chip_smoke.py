@@ -28,6 +28,15 @@ paths end to end:
   every rank held to the same checksums with no collective in a push, and
   K2/K3/K1 held on the level-2 pair lists over the ring (universe item ids
   in support order);
+* resilience and the FIM serving front end over the T10I4D100K stream
+  (``run_resilience``): kill the checkpointing stream at a kill point,
+  ``restore_miner`` and replay on the pinned checksums with the launch
+  gates, on the card and re-meshed onto 4 gloo ranks (tidsharded 1x4, grid
+  2x2, K3 per expansion), a 4-rank checkpoint restored on the card;
+  ``resume_mine`` of T10I4D100K from its level-3 checkpoint on the card
+  and on 4 ranks; ``ServingFrontend`` under a 200-query storm while a
+  writer thread slides, every answer verified, and the front end restored
+  from a checkpoint answering the same storm identically;
 * LM serving of gemma3-4b at full width and depth (bf16, random weights
   from a seeded generator): ``ServingEngine.serve`` of 8 requests, twice,
   with the flash- and decode-attention kernels' launch counts and
@@ -145,6 +154,32 @@ MAX_ABS_ERR = {name: 0 for name in REPORT_SHAPE}
 
 # the generated datasets, by name: (transactions, spec)
 DATA = {}
+# the streams' micro-batches run_streams generates, by name (run_resilience
+# replays them)
+STREAM_BATCHES = {}
+
+# the resilience phase (run_resilience) on the T10I4D100K stream: a
+# checkpoint every RESILIENCE_EVERY slides; kills during slide
+# RESILIENCE_KILL (at miner:pre_deep_expand) and during the write of the
+# step after it (checkpoint:pre_replace), both leaving step 8 as the newest
+# durable one; the 4-rank replays checkpoint every 6 slides (steps 12 and
+# 18), and the card restores their step 18 and replays the drift slides
+RESILIENCE_STREAM = "T10I4D100K"
+RESILIENCE_EVERY = 4
+RESILIENCE_KILL = 10
+RESILIENCE_MESH_EVERY = 6
+RESILIENCE_MESHES = [("tidsharded 1x4", "tidsharded", "words", None),
+                     ("grid 2x2", "grid", "grid", "2x2")]
+# the batch resume: the fused mine of T10I4D100K 0.01 v4 checkpointed every
+# level, resumed from level 3 (the deeper checkpoints dropped)
+RESUME_LEVEL = 3
+# the FIM serving run: batch 0 ingested, then a writer slides SERVE_SLIDES
+# batches under a SERVE_QUERIES-query storm (query_mix seed 0) from
+# SERVE_CLIENTS threads, policy block
+SERVE_SLIDES = 8
+SERVE_QUERIES = 200
+SERVE_CLIENTS = 4
+SERVE_PACE_S = 0.002
 
 # attention kernels against their plain versions, which compute in float32
 # and are run in float32 on the kernel's inputs.  float32 outputs: the sums
@@ -694,6 +729,7 @@ def run_streams(launches):
         t0 = time.perf_counter()
         batches[name] = list(transaction_stream(name, block_txns, n_batches,
                                                 seed=0, drift_every=drift))
+        STREAM_BATCHES[name] = batches[name]
         print(f"e2e stream generate {name}: {n_batches} batches of {block_txns} "
               f"txns in {time.perf_counter() - t0:.2f}s (host)")
     original = FusedEngine._intersect_compact
@@ -819,6 +855,415 @@ def run_streams(launches):
     for j, job in enumerate(jobs):
         _check_mesh_stream(job, [r[j] for r in per_rank], times)
     return recorded, times
+
+
+def _replay_slides(what, miner, batches, start, n_blocks, pinned, launches):
+    """Slide ``batches[start:]`` through ``miner`` on the card, each slide
+    held to the pinned checksum and to the launch gates of a fused stream
+    (K4 once per warming and twice per evicting push, K2 once per
+    expansion); adds the launches to ``launches``.  Returns the slides'
+    ``slide_s``."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import support_checksum
+    slide_s = []
+    for i in range(start, len(batches)):
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        miner.push(batches[i])
+        torch.cuda.synchronize()
+        push_s = time.perf_counter() - t0
+        push_l = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = miner.mine_window()
+        torch.cuda.synchronize()
+        slide_s.append(push_s + time.perf_counter() - t0)
+        mine_l = kernels.launch_counts()
+        csum = support_checksum(res.support_map())
+        require(csum == pinned[i], f"{what} slide {i}: checksum {csum} != "
+                                   f"the uninterrupted run's {pinned[i]}")
+        n_exp = len(res.stats.get("pair_padding", {}).get("per_level", []))
+        level2 = res.counts[1] if len(res.counts) > 1 else 0
+        _stream_slide_checks(what, i, n_blocks, push_l, mine_l, n_exp, level2)
+        for k in launches:
+            launches[k] += push_l[k] + mine_l[k]
+    return slide_s
+
+
+def _killed_stream(directory, point, kill_from, n_items, cfg, batches):
+    """A fused stream checkpointing every RESILIENCE_EVERY slides (waiting
+    for each write before the next slide) that dies at the first ``point``
+    hit from slide ``kill_from`` on.  Returns one record per checkpoint:
+    the slide's own seconds, the seconds of the save call on the stream
+    thread (the snapshot, then the writer thread's start) and of the
+    snapshot alone, and the write behind it; and the ``slide_s`` of the
+    slides that saved nothing."""
+    import torch
+    from repro_torch.faults import InjectedFault, clear_kill_hook, set_kill_hook
+    from repro_torch.streaming import StreamCheckpointer, StreamingMiner
+    miner = StreamingMiner(n_items, cfg)
+    ck = StreamCheckpointer(directory, every=RESILIENCE_EVERY, keep=3)
+    saves, plain = [], []
+
+    def hook(name):
+        if name == point:
+            raise InjectedFault(point)
+    fired = False
+    try:
+        for i, batch in enumerate(batches):
+            if i == kill_from:
+                set_kill_hook(hook)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            miner.advance(batch)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            saved = ck.maybe_save(miner, i + 1)
+            t2 = time.perf_counter()
+            if not saved:
+                plain.append(t1 - t0)
+                continue
+            ck.wait()
+            saves.append(dict(ck.last_save, slide_s=t1 - t0, save_call_s=t2 - t1))
+    except InjectedFault:
+        fired = True
+    finally:
+        clear_kill_hook()
+    require(fired, f"resilience: the fault at {point} never fired")
+    return saves, plain
+
+
+def run_resilience(launches):
+    """Checkpoint, kill and restore on the card, re-meshing onto 4 gloo
+    ranks, the batch resume and the FIM serving front end, over the
+    T10I4D100K stream (16 x 8,192) that run_streams slid:
+
+    (a) the fused stream checkpointing every 4 slides, killed at
+        miner:pre_deep_expand in slide 10 and, in a second run, at
+        checkpoint:pre_replace in the write of step 12; each time
+        ``restore_miner`` brings back step 8 and the replay of slides 8-19
+        (across the drift slide 18) carries the pinned checksums of the
+        uninterrupted stream, with the fused stream's launch gates;
+    (b) the same checkpoint restored on 4 gloo ranks sharing the card as
+        tidsharded 1x4 and grid 2x2 (one K3 per expansion, one broadcast per
+        mesh axis at restore, no collective in a push, every rank on the
+        pinned checksums), the tidsharded ranks checkpointing as they
+        replay; the card restores their step 18 and replays slides 18-19;
+    (c) the fused mine of T10I4D100K 0.01 v4 checkpointed every level,
+        resumed from level 3 with ``resume_mine`` on the card and on 4 gloo
+        ranks (tidsharded 1x4), both on the pinned checksum;
+    (d) ``ServingFrontend`` over the window: a writer thread slides 8
+        batches under a 200-query storm from 4 clients (policy block),
+        ``verify_storm`` holds every answer; then the front end restored
+        with ``from_checkpoint`` answers the same storm identically.
+
+    Adds the phase's launches to ``launches``."""
+    import shutil
+    import statistics
+    import tempfile
+    import threading
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import EclatConfig, mine, resume_mine, support_checksum
+    from repro_torch.data import stream_spec
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.mesh_runs import run_jobs
+    from repro_torch.launch.stream_profile import STREAMS
+    from repro_torch.serving import (AdmissionConfig, ServingFrontend,
+                                     answer_checksum, answer_query, query_mix,
+                                     run_storm, verify_storm)
+    from repro_torch.streaming import (StreamCheckpointer, StreamConfig,
+                                       StreamingMiner, restore_miner)
+    from repro_torch.training import valid_steps
+
+    name = RESILIENCE_STREAM
+    _, n_blocks, block_txns, min_sup, n_batches, drift = next(
+        st for st in STREAMS if st[0] == name)
+    batches = STREAM_BATCHES[name]
+    pinned = STREAM_CHECKSUMS[name]
+    n_items = stream_spec(name).n_items
+    cfg = StreamConfig(min_sup=min_sup, n_blocks=n_blocks, block_txns=block_txns)
+    root = tempfile.mkdtemp(prefix="chip_smoke_resilience_")
+    numbers = {}
+    try:
+        # ---- (a) kill and restore on one card -------------------------------
+        kill_dir = os.path.join(root, "killed")
+        saves, plain = _killed_stream(
+            kill_dir, "miner:pre_deep_expand", RESILIENCE_KILL, n_items, cfg,
+            batches)
+        steps = valid_steps(kill_dir)
+        require(steps and steps[-1] == 8, f"resilience (a): durable steps {steps}")
+        for sv in saves:
+            print(f"e2e resilience checkpoint {name} step {sv['step']}: slide_s="
+                  f"{sv['slide_s']:.4f}, then on the stream thread save_call_s="
+                  f"{sv['save_call_s']:.4f} (of it snapshot_s="
+                  f"{sv['snapshot_s']:.4f}); write_s={sv['write_s']:.4f} "
+                  f"(writer thread, behind)")
+        print(f"e2e resilience slides {name}: median slide_s of the "
+              f"{len(plain)} slides without a checkpoint "
+              f"{statistics.median(plain):.4f}")
+        for key in ("snapshot_s", "save_call_s", "write_s"):
+            numbers[key] = [sv[key] for sv in saves]
+        for point, kill_from, d in (
+                ("miner:pre_deep_expand", None, kill_dir),
+                ("checkpoint:pre_replace", 11, os.path.join(root, "torn"))):
+            if kill_from is not None:
+                _killed_stream(d, point, kill_from, n_items, cfg, batches)
+                steps = valid_steps(d)
+                require(steps and steps[-1] == 8,
+                        f"resilience (a) {point}: durable steps {steps}")
+                require(any(x.startswith(".tmp_ckpt_") for x in os.listdir(d)),
+                        f"resilience (a) {point}: no torn write left behind")
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            miner, start = restore_miner(d)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            require(sum(kernels.launch_counts().values()) == 0,
+                    "resilience (a): the restore launched a kernel")
+            miner.ring.validate()
+            require(start == 8 and miner.window_version == 8,
+                    f"resilience (a): restored step {start}, version "
+                    f"{miner.window_version}")
+            slide_s = _replay_slides(f"resilience (a) {point} replay", miner,
+                                     batches, start, n_blocks, pinned, launches)
+            miner.ring.validate()
+            numbers.setdefault("restore_s", []).append(restore_s)
+            numbers.setdefault("replay_slide_s", []).extend(slide_s)
+            print(f"e2e resilience (a) {name} killed at {point}: restored "
+                  f"step {start} on one card in {restore_s:.4f}s (validated), "
+                  f"replayed slides {start}-{len(batches) - 1} on the pinned "
+                  f"checksums (drift slide 18 included); replay median "
+                  f"slide_s={statistics.median(slide_s):.4f}")
+
+        # ---- (c) the batch mine checkpointed every level ---------------------
+        txns, spec = DATA[name]
+        mine_dir = os.path.join(root, "mine")
+        mcfg = dict(min_sup=0.01, variant="v4")
+        kernels.reset_launch_counts()
+        res = mine(txns, spec.n_items, EclatConfig(
+            **mcfg, checkpoint_dir=mine_dir, checkpoint_every_level=True))
+        counts = kernels.launch_counts()
+        for k in MINING_KERNELS:
+            launches[k] += counts[k]
+        expect = next(e[4] for e in E2E_RUNS if e[0] == name)
+        require(support_checksum(res.support_map()) == expect,
+                "resilience (c): the checkpointing mine's checksum")
+        ckpts = sorted(os.listdir(mine_dir))
+        for f in ckpts:
+            if int(f[len("mining_ckpt_k"):-len(".npz")]) > RESUME_LEVEL:
+                os.remove(os.path.join(mine_dir, f))
+        require(os.listdir(mine_dir) == [f"mining_ckpt_k{RESUME_LEVEL}.npz"],
+                f"resilience (c): checkpoints {ckpts}")
+        print(f"e2e resilience (c) mine {name} 0.01 v4 checkpointed every "
+              f"level: levels={res.counts} files={ckpts}; kept level "
+              f"{RESUME_LEVEL} only")
+
+        # ---- (b) + (c) on 4 gloo ranks sharing the card ----------------------
+        mesh_ckpt = os.path.join(root, "mesh")
+        jobs = []
+        for label, backend, shard, grid in RESILIENCE_MESHES:
+            jobs.append(dict(kind="stream_restore", directory=kill_dir,
+                             batches=batches, grid=grid, backend=backend,
+                             shard=shard, label=label,
+                             config=dict(backend=backend, shard=shard),
+                             checkpoint=((mesh_ckpt, RESILIENCE_MESH_EVERY)
+                                         if backend == "tidsharded" else None)))
+        jobs.append(dict(kind="resume", label="tidsharded 1x4",
+                         config=dict(mcfg, backend="tidsharded", shard="words",
+                                     checkpoint_dir=mine_dir)))
+        t0 = time.perf_counter()
+        per_rank = run_ranks(run_jobs, 4, backend="gloo", device="cuda",
+                             args=(jobs,), timeout=600)
+        print(f"e2e resilience mesh gloo 4 ranks on one card: {len(jobs)} "
+              f"jobs in {time.perf_counter() - t0:.2f}s with spawn")
+        for j, job in enumerate(jobs[:len(RESILIENCE_MESHES)]):
+            what = f"resilience (b) restore {name} as {job['label']}"
+            n_axes = 2 if job["grid"] else 1
+            for rank, r in enumerate(per_rank):
+                r = r[j]
+                require("error" not in r, f"{what} rank {rank}: {r.get('error')}")
+                require(r["start"] == 8 and r["validate"] == "ok",
+                        f"{what} rank {rank}: step {r['start']}, {r['validate']}")
+                bc = r["restore_stats"]["collectives"]
+                require(sum(ops.get("broadcast", {}).get("calls", 0)
+                            for ops in bc.values()) == n_axes and
+                        all(set(ops) == {"broadcast"} for ops in bc.values()),
+                        f"{what} rank {rank}: restore collectives {bc}")
+                require(sum(r["restore_launches"].values()) == 0,
+                        f"{what} rank {rank}: the restore launched a kernel")
+                for i, sl in enumerate(r["slides"], start=r["start"]):
+                    require(sl["checksum"] == pinned[i],
+                            f"{what} rank {rank} slide {i}: checksum "
+                            f"{sl['checksum']} != {pinned[i]}")
+                    require(sl["push_collectives"] == {},
+                            f"{what} rank {rank} slide {i}: push collectives")
+                    n_exp = sl["n_expands"]
+                    level2 = sl["counts"][1] if len(sl["counts"]) > 1 else 0
+                    _stream_slide_checks(f"{what} rank {rank}", i, n_blocks,
+                                         sl["push_launches"], sl["mine_launches"],
+                                         n_exp, level2)
+                    require(sl["mine_launches"]["fused_intersect_partial"] == n_exp,
+                            f"{what} rank {rank} slide {i}: K3 "
+                            f"{sl['mine_launches']['fused_intersect_partial']} for "
+                            f"{n_exp} expansions")
+                    if rank == 0:
+                        launches["fused_intersect_partial"] += n_exp
+            r0 = per_rank[0][j]
+            slide_s = [sl["slide_s"] for sl in r0["slides"]]
+            numbers.setdefault("mesh_restore_s", []).append(
+                r0["restore_stats"]["restore_s"])
+            print(f"e2e {what}: every rank restored step {r0['start']} in "
+                  f"{r0['restore_stats']['restore_s']:.4f}s (rank 0; "
+                  f"collectives {r0['restore_stats']['collectives']}), "
+                  f"replayed slides {r0['start']}-{len(batches) - 1} on the "
+                  f"pinned checksums, one K3 per expansion; rank 0 replay "
+                  f"median slide_s={statistics.median(slide_s):.4f}")
+        steps = valid_steps(mesh_ckpt)
+        require(steps and steps[-1] == 18, f"resilience (b): 4-rank steps {steps}")
+        miner, start = restore_miner(mesh_ckpt)
+        require(start == 18, f"resilience (b): restored step {start}")
+        _replay_slides("resilience (b) 4-rank checkpoint on one card", miner,
+                       batches, start, n_blocks, pinned, launches)
+        miner.ring.validate()
+        print(f"e2e resilience (b) the 4-rank checkpoint (steps {steps}, rank 0 "
+              f"wrote) restored on one card at step {start}: slides 18-19 on "
+              f"the pinned checksums")
+
+        rz = [r[-1] for r in per_rank]
+        for rank, r in enumerate(rz):
+            require("error" not in r, f"resilience (c) rank {rank}: {r.get('error')}")
+            require(r["checksum"] == expect and r["resume_k"] == RESUME_LEVEL,
+                    f"resilience (c) rank {rank}: checksum {r['checksum']} at "
+                    f"level {r['resume_k']}")
+            require(r["launches"]["fused_intersect_partial"] == r["n_expands"],
+                    f"resilience (c) rank {rank}: K3 {r['launches']} for "
+                    f"{r['n_expands']} expansions")
+        launches["fused_intersect_partial"] += rz[0]["launches"]["fused_intersect_partial"]
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resumed = resume_mine(EclatConfig(**mcfg, checkpoint_dir=mine_dir))
+        torch.cuda.synchronize()
+        resume_wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        n_exp = len(resumed.stats.get("pair_padding", {}).get("per_level", []))
+        require(support_checksum(resumed.support_map()) == expect,
+                "resilience (c): the card's resume_mine checksum")
+        require(counts["fused_intersect_compact"] == n_exp and
+                counts["trimatrix"] == 0 and counts["fused_intersect"] == 0,
+                f"resilience (c): resume launches {counts} for {n_exp} expansions")
+        for k in MINING_KERNELS:
+            launches[k] += counts[k]
+        numbers["resume_wall_s"] = resume_wall
+        print(f"e2e resilience (c) resume_mine {name} from level {RESUME_LEVEL}: "
+              f"card wall_s={resume_wall:.4f} levels={resumed.counts} checksum "
+              f"{expect}; tidsharded 1x4 gloo rank 0 wall_s="
+              f"{rz[0]['wall_s']:.4f} (restore collectives "
+              f"{rz[0]['collectives'].get('restore')}); both on the pinned checksum")
+
+        # ---- (d) the FIM serving front end -----------------------------------
+        acfg = AdmissionConfig(policy="block", keep_versions=SERVE_SLIDES + 4,
+                               stall_timeout_s=30.0)
+        kernels.reset_launch_counts()
+        frontend = ServingFrontend(
+            StreamingMiner(n_items, cfg, keep_transactions=False), acfg)
+        writer_rows, writer_error = [], []
+        try:
+            frontend.ingest(batches[0])
+
+            def writer():
+                try:
+                    for i in range(1, SERVE_SLIDES + 1):
+                        res = frontend.ingest(batches[i])
+                        writer_rows.append((i, support_checksum(res.support_map()),
+                                            res.stats["slide_s"], res.version))
+                except BaseException as e:   # reported below, never lost
+                    writer_error.append(e)
+            queries = query_mix(SERVE_QUERIES, seed=0)
+            wt = threading.Thread(target=writer, name="miner-writer", daemon=True)
+            wt.start()
+            # clients pace their queries so the storm overlaps the slides
+            outcome = run_storm(frontend, queries, n_clients=SERVE_CLIENTS,
+                                pace_s=SERVE_PACE_S)
+            wt.join(timeout=600)
+            require(not wt.is_alive() and not writer_error,
+                    f"resilience (d): writer {writer_error or 'hung'}")
+            served = kernels.launch_counts()
+            ver = verify_storm(frontend, queries, outcome)
+            require(not outcome["errors"] and not outcome["shed"] and
+                    ver["verified"] == SERVE_QUERIES,
+                    f"resilience (d): {len(outcome['errors'])} errors, "
+                    f"{len(outcome['shed'])} shed, {ver['verified']} verified")
+            for i, csum, _, version in writer_rows:
+                require(csum == pinned[i] and version == i + 1,
+                        f"resilience (d) slide {i}: checksum {csum} version {version}")
+            require(served["trimatrix"] == SERVE_SLIDES + 1 and
+                    served["fused_intersect_compact"] > 0 and
+                    served["fused_intersect"] == 0,
+                    f"resilience (d): writer launches {served}")
+            for k in MINING_KERNELS:
+                launches[k] += served[k]
+            m = frontend.metrics.summary()
+            c = frontend.cache.stats()
+            versions = sorted({v for _, v in outcome["answers"].values()})
+            load_slide = [row[2] for row in writer_rows]
+            numbers["serve"] = dict(p50=m["latency_ms"]["p50"],
+                                    p99=m["latency_ms"]["p99"], qps=m["qps"],
+                                    hit_rate=c["hit_rate"],
+                                    slide_s=statistics.median(load_slide))
+            print(f"e2e resilience (d) serve {name}: {SERVE_SLIDES} slides under a "
+                  f"{SERVE_QUERIES}-query storm ({SERVE_CLIENTS} clients, block): "
+                  f"answered {m['n_answered']}, verified {ver['verified']} at "
+                  f"versions {versions} (checksum {ver['checksum']}); latency "
+                  f"p50 {m['latency_ms']['p50']:.3f}ms p99 "
+                  f"{m['latency_ms']['p99']:.3f}ms; {m['qps']:.1f} qps; cache "
+                  f"hit rate {c['hit_rate']:.3f}; writer slide_s under load "
+                  f"median {statistics.median(load_slide):.4f} max "
+                  f"{max(load_slide):.4f}; writer launches "
+                  f"{ {k: v for k, v in served.items() if v} }")
+            serve_dir = os.path.join(root, "serve")
+            ck = StreamCheckpointer(serve_dir)
+            ck.save(frontend.miner, SERVE_SLIDES + 1)
+            ck.wait()
+            final = frontend.snapshot_at(SERVE_SLIDES + 1)
+        finally:
+            frontend.stop()
+        t0 = time.perf_counter()
+        restored, completed = ServingFrontend.from_checkpoint(serve_dir, config=acfg)
+        restore_s = time.perf_counter() - t0
+        try:
+            require(completed == SERVE_SLIDES + 1 and
+                    restored.window_version == SERVE_SLIDES + 1,
+                    f"resilience (d): restored at {completed}, version "
+                    f"{restored.window_version}")
+            again = run_storm(restored, queries, n_clients=SERVE_CLIENTS)
+            ver2 = verify_storm(restored, queries, again)
+            require(not again["errors"] and ver2["verified"] == SERVE_QUERIES,
+                    f"resilience (d) restored: {again['errors']}")
+            for q in queries:
+                ans, version = again["answers"][q.qid]
+                direct, _ = answer_query(final, q, cache=None)
+                require(version == SERVE_SLIDES + 1 and
+                        answer_checksum(ans) == answer_checksum(direct),
+                        f"resilience (d) restored: qid {q.qid} differs from the "
+                        f"live front end's window {SERVE_SLIDES + 1}")
+            m2 = restored.metrics.summary()
+        finally:
+            restored.stop()
+        numbers["serve_restore_s"] = restore_s
+        print(f"e2e resilience (d) from_checkpoint: restored window version "
+              f"{completed} in {restore_s:.4f}s (re-mine included); the same "
+              f"storm answered identically to the live front end at that "
+              f"version ({ver2['verified']} verified; p50 "
+              f"{m2['latency_ms']['p50']:.3f}ms p99 {m2['latency_ms']['p99']:.3f}ms; "
+              f"{m2['qps']:.1f} qps)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"e2e resilience summary: {json.dumps(numbers)}")
 
 
 def _check_mesh_stream(job, per_rank, times):
@@ -1695,6 +2140,7 @@ def main() -> int:
     launches["fused_intersect_partial"] = phase(run_mesh_mines, DATA)
     launches["popcount_support"] = 0
     stream_rec, _ = phase(run_streams, launches)
+    phase(run_resilience, launches)
     phase(check_stream_pairs, stream_rec)
     miner = phase(check_miner_pairs)
     phase(check_flash_attention)

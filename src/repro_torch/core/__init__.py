@@ -2,6 +2,8 @@
 
 Public surface:
   mine / EclatConfig / EclatResult      level-wise RDD-Eclat, variants v1..v6
+  resume_mine, recover_partition        resume from per-level checkpoints;
+                                        lineage replay of one partition
   make_engine / available_backends      the ``fused`` and ``ref`` executors and
                                         the mesh backends
   bruteforce_fim                        exact oracle for tests
@@ -11,9 +13,12 @@ Public surface:
   generate_rules, support_checksum      ARM step 2; digest of a result
 """
 from .accumulator import HostAccumulator, build_vertical_accumulated
-from .eclat import VARIANTS, EclatConfig, EclatResult, mine, resolve_min_sup
+from .eclat import (VARIANTS, EclatConfig, EclatResult, mine, resolve_min_sup,
+                    resume_mine)
 from .engine import Engine, LevelResult, available_backends, make_engine
 from .itemsets import ItemsetStore, LevelRecord, generate_rules, support_checksum
+from .lineage import (latest_mining_checkpoint, load_mining_checkpoint,
+                      recover_partition, save_mining_checkpoint)
 from .oracle import bruteforce_fim
 from .partitioners import (PARTITIONERS, assign_partitions, partition_stats)
 from .postfilter import (WORKLOAD_MODES, TopKResult, closed_itemsets,
@@ -24,6 +29,8 @@ from .vertical import VerticalDB, build_vertical, filter_transactions
 __all__ = [
     "HostAccumulator", "build_vertical_accumulated",
     "VARIANTS", "EclatConfig", "EclatResult", "mine", "resolve_min_sup",
+    "resume_mine", "recover_partition", "save_mining_checkpoint",
+    "load_mining_checkpoint", "latest_mining_checkpoint",
     "Engine", "LevelResult", "available_backends", "make_engine",
     "ItemsetStore", "LevelRecord", "generate_rules", "support_checksum",
     "bruteforce_fim",

@@ -18,14 +18,19 @@ Variants:
   v5  v3 + reverse-hash partitioner
   v6  (beyond paper) v3 + greedy-LPT partitioner, optional dEclat diffsets
 
+With ``checkpoint_dir`` and ``checkpoint_every_level``, every level from 3
+down is checkpointed (``core.lineage``, the reference's ``.npz`` files),
+and :func:`resume_mine` continues a run from its deepest checkpoint, on any
+backend and mesh.
+
 Not ported yet, and refused with ``NotImplementedError`` when asked for:
-``backend="auto"``, ``autotune`` and ``block_w``, per-level checkpoints and
-``resume_mine``.
+``backend="auto"``, ``autotune`` and ``block_w``.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -34,6 +39,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device, words_from_numpy
 from ..dist import collectives as coll
+from ..dist.sharding import is_lead_rank
 from . import engine as eng
 from .accumulator import build_vertical_accumulated
 from .equivalence import class_segments, pair_work, segment_pairs
@@ -43,8 +49,8 @@ from .postfilter import WORKLOAD_MODES, filter_mode
 from .triangular import cooccurrence_counts, frequent_pairs
 from .vertical import VerticalDB, build_vertical, filter_transactions, filtering_reduction
 
-__all__ = ["EclatConfig", "EclatResult", "mine", "resolve_min_sup",
-           "run_bottom_up", "VARIANTS"]
+__all__ = ["EclatConfig", "EclatResult", "mine", "resume_mine",
+           "resolve_min_sup", "run_bottom_up", "VARIANTS"]
 
 VARIANTS: Dict[str, dict] = {
     "v1": dict(filter_txns=False, accumulator=False, partitioner="default"),
@@ -101,24 +107,23 @@ class EclatConfig:
     max_k: Optional[int] = None         # deepest itemset length to mine (>= 1); None = unbounded
     bucket_min: int = 128               # pair-buffer ladder floor
     chunk_pairs: int = 1 << 18          # level-2 chunking when tri-matrix off
+    checkpoint_dir: Optional[str] = None      # per-level mining checkpoints (lead rank writes)
+    checkpoint_every_level: bool = False
     # not ported yet: any value but these defaults raises NotImplementedError
     block_w: Optional[int] = None
     autotune: bool = False
-    checkpoint_dir: Optional[str] = None
-    checkpoint_every_level: bool = False
 
     def resolve_min_sup(self, n_txn: int) -> int:
         return resolve_min_sup(self.min_sup, n_txn)
 
 
-_UNPORTED_DEFAULTS = dict(block_w=None, autotune=False,
-                          checkpoint_dir=None, checkpoint_every_level=False)
+_UNPORTED_DEFAULTS = dict(block_w=None, autotune=False)
 
 
 @dataclasses.dataclass
 class EclatResult:
     store: ItemsetStore
-    db: VerticalDB
+    db: Optional[VerticalDB]            # None when resumed from a checkpoint
     stats: dict
     mode: str = "all"                   # the workload mode this run mined for
 
@@ -160,15 +165,19 @@ def run_bottom_up(
     mode: int,
     max_k: int,
     part_to_dev: np.ndarray,
+    on_level=None,
+    k: int = 2,
 ) -> None:
     """Levels >= 3: per-class level-wise expansion (the paper's Phase-4).
 
     Starts from a level-2 frontier (``class_id``/``item_rank``/``partition``/
     ``support`` row-aligned with ``lvl_bitmaps``) and appends one
     ``LevelRecord`` per surviving level.  ``part_to_dev`` maps a partition
-    to its rank on the engine's pair axis.
+    to its rank on the engine's pair axis; ``on_level`` (checkpointing) sees
+    every new frontier.  ``k`` is the level of the given frontier: 2, or a
+    resumed checkpoint's level (the reference restarts the count at 2 there,
+    so its ``resume_mine`` from any but the last level raises).
     """
-    k = 2
     while support.shape[0] and k < max_k:
         starts, sizes = class_segments(class_id)
         left, right = segment_pairs(starts, sizes)
@@ -192,6 +201,8 @@ def run_bottom_up(
         store.add_level(LevelRecord(k=k, parent=parent, item_rank=item_rank,
                                     support=support, partition=partition))
         lvl_bitmaps = res.bitmaps
+        if on_level is not None:
+            on_level(k, class_id, item_rank, partition, support, lvl_bitmaps)
 
 
 def _build_db(transactions, n_items, abs_min_sup, spec, mesh=None,
@@ -210,7 +221,7 @@ def _build_db(transactions, n_items, abs_min_sup, spec, mesh=None,
     return db, info
 
 
-def _finish(store: ItemsetStore, db: VerticalDB, stats: dict,
+def _finish(store: ItemsetStore, db: Optional[VerticalDB], stats: dict,
             config: EclatConfig, t_start: float, execu: eng.Engine,
             mesh, coll_start: dict) -> EclatResult:
     """Common tail of every ``mine()`` return path after the engine is
@@ -397,10 +408,122 @@ def mine(
 
     # ---- Phase 3/4: level-wise Bottom-Up -----------------------------------
     t0 = time.perf_counter()
+    mode_k = eng.MODE_DIFFSET if diffsets else eng.MODE_TIDSET
+    on_level = None
+    if config.checkpoint_dir and config.checkpoint_every_level:
+        # resume metadata: everything resume_mine needs that is not derivable
+        # from the frontier arrays themselves (DESIGN.md §10)
+        on_level = _level_checkpointer(
+            config.checkpoint_dir, store, execu, mesh,
+            {"abs_min_sup": int(abs_min_sup), "engine_mode": int(mode_k),
+             "max_k": int(max_k), "eff_p": int(eff_p),
+             "use_diffsets": bool(diffsets)})
     run_bottom_up(execu, store, lvl_bitmaps, iu.copy(), ju.copy(),
                   table[iu] if iu.size else np.zeros(0, np.int64),
                   sup2.astype(np.int64), abs_min_sup=abs_min_sup,
-                  mode=eng.MODE_DIFFSET if diffsets else eng.MODE_TIDSET,
-                  max_k=max_k, part_to_dev=part_to_dev)
+                  mode=mode_k, max_k=max_k, part_to_dev=part_to_dev,
+                  on_level=on_level)
     stats["phase_s"]["bottom_up"] = time.perf_counter() - t0
     return _finish(store, db, stats, config, t_start, execu, mesh, coll_start)
+
+
+def _level_checkpointer(directory: str, store: ItemsetStore, execu: eng.Engine,
+                        mesh, meta: dict):
+    """The ``on_level`` hook that writes one mining checkpoint per level:
+    the frontier's survivor rows, whole, on the host (``Engine.host_rows``;
+    a gather of the slices on the word-sharded backends, on every rank),
+    written by the mesh's lead rank only."""
+    from .lineage import save_mining_checkpoint
+    writer = is_lead_rank(mesh)
+
+    def on_level(k, class_id, item_rank, partition, support, lvl_bitmaps):
+        rows = execu.host_rows(lvl_bitmaps, support.shape[0])
+        if writer:
+            save_mining_checkpoint(directory, store, k, class_id, item_rank,
+                                   partition, support, rows, meta=meta)
+    return on_level
+
+
+def _resume_path(directory: str, mesh) -> str:
+    """The checkpoint every rank resumes from: the lead rank picks the
+    deepest one and broadcasts its level, so every rank reads the same
+    file."""
+    from .lineage import latest_mining_checkpoint, mining_checkpoint_path
+    k = -1
+    if is_lead_rank(mesh):
+        try:
+            path = latest_mining_checkpoint(directory)
+            k = int(os.path.basename(path)[len("mining_ckpt_k"):-len(".npz")])
+        except FileNotFoundError:
+            pass
+    k = coll.lead_int(k, mesh)
+    if k < 0:
+        raise FileNotFoundError(
+            f"no mining checkpoint (mining_ckpt_k*.npz) under {directory!r}")
+    return mining_checkpoint_path(directory, k)
+
+
+def resume_mine(config: EclatConfig, device: DeviceLike = None,
+                mesh=None) -> EclatResult:
+    """Continue a batch mine from its deepest per-level checkpoint.
+
+    Reads the deepest ``mining_ckpt_k*.npz`` under ``config.checkpoint_dir``
+    (written by ``mine()`` with ``checkpoint_every_level=True``, by this
+    package or the reference), rebuilds the store and frontier, and resumes
+    ``run_bottom_up`` from the checkpointed level on ``device`` (``None`` =
+    CUDA).  The engine is resolved fresh from *this* call's
+    ``config.backend`` / ``config.shard`` / ``mesh`` — restore onto a
+    different mesh or a single device, and the frontier is re-placed by
+    ``prepare_frontier`` (DESIGN.md §10): the remaining levels come out
+    bit-exact because every backend is bit-exact on the same frontier.  The
+    original transactions are not needed; ``EclatResult.db`` is ``None``.
+    On a mesh every rank calls it alike; ``stats["collectives"]`` holds the
+    resume's broadcasts (``restore``) and the levels'.
+    """
+    from .lineage import load_mining_checkpoint
+
+    _check_config(config)
+    if not config.checkpoint_dir:
+        raise ValueError("resume_mine needs config.checkpoint_dir")
+    dev = resolve_device(device)
+    t_start = time.perf_counter()
+    coll_start = coll.collective_counts()
+    path = _resume_path(config.checkpoint_dir, mesh)
+    store, fr = load_mining_checkpoint(path)
+    meta = fr.get("meta") or {}
+    if "abs_min_sup" not in meta:
+        raise ValueError(
+            f"{path} predates resume metadata — re-run the original mine "
+            f"with this version to write a resumable checkpoint")
+    abs_min_sup = int(meta["abs_min_sup"])
+    mode_k = int(meta["engine_mode"])
+    max_k = int(meta["max_k"])
+    eff_p = int(meta["eff_p"])
+    stats: dict = {"variant": config.variant, "device": str(dev), "phase_s": {},
+                   "abs_min_sup": abs_min_sup,
+                   "resumed_from": path, "resume_k": int(fr["k"])}
+    if mesh is not None:
+        stats["collectives"] = {"restore": coll.counts_since(coll_start)}
+    coll_start = coll.collective_counts()
+
+    execu = eng.resolve_engine(config.backend, mesh,
+                               bucket_min=config.bucket_min,
+                               shard=config.shard)
+    stats["backend"] = execu.name
+    stats["backend_requested"] = config.backend
+    part_to_dev = np.arange(eff_p, dtype=np.int64) % max(execu.n_devices, 1)
+    lvl_bitmaps = execu.prepare_frontier(words_from_numpy(fr["bitmaps"], dev))
+    on_level = (_level_checkpointer(config.checkpoint_dir, store, execu, mesh,
+                                    meta)
+                if config.checkpoint_every_level else None)
+
+    t0 = time.perf_counter()
+    run_bottom_up(execu, store, lvl_bitmaps,
+                  class_id=np.asarray(fr["class_id"]),
+                  item_rank=np.asarray(fr["item_rank"]),
+                  partition=np.asarray(fr["partition"]),
+                  support=np.asarray(fr["support"]).astype(np.int64),
+                  abs_min_sup=abs_min_sup, mode=mode_k, max_k=max_k,
+                  part_to_dev=part_to_dev, on_level=on_level, k=int(fr["k"]))
+    stats["phase_s"]["bottom_up"] = time.perf_counter() - t0
+    return _finish(store, None, stats, config, t_start, execu, mesh, coll_start)

@@ -61,8 +61,10 @@ from typing import Dict, List, Optional, Tuple, Type
 import numpy as np
 import torch
 
+from ..device import words_to_numpy
 from ..dist import collectives as coll
-from ..dist.sharding import axis_index, axis_size, padded_word_count, shard_words
+from ..dist.sharding import (axis_index, axis_size, mesh_descriptor,
+                             padded_word_count, shard_words)
 from ..kernels.fused_intersect import (MODE_DIFFSET, MODE_TID_TO_DIFF,
                                        MODE_TIDSET, compact_survivors,
                                        compact_survivors_ref,
@@ -73,10 +75,11 @@ from ..kernels.fused_intersect import (MODE_DIFFSET, MODE_TID_TO_DIFF,
 
 __all__ = [
     "MODE_TIDSET", "MODE_TID_TO_DIFF", "MODE_DIFFSET",
-    "LevelResult", "Engine", "RefEngine", "FusedEngine", "ShardedEngine",
+    "LevelResult", "Engine", "EngineState", "RefEngine", "FusedEngine",
+    "ShardedEngine",
     "TidShardedEngine", "GridShardedEngine", "BACKENDS",
     "available_backends", "make_engine", "resolve_engine", "bucket_size",
-    "PairBuffers", "group_pairs_by_device",
+    "PairBuffers", "group_pairs_by_device", "engine_from_state",
 ]
 
 # backends of the reference package that this port does not have yet
@@ -100,6 +103,92 @@ class LevelResult:
     mask: np.ndarray
     supports: np.ndarray
     bitmaps: torch.Tensor
+
+
+@dataclasses.dataclass
+class EngineState:
+    """Serializable engine state (DESIGN.md §10): config + accounting as
+    *data*, never Python object innards; the reference's fields.
+
+    What is data: the knobs a rebuild needs (backend, inner executor,
+    ladder floors) and the accounting ledgers that must survive a crash so
+    per-slide ``stats(since=...)`` deltas stay truthful after recovery.
+    What is derived (and therefore absent): pair buffers and the mesh's
+    process groups, rebuilt by :func:`engine_from_state` under whatever mesh
+    the restoring process brings.  ``mesh`` is the provenance descriptor of
+    the mesh the snapshot ran on; it is reported, never restored from.
+
+    ``block_w``, ``autotune``, ``compact`` and ``interpret`` are the
+    reference's kernel knobs; the port's engines hold them at ``None``,
+    ``False``, ``True`` and ``None``, and a state with any other value is
+    refused on restore (:meth:`check_portable`).
+    """
+    backend: str
+    inner: str
+    bucket_min: int
+    compact_min: int
+    block_w: Optional[int]
+    compact: bool
+    autotune: bool
+    interpret: Optional[bool]
+    mesh: Optional[dict]                      # mesh_descriptor provenance
+    n_intersections: int
+    n_padded: int
+    level_padding: List[Tuple[int, int]]
+    device_pair_counts: List[np.ndarray]
+
+    def to_tree(self) -> Tuple[Dict[str, np.ndarray], dict]:
+        """(array tree, JSON-able extra) for ``training.checkpoint``."""
+        tree: Dict[str, np.ndarray] = {
+            "level_padding": np.asarray(self.level_padding,
+                                        np.int64).reshape(-1, 2),
+        }
+        if self.device_pair_counts:
+            tree["device_pair_counts"] = np.stack(
+                [np.asarray(c, np.int64) for c in self.device_pair_counts])
+        extra = {"backend": self.backend, "inner": self.inner,
+                 "bucket_min": int(self.bucket_min),
+                 "compact_min": int(self.compact_min),
+                 "block_w": None if self.block_w is None else int(self.block_w),
+                 "compact": bool(self.compact),
+                 "autotune": bool(self.autotune),
+                 "interpret": self.interpret, "mesh": self.mesh,
+                 "n_intersections": int(self.n_intersections),
+                 "n_padded": int(self.n_padded)}
+        return tree, extra
+
+    @classmethod
+    def from_tree(cls, tree: Dict[str, np.ndarray], extra: dict) -> "EngineState":
+        lp = np.asarray(tree["level_padding"], np.int64).reshape(-1, 2)
+        dpc = tree.get("device_pair_counts")
+        return cls(
+            backend=str(extra["backend"]), inner=str(extra["inner"]),
+            bucket_min=int(extra["bucket_min"]),
+            compact_min=int(extra["compact_min"]),
+            block_w=(None if extra["block_w"] is None
+                     else int(extra["block_w"])),
+            compact=bool(extra["compact"]), autotune=bool(extra["autotune"]),
+            interpret=extra["interpret"], mesh=extra["mesh"],
+            n_intersections=int(extra["n_intersections"]),
+            n_padded=int(extra["n_padded"]),
+            level_padding=[(int(a), int(b)) for a, b in lp],
+            device_pair_counts=([np.asarray(c, np.int64) for c in dpc]
+                                if dpc is not None else []))
+
+    def check_portable(self) -> None:
+        """Refuse, by field, a state this port cannot run as recorded: the
+        port has only the compacting engine (ROADMAP queue 3) and no tile
+        selection yet (item 6)."""
+        if not self.compact:
+            raise ValueError(
+                "EngineState.compact=False: the state was taken on the "
+                "reference's non-compacting executor, and the port has only "
+                "the compacting engine (ROADMAP queue 3)")
+        for field, default, item in (("block_w", None, 6), ("autotune", False, 6)):
+            if getattr(self, field) != default:
+                raise NotImplementedError(
+                    f"EngineState.{field}={getattr(self, field)!r} is not "
+                    f"ported yet (ROADMAP item {item})")
 
 
 def bucket_size(n: int, floor: int) -> int:
@@ -282,10 +371,49 @@ class Engine:
         sb = bucket_size(max(int(n_surv), 1), self.compact_min)
         return compact[:sb]
 
+    def host_rows(self, bitmaps: torch.Tensor, n_rows: int) -> np.ndarray:
+        """The first ``n_rows`` rows of a frontier this backend carries, whole
+        (every word), as host ``uint32`` words: what a checkpoint of the
+        frontier holds.  The word-sharded backends gather the slices (one
+        all-gather over ``data``, on every rank)."""
+        return words_to_numpy(bitmaps[:n_rows])
+
     def _take(self, block: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         """Row gather behind the mesh backends' survivor assembly; rows stay
         on the rank, and a word slice stays the same slice."""
         return block.index_select(0, idx)
+
+    def snapshot_state(self) -> EngineState:
+        """Serializable snapshot of config + accounting (DESIGN.md §10).
+        Deep-copies the ledgers so the snapshot is stable while the engine
+        keeps expanding."""
+        return EngineState(
+            backend=self.name,
+            inner=getattr(self, "inner",
+                          self.name if self.name in INNER else "fused"),
+            bucket_min=self.buffers.floor, compact_min=self.compact_min,
+            block_w=None, compact=True, autotune=False, interpret=None,
+            mesh=mesh_descriptor(getattr(self, "mesh", None)),
+            n_intersections=self.n_intersections, n_padded=self.n_padded,
+            level_padding=[(int(a), int(b)) for a, b in self.level_padding],
+            device_pair_counts=[np.asarray(c, np.int64).copy()
+                                for c in self.device_pair_counts])
+
+    def restore_state(self, state: EngineState) -> "Engine":
+        """Adopt a snapshot's accounting.  Per-rank pair counts are kept only
+        when this engine's pair axis has the snapshot's width: on another
+        mesh factorization the old attribution means nothing, so it is
+        dropped (derived accounting, not data; DESIGN.md §10)."""
+        state.check_portable()
+        self.n_intersections = int(state.n_intersections)
+        self.n_padded = int(state.n_padded)
+        self.level_padding = [(int(a), int(b)) for a, b in state.level_padding]
+        dpc = [np.asarray(c, np.int64).copy()
+               for c in state.device_pair_counts]
+        if any(c.shape[0] != self.n_devices for c in dpc):
+            dpc = []
+        self.device_pair_counts = dpc
+        return self
 
     def snapshot(self) -> Tuple[int, int, int, int]:
         """Counter snapshot, for per-call deltas on a long-lived engine
@@ -469,6 +597,12 @@ class _WordShardedFrontierMixin:
         self.n_words, self.frontier_words = int(n_words), ws
         return local
 
+    def host_rows(self, bitmaps: torch.Tensor, n_rows: int) -> np.ndarray:
+        self._check_slice(bitmaps)
+        parts = coll.all_gather(bitmaps[:n_rows], self.mesh, self.data_axis)
+        whole = parts.permute(1, 0, 2).reshape(int(n_rows), -1)
+        return words_to_numpy(whole[:, :self.n_words])
+
     def _check_slice(self, bitmaps: torch.Tensor) -> None:
         if self.frontier_words is None or bitmaps.shape[1] != self.frontier_words:
             raise ValueError(
@@ -616,6 +750,27 @@ def make_engine(backend: str, *, mesh=None, bucket_min: int = 128,
             raise ValueError(f"{backend} backend requires a mesh")
         return cls(mesh, bucket_min, inner=inner)
     return cls(bucket_min)
+
+
+def engine_from_state(state: EngineState, mesh=None, *,
+                      backend: Optional[str] = None) -> Engine:
+    """Rebuild an engine from an :class:`EngineState`, possibly on a
+    different mesh — the engine half of live re-meshing (DESIGN.md §10).
+
+    The snapshot's mesh descriptor is provenance only: the engine is built
+    against ``mesh`` (whatever factorization the restoring process brings),
+    and a mesh backend's state with ``mesh=None`` falls back to its inner
+    executor on one device.  ``backend`` overrides the target outright
+    (a cross-family move, e.g. ``sharded`` -> ``tidsharded``)."""
+    state.check_portable()
+    target = state.backend if backend is None else backend
+    if target in MESH_BACKENDS and mesh is None:
+        target = state.inner if state.inner in INNER else "fused"
+    eng = make_engine(target, mesh=mesh if target in MESH_BACKENDS else None,
+                      bucket_min=state.bucket_min,
+                      inner=state.inner if state.inner in INNER else "fused")
+    eng.compact_min = int(state.compact_min)
+    return eng.restore_state(state)
 
 
 def resolve_engine(backend: str, mesh=None, *, bucket_min: int = 128,

@@ -1,15 +1,19 @@
 """repro_torch.dist — the mining half of the reference's ``dist`` package on
 ``torch.distributed``.
 
-sharding     word-axis sharding of a frontier, ``mesh_descriptor``
-collectives  the one place that calls ``torch.distributed``: all-reduce and
-             all-gather over a named mesh axis, with per-axis counters
+sharding     word-axis sharding of a frontier, ``mesh_descriptor``, the
+             mesh's lead rank
+collectives  the one place that calls ``torch.distributed``: all-reduce,
+             all-gather and broadcast over a named mesh axis, with per-axis
+             counters
 """
-from .collectives import (all_gather, all_reduce, collective_counts,
+from .collectives import (all_gather, all_reduce, broadcast,
+                          broadcast_from_lead, collective_counts,
                           reset_collective_counts)
-from .sharding import (axis_index, axis_size, mesh_descriptor,
+from .sharding import (axis_index, axis_size, is_lead_rank, mesh_descriptor,
                        padded_word_count, shard_words)
 
-__all__ = ["all_gather", "all_reduce", "collective_counts",
-           "reset_collective_counts", "axis_index", "axis_size",
-           "mesh_descriptor", "padded_word_count", "shard_words"]
+__all__ = ["all_gather", "all_reduce", "broadcast", "broadcast_from_lead",
+           "collective_counts", "reset_collective_counts", "axis_index",
+           "axis_size", "is_lead_rank", "mesh_descriptor",
+           "padded_word_count", "shard_words"]

@@ -26,8 +26,9 @@ from typing import Dict
 import torch
 import torch.distributed as dist
 
-__all__ = ["all_reduce", "all_gather", "collective_counts",
-           "reset_collective_counts", "counts_since"]
+__all__ = ["all_reduce", "all_gather", "broadcast", "broadcast_from_lead",
+           "lead_int", "collective_counts", "reset_collective_counts",
+           "counts_since"]
 
 _COUNTS: Dict[tuple, Dict[str, int]] = defaultdict(lambda: {"calls": 0, "bytes": 0})
 
@@ -96,3 +97,37 @@ def all_gather(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     out = torch.empty((n, *t.shape), dtype=t.dtype, device=t.device)
     dist.all_gather_into_tensor(out, t, group=group)
     return out
+
+
+def broadcast(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Overwrite ``t`` with the value of the rank at coordinate 0 of
+    ``axis``, in place; returns ``t``."""
+    group = mesh.get_group(axis)
+    _count(axis, "broadcast", t)
+    src = dist.get_global_rank(group, 0)
+    if _on_host(group) and t.device.type != "cpu":
+        host = t.cpu()
+        dist.broadcast(host, src=src, group=group)
+        t.copy_(host)
+    else:
+        dist.broadcast(t, src=src, group=group)
+    return t
+
+
+def broadcast_from_lead(t: torch.Tensor, mesh) -> torch.Tensor:
+    """Overwrite ``t`` on every rank of the mesh with the lead rank's value
+    (coordinate 0 on every axis): one broadcast per mesh axis, each from
+    coordinate 0 of that axis, in axis order."""
+    for axis in mesh.mesh_dim_names:
+        broadcast(t, mesh, axis)
+    return t
+
+
+def lead_int(value: int, mesh) -> int:
+    """The lead rank's ``value`` on every rank (one 8-byte broadcast per
+    mesh axis); ``value`` itself without a mesh."""
+    if mesh is None:
+        return int(value)
+    t = torch.tensor([int(value)], dtype=torch.int64,
+                     device="cuda" if mesh.device_type == "cuda" else "cpu")
+    return int(broadcast_from_lead(t, mesh).item())

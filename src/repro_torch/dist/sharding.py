@@ -27,7 +27,7 @@ from typing import Optional
 import torch
 
 __all__ = ["padded_word_count", "shard_words", "axis_size", "axis_index",
-           "mesh_descriptor"]
+           "is_lead_rank", "mesh_descriptor"]
 
 
 def padded_word_count(n_words: int, n_shards: int) -> int:
@@ -45,6 +45,15 @@ def axis_size(mesh, axis: str) -> int:
 def axis_index(mesh, axis: str) -> int:
     """This rank's coordinate along the named mesh axis."""
     return int(mesh.get_local_rank(axis))
+
+
+def is_lead_rank(mesh) -> bool:
+    """Whether this rank is the mesh's lead (coordinate 0 on every axis):
+    the one rank that writes what every rank holds alike, such as a
+    checkpoint.  Without a mesh the one process is the lead."""
+    if mesh is None:
+        return True
+    return all(axis_index(mesh, a) == 0 for a in mesh.mesh_dim_names)
 
 
 def _dim(mesh, axis: str) -> int:

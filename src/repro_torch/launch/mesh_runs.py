@@ -33,6 +33,24 @@ driver's flags.  Kinds:
                 push and of its mine apart (``support_map=True`` /
                 ``cooc=True`` add the map and the count matrix); then the
                 rank's device ring and ``validate()``'s verdict
+``stream_ckpt`` a ``StreamingMiner`` sliding ``batches`` with a
+                ``StreamCheckpointer`` into ``directory`` (every ``every``
+                slides, waiting for each write; the lead rank writes), with
+                an optional fault ``kill = (point, slide)`` raised at the
+                first hit of the kill point from that slide on; after each
+                slide the ranks agree (one all-reduce of a flag per mesh
+                axis) whether any rank faulted, and all stop if one did;
+                returns whether the fault fired and the durable steps
+``stream_restore``  ``restore_miner`` of ``directory`` on the rank's mesh
+                (``config`` overrides ``backend``/``shard``), then the
+                slides of ``batches`` from the restored step on; returns
+                the restore's step, seconds and collectives, and per slide
+                the same record as ``stream`` (``support_map=True`` adds the
+                map), then ``validate()``'s verdict; with ``checkpoint``
+                (``(directory, every)``) the replay checkpoints as it goes
+``resume``      ``resume_mine`` with ``config`` (the ``EclatConfig`` fields)
+                on the rank's mesh; returns the checksum, the levels, the
+                launches, the stats' collectives and the resumed level
 ``mesh``        ``mesh_descriptor`` of the mesh
 
 A job that the port refuses (``ValueError``, ``TypeError``,
@@ -47,13 +65,17 @@ from typing import Dict, List, Sequence
 import torch
 
 from .. import kernels
-from ..core import EclatConfig, build_vertical_accumulated, mine, support_checksum
+from ..core import (EclatConfig, build_vertical_accumulated, mine, resume_mine,
+                    support_checksum)
 from ..core.engine import resolve_engine
 from ..data import generate, transaction_stream
 from ..device import words_from_numpy, words_to_numpy
 from ..dist import collectives as coll
 from ..dist.sharding import mesh_descriptor
-from ..streaming import StreamConfig, StreamingMiner
+from ..faults import InjectedFault, clear_kill_hook, set_kill_hook
+from ..streaming import (StreamCheckpointer, StreamConfig, StreamingMiner,
+                         restore_miner)
+from ..training import valid_steps
 from .mesh import mesh_for_mining
 
 __all__ = ["run_jobs"]
@@ -174,43 +196,8 @@ def _stream(rank: _Rank, job: dict) -> dict:
     mesh = rank.mesh(dict(job, backend=cfg.backend, shard=cfg.shard))
     dev = rank.device
     miner = StreamingMiner(job["n_items"], cfg, mesh=mesh, device=dev)
-    slides = []
-    for batch in rank.batches(job):
-        kernels.reset_launch_counts()
-        before = coll.collective_counts()
-        _sync(dev)
-        t0 = time.perf_counter()
-        push = miner.push(batch)
-        _sync(dev)
-        push_s = time.perf_counter() - t0
-        push_launches = kernels.launch_counts()
-        push_coll = coll.counts_since(before)
-        kernels.reset_launch_counts()
-        before = coll.collective_counts()
-        res = miner.mine_window()
-        _sync(dev)
-        st = res.stats
-        slide = dict(checksum=support_checksum(res.support_map()),
-                     counts=res.counts, total=res.total, n_txn=res.n_txn,
-                     version=res.version, push_s=push_s,
-                     n_evicted=push["n_evicted"],
-                     slide_s=push_s + st["total_s"],
-                     n_expands=len(st.get("pair_padding", {}).get("per_level", [])),
-                     push_launches=push_launches,
-                     mine_launches=kernels.launch_counts(),
-                     push_collectives=push_coll,
-                     mine_collectives=coll.counts_since(before),
-                     stats={k: st[k] for k in _SLIDE_STATS if k in st})
-        if job.get("support_map"):
-            slide["support_map"] = res.support_map()
-        if job.get("cooc"):
-            slide["cooc"] = miner.cooc.copy()
-        slides.append(slide)
-    try:
-        miner.ring.validate()
-        valid = "ok"
-    except RuntimeError as e:
-        valid = f"RuntimeError: {e}"
+    slides = [_slide_record(miner, batch, dev, job) for batch in rank.batches(job)]
+    valid = _validate(miner)
     ring = miner.ring
     return dict(slides=slides, ring=words_to_numpy(ring.device),
                 ring_geometry=dict(n_words=ring.n_words,
@@ -221,12 +208,144 @@ def _stream(rank: _Rank, job: dict) -> dict:
                 mesh=mesh_descriptor(mesh))
 
 
+def _slide_record(miner, batch, dev, job) -> dict:
+    """One slide (push, then mine) with its launches and collectives apart,
+    as the ``stream`` job records it."""
+    kernels.reset_launch_counts()
+    before = coll.collective_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    push = miner.push(batch)
+    _sync(dev)
+    push_s = time.perf_counter() - t0
+    push_launches = kernels.launch_counts()
+    push_coll = coll.counts_since(before)
+    kernels.reset_launch_counts()
+    before = coll.collective_counts()
+    res = miner.mine_window()
+    _sync(dev)
+    st = res.stats
+    slide = dict(checksum=support_checksum(res.support_map()),
+                 counts=res.counts, total=res.total, n_txn=res.n_txn,
+                 version=res.version, push_s=push_s,
+                 n_evicted=push["n_evicted"],
+                 slide_s=push_s + st["total_s"],
+                 n_expands=len(st.get("pair_padding", {}).get("per_level", [])),
+                 push_launches=push_launches,
+                 mine_launches=kernels.launch_counts(),
+                 push_collectives=push_coll,
+                 mine_collectives=coll.counts_since(before),
+                 stats={k: st[k] for k in _SLIDE_STATS if k in st})
+    if job.get("support_map"):
+        slide["support_map"] = res.support_map()
+    if job.get("cooc"):
+        slide["cooc"] = miner.cooc.copy()
+    return slide
+
+
+def _validate(miner) -> str:
+    try:
+        miner.ring.validate()
+        return "ok"
+    except RuntimeError as e:
+        return f"RuntimeError: {e}"
+
+
+def _raiser(point: str):
+    """A kill hook raising ``InjectedFault`` at the first hit of ``point``."""
+    def hook(name):
+        if name == point:
+            raise InjectedFault(point)
+    return hook
+
+
+def _any_rank(flag: int, mesh, dev) -> bool:
+    """Whether ``flag`` is set on any rank of the mesh (one all-reduce per
+    mesh axis)."""
+    t = torch.tensor([int(flag)], dtype=torch.int64,
+                     device=dev if mesh.device_type == "cuda" else "cpu")
+    for axis in mesh.mesh_dim_names:
+        coll.all_reduce(t, mesh, axis)
+    return bool(t.item())
+
+
+def _stream_ckpt(rank: _Rank, job: dict) -> dict:
+    cfg = StreamConfig(**job["config"])
+    mesh = rank.mesh(dict(job, backend=cfg.backend, shard=cfg.shard))
+    miner = StreamingMiner(job["n_items"], cfg, mesh=mesh,
+                           keep_transactions=False, device=rank.device)
+    ck = StreamCheckpointer(job["directory"], every=job.get("every", 1),
+                            keep=job.get("keep", 3))
+    kill = job.get("kill")
+    fired = False
+    try:
+        for i, batch in enumerate(rank.batches(job)):
+            if kill is not None and i == kill[1]:
+                set_kill_hook(_raiser(kill[0]))
+            fault = False
+            try:
+                miner.advance(batch)
+                if ck.maybe_save(miner, i + 1):
+                    ck.wait()
+            except InjectedFault:
+                fault = True
+            if _any_rank(fault, mesh, rank.device) if mesh is not None else fault:
+                fired = True
+                break
+    finally:
+        clear_kill_hook()
+    return dict(fired=fired, steps=valid_steps(job["directory"]))
+
+
+def _stream_restore(rank: _Rank, job: dict) -> dict:
+    cfg = job["config"]
+    mesh = rank.mesh(job)
+    dev = rank.device
+    kernels.reset_launch_counts()
+    miner, start = restore_miner(job["directory"], mesh=mesh,
+                                 backend=cfg.get("backend"),
+                                 shard=cfg.get("shard"),
+                                 keep_transactions=False, device=dev)
+    restore_launches = kernels.launch_counts()
+    ck = (StreamCheckpointer(job["checkpoint"][0], every=job["checkpoint"][1])
+          if job.get("checkpoint") else None)
+    slides = []
+    batches = rank.batches(job)
+    for i in range(start, len(batches)):
+        slides.append(_slide_record(miner, batches[i], dev, job))
+        if ck is not None and ck.maybe_save(miner, i + 1):
+            ck.wait()
+    return dict(start=start, restore_stats=dict(miner.restore_stats),
+                restore_launches=restore_launches, slides=slides,
+                validate=_validate(miner), engine=miner.engine.name,
+                mesh=mesh_descriptor(mesh))
+
+
+def _resume(rank: _Rank, job: dict) -> dict:
+    cfg = EclatConfig(**job["config"])
+    mesh = rank.mesh(dict(job, backend=cfg.backend, shard=cfg.shard))
+    dev = rank.device
+    kernels.reset_launch_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    res = resume_mine(cfg, device=dev, mesh=mesh)
+    _sync(dev)
+    st = res.stats
+    return dict(checksum=support_checksum(res.support_map()), counts=res.counts,
+                total=res.total, launches=kernels.launch_counts(),
+                wall_s=time.perf_counter() - t0, resume_k=st["resume_k"],
+                n_expands=len(st.get("pair_padding", {}).get("per_level", [])),
+                collectives=st.get("collectives"), backend=st["backend"],
+                mesh=mesh_descriptor(mesh))
+
+
 def _mesh(rank: _Rank, job: dict) -> dict:
     return dict(mesh=mesh_descriptor(rank.mesh(job)))
 
 
 _KINDS = {"mine": _mine, "expand": _expand, "accumulate": _accumulate,
-          "stream": _stream, "mesh": _mesh}
+          "stream": _stream, "stream_ckpt": _stream_ckpt,
+          "stream_restore": _stream_restore, "resume": _resume, "mesh": _mesh}
 
 
 def run_jobs(device: torch.device, jobs: Sequence[dict]) -> List[dict]:

@@ -12,7 +12,12 @@ ranks sharing one card (NCCL refuses two ranks on one card).
 ``--backend``/``--shard``/``--grid`` pick the mesh backend as in the
 reference's driver; every rank mines, and rank 0's summary is printed.
 ``--mode closed|maximal`` post-filters the mined lattice (DESIGN.md §9).
-Prints the same ``[mine] ...`` summary line as the reference package's
+``--checkpoint-dir DIR`` writes a mining checkpoint per level (the
+reference's ``mining_ckpt_k*.npz``; on a mesh rank 0 writes), and
+``--restore`` resumes the deepest one in ``DIR`` instead of mining, under
+this invocation's ``--backend``/``--shard``/``--grid``/``--ranks``, which
+may differ from the original run's (DESIGN.md §10).
+Prints the same ``[mine] ...`` summary lines as the reference package's
 driver.
 """
 from __future__ import annotations
@@ -20,8 +25,14 @@ from __future__ import annotations
 import argparse
 import time
 
-from ..core import EclatConfig, mine
+from ..core import EclatConfig, mine, resume_mine
 from ..data import PAPER_DATASETS, generate
+
+
+def _resumed(res, dt: float) -> str:
+    return (f"[mine] resumed {res.stats['resumed_from']} at level "
+            f"{res.stats['resume_k']} ({res.stats['backend']}): "
+            f"{res.total} itemsets in {dt:.2f}s levels={res.counts}")
 
 
 def _summary(name: str, args, res, dt: float, mesh) -> str:
@@ -38,18 +49,33 @@ def _config(args, spec) -> EclatConfig:
     return EclatConfig(min_sup=args.min_sup, variant=args.variant, p=args.p,
                        tri_matrix=spec.tri_matrix or None,
                        use_diffsets=args.diffsets, backend=args.backend,
-                       shard=args.shard, mode=args.mode, max_k=args.max_k)
+                       shard=args.shard, mode=args.mode, max_k=args.max_k,
+                       checkpoint_dir=args.checkpoint_dir,
+                       checkpoint_every_level=args.checkpoint_dir is not None)
 
 
-def _mine_rank(device, args) -> str:
-    """One rank of ``--ranks``: the mesh from the flags, then ``mine()``."""
-    from .mesh import mesh_for_mining
+def _run(args, device, mesh) -> str:
+    """Mine (or, with ``--restore``, resume) on ``device`` and ``mesh``;
+    returns the summary line."""
+    t0 = time.perf_counter()
+    if args.restore:
+        cfg = EclatConfig(min_sup=args.min_sup, variant=args.variant,
+                          p=args.p, backend=args.backend, shard=args.shard,
+                          mode=args.mode, checkpoint_dir=args.checkpoint_dir)
+        res = resume_mine(cfg, device=device, mesh=mesh)
+        return _resumed(res, time.perf_counter() - t0)
     txns, spec = generate(args.dataset, scale=args.scale, seed=1)
-    mesh = mesh_for_mining(args.backend, args.shard, args.grid)
     t0 = time.perf_counter()
     res = mine(txns, spec.n_items, _config(args, spec), device=device,
                mesh=mesh)
     return _summary(spec.name, args, res, time.perf_counter() - t0, mesh)
+
+
+def _mine_rank(device, args) -> str:
+    """One rank of ``--ranks``: the mesh from the flags, then the run."""
+    from .mesh import mesh_for_mining
+    return _run(args, device, mesh_for_mining(args.backend, args.shard,
+                                              args.grid))
 
 
 def main(argv=None):
@@ -90,7 +116,18 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                          "plain torch path on the host)")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="write a mining checkpoint per level into this "
+                         "directory (with --restore: read them)")
+    ap.add_argument("--restore", action="store_true",
+                    help="resume the deepest mining checkpoint in "
+                         "--checkpoint-dir instead of mining from scratch; "
+                         "--backend/--shard/--grid/--ranks select the "
+                         "*restoring* mesh, which may differ from the "
+                         "original run's (live re-meshing, DESIGN.md §10)")
     args = ap.parse_args(argv)
+    if args.restore and not args.checkpoint_dir:
+        ap.error("--restore requires --checkpoint-dir")
 
     if args.ranks is not None:
         from .mesh import run_ranks
@@ -103,10 +140,7 @@ def main(argv=None):
         return
     if args.grid is not None:
         ap.error("--grid needs a mesh: pass --ranks")
-    txns, spec = generate(args.dataset, scale=args.scale, seed=1)
-    t0 = time.perf_counter()
-    res = mine(txns, spec.n_items, _config(args, spec), device=args.device)
-    print(_summary(spec.name, args, res, time.perf_counter() - t0, None))
+    print(_run(args, args.device, None))
 
 
 if __name__ == "__main__":

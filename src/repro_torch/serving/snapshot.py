@@ -10,9 +10,10 @@ answer is stamped with the version it was computed against.
 
 The answer kernels here are the *only* implementation of top-k / support /
 rules in the package; the synchronous
-:class:`~repro_torch.serving.StreamQueryService` calls them (and so will the
-batched admission front end of ROADMAP item 8), so "batched answer ==
-direct answer at the same version" holds by construction.
+:class:`~repro_torch.serving.StreamQueryService` and the batched admission
+front end (:class:`~repro_torch.serving.ServingFrontend`) both call them, so
+"batched answer == direct answer at the same version" holds by
+construction.
 """
 from __future__ import annotations
 

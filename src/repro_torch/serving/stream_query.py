@@ -2,13 +2,11 @@
 
 ``StreamQueryService`` answers one call at a time (ingest / top_k_itemsets /
 support / rules / answer_batch) from the pieces the batched admission front
-end of the reference package also uses: immutable
+end (``admission.ServingFrontend``) also uses: immutable
 :class:`~repro_torch.serving.snapshot.WindowSnapshot` publication, the
 version-keyed :class:`~repro_torch.serving.cache.VersionedCache`, and the
 shared answer kernels — so an answer at a given ``window_version`` is the
-same whichever front end computed it (DESIGN.md §11).  The admission front
-end, the load generator and ``launch.serve --workload fim`` wait for ROADMAP
-item 8.
+same whichever front end computed it (DESIGN.md §11).
 
 Heterogeneous query batches are packed onto answer slots with the same
 greedy-LPT partitioner that packs equivalence classes onto executors and

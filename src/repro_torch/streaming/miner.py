@@ -27,8 +27,10 @@ mining uses — the frontier bitmaps never leave the device.  Results are
 bit-exact with batch ``mine()`` over the window's transactions (DESIGN.md
 §5).
 
-Not ported yet: the serializable state (``MinerState``, ``snapshot_state``,
-``from_state``) and its checkpointer wait for ROADMAP item 9.
+The whole miner serializes as a :class:`MinerState` (DESIGN.md §10): ring,
+engine accounting, the count matrix and the previous slide's frequent items,
+all logical; :meth:`StreamingMiner.from_state` rebuilds it under any mesh
+and backend, and ``streaming.persist`` writes it to disk.
 """
 from __future__ import annotations
 
@@ -47,9 +49,9 @@ from ..core.triangular import cooccurrence_counts, frequent_pairs
 from ..core.vertical import sort_items
 from ..device import DeviceLike, words_from_numpy
 from ..faults import kill_point
-from .window import WindowRing
+from .window import RingState, WindowRing
 
-__all__ = ["StreamConfig", "WindowResult", "StreamingMiner"]
+__all__ = ["StreamConfig", "WindowResult", "StreamingMiner", "MinerState"]
 
 
 @dataclasses.dataclass
@@ -79,6 +81,62 @@ _UNPORTED = {"block_w": (None, "item 6 (tile selection and dispatch)"),
              "autotune": (False, "item 6 (tile selection and dispatch)"),
              "compact": (True, "queue 3 (the port has only the compacting "
                                "engine)")}
+
+
+@dataclasses.dataclass
+class MinerState:
+    """Serializable snapshot of a :class:`StreamingMiner` (DESIGN.md §10),
+    the reference's fields and tree.
+
+    Composes the ring and engine contracts with the miner's own incremental
+    state: the co-occurrence count matrix (the host ``int64`` matrix itself,
+    never a float copy) and the previous slide's frequent items (class-churn
+    lineage).  Everything here is logical — the ring's device slice, the
+    engine's pair buffers and the mesh are derived on restore — so a
+    snapshot taken under any backend and mesh restores under any other
+    (:meth:`StreamingMiner.from_state`), bit-exact.  ``config`` holds the
+    port's backend names; ``streaming.persist`` writes the reference's.
+    """
+    n_items: int
+    config: dict                          # StreamConfig, as a plain dict
+    ring: RingState
+    engine: eng.EngineState
+    cooc: np.ndarray                      # (n_items, n_items) int64
+    prev_frequent: Optional[np.ndarray]   # last slide's frequent items
+    window_version: int = 0               # monotonic slide stamp (DESIGN.md §11)
+
+    def to_tree(self):
+        """Flat ``{path: ndarray}`` tree + JSON-able extra, ready for
+        ``training.checkpoint.save_checkpoint``; ring and engine leaves are
+        namespaced under ``ring/`` and ``engine/``."""
+        ring_tree, ring_extra = self.ring.to_tree()
+        eng_tree, eng_extra = self.engine.to_tree()
+        tree = {"cooc": np.asarray(self.cooc, np.int64)}
+        if self.prev_frequent is not None:
+            tree["prev_frequent"] = np.asarray(self.prev_frequent, np.int64)
+        tree.update({f"ring/{k}": v for k, v in ring_tree.items()})
+        tree.update({f"engine/{k}": v for k, v in eng_tree.items()})
+        extra = {"kind": "miner_state", "version": 1,
+                 "n_items": int(self.n_items), "config": dict(self.config),
+                 "has_prev_frequent": self.prev_frequent is not None,
+                 "window_version": int(self.window_version),
+                 "ring": ring_extra, "engine": eng_extra}
+        return tree, extra
+
+    @classmethod
+    def from_tree(cls, tree, extra) -> "MinerState":
+        def sub(prefix):
+            return {k[len(prefix):]: v for k, v in tree.items()
+                    if k.startswith(prefix)}
+        return cls(
+            n_items=int(extra["n_items"]), config=dict(extra["config"]),
+            ring=RingState.from_tree(sub("ring/"), extra["ring"]),
+            engine=eng.EngineState.from_tree(sub("engine/"), extra["engine"]),
+            cooc=np.asarray(tree["cooc"], np.int64),
+            prev_frequent=(np.asarray(tree["prev_frequent"], np.int64)
+                           if extra["has_prev_frequent"] else None),
+            # checkpoints from before version stamping restore at version 0
+            window_version=int(extra.get("window_version", 0)))
 
 
 @dataclasses.dataclass
@@ -133,6 +191,7 @@ class StreamingMiner:
                     f"ported yet (ROADMAP {item})")
         self.n_items = int(n_items)
         self.config = config
+        self.mesh = mesh
         # word-sharded and grid modes carry the ring itself as this rank's
         # word slice, so the window bitmap never fully lands on any one rank
         words_mode = (config.shard in ("words", "grid")
@@ -330,3 +389,58 @@ class StreamingMiner:
     def window_transactions(self) -> List[List[int]]:
         """Live window contents (for parity checks against batch mining)."""
         return self.ring.window_transactions()
+
+    # -- serializable state (DESIGN.md §10) ---------------------------------
+
+    def snapshot_state(self) -> MinerState:
+        """Deep-copied logical state of the whole miner, from host state
+        alone (the ring's host mirror, the host count matrix); safe to hand
+        to an asynchronous checkpoint writer while the stream keeps
+        sliding."""
+        return MinerState(
+            n_items=self.n_items,
+            config=dataclasses.asdict(self.config),
+            ring=self.ring.snapshot_state(),
+            engine=self.engine.snapshot_state(),
+            cooc=self.cooc.copy(),
+            prev_frequent=(None if self._prev_frequent is None
+                           else self._prev_frequent.copy()),
+            window_version=int(self.window_version))
+
+    @classmethod
+    def from_state(cls, state: MinerState, mesh=None, *,
+                   backend: Optional[str] = None,
+                   shard: Optional[str] = None,
+                   keep_transactions: Optional[bool] = None,
+                   device: DeviceLike = None) -> "StreamingMiner":
+        """Rebuild a miner from a snapshot, possibly re-meshed, on ``device``
+        (``None`` = CUDA).
+
+        ``mesh`` is whatever the restoring process brings — fewer ranks, a
+        different grid factorization, or ``None`` for one device — and
+        ``backend`` / ``shard`` override the snapshot's config for
+        cross-family moves (e.g. a ``tidsharded`` checkpoint restored as
+        plain ``fused``).  All device placement is re-derived from the
+        logical state, so the restored miner's itemsets are bit-exact with
+        the snapshot's lineage.
+        """
+        state.engine.check_portable()
+        fields = {f.name for f in dataclasses.fields(StreamConfig)}
+        cfg_kw = {k: v for k, v in dict(state.config).items() if k in fields}
+        if backend is not None:
+            cfg_kw["backend"] = backend
+        if shard is not None:
+            cfg_kw["shard"] = shard
+        cfg = StreamConfig(**cfg_kw)
+        keep = (state.ring.txns is not None if keep_transactions is None
+                else keep_transactions)
+        miner = cls(state.n_items, cfg, mesh=mesh, keep_transactions=keep,
+                    device=device)
+        miner.ring.restore_state(state.ring)
+        miner.cooc = np.array(state.cooc, np.int64, copy=True)
+        miner._prev_frequent = (None if state.prev_frequent is None
+                                else np.asarray(state.prev_frequent,
+                                                np.int64).copy())
+        miner.window_version = int(state.window_version)
+        miner.engine.restore_state(state.engine)
+        return miner

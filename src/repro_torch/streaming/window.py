@@ -27,19 +27,95 @@ n_data`` — the slice ``dist.sharding.shard_words`` cuts, replicated over any
 other mesh axis — and a push writes only the part of the block's word span
 that falls in the rank's own word range.  No rank needs another's words, so a
 push makes no collective call.
+
+The ring's serializable state (:class:`RingState`, DESIGN.md §10) is its
+logical content only — the host mirror at the logical width (``uint32``,
+as the reference writes it), per-slot transaction counts and the cursor —
+so a snapshot taken on any mesh restores on any other: the rank's device
+slice is re-cut from the host words and uploaded once.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..core import bitmap as bm
-from ..device import DeviceLike, resolve_device, words_to_numpy
+from ..device import DeviceLike, resolve_device, words_from_numpy, words_to_numpy
 from ..dist.sharding import axis_index, axis_size, padded_word_count
 
-__all__ = ["WindowRing"]
+__all__ = ["WindowRing", "RingState"]
+
+
+@dataclasses.dataclass
+class RingState:
+    """Serializable snapshot of a :class:`WindowRing` (DESIGN.md §10): the
+    reference's fields and on-disk form.
+
+    Holds *logical* content only: the host mirror at the logical word width,
+    per-slot transaction counts, and the ring cursor.  The device ring —
+    shard padding and this rank's slice included — is derived, recomputed on
+    restore from (host words, restoring mesh), which is what lets a
+    checkpoint taken on a 4-way word-sharded mesh restore onto 2 ranks, a
+    2x2 grid or a single device bit-exactly.
+    """
+    n_items: int
+    n_blocks: int
+    block_txns: int
+    words: np.ndarray                 # (n_items, n_words) uint32, logical
+    block_counts: np.ndarray          # (n_blocks,) int64
+    head: int
+    filled: int
+    n_advances: int
+    txns: Optional[List[List[List[int]]]] = None   # per slot, if kept
+
+    def to_tree(self) -> Tuple[Dict[str, np.ndarray], dict]:
+        """(array tree, JSON-able extra) for ``training.checkpoint``.  The
+        ragged per-slot transaction lists are flattened to three int64
+        vectors (slot counts / transaction lengths / item ids)."""
+        tree: Dict[str, np.ndarray] = {
+            "words": np.ascontiguousarray(self.words, dtype=np.uint32),
+            "block_counts": np.asarray(self.block_counts, np.int64),
+        }
+        if self.txns is not None:
+            tree["txn_slot_counts"] = np.asarray(
+                [len(slot) for slot in self.txns], np.int64)
+            tree["txn_lens"] = np.asarray(
+                [len(t) for slot in self.txns for t in slot], np.int64)
+            tree["txn_items"] = np.asarray(
+                [i for slot in self.txns for t in slot for i in t], np.int64)
+        extra = {"n_items": int(self.n_items),
+                 "n_blocks": int(self.n_blocks),
+                 "block_txns": int(self.block_txns),
+                 "head": int(self.head), "filled": int(self.filled),
+                 "n_advances": int(self.n_advances),
+                 "has_txns": self.txns is not None}
+        return tree, extra
+
+    @classmethod
+    def from_tree(cls, tree: Dict[str, np.ndarray], extra: dict) -> "RingState":
+        txns = None
+        if extra["has_txns"]:
+            txns = []
+            lens = iter(np.asarray(tree["txn_lens"], np.int64).tolist())
+            items = np.asarray(tree["txn_items"], np.int64).tolist()
+            pos = 0
+            for count in np.asarray(tree["txn_slot_counts"], np.int64).tolist():
+                slot = []
+                for _ in range(count):
+                    n = next(lens)
+                    slot.append(items[pos: pos + n])
+                    pos += n
+                txns.append(slot)
+        return cls(n_items=int(extra["n_items"]),
+                   n_blocks=int(extra["n_blocks"]),
+                   block_txns=int(extra["block_txns"]),
+                   words=np.asarray(tree["words"], np.uint32),
+                   block_counts=np.asarray(tree["block_counts"], np.int64),
+                   head=int(extra["head"]), filled=int(extra["filled"]),
+                   n_advances=int(extra["n_advances"]), txns=txns)
 
 
 class WindowRing:
@@ -88,6 +164,7 @@ class WindowRing:
         self.block_counts = np.zeros(self.n_blocks, np.int64)  # txns per slot
         self.head = 0            # next slot to (over)write
         self.filled = 0          # slots holding live data
+        self.n_advances = 0
         self._txns: Optional[List[List[Sequence[int]]]] = (
             [[] for _ in range(self.n_blocks)] if keep_transactions else None)
 
@@ -144,7 +221,60 @@ class WindowRing:
             self._txns[slot] = [list(t) for t in batch]
         self.head = (self.head + 1) % self.n_blocks
         self.filled = min(self.filled + 1, self.n_blocks)
+        self.n_advances += 1
         return new_block, old_block, n_evicted
+
+    # -- serializable state (DESIGN.md §10) ---------------------------------
+
+    def snapshot_state(self) -> RingState:
+        """Deep-copied logical state, from the host mirror alone (no device
+        read); safe to serialize while the ring keeps sliding."""
+        return RingState(
+            n_items=self.n_items, n_blocks=self.n_blocks,
+            block_txns=self.block_txns, words=self.words.copy(),
+            block_counts=self.block_counts.copy(), head=self.head,
+            filled=self.filled, n_advances=self.n_advances,
+            txns=([[list(t) for t in slot] for slot in self._txns]
+                  if self._txns is not None else None))
+
+    def restore_state(self, state: RingState) -> "WindowRing":
+        """Adopt a snapshot's logical content.  The device ring is re-derived:
+        this rank's word slice ``[word_lo, word_lo + local_words)`` is cut
+        from the host words (the pad words past ``n_words`` zero) and
+        uploaded in one copy, so the snapshot may come from any mesh
+        factorization, or none."""
+        if (state.n_items, state.n_blocks, state.block_txns) != \
+                (self.n_items, self.n_blocks, self.block_txns):
+            raise ValueError(
+                f"ring geometry mismatch: state has (items={state.n_items}, "
+                f"blocks={state.n_blocks}, block_txns={state.block_txns}), "
+                f"ring has ({self.n_items}, {self.n_blocks}, {self.block_txns})")
+        words = np.asarray(state.words, np.uint32)
+        if words.shape != (self.n_items, self.n_words):
+            raise ValueError(f"ring words of shape {words.shape}, expected "
+                             f"{(self.n_items, self.n_words)}")
+        self.words = words.copy()
+        self.block_counts = np.array(state.block_counts, np.int64, copy=True)
+        self.head = int(state.head)
+        self.filled = int(state.filled)
+        self.n_advances = int(state.n_advances)
+        self._txns = ([[list(t) for t in slot] for slot in state.txns]
+                      if state.txns is not None else None)
+        local = np.zeros((self.n_items, self.local_words), np.uint32)
+        n_real = max(0, min(self.local_words, self.n_words - self.word_lo))
+        local[:, :n_real] = self.words[:, self.word_lo: self.word_lo + n_real]
+        self.device = words_from_numpy(local, self.dev)
+        return self
+
+    @classmethod
+    def from_state(cls, state: RingState, mesh=None, shard_axis: str = "data",
+                   device: DeviceLike = None) -> "WindowRing":
+        """Rebuild a ring from a snapshot under a (possibly different) mesh,
+        on ``device`` (``None`` = CUDA)."""
+        ring = cls(state.n_items, state.n_blocks, state.block_txns,
+                   keep_transactions=state.txns is not None, mesh=mesh,
+                   shard_axis=shard_axis, device=device)
+        return ring.restore_state(state)
 
     # -- introspection (tests / bench comparators) --------------------------
 

@@ -296,6 +296,93 @@ def test_stream_fused_matches_ref_on_the_card(cuda):
     assert maps["fused"] == maps["ref"]
 
 
+def test_stream_restore_on_the_card_equals_the_uninterrupted_stream(cuda, tmp_path):
+    """A chess stream on the card killed at miner:pre_deep_expand, restored
+    from its last checkpoint (the ring re-uploaded from the host words) and
+    replayed across a drift: every replayed slide equals the uninterrupted
+    stream's, with K4 once per warming and twice per evicting push and K2
+    once per expansion after the restore; the ring validates."""
+    from repro_torch.data import stream_spec, transaction_stream
+    from repro_torch.faults import InjectedFault, clear_kill_hook, set_kill_hook
+    from repro_torch.streaming import (StreamCheckpointer, StreamConfig,
+                                       StreamingMiner, restore_miner)
+    n_items = stream_spec("chess").n_items
+    batches = list(transaction_stream("chess", 256, 8, seed=2, drift_every=6))
+    cfg = StreamConfig(min_sup=0.75, n_blocks=4, block_txns=256)
+    want = [r.support_map() for r in map(StreamingMiner(n_items, cfg).advance, batches)]
+    miner = StreamingMiner(n_items, cfg)
+    ck = StreamCheckpointer(str(tmp_path), every=2)
+
+    def die(name):
+        if name == "miner:pre_deep_expand":
+            raise InjectedFault(name)
+    with pytest.raises(InjectedFault):
+        try:
+            for i, batch in enumerate(batches):
+                if i == 5:
+                    set_kill_hook(die)
+                miner.advance(batch)
+                if ck.maybe_save(miner, i + 1):
+                    ck.wait()
+        finally:
+            clear_kill_hook()
+    restored, start = restore_miner(str(tmp_path))
+    assert start == 4 and restored.ring.device.is_cuda
+    restored.ring.validate()
+    for i in range(start, len(batches)):
+        kernels.reset_launch_counts()
+        restored.push(batches[i])
+        push = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        res = restored.mine_window()
+        mined = kernels.launch_counts()
+        assert res.support_map() == want[i], i
+        assert push["trimatrix"] == (1 if i < 4 else 2), push
+        assert mined["fused_intersect_compact"] == len(
+            res.stats["pair_padding"]["per_level"]) > 0, mined
+    restored.ring.validate()
+
+
+def test_serving_frontend_storm_on_the_card(cuda):
+    """ServingFrontend over a T10I4D100K window on the card: a writer thread
+    slides (launching K4 and K2 from that thread) under a query storm from
+    4 clients; verify_storm holds every answer at its version, and the
+    snapshots hold no device tensor."""
+    import threading
+    from repro_torch.data import stream_spec, transaction_stream
+    from repro_torch.serving import (AdmissionConfig, ServingFrontend,
+                                     query_mix, run_storm, verify_storm)
+    from repro_torch.streaming import StreamConfig, StreamingMiner
+    n_items = stream_spec("T10I4D100K").n_items
+    batches = list(transaction_stream("T10I4D100K", 1024, 6, seed=0))
+    miner = StreamingMiner(n_items, StreamConfig(min_sup=0.01, n_blocks=4,
+                                                 block_txns=1024),
+                           keep_transactions=False)
+    frontend = ServingFrontend(miner, AdmissionConfig(keep_versions=16))
+    try:
+        frontend.ingest(batches[0])
+        kernels.reset_launch_counts()
+        wt = threading.Thread(target=lambda: [frontend.ingest(b) for b in batches[1:]])
+        queries = query_mix(80, seed=0)
+        wt.start()
+        outcome = run_storm(frontend, queries, n_clients=4, pace_s=0.001)
+        wt.join(timeout=120)
+        assert not wt.is_alive()
+        launched = kernels.launch_counts()
+        assert launched["trimatrix"] == sum(1 if i < 4 else 2
+                                            for i in range(1, len(batches))), launched
+        assert launched["fused_intersect_compact"] > 0
+        assert outcome["errors"] == {} and not outcome["shed"]
+        ver = verify_storm(frontend, queries, outcome)
+        assert ver["verified"] == len(queries)
+        assert frontend.window_version == len(batches)
+        snap = frontend.snapshot
+        assert not any(isinstance(v, torch.Tensor)
+                       for v in (*vars(snap).values(), *snap.support_map.values()))
+    finally:
+        frontend.stop()
+
+
 def test_ring_frontier_pairs_on_the_card(cuda):
     """K2, K1 and K3 on the level-2 pairs of a T10I4D100K ring (universe
     item ids in support order over every item row, infrequent rows

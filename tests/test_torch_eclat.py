@@ -176,8 +176,19 @@ def test_default_device_is_cuda_and_never_falls_back():
 @pytest.mark.parametrize("field,value", [
     ("shard", "words"), ("block_w", 256), ("autotune", True),
     ("checkpoint_dir", "ckpt"), ("checkpoint_every_level", True)])
-def test_unported_options_raise(field, value):
+def test_unported_options_raise(field, value, tmp_path, monkeypatch):
     cfg = dataclasses.replace(EclatConfig(min_sup=20), **{field: value})
+    if field.startswith("checkpoint"):
+        # ported with resilience: alone, either field writes nothing (a
+        # checkpoint needs both), as in the reference; test_torch_lineage.py
+        # holds the checkpoints themselves
+        monkeypatch.chdir(tmp_path)
+        got = mine(DB, 10, cfg, device="cpu")
+        want = j_mine(DB, 10, dataclasses.replace(JConfig(min_sup=20),
+                                                  **{field: value}))
+        assert got.support_map() == want.support_map()
+        assert os.listdir(tmp_path) == []
+        return
     if field == "shard":
         # ported with the mesh backends: without a mesh the split has
         # nothing to split, and both packages mine on one device

@@ -126,8 +126,18 @@ def test_serve_cli_runs_on_cpu_and_prints_its_line():
 
 
 def test_serve_cli_fim_workload_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        serve_cli.main(["--workload", "fim"])
+    """Ported with the FIM front end (ROADMAP item 8): ``--workload fim``
+    serves a verified query storm under a sliding writer;
+    test_torch_serving_frontend.py holds it against the reference."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve_cli.main(["--workload", "fim", "--device", "cpu", "--n-blocks",
+                        "2", "--block-txns", "128", "--min-sup", "0.05",
+                        "--queries", "20", "--slides", "2", "--slide-gap-ms", "0"])
+    lines = buf.getvalue().splitlines()
+    assert lines[0].startswith("[serve] T10I4D100K: window=2x128 txns")
+    assert "answered 20/20 (shed 0, errors 0)" in lines[1]
+    assert "verified 20 answers bit-identical" in lines[-1]
 
 
 def test_default_device_raises_without_a_card():
