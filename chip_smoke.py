@@ -10,6 +10,10 @@ paths end to end:
 
 * the batch miner ``mine()`` on the paper's T10I4D100K and chess datasets
   at full scale, against the reference package's checksums;
+* the paper's Spark-Apriori baseline (``apriori_mine``) on the same data
+  and checksums, its containment product on the card and no kernel of the
+  package launched, timed per level beside the fused Eclat mine (the
+  paper's headline ratio on this card), and T10I4D100K through a FIMI file;
 * the same mines on meshes of ranks through ``torch.distributed``: the
   ``tidsharded`` backend on one NCCL rank in this process, then
   ``tidsharded`` 1x4, ``sharded`` 4, ``grid`` 2x2 and a v3 mine through the
@@ -37,6 +41,15 @@ paths end to end:
   and on 4 ranks; ``ServingFrontend`` under a 200-query storm while a
   writer thread slides, every answer verified, and the front end restored
   from a checkpoint answering the same storm identically;
+* tile selection and dispatch (``run_autotune``): every lanes candidate
+  of the survivor compaction (K2) and every word split of the
+  co-occurrence kernel (K4) exactly against their plain versions; the
+  ``launch.kerneltune`` sweep (each shape class's candidates timed, the
+  ref-vs-fused crossover table, tuned against default tiles); mines of
+  T10I4D100K and chess with ``autotune=True``, each ``block_w`` candidate
+  and ``backend="auto"``, and the chess stream with ``autotune=True``, on
+  the pinned checksums with the launch gates (the tuner's own launches
+  counted apart);
 * LM serving of gemma3-4b at full width and depth (bf16, random weights
   from a seeded generator): ``ServingEngine.serve`` of 8 requests, twice,
   with the flash- and decode-attention kernels' launch counts and
@@ -61,9 +74,11 @@ device, or outside a checkout of the repository, it exits non-zero at once.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -120,12 +135,6 @@ PS_SHAPES = [(4096, 3125), (393216, 100)]
 # tri-matrix item cap, chess (13 word ranges), and tile and word edges
 TRI_SHAPES = [(187, 3125), (1000, 3125), (4096, 3125), (1, 1), (33, 7),
               (37, 100), (65, 7), (129, 3125)]
-
-# H100 SXM data sheet, dense rates, at the 700 W power limit
-HBM_BYTES_PER_S = 3.35e12
-INT8_TENSOR_OPS_PER_S = 1.979e15  # two operations per multiply-add
-BF16_TENSOR_FLOPS = 9.89e14       # dense bf16, two per multiply-add
-FP32_FLOPS = 6.7e13               # float32 outside the tensor cores
 
 
 # the shape of each kernel's row in the "kernels" line: the largest call
@@ -409,6 +418,343 @@ def run_end_to_end():
                 f"{name} {variant}: ref checksum {sums['ref']} != reference {expect}")
         print(f"e2e {name} {variant}: fused == ref == reference checksum {expect}")
     return launches
+
+
+# the Apriori baseline (run_apriori): the E2E_RUNS datasets it races, by
+# name, at the same thresholds; their pinned checksums are E2E_RUNS'
+APRIORI_RUNS = ("T10I4D100K", "chess")
+
+
+def _mine_launch_gates(what, res, counts):
+    """The launches of one fused mine: K2 once per expansion, K4 once (the
+    Phase-2 counts, when the tri-matrix ran), K1 never on its own, no
+    other kernel."""
+    n_exp = len(res.stats.get("pair_padding", {}).get("per_level", []))
+    want_k4 = 1 if res.stats.get("tri_matrix") else 0
+    require(counts["fused_intersect_compact"] == n_exp > 0,
+            f"{what}: K2 launched {counts['fused_intersect_compact']} times for "
+            f"{n_exp} expansions")
+    require(counts["trimatrix"] == want_k4,
+            f"{what}: K4 launched {counts['trimatrix']} times, expected {want_k4}")
+    others = {k: v for k, v in counts.items()
+              if v and k not in ("fused_intersect_compact", "trimatrix")}
+    require(not others, f"{what}: launched {others}")
+
+
+def run_apriori(launches):
+    """The paper's Spark-Apriori baseline on the card: ``apriori_mine`` of
+    T10I4D100K 0.01 and chess 0.7 at full scale on the pinned checksums,
+    its horizontal database on the card and no kernel of the package
+    launched (its containment product is ``torch.matmul``), timed per
+    level beside the fused Eclat mine of the same data in this process: the
+    paper's headline ratio on this card.  Then T10I4D100K through a FIMI
+    file (``write_fimi``, ``load_fimi``) mined by both on the same
+    checksum."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import (EclatConfig, apriori_mine, mine,
+                                  support_checksum)
+    from repro_torch.data import load_fimi, write_fimi
+
+    pinned = {name: (min_sup, variant, expect)
+              for name, min_sup, variant, diffsets, expect in E2E_RUNS
+              if not diffsets}
+    # cuBLAS's first call is set-up, not Apriori's work
+    warm = torch.ones((64, 64), device="cuda")
+    (warm @ warm).sum().item()
+    for name in APRIORI_RUNS:
+        min_sup, variant, expect = pinned[name]
+        txns, spec = DATA[name]
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = apriori_mine(txns, spec.n_items, min_sup)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        csum = support_checksum(res.support_map)
+        require(res.stats["device"].startswith("cuda"),
+                f"apriori {name}: the horizontal database is on "
+                f"{res.stats['device']}, not the card")
+        require(not any(counts.values()),
+                f"apriori {name}: launched a kernel of the package {counts}")
+        require(csum == expect, f"apriori {name}: checksum {csum} != reference {expect}")
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ecl = mine(txns, spec.n_items, EclatConfig(min_sup=min_sup, variant=variant))
+        torch.cuda.synchronize()
+        ewall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        _mine_launch_gates(f"eclat {name}", ecl, counts)
+        for k in MINING_KERNELS:
+            launches[k] += counts[k]
+        require(support_checksum(ecl.support_map()) == expect,
+                f"eclat {name}: checksum differs from the reference")
+        levels = [round(x, 4) for x in res.stats["level_s"]]
+        print(f"e2e apriori {name} min_sup={min_sup} device={res.stats['device']}: "
+              f"levels={res.counts} total={res.total} checksum={csum} "
+              f"wall_s={wall:.4f} level_s={levels} launches=0; fused Eclat "
+              f"{variant} wall_s={ewall:.4f} phase_s="
+              f"{ {k: round(v, 4) for k, v in ecl.stats['phase_s'].items()} }; "
+              f"Apriori / Eclat = {wall / ewall:.1f}x")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fimi-")
+    try:
+        min_sup, variant, expect = pinned["T10I4D100K"]
+        path = os.path.join(tmp, "T10I4D100K.dat")
+        t0 = time.perf_counter()
+        write_fimi(path, DATA["T10I4D100K"][0])
+        txns, n_items = load_fimi(path)
+        io_s = time.perf_counter() - t0
+        sums = {"apriori": support_checksum(apriori_mine(txns, n_items, min_sup).support_map),
+                "eclat": support_checksum(mine(txns, n_items, EclatConfig(
+                    min_sup=min_sup, variant=variant)).support_map())}
+        require(sums == {"apriori": expect, "eclat": expect},
+                f"FIMI round trip of T10I4D100K: {sums} != {expect}")
+        print(f"e2e fimi T10I4D100K: write_fimi + load_fimi of {len(txns)} txns "
+              f"({os.path.getsize(path)} bytes, n_items={n_items}) in {io_s:.2f}s "
+              f"(host); apriori and fused Eclat of the file on {expect}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_autotune(launches, empty_cache):
+    """Tile selection and dispatch on the card, in a temporary directory:
+    (a) every K2 lanes candidate (8, 16, 32: 128-, 64- and 8-pair tiles)
+    exactly against the plain version at the main path's K2 shapes and at
+    edge shapes (pad tails, Q not a multiple of a tile, W % 4 != 0), both
+    front ends, all modes; every K4 split candidate exactly against the
+    plain version at the main path's K4 shapes;
+    (b) ``launch.kerneltune.sweep``: ``tune_shape`` at each shape class
+    (device ms of every candidate, the pick, the default's ms), the
+    ref-vs-fused crossover table and the mines with tuned against default
+    tiles;
+    (c) mines of T10I4D100K and chess with ``autotune=True`` (tuning the
+    misses, then again with the table warm), with each ``block_w``
+    candidate and with ``backend="auto"`` reading the sweep's table, all on
+    the pinned checksums with the launch gates (the tuner's own launches
+    counted apart, in ``autotune.launches``);
+    (d) the chess stream with ``StreamConfig(autotune=True)``, every slide
+    on ``STREAM_CHECKSUMS`` with the stream's launch gates.
+    Then the process's table is ``empty_cache`` again."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import EclatConfig, mine, support_checksum
+    from repro_torch.data import stream_spec
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels.fused_intersect import (
+        COMPACT_LANES, compact_survivors_pairs,
+        compact_survivors_ref, fused_intersect_compact_pairs,
+        fused_intersect_compact_ref)
+    from repro_torch.kernels.fused_intersect.fused_intersect import (
+        compact_shape, cuda_compact_shape)
+    from repro_torch.kernels.trimatrix import (plan_for, split_plan, trimatrix,
+                                               trimatrix_ref)
+    from repro_torch.launch import kerneltune
+    from repro_torch.launch.kerneltune import use_tables
+    from repro_torch.launch.kernel_timing import (class_pair_inputs,
+                                                  pair_inputs, tri_inputs)
+    from repro_torch.launch.stream_profile import STREAMS
+    from repro_torch.streaming import StreamConfig, StreamingMiner
+
+    kind = at.device_kind("cuda")
+    # K2's geometry: the library's Shape<G> against the binding's copy, which
+    # the cost model reads
+    for g in COMPACT_LANES:
+        for w in (100, 7):
+            lib_shape = cuda_compact_shape(g, w)
+            require(lib_shape[:5] == compact_shape(g),
+                    f"K2 at {g} lanes: the library's geometry {lib_shape[:5]}, "
+                    f"the binding's {compact_shape(g)}")
+        print(f"check K2 geometry at {g} lanes (lanes, tile pairs, pairs a "
+              f"group, in flight, blocks/SM fused, given): {lib_shape}")
+    # (a) K2: the main path's shapes with a 10% pad tail, class-ordered
+    # where the miner's are; edge shapes with random pairs
+    cases = [(f"{label}: P={p} W={w} Q={q} n_valid={q - q // 10}", p, w, q,
+              q - q // 10, "class" if "level 5" in label else "random")
+             for label, p, w, q in kerneltune.K2_SHAPES]
+    cases += [("W=7 (V=1) Q=300 n_valid=250", 40, 7, 300, 250, "random"),
+              ("Q=129 W=100 (one past a 128-pair tile)", 30, 100, 129, 129, "random"),
+              ("Q=65 W=100 (one past a 64-pair tile)", 30, 100, 65, 61, "random"),
+              ("Q=9 W=3125 (one past an 8-pair tile)", 10, 3125, 9, 9, "random"),
+              ("Q=12289 W=33 n_valid=8200 (many tiles)", 100, 33, 12289, 8200, "random"),
+              ("Q=1 W=9", 5, 9, 1, 1, "random")]
+    n_checks = 0
+    for label, p, w, q, nv, family in cases:
+        for mode in (0, 1, 2):
+            seed = p + w + q + mode
+            if family == "class":
+                bm, l, r, s, ms = class_pair_inputs(p, w, q, nv, seed)
+            else:
+                bm, l, r, s, ms = pair_inputs(p, w, q, seed=seed)
+            want = fused_intersect_compact_ref(bm, l, r, s, ms, nv, mode=mode)
+            mask = want[2].clone()
+            mask[nv:] = 1   # pad pairs flagged: the front end must clear them
+            want_given = compact_survivors_ref(bm, l, r, mask, nv, mode=mode)
+            for g in COMPACT_LANES:
+                got = fused_intersect_compact_pairs(bm, l, r, s, ms, nv, mode=mode,
+                                                    lanes=g)
+                given = compact_survivors_pairs(bm, l, r, mask.clone(), nv,
+                                                mode=mode, lanes=g)
+                torch.cuda.synchronize()
+                for a, e, what in zip(got, want, ("compact", "sup", "mask", "n_surv")):
+                    compare("fused_intersect_compact", a, e,
+                            f"K2 lanes={g} {label} mode {mode}: {what}")
+                for a, e, what in zip(given, want_given, ("compact", "mask", "n_surv")):
+                    compare("fused_intersect_compact", a, e,
+                            f"K2 given mask lanes={g} {label} mode {mode}: {what}")
+                n_checks += 2
+        print(f"check K2 lanes {list(COMPACT_LANES)} {label}: both front ends, "
+              f"modes 0-2, equal to ref (exact)")
+    # K4: every split candidate at the main path's shapes
+    for label, n, w in kerneltune.K4_SHAPES:
+        bm = tri_inputs(n, w, seed=n * 3 + w)
+        want = trimatrix_ref(bm)
+        splits = at.split_candidates(n, w, kind)
+        for sp in splits:
+            got = trimatrix(bm, plan=plan_for(w, sp))
+            torch.cuda.synchronize()
+            compare("trimatrix", got, want, f"K4 {label} ({n}, {w}) split {sp}")
+            n_checks += 1
+        print(f"check K4 {label} N={n} W={w}: splits {splits} (split_plan "
+              f"{split_plan(n, w)}) equal to ref (exact)")
+    print(f"check autotune candidates: {n_checks} kernel calls equal to their "
+          f"plain versions")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tune-")
+    cache = os.path.join(tmp, "autotune.json")
+    table = os.path.join(tmp, "BENCH_torch_kerneltune.json")
+    try:
+        # (b) the sweep
+        use_tables(cache)
+        t0 = time.perf_counter()
+        tuner_before = at.launches
+        report = kerneltune.sweep(DATA, cache, reps=20, repeats=2)
+        with open(table, "w") as f:
+            json.dump(report, f)
+        for rec in report["shapes"]:
+            cands = {c: round(v, 4) for c, v in rec["candidates"].items()}
+            print(f"tune {rec['kernel']} {rec['label']} q={rec['q']} w={rec['w']} "
+                  f"rows={rec['rows']}: device ms {cands}; pick {rec['tuned']} "
+                  f"{rec['ms']:.4f} ms, default {rec['default']} "
+                  f"{rec['default_ms']:.4f} ms, model's pick {rec['model_pick']}")
+            entry = at.load_table().entries.get(rec["key"], {})
+            require(at.KernelConfig.from_dict(entry) == at.KernelConfig(**rec["config"])
+                    and entry.get("measured_ms") == rec["ms"]
+                    and entry.get("clock") == "cuda_events",
+                    f"tune {rec['key']}: the table holds {entry}, the sweep "
+                    f"picked {rec['config']} in {rec['ms']} ms")
+        for cell in report["crossover"]:
+            print(f"crossover q={cell['q']} w={cell['w']}: expand ms "
+                  f"{ {k: round(v, 4) for k, v in cell['steady_ms'].items()} } "
+                  f"best_single={cell['best_single']} best_mesh={cell['best_mesh']}")
+        for row in report["tuned_vs_default"]:
+            print(f"tuned vs default mine {row['dataset']} {row['min_sup']} "
+                  f"{row['variant']}: wall_s default {row['default_wall_s']:.4f} "
+                  f"tuned {row['tuned_wall_s']:.4f}; bottom_up default "
+                  f"{row['default_phase_s'].get('bottom_up', 0):.4f} tuned "
+                  f"{row['tuned_phase_s'].get('bottom_up', 0):.4f}; tri_matrix "
+                  f"default {row['default_phase_s'].get('tri_matrix', 0):.4f} "
+                  f"tuned {row['tuned_phase_s'].get('tri_matrix', 0):.4f}; "
+                  f"checksum {row['checksum']} on both")
+        print(f"e2e kerneltune sweep on {report['nvidia_smi']}: "
+              f"{len(report['shapes'])} shape classes, "
+              f"{len(report['crossover'])} crossover cells in "
+              f"{time.perf_counter() - t0:.1f}s, {at.launches - tuner_before} "
+              f"tuner launches")
+
+        # (c) the mines
+        use_tables(cache, table)
+        pinned = {name: (min_sup, variant, expect)
+                  for name, min_sup, variant, diffsets, expect in E2E_RUNS
+                  if not diffsets}
+        for name in APRIORI_RUNS:
+            min_sup, variant, expect = pinned[name]
+            txns, spec = DATA[name]
+            base = EclatConfig(min_sup=min_sup, variant=variant)
+            w = mine(txns, spec.n_items, base).stats["n_words"]
+            arms = [("autotune=True (tuning the misses)", dict(autotune=True), False),
+                    ("autotune=True, table warm", dict(autotune=True), True)]
+            arms += [(f"block_w={bw}", dict(block_w=bw), True)
+                     for bw in at.kernel_block_ws(w)]
+            arms += [("backend=auto", dict(backend="auto"), True)]
+            for label, kw, gated in arms:
+                cfg = dataclasses.replace(base, **kw)
+                tuner_before = at.launches
+                kernels.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = mine(txns, spec.n_items, cfg)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = kernels.launch_counts()
+                csum = support_checksum(res.support_map())
+                tuned = at.launches - tuner_before
+                require(csum == expect, f"{name} {label}: checksum {csum} != {expect}")
+                if gated:
+                    require(tuned == 0, f"{name} {label}: tuned with a warm table")
+                # every arm runs the kernels: on the card auto never picks ref
+                require(res.stats["backend"] == "fused",
+                        f"{name} {label}: backend {res.stats['backend']}, not fused")
+                _mine_launch_gates(f"{name} {label}", res, counts)
+                for k in MINING_KERNELS:
+                    launches[k] += counts[k]
+                if kw.get("backend") == "auto":
+                    require(res.stats["dispatch"]["policy"] == table,
+                            f"{name} {label}: dispatch {res.stats['dispatch']}")
+                print(f"e2e mine {name} min_sup={min_sup} {variant} {label}: "
+                      f"backend={res.stats['backend']} checksum={csum} "
+                      f"wall_s={wall:.4f} launches="
+                      f"{ {k: v for k, v in counts.items() if v} } tuner launches "
+                      f"{tuned}")
+
+        # (d) the autotuned chess stream
+        name, n_blocks, block_txns, min_sup, n_batches, drift = next(
+            st for st in STREAMS if st[0] == "chess")
+        miner = StreamingMiner(stream_spec(name).n_items,
+                               StreamConfig(min_sup=min_sup, n_blocks=n_blocks,
+                                            block_txns=block_txns, autotune=True))
+        tuner_before = at.launches
+        slides = []
+        for i, batch in enumerate(STREAM_BATCHES[name]):
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            miner.push(batch)
+            torch.cuda.synchronize()
+            push_s = time.perf_counter() - t0
+            push_l = kernels.launch_counts()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = miner.mine_window()
+            torch.cuda.synchronize()
+            slide_s = push_s + time.perf_counter() - t0
+            mine_l = kernels.launch_counts()
+            n_exp = len(res.stats.get("pair_padding", {}).get("per_level", []))
+            level2 = res.counts[1] if len(res.counts) > 1 else 0
+            _stream_slide_checks(f"autotuned stream {name}", i, n_blocks, push_l,
+                                 mine_l, n_exp, level2)
+            for k in launches:
+                launches[k] += push_l[k] + mine_l[k]
+            csum = support_checksum(res.support_map())
+            require(csum == STREAM_CHECKSUMS[name][i],
+                    f"autotuned stream {name} slide {i}: checksum {csum} != "
+                    f"reference {STREAM_CHECKSUMS[name][i]}")
+            slides.append(slide_s)
+        entry = at.load_table().get(at.shape_class("trimatrix", 75, 16, 0, kind))
+        print(f"e2e stream {name} autotune=True: {len(slides)} slides on the "
+              f"pinned checksums with the launch gates; slide_s first "
+              f"{slides[0]:.4f} (tuning), median of the rest "
+              f"{sorted(slides[1:])[len(slides[1:]) // 2]:.4f}; "
+              f"{at.launches - tuner_before} tuner launches; K4 (75, 16) split "
+              f"{entry.split if entry else None}")
+    finally:
+        use_tables(empty_cache)
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def check_partial_kernel():
@@ -745,7 +1091,8 @@ def run_streams(launches):
             ring = miner.ring.device
             seen = {}
 
-            def spy(bitmaps, left, right, sup_left, min_sup_, n_valid, *, mode):
+            def spy(bitmaps, left, right, sup_left, min_sup_, n_valid, *, mode,
+                    **tile):
                 # the level-2 expansion runs over the ring itself
                 if (bitmaps.data_ptr() == ring.data_ptr() and
                         (not seen or left.shape[0] > seen["left"].shape[0])):
@@ -753,7 +1100,7 @@ def run_streams(launches):
                                 right=right.clone(), sup_left=sup_left.clone(),
                                 min_sup=int(min_sup_), n_valid=int(n_valid))
                 return original(bitmaps, left, right, sup_left, min_sup_,
-                                n_valid, mode=mode)
+                                n_valid, mode=mode, **tile)
 
             FusedEngine._intersect_compact = staticmethod(spy)
             try:
@@ -1380,9 +1727,11 @@ def bound(nbytes, products):
     one-bit multiply-adds, and which of the two bounds it.  The fastest
     route the card has for bit products is the dense int8 tensor-core
     product of the 0/1 indicator; the packed kernels use the popcount pipe,
-    which is slower, so this bound is below what they can reach."""
-    t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = 2 * products / INT8_TENSOR_OPS_PER_S * 1e3
+    which is slower, so this bound is below what they can reach.  Rates:
+    ``repro_torch.analysis.roofline`` (H100 SXM data sheet, dense, 700 W)."""
+    from repro_torch.analysis import roofline as rl
+    t_b = nbytes / rl.HBM_BYTES_PER_S * 1e3
+    t_o = 2 * products / rl.INT8_TENSOR_OPS_PER_S * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -1407,9 +1756,10 @@ def time_kernels(launches, miner, stream_rec):
         PAIR_SHAPES, SLIDE_SHAPES, TRI_TIMED_SHAPES, device_ms, median_ms,
         pair_inputs, rank0_slice, split_sweep, tri_inputs, unpacked_indicator)
 
+    from repro_torch.analysis import roofline as rl
     print(f"timing peaks (H100 SXM data sheet, dense, 700 W): HBM "
-          f"{HBM_BYTES_PER_S:.3e} B/s; int8 tensor cores "
-          f"{INT8_TENSOR_OPS_PER_S:.3e} op/s, two per one-bit product")
+          f"{rl.HBM_BYTES_PER_S:.3e} B/s; int8 tensor cores "
+          f"{rl.INT8_TENSOR_OPS_PER_S:.3e} op/s, two per one-bit product")
 
     def timed(fn, ref, lib=None, plain_reps=20, plain_warmup=3):
         # library_ms stays what earlier runs reported: CUDA events around
@@ -1966,12 +2316,14 @@ def _cast(tree, dtype):
     return tree.to(dtype)
 
 
-def bound_attn(nbytes, flops, rate=BF16_TENSOR_FLOPS):
+def bound_attn(nbytes, flops, rate=None):
     """Least time in ms for work that moves ``nbytes`` and does ``flops``
     operations (two per multiply-add) at ``rate``: the dense bf16
-    tensor-core rate for bf16 inputs, the float32 rate for float32."""
-    t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = flops / rate * 1e3
+    tensor-core rate for bf16 inputs (the default), the float32 rate for
+    float32."""
+    from repro_torch.analysis import roofline as rl
+    t_b = nbytes / rl.HBM_BYTES_PER_S * 1e3
+    t_o = flops / (rl.BF16_TENSOR_FLOPS if rate is None else rate) * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -1982,6 +2334,7 @@ def time_attention(counts):
                                                       grouped_decode_attention)
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      multi_head_attention)
+    from repro_torch.analysis import roofline as rl
     from repro_torch.launch.kernel_timing import device_ms, median_ms
 
     def timed(kernel, plain, library, reps=20, plain_reps=20):
@@ -2033,7 +2386,7 @@ def time_attention(counts):
             err = float((lib32() - fn32()).abs().max())
             require(err <= SDPA_TOL,
                     f"SDPA yardstick disagrees with flash_attention float32: {err:.3e}")
-            bms32, by32 = bound_attn(2 * nbytes, 4 * d * kept * b * h, FP32_FLOPS)
+            bms32, by32 = bound_attn(2 * nbytes, 4 * d * kept * b * h, rl.FP32_FLOPS)
             rows.append(dict(name="flash_attention_f32", route="cuda",
                              source="src/repro_torch/csrc/flash_attention.cu",
                              replaces="src/repro/kernels/flash_attention/flash_attention.py:110",
@@ -2132,15 +2485,24 @@ def main() -> int:
         print(f"phase {fn.__name__}: {time.perf_counter() - t:.1f}s")
         return out
 
+    # the autotune cache of this run: empty (the kernels' rules) but while
+    # run_autotune points it elsewhere; nothing is read from or written to
+    # the user's own cache
+    from repro_torch.launch.kerneltune import use_tables
+    empty_cache = os.path.join(tempfile.mkdtemp(prefix="chip_smoke-"), "autotune.json")
+    use_tables(empty_cache)
+
     phase(check_pair_kernels)
     phase(check_trimatrix)
     phase(check_partial_kernel)
     phase(check_popcount_support)
     launches = phase(run_end_to_end)
+    phase(run_apriori, launches)
     launches["fused_intersect_partial"] = phase(run_mesh_mines, DATA)
     launches["popcount_support"] = 0
     stream_rec, _ = phase(run_streams, launches)
     phase(run_resilience, launches)
+    phase(run_autotune, launches, empty_cache)
     phase(check_stream_pairs, stream_rec)
     miner = phase(check_miner_pairs)
     phase(check_flash_attention)

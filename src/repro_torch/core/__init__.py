@@ -2,6 +2,7 @@
 
 Public surface:
   mine / EclatConfig / EclatResult      level-wise RDD-Eclat, variants v1..v6
+  apriori_mine / AprioriResult          the paper's Spark-Apriori baseline
   resume_mine, recover_partition        resume from per-level checkpoints;
                                         lineage replay of one partition
   make_engine / available_backends      the ``fused`` and ``ref`` executors and
@@ -13,6 +14,7 @@ Public surface:
   generate_rules, support_checksum      ARM step 2; digest of a result
 """
 from .accumulator import HostAccumulator, build_vertical_accumulated
+from .apriori import AprioriResult, apriori_mine
 from .eclat import (VARIANTS, EclatConfig, EclatResult, mine, resolve_min_sup,
                     resume_mine)
 from .engine import Engine, LevelResult, available_backends, make_engine
@@ -28,6 +30,7 @@ from .vertical import VerticalDB, build_vertical, filter_transactions
 
 __all__ = [
     "HostAccumulator", "build_vertical_accumulated",
+    "AprioriResult", "apriori_mine",
     "VARIANTS", "EclatConfig", "EclatResult", "mine", "resolve_min_sup",
     "resume_mine", "recover_partition", "save_mining_checkpoint",
     "load_mining_checkpoint", "latest_mining_checkpoint",

@@ -23,8 +23,10 @@ down is checkpointed (``core.lineage``, the reference's ``.npz`` files),
 and :func:`resume_mine` continues a run from its deepest checkpoint, on any
 backend and mesh.
 
-Not ported yet, and refused with ``NotImplementedError`` when asked for:
-``backend="auto"``, ``autotune`` and ``block_w``.
+``backend="auto"`` picks the backend from the measured crossover table
+(``core.engine.DispatchPolicy``) for the level-2 shape; ``block_w`` names
+K2's word tile and ``autotune`` tunes the kernels' tiles on a miss
+(``kernels.autotune``).
 """
 from __future__ import annotations
 
@@ -101,7 +103,7 @@ class EclatConfig:
     tri_matrix: Optional[bool] = None   # None = auto (paper's triMatrixMode)
     tri_matrix_max_items: int = 4096    # auto threshold (paper: item-id range)
     use_diffsets: bool = False          # v6 only (dEclat); other variants reject it
-    backend: str = "fused"              # fused (CUDA kernels) | ref (plain torch) | sharded | tidsharded | grid
+    backend: str = "fused"              # fused (CUDA kernels) | ref (plain torch) | sharded | tidsharded | grid | auto (measured dispatch; "batched" = alias of the default)
     shard: str = "pairs"                # mesh split: "pairs" (frontier replicated) | "words" (tid axis) | "grid" (pairs x words 2D mesh)
     mode: str = "all"                   # workload: all | closed | maximal (DESIGN.md §9)
     max_k: Optional[int] = None         # deepest itemset length to mine (>= 1); None = unbounded
@@ -109,15 +111,11 @@ class EclatConfig:
     chunk_pairs: int = 1 << 18          # level-2 chunking when tri-matrix off
     checkpoint_dir: Optional[str] = None      # per-level mining checkpoints (lead rank writes)
     checkpoint_every_level: bool = False
-    # not ported yet: any value but these defaults raises NotImplementedError
-    block_w: Optional[int] = None
-    autotune: bool = False
+    block_w: Optional[int] = None       # K2's word tile (kernels.autotune.kernel_block_ws); None = autotune table, else the kernel's rule
+    autotune: bool = False              # tune on a miss: measure a shape class's tiles before its first launch
 
     def resolve_min_sup(self, n_txn: int) -> int:
         return resolve_min_sup(self.min_sup, n_txn)
-
-
-_UNPORTED_DEFAULTS = dict(block_w=None, autotune=False)
 
 
 @dataclasses.dataclass
@@ -243,11 +241,6 @@ def _check_config(config: EclatConfig) -> None:
     if config.variant not in VARIANTS:
         raise ValueError(f"unknown variant {config.variant!r}; "
                          f"expected one of {sorted(VARIANTS)}")
-    for field, default in _UNPORTED_DEFAULTS.items():
-        if getattr(config, field) != default:
-            raise NotImplementedError(
-                f"EclatConfig.{field}={getattr(config, field)!r} is not "
-                f"ported yet (single-device batch mining only)")
     if config.use_diffsets and config.variant != "v6":
         # every variant but v6 mines tidsets; silently dropping the flag
         # would hand back correct-looking results from a different algorithm
@@ -306,11 +299,17 @@ def mine(
     est = pair_work(sizes1 + 1, w)  # +1: member count of class r is n1-1-r
     eff_p = config.p if spec["partitioner"] in ("hash", "reverse_hash", "greedy") else max(n_classes, 1)
     table = assign_partitions(n_classes, spec["partitioner"], eff_p, work=est)
+    # dispatch hints for backend="auto": the dominant expansion is level 2,
+    # all pairs of the n1 frequent items over w words (the reference's)
+    est_q2 = n1 * (n1 - 1) // 2
     execu = eng.resolve_engine(config.backend, mesh,
                                bucket_min=config.bucket_min,
-                               shard=config.shard)
+                               shard=config.shard, block_w=config.block_w,
+                               autotune=config.autotune,
+                               hints=(max(est_q2, 1), max(w, 1)), device=dev)
     stats["backend"] = execu.name
     stats["backend_requested"] = config.backend
+    stats["dispatch"] = execu.dispatch
     # partition -> rank round robin (the mesh backends' pair axis)
     part_to_dev = np.arange(eff_p, dtype=np.int64) % max(execu.n_devices, 1)
 
@@ -355,7 +354,8 @@ def mine(
     mode2 = eng.MODE_TID_TO_DIFF if diffsets else eng.MODE_TIDSET
     if tri:
         # the counts of the whole level-1 frontier, which every rank holds
-        counts2 = cooccurrence_counts(full, backend=getattr(execu, "inner", execu.name))
+        execu.tune_cooccurrence(full)
+        counts2 = cooccurrence_counts(full, backend=execu.executor)
         iu, ju, _ = frequent_pairs(counts2, abs_min_sup)
         # materialize bitmaps only for the survivors; every pre-filtered pair
         # must pass the engine's threshold again
@@ -508,7 +508,8 @@ def resume_mine(config: EclatConfig, device: DeviceLike = None,
 
     execu = eng.resolve_engine(config.backend, mesh,
                                bucket_min=config.bucket_min,
-                               shard=config.shard)
+                               shard=config.shard, block_w=config.block_w,
+                               autotune=config.autotune, device=dev)
     stats["backend"] = execu.name
     stats["backend_requested"] = config.backend
     part_to_dev = np.arange(eff_p, dtype=np.int64) % max(execu.n_devices, 1)

@@ -47,6 +47,14 @@ frontiers that :meth:`prepare_frontier` or :meth:`adopt_frontier` (a slice
 cut elsewhere, such as the streaming miner's ring) or an earlier expand
 produced.
 
+Tile selection and dispatch (DESIGN.md §6): ``block_w`` names K2's word
+tile (``kernels.autotune``: the words one pair's lanes cover per step;
+``None`` = the autotune table's pick, else the kernel's rule), and
+``autotune`` measures a shape class's tiles on the card before its first
+launch (tune on a miss).  ``resolve_engine("auto", hints=...)`` picks the
+backend from the crossover table ``launch.kerneltune`` measured
+(:class:`DispatchPolicy`).
+
 Pair batches are padded up to a half-power-of-two ladder
 (``bucket_min`` x {1, 1.5, 2, 3, 4, 6, ...}), which caps padding waste at
 ~33% and keeps the set of batch shapes small; survivor blocks are padded the
@@ -56,6 +64,8 @@ same way from the ``compact_min`` floor.  The ladder, the padding rows and
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Dict, List, Optional, Tuple, Type
 
 import numpy as np
@@ -65,6 +75,7 @@ from ..device import words_to_numpy
 from ..dist import collectives as coll
 from ..dist.sharding import (axis_index, axis_size, mesh_descriptor,
                              padded_word_count, shard_words)
+from ..kernels import autotune as at
 from ..kernels.fused_intersect import (MODE_DIFFSET, MODE_TID_TO_DIFF,
                                        MODE_TIDSET, compact_survivors,
                                        compact_survivors_ref,
@@ -80,12 +91,13 @@ __all__ = [
     "TidShardedEngine", "GridShardedEngine", "BACKENDS",
     "available_backends", "make_engine", "resolve_engine", "bucket_size",
     "PairBuffers", "group_pairs_by_device", "engine_from_state",
+    "DispatchPolicy", "KERNELTUNE_ENV", "PORT_BLOCK_WS",
 ]
 
-# backends of the reference package that this port does not have yet
-UNPORTED_BACKENDS = ("auto", "batched")
 MESH_BACKENDS = ("sharded", "tidsharded", "grid")
 INNER = ("ref", "fused")
+# every word tile K2 has, for rows of 16-byte and of 4-byte elements
+PORT_BLOCK_WS = sorted(set(at.kernel_block_ws(4)) | set(at.kernel_block_ws(1)))
 
 
 @dataclasses.dataclass
@@ -119,9 +131,10 @@ class EngineState:
     the mesh the snapshot ran on; it is reported, never restored from.
 
     ``block_w``, ``autotune``, ``compact`` and ``interpret`` are the
-    reference's kernel knobs; the port's engines hold them at ``None``,
-    ``False``, ``True`` and ``None``, and a state with any other value is
-    refused on restore (:meth:`check_portable`).
+    reference's kernel knobs.  The port's engines carry ``block_w`` (one of
+    K2's word tiles, :data:`PORT_BLOCK_WS`) and ``autotune``, and hold
+    ``compact`` at True and ``interpret`` at None; a state the port cannot
+    run as recorded is refused on restore (:meth:`check_portable`).
     """
     backend: str
     inner: str
@@ -177,18 +190,22 @@ class EngineState:
 
     def check_portable(self) -> None:
         """Refuse, by field, a state this port cannot run as recorded: the
-        port has only the compacting engine (ROADMAP queue 3) and no tile
-        selection yet (item 6)."""
+        port has only the compacting engine (ROADMAP queue 3), and its
+        ``block_w`` names one of K2's word tiles, not a Pallas tile width."""
         if not self.compact:
             raise ValueError(
                 "EngineState.compact=False: the state was taken on the "
                 "reference's non-compacting executor, and the port has only "
                 "the compacting engine (ROADMAP queue 3)")
-        for field, default, item in (("block_w", None, 6), ("autotune", False, 6)):
-            if getattr(self, field) != default:
-                raise NotImplementedError(
-                    f"EngineState.{field}={getattr(self, field)!r} is not "
-                    f"ported yet (ROADMAP item {item})")
+        _check_block_w(self.block_w, "EngineState.block_w")
+
+
+def _check_block_w(block_w, what: str) -> None:
+    if block_w is not None and int(block_w) not in PORT_BLOCK_WS:
+        raise ValueError(
+            f"{what}={block_w!r} is not a word tile of the port's fused "
+            f"kernel; its tiles are {PORT_BLOCK_WS} (the words a pair's lanes "
+            f"cover a step; which of them a row takes depends on its width)")
 
 
 def bucket_size(n: int, floor: int) -> int:
@@ -284,16 +301,33 @@ class Engine:
     survivor counts collapse at deep levels.  ``n_devices`` is the width of
     the pair axis that ``device_of_pair`` routes over (1 but for the
     pair-distributing mesh backends).
+
+    Kernel knobs, shared by every backend (``EclatConfig`` /
+    ``StreamConfig`` thread them through :func:`resolve_engine`):
+
+    ``block_w``   K2's word tile (``kernels.autotune.kernel_block_ws`` of the
+                  frontier's width; another value raises ``ValueError`` at
+                  the first expansion); ``None`` = the autotune table's pick
+                  for the shape, else the kernel's rule.
+    ``autotune``  tune on a miss: before the first launch of a shape class
+                  the table has no entry for, time its tiles and store the
+                  winner (:meth:`_maybe_tune`, :meth:`tune_cooccurrence`).
+                  Only an engine whose executor is ``fused`` tunes, and an
+                  explicit ``block_w`` overrides K2's table.
     """
 
     name = "abstract"
     n_devices = 1
 
     def __init__(self, bucket_min: int = 128, *,
-                 compact_min: int | None = None):
+                 compact_min: int | None = None,
+                 block_w: Optional[int] = None, autotune: bool = False):
+        _check_block_w(block_w, "block_w")
         self.buffers = PairBuffers(bucket_min)
         self.compact_min = (min(self.buffers.floor, 128)
                             if compact_min is None else max(int(compact_min), 1))
+        self.block_w = None if block_w is None else int(block_w)
+        self.autotune = bool(autotune)
         self.n_intersections = 0
         self.n_padded = 0
         self.level_padding: List[Tuple[int, int]] = []
@@ -302,8 +336,42 @@ class Engine:
     # the device function a backend supplies
     @staticmethod
     def _intersect_compact(bitmaps, left, right, sup_left, min_sup, n_valid,
-                           *, mode):
+                           *, mode, lanes=None):
         raise NotImplementedError
+
+    @property
+    def executor(self) -> str:
+        """The single-device executor that runs the kernels: ``fused`` or
+        ``ref`` (a mesh backend's inner one)."""
+        return getattr(self, "inner", self.name)
+
+    def _lanes(self, w: int) -> Optional[int]:
+        """K2's lanes per pair for ``w``-word rows: ``block_w``'s, or None
+        (the table's pick, else the rule)."""
+        return None if self.block_w is None else at.lanes_for_block_w(w, self.block_w)
+
+    def _maybe_tune(self, bitmaps: torch.Tensor, q: int, mode: int) -> None:
+        """Tune on a miss: time K2's tiles for ``q`` pairs over a frontier
+        of the shape of ``bitmaps`` before the shape class's first launch,
+        so the launch's table lookup hits.  No-op unless ``autotune`` is
+        on, no explicit ``block_w`` overrides it and the executor is
+        ``fused``."""
+        if not self.autotune or self.block_w is not None or self.executor != "fused":
+            return
+        p, w = bitmaps.shape
+        if at.table_config("compact", q, w, mode, bitmaps.device) is None:
+            at.tune_shape("compact", q, w, mode, device=bitmaps.device,
+                          rows=p, reps=10)
+
+    def tune_cooccurrence(self, bitmaps: torch.Tensor) -> None:
+        """Tune on a miss for the co-occurrence kernel (K4) at the shape of
+        ``bitmaps``, before the miner counts it; the same conditions as
+        :meth:`_maybe_tune`."""
+        if not self.autotune or self.executor != "fused":
+            return
+        n, w = bitmaps.shape
+        if n and at.table_config("trimatrix", n, w, 0, bitmaps.device) is None:
+            at.tune_shape("trimatrix", n, w, device=bitmaps.device, reps=10)
 
     def _record_padding(self, q: int, padded: int) -> None:
         self.n_padded += padded - q
@@ -346,12 +414,16 @@ class Engine:
         if q == 0:
             return self._empty(bitmaps)
         self._check_pairs(bitmaps, left, right)
+        w = int(bitmaps.shape[1])
+        lanes = self._lanes(w)
         self.n_intersections += q
         qb, block = self.buffers.fill(left, right, sup_left)
         self._record_padding(q, qb)
+        self._maybe_tune(bitmaps, qb, mode)
         lrs = torch.from_numpy(block).to(bitmaps.device)
         out, sup, mask_dev, _ = self._intersect_compact(
-            bitmaps, lrs[0], lrs[1], lrs[2], int(min_sup), q, mode=mode)
+            bitmaps, lrs[0], lrs[1], lrs[2], int(min_sup), q, mode=mode,
+            lanes=lanes)
         host = torch.stack((mask_dev[:q], sup[:q])).cpu().numpy()
         mask = host[0].astype(bool)
         return LevelResult(mask=mask,
@@ -392,7 +464,8 @@ class Engine:
             inner=getattr(self, "inner",
                           self.name if self.name in INNER else "fused"),
             bucket_min=self.buffers.floor, compact_min=self.compact_min,
-            block_w=None, compact=True, autotune=False, interpret=None,
+            block_w=self.block_w, compact=True, autotune=self.autotune,
+            interpret=None,
             mesh=mesh_descriptor(getattr(self, "mesh", None)),
             n_intersections=self.n_intersections, n_padded=self.n_padded,
             level_padding=[(int(a), int(b)) for a, b in self.level_padding],
@@ -485,8 +558,8 @@ class _MeshEngine(Engine):
     survivor assembly of the pair-distributing backends."""
 
     def __init__(self, mesh, bucket_min: int = 128, *, inner: str = "fused",
-                 compact_min: int | None = None):
-        super().__init__(bucket_min, compact_min=compact_min)
+                 compact_min: int | None = None, **knobs):
+        super().__init__(bucket_min, compact_min=compact_min, **knobs)
         if inner not in INNER:
             raise ValueError(f"unknown inner executor {inner!r}")
         self.mesh = mesh
@@ -532,8 +605,10 @@ class ShardedEngine(_MeshEngine):
     name = "sharded"
 
     def __init__(self, mesh, bucket_min: int = 128, axis: str = "data",
-                 inner: str = "fused", *, compact_min: int | None = None):
-        super().__init__(mesh, bucket_min, inner=inner, compact_min=compact_min)
+                 inner: str = "fused", *, compact_min: int | None = None,
+                 **knobs):
+        super().__init__(mesh, bucket_min, inner=inner, compact_min=compact_min,
+                         **knobs)
         self.axis = axis
         self.n_devices = axis_size(mesh, axis)
         self.rank = axis_index(mesh, axis)
@@ -550,10 +625,13 @@ class ShardedEngine(_MeshEngine):
         self.n_intersections += q
         self.device_pair_counts.append(counts)
         self._record_padding(q, d * qmax)
+        w = int(bitmaps.shape[1])
+        lanes = self._lanes(w)
+        self._maybe_tune(bitmaps, qmax, mode)
         lrs = torch.from_numpy(np.stack((lpad[r], rpad[r], spad[r]))).to(bitmaps.device)
         out, sup, _, _ = self._compact_block(bitmaps, lrs[0], lrs[1], lrs[2],
                                              int(min_sup), int(counts[r]),
-                                             mode=mode)
+                                             mode=mode, lanes=lanes)
         sups = coll.all_gather(sup, self.mesh, self.axis).cpu().numpy()
         return self._assemble(sups, out, counts, slot_of_pair, min_sup, self.axis)
 
@@ -616,12 +694,15 @@ class _WordShardedFrontierMixin:
         the data axis, then support, threshold and the compaction of this
         slice's survivor rows: ``(compact, sup, mask)``."""
         l, r, s = lrs
+        w = int(bitmaps.shape[1])
+        lanes = self._lanes(w)
+        self._maybe_tune(bitmaps, int(l.shape[0]), mode)
         _, pop = self._partial(bitmaps, l, r, mode=mode, store=False)
         total = coll.all_reduce(pop, self.mesh, self.data_axis)
         sup = total if mode == MODE_TIDSET else s - total
         mask = (sup >= int(min_sup)).to(torch.int32)
         out, mask, _ = self._compact_rows(bitmaps, l, r, mask, int(n_valid),
-                                          mode=mode)
+                                          mode=mode, lanes=lanes)
         return out, sup, mask
 
 
@@ -636,8 +717,10 @@ class TidShardedEngine(_WordShardedFrontierMixin, _MeshEngine):
     name = "tidsharded"
 
     def __init__(self, mesh, bucket_min: int = 128, axis: str = "data",
-                 inner: str = "fused", *, compact_min: int | None = None):
-        super().__init__(mesh, bucket_min, inner=inner, compact_min=compact_min)
+                 inner: str = "fused", *, compact_min: int | None = None,
+                 **knobs):
+        super().__init__(mesh, bucket_min, inner=inner, compact_min=compact_min,
+                         **knobs)
         self._init_word_axis(axis)
 
     def stats(self, since=None) -> dict:
@@ -679,7 +762,7 @@ class GridShardedEngine(_WordShardedFrontierMixin, _MeshEngine):
 
     def __init__(self, mesh, bucket_min: int = 128, class_axis: str = "class",
                  data_axis: str = "data", inner: str = "fused", *,
-                 compact_min: int | None = None):
+                 compact_min: int | None = None, **knobs):
         names = tuple(mesh.mesh_dim_names or ())
         missing = [a for a in (class_axis, data_axis) if a not in names]
         if missing:
@@ -687,7 +770,8 @@ class GridShardedEngine(_WordShardedFrontierMixin, _MeshEngine):
                 f"grid backend needs a 2D ({class_axis!r}, {data_axis!r}) "
                 f"mesh (launch.mesh.make_grid_mesh); this mesh has axes "
                 f"{names}")
-        super().__init__(mesh, bucket_min, inner=inner, compact_min=compact_min)
+        super().__init__(mesh, bucket_min, inner=inner, compact_min=compact_min,
+                         **knobs)
         self._init_word_axis(data_axis)
         self.class_axis = class_axis
         self.n_class = axis_size(mesh, class_axis)
@@ -734,22 +818,23 @@ def available_backends() -> List[str]:
 
 
 def make_engine(backend: str, *, mesh=None, bucket_min: int = 128,
-                inner: str = "fused") -> Engine:
+                inner: str = "fused", block_w: Optional[int] = None,
+                autotune: bool = False) -> Engine:
     """Construct a backend by name; the mesh backends need a mesh (``grid``
-    a 2D ``("class", "data")`` one) and run ``inner`` on each rank."""
-    if backend in UNPORTED_BACKENDS:
-        raise NotImplementedError(
-            f"engine backend {backend!r} is not ported yet; "
-            f"available: {available_backends()}")
+    a 2D ``("class", "data")`` one) and run ``inner`` on each rank.
+    ``block_w`` / ``autotune`` are the kernel knobs every backend takes
+    (:class:`Engine`).  ``auto`` and ``batched`` are names of
+    :func:`resolve_engine`, not backends, as in the reference."""
     cls = BACKENDS.get(backend)
     if cls is None:
         raise ValueError(f"unknown engine backend {backend!r}; "
                          f"available: {available_backends()}")
+    knobs = dict(block_w=block_w, autotune=autotune)
     if backend in MESH_BACKENDS:
         if mesh is None:
             raise ValueError(f"{backend} backend requires a mesh")
-        return cls(mesh, bucket_min, inner=inner)
-    return cls(bucket_min)
+        return cls(mesh, bucket_min, inner=inner, **knobs)
+    return cls(bucket_min, **knobs)
 
 
 def engine_from_state(state: EngineState, mesh=None, *,
@@ -761,20 +846,109 @@ def engine_from_state(state: EngineState, mesh=None, *,
     against ``mesh`` (whatever factorization the restoring process brings),
     and a mesh backend's state with ``mesh=None`` falls back to its inner
     executor on one device.  ``backend`` overrides the target outright
-    (a cross-family move, e.g. ``sharded`` -> ``tidsharded``)."""
+    (a cross-family move, e.g. ``sharded`` -> ``tidsharded``).  The state's
+    ``block_w`` and ``autotune`` carry over."""
     state.check_portable()
     target = state.backend if backend is None else backend
     if target in MESH_BACKENDS and mesh is None:
         target = state.inner if state.inner in INNER else "fused"
     eng = make_engine(target, mesh=mesh if target in MESH_BACKENDS else None,
                       bucket_min=state.bucket_min,
-                      inner=state.inner if state.inner in INNER else "fused")
+                      inner=state.inner if state.inner in INNER else "fused",
+                      block_w=state.block_w, autotune=state.autotune)
     eng.compact_min = int(state.compact_min)
     return eng.restore_state(state)
 
 
+# the crossover table launch.kerneltune measures: REPRO_TORCH_KERNELTUNE_TABLE,
+# else BENCH_torch_kerneltune.json in the working directory, then at the
+# repository's root (never the reference's REPRO_KERNELTUNE_TABLE or
+# BENCH_kerneltune.json, whose cells are another package's backends on the CPU)
+KERNELTUNE_ENV = "REPRO_TORCH_KERNELTUNE_TABLE"
+KERNELTUNE_FILE = "BENCH_torch_kerneltune.json"
+
+
+def _default_policy_paths() -> List[str]:
+    paths = []
+    env = os.environ.get(KERNELTUNE_ENV)
+    if env:
+        paths.append(env)
+    paths.append(os.path.join(os.getcwd(), KERNELTUNE_FILE))
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__)))))
+    paths.append(os.path.join(root, KERNELTUNE_FILE))
+    return paths
+
+
+class DispatchPolicy:
+    """Backend choice from measured crossovers (the reference's class).
+
+    ``launch.kerneltune`` times the ``ref`` and ``fused`` backends' expand
+    over a Q x W grid and records each cell's winner
+    (``BENCH_torch_kerneltune.json["crossover"]``: ``best_single``, and
+    ``best_mesh``, null where no mesh was measured).  :meth:`choose` answers
+    "which backend for an expansion of about q pairs over w words?" by the
+    nearest measured cell in (log2 q, log2 w).  A missing, unreadable or
+    empty table loads as ``None``, and ``resolve_engine("auto")`` falls
+    back to the default; so does a table measured on another card than
+    ``kind`` (its ``device``), whose crossovers say nothing of this one."""
+
+    def __init__(self, cells: List[dict], source: Optional[str] = None):
+        self.cells = [c for c in cells
+                      if "q" in c and "w" in c and c.get("best_single")]
+        self.source = source
+
+    @classmethod
+    def load(cls, path: Optional[str] = None,
+             kind: Optional[str] = None) -> Optional["DispatchPolicy"]:
+        """The first readable table of ``path`` (else the default paths)
+        with cells, measured on ``kind`` (``None``: on any device)."""
+        for p in ([path] if path else _default_policy_paths()):
+            try:
+                with open(p) as f:
+                    data = json.load(f)
+                cells = data.get("crossover", [])
+                device = data.get("device")
+            except (OSError, ValueError, AttributeError):
+                continue
+            if kind is not None and device is not None and device != kind:
+                continue
+            if cells:
+                policy = cls(cells, source=p)
+                if policy.cells:
+                    return policy
+        return None
+
+    def choose(self, q: int, w: int, *, have_mesh: bool = False) -> str:
+        """The measured best backend for a ~(q pairs, w words) expansion;
+        with a mesh the cell's ``best_mesh`` winner, or its single-device
+        one where none was measured."""
+        lq, lw = np.log2(max(int(q), 1)), np.log2(max(int(w), 1))
+
+        def dist(c):
+            return ((np.log2(max(int(c["q"]), 1)) - lq) ** 2
+                    + (np.log2(max(int(c["w"]), 1)) - lw) ** 2)
+
+        cell = min(self.cells, key=dist)
+        if have_mesh:
+            return cell.get("best_mesh") or cell["best_single"]
+        return cell["best_single"]
+
+
+def _on_card(device, mesh) -> bool:
+    """Whether an engine for ``device`` (else ``mesh``'s devices; ``None``
+    is CUDA, the port's default) runs on a card."""
+    if device is not None:
+        return torch.device(device).type == "cuda"
+    return mesh is None or mesh.device_type == "cuda"
+
+
 def resolve_engine(backend: str, mesh=None, *, bucket_min: int = 128,
-                   shard: str = "pairs") -> Engine:
+                   shard: str = "pairs", block_w: Optional[int] = None,
+                   autotune: bool = False, auto: Optional[bool] = None,
+                   hints: Optional[Tuple[int, int]] = None,
+                   policy_path: Optional[str] = None,
+                   device=None) -> Engine:
     """Map a (backend name, mesh, shard mode) request onto an engine, with
     the reference's routing and errors.
 
@@ -784,27 +958,60 @@ def resolve_engine(backend: str, mesh=None, *, bucket_min: int = 128,
     ``"grid"``.  Naming a mesh backend implies its shard mode; combining it
     with a different non-default ``shard`` is refused.  A mesh backend
     without a mesh is the single-device default (``fused``), as in the
-    reference."""
+    reference.
+
+    **Measured dispatch**: ``backend="auto"`` (or ``auto=True``) picks the
+    backend nearest the measured winner of :class:`DispatchPolicy`'s table
+    for ``hints=(pairs, words)``, the miner's estimate of its dominant
+    expansion; under ``auto`` a mesh backend it picks overrides ``shard``.
+    With ``device`` only a table measured on its card (or one that names
+    no card) answers.  On a card (``device`` CUDA, or ``None``) ``auto``
+    never picks ``ref``, the plain version: a cell won by it keeps the
+    kernels' ``fused``.  No table, no hints or an unknown winner resolve to
+    the default,
+    ``fused`` (``"batched"`` is the reference's alias for it).
+    ``engine.dispatch`` records what was asked and which table answered.
+    ``block_w`` / ``autotune`` go to whichever engine wins."""
     shard_to_backend = {"pairs": "sharded", "words": "tidsharded",
                         "grid": "grid"}
     if shard not in shard_to_backend:
         raise ValueError(f"unknown shard mode {shard!r}; "
                          "expected 'pairs', 'words' or 'grid'")
+    requested = backend
+    auto = (backend == "auto") if auto is None else bool(auto)
+    if backend in ("batched", "auto"):
+        backend = "fused"
+    policy = None
+    if auto:
+        policy = DispatchPolicy.load(
+            policy_path, kind=None if device is None else at.device_kind(device))
+        if policy is not None and hints is not None:
+            choice = policy.choose(*hints, have_mesh=mesh is not None)
+            # on the card auto picks only engines that launch the kernels:
+            # the plain version runs there only when it is named
+            if choice in BACKENDS and not (choice == "ref"
+                                           and _on_card(device, mesh)):
+                backend = choice
+    knobs = dict(bucket_min=bucket_min, block_w=block_w, autotune=autotune)
     if backend not in BACKENDS:
-        return make_engine(backend, bucket_min=bucket_min)  # raises
+        return make_engine(backend, **knobs)  # raises
     implied = {"sharded": "pairs", "tidsharded": "words",
                "grid": "grid"}.get(backend)
     if implied is not None:
         # shard="pairs" is the config default, so only an explicit
-        # disagreement is a conflict
-        if shard not in ("pairs", implied):
+        # disagreement is a conflict — except under auto, where the policy
+        # (not the user) picked the backend and overrides the shard
+        if not auto and shard not in ("pairs", implied):
             raise ValueError(
                 f"backend {backend!r} implies shard={implied!r} but "
                 f"shard={shard!r} was requested; drop one of the two")
         shard = implied
     if mesh is None:
-        return make_engine("fused" if implied else backend,
-                           bucket_min=bucket_min)
-    inner = backend if backend in INNER else "fused"
-    return make_engine(shard_to_backend[shard], mesh=mesh,
-                       bucket_min=bucket_min, inner=inner)
+        engine = make_engine("fused" if implied else backend, **knobs)
+    else:
+        inner = backend if backend in INNER else "fused"
+        engine = make_engine(shard_to_backend[shard], mesh=mesh, inner=inner,
+                             **knobs)
+    engine.dispatch = {"requested": requested, "auto": auto,
+                       "policy": policy.source if policy else None}
+    return engine

@@ -88,10 +88,13 @@
 // to wait for S.  A second front end takes the mask from the caller instead
 // (the word-sharded backends threshold after their all-reduce) and computes
 // only the rows it writes.  Rows are read 16 bytes at a time where W is a
-// multiple of 4; a group of 8 lanes takes a pair when a row has at most 64
-// such elements, a warp otherwise.  Nothing returns to the host and no
-// memset runs: the look-back state is tagged with a per-launch epoch and
-// its counters are reset by the kernel.
+// multiple of 4.  The lanes per pair G are a launch argument: 8 (a tile of
+// 128 pairs, 4 a group), 16 (64 pairs, 4 a group) or 32 (8 pairs, a warp
+// each); 0 keeps the rule, 8 where a row has at most 64 such elements,
+// else 32.  The caller picks G from a table measured on the card
+// (kernels/autotune.py); every G gives the same bits.  Nothing returns to
+// the host and no memset runs: the look-back state is tagged with a
+// per-launch epoch and its counters are reset by the kernel.
 //
 // Row offsets are 64-bit: q * W passes 2^31 at Q ~ 700k for W = 3125.
 // left[q] and right[q] must lie in [0, P): the engine checks its pair lists
@@ -167,14 +170,51 @@ __device__ __forceinline__ void store_status(unsigned long long* p, unsigned lon
   asm volatile("st.relaxed.gpu.global.u64 [%0], %1;\n" ::"l"(p), "l"(v) : "memory");
 }
 
-// G lanes per pair: 8 for rows of at most 64 elements, else 32; tiles of
-// 128 or 8 pairs (4 or 1 per group of lanes)
+// G lanes per pair (a launch argument, rule_lanes below by default): tiles
+// of 128, 64 or 8 pairs (4, 4 or 1 per group of lanes).  kMinBlocks* are the
+// __launch_bounds__ occupancy of each front end, in blocks of 256 threads
+// per SM: for G = 8, 3 (fused) and 4 (given mask), the register caps that
+// ran fastest at chess's shape; for G = 16, K2_G16_MIN_BLOCKS_*, 4 and 4,
+// the fastest of (2, 2), (3, 4) and (4, 4) at chess level 5 and within 3%
+// elsewhere (launch/k2_occupancy.py builds the library with other values
+// to time them); none for a warp per pair.  The look-back state has a status per
+// tile of the smallest tile, kStateTilePairs pairs, so every G's tiles fit
+// it.
+#ifndef K2_G16_MIN_BLOCKS_FUSED
+#define K2_G16_MIN_BLOCKS_FUSED 4
+#endif
+#ifndef K2_G16_MIN_BLOCKS_GIVEN
+#define K2_G16_MIN_BLOCKS_GIVEN 4
+#endif
+constexpr int kStateTilePairs = 8;
+
 template <int G> struct Shape {
+  static_assert(G == 8 || G == 16 || G == 32, "lanes per pair: 8, 16 or 32");
   static constexpr int kGroups = kCompactThreads / G;
-  static constexpr int kPairsPerGroup = G == 8 ? 4 : 1;
+  static constexpr int kPairsPerGroup = G == 32 ? 1 : 4;
   static constexpr int kTilePairs = kGroups * kPairsPerGroup;
-  static constexpr int kUnroll = G == 8 ? 4 : 8;  // elements in flight per lane
+  static constexpr int kUnroll = G == 32 ? 8 : 4;  // elements in flight per lane
+  static constexpr int kMinBlocksFused = G == 32 ? 1 : G == 16 ? K2_G16_MIN_BLOCKS_FUSED : 3;
+  static constexpr int kMinBlocksGiven = G == 32 ? 1 : G == 16 ? K2_G16_MIN_BLOCKS_GIVEN : 4;
+  static_assert(kTilePairs >= kStateTilePairs, "a tile smaller than the state's");
 };
+
+// Words of look-back state for Q pairs: the two counters and a status per
+// tile of kStateTilePairs pairs.
+long long state_words(long long Q) { return 2 + (Q + kStateTilePairs - 1) / kStateTilePairs; }
+
+// The lanes per pair of the rule: 8 for rows of at most 64 elements, else 32.
+int rule_lanes(int units) { return units <= 64 ? 8 : 32; }
+
+// Shape<G>'s geometry as six ints (compact_shape_of below).
+template <int G> void shape_of(int* out) {
+  out[0] = G;
+  out[1] = Shape<G>::kTilePairs;
+  out[2] = Shape<G>::kPairsPerGroup;
+  out[3] = Shape<G>::kUnroll;
+  out[4] = Shape<G>::kMinBlocksFused;
+  out[5] = Shape<G>::kMinBlocksGiven;
+}
 
 // Lane lg of a group of G intersects rows a and b (units elements of V
 // words) at elements lg, lg + G, ...; stores the result to dst unless it is
@@ -231,10 +271,10 @@ __device__ __forceinline__ int group_row(const typename Vec<V>::T* __restrict__ 
 //    q0 - E counts the non-survivors of the tiles before it.  Every row of
 //    out is written once, by the pass itself.
 // FUSED: the fused front end; else the given-mask one, which computes no
-// row before its look-back.  With 8-lane groups, 3 (fused) or 4 blocks of
-// 256 threads per SM: the register caps that ran fastest at chess's shape.
+// row before its look-back.  Occupancy: Shape<G>::kMinBlocks*.
 template <int MODE, int V, int G, bool FUSED>
-__global__ void __launch_bounds__(kCompactThreads, G == 8 ? (FUSED ? 3 : 4) : 1)
+__global__ void __launch_bounds__(kCompactThreads,
+                                  FUSED ? Shape<G>::kMinBlocksFused : Shape<G>::kMinBlocksGiven)
 compact_pairs_kernel(const unsigned* __restrict__ frontier, const int* __restrict__ left,
                      const int* __restrict__ right, const int* __restrict__ sup_left,
                      int* __restrict__ sup, int* __restrict__ mask, int stage,
@@ -401,6 +441,8 @@ cudaError_t launch_compact(const unsigned* f, const int* l, const int* r, const 
   constexpr int TP = Shape<G>::kTilePairs;
   const long long n_tiles = (Q + TP - 1) / TP;
   if (n_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  // every tile's status lies inside the state sized by state_words(Q)
+  if (2 + n_tiles > state_words(Q)) return cudaErrorInvalidValue;
   const long long bytes = static_cast<long long>(TP) * W * 4;
   const int stage = (FUSED && bytes <= kStageLimit) ? 1 : 0;
   const int smem = stage ? static_cast<int>(bytes) : 0;
@@ -426,21 +468,31 @@ cudaError_t launch_front(const unsigned* f, const int* l, const int* r, const in
                                            Q, W, n_valid, min_sup, st);
 }
 
+template <int MODE, int V>
+cudaError_t dispatch_lanes(const unsigned* f, const int* l, const int* r, const int* sl,
+                           int* sup, int* mask, int fused, unsigned long long* state,
+                           unsigned long long epoch, unsigned* out, int* n_surv, long long Q,
+                           int W, long long n_valid, int min_sup, int lanes, cudaStream_t st) {
+  switch (lanes) {
+    case 8: return launch_front<MODE, V, 8>(f, l, r, sl, sup, mask, fused, state, epoch, out, n_surv, Q, W, n_valid, min_sup, st);
+    case 16: return launch_front<MODE, V, 16>(f, l, r, sl, sup, mask, fused, state, epoch, out, n_surv, Q, W, n_valid, min_sup, st);
+    case 32: return launch_front<MODE, V, 32>(f, l, r, sl, sup, mask, fused, state, epoch, out, n_surv, Q, W, n_valid, min_sup, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <int MODE>
 cudaError_t dispatch_compact(const unsigned* f, const int* l, const int* r, const int* sl,
                              int* sup, int* mask, int fused, unsigned long long* state,
                              unsigned long long epoch, unsigned* out, int* n_surv, long long Q,
-                             int W, long long n_valid, int min_sup, cudaStream_t st) {
+                             int W, long long n_valid, int min_sup, int lanes, cudaStream_t st) {
   const bool vec = W % 4 == 0 && reinterpret_cast<uintptr_t>(f) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const int units = vec ? W / 4 : W;
-  if (vec && units <= 64)
-    return launch_front<MODE, 4, 8>(f, l, r, sl, sup, mask, fused, state, epoch, out, n_surv, Q, W, n_valid, min_sup, st);
+  const int g = lanes ? lanes : rule_lanes(units);
   if (vec)
-    return launch_front<MODE, 4, 32>(f, l, r, sl, sup, mask, fused, state, epoch, out, n_surv, Q, W, n_valid, min_sup, st);
-  if (units <= 64)
-    return launch_front<MODE, 1, 8>(f, l, r, sl, sup, mask, fused, state, epoch, out, n_surv, Q, W, n_valid, min_sup, st);
-  return launch_front<MODE, 1, 32>(f, l, r, sl, sup, mask, fused, state, epoch, out, n_surv, Q, W, n_valid, min_sup, st);
+    return dispatch_lanes<MODE, 4>(f, l, r, sl, sup, mask, fused, state, epoch, out, n_surv, Q, W, n_valid, min_sup, g, st);
+  return dispatch_lanes<MODE, 1>(f, l, r, sl, sup, mask, fused, state, epoch, out, n_surv, Q, W, n_valid, min_sup, g, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -963,9 +1015,23 @@ void window_plan_of(long long Q, int W, int* out) {
 
 // Words of look-back state compact_pairs_launch needs for Q pairs: the tile
 // counter, the finished-look-back counter, one status per tile of the
-// smallest tile.  Zero before the first launch; every launch leaves the two
-// counters zero, and the statuses need no clearing while the epoch changes.
-long long compact_state_words(long long Q) { return 2 + (Q + 7) / 8; }
+// smallest tile (8 pairs, G = 32), so the state fits every G.  Zero before
+// the first launch; every launch leaves the two counters zero, and the
+// statuses need no clearing while the epoch changes.
+long long compact_state_words(long long Q) { return state_words(Q); }
+
+// The geometry of compact_pairs_kernel with G lanes per pair (0: the rule's
+// G for W-word rows of 16-byte elements), six ints: G, pairs a tile, pairs
+// a group, elements in flight per lane, and the blocks per SM of the fused
+// and the given-mask front ends.  Returns 0, or -1 for a G it does not take.
+int compact_shape_of(int lanes, int W, int* out) {
+  switch (lanes ? lanes : rule_lanes(W % 4 == 0 ? W / 4 : W)) {
+    case 8: shape_of<8>(out); return 0;
+    case 16: shape_of<16>(out); return 0;
+    case 32: shape_of<32>(out); return 0;
+    default: return -1;
+  }
+}
 
 // Largest epoch a launch may be given; the caller zeroes the state and
 // starts again at 1 after it.
@@ -977,14 +1043,16 @@ unsigned long long compact_max_epoch() { return (1ull << (64 - kEpochShift)) - 1
 // is rewritten in place to the valid-masked flags; sup_left and sup are not
 // touched.  state holds compact_state_words(Q) words as above; epoch differs
 // from the epoch of every earlier launch on this state (1, 2, ...); n_surv
-// one int; out (Q, W).  Returns a cudaError_t.
+// one int; out (Q, W); lanes the lanes per pair, 8, 16 or 32, or 0 for the
+// rule.  Returns a cudaError_t.
 int compact_pairs_launch(const void* frontier, const void* left, const void* right,
                          const void* sup_left, void* sup, void* mask, int mask_in,
                          void* state, unsigned long long epoch, void* n_surv, void* out,
                          long long Q, int W, long long n_valid, int min_sup, int mode,
-                         int device, void* stream) {
+                         int lanes, int device, void* stream) {
   if (Q <= 0) return cudaSuccess;
-  if (mode < 0 || mode > 2 || W < 0 || epoch == 0 || epoch > compact_max_epoch())
+  if (mode < 0 || mode > 2 || W < 0 || epoch == 0 || epoch > compact_max_epoch() ||
+      (lanes != 0 && lanes != 8 && lanes != 16 && lanes != 32))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -1000,9 +1068,9 @@ int compact_pairs_launch(const void* frontier, const void* left, const void* rig
   const int fused = mask_in ? 0 : 1;
   const auto st = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case 0: return dispatch_compact<0>(f, l, r, sl, o_sup, m, fused, s, epoch, o, n, Q, W, n_valid, min_sup, st);
-    case 1: return dispatch_compact<1>(f, l, r, sl, o_sup, m, fused, s, epoch, o, n, Q, W, n_valid, min_sup, st);
-    default: return dispatch_compact<2>(f, l, r, sl, o_sup, m, fused, s, epoch, o, n, Q, W, n_valid, min_sup, st);
+    case 0: return dispatch_compact<0>(f, l, r, sl, o_sup, m, fused, s, epoch, o, n, Q, W, n_valid, min_sup, lanes, st);
+    case 1: return dispatch_compact<1>(f, l, r, sl, o_sup, m, fused, s, epoch, o, n, Q, W, n_valid, min_sup, lanes, st);
+    default: return dispatch_compact<2>(f, l, r, sl, o_sup, m, fused, s, epoch, o, n, Q, W, n_valid, min_sup, lanes, st);
   }
 }
 

@@ -38,7 +38,7 @@ its pair lists on the host before upload.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -47,7 +47,9 @@ from .. import _build
 __all__ = ["MODE_TIDSET", "MODE_TID_TO_DIFF", "MODE_DIFFSET",
            "fused_intersect_pairs", "fused_support_pairs",
            "fused_intersect_compact_pairs", "compact_survivors_pairs",
-           "fused_intersect_partial_pairs", "WindowPlan", "window_plan"]
+           "fused_intersect_partial_pairs", "launch_compact", "WindowPlan",
+           "window_plan", "COMPACT_LANES", "COMPACT_TILE_PAIRS",
+           "COMPACT_UNROLL", "elem_words", "rule_lanes", "compact_shape"]
 
 MODE_TIDSET = 0
 MODE_TID_TO_DIFF = 1
@@ -120,8 +122,10 @@ def _lib() -> ctypes.CDLL:
         lib.compact_pairs_launch.argtypes = [
             _P, _P, _P, _P, _P, _P, ctypes.c_int, _P, ctypes.c_ulonglong, _P,
             _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
         lib.compact_pairs_launch.restype = ctypes.c_int
+        lib.compact_shape_of.argtypes = [ctypes.c_int, ctypes.c_int, _P]
+        lib.compact_shape_of.restype = ctypes.c_int
         lib.partial_pairs_launch.argtypes = [
             _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, _P]
@@ -130,6 +134,51 @@ def _lib() -> ctypes.CDLL:
         lib.window_plan_of.restype = None
         _BOUND = True
     return lib
+
+
+# K2's tiles (csrc/fused_intersect.cu Shape<G>), by lanes per pair: pairs a
+# tile, pairs a group of lanes takes one after the other, elements of a row
+# each lane has in flight per step of its loop, and the resident blocks per
+# SM of the fused front end (its __launch_bounds__).  The CPU's cost model
+# reads them here; on the card cuda_compact_shape holds them to the library.
+COMPACT_LANES = (8, 16, 32)
+COMPACT_TILE_PAIRS = {8: 128, 16: 64, 32: 8}
+COMPACT_PAIRS_PER_GROUP = {8: 4, 16: 4, 32: 1}
+COMPACT_UNROLL = {8: 4, 16: 4, 32: 8}
+COMPACT_BLOCKS_PER_SM = {8: 3, 16: 4, 32: 1}
+
+
+def elem_words(w: int) -> int:
+    """Words of one element K2 loads for a ``w``-word row: 4 (16 bytes)
+    where ``w`` is a multiple of 4, else 1.  (The kernel also needs the
+    frontier and its output 16-byte aligned for 4, which the port's
+    allocations are.)"""
+    return 4 if w % 4 == 0 else 1
+
+
+def rule_lanes(w: int) -> int:
+    """K2's lanes per pair by its rule (``lanes=0``): 8 for rows of at most
+    64 elements, else 32 (``csrc/fused_intersect.cu`` ``rule_lanes``)."""
+    return 8 if w // elem_words(w) <= 64 else 32
+
+
+def compact_shape(lanes: int) -> tuple:
+    """K2's geometry at ``lanes`` lanes per pair as this module holds it:
+    ``(lanes, pairs a tile, pairs a group, elements in flight per lane,
+    blocks per SM of the fused front end)``."""
+    g = int(lanes)
+    return (g, COMPACT_TILE_PAIRS[g], COMPACT_PAIRS_PER_GROUP[g],
+            COMPACT_UNROLL[g], COMPACT_BLOCKS_PER_SM[g])
+
+
+def cuda_compact_shape(lanes: int, w: int) -> tuple:
+    """K2's geometry as the built library has it (0 = the rule's lanes for
+    ``w``): :func:`compact_shape`'s five fields, then the blocks per SM of
+    the given-mask front end; for the checks that hold the two equal."""
+    out = (ctypes.c_int * 6)()
+    if _lib().compact_shape_of(int(lanes), int(w), ctypes.cast(out, _P)) != 0:
+        raise ValueError(f"K2 takes no {lanes} lanes per pair")
+    return tuple(out)
 
 
 def cuda_window_plan(q: int, w: int) -> WindowPlan:
@@ -237,9 +286,24 @@ def _state(lib, device: torch.device, stream: int, q: int):
     return entry[0], entry[1]
 
 
+def _lanes(lanes, kernel, q, w, mode, device) -> int:
+    """The lanes per pair of a K2 launch: ``lanes`` as given (0 = the rule),
+    or for ``None`` the autotune table's pick for this shape class on this
+    card, else the rule.  A host lookup, no synchronisation."""
+    if lanes is None:
+        from .. import autotune
+        cfg = autotune.table_config(kernel, q, w, mode, device)
+        return cfg.lanes if cfg is not None and cfg.lanes else 0
+    if lanes not in (0,) + COMPACT_LANES:
+        raise ValueError(f"lanes must be one of {COMPACT_LANES} (or 0 for the "
+                         f"rule), got {lanes!r}")
+    return int(lanes)
+
+
 def _compact(bitmaps, left, right, sup_left, sup, mask, mask_in, n_valid,
-             min_sup, mode):
-    """Launch the compaction (one kernel) and return ``(out, n_surv)``."""
+             min_sup, mode, lanes):
+    """Launch the compaction (one kernel, ``lanes`` lanes per pair, 0 = the
+    rule) and return ``(out, n_surv)``; the caller counts the launch."""
     q, w = left.shape[0], bitmaps.shape[1]
     dev = bitmaps.device
     out = torch.empty((q, w), dtype=torch.int32, device=dev)
@@ -254,19 +318,34 @@ def _compact(bitmaps, left, right, sup_left, sup, mask, mask_in, n_valid,
     code = lib.compact_pairs_launch(
         _ptr(bitmaps), _ptr(left), _ptr(right), _ptr(sup_left), _ptr(sup),
         _ptr(mask), int(mask_in), _ptr(state), epoch, _ptr(n_surv), _ptr(out),
-        q, w, int(n_valid), int(min_sup), int(mode), dev.index,
+        q, w, int(n_valid), int(min_sup), int(mode), int(lanes), dev.index,
         ctypes.c_void_p(stream))
     if code != 0:
         # a launch that failed may leave the state dirty: start afresh
         _STATE.pop((dev.index, stream), None)
     _build.check(code, "compact_pairs_kernel")
-    fused_intersect_compact_pairs.launches += 1
     return out, n_surv
+
+
+def launch_compact(bitmaps, left, right, sup_left, min_sup: int, n_valid: int,
+                   *, mode: int, lanes: int):
+    """One launch of K2's fused front end with ``lanes`` lanes per pair (0 =
+    the rule), counted on no wrapper: the tuner's launches
+    (``kernels.autotune``, which counts them itself).  Returns what
+    :func:`fused_intersect_compact_pairs` returns."""
+    _check_args(bitmaps, left, right, sup_left, mode)
+    q = left.shape[0]
+    sup = torch.empty(q, dtype=torch.int32, device=bitmaps.device)
+    mask = torch.empty(q, dtype=torch.int32, device=bitmaps.device)
+    out, n_surv = _compact(bitmaps, left, right, sup_left, sup, mask, False,
+                           n_valid, min_sup, mode, lanes)
+    return out, sup, mask, n_surv
 
 
 def fused_intersect_compact_pairs(bitmaps: torch.Tensor, left: torch.Tensor,
                                   right: torch.Tensor, sup_left: torch.Tensor,
-                                  min_sup: int, n_valid: int, *, mode: int):
+                                  min_sup: int, n_valid: int, *, mode: int,
+                                  lanes: Optional[int] = None):
     """:func:`fused_intersect_pairs` with survivor compaction on the card:
     returns ``(compact (Q, W), sup (Q,), mask (Q,), n_surv ())``.
 
@@ -275,28 +354,38 @@ def fused_intersect_compact_pairs(bitmaps: torch.Tensor, left: torch.Tensor,
     intersections in ascending pair order, rows ``[n_surv:]`` duplicate the
     intersection of pair 0, and the returned mask is the valid-masked one.
     One launch computes, thresholds and compacts, pad rows included.  No
-    host synchronisation happens inside.
+    host synchronisation happens inside.  ``lanes`` (8, 16 or 32 lanes per
+    pair, 0 = the rule; ``None`` = the autotune table's pick for this shape
+    on this card, else the rule) picks the tile; every tile gives the same
+    bits.
     """
     _check_args(bitmaps, left, right, sup_left, mode)
-    q = left.shape[0]
-    sup = torch.empty(q, dtype=torch.int32, device=bitmaps.device)
-    mask = torch.empty(q, dtype=torch.int32, device=bitmaps.device)
-    out, n_surv = _compact(bitmaps, left, right, sup_left, sup, mask, False,
-                           n_valid, min_sup, mode)
-    return out, sup, mask, n_surv
+    q, w = left.shape[0], bitmaps.shape[1]
+    g = _lanes(lanes, "compact", q, w, mode, bitmaps.device)
+    res = launch_compact(bitmaps, left, right, sup_left, min_sup, n_valid,
+                         mode=mode, lanes=g)
+    if q:
+        fused_intersect_compact_pairs.launches += 1
+    return res
 
 
 def compact_survivors_pairs(bitmaps: torch.Tensor, left: torch.Tensor,
                             right: torch.Tensor, mask: torch.Tensor,
-                            n_valid: int, *, mode: int):
+                            n_valid: int, *, mode: int,
+                            lanes: Optional[int] = None):
     """The survivor compaction alone, from a mask computed elsewhere (the
     word-sharded backends reduce their counts over ranks first): returns
     ``(compact (Q, W), mask (Q,), n_surv ())`` as
     :func:`fused_intersect_compact_pairs` does.  ``mask`` (int32) is
-    rewritten in place to the valid-masked flags."""
+    rewritten in place to the valid-masked flags.  ``lanes`` as there; the
+    table's pick is the fused front end's for the same shape."""
     _check_args(bitmaps, left, right, None, mode, mask=mask)
+    q, w = left.shape[0], bitmaps.shape[1]
+    g = _lanes(lanes, "compact", q, w, mode, bitmaps.device)
     out, n_surv = _compact(bitmaps, left, right, None, None, mask, True,
-                           n_valid, 0, mode)
+                           n_valid, 0, mode, g)
+    if q:
+        fused_intersect_compact_pairs.launches += 1
     return out, mask, n_surv
 
 

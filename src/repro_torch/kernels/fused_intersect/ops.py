@@ -36,12 +36,16 @@ def fused_intersect(bitmaps, left, right, sup_left, min_sup: int, *, mode: int):
 
 
 def fused_intersect_compact(bitmaps, left, right, sup_left, min_sup: int,
-                            n_valid: int, *, mode: int):
+                            n_valid: int, *, mode: int, lanes=None):
     """The same with survivor compaction:
-    ``(compact (Q, W), sup (Q,), mask (Q,), n_surv)``."""
+    ``(compact (Q, W), sup (Q,), mask (Q,), n_surv)``.  ``lanes``: the
+    kernel's lanes per pair (8, 16, 32; 0 = its rule; ``None`` = the
+    autotune table's pick for the shape, else the rule); the plain version
+    has no tile."""
     if _on_cuda(bitmaps):
         return fused_intersect_compact_pairs(
-            bitmaps, left, right, sup_left, min_sup, n_valid, mode=mode)
+            bitmaps, left, right, sup_left, min_sup, n_valid, mode=mode,
+            lanes=lanes)
     return fused_intersect_compact_ref(bitmaps, left, right, sup_left,
                                            min_sup, n_valid, mode=mode)
 
@@ -58,11 +62,12 @@ def fused_intersect_partial(bitmaps, left, right, *, mode: int,
                                        store=store)
 
 
-def compact_survivors(bitmaps, left, right, mask, n_valid: int, *, mode: int):
+def compact_survivors(bitmaps, left, right, mask, n_valid: int, *, mode: int,
+                      lanes=None):
     """Survivor compaction from a given int32 mask:
-    ``(compact (Q, W), valid-masked mask, n_surv)``."""
+    ``(compact (Q, W), valid-masked mask, n_surv)``; ``lanes`` as above."""
     if _on_cuda(bitmaps):
         return compact_survivors_pairs(bitmaps, left, right, mask, n_valid,
-                                       mode=mode)
+                                       mode=mode, lanes=lanes)
     return compact_survivors_ref(bitmaps, left, right, mask, n_valid,
                                  mode=mode)

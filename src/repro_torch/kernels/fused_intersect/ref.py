@@ -70,17 +70,20 @@ def compact_epilogue(inter: torch.Tensor, sup: torch.Tensor,
 
 
 def fused_intersect_compact_ref(bitmaps, left, right, sup_left, min_sup,
-                                n_valid, *, mode: int):
+                                n_valid, *, mode: int, lanes=None):
     """The fused pass plus :func:`compact_epilogue`: returns
-    ``(compact (Q, W), sup (Q,), mask (Q,), n_surv)``."""
+    ``(compact (Q, W), sup (Q,), mask (Q,), n_surv)``.  ``lanes`` is the
+    kernel's tile; the plain version has none and ignores it."""
     inter, sup, mask = fused_intersect_ref(bitmaps, left, right, sup_left,
                                            min_sup, mode=mode)
     return compact_epilogue(inter, sup, mask, n_valid)
 
 
-def compact_survivors_ref(bitmaps, left, right, mask, n_valid, *, mode: int):
+def compact_survivors_ref(bitmaps, left, right, mask, n_valid, *, mode: int,
+                          lanes=None):
     """The compaction alone, from a mask computed elsewhere: returns
-    ``(compact (Q, W), valid-masked mask (Q,), n_surv)``."""
+    ``(compact (Q, W), valid-masked mask (Q,), n_surv)``; ``lanes`` is
+    ignored, as above."""
     inter, _ = fused_intersect_partial_ref(bitmaps, left, right, mode=mode)
     compact, _, m, n_surv = compact_epilogue(inter, mask, mask, n_valid)
     return compact, m, n_surv

@@ -11,7 +11,8 @@ import torch
 
 from .. import _build
 
-__all__ = ["trimatrix", "split_plan", "plan_for", "TILE", "STAGE_WORDS", "SMS"]
+__all__ = ["trimatrix", "launch_trimatrix", "split_plan", "split_cost",
+           "plan_for", "TILE", "STAGE_WORDS", "SMS"]
 
 TILE = 128          # output tile edge; csrc's kTile
 STAGE_WORDS = 8     # words of a row per pipeline stage; csrc's kStageWords
@@ -50,6 +51,14 @@ def plan_for(w: int, splits: int) -> tuple:
     return -(-stages // per), per * STAGE_WORDS
 
 
+def split_cost(n: int, plan: tuple) -> int:
+    """The modelled time of an (n, w) co-occurrence under ``plan =
+    (splits, split_words)``: waves of blocks (one block per SM) x (stages
+    per block + 2 for a block's start and its store)."""
+    splits, split_words = int(plan[0]), int(plan[1])
+    return -(-tile_count(n) * splits // SMS) * (split_words // STAGE_WORDS + 2)
+
+
 @functools.lru_cache(maxsize=None)
 def split_plan(n: int, w: int) -> tuple:
     """``(splits, split_words)``: the word axis of an (n, w) co-occurrence
@@ -57,20 +66,18 @@ def split_plan(n: int, w: int) -> tuple:
     stage; the last range may be shorter, none is empty), one block per
     (tile, range).
 
-    It minimises the modelled time, waves of blocks (one block per SM) x
-    (stages per block + 2 for a block's start and its store), so a small N
+    It minimises the modelled time, :func:`split_cost`, so a small N
     splits the words until the few tiles fill the card (N = 187: 3 tiles x
     44 ranges = 132 blocks) and a large N keeps one range (N = 4,096: 528
     tiles).  Ties go to fewer ranges, whose counts are added atomically."""
-    tiles = tile_count(n)
     stages = max(1, -(-w // STAGE_WORDS))
     best = None
     for s in range(1, min(stages, 65535) + 1):
-        used, split_words = plan_for(w, s)
-        cost = -(-tiles * used // SMS) * (split_words // STAGE_WORDS + 2)
-        if best is None or (cost, used) < best[0]:
-            best = ((cost, used), used, split_words)
-    return best[1], best[2]
+        plan = plan_for(w, s)
+        key = (split_cost(n, plan), plan[0])
+        if best is None or key < best[0]:
+            best = (key, plan)
+    return best[1]
 
 
 def trimatrix(bitmaps: torch.Tensor, plan: Optional[tuple] = None) -> torch.Tensor:
@@ -89,7 +96,18 @@ def trimatrix(bitmaps: torch.Tensor, plan: Optional[tuple] = None) -> torch.Tens
         raise ValueError(f"N={n} exceeds the kernel's grid")
     if n == 0:
         return torch.empty((0, 0), dtype=torch.int32, device=bitmaps.device)
-    splits, split_words = split_plan(n, w) if plan is None else plan
+    out = launch_trimatrix(bitmaps, split_plan(n, w) if plan is None else plan)
+    trimatrix.launches += 1
+    return out
+
+
+def launch_trimatrix(bitmaps: torch.Tensor, plan: tuple) -> torch.Tensor:
+    """One launch of the kernel on contiguous (N > 0, W) int32 words with
+    the word split ``plan``, counted on no wrapper: :func:`trimatrix`'s
+    body, and the tuner's launches (``kernels.autotune``, which counts them
+    itself)."""
+    n, w = bitmaps.shape
+    splits, split_words = plan
     # several ranges add their counts into a zeroed matrix
     alloc = torch.zeros if splits > 1 else torch.empty
     out = alloc((n, n), dtype=torch.int32, device=bitmaps.device)
@@ -99,7 +117,6 @@ def trimatrix(bitmaps: torch.Tensor, plan: Optional[tuple] = None) -> torch.Tens
                                    splits, split_words, bitmaps.device.index,
                                    ctypes.c_void_p(stream))
     _build.check(code, "trimatrix_wgmma_kernel")
-    trimatrix.launches += 1
     return out
 
 

@@ -179,12 +179,13 @@ def miner_inputs(txns, n_items, min_sup, variant="v4", device="cuda"):
     seen = {}
     original = FusedEngine._intersect_compact
 
-    def spy(bitmaps, left, right, sup_left, min_sup, n_valid, *, mode):
+    def spy(bitmaps, left, right, sup_left, min_sup, n_valid, *, mode, **tile):
         if not seen or left.shape[0] > seen["left"].shape[0]:
             seen.update(bitmaps=bitmaps.clone(), left=left.clone(),
                         right=right.clone(), sup_left=sup_left.clone(),
                         min_sup=int(min_sup), n_valid=int(n_valid), mode=mode)
-        return original(bitmaps, left, right, sup_left, min_sup, n_valid, mode=mode)
+        return original(bitmaps, left, right, sup_left, min_sup, n_valid,
+                        mode=mode, **tile)
 
     FusedEngine._intersect_compact = staticmethod(spy)
     try:

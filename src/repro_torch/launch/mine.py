@@ -16,17 +16,22 @@ reference's driver; every rank mines, and rank 0's summary is printed.
 reference's ``mining_ckpt_k*.npz``; on a mesh rank 0 writes), and
 ``--restore`` resumes the deepest one in ``DIR`` instead of mining, under
 this invocation's ``--backend``/``--shard``/``--grid``/``--ranks``, which
-may differ from the original run's (DESIGN.md §10).
+may differ from the original run's (DESIGN.md §10).  ``--fimi FILE.dat``
+mines a FIMI-format transaction file instead of a generated dataset.
+``--backend auto`` picks the backend from the measured crossover table
+(``BENCH_torch_kerneltune.json``), ``--block-w`` sets K2's word tile and
+``--autotune`` tunes the kernels' tiles on a miss (``kernels.autotune``).
 Prints the same ``[mine] ...`` summary lines as the reference package's
 driver.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 from ..core import EclatConfig, mine, resume_mine
-from ..data import PAPER_DATASETS, generate
+from ..data import PAPER_DATASETS, generate, load_fimi
 
 
 def _resumed(res, dt: float) -> str:
@@ -40,18 +45,31 @@ def _summary(name: str, args, res, dt: float, mesh) -> str:
                  if mesh is not None and "class" in mesh.mesh_dim_names else "")
     mode_note = (f" {args.mode}={res.stats['mode_itemsets']}"
                  if args.mode != "all" else "")
-    return (f"[mine] {name} x{args.scale} min_sup={args.min_sup} "
+    scale_note = "" if args.fimi else f" x{args.scale}"
+    return (f"[mine] {name}{scale_note} min_sup={args.min_sup} "
             f"{args.variant}: {res.total} itemsets in {dt:.2f}s "
             f"levels={res.counts}{grid_note}{mode_note}")
 
 
-def _config(args, spec) -> EclatConfig:
+def _config(args, tri_matrix) -> EclatConfig:
     return EclatConfig(min_sup=args.min_sup, variant=args.variant, p=args.p,
-                       tri_matrix=spec.tri_matrix or None,
+                       tri_matrix=tri_matrix,
                        use_diffsets=args.diffsets, backend=args.backend,
                        shard=args.shard, mode=args.mode, max_k=args.max_k,
+                       block_w=args.block_w, autotune=args.autotune,
                        checkpoint_dir=args.checkpoint_dir,
                        checkpoint_every_level=args.checkpoint_dir is not None)
+
+
+def _database(args):
+    """``(transactions, n_items, name, tri_matrix)``: the ``--fimi`` file
+    (named by its basename; ``tri_matrix`` left to the item-range rule) or
+    the generated ``--dataset``."""
+    if args.fimi:
+        txns, n_items = load_fimi(args.fimi)
+        return txns, n_items, os.path.basename(args.fimi), None
+    txns, spec = generate(args.dataset, scale=args.scale, seed=1)
+    return txns, spec.n_items, spec.name, spec.tri_matrix or None
 
 
 def _run(args, device, mesh) -> str:
@@ -61,14 +79,16 @@ def _run(args, device, mesh) -> str:
     if args.restore:
         cfg = EclatConfig(min_sup=args.min_sup, variant=args.variant,
                           p=args.p, backend=args.backend, shard=args.shard,
-                          mode=args.mode, checkpoint_dir=args.checkpoint_dir)
+                          mode=args.mode, block_w=args.block_w,
+                          autotune=args.autotune,
+                          checkpoint_dir=args.checkpoint_dir)
         res = resume_mine(cfg, device=device, mesh=mesh)
         return _resumed(res, time.perf_counter() - t0)
-    txns, spec = generate(args.dataset, scale=args.scale, seed=1)
+    txns, n_items, name, tri_matrix = _database(args)
     t0 = time.perf_counter()
-    res = mine(txns, spec.n_items, _config(args, spec), device=device,
+    res = mine(txns, n_items, _config(args, tri_matrix), device=device,
                mesh=mesh)
-    return _summary(spec.name, args, res, time.perf_counter() - t0, mesh)
+    return _summary(name, args, res, time.perf_counter() - t0, mesh)
 
 
 def _mine_rank(device, args) -> str:
@@ -81,6 +101,10 @@ def _mine_rank(device, args) -> str:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--dataset", default="chess", choices=list(PAPER_DATASETS))
+    ap.add_argument("--fimi", default=None, metavar="FILE.dat",
+                    help="mine a FIMI-format transaction file instead of "
+                         "--dataset (one txn per line, whitespace-separated "
+                         "integer item ids)")
     ap.add_argument("--scale", type=float, default=0.25)
     ap.add_argument("--min-sup", type=float, default=0.8)
     ap.add_argument("--mode", default="all",
@@ -91,10 +115,12 @@ def main(argv=None):
                     choices=["v1", "v2", "v3", "v4", "v5", "v6"])
     ap.add_argument("--p", type=int, default=10)
     ap.add_argument("--backend", default="fused",
-                    choices=["fused", "ref", "sharded", "tidsharded", "grid"],
+                    choices=["fused", "ref", "sharded", "tidsharded", "grid",
+                             "auto"],
                     help="engine backend: the CUDA kernels (fused), the "
-                         "plain torch path (ref), or a mesh backend (needs "
-                         "--ranks)")
+                         "plain torch path (ref), a mesh backend (needs "
+                         "--ranks), or auto (the measured crossover table "
+                         "BENCH_torch_kerneltune.json, falling back to fused)")
     ap.add_argument("--shard", default="pairs",
                     choices=["pairs", "words", "grid"],
                     help="mesh split under --ranks: candidate pairs, the "
@@ -113,6 +139,13 @@ def main(argv=None):
                     help="dEclat diffsets (variant v6 only)")
     ap.add_argument("--max-k", type=int, default=None,
                     help="deepest itemset length to mine")
+    ap.add_argument("--block-w", type=int, default=None, metavar="WORDS",
+                    help="the fused kernel's word tile (default: the "
+                         "autotune table, else the kernel's rule)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="tune on a miss: measure a kernel shape class's "
+                         "tiles before its first launch (winners persist in "
+                         "the autotune cache)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                          "plain torch path on the host)")

@@ -35,8 +35,9 @@ against the synchronous path at its stamped ``window_version``.  A writer
 that stops beating its heartbeat for ``--stall-timeout`` seconds is
 *reported* (exit code 4) instead of hanging the readers.
 
-Not ported yet, and refused by name: ``--block-w``/``--autotune`` (tile
-selection, ROADMAP item 6).
+``--backend auto`` picks the backend from the measured crossover table,
+``--block-w`` sets K2's word tile and ``--autotune`` tunes the kernels'
+tiles on a miss, as in the reference's command line.
 """
 from __future__ import annotations
 
@@ -49,15 +50,12 @@ from ..serving import StreamQueryService
 from ..streaming import (StreamCheckpointer, StreamConfig, StreamingMiner,
                          peek_config, restore_miner)
 
-# flag -> the ROADMAP item that will port it; each parses, and any value but
-# its default raises NotImplementedError
-UNPORTED_FLAGS = {"block_w": 6, "autotune": 6}
-
 
 def _config(args) -> StreamConfig:
     return StreamConfig(min_sup=args.min_sup, n_blocks=args.n_blocks,
                         block_txns=args.block_txns, backend=args.backend,
-                        shard=args.shard)
+                        shard=args.shard, block_w=args.block_w,
+                        autotune=args.autotune)
 
 
 def _mesh_request(args):
@@ -262,10 +260,12 @@ def main(argv=None):
     ap.add_argument("--drift-every", type=int, default=None,
                     help="re-seed the pattern pool every N batches")
     ap.add_argument("--backend", default="fused",
-                    choices=["fused", "ref", "sharded", "tidsharded", "grid"],
+                    choices=["fused", "ref", "sharded", "tidsharded", "grid",
+                             "auto"],
                     help="engine backend: the CUDA kernels (fused), the "
-                         "plain torch path (ref), or a mesh backend (needs "
-                         "--ranks)")
+                         "plain torch path (ref), a mesh backend (needs "
+                         "--ranks), or auto (the measured crossover table "
+                         "BENCH_torch_kerneltune.json, falling back to fused)")
     ap.add_argument("--shard", default="pairs",
                     choices=["pairs", "words", "grid"],
                     help="mesh split under --ranks: candidate pairs (ring "
@@ -326,16 +326,13 @@ def main(argv=None):
                     help="with --serve: writer heartbeat deadline (0 "
                          "disables); a stalled writer is reported, readers "
                          "keep answering from the last published window")
-    # the reference command line's flags that are not ported yet (UNPORTED_FLAGS)
-    ap.add_argument("--block-w", type=int, default=None, metavar="WORDS")
-    ap.add_argument("--autotune", action="store_true")
+    ap.add_argument("--block-w", type=int, default=None, metavar="WORDS",
+                    help="the fused kernel's word tile (default: the "
+                         "autotune table, else the kernel's rule)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="tune on a miss: measure a kernel shape class's "
+                         "tiles before its first launch")
     args = ap.parse_args(argv)
-
-    for dest, item in UNPORTED_FLAGS.items():
-        if getattr(args, dest) not in (None, False):
-            raise NotImplementedError(
-                f"--{dest.replace('_', '-')} is not ported yet (ROADMAP item "
-                f"{item})")
     if args.restore and not args.checkpoint_dir:
         ap.error("--restore requires --checkpoint-dir")
     if args.ranks is not None:

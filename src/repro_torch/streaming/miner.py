@@ -61,25 +61,24 @@ class StreamConfig:
     min_sup: float                 # float in (0,1] = fraction of live window txns; int >= 1 = count
     n_blocks: int = 16             # window capacity in micro-batch blocks
     block_txns: int = 1024         # txn columns per block (multiple of 32)
-    backend: str = "fused"         # core.engine backend: fused (CUDA kernels) | ref (plain torch) | sharded | tidsharded | grid
+    backend: str = "fused"         # core.engine backend: fused (CUDA kernels) | ref (plain torch) | sharded | tidsharded | grid | auto (measured dispatch)
     shard: str = "pairs"           # mesh split: "pairs" | "words" (word-sharded ring, DESIGN.md §7) | "grid" (2D pairs x words mesh, DESIGN.md §8)
     partitioner: str = "greedy"    # equivalence-class placement (paper §4.5)
     p: int = 10                    # partitions for the class table
     max_k: Optional[int] = None    # deepest itemset length to mine (>= 1); None = unbounded
     bucket_min: int = 128          # engine pair-buffer ladder floor (half-pow2 rungs)
-    # not ported yet: any value but these defaults raises NotImplementedError
-    block_w: Optional[int] = None
-    autotune: bool = False
+    block_w: Optional[int] = None  # K2's word tile (kernels.autotune.kernel_block_ws); None = autotune table, else the kernel's rule
+    autotune: bool = False         # tune on a miss: measure a shape class's tiles before its first launch
+    # the reference's non-compacting engine is not in the port: any value but
+    # True raises NotImplementedError
     compact: bool = True
 
     def resolve_min_sup(self, n_txn: int) -> int:
         return resolve_min_sup(self.min_sup, n_txn)
 
 
-# field -> (its default, the ROADMAP entry that will port it)
-_UNPORTED = {"block_w": (None, "item 6 (tile selection and dispatch)"),
-             "autotune": (False, "item 6 (tile selection and dispatch)"),
-             "compact": (True, "queue 3 (the port has only the compacting "
+# field -> (its default, the ROADMAP entry that says why it is refused)
+_UNPORTED = {"compact": (True, "queue 3 (the port has only the compacting "
                                "engine)")}
 
 
@@ -204,12 +203,21 @@ class StreamingMiner:
         # incremental state: co-occurrence counts over the item universe;
         # per-item supports are its diagonal
         self.cooc = np.zeros((n_items, n_items), np.int64)
+        # dispatch hints for backend="auto" (the reference's): the
+        # steady-state expansion is bounded by the item universe and the
+        # ring's capacity
+        est_q = max(n_items * (n_items - 1) // 2, 1)
+        est_w = max(-(-int(config.n_blocks) * int(config.block_txns) // 32), 1)
         self.engine = eng.resolve_engine(config.backend, mesh,
                                          bucket_min=config.bucket_min,
-                                         shard=config.shard)
+                                         shard=config.shard,
+                                         block_w=config.block_w,
+                                         autotune=config.autotune,
+                                         hints=(est_q, est_w),
+                                         device=self.device)
         # the count matrix on the engine's executor: the kernel for fused,
         # the plain version for ref
-        self._cooc_backend = getattr(self.engine, "inner", self.engine.name)
+        self._cooc_backend = self.engine.executor
         self._prev_frequent: Optional[np.ndarray] = None
         # monotonic window-content stamp: bumped once per completed push();
         # mine_window() stamps its result with the current value, so equal
@@ -225,7 +233,9 @@ class StreamingMiner:
         return np.diag(self.cooc)
 
     def _block_counts(self, block: np.ndarray) -> np.ndarray:
-        return cooccurrence_counts(words_from_numpy(block, self.device),
+        words = words_from_numpy(block, self.device)
+        self.engine.tune_cooccurrence(words)
+        return cooccurrence_counts(words,
                                    backend=self._cooc_backend).astype(np.int64)
 
     def push(self, batch: Sequence[Sequence[int]]) -> dict:

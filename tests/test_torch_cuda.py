@@ -654,3 +654,129 @@ def test_reduced_serve_on_the_card_runs_the_attention_kernels(cuda, arch):
     want, _ = ServingEngine(Model(cfg), params, s_max=32).serve(reqs, 1)
     for r in reqs:
         np.testing.assert_array_equal(got[r.rid], want[r.rid])
+
+
+# ---------------------------------------------------------------------------
+# tile selection (kernels.autotune): every K2 lanes candidate and every K4
+# split candidate against the plain versions, the tuner, the auto mine
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def tune_cache(tmp_path, monkeypatch):
+    from repro_torch.kernels import autotune
+    monkeypatch.setenv(autotune.CACHE_ENV, str(tmp_path / "autotune.json"))
+    autotune.reset()
+    yield tmp_path
+    autotune.reset()
+
+
+# (P, W, Q, n_valid): V = 4 and V = 1 rows (W % 4), pad tails, Q one past
+# each tile (8, 64, 128 pairs) and many tiles
+LANES_SHAPES = [(30, 100, 129, 120), (30, 100, 65, 61), (10, 3125, 9, 9),
+                (40, 7, 300, 250), (40, 25, 389, 389), (600, 100, 20000, 19000),
+                (852, 3125, 4096, 3176), (75, 128, 768, 666)]
+
+
+@pytest.mark.parametrize("lanes", [8, 16, 32])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("p,w,q,nv", LANES_SHAPES)
+def test_every_lanes_candidate_is_exact(cuda, p, w, q, nv, mode, lanes):
+    from repro_torch.kernels.fused_intersect.fused_intersect import (
+        compact_shape, compact_survivors_pairs, cuda_compact_shape,
+        fused_intersect_compact_pairs)
+    assert cuda_compact_shape(lanes, w)[:5] == compact_shape(lanes)
+    args, ms = _pair_args(p, w, q, seed=p + w + q + mode + lanes, device=cuda)
+    got = fused_intersect_compact_pairs(*args, ms, nv, mode=mode, lanes=lanes)
+    want = fused_intersect_compact_ref(*args, ms, nv, mode=mode)
+    for g, e in zip(got, want):
+        assert torch.equal(g.reshape(-1), e.reshape(-1).to(g.dtype))
+    flags = fused_intersect_ref(*args, ms, mode=mode)[2]
+    flags[nv:] = 1
+    given = compact_survivors_pairs(*args[:3], flags.clone(), nv, mode=mode,
+                                    lanes=lanes)
+    want = compact_survivors_ref(*args[:3], flags.clone(), nv, mode=mode)
+    for g, e in zip(given, want):
+        assert torch.equal(g.reshape(-1), e.reshape(-1).to(g.dtype))
+
+
+@pytest.mark.parametrize("n,w", [(187, 3125), (870, 256), (75, 16), (37, 100)])
+def test_every_split_candidate_is_exact(cuda, n, w):
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.trimatrix import plan_for, trimatrix
+    rng = np.random.default_rng(n * w)
+    bm = words_from_numpy(rng.integers(0, 2**32, (n, w), dtype=np.uint32), cuda)
+    want = trimatrix_ref(bm)
+    for split in autotune.split_candidates(n, w, autotune.device_kind(cuda)):
+        assert torch.equal(trimatrix(bm, plan_for(w, split)), want), split
+
+
+@pytest.mark.parametrize("kernel,q,w,rows", [("compact", 4096, 100, 2000),
+                                             ("compact", 1024, 3125, 500),
+                                             ("trimatrix", 75, 16, None)])
+def test_tune_shape_writes_its_table(cuda, tune_cache, kernel, q, w, rows):
+    import json
+    from repro_torch.kernels import autotune
+    kernels.reset_launch_counts()
+    before = autotune.launches
+    rec = autotune.tune_shape(kernel, q, w, 0, device=cuda, rows=rows, reps=5)
+    assert autotune.launches > before
+    assert not any(kernels.launch_counts().values())   # counted apart
+    assert rec["kind"] == torch.cuda.get_device_name(0)
+    assert rec["clock"] == "cuda_events" and rec["ms"] <= rec["default_ms"]
+    assert str(rec["default"]) in rec["candidates"]
+    data = json.loads((tune_cache / "autotune.json").read_text())
+    assert data["shapes"][rec["key"]]["measured_ms"] == rec["ms"]
+    cfg = autotune.table_config(kernel, q, w, 0, cuda)
+    assert cfg == autotune.KernelConfig(**rec["config"])
+
+
+def test_auto_never_picks_ref_on_the_card(cuda, tune_cache, monkeypatch):
+    """A crossover table of this card whose cell is won by ``ref`` still
+    mines through the kernels under backend="auto"."""
+    import json
+    from repro_torch.core import engine as eng
+    from repro_torch.data import generate
+    table = tune_cache / "BENCH_torch_kerneltune.json"
+    table.write_text(json.dumps({"device": torch.cuda.get_device_name(0),
+                                 "crossover": [{"q": 666, "w": 100,
+                                                "best_single": "ref",
+                                                "best_mesh": None}]}))
+    monkeypatch.setenv(eng.KERNELTUNE_ENV, str(table))
+    txns, spec = generate("chess", scale=1.0, seed=0)
+    kernels.reset_launch_counts()
+    res = mine(txns, spec.n_items, EclatConfig(min_sup=0.7, backend="auto"))
+    assert res.stats["backend"] == "fused"
+    assert res.stats["dispatch"]["policy"] == str(table)
+    assert support_checksum(res.support_map()) == "fc427bbc1d53e5f2"
+    counts = kernels.launch_counts()
+    assert counts["fused_intersect_compact"] == len(res.stats["pair_padding"]["per_level"])
+    assert counts["trimatrix"] == 1
+
+
+def test_auto_and_autotune_mines_on_the_card(cuda, tune_cache, monkeypatch):
+    """chess 0.7 through backend="auto" (a crossover table of this card),
+    autotune=True (tuning, then warm) and a block_w: the pinned checksum,
+    K2 once per expansion, K4 once, the tuner's launches counted apart."""
+    import json
+    from repro_torch.core import engine as eng
+    from repro_torch.data import generate
+    from repro_torch.kernels import autotune
+    table = tune_cache / "BENCH_torch_kerneltune.json"
+    table.write_text(json.dumps({"device": torch.cuda.get_device_name(0),
+                                 "crossover": [{"q": 666, "w": 100,
+                                                "best_single": "fused",
+                                                "best_mesh": None}]}))
+    monkeypatch.setenv(eng.KERNELTUNE_ENV, str(table))
+    txns, spec = generate("chess", scale=1.0, seed=0)
+    for kw in (dict(backend="auto"), dict(autotune=True), dict(autotune=True),
+               dict(block_w=256)):
+        kernels.reset_launch_counts()
+        res = mine(txns, spec.n_items, EclatConfig(min_sup=0.7, **kw))
+        assert support_checksum(res.support_map()) == "fc427bbc1d53e5f2", kw
+        counts = kernels.launch_counts()
+        n_exp = len(res.stats["pair_padding"]["per_level"])
+        assert counts["fused_intersect_compact"] == n_exp, kw
+        assert counts["trimatrix"] == 1 and counts["fused_intersect"] == 0, kw
+        if "backend" in kw:
+            assert res.stats["dispatch"]["policy"] == str(table)
+    assert any(k.startswith("compact") for k in autotune.load_table().entries)

@@ -198,8 +198,24 @@ def test_unported_options_raise(field, value, tmp_path, monkeypatch):
         assert got.support_map() == want.support_map()
         assert got.stats["backend"] == "fused"
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        mine(DB, 10, cfg, device="cpu")
+    # ported with tile selection: the port's block_w names one of K2's word
+    # tiles (256 is one at every width), autotune tunes on a miss; both
+    # packages mine the same itemsets, each tuner writing its own table
+    from repro.kernels import autotune as j_autotune
+    from repro_torch.kernels import autotune
+    monkeypatch.setenv(j_autotune.CACHE_ENV, str(tmp_path / "reference.json"))
+    monkeypatch.setenv(autotune.CACHE_ENV, str(tmp_path / "port.json"))
+    j_autotune.reset()
+    autotune.reset()
+    try:
+        got = mine(DB, 10, cfg, device="cpu")
+        want = j_mine(DB, 10, dataclasses.replace(JConfig(min_sup=20),
+                                                  **{field: value}))
+    finally:
+        j_autotune.reset()
+        autotune.reset()
+    assert got.support_map() == want.support_map()
+    assert os.path.exists(tmp_path / "port.json") == (field == "autotune")
 
 
 @pytest.mark.parametrize("backend", ["auto", "sharded"])
@@ -212,8 +228,13 @@ def test_unported_backends_raise(backend):
         assert got.support_map() == want.support_map()
         assert (got.stats["backend"], want.stats["backend"]) == ("fused", "pallas")
         return
-    with pytest.raises(NotImplementedError):
-        mine(DB, 10, EclatConfig(min_sup=20, backend=backend), device="cpu")
+    # ported with measured dispatch: the backend comes from the crossover
+    # table (each package's own), the itemsets are the same
+    got = mine(DB, 10, EclatConfig(min_sup=20, backend=backend), device="cpu")
+    want = j_mine(DB, 10, JConfig(min_sup=20, backend=backend))
+    assert got.support_map() == want.support_map()
+    assert got.stats["backend"] in ("fused", "ref")
+    assert got.stats["dispatch"]["requested"] == "auto"
 
 
 def test_config_validation_matches_reference():

@@ -111,14 +111,25 @@ def test_out_of_range_pairs_are_refused_on_the_host():
 
 
 @pytest.mark.parametrize("name", ["auto", "batched", "sharded", "tidsharded", "grid"])
-def test_unported_backends_raise_not_implemented(name):
+def test_unported_backends_raise_not_implemented(name, tmp_path):
     if name in ("sharded", "tidsharded", "grid"):
         # ported: a mesh backend needs a mesh, as in the reference
         with pytest.raises(ValueError, match="requires a mesh"):
             teng.make_engine(name)
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
+    # ported with measured dispatch: as in the reference, "auto" and
+    # "batched" are names of resolve_engine, not backends; with no table
+    # both resolve to the default (fused here, pallas there)
+    with pytest.raises(ValueError, match="unknown engine backend"):
         teng.make_engine(name)
+    with pytest.raises(ValueError, match="unknown engine backend"):
+        jeng.make_engine(name)
+    nope = str(tmp_path / "nope.json")
+    got = teng.resolve_engine(name, policy_path=nope, hints=(100, 16))
+    want = jeng.resolve_engine(name, policy_path=nope, hints=(100, 16))
+    assert (got.name, want.name) == ("fused", "pallas")
+    assert got.dispatch == want.dispatch == {
+        "requested": name, "auto": name == "auto", "policy": None}
 
 
 def test_unknown_backend_is_a_value_error():

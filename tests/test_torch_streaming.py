@@ -528,16 +528,57 @@ def test_transaction_stream_matches_reference(name, batch_txns, n_batches, seed,
     assert len(got) == n_batches and all(len(b) == batch_txns for b in got)
 
 
+@pytest.fixture
+def tune_caches(tmp_path, monkeypatch):
+    """Both packages' autotune caches in a temporary directory, their
+    in-process tables dropped around the test."""
+    from repro.kernels import autotune as j_autotune
+    from repro_torch.kernels import autotune
+    monkeypatch.setenv(j_autotune.CACHE_ENV, str(tmp_path / "reference.json"))
+    monkeypatch.setenv(autotune.CACHE_ENV, str(tmp_path / "port.json"))
+    j_autotune.reset()
+    autotune.reset()
+    yield tmp_path
+    j_autotune.reset()
+    autotune.reset()
+
+
 @pytest.mark.parametrize("field,value", [("block_w", 256), ("autotune", True),
                                          ("compact", False)])
-def test_unported_config_raises(field, value):
-    cfg = StreamConfig(min_sup=2, **{field: value})
-    with pytest.raises(NotImplementedError, match=f"StreamConfig.{field}.*ROADMAP"):
-        StreamingMiner(N_ITEMS, cfg, device="cpu")
+def test_unported_config_raises(field, value, tune_caches):
+    if field == "compact":
+        cfg = StreamConfig(min_sup=2, **{field: value})
+        with pytest.raises(NotImplementedError,
+                           match=f"StreamConfig.{field}.*ROADMAP"):
+            StreamingMiner(N_ITEMS, cfg, device="cpu")
+        return
+    # ported with tile selection: the same slides as the reference's miner
+    # with the same knob (256 words is one of K2's tiles at every width)
+    got, want = _pair(N_ITEMS, "fused", min_sup=0.05, n_blocks=2,
+                      block_txns=64, **{field: value})
+    assert getattr(got.engine, field) == value
+    for i, batch in enumerate(_batches(4, 64, seed=11)):
+        _assert_same_slide(got.advance(batch), want.advance(batch), f"slide {i}")
+    assert os.path.exists(tune_caches / "port.json") == (field == "autotune")
 
 
 @pytest.mark.parametrize("backend", ["pallas", "jnp", "auto"])
-def test_reference_backend_names_are_refused(backend):
+def test_reference_backend_names_are_refused(backend, tune_caches):
+    if backend == "auto":
+        # ported: measured dispatch from each package's crossover table, the
+        # same slides
+        got = StreamingMiner(N_ITEMS, StreamConfig(min_sup=0.05, n_blocks=2,
+                                                   block_txns=64,
+                                                   backend="auto"),
+                             device="cpu")
+        want = JMiner(N_ITEMS, JStreamConfig(min_sup=0.05, n_blocks=2,
+                                             block_txns=64, backend="auto"))
+        assert got.engine.name in ("fused", "ref")
+        assert got.engine.dispatch["requested"] == "auto"
+        for i, batch in enumerate(_batches(3, 64, seed=12)):
+            _assert_same_slide(got.advance(batch), want.advance(batch),
+                               f"slide {i}")
+        return
     with pytest.raises((ValueError, NotImplementedError)):
         StreamingMiner(N_ITEMS, StreamConfig(min_sup=2, backend=backend),
                        device="cpu")
@@ -706,16 +747,13 @@ def test_launch_stream_prints_the_reference_lines(capsys):
     (["--keep", "2"], 9),
     (["--block-w", "128"], 6), (["--autotune"], 6)])
 def test_launch_stream_refuses_unported_flags_by_name(flags, item, tmp_path,
-                                                      monkeypatch, capsys):
-    """Item 6's flags are still refused by name.  Items 8 and 9 are ported:
-    each of their flags, given alone, runs as the reference's command line
-    does — the same slide lines and exit code (``--restore`` without a
-    directory is a usage error in both; ``--serve`` verifies its storm)."""
-    if item == 6:
-        with pytest.raises(NotImplementedError,
-                           match=f"--{flags[0][2:]} is not ported yet \\(ROADMAP item {item}\\)"):
-            stream_cli.main(STREAM_ARGS + ["--device", "cpu"] + flags)
-        return
+                                                      monkeypatch, capsys,
+                                                      tune_caches):
+    """Items 6, 8 and 9 are ported: each of their flags, given alone, runs
+    as the reference's command line does — the same slide lines and exit
+    code (``--restore`` without a directory is a usage error in both;
+    ``--serve`` verifies its storm; ``--autotune`` writes each package's
+    own table)."""
     monkeypatch.chdir(tmp_path)
 
     def run(main, argv):
