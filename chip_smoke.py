@@ -56,6 +56,19 @@ paths end to end:
   identical greedy outputs required, decode-matches-prefill over all 34
   layers, and the model through the kernels against the same model with
   their plain versions in their place, in float32 and in bf16;
+* LM training: K6's forward ``lse`` and its hand-written backward (delta,
+  dK/dV and dQ kernels) against the plain textbook backward at gemma-2b's
+  and gemma3-4b's attention shapes, bit-equal on a second call
+  (``check_flash_attention_bwd``); the float32 reduced gemma-2b and
+  gemma3-4b trained 5 steps on the card and on the CPU from the same
+  weights and batches, also with ``remat="full"`` (``run_training_reduced``);
+  gemma-2b at full width and depth (18 layers, bf16, B = 4, S = 1,024)
+  trained 6 steps, the first 3 through ``TrainingRunner.run`` with a
+  checkpoint at step 3, a fresh runner restored from it giving steps 4-6
+  bit for bit,
+  18 K6 forward and 18 backward launches a step, the plain attention
+  paths made to raise on the card, and step 1 again with the plain
+  attention patched in (``run_training``);
 
 and times each kernel beside its bound, its plain version and, where one
 exists, a PyTorch call that computes the same function (K4 also at the
@@ -149,7 +162,8 @@ REPORT_SHAPE = {"fused_intersect": MINER_CHESS,
                 "trimatrix": "N=187 W=3125",
                 "flash_attention": "B=2 H=8 Hkv=4 S=2048 D=256 bf16 causal window=0",
                 "flash_attention_f32": "B=2 H=8 Hkv=4 S=2048 D=256 f32 causal window=0",
-                "decode_attention": "B=2 KV=4 G=2 D=256 S=2080 len=2079 bf16 window=0"}
+                "decode_attention": "B=2 KV=4 G=2 D=256 S=2080 len=2079 bf16 window=0",
+                "flash_attention_bwd": "B=4 H=8 Hkv=1 S=1024 D=256 bf16 causal window=0"}
 MINING_KERNELS = ("fused_intersect", "fused_intersect_compact", "trimatrix")
 # the mining kernels the fused mines launch: K1's arithmetic runs inside
 # K2's one pass, so a mine launches K1 (fused_intersect) no time
@@ -229,6 +243,27 @@ DECODE_BF16_FACTOR = 2.0
 # it catches faults larger than rounding (layouts, masks, head maps), and
 # the kernel checks above hold the rounding itself.
 KERNELS_VS_PLAIN_BF16 = 5e-2
+# K6's backward against the plain textbook backward (attention_ref_bwd, run
+# in float32 on the kernel's inputs and forward output): float32 gradients
+# within 1e-4 absolute (sums in another order; they read up to 4e-5 on
+# gradients of magnitude up to 30); bf16 gradients, rounded once to bf16
+# (2^-9 relative), within 1e-2 in ||delta|| / ||ref|| each.  The forward's
+# row log-sum-exp within LSE_TOL of the plain scores' logsumexp (float32
+# rounding of values below 20).
+BWD_TOL_F32 = 1e-4
+BWD_REL_BF16 = 1e-2
+LSE_TOL = 1e-4
+# training: the float32 reduced configs on the card against the CPU, loss
+# by relative difference per step (float32 sums in other orders); the bf16
+# gemma-2b step with the plain attention patched in against the kernels,
+# loss and global grad norm by relative difference (the attention output
+# rounded to bf16 at other places moves both by about the model's own bf16
+# error)
+TRAIN_F32_REL = 1e-4
+TRAIN_PLAIN_BF16_REL = 1e-2
+# gemma-2b training at full width: B x S tokens a step, steps, checkpoint
+# interval (the restore replays the steps after the first checkpoint)
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_EVERY = 4, 1024, 6, 3
 
 
 class SmokeFailure(RuntimeError):
@@ -2015,8 +2050,10 @@ def check_flash_attention():
             want = attention_ref(q.float(), k.float(), v.float(), causal=causal,
                                  window=window or None)
             torch.cuda.synchronize()
-            require(counts == {f"flash_attention.{x}": 2 if x == variant else 0
-                               for x in ("wgmma_bf16", "fma_f32")},
+            require(counts == {**{f"flash_attention.{x}": 2 if x == variant else 0
+                                  for x in ("wgmma_bf16", "fma_f32")},
+                               "flash_attention_bwd.fma_bf16": 0,
+                               "flash_attention_bwd.fma_f32": 0},
                     f"flash_attention {label} {dtype}: variant launches {counts}")
             require(torch.equal(got, again),
                     f"flash_attention {label} {dtype}: two calls differ")
@@ -2310,10 +2347,355 @@ def check_decode_matches_prefill(params, cfg):
             f"{DECODE_BF16_FACTOR} x the prefill path's {floor:.3e}")
 
 
-def _cast(tree, dtype):
+# ---------------------------------------------------------------------------
+# LM training phases (K6's backward, the reduced configs, gemma-2b)
+# ---------------------------------------------------------------------------
+
+def check_flash_attention_bwd():
+    """K6's forward lse and its backward kernels against the plain textbook
+    backward at the training shapes: gemma-2b's global layer (bf16 and
+    float32), gemma3-4b's local layer (bf16) and a ragged length; a second
+    call gives the same bits."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import (attention_lse_ref,
+                                                     attention_ref_bwd,
+                                                     flash_attention,
+                                                     flash_attention_bwd)
+    # (label, B, H, Hkv, S, D, window, dtypes)
+    cases = [("gemma-2b global", 4, 8, 1, 1024, 256, 0,
+              (torch.bfloat16, torch.float32)),
+             ("gemma3-4b local", 2, 8, 4, 2048, 256, 1024, (torch.bfloat16,)),
+             ("ragged S=1000 local", 2, 8, 4, 1000, 256, 1024,
+              (torch.bfloat16, torch.float32))]
+    for label, b, h, hkv, s, d, window, dtypes in cases:
+        for dtype in dtypes:
+            what = f"flash_attention_bwd {label} {dtype}"
+            q, k, v = attn_inputs(b, h, hkv, s, d, dtype, seed=s + h + d, model_layout=True)
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(s)
+            dout = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype).transpose(1, 2)
+            kernels.reset_launch_counts()
+            out, lse = flash_attention(q, k, v, causal=True, window=window, return_lse=True)
+            got = flash_attention_bwd(q, k, v, out, dout, lse, causal=True, window=window)
+            again = flash_attention_bwd(q, k, v, out, dout, lse, causal=True, window=window)
+            variant = "fma_bf16" if dtype == torch.bfloat16 else "fma_f32"
+            counts = kernels.variant_counts()
+            torch.cuda.synchronize()
+            require(counts[f"flash_attention_bwd.{variant}"] == 2 and
+                    kernels.launch_counts()["flash_attention_bwd"] == 2,
+                    f"{what}: variant launches {counts}")
+            args = dict(causal=True, window=window or None)
+            want_lse = attention_lse_ref(q.float(), k.float(), **args)
+            lse_err = float((lse - want_lse).abs().max())
+            require(lse_err <= LSE_TOL, f"{what}: lse off by {lse_err:.3e}")
+            want = attention_ref_bwd(q.float(), k.float(), v.float(), out.float(),
+                                     dout.float(), want_lse, **args)
+            parts = []
+            for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+                require(g.dtype == dtype and g.shape == w.shape,
+                        f"{what}: {name} {g.dtype} {tuple(g.shape)}")
+                require(bool(torch.isfinite(g.float()).all()), f"{what}: non-finite {name}")
+                require(torch.equal(g, a), f"{what}: two calls give different {name}")
+                err = float((g.float() - w.to(dtype).float()).abs().max())
+                rel = float((g.float() - w).norm() / w.norm())
+                MAX_ABS_ERR["flash_attention_bwd"] = max(MAX_ABS_ERR["flash_attention_bwd"], err)
+                if dtype == torch.float32:
+                    require(err <= BWD_TOL_F32, f"{what}: {name} max abs err {err:.3e}")
+                else:
+                    require(rel <= BWD_REL_BF16, f"{what}: {name} rel L2 err {rel:.3e}")
+                parts.append(f"{name} max abs err {err:.3e} rel L2 {rel:.3e}")
+            limit = (f"{BWD_TOL_F32:.0e} abs" if dtype == torch.float32
+                     else f"rel L2 {BWD_REL_BF16:.0e}")
+            print(f"check {what} B={b} H={h} Hkv={hkv} S={s} D={d} causal window={window} "
+                  f"({variant}): lse max abs err {lse_err:.3e}; {'; '.join(parts)} "
+                  f"(limit {limit}); two calls equal")
+            del q, k, v, dout, out, lse, got, again, want, want_lse
+            torch.cuda.empty_cache()
+
+
+def _train_counts():
+    from repro_torch import kernels
+    counts = kernels.launch_counts()
+    counts.update(kernels.variant_counts())
+    return counts
+
+
+def run_training_reduced():
+    """The float32 reduced gemma-2b and gemma3-4b, 5 make_train_step steps
+    on the card and on the CPU from the same weights and batches; K6's FMA
+    forward and backward once per layer a step (the forward twice under
+    remat="full", which recomputes each layer)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.configs.reduced import reduced_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import Model, init_params, stages_meta
+    from repro_torch.training import adamw_init, make_train_step
+    for arch in ("gemma-2b", "gemma3-4b"):
+        cfg = reduced_config(get_config(arch))
+        n_layers = sum(c for _, c in stages_meta(cfg))
+        pipe = TokenPipeline(cfg.vocab_size, batch=4, seq_len=64, seed=0)
+        for remat in ("none", "full"):
+            tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=5,
+                               remat=remat)
+            step = make_train_step(Model(cfg), tcfg)
+            host = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+            card = _cast(host, torch.float32, "cuda")
+            hs, cs = adamw_init(host), adamw_init(card)
+            fwd = n_layers * (2 if remat == "full" else 1)
+            losses, worst = [], 0.0
+            for i in range(5):
+                toks = torch.from_numpy(pipe.batch_at(i)["tokens"])
+                kernels.reset_launch_counts()
+                card, cs, cm = step(card, cs, {"tokens": toks.cuda()})
+                torch.cuda.synchronize()
+                counts = _train_counts()
+                want = {"flash_attention.fma_f32": fwd, "flash_attention_bwd.fma_f32": n_layers,
+                        "flash_attention.wgmma_bf16": 0, "flash_attention_bwd.fma_bf16": 0,
+                        "decode_attention": 0}
+                require(all(counts[k] == n for k, n in want.items()) and
+                        all(counts[k] == 0 for k in MINING_KERNELS),
+                        f"reduced {arch} remat={remat} step {i + 1}: launches {counts}")
+                host, hs, hm = step(host, hs, {"tokens": toks})
+                a, b = float(cm["loss"]), float(hm["loss"])
+                worst = max(worst, abs(a - b) / abs(b))
+                losses.append(a)
+                require(worst <= TRAIN_F32_REL,
+                        f"reduced {arch} remat={remat} step {i + 1}: loss {a} on the "
+                        f"card, {b} on the CPU")
+            print(f"check training reduced {arch} float32 remat={remat}: 5 steps, card "
+                  f"losses {[round(x, 6) for x in losses]}, largest rel diff from the "
+                  f"CPU {worst:.3e} <= {TRAIN_F32_REL:.0e}; K6 fma_f32 forward {fwd} "
+                  f"and backward {n_layers} launches a step ({n_layers} layers)")
+
+
+def run_training():
+    """gemma-2b at full width and depth, bf16, B = 4, S = 1,024: 6 steps,
+    the first 3 through TrainingRunner.run with a checkpoint every 3, then
+    a fresh runner restored from that checkpoint whose steps 4-6 must equal
+    the first run's bit for bit; the plain attention paths raise on the
+    card throughout; then step 1 again with the plain attention patched
+    in.  Returns the backward kernel's launches over the 9 steps."""
+    import shutil
+    import statistics
+    import torch
+    import repro_torch.kernels.flash_attention.ops as ops_mod
+    import repro_torch.models.attention as attn_mod
+    from repro_torch import kernels
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.launch.kernel_timing import nvidia_smi
+    from repro_torch.models import Model, init_params, stages_meta
+    from repro_torch.training import (RunnerConfig, TrainingRunner, adamw_init,
+                                      make_train_step, valid_steps)
+    from repro_torch.training.optimizer import tree_leaves
+
+    cfg = get_config("gemma-2b")
+    n_layers = sum(c for _, c in stages_meta(cfg))
+    require(n_layers == 18 and cfg.dtype == "bfloat16",
+            f"gemma-2b: {n_layers} layers {cfg.dtype}, expected 18 bfloat16")
+    t0 = time.perf_counter()
+    pipe = TokenPipeline(cfg.vocab_size, batch=TRAIN_B, seq_len=TRAIN_S, seed=0)
+    batches = {i: pipe.batch_at(i) for i in range(TRAIN_STEPS)}
+    print(f"train data: {TRAIN_STEPS} batches of {TRAIN_B} x {TRAIN_S} tokens "
+          f"(TokenPipeline seed 0) in {time.perf_counter() - t0:.2f}s")
+    # warmup 1: every step after the first (whose scheduled rate is 0, as
+    # in the reference) moves the bf16 weights by more than half a unit
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1,
+                       total_steps=TRAIN_STEPS, remat="none")
+    step = make_train_step(Model(cfg), tcfg)
+    records = []
+
+    def counted_step(p, s, b):
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step(p, s, b)
+        torch.cuda.synchronize()
+        records.append((time.perf_counter() - t, _train_counts()))
+        return out
+
+    def steps_from(runner, start):
+        """The runner's state carried on from step ``start`` to the last,
+        in memory (no checkpoint written); their metrics."""
+        log = []
+        for i in range(start, TRAIN_STEPS):
+            tokens = torch.from_numpy(batches[i]["tokens"]).cuda()
+            runner.params, runner.opt_state, m = counted_step(
+                runner.params, runner.opt_state, {"tokens": tokens})
+            log.append({k: float(v) for k, v in m.items()})
+        return log
+
+    def fresh(seed):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        params = init_params(cfg, gen, "cuda")
+        return params, adamw_init(params)
+
+    def guard(fn, name):
+        def wrapped(q, *a, **kw):
+            if q.device.type == "cuda":
+                raise SmokeFailure(f"{name} ran on the card during training")
+            return fn(q, *a, **kw)
+        return wrapped
+
+    saved = attn_mod.flash_chunked, ops_mod.attention_ref
+    attn_mod.flash_chunked = guard(attn_mod.flash_chunked, "flash_chunked")
+    ops_mod.attention_ref = guard(ops_mod.attention_ref, "attention_ref")
+    # one checkpoint of gemma-2b (bf16 params, float32 AdamW moments) is
+    # 25 GB: the run writes one, to keep its disk writes under 45 GiB, and
+    # both runs go on past it in memory
+    directory = tempfile.mkdtemp(prefix="chip_smoke-train-")
+    try:
+        params, opt = fresh(0)
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        print(f"train init gemma-2b: {n_params} parameters (bf16), AdamW mu/nu "
+              f"float32; {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+        torch.cuda.reset_peak_memory_stats()
+        runner = TrainingRunner(RunnerConfig(directory, checkpoint_every=TRAIN_EVERY),
+                                counted_step, params, opt, batches.__getitem__)
+        del params, opt
+        t = time.perf_counter()
+        require(runner.run(TRAIN_EVERY) == TRAIN_EVERY, "the runner stopped early")
+        wall_a = time.perf_counter() - t
+        write_s = runner.ckpt.last_write_s
+        steps = valid_steps(directory)
+        require(steps == [TRAIN_EVERY], f"checkpoints at {steps}")
+        first = runner.metrics_log + steps_from(runner, TRAIN_EVERY)
+        peak = torch.cuda.max_memory_allocated()
+        del runner
+        torch.cuda.empty_cache()
+        # a fresh runner (other weights) restores step 3 and replays 4-6
+        params, opt = fresh(1)
+        restored = TrainingRunner(RunnerConfig(directory, checkpoint_every=TRAIN_EVERY),
+                                  counted_step, params, opt, batches.__getitem__)
+        del params, opt
+        t = time.perf_counter()
+        require(restored.maybe_restore() == TRAIN_EVERY, "no restore at step 3")
+        again = steps_from(restored, TRAIN_EVERY)
+        wall_b = time.perf_counter() - t
+        del restored
+        torch.cuda.empty_cache()
+    finally:
+        attn_mod.flash_chunked, ops_mod.attention_ref = saved
+        shutil.rmtree(directory, ignore_errors=True)
+    require(len(first) == TRAIN_STEPS and len(again) == TRAIN_STEPS - TRAIN_EVERY,
+            f"metrics of {len(first)} and {len(again)} steps")
+    for m in first:
+        require(all(map(lambda x: x == x and abs(x) != float("inf"),
+                        (m["loss"], m["grad_norm"]))), f"non-finite metrics {m}")
+    require(again == first[TRAIN_EVERY:],
+            f"the restored steps differ: {again} against {first[TRAIN_EVERY:]}")
+    want = {"flash_attention": n_layers, "flash_attention.wgmma_bf16": n_layers,
+            "flash_attention_bwd": n_layers, "flash_attention_bwd.fma_bf16": n_layers,
+            "flash_attention.fma_f32": 0, "flash_attention_bwd.fma_f32": 0,
+            "decode_attention": 0}
+    for i, (_, counts) in enumerate(records):
+        require(all(counts[k] == n for k, n in want.items()) and
+                all(counts[k] == 0 for k in MINING_KERNELS) and
+                counts["popcount_support"] == 0 and counts["fused_intersect_partial"] == 0,
+                f"training step call {i}: launches {counts}")
+    bwd_launches = sum(c["flash_attention_bwd"] for _, c in records)
+
+    # step 1 again, with the plain attention patched in
+    params, opt = fresh(0)
+    plain_mha = attn_mod.multi_head_attention
+    attn_mod.multi_head_attention = lambda q, k, v, *, causal, window, sm_scale: \
+        attention_ref(q, k, v, causal=causal, window=window or None, sm_scale=sm_scale)
+    try:
+        kernels.reset_launch_counts()
+        _, _, plain = step(params, opt, {"tokens": torch.from_numpy(batches[0]["tokens"]).cuda()})
+        torch.cuda.synchronize()
+        plain = {k: float(v) for k, v in plain.items()}
+    finally:
+        attn_mod.multi_head_attention = plain_mha
+    require(not any(kernels.launch_counts().values()), "the plain step launched a kernel")
+    del params, opt
+    torch.cuda.empty_cache()
+    rel_loss = abs(plain["loss"] - first[0]["loss"]) / abs(plain["loss"])
+    rel_norm = abs(plain["grad_norm"] - first[0]["grad_norm"]) / plain["grad_norm"]
+    require(rel_loss <= TRAIN_PLAIN_BF16_REL and rel_norm <= TRAIN_PLAIN_BF16_REL,
+            f"step 1 through the kernels (loss {first[0]['loss']}, grad norm "
+            f"{first[0]['grad_norm']}) against the plain attention (loss "
+            f"{plain['loss']}, grad norm {plain['grad_norm']})")
+
+    step_s = [t for t, _ in records]
+    median_ms = statistics.median(step_s[1:TRAIN_STEPS]) * 1e3
+    tokens = TRAIN_B * TRAIN_S
+    print(f"train gemma-2b bf16 B={TRAIN_B} S={TRAIN_S} remat=none: losses "
+          f"{[m['loss'] for m in first]} grad norms {[m['grad_norm'] for m in first]}; "
+          f"restored at step {TRAIN_EVERY}: steps {TRAIN_EVERY + 1}-{TRAIN_STEPS} "
+          f"bit-equal; K6 forward {n_layers} (wgmma_bf16) and backward {n_layers} "
+          f"(fma_bf16) launches every step, no plain attention on the card")
+    print(f"train gemma-2b: step 1 with the plain attention: loss {plain['loss']} "
+          f"(rel diff {rel_loss:.3e}), grad norm {plain['grad_norm']} (rel diff "
+          f"{rel_norm:.3e}), both <= {TRAIN_PLAIN_BF16_REL:.0e}")
+    print(f"train gemma-2b timing ({nvidia_smi('name,power.limit')}): step_ms "
+          f"median of steps 2-{TRAIN_STEPS} {median_ms:.1f} (all: "
+          f"{[round(t * 1e3, 1) for t in step_s]}), tokens_per_s "
+          f"{tokens / median_ms * 1e3:.0f}, peak_mem_GB {peak / 1e9:.2f}, "
+          f"runner wall_s {wall_a:.1f} (3 steps and the step-{TRAIN_EVERY} "
+          f"checkpoint) + {wall_b:.1f} (restore + 3 steps), checkpoint write_s "
+          f"{write_s:.1f}")
+    return bwd_launches
+
+
+def time_flash_attention_bwd(launches):
+    """K6's backward at gemma-2b's training layer beside its bound, its
+    plain version and the backward of torch's scaled_dot_product_attention
+    on the same inputs (the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (attention_ref_bwd,
+                                                     flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.launch.kernel_timing import device_ms, median_ms
+    b, h, hkv, s, d = 4, 8, 1, 1024, 256
+    q, k, v = attn_inputs(b, h, hkv, s, d, torch.bfloat16, seed=6, model_layout=True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    dout = torch.randn((b, s, h, d), generator=gen, device="cuda").to(torch.bfloat16).transpose(1, 2)
+    out, lse = flash_attention(q, k, v, causal=True, window=0, return_lse=True)
+    fn = lambda: flash_attention_bwd(q, k, v, out, dout, lse, causal=True, window=0)
+    plain = lambda: attention_ref_bwd(q, k, v, out, dout, lse, causal=True)
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+    lib = lambda: torch.autograd.grad(lib_out, (qs, ks, vs), dout, retain_graph=True)
+    err = max(float((a.float() - b_.float()).norm() / b_.float().norm())
+              for a, b_ in zip(lib(), fn()))
+    require(err <= SDPA_TOL,
+            f"SDPA's backward disagrees with flash_attention_bwd: rel L2 {err:.3e}")
+    kept = s * (s + 1) // 2
+    nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+    bms, by = bound_attn(nbytes, 10 * d * kept * b * h)
+    row = dict(name="flash_attention_bwd", route="cuda",
+               source="src/repro_torch/csrc/flash_attention_bwd.cu",
+               replaces="src/repro/kernels/flash_attention/flash_attention.py:110",
+               shape=REPORT_SHAPE["flash_attention_bwd"],
+               ms=device_ms(fn, reps=10), plain_ms=device_ms(plain, reps=3),
+               library_ms=device_ms(lib, reps=10), call_ms=median_ms(fn, reps=10),
+               bound_ms=bms, bound_by=by, launches=launches, listed=True)
+    print(f"timing flash_attention_bwd {row['shape']}: ms={row['ms']:.5f} "
+          f"plain_ms={row['plain_ms']:.5f} bound_ms={row['bound_ms']:.5f} ({by}) "
+          f"library_ms={row['library_ms']:.5f} launches_on_main_path={launches}; "
+          f"call_ms={row['call_ms']:.5f}; bound: 10 D operations per kept pair "
+          f"(S recomputed, dV, dP, dQ, dK) at the dense bf16 tensor-core rate, "
+          f"q, k, v, out, dout, lse read and dq, dk, dv written once; library: "
+          f"the backward of scaled_dot_product_attention (enable_gqa), which "
+          f"the port never calls; SDPA's gradients within rel L2 {err:.3e} of the kernel's")
+    for key in ("ms", "plain_ms", "library_ms"):
+        require(row["bound_ms"] <= row[key],
+                f"flash_attention_bwd: bound_ms {row['bound_ms']:.5f} exceeds {key}")
+    return row
+
+
+def _cast(tree, dtype, device=None):
     if isinstance(tree, dict):
-        return {k: _cast(v, dtype) for k, v in tree.items()}
-    return tree.to(dtype)
+        return {k: _cast(v, dtype, device) for k, v in tree.items()}
+    return tree.to(device=device, dtype=dtype)
 
 
 def bound_attn(nbytes, flops, rate=None):
@@ -2511,7 +2893,12 @@ def main() -> int:
     phase(check_decode_matches_prefill, params, cfg)
     del params
     torch.cuda.empty_cache()
-    rows = phase(time_kernels, launches, miner, stream_rec) + phase(time_attention, serve_counts)
+    phase(check_flash_attention_bwd)
+    phase(run_training_reduced)
+    bwd_launches = phase(run_training)
+    rows = (phase(time_kernels, launches, miner, stream_rec) +
+            phase(time_attention, serve_counts) +
+            [phase(time_flash_attention_bwd, bwd_launches)])
     kernels_line = [dict(name=r["name"], route=r["route"], source=r["source"],
                          replaces=r["replaces"], shape=r["shape"],
                          launches=r["launches"],

@@ -1,5 +1,5 @@
 """Architecture registry of the port: the configs whose layer kinds the port
-runs (``attn`` and ``local`` decoder layers).
+runs (``attn`` and ``local`` decoder layers), for serving and for training.
 
 Every config is importable as ``repro_torch.configs.<module>.CONFIG`` and
 selectable via ``get_config("<arch-id>")`` / ``--arch <id>``.  The modules
@@ -24,9 +24,9 @@ def get_config(name: str) -> ModelConfig:
         _load_all()
     if name not in _REGISTRY:
         raise NotImplementedError(
-            f"config {name!r} is not ported to repro_torch (ported: "
-            f"{sorted(_REGISTRY)}); the other architectures wait for "
-            f"ROADMAP item 12")
+            f"config {name!r} is not ported to repro_torch (ported, for "
+            f"serving and training: {sorted(_REGISTRY)}); the other "
+            f"architectures wait for ROADMAP item 12")
     return _REGISTRY[name]
 
 

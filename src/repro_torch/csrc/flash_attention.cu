@@ -51,6 +51,14 @@
 // whose rows all mask a loaded tile skips its products.
 // D = 16..256 runs in tiles of 64, 128 or 256 columns, zero-filled past D.
 //
+// Both kernels also write each row's log-sum-exp of its kept scaled scores,
+// lse[b, h, i] = log sum_j exp(q_i . k_j * scale) (natural log, float32,
+// (B, H, S) contiguous; +inf for a row that keeps no column), when the
+// caller passes a pointer: the backward (flash_attention_bwd.cu) recomputes
+// the probabilities from it.  A null pointer writes nothing, so the serving
+// path runs as it did.  The wgmma kernel keeps its running max in base 2
+// (scores times scale * log2 e) and converts at the store.
+//
 // float32, flash_attention_f32_kernel: fp32 FMA on the CUDA cores.  The
 // tensor cores have no fp32 product that holds 1e-4 absolute (TF32 keeps
 // 10 bits), and float32 is the checking dtype, not the served one.  One
@@ -83,6 +91,7 @@ constexpr int kThreads = 256;        // two warpgroups of 64 query rows
 constexpr int kStages = 2;           // k/v ring depth
 constexpr int kPanelBytes = 64 * 128;  // 64 rows x 64 bf16 columns (128 B, swizzled)
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int kD>
 struct Layout {
@@ -173,7 +182,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
-                             __nv_bfloat16* __restrict__ o, int group, int S, int D,
+                             __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                             int group, int S, int D,
                              long long osb, long long osh, long long oss,
                              float scale_log2, int causal, int window) {
   using L = Layout<kD>;
@@ -366,6 +376,12 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  if (lse != nullptr && lane % 4 == 0) {
+    // the quad's lanes hold the same max and sum: lane 0 of it stores
+    float* lb = lse + (static_cast<long long>(b) * gridDim.x + h) * S;
+    if (row0 < S) lb[row0] = l0 > 0.f ? (m0 + log2f(l0)) * kLn2 : INFINITY;
+    if (row1 < S) lb[row1] = l1 > 0.f ? (m1 + log2f(l1)) * kLn2 : INFINITY;
+  }
   __nv_bfloat16* ob = o + b * osb + h * osh;
 #pragma unroll
   for (int j = 0; j < kD / 8; ++j) {
@@ -425,9 +441,9 @@ cudaError_t make_map(CUtensorMap* map, const void* base, int B, int heads, int S
 }
 
 template <int kD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-                   int Hkv, int S, int D, const long long* st, float sm_scale, int causal,
-                   int window, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int H, int Hkv, int S, int D, const long long* st, float sm_scale,
+                   int causal, int window, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   cudaError_t err = make_map(&mq, q, B, H, S, D, st[0], st[1], st[2]);
   if (err == cudaSuccess) err = make_map(&mk, k, B, Hkv, S, D, st[3], st[4], st[5]);
@@ -439,17 +455,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   if (err != cudaSuccess) return err;
   const dim3 grid(H, B, (S + kBM - 1) / kBM);
   flash_attention_wgmma_kernel<kD><<<grid, kThreads, bytes, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), H / Hkv, S, D, st[9], st[10], st[11],
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, H / Hkv, S, D, st[9], st[10], st[11],
       sm_scale * kLog2e, causal, window);
   return cudaGetLastError();
 }
 
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B, int H,
-                     int Hkv, int S, int D, const long long* st, float sm_scale, int causal,
-                     int window, cudaStream_t stream) {
-  if (D <= 64) return launch<64>(q, k, v, o, B, H, Hkv, S, D, st, sm_scale, causal, window, stream);
-  if (D <= 128) return launch<128>(q, k, v, o, B, H, Hkv, S, D, st, sm_scale, causal, window, stream);
-  return launch<256>(q, k, v, o, B, H, Hkv, S, D, st, sm_scale, causal, window, stream);
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                     int H, int Hkv, int S, int D, const long long* st, float sm_scale,
+                     int causal, int window, cudaStream_t stream) {
+  if (D <= 64) return launch<64>(q, k, v, o, lse, B, H, Hkv, S, D, st, sm_scale, causal, window, stream);
+  if (D <= 128) return launch<128>(q, k, v, o, lse, B, H, Hkv, S, D, st, sm_scale, causal, window, stream);
+  return launch<256>(q, k, v, o, lse, B, H, Hkv, S, D, st, sm_scale, causal, window, stream);
 }
 
 }  // namespace wg
@@ -506,6 +522,7 @@ template <int kD>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
+                           float* __restrict__ lse,
                            int group, int S, int D, long long qsb, long long qsh,
                            long long qss, long long ksb, long long ksh,
                            long long kss, long long vsb, long long vsh,
@@ -642,6 +659,9 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
   for (int i = 0; i < 2; ++i) {
     const int row = q0 + ty + 32 * i;
     if (row >= S) continue;
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<long long>(b) * gridDim.y + h) * S + row] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < kChunksPerRow; ++c) {
@@ -656,7 +676,7 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
 }
 
 template <int kD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
                    int B, int H, int Hkv, int S, int D,
                    const long long* st, float sm_scale, int causal,
                    int window, cudaStream_t stream) {
@@ -670,20 +690,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   flash_attention_f32_kernel<kD><<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), H / Hkv, S, D,
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H / Hkv, S, D,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
       st[9], st[10], st[11], sm_scale, causal, window);
   return cudaGetLastError();
 }
 
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
                      int B, int H, int Hkv, int S, int D,
                      const long long* st, float sm_scale, int causal,
                      int window, cudaStream_t stream) {
   // the ported configs' head sizes: 16 (reduced) and 256 (gemma3-4b,
   // gemma-2b); any other D runs zero-padded in the next size up
-  if (D <= 32) return launch<32>(q, k, v, o, B, H, Hkv, S, D, st, sm_scale, causal, window, stream);
-  return launch<256>(q, k, v, o, B, H, Hkv, S, D, st, sm_scale, causal, window, stream);
+  if (D <= 32) return launch<32>(q, k, v, o, lse, B, H, Hkv, S, D, st, sm_scale, causal, window, stream);
+  return launch<256>(q, k, v, o, lse, B, H, Hkv, S, D, st, sm_scale, causal, window, stream);
 }
 
 }  // namespace f32
@@ -697,11 +717,13 @@ extern "C" {
 // with D contiguous.  dtype 0 = float32 (flash_attention_f32_kernel),
 // 1 = bfloat16 (flash_attention_wgmma_kernel; its strides and base
 // addresses must be multiples of 16 bytes).  D a multiple of 8 up to 256;
-// window 0 = no window.  Returns a cudaError_t.
+// window 0 = no window.  lse: null, or (B, H, S) float32 contiguous, the
+// rows' log-sum-exp.  Returns a cudaError_t.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int dtype, int B, int H, int Hkv, int S,
                            int D, const long long* strides, float sm_scale,
-                           int causal, int window, int device, void* stream) {
+                           int causal, int window, void* lse, int device,
+                           void* stream) {
   if (B <= 0 || H <= 0 || S <= 0) return cudaSuccess;
   if (Hkv <= 0 || H % Hkv != 0 || D <= 0 || D > 256 || D % 8 != 0 ||
       B > 65535 || H > 65535)
@@ -709,10 +731,11 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == 0)
-    return f32::dispatch(q, k, v, o, B, H, Hkv, S, D, strides, sm_scale, causal, window, s);
+    return f32::dispatch(q, k, v, o, l, B, H, Hkv, S, D, strides, sm_scale, causal, window, s);
   if (dtype == 1)
-    return wg::dispatch(q, k, v, o, B, H, Hkv, S, D, strides, sm_scale, causal, window, s);
+    return wg::dispatch(q, k, v, o, l, B, H, Hkv, S, D, strides, sm_scale, causal, window, s);
   return cudaErrorInvalidValue;
 }
 

@@ -69,16 +69,23 @@ def _on_host(group) -> bool:
     return dist.get_backend(group) == dist.Backend.GLOO
 
 
-def all_reduce(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-    """Sum ``t`` over the ranks of ``axis``, in place; returns ``t``."""
+_REDUCE_OPS = {"sum": (dist.ReduceOp.SUM, "all_reduce"),
+               "max": (dist.ReduceOp.MAX, "all_reduce_max")}
+
+
+def all_reduce(t: torch.Tensor, mesh, axis: str, op: str = "sum") -> torch.Tensor:
+    """Reduce ``t`` over the ranks of ``axis`` (``op`` ``"sum"`` or
+    ``"max"``), in place; returns ``t``.  Counted as ``all_reduce`` (sum)
+    or ``all_reduce_max``."""
     group = mesh.get_group(axis)
-    _count(axis, "all_reduce", t)
+    reduce_op, name = _REDUCE_OPS[op]
+    _count(axis, name, t)
     if _on_host(group) and t.device.type != "cpu":
         host = t.cpu()
-        dist.all_reduce(host, group=group)
+        dist.all_reduce(host, op=reduce_op, group=group)
         t.copy_(host)
     else:
-        dist.all_reduce(t, group=group)
+        dist.all_reduce(t, op=reduce_op, group=group)
     return t
 
 

@@ -8,8 +8,11 @@ fused_intersect : gather + AND/ANDNOT + popcount + min-support threshold,
 trimatrix       : 2-itemset co-occurrence counts (the paper's Phase-2
                   triangular matrix, behind ``core.triangular``)
 flash_attention : online-softmax attention, causal / sliding window / GQA
-                  (every prefill layer of ``models.attention``): a bf16
-                  tensor-core (wgmma + TMA) kernel and a float32 FMA one
+                  (every full-sequence layer of ``models.attention``): a
+                  bf16 tensor-core (wgmma + TMA) kernel and a float32 FMA
+                  one; and its backward (``flash_attention_bwd``: delta,
+                  dK/dV and dQ kernels on the CUDA cores) behind
+                  ``FlashAttentionFunction``, for training
 decode_attention: one-token grouped-query attention over the KV cache,
                   split over blocks along the cache and merged in one
                   launch (every decode step of ``models.attention``)
@@ -35,6 +38,7 @@ def _counted():
             "fused_intersect_partial": fused_intersect.fused_intersect_partial_pairs,
             "trimatrix": trimatrix.trimatrix,
             "flash_attention": flash_attention.flash_attention,
+            "flash_attention_bwd": flash_attention.flash_attention_bwd,
             "decode_attention": decode_attention.decode_attention,
             "popcount_support": popcount_support.popcount_support}
 
@@ -44,16 +48,22 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in _counted().items()}
 
 
+def _with_variants():
+    return {"flash_attention": flash_attention.flash_attention,
+            "flash_attention_bwd": flash_attention.flash_attention_bwd}
+
+
 def variant_counts() -> dict:
     """Launches of each variant of a kernel that has several, since the last
-    reset: ``{"flash_attention.wgmma_bf16": n, "flash_attention.fma_f32": n}``."""
-    fn = flash_attention.flash_attention
-    return {f"flash_attention.{v}": n for v, n in fn.variant_launches.items()}
+    reset: ``{"flash_attention.wgmma_bf16": n, "flash_attention.fma_f32": n,
+    "flash_attention_bwd.fma_bf16": n, "flash_attention_bwd.fma_f32": n}``."""
+    return {f"{name}.{v}": n for name, fn in _with_variants().items()
+            for v, n in fn.variant_launches.items()}
 
 
 def reset_launch_counts() -> None:
     for fn in _counted().values():
         fn.launches = 0
-    variants = flash_attention.flash_attention.variant_launches
-    for v in variants:
-        variants[v] = 0
+    for fn in _with_variants().values():
+        for v in fn.variant_launches:
+            fn.variant_launches[v] = 0

@@ -1,10 +1,19 @@
-"""ctypes binding of the flash-attention CUDA kernels
-(``csrc/flash_attention.cu``), with the launch counter
-``flash_attention.launches`` (every launch) and one counter per variant in
-``flash_attention.variant_launches``: ``wgmma_bf16`` (bfloat16 inputs, the
-tensor-core kernel the served model runs) and ``fma_f32`` (float32 inputs,
-the CUDA-core kernel).  The dtype picks the variant; neither falls back to
-the other, and a failed launch raises.
+"""ctypes binding of the flash-attention CUDA kernels: the forward
+(``csrc/flash_attention.cu``) and its backward
+(``csrc/flash_attention_bwd.cu``).
+
+The forward's launch counter ``flash_attention.launches`` (every launch)
+and one counter per variant in ``flash_attention.variant_launches``:
+``wgmma_bf16`` (bfloat16 inputs, the tensor-core kernel the served model
+runs) and ``fma_f32`` (float32 inputs, the CUDA-core kernel).  The dtype
+picks the variant; neither falls back to the other, and a failed launch
+raises.  ``flash_attention(..., return_lse=True)`` also returns each row's
+log-sum-exp, which the backward reads.
+
+The backward's counters, ``flash_attention_bwd.launches`` and
+``flash_attention_bwd.variant_launches`` (``fma_bf16``, ``fma_f32``: the
+same CUDA-core kernels loading bfloat16 or float32), count one per call:
+a call launches its three kernels (delta, dK/dV, dQ) together.
 
 The kernel reads q, k and v and writes the output through their strides, so
 a (B, H, S, D) view of the model's (B, S, H, D) activations
@@ -20,10 +29,11 @@ import torch
 from .. import _build
 from .._layout import rows_of_16_bytes
 
-__all__ = ["flash_attention"]
+__all__ = ["flash_attention", "flash_attention_bwd"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANTS = {torch.float32: "fma_f32", torch.bfloat16: "wgmma_bf16"}
+_BWD_VARIANTS = {torch.float32: "fma_f32", torch.bfloat16: "fma_bf16"}
 _BOUND = False
 
 
@@ -32,31 +42,36 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library()
     if not _BOUND:
         vp, i = ctypes.c_void_p, ctypes.c_int
+        strides = ctypes.POINTER(ctypes.c_longlong)
         lib.flash_attention_launch.argtypes = [
-            vp, vp, vp, vp, i, i, i, i, i, i,
-            ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i, i, i, vp]
+            vp, vp, vp, vp, i, i, i, i, i, i, strides, ctypes.c_float, i, i,
+            vp, i, vp]
         lib.flash_attention_launch.restype = ctypes.c_int
+        lib.flash_attention_bwd_launch.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, strides,
+            ctypes.c_float, i, i, i, vp]
+        lib.flash_attention_bwd_launch.restype = ctypes.c_int
         _BOUND = True
     return lib
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0,
-                    sm_scale=None) -> torch.Tensor:
-    """q: (B, H, S, D); k/v: (B, Hkv, S, D) on the card, float32 or
-    bfloat16 -> (B, H, S, D) in q's dtype (bfloat16: the wgmma kernel;
-    float32: the FMA kernel).  ``window`` 0 means no window
-    (:func:`.ops.multi_head_attention` maps ``None`` to 0).  Self-attention
-    only: k and v have q's sequence length."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def _check(named):
+    """Device, rank and dtype checks shared by the forward and backward."""
+    for name, t in named:
         if t.device.type != "cuda":
             raise ValueError(f"the CUDA kernel needs CUDA tensors, got {name} "
                              f"on {t.device}")
         if t.ndim != 4:
             raise ValueError(f"{name} must be 4-d, got {tuple(t.shape)}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"expected float32 or bfloat16 q, k, v of one dtype, "
-                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    dtypes = [t.dtype for _, t in named]
+    if dtypes[0] not in _DTYPES or any(x != dtypes[0] for x in dtypes):
+        raise ValueError(f"expected float32 or bfloat16 "
+                         f"{', '.join(n for n, _ in named)} of one dtype, got "
+                         f"{', '.join(str(x) for x in dtypes)}")
+
+
+def _shapes(q, k, v, window):
+    """(B, H, Hkv, S, D) of a self-attention call, checked."""
     b, h, s, d = q.shape
     _, hkv, sk, dk = k.shape
     if (k.shape != v.shape or k.shape[0] != b or dk != d or hkv == 0
@@ -70,25 +85,101 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "to 256")
     if window < 0:
         raise ValueError(f"window must be >= 0 (0 = none), got {window}")
+    return b, h, hkv, s, d
+
+
+def _empty_like(t: torch.Tensor) -> torch.Tensor:
+    """An output in ``t``'s memory layout (a view of the model's (B, S, H,
+    D) activations gets one too), contiguous where that layout does not give
+    16-byte rows."""
+    out = torch.empty_like(t)
+    return out if out.numel() == 0 else rows_of_16_bytes(out)
+
+
+def _strides(*ts) -> ctypes.Array:
+    return (ctypes.c_longlong * (3 * len(ts)))(
+        *(st for t in ts for st in t.stride()[:3]))
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    sm_scale=None, return_lse: bool = False):
+    """q: (B, H, S, D); k/v: (B, Hkv, S, D) on the card, float32 or
+    bfloat16 -> (B, H, S, D) in q's dtype (bfloat16: the wgmma kernel;
+    float32: the FMA kernel).  ``window`` 0 means no window
+    (:func:`.ops.multi_head_attention` maps ``None`` to 0).  Self-attention
+    only: k and v have q's sequence length.
+
+    With ``return_lse`` returns ``(out, lse)``: ``lse`` (B, H, S) float32,
+    each row's natural log-sum-exp of its kept scores times ``sm_scale``
+    (+inf for a row that keeps none)."""
+    _check((("q", q), ("k", k), ("v", v)))
+    b, h, hkv, s, d = _shapes(q, k, v, window)
     if sm_scale is None:
         sm_scale = d ** -0.5
     q, k, v = rows_of_16_bytes(q), rows_of_16_bytes(k), rows_of_16_bytes(v)
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0:
-        return out
-    strides = (ctypes.c_longlong * 12)(
-        *(st for t in (q, k, v, out) for st in t.stride()[:3]))
+        return (out, lse) if return_lse else out
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = _lib().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPES[q.dtype], b, h, hkv, s, d, strides, float(sm_scale),
-        int(bool(causal)), int(window), q.device.index, stream)
+        _DTYPES[q.dtype], b, h, hkv, s, d, _strides(q, k, v, out),
+        float(sm_scale), int(bool(causal)), int(window),
+        None if lse is None else lse.data_ptr(), q.device.index, stream)
     variant = _VARIANTS[q.dtype]
     _build.check(code, f"flash_attention ({variant})")
     flash_attention.launches += 1
     flash_attention.variant_launches[variant] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
 flash_attention.variant_launches = dict.fromkeys(_VARIANTS.values(), 0)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor,
+                        lse: torch.Tensor, *, causal: bool = True,
+                        window: int = 0, sm_scale=None):
+    """Gradients of :func:`flash_attention` on the card: q, out, dout
+    (B, H, S, D), k/v (B, Hkv, S, D), all float32 or all bfloat16, and the
+    forward's ``lse`` (B, H, S) float32 -> ``(dq, dk, dv)`` in the inputs'
+    dtype and memory layouts, summed in float32 (dk, dv over the G query
+    heads of each KV head).  Pass the q, k, v and out the forward read and
+    wrote.  Masks as in the forward (``window`` 0 = none)."""
+    _check((("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout)))
+    b, h, hkv, s, d = _shapes(q, k, v, window)
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and dout {tuple(dout.shape)} "
+                         f"must have q's shape {tuple(q.shape)}")
+    if (lse.device != q.device or lse.dtype != torch.float32
+            or tuple(lse.shape) != (b, h, s)):
+        raise ValueError(f"lse must be ({b}, {h}, {s}) float32 on {q.device}, "
+                         f"got {tuple(lse.shape)} {lse.dtype} on {lse.device}")
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    q, k, v, out, dout = (rows_of_16_bytes(t) for t in (q, k, v, out, dout))
+    lse = lse.contiguous()
+    dq, dk, dv = _empty_like(q), _empty_like(k), _empty_like(v)
+    if dq.numel() == 0:
+        return dq, dk, dv
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = _lib().flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], b, h, hkv, s, d,
+        _strides(q, k, v, out, dout, dq, dk, dv), float(sm_scale),
+        int(bool(causal)), int(window), q.device.index, stream)
+    variant = _BWD_VARIANTS[q.dtype]
+    _build.check(code, f"flash_attention_bwd ({variant})")
+    flash_attention_bwd.launches += 1
+    flash_attention_bwd.variant_launches[variant] += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+flash_attention_bwd.variant_launches = dict.fromkeys(_BWD_VARIANTS.values(), 0)

@@ -4,32 +4,49 @@ CPU tensors.  Mirrors the reference package's ``attention_ref``.
 
 :func:`attention_split_p_ref` emulates the arithmetic of the bf16 tensor-core
 kernel (the probabilities split into two bf16 terms before the PV
-product); only the tests and ``chip_smoke.py`` use it."""
+product); only the tests and ``chip_smoke.py`` use it.
+
+:func:`attention_lse_ref` and :func:`attention_ref_bwd` are the plain
+versions of the forward's row log-sum-exp and of the backward kernels
+(``csrc/flash_attention_bwd.cu``)."""
 from __future__ import annotations
 
 import torch
 
-__all__ = ["attention_ref", "attention_split_p_ref"]
+__all__ = ["attention_ref", "attention_split_p_ref", "attention_lse_ref",
+           "attention_ref_bwd"]
 
 
-def _probabilities(q, k, causal, window, sm_scale):
-    """Unnormalised softmax numerators exp(s - rowmax) in fp32, (B, H, S, S),
-    and the group size H / Hkv."""
+def _mask(s, causal, window, device):
+    rows = torch.arange(s, device=device)[:, None]
+    cols = torch.arange(s, device=device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=device)
+    if causal:
+        mask &= cols <= rows
+    if window is not None:
+        mask &= cols > rows - window
+    return mask
+
+
+def _scores(q, k, causal, window, sm_scale):
+    """Masked scores q k^T * scale in fp32, (B, H, S, S) (masked entries
+    -1e30), the mask and the group size H / Hkv."""
     b, h, s, d = q.shape
     group = h // k.shape[1]
     if sm_scale is None:
         sm_scale = d ** -0.5
     kk = k.repeat_interleave(group, dim=1)
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk.float()) * sm_scale
-    rows = torch.arange(s, device=q.device)[:, None]
-    cols = torch.arange(s, device=q.device)[None, :]
-    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= cols <= rows
-    if window is not None:
-        mask &= cols > rows - window
+    mask = _mask(s, causal, window, q.device)
     scores = torch.where(mask[None, None], scores,
                          torch.tensor(-1e30, device=q.device))
+    return scores, mask, group
+
+
+def _probabilities(q, k, causal, window, sm_scale):
+    """Unnormalised softmax numerators exp(s - rowmax) in fp32, (B, H, S, S),
+    and the group size H / Hkv."""
+    scores, _, group = _scores(q, k, causal, window, sm_scale)
     return torch.exp(scores - scores.amax(dim=-1, keepdim=True)), group
 
 
@@ -62,3 +79,43 @@ def attention_split_p_ref(q, k, v, *, causal=True, window=None,
     out = (torch.einsum("bhqk,bhkd->bhqd", p_hi.float(), vv)
            + torch.einsum("bhqk,bhkd->bhqd", p_lo.float(), vv))
     return out / p.sum(dim=-1, keepdim=True)
+
+
+def attention_lse_ref(q, k, *, causal=True, window=None, sm_scale=None):
+    """(B, H, S) float32: each row's natural log-sum-exp of its kept scores
+    q k^T * scale, the forward kernels' ``lse`` (``window`` as in
+    :func:`attention_ref`)."""
+    scores, mask, _ = _scores(q, k, causal, window, sm_scale)
+    return torch.logsumexp(scores.masked_fill(~mask[None, None], float("-inf")),
+                           dim=-1)
+
+
+def attention_ref_bwd(q, k, v, out, dout, lse, *, causal=True, window=None,
+                      sm_scale=None):
+    """Gradients of :func:`attention_ref` by the textbook formula, the plain
+    version of the backward kernels: P recomputed from ``lse`` (the
+    forward's row log-sum-exp, natural log), then ``dV = P^T dO``,
+    ``dP = dO V^T``, ``dS = P * (dP - rowsum(dO * O))``, ``dQ = dS K *
+    scale``, ``dK = dS^T Q * scale``; dK and dV summed over the G query
+    heads of each KV head.  q, out, dout: (B, H, S, D); k, v: (B, Hkv, S,
+    D) -> ``(dq, dk, dv)`` in float32.  ``window`` as in
+    :func:`attention_ref` (``None`` = none)."""
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    scores, mask, group = _scores(q, k, causal, window, sm_scale)
+    p = torch.where(mask[None, None], torch.exp(scores - lse.float()[..., None]),
+                    torch.zeros((), device=q.device))
+    qf, gf, of = q.float(), dout.float(), out.float()
+    kk = k.float().repeat_interleave(group, dim=1)
+    vv = v.float().repeat_interleave(group, dim=1)
+    delta = (gf * of).sum(-1)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, gf)
+    dp = torch.einsum("bhqd,bhkd->bhqk", gf, vv)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kk) * sm_scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * sm_scale
+    dk = dk.reshape(b, hkv, group, s, d).sum(2)
+    dv = dv.reshape(b, hkv, group, s, d).sum(2)
+    return dq, dk, dv

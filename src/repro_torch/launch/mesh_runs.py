@@ -52,6 +52,9 @@ driver's flags.  Kinds:
                 on the rank's mesh; returns the checksum, the levels, the
                 launches, the stats' collectives and the resumed level
 ``mesh``        ``mesh_descriptor`` of the mesh
+``compressed_psum``  ``training.compressed_psum`` over the ``data`` axis of
+                a 1D mesh of every rank: rank ``r`` contributes ``x[r]`` (a
+                numpy array) with ``method``; returns the result as numpy
 
 A job that the port refuses (``ValueError``, ``TypeError``,
 ``NotImplementedError``) returns ``{"error": "<type>: <message>"}``; any
@@ -75,7 +78,7 @@ from ..dist.sharding import mesh_descriptor
 from ..faults import InjectedFault, clear_kill_hook, set_kill_hook
 from ..streaming import (StreamCheckpointer, StreamConfig, StreamingMiner,
                          restore_miner)
-from ..training import valid_steps
+from ..training import compressed_psum, valid_steps
 from .mesh import mesh_for_mining
 
 __all__ = ["run_jobs"]
@@ -343,9 +346,17 @@ def _mesh(rank: _Rank, job: dict) -> dict:
     return dict(mesh=mesh_descriptor(rank.mesh(job)))
 
 
+def _compressed_psum(rank: _Rank, job: dict) -> dict:
+    mesh = rank.mesh(dict(job, backend="sharded", shard="pairs"))
+    x = torch.from_numpy(job["x"][mesh.get_coordinate()[0]]).to(rank.device)
+    out = compressed_psum(x, mesh, "data", method=job.get("method", "int8"))
+    return dict(out=out.cpu().numpy(), collectives=coll.collective_counts())
+
+
 _KINDS = {"mine": _mine, "expand": _expand, "accumulate": _accumulate,
           "stream": _stream, "stream_ckpt": _stream_ckpt,
-          "stream_restore": _stream_restore, "resume": _resume, "mesh": _mesh}
+          "stream_restore": _stream_restore, "resume": _resume, "mesh": _mesh,
+          "compressed_psum": _compressed_psum}
 
 
 def run_jobs(device: torch.device, jobs: Sequence[dict]) -> List[dict]:

@@ -43,7 +43,7 @@ TOP_KERNELS = 12
 ATTENTION_KERNELS = ("flash_attention_wgmma_kernel", "decode_attention_split_kernel")
 
 
-def _kernel_times(prof) -> dict:
+def kernel_times(prof) -> dict:
     """Device time in ms per kernel name (CUDA events of the trace)."""
     out = {}
     for evt in prof.key_averages():
@@ -62,7 +62,7 @@ def _window(label, fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    times = _kernel_times(prof)
+    times = kernel_times(prof)
     busy = sum(ms for ms, _ in times.values())
     attn = {name: sum(ms for k, (ms, _) in times.items() if name in k)
             for name in ATTENTION_KERNELS}

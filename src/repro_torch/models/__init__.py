@@ -1,6 +1,7 @@
 """repro_torch.models — the LM substrate's dense decoders (layer kinds
 ``attn`` and ``local``); the other families wait for ROADMAP item 12."""
-from .convert import params_from_numpy
+from .convert import opt_state_from_numpy, params_from_numpy
 from .transformer import Model, init_params, stages_meta
 
-__all__ = ["Model", "init_params", "stages_meta", "params_from_numpy"]
+__all__ = ["Model", "init_params", "stages_meta", "params_from_numpy",
+           "opt_state_from_numpy"]

@@ -10,6 +10,12 @@ attention the grouped decode kernel
 valid length of each sequence kept on the card.  On the CPU the same calls
 take the reference model's own plain versions, :func:`flash_chunked` and
 :func:`_decode_attend`.
+
+The full-sequence path (no cache) is differentiable on both devices: on the
+card through ``FlashAttentionFunction`` (the flash kernel's forward and its
+hand-written backward), on the CPU through autograd of
+:func:`flash_chunked`.  Training takes it; serving runs under
+``torch.inference_mode``, where the kernel writes no log-sum-exp.
 """
 from __future__ import annotations
 
@@ -137,7 +143,8 @@ def _decode_attend(q, ck, cv, length, sm_scale, window, cap):
 
 def _prefill_attend(q, k, v, *, causal, window, sm_scale, cap):
     """(B, S, H, D) x (B, S, KV, D)^2 -> (B, S, H, D): the flash kernel on
-    the card, :func:`flash_chunked` on the CPU."""
+    the card (its backward too, when a gradient is asked for),
+    :func:`flash_chunked` on the CPU."""
     if q.device.type != "cuda":
         return flash_chunked(q, k, v, causal=causal, window=window,
                              sm_scale=sm_scale, softcap_val=cap)

@@ -4,7 +4,10 @@ The reference's ``init_params`` returns a pytree of arrays; with its leaves
 turned into numpy arrays (``jax.tree.map(np.asarray, params)``) it becomes
 the port's parameter dict, key for key, so both packages can run on the
 same weights.  Every key, shape and dtype is checked against what the
-config asks for; any mismatch raises ``ValueError``.
+config asks for; any mismatch raises ``ValueError``.  The reference's AdamW
+state (``adamw_init``'s ``{"mu", "nu", "step"}``, float32 moments, with an
+optional float32 ``master`` copy) crosses the same way with
+:func:`opt_state_from_numpy`.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import torch
 
 from .transformer import _check_ported, stages_meta
 
-__all__ = ["param_shapes", "params_from_numpy"]
+__all__ = ["param_shapes", "params_from_numpy", "opt_state_from_numpy"]
 
 
 def param_shapes(cfg) -> Dict[str, Any]:
@@ -64,24 +67,44 @@ def _leaf(arr, shape: Tuple[int, ...], dtype: str, path: str, device):
     return t.to(device)
 
 
+def _walk(node, spec, path, dtype, device):
+    if isinstance(spec, dict):
+        if not isinstance(node, dict):
+            raise ValueError(f"{path or 'params'}: expected a dict, got "
+                             f"{type(node).__name__}")
+        missing, extra = sorted(set(spec) - set(node)), sorted(set(node) - set(spec))
+        if missing or extra:
+            raise ValueError(f"{path or 'params'}: missing keys {missing}, "
+                             f"unexpected keys {extra}")
+        return {k: _walk(node[k], spec[k], f"{path}/{k}" if path else k,
+                         dtype, device) for k in spec}
+    return _leaf(node, spec, dtype, path, device)
+
+
 def params_from_numpy(tree, cfg, device=None) -> Dict[str, Any]:
     """Reference params pytree with numpy leaves -> the port's parameter
     dict on ``device`` (default CUDA).  Raises ``ValueError`` on a missing
     or extra key, or a leaf of the wrong shape or dtype."""
     from ..device import resolve_device
+    return _walk(tree, param_shapes(cfg), "", cfg.dtype, resolve_device(device))
+
+
+def opt_state_from_numpy(state, cfg, device=None) -> Dict[str, Any]:
+    """The reference's AdamW state with numpy leaves (``mu`` and ``nu``
+    float32 trees like the params, ``step`` an int32 scalar, optionally a
+    float32 ``master`` tree) -> the port's ``adamw_init`` form on
+    ``device`` (default CUDA), checked as :func:`params_from_numpy` checks
+    the params."""
+    from ..device import resolve_device
     device = resolve_device(device)
-
-    def walk(node, spec, path):
-        if isinstance(spec, dict):
-            if not isinstance(node, dict):
-                raise ValueError(f"{path or 'params'}: expected a dict, got "
-                                 f"{type(node).__name__}")
-            missing, extra = sorted(set(spec) - set(node)), sorted(set(node) - set(spec))
-            if missing or extra:
-                raise ValueError(f"{path or 'params'}: missing keys {missing}, "
-                                 f"unexpected keys {extra}")
-            return {k: walk(node[k], spec[k], f"{path}/{k}" if path else k)
-                    for k in spec}
-        return _leaf(node, spec, cfg.dtype, path, device)
-
-    return walk(tree, param_shapes(cfg), "")
+    if not {"mu", "nu", "step"} <= set(state) <= {"mu", "nu", "step", "master"}:
+        raise ValueError(f"expected mu, nu, step (and master), got {sorted(state)}")
+    step = np.asarray(state["step"])
+    if step.shape != () or step.dtype != np.int32:
+        raise ValueError(f"step: expected an int32 scalar, got {step.dtype} "
+                         f"{step.shape}")
+    shapes = param_shapes(cfg)
+    out = {k: _walk(state[k], shapes, k, "float32", device)
+           for k in ("mu", "nu", "master") if k in state}
+    out["step"] = torch.from_numpy(step.copy()).to(device)
+    return out

@@ -1,30 +1,40 @@
-"""Model assembly: stages, forward passes, prefill and decode.
+"""Model assembly: stages, forward passes, prefill and decode, loss.
 
 The port of the reference package's ``models/transformer.py`` for dense
 decoders (layer kinds ``attn`` and ``local``).  The per-layer kind list
 (``ModelConfig.layer_pattern``) is run-length grouped into *stages*; a
 stage's weights are stacked along a leading axis (``stk_wq`` is
 ``(count, d, h * hd)``), with the reference's parameter keys, and the
-reference's ``lax.scan`` over a stage becomes a Python loop over that axis.
-Every other layer kind (MoE, SSM, xLSTM, hybrid, encoder-decoder) waits for
-ROADMAP item 12 and raises ``NotImplementedError``, as do training
-(``loss``) and the cost-analysis mode.
+reference's ``lax.scan`` over a stage becomes a Python loop over that axis
+(the stacked leaves are unbound once per stage, so their gradients land on
+the stacked leaf in one piece).  ``Model.loss`` is the reference's next-token
+loss, its cross-entropy in sequence chunks against the embedding, with the
+reference's ``remat`` modes as ``torch.utils.checkpoint`` per layer.
+Every other layer kind (MoE, SSM, xLSTM, hybrid, encoder-decoder), the
+vision prefix of the loss and the cost-analysis mode wait for ROADMAP item
+12 and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .attention import attention, init_attention
 from .attention import init_cache as kv_init_cache
 from .layers import init_norm, norm
 from .mlp import init_mlp, mlp
 
-__all__ = ["stages_meta", "init_params", "Model", "PORTED_KINDS"]
+__all__ = ["stages_meta", "init_params", "Model", "PORTED_KINDS",
+           "LOSS_CHUNK", "REMAT_MODES"]
 
 PORTED_KINDS = ("attn", "local")
+LOSS_CHUNK = 512
+REMAT_MODES = ("none", "dots", "full")
 
 
 def stages_meta(cfg) -> List[Tuple[str, int]]:
@@ -123,14 +133,47 @@ def _layer_forward(lp: Dict[str, torch.Tensor], x, cfg, kind: str, *,
     return x, cache
 
 
-def run_stage(stage_params, x, cfg, kind: str, *, cache=None, pos=None):
+# the outputs ``remat="dots"`` keeps: matrix products with no batch
+# dimension (the counterpart of ``dots_with_no_batch_dims_saveable``;
+# ``x @ w`` of a (B, S, D) activation and a 2-d weight runs as ``mm``)
+_DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS_SAVED
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_layer(lp, x, cfg, kind):
+    return _layer_forward(lp, x, cfg, kind)[0]
+
+
+def run_stage(stage_params, x, cfg, kind: str, *, cache=None, pos=None,
+              remat: str = "none"):
     """Run the stacked layers of one stage in order.  Returns (x, cache);
-    a given cache is written in place, layer ``i`` into its slice ``i``."""
+    a given cache is written in place, layer ``i`` into its slice ``i``.
+
+    ``remat`` (full-sequence passes only): ``"full"`` keeps only each
+    layer's input and recomputes the layer in the backward pass;
+    ``"dots"`` keeps the layer's matrix products with no batch dimension
+    and recomputes the rest; ``"none"`` keeps everything."""
+    if remat not in REMAT_MODES:
+        raise ValueError(f"remat must be one of {REMAT_MODES}, got {remat!r}")
     count = next(iter(stage_params.values())).shape[0]
-    for i in range(count):
-        lp = {k[4:]: v[i] for k, v in stage_params.items()}
-        c = None if cache is None else {"k": cache["k"][i], "v": cache["v"][i]}
-        x, _ = _layer_forward(lp, x, cfg, kind, cache=c, pos=pos)
+    layers: List[Dict[str, torch.Tensor]] = [{} for _ in range(count)]
+    for k, v in stage_params.items():
+        for i, t in enumerate(v.unbind(0)):
+            layers[i][k[4:]] = t
+    kw = ({"context_fn": functools.partial(create_selective_checkpoint_contexts,
+                                           _dots_policy)}
+          if remat == "dots" else {})
+    for i, lp in enumerate(layers):
+        if cache is None and remat != "none":
+            x = checkpoint(_remat_layer, lp, x, cfg, kind, use_reentrant=False,
+                           **kw)
+        else:
+            c = None if cache is None else {"k": cache["k"][i], "v": cache["v"][i]}
+            x, _ = _layer_forward(lp, x, cfg, kind, cache=c, pos=pos)
     return x, cache
 
 
@@ -154,6 +197,36 @@ class Model:
                                  device=x.device)
         return x
 
+    def unembed_chunked(self, params, h, targets, mask):
+        """Chunked softmax cross-entropy in float32; never materializes
+        (B, S, V).  h: (B, S, D); targets/mask: (B, S).  Returns
+        ``(sum_loss, sum_mask)``, the chunks' sums added in order as the
+        reference's scan does.  The logits product is ``torch.matmul`` (the
+        reference leaves it to XLA); the embedding is cast to float32 once
+        per call."""
+        cfg = self.cfg
+        w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+        b, s, d = h.shape
+        c = min(LOSS_CHUNK, s)
+        pad = (-s) % c
+        if pad:
+            h = torch.nn.functional.pad(h, (0, 0, 0, pad))
+            targets = torch.nn.functional.pad(targets, (0, pad))
+            mask = torch.nn.functional.pad(mask, (0, pad))
+        wf = w.float()
+        wf = wf.t() if cfg.tie_embeddings else wf
+        loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+        mask_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(h.shape[1] // c):
+            sl = slice(i * c, (i + 1) * c)
+            logits = h[:, sl].float() @ wf
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, targets[:, sl, None].long())[..., 0]
+            nll = (lse - gold) * mask[:, sl]
+            loss_sum = loss_sum + nll.sum()
+            mask_sum = mask_sum + mask[:, sl].sum()
+        return loss_sum, mask_sum
+
     def logits_last(self, params, h):
         """(B, S, D) -> (B, 1, V) float32 logits of the last position, the
         product in float32 as the reference computes it."""
@@ -161,14 +234,38 @@ class Model:
         w = w.float()
         return h[:, -1:].float() @ (w.t() if self.cfg.tie_embeddings else w)
 
-    def backbone(self, params, x, *, cache=None, pos=None):
+    def backbone(self, params, x, *, cache=None, pos=None, remat="none"):
         cfg = self.cfg
         for i, (kind, _) in enumerate(stages_meta(cfg)):
             sname = f"s{i}"
             x, _ = run_stage(params["stages"][sname], x, cfg, kind,
                              cache=None if cache is None else cache[sname],
-                             pos=pos)
+                             pos=pos, remat=remat)
         return norm(params["final_norm"], x, cfg.norm), cache
+
+    def loss(self, params, batch, remat="none"):
+        """Next-token loss, float32.  batch: ``{"tokens": (B, S)}``; position
+        ``i`` predicts token ``i + 1`` and the last position is masked, as in
+        the reference.  The dense decoders' auxiliary loss is 0, so the
+        reference's ``+ 0.01 * aux`` adds nothing here."""
+        cfg = self.cfg
+        if cfg.n_encoder_layers or "enc_embeds" in batch:
+            raise NotImplementedError(
+                f"{cfg.name}: the encoder branch of the loss is not ported "
+                "(ROADMAP item 12)")
+        if "img_embeds" in batch:
+            raise NotImplementedError(
+                f"{cfg.name}: the vision prefix of the loss is not ported "
+                "(ROADMAP item 12)")
+        tokens = batch["tokens"]
+        x = self.embed(params, tokens)
+        targets = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
+        mask = torch.ones(targets.shape, dtype=torch.float32,
+                          device=tokens.device)
+        mask[:, -1] = 0.0
+        h, _ = self.backbone(params, x, remat=remat)
+        loss_sum, mask_sum = self.unembed_chunked(params, h, targets, mask)
+        return loss_sum / torch.clamp(mask_sum, min=1.0)
 
     def init_cache(self, batch: int, s_max: int, dtype=torch.bfloat16,
                    device=None):

@@ -24,7 +24,10 @@ Crash-consistency contract (DESIGN.md §10):
   writer loses at most the step in flight.
 
 A tree is a nest of dicts, lists and tuples; every other value is a leaf
-(a numpy array, a torch tensor or a scalar).  Leaf paths join the dict keys
+(a numpy array, a torch tensor or a scalar).  A bfloat16 leaf is written as
+the reference writes one (``np.save`` of ml_dtypes' bfloat16 gives raw
+2-byte records, ``V2``, with ``"bfloat16"`` in the manifest) and comes back
+as a bfloat16 tensor, bit for bit.  Leaf paths join the dict keys
 and sequence indices with ``/``, dict keys in sorted order — the paths the
 reference's ``jax.tree_util.tree_flatten_with_path`` gives the same tree.
 """
@@ -104,14 +107,33 @@ def _map_with_paths(tree, fn: Callable[[str, Any], Any], prefix=()):
     return type(tree)(out) if isinstance(tree, tuple) else out
 
 
+_BF16_RECORD = np.dtype("V2")
+
+
 def _to_host(leaf) -> np.ndarray:
     """A leaf as a host numpy array: a tensor is copied (synchronously; a
     host tensor too, whose ``numpy()`` would share its memory), anything
-    else goes through ``np.asarray``."""
+    else goes through ``np.asarray``.  A bfloat16 tensor becomes its raw
+    2-byte records (numpy has no bfloat16)."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
-        return (t.clone() if t.device.type == "cpu" else t.cpu()).numpy()
+        t = t.clone() if t.device.type == "cpu" else t.cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(_BF16_RECORD)
+        return t.numpy()
     return np.asarray(leaf)
+
+
+def _dtype_name(arr: np.ndarray) -> str:
+    return "bfloat16" if arr.dtype == _BF16_RECORD else str(arr.dtype)
+
+
+def _to_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A loaded leaf as a host tensor; 2-byte records are bfloat16."""
+    arr = np.array(arr, order="C")
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def save_checkpoint(directory: str, step: int, tree: Any,
@@ -126,7 +148,7 @@ def save_checkpoint(directory: str, step: int, tree: Any,
         np.save(os.path.join(tmp, fname), arr)
         manifest["leaves"].append(
             {"path": path, "file": fname, "shape": list(arr.shape),
-             "dtype": str(arr.dtype)})
+             "dtype": _dtype_name(arr)})
     kill_point("checkpoint:mid_write")   # leaves down, manifest not yet
     with open(os.path.join(tmp, _MANIFEST), "w") as f:
         json.dump(manifest, f)
@@ -204,7 +226,7 @@ def restore_checkpoint(directory: str, step: int, like: Any,
         if tuple(arr.shape) != tuple(want):
             raise ValueError(f"{path}: shape {arr.shape} != {tuple(want)}")
         if isinstance(leaf, torch.Tensor):
-            t = torch.from_numpy(np.array(arr, order="C")).to(leaf.dtype)
+            t = _to_tensor(arr).to(leaf.dtype)
             return t.to(device if device is not None else leaf.device)
         arr = arr.astype(np.asarray(leaf).dtype)
         return arr if device is None else torch.from_numpy(arr).to(device)

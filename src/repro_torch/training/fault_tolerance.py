@@ -1,20 +1,33 @@
-"""Liveness of long-running worker threads: a heartbeat the worker beats
-and a monitor that declares it stalled.
+"""Fault-tolerant training runner (checkpoint/restart, failure injection)
+and the liveness of long-running worker threads.
+
+:class:`TrainingRunner` drives a train step with the reference's
+semantics: batch ``i`` is a pure function of ``i`` (``batch_fn``), the
+runner checkpoints params and optimizer state every ``checkpoint_every``
+steps in the reference's on-disk form (``checkpoint.AsyncCheckpointer``),
+retries a step that raises, restarts from the latest checkpoint when the
+retries run out, and beats a :class:`Heartbeat` per completed step.  It
+runs where its parameters lie: on the card unless they are CPU tensors.
 
 The serving front end's writer thread (``serving.admission``) beats a
 :class:`Heartbeat` once per window slide; a :class:`HeartbeatMonitor`
 turns a missed deadline into :class:`WriterStalledError` for the readers
-that would otherwise wait on it forever.  The reference module's
-``TrainingRunner`` drives a train step and is ported with training
-(ROADMAP item 12).
+that would otherwise wait on it forever.
 """
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 from typing import Callable, Optional
 
-__all__ = ["Heartbeat", "HeartbeatMonitor", "WriterStalledError"]
+import numpy as np
+import torch
+
+from .checkpoint import AsyncCheckpointer, latest_step, restore_checkpoint
+
+__all__ = ["RunnerConfig", "TrainingRunner", "Heartbeat", "HeartbeatMonitor",
+           "WriterStalledError"]
 
 
 class WriterStalledError(RuntimeError):
@@ -106,3 +119,95 @@ class HeartbeatMonitor:
                 f"{self.name} stalled: no heartbeat for {r['age_s']:.2f}s "
                 f"(timeout {self.timeout_s:.2f}s, last step "
                 f"{r['last_step']})")
+
+
+@dataclasses.dataclass
+class RunnerConfig:
+    checkpoint_dir: str
+    checkpoint_every: int = 50
+    keep: int = 3
+    max_retries_per_step: int = 2
+    fail_injector: Optional[Callable[[int], bool]] = None  # tests: step -> bool
+
+
+def _leaf_device(tree) -> torch.device:
+    while isinstance(tree, dict):
+        tree = tree[sorted(tree)[0]]
+    return tree.device
+
+
+class TrainingRunner:
+    """Drives ``step_fn(params, opt_state, batch)`` with checkpoint/restart
+    semantics.  ``batch_fn(i)`` gives step ``i``'s batch (numpy arrays or
+    tensors), moved here to the parameters' device.
+
+    One difference from the reference, with the same result: when the last
+    step of :meth:`run` was just checkpointed, the final save is not
+    written again (the reference writes that step twice)."""
+
+    def __init__(self, cfg: RunnerConfig, step_fn, params, opt_state,
+                 batch_fn):
+        self.cfg = cfg
+        self.step_fn = step_fn
+        self.params = params
+        self.opt_state = opt_state
+        self.batch_fn = batch_fn
+        self.device = _leaf_device(params)
+        self.ckpt = AsyncCheckpointer(cfg.checkpoint_dir, keep=cfg.keep)
+        self.start_step = 0
+        self.metrics_log: list = []
+        self.heartbeat = Heartbeat()   # beaten per completed step; a
+        # supervisor attaches a HeartbeatMonitor to spot a hung step_fn
+
+    def _batch(self, i: int) -> dict:
+        return {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor)
+                                   else v).to(self.device)
+                for k, v in self.batch_fn(i).items()}
+
+    def _state(self) -> dict:
+        return {"params": self.params, "opt": self.opt_state}
+
+    def maybe_restore(self) -> int:
+        step = latest_step(self.cfg.checkpoint_dir)
+        if step is None:
+            return 0
+        restored, manifest = restore_checkpoint(
+            self.cfg.checkpoint_dir, step, self._state())
+        self.params, self.opt_state = restored["params"], restored["opt"]
+        self.start_step = int(manifest["step"])
+        return self.start_step
+
+    def run(self, n_steps: int) -> int:
+        step = self.maybe_restore()
+        end = step + n_steps if self.start_step == 0 else self.start_step + n_steps
+        saved = None
+        while step < end:
+            batch = self._batch(step)
+            retries = 0
+            while True:
+                try:
+                    if self.cfg.fail_injector and self.cfg.fail_injector(step) \
+                            and retries == 0:
+                        raise RuntimeError(f"injected failure at step {step}")
+                    self.params, self.opt_state, metrics = self.step_fn(
+                        self.params, self.opt_state, batch)
+                    break
+                except RuntimeError:
+                    retries += 1
+                    if retries > self.cfg.max_retries_per_step:
+                        # full restart-from-checkpoint path
+                        if latest_step(self.cfg.checkpoint_dir) is None:
+                            raise
+                        step = self.maybe_restore()
+                        batch = self._batch(step)
+                        retries = 0
+            self.metrics_log.append({k: float(v) for k, v in metrics.items()})
+            step += 1
+            self.heartbeat.beat(step)
+            if step % self.cfg.checkpoint_every == 0:
+                self.ckpt.save(step, self._state())
+                saved = step
+        if saved != step:
+            self.ckpt.save(step, self._state())
+        self.ckpt.wait()
+        return step

@@ -1,0 +1,149 @@
+"""AdamW (decoupled weight decay) on dicts of tensors: the port of the
+reference package's ``training/optimizer.py`` on one device.
+
+The optimizer state is a plain tree, ``{"mu", "nu", "step"}`` (plus
+``"master"`` when asked for), with the parameters' keys, so the checkpoint
+writes it in the reference's on-disk form.  Moments are float32 whatever
+the parameters' dtype; the update runs in float32 and casts each parameter
+back to its dtype.  Without a master copy (the reference's default) a bf16
+update below half a bf16 unit is lost, as it is in the reference.
+
+The arithmetic is the reference's, operation for operation.  Where it saves
+memory the port works in place: ``adamw_update`` overwrites the state's
+``mu`` and ``nu`` tensors (the state it returns holds the same tensors) and
+updates leaves of more than ``CHUNK`` elements a slice along their first
+axis at a time, which changes no result (every operation is elementwise).
+``zero1_spec_tree`` waits for mesh training (ROADMAP item 12).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable
+
+import torch
+
+__all__ = ["adamw_init", "adamw_update", "global_norm", "clip_by_global_norm",
+           "lr_schedule", "tree_map", "tree_leaves", "tree_unflatten",
+           "tree_unzip", "CHUNK"]
+
+# elements per slice of a large leaf in adamw_update (bounds its float32
+# temporaries: the 256,000 x 2,048 embedding of gemma-2b is 524 M elements)
+CHUNK = 1 << 26
+
+
+def tree_leaves(tree) -> list:
+    """Leaves of a tree of dicts, in sorted-key order (the reference's
+    ``jax.tree.leaves`` order for dicts)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_unflatten(like, flat):
+    """A tree shaped like ``like`` holding ``flat`` (in :func:`tree_leaves`
+    order)."""
+    it = iter(flat)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(node[k]) for k in sorted(node)}
+        return next(it)
+    return walk(like)
+
+
+def tree_map(fn: Callable, tree, *rest) -> Any:
+    """``fn`` applied leafwise to trees of dicts of the same structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    return fn(tree, *rest)
+
+
+def tree_unzip(tree, i: int):
+    """Element ``i`` of every tuple leaf of a tree of dicts."""
+    if isinstance(tree, dict):
+        return {k: tree_unzip(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def adamw_init(params, master: bool = False, moment_dtype=torch.float32):
+    def zero(p):
+        return torch.zeros(p.shape, dtype=moment_dtype, device=p.device)
+    leaf = tree_leaves(params)[0]
+    state = {"mu": tree_map(zero, params), "nu": tree_map(zero, params),
+             "step": torch.zeros((), dtype=torch.int32, device=leaf.device)}
+    if master:
+        state["master"] = tree_map(lambda p: p.float().clone(), params)
+    return state
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum over leaves (in tree order) of each leaf's sum of
+    squares, in float32."""
+    total = 0
+    for x in tree_leaves(tree):
+        total = total + torch.sum(torch.square(x.float()))
+    return torch.sqrt(total)
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
+
+
+def lr_schedule(step, base_lr: float, warmup: int, total: int):
+    """Linear warmup + cosine decay to 10%."""
+    step = torch.as_tensor(step).float()
+    warm = torch.clamp(step / max(warmup, 1), max=1.0)
+    frac = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
+    cos = 0.1 + 0.9 * 0.5 * (1.0 + torch.cos(math.pi * frac))
+    return base_lr * warm * cos
+
+
+def _slices(t: torch.Tensor):
+    """``t`` as views along its first axis of at most ``CHUNK`` elements
+    each (``t`` itself when it is small or 0-d)."""
+    if t.ndim == 0 or t.numel() <= CHUNK:
+        return [t]
+    rows = max(1, CHUNK // max(1, t[0].numel()))
+    return list(torch.split(t, rows, dim=0))
+
+
+def adamw_update(params, grads, state, *, lr, b1=0.9, b2=0.95, eps=1e-8,
+                 weight_decay=0.0):
+    """One AdamW step -> ``(new_params, new_state)``.  ``state["mu"]`` and
+    ``state["nu"]`` are updated in place; the new parameters (and master
+    copy) are new tensors."""
+    step = state["step"] + 1
+    t = step.float()
+    c1 = 1.0 - b1 ** t
+    c2 = 1.0 - b2 ** t
+    use_master = "master" in state
+    ref = state["master"] if use_master else params
+
+    def upd(p, g, mu, nu):
+        pf = p.float()
+        g = g.float()
+        mu.copy_(b1 * mu.float() + (1 - b1) * g)
+        nu.copy_(b2 * nu.float() + (1 - b2) * g * g)
+        update = (mu.float() / c1) / (torch.sqrt(nu.float() / c2) + eps)
+        return pf - lr * (update + weight_decay * pf)
+
+    def leaf(p, g, mu, nu, orig):
+        new_f = torch.empty(p.shape, dtype=torch.float32, device=p.device) \
+            if use_master else None
+        new_p = torch.empty_like(orig)
+        for ps, gs, ms, ns, nps, *nfs in zip(
+                _slices(p), _slices(g), _slices(mu), _slices(nu),
+                _slices(new_p), *([_slices(new_f)] if use_master else [])):
+            pf = upd(ps, gs, ms, ns)
+            nps.copy_(pf.to(nps.dtype))
+            if nfs:
+                nfs[0].copy_(pf)
+        return new_p, new_f
+
+    out = tree_map(leaf, ref, grads, state["mu"], state["nu"], params)
+    new_state = {"mu": state["mu"], "nu": state["nu"], "step": step}
+    if use_master:
+        new_state["master"] = tree_unzip(out, 1)
+    return tree_unzip(out, 0), new_state

@@ -1,0 +1,74 @@
+"""Train step: loss and gradients, microbatch accumulation, clipping, AdamW
+(the port of the reference package's ``training/train_step.py``).
+
+The reference's ``jax.value_and_grad`` becomes ``torch.autograd.grad`` over
+the parameter leaves; its accumulating ``lax.scan`` over microbatches a
+loop that sums float32 gradients in the same order.  On the card the
+attention of every layer runs the flash-attention kernel forward and its
+hand-written backward (``kernels.flash_attention.FlashAttentionFunction``).
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from .optimizer import (adamw_update, clip_by_global_norm, lr_schedule,
+                        tree_leaves, tree_map, tree_unflatten)
+
+__all__ = ["make_train_step", "make_eval_step", "value_and_grad"]
+
+
+def value_and_grad(loss_fn: Callable, params, *args):
+    """``(loss, grads)`` of ``loss_fn(params, *args)``: the loss detached,
+    the gradients a tree like ``params`` in the parameters' dtypes."""
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    loss = loss_fn(tree_unflatten(params, leaves), *args)
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), tree_unflatten(params, grads)
+
+
+def make_train_step(model, tcfg) -> Callable:
+    """Returns ``step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``; ``batch`` holds tensors on the parameters' device."""
+
+    def loss_fn(params, batch):
+        return model.loss(params, batch, remat=tcfg.remat)
+
+    def grads_of(params, batch):
+        m = tcfg.microbatches
+        if m <= 1:
+            return value_and_grad(loss_fn, params, batch)
+        micro = {k: v.reshape(m, v.shape[0] // m, *v.shape[1:])
+                 for k, v in batch.items()}
+        loss_sum = torch.zeros((), dtype=torch.float32,
+                               device=tree_leaves(params)[0].device)
+        g_sum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                               device=p.device), params)
+        for i in range(m):
+            loss, g = value_and_grad(loss_fn, params,
+                                     {k: v[i] for k, v in micro.items()})
+            g_sum = tree_map(lambda a, b_: a + b_.float(), g_sum, g)
+            loss_sum = loss_sum + loss
+        return loss_sum / m, tree_map(lambda g: g / m, g_sum)
+
+    def step(params, opt_state, batch):
+        loss, grads = grads_of(params, batch)
+        grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+        lr = lr_schedule(opt_state["step"], tcfg.learning_rate,
+                         tcfg.warmup_steps, tcfg.total_steps)
+        params, opt_state = adamw_update(
+            params, grads, opt_state, lr=lr, b1=tcfg.b1, b2=tcfg.b2,
+            weight_decay=tcfg.weight_decay)
+        metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr,
+                   "step": opt_state["step"]}
+        return params, opt_state, metrics
+
+    return step
+
+
+def make_eval_step(model) -> Callable:
+    def step(params, batch):
+        with torch.no_grad():
+            return model.loss(params, batch)
+    return step

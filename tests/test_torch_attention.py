@@ -7,7 +7,9 @@ the card) and the model's plain paths (``flash_chunked``,
 kernels (run in interpret mode, as the reference's own tests run them),
 its oracles and its model paths.  Everything is float32; the tolerance,
 2e-5 absolute on outputs of magnitude below 4, covers sums taken in another
-order by two frameworks.
+order by two frameworks.  K6's backward has no Pallas kernel: its plain
+version (``attention_ref_bwd``) is held to ``jax.vjp`` of the reference
+model's ``flash_chunked`` and to autograd of ``attention_ref`` within 1e-5.
 
 The emulations of the CUDA kernels' arithmetic (``attention_split_p_ref``:
 the bf16 kernel's probabilities split into two bf16 terms;
@@ -288,3 +290,118 @@ def test_decode_split_emulation_at_other_chunk_sizes(chunk):
     want = j_decode_ref(*(jnp.asarray(x) for x in (q, k, v, EDGE_LENGTHS)),
                         window=30)
     _close(got, want, tol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K6's backward: the plain version of the backward kernels
+# ---------------------------------------------------------------------------
+
+BWD_CASES = [  # (B, H, Hkv, S, D, causal, window)
+    (2, 4, 4, 40, 16, True, 0),      # G = 1
+    (1, 4, 2, 40, 16, True, 8),      # G = 2, a window
+    (2, 8, 2, 37, 32, True, 0),      # G = 4, ragged S
+    (1, 8, 1, 64, 16, True, 16),     # G = 8 (gemma-2b's MQA), a window
+    (2, 8, 1, 29, 16, True, 0),      # G = 8, ragged S
+    (1, 4, 1, 33, 16, False, 10),    # non-causal, a window
+]
+
+
+def _bwd_inputs(b, h, hkv, s, d, seed):
+    q, k, v = _qkv(b, h, hkv, s, d, seed)
+    dout = _normal(np.random.default_rng(seed + 1), (b, h, s, d))
+    return q, k, v, dout
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,causal,window", BWD_CASES)
+def test_attention_ref_bwd_matches_the_vjp_of_flash_chunked(b, h, hkv, s, d,
+                                                             causal, window):
+    """The textbook backward (P from the row log-sum-exp, dK and dV summed
+    over the group) against ``jax.vjp`` of the reference model's
+    ``flash_chunked``, with 16-row chunks so the online softmax runs over
+    several blocks; and the forward's lse against the plain scores'
+    logsumexp.  Float32, 1e-5."""
+    import jax
+    from repro_torch.kernels.flash_attention import (attention_lse_ref,
+                                                     attention_ref_bwd)
+    q, k, v, dout = _bwd_inputs(b, h, hkv, s, d, seed=s + h + d)
+    scale = d ** -0.5
+
+    def f(q_, k_, v_):   # (B, H, S, D) layout around the (B, S, H, D) model path
+        out = j_flash_chunked(q_.transpose(0, 2, 1, 3), k_.transpose(0, 2, 1, 3),
+                              v_.transpose(0, 2, 1, 3), causal=causal,
+                              window=window, sm_scale=scale, q_chunk=16,
+                              k_chunk=16)
+        return out.transpose(0, 2, 1, 3)
+
+    out, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)))
+    want = vjp(jnp.asarray(dout))
+    tq, tk_, tv, tout, tdo = (torch.from_numpy(np.array(x))
+                              for x in (q, k, v, out, dout))
+    lse = attention_lse_ref(tq, tk_, causal=causal, window=window or None)
+    got = attention_ref_bwd(tq, tk_, tv, tout, tdo, lse, causal=causal,
+                            window=window or None)
+    for g_, w_ in zip(got, want):
+        assert g_.dtype == torch.float32
+        _close(g_, w_, tol=1e-5)
+    scores = np.einsum("bhqd,bhkd->bhqk", q, np.repeat(k, h // hkv, axis=1)) * scale
+    i, j = np.arange(s)[:, None], np.arange(s)[None, :]
+    keep = np.ones((s, s), bool)
+    if causal:
+        keep &= j <= i
+    if window:
+        keep &= j > i - window
+    scores = np.where(keep, scores, -np.inf)
+    top = scores.max(-1, keepdims=True)
+    want_lse = (top + np.log(np.exp(scores - top).sum(-1, keepdims=True)))[..., 0]
+    _close(lse, want_lse, tol=1e-5)
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,causal,window", BWD_CASES[:4])
+def test_attention_ref_bwd_matches_autograd_of_attention_ref(b, h, hkv, s, d,
+                                                             causal, window):
+    """The same gradients as torch.autograd through ``attention_ref``, the
+    path a CPU tensor takes through ``multi_head_attention``."""
+    from repro_torch.kernels.flash_attention import (attention_lse_ref,
+                                                     attention_ref_bwd)
+    q, k, v, dout = (torch.from_numpy(x) for x in _bwd_inputs(b, h, hkv, s, d, 3))
+    for t in (q, k, v):
+        t.requires_grad_()
+    out = multi_head_attention(q, k, v, causal=causal, window=window)
+    out.backward(torch.from_numpy(dout.numpy()))
+    lse = attention_lse_ref(q.detach(), k.detach(), causal=causal,
+                            window=window or None)
+    got = attention_ref_bwd(q.detach(), k.detach(), v.detach(), out.detach(),
+                            dout, lse, causal=causal, window=window or None)
+    for g_, t in zip(got, (q, k, v)):
+        _close(g_, t.grad.numpy(), tol=1e-5)
+
+
+def test_model_attention_is_differentiable_on_the_cpu():
+    """The full-sequence path of the model's attention layer (no cache)
+    takes the plain ``flash_chunked`` on the CPU and autograd runs through
+    it, with no kernel launch counted."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import reduced_config
+    from repro_torch.models.attention import attention, init_attention
+    cfg = reduced_config(get_config("gemma3-4b"))
+    p = init_attention(torch.Generator().manual_seed(0), cfg, torch.float32)
+    for t in p.values():
+        t.requires_grad_()
+    x = torch.randn(2, 12, cfg.d_model, requires_grad=True)
+    tk.reset_launch_counts()
+    out, cache = attention(p, x, cfg, window=cfg.window)
+    out.square().sum().backward()
+    assert cache is None and x.grad is not None
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in p.values())
+    assert not any(tk.launch_counts().values())
+
+
+@pytest.mark.parametrize("fn", ["forward", "backward"])
+def test_the_kernel_wrappers_refuse_cpu_tensors(fn):
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    q = torch.zeros(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        if fn == "forward":
+            flash_attention(q, q, q, return_lse=True)
+        else:
+            flash_attention_bwd(q, q, q, q, q, torch.zeros(1, 2, 8))

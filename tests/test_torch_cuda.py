@@ -578,7 +578,8 @@ def test_flash_attention_wgmma_bf16(cuda, b, h, hkv, s, d, window):
     got = multi_head_attention(q, k, v, causal=True, window=window)
     again = multi_head_attention(q, k, v, causal=True, window=window)
     assert kernels.variant_counts() == {"flash_attention.wgmma_bf16": 2,
-                                        "flash_attention.fma_f32": 0}
+                                        "flash_attention.fma_f32": 0,
+                                        **_NO_BWD}
     assert torch.equal(got, again)
     args = dict(causal=True, window=window or None)
     _assert_attention_close(got, attention_ref(q.float(), k.float(), v.float(), **args))
@@ -593,7 +594,8 @@ def test_flash_attention_f32_runs_the_fma_kernel(cuda, causal, window):
     got = multi_head_attention(q, k, v, causal=causal, window=window)
     again = multi_head_attention(q, k, v, causal=causal, window=window)
     assert kernels.variant_counts() == {"flash_attention.wgmma_bf16": 0,
-                                        "flash_attention.fma_f32": 2}
+                                        "flash_attention.fma_f32": 2,
+                                        **_NO_BWD}
     assert torch.equal(got, again)
     _assert_attention_close(got, attention_ref(q, k, v, causal=causal,
                                                window=window or None))
@@ -617,6 +619,110 @@ def test_decode_attention_at_chunk_edges(cuda, kv, g, window, dtype):
     assert torch.equal(got, again)
     _assert_attention_close(got, decode_attention_ref(
         q.float(), k.float(), v.float(), length, window=window))
+
+
+# serving and inference launch no backward
+_NO_BWD = {"flash_attention_bwd.fma_bf16": 0, "flash_attention_bwd.fma_f32": 0}
+
+# K6's backward against its plain version: float32 within 1e-4 absolute
+# (sums in another order); bf16 ||delta|| / ||ref|| within 1e-2 for each
+# gradient (the gradients are rounded once to bf16, 2^-9 relative, and the
+# plain version runs in float32 on the same bf16 inputs and output)
+BWD_TOL_F32 = 1e-4
+BWD_REL_BF16 = 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,s,d,causal,window", [
+    (2, 8, 1, 200, 256, True, 0),     # G = 8, ragged
+    (1, 8, 4, 130, 256, True, 50),    # a window inside a k tile
+    (2, 4, 2, 64, 16, True, 8),       # the reduced configs' D
+    (1, 4, 4, 97, 64, False, 0),      # non-causal, G = 1
+    (1, 2, 1, 1, 128, True, 0)])      # one row
+def test_flash_attention_bwd_matches_its_plain_version(cuda, b, h, hkv, s, d,
+                                                       causal, window, dtype):
+    """The forward's lse against the plain scores' logsumexp, the backward
+    kernels against ``attention_ref_bwd`` in float32 on the same inputs,
+    two calls bit-equal (no atomics)."""
+    from repro_torch.kernels.flash_attention import (attention_lse_ref,
+                                                     attention_ref_bwd,
+                                                     flash_attention,
+                                                     flash_attention_bwd)
+    q, k, v = _model_layout_qkv(b, h, hkv, s, d, dtype, s + d + 1, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    dout = torch.randn((b, h, s, d), generator=gen, device=cuda).to(dtype)
+    kernels.reset_launch_counts()
+    out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                               return_lse=True)
+    got = flash_attention_bwd(q, k, v, out, dout, lse, causal=causal, window=window)
+    again = flash_attention_bwd(q, k, v, out, dout, lse, causal=causal, window=window)
+    variant = "fma_bf16" if dtype == torch.bfloat16 else "fma_f32"
+    assert kernels.variant_counts()[f"flash_attention_bwd.{variant}"] == 2
+    args = dict(causal=causal, window=window or None)
+    want_lse = attention_lse_ref(q.float(), k.float(), **args)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-5)
+    want = attention_ref_bwd(q.float(), k.float(), v.float(), out.float(),
+                             dout.float(), want_lse, **args)
+    for g_, a_, w_, t in zip(got, again, want, (q, k, v)):
+        assert g_.dtype == dtype and g_.shape == t.shape
+        assert torch.equal(g_, a_)
+        if dtype == torch.float32:
+            torch.testing.assert_close(g_, w_, rtol=0, atol=BWD_TOL_F32)
+        else:
+            assert float((g_.float() - w_).norm() / w_.norm()) <= BWD_REL_BF16
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_through_the_kernels_launches_forward_and_backward(cuda, dtype):
+    """multi_head_attention on inputs that need a gradient runs K6 with lse
+    and its backward once each; the gradients land in the inputs' layout;
+    under no_grad nothing is saved and no lse is written."""
+    q, k, v = _model_layout_qkv(2, 8, 1, 150, 256, dtype, 11, cuda)
+    for t in (q, k, v):
+        t.requires_grad_()
+    kernels.reset_launch_counts()
+    out = multi_head_attention(q, k, v, causal=True, window=0)
+    out.float().square().sum().backward()
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == 1 and counts["flash_attention_bwd"] == 1
+    for t in (q, k, v):
+        assert t.grad is not None and t.grad.stride() == t.stride()
+        assert torch.isfinite(t.grad.float()).all()
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        again = multi_head_attention(q, k, v, causal=True, window=0)
+    assert torch.equal(again, out.detach()) and not again.requires_grad
+    assert kernels.launch_counts()["flash_attention_bwd"] == 0
+
+
+@pytest.mark.parametrize("arch", ["gemma3-4b", "gemma-2b"])
+def test_reduced_training_on_the_card_matches_the_cpu(cuda, arch):
+    """Three float32 train steps of the reduced config on the card and on
+    the CPU from the same weights and batches: losses within 1e-4
+    relative; K6's float32 forward and backward once per layer and step."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.configs.reduced import reduced_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import Model, init_params, stages_meta
+    from repro_torch.training import adamw_init, make_train_step
+    cfg = reduced_config(get_config(arch))
+    n_layers = sum(c for _, c in stages_meta(cfg))
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=3,
+                       remat="none")
+    step = make_train_step(Model(cfg), tcfg)
+    host = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = _to(host, cuda)
+    hs, cs = adamw_init(host), adamw_init(card)
+    pipe = TokenPipeline(cfg.vocab_size, batch=4, seq_len=32, seed=0)
+    for i in range(3):
+        toks = torch.from_numpy(pipe.batch_at(i)["tokens"])
+        kernels.reset_launch_counts()
+        card, cs, cm = step(card, cs, {"tokens": toks.to(cuda)})
+        counts = kernels.variant_counts()
+        assert counts["flash_attention.fma_f32"] == n_layers
+        assert counts["flash_attention_bwd.fma_f32"] == n_layers
+        host, hs, hm = step(host, hs, {"tokens": toks})
+        assert abs(float(cm["loss"]) - float(hm["loss"])) <= 1e-4 * float(hm["loss"])
 
 
 def _to(tree, device):
@@ -650,7 +756,7 @@ def test_reduced_serve_on_the_card_runs_the_attention_kernels(cuda, arch):
     # the reduced configs are float32: every prefill ran the FMA variant
     assert kernels.variant_counts() == {
         "flash_attention.wgmma_bf16": 0,
-        "flash_attention.fma_f32": counts["flash_attention"]}
+        "flash_attention.fma_f32": counts["flash_attention"], **_NO_BWD}
     want, _ = ServingEngine(Model(cfg), params, s_max=32).serve(reqs, 1)
     for r in reqs:
         np.testing.assert_array_equal(got[r.rid], want[r.rid])

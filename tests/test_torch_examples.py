@@ -3,7 +3,10 @@ the reference's (``examples/<name>.py``) at ``tests/test_examples.py``'s
 reduced sizes, on the CPU: the same lines, the itemset and rule counts
 included, with only the times left out.  The port's run in this process
 with ``--device cpu``; the reference's run as ``tests/test_examples.py``
-runs them.
+runs them.  The LM examples' weights are random in each package (a
+``torch.Generator`` against ``jax.random``), so their losses and generated
+tokens are left out too; their parameter counts, requests and packing are
+compared, and the port's ``tiny`` loss must fall.
 """
 import os
 import re
@@ -12,7 +15,8 @@ import sys
 
 import pytest
 
-from repro_torch.examples import mine_distributed, quickstart, stream_topk
+from repro_torch.examples import (mine_distributed, quickstart, serve_lm,
+                                  stream_topk, train_lm)
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 ENV = dict(os.environ, PYTHONPATH="src")
@@ -73,3 +77,37 @@ def test_mine_distributed_matches_the_reference(capsys):
     assert "recovered" in got
     # the reference counts devices, the port ranks
     assert got.splitlines() == want.replace(" on 2 devices;", " on 2 ranks;").splitlines()
+
+
+def _unlossed(text):
+    """The lines with times, losses and generated tokens left out."""
+    text = re.sub(r"\d+\.\d+s/step", "Ts/step", text)
+    text = re.sub(r"loss \d+\.\d+ -> \d+\.\d+", "loss A -> B", text)
+    text = re.sub(r"checkpoints in [^)]*\)", "checkpoints in DIR)", text)
+    text = re.sub(r"(req \d+): \[[-\d, ]*\]", r"\1: [TOKENS]", text)
+    return _untimed(text)
+
+
+def test_train_lm_matches_the_reference_and_its_loss_falls(tmp_path, capsys):
+    flags = ["--steps", "20", "--batch", "4", "--seq", "32"]
+    got = _port(train_lm.main, flags + ["--ckpt-dir", str(tmp_path / "t")], capsys)
+    want = _reference(["examples/train_lm.py"] + flags +
+                      ["--ckpt-dir", str(tmp_path / "j")])
+    assert "training example OK" in got
+    assert _unlossed(got) == _unlossed(want)
+    first, last = map(float, re.search(r"loss (\d+\.\d+) -> (\d+\.\d+)",
+                                        got).groups())
+    assert last < first
+    # a second run resumes from the final checkpoint of the first
+    again = _port(train_lm.main, ["--steps", "2", "--batch", "4", "--seq", "32",
+                                  "--ckpt-dir", str(tmp_path / "t")], capsys)
+    assert "resumed from checkpoint at step 20" in again
+
+
+def test_serve_lm_matches_the_reference(capsys):
+    flags = ["--requests", "6", "--batches", "2", "--max-new", "4"]
+    got = _port(serve_lm.main, flags, capsys)
+    want = _reference(["examples/serve_lm.py"] + flags)
+    assert "greedy-LPT packing efficiency" in got
+    assert _unlossed(got) == _unlossed(want)
+    assert len(re.findall(r"req \d+: \[", got)) == 3

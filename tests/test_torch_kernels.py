@@ -145,16 +145,16 @@ def test_cpu_tensors_never_touch_launch_counters():
     compact_survivors(*args[:3], torch.ones(7, dtype=torch.int32), 5, mode=0)
     intersect_support(args[0], args[0])
     cooccurrence(args[0])
-    q = torch.zeros((1, 4, 8, 16))
-    multi_head_attention(q, q[:, :2], q[:, :2])
+    q = torch.zeros((1, 4, 8, 16), requires_grad=True)
+    multi_head_attention(q, q[:, :2], q[:, :2]).sum().backward()
     grouped_decode_attention(q[:, :2, :2], q.transpose(1, 2)[:, :, :2],
                              q.transpose(1, 2)[:, :, :2],
                              torch.tensor([3], dtype=torch.int32))
     assert tk.launch_counts() == {"fused_intersect": 0,
                                   "fused_intersect_compact": 0,
                                   "fused_intersect_partial": 0, "trimatrix": 0,
-                                  "flash_attention": 0, "decode_attention": 0,
-                                  "popcount_support": 0}
+                                  "flash_attention": 0, "flash_attention_bwd": 0,
+                                  "decode_attention": 0, "popcount_support": 0}
 
 
 def test_cuda_kernel_wrappers_refuse_cpu_tensors():
