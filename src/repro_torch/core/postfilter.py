@@ -131,6 +131,7 @@ def top_k_mine(
     n_items: int,
     k: int,
     config=None,
+    *,
     device=None,
     min_len: int = 1,
     mesh=None,
@@ -152,7 +153,9 @@ def top_k_mine(
     ``config`` is an :class:`~repro_torch.core.eclat.EclatConfig` template
     whose ``min_sup``/``mode`` are overridden per rung — variant, backend
     and ``mesh`` plumb through unchanged, so top-k runs on any engine
-    backend.
+    backend.  ``device``, ``min_len`` and ``mesh`` are keyword-only: the
+    reference's fifth parameter is ``mesh``, so a positional call written
+    for it fails here instead of passing its mesh as the device.
     """
     from . import bitmap as bm             # late: postfilter <- eclat cycle
     from .eclat import EclatConfig, mine

@@ -13,7 +13,7 @@
 //
 // in float32 from the inputs' values, the gradients written in the inputs'
 // type.  Tensors are addressed by strides (the head dimension contiguous),
-// as in the forward; lse and delta are (B, H, S) float32 contiguous.
+// as in the forward; lse is (B, H, S) float32 contiguous.
 //
 // The reference package has no Pallas backward: it differentiates the plain
 // flash_chunked (src/repro/models/attention.py) with XLA
@@ -21,54 +21,88 @@
 // compute that gradient on the card behind the forward kernel of
 // src/repro/kernels/flash_attention/flash_attention.py (_kernel).
 //
-// Three kernels, one launch each, in order on the caller's stream:
+// Bound on the H100 at gemma-2b's training layer (B = 4, H = 8, Hkv = 1,
+// S = 1,024, D = 256, causal): operations.  Five products of 2 D per kept
+// pair (S, dV, dP, dQ, dK): 10 D x 16.8 M pairs = 43 GFLOP, 0.0435 ms at the
+// dense bf16 tensor-core rate (989 TFLOP/s).  Their inputs and outputs are
+// 44 MB, 0.013 ms at 3.35 TB/s.
+//
+// Two paths, chosen by dtype; neither falls back to the other.
+//
+// bfloat16 (the trained models' path): the products run on the tensor cores
+// with wgmma on bf16 operands and fp32 accumulators, the tiles arrive by
+// TMA (cp.async.bulk.tensor, 64 x 64 boxes with the 128-byte swizzle, rows
+// past S and columns past D filled with zeros) into two-stage rings guarded
+// by mbarriers, as in the forward.  Four kernels, in order on the caller's
+// stream:
 //
 // flash_attention_bwd_delta_kernel: delta = rowsum(do * o), one warp per
-//   row.
-// flash_attention_bwd_dkdv_kernel: one block per (64-row k tile, KV head,
-//   b).  K and V of the tile stay in shared memory; the block loops over
-//   the G query heads of its KV head and, for each, over the 32-row q tiles
-//   the masks keep, so GQA's (MQA's G = 8) sum over the group is taken
-//   inside the block, in registers, in a fixed order.
-// flash_attention_bwd_dq_kernel: one block per (64-row q tile, head, b),
-//   looping over the 32-row k tiles the masks keep (the forward's tiles).
+//   row, into the head of the scratch buffer.
+// flash_attention_bwd_dkdv_wgmma_kernel: one block per (64-row k tile,
+//   split, KV head, b), two consumer warpgroups.  K and V of the tile stay
+//   in shared memory; the (Q, dO) tile pairs of the block's query heads and
+//   of the q tiles the masks keep stream through the ring.  Warpgroup 0
+//   runs S^T = K Q^T (64 x 64 wgmmas, both operands K-major in shared
+//   memory), forms P^T in registers from the lse of the tile's q columns,
+//   hands it to warpgroup 1 in float32 through 16 KB of shared memory and
+//   two named barriers, and accumulates dV += P^T dO (register-A wgmmas, dO
+//   read MN-major from the same swizzled tile).  Warpgroup 1 runs
+//   dP^T = V dO^T, forms dS^T = P^T (dP^T - delta) and accumulates
+//   dK += dS^T Q.  Each warpgroup holds one 64 x D fp32 accumulator (128
+//   registers a thread at D = 256).  P and dS are rounded once to bf16
+//   before their products (the A fragments), unlike the forward, which
+//   splits P in two bf16 terms: the gradients are held to rel L2 1e-2 and
+//   one rounding (2^-9) stays far inside it (kernels/flash_attention/ref.py
+//   attention_bwd_bf16_ref emulates this arithmetic).
+// flash_attention_bwd_reduce_kernel: at MQA a grid of one block per (k
+//   tile, KV head, b) is B S / 64 = 64 blocks on 132 SMs.  So the G query
+//   heads of a group are split over G / heads_per_block blocks (Plan; a
+//   pure function of the shape, never of timing), each writing float32
+//   partial dK and dV into scratch; this kernel sums them in split order
+//   and writes bf16.  No atomics: two calls give the same bits.  With one
+//   split (G = 1, or heads_per_block = G) the dK/dV kernel writes bf16
+//   itself and this kernel does not run.  The grid puts the k tile on its
+//   slowest axis, lowest first: under causal masking those keep the most q
+//   rows, so the long blocks start in the first wave.
+// flash_attention_bwd_dq_wgmma_kernel: one block of one warpgroup per
+//   (64-row q tile, head, b), heaviest first; Q and dO stay in shared
+//   memory, the K and V tiles the masks keep stream through the ring.
+//   S = Q K^T and dP = dO V^T from shared memory, dS in registers, then
+//   dQ += dS K with K read MN-major.  It recomputes S and dP, so the four
+//   kernels execute 14 D operations per kept pair where the bound counts 10.
 //
-// No atomics: every gradient element is written once by one thread after a
-// fixed-order sum, so two runs give the same bits.
+// At gemma-2b's layer the plan gives heads_per_block 2: 256 dK/dV blocks,
+// 34 MB of float32 partials (written once, read once by the reduction), and
+// 512 dQ blocks; at gemma3-4b's (G = 2) one block keeps its whole group and
+// the reduction does not run.  Shared memory per block at D = 256: dK/dV K + V 64 KB,
+// two stages of Q + dO 128 KB, P^T 16 KB: 214,080 B with barriers and
+// alignment slack (of 232,448); dQ Q + dO 64 KB and two stages of K + V
+// 128 KB: 197,696 B.  One block per SM each.  Registers per thread
+// (ptxas, sm_90a, no spill): dK/dV 244 and dQ 245 at D = 256 (128: 167 and
+// 181; 64: 155 and 149), the reduction 32; chip_smoke.py prints the build
+// log's counts.  On the H100 at gemma-2b's layer a call takes 0.211 ms
+// (chip_smoke.py's timing line), 4.9x the bound and 0.90x SDPA's backward.
 //
-// This is the simple version: fp32 FMA on the CUDA cores, every tile
-// converted to float32 in shared memory.  Bound on the H100 at gemma-2b's
-// training layer (B = 4, H = 8, Hkv = 1, S = 1,024, D = 256, causal):
-// operations.  Five products of 2 D per kept pair (S recomputed, dV, dP,
-// dQ, dK): 10 D x 16.8 M pairs = 43 GFLOP, 0.044 ms at the dense bf16
-// tensor-core rate (989 TFLOP/s), against 0.64 ms at the fp32 rate
-// (67 TFLOP/s) that bounds these kernels.  Their inputs and outputs are
-// 44 MB, 0.013 ms at 3.35 TB/s.  The dK/dV kernel's grid has only
-// B x Hkv x S / 64 = 64 blocks at that shape (one wave on 132 SMs), each
-// looping over 8 heads: the tensor-core redesign (wgmma, TMA) is later work.
-//
-// Threads: 256 per block, as 32 row groups x 8 column lanes.  A thread owns
-// two rows (ty, ty + 32) of its block's 64-row tile and the float4 columns
-// 4 tx + 32 c of each.
-//
-// Shared memory per block at D = 256 (float32, rows padded to D + 4 floats,
-// so the 8 column lanes of a warp read 8 different rows in distinct banks):
-//   dK/dV: K, V 2 x 64 x 260 x 4 = 133,120 B; Q, dO 2 x 32 x 260 x 4 =
-//          66,560 B; P, dS 2 x 32 x 72 x 4 = 18,432 B; lse, delta 256 B:
-//          218,368 B (of 232,448), one block per SM.
-//   dQ:    Q, dO 2 x 64 x 260 x 4 = 133,120 B; K, V 2 x 32 x 260 x 4 =
-//          66,560 B; dS 64 x 40 x 4 = 10,240 B; lse, delta 512 B:
-//          210,432 B, one block per SM.
-// Registers per thread (ptxas, sm_90a, D = 256, no spills): dK/dV 252
-// (bf16) and 254 (float32), its two 64 x D fp32 accumulators holding 128
-// of them, which fits 256 threads at one block per SM; dQ 168; delta 34.
-// chip_smoke.py prints the build log's counts for every kernel.
+// float32 (the checking dtype: the reduced-config runs): fp32 FMA on the
+// CUDA cores, since the tensor cores have no fp32 product that holds 1e-4
+// (TF32 keeps 10 bits).  Three kernels: the delta kernel;
+// flash_attention_bwd_dkdv_kernel, one block per (64-row k tile, KV head,
+// b) looping over the G query heads and their 32-row q tiles, the group's
+// sum taken inside the block in a fixed order; and
+// flash_attention_bwd_dq_kernel, one block per (64-row q tile, head, b)
+// over 32-row k tiles.  256 threads as 32 row groups x 8 column lanes, every
+// tile converted to float32 in shared memory (rows padded to D + 4 floats):
+// dK/dV 218,368 B, dQ 210,432 B at D = 256; ptxas gave 254 and 168
+// registers and no spill.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 #include <string.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -106,15 +140,6 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
 
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<const uint32_t*>(&a);
-  raw.y = *reinterpret_cast<const uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = raw;
 }
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
@@ -501,26 +526,656 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const void* o,
 }
 
 }  // namespace bwd
+// ---------------------------------------------------------------------------
+// bfloat16: wgmma + TMA
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+using namespace hopper;
+
+constexpr int kTile = 64;               // rows of every q, k, v and dO tile
+constexpr int kStages = 2;              // ring depth of the streamed tiles
+constexpr int kPanelBytes = 64 * 128;   // 64 rows x 64 bf16 columns (128 B, swizzled)
+constexpr int kKvThreads = 256;         // dK/dV: two consumer warpgroups
+constexpr int kQThreads = 128;          // dQ: one consumer warpgroup
+constexpr int kProducer = 128;          // dK/dV: the thread that issues the loads
+constexpr int kTargetBlocks = 256;      // dK/dV blocks wanted: about two waves of 132 SMs
+constexpr float kLog2e = 1.4426950408889634f;
+
+// the split of a call: kd, the padded head size; n_kt, the 64-row k tiles;
+// heads_per_block query heads of one group summed inside a dK/dV block;
+// n_split = group / heads_per_block blocks per (k tile, KV head, b), whose
+// float32 partials the reduction kernel sums in split order
+struct Plan {
+  int kd, n_kt, heads_per_block, n_split;
+  long long delta_floats, part_floats;  // scratch: delta, then 2 x part_floats
+};
+
+inline int padded_d(int D) { return D <= 64 ? 64 : D <= 128 ? 128 : 256; }
+
+// a pure function of the shape (window is not used by this rule): the
+// largest divisor of the group that still gives kTargetBlocks blocks, else
+// one head per block; `heads_per_block` > 0 overrides the rule.  Measured
+// on the H100 (launch/bwd_splits.py times every split at six shapes): 256
+// blocks, one per SM, beat 512 (twice the partials to write and sum) and
+// 128 (one wave, a tail of idle SMs) wherever 256 were possible
+inline Plan plan(int B, int H, int Hkv, int S, int D, int heads_per_block) {
+  Plan p;
+  const int group = H / Hkv;
+  p.kd = padded_d(D);
+  p.n_kt = (S + kTile - 1) / kTile;
+  const long long base = static_cast<long long>(p.n_kt) * Hkv * B;
+  p.heads_per_block = 1;
+  if (heads_per_block > 0) {
+    p.heads_per_block = heads_per_block;
+  } else {
+    for (int hpb = group; hpb >= 1; --hpb)
+      if (group % hpb == 0 && base * (group / hpb) >= kTargetBlocks) {
+        p.heads_per_block = hpb;
+        break;
+      }
+  }
+  p.n_split = group / p.heads_per_block;
+  // delta rounded up to 64 floats, so the partials start 256-byte aligned
+  p.delta_floats = (static_cast<long long>(B) * H * S + 63) / 64 * 64;
+  p.part_floats = p.n_split > 1 ? static_cast<long long>(p.n_split) * B * Hkv * S * D : 0;
+  return p;
+}
+
+template <int kD>
+struct KvLayout {
+  static constexpr int kPanels = kD / 64;
+  static constexpr int kTileBytes = kPanels * kPanelBytes;  // 64 rows x kD
+  static constexpr int kK = 0;                               // resident
+  static constexpr int kV = kTileBytes;                      // resident
+  static constexpr int kQ = 2 * kTileBytes;                  // kStages tiles
+  static constexpr int kG = kQ + kStages * kTileBytes;       // kStages dO tiles
+  static constexpr int kP = kG + kStages * kTileBytes;       // P^T, 64 x 64 fp32
+  static constexpr int kBar = kP + kTile * kTile * 4;        // 1 + 2 kStages mbarriers
+  static constexpr int kBytes = kBar + 64 + 1024;            // + alignment slack
+};
+
+template <int kD>
+struct QLayout {
+  static constexpr int kPanels = kD / 64;
+  static constexpr int kTileBytes = kPanels * kPanelBytes;
+  static constexpr int kQ = 0;                               // resident
+  static constexpr int kG = kTileBytes;                      // resident dO
+  static constexpr int kK = 2 * kTileBytes;                  // kStages tiles
+  static constexpr int kV = kK + kStages * kTileBytes;       // kStages tiles
+  static constexpr int kBar = kV + kStages * kTileBytes;     // 1 + 2 kStages mbarriers
+  static constexpr int kBytes = kBar + 64 + 1024;
+};
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ bool kept(int i, int j, int S, int causal, int window) {
+  return i < S && j < S && (!causal || j <= i) && (window <= 0 || j > i - window);
+}
+
+// kk-th 16-deep slice of a 64 x kD swizzled tile, the K-major operand of an
+// ss wgmma: 64-column panels kPanelBytes apart, 32 bytes per slice
+__device__ __forceinline__ int k_slice(int kk) { return (kk / 4) * kPanelBytes + (kk % 4) * 32; }
+
+// 64 x kD accumulator (wgmma layout) stored as bf16 times `mult`: rows row0,
+// row0 + 8 of the tile starting at `first` (rows < S), columns < D
+template <int kD>
+__device__ __forceinline__ void store_bf16(__nv_bfloat16* base, long long ss, const float (&acc)[kD / 2],
+                                           int row0, int S, int D, int cq, float mult) {
+  const int row1 = row0 + 8;
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j) {
+    const int col = 8 * j + cq;
+    if (col < D) {
+      const __nv_bfloat162 v0 = __floats2bfloat162_rn(acc[4 * j] * mult, acc[4 * j + 1] * mult);
+      const __nv_bfloat162 v1 =
+          __floats2bfloat162_rn(acc[4 * j + 2] * mult, acc[4 * j + 3] * mult);
+      if (row0 < S) *reinterpret_cast<__nv_bfloat162*>(base + row0 * ss + col) = v0;
+      if (row1 < S) *reinterpret_cast<__nv_bfloat162*>(base + row1 * ss + col) = v1;
+    }
+  }
+}
+
+// dK and dV of one 64-row k tile of KV head hk and batch b, over the query
+// heads [h0, h0 + hpb) of its group and, for each, the q tiles the masks
+// keep.  Warpgroup 0: S^T = K Q^T, P^T, dV += P^T dO.  Warpgroup 1:
+// dP^T = V dO^T, dS^T = P^T (dP^T - delta), dK += dS^T Q.  Thread 128
+// streams the Q and dO tiles through the ring.
+template <int kD>
+__global__ void __launch_bounds__(kKvThreads, 1)
+flash_attention_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                      const __grid_constant__ CUtensorMap tk,
+                                      const __grid_constant__ CUtensorMap tv,
+                                      const __grid_constant__ CUtensorMap tg,
+                                      const float* __restrict__ lse,
+                                      const float* __restrict__ delta,
+                                      __nv_bfloat16* __restrict__ dk,
+                                      __nv_bfloat16* __restrict__ dv,
+                                      float* __restrict__ part_k, float* __restrict__ part_v,
+                                      int H, int Hkv, int group, int hpb, int S, int D,
+                                      long long dksb, long long dksh, long long dkss,
+                                      long long dvsb, long long dvsh, long long dvss,
+                                      float sm_scale, float scale_log2, int causal, int window) {
+  using L = KvLayout<kD>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full = bar_kv + 1;          // kStages: a Q/dO tile pair has landed
+  uint64_t* empty = full + kStages;     // kStages: all threads are done with it
+  float* p_s = reinterpret_cast<float*>(smem + L::kP);
+
+  const int n_split = group / hpb;
+  const int hk = blockIdx.x / n_split;
+  const int split = blockIdx.x % n_split;
+  const int b = blockIdx.y;
+  const int k0 = blockIdx.z * kTile;    // causal: the lowest k tiles keep the most rows, first
+  const int h0 = hk * group + split * hpb;
+  const int tid = threadIdx.x;
+  const int wgi = tid / 128;
+  const int lane = tid % 32;
+
+  // q rows that keep some column of [k0, k0 + 64): i >= k0 when causal,
+  // i < k0 + 63 + window with a window
+  const int q_begin = causal ? k0 : 0;
+  const int q_end = window > 0 ? min(S, k0 + kTile - 1 + window) : S;
+  const int n_q = (q_end - q_begin + kTile - 1) / kTile;
+  const int n_t = hpb * n_q;            // (head, q tile) steps, head-major
+
+  if (tid == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kKvThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  auto load_qg = [&](int t) {
+    const int s = t % kStages;
+    const int head = h0 + t / n_q;
+    const int row = q_begin + (t % n_q) * kTile;
+    mbar_expect_tx(&full[s], 2 * L::kTileBytes);
+#pragma unroll
+    for (int p = 0; p < L::kPanels; ++p) {
+      tma_load(smem + L::kQ + s * L::kTileBytes + p * kPanelBytes, &tq, 64 * p, row, head, b,
+               &full[s]);
+      tma_load(smem + L::kG + s * L::kTileBytes + p * kPanelBytes, &tg, 64 * p, row, head, b,
+               &full[s]);
+    }
+  };
+
+  if (tid == kProducer) {
+    mbar_expect_tx(bar_kv, 2 * L::kTileBytes);
+#pragma unroll
+    for (int p = 0; p < L::kPanels; ++p) {
+      tma_load(smem + L::kK + p * kPanelBytes, &tk, 64 * p, k0, hk, b, bar_kv);
+      tma_load(smem + L::kV + p * kPanelBytes, &tv, 64 * p, k0, hk, b, bar_kv);
+    }
+    for (int t = 0; t < kStages && t < n_t; ++t) load_qg(t);
+  }
+
+  // this thread's accumulator rows (k rows of the tile) and columns
+  const int r0 = (tid % 128) / 32 * 16 + lane / 4;
+  const int r1 = r0 + 8;
+  const int cq = 2 * (lane % 4);
+  const int ti = tid % 128;
+
+  float acc[kD / 2];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) acc[i] = 0.f;
+  const uint8_t* ks = smem + L::kK;
+  const uint8_t* vs = smem + L::kV;
+
+  mbar_wait(bar_kv, 0);
+  for (int t = 0; t < n_t; ++t) {
+    const int stage = t % kStages;
+    const int parity = (t / kStages) & 1;
+    const int head = h0 + t / n_q;
+    const int q0 = q_begin + (t % n_q) * kTile;
+    // the lse (warpgroup 0, in the log2 domain) or delta (warpgroup 1) of
+    // this thread's q columns 8 j + cq + e
+    const float* rv = (wgi == 0 ? lse : delta) + (static_cast<long long>(b) * H + head) * S;
+    const float rmul = wgi == 0 ? kLog2e : 1.f;
+    float cv[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = q0 + 8 * j + cq + e;
+        cv[2 * j + e] = c < S ? __ldg(rv + c) * rmul : 0.f;
+      }
+    // does some pair of the tile fall outside the masks?
+    const bool edge = q0 + kTile > S || k0 + kTile > S || (causal && k0 + kTile - 1 > q0) ||
+                      (window > 0 && k0 <= q0 + kTile - 1 - window);
+    mbar_wait(&full[stage], parity);
+    const uint8_t* qs = smem + L::kQ + stage * L::kTileBytes;
+    const uint8_t* gs = smem + L::kG + stage * L::kTileBytes;
+    float x[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) x[i] = 0.f;
+    fence_regs(x);
+    wgmma_fence();
+    // warpgroup 0: S^T = K Q^T; warpgroup 1: dP^T = V dO^T (both K-major)
+    const uint8_t* a_s = wgi == 0 ? ks : vs;
+    const uint8_t* b_s = wgi == 0 ? qs : gs;
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)
+      wgmma_ss_n64(x, desc(a_s + k_slice(kk), 16, 1024), desc(b_s + k_slice(kk), 16, 1024), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(x);
+
+    if (wgi == 0) {
+      if (t > 0) named_sync(2, kKvThreads);  // warpgroup 1 has read the previous P^T
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(x[4 * j + e] * scale_log2 - cv[2 * j + (e & 1)]);
+          if (edge && !kept(q0 + 8 * j + cq + (e & 1), k0 + (e < 2 ? r0 : r1), S, causal, window))
+            p = 0.f;
+          x[4 * j + e] = p;
+          p_s[(4 * j + e) * 128 + ti] = p;
+        }
+      named_arrive(1, kKvThreads);
+    } else {
+      named_sync(1, kKvThreads);             // warpgroup 0's P^T of this tile is in p_s
+#pragma unroll
+      for (int i = 0; i < 32; ++i) x[i] = p_s[i * 128 + ti] * (x[i] - cv[2 * (i / 4) + (i & 1)]);
+      if (t + 1 < n_t) named_arrive(2, kKvThreads);
+    }
+    // P^T (warpgroup 0) or dS^T (warpgroup 1) rounded once to bf16, as the
+    // A fragments of k step j / 2: rows r0, r1, columns 8 j + cq, + 1
+    uint32_t af[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      af[j / 2][(j % 2) * 2] = pack_bf16(x[4 * j], x[4 * j + 1]);
+      af[j / 2][(j % 2) * 2 + 1] = pack_bf16(x[4 * j + 2], x[4 * j + 3]);
+    }
+    // dV += P^T dO or dK += dS^T Q: 16 q rows of the MN-major tile per step
+    const uint8_t* m_s = wgi == 0 ? gs : qs;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+      wgmma_rs<kD>(acc, af[kk], desc(m_s + kk * 16 * 128, kPanelBytes, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+
+    mbar_arrive(&empty[stage]);
+    if (tid == kProducer && t + kStages < n_t) {
+      mbar_wait(&empty[stage], parity);
+      load_qg(t + kStages);
+    }
+    __syncwarp();
+  }
+
+  const int B = gridDim.y;
+  if (n_split == 1) {
+    if (wgi == 0)
+      store_bf16<kD>(dv + b * dvsb + hk * dvsh + static_cast<long long>(k0) * dvss, dvss, acc,
+                     r0, S - k0, D, cq, 1.f);
+    else
+      store_bf16<kD>(dk + b * dksb + hk * dksh + static_cast<long long>(k0) * dkss, dkss, acc,
+                     r0, S - k0, D, cq, sm_scale);
+    return;
+  }
+  // float32 partials of this split, (n_split, B, Hkv, S, D) contiguous
+  float* part = (wgi == 0 ? part_v : part_k) +
+                ((static_cast<long long>(split) * B + b) * Hkv + hk) * S * D;
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j) {
+    const int col = 8 * j + cq;
+    if (col < D) {
+      if (k0 + r0 < S)
+        *reinterpret_cast<float2*>(part + static_cast<long long>(k0 + r0) * D + col) =
+            make_float2(acc[4 * j], acc[4 * j + 1]);
+      if (k0 + r1 < S)
+        *reinterpret_cast<float2*>(part + static_cast<long long>(k0 + r1) * D + col) =
+            make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+}
+
+// dK = scale sum_split part_k[split], dV = sum_split part_v[split], in
+// split order, written as bf16; four columns per thread, blockIdx.y picks
+// dK (0) or dV (1)
+__global__ void __launch_bounds__(256)
+flash_attention_bwd_reduce_kernel(const float* __restrict__ part_k,
+                                  const float* __restrict__ part_v,
+                                  __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                                  int n_split, int Hkv, int S, int D, long long per_split,
+                                  long long dksb, long long dksh, long long dkss,
+                                  long long dvsb, long long dvsh, long long dvss,
+                                  float sm_scale) {
+  const long long e = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
+  if (e >= per_split) return;
+  const bool is_k = blockIdx.y == 0;
+  const float* part = is_k ? part_k : part_v;
+  float4 acc = *reinterpret_cast<const float4*>(part + e);
+  for (int s = 1; s < n_split; ++s) {
+    const float4 x = *reinterpret_cast<const float4*>(part + s * per_split + e);
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  const float mult = is_k ? sm_scale : 1.f;
+  const int col = static_cast<int>(e % D);
+  const long long r = e / D;
+  const int row = static_cast<int>(r % S);
+  const long long bh = r / S;
+  const int hk = static_cast<int>(bh % Hkv);
+  const int b = static_cast<int>(bh / Hkv);
+  __nv_bfloat16* out = is_k ? dk + b * dksb + hk * dksh + row * dkss + col
+                            : dv + b * dvsb + hk * dvsh + row * dvss + col;
+  uint2 raw;
+  raw.x = pack_bf16(acc.x * mult, acc.y * mult);
+  raw.y = pack_bf16(acc.z * mult, acc.w * mult);
+  *reinterpret_cast<uint2*>(out) = raw;
+}
+
+// dQ of one 64-row q tile of head h and batch b over the k tiles the masks
+// keep: S = Q K^T and dP = dO V^T from shared memory, dS = P (dP - delta)
+// in registers, dQ += dS K with K read MN-major.  Thread 0 streams the K
+// and V tiles through the ring.
+template <int kD>
+__global__ void __launch_bounds__(kQThreads, 1)
+flash_attention_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                    const __grid_constant__ CUtensorMap tk,
+                                    const __grid_constant__ CUtensorMap tv,
+                                    const __grid_constant__ CUtensorMap tg,
+                                    const float* __restrict__ lse,
+                                    const float* __restrict__ delta,
+                                    __nv_bfloat16* __restrict__ dq, int H, int group, int S,
+                                    int D, long long dqsb, long long dqsh, long long dqss,
+                                    float sm_scale, float scale_log2, int causal, int window) {
+  using L = QLayout<kD>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full = bar_q + 1;
+  uint64_t* empty = full + kStages;
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int qt = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;  // heaviest first
+  const int hk = h / group;
+  const int q0 = qt * kTile;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+
+  // k tiles that some row of the tile keeps: [kt0, kt0 + n_tiles)
+  int kt0 = 0;
+  if (window > 0) {
+    const int lo = q0 - window + 1;  // first column row q0 keeps
+    kt0 = lo > 0 ? lo / kTile : 0;
+  }
+  const int k_rows = causal ? min(S, q0 + kTile) : S;
+  const int n_tiles = (k_rows + kTile - 1) / kTile - kt0;
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kQThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  auto load_kv = [&](int t) {
+    const int s = t % kStages;
+    const int row = (kt0 + t) * kTile;
+    mbar_expect_tx(&full[s], 2 * L::kTileBytes);
+#pragma unroll
+    for (int p = 0; p < L::kPanels; ++p) {
+      tma_load(smem + L::kK + s * L::kTileBytes + p * kPanelBytes, &tk, 64 * p, row, hk, b,
+               &full[s]);
+      tma_load(smem + L::kV + s * L::kTileBytes + p * kPanelBytes, &tv, 64 * p, row, hk, b,
+               &full[s]);
+    }
+  };
+
+  if (tid == 0) {
+    mbar_expect_tx(bar_q, 2 * L::kTileBytes);
+#pragma unroll
+    for (int p = 0; p < L::kPanels; ++p) {
+      tma_load(smem + L::kQ + p * kPanelBytes, &tq, 64 * p, q0, h, b, bar_q);
+      tma_load(smem + L::kG + p * kPanelBytes, &tg, 64 * p, q0, h, b, bar_q);
+    }
+    for (int t = 0; t < kStages && t < n_tiles; ++t) load_kv(t);
+  }
+
+  // this thread's accumulator rows (query rows) and columns
+  const int lr0 = tid / 32 * 16 + lane / 4;
+  const int row0 = q0 + lr0;
+  const int row1 = row0 + 8;
+  const int cq = 2 * (lane % 4);
+  const long long rbase = (static_cast<long long>(b) * H + h) * S;
+  const float l0 = row0 < S ? __ldg(lse + rbase + row0) * kLog2e : 0.f;
+  const float l1 = row1 < S ? __ldg(lse + rbase + row1) * kLog2e : 0.f;
+  const float d0 = row0 < S ? __ldg(delta + rbase + row0) : 0.f;
+  const float d1 = row1 < S ? __ldg(delta + rbase + row1) : 0.f;
+
+  float acc[kD / 2];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) acc[i] = 0.f;
+  const uint8_t* qs = smem + L::kQ;
+  const uint8_t* gs = smem + L::kG;
+
+  mbar_wait(bar_q, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int stage = t % kStages;
+    const int parity = (t / kStages) & 1;
+    const int k0 = (kt0 + t) * kTile;
+    mbar_wait(&full[stage], parity);
+    const uint8_t* ks = smem + L::kK + stage * L::kTileBytes;
+    const uint8_t* vs = smem + L::kV + stage * L::kTileBytes;
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      wgmma_ss_n64(s, desc(qs + k_slice(kk), 16, 1024), desc(ks + k_slice(kk), 16, 1024), 1);
+      wgmma_ss_n64(dp, desc(gs + k_slice(kk), 16, 1024), desc(vs + k_slice(kk), 16, 1024), 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    const bool edge = k0 + kTile > S || q0 + kTile > S || (causal && k0 + kTile - 1 > q0) ||
+                      (window > 0 && k0 <= q0 + kTile - 1 - window);
+    uint32_t af[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool hi = e >= 2;
+        float p = exp2f(s[4 * j + e] * scale_log2 - (hi ? l1 : l0));
+        if (edge && !kept(hi ? row1 : row0, k0 + 8 * j + cq + (e & 1), S, causal, window))
+          p = 0.f;
+        ds[e] = p * (dp[4 * j + e] - (hi ? d1 : d0));
+      }
+      af[j / 2][(j % 2) * 2] = pack_bf16(ds[0], ds[1]);
+      af[j / 2][(j % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+      wgmma_rs<kD>(acc, af[kk], desc(ks + kk * 16 * 128, kPanelBytes, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+
+    mbar_arrive(&empty[stage]);
+    if (tid == 0 && t + kStages < n_tiles) {
+      mbar_wait(&empty[stage], parity);
+      load_kv(t + kStages);
+    }
+    __syncwarp();
+  }
+
+  store_bf16<kD>(dq + b * dqsb + h * dqsh + static_cast<long long>(q0) * dqss, dqss, acc, lr0,
+                 S - q0, D, cq, sm_scale);
+}
+
+template <int kD>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* g,
+                   const float* lse, float* scratch, void* dq, void* dk, void* dv, int B, int H,
+                   int Hkv, int S, int D, const bwd::Strides& st, const Plan& pl,
+                   float sm_scale, int causal, int window, cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  float* delta = scratch;
+  const long long rows = static_cast<long long>(B) * H * S;
+  bwd::flash_attention_bwd_delta_kernel<T>
+      <<<static_cast<unsigned>((rows + bwd::kThreads / 32 - 1) / (bwd::kThreads / 32)),
+         bwd::kThreads, 0, stream>>>(static_cast<const T*>(o), static_cast<const T*>(g), delta,
+                                     H, S, D, rows, st);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  CUtensorMap mq, mk, mv, mg;
+  err = make_map(&mq, q, B, H, S, D, st.q[0], st.q[1], st.q[2]);
+  if (err == cudaSuccess) err = make_map(&mk, k, B, Hkv, S, D, st.k[0], st.k[1], st.k[2]);
+  if (err == cudaSuccess) err = make_map(&mv, v, B, Hkv, S, D, st.v[0], st.v[1], st.v[2]);
+  if (err == cudaSuccess) err = make_map(&mg, g, B, H, S, D, st.g[0], st.g[1], st.g[2]);
+  if (err != cudaSuccess) return err;
+  const int group = H / Hkv;
+  const float scale_log2 = sm_scale * kLog2e;
+  float* part_k = scratch + pl.delta_floats;
+  float* part_v = part_k + pl.part_floats;
+  T* tdk = static_cast<T*>(dk);
+  T* tdv = static_cast<T*>(dv);
+
+  // above 48 KB, dynamic shared memory must be granted per kernel (and per
+  // device, so it is set at every launch: a cheap driver call)
+  constexpr int kv_bytes = KvLayout<kD>::kBytes;
+  err = cudaFuncSetAttribute(flash_attention_bwd_dkdv_wgmma_kernel<kD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kv_bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 kv_grid(Hkv * pl.n_split, B, pl.n_kt);
+  flash_attention_bwd_dkdv_wgmma_kernel<kD><<<kv_grid, kKvThreads, kv_bytes, stream>>>(
+      mq, mk, mv, mg, lse, delta, tdk, tdv, part_k, part_v, H, Hkv, group, pl.heads_per_block,
+      S, D, st.dk[0], st.dk[1], st.dk[2], st.dv[0], st.dv[1], st.dv[2], sm_scale, scale_log2,
+      causal, window);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  if (pl.n_split > 1) {
+    const long long per_split = static_cast<long long>(B) * Hkv * S * D;
+    const long long threads = per_split / 4;
+    const dim3 r_grid(static_cast<unsigned>((threads + 255) / 256), 2);
+    flash_attention_bwd_reduce_kernel<<<r_grid, 256, 0, stream>>>(
+        part_k, part_v, tdk, tdv, pl.n_split, Hkv, S, D, per_split, st.dk[0], st.dk[1],
+        st.dk[2], st.dv[0], st.dv[1], st.dv[2], sm_scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+
+  constexpr int q_bytes = QLayout<kD>::kBytes;
+  err = cudaFuncSetAttribute(flash_attention_bwd_dq_wgmma_kernel<kD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, q_bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 q_grid(H, B, pl.n_kt);
+  flash_attention_bwd_dq_wgmma_kernel<kD><<<q_grid, kQThreads, q_bytes, stream>>>(
+      mq, mk, mv, mg, lse, delta, static_cast<T*>(dq), H, group, S, D, st.dq[0], st.dq[1],
+      st.dq[2], sm_scale, scale_log2, causal, window);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch(const void* q, const void* k, const void* v, const void* o, const void* g,
+                     const float* lse, float* scratch, void* dq, void* dk, void* dv, int B,
+                     int H, int Hkv, int S, int D, const bwd::Strides& st, const Plan& pl,
+                     float sm_scale, int causal, int window, cudaStream_t s) {
+  // D runs zero-padded in the next size up (TMA fills the columns past D)
+  if (pl.kd == 64)
+    return launch<64>(q, k, v, o, g, lse, scratch, dq, dk, dv, B, H, Hkv, S, D, st, pl,
+                      sm_scale, causal, window, s);
+  if (pl.kd == 128)
+    return launch<128>(q, k, v, o, g, lse, scratch, dq, dk, dv, B, H, Hkv, S, D, st, pl,
+                       sm_scale, causal, window, s);
+  return launch<256>(q, k, v, o, g, lse, scratch, dq, dk, dv, B, H, Hkv, S, D, st, pl,
+                     sm_scale, causal, window, s);
+}
+
+}  // namespace wg
 
 }  // namespace
 
 extern "C" {
 
+// The split of a call (wgmma path for dtype 1; the FMA path has one split):
+// out[0..7] = padded D, k tiles, heads per block, splits, dK/dV blocks, dQ
+// blocks, dK/dV and dQ dynamic shared memory bytes.  heads_per_block 0 takes
+// the rule.  Returns the float32 scratch the launch needs (delta, then the
+// partials), or -1 for a shape the kernels do not take.
+long long flash_attention_bwd_plan(int dtype, int B, int H, int Hkv, int S, int D, int window,
+                                   int heads_per_block, long long* out) {
+  (void)window;
+  if (B <= 0 || H <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0 || D <= 0 || D > 256 ||
+      D % 8 != 0 || heads_per_block < 0 ||
+      (heads_per_block > 0 && (H / Hkv) % heads_per_block != 0) || (dtype != 0 && dtype != 1))
+    return -1;
+  wg::Plan p = wg::plan(B, H, Hkv, S, D, dtype == 1 ? heads_per_block : H / Hkv);
+  long long kv_smem = 0, q_smem = 0;
+  if (p.kd == 64) {
+    kv_smem = wg::KvLayout<64>::kBytes;
+    q_smem = wg::QLayout<64>::kBytes;
+  } else if (p.kd == 128) {
+    kv_smem = wg::KvLayout<128>::kBytes;
+    q_smem = wg::QLayout<128>::kBytes;
+  } else {
+    kv_smem = wg::KvLayout<256>::kBytes;
+    q_smem = wg::QLayout<256>::kBytes;
+  }
+  if (dtype == 0) {
+    p.kd = D <= 32 ? 32 : p.kd;
+    kv_smem = q_smem = 0;  // not reported for the FMA path
+  }
+  const long long vals[8] = {p.kd, p.n_kt, p.heads_per_block, p.n_split,
+                             static_cast<long long>(p.n_kt) * Hkv * p.n_split * B,
+                             static_cast<long long>(p.n_kt) * H * B, kv_smem, q_smem};
+  if (out != nullptr) memcpy(out, vals, sizeof(vals));
+  return p.delta_floats + 2 * p.part_floats;
+}
+
 // q, o, do, dq: (B, H, S, D); k, v, dk, dv: (B, Hkv, S, D), each addressed
 // by the 24 element strides in `strides` (b, h, s for q, k, v, o, do, dq,
 // dk, dv in that order) with D contiguous, rows and bases 16-byte aligned.
-// lse and delta (scratch, written here): (B, H, S) float32 contiguous.
-// dtype 0 = float32, 1 = bfloat16 (inputs and gradients alike).  D a
-// multiple of 8 up to 256; window 0 = no window.  Launches the three
-// kernels on `stream`; returns a cudaError_t.
-int flash_attention_bwd_launch(const void* q, const void* k, const void* v, const void* o,
-                               const void* g, const void* lse, void* delta, void* dq, void* dk,
-                               void* dv, int dtype, int B, int H, int Hkv, int S, int D,
-                               const long long* strides, float sm_scale, int causal,
-                               int window, int device, void* stream) {
+// lse: (B, H, S) float32 contiguous.  delta: float32 scratch of
+// flash_attention_bwd_plan(...) floats, written here (delta, then the
+// partial dK and dV).  dtype 0 = float32 (FMA kernels), 1 = bfloat16 (wgmma
+// kernels).  D a multiple of 8 up to 256; window 0 = no window.
+// heads_per_block: 0 takes the plan's rule; else a divisor of the group
+// (bfloat16 only; it exists to measure the rule against the alternatives).
+// Launches the kernels on `stream`; returns a cudaError_t.
+int flash_attention_bwd_launch_split(const void* q, const void* k, const void* v,
+                                     const void* o, const void* g, const void* lse, void* delta,
+                                     void* dq, void* dk, void* dv, int dtype, int B, int H,
+                                     int Hkv, int S, int D, const long long* strides,
+                                     float sm_scale, int causal, int window, int device,
+                                     void* stream, int heads_per_block) {
   if (B <= 0 || H <= 0 || S <= 0) return cudaSuccess;
   if (Hkv <= 0 || H % Hkv != 0 || D <= 0 || D > 256 || D % 8 != 0 || B > 65535 ||
-      H > 65535)
+      H > 65535 || heads_per_block < 0 ||
+      (heads_per_block > 0 && (H / Hkv) % heads_per_block != 0))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -533,10 +1188,24 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v, cons
   if (dtype == 0)
     return bwd::dispatch<float>(q, k, v, o, g, l, d, dq, dk, dv, B, H, Hkv, S, D, st, sm_scale,
                                 causal, window, s);
-  if (dtype == 1)
-    return bwd::dispatch<__nv_bfloat16>(q, k, v, o, g, l, d, dq, dk, dv, B, H, Hkv, S, D, st,
-                                        sm_scale, causal, window, s);
+  if (dtype == 1) {
+    const wg::Plan p = wg::plan(B, H, Hkv, S, D, heads_per_block);
+    if (p.n_kt > 65535 || static_cast<long long>(Hkv) * p.n_split > 2147483647LL)
+      return cudaErrorInvalidValue;
+    return wg::dispatch(q, k, v, o, g, l, d, dq, dk, dv, B, H, Hkv, S, D, st, p, sm_scale,
+                        causal, window, s);
+  }
   return cudaErrorInvalidValue;
+}
+
+int flash_attention_bwd_launch(const void* q, const void* k, const void* v, const void* o,
+                               const void* g, const void* lse, void* delta, void* dq, void* dk,
+                               void* dv, int dtype, int B, int H, int Hkv, int S, int D,
+                               const long long* strides, float sm_scale, int causal,
+                               int window, int device, void* stream) {
+  return flash_attention_bwd_launch_split(q, k, v, o, g, lse, delta, dq, dk, dv, dtype, B, H,
+                                          Hkv, S, D, strides, sm_scale, causal, window, device,
+                                          stream, 0);
 }
 
 }  // extern "C"

@@ -84,7 +84,9 @@ def main(argv=None):
         print(f"{len(losses)} steps in {dt:.1f}s "
               f"({dt/len(losses):.2f}s/step): "
               f"loss {sum(losses[:k])/k:.3f} -> {sum(losses[-k:])/k:.3f}")
-        assert sum(losses[-k:]) / k < sum(losses[:k]) / k, "loss did not drop"
+        if sum(losses[-k:]) / k >= sum(losses[:k]) / k:
+            raise RuntimeError(f"loss did not drop: {sum(losses[:k]) / k:.3f} -> "
+                               f"{sum(losses[-k:]) / k:.3f}")
     print("training example OK (checkpoints in", args.ckpt_dir + ")")
 
 

@@ -10,9 +10,10 @@ trimatrix       : 2-itemset co-occurrence counts (the paper's Phase-2
 flash_attention : online-softmax attention, causal / sliding window / GQA
                   (every full-sequence layer of ``models.attention``): a
                   bf16 tensor-core (wgmma + TMA) kernel and a float32 FMA
-                  one; and its backward (``flash_attention_bwd``: delta,
-                  dK/dV and dQ kernels on the CUDA cores) behind
-                  ``FlashAttentionFunction``, for training
+                  one; and its backward (``flash_attention_bwd``: bf16
+                  wgmma + TMA dK/dV, reduction and dQ kernels, float32
+                  FMA ones) behind ``FlashAttentionFunction``, for
+                  training
 decode_attention: one-token grouped-query attention over the KV cache,
                   split over blocks along the cache and merged in one
                   launch (every decode step of ``models.attention``)
@@ -56,7 +57,7 @@ def _with_variants():
 def variant_counts() -> dict:
     """Launches of each variant of a kernel that has several, since the last
     reset: ``{"flash_attention.wgmma_bf16": n, "flash_attention.fma_f32": n,
-    "flash_attention_bwd.fma_bf16": n, "flash_attention_bwd.fma_f32": n}``."""
+    "flash_attention_bwd.wgmma_bf16": n, "flash_attention_bwd.fma_f32": n}``."""
     return {f"{name}.{v}": n for name, fn in _with_variants().items()
             for v, n in fn.variant_launches.items()}
 

@@ -11,9 +11,12 @@ raises.  ``flash_attention(..., return_lse=True)`` also returns each row's
 log-sum-exp, which the backward reads.
 
 The backward's counters, ``flash_attention_bwd.launches`` and
-``flash_attention_bwd.variant_launches`` (``fma_bf16``, ``fma_f32``: the
-same CUDA-core kernels loading bfloat16 or float32), count one per call:
-a call launches its three kernels (delta, dK/dV, dQ) together.
+``flash_attention_bwd.variant_launches`` (``wgmma_bf16``: the tensor-core
+kernels; ``fma_f32``: the CUDA-core kernels), count one per call: a call
+launches its kernels (delta, dK/dV, the reduction of the dK/dV partials
+where the plan splits a group, dQ) together.  :func:`bwd_plan` mirrors the
+CUDA plan of the bf16 path (how a group's query heads are split over
+dK/dV blocks, the shared memory per block, the scratch) for the tests.
 
 The kernel reads q, k and v and writes the output through their strides, so
 a (B, H, S, D) view of the model's (B, S, H, D) activations
@@ -23,17 +26,19 @@ output takes q's memory layout (``torch.empty_like``).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from .. import _build
 from .._layout import rows_of_16_bytes
 
-__all__ = ["flash_attention", "flash_attention_bwd"]
+__all__ = ["flash_attention", "flash_attention_bwd", "bwd_plan", "BwdPlan",
+           "bwd_dkdv_blocks"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANTS = {torch.float32: "fma_f32", torch.bfloat16: "wgmma_bf16"}
-_BWD_VARIANTS = {torch.float32: "fma_f32", torch.bfloat16: "fma_bf16"}
+_BWD_VARIANTS = {torch.float32: "fma_f32", torch.bfloat16: "wgmma_bf16"}
 _BOUND = False
 
 
@@ -51,6 +56,12 @@ def _lib() -> ctypes.CDLL:
             vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, strides,
             ctypes.c_float, i, i, i, vp]
         lib.flash_attention_bwd_launch.restype = ctypes.c_int
+        lib.flash_attention_bwd_launch_split.argtypes = [
+            *lib.flash_attention_bwd_launch.argtypes, i]
+        lib.flash_attention_bwd_launch_split.restype = ctypes.c_int
+        lib.flash_attention_bwd_plan.argtypes = [
+            i, i, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong)]
+        lib.flash_attention_bwd_plan.restype = ctypes.c_longlong
         _BOUND = True
     return lib
 
@@ -140,6 +151,64 @@ flash_attention.launches = 0
 flash_attention.variant_launches = dict.fromkeys(_VARIANTS.values(), 0)
 
 
+# the bf16 backward's plan (csrc/flash_attention_bwd.cu, wg::plan and the
+# two kernels' shared-memory layouts), mirrored for the tests
+_TILE = 64
+_PANEL_BYTES = 64 * 128
+_TARGET_BLOCKS = 256
+
+
+class BwdPlan(NamedTuple):
+    kd: int               # D padded to 64, 128 or 256
+    n_kt: int             # 64-row k tiles (and q tiles)
+    heads_per_block: int  # query heads of a group summed inside a dK/dV block
+    n_split: int          # dK/dV blocks per (k tile, KV head, b)
+    dkdv_blocks: int
+    dq_blocks: int
+    dkdv_smem: int        # dynamic shared memory bytes per block
+    dq_smem: int
+    scratch_floats: int   # delta, then the float32 partial dK and dV
+
+
+def bwd_plan(b, h, hkv, s, d, window=0, heads_per_block=0) -> BwdPlan:
+    """The split of a bf16 backward call, a function of the shape alone:
+    the largest divisor of the group G = H / Hkv that still gives 256
+    dK/dV blocks (about two waves on the H100's 132 SMs, one block per SM;
+    the fastest of the divisors at the shapes ``launch/bwd_splits.py``
+    times), else one head per block.  ``heads_per_block`` > 0 overrides
+    the rule.  ``window`` is part of the signature; this rule does not
+    read it."""
+    del window
+    group = h // hkv
+    kd = 64 if d <= 64 else 128 if d <= 128 else 256
+    n_kt = -(-s // _TILE)
+    hpb = heads_per_block or next(
+        (x for x in range(group, 0, -1)
+         if group % x == 0 and n_kt * hkv * b * (group // x) >= _TARGET_BLOCKS), 1)
+    n_split = group // hpb
+    tile = kd // 64 * _PANEL_BYTES
+    slack = 64 + 1024                       # mbarriers, 1,024-byte alignment
+    dkdv_smem = 2 * tile + 2 * 2 * tile + _TILE * _TILE * 4 + slack
+    dq_smem = 2 * tile + 2 * 2 * tile + slack
+    delta = -(-(b * h * s) // 64) * 64
+    part = n_split * b * hkv * s * d if n_split > 1 else 0
+    return BwdPlan(kd, n_kt, hpb, n_split, n_kt * hkv * n_split * b,
+                   n_kt * h * b, dkdv_smem, dq_smem, delta + 2 * part)
+
+
+def bwd_dkdv_blocks(plan: BwdPlan, b, h, hkv):
+    """(k tile, batch, query heads) of every dK/dV block, in launch order,
+    by the kernel's index arithmetic: blockIdx = (hk * n_split + split, b,
+    k tile)."""
+    group = h // hkv
+    for z in range(plan.n_kt):
+        for y in range(b):
+            for x in range(hkv * plan.n_split):
+                hk, split = divmod(x, plan.n_split)
+                h0 = hk * group + split * plan.heads_per_block
+                yield z, y, tuple(range(h0, h0 + plan.heads_per_block))
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, dout: torch.Tensor,
                         lse: torch.Tensor, *, causal: bool = True,
@@ -149,7 +218,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     forward's ``lse`` (B, H, S) float32 -> ``(dq, dk, dv)`` in the inputs'
     dtype and memory layouts, summed in float32 (dk, dv over the G query
     heads of each KV head).  Pass the q, k, v and out the forward read and
-    wrote.  Masks as in the forward (``window`` 0 = none)."""
+    wrote.  Masks as in the forward (``window`` 0 = none).  bfloat16: the
+    wgmma kernels, P and dS rounded once to bf16 before their products;
+    float32: the FMA kernels."""
+    return _bwd(q, k, v, out, dout, lse, causal, window, sm_scale, 0)
+
+
+def _bwd(q, k, v, out, dout, lse, causal, window, sm_scale, heads_per_block):
+    """:func:`flash_attention_bwd` with the bf16 plan's ``heads_per_block``
+    (0 = the rule; ``launch/bwd_splits.py`` times the alternatives)."""
     _check((("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout)))
     b, h, hkv, s, d = _shapes(q, k, v, window)
     if out.shape != q.shape or dout.shape != q.shape:
@@ -166,14 +243,21 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = _empty_like(q), _empty_like(k), _empty_like(v)
     if dq.numel() == 0:
         return dq, dk, dv
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    lib = _lib()
+    n = lib.flash_attention_bwd_plan(_DTYPES[q.dtype], b, h, hkv, s, d,
+                                     int(window), int(heads_per_block), None)
+    if n < 0:
+        raise ValueError(f"flash_attention_bwd: no plan for B={b} H={h} "
+                         f"Hkv={hkv} S={s} D={d} heads_per_block={heads_per_block}")
+    scratch = torch.empty(n, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = _lib().flash_attention_bwd_launch(
+    code = lib.flash_attention_bwd_launch_split(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], b, h, hkv, s, d,
         _strides(q, k, v, out, dout, dq, dk, dv), float(sm_scale),
-        int(bool(causal)), int(window), q.device.index, stream)
+        int(bool(causal)), int(window), q.device.index, stream,
+        int(heads_per_block))
     variant = _BWD_VARIANTS[q.dtype]
     _build.check(code, f"flash_attention_bwd ({variant})")
     flash_attention_bwd.launches += 1

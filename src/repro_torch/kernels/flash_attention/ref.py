@@ -8,13 +8,15 @@ product); only the tests and ``chip_smoke.py`` use it.
 
 :func:`attention_lse_ref` and :func:`attention_ref_bwd` are the plain
 versions of the forward's row log-sum-exp and of the backward kernels
-(``csrc/flash_attention_bwd.cu``)."""
+(``csrc/flash_attention_bwd.cu``); :func:`attention_bwd_bf16_ref` emulates
+the arithmetic of the bf16 backward kernels (P and dS rounded once to
+bf16), for the tests and ``chip_smoke.py``."""
 from __future__ import annotations
 
 import torch
 
 __all__ = ["attention_ref", "attention_split_p_ref", "attention_lse_ref",
-           "attention_ref_bwd"]
+           "attention_ref_bwd", "attention_bwd_bf16_ref"]
 
 
 def _mask(s, causal, window, device):
@@ -119,3 +121,40 @@ def attention_ref_bwd(q, k, v, out, dout, lse, *, causal=True, window=None,
     dk = dk.reshape(b, hkv, group, s, d).sum(2)
     dv = dv.reshape(b, hkv, group, s, d).sum(2)
     return dq, dk, dv
+
+
+def attention_bwd_bf16_ref(q, k, v, out, dout, lse, *, causal=True,
+                           window=None, sm_scale=None):
+    """The bf16 backward kernels' arithmetic: scores and dP in fp32 from the
+    inputs' values, P = exp(s * scale - lse) in fp32, ``delta`` the fp32
+    rowsum of dout * out, ``dS = P (dP - delta)`` from the fp32 P; then P
+    (for dV) and dS (for dQ and dK) rounded once to bf16 before their
+    products, the products summed in fp32, dK and dV summed over the G
+    query heads of each KV head in head order (the kernels' split order:
+    partials of consecutive heads added first to last), dQ and dK scaled
+    after their sums.  Arguments as :func:`attention_ref_bwd`; returns
+    float32 ``(dq, dk, dv)``: the caller rounds them as the kernels'
+    stores would.  The kernels take exp2 of log2-scaled values; that
+    changes P by fp32 roundings only."""
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    scores, mask, group = _scores(q, k, causal, window, sm_scale)
+    p = torch.where(mask[None, None], torch.exp(scores - lse.float()[..., None]),
+                    torch.zeros((), device=q.device))
+    qf, gf, of = q.float(), dout.float(), out.float()
+    kk = k.float().repeat_interleave(group, dim=1)
+    vv = v.float().repeat_interleave(group, dim=1)
+    delta = (gf * of).sum(-1)
+    dp = torch.einsum("bhqd,bhkd->bhqk", gf, vv)
+    ds = (p * (dp - delta[..., None])).to(torch.bfloat16).float()
+    p = p.to(torch.bfloat16).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kk) * sm_scale
+    dk_h = torch.einsum("bhqk,bhqd->bhkd", ds, qf).reshape(b, hkv, group, s, d)
+    dv_h = torch.einsum("bhqk,bhqd->bhkd", p, gf).reshape(b, hkv, group, s, d)
+    dk, dv = dk_h[:, :, 0], dv_h[:, :, 0]
+    for g in range(1, group):
+        dk = dk + dk_h[:, :, g]
+        dv = dv + dv_h[:, :, g]
+    return dq, dk * sm_scale, dv

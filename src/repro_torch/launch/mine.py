@@ -21,8 +21,11 @@ mines a FIMI-format transaction file instead of a generated dataset.
 ``--backend auto`` picks the backend from the measured crossover table
 (``BENCH_torch_kerneltune.json``), ``--block-w`` sets K2's word tile and
 ``--autotune`` tunes the kernels' tiles on a miss (``kernels.autotune``).
-Prints the same ``[mine] ...`` summary lines as the reference package's
-driver.
+``--top-k K`` replaces the threshold with the adaptive min_sup ladder
+(``core.top_k_mine``) and prints the ladder and the first 10 itemsets;
+``--min-conf C`` > 0 also prints the number of association rules at
+confidence >= C (``core.generate_rules``) after a mine or a restore.
+Prints the same ``[mine] ...`` lines as the reference package's driver.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ import argparse
 import os
 import time
 
-from ..core import EclatConfig, mine, resume_mine
+from ..core import EclatConfig, generate_rules, mine, resume_mine, top_k_mine
 from ..data import PAPER_DATASETS, generate, load_fimi
 
 
@@ -72,9 +75,29 @@ def _database(args):
     return txns, spec.n_items, spec.name, spec.tri_matrix or None
 
 
+def _rules(args, res) -> list:
+    """The rules line of ``--min-conf`` (none when it is 0)."""
+    if args.min_conf <= 0:
+        return []
+    rules = generate_rules(res.support_map(), args.min_conf)
+    return [f"[mine] {len(rules)} rules at conf>={args.min_conf}"]
+
+
+def _top_k(args, name, top, dt: float) -> list:
+    """The ``--top-k`` lines: the ladder, then the first 10 itemsets."""
+    scale_note = "" if args.fimi else f" x{args.scale}"
+    lines = [f"[mine] {name}{scale_note} top-{args.top_k} "
+             f"({len(top.itemsets)} returned) in {dt:.2f}s: ladder "
+             f"{[r['abs_min_sup'] for r in top.ladder]} -> "
+             f"abs_min_sup={top.abs_min_sup}"]
+    lines += [f"[mine]   {itemset} sup={sup}"
+              for itemset, sup in top.itemsets[:min(args.top_k, 10)]]
+    return lines
+
+
 def _run(args, device, mesh) -> str:
-    """Mine (or, with ``--restore``, resume) on ``device`` and ``mesh``;
-    returns the summary line."""
+    """Mine (or, with ``--restore``, resume; with ``--top-k``, climb the
+    ladder) on ``device`` and ``mesh``; returns the ``[mine]`` lines."""
     t0 = time.perf_counter()
     if args.restore:
         cfg = EclatConfig(min_sup=args.min_sup, variant=args.variant,
@@ -83,12 +106,18 @@ def _run(args, device, mesh) -> str:
                           autotune=args.autotune,
                           checkpoint_dir=args.checkpoint_dir)
         res = resume_mine(cfg, device=device, mesh=mesh)
-        return _resumed(res, time.perf_counter() - t0)
+        lines = [_resumed(res, time.perf_counter() - t0)] + _rules(args, res)
+        return "\n".join(lines)
     txns, n_items, name, tri_matrix = _database(args)
+    cfg = _config(args, tri_matrix)
     t0 = time.perf_counter()
-    res = mine(txns, n_items, _config(args, tri_matrix), device=device,
-               mesh=mesh)
-    return _summary(name, args, res, time.perf_counter() - t0, mesh)
+    if args.top_k is not None:
+        top = top_k_mine(txns, n_items, args.top_k, config=cfg, device=device,
+                         mesh=mesh)
+        return "\n".join(_top_k(args, name, top, time.perf_counter() - t0))
+    res = mine(txns, n_items, cfg, device=device, mesh=mesh)
+    lines = [_summary(name, args, res, time.perf_counter() - t0, mesh)]
+    return "\n".join(lines + _rules(args, res))
 
 
 def _mine_rank(device, args) -> str:
@@ -111,6 +140,9 @@ def main(argv=None):
                     choices=["all", "closed", "maximal"],
                     help="workload mode: all frequent itemsets, or the "
                          "closed/maximal subset (lineage post-filter)")
+    ap.add_argument("--top-k", type=int, default=None, metavar="K",
+                    help="mine the K highest-support itemsets via the "
+                         "adaptive min_sup ladder (--min-sup is ignored)")
     ap.add_argument("--variant", default="v4",
                     choices=["v1", "v2", "v3", "v4", "v5", "v6"])
     ap.add_argument("--p", type=int, default=10)
@@ -158,6 +190,8 @@ def main(argv=None):
                          "--backend/--shard/--grid/--ranks select the "
                          "*restoring* mesh, which may differ from the "
                          "original run's (live re-meshing, DESIGN.md §10)")
+    ap.add_argument("--min-conf", type=float, default=0.0,
+                    help="if >0, also generate association rules")
     args = ap.parse_args(argv)
     if args.restore and not args.checkpoint_dir:
         ap.error("--restore requires --checkpoint-dir")

@@ -405,3 +405,125 @@ def test_the_kernel_wrappers_refuse_cpu_tensors(fn):
             flash_attention(q, q, q, return_lse=True)
         else:
             flash_attention_bwd(q, q, q, q, q, torch.zeros(1, 2, 8))
+
+
+# ---------------------------------------------------------------------------
+# K6's backward on the card in bf16: the emulation of its arithmetic and its
+# split plan
+# ---------------------------------------------------------------------------
+
+# rel L2 of each bf16 gradient of the emulation against the float32 vjp of
+# the reference on the same bf16 values; measured worst case over BWD_CASES
+# 2.96e-3 (dk at B=2 H=8 Hkv=1 S=29), so the limit is half the card's 1e-2
+BWD_EMU_REL = 5e-3
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,causal,window", BWD_CASES)
+def test_bf16_bwd_emulation_matches_the_vjp_of_flash_chunked(b, h, hkv, s, d,
+                                                             causal, window):
+    """``attention_bwd_bf16_ref`` (P and dS rounded once to bf16 before
+    their products, fp32 sums, the group's dK and dV summed in split order)
+    on bf16 q, k, v, dout and the bf16 output against ``jax.vjp`` of the
+    reference's ``flash_chunked`` in float32 on the same values, each
+    gradient rounded to bf16 as the kernels store it.  One rounding of P or
+    dS moves an element by at most 2^-9 relative and the store by another
+    2^-9; the measured worst rel L2 is 2.96e-3, under BWD_EMU_REL = 5e-3
+    and well under the card's 1e-2 gate."""
+    import jax
+    from repro_torch.kernels.flash_attention import (attention_bwd_bf16_ref,
+                                                     attention_lse_ref)
+    q, k, v, dout = (torch.from_numpy(x).to(torch.bfloat16)
+                     for x in _bwd_inputs(b, h, hkv, s, d, seed=s + h + d))
+    scale = d ** -0.5
+
+    def f(q_, k_, v_):
+        out = j_flash_chunked(q_.transpose(0, 2, 1, 3), k_.transpose(0, 2, 1, 3),
+                              v_.transpose(0, 2, 1, 3), causal=causal,
+                              window=window, sm_scale=scale, q_chunk=16,
+                              k_chunk=16)
+        return out.transpose(0, 2, 1, 3)
+
+    out, vjp = jax.vjp(f, *(jnp.asarray(t.float().numpy()) for t in (q, k, v)))
+    want = vjp(jnp.asarray(dout.float().numpy()))
+    out = torch.from_numpy(np.array(out)).to(torch.bfloat16)
+    args = dict(causal=causal, window=window or None)
+    lse = attention_lse_ref(q.float(), k.float(), **args)
+    got = attention_bwd_bf16_ref(q, k, v, out, dout, lse, **args)
+    for g_, w_, t in zip(got, want, (q, k, v)):
+        assert g_.dtype == torch.float32 and g_.shape == t.shape
+        w_ = torch.from_numpy(np.array(w_))
+        rel = float((g_.to(torch.bfloat16).float() - w_).norm() / w_.norm())
+        assert rel <= BWD_EMU_REL
+
+
+def test_bf16_bwd_emulation_rounds_p_and_ds():
+    """The emulation is not the float32 textbook backward: rounding P and
+    dS to bf16 moves each gradient, by well under the limit."""
+    from repro_torch.kernels.flash_attention import (attention_bwd_bf16_ref,
+                                                     attention_lse_ref,
+                                                     attention_ref_bwd)
+    q, k, v, dout = (torch.from_numpy(x).to(torch.bfloat16)
+                     for x in _bwd_inputs(1, 8, 1, 64, 16, seed=5))
+    out = attention_ref(q.float(), k.float(), v.float()).to(torch.bfloat16)
+    lse = attention_lse_ref(q.float(), k.float())
+    got = attention_bwd_bf16_ref(q, k, v, out, dout, lse)
+    plain = attention_ref_bwd(q, k, v, out, dout, lse)
+    for g_, p_ in zip(got, plain):
+        rel = float((g_ - p_).norm() / p_.norm())
+        assert 1e-4 < rel < BWD_EMU_REL
+
+
+SMEM_PER_BLOCK = 232_448   # the H100's dynamic shared memory limit per block
+
+# (B, H, Hkv, S, D, window): gemma-2b's and gemma3-4b's training layers, the
+# card tests' shapes, and small grids where one head per block is forced
+PLAN_CASES = [
+    (4, 8, 1, 1024, 256, 0), (2, 8, 4, 2048, 256, 1024), (2, 8, 4, 1000, 256, 1024),
+    (2, 8, 1, 200, 256, 0), (1, 8, 4, 130, 256, 50), (2, 4, 2, 64, 16, 8),
+    (1, 4, 4, 97, 64, 0), (1, 2, 1, 1, 128, 0), (16, 8, 1, 4096, 256, 0),
+    (8, 16, 2, 2048, 128, 0), (1, 8, 8, 8192, 256, 0), (3, 12, 4, 777, 96, 300),
+]
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,window", PLAN_CASES)
+def test_bwd_plan_covers_every_k_tile_and_head_once(b, h, hkv, s, d, window):
+    """The mirror of the CUDA plan: a function of the shape alone (the same
+    plan from any call and any window), every (k tile, b, query head)
+    covered by exactly one dK/dV block, the group split over whole blocks,
+    the shared memory of both kernels within the card's per-block limit,
+    and the scratch large enough for delta and the partials."""
+    from collections import Counter
+    from repro_torch.kernels.flash_attention import bwd_dkdv_blocks, bwd_plan
+    plan = bwd_plan(b, h, hkv, s, d, window)
+    assert plan == bwd_plan(b, h, hkv, s, d, window) == bwd_plan(b, h, hkv, s, d, 0)
+    group = h // hkv
+    assert plan.n_split * plan.heads_per_block == group
+    assert plan.kd >= d and plan.kd in (64, 128, 256)
+    blocks = list(bwd_dkdv_blocks(plan, b, h, hkv))
+    assert len(blocks) == plan.dkdv_blocks
+    cover = Counter((kt, bb, head) for kt, bb, heads in blocks for head in heads)
+    want = {(kt, bb, head) for kt in range(-(-s // 64)) for bb in range(b)
+            for head in range(h)}
+    assert set(cover) == want and set(cover.values()) == {1}
+    for kt, bb, heads in blocks:   # one block's heads share one KV head
+        assert len({head // group for head in heads}) == 1
+    assert max(plan.dkdv_smem, plan.dq_smem) <= SMEM_PER_BLOCK
+    assert plan.dq_blocks == plan.n_kt * h * b
+    assert plan.scratch_floats >= b * h * s + (
+        2 * group * b * hkv * s * d if plan.n_split > 1 else 0) // plan.heads_per_block
+
+
+def test_bwd_plan_fills_the_card_at_mqa():
+    """gemma-2b's training layer (MQA, 64 k-tile blocks unsplit) splits its
+    group in four, two heads per block (256 blocks); gemma3-4b's (G = 2)
+    keeps its group whole, as G = 1 does: no reduction; a small grid splits
+    one head per block; a large grid keeps whole groups in one block."""
+    from repro_torch.kernels.flash_attention import bwd_plan
+    gemma = bwd_plan(4, 8, 1, 1024, 256)
+    assert (gemma.heads_per_block, gemma.n_split, gemma.dkdv_blocks) == (2, 4, 256)
+    assert gemma.scratch_floats == 4 * 8 * 1024 + 2 * 4 * 4 * 1024 * 256
+    assert bwd_plan(2, 8, 4, 2048, 256, 1024).n_split == 1
+    assert bwd_plan(4, 8, 8, 1024, 256).n_split == 1
+    assert bwd_plan(1, 8, 1, 1024, 256).heads_per_block == 1
+    assert bwd_plan(16, 8, 1, 4096, 256).heads_per_block == 8
+    assert bwd_plan(4, 8, 1, 1024, 256, heads_per_block=2).n_split == 4

@@ -622,7 +622,7 @@ def test_decode_attention_at_chunk_edges(cuda, kv, g, window, dtype):
 
 
 # serving and inference launch no backward
-_NO_BWD = {"flash_attention_bwd.fma_bf16": 0, "flash_attention_bwd.fma_f32": 0}
+_NO_BWD = {"flash_attention_bwd.wgmma_bf16": 0, "flash_attention_bwd.fma_f32": 0}
 
 # K6's backward against its plain version: float32 within 1e-4 absolute
 # (sums in another order); bf16 ||delta|| / ||ref|| within 1e-2 for each
@@ -630,6 +630,12 @@ _NO_BWD = {"flash_attention_bwd.fma_bf16": 0, "flash_attention_bwd.fma_f32": 0}
 # plain version runs in float32 on the same bf16 inputs and output)
 BWD_TOL_F32 = 1e-4
 BWD_REL_BF16 = 1e-2
+# the bf16 kernels against their emulation (attention_bwd_bf16_ref, the
+# same roundings of P and dS): both round the same fp32 values, which differ
+# by fp32 sums taken in another order and exp2 against exp, so an element
+# of P or dS near a rounding boundary may round the other way; rel L2 1e-3,
+# a tenth of the gate against the plain version
+BWD_REL_EMU = 1e-3
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -638,13 +644,16 @@ BWD_REL_BF16 = 1e-2
     (1, 8, 4, 130, 256, True, 50),    # a window inside a k tile
     (2, 4, 2, 64, 16, True, 8),       # the reduced configs' D
     (1, 4, 4, 97, 64, False, 0),      # non-causal, G = 1
+    (2, 8, 2, 77, 96, True, 0),       # G = 4, D padded to 128
     (1, 2, 1, 1, 128, True, 0)])      # one row
 def test_flash_attention_bwd_matches_its_plain_version(cuda, b, h, hkv, s, d,
                                                        causal, window, dtype):
     """The forward's lse against the plain scores' logsumexp, the backward
-    kernels against ``attention_ref_bwd`` in float32 on the same inputs,
-    two calls bit-equal (no atomics)."""
-    from repro_torch.kernels.flash_attention import (attention_lse_ref,
+    kernels against ``attention_ref_bwd`` in float32 on the same inputs
+    and, in bf16, against ``attention_bwd_bf16_ref``; two calls bit-equal
+    (no atomics)."""
+    from repro_torch.kernels.flash_attention import (attention_bwd_bf16_ref,
+                                                     attention_lse_ref,
                                                      attention_ref_bwd,
                                                      flash_attention,
                                                      flash_attention_bwd)
@@ -656,20 +665,62 @@ def test_flash_attention_bwd_matches_its_plain_version(cuda, b, h, hkv, s, d,
                                return_lse=True)
     got = flash_attention_bwd(q, k, v, out, dout, lse, causal=causal, window=window)
     again = flash_attention_bwd(q, k, v, out, dout, lse, causal=causal, window=window)
-    variant = "fma_bf16" if dtype == torch.bfloat16 else "fma_f32"
+    variant = "wgmma_bf16" if dtype == torch.bfloat16 else "fma_f32"
     assert kernels.variant_counts()[f"flash_attention_bwd.{variant}"] == 2
     args = dict(causal=causal, window=window or None)
     want_lse = attention_lse_ref(q.float(), k.float(), **args)
     torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-5)
     want = attention_ref_bwd(q.float(), k.float(), v.float(), out.float(),
                              dout.float(), want_lse, **args)
-    for g_, a_, w_, t in zip(got, again, want, (q, k, v)):
+    emu = attention_bwd_bf16_ref(q, k, v, out, dout, lse, **args)
+    for name, g_, a_, w_, e_, t in zip("qkv", got, again, want, emu, (q, k, v)):
         assert g_.dtype == dtype and g_.shape == t.shape
         assert torch.equal(g_, a_)
         if dtype == torch.float32:
             torch.testing.assert_close(g_, w_, rtol=0, atol=BWD_TOL_F32)
+        elif s == 1 and name in "qk":
+            # one key per row: P = 1 and dS = dP - delta = 0 in exact
+            # arithmetic, so dq and dk are fp32 rounding noise here and in
+            # the plain version, and a relative error means nothing
+            assert float(g_.float().abs().max()) <= 1e-5
         else:
             assert float((g_.float() - w_).norm() / w_.norm()) <= BWD_REL_BF16
+            e_ = e_.to(dtype).float()
+            assert float((g_.float() - e_).norm() / e_.norm()) <= BWD_REL_EMU
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,window", [
+    (4, 8, 1, 1024, 256, 0), (2, 8, 4, 2048, 256, 1024), (2, 8, 1, 200, 256, 0),
+    (2, 4, 2, 64, 16, 8), (1, 2, 1, 1, 128, 0), (16, 8, 1, 4096, 256, 0)])
+def test_flash_attention_bwd_plan_matches_its_mirror(cuda, b, h, hkv, s, d, window):
+    """The CUDA plan of the bf16 backward (flash_attention_bwd_plan) equals
+    its Python mirror, which the CPU tests check for coverage and shared
+    memory."""
+    import ctypes
+    from repro_torch.kernels.flash_attention import bwd_plan
+    from repro_torch.kernels.flash_attention.flash_attention import _lib
+    out = (ctypes.c_longlong * 8)()
+    n = _lib().flash_attention_bwd_plan(1, b, h, hkv, s, d, window, 0, out)
+    want = bwd_plan(b, h, hkv, s, d, window)
+    assert list(out) == list(want[:8]) and n == want.scratch_floats
+
+
+def test_flash_attention_bwd_splits_give_one_result(cuda):
+    """gemma-2b's layer (MQA) with the group split one head per block (the
+    rule: partials summed by the reduction kernel) and kept whole in one
+    block (no reduction): the same gradients within bf16 rounding, each
+    bit-equal across calls."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.flash_attention import _bwd
+    q, k, v = _model_layout_qkv(2, 8, 1, 256, 256, torch.bfloat16, 5, cuda)
+    dout = torch.randn_like(q.float()).to(torch.bfloat16)
+    out, lse = flash_attention(q, k, v, causal=True, window=0, return_lse=True)
+    runs = {hpb: _bwd(q, k, v, out, dout, lse, True, 0, None, hpb) for hpb in (1, 2, 8)}
+    for hpb, grads in runs.items():
+        again = _bwd(q, k, v, out, dout, lse, True, 0, None, hpb)
+        assert all(torch.equal(a, b_) for a, b_ in zip(grads, again))
+        for g_, w_ in zip(grads, runs[1]):
+            assert float((g_.float() - w_.float()).norm() / w_.float().norm()) <= 1e-3
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
