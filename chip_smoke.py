@@ -56,6 +56,17 @@ paths end to end:
   identical greedy outputs required, decode-matches-prefill over all 34
   layers, and the model through the kernels against the same model with
   their plain versions in their place, in float32 and in bf16;
+* the same traffic served, the same way, by internlm2-20b at full width and
+  depth (48 layers, G = 6, D = 128), grok-1 at full width cut to 4 of its
+  64 layers (a mixture of top-2 of 8 experts, attention soft-capped at 30
+  in both kernels) and llama4-maverick at full width cut to 2 of its 48
+  (one dense layer, one MoE of top-1 of 128 experts, greedy placement,
+  G = 5), one model at a time: each MoE layer's dropped share and expert
+  load, then on a copy of the first 2 layers at full width the kernel path
+  against the plain path and decode-matches-prefill in float32 and bf16;
+  the four new configs reduced, in float32, on the card against the CPU,
+  also at their own group sizes (``check_reduced_models``); K7 is held at
+  every group size from 1 to 8, and K6 and K7 with a soft-cap;
 * LM training: K6's forward ``lse`` and its hand-written backward (bf16:
   the delta, wgmma + TMA dK/dV, reduction and dQ kernels; float32: FMA
   kernels) against the plain textbook backward and, in bf16, against the
@@ -89,6 +100,7 @@ device, or outside a checkout of the repository, it exits non-zero at once.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -246,6 +258,26 @@ DECODE_BF16_FACTOR = 2.0
 # it catches faults larger than rounding (layouts, masks, head maps), and
 # the kernel checks above hold the rounding itself.
 KERNELS_VS_PLAIN_BF16 = 5e-2
+# soft-capped attention checks draw q this many times larger, so that the
+# scaled scores (about N(0, 1) otherwise) reach grok's cap of 30 and tanh
+# bends them
+CAP = 30.0
+CAP_Q_SCALE = 16.0
+# the full-width serves of the models this slice adds (their depths:
+# launch.serve_profile.SERVE_LAYERS); their kernel-vs-plain and
+# decode-matches-prefill checks run on a depth-cut copy of DEPTH_CUT layers
+# at full width, over a prompt of CUT_PROMPT tokens (CUT_PROMPT - DECODE_K
+# prefilled, then DECODE_K decode steps), an MoE at a capacity that drops
+# nothing (capacity_factor = n_experts, as tests/test_decode_consistency.py
+# sets it: prefill and decode drop other tokens at their own capacities,
+# and a bf16 rounding that flips one router choice moves which tokens the
+# capacity drops)
+SERVED_ARCHS = ("internlm2-20b", "grok-1-314b", "llama4-maverick-400b-a17b")
+DEPTH_CUT = 2
+CUT_PROMPT = 512
+# the reduced configs of this slice on the card against the CPU, float32:
+# logits within 1e-4 (sums in another order through a few layers)
+REDUCED_LOGITS_TOL = 1e-4
 # K6's backward against the plain textbook backward (attention_ref_bwd, run
 # in float32 on the kernel's inputs and forward output): float32 gradients
 # within 1e-4 absolute (sums in another order; they read up to 4e-5 on
@@ -2036,29 +2068,35 @@ def check_flash_attention():
                                                      attention_split_p_ref,
                                                      flash_attention,
                                                      multi_head_attention)
-    # (label, B, H, Hkv, S, D, causal, window, model layout)
+    # (label, B, H, Hkv, S, D, causal, window, model layout, soft-cap)
     cases = [
-        ("gemma3-4b global", 2, 8, 4, 2048, 256, True, 0, True),
-        ("gemma3-4b local", 2, 8, 4, 2048, 256, True, 1024, True),
-        ("ragged S=1000 local", 2, 8, 4, 1000, 256, True, 1024, False),
-        ("ragged S=37 window 8", 1, 8, 4, 37, 256, True, 8, False),
-        ("G=1", 1, 8, 8, 300, 256, True, 0, False),
-        ("G=8 (gemma-2b MQA)", 1, 8, 1, 2048, 256, True, 0, True),
-        ("non-causal window 100", 1, 4, 2, 333, 128, False, 100, False),
-        ("D=16 (reduced configs)", 2, 4, 1, 50, 16, True, 8, True),
+        ("gemma3-4b global", 2, 8, 4, 2048, 256, True, 0, True, 0.0),
+        ("gemma3-4b local", 2, 8, 4, 2048, 256, True, 1024, True, 0.0),
+        ("ragged S=1000 local", 2, 8, 4, 1000, 256, True, 1024, False, 0.0),
+        ("ragged S=37 window 8", 1, 8, 4, 37, 256, True, 8, False, 0.0),
+        ("G=1", 1, 8, 8, 300, 256, True, 0, False, 0.0),
+        ("G=8 (gemma-2b MQA)", 1, 8, 1, 2048, 256, True, 0, True, 0.0),
+        ("non-causal window 100", 1, 4, 2, 333, 128, False, 100, False, 0.0),
+        ("D=16 (reduced configs)", 2, 4, 1, 50, 16, True, 8, True, 0.0),
+        ("internlm2/grok layer G=6", 2, 48, 8, 2048, 128, True, 0, True, 0.0),
+        ("grok layer G=6 soft-cap", 2, 48, 8, 2048, 128, True, 0, True, CAP),
+        ("llama4 layer G=5", 2, 40, 8, 2048, 128, True, 0, True, 0.0),
+        ("soft-cap ragged window 100", 1, 12, 2, 333, 128, True, 100, False, CAP),
     ]
     for dtype in (torch.bfloat16, torch.float32):
         limit = LIMIT_TEXT[str(dtype).split(".")[1]]
         name, variant = (("flash_attention", "wgmma_bf16") if dtype == torch.bfloat16
                          else ("flash_attention_f32", "fma_f32"))
-        for label, b, h, hkv, s, d, causal, window, layout in cases:
+        for label, b, h, hkv, s, d, causal, window, layout, cap in cases:
             q, k, v = attn_inputs(b, h, hkv, s, d, dtype, seed=s + h + d, model_layout=layout)
+            if cap:
+                q = (q.float() * CAP_Q_SCALE).to(dtype)
             kernels.reset_launch_counts()
-            got = multi_head_attention(q, k, v, causal=causal, window=window)
-            again = multi_head_attention(q, k, v, causal=causal, window=window)
+            got = multi_head_attention(q, k, v, causal=causal, window=window, softcap=cap)
+            again = multi_head_attention(q, k, v, causal=causal, window=window, softcap=cap)
             counts = kernels.variant_counts()
             want = attention_ref(q.float(), k.float(), v.float(), causal=causal,
-                                 window=window or None)
+                                 window=window or None, softcap=cap)
             torch.cuda.synchronize()
             require(counts == {**{f"flash_attention.{x}": 2 if x == variant else 0
                                   for x in ("wgmma_bf16", "fma_f32")},
@@ -2074,12 +2112,13 @@ def check_flash_attention():
                 # the kernel against the plain emulation of its arithmetic
                 # (split P), run in float32, under the same bf16 limit
                 emu = attention_split_p_ref(q.float(), k.float(), v.float(), causal=causal,
-                                            window=window or None)
+                                            window=window or None, softcap=cap)
                 _, emu_ratio = compare_attention(name, got, emu,
                                                  f"flash_attention {label} {dtype} vs split-P")
                 split = f"; vs the split-P emulation at {emu_ratio:.3f} x the limit"
             print(f"check flash_attention {label} B={b} H={h} Hkv={hkv} S={s} "
-                  f"D={d} causal={causal} window={window} {dtype} ({variant}): max "
+                  f"D={d} causal={causal} window={window} softcap={cap} {dtype} "
+                  f"({variant}): max "
                   f"abs err {err:.3e} from the plain output; error vs float32 at "
                   f"{ratio:.3f} x its limit ({limit}){split}; two calls equal")
         # window 0 and None both mean none; the kernel's 0 is the same
@@ -2097,41 +2136,51 @@ def check_decode_attention():
     import torch
     from repro_torch.kernels.decode_attention import (decode_attention_ref,
                                                       grouped_decode_attention)
-    # (B, KV, G, D, lengths)
+    # (B, KV, G, D, lengths, soft-cap)
     # lengths at the kernel's 64-row chunk edges (64, 65, 2,047, 2,080) with
-    # every group size; windows of 1,024 start inside a chunk
-    cases = [(2, 4, 2, 256, [1, 2080]), (2, 4, 2, 256, [2079, 1537]),
-             (4, 1, 8, 256, [1, 777, 2079, 2080]), (3, 2, 4, 16, [5, 64, 65]),
-             (2, 4, 1, 128, [1000, 3]), (2, 4, 2, 256, [64, 2047]),
-             (4, 4, 1, 256, [64, 65, 2047, 2080]), (4, 2, 4, 256, [65, 64, 2080, 2047]),
-             (4, 1, 8, 256, [2047, 65, 64, 2080])]
+    # every group size from 1 to 8; windows of 1,024 start inside a chunk;
+    # the decode shapes of internlm2/grok (KV = 8, G = 6, D = 128) and
+    # llama4 (G = 5), with and without grok's soft-cap
+    cases = [(2, 4, 2, 256, [1, 2080], 0.0), (2, 4, 2, 256, [2079, 1537], 0.0),
+             (4, 1, 8, 256, [1, 777, 2079, 2080], 0.0), (3, 2, 4, 16, [5, 64, 65], 0.0),
+             (2, 4, 1, 128, [1000, 3], 0.0), (2, 4, 2, 256, [64, 2047], 0.0),
+             (4, 4, 1, 256, [64, 65, 2047, 2080], 0.0),
+             (4, 2, 4, 256, [65, 64, 2080, 2047], 0.0),
+             (4, 1, 8, 256, [2047, 65, 64, 2080], 0.0),
+             (2, 8, 6, 128, [2079, 1537], 0.0), (2, 8, 6, 128, [2079, 1537], CAP),
+             (2, 8, 5, 128, [1, 2080], 0.0), (2, 8, 5, 128, [64, 2047], CAP),
+             (3, 2, 3, 128, [64, 65, 2047], 0.0), (3, 2, 3, 128, [1, 65, 2080], CAP),
+             (4, 1, 7, 256, [1, 777, 2079, 2080], 0.0),
+             (4, 1, 7, 128, [65, 64, 2080, 2047], CAP),
+             (2, 4, 2, 256, [2079, 1537], CAP), (4, 1, 8, 128, [1, 777, 2079, 2080], CAP)]
     s = 2080
     for dtype in (torch.bfloat16, torch.float32):
         limit = LIMIT_TEXT[str(dtype).split(".")[1]]
-        for b, kv, g, d, lens in cases:
+        for b, kv, g, d, lens, cap in cases:
             gen = torch.Generator(device="cuda")
             gen.manual_seed(b * 100 + g + d)
-            q = torch.randn((b, kv, g, d), generator=gen, device="cuda").to(dtype)
+            q = torch.randn((b, kv, g, d), generator=gen, device="cuda")
+            q = (q * CAP_Q_SCALE if cap else q).to(dtype)
             # the layer slice of a stacked per-stage cache, as the model has it
             cache = torch.randn((2, 2, b, s, kv, d), generator=gen,
                                 device="cuda").to(dtype)
             k, v = cache[0, 1], cache[1, 1]
             length = torch.tensor(lens, dtype=torch.int32, device="cuda")
             for window in (0, 1024):
-                got = grouped_decode_attention(q, k, v, length, window=window)
-                again = grouped_decode_attention(q, k, v, length, window=window)
+                got = grouped_decode_attention(q, k, v, length, window=window, softcap=cap)
+                again = grouped_decode_attention(q, k, v, length, window=window, softcap=cap)
                 want = decode_attention_ref(q.float(), k.float(), v.float(),
-                                            length, window=window)
+                                            length, window=window, softcap=cap)
                 torch.cuda.synchronize()
                 require(torch.equal(got, again),
                         f"decode_attention B={b} KV={kv} G={g} len={lens} "
-                        f"window={window} {dtype}: two calls differ")
+                        f"window={window} softcap={cap} {dtype}: two calls differ")
                 err, ratio = compare_attention(
                     "decode_attention", got, want,
                     f"decode_attention B={b} KV={kv} G={g} D={d} "
-                    f"len={lens} window={window} {dtype}")
+                    f"len={lens} window={window} softcap={cap} {dtype}")
                 print(f"check decode_attention B={b} KV={kv} G={g} D={d} S={s} "
-                      f"lengths={lens} window={window} {dtype}: max abs err "
+                      f"lengths={lens} window={window} softcap={cap} {dtype}: max abs err "
                       f"{err:.3e} from the plain output; error vs float32 at "
                       f"{ratio:.3f} x its limit ({limit}); two calls equal")
 
@@ -2146,35 +2195,22 @@ def serve_requests(vocab):
             for i, n in enumerate(SERVE_PROMPTS)]
 
 
-def run_serving():
-    """gemma3-4b at full width and depth, bf16, random weights from a seeded
-    generator: ServingEngine.serve twice on the same requests.  Returns the
-    params, the config and the launch counts of the first serve."""
+def _serve_twice(cfg, params):
+    """ServingEngine.serve of the serving traffic twice on the same weights:
+    every request answered in the vocabulary, K6 (its wgmma variant only)
+    once per layer and prefill sub-batch and K7 once per layer and decode
+    step, the same greedy outputs twice.  Prints each serve's prefill s,
+    decode ms a step, tokens/s and peak memory.  Returns the first serve's
+    launch counts."""
     import numpy as np
     import torch
     from repro_torch import kernels
-    from repro_torch.configs import get_config
-    from repro_torch.launch.serve_profile import (ARCH, SERVE_BATCHES,
-                                                  SERVE_MAX_NEW, SERVE_PROMPTS,
-                                                  SERVE_S_MAX)
-    from repro_torch.models import Model, init_params, stages_meta
+    from repro_torch.launch.serve_profile import (SERVE_BATCHES, SERVE_MAX_NEW,
+                                                  SERVE_PROMPTS, SERVE_S_MAX)
+    from repro_torch.models import Model, stages_meta
     from repro_torch.serving import ServingEngine
 
-    cfg = get_config(ARCH)
     n_layers = sum(c for _, c in stages_meta(cfg))
-    require(n_layers == 34, f"gemma3-4b has {n_layers} layers, expected 34")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    t0 = time.perf_counter()
-    params = init_params(cfg, gen, "cuda")
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
-    print(f"serve init gemma3-4b: {n_params} parameters ({cfg.dtype}, "
-          f"{n_params * 2 / 1e9:.2f} GB; config param_count "
-          f"{cfg.param_count()}) in {time.perf_counter() - t0:.2f}s")
-    # the config's analytic count leaves out the final norm's scale
-    require(n_params == cfg.param_count() + cfg.d_model,
-            "parameter count differs from the config's")
     model = Model(cfg)
     reqs = serve_requests(cfg.vocab_size)
     outputs, first_counts = [], None
@@ -2193,10 +2229,10 @@ def run_serving():
         steps = stats["decode_steps"]
         n_tok = sum(len(o) for o in results.values())
         lat = stats["latency"]
-        print(f"serve run {run}: {len(results)} requests ({SERVE_PROMPTS} prompt "
-              f"tokens, {SERVE_MAX_NEW} new each, {SERVE_BATCHES} batches -> "
-              f"{n_sub} prefill sub-batches, {steps} decode steps) wall_s={wall:.4f} "
-              f"prefill_s={stats['phase_s']['prefill']:.4f} "
+        print(f"serve {cfg.name} ({n_layers} layers) run {run}: {len(results)} requests "
+              f"({SERVE_PROMPTS} prompt tokens, {SERVE_MAX_NEW} new each, {SERVE_BATCHES} "
+              f"batches -> {n_sub} prefill sub-batches, {steps} decode steps) "
+              f"wall_s={wall:.4f} prefill_s={stats['phase_s']['prefill']:.4f} "
               f"decode_s={stats['phase_s']['decode']:.4f} "
               f"decode_ms_per_step={stats['phase_s']['decode'] / steps * 1e3:.3f} "
               f"generated_tokens={n_tok} tokens_per_s={n_tok / wall:.2f} "
@@ -2204,25 +2240,25 @@ def run_serving():
               f"pack_eff={stats['padding_efficiency']:.3f} "
               f"peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.3f} "
               f"launches={counts}")
-        require(len(results) == len(reqs), "not every request was answered")
+        require(len(results) == len(reqs), f"{cfg.name}: not every request was answered")
         for r in reqs:
             o = results[r.rid]
             require(o.shape == (SERVE_MAX_NEW,) and o.dtype == np.int32,
-                    f"request {r.rid}: output {o.shape} {o.dtype}")
+                    f"{cfg.name} request {r.rid}: output {o.shape} {o.dtype}")
             require(bool(((o >= 0) & (o < cfg.vocab_size)).all()),
-                    f"request {r.rid}: token out of the vocabulary")
+                    f"{cfg.name} request {r.rid}: token out of the vocabulary")
         require(counts["flash_attention"] == n_layers * n_sub,
-                f"flash_attention launched {counts['flash_attention']} times, "
+                f"{cfg.name}: flash_attention launched {counts['flash_attention']} times, "
                 f"expected {n_layers} per prefill sub-batch x {n_sub}")
         require(counts["flash_attention.wgmma_bf16"] == n_layers * n_sub and
                 counts["flash_attention.fma_f32"] == 0,
-                f"the bf16 serve launched the flash_attention variants "
+                f"{cfg.name}: the bf16 serve launched the flash_attention variants "
                 f"wgmma_bf16 {counts['flash_attention.wgmma_bf16']} times and "
                 f"fma_f32 {counts['flash_attention.fma_f32']} times, expected "
                 f"{n_layers * n_sub} and 0")
         require(counts["decode_attention"] == n_layers * steps,
-                f"decode_attention launched {counts['decode_attention']} times, "
-                f"expected {n_layers} per decode step x {steps}")
+                f"{cfg.name}: decode_attention launched {counts['decode_attention']} "
+                f"times, expected {n_layers} per decode step x {steps}")
         require(all(counts[k] == 0 for k in MINING_KERNELS),
                 "serving launched a mining kernel")
         outputs.append(results)
@@ -2230,10 +2266,160 @@ def run_serving():
             first_counts = counts
     for r in reqs:
         require(np.array_equal(outputs[0][r.rid], outputs[1][r.rid]),
-                f"request {r.rid}: greedy outputs differ between two runs")
-    print(f"serve: greedy outputs identical across two runs "
+                f"{cfg.name} request {r.rid}: greedy outputs differ between two runs")
+    print(f"serve {cfg.name}: greedy outputs identical across two runs "
           f"(request 0 starts {outputs[0][0][:8].tolist()})")
-    return params, cfg, first_counts
+    _decode_step_syncs(model, params)
+    return first_counts
+
+
+def _decode_step_syncs(model, params):
+    """Host syncs in one ``Model.decode_step`` of the served model (2
+    sequences after an 8-token prefill), counted by torch's sync-debug mode
+    (one warning per synchronising call); the step must make none, so the
+    engine's one read of the step's tokens is a step's only wait."""
+    import warnings
+    import torch
+    toks = torch.arange(16, device="cuda").reshape(2, 8) % model.cfg.vocab_size
+    with torch.inference_mode():
+        logits, cache = model.prefill(params, {"tokens": toks}, 16)
+        token = logits.argmax(-1)
+        pos = torch.full((2,), 8, dtype=torch.int32, device="cuda")
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                model.decode_step(params, token, cache, pos)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchronizing CUDA operation" in str(w.message) for w in seen)
+    print(f"serve {model.cfg.name}: host syncs in one decode step "
+          f"(Model.decode_step, sync-debug count)={syncs}")
+    require(syncs == 0, f"{model.cfg.name}: a decode step synchronised with the "
+            f"host {syncs} times")
+
+
+def _init_served(arch):
+    """The served model of ``arch`` (launch.serve_profile's depth) at full
+    width, bf16, random weights from a generator seeded 0 on the card,
+    its parameter count held to the config's."""
+    import torch
+    from repro_torch.launch.serve_profile import served_config
+    from repro_torch.models import init_params
+    cfg = served_config(arch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"serve init {cfg.name} ({cfg.n_layers} layers): {n_params} parameters "
+          f"({cfg.dtype}, {n_bytes / 1e9:.2f} GB; config param_count "
+          f"{cfg.param_count()}) in {time.perf_counter() - t0:.2f}s")
+    # the config's analytic count leaves out the final norm's scale
+    require(n_params == cfg.param_count() + cfg.d_model,
+            f"{cfg.name}: parameter count differs from the config's")
+    return cfg, params
+
+
+def run_serving():
+    """gemma3-4b at full width and depth, bf16, random weights from a seeded
+    generator: ServingEngine.serve twice on the same requests.  Returns the
+    params, the config and the launch counts of the first serve."""
+    from repro_torch.launch.serve_profile import ARCH
+    cfg, params = _init_served(ARCH)
+    require(cfg.n_layers == 34, f"gemma3-4b has {cfg.n_layers} layers, expected 34")
+    return params, cfg, _serve_twice(cfg, params)
+
+
+def _moe_stats(cfg, params):
+    """Each MoE layer's dropped share and expert load on the prefill of the
+    serving traffic's first sub-batch (2 prompts of 2,048 tokens) at the
+    config's capacity: the layer's output is the served one; its aux is
+    read through a spy on the transformer's ``moe`` (a patch of this
+    process only)."""
+    import numpy as np
+    import torch
+    import repro_torch.models.transformer as tr
+    from repro_torch.launch.serve_profile import SERVE_PROMPTS, SERVE_S_MAX
+    from repro_torch.models import Model
+    reqs = [r for r in serve_requests(cfg.vocab_size)
+            if r.prompt.shape[0] == max(SERVE_PROMPTS)][:2]
+    toks = torch.from_numpy(np.stack([r.prompt for r in reqs]).astype(np.int64)).cuda()
+    seen, real = [], tr.moe
+
+    def spy(*args, **kwargs):
+        out, aux = real(*args, **kwargs)
+        seen.append({k: v.detach().float().cpu() for k, v in aux.items()})
+        return out, aux
+    tr.moe = spy
+    try:
+        with torch.inference_mode():
+            Model(cfg).prefill(params, {"tokens": toks}, SERVE_S_MAX)
+    finally:
+        tr.moe = real
+    moe_layers = [i for i, k in enumerate(cfg.layer_pattern()) if k.endswith("+moe")]
+    require(len(seen) == len(moe_layers), f"{cfg.name}: {len(seen)} MoE calls in a "
+            f"prefill, expected {len(moe_layers)}")
+    for i, aux in zip(moe_layers, seen):
+        load = aux["expert_load"]
+        require(abs(float(load.sum()) - 1.0) < 1e-5 and bool(torch.isfinite(aux["aux_loss"])),
+                f"{cfg.name} layer {i}: expert load {load.tolist()}")
+        print(f"moe {cfg.name} layer {i} (top-{cfg.top_k} of {cfg.n_experts}, capacity "
+              f"factor {cfg.capacity_factor}, {toks.numel()} tokens): dropped_frac="
+              f"{float(aux['dropped_frac']):.4f} aux_loss={float(aux['aux_loss']):.4f} "
+              f"expert load (top-1 share) min={float(load.min()):.4f} "
+              f"max={float(load.max()):.4f} max/mean={float(load.max() * cfg.n_experts):.3f} "
+              f"cv={float(load.std() / load.mean()):.3f} experts with no top-1 "
+              f"token={int((load == 0).sum())}")
+
+
+def _depth_cut(cfg, params, n):
+    """(config, params) of the first ``n`` layers at full width: the
+    stacked leaves sliced and copied (so the rest can be freed), the
+    embedding, head and final norm shared.  A model of ``n`` layers is
+    returned as it is."""
+    import dataclasses
+    from repro_torch.models import stages_meta
+    if cfg.n_layers == n:
+        return cfg, params
+    cut = dataclasses.replace(cfg, n_layers=n)
+    stages, left = {}, n
+    for i, (_, count) in enumerate(stages_meta(cfg)):
+        take = min(count, left)
+        if take == 0:
+            break
+        stages[f"s{i}"] = {k: v[:take].clone() for k, v in params["stages"][f"s{i}"].items()}
+        left -= take
+    require([c for _, c in stages_meta(cut)] ==
+            [v["stk_wq"].shape[0] for v in stages.values()], f"{cfg.name}: depth cut")
+    return cut, {**{k: v for k, v in params.items() if k != "stages"}, "stages": stages}
+
+
+def run_model_serving(arch):
+    """One of this slice's models at full width (bf16, random weights from a
+    seeded generator, depth cut to fit the card): the serving traffic twice
+    (_serve_twice), the MoE layers' drops and expert load, then on a copy of
+    its first DEPTH_CUT layers at full width the kernel path against the
+    plain path and decode-matches-prefill (_check_cut_model).  Returns the
+    first serve's launch counts."""
+    import gc
+    import torch
+    cfg, params = _init_served(arch)
+    counts = _serve_twice(cfg, params)
+    if cfg.n_experts:
+        _moe_stats(cfg, params)
+    cut_cfg, cut = _depth_cut(cfg, params, DEPTH_CUT)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    _check_cut_model(cut_cfg, cut)
+    del cut
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
 
 
 def _leaves(tree):
@@ -2244,117 +2430,249 @@ def _leaves(tree):
         yield tree
 
 
-def check_decode_matches_prefill(params, cfg):
-    """Logits of the last prompt position, prefilled whole and prefilled to
-    2,048 - K then decoded K steps, in float32 (the served weights, cast)
-    and in bf16 (the served model); and in both dtypes the same two runs
-    with the attention kernels' plain versions in their place."""
-    import contextlib
+def _both_paths(p, cfg, prompt, dtype, s_max):
+    """Last-position logits of ``prompt`` (1, S) prefilled whole, and
+    prefilled to S - DECODE_K then decoded DECODE_K steps, by the model of
+    ``cfg`` in ``dtype`` on the weights ``p``; both finite."""
     import dataclasses
-    import numpy as np
     import torch
+    from repro_torch.models import Model
+    model = Model(dataclasses.replace(cfg, dtype=dtype))
+    split = prompt.shape[1] - DECODE_K
+    with torch.inference_mode():
+        full, _ = model.prefill(p, {"tokens": prompt}, s_max)
+        logits, cache = model.prefill(p, {"tokens": prompt[:, :split]}, s_max)
+        for t in range(split, prompt.shape[1]):
+            pos = torch.full((1,), t, dtype=torch.int32, device="cuda")
+            logits, cache = model.decode_step(p, prompt[:, t:t + 1], cache, pos)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(full).all() and torch.isfinite(logits).all()),
+            f"{cfg.name} {dtype}: non-finite logits")
+    return full, logits
+
+
+@contextlib.contextmanager
+def _plain_attention():
+    """The model with the attention kernels' plain versions in their place
+    (a patch of this process only; the package has no switch for it); the
+    run launches no kernel."""
     import repro_torch.models.attention as attn_mod
     from repro_torch import kernels
     from repro_torch.kernels.decode_attention import decode_attention_ref
     from repro_torch.kernels.flash_attention import attention_ref
-    from repro_torch.launch.serve_profile import SERVE_S_MAX
-    from repro_torch.models import Model
-
-    rng = np.random.default_rng(1)
-    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 2048))).cuda()
-    split = prompt.shape[1] - DECODE_K
-
-    def both_paths(p, dtype):
-        model = Model(dataclasses.replace(cfg, dtype=dtype))
-        with torch.inference_mode():
-            full, _ = model.prefill(p, {"tokens": prompt}, SERVE_S_MAX)
-            logits, cache = model.prefill(p, {"tokens": prompt[:, :split]}, SERVE_S_MAX)
-            for t in range(split, prompt.shape[1]):
-                pos = torch.full((1,), t, dtype=torch.int32, device="cuda")
-                logits, cache = model.decode_step(p, prompt[:, t:t + 1], cache, pos)
-        torch.cuda.synchronize()
-        require(bool(torch.isfinite(full).all() and torch.isfinite(logits).all()),
-                f"{dtype}: non-finite logits")
-        return full, logits
-
-    @contextlib.contextmanager
-    def plain_attention():
-        """The model with the kernels' plain versions in their place (a
-        patch of this process only; the package has no switch for it)."""
-        saved = attn_mod.multi_head_attention, attn_mod.grouped_decode_attention
-        attn_mod.multi_head_attention = lambda q, k, v, *, causal, window, sm_scale: \
-            attention_ref(q, k, v, causal=causal, window=window or None, sm_scale=sm_scale)
-        attn_mod.grouped_decode_attention = decode_attention_ref
-        kernels.reset_launch_counts()
-        try:
-            yield
-        finally:
-            attn_mod.multi_head_attention, attn_mod.grouped_decode_attention = saved
-        require(not any(kernels.launch_counts().values()),
-                "the plain-path run launched a kernel")
-
-    def rel(a, b):
-        return float((a - b).norm() / b.norm())
-
-    def variants_used(dtype, want):
-        got = kernels.variant_counts()
-        other = ({"wgmma_bf16", "fma_f32"} - {want}).pop()
-        require(got[f"flash_attention.{want}"] > 0 and got[f"flash_attention.{other}"] == 0,
-                f"{dtype} model runs launched flash_attention variants {got}")
-        print(f"check {dtype} model runs: flash_attention variants {got}")
-
-    p32 = _cast(params, torch.float32)
+    saved = attn_mod.multi_head_attention, attn_mod.grouped_decode_attention
+    attn_mod.multi_head_attention = lambda q, k, v, *, causal, window, sm_scale, softcap: \
+        attention_ref(q, k, v, causal=causal, window=window or None, sm_scale=sm_scale,
+                      softcap=softcap)
+    attn_mod.grouped_decode_attention = decode_attention_ref
     kernels.reset_launch_counts()
-    full32, dec32 = both_paths(p32, "float32")
-    variants_used("float32", "fma_f32")
-    with plain_attention():
-        plain_full32, plain_dec32 = both_paths(p32, "float32")
-    del p32
+    try:
+        yield
+    finally:
+        attn_mod.multi_head_attention, attn_mod.grouped_decode_attention = saved
+    require(not any(kernels.launch_counts().values()),
+            "the plain-path run launched a kernel")
+
+
+@contextlib.contextmanager
+def _experts_in_float32():
+    """An MoE's expert products on bf16 weights with float32 activations:
+    each slot's weights cast to float32 as it is used (exact), so a float32
+    model needs no float32 copy of all its experts (llama4's 128 are 32 GB
+    in bf16).  A patch of this process only."""
+    import torch
+    import repro_torch.models.moe as moe_mod
+    real = moe_mod._experts
+
+    def per_slot(p, buf, cfg):
+        if p["experts_up"].dtype == buf.dtype:
+            return real(p, buf, cfg)
+        names = [k for k in ("experts_up", "experts_gate", "experts_down") if k in p]
+        return torch.cat([
+            real({k: p[k][i:i + 1].to(buf.dtype) for k in names}, buf[i:i + 1], cfg)
+            for i in range(buf.shape[0])])
+    moe_mod._experts = per_slot
+    try:
+        yield
+    finally:
+        moe_mod._experts = real
+
+
+def _rel(a, b):
+    return float((a - b).norm() / b.norm())
+
+
+def _variants_used(label, want):
+    from repro_torch import kernels
+    got = kernels.variant_counts()
+    other = ({"wgmma_bf16", "fma_f32"} - {want}).pop()
+    require(got[f"flash_attention.{want}"] > 0 and got[f"flash_attention.{other}"] == 0,
+            f"{label} model runs launched flash_attention variants {got}")
+    print(f"check {label} model runs: flash_attention variants {got}")
+
+
+def _kernel_vs_plain_and_decode(label, cfg, p16, p32, prompt, s_max):
+    """The checks of a full-width model (gemma3-4b whole, the new models on
+    a depth-cut copy): the kernel path against the plain path in float32
+    (within DECODE_TOL_F32) and bf16 (within KERNELS_VS_PLAIN_BF16), and
+    decode against prefill (float32 within DECODE_TOL_F32; bf16 off float32
+    by at most DECODE_BF16_FACTOR times the prefill path's own bf16
+    error).  ``p32``: the weights in float32 (an MoE's experts may stay
+    bf16: _experts_in_float32)."""
+    import torch
+    from repro_torch import kernels
+    n_layers = cfg.n_layers
+    with _experts_in_float32():
+        kernels.reset_launch_counts()
+        full32, dec32 = _both_paths(p32, cfg, prompt, "float32", s_max)
+        _variants_used(f"{label} float32", "fma_f32")
+        with _plain_attention():
+            plain_full32, plain_dec32 = _both_paths(p32, cfg, prompt, "float32", s_max)
     torch.cuda.empty_cache()
     kernels.reset_launch_counts()
-    full16, dec16 = both_paths(params, "bfloat16")
-    variants_used("bfloat16", "wgmma_bf16")
-    with plain_attention():
-        plain_full16, plain_dec16 = both_paths(params, "bfloat16")
+    full16, dec16 = _both_paths(p16, cfg, prompt, "bfloat16", s_max)
+    counts = kernels.launch_counts()
+    _variants_used(f"{label} bfloat16", "wgmma_bf16")
+    require(counts["flash_attention"] == 2 * n_layers and
+            counts["decode_attention"] == DECODE_K * n_layers,
+            f"{label}: two prefills and {DECODE_K} decode steps launched {counts}")
+    with _plain_attention():
+        plain_full16, plain_dec16 = _both_paths(p16, cfg, prompt, "bfloat16", s_max)
 
-    kp_full, kp_dec = rel(full32, plain_full32), rel(dec32, plain_dec32)
-    print(f"check kernels vs plain path gemma3-4b float32 (all 34 layers): "
-          f"prefill logits rel L2 err {kp_full:.3e}, after {DECODE_K} decode "
-          f"steps {kp_dec:.3e}, both <= {DECODE_TOL_F32:.0e}")
+    kp_full, kp_dec = _rel(full32, plain_full32), _rel(dec32, plain_dec32)
+    print(f"check kernels vs plain path {label} float32: prefill logits rel L2 err "
+          f"{kp_full:.3e}, after {DECODE_K} decode steps {kp_dec:.3e}, both <= "
+          f"{DECODE_TOL_F32:.0e}")
     require(kp_full <= DECODE_TOL_F32 and kp_dec <= DECODE_TOL_F32,
-            "the kernel path and the plain path differ at full width (float32)")
-    kp16_full, kp16_dec = rel(full16, plain_full16), rel(dec16, plain_dec16)
+            f"{label}: the kernel path and the plain path differ (float32)")
+    kp16_full, kp16_dec = _rel(full16, plain_full16), _rel(dec16, plain_dec16)
     same = (bool(torch.equal(full16.argmax(-1), plain_full16.argmax(-1))) and
             bool(torch.equal(dec16.argmax(-1), plain_dec16.argmax(-1))))
-    print(f"check kernels vs plain path gemma3-4b bfloat16 (all 34 layers): "
-          f"prefill logits rel L2 err {kp16_full:.3e}, after {DECODE_K} decode "
-          f"steps {kp16_dec:.3e}, both <= {KERNELS_VS_PLAIN_BF16:.0e}, same "
-          f"argmax {same}; the plain path's own bf16 error vs float32 is "
-          f"{rel(plain_full16, plain_full32):.3e} (prefill), "
-          f"{rel(plain_dec16, plain_dec32):.3e} (decode)")
+    print(f"check kernels vs plain path {label} bfloat16: prefill logits rel L2 err "
+          f"{kp16_full:.3e}, after {DECODE_K} decode steps {kp16_dec:.3e}, both <= "
+          f"{KERNELS_VS_PLAIN_BF16:.0e}, same argmax {same}; the plain path's own bf16 "
+          f"error vs float32 is {_rel(plain_full16, plain_full32):.3e} (prefill), "
+          f"{_rel(plain_dec16, plain_dec32):.3e} (decode)")
     require(kp16_full <= KERNELS_VS_PLAIN_BF16 and kp16_dec <= KERNELS_VS_PLAIN_BF16,
-            "the kernel path and the plain path differ at full width (bfloat16)")
+            f"{label}: the kernel path and the plain path differ (bfloat16)")
 
-    r32, r16 = rel(dec32, full32), rel(dec16, full16)
-    floor, dec_err = rel(full16, full32), rel(dec16, full32)
+    r32, r16 = _rel(dec32, full32), _rel(dec16, full16)
+    floor, dec_err = _rel(full16, full32), _rel(dec16, full32)
     top = {n: bool(torch.equal(a.argmax(-1), b.argmax(-1)))
            for n, (a, b) in {"float32": (dec32, full32),
                              "bfloat16": (dec16, full16)}.items()}
-    print(f"check decode-matches-prefill gemma3-4b float32: prompt 2048, "
-          f"prefill {split} + {DECODE_K} decode steps vs prefill 2048: rel L2 "
-          f"err {r32:.3e} <= {DECODE_TOL_F32:.0e}, max abs err "
+    n = prompt.shape[1]
+    print(f"check decode-matches-prefill {label} float32: prompt {n}, prefill "
+          f"{n - DECODE_K} + {DECODE_K} decode steps vs prefill {n}: rel L2 err "
+          f"{r32:.3e} <= {DECODE_TOL_F32:.0e}, max abs err "
           f"{float((dec32 - full32).abs().max()):.3e} (logits max abs "
           f"{float(full32.abs().max()):.3f}), same argmax {top['float32']}")
-    print(f"check decode-matches-prefill gemma3-4b bfloat16: rel L2 err "
+    print(f"check decode-matches-prefill {label} bfloat16: rel L2 err "
           f"{r16:.3e} (max abs {float((dec16 - full16).abs().max()):.3e}, same "
           f"argmax {top['bfloat16']}); against float32 the prefill path is off "
           f"by {floor:.3e} and the decode path by {dec_err:.3e} <= "
           f"{DECODE_BF16_FACTOR} x {floor:.3e}")
     require(r32 <= DECODE_TOL_F32,
-            f"decode does not match prefill in float32: rel err {r32:.3e}")
+            f"{label}: decode does not match prefill in float32: rel err {r32:.3e}")
     require(dec_err <= DECODE_BF16_FACTOR * floor,
-            f"bf16 decode path off float32 by {dec_err:.3e}, more than "
+            f"{label}: bf16 decode path off float32 by {dec_err:.3e}, more than "
             f"{DECODE_BF16_FACTOR} x the prefill path's {floor:.3e}")
+
+
+def check_decode_matches_prefill(params, cfg):
+    """gemma3-4b, all 34 layers: logits of the last prompt position,
+    prefilled whole and prefilled to 2,048 - K then decoded K steps, in
+    float32 (the served weights, cast) and in bf16 (the served model); and
+    in both dtypes the same two runs with the attention kernels' plain
+    versions in their place."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve_profile import SERVE_S_MAX
+    rng = np.random.default_rng(1)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 2048))).cuda()
+    p32 = _cast(params, torch.float32)
+    _kernel_vs_plain_and_decode(f"{cfg.name} (all {cfg.n_layers} layers)", cfg, params,
+                                p32, prompt, SERVE_S_MAX)
+
+
+def _check_cut_model(cfg, params):
+    """A new model's first DEPTH_CUT layers at full width, bf16 weights:
+    _kernel_vs_plain_and_decode over a CUT_PROMPT-token prompt, an MoE at
+    capacity_factor = n_experts (no drops); float32 from the same weights
+    (the experts cast slot by slot as they are used)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
+    rng = np.random.default_rng(1)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, CUT_PROMPT))).cuda()
+
+    def f32(tree, key=""):
+        if isinstance(tree, dict):
+            return {k: f32(v, k) for k, v in tree.items()}
+        return tree if key.startswith("stk_experts_") else tree.float()
+    _kernel_vs_plain_and_decode(
+        f"{cfg.name} (first {cfg.n_layers} layers, full width"
+        f"{', no-drop capacity' if cfg.n_experts else ''})", cfg, params, f32(params),
+        prompt, CUT_PROMPT + 32)
+
+
+def check_reduced_models():
+    """This slice's configs reduced, float32, on the card against the same
+    weights on the CPU: prefill and 4 decode steps' logits within
+    REDUCED_LOGITS_TOL, and a greedy serve token for token; also at the
+    configs' own group sizes (the reduced ones have 4 heads, G = 1 or 2):
+    G = 6 (internlm2, grok with its soft-cap) and G = 5 (llama4)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import reduced_config
+    from repro_torch.models import Model, init_params
+    from repro_torch.serving import Request, ServingEngine
+    cases = [(a, None) for a in ("internlm2-20b", "command-r-35b", "grok-1-314b",
+                                 "llama4-maverick-400b-a17b")]
+    cases += [("internlm2-20b", (12, 2)), ("grok-1-314b", (12, 2)),
+              ("llama4-maverick-400b-a17b", (10, 2))]
+    for arch, heads in cases:
+        cfg = reduced_config(get_config(arch))
+        if heads:
+            cfg = dataclasses.replace(cfg, n_heads=heads[0], n_kv_heads=heads[1])
+        model = Model(cfg)
+        host = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        card = _cast(host, torch.float32, "cuda")
+        rng = np.random.default_rng(2)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 24)))
+        kernels.reset_launch_counts()
+        worst = 0.0
+        with torch.inference_mode():
+            got, gc_ = model.prefill(card, {"tokens": toks.cuda()}, 32)
+            want, wc = model.prefill(host, {"tokens": toks}, 32)
+            worst = max(worst, float((got.cpu() - want).abs().max()))
+            for t in range(4):
+                nxt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 1)))
+                pos = torch.full((2,), 24 + t, dtype=torch.int32)
+                got, gc_ = model.decode_step(card, nxt.cuda(), gc_, pos.cuda())
+                want, wc = model.decode_step(host, nxt, wc, pos)
+                worst = max(worst, float((got.cpu() - want).abs().max()))
+        counts = kernels.launch_counts()
+        require(counts["flash_attention"] == cfg.n_layers and
+                counts["decode_attention"] == 4 * cfg.n_layers,
+                f"reduced {arch} {heads}: launches {counts}")
+        require(worst <= REDUCED_LOGITS_TOL,
+                f"reduced {arch} {heads}: card logits off the CPU's by {worst:.3e}")
+        reqs = [Request(i, rng.integers(0, cfg.vocab_size, n).astype(np.int32), 6)
+                for i, n in enumerate((12, 12, 7))]
+        out_card, _ = ServingEngine(model, card, s_max=32).serve(reqs, 1)
+        out_host, _ = ServingEngine(model, host, s_max=32).serve(reqs, 1)
+        same = all(np.array_equal(out_card[r.rid], out_host[r.rid]) for r in reqs)
+        require(same, f"reduced {arch} {heads}: greedy tokens differ card vs CPU")
+        g = cfg.n_heads // cfg.n_kv_heads
+        print(f"check reduced {arch} float32 G={g} softcap={cfg.attn_logit_softcap}: "
+              f"card vs CPU logits max abs err {worst:.3e} <= {REDUCED_LOGITS_TOL:.0e} "
+              f"(prefill + 4 decode steps), greedy serve equal token for token")
 
 
 # ---------------------------------------------------------------------------
@@ -2630,8 +2948,9 @@ def run_training():
     # step 1 again, with the plain attention patched in
     params, opt = fresh(0)
     plain_mha = attn_mod.multi_head_attention
-    attn_mod.multi_head_attention = lambda q, k, v, *, causal, window, sm_scale: \
-        attention_ref(q, k, v, causal=causal, window=window or None, sm_scale=sm_scale)
+    attn_mod.multi_head_attention = lambda q, k, v, *, causal, window, sm_scale, softcap: \
+        attention_ref(q, k, v, causal=causal, window=window or None, sm_scale=sm_scale,
+                      softcap=softcap)
     try:
         kernels.reset_launch_counts()
         _, _, plain = step(params, opt, {"tokens": torch.from_numpy(batches[0]["tokens"]).cuda()})
@@ -2769,7 +3088,37 @@ def bound_attn(nbytes, flops, rate=None):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def time_attention(counts):
+def flex_capped(q, k, v, cap, causal):
+    """The one PyTorch call that computes soft-capped GQA attention, the
+    library yardstick of a capped row (SDPA takes no cap): torch's
+    ``flex_attention`` under ``torch.compile``, its score_mod ``tanh(x /
+    cap) * cap`` on the scaled score, a causal block mask when ``causal``
+    (a one-row q takes its decoding kernel).  The port never calls it.
+    Returns the call; it compiles on its first use."""
+    import torch
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return torch.tanh(score / cap) * cap
+
+    mask = None
+    if causal:
+        mask = create_block_mask(lambda b, h, q_idx, kv_idx: q_idx >= kv_idx,
+                                 None, None, q.shape[2], k.shape[2],
+                                 device=q.device)
+    flex = torch.compile(flex_attention, dynamic=False)
+    return lambda: flex(q, k, v, score_mod=score_mod, block_mask=mask,
+                        enable_gqa=True)
+
+
+def time_attention(counts, model_counts):
+    """K6 and K7 at gemma3-4b's serving shapes (the kernels line's rows),
+    then at the shapes of this slice's served models: K6 at D = 128, G = 6
+    (internlm2's and grok's layer) with and without grok's soft-cap, K7 at
+    their decode shapes, G = 6 and G = 5 (llama4), with and without it.
+    ``counts``: gemma3-4b's first serve's launches; ``model_counts``: each
+    new model's.  The library time of a capped row is :func:`flex_capped`'s,
+    SDPA's of every other row."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (decode_attention_ref,
@@ -2783,11 +3132,12 @@ def time_attention(counts):
         """ms, plain_ms, library_ms: device time per call (calls run back
         to back behind a sleep of the card); *_call_ms: CUDA events around
         each call, the host's launch work included."""
-        out = {}
+        out = {"library_ms": None, "library_call_ms": None}
         for key, fn, n in (("ms", kernel, reps), ("plain_ms", plain, plain_reps),
                            ("library_ms", library, reps)):
-            out[key] = device_ms(fn, reps=n)
-            out[key.replace("ms", "call_ms")] = median_ms(fn, reps=n)
+            if fn is not None:
+                out[key] = device_ms(fn, reps=n)
+                out[key.replace("ms", "call_ms")] = median_ms(fn, reps=n)
         return out
 
     rows = []
@@ -2866,16 +3216,80 @@ def time_attention(counts):
                          **timed(fn, ref, lib, reps=50),
                          bound_ms=bms, bound_by=by,
                          launches=counts["decode_attention"]))
+    # this slice's models: K6 at internlm2's and grok's layer (B=2 H=48
+    # Hkv=8 S=2,048 D=128), K7 at their decode steps and llama4's
+    b, h, hkv, s, d = 2, 48, 8, 2048, 128
+    q, k, v = attn_inputs(b, h, hkv, s, d, torch.bfloat16, seed=8, model_layout=True)
+    kept = s * (s + 1) // 2
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    for arch, cap in (("internlm2-20b", 0.0), ("grok-1-314b", CAP)):
+        fn = lambda: multi_head_attention(q, k, v, causal=True, window=0, softcap=cap)
+        ref = lambda: attention_ref(q, k, v, causal=True, softcap=cap)
+        if cap:
+            lib = flex_capped(q, k, v, cap, causal=True)
+        else:
+            lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                         enable_gqa=True)
+        err = float((lib().float() - fn().float()).abs().max())
+        require(err <= SDPA_TOL,
+                f"{'flex_attention' if cap else 'SDPA'} yardstick disagrees with "
+                f"flash_attention at D=128 softcap={cap:g}: {err:.3e}")
+        bms, by = bound_attn(nbytes, 4 * d * kept * b * h)
+        rows.append(dict(name="flash_attention", route="cuda",
+                         source="src/repro_torch/csrc/flash_attention.cu",
+                         replaces="src/repro/kernels/flash_attention/flash_attention.py:110",
+                         shape=f"B={b} H={h} Hkv={hkv} S={s} D={d} bf16 causal window=0 "
+                               f"softcap={cap:g} ({arch})",
+                         **timed(fn, ref, lib, plain_reps=3),
+                         bound_ms=bms, bound_by=by,
+                         launches=model_counts[arch]["flash_attention.wgmma_bf16"]))
+    del q, k, v
+    b, kv, d, smax, n = 2, 8, 128, 2080, 2079
+    cache = torch.randn((2, b, smax, kv, d), generator=gen, device="cuda").to(torch.bfloat16)
+    kc, vc = cache[0], cache[1]
+    length = torch.full((b,), n, dtype=torch.int32, device="cuda")
+    for g, cap, arch in ((6, 0.0, "internlm2-20b"), (6, CAP, "grok-1-314b"),
+                         (5, 0.0, "llama4-maverick-400b-a17b"), (5, CAP, None)):
+        qd = torch.randn((b, kv, g, d), generator=gen, device="cuda").to(torch.bfloat16)
+        fn = lambda: grouped_decode_attention(qd, kc, vc, length, softcap=cap)
+        ref = lambda: decode_attention_ref(qd, kc, vc, length, softcap=cap)
+        if cap:
+            lib = flex_capped(qd.reshape(b, kv * g, 1, d), kc[:, :n].transpose(1, 2),
+                              vc[:, :n].transpose(1, 2), cap, causal=False)
+        else:
+            lib = lambda: F.scaled_dot_product_attention(
+                qd.reshape(b, kv * g, 1, d), kc[:, :n].transpose(1, 2),
+                vc[:, :n].transpose(1, 2), enable_gqa=True)
+        err = float((lib().reshape(b, kv, g, d).float() - fn().float()).abs().max())
+        require(err <= SDPA_TOL,
+                f"{'flex_attention' if cap else 'SDPA'} yardstick disagrees with "
+                f"decode_attention at G={g} softcap={cap:g}: {err:.3e}")
+        nbytes = 2 * (2 * qd.numel() + 2 * b * n * kv * d) + 4 * b
+        bms, by = bound_attn(nbytes, 4 * d * g * kv * b * n)
+        rows.append(dict(name="decode_attention", route="cuda",
+                         source="src/repro_torch/csrc/decode_attention.cu",
+                         replaces="src/repro/kernels/decode_attention/decode_attention.py:98",
+                         shape=f"B={b} KV={kv} G={g} D={d} S={smax} len={n} bf16 window=0 "
+                               f"softcap={cap:g} ({arch or 'no served model'})",
+                         **timed(fn, ref, lib, reps=50),
+                         bound_ms=bms, bound_by=by,
+                         launches=model_counts[arch]["decode_attention"] if arch else 0))
     for row in rows:
         row["listed"] = True
+        lib_text = ("none" if row["library_ms"] is None else
+                    f"{row['library_ms']:.5f}")
+        lib_call = ("none" if row["library_call_ms"] is None else
+                    f"{row['library_call_ms']:.5f}")
         print(f"timing {row['name']} {row['shape']}: ms={row['ms']:.5f} "
               f"plain_ms={row['plain_ms']:.5f} bound_ms={row['bound_ms']:.5f} "
-              f"({row['bound_by']}) library_ms={row['library_ms']:.5f} "
+              f"({row['bound_by']}) library_ms={lib_text} "
               f"launches_on_main_path={row['launches']}; per call with the host's "
               f"launch work: call_ms={row['call_ms']:.5f} "
               f"plain_call_ms={row['plain_call_ms']:.5f} "
-              f"library_call_ms={row['library_call_ms']:.5f}")
+              f"library_call_ms={lib_call}")
         for key in ("ms", "plain_ms", "library_ms"):
+            if row[key] is None:
+                continue
             require(row["bound_ms"] <= row[key],
                     f"{row['name']} {row['shape']}: bound_ms "
                     f"{row['bound_ms']:.5f} exceeds {key} {row[key]:.5f}")
@@ -2884,9 +3298,13 @@ def time_attention(counts):
           "rate (flash_attention_f32: the float32 rate, 6.7e13 FLOP/s, and 4-byte "
           "elements), and q, k, v, out (decode: the valid cache rows) read or "
           "written once; library_ms is torch scaled_dot_product_attention "
-          "(enable_gqa; the windowed layer with a boolean mask), which the "
-          "port never calls; launches are the first bf16 serve's, per variant "
-          "(the float32 variant serves no bf16 model); ms, plain_ms and "
+          "(enable_gqa; the windowed layer with a boolean mask) and, on a "
+          "soft-capped row, torch.compile(flex_attention) with the cap as its "
+          "score_mod, neither of which the port calls (the bound of a capped "
+          "row counts the same 4 D per kept pair, not the cap's one tanh per "
+          "pair); launches are the first bf16 serve's of gemma3-4b, "
+          "per variant (the float32 variant serves no bf16 model), and of the "
+          "model named in brackets on the D=128 rows; ms, plain_ms and "
           "library_ms of the attention rows are device time per call "
           "(calls run back to back behind a sleep of the card), call_ms "
           "CUDA events around each call")
@@ -2924,7 +3342,8 @@ def main() -> int:
     def phase(fn, *args):
         t = time.perf_counter()
         out = fn(*args)
-        print(f"phase {fn.__name__}: {time.perf_counter() - t:.1f}s")
+        label = " ".join([fn.__name__] + [a for a in args if isinstance(a, str)])
+        print(f"phase {label}: {time.perf_counter() - t:.1f}s")
         return out
 
     # the autotune cache of this run: empty (the kernels' rules) but while
@@ -2953,11 +3372,13 @@ def main() -> int:
     phase(check_decode_matches_prefill, params, cfg)
     del params
     torch.cuda.empty_cache()
+    model_counts = {arch: phase(run_model_serving, arch) for arch in SERVED_ARCHS}
+    phase(check_reduced_models)
     phase(check_flash_attention_bwd)
     phase(run_training_reduced)
     bwd_launches = phase(run_training)
     rows = (phase(time_kernels, launches, miner, stream_rec) +
-            phase(time_attention, serve_counts) +
+            phase(time_attention, serve_counts, model_counts) +
             [phase(time_flash_attention_bwd, bwd_launches)])
     kernels_line = [dict(name=r["name"], route=r["route"], source=r["source"],
                          replaces=r["replaces"], shape=r["shape"],

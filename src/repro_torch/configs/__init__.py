@@ -1,10 +1,12 @@
 """Architecture registry of the port: the configs whose layer kinds the port
-runs (``attn`` and ``local`` decoder layers), for serving and for training.
+runs (``attn`` and ``local`` decoder layers, with a dense MLP or a
+mixture of experts), for serving and for training: gemma3-4b, gemma-2b,
+internlm2-20b, command-r-35b, grok-1-314b and llama4-maverick-400b-a17b.
 
 Every config is importable as ``repro_torch.configs.<module>.CONFIG`` and
 selectable via ``get_config("<arch-id>")`` / ``--arch <id>``.  The modules
 are copies of the reference package's; source citations are in each
-module's docstring.  The reference's other architectures (MoE, SSM, xLSTM,
+module's docstring.  The reference's other architectures (SSM, xLSTM,
 hybrid, encoder-decoder, vision) wait for ROADMAP item 12.
 """
 from __future__ import annotations
@@ -37,7 +39,8 @@ def list_configs():
 
 
 def _load_all():
-    from . import gemma3_4b, gemma_2b  # noqa: F401
+    from . import (command_r_35b, gemma3_4b, gemma_2b,  # noqa: F401
+                   grok_1_314b, internlm2_20b, llama4_maverick_400b)
 
 
 __all__ = ["ModelConfig", "ShapeConfig", "TrainConfig", "SHAPES",

@@ -2,10 +2,13 @@
 // sequence, all G query heads of a KV head against the valid rows of the
 // cache,
 //
-//   out[b, kh, g] = sum_s softmax_s(q[b, kh, g] . k[b, s, kh] * scale) v[b, s, kh]
+//   out[b, kh, g] = sum_s softmax_s(c(q[b, kh, g] . k[b, s, kh] * scale)) v[b, s, kh]
 //
 // over the rows s < length[b] (and s > length[b] - 1 - window when
-// window > 0), fp32 arithmetic, the output in the query's type.  The cache
+// window > 0), fp32 arithmetic, the output in the query's type.  c is the
+// identity, or with a soft-cap > 0 the logit soft-cap c(x) = cap tanh(x /
+// cap) of the reference model's _decode_attend, applied to each score
+// before the mask.  G, the query heads of a KV head, is any of 1 to 8.  The cache
 // is (B, S, KV, D), addressed by strides with D contiguous, and length
 // stays on the card: the kernel reads it.
 //
@@ -117,7 +120,8 @@ decode_attention_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               float* __restrict__ part_ml, int* __restrict__ ticket,
                               int KV, int S, int D, long long ksb, long long kss,
                               long long ksh, long long vsb, long long vss, long long vsh,
-                              float sm_scale, int window) {
+                              float sm_scale, float softcap, int window) {
+  static_assert(kG >= 1 && kG <= kWarps, "one warp per query head in the softmax");
   extern __shared__ uint4 smem_dyn[];   // k rows, then v rows: kChunk x D each
   T* ks = reinterpret_cast<T*>(smem_dyn);
   T* vs = ks + kChunk * D;
@@ -189,11 +193,17 @@ decode_attention_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    // softmax over the chunk, one warp per query head
+    // softmax over the chunk, one warp per query head; the soft-cap is
+    // formed here, two rows a lane, rather than by the lane that reduced
+    // each score
     for (int g = warp; g < kG; g += kWarps) {
       const bool ok0 = lane < n, ok1 = lane + 32 < n;
-      const float s0 = ok0 ? s_p[g][lane] : -INFINITY;
-      const float s1 = ok1 ? s_p[g][lane + 32] : -INFINITY;
+      float s0 = ok0 ? s_p[g][lane] : -INFINITY;
+      float s1 = ok1 ? s_p[g][lane + 32] : -INFINITY;
+      if (softcap > 0.f) {
+        if (ok0) s0 = tanhf(s0 / softcap) * softcap;
+        if (ok1) s1 = tanhf(s1 / softcap) * softcap;
+      }
       float m = fmaxf(s0, s1);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
@@ -244,13 +254,17 @@ decode_attention_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (!s_last) return;
   __threadfence();
 
-  // the (m, l, acc) loads of kBatch chunks are issued together; the acc of
-  // a chunk with no rows was never written and is not used
+  // the (m, l, acc) loads of kBatch chunks are in flight together, 16 / kG
+  // rounded down (at most 16 values of each kind a thread, at least one
+  // chunk); the last batch is cut at n_split by `in`, so any kBatch >= 1
+  // visits every chunk once, in split order.  The acc of a chunk with no
+  // rows was never written and is not used
   const float* accb = part_acc + static_cast<long long>(bk) * n_split * kG * D;
   const float* mlb = part_ml + static_cast<long long>(bk) * n_split * kG * 2;
   const int d = threadIdx.x;
   if (d < D) {
-    constexpr int kBatch = 16 / kG;
+    constexpr int kBatch = 16 / kG;     // kG <= 8: 2 to 16
+    static_assert(kBatch >= 1, "the merge takes at least one chunk a batch");
     float M[kG], num[kG], den[kG];
 #pragma unroll
     for (int g = 0; g < kG; ++g) {
@@ -292,8 +306,8 @@ decode_attention_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int kG>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* length,
                    void* out, float* part_acc, float* part_ml, int* ticket, int B, int KV,
-                   int S, int D, const long long* st, float sm_scale, int window,
-                   cudaStream_t stream) {
+                   int S, int D, const long long* st, float sm_scale, float softcap,
+                   int window, cudaStream_t stream) {
   const int bytes = 2 * kChunk * D * static_cast<int>(sizeof(T));
   cudaError_t err = cudaFuncSetAttribute(decode_attention_split_kernel<T, kG>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -302,22 +316,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* lengt
   decode_attention_split_kernel<T, kG><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), length,
       static_cast<T*>(out), part_acc, part_ml, ticket, KV, S, D, st[0], st[1], st[2], st[3],
-      st[4], st[5], sm_scale, window);
+      st[4], st[5], sm_scale, softcap, window);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_g(const void* q, const void* k, const void* v, const int* length,
                        void* out, float* pa, float* pm, int* ticket, int B, int KV, int G,
-                       int S, int D, const long long* st, float sm_scale, int window,
-                       cudaStream_t stream) {
+                       int S, int D, const long long* st, float sm_scale, float softcap,
+                       int window, cudaStream_t stream) {
+#define DECODE_G(g)                                                                          \
+  case g:                                                                                    \
+    return launch<T, g>(q, k, v, length, out, pa, pm, ticket, B, KV, S, D, st, sm_scale,    \
+                        softcap, window, stream);
   switch (G) {
-    case 1: return launch<T, 1>(q, k, v, length, out, pa, pm, ticket, B, KV, S, D, st, sm_scale, window, stream);
-    case 2: return launch<T, 2>(q, k, v, length, out, pa, pm, ticket, B, KV, S, D, st, sm_scale, window, stream);
-    case 4: return launch<T, 4>(q, k, v, length, out, pa, pm, ticket, B, KV, S, D, st, sm_scale, window, stream);
-    case 8: return launch<T, 8>(q, k, v, length, out, pa, pm, ticket, B, KV, S, D, st, sm_scale, window, stream);
+    DECODE_G(1) DECODE_G(2) DECODE_G(3) DECODE_G(4)
+    DECODE_G(5) DECODE_G(6) DECODE_G(7) DECODE_G(8)
     default: return cudaErrorInvalidValue;
   }
+#undef DECODE_G
 }
 
 }  // namespace
@@ -332,16 +349,17 @@ int decode_attention_chunk() { return kChunk; }
 // (B,) int32 on the card.  part_acc: (B KV, n_split, G, D) and part_ml:
 // (B KV, n_split, G, 2) fp32 scratch, n_split = ceil(S / chunk); ticket:
 // (B KV,) int32, zero before the launch and zero after it.  dtype 0 =
-// float32, 1 = bfloat16.  G in {1, 2, 4, 8}; D a multiple of 8 up to 256;
-// window 0 = no window.  Returns a cudaError_t.
+// float32, 1 = bfloat16.  G from 1 to 8; D a multiple of 8 up to 256;
+// window 0 = no window; softcap 0 = none.  Returns a cudaError_t.
 int decode_attention_launch(const void* q, const void* k, const void* v,
                             const void* length, void* out, void* part_acc,
                             void* part_ml, void* ticket, int dtype, int B,
                             int KV, int G, int S, int D,
                             const long long* strides, float sm_scale,
-                            int window, int device, void* stream) {
+                            float softcap, int window, int device, void* stream) {
   if (B <= 0 || KV <= 0) return cudaSuccess;
-  if (D <= 0 || D > kMaxD || D % 8 != 0 || S <= 0 || (S + kChunk - 1) / kChunk > 65535)
+  if (D <= 0 || D > kMaxD || D % 8 != 0 || S <= 0 || (S + kChunk - 1) / kChunk > 65535 ||
+      !(softcap >= 0.f))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -351,9 +369,11 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
   float* pm = static_cast<float*>(part_ml);
   int* t = static_cast<int*>(ticket);
   if (dtype == 0)
-    return dispatch_g<float>(q, k, v, len, out, pa, pm, t, B, KV, G, S, D, strides, sm_scale, window, s);
+    return dispatch_g<float>(q, k, v, len, out, pa, pm, t, B, KV, G, S, D, strides, sm_scale,
+                             softcap, window, s);
   if (dtype == 1)
-    return dispatch_g<__nv_bfloat16>(q, k, v, len, out, pa, pm, t, B, KV, G, S, D, strides, sm_scale, window, s);
+    return dispatch_g<__nv_bfloat16>(q, k, v, len, out, pa, pm, t, B, KV, G, S, D, strides,
+                                     sm_scale, softcap, window, s);
   return cudaErrorInvalidValue;
 }
 

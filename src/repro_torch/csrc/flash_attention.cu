@@ -1,10 +1,13 @@
 // Online-softmax (flash) attention forward, causal and/or sliding window,
 // GQA by head map:
 //
-//   out[b, h, i] = sum_j softmax_j(q[b, h, i] . k[b, h / G, j] * scale) v[b, h / G, j]
+//   out[b, h, i] = sum_j softmax_j(c(q[b, h, i] . k[b, h / G, j] * scale)) v[b, h / G, j]
 //
 // over the columns j < S that the masks keep (j <= i when causal,
 // j > i - window when window > 0), the output written in the inputs' type.
+// c is the identity, or with a soft-cap > 0 the reference model's logit
+// soft-cap c(x) = cap tanh(x / cap) (flash_chunked), formed with tanhf
+// before the mask and the softmax.
 // q, k, v and out are addressed by strides (the head dimension contiguous),
 // so the model's (B, S, H, D) activations are read and written in place,
 // without a transpose.
@@ -51,13 +54,16 @@
 // whose rows all mask a loaded tile skips its products.
 // D = 16..256 runs in tiles of 64, 128 or 256 columns, zero-filled past D.
 //
-// Both kernels also write each row's log-sum-exp of its kept scaled scores,
-// lse[b, h, i] = log sum_j exp(q_i . k_j * scale) (natural log, float32,
+// Both kernels also write each row's log-sum-exp of its kept scaled (and
+// capped) scores, lse[b, h, i] = log sum_j exp(c(q_i . k_j * scale)) (natural log, float32,
 // (B, H, S) contiguous; +inf for a row that keeps no column), when the
 // caller passes a pointer: the backward (flash_attention_bwd.cu) recomputes
 // the probabilities from it.  A null pointer writes nothing, so the serving
 // path runs as it did.  The wgmma kernel keeps its running max in base 2
-// (scores times scale * log2 e) and converts at the store.
+// (scores times scale * log2 e; with a cap, cap tanh(s scale / cap) times
+// log2 e: the cap is formed first, log2 e folded in after) and converts at
+// the store.  The capped wgmma kernel is its own instance (kCap), so the
+// uncapped one compiles as it did.
 //
 // float32, flash_attention_f32_kernel: fp32 FMA on the CUDA cores.  The
 // tensor cores have no fp32 product that holds 1e-4 absolute (TF32 keeps
@@ -104,7 +110,9 @@ struct Layout {
   static constexpr int kBytes = kBar + 64 + 1024;            // + alignment slack
 };
 
-template <int kD>
+// scale_log2 = sm_scale log2 e; with kCap, cap_scale = sm_scale / cap and
+// cap_log2 = cap log2 e
+template <int kD, bool kCap>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
@@ -112,7 +120,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                              int group, int S, int D,
                              long long osb, long long osh, long long oss,
-                             float scale_log2, int causal, int window) {
+                             float scale_log2, float cap_scale, float cap_log2,
+                             int causal, int window) {
   using L = Layout<kD>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -213,14 +222,15 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_wait_all();
       fence_regs(s);
 
-      // scale into the log2 domain and mask
+      // scale (and cap) into the log2 domain and mask
       const bool edge = k0 + kBN > S || (causal && k0 + kBN - 1 > r_base) ||
                         (window > 0 && k0 <= r_base + 63 - window);
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          float x = s[4 * j + e] * scale_log2;
+          float x = kCap ? tanhf(s[4 * j + e] * cap_scale) * cap_log2
+                         : s[4 * j + e] * scale_log2;
           if (edge) {
             const int col = k0 + 8 * j + cq + (e & 1);
             const int row = e < 2 ? row0 : row1;
@@ -323,32 +333,49 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 
-template <int kD>
+template <int kD, bool kCap>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                    int H, int Hkv, int S, int D, const long long* st, float sm_scale,
-                   int causal, int window, cudaStream_t stream) {
+                   float softcap, int causal, int window, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   cudaError_t err = make_map(&mq, q, B, H, S, D, st[0], st[1], st[2]);
   if (err == cudaSuccess) err = make_map(&mk, k, B, Hkv, S, D, st[3], st[4], st[5]);
   if (err == cudaSuccess) err = make_map(&mv, v, B, Hkv, S, D, st[6], st[7], st[8]);
   if (err != cudaSuccess) return err;
   constexpr int bytes = Layout<kD>::kBytes;
-  err = cudaFuncSetAttribute(flash_attention_wgmma_kernel<kD>,
+  err = cudaFuncSetAttribute(flash_attention_wgmma_kernel<kD, kCap>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(H, B, (S + kBM - 1) / kBM);
-  flash_attention_wgmma_kernel<kD><<<grid, kThreads, bytes, stream>>>(
+  flash_attention_wgmma_kernel<kD, kCap><<<grid, kThreads, bytes, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, H / Hkv, S, D, st[9], st[10], st[11],
-      sm_scale * kLog2e, causal, window);
+      sm_scale * kLog2e, kCap ? sm_scale / softcap : 0.f, softcap * kLog2e, causal, window);
   return cudaGetLastError();
+}
+
+template <bool kCap>
+cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, float* lse,
+                       int B, int H, int Hkv, int S, int D, const long long* st,
+                       float sm_scale, float softcap, int causal, int window,
+                       cudaStream_t stream) {
+  if (D <= 64)
+    return launch<64, kCap>(q, k, v, o, lse, B, H, Hkv, S, D, st, sm_scale, softcap, causal,
+                            window, stream);
+  if (D <= 128)
+    return launch<128, kCap>(q, k, v, o, lse, B, H, Hkv, S, D, st, sm_scale, softcap, causal,
+                             window, stream);
+  return launch<256, kCap>(q, k, v, o, lse, B, H, Hkv, S, D, st, sm_scale, softcap, causal,
+                           window, stream);
 }
 
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                      int H, int Hkv, int S, int D, const long long* st, float sm_scale,
-                     int causal, int window, cudaStream_t stream) {
-  if (D <= 64) return launch<64>(q, k, v, o, lse, B, H, Hkv, S, D, st, sm_scale, causal, window, stream);
-  if (D <= 128) return launch<128>(q, k, v, o, lse, B, H, Hkv, S, D, st, sm_scale, causal, window, stream);
-  return launch<256>(q, k, v, o, lse, B, H, Hkv, S, D, st, sm_scale, causal, window, stream);
+                     float softcap, int causal, int window, cudaStream_t stream) {
+  if (softcap > 0.f)
+    return dispatch_d<true>(q, k, v, o, lse, B, H, Hkv, S, D, st, sm_scale, softcap, causal,
+                            window, stream);
+  return dispatch_d<false>(q, k, v, o, lse, B, H, Hkv, S, D, st, sm_scale, 0.f, causal,
+                           window, stream);
 }
 
 }  // namespace wg
@@ -410,7 +437,8 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
                            long long qss, long long ksb, long long ksh,
                            long long kss, long long vsb, long long vsh,
                            long long vss, long long osb, long long osh,
-                           long long oss, float sm_scale, int causal, int window) {
+                           long long oss, float sm_scale, float softcap, int causal,
+                           int window) {
   constexpr int kLd = kD + 4;
   constexpr int kChunksPerRow = kD / 32;  // float4 output chunks per thread row
   extern __shared__ float4 smem4[];
@@ -490,7 +518,9 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
         const int col = k0 + tx + 8 * j;
         keep[j] = col < S && (!causal || col <= row) &&
                   (window <= 0 || col > row - window);
-        s[i][j] = keep[j] ? s[i][j] * sm_scale : kNegInf;
+        float x = s[i][j] * sm_scale;
+        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
+        s[i][j] = keep[j] ? x : kNegInf;
         tmax = fmaxf(tmax, s[i][j]);
       }
       // the 8 lanes of one row are consecutive: reduce within them
@@ -561,7 +591,7 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
 template <int kD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
                    int B, int H, int Hkv, int S, int D,
-                   const long long* st, float sm_scale, int causal,
+                   const long long* st, float sm_scale, float softcap, int causal,
                    int window, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<kD>();
   // above 48 KB, dynamic shared memory must be granted per kernel (and
@@ -575,18 +605,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, H / Hkv, S, D,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11], sm_scale, causal, window);
+      st[9], st[10], st[11], sm_scale, softcap, causal, window);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
                      int B, int H, int Hkv, int S, int D,
-                     const long long* st, float sm_scale, int causal,
+                     const long long* st, float sm_scale, float softcap, int causal,
                      int window, cudaStream_t stream) {
-  // the ported configs' head sizes: 16 (reduced) and 256 (gemma3-4b,
-  // gemma-2b); any other D runs zero-padded in the next size up
-  if (D <= 32) return launch<32>(q, k, v, o, lse, B, H, Hkv, S, D, st, sm_scale, causal, window, stream);
-  return launch<256>(q, k, v, o, lse, B, H, Hkv, S, D, st, sm_scale, causal, window, stream);
+  // the reduced configs' head size 16, and 256 (gemma3-4b, gemma-2b); any
+  // other D (128: internlm2, command-r, grok, llama4) runs zero-padded in
+  // the next size up: float32 is the checking dtype, not the served one
+  if (D <= 32)
+    return launch<32>(q, k, v, o, lse, B, H, Hkv, S, D, st, sm_scale, softcap, causal, window,
+                      stream);
+  return launch<256>(q, k, v, o, lse, B, H, Hkv, S, D, st, sm_scale, softcap, causal, window,
+                     stream);
 }
 
 }  // namespace f32
@@ -600,25 +634,27 @@ extern "C" {
 // with D contiguous.  dtype 0 = float32 (flash_attention_f32_kernel),
 // 1 = bfloat16 (flash_attention_wgmma_kernel; its strides and base
 // addresses must be multiples of 16 bytes).  D a multiple of 8 up to 256;
-// window 0 = no window.  lse: null, or (B, H, S) float32 contiguous, the
-// rows' log-sum-exp.  Returns a cudaError_t.
+// window 0 = no window; softcap 0 = none.  lse: null, or (B, H, S) float32
+// contiguous, the rows' log-sum-exp.  Returns a cudaError_t.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int dtype, int B, int H, int Hkv, int S,
                            int D, const long long* strides, float sm_scale,
-                           int causal, int window, void* lse, int device,
-                           void* stream) {
+                           float softcap, int causal, int window, void* lse,
+                           int device, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0) return cudaSuccess;
   if (Hkv <= 0 || H % Hkv != 0 || D <= 0 || D > 256 || D % 8 != 0 ||
-      B > 65535 || H > 65535)
+      B > 65535 || H > 65535 || !(softcap >= 0.f))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (dtype == 0)
-    return f32::dispatch(q, k, v, o, l, B, H, Hkv, S, D, strides, sm_scale, causal, window, s);
+    return f32::dispatch(q, k, v, o, l, B, H, Hkv, S, D, strides, sm_scale, softcap, causal,
+                         window, s);
   if (dtype == 1)
-    return wg::dispatch(q, k, v, o, l, B, H, Hkv, S, D, strides, sm_scale, causal, window, s);
+    return wg::dispatch(q, k, v, o, l, B, H, Hkv, S, D, strides, sm_scale, softcap, causal,
+                        window, s);
   return cudaErrorInvalidValue;
 }
 

@@ -23,7 +23,7 @@ from .._layout import rows_of_16_bytes
 __all__ = ["decode_attention"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-GROUPS = (1, 2, 4, 8)
+GROUPS = tuple(range(1, 9))   # query heads per KV head the kernel takes
 CHUNK = 64                  # cache rows per block; csrc's kChunk
 _BOUND = False
 _TICKETS: dict = {}         # (device index, stream) -> int32 tickets
@@ -36,7 +36,8 @@ def _lib() -> ctypes.CDLL:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.decode_attention_launch.argtypes = [
             vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i,
-            ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i, i, vp]
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_float,
+            i, i, vp]
         lib.decode_attention_launch.restype = ctypes.c_int
         lib.decode_attention_chunk.restype = ctypes.c_int
         if lib.decode_attention_chunk() != CHUNK:
@@ -58,11 +59,13 @@ def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      length: torch.Tensor, *, window: int = 0,
-                     sm_scale=None) -> torch.Tensor:
+                     sm_scale=None, softcap: float = 0.0) -> torch.Tensor:
     """q: (B, KV, G, D); k/v: (B, S, KV, D); length: (B,) int32, all on the
     card, q/k/v float32 or bfloat16 -> (B, KV, G, D) in q's dtype.  Rows
     ``s < length[b]`` count (and ``s > length[b] - 1 - window`` when
-    ``window > 0``); a length above S counts as S.  G in {1, 2, 4, 8}."""
+    ``window > 0``); a length above S counts as S.  G from 1 to 8.
+    ``softcap`` > 0 caps each score x at ``softcap * tanh(x / softcap)``
+    before the softmax (0 = none)."""
     for name, t in (("q", q), ("k", k), ("v", v), ("length", length)):
         if t.device.type != "cuda":
             raise ValueError(f"the CUDA kernel needs CUDA tensors, got {name} "
@@ -86,12 +89,15 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if length.dtype != torch.int32:
         raise ValueError(f"length must be int32, got {length.dtype}")
     if g not in GROUPS:
-        raise ValueError(f"group size {g}: the kernel takes {GROUPS}")
+        raise ValueError(f"group size {g}: the kernel takes 1 to {GROUPS[-1]} "
+                         "query heads per KV head")
     if d % 8 or d > 256:
         raise ValueError(f"head_dim {d}: the kernel takes a multiple of 8 up "
                          "to 256")
     if window < 0:
         raise ValueError(f"window must be >= 0 (0 = none), got {window}")
+    if not softcap >= 0:
+        raise ValueError(f"softcap must be >= 0 (0 = none), got {softcap}")
     if s == 0:
         raise ValueError("the cache has no rows")
     if sm_scale is None:
@@ -115,7 +121,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
         out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
         tickets.data_ptr(), _DTYPES[q.dtype], b, kv, g, s, d, strides,
-        float(sm_scale), int(window), q.device.index, stream)
+        float(sm_scale), float(softcap), int(window), q.device.index, stream)
     _build.check(code, "decode_attention_split_kernel")
     decode_attention.launches += 1
     return out

@@ -8,17 +8,22 @@ from __future__ import annotations
 
 import torch
 
+from .._softcap import softcap as _capped
+
 __all__ = ["decode_attention_ref", "decode_attention_split_ref"]
 
 
-def decode_attention_ref(q, k, v, length, *, window=0, sm_scale=None):
+def decode_attention_ref(q, k, v, length, *, window=0, sm_scale=None,
+                         softcap=0.0):
     """q: (B, KV, G, D); k/v: (B, S, KV, D); length: (B,) -> (B, KV, G, D),
-    fp32 math."""
+    fp32 math.  ``softcap`` > 0 caps the scaled scores before the mask, as
+    the reference model's ``_decode_attend`` does."""
     b, kv, g, d = q.shape
     s = k.shape[1]
     if sm_scale is None:
         sm_scale = d ** -0.5
-    scores = torch.einsum("bkgd,bskd->bkgs", q.float(), k.float()) * sm_scale
+    scores = _capped(torch.einsum("bkgd,bskd->bkgs", q.float(), k.float())
+                     * sm_scale, softcap)
     cols = torch.arange(s, device=q.device)[None, :]
     length = length.to(q.device)[:, None]
     mask = cols < length
@@ -32,7 +37,7 @@ def decode_attention_ref(q, k, v, length, *, window=0, sm_scale=None):
 
 
 def decode_attention_split_ref(q, k, v, length, *, window=0, sm_scale=None,
-                               chunk=64):
+                               softcap=0.0, chunk=64):
     """The kernel's arithmetic: the cache cut into chunks of ``chunk`` rows,
     each chunk's softmax partial (m, l, acc) over its rows in
     ``[start, length)`` in fp32, then the partials merged in chunk order
@@ -53,7 +58,8 @@ def decode_attention_split_ref(q, k, v, length, *, window=0, sm_scale=None,
     vc = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad))
     kc = kc.reshape(b, n_split, chunk, kv, d)
     vc = vc.reshape(b, n_split, chunk, kv, d)
-    scores = torch.einsum("bkgd,bnckd->bkgnc", q.float(), kc) * sm_scale
+    scores = _capped(torch.einsum("bkgd,bnckd->bkgnc", q.float(), kc) * sm_scale,
+                     softcap)
     mask = keep[:, None, None]                        # (B, 1, 1, n, chunk)
     scores = torch.where(mask, scores, torch.tensor(-torch.inf, device=q.device))
     m = scores.amax(dim=-1)                           # (B, KV, G, n)

@@ -49,8 +49,8 @@ def _lib() -> ctypes.CDLL:
         vp, i = ctypes.c_void_p, ctypes.c_int
         strides = ctypes.POINTER(ctypes.c_longlong)
         lib.flash_attention_launch.argtypes = [
-            vp, vp, vp, vp, i, i, i, i, i, i, strides, ctypes.c_float, i, i,
-            vp, i, vp]
+            vp, vp, vp, vp, i, i, i, i, i, i, strides, ctypes.c_float,
+            ctypes.c_float, i, i, vp, i, vp]
         lib.flash_attention_launch.restype = ctypes.c_int
         lib.flash_attention_bwd_launch.argtypes = [
             vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, strides,
@@ -114,18 +114,23 @@ def _strides(*ts) -> ctypes.Array:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    sm_scale=None, return_lse: bool = False):
+                    sm_scale=None, softcap: float = 0.0,
+                    return_lse: bool = False):
     """q: (B, H, S, D); k/v: (B, Hkv, S, D) on the card, float32 or
     bfloat16 -> (B, H, S, D) in q's dtype (bfloat16: the wgmma kernel;
     float32: the FMA kernel).  ``window`` 0 means no window
     (:func:`.ops.multi_head_attention` maps ``None`` to 0).  Self-attention
-    only: k and v have q's sequence length.
+    only: k and v have q's sequence length.  ``softcap`` > 0 caps each
+    scaled score x at ``softcap * tanh(x / softcap)`` before the softmax
+    (0 = none).
 
     With ``return_lse`` returns ``(out, lse)``: ``lse`` (B, H, S) float32,
-    each row's natural log-sum-exp of its kept scores times ``sm_scale``
-    (+inf for a row that keeps none)."""
+    each row's natural log-sum-exp of its kept (capped) scores times
+    ``sm_scale`` (+inf for a row that keeps none)."""
     _check((("q", q), ("k", k), ("v", v)))
     b, h, hkv, s, d = _shapes(q, k, v, window)
+    if not softcap >= 0:
+        raise ValueError(f"softcap must be >= 0 (0 = none), got {softcap}")
     if sm_scale is None:
         sm_scale = d ** -0.5
     q, k, v = rows_of_16_bytes(q), rows_of_16_bytes(k), rows_of_16_bytes(v)
@@ -138,7 +143,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     code = _lib().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         _DTYPES[q.dtype], b, h, hkv, s, d, _strides(q, k, v, out),
-        float(sm_scale), int(bool(causal)), int(window),
+        float(sm_scale), float(softcap), int(bool(causal)), int(window),
         None if lse is None else lse.data_ptr(), q.device.index, stream)
     variant = _VARIANTS[q.dtype]
     _build.check(code, f"flash_attention ({variant})")

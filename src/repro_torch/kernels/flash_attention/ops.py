@@ -5,7 +5,9 @@ kernels run or the call raises.
 :class:`FlashAttentionFunction` makes the kernel differentiable: its
 forward launches the forward kernel with the rows' log-sum-exp when an
 input needs a gradient, and its backward launches the backward kernels.
-On a CPU tensor autograd runs through :func:`.ref.attention_ref`.
+On a CPU tensor autograd runs through :func:`.ref.attention_ref`.  The
+backward kernels take no logit soft-cap: a gradient of soft-capped
+attention on the card raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -27,29 +29,39 @@ class FlashAttentionFunction(torch.autograd.Function):
     ``lse`` and saves nothing."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, sm_scale, train):
+    def forward(ctx, q, k, v, causal, window, sm_scale, softcap, train):
         ctx.attn = dict(causal=causal, window=window, sm_scale=sm_scale)
+        ctx.softcap = softcap
         if not train:
-            return flash_attention(q, k, v, **ctx.attn)
+            return flash_attention(q, k, v, softcap=softcap, **ctx.attn)
         q, k, v = rows_of_16_bytes(q), rows_of_16_bytes(k), rows_of_16_bytes(v)
-        out, lse = flash_attention(q, k, v, return_lse=True, **ctx.attn)
+        out, lse = flash_attention(q, k, v, softcap=softcap, return_lse=True,
+                                   **ctx.attn)
         ctx.save_for_backward(q, k, v, out, lse)
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dout):
+        if ctx.softcap:
+            raise NotImplementedError(
+                f"the gradient of soft-capped attention (softcap={ctx.softcap}) "
+                "has no CUDA kernel: K6's backward takes no cap; training the "
+                "soft-capped MoE configs on the card waits for ROADMAP item 12c")
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse, **ctx.attn)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
-def multi_head_attention(q, k, v, *, causal=True, window=None, sm_scale=None):
-    """q: (B, H, S, D); k/v: (B, Hkv, S, D) -> (B, H, S, D), differentiable.
+def multi_head_attention(q, k, v, *, causal=True, window=None, sm_scale=None,
+                         softcap=0.0):
+    """q: (B, H, S, D); k/v: (B, Hkv, S, D) -> (B, H, S, D), differentiable
+    (on the card only without a soft-cap).
 
     ``window`` 0 and ``None`` both mean no window: the model passes 0 for
     its global layers, the reference kernel tests ``window is not None``.
-    This is the one place that maps the two.
+    This is the one place that maps the two.  ``softcap`` 0 means no logit
+    soft-cap.
     """
     window = window or None
     if q.device.type == "cuda":
@@ -57,8 +69,8 @@ def multi_head_attention(q, k, v, *, causal=True, window=None, sm_scale=None):
         train = torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v))
         return FlashAttentionFunction.apply(q, k, v, bool(causal), window or 0,
-                                            sm_scale, train)
+                                            sm_scale, float(softcap), train)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
-                             sm_scale=sm_scale)
+                             sm_scale=sm_scale, softcap=softcap)
     raise ValueError(f"no attention path for device {q.device}")

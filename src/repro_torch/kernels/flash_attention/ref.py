@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from .._softcap import softcap as _capped
+
 __all__ = ["attention_ref", "attention_split_p_ref", "attention_lse_ref",
            "attention_ref_bwd", "attention_bwd_bf16_ref"]
 
@@ -30,42 +32,47 @@ def _mask(s, causal, window, device):
     return mask
 
 
-def _scores(q, k, causal, window, sm_scale):
+def _scores(q, k, causal, window, sm_scale, softcap=0.0):
     """Masked scores q k^T * scale in fp32, (B, H, S, S) (masked entries
-    -1e30), the mask and the group size H / Hkv."""
+    -1e30), the mask and the group size H / Hkv.  ``softcap`` > 0 caps the
+    scaled scores at ``tanh(x / softcap) * softcap`` before the mask, as the
+    reference model's ``flash_chunked`` does."""
     b, h, s, d = q.shape
     group = h // k.shape[1]
     if sm_scale is None:
         sm_scale = d ** -0.5
     kk = k.repeat_interleave(group, dim=1)
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk.float()) * sm_scale
+    scores = _capped(scores, softcap)
     mask = _mask(s, causal, window, q.device)
     scores = torch.where(mask[None, None], scores,
                          torch.tensor(-1e30, device=q.device))
     return scores, mask, group
 
 
-def _probabilities(q, k, causal, window, sm_scale):
+def _probabilities(q, k, causal, window, sm_scale, softcap):
     """Unnormalised softmax numerators exp(s - rowmax) in fp32, (B, H, S, S),
     and the group size H / Hkv."""
-    scores, _, group = _scores(q, k, causal, window, sm_scale)
+    scores, _, group = _scores(q, k, causal, window, sm_scale, softcap)
     return torch.exp(scores - scores.amax(dim=-1, keepdim=True)), group
 
 
-def attention_ref(q, k, v, *, causal=True, window=None, sm_scale=None):
+def attention_ref(q, k, v, *, causal=True, window=None, sm_scale=None,
+                  softcap=0.0):
     """q: (B, H, S, D); k/v: (B, Hkv, S, D) -> (B, H, S, D), fp32 math.
 
     ``window=None`` means no window; ``window=w`` keeps the columns
     ``j > i - w`` (so ``w=0`` keeps none, as in the reference).
+    ``softcap`` 0 means no logit soft-cap.
     """
-    p, group = _probabilities(q, k, causal, window, sm_scale)
+    p, group = _probabilities(q, k, causal, window, sm_scale, softcap)
     p = p / p.sum(dim=-1, keepdim=True)
     vv = v.repeat_interleave(group, dim=1)
     return torch.einsum("bhqk,bhkd->bhqd", p, vv.float()).to(q.dtype)
 
 
 def attention_split_p_ref(q, k, v, *, causal=True, window=None,
-                          sm_scale=None):
+                          sm_scale=None, softcap=0.0):
     """The bf16 kernel's arithmetic: scores in fp32 from the inputs' values,
     the probabilities p = exp(s - max) in fp32 split into two bf16 terms,
     p_hi = bf16(p) and p_lo = bf16(p - p_hi), as the kernel runs them
@@ -73,8 +80,9 @@ def attention_split_p_ref(q, k, v, *, causal=True, window=None,
     sum of p.  Returns float32 (B, H, S, D): the caller rounds it as the
     kernel's store would.  Masks and ``window`` as in :func:`attention_ref`.
     The kernel takes the max per 64-column tile and rescales (online
-    softmax); that changes p by fp32 roundings only."""
-    p, group = _probabilities(q, k, causal, window, sm_scale)
+    softmax); that changes p by fp32 roundings only.  ``softcap`` as in
+    :func:`attention_ref` (the kernel forms the cap with tanhf)."""
+    p, group = _probabilities(q, k, causal, window, sm_scale, softcap)
     p_hi = p.to(torch.bfloat16)
     p_lo = (p - p_hi.float()).to(torch.bfloat16)
     vv = v.repeat_interleave(group, dim=1).float()
@@ -83,11 +91,12 @@ def attention_split_p_ref(q, k, v, *, causal=True, window=None,
     return out / p.sum(dim=-1, keepdim=True)
 
 
-def attention_lse_ref(q, k, *, causal=True, window=None, sm_scale=None):
+def attention_lse_ref(q, k, *, causal=True, window=None, sm_scale=None,
+                      softcap=0.0):
     """(B, H, S) float32: each row's natural log-sum-exp of its kept scores
-    q k^T * scale, the forward kernels' ``lse`` (``window`` as in
-    :func:`attention_ref`)."""
-    scores, mask, _ = _scores(q, k, causal, window, sm_scale)
+    q k^T * scale (capped where ``softcap`` > 0), the forward kernels'
+    ``lse`` (``window`` as in :func:`attention_ref`)."""
+    scores, mask, _ = _scores(q, k, causal, window, sm_scale, softcap)
     return torch.logsumexp(scores.masked_fill(~mask[None, None], float("-inf")),
                            dim=-1)
 

@@ -1,9 +1,11 @@
 """Where the time of LM serving goes, on the card:
 
-    PYTHONPATH=src python3 -m repro_torch.launch.serve_profile
+    PYTHONPATH=src python3 -m repro_torch.launch.serve_profile [--arch ARCH]
 
-Builds gemma3-4b at full width (bf16, random weights from a seeded
-``torch.Generator``), warms up, then traces one prefill of the serving
+Builds the served model of ``--arch`` at full width (default gemma3-4b;
+bf16, random weights from a seeded ``torch.Generator``; depth as
+:data:`SERVE_LAYERS` cuts it to fit one card), warms up, then traces one
+prefill of the serving
 traffic's largest sub-batch (2 prompts of 2,048 tokens) and 16 decode
 steps with ``torch.profiler``, each phase in its own window, and prints for
 each: the host wall time (ending in ``torch.cuda.synchronize()``), the
@@ -12,10 +14,13 @@ overlap), the device's idle share, the attention kernels' share, and the
 kernels that take the most device time.  The last line is one JSON object
 with the same numbers.  Needs a card; with none it exits non-zero.
 
-The serving traffic is defined here and ``chip_smoke.py`` serves it.
+The serving traffic and the served depths are defined here and
+``chip_smoke.py`` serves them.
 """
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -26,8 +31,15 @@ import torch
 
 # the serving traffic of gemma3-4b: 8 seeded requests, 4 of 2,048 and 4 of
 # 1,536 prompt tokens (both past the 1,024 window of the local layers), 32
-# new tokens each, greedy, packed into 2 batches, a 2,080-row cache
+# new tokens each, greedy, packed into 2 batches, a 2,080-row cache; the
+# other served models take the same traffic
 ARCH = "gemma3-4b"
+# the layers each served model runs on one 80 GB card, at full width, bf16:
+# gemma3-4b and internlm2-20b whole (7.8 and 39.7 GB of weights); grok-1
+# cut to 4 of its 64 layers (41.0 GB: all 314 G parameters take 628 GB)
+# and llama4-maverick to 2 of its 48, one dense and one MoE (36.9 GB)
+SERVE_LAYERS = {"gemma3-4b": 34, "internlm2-20b": 48, "grok-1-314b": 4,
+                "llama4-maverick-400b-a17b": 2}
 SERVE_PROMPTS = (2048,) * 4 + (1536,) * 4
 SERVE_MAX_NEW = 32
 SERVE_BATCHES = 2
@@ -41,6 +53,15 @@ TOP_KERNELS = 12
 # the attention kernels' names in the trace: K6's bf16 variant (the served
 # model's) and K7
 ATTENTION_KERNELS = ("flash_attention_wgmma_kernel", "decode_attention_split_kernel")
+
+
+def served_config(arch: str):
+    """The config of ``arch`` at full width, cut to its served depth."""
+    from ..configs import get_config
+    cfg = get_config(arch)
+    if arch not in SERVE_LAYERS:
+        raise ValueError(f"no served depth for {arch!r}; served: {sorted(SERVE_LAYERS)}")
+    return dataclasses.replace(cfg, n_layers=SERVE_LAYERS[arch])
 
 
 def kernel_times(prof) -> dict:
@@ -78,14 +99,16 @@ def _window(label, fn):
             "top": [[name, ms, n] for name, (ms, n) in ranked]}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=ARCH, choices=sorted(SERVE_LAYERS))
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("serve_profile: no CUDA device is available", file=sys.stderr)
         return 2
-    from ..configs import get_config
     from ..models import Model, init_params
 
-    cfg = get_config(ARCH)
+    cfg = served_config(args.arch)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     params = init_params(cfg, gen, "cuda")
@@ -111,8 +134,8 @@ def main() -> int:
     with torch.inference_mode():
         prefill()
         decode()                        # warm-up: cuBLAS plans, allocator
-        head = (f"{cfg.name} bf16 B={PROFILE_BATCH} prompt={PROFILE_PROMPT} "
-                f"decode_steps={PROFILE_STEPS}")
+        head = (f"{cfg.name} ({cfg.n_layers} layers) bf16 B={PROFILE_BATCH} "
+                f"prompt={PROFILE_PROMPT} decode_steps={PROFILE_STEPS}")
         res = {"config": head, "device": torch.cuda.get_device_name(0),
                "prefill": _window(f"prefill {head}", prefill),
                "decode": _window(f"decode {head}", decode)}

@@ -7,15 +7,18 @@ On the card, full-sequence (prefill) attention runs the hand-written flash
 kernel (:func:`..kernels.flash_attention.multi_head_attention`) and decode
 attention the grouped decode kernel
 (:func:`..kernels.decode_attention.grouped_decode_attention`), with the
-valid length of each sequence kept on the card.  On the CPU the same calls
-take the reference model's own plain versions, :func:`flash_chunked` and
-:func:`_decode_attend`.
+valid length of each sequence kept on the card.  Both kernels take the
+config's attention logit soft-cap (``attn_logit_softcap``, grok's 30), so
+with a cap too attention runs only through them on the card.  On the CPU
+the same calls take the reference model's own plain versions,
+:func:`flash_chunked` and :func:`_decode_attend`.
 
 The full-sequence path (no cache) is differentiable on both devices: on the
 card through ``FlashAttentionFunction`` (the flash kernel's forward and its
-hand-written backward), on the CPU through autograd of
-:func:`flash_chunked`.  Training takes it; serving runs under
-``torch.inference_mode``, where the kernel writes no log-sum-exp.
+hand-written backward, which takes no soft-cap: a soft-capped gradient on
+the card raises), on the CPU through autograd of :func:`flash_chunked`.
+Training takes it; serving runs under ``torch.inference_mode``, where the
+kernel writes no log-sum-exp.
 """
 from __future__ import annotations
 
@@ -152,7 +155,7 @@ def _prefill_attend(q, k, v, *, causal, window, sm_scale, cap):
     # writes through strides, so nothing is transposed in memory
     out = multi_head_attention(q.transpose(1, 2), k.transpose(1, 2),
                                v.transpose(1, 2), causal=causal,
-                               window=window, sm_scale=sm_scale)
+                               window=window, sm_scale=sm_scale, softcap=cap)
     return out.transpose(1, 2)
 
 
@@ -176,10 +179,6 @@ def attention(p: dict, x: torch.Tensor, cfg, *, window: int = 0,
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cap = cfg.attn_logit_softcap
-    if cap and x.device.type == "cuda":
-        raise NotImplementedError(
-            "attention logit soft-capping has no CUDA kernel (the reference's "
-            "Pallas kernels have none either); it runs on the CPU only")
     q = _split_heads(x @ p["wq"], h, hd)
     k = _split_heads(x @ p["wk"], kv, hd)
     v = _split_heads(x @ p["wv"], kv, hd)
@@ -207,7 +206,8 @@ def attention(p: dict, x: torch.Tensor, cfg, *, window: int = 0,
                 length = (pos + 1).to(torch.int32)
                 out = grouped_decode_attention(
                     q[:, 0].reshape(b, kv, h // kv, hd), cache["k"],
-                    cache["v"], length, window=window, sm_scale=sm_scale)
+                    cache["v"], length, window=window, sm_scale=sm_scale,
+                    softcap=cap)
                 out = out.reshape(b, 1, h, hd)
             else:
                 out = _decode_attend(q, cache["k"], cache["v"], pos + 1,

@@ -4,7 +4,9 @@ The reference's ``init_params`` returns a pytree of arrays; with its leaves
 turned into numpy arrays (``jax.tree.map(np.asarray, params)``) it becomes
 the port's parameter dict, key for key, so both packages can run on the
 same weights.  Every key, shape and dtype is checked against what the
-config asks for; any mismatch raises ``ValueError``.  The reference's AdamW
+config asks for; any mismatch raises ``ValueError``.  Every leaf is in the
+config's dtype but an MoE layer's router (``stk_router``), which is float32
+in any model, as the reference keeps it.  The reference's AdamW
 state (``adamw_init``'s ``{"mu", "nu", "step"}``, float32 moments, with an
 optional float32 ``master`` copy) crosses the same way with
 :func:`opt_state_from_numpy`.
@@ -33,14 +35,22 @@ def param_shapes(cfg) -> Dict[str, Any]:
             out[f"{prefix}bias"] = (*lead, d)
         return out
 
+    gated = cfg.mlp_act in ("swiglu", "geglu")
     stages = {}
-    for i, (_, c) in enumerate(stages_meta(cfg)):
+    for i, (kind, c) in enumerate(stages_meta(cfg)):
         st = {**norm_shapes("stk_norm1_", (c,)), **norm_shapes("stk_norm2_", (c,)),
               "stk_wq": (c, d, h * hd), "stk_wk": (c, d, kv * hd),
               "stk_wv": (c, d, kv * hd), "stk_wo": (c, h * hd, d)}
-        if cfg.mlp_act in ("swiglu", "geglu"):
-            st["stk_w_gate"] = (c, d, f)
-        if cfg.mlp_act != "none":
+        if kind.endswith("+moe"):
+            slots, fs = cfg.n_experts * cfg.expert_split, f // cfg.expert_split
+            st["stk_router"] = (c, d, cfg.n_experts)
+            st["stk_experts_up"] = (c, slots, d, fs)
+            st["stk_experts_down"] = (c, slots, fs, d)
+            if gated:
+                st["stk_experts_gate"] = (c, slots, d, fs)
+        elif cfg.mlp_act != "none":
+            if gated:
+                st["stk_w_gate"] = (c, d, f)
             st["stk_w_up"] = (c, d, f)
             st["stk_w_down"] = (c, f, d)
         stages[f"s{i}"] = st
@@ -67,6 +77,11 @@ def _leaf(arr, shape: Tuple[int, ...], dtype: str, path: str, device):
     return t.to(device)
 
 
+def _leaf_dtype(path: str, dtype: str) -> str:
+    """The dtype a leaf must have: the router stays float32."""
+    return "float32" if path.endswith("/stk_router") else dtype
+
+
 def _walk(node, spec, path, dtype, device):
     if isinstance(spec, dict):
         if not isinstance(node, dict):
@@ -78,7 +93,7 @@ def _walk(node, spec, path, dtype, device):
                              f"unexpected keys {extra}")
         return {k: _walk(node[k], spec[k], f"{path}/{k}" if path else k,
                          dtype, device) for k in spec}
-    return _leaf(node, spec, dtype, path, device)
+    return _leaf(node, spec, _leaf_dtype(path, dtype), path, device)
 
 
 def params_from_numpy(tree, cfg, device=None) -> Dict[str, Any]:

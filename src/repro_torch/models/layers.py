@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels._softcap import softcap
+
 __all__ = ["rms_norm", "layer_norm", "norm", "rope", "apply_rope", "init_norm",
            "softcap"]
 
@@ -41,20 +43,14 @@ def norm(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
     return layer_norm(p, x) if kind == "layernorm" else rms_norm(p, x)
 
 
-def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
-    """Gemma-style logit soft-capping."""
-    if not cap:
-        return x
-    return torch.tanh(x / cap) * cap
-
-
 def rope(positions: torch.Tensor, head_dim: int, theta: float) -> tuple:
     """Rotary cos/sin tables for integer positions (..., S), float32."""
     half = head_dim // 2
     exps = -torch.arange(0, half, dtype=torch.float32,
                          device=positions.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=positions.device), exps)
+    # a Python base, not a tensor made on the card: that copy would make
+    # every decode step wait for the card once per layer
+    freqs = torch.pow(float(theta), exps)
     angles = positions[..., None].float() * freqs  # (..., S, half)
     return torch.cos(angles), torch.sin(angles)
 

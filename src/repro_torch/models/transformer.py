@@ -1,7 +1,10 @@
 """Model assembly: stages, forward passes, prefill and decode, loss.
 
-The port of the reference package's ``models/transformer.py`` for dense
-decoders (layer kinds ``attn`` and ``local``).  The per-layer kind list
+The port of the reference package's ``models/transformer.py`` for the
+decoders whose layers are ``attn`` or ``local`` attention with a dense MLP
+or, in the ``+moe`` kinds, a mixture of experts (:mod:`.moe`; each layer's
+load-balance loss is summed over the stack and the loss adds ``0.01``
+times it, as the reference does).  The per-layer kind list
 (``ModelConfig.layer_pattern``) is run-length grouped into *stages*; a
 stage's weights are stacked along a leading axis (``stk_wq`` is
 ``(count, d, h * hd)``), with the reference's parameter keys, and the
@@ -10,9 +13,9 @@ reference's ``lax.scan`` over a stage becomes a Python loop over that axis
 the stacked leaf in one piece).  ``Model.loss`` is the reference's next-token
 loss, its cross-entropy in sequence chunks against the embedding, with the
 reference's ``remat`` modes as ``torch.utils.checkpoint`` per layer.
-Every other layer kind (MoE, SSM, xLSTM, hybrid, encoder-decoder), the
-vision prefix of the loss and the cost-analysis mode wait for ROADMAP item
-12 and raise ``NotImplementedError``.
+Every other layer kind (SSM, xLSTM, hybrid, encoder-decoder), the vision
+prefix of the loss and the cost-analysis mode wait for ROADMAP item 12 and
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -28,11 +31,12 @@ from .attention import attention, init_attention
 from .attention import init_cache as kv_init_cache
 from .layers import init_norm, norm
 from .mlp import init_mlp, mlp
+from .moe import expert_placement, init_moe, moe
 
 __all__ = ["stages_meta", "init_params", "Model", "PORTED_KINDS",
            "LOSS_CHUNK", "REMAT_MODES"]
 
-PORTED_KINDS = ("attn", "local")
+PORTED_KINDS = ("attn", "local", "attn+moe", "local+moe")
 LOSS_CHUNK = 512
 REMAT_MODES = ("none", "dots", "full")
 
@@ -78,7 +82,9 @@ def _init_layer_stack(generator, cfg, kind: str, count: int,
     p.update(init_attention(generator, cfg, dtype, stacked=count,
                             device=device))
     add_norm("norm2")
-    if cfg.mlp_act != "none":
+    if kind.endswith("+moe"):
+        p.update(init_moe(generator, cfg, dtype, stacked=count, device=device))
+    elif cfg.mlp_act != "none":
         p.update(init_mlp(generator, cfg, dtype, stacked=count, device=device))
     return p
 
@@ -115,12 +121,15 @@ def _sub(lp: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
 
 
 def _layer_forward(lp: Dict[str, torch.Tensor], x, cfg, kind: str, *,
-                   cache=None, pos=None):
-    """One layer.  Returns (x, cache)."""
+                   cache=None, pos=None, placement=None):
+    """One layer.  Returns (x, cache, aux_loss): the MoE's float32
+    load-balance loss, None for a dense layer (whose loss the reference
+    counts as 0: no tensor is made for it on the decode path)."""
     if kind not in PORTED_KINDS:
         raise NotImplementedError(
             f"layer kind {kind!r} is not ported (ROADMAP item 12)")
-    window = cfg.window if kind == "local" else 0
+    window = cfg.window if kind.split("+")[0] == "local" else 0
+    aux_loss = None
     h = norm(_sub(lp, "norm1"), x, cfg.norm)
     attn_out, cache = attention(lp, h, cfg, window=window, cache=cache, pos=pos)
     if cfg.parallel_block:
@@ -128,9 +137,15 @@ def _layer_forward(lp: Dict[str, torch.Tensor], x, cfg, kind: str, *,
     else:
         x = x + attn_out
         ff_in = norm(_sub(lp, "norm2"), x, cfg.norm)
-    ff_out = mlp(lp, ff_in, cfg) if cfg.mlp_act != "none" else torch.zeros_like(x)
+    if kind.endswith("+moe"):
+        ff_out, aux = moe(lp, ff_in, cfg, placement=placement)
+        aux_loss = aux["aux_loss"]
+    elif cfg.mlp_act != "none":
+        ff_out = mlp(lp, ff_in, cfg)
+    else:
+        ff_out = torch.zeros_like(x)
     x = x + attn_out + ff_out if cfg.parallel_block else x + ff_out
-    return x, cache
+    return x, cache, aux_loss
 
 
 # the outputs ``remat="dots"`` keeps: matrix products with no batch
@@ -144,14 +159,17 @@ def _dots_policy(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _remat_layer(lp, x, cfg, kind):
-    return _layer_forward(lp, x, cfg, kind)[0]
+def _remat_layer(lp, x, cfg, kind, placement):
+    x, _, aux = _layer_forward(lp, x, cfg, kind, placement=placement)
+    return x, aux
 
 
 def run_stage(stage_params, x, cfg, kind: str, *, cache=None, pos=None,
-              remat: str = "none"):
-    """Run the stacked layers of one stage in order.  Returns (x, cache);
-    a given cache is written in place, layer ``i`` into its slice ``i``.
+              placement=None, remat: str = "none"):
+    """Run the stacked layers of one stage in order.  Returns (x, cache,
+    aux): the sum of the layers' load-balance losses (None for dense
+    layers); a given cache is written in place, layer ``i`` into its slice
+    ``i``.
 
     ``remat`` (full-sequence passes only): ``"full"`` keeps only each
     layer's input and recomputes the layer in the backward pass;
@@ -167,14 +185,18 @@ def run_stage(stage_params, x, cfg, kind: str, *, cache=None, pos=None,
     kw = ({"context_fn": functools.partial(create_selective_checkpoint_contexts,
                                            _dots_policy)}
           if remat == "dots" else {})
+    aux_total = None
     for i, lp in enumerate(layers):
         if cache is None and remat != "none":
-            x = checkpoint(_remat_layer, lp, x, cfg, kind, use_reentrant=False,
-                           **kw)
+            x, aux = checkpoint(_remat_layer, lp, x, cfg, kind, placement,
+                                use_reentrant=False, **kw)
         else:
             c = None if cache is None else {"k": cache["k"][i], "v": cache["v"][i]}
-            x, _ = _layer_forward(lp, x, cfg, kind, cache=c, pos=pos)
-    return x, cache
+            x, _, aux = _layer_forward(lp, x, cfg, kind, cache=c, pos=pos,
+                                       placement=placement)
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
+    return x, cache, aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -186,15 +208,33 @@ class Model:
     """Functional model handle for one architecture config."""
 
     cfg: Any
+    # the expert placement on each device it was asked for, built once
+    _placements: Dict[torch.device, torch.Tensor] = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
 
     def __post_init__(self):
         _check_ported(self.cfg)
 
+    def placement(self, device):
+        """The config's expert placement, (E,) int64 on ``device``, or None
+        for ``"default"`` (the identity) and dense models; the greedy
+        partition and its copy to the card are made once per model and
+        device, not once per step."""
+        cfg = self.cfg
+        if not cfg.n_experts or cfg.expert_placement == "default":
+            return None
+        device = torch.device(device)
+        if device not in self._placements:
+            self._placements[device] = torch.from_numpy(
+                expert_placement(cfg)).to(device=device, dtype=torch.long)
+        return self._placements[device]
+
     def embed(self, params, tokens):
         x = params["embed"][tokens]
         if self.cfg.scale_embed:
-            x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype,
-                                 device=x.device)
+            # the scale rounded to x's dtype, as the reference's; a host
+            # scalar, so the card's decode step does not wait for a copy
+            x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype)
         return x
 
     def unembed_chunked(self, params, h, targets, mask):
@@ -235,19 +275,27 @@ class Model:
         return h[:, -1:].float() @ (w.t() if self.cfg.tie_embeddings else w)
 
     def backbone(self, params, x, *, cache=None, pos=None, remat="none"):
+        """The decoder stack and the final norm.  Returns (x, cache, aux):
+        the float32 sum of the MoE layers' load-balance losses, None for a
+        dense model (whose loss the reference counts as 0; the dense decode
+        path makes no tensor for it)."""
         cfg = self.cfg
+        placement = self.placement(x.device)
+        aux_total = None
         for i, (kind, _) in enumerate(stages_meta(cfg)):
             sname = f"s{i}"
-            x, _ = run_stage(params["stages"][sname], x, cfg, kind,
-                             cache=None if cache is None else cache[sname],
-                             pos=pos, remat=remat)
-        return norm(params["final_norm"], x, cfg.norm), cache
+            x, _, aux = run_stage(params["stages"][sname], x, cfg, kind,
+                                  cache=None if cache is None else cache[sname],
+                                  pos=pos, placement=placement, remat=remat)
+            if aux is not None:
+                aux_total = aux if aux_total is None else aux_total + aux
+        return norm(params["final_norm"], x, cfg.norm), cache, aux_total
 
     def loss(self, params, batch, remat="none"):
-        """Next-token loss, float32.  batch: ``{"tokens": (B, S)}``; position
-        ``i`` predicts token ``i + 1`` and the last position is masked, as in
-        the reference.  The dense decoders' auxiliary loss is 0, so the
-        reference's ``+ 0.01 * aux`` adds nothing here."""
+        """Next-token loss, float32, plus ``0.01`` times the MoE layers'
+        load-balance loss, as in the reference.  batch: ``{"tokens": (B,
+        S)}``; position ``i`` predicts token ``i + 1`` and the last position
+        is masked, as in the reference."""
         cfg = self.cfg
         if cfg.n_encoder_layers or "enc_embeds" in batch:
             raise NotImplementedError(
@@ -263,9 +311,10 @@ class Model:
         mask = torch.ones(targets.shape, dtype=torch.float32,
                           device=tokens.device)
         mask[:, -1] = 0.0
-        h, _ = self.backbone(params, x, remat=remat)
+        h, _, aux = self.backbone(params, x, remat=remat)
         loss_sum, mask_sum = self.unembed_chunked(params, h, targets, mask)
-        return loss_sum / torch.clamp(mask_sum, min=1.0)
+        loss = loss_sum / torch.clamp(mask_sum, min=1.0)
+        return loss if aux is None else loss + 0.01 * aux
 
     def init_cache(self, batch: int, s_max: int, dtype=torch.bfloat16,
                    device=None):
@@ -283,12 +332,12 @@ class Model:
         x = self.embed(params, tokens)
         cache = self.init_cache(b, s_max, _dtype(self.cfg), device)
         pos = torch.zeros((b,), dtype=torch.int32, device=device)
-        h, cache = self.backbone(params, x, cache=cache, pos=pos)
+        h, cache, _ = self.backbone(params, x, cache=cache, pos=pos)
         return self.logits_last(params, h), cache
 
     def decode_step(self, params, token, cache, pos):
         """One token step.  token: (B, 1); pos: (B,) current write index.
         The cache is written in place and returned."""
         x = self.embed(params, token)
-        h, cache = self.backbone(params, x, cache=cache, pos=pos)
+        h, cache, _ = self.backbone(params, x, cache=cache, pos=pos)
         return self.logits_last(params, h), cache

@@ -117,6 +117,70 @@ def test_ops_maps_window_zero_to_none_and_matches_model_path(h, hkv, window):
     _close(mine, want)
 
 
+@pytest.mark.parametrize("window", [0, 24])
+@pytest.mark.parametrize("h,hkv", [(10, 2), (12, 2)])
+def test_flash_ref_at_the_new_configs_groups(h, hkv, window):
+    """G = 5 (llama4) and 6 (internlm2, grok) at their head_dim of 128."""
+    q, k, v = _qkv(1, h, hkv, 40, 128, seed=h + window)
+    got = attention_ref(torch.from_numpy(q), torch.from_numpy(k),
+                        torch.from_numpy(v), causal=True, window=window or None)
+    _close(got, j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                        causal=True, window=window or None, block_q=16,
+                        block_k=16, interpret=True))
+
+
+# grok's soft-cap; the scaled scores of inputs 8x a standard normal reach it
+CAP, CAP_Q = 30.0, 8.0
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 8), (False, 0)])
+@pytest.mark.parametrize("h,hkv", [(4, 4), (12, 2)])
+def test_soft_capped_flash_ref_matches_the_reference_model_path(h, hkv, causal,
+                                                                 window):
+    """K6's plain version with ``softcap=30`` (and its ``multi_head_attention``
+    path) against the reference model's ``flash_chunked``, which is the
+    only soft-capped attention the JAX package has; the cap changes the
+    result."""
+    q, k, v = _qkv(2, h, hkv, 29, 16, seed=h + window)
+    q = q * CAP_Q
+    tq, tk_, tv = (torch.from_numpy(x) for x in (q, k, v))
+    got = attention_ref(tq, tk_, tv, causal=causal, window=window or None,
+                        softcap=CAP)
+    bshd = [jnp.asarray(np.ascontiguousarray(x.transpose(0, 2, 1, 3))) for x in (q, k, v)]
+    want = j_flash_chunked(*bshd, causal=causal, window=window,
+                           sm_scale=16 ** -0.5, softcap_val=CAP, q_chunk=8,
+                           k_chunk=16)
+    _close(got.transpose(1, 2), want)
+    via_ops = multi_head_attention(tq, tk_, tv, causal=causal, window=window,
+                                   softcap=CAP)
+    assert torch.equal(via_ops, got)
+    assert float((got - attention_ref(tq, tk_, tv, causal=causal,
+                                      window=window or None)).abs().max()) > 1e-2
+
+
+@pytest.mark.parametrize("window", [0, 5])
+@pytest.mark.parametrize("kv,g", [(4, 1), (2, 6), (1, 5)])
+def test_soft_capped_decode_ref_matches_the_reference_model_path(kv, g, window):
+    """K7's plain version with ``softcap=30`` against the reference model's
+    ``_decode_attend`` (one length for the batch, a float32 cache, so its
+    cast of p to the cache's dtype rounds nothing)."""
+    q, k, v = _decode_inputs(2, kv, g, 24, 16, seed=g + window)
+    q = q * CAP_Q
+    q1 = q.reshape(2, 1, kv * g, 16)
+    want = j_decode_attend(jnp.asarray(q1), jnp.asarray(k), jnp.asarray(v),
+                           19, 0.25, window, CAP)
+    length = torch.full((2,), 19, dtype=torch.int32)
+    args = dict(window=window, sm_scale=0.25, softcap=CAP)
+    got = decode_attention_ref(*(torch.from_numpy(x) for x in (q, k, v)), length, **args)
+    _close(got.reshape(2, 1, kv * g, 16), want)
+    via_ops = grouped_decode_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                                       length, **args)
+    assert torch.equal(via_ops, got)
+    split = decode_attention_split_ref(*(torch.from_numpy(x) for x in (q, k, v)),
+                                       length, chunk=8, **args)
+    _close(split.reshape(2, 1, kv * g, 16), want, tol=1e-5)
+
+
 @pytest.mark.parametrize("cap", [0.0, 5.0])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 8), (False, 0)])
 def test_flash_chunked_matches_reference_model_path(causal, window, cap):
@@ -139,7 +203,8 @@ def _decode_inputs(b, kv, g, s, d, seed):
 
 
 @pytest.mark.parametrize("window", [0, 4, 30])
-@pytest.mark.parametrize("kv,g", [(4, 1), (2, 2), (1, 8)])
+@pytest.mark.parametrize("kv,g", [(4, 1), (2, 2), (1, 8), (2, 3), (2, 5), (1, 6),
+                                  (1, 7)])
 def test_decode_ref_matches_reference_kernel_and_oracle(kv, g, window):
     """Mixed lengths within the batch, including 1 and the full cache."""
     q, k, v = _decode_inputs(4, kv, g, 40, 16, seed=kv * 10 + g + window)
@@ -222,6 +287,26 @@ def _reference_flash(qkv32, window):
                               interpret=True))
 
 
+@pytest.mark.parametrize("s,window", [(256, None), (333, 100)])
+def test_soft_capped_split_p_emulation_holds_the_bf16_limit(s, window):
+    """The split-P emulation with grok's cap, rounded once to bf16, against
+    the reference model's soft-capped ``flash_chunked`` in float32 on the
+    same bf16 values (G = 6, D = 128, q drawn 8x larger so the cap bends
+    the scores), under the card's bf16 limit."""
+    q, k, v = _qkv(1, 12, 2, s, 128, seed=s)
+    tq, tk_, tv = (torch.from_numpy(x).to(torch.bfloat16)
+                   for x in (q * CAP_Q, k, v))
+    got = attention_split_p_ref(tq, tk_, tv, causal=True, window=window,
+                                softcap=CAP)
+    bshd = [jnp.asarray(np.ascontiguousarray(t.float().numpy().transpose(0, 2, 1, 3)))
+            for t in (tq, tk_, tv)]
+    want = j_flash_chunked(*bshd, causal=True, window=window or 0,
+                           sm_scale=128 ** -0.5, softcap_val=CAP, q_chunk=128,
+                           k_chunk=128)
+    want = np.asarray(want).transpose(0, 2, 1, 3)
+    assert _bf16_limit_ratio(got.to(torch.bfloat16), want) <= 1.0
+
+
 @pytest.mark.parametrize("s,window", SPLIT_P_CASES)
 def test_split_p_emulation_holds_the_bf16_limit(s, window):
     """p = p_hi + p_lo in bf16 before PV, the output rounded once to bf16,
@@ -277,6 +362,20 @@ def test_decode_split_emulation_matches_reference_oracle(kv, g, window):
     _close(got, want, tol=1e-5)
     _close(got, decode_attention_ref(tq, tk_, tv, length, window=window),
            tol=1e-5)
+
+
+@pytest.mark.parametrize("window", [0, 40])
+@pytest.mark.parametrize("kv,g", [(2, 5), (1, 6)])
+def test_soft_capped_decode_split_emulation(kv, g, window):
+    """The chunked emulation with grok's cap at every chunk-edge length,
+    against the port's capped plain version (which the test above holds to
+    the reference model's ``_decode_attend``) within 1e-5."""
+    q, k, v = _decode_inputs(len(EDGE_LENGTHS), kv, g, 200, 16, seed=g + window)
+    tq, tk_, tv = (torch.from_numpy(x) for x in (q * CAP_Q, k, v))
+    length = torch.from_numpy(EDGE_LENGTHS)
+    got = decode_attention_split_ref(tq, tk_, tv, length, window=window, softcap=CAP)
+    _close(got, decode_attention_ref(tq, tk_, tv, length, window=window,
+                                     softcap=CAP), tol=1e-5)
 
 
 @pytest.mark.parametrize("chunk", [1, 16, 64, 256])

@@ -559,66 +559,113 @@ def _model_layout_qkv(b, h, hkv, s, d, dtype, seed, device):
                  .transpose(1, 2) for n in (h, hkv, hkv))
 
 
-@pytest.mark.parametrize("b,h,hkv,s,d,window", [
-    (1, 8, 4, 37, 256, 8),       # S < 64, a window inside one tile
-    (1, 8, 8, 100, 256, 0),      # G = 1, S not a multiple of 64
-    (2, 8, 1, 200, 256, 30),     # G = 8, S not a multiple of 128
-    (1, 4, 2, 129, 128, 0),      # one row past a 128-row q tile
-    (2, 4, 4, 64, 64, 0),        # exactly one tile
-    (1, 8, 4, 191, 64, 63),      # a window one row short of a tile
-    (2, 4, 1, 50, 16, 8),        # the reduced configs' D
-    (1, 2, 2, 1, 16, 0),         # one row
-    (1, 8, 4, 700, 256, 1024)])  # a window wider than S
-def test_flash_attention_wgmma_bf16(cuda, b, h, hkv, s, d, window):
-    """The bf16 tensor-core kernel (and only it) runs bf16 inputs, within
-    half a bf16 unit of the float32 plain output and of the float32
-    emulation of its split-P arithmetic, the same bits on a second call."""
+# soft-capped cases draw q this many times larger, so that the scaled
+# scores (about N(0, 1) otherwise) reach the cap of 30 and tanh bends them
+CAP_Q_SCALE = 16.0
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,window,softcap", [
+    (1, 8, 4, 37, 256, 8, 0.0),       # S < 64, a window inside one tile
+    (1, 8, 8, 100, 256, 0, 0.0),      # G = 1, S not a multiple of 64
+    (2, 8, 1, 200, 256, 30, 0.0),     # G = 8, S not a multiple of 128
+    (1, 4, 2, 129, 128, 0, 0.0),      # one row past a 128-row q tile
+    (2, 4, 4, 64, 64, 0, 0.0),        # exactly one tile
+    (1, 8, 4, 191, 64, 63, 0.0),      # a window one row short of a tile
+    (2, 4, 1, 50, 16, 8, 0.0),        # the reduced configs' D
+    (1, 2, 2, 1, 16, 0, 0.0),         # one row
+    (1, 8, 4, 700, 256, 1024, 0.0),   # a window wider than S
+    (2, 12, 2, 300, 128, 0, 0.0),     # G = 6, D = 128 (internlm2, grok)
+    (1, 10, 2, 257, 128, 0, 0.0),     # G = 5, D = 128 (llama4)
+    (2, 12, 2, 300, 128, 0, 30.0),    # grok's soft-cap, G = 6, D = 128
+    (1, 12, 2, 129, 128, 64, 30.0),   # a cap and a window
+    (1, 8, 4, 77, 256, 0, 30.0)])     # a cap at D = 256
+def test_flash_attention_wgmma_bf16(cuda, b, h, hkv, s, d, window, softcap):
+    """The bf16 tensor-core kernel (and only it) runs bf16 inputs, with or
+    without a logit soft-cap, within half a bf16 unit of the float32 plain
+    output and of the float32 emulation of its split-P arithmetic, the same
+    bits on a second call."""
     q, k, v = _model_layout_qkv(b, h, hkv, s, d, torch.bfloat16, s + d, cuda)
+    if softcap:
+        q = (q.float() * CAP_Q_SCALE).to(torch.bfloat16)
     kernels.reset_launch_counts()
-    got = multi_head_attention(q, k, v, causal=True, window=window)
-    again = multi_head_attention(q, k, v, causal=True, window=window)
+    got = multi_head_attention(q, k, v, causal=True, window=window, softcap=softcap)
+    again = multi_head_attention(q, k, v, causal=True, window=window, softcap=softcap)
     assert kernels.variant_counts() == {"flash_attention.wgmma_bf16": 2,
                                         "flash_attention.fma_f32": 0,
                                         **_NO_BWD}
     assert torch.equal(got, again)
-    args = dict(causal=True, window=window or None)
+    args = dict(causal=True, window=window or None, softcap=softcap)
     _assert_attention_close(got, attention_ref(q.float(), k.float(), v.float(), **args))
     _assert_attention_close(got, attention_split_p_ref(q.float(), k.float(),
                                                        v.float(), **args))
+    if softcap:   # the cap changes the result
+        assert not torch.equal(got, multi_head_attention(q, k, v, causal=True,
+                                                         window=window))
 
 
-@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (False, 40)])
-def test_flash_attention_f32_runs_the_fma_kernel(cuda, causal, window):
-    q, k, v = _model_layout_qkv(2, 8, 4, 150, 256, torch.float32, 7, cuda)
+@pytest.mark.parametrize("h,hkv,d,causal,window,softcap", [
+    (8, 4, 256, True, 0, 0.0), (8, 4, 256, False, 0, 0.0),
+    (8, 4, 256, False, 40, 0.0), (12, 2, 128, True, 0, 0.0),
+    (12, 2, 128, True, 0, 30.0), (10, 2, 128, True, 40, 30.0)])
+def test_flash_attention_f32_runs_the_fma_kernel(cuda, h, hkv, d, causal, window,
+                                                 softcap):
+    q, k, v = _model_layout_qkv(2, h, hkv, 150, d, torch.float32, 7, cuda)
+    if softcap:
+        q = q * CAP_Q_SCALE
     kernels.reset_launch_counts()
-    got = multi_head_attention(q, k, v, causal=causal, window=window)
-    again = multi_head_attention(q, k, v, causal=causal, window=window)
+    got = multi_head_attention(q, k, v, causal=causal, window=window, softcap=softcap)
+    again = multi_head_attention(q, k, v, causal=causal, window=window, softcap=softcap)
     assert kernels.variant_counts() == {"flash_attention.wgmma_bf16": 0,
                                         "flash_attention.fma_f32": 2,
                                         **_NO_BWD}
     assert torch.equal(got, again)
     _assert_attention_close(got, attention_ref(q, k, v, causal=causal,
-                                               window=window or None))
+                                               window=window or None,
+                                               softcap=softcap))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_soft_capped_gradient_raises_on_the_card(cuda, dtype):
+    """K6's backward takes no soft-cap: the forward runs (and writes its
+    lse), the backward raises by name rather than fall back."""
+    q, k, v = _model_layout_qkv(1, 12, 2, 64, 128, dtype, 3, cuda)
+    for t in (q, k, v):
+        t.requires_grad_()
+    out = multi_head_attention(q, k, v, causal=True, window=0, softcap=30.0)
+    with pytest.raises(NotImplementedError, match="soft-capped.*ROADMAP item 12c"):
+        out.float().sum().backward()
+
+
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [0, 100])
-@pytest.mark.parametrize("kv,g", [(4, 1), (4, 2), (2, 4), (1, 8)])
-def test_decode_attention_at_chunk_edges(cuda, kv, g, window, dtype):
+@pytest.mark.parametrize("kv,g", [(4, 1), (4, 2), (2, 3), (2, 4), (2, 5), (2, 6),
+                                  (1, 7), (1, 8)])
+def test_decode_attention_at_chunk_edges(cuda, kv, g, window, dtype, softcap):
     """Lengths at the kernel's 64-row chunk edges of a 300-row cache (5
-    chunks, the last ragged), every group size, and two calls bit-equal:
-    the partials merge in a fixed order."""
+    chunks, the last ragged), every group size from 1 to 8, with and
+    without a logit soft-cap, and two calls bit-equal: the partials merge
+    in a fixed order."""
     lens = [1, 63, 64, 65, 128, 129, 299, 300]
     gen = torch.Generator(device=cuda).manual_seed(kv * 10 + g)
-    q = torch.randn((len(lens), kv, g, 128), generator=gen, device=cuda).to(dtype)
+    q = torch.randn((len(lens), kv, g, 128), generator=gen, device=cuda)
+    q = (q * CAP_Q_SCALE if softcap else q).to(dtype)
     k, v = torch.randn((2, len(lens), 300, kv, 128), generator=gen,
                        device=cuda).to(dtype)
     length = torch.tensor(lens, dtype=torch.int32, device=cuda)
-    got = grouped_decode_attention(q, k, v, length, window=window)
-    again = grouped_decode_attention(q, k, v, length, window=window)
+    got = grouped_decode_attention(q, k, v, length, window=window, softcap=softcap)
+    again = grouped_decode_attention(q, k, v, length, window=window, softcap=softcap)
     assert torch.equal(got, again)
     _assert_attention_close(got, decode_attention_ref(
-        q.float(), k.float(), v.float(), length, window=window))
+        q.float(), k.float(), v.float(), length, window=window, softcap=softcap))
+
+
+def test_decode_attention_refuses_a_group_above_8(cuda):
+    q = torch.zeros((1, 1, 9, 128), device=cuda)
+    kv = torch.zeros((1, 64, 1, 128), device=cuda)
+    with pytest.raises(ValueError, match="group size 9"):
+        grouped_decode_attention(q, kv, kv, torch.ones(1, dtype=torch.int32,
+                                                       device=cuda))
 
 
 # serving and inference launch no backward
@@ -782,17 +829,27 @@ def _to(tree, device):
     return tree.to(device)
 
 
-@pytest.mark.parametrize("arch", ["gemma3-4b", "gemma-2b"])
-def test_reduced_serve_on_the_card_runs_the_attention_kernels(cuda, arch):
+@pytest.mark.parametrize("arch,heads", [
+    ("gemma3-4b", None), ("gemma-2b", None), ("internlm2-20b", None),
+    ("command-r-35b", None), ("grok-1-314b", None),
+    ("llama4-maverick-400b-a17b", None),
+    ("internlm2-20b", (12, 2)), ("grok-1-314b", (12, 2)),
+    ("llama4-maverick-400b-a17b", (10, 2))])
+def test_reduced_serve_on_the_card_runs_the_attention_kernels(cuda, arch, heads):
     """The reduced config served on the card launches K6 once per layer and
     prefill sub-batch and K7 once per layer and decode step, and matches
     the same weights served on the CPU token for token (float32; the
-    random model's logits are far from ties)."""
+    random model's logits are far from ties).  ``heads`` (H, KV) restores
+    the config's own group size (the reduced configs have G = 1): G = 6
+    (internlm2, grok with its soft-cap) and 5 (llama4)."""
+    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.configs.reduced import reduced_config
     from repro_torch.models import Model, init_params, stages_meta
     from repro_torch.serving import Request, ServingEngine
     cfg = reduced_config(get_config(arch))
+    if heads:
+        cfg = dataclasses.replace(cfg, n_heads=heads[0], n_kv_heads=heads[1])
     n_layers = sum(c for _, c in stages_meta(cfg))
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     on_card = _to(params, cuda)
@@ -811,6 +868,40 @@ def test_reduced_serve_on_the_card_runs_the_attention_kernels(cuda, arch):
     want, _ = ServingEngine(Model(cfg), params, s_max=32).serve(reqs, 1)
     for r in reqs:
         np.testing.assert_array_equal(got[r.rid], want[r.rid])
+
+
+@pytest.mark.parametrize("arch", ["grok-1-314b", "llama4-maverick-400b-a17b",
+                                  "internlm2-20b", "gemma3-4b"])
+def test_decode_step_reads_nothing_back_to_the_host(cuda, arch):
+    """A decode step of the reduced config on the card makes no host sync:
+    the MoE layers count their routing into tensors of a fixed length, the
+    expert placement (llama4's greedy one) is on the card from the prefill
+    on, a dense model makes no aux-loss tensor, and the rotary tables and
+    gemma's embedding scale take host scalars.  Counted with torch's
+    sync-debug mode, which warns once per synchronising call."""
+    import warnings
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import reduced_config
+    from repro_torch.models import Model, init_params
+    cfg = reduced_config(get_config(arch))
+    params = _to(init_params(cfg, torch.Generator().manual_seed(0), "cpu"), cuda)
+    model = Model(cfg)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 9))).to(cuda)
+    logits, cache = model.prefill(params, {"tokens": toks}, 16)
+    token = logits.argmax(-1)
+    pos = torch.full((2,), 9, dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            model.decode_step(params, token, cache, pos)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message) for w in seen
+             if "synchronizing CUDA operation" in str(w.message)]
+    assert syncs == []
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,9 @@
-"""The port's LM substrate (layers, MLP, attention layer, dense decoder)
-against the JAX package, on the CPU, for the reduced gemma3-4b and gemma-2b
-configs in float32.
+"""The port's LM substrate (layers, MLP, attention layer, decoders dense and
+mixture-of-experts) against the JAX package, on the CPU, for the reduced
+gemma3-4b, gemma-2b, internlm2-20b, command-r-35b, grok-1-314b and
+llama4-maverick configs in float32, and at the true group sizes of
+internlm2 and grok (G = 6) and llama4 (G = 5), which the reduced configs
+(4 heads) leave out.
 
 Inputs are made with numpy from a seed, and the reference's weights are
 carried over to the port with ``params_from_numpy``, so both packages run
@@ -31,7 +34,12 @@ from repro_torch.models import layers as tl
 from repro_torch.models import mlp as tmlp
 from repro_torch.models.convert import param_shapes
 
-ARCHS = ["gemma3-4b", "gemma-2b"]
+ARCHS = ["gemma3-4b", "gemma-2b", "internlm2-20b", "command-r-35b",
+         "grok-1-314b", "llama4-maverick-400b-a17b"]
+# (arch, H, KV) at the config's own group size, the head dim left at the
+# reduced 16
+GROUPED = [("internlm2-20b", 12, 2), ("grok-1-314b", 12, 2),
+           ("llama4-maverick-400b-a17b", 10, 2)]
 
 
 def _close(got, want, tol):
@@ -63,13 +71,14 @@ def test_configs_equal_the_reference(arch):
 
 def test_registry_lists_only_ported_configs_and_raises_on_others():
     assert list_configs() == sorted(ARCHS)
-    for name in ("grok-1-314b", "xlstm-1.3b", "whisper-base", "no-such-arch"):
+    for name in ("hymba-1.5b", "xlstm-1.3b", "whisper-base", "phi-3-vision-4.2b",
+                 "no-such-arch"):
         with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
             get_config(name)
 
 
 @pytest.mark.parametrize("changes", [
-    dict(n_experts=4, top_k=2), dict(hybrid=True, ssm_state=4),
+    dict(family="ssm", slstm_every=2), dict(hybrid=True, ssm_state=4),
     dict(family="ssm"), dict(n_encoder_layers=2, encoder_len=16)])
 def test_unported_layer_kinds_raise(changes):
     cfg = dataclasses.replace(reduced_config(get_config("gemma-2b")), **changes)
@@ -156,7 +165,10 @@ def test_init_params_has_the_reference_tree(arch):
     assert jax.tree.map(tuple, param_shapes(cfg),
                         is_leaf=lambda x: isinstance(x, tuple)) == shapes
     n = sum(t.numel() for t in jax.tree.leaves(tp))
-    assert n == cfg.param_count() + cfg.d_model     # + the final norm
+    # + the final norm; layernorm's biases (command-r) are not in the count
+    n_layers = len(cfg.layer_pattern())
+    biases = (2 * n_layers + 1) * cfg.d_model if cfg.norm == "layernorm" else 0
+    assert n == cfg.param_count() + cfg.d_model + biases
     # the reference's scales: embed 0.02, projections d**-0.5
     assert abs(float(tp["embed"].std()) - 0.02) < 0.004
     wq = tp["stages"]["s0"]["stk_wq"]
@@ -196,20 +208,43 @@ def test_params_from_numpy_carries_bf16():
 # the model
 # ---------------------------------------------------------------------------
 
+def _backbone_matches(arch, **changes):
+    cfg, jcfg, tp, jp = _both(arch, **changes)
+    toks = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 11))
+    model, jmodel = Model(cfg), JModel(jcfg)
+    h, _, aux = model.backbone(tp, model.embed(tp, torch.from_numpy(toks)))
+    jh, _, jaux = jmodel.backbone(jp, jmodel.embed(jp, jnp.asarray(toks)))
+    _close(h, jh, 1e-4)
+    # the MoE layers' summed load-balance loss (None for a dense model,
+    # whose loss the reference counts as 0)
+    assert (aux is None) == (not cfg.n_experts)
+    assert abs((0.0 if aux is None else float(aux)) - float(jaux)) <= 1e-5
+    assert aux is None or float(aux) > 0
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_backbone_matches_reference(arch):
     """Full-sequence forward without a cache (flash_chunked on both sides)."""
-    cfg, jcfg, tp, jp = _both(arch)
-    toks = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 11))
-    model, jmodel = Model(cfg), JModel(jcfg)
-    h, _ = model.backbone(tp, model.embed(tp, torch.from_numpy(toks)))
-    jh, _, _ = jmodel.backbone(jp, jmodel.embed(jp, jnp.asarray(toks)))
-    _close(h, jh, 1e-4)
+    _backbone_matches(arch)
+
+
+@pytest.mark.parametrize("arch,h,kv", GROUPED)
+def test_backbone_matches_reference_at_the_config_group_size(arch, h, kv):
+    _backbone_matches(arch, n_heads=h, n_kv_heads=kv)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_and_decode_logits_match_reference(arch):
-    cfg, jcfg, tp, jp = _both(arch)
+    _prefill_and_decode_match(arch)
+
+
+@pytest.mark.parametrize("arch,h,kv", GROUPED)
+def test_prefill_and_decode_match_reference_at_the_config_group_size(arch, h, kv):
+    _prefill_and_decode_match(arch, n_heads=h, n_kv_heads=kv)
+
+
+def _prefill_and_decode_match(arch, **changes):
+    cfg, jcfg, tp, jp = _both(arch, **changes)
     model, jmodel = Model(cfg), JModel(jcfg)
     rng = np.random.default_rng(0)
     toks = rng.integers(0, cfg.vocab_size, (2, 12)).astype(np.int32)
@@ -231,8 +266,12 @@ def test_prefill_and_decode_logits_match_reference(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_prefill(arch):
-    """The invariant of tests/test_decode_consistency.py, inside the port."""
+    """The invariant of tests/test_decode_consistency.py, inside the port;
+    an MoE at a capacity that drops nothing (prefill and decode drop other
+    tokens at their own capacities, as the reference test says)."""
     cfg = reduced_config(get_config(arch))
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
     model = Model(cfg)
     params = init_params(cfg, torch.Generator().manual_seed(1), "cpu")
     toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 12)))

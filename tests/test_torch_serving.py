@@ -2,7 +2,8 @@
 ``launch.serve`` driver) against the JAX package, on the CPU.
 
 Both engines serve the same requests on the same weights (the reference's,
-carried over with ``params_from_numpy``), reduced gemma-2b and gemma3-4b in
+carried over with ``params_from_numpy``), reduced gemma-2b, gemma3-4b,
+internlm2-20b and grok-1-314b (a mixture of experts with a soft-cap) in
 float32, greedy: the generated tokens must be equal token for token.
 Sampling with a temperature draws from a ``torch.Generator``, which does
 not reproduce ``jax.random``'s bits, so it is checked for determinism only.
@@ -45,7 +46,8 @@ def _prompts(cfg, lens, seed):
     return [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "gemma3-4b"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "gemma3-4b", "internlm2-20b",
+                                  "grok-1-314b"])
 def test_greedy_serve_equals_reference(arch):
     """Mixed prompt lengths (past the reduced gemma3-4b's window of 8),
     several sub-batches per packed batch, unequal max_new_tokens."""
@@ -123,6 +125,18 @@ def test_serve_cli_runs_on_cpu_and_prints_its_line():
     line = buf.getvalue()
     assert line.startswith("[serve] gemma3-4b on cpu: 3 requests in"), line
     assert "pack eff" in line and "answer p50" in line
+
+
+@pytest.mark.parametrize("arch", ["internlm2-20b", "command-r-35b", "grok-1-314b",
+                                  "llama4-maverick-400b-a17b"])
+def test_serve_cli_takes_the_new_archs(arch):
+    """``launch.serve --arch`` serves each newly ported config on its
+    reduced path, as the reference driver does."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve_cli.main(["--workload", "lm", "--arch", arch, "--device", "cpu",
+                        "--requests", "2", "--max-new", "2"])
+    assert buf.getvalue().startswith(f"[serve] {arch} on cpu: 2 requests in")
 
 
 def test_serve_cli_fim_workload_is_not_ported():

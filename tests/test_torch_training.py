@@ -120,6 +120,28 @@ def test_loss_and_gradients_match_the_reference(arch, chunk, monkeypatch):
     _assert_trees_close(grads, want_g, atol=1e-4)
 
 
+@pytest.mark.parametrize("arch", ["grok-1-314b", "llama4-maverick-400b-a17b"])
+def test_moe_loss_and_gradients_match_the_reference(arch):
+    """The MoE decoders: the loss with the reference's ``0.01 * aux``
+    within 1e-5 relative and every gradient leaf (router and experts
+    included) within 1e-4 of jax.grad; grok's attention soft-cap runs on
+    both sides, and its 2 of 4 experts drop tokens at capacity."""
+    cfg, jcfg, params, jp = _both(arch)
+    toks = _tokens(cfg.vocab_size, 2, 40, seed=2)
+    want_loss, want_g = jax.value_and_grad(JModel(jcfg).loss)(
+        jp, {"tokens": jnp.asarray(toks)})
+    model = Model(cfg)
+    loss, grads = value_and_grad(model.loss, params,
+                                 {"tokens": torch.from_numpy(toks)})
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    _assert_trees_close(grads, want_g, atol=1e-4)
+    # the aux term is in the loss: without it the two differ
+    with torch.no_grad():
+        x = model.embed(params, torch.from_numpy(toks))
+        _, _, aux = model.backbone(params, x)
+    assert float(aux) > 0.5
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_remat_modes_give_equal_gradients(arch):
     """none, dots and full recompute the same float32 operations: the loss
