@@ -82,6 +82,15 @@ paths end to end:
   18 K6 forward and 18 backward launches a step, the plain attention
   paths made to raise on the card, and step 1 again with the plain
   attention patched in (``run_training``);
+* LM training on the reference's tiny mesh, (data, model) = (2, 2), as 4
+  gloo ranks sharing the card (``run_mesh_training``): the float32 reduced
+  gemma-2b and gemma3-4b against one CPU process, gemma-2b at full width
+  with 4 of its 18 layers in bf16 against one rank of the card, a
+  TrainingRunner restored on the mesh replaying step 3 bit for bit, K6
+  forward and backward once a layer and step on every rank and the
+  collectives a step equal to the count the config gives
+  (``mesh_step_collectives``); K6 at a rank's shape against its plain
+  versions and timed (``time_mesh_rank_attention``);
 
 and times each kernel beside its bound, its plain version and, where one
 exists, a PyTorch call that computes the same function (K4 also at the
@@ -306,6 +315,23 @@ TRAIN_PLAIN_BF16_REL = 1e-2
 # gemma-2b training at full width: B x S tokens a step, steps, checkpoint
 # interval (the restore replays the steps after the first checkpoint)
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_EVERY = 4, 1024, 6, 3
+# mesh training (run_mesh_training) on the reference's tiny mesh, (data,
+# model) = (2, 2), 4 gloo ranks sharing the card: gemma-2b at full width,
+# bf16, MESH_LAYERS of its 18 layers (four ranks of all 18 need ~75 GB),
+# B x S tokens a step, MESH_STEPS steps
+MESH_B, MESH_S, MESH_STEPS, MESH_LAYERS = 4, 1024, 3, 4
+# the full-width bf16 mesh against the same 4-layer model on one rank of
+# the card, loss and global grad norm by relative difference per step,
+# stated before the first run from TRAIN_PLAIN_BF16_REL: the mesh rounds to
+# bf16 at other places (each rank's partial products of the row-parallel
+# layers and its half of the batch's gradients, rounded before they are
+# summed; K6 over 4 heads a rank, its backward split otherwise), which
+# moves both by about the model's own bf16 error
+TRAIN_MESH_BF16_REL = 1e-2
+# K6 at a rank's shape in that run: B = 4 over 2 data ranks, 8 heads over
+# 2 model ranks, the one KV head gathered whole
+MESH_RANK = (2, 4, 1, 1024, 256)
+MESH_RANK_SHAPE = "B=2 H=4 Hkv=1 S=1024 D=256 bf16 causal window=0"
 
 
 class SmokeFailure(RuntimeError):
@@ -2989,6 +3015,289 @@ def run_training():
     return bwd_launches
 
 
+def mesh_step_collectives(n_layers, mqa, microbatches, n_leaves, chunks):
+    """The collectives one train step makes on each rank of the tiny mesh,
+    worked out from the config: on ``model``, a microbatch's embedding
+    (one all-reduce), two all-reduces a layer forward (the row-parallel
+    attention and MLP outputs) and two backward (their inputs' gradients),
+    a loss chunk's max and sums (one all_reduce_max, one all_reduce), the
+    hidden state's gradient into the loss (one), and the global norm's once
+    a step; an MQA layer gathers its KV slices (one all_gather forward, one
+    reduce_scatter backward); on ``data``, a microbatch's mask count and
+    loss, and every gradient leaf once a step."""
+    model = {"all_reduce": microbatches * (1 + 4 * n_layers + chunks + 1) + 1,
+             "all_reduce_max": microbatches * chunks}
+    if mqa:
+        model.update(all_gather=microbatches * n_layers,
+                     reduce_scatter=microbatches * n_layers)
+    return {"data": {"all_reduce": 2 * microbatches + n_leaves}, "model": model}
+
+
+def _np_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _np_tree(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy()
+
+
+def _tree_equal(a, b):
+    import numpy as np
+    if isinstance(a, dict):
+        return sorted(a) == sorted(b) and all(_tree_equal(a[k], b[k]) for k in a)
+    return np.array_equal(a, b)
+
+
+def _check_mesh_steps(what, per_rank, n_layers, variant, declared):
+    """Every step of every rank launched K6's ``variant`` forward and
+    backward once a layer and nothing else of the package, and made the
+    declared collectives."""
+    other = "fma_f32" if variant == "wgmma_bf16" else "wgmma_bf16"
+    want = {f"flash_attention.{variant}": n_layers,
+            f"flash_attention_bwd.{variant}": n_layers,
+            f"flash_attention.{other}": 0, f"flash_attention_bwd.{other}": 0,
+            "decode_attention": 0, "popcount_support": 0,
+            "fused_intersect_partial": 0}
+    for r, res in enumerate(per_rank):
+        for i, rec in enumerate(res["records"]):
+            counts = rec["launches"]
+            require(all(counts[k] == n for k, n in want.items()) and
+                    all(counts[k] == 0 for k in MINING_KERNELS),
+                    f"{what} rank {r} step {i + 1}: launches {counts}")
+            got = {a: {op: c["calls"] for op, c in ops.items()}
+                   for a, ops in rec["collectives"].items()}
+            require(got == declared,
+                    f"{what} rank {r} step {i + 1}: collectives {got}, declared {declared}")
+
+
+def run_mesh_training():
+    """Training on the reference's tiny mesh, (data, model) = (2, 2), on 4
+    gloo ranks sharing the card (NCCL refuses two ranks on one card), all
+    jobs in one start of the ranks: (a) the float32 reduced gemma-2b and
+    gemma3-4b, 3 steps, against the same model in one CPU process from the
+    same weights and batches; (b) gemma-2b at full width in bf16, 4 of its
+    18 layers, B = 4, S = 1,024, 3 steps, against the same model on one
+    rank of the card; (c) a TrainingRunner restored on the mesh from its
+    step-2 checkpoint replaying step 3 bit for bit.  Every step of every
+    rank launches K6 forward and backward once a layer and makes the
+    declared collectives.  Returns the lead rank's K6 launches in (b)."""
+    import shutil
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import reduced_config
+    from repro_torch.launch.kernel_timing import nvidia_smi
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.mesh_runs import run_jobs
+    from repro_torch.launch.train import train_run
+    from repro_torch.models import init_params, stages_meta
+    from repro_torch.models.convert import param_shapes
+    from repro_torch.training.optimizer import tree_leaves
+
+    root = tempfile.mkdtemp(prefix="chip_smoke-mesh-train-")
+    rate = dict(learning_rate=1e-3, warmup_steps=1, total_steps=3)
+    jobs = {}
+    for arch in ("gemma-2b", "gemma3-4b"):
+        cfg = reduced_config(get_config(arch))
+        host = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        jobs[arch] = dict(kind="train", mesh="tiny", arch=arch, reduced=True,
+                          steps=3, batch=4, seq=64, tcfg=rate,
+                          params=_np_tree(host))
+    # (c): 2 steps through the runner, a checkpoint at step 2, step 3 in
+    # memory; then other weights restored from that checkpoint, step 3
+    jobs["ckpt"] = dict(jobs["gemma-2b"], steps=2, ckpt_dir=os.path.join(root, "c"),
+                        ckpt_every=2, then=1, gather=True)
+    jobs["restored"] = dict(jobs["ckpt"], steps=1, then=0, params=None, seed=1)
+    jobs["full"] = dict(kind="train", mesh="tiny", arch="gemma-2b",
+                        cfg={"n_layers": MESH_LAYERS}, steps=MESH_STEPS,
+                        batch=MESH_B, seq=MESH_S, tcfg=dict(rate, total_steps=MESH_STEPS))
+    labels = list(jobs)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    try:
+        per_rank = run_ranks(run_jobs, 4, backend="gloo", device="cuda",
+                             args=([jobs[k] for k in labels],), timeout=600)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t
+    res = {k: [r[i] for r in per_rank] for i, k in enumerate(labels)}
+    for k, rs in res.items():
+        for r, x in enumerate(rs):
+            require("error" not in x, f"mesh training {k} rank {r}: {x.get('error')}")
+
+    # (a) float32 against one CPU process
+    for arch in ("gemma-2b", "gemma3-4b"):
+        cfg = reduced_config(get_config(arch))
+        n_layers = sum(c for _, c in stages_meta(cfg))
+        host = train_run(dict(jobs[arch], mesh=None), torch.device("cpu"))
+        worst = 0.0
+        for r, x in enumerate(res[arch]):
+            for i, (a, b) in enumerate(zip(x["losses"], host["losses"])):
+                worst = max(worst, abs(a - b) / abs(b))
+                require(abs(a - b) <= TRAIN_F32_REL * abs(b),
+                        f"mesh {arch} float32 rank {r} step {i + 1}: loss {a}, CPU {b}")
+        declared = mesh_step_collectives(n_layers, cfg.n_kv_heads % 2 != 0, 1,
+                                         len(tree_leaves(param_shapes(cfg))), 1)
+        _check_mesh_steps(f"mesh {arch} float32", res[arch], n_layers, "fma_f32",
+                          declared)
+        print(f"check mesh training reduced {arch} float32, tiny mesh on 4 gloo "
+              f"ranks sharing the card: 3 steps, losses {res[arch][0]['losses']}, "
+              f"largest rel diff from one CPU process {worst:.3e} <= "
+              f"{TRAIN_F32_REL:.0e} on every rank; K6 fma_f32 forward and backward "
+              f"{n_layers} launches a step on every rank; collectives a step "
+              f"{declared} on every rank, as declared")
+
+    # (c) restore on the mesh: step 3 replayed bit for bit
+    lead_a = next(x for x in res["ckpt"] if x["lead"])
+    lead_b = next(x for x in res["restored"] if x["lead"])
+    for x in res["restored"]:
+        require(x["resumed"] == 2 and x["final"] == 3,
+                f"restored runner: steps {x['resumed']}->{x['final']}")
+        require(x["losses"] == lead_a["losses"][2:],
+                f"restored step 3 loss {x['losses']} != {lead_a['losses'][2:]}")
+    require(_tree_equal(lead_b["params"], lead_a["params"]),
+            "the restored runner's step-3 params differ from the uninterrupted run's")
+    print(f"check mesh training restore: a TrainingRunner restored on the tiny "
+          f"mesh from its step-2 checkpoint (lead rank wrote the global arrays) "
+          f"replays step 3 bit for bit: loss {lead_b['losses'][0]} and every "
+          f"gathered parameter equal")
+
+    # (b) full width, bf16, against one rank of the card
+    cfg = get_config("gemma-2b")
+    require(cfg.dtype == "bfloat16", f"gemma-2b dtype {cfg.dtype}")
+    one = train_run(dict(jobs["full"], mesh=None), torch.device("cuda"))
+    torch.cuda.empty_cache()
+    declared = mesh_step_collectives(MESH_LAYERS, True, 1,
+                                     len(tree_leaves(param_shapes(cfg))),
+                                     -(-MESH_S // 512))
+    _check_mesh_steps("mesh gemma-2b bf16", res["full"], MESH_LAYERS, "wgmma_bf16",
+                      declared)
+    worst = 0.0
+    for r, x in enumerate(res["full"]):
+        for i in range(MESH_STEPS):
+            for key in ("losses", "grad_norms"):
+                a, b = x[key][i], one[key][i]
+                require(a == a and abs(a) != float("inf"), f"non-finite {key} {a}")
+                worst = max(worst, abs(a - b) / abs(b))
+                require(abs(a - b) <= TRAIN_MESH_BF16_REL * abs(b),
+                        f"mesh gemma-2b bf16 rank {r} step {i + 1}: {key} {a}, one rank {b}")
+    lead = next(x for x in res["full"] if x["lead"])
+    step_ms = [statistics.median([rec["s"] for rec in x["records"][1:]]) * 1e3
+               for x in res["full"]]
+    coll_share = [{a: round(sum(rec["collective_s"].get(a, 0.0) for rec in x["records"][1:]) /
+                            sum(rec["s"] for rec in x["records"][1:]), 3)
+                   for a in ("data", "model")} for x in res["full"]]
+    peaks = [x["peak_bytes"] / 1e9 for x in res["full"]]
+    one_ms = statistics.median([rec["s"] for rec in one["records"][1:]]) * 1e3
+    tokens = MESH_B * MESH_S
+    print(f"check mesh training gemma-2b bf16 full width, {MESH_LAYERS} of 18 layers, "
+          f"B={MESH_B} S={MESH_S}, tiny mesh on 4 gloo ranks sharing the card: "
+          f"{MESH_STEPS} steps, losses {lead['losses']} grad norms "
+          f"{lead['grad_norms']}; one rank: losses {one['losses']} grad norms "
+          f"{one['grad_norms']}; largest rel diff {worst:.3e} <= "
+          f"{TRAIN_MESH_BF16_REL:.0e} on every rank; K6 wgmma_bf16 forward and "
+          f"backward {MESH_LAYERS} launches a step on every rank (rank shape "
+          f"{MESH_RANK_SHAPE}); collectives a step {declared} on every rank, as "
+          f"declared")
+    print(f"train mesh gemma-2b timing ({nvidia_smi('name,power.limit')}): 4 gloo "
+          f"ranks, step_ms per rank (median of steps 2-{MESH_STEPS}) "
+          f"{[round(v, 1) for v in step_ms]}, tokens_per_s "
+          f"{tokens / max(step_ms) * 1e3:.0f}, collectives' share of a step per "
+          f"rank and axis (host time inside them) {coll_share}, peak_mem_GB per rank "
+          f"{[round(v, 2) for v in peaks]} (card {sum(peaks):.2f} + contexts); one "
+          f"rank of the same model: step_ms {one_ms:.1f}, tokens_per_s "
+          f"{tokens / one_ms * 1e3:.0f}, peak_mem_GB {one['peak_bytes'] / 1e9:.2f}; "
+          f"ranks started and all jobs run in {wall:.1f}s")
+    return {k: sum(rec["launches"][f"{k}.wgmma_bf16"] for rec in lead["records"])
+            for k in ("flash_attention", "flash_attention_bwd")}
+
+
+def time_mesh_rank_attention(launches):
+    """K6 forward and backward at a rank's shape of the mesh run (gemma-2b
+    over (data, model) = (2, 2): B = 2, 4 query heads, the one KV head
+    gathered whole) against their plain versions, then timed beside their
+    plain versions and SDPA; rows for the kernels line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     attention_ref_bwd,
+                                                     flash_attention,
+                                                     flash_attention_bwd,
+                                                     multi_head_attention)
+    from repro_torch.launch.kernel_timing import device_ms, median_ms, nvidia_smi
+    b, h, hkv, s, d = MESH_RANK
+    q, k, v = attn_inputs(b, h, hkv, s, d, torch.bfloat16, seed=21, model_layout=True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(22)
+    dout = torch.randn((b, s, h, d), generator=gen, device="cuda").to(torch.bfloat16).transpose(1, 2)
+    kernels.reset_launch_counts()
+    out, lse = flash_attention(q, k, v, causal=True, window=0, return_lse=True)
+    grads = flash_attention_bwd(q, k, v, out, dout, lse, causal=True, window=0)
+    counts = kernels.variant_counts()
+    require(counts["flash_attention.wgmma_bf16"] == 1 and
+            counts["flash_attention_bwd.wgmma_bf16"] == 1,
+            f"K6 at the mesh rank's shape: variant launches {counts}")
+    want = attention_ref(q.float(), k.float(), v.float(), causal=True)
+    err, ratio = compare_attention("flash_attention", out, want,
+                                   f"flash_attention mesh rank {MESH_RANK_SHAPE}")
+    want_g = attention_ref_bwd(q.float(), k.float(), v.float(), out.float(),
+                               dout.float(), lse, causal=True)
+    rels = []
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want_g):
+        require(bool(torch.isfinite(g.float()).all()), f"mesh rank bwd: non-finite {name}")
+        rel = float((g.float() - w).norm() / w.norm())
+        MAX_ABS_ERR["flash_attention_bwd"] = max(
+            MAX_ABS_ERR["flash_attention_bwd"], float((g.float() - w.to(g.dtype).float()).abs().max()))
+        require(rel <= BWD_REL_BF16, f"flash_attention_bwd mesh rank: {name} rel L2 {rel:.3e}")
+        rels.append(rel)
+    print(f"check flash_attention mesh rank {MESH_RANK_SHAPE} (wgmma_bf16): max abs "
+          f"err {err:.3e} from the plain output, {ratio:.3f} x its limit; backward "
+          f"rel L2 dq {rels[0]:.3e} dk {rels[1]:.3e} dv {rels[2]:.3e} <= "
+          f"{BWD_REL_BF16:.0e}")
+    kept = s * (s + 1) // 2
+    fwd = lambda: multi_head_attention(q, k, v, causal=True, window=0)
+    lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    bms, by = bound_attn(nbytes, 4 * d * kept * b * h)
+    rows = [dict(name="flash_attention", route="cuda",
+                 source="src/repro_torch/csrc/flash_attention.cu",
+                 replaces="src/repro/kernels/flash_attention/flash_attention.py:110",
+                 shape=f"{MESH_RANK_SHAPE} (mesh rank)",
+                 ms=device_ms(fwd, reps=20), plain_ms=device_ms(
+                     lambda: attention_ref(q, k, v, causal=True), reps=5),
+                 library_ms=device_ms(lib, reps=20), call_ms=median_ms(fwd, reps=10),
+                 bound_ms=bms, bound_by=by, launches=launches["flash_attention"])]
+    qs, ks, vs = (t_.detach().clone().requires_grad_() for t_ in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+    bwd = lambda: flash_attention_bwd(q, k, v, out, dout, lse, causal=True, window=0)
+    nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+    bms, by = bound_attn(nbytes, 10 * d * kept * b * h)
+    rows.append(dict(name="flash_attention_bwd", route="cuda",
+                     source="src/repro_torch/csrc/flash_attention_bwd.cu",
+                     replaces="src/repro/kernels/flash_attention/flash_attention.py:110",
+                     shape=f"{MESH_RANK_SHAPE} (mesh rank)",
+                     ms=device_ms(bwd, reps=20), plain_ms=device_ms(
+                         lambda: attention_ref_bwd(q, k, v, out, dout, lse, causal=True),
+                         reps=3),
+                     library_ms=device_ms(lambda: torch.autograd.grad(
+                         lib_out, (qs, ks, vs), dout, retain_graph=True), reps=20),
+                     call_ms=median_ms(bwd, reps=10), bound_ms=bms, bound_by=by,
+                     launches=launches["flash_attention_bwd"]))
+    for row in rows:
+        row["listed"] = True
+        row["mesh_rank"] = True
+        print(f"timing {row['name']} {row['shape']} ({nvidia_smi('name,power.limit')}): "
+              f"ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} "
+              f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}) "
+              f"library_ms={row['library_ms']:.5f} launches_on_main_path={row['launches']} "
+              f"(the lead rank's, {MESH_STEPS} steps of {MESH_LAYERS} layers); "
+              f"call_ms={row['call_ms']:.5f}; {row['ms'] / row['bound_ms']:.2f}x the "
+              f"bound, {row['ms'] / row['library_ms']:.2f}x SDPA")
+        for key in ("ms", "plain_ms", "library_ms"):
+            require(row["bound_ms"] <= row[key],
+                    f"{row['name']} mesh rank: bound_ms {row['bound_ms']:.5f} exceeds {key}")
+    return rows
+
+
 def _kernel_device_ms(fn, calls=10):
     """Device ms per call of each CUDA kernel ``fn`` launches, as a
     torch.profiler trace of ``calls`` calls reads it (names cut to the
@@ -3377,9 +3686,11 @@ def main() -> int:
     phase(check_flash_attention_bwd)
     phase(run_training_reduced)
     bwd_launches = phase(run_training)
+    mesh_launches = phase(run_mesh_training)
     rows = (phase(time_kernels, launches, miner, stream_rec) +
             phase(time_attention, serve_counts, model_counts) +
-            [phase(time_flash_attention_bwd, bwd_launches)])
+            [phase(time_flash_attention_bwd, bwd_launches)] +
+            phase(time_mesh_rank_attention, mesh_launches))
     kernels_line = [dict(name=r["name"], route=r["route"], source=r["source"],
                          replaces=r["replaces"], shape=r["shape"],
                          launches=r["launches"],
@@ -3388,8 +3699,11 @@ def main() -> int:
                          bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                          library_ms=r["library_ms"])
                     for r in rows
-                    if r["listed"] and r["shape"] == REPORT_SHAPE[r["name"]]]
-    require(len(kernels_line) == len(REPORT_SHAPE), "a kernel has no timing row")
+                    if r["listed"] and (r["shape"] == REPORT_SHAPE[r["name"]] or
+                                        r.get("mesh_rank"))]
+    # one row per kernel at its report shape, and K6 forward and backward
+    # at the mesh rank's shape
+    require(len(kernels_line) == len(REPORT_SHAPE) + 2, "a kernel has no timing row")
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

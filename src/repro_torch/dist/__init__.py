@@ -1,11 +1,14 @@
-"""repro_torch.dist — the mining half of the reference's ``dist`` package on
+"""repro_torch.dist — the reference's ``dist`` package on
 ``torch.distributed``.
 
 sharding     word-axis sharding of a frontier, ``mesh_descriptor``, the
-             mesh's lead rank
+             mesh's lead rank; the model's placement rules (``param_spec``,
+             ``spec_tree``, ``batch_spec``) and ``shard_tree`` /
+             ``gather_tree``
 collectives  the one place that calls ``torch.distributed``: all-reduce,
-             all-gather and broadcast over a named mesh axis, with per-axis
-             counters
+             all-gather, reduce-scatter and broadcast over a named mesh
+             axis, with per-axis counters, and the autograd-aware
+             operations of tensor parallelism
 """
 from .collectives import (all_gather, all_reduce, broadcast,
                           broadcast_from_lead, collective_counts,

@@ -1,5 +1,5 @@
-"""Meshes of ranks for the mining backends, and the launcher that starts
-the ranks.
+"""Meshes of ranks for the mining backends and for training, and the
+launcher that starts the ranks.
 
 Execution model: one process per rank (SPMD).  Every rank calls the same
 ``mine()`` on the same transactions; the host bookkeeping is deterministic
@@ -28,6 +28,7 @@ has set up.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import datetime
 import math
 import os
@@ -35,17 +36,28 @@ import pickle
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 __all__ = ["factor_grid", "parse_grid_arg", "make_data_mesh",
-           "make_grid_mesh", "mesh_for_mining", "process_group",
+           "make_grid_mesh", "mesh_for_mining", "make_mesh_named",
+           "named_mesh_layout", "MeshLayout", "NAMED_MESHES", "process_group",
            "run_ranks", "DIST_BACKENDS"]
 
 DIST_BACKENDS = ("nccl", "gloo")
+
+# the reference's named meshes (launch/mesh.py make_mesh_named): shape and
+# axis names, under every name the reference accepts
+_TINY = ((2, 2), ("data", "model"))
+_SINGLE = ((16, 16), ("data", "model"))
+_MULTI = ((2, 16, 16), ("pod", "data", "model"))
+_PIPELINE = ((2, 2, 8, 16), ("pipe", "pod", "data", "model"))
+NAMED_MESHES = {"tiny": _TINY, "single": _SINGLE, "single_pod": _SINGLE,
+                "16x16": _SINGLE, "multi": _MULTI, "multi_pod": _MULTI,
+                "2x16x16": _MULTI, "pipeline": _PIPELINE}
 
 
 def _world() -> int:
@@ -152,6 +164,39 @@ def mesh_for_mining(backend: str, shard: str,
     return None
 
 
+@dataclasses.dataclass(frozen=True)
+class MeshLayout:
+    """A mesh's axis names and sizes, without ranks: what the placement
+    rules read (the same two attributes as the reference's meshes)."""
+    axis_names: Tuple[str, ...]
+    shape: Dict[str, int]
+
+
+def named_mesh_layout(name: str) -> MeshLayout:
+    """The layout of a named mesh (no process group needed)."""
+    if name not in NAMED_MESHES:
+        raise ValueError(f"unknown mesh {name!r}; expected one of "
+                         f"{sorted(NAMED_MESHES)}")
+    shape, axes = NAMED_MESHES[name]
+    return MeshLayout(tuple(axes), dict(zip(axes, shape)))
+
+
+def make_mesh_named(name: str) -> DeviceMesh:
+    """The reference's named mesh over the ranks of the process group:
+    ``tiny`` is (2, 2) ``("data", "model")`` (rank ``r`` at ``(r // 2, r %
+    2)``), ``single`` (16, 16), ``multi`` (2, 16, 16) ``("pod", "data",
+    "model")``, ``pipeline`` (2, 2, 8, 16).  Raises ``ValueError`` when the
+    process group does not hold exactly the ranks the mesh needs."""
+    layout = named_mesh_layout(name)
+    shape = tuple(layout.shape[a] for a in layout.axis_names)
+    need, n = math.prod(shape), _world()
+    if n != need:
+        raise ValueError(f"mesh {name!r} {shape} needs {need} ranks; the "
+                         f"process group has {n}")
+    return DeviceMesh(_mesh_device_type(), torch.arange(n).reshape(shape),
+                      mesh_dim_names=layout.axis_names)
+
+
 # ---------------------------------------------------------------------------
 # ranks
 # ---------------------------------------------------------------------------
@@ -191,10 +236,11 @@ def process_group(backend: str, world: int, rank: int, init_method: str, *,
         dist.destroy_process_group()
 
 
-def _rank_main(rank, world, backend, device, init_method, out_dir, fn, args,
-               timeout):
+def _rank_main(rank, world, backend, device, init_method, out_dir, timeout):
     path = os.path.join(out_dir, f"rank{rank}.pkl")
     try:
+        with open(os.path.join(out_dir, _ARGS), "rb") as f:
+            fn, args = pickle.load(f)
         if device == "cpu":
             # several ranks share the host's cores
             torch.set_num_threads(1)
@@ -208,6 +254,12 @@ def _rank_main(rank, world, backend, device, init_method, out_dir, fn, args,
     os.replace(path + ".tmp", path)
     if result[0] != "ok":
         raise SystemExit(1)
+
+
+# the file that hands the ranks ``fn`` and its arguments: a large pickle
+# sent through a spawned child's pipe blocks ``Process.start`` until the
+# child has imported torch, which would start the ranks one after another
+_ARGS = "args.pkl"
 
 
 def run_ranks(fn: Callable[..., Any], world: int, *, backend: str,
@@ -232,9 +284,10 @@ def run_ranks(fn: Callable[..., Any], world: int, *, backend: str,
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="repro_torch_ranks_") as tmp:
         init = "file://" + os.path.join(tmp, "rendezvous")
+        with open(os.path.join(tmp, _ARGS), "wb") as f:
+            pickle.dump((fn, tuple(args)), f)
         procs = [ctx.Process(target=_rank_main,
-                             args=(r, world, backend, device, init, tmp, fn,
-                                   tuple(args), timeout))
+                             args=(r, world, backend, device, init, tmp, timeout))
                  for r in range(world)]
         for p in procs:
             p.start()

@@ -1,6 +1,6 @@
-"""Mining jobs run on every rank of a mesh: the rank function that
-``run_ranks`` starts for the mesh mines and streams of ``chip_smoke.py`` and
-the tests.
+"""Jobs run on every rank of a mesh: the rank function that ``run_ranks``
+starts for the mesh mines, streams and training runs of ``chip_smoke.py``,
+``launch.train --mesh`` and the tests.
 
     from repro_torch.launch.mesh import run_ranks
     from repro_torch.launch.mesh_runs import run_jobs
@@ -55,6 +55,11 @@ driver's flags.  Kinds:
 ``compressed_psum``  ``training.compressed_psum`` over the ``data`` axis of
                 a 1D mesh of every rank: rank ``r`` contributes ``x[r]`` (a
                 numpy array) with ``method``; returns the result as numpy
+``train``       ``launch.train.train_run`` of the job on the named mesh
+                ``mesh`` (``launch.mesh.make_mesh_named``; e.g. ``"tiny"``);
+                returns its record (losses, grad norms, per step the
+                seconds, launches and collectives; ``gather=True`` adds the
+                final params whole on the lead rank)
 
 A job that the port refuses (``ValueError``, ``TypeError``,
 ``NotImplementedError``) returns ``{"error": "<type>: <message>"}``; any
@@ -353,10 +358,19 @@ def _compressed_psum(rank: _Rank, job: dict) -> dict:
     return dict(out=out.cpu().numpy(), collectives=coll.collective_counts())
 
 
+def _train(rank: _Rank, job: dict) -> dict:
+    from .mesh import make_mesh_named
+    from .train import train_run
+    key = ("named", job["mesh"])
+    if key not in rank.meshes:
+        rank.meshes[key] = make_mesh_named(job["mesh"])
+    return train_run(job, rank.device, rank.meshes[key])
+
+
 _KINDS = {"mine": _mine, "expand": _expand, "accumulate": _accumulate,
           "stream": _stream, "stream_ckpt": _stream_ckpt,
           "stream_restore": _stream_restore, "resume": _resume, "mesh": _mesh,
-          "compressed_psum": _compressed_psum}
+          "compressed_psum": _compressed_psum, "train": _train}
 
 
 def run_jobs(device: torch.device, jobs: Sequence[dict]) -> List[dict]:

@@ -1,10 +1,13 @@
-"""Training driver: model, train step and the fault-tolerant runner on one
-device (the port of the reference's ``launch/train.py``).
+"""Training driver: model, train step and the fault-tolerant runner, on one
+device or on a mesh of ranks (the port of the reference's
+``launch/train.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \
         --reduced --steps 50 --ckpt-dir DIR [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \
         --steps 6 --batch 4 --seq 1024          # full width, on the card
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \
+        --reduced --mesh tiny --dist-backend gloo [--device cpu]
 
 Random weights from a ``torch.Generator`` seeded 0, batches from
 ``data.TokenPipeline`` (batch ``i`` a pure function of the seed and ``i``),
@@ -12,34 +15,207 @@ checkpoints every ``--ckpt-every`` steps; a run in a directory that holds a
 checkpoint resumes from it.  The default device is CUDA, and with no card it
 raises rather than fall back.  It prints the reference's ``[train]`` line
 and, on the card, a second one with the median step time (steps after the
-first), tokens/s and peak memory.  ``--mesh`` (mesh training) waits for
-ROADMAP item 12.
+first), tokens/s and peak memory.
+
+``--mesh NAME`` (``tiny``: (2, 2) over ``("data", "model")``; ``single``,
+``multi``, ``pipeline`` as in the reference) starts as many ranks as the
+mesh has (``launch.mesh.run_ranks``, process-group backend
+``--dist-backend``: ``nccl`` for ranks on distinct cards, ``gloo`` for
+ranks on the host or sharing one card, which NCCL refuses).  Every rank
+makes the same weights from the seed and keeps its block of them, so the
+mesh trains the model a single device trains; the lead rank prints the
+lines.  A mixture of experts on a mesh raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import statistics
 import tempfile
 import time
+from typing import Optional
 
 import torch
+import torch.distributed as dist
 
+from .. import kernels
 from ..configs import TrainConfig, get_config
 from ..configs.reduced import reduced_config
 from ..data import TokenPipeline
 from ..device import resolve_device
-from ..models import Model, init_params
-from ..models.transformer import REMAT_MODES
+from ..dist import collectives as coll
+from ..dist.sharding import gather_tree, is_lead_rank, shard_tree
+from ..models import Model, init_params, params_from_numpy
+from ..models.transformer import REMAT_MODES, check_mesh
 from ..training import (RunnerConfig, TrainingRunner, adamw_init, latest_step,
-                        make_train_step)
+                        make_eval_step, make_train_step)
+from ..training.fault_tolerance import batch_block
+
+__all__ = ["train_run", "train_line", "main"]
+
+
+def _config(job: dict):
+    cfg = get_config(job["arch"])
+    if job.get("reduced"):
+        cfg = reduced_config(cfg)
+    if job.get("cfg"):
+        import dataclasses
+        cfg = dataclasses.replace(cfg, **job["cfg"])
+    return cfg
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.float().numpy()
+    return t.numpy()
+
+
+def train_run(job: dict, device: torch.device, mesh=None) -> dict:
+    """One training run on ``device`` (this rank's, on a mesh).  ``job``:
+
+    ``arch``, ``reduced``, ``cfg`` (config fields to replace, e.g. a cut
+    ``n_layers``), ``steps``, ``batch``, ``seq``, ``microbatches``,
+    ``remat``, ``tcfg`` (``TrainConfig`` fields, over those); ``ckpt_dir``
+    and ``ckpt_every``: a ``TrainingRunner`` checkpointing there (with no
+    ``ckpt_dir`` the steps run alone and write nothing); the weights from
+    ``seed`` (default 0) or ``params`` (the reference's tree as numpy);
+    ``then``: steps run on afterwards, in memory; ``gather``: return the
+    final params whole (as float32 numpy, on the lead rank); ``eval``:
+    return ``eval_loss``, the eval step's loss of the starting weights on
+    the first batch; ``fail = (rank, step)``: the runner's step ``step``
+    fails on that rank alone (``RunnerConfig.fail_injector``).
+
+    Returns the ``[train]`` line's numbers (``name``, ``resumed``,
+    ``final``, ``dt``, ``losses``), ``grad_norms``, and per step its
+    seconds, kernel launches (``kernels.launch_counts`` and
+    ``variant_counts``), collectives and the host seconds inside them by
+    axis (``collective_s``); on the card the peak memory."""
+    cfg = _config(job)
+    model = Model(cfg, mesh=mesh)
+    tcfg = TrainConfig(**{"total_steps": job["steps"],
+                          "microbatches": job.get("microbatches", 1),
+                          "remat": job.get("remat", "none"),
+                          **job.get("tcfg", {})})
+    if job.get("params") is not None:
+        params = params_from_numpy(job["params"], cfg, device, mesh)
+    else:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(job.get("seed", 0))
+        params = init_params(cfg, gen, device)
+        if mesh is not None:
+            params = shard_tree(params, mesh, model.specs)
+    opt = adamw_init(params)
+    step = make_train_step(model, tcfg)
+    records = []
+
+    def timed_step(p, s, b):
+        kernels.reset_launch_counts()
+        before, coll_s = coll.collective_counts(), coll.collective_seconds()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        out = step(p, s, b)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        counts = kernels.launch_counts()
+        counts.update(kernels.variant_counts())
+        after = coll.collective_seconds()
+        records.append({"s": time.perf_counter() - t0, "launches": counts,
+                        "collectives": coll.counts_since(before),
+                        "collective_s": {a: sum(sec - coll_s.get(a, {}).get(op, 0.0)
+                                                for op, sec in ops.items())
+                                         for a, ops in after.items()}})
+        return out
+
+    pipe = TokenPipeline(cfg.vocab_size, batch=job["batch"], seq_len=job["seq"],
+                         seed=tcfg.seed)
+    ckpt_dir = job.get("ckpt_dir")
+    eval_loss = None
+    if job.get("eval"):
+        eval_loss = float(make_eval_step(model)(
+            params, batch_block(pipe.batch_at(0), device, mesh)))
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    if ckpt_dir is None:
+        # no runner, no checkpoint: the steps alone
+        resumed, log, t0 = 0, [], time.perf_counter()
+        for i in range(job["steps"]):
+            params, opt, m = timed_step(params, opt,
+                                        batch_block(pipe.batch_at(i), device, mesh))
+            log.append({k: float(v) for k, v in m.items()})
+        final, dt = job["steps"], time.perf_counter() - t0
+    else:
+        fail, rank = job.get("fail"), 0 if mesh is None else dist.get_rank()
+        injector = (None if fail is None or fail[0] != rank
+                    else lambda i: i == fail[1])
+        runner = TrainingRunner(
+            RunnerConfig(ckpt_dir, checkpoint_every=job.get("ckpt_every", 25),
+                         fail_injector=injector),
+            timed_step, params, opt, pipe.batch_at, mesh=mesh, specs=model.specs)
+        del params, opt   # the runner holds them; the first step replaces them
+        resumed = latest_step(ckpt_dir) or 0
+        t0 = time.perf_counter()
+        final = runner.run(job["steps"])
+        dt = time.perf_counter() - t0
+        log = list(runner.metrics_log)
+        params, opt = runner.params, runner.opt_state
+        del runner
+    for i in range(final, final + job.get("then", 0)):
+        params, opt, m = timed_step(params, opt,
+                                    batch_block(pipe.batch_at(i), device, mesh))
+        log.append({k: float(v) for k, v in m.items()})
+    out = dict(name=cfg.name, resumed=resumed, final=final, dt=dt,
+               losses=[m["loss"] for m in log],
+               grad_norms=[m["grad_norm"] for m in log], records=records,
+               lead=is_lead_rank(mesh), device=str(device))
+    if device.type == "cuda":
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+    if eval_loss is not None:
+        out["eval_loss"] = eval_loss
+    if job.get("gather"):
+        whole = (params if mesh is None else
+                 gather_tree(params, mesh, model.specs))
+        out["params"] = _to_numpy(whole) if out["lead"] else None
+    return out
+
+
+def train_line(res: dict) -> str:
+    """The reference driver's ``[train]`` line of a :func:`train_run`."""
+    losses = res["losses"]
+    if not losses:
+        return "no steps"
+    return (f"[train] {res['name']} steps {res['resumed']}->{res['final']} in "
+            f"{res['dt']:.1f}s; loss {losses[0]:.3f} -> {losses[-1]:.3f}")
+
+
+def _timing_line(res: dict, batch: int, seq: int, ranks: int) -> Optional[str]:
+    step_s = [r["s"] for r in res["records"]]
+    if "peak_bytes" not in res or not step_s:
+        return None
+    ms = statistics.median(step_s[1:] or step_s) * 1e3
+    where = f" (rank 0 of {ranks})" if ranks > 1 else ""
+    return (f"[train] {torch.cuda.get_device_name(torch.device(res['device']))}"
+            f"{where}: step_ms {ms:.1f} (median of steps 2-{len(step_s)}), "
+            f"tokens_per_s {batch * seq / ms * 1e3:.0f}, peak_mem_GB "
+            f"{res['peak_bytes'] / 1e9:.2f}")
 
 
 def main(argv=None):
+    from .mesh import DIST_BACKENDS, NAMED_MESHES, named_mesh_layout, run_ranks
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma-2b")
     ap.add_argument("--mesh", default=None,
-                    help="single|multi|tiny: mesh training is not ported yet")
+                    help="single|multi|tiny|pipeline: train on that mesh of "
+                         "ranks (tiny: 4 ranks, (data, model) = (2, 2)); "
+                         "default: no mesh (1 device)")
+    ap.add_argument("--dist-backend", default="nccl", choices=list(DIST_BACKENDS),
+                    help="process-group backend of a --mesh run: nccl (ranks "
+                         "on distinct cards) or gloo (ranks on the host or "
+                         "sharing one card)")
     ap.add_argument("--reduced", action="store_true",
                     help="reduced-width config (CPU-runnable)")
     ap.add_argument("--steps", type=int, default=50)
@@ -53,53 +229,30 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cpu, or a CUDA device (default: cuda)")
     args = ap.parse_args(argv)
-    if args.mesh is not None:
-        raise NotImplementedError(
-            "--mesh: mesh training (sharded params, ZeRO-1, compressed "
-            "all-reduce in the step) is not ported yet (ROADMAP item 12)")
 
     device = resolve_device(args.device)
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = reduced_config(cfg)
-    model = Model(cfg)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(0)
-    params = init_params(cfg, gen, device)
-    tcfg = TrainConfig(total_steps=args.steps, microbatches=args.microbatches,
-                       remat=args.remat)
-    step = make_train_step(model, tcfg)
-    step_s = []
-
-    def timed_step(p, s, b):
-        t0 = time.perf_counter()
-        out = step(p, s, b)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        step_s.append(time.perf_counter() - t0)
-        return out
-
-    pipe = TokenPipeline(cfg.vocab_size, batch=args.batch, seq_len=args.seq,
-                         seed=tcfg.seed)
-    runner = TrainingRunner(
-        RunnerConfig(args.ckpt_dir, checkpoint_every=args.ckpt_every),
-        timed_step, params, adamw_init(params), pipe.batch_at)
-    del params   # the runner holds the params; the first step replaces them
-    resumed = latest_step(args.ckpt_dir) or 0
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
-    t0 = time.perf_counter()
-    final = runner.run(args.steps)
-    dt = time.perf_counter() - t0
-    losses = [m["loss"] for m in runner.metrics_log]
-    print(f"[train] {cfg.name} steps {resumed}->{final} in {dt:.1f}s; "
-          f"loss {losses[0]:.3f} -> {losses[-1]:.3f}" if losses else "no steps")
-    if device.type == "cuda" and step_s:
-        ms = statistics.median(step_s[1:] or step_s) * 1e3
-        print(f"[train] {torch.cuda.get_device_name(device)}: step_ms "
-              f"{ms:.1f} (median of steps 2-{len(step_s)}), tokens_per_s "
-              f"{args.batch * args.seq / ms * 1e3:.0f}, peak_mem_GB "
-              f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f}")
+    job = dict(kind="train", arch=args.arch, reduced=args.reduced,
+               steps=args.steps, batch=args.batch, seq=args.seq,
+               microbatches=args.microbatches, remat=args.remat,
+               ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
+    ranks = 1
+    if args.mesh is not None:
+        # refuse here what every rank would refuse
+        check_mesh(_config(job), named_mesh_layout(args.mesh))
+        from .mesh_runs import run_jobs
+        ranks = math.prod(NAMED_MESHES[args.mesh][0])
+        per_rank = run_ranks(run_jobs, ranks, backend=args.dist_backend,
+                             device=device.type,
+                             args=([dict(job, mesh=args.mesh)],))
+        res = per_rank[0][0]
+        if "error" in res:
+            raise RuntimeError(f"--mesh {args.mesh}: {res['error']}")
+    else:
+        res = train_run(job, device)
+    print(train_line(res))
+    timing = _timing_line(res, args.batch, args.seq, ranks)
+    if timing:
+        print(timing)
 
 
 if __name__ == "__main__":

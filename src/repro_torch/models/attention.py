@@ -1,7 +1,18 @@
 """Attention: GQA/MQA, global / sliding-window, prefill + decode paths.
 
-The port of the reference package's ``models/attention.py`` on one device,
-where its sharding constraints are the identity and are dropped.
+The port of the reference package's ``models/attention.py``.  On one
+device its sharding constraints are the identity and are dropped.  On a
+mesh with a ``model`` axis (training only) the layer is tensor-parallel, as
+the reference's placements make GSPMD run it: ``wq`` is column-split, so
+each rank owns ``H / m`` contiguous query heads; ``wk``/``wv`` are
+column-split too, and when the KV heads split over the ranks each rank's
+KV heads are exactly those its query heads use.  When they do not (MQA: one
+KV head, its dims cut in two), the rank's k and v slices are all-gathered
+over ``model`` before RoPE (which pairs dim ``i`` with ``i + hd / 2``), and
+their gradient is summed back over the ranks.  ``wo`` is row-parallel:
+each rank's partial product is all-reduced over ``model``.  The input is
+replicated over ``model`` and its gradient summed over it
+(``dist.collectives.copy_to_axis``).
 
 On the card, full-sequence (prefill) attention runs the hand-written flash
 kernel (:func:`..kernels.flash_attention.multi_head_attention`) and decode
@@ -26,6 +37,8 @@ from typing import Optional
 
 import torch
 
+from ..dist import collectives as coll
+from ..dist.sharding import axis_index, axis_size
 from ..kernels.decode_attention import grouped_decode_attention
 from ..kernels.flash_attention import multi_head_attention
 from .layers import apply_rope, rope, softcap
@@ -159,9 +172,29 @@ def _prefill_attend(q, k, v, *, causal, window, sm_scale, cap):
     return out.transpose(1, 2)
 
 
+def _tp_projections(p: dict, x: torch.Tensor, cfg, mesh):
+    """q, k, v of this rank's query heads and the KV heads they use, on a
+    mesh whose ``model`` axis splits the projections (the split the model
+    checks at construction, ``transformer.check_mesh``)."""
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    m, r = axis_size(mesh, "model"), axis_index(mesh, "model")
+    x = coll.copy_to_axis(x, mesh, "model")
+    hl = h // m
+    q = _split_heads(x @ p["wq"], hl, hd)
+    k, v = x @ p["wk"], x @ p["wv"]
+    if kv % m == 0:
+        return q, _split_heads(k, kv // m, hd), _split_heads(v, kv // m, hd)
+    # the KV heads do not split: gather each whole, keep the one this
+    # rank's query heads share (a group holds all of them)
+    kvf = coll.gather_over_axis(torch.stack([k, v]), mesh, "model", dim=-1)
+    lo = (r * hl) // (h // kv) * hd
+    kvf = kvf[..., lo: lo + hd]
+    return q, _split_heads(kvf[0], 1, hd), _split_heads(kvf[1], 1, hd)
+
+
 def attention(p: dict, x: torch.Tensor, cfg, *, window: int = 0,
               cache: Optional[dict] = None, pos: Optional[torch.Tensor] = None,
-              causal: bool = True):
+              causal: bool = True, mesh=None):
     """Unified attention layer.
 
     cache: {"k": (B, S_max, KV, D), "v": ...} with ``pos`` (B,) the write
@@ -175,13 +208,25 @@ def attention(p: dict, x: torch.Tensor, cfg, *, window: int = 0,
     ``pos + 1`` rows; the reference takes ``pos[0]`` for the whole batch,
     which is the same whenever the positions agree, as the serving engine's
     always do.
+
+    ``mesh``: full-sequence attention, tensor-parallel over its ``model``
+    axis (see the module docstring); a cache on a mesh raises
+    ``NotImplementedError``.
     """
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cap = cfg.attn_logit_softcap
-    q = _split_heads(x @ p["wq"], h, hd)
-    k = _split_heads(x @ p["wk"], kv, hd)
-    v = _split_heads(x @ p["wv"], kv, hd)
+    tp = mesh is not None and "model" in (mesh.mesh_dim_names or ())
+    if tp and cache is not None:
+        raise NotImplementedError(
+            "attention with a KV cache on a mesh (sharded serving) is not "
+            "ported (ROADMAP item 12)")
+    if tp:
+        q, k, v = _tp_projections(p, x, cfg, mesh)
+    else:
+        q = _split_heads(x @ p["wq"], h, hd)
+        k = _split_heads(x @ p["wk"], kv, hd)
+        v = _split_heads(x @ p["wv"], kv, hd)
     if cfg.rope_theta:
         if pos is None:
             positions = torch.arange(s, device=x.device)
@@ -221,7 +266,10 @@ def attention(p: dict, x: torch.Tensor, cfg, *, window: int = 0,
 
     out = _prefill_attend(q, k, v, causal=causal, window=window,
                           sm_scale=sm_scale, cap=cap)
-    return out.reshape(b, s, h * hd) @ p["wo"], None
+    out = out.reshape(b, s, q.shape[2] * hd) @ p["wo"]
+    if tp:
+        out = coll.reduce_over_axis(out, mesh, "model")
+    return out, None
 
 
 def init_cache(cfg, batch: int, s_max: int, n_layers: int,

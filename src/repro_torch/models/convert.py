@@ -9,7 +9,10 @@ config's dtype but an MoE layer's router (``stk_router``), which is float32
 in any model, as the reference keeps it.  The reference's AdamW
 state (``adamw_init``'s ``{"mu", "nu", "step"}``, float32 moments, with an
 optional float32 ``master`` copy) crosses the same way with
-:func:`opt_state_from_numpy`.
+:func:`opt_state_from_numpy`.  With ``mesh`` the params land on a mesh:
+each rank keeps its block of every leaf under the reference's placement
+rules (``dist.sharding.spec_tree`` of the config's shapes, then
+``shard_tree``), cut on the host and moved to ``device``.
 """
 from __future__ import annotations
 
@@ -96,12 +99,25 @@ def _walk(node, spec, path, dtype, device):
     return _leaf(node, spec, _leaf_dtype(path, dtype), path, device)
 
 
-def params_from_numpy(tree, cfg, device=None) -> Dict[str, Any]:
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def params_from_numpy(tree, cfg, device=None, mesh=None) -> Dict[str, Any]:
     """Reference params pytree with numpy leaves -> the port's parameter
-    dict on ``device`` (default CUDA).  Raises ``ValueError`` on a missing
-    or extra key, or a leaf of the wrong shape or dtype."""
+    dict on ``device`` (default CUDA); with ``mesh``, this rank's block of
+    each leaf.  Raises ``ValueError`` on a missing or extra key, or a leaf
+    of the wrong shape or dtype."""
     from ..device import resolve_device
-    return _walk(tree, param_shapes(cfg), "", cfg.dtype, resolve_device(device))
+    device = resolve_device(device)
+    if mesh is None:
+        return _walk(tree, param_shapes(cfg), "", cfg.dtype, device)
+    from ..dist.sharding import shard_tree, spec_tree
+    host = _walk(tree, param_shapes(cfg), "", cfg.dtype, "cpu")
+    return _to(shard_tree(host, mesh, spec_tree(param_shapes(cfg), mesh,
+                                                cfg.expert_sharding)), device)
 
 
 def opt_state_from_numpy(state, cfg, device=None) -> Dict[str, Any]:

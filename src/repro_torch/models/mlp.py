@@ -1,9 +1,15 @@
-"""Dense MLP blocks: SwiGLU / GeGLU / GELU (the reference's ``models/mlp.py``
-on one device, where its sharding constraints are the identity)."""
+"""Dense MLP blocks: SwiGLU / GeGLU / GELU (the reference's
+``models/mlp.py``).  On one device its sharding constraints are the
+identity.  On a mesh with a ``model`` axis the block is tensor-parallel:
+``w_up``/``w_gate`` are column-split (the input replicated over ``model``,
+its gradient summed over it) and ``w_down`` is row-parallel (each rank's
+partial product all-reduced over ``model``)."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..dist import collectives as coll
 
 __all__ = ["init_mlp", "mlp"]
 
@@ -27,8 +33,11 @@ def init_mlp(generator: torch.Generator, cfg, dtype, stacked: int = 0,
     return p
 
 
-def mlp(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+def mlp(p: dict, x: torch.Tensor, cfg, mesh=None) -> torch.Tensor:
     act = cfg.mlp_act
+    tp = mesh is not None and "model" in (mesh.mesh_dim_names or ())
+    if tp:
+        x = coll.copy_to_axis(x, mesh, "model")
     up = x @ p["w_up"]
     if act == "swiglu":
         hidden = F.silu(x @ p["w_gate"]) * up
@@ -37,4 +46,5 @@ def mlp(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
         hidden = F.gelu(x @ p["w_gate"], approximate="tanh") * up
     else:
         hidden = F.gelu(up, approximate="tanh")
-    return hidden @ p["w_down"]
+    out = hidden @ p["w_down"]
+    return coll.reduce_over_axis(out, mesh, "model") if tp else out

@@ -16,6 +16,23 @@ reference's ``remat`` modes as ``torch.utils.checkpoint`` per layer.
 Every other layer kind (SSM, xLSTM, hybrid, encoder-decoder), the vision
 prefix of the loss and the cost-analysis mode wait for ROADMAP item 12 and
 raise ``NotImplementedError``.
+
+``Model(cfg, mesh=mesh)`` trains a dense decoder on a ``("data", "model")``
+mesh (``launch.mesh.make_mesh_named``) with the parameters placed by the
+reference's rules (``self.specs``, from ``dist.sharding.spec_tree``): each
+rank holds its block of every leaf (``dist.sharding.shard_tree``) and its
+block of the batch.  Attention and the MLP are tensor-parallel over
+``model`` (:mod:`.attention`, :mod:`.mlp`); the embedding is
+vocab-parallel: the lookup masks the ids outside the rank's rows and
+all-reduces over ``model``, and the loss computes each chunk's logits
+against the rank's vocab slice and all-reduces the max, the sum of
+exponentials and the gold logit, never the (B, S, V) logits.  The loss is
+divided by the mask count summed over the data axes, so the sum of the
+data ranks' losses (and of their gradients) is the global loss: a batch
+split over ``data`` and a batch each data rank holds whole (one the data
+axes do not divide) both come out right.  Mixtures of experts,
+``seq_parallel``, ``mlp_dp`` and serving on a mesh raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -27,6 +44,8 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..dist import collectives as coll
+from ..dist.sharding import axis_index, data_axes, mesh_axes, spec_tree
 from .attention import attention, init_attention
 from .attention import init_cache as kv_init_cache
 from .layers import init_norm, norm
@@ -34,7 +53,7 @@ from .mlp import init_mlp, mlp
 from .moe import expert_placement, init_moe, moe
 
 __all__ = ["stages_meta", "init_params", "Model", "PORTED_KINDS",
-           "LOSS_CHUNK", "REMAT_MODES"]
+           "LOSS_CHUNK", "REMAT_MODES", "check_mesh"]
 
 PORTED_KINDS = ("attn", "local", "attn+moe", "local+moe")
 LOSS_CHUNK = 512
@@ -63,6 +82,45 @@ def _check_ported(cfg) -> None:
 
 def _dtype(cfg):
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _model_axis(mesh) -> int:
+    """The size of the mesh's ``model`` axis (1 without one); ``mesh`` a
+    ``DeviceMesh`` or a layout (``launch.mesh.named_mesh_layout``)."""
+    return mesh_axes(mesh).get("model", 1)
+
+
+def check_mesh(cfg, mesh) -> None:
+    """Raise ``NotImplementedError`` for what mesh training does not port:
+    a mixture of experts (its routing groups per data shard and the
+    all-to-all between them, ROADMAP item 12c), ``seq_parallel`` and
+    ``mlp_dp`` (item 12h), and a model axis that does not split the heads,
+    the KV heads, d_ff or the vocab the way the tensor-parallel layers
+    read them (item 12h)."""
+    if cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: a mixture of experts on a mesh (routing groups per "
+            "data shard, the all-to-all) is not ported (ROADMAP item 12c)")
+    for flag in ("seq_parallel", "mlp_dp"):
+        if getattr(cfg, flag, False):
+            raise NotImplementedError(
+                f"{cfg.name}: {flag} on a mesh is not ported (ROADMAP item 12h)")
+    m = _model_axis(mesh)
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    bad = []
+    if h % m:
+        bad.append(f"{h} heads")
+    elif kv % m and ((h // kv) % (h // m) or (kv * hd) % m):
+        bad.append(f"{kv} KV heads of {hd} dims for {h // m} query heads a rank")
+    if cfg.mlp_act != "none" and cfg.d_ff % m:
+        bad.append(f"d_ff {cfg.d_ff}")
+    if cfg.vocab_size % m:
+        bad.append(f"vocab {cfg.vocab_size}")
+    if bad:
+        raise NotImplementedError(
+            f"{cfg.name}: a model axis of {m} does not split {', '.join(bad)} "
+            "as the tensor-parallel layers need (replicated fallbacks are "
+            "not ported, ROADMAP item 12h)")
 
 
 # ---------------------------------------------------------------------------
@@ -121,7 +179,7 @@ def _sub(lp: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
 
 
 def _layer_forward(lp: Dict[str, torch.Tensor], x, cfg, kind: str, *,
-                   cache=None, pos=None, placement=None):
+                   cache=None, pos=None, placement=None, mesh=None):
     """One layer.  Returns (x, cache, aux_loss): the MoE's float32
     load-balance loss, None for a dense layer (whose loss the reference
     counts as 0: no tensor is made for it on the decode path)."""
@@ -131,7 +189,8 @@ def _layer_forward(lp: Dict[str, torch.Tensor], x, cfg, kind: str, *,
     window = cfg.window if kind.split("+")[0] == "local" else 0
     aux_loss = None
     h = norm(_sub(lp, "norm1"), x, cfg.norm)
-    attn_out, cache = attention(lp, h, cfg, window=window, cache=cache, pos=pos)
+    attn_out, cache = attention(lp, h, cfg, window=window, cache=cache, pos=pos,
+                                mesh=mesh)
     if cfg.parallel_block:
         ff_in = h
     else:
@@ -141,7 +200,7 @@ def _layer_forward(lp: Dict[str, torch.Tensor], x, cfg, kind: str, *,
         ff_out, aux = moe(lp, ff_in, cfg, placement=placement)
         aux_loss = aux["aux_loss"]
     elif cfg.mlp_act != "none":
-        ff_out = mlp(lp, ff_in, cfg)
+        ff_out = mlp(lp, ff_in, cfg, mesh=mesh)
     else:
         ff_out = torch.zeros_like(x)
     x = x + attn_out + ff_out if cfg.parallel_block else x + ff_out
@@ -159,13 +218,13 @@ def _dots_policy(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _remat_layer(lp, x, cfg, kind, placement):
-    x, _, aux = _layer_forward(lp, x, cfg, kind, placement=placement)
+def _remat_layer(lp, x, cfg, kind, placement, mesh):
+    x, _, aux = _layer_forward(lp, x, cfg, kind, placement=placement, mesh=mesh)
     return x, aux
 
 
 def run_stage(stage_params, x, cfg, kind: str, *, cache=None, pos=None,
-              placement=None, remat: str = "none"):
+              placement=None, remat: str = "none", mesh=None):
     """Run the stacked layers of one stage in order.  Returns (x, cache,
     aux): the sum of the layers' load-balance losses (None for dense
     layers); a given cache is written in place, layer ``i`` into its slice
@@ -189,11 +248,11 @@ def run_stage(stage_params, x, cfg, kind: str, *, cache=None, pos=None,
     for i, lp in enumerate(layers):
         if cache is None and remat != "none":
             x, aux = checkpoint(_remat_layer, lp, x, cfg, kind, placement,
-                                use_reentrant=False, **kw)
+                                mesh, use_reentrant=False, **kw)
         else:
             c = None if cache is None else {"k": cache["k"][i], "v": cache["v"][i]}
             x, _, aux = _layer_forward(lp, x, cfg, kind, cache=c, pos=pos,
-                                       placement=placement)
+                                       placement=placement, mesh=mesh)
         if aux is not None:
             aux_total = aux if aux_total is None else aux_total + aux
     return x, cache, aux_total
@@ -205,15 +264,30 @@ def run_stage(stage_params, x, cfg, kind: str, *, cache=None, pos=None,
 
 @dataclasses.dataclass
 class Model:
-    """Functional model handle for one architecture config."""
+    """Functional model handle for one architecture config; with ``mesh``
+    (a ``DeviceMesh`` with ``data`` and ``model`` axes) the rank's part of
+    the model trained on that mesh, its parameters placed by ``specs``."""
 
     cfg: Any
+    mesh: Any = None
     # the expert placement on each device it was asked for, built once
     _placements: Dict[torch.device, torch.Tensor] = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False)
 
     def __post_init__(self):
         _check_ported(self.cfg)
+        self.specs = None
+        if self.mesh is not None:
+            from .convert import param_shapes
+            check_mesh(self.cfg, self.mesh)
+            self.specs = spec_tree(param_shapes(self.cfg), self.mesh,
+                                   self.cfg.expert_sharding)
+
+    def _model_rank(self):
+        """(model-axis size, this rank's coordinate on it): (1, 0) off a
+        mesh or without a model axis."""
+        m = _model_axis(self.mesh)
+        return m, axis_index(self.mesh, "model") if m > 1 else 0
 
     def placement(self, device):
         """The config's expert placement, (E,) int64 on ``device``, or None
@@ -230,7 +304,16 @@ class Model:
         return self._placements[device]
 
     def embed(self, params, tokens):
-        x = params["embed"][tokens]
+        m, r = self._model_rank()
+        if m > 1:
+            # vocab-parallel: this rank's rows, zeros elsewhere, summed
+            w = params["embed"]
+            local = tokens.long() - r * w.shape[0]
+            inside = (local >= 0) & (local < w.shape[0])
+            x = w[local.clamp(0, w.shape[0] - 1)] * inside[..., None].to(w.dtype)
+            x = coll.reduce_over_axis(x, self.mesh, "model")
+        else:
+            x = params["embed"][tokens]
         if self.cfg.scale_embed:
             # the scale rounded to x's dtype, as the reference's; a host
             # scalar, so the card's decode step does not wait for a copy
@@ -243,8 +326,11 @@ class Model:
         ``(sum_loss, sum_mask)``, the chunks' sums added in order as the
         reference's scan does.  The logits product is ``torch.matmul`` (the
         reference leaves it to XLA); the embedding is cast to float32 once
-        per call."""
+        per call.  On a mesh each rank holds a vocab slice: the row maxima
+        are all-reduced (max) and the sums of exponentials and the gold
+        logits (summed) over ``model``, each chunk's in one call."""
         cfg = self.cfg
+        m, r = self._model_rank()
         w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
         b, s, d = h.shape
         c = min(LOSS_CHUNK, s)
@@ -255,17 +341,37 @@ class Model:
             mask = torch.nn.functional.pad(mask, (0, pad))
         wf = w.float()
         wf = wf.t() if cfg.tie_embeddings else wf
+        if m > 1:
+            h = coll.copy_to_axis(h, self.mesh, "model")
         loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
         mask_sum = torch.zeros((), dtype=torch.float32, device=h.device)
         for i in range(h.shape[1] // c):
             sl = slice(i * c, (i + 1) * c)
             logits = h[:, sl].float() @ wf
-            lse = torch.logsumexp(logits, dim=-1)
-            gold = torch.gather(logits, -1, targets[:, sl, None].long())[..., 0]
+            if m > 1:
+                lse, gold = self._vocab_parallel_lse_gold(
+                    logits, targets[:, sl].long() - r * wf.shape[1])
+            else:
+                lse = torch.logsumexp(logits, dim=-1)
+                gold = torch.gather(logits, -1, targets[:, sl, None].long())[..., 0]
             nll = (lse - gold) * mask[:, sl]
             loss_sum = loss_sum + nll.sum()
             mask_sum = mask_sum + mask[:, sl].sum()
         return loss_sum, mask_sum
+
+    def _vocab_parallel_lse_gold(self, logits, local_targets):
+        """(logsumexp, gold logit) of rows whose logits are split over
+        ``model``: ``logits`` this rank's (B, c, V / m) slice,
+        ``local_targets`` the targets less the slice's first id."""
+        mx = logits.detach().amax(-1)
+        coll.all_reduce(mx, self.mesh, "model", op="max")
+        se = torch.exp(logits - mx[..., None]).sum(-1)
+        inside = (local_targets >= 0) & (local_targets < logits.shape[-1])
+        gold = torch.gather(logits, -1, local_targets.clamp(
+            0, logits.shape[-1] - 1)[..., None])[..., 0] * inside
+        se, gold = coll.reduce_over_axis(torch.stack([se, gold]), self.mesh,
+                                         "model").unbind(0)
+        return torch.log(se) + mx, gold
 
     def logits_last(self, params, h):
         """(B, S, D) -> (B, 1, V) float32 logits of the last position, the
@@ -286,7 +392,8 @@ class Model:
             sname = f"s{i}"
             x, _, aux = run_stage(params["stages"][sname], x, cfg, kind,
                                   cache=None if cache is None else cache[sname],
-                                  pos=pos, placement=placement, remat=remat)
+                                  pos=pos, placement=placement, remat=remat,
+                                  mesh=self.mesh)
             if aux is not None:
                 aux_total = aux if aux_total is None else aux_total + aux
         return norm(params["final_norm"], x, cfg.norm), cache, aux_total
@@ -295,7 +402,14 @@ class Model:
         """Next-token loss, float32, plus ``0.01`` times the MoE layers'
         load-balance loss, as in the reference.  batch: ``{"tokens": (B,
         S)}``; position ``i`` predicts token ``i + 1`` and the last position
-        is masked, as in the reference."""
+        is masked, as in the reference.  On a mesh ``batch`` is this rank's
+        block and the result the global loss: each rank's share, its rows'
+        loss divided by the mask count summed over the data axes, summed
+        over the data axes (two all-reduces per data axis; a replicated
+        batch too, its count and its shares each taken once a data rank).
+        The gradient of the sum passes back unchanged, so each rank's
+        gradients are those of its share: the train step sums them over the
+        data axes."""
         cfg = self.cfg
         if cfg.n_encoder_layers or "enc_embeds" in batch:
             raise NotImplementedError(
@@ -313,7 +427,12 @@ class Model:
         mask[:, -1] = 0.0
         h, _, aux = self.backbone(params, x, remat=remat)
         loss_sum, mask_sum = self.unembed_chunked(params, h, targets, mask)
+        axes = data_axes(self.mesh)
+        for a in axes:
+            coll.all_reduce(mask_sum, self.mesh, a)
         loss = loss_sum / torch.clamp(mask_sum, min=1.0)
+        for a in axes:
+            loss = coll.reduce_over_axis(loss.reshape(1), self.mesh, a)[0]
         return loss if aux is None else loss + 0.01 * aux
 
     def init_cache(self, batch: int, s_max: int, dtype=torch.bfloat16,
@@ -324,8 +443,15 @@ class Model:
                                        device)
                 for i, (_, count) in enumerate(stages_meta(self.cfg))}
 
+    def _no_mesh(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"{what} on a mesh (sharded serving) is not ported "
+                "(ROADMAP item 12)")
+
     def prefill(self, params, batch, s_max: int):
         """Encode a full prompt, returning (last-token logits, filled cache)."""
+        self._no_mesh("prefill")
         tokens = batch["tokens"]
         b = tokens.shape[0]
         device = params["embed"].device
@@ -338,6 +464,7 @@ class Model:
     def decode_step(self, params, token, cache, pos):
         """One token step.  token: (B, 1); pos: (B,) current write index.
         The cache is written in place and returned."""
+        self._no_mesh("decode_step")
         x = self.embed(params, token)
         h, cache, _ = self.backbone(params, x, cache=cache, pos=pos)
         return self.logits_last(params, h), cache

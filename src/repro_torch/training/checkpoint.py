@@ -47,9 +47,9 @@ import torch
 
 from ..faults import kill_point
 
-__all__ = ["save_checkpoint", "restore_checkpoint", "load_checkpoint",
-           "restore_latest", "latest_step", "valid_steps", "AsyncCheckpointer",
-           "flatten_with_paths"]
+__all__ = ["save_checkpoint", "restore_checkpoint", "restore_sharded",
+           "load_checkpoint", "restore_latest", "latest_step", "valid_steps",
+           "AsyncCheckpointer", "flatten_with_paths"]
 
 _MANIFEST = "manifest.json"
 _STEP_RE = re.compile(r"step_(\d+)")
@@ -232,6 +232,38 @@ def restore_checkpoint(directory: str, step: int, like: Any,
         return arr if device is None else torch.from_numpy(arr).to(device)
 
     return _map_with_paths(like, load), manifest
+
+
+def restore_sharded(directory: str, step: int, like: Any, mesh, specs):
+    """Restore a checkpoint of *global* arrays (any package's, any mesh's or
+    none) onto ``mesh``: each leaf is loaded whole on the host, cut to this
+    rank's block under ``specs`` (a tree like ``like``; see
+    ``dist.sharding.shard_tree``) and placed on the ``like`` leaf's device
+    in its dtype.  ``like`` holds this rank's blocks, so each loaded shape
+    must split into them.  Returns ``(tree, manifest)``."""
+    from ..dist.sharding import shard_tree
+    ckpt_dir = _step_dir(directory, step)
+    with open(os.path.join(ckpt_dir, _MANIFEST)) as f:
+        manifest = json.load(f)
+    by_path = {e["path"]: e for e in manifest["leaves"]}
+
+    def load(path, leaf):
+        entry = by_path.get(path)
+        if entry is None:
+            raise KeyError(f"checkpoint missing leaf {path}")
+        return _to_tensor(np.load(os.path.join(ckpt_dir, entry["file"])))
+
+    host = _map_with_paths(like, load)
+    blocks = shard_tree(host, mesh, specs)
+
+    def place(path, block, leaf):
+        if tuple(block.shape) != tuple(leaf.shape):
+            raise ValueError(f"{path}: this rank's block {tuple(block.shape)} "
+                             f"!= {tuple(leaf.shape)}")
+        return block.to(device=leaf.device, dtype=leaf.dtype)
+
+    flat_b = dict(zip(*flatten_with_paths(blocks)))
+    return _map_with_paths(like, lambda p, leaf: place(p, flat_b[p], leaf)), manifest
 
 
 def restore_latest(directory: str, like: Any = None,

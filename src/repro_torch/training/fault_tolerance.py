@@ -9,6 +9,19 @@ retries a step that raises, restarts from the latest checkpoint when the
 retries run out, and beats a :class:`Heartbeat` per completed step.  It
 runs where its parameters lie: on the card unless they are CPU tensors.
 
+On a mesh (``mesh`` and the params' ``specs``) each rank holds its blocks
+and feeds the step its block of ``batch_fn(i)`` (``dist.sharding.
+batch_spec``).  A checkpoint holds the *global* arrays, in the same form as
+without a mesh (so it crosses between the packages and between meshes):
+every rank takes part in gathering them and the lead rank alone writes.
+The lead rank picks the step to restore (``collectives.lead_int``), after
+its own writes have landed, and every rank loads it and keeps its blocks.
+A step that raises on a mesh is not retried: the other ranks may be inside
+that step's collectives, and a rank starting it again would pair its
+collectives with theirs out of order (sums of like-shaped tensors that are
+wrong and raise nothing).  The error goes up, ``launch.mesh.run_ranks``
+stops every rank, and a new run resumes from the latest checkpoint.
+
 The serving front end's writer thread (``serving.admission``) beats a
 :class:`Heartbeat` once per window slide; a :class:`HeartbeatMonitor`
 turns a missed deadline into :class:`WriterStalledError` for the readers
@@ -24,10 +37,13 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .checkpoint import AsyncCheckpointer, latest_step, restore_checkpoint
+from ..dist import collectives as coll
+from ..dist.sharding import batch_spec, gather_tree, is_lead_rank, shard_tree
+from .checkpoint import (AsyncCheckpointer, latest_step, restore_checkpoint,
+                         restore_sharded)
 
 __all__ = ["RunnerConfig", "TrainingRunner", "Heartbeat", "HeartbeatMonitor",
-           "WriterStalledError"]
+           "WriterStalledError", "batch_block"]
 
 
 class WriterStalledError(RuntimeError):
@@ -136,6 +152,18 @@ def _leaf_device(tree) -> torch.device:
     return tree.device
 
 
+def batch_block(batch: dict, device, mesh=None) -> dict:
+    """A batch (numpy arrays or tensors) as tensors on ``device``; on a mesh
+    this rank's block of it (``dist.sharding.batch_spec`` of its leading
+    dim: split over the data axes, or whole when they do not divide it)."""
+    batch = {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor)
+                                else v) for k, v in batch.items()}
+    if mesh is not None:
+        batch = shard_tree(batch, mesh, {k: batch_spec(v.shape[0], mesh)
+                                         for k, v in batch.items()})
+    return {k: v.to(device) for k, v in batch.items()}
+
+
 class TrainingRunner:
     """Drives ``step_fn(params, opt_state, batch)`` with checkpoint/restart
     semantics.  ``batch_fn(i)`` gives step ``i``'s batch (numpy arrays or
@@ -143,10 +171,18 @@ class TrainingRunner:
 
     One difference from the reference, with the same result: when the last
     step of :meth:`run` was just checkpointed, the final save is not
-    written again (the reference writes that step twice)."""
+    written again (the reference writes that step twice).
+
+    ``mesh``/``specs``: the runner of one rank of a mesh; ``params`` and
+    ``opt_state`` are the rank's blocks under ``specs`` (the params'
+    placements; the moments follow their params).  There a step that
+    raises is not retried: the error fails the run on every rank."""
 
     def __init__(self, cfg: RunnerConfig, step_fn, params, opt_state,
-                 batch_fn):
+                 batch_fn, mesh=None, specs=None):
+        if (mesh is None) != (specs is None):
+            raise ValueError("TrainingRunner: a mesh needs the params' specs")
+        self.mesh, self.specs = mesh, specs
         self.cfg = cfg
         self.step_fn = step_fn
         self.params = params
@@ -160,19 +196,47 @@ class TrainingRunner:
         # supervisor attaches a HeartbeatMonitor to spot a hung step_fn
 
     def _batch(self, i: int) -> dict:
-        return {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor)
-                                   else v).to(self.device)
-                for k, v in self.batch_fn(i).items()}
+        return batch_block(self.batch_fn(i), self.device, self.mesh)
 
     def _state(self) -> dict:
         return {"params": self.params, "opt": self.opt_state}
 
+    def _state_specs(self) -> dict:
+        opt = {k: self.specs if k in ("mu", "nu", "master") else ()
+               for k in self.opt_state}
+        return {"params": self.specs, "opt": opt}
+
+    def _save(self, step: int) -> None:
+        if self.mesh is None:
+            self.ckpt.save(step, self._state())
+            return
+        whole = gather_tree(self._state(), self.mesh, self._state_specs())
+        if is_lead_rank(self.mesh):
+            self.ckpt.save(step, whole)
+
+    def _latest(self):
+        """The newest checkpointed step (None for none): on a mesh the lead
+        rank's, once its writes have landed."""
+        if self.mesh is None:
+            return latest_step(self.cfg.checkpoint_dir)
+        step = None
+        if is_lead_rank(self.mesh):
+            self.ckpt.wait()
+            step = latest_step(self.cfg.checkpoint_dir)
+        step = coll.lead_int(-1 if step is None else step, self.mesh)
+        return None if step < 0 else step
+
     def maybe_restore(self) -> int:
-        step = latest_step(self.cfg.checkpoint_dir)
+        step = self._latest()
         if step is None:
             return 0
-        restored, manifest = restore_checkpoint(
-            self.cfg.checkpoint_dir, step, self._state())
+        if self.mesh is None:
+            restored, manifest = restore_checkpoint(
+                self.cfg.checkpoint_dir, step, self._state())
+        else:
+            restored, manifest = restore_sharded(
+                self.cfg.checkpoint_dir, step, self._state(), self.mesh,
+                self._state_specs())
         self.params, self.opt_state = restored["params"], restored["opt"]
         self.start_step = int(manifest["step"])
         return self.start_step
@@ -193,10 +257,12 @@ class TrainingRunner:
                         self.params, self.opt_state, batch)
                     break
                 except RuntimeError:
+                    if self.mesh is not None:
+                        raise   # fail every rank (module docstring)
                     retries += 1
                     if retries > self.cfg.max_retries_per_step:
                         # full restart-from-checkpoint path
-                        if latest_step(self.cfg.checkpoint_dir) is None:
+                        if self._latest() is None:
                             raise
                         step = self.maybe_restore()
                         batch = self._batch(step)
@@ -205,9 +271,9 @@ class TrainingRunner:
             step += 1
             self.heartbeat.beat(step)
             if step % self.cfg.checkpoint_every == 0:
-                self.ckpt.save(step, self._state())
+                self._save(step)
                 saved = step
         if saved != step:
-            self.ckpt.save(step, self._state())
+            self._save(step)
         self.ckpt.wait()
         return step

@@ -1,5 +1,5 @@
 """AdamW (decoupled weight decay) on dicts of tensors: the port of the
-reference package's ``training/optimizer.py`` on one device.
+reference package's ``training/optimizer.py``.
 
 The optimizer state is a plain tree, ``{"mu", "nu", "step"}`` (plus
 ``"master"`` when asked for), with the parameters' keys, so the checkpoint
@@ -13,7 +13,13 @@ memory the port works in place: ``adamw_update`` overwrites the state's
 ``mu`` and ``nu`` tensors (the state it returns holds the same tensors) and
 updates leaves of more than ``CHUNK`` elements a slice along their first
 axis at a time, which changes no result (every operation is elementwise).
-``zero1_spec_tree`` waits for mesh training (ROADMAP item 12).
+
+On a mesh each rank updates its own block of every leaf (the update is
+elementwise); only the global norm needs the other ranks
+(:func:`global_norm` with ``mesh`` and ``specs``).  ``zero1_spec_tree`` is
+the reference's ZeRO-1 placement of the moments, a pure placement
+function: as in the reference, whose ``launch.train`` keeps each moment
+where its parameter is, no step applies it.
 """
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ import torch
 
 __all__ = ["adamw_init", "adamw_update", "global_norm", "clip_by_global_norm",
            "lr_schedule", "tree_map", "tree_leaves", "tree_unflatten",
-           "tree_unzip", "CHUNK"]
+           "tree_unzip", "zero1_spec_tree", "CHUNK"]
 
 # elements per slice of a large leaf in adamw_update (bounds its float32
 # temporaries: the 256,000 x 2,048 embedding of gemma-2b is 524 M elements)
@@ -76,17 +82,37 @@ def adamw_init(params, master: bool = False, moment_dtype=torch.float32):
     return state
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, mesh=None, specs=None) -> torch.Tensor:
     """sqrt of the sum over leaves (in tree order) of each leaf's sum of
-    squares, in float32."""
+    squares, in float32.  On a mesh, ``tree`` holds this rank's blocks
+    under ``specs`` (a tree of placements like it, replicated over every
+    axis they do not name): the norm of the global tree.  The sums of
+    squares of the leaves split over the same axes are added, then
+    all-reduced over those axes (one all-reduce per axis and set of axes);
+    a replicated leaf is counted once."""
+    if mesh is None:
+        total = 0
+        for x in tree_leaves(tree):
+            total = total + torch.sum(torch.square(x.float()))
+        return torch.sqrt(total)
+    from ..dist import collectives as coll
+    from ..dist.sharding import spec_axes
+    groups: dict = {}
+    for x, spec in zip(tree_leaves(tree), tree_leaves(specs)):
+        axes = tuple(sorted({a for e in spec for a in spec_axes(e)}))
+        sq = torch.sum(torch.square(x.float()))
+        groups[axes] = groups[axes] + sq if axes in groups else sq
     total = 0
-    for x in tree_leaves(tree):
-        total = total + torch.sum(torch.square(x.float()))
+    for axes in sorted(groups):
+        part = groups[axes]
+        for a in axes:
+            part = coll.all_reduce(part.reshape(1), mesh, a)[0]
+        total = total + part
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, mesh=None, specs=None):
+    norm = global_norm(grads, mesh, specs)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
 
@@ -147,3 +173,33 @@ def adamw_update(params, grads, state, *, lr, b1=0.9, b2=0.95, eps=1e-8,
     if use_master:
         new_state["master"] = tree_unzip(out, 1)
     return tree_unzip(out, 0), new_state
+
+
+def zero1_spec_tree(param_specs, mesh):
+    """ZeRO-1 (the reference's): a function ``widen(spec, shape)`` that
+    further shards an optimizer-moment leaf over the data axes the spec
+    does not use yet, on its largest unsharded dim that their product
+    divides (the spec unchanged when none does).  ``param_specs`` is
+    unused, as in the reference."""
+    from ..dist.sharding import mesh_axes, spec_axes
+    sizes = mesh_axes(mesh)
+    dp = tuple(a for a in ("pod", "data") if a in sizes)
+
+    def widen(spec, shape):
+        entries = list(spec) + [None] * (len(shape) - len(spec))
+        used = {a for e in entries for a in spec_axes(e)}
+        avail = tuple(a for a in dp if a not in used)
+        if not avail:
+            return tuple(spec)
+        size = math.prod(sizes[a] for a in avail)
+        if size <= 1:
+            return tuple(spec)
+        best, best_dim = None, -1
+        for i, (e, s) in enumerate(zip(entries, shape)):
+            if e is None and s % size == 0 and s > best_dim:
+                best, best_dim = i, s
+        if best is not None:
+            entries[best] = avail if len(avail) > 1 else avail[0]
+        return tuple(entries)
+
+    return widen

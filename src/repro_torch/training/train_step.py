@@ -6,6 +6,14 @@ the parameter leaves; its accumulating ``lax.scan`` over microbatches a
 loop that sums float32 gradients in the same order.  On the card the
 attention of every layer runs the flash-attention kernel forward and its
 hand-written backward (``kernels.flash_attention.FlashAttentionFunction``).
+
+On a mesh (a ``Model`` built with one) the step is the reference's jitted
+step under its placements: the model's loss is the global one and each
+rank's gradients those of its share of it on its block of the batch
+(microbatches split that block; ``Model.loss``), the gradients are summed
+over the data axes (one all-reduce per leaf and per data axis, before
+clipping), and the global norm is the norm of the global gradient; AdamW
+updates each rank's blocks.
 """
 from __future__ import annotations
 
@@ -13,6 +21,8 @@ from typing import Callable
 
 import torch
 
+from ..dist import collectives as coll
+from ..dist.sharding import data_axes
 from .optimizer import (adamw_update, clip_by_global_norm, lr_schedule,
                         tree_leaves, tree_map, tree_unflatten)
 
@@ -24,13 +34,19 @@ def value_and_grad(loss_fn: Callable, params, *args):
     the gradients a tree like ``params`` in the parameters' dtypes."""
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     loss = loss_fn(tree_unflatten(params, leaves), *args)
-    grads = torch.autograd.grad(loss, leaves)
+    # a leaf the loss does not read (command-r's norm2 in its parallel
+    # block) gets a zero gradient, as jax.grad gives it
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
     return loss.detach(), tree_unflatten(params, grads)
 
 
 def make_train_step(model, tcfg) -> Callable:
     """Returns ``step(params, opt_state, batch) -> (params, opt_state,
-    metrics)``; ``batch`` holds tensors on the parameters' device."""
+    metrics)``; ``batch`` holds tensors on the parameters' device.  On the
+    model's mesh ``params``, ``opt_state`` and ``batch`` are this rank's
+    blocks and the ``loss`` and ``grad_norm`` metrics the global ones."""
+    mesh = model.mesh
 
     def loss_fn(params, batch):
         return model.loss(params, batch, remat=tcfg.remat)
@@ -54,7 +70,11 @@ def make_train_step(model, tcfg) -> Callable:
 
     def step(params, opt_state, batch):
         loss, grads = grads_of(params, batch)
-        grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+        for a in data_axes(mesh):
+            for g in tree_leaves(grads):
+                coll.all_reduce(g, mesh, a)
+        grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip, mesh,
+                                           model.specs)
         lr = lr_schedule(opt_state["step"], tcfg.learning_rate,
                          tcfg.warmup_steps, tcfg.total_steps)
         params, opt_state = adamw_update(
@@ -68,6 +88,8 @@ def make_train_step(model, tcfg) -> Callable:
 
 
 def make_eval_step(model) -> Callable:
+    """Returns ``step(params, batch) -> loss`` without gradients; on the
+    model's mesh the global loss of the ranks' blocks."""
     def step(params, batch):
         with torch.no_grad():
             return model.loss(params, batch)

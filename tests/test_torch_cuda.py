@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain torch versions, and the
 paths that run them (the miner, on one device and on gloo ranks sharing
-the card; the sliding-window miner; LM serving), on the card.
+the card; the sliding-window miner; LM serving; LM training, on one device
+and on the tiny mesh of 4 gloo ranks sharing the card), on the card.
 
 Every test here needs a CUDA device and skips on a host without one.  The
 file imports neither jax nor the reference package, so it runs on a machine
@@ -578,7 +579,8 @@ CAP_Q_SCALE = 16.0
     (1, 10, 2, 257, 128, 0, 0.0),     # G = 5, D = 128 (llama4)
     (2, 12, 2, 300, 128, 0, 30.0),    # grok's soft-cap, G = 6, D = 128
     (1, 12, 2, 129, 128, 64, 30.0),   # a cap and a window
-    (1, 8, 4, 77, 256, 0, 30.0)])     # a cap at D = 256
+    (1, 8, 4, 77, 256, 0, 30.0),      # a cap at D = 256
+    (2, 4, 1, 1024, 256, 0, 0.0)])    # a rank of gemma-2b on the tiny mesh
 def test_flash_attention_wgmma_bf16(cuda, b, h, hkv, s, d, window, softcap):
     """The bf16 tensor-core kernel (and only it) runs bf16 inputs, with or
     without a logit soft-cap, within half a bf16 unit of the float32 plain
@@ -692,7 +694,8 @@ BWD_REL_EMU = 1e-3
     (2, 4, 2, 64, 16, True, 8),       # the reduced configs' D
     (1, 4, 4, 97, 64, False, 0),      # non-causal, G = 1
     (2, 8, 2, 77, 96, True, 0),       # G = 4, D padded to 128
-    (1, 2, 1, 1, 128, True, 0)])      # one row
+    (1, 2, 1, 1, 128, True, 0),       # one row
+    (2, 4, 1, 1024, 256, True, 0)])   # a rank of gemma-2b on the tiny mesh
 def test_flash_attention_bwd_matches_its_plain_version(cuda, b, h, hkv, s, d,
                                                        causal, window, dtype):
     """The forward's lse against the plain scores' logsumexp, the backward
@@ -738,7 +741,8 @@ def test_flash_attention_bwd_matches_its_plain_version(cuda, b, h, hkv, s, d,
 
 @pytest.mark.parametrize("b,h,hkv,s,d,window", [
     (4, 8, 1, 1024, 256, 0), (2, 8, 4, 2048, 256, 1024), (2, 8, 1, 200, 256, 0),
-    (2, 4, 2, 64, 16, 8), (1, 2, 1, 1, 128, 0), (16, 8, 1, 4096, 256, 0)])
+    (2, 4, 2, 64, 16, 8), (1, 2, 1, 1, 128, 0), (16, 8, 1, 4096, 256, 0),
+    (2, 4, 1, 1024, 256, 0)])
 def test_flash_attention_bwd_plan_matches_its_mirror(cuda, b, h, hkv, s, d, window):
     """The CUDA plan of the bf16 backward (flash_attention_bwd_plan) equals
     its Python mirror, which the CPU tests check for coverage and shared
@@ -827,6 +831,56 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+def _np_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _np_tree(v) for k, v in tree.items()}
+    return tree.numpy()
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "gemma3-4b"])
+def test_mesh_training_on_four_gloo_ranks_sharing_the_card(cuda, arch, tmp_path):
+    """The reduced float32 config on the tiny mesh, (data, model) = (2, 2),
+    4 gloo ranks sharing the card (the ``train`` job of launch.mesh_runs),
+    against the same model in this process on the CPU from the same
+    weights: losses within 1e-4 relative on every rank; K6's float32
+    forward and backward once per layer and step on every rank; the lead
+    rank's checkpoint restored on the mesh replays step 3 bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import reduced_config
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.mesh_runs import run_jobs
+    from repro_torch.launch.train import train_run
+    from repro_torch.models import init_params, stages_meta
+    cfg = reduced_config(get_config(arch))
+    n_layers = sum(c for _, c in stages_meta(cfg))
+    rate = dict(learning_rate=1e-3, warmup_steps=1, total_steps=3)
+    job = dict(kind="train", mesh="tiny", arch=arch, reduced=True, steps=3,
+               batch=4, seq=32, tcfg=rate, params=_np_tree(init_params(
+                   cfg, torch.Generator().manual_seed(0), "cpu")))
+    ckpt = dict(job, steps=2, then=1, ckpt_dir=str(tmp_path), ckpt_every=2,
+                gather=True)
+    restored = dict(ckpt, steps=1, then=0, params=None, seed=1)
+    per_rank = run_ranks(run_jobs, 4, backend="gloo", device="cuda",
+                         args=([job, ckpt, restored],), timeout=300)
+    host = train_run(job, torch.device("cpu"))
+    for res, a, b in per_rank:
+        for got, want in zip(res["losses"], host["losses"]):
+            assert abs(got - want) <= 1e-4 * abs(want)
+        for rec in res["records"]:
+            assert rec["launches"]["flash_attention.fma_f32"] == n_layers
+            assert rec["launches"]["flash_attention_bwd.fma_f32"] == n_layers
+            assert rec["launches"]["flash_attention.wgmma_bf16"] == 0
+        assert b["resumed"] == 2 and b["losses"] == a["losses"][2:]
+        if a["lead"]:
+            assert _trees_equal(a["params"], b["params"])
+
+
+def _trees_equal(a, b):
+    if isinstance(a, dict):
+        return sorted(a) == sorted(b) and all(_trees_equal(a[k], b[k]) for k in a)
+    return np.array_equal(a, b)
 
 
 @pytest.mark.parametrize("arch,heads", [

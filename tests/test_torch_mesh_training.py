@@ -1,0 +1,539 @@
+"""The port's mesh training (``launch.train --mesh``, ``dist.sharding``'s
+placement rules, the tensor- and data-parallel model, the train step,
+``TrainingRunner`` and checkpoints on a mesh) against the JAX package, on
+the CPU.
+
+One module-scoped start of 4 gloo ranks (``launch.mesh.run_ranks``) runs
+every mesh job (``launch.mesh_runs``' ``train`` kind) on the reference's
+``tiny`` mesh, ``("data", "model") = (2, 2)``; the reference runs the same
+training under its GSPMD placements on the conftest's 4 host devices, from
+the same weights (the reference's ``init_params``, carried over as numpy).
+Tolerances, each with its reason:
+
+* each step's loss within 1e-5 relative: float32 sums taken in other
+  orders (a row-parallel product's partial sums, the vocab-split
+  log-sum-exp, the data ranks' gradients);
+* the gathered parameters after 3 steps within 1e-4 absolute: the same
+  sums, carried through AdamW at a rate of 1e-3;
+* placements, checkpoints and refusals exactly.
+"""
+
+import multiprocessing as mp
+import os
+import re
+import subprocess
+import sys
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+from jax.sharding import PartitionSpec as P
+
+from repro.configs import TrainConfig as JTrainConfig
+from repro.configs import get_config as j_get_config
+from repro.configs.reduced import reduced_config as j_reduced
+from repro.data import TokenPipeline as JTokenPipeline
+from repro.dist import sharding as j_sharding
+from repro.launch.mesh import make_mesh_named as j_make_mesh_named
+from repro.models import Model as JModel
+from repro.models import init_params as j_init_params
+from repro.training import RunnerConfig as JRunnerConfig
+from repro.training import TrainingRunner as JTrainingRunner
+from repro.training import adamw_init as j_adamw_init
+from repro.training import make_train_step as j_make_train_step
+from repro.training.optimizer import zero1_spec_tree as j_zero1
+from repro_torch.configs import get_config
+from repro_torch.dist import sharding
+from repro_torch.launch import train
+from repro_torch.launch.mesh import named_mesh_layout, run_ranks
+from repro_torch.launch.mesh_runs import run_jobs
+from repro_torch.models.convert import param_shapes
+from repro_torch.training import zero1_spec_tree
+
+DENSE = ["gemma-2b", "gemma3-4b", "internlm2-20b", "command-r-35b"]
+PORTED = DENSE + ["grok-1-314b", "llama4-maverick-400b-a17b"]
+STEPS, SEQ = 3, 16
+# the rate the comparisons train at: warmup 1 so steps 2 and 3 move the
+# weights (the default schedule's first 3 steps move them by < 1e-5)
+TCFG = dict(learning_rate=1e-3, warmup_steps=1)
+# (label, arch, batch, microbatches): every dense config, then a batch the
+# data axis does not divide and two microbatches
+CASES = [(a, a, 4, 1) for a in DENSE] + [("gemma-2b batch 3", "gemma-2b", 3, 1),
+                                         ("gemma-2b microbatches 2", "gemma-2b", 4, 2)]
+
+
+class FakeMesh:
+    axis_names = ("data", "model")
+    shape = {"data": 16, "model": 16}
+
+
+class FakeMesh4:
+    axis_names = ("data", "model")
+    shape = {"data": 4, "model": 4}
+
+
+class FakeDataMesh:
+    axis_names = ("data",)
+    shape = {"data": 4}
+
+
+class PodMesh:
+    axis_names = ("pod", "data", "model")
+    shape = {"pod": 2, "data": 4, "model": 4}
+
+
+def _ref_params(arch, seed=0):
+    jcfg = j_reduced(j_get_config(arch))
+    return jcfg, j_init_params(jax.random.PRNGKey(seed), jcfg)
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _batch_fn(jcfg, batch):
+    pipe = JTokenPipeline(jcfg.vocab_size, batch=batch, seq_len=SEQ, seed=0)
+    return lambda i: {k: jnp.asarray(v) for k, v in pipe.batch_at(i).items()}
+
+
+def _ref_mesh_step(jcfg, microbatches):
+    """The reference driver's jitted step under its tiny-mesh placements
+    (``launch/train.py``), and the placements."""
+    mesh = j_make_mesh_named("tiny")
+    tcfg = JTrainConfig(total_steps=STEPS, microbatches=microbatches,
+                        remat="none", **TCFG)
+    step = j_make_train_step(JModel(jcfg), tcfg)
+    shapes = jax.eval_shape(lambda: j_init_params(jax.random.PRNGKey(0), jcfg))
+    pshard = j_sharding.sharding_tree(shapes, mesh, jcfg.expert_sharding)
+    return jax.jit(step, in_shardings=(pshard, None, None),
+                   out_shardings=(pshard, None, None)), pshard
+
+
+def _ref_mesh_run(arch, batch, microbatches):
+    """3 steps of the reference on its tiny mesh: (losses, final params)."""
+    jcfg, jp = _ref_params(arch)
+    j_sharding.set_mesh(j_make_mesh_named("tiny"))
+    try:
+        step, pshard = _ref_mesh_step(jcfg, microbatches)
+        params, opt = jax.device_put(jp, pshard), j_adamw_init(jp)
+        fn, losses = _batch_fn(jcfg, batch), []
+        for i in range(STEPS):
+            params, opt, m = step(params, opt, fn(i))
+            losses.append(float(m["loss"]))
+        return losses, _np(params)
+    finally:
+        j_sharding.reset_mesh()
+
+
+# the reference's mesh runs by (arch, batch, microbatches), made by the
+# fixture in worker processes (their compiles take most of this file's time)
+_REF = {}
+
+
+def _ref(arch, batch, microbatches):
+    return _REF[(arch, batch, microbatches)]
+
+
+def _job(arch, batch, microbatches, ckpt_dir, **kw):
+    _, jp = _ref_params(arch)
+    job = dict(kind="train", mesh="tiny", arch=arch, reduced=True,
+               steps=STEPS, batch=batch, seq=SEQ, microbatches=microbatches,
+               tcfg=TCFG, params=_np(jp), ckpt_dir=str(ckpt_dir), gather=True)
+    job.update(kw)
+    return job
+
+
+CLI_FLAGS = ["--arch", "gemma-2b", "--reduced", "--mesh", "tiny", "--steps", "3",
+             "--batch", "4", "--seq", "16"]
+
+
+def _cli(module, ckpt_dir, *extra):
+    """``python -m <module> CLI_FLAGS`` started in the background (the
+    reference's on 4 XLA host devices)."""
+    env = {**os.environ, "PYTHONPATH": "src",
+           "XLA_FLAGS": "--xla_force_host_platform_device_count=4"}
+    return subprocess.Popen([sys.executable, "-m", module, *CLI_FLAGS,
+                             "--ckpt-dir", str(ckpt_dir), *extra],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env)
+
+
+def _failed_run(job):
+    """The error of a start of 4 gloo ranks running ``job`` (None if every
+    rank finished)."""
+    try:
+        run_ranks(run_jobs, 4, backend="gloo", device="cpu", args=([job],),
+                  timeout=300)
+    except RuntimeError as e:
+        return str(e)
+    return None
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(tmp_path_factory):
+    """Every mesh job in one start of 4 gloo ranks, beside the two drivers'
+    ``--mesh tiny`` runs (subprocesses) and the reference's mesh runs (this
+    process), all at once; returns (jobs by label, per-rank results by
+    label, the drivers' ``(returncode, stdout, stderr)`` by package)."""
+    root = tmp_path_factory.mktemp("mesh_training")
+    clis = {"port": _cli("repro_torch.launch.train", root / "cli_t", "--device",
+                         "cpu", "--dist-backend", "gloo"),
+            "reference": _cli("repro.launch.train", root / "cli_j")}
+    # the reference's mesh runs, meanwhile, in 3 processes (spawned: they
+    # inherit the 4 host devices' flag and import this module)
+    pool = ProcessPoolExecutor(3, mp_context=mp.get_context("spawn"))
+    threads = ThreadPoolExecutor(1)
+    keys = [(arch, b, mb) for _, arch, b, mb in CASES]
+    refs = [pool.submit(_ref_mesh_run, *k) for k in keys]
+    try:
+        # a reference checkpoint at step 2, written without a mesh, which a
+        # mesh job restores
+        jcfg, jp = _ref_params("gemma-2b")
+        jtcfg = JTrainConfig(total_steps=STEPS, remat="none", **TCFG)
+        jrunner = JTrainingRunner(
+            JRunnerConfig(str(root / "jax"), checkpoint_every=2),
+            jax.jit(j_make_train_step(JModel(jcfg), jtcfg)), jp,
+            j_adamw_init(jp), _batch_fn(jcfg, 4))
+        jrunner.run(2)
+        jobs = {label: _job(arch, b, mb, root / label.replace(" ", "_"), eval=True)
+                for label, arch, b, mb in CASES}
+        whole = dict(TCFG, total_steps=STEPS)   # the 3-step schedule
+        # 2 steps with a checkpoint at 2, then step 3 in memory
+        jobs["ckpt"] = _job("gemma-2b", 4, 1, root / "torch", steps=2,
+                            ckpt_every=2, then=1, tcfg=whole)
+        # the reference's directory restored on the mesh, then step 3
+        jobs["restore"] = _job("gemma-2b", 4, 1, root / "jax", steps=1,
+                               params=None, seed=5, tcfg=whole)
+        jobs["moe"] = dict(_job("grok-1-314b", 4, 1, root / "moe"), params=None)
+        jobs["seq_parallel"] = dict(jobs["moe"], arch="gemma-2b",
+                                    cfg={"seq_parallel": True})
+        jobs["mlp_dp"] = dict(jobs["moe"], arch="gemma-2b", cfg={"mlp_dp": True})
+        jobs["single"] = dict(jobs["moe"], arch="gemma-2b", mesh="single")
+        labels = list(jobs)
+        # a run whose step 1 fails on rank 1 alone, in 4 ranks of its own
+        # meanwhile (the failure ends that start)
+        failing = threads.submit(_failed_run, _job(
+            "gemma-2b", 4, 1, root / "fail", ckpt_every=1, fail=(1, 1)))
+        per_rank = run_ranks(run_jobs, 4, backend="gloo", device="cpu",
+                             args=([jobs[k] for k in labels],), timeout=300)
+        _REF.update(zip(keys, (f.result() for f in refs)))
+        failed = failing.result()
+    except BaseException:
+        for proc in clis.values():
+            proc.kill()
+        raise
+    finally:
+        pool.shutdown(cancel_futures=True)
+        threads.shutdown()
+    results = {k: [r[i] for r in per_rank] for i, k in enumerate(labels)}
+    results["one rank fails"] = failed
+    drivers = {}
+    for name, proc in clis.items():
+        stdout, stderr = proc.communicate(timeout=600)
+        drivers[name] = (proc.returncode, stdout, stderr)
+    return jobs, results, drivers
+
+
+# ---------------------------------------------------------------------------
+# placements
+# ---------------------------------------------------------------------------
+
+def _ref_shapes(arch):
+    cfg = j_get_config(arch)
+    return cfg, jax.eval_shape(lambda: j_init_params(jax.random.PRNGKey(0), cfg))
+
+
+def _flat(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flat(tree[k], path + (k,))
+    else:
+        yield "/".join(path), tree
+
+
+@pytest.mark.parametrize("mesh_name", ["tiny", "single", "multi"])
+@pytest.mark.parametrize("arch", PORTED)
+def test_placements_equal_the_references_on_every_leaf(arch, mesh_name):
+    """spec_tree, zero1_spec_tree and batch_spec of the port equal the
+    reference's on every leaf of the config at full shapes."""
+    jcfg, shapes = _ref_shapes(arch)
+    mesh = named_mesh_layout(mesh_name)
+    want = dict(_flat(j_sharding.spec_tree(shapes, mesh, jcfg.expert_sharding)))
+    got = dict(_flat(sharding.spec_tree(param_shapes(get_config(arch)), mesh,
+                                        jcfg.expert_sharding)))
+    shape_of = dict(_flat(jax.tree.map(lambda s: s.shape, shapes)))
+    assert sorted(got) == sorted(want)
+    widen, jwiden = zero1_spec_tree(got, mesh), j_zero1(want, mesh)
+    for path in want:
+        assert got[path] == tuple(want[path]), path
+        assert widen(got[path], shape_of[path]) == tuple(
+            jwiden(want[path], shape_of[path])), path
+    for b in (1, 2, 3, 4, 8, 16, 32, 64, 256, 512):
+        assert sharding.batch_spec(b, mesh) == tuple(j_sharding.batch_spec(b, mesh))
+
+
+# the rule cases of the reference's tests (test_sharding_rules.py,
+# test_dist_sharding.py), on their meshes
+RULE_CASES = [
+    (FakeMesh, "stages/s0/stk_wq", (48, 6144, 6144), P(None, None, "model")),
+    (FakeMesh, "stages/s0/stk_wo", (48, 6144, 6144), P(None, "model", None)),
+    (FakeMesh, "stages/s0/stk_w_up", (48, 6144, 16384), P(None, None, "model")),
+    (FakeMesh, "stages/s0/stk_w_down", (48, 16384, 6144), P(None, "model", None)),
+    (FakeMesh, "embed", (256000, 2048), P("model", None)),
+    (FakeMesh, "embed", (51865, 512), P(None, None)),
+    (FakeMesh, "lm_head", (6144, 92544), P(None, "model")),
+    (FakeMesh, "stages/s0/stk_norm1_scale", (48, 6144), P(None, None)),
+    (FakeMesh, "stages/s0/stk_experts_up", (24, 128, 5120, 8192),
+     P(None, "data", None, "model")),
+    (FakeMesh, "stages/s0/stk_experts_down", (24, 128, 8192, 5120),
+     P(None, "data", "model", None)),
+    (FakeMesh, "stages/s0/stk_router", (24, 5120, 128), P(None, None, None)),
+    (FakeMesh4, "stages/s0/stk_wq", (8, 64, 64), P(None, None, "model")),
+    (FakeMesh4, "stages/s0/stk_w_gate", (8, 64, 256), P(None, None, "model")),
+    (FakeMesh4, "stages/s0/stk_ssm_in_proj", (8, 64, 256), P(None, None, "model")),
+    (FakeMesh4, "stages/s0/stk_m_in_proj", (8, 64, 256), P(None, None, "model")),
+    (FakeMesh4, "stages/s0/stk_wo", (8, 64, 64), P(None, "model", None)),
+    (FakeMesh4, "stages/s0/stk_ssm_out_proj", (8, 128, 64), P(None, "model", None)),
+    (FakeMesh4, "stages/s0/stk_m_out_proj", (8, 128, 64), P(None, "model", None)),
+    (FakeMesh4, "stages/s0/stk_norm1_scale", (8, 64), P(None, None)),
+    (FakeMesh4, "final_norm/scale", (64,), P(None)),
+    (FakeMesh4, "stages/s0/stk_router", (8, 64, 16), P(None, None, None)),
+    (FakeMesh4, "stages/s0/stk_ssm_conv", (8, 4, 128), P(None, None, None)),
+    (FakeMesh4, "stages/s0/stk_ssm_a_log", (8, 128, 16), P(None, None, None)),
+    (FakeMesh4, "enc_pos", (1500, 64), P(None, None)),
+    (FakeMesh4, "embed", (1024, 64), P("model", None)),
+    (FakeMesh4, "embed", (1023, 64), P(None, None)),
+    (FakeMesh4, "lm_head", (64, 1024), P(None, "model")),
+    (FakeMesh4, "lm_head", (64, 1023), P(None, None)),
+    (FakeMesh4, "stages/s0/stk_experts_up", (8, 16, 64, 256),
+     P(None, "data", None, "model")),
+    (FakeMesh4, "stages/s0/stk_experts_down", (8, 16, 256, 64),
+     P(None, "data", "model", None)),
+    (FakeMesh4, "stages/s0/stk_experts_up", (8, 6, 64, 256),
+     P(None, None, None, "model")),
+    (FakeDataMesh, "stages/s0/stk_wq", (8, 64, 64), P(None, None, None)),
+    (FakeDataMesh, "embed", (1024, 64), P(None, None)),
+]
+
+
+@pytest.mark.parametrize("mesh_cls,path,shape,expect", RULE_CASES)
+def test_param_spec_rule_cases(mesh_cls, path, shape, expect):
+    got = sharding.param_spec(path, shape, mesh_cls())
+    assert got == tuple(expect) == tuple(j_sharding.param_spec(path, shape, mesh_cls()))
+
+
+@pytest.mark.parametrize("kw,path,shape", [
+    (dict(mlp_dp=True), "stages/s0/stk_w_up", (8, 64, 256)),
+    (dict(mlp_dp=True), "stages/s0/stk_w_down", (8, 256, 64)),
+    (dict(mlp_dp=True), "stages/s0/stk_wq", (8, 64, 64)),
+    (dict(expert_sharding="tp2d"), "stages/s0/stk_experts_up", (8, 6, 64, 256)),
+    (dict(expert_sharding="tp2d"), "stages/s0/stk_experts_down", (8, 6, 256, 64)),
+    (dict(expert_sharding="tp2d"), "stages/s0/stk_experts_up", (64, 8, 6144, 32768)),
+])
+def test_param_spec_flag_rules(kw, path, shape):
+    for mesh in (FakeMesh(), FakeMesh4(), PodMesh()):
+        assert sharding.param_spec(path, shape, mesh, **kw) == tuple(
+            j_sharding.param_spec(path, shape, mesh, **kw))
+
+
+def test_dp_axes_and_batch_spec_rule_cases():
+    for mesh in (FakeMesh4(), FakeDataMesh(), PodMesh()):
+        assert sharding.dp_axes(mesh) == j_sharding.dp_axes(mesh)
+        for b in (1, 3, 6, 8, 16):
+            assert sharding.batch_spec(b, mesh) == tuple(j_sharding.batch_spec(b, mesh))
+    assert sharding.dp_axes(None) == ("data",)
+    assert sharding.batch_spec(8, None) == (None,)
+    assert sharding.batch_spec(8, FakeMesh4()) == ("data",)
+    assert sharding.batch_spec(6, FakeMesh4()) == (None,)
+    assert sharding.batch_spec(16, PodMesh()) == (("pod", "data"),)
+
+
+@pytest.mark.parametrize("name", ["tiny", "single", "single_pod", "16x16", "multi",
+                                  "multi_pod", "2x16x16", "pipeline"])
+def test_named_meshes_are_the_references(name, monkeypatch):
+    """Each named mesh has the reference's shape and axis names (the
+    reference's mesh constructor recorded instead of called: the large
+    meshes need 256 and 512 devices)."""
+    from repro.launch import mesh as jm
+    monkeypatch.setattr(jm, "make_mesh", lambda shape, axes, **kw: (tuple(shape),
+                                                                    tuple(axes)))
+    d = named_mesh_layout(name)
+    shape = tuple(d.shape[a] for a in d.axis_names)
+    assert (shape, d.axis_names) == jm.make_mesh_named(name)
+
+
+def test_an_unknown_mesh_name_raises():
+    with pytest.raises(ValueError, match="unknown mesh"):
+        named_mesh_layout("nope")
+
+
+def test_shard_and_gather_trees_round_trip_without_ranks():
+    """shard_tree's blocks, laid side by side in mesh order, are the leaf
+    (a one-rank mesh stand-in: coordinates and sizes only)."""
+    import torch
+
+    class Stub:
+        mesh_dim_names = ("data", "model")
+
+        def __init__(self, d, m):
+            self.coord = {"data": d, "model": m}
+
+        def size(self, i):
+            return 2
+
+        def get_local_rank(self, axis):
+            return self.coord[axis]
+
+    x = torch.arange(4 * 6 * 8, dtype=torch.float32).reshape(4, 6, 8)
+    spec = {"w": (None, "model", ("data", "model"))}
+    blocks = {(d, m): sharding.shard_tree({"w": x}, Stub(d, m), spec)["w"]
+              for d in range(2) for m in range(2)}
+    for (d, m), blk in blocks.items():
+        assert blk.shape == (4, 3, 2) and blk.is_contiguous()
+        assert torch.equal(blk, x[:, m * 3:(m + 1) * 3, (d * 2 + m) * 2:(d * 2 + m + 1) * 2])
+    with pytest.raises(ValueError, match="does not split"):
+        sharding.shard_tree({"w": x[:, :5]}, Stub(0, 0), spec)
+
+
+# ---------------------------------------------------------------------------
+# training against the reference's tiny mesh
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("label,arch,batch,microbatches", CASES)
+def test_mesh_training_matches_the_references_mesh(mesh_runs, label, arch, batch,
+                                                   microbatches):
+    _, results, _ = mesh_runs
+    want_losses, want_params = _ref(arch, batch, microbatches)
+    per_rank = results[label]
+    for res in per_rank:
+        assert "error" not in res, res
+        np.testing.assert_allclose(res["losses"], want_losses, rtol=1e-5)
+        assert res["losses"] == per_rank[0]["losses"]
+    lead = [r for r in per_rank if r["lead"]]
+    assert len(lead) == 1 and all(r["params"] is None for r in per_rank if not r["lead"])
+    got = dict(_flat(lead[0]["params"]))
+    want = dict(_flat(want_params))
+    assert sorted(got) == sorted(want)
+    for path in want:
+        np.testing.assert_allclose(got[path], want[path].astype(np.float32),
+                                   rtol=0, atol=1e-4, err_msg=path)
+
+
+@pytest.mark.parametrize("label,arch,batch,microbatches", CASES)
+def test_the_eval_step_on_a_mesh_gives_the_global_loss(mesh_runs, label, arch,
+                                                       batch, microbatches):
+    """make_eval_step of the model on the mesh gives, on every rank, the
+    global loss of the whole batch: the reference mesh's first step's loss
+    at the same weights (a replicated batch and two microbatches too)."""
+    _, results, _ = mesh_runs
+    want_losses, _ = _ref(arch, batch, microbatches)
+    for res in results[label]:
+        np.testing.assert_allclose(res["eval_loss"], want_losses[0], rtol=1e-5)
+
+
+def test_a_step_failing_on_one_rank_fails_every_rank(mesh_runs):
+    """A step that raises on one rank of the mesh is not retried there (the
+    other ranks are inside its collectives): the run fails, naming it."""
+    _, results, _ = mesh_runs
+    err = results["one rank fails"]
+    assert err is not None, "the run finished although rank 1 failed"
+    assert re.search(r"rank 1 failed:[\s\S]*injected failure at step 1", err), err
+
+
+def _per_step_counts(cfg_layers, mqa, microbatches, n_leaves, chunks=1):
+    """The collectives of one step on a rank of the tiny mesh (the count
+    chip_smoke.py declares): per microbatch the embedding's, two per layer
+    forward and backward, the loss's (the max and the sums a chunk, h's
+    gradient), the gathers of an MQA layer; per step the global norm's; on
+    ``data`` the mask count and the loss a microbatch, and every leaf."""
+    model = {"all_reduce": microbatches * (1 + 4 * cfg_layers + chunks + 1) + 1,
+             "all_reduce_max": microbatches * chunks}
+    if mqa:
+        model.update(all_gather=microbatches * cfg_layers,
+                     reduce_scatter=microbatches * cfg_layers)
+    return {"data": {"all_reduce": 2 * microbatches + n_leaves}, "model": model}
+
+
+@pytest.mark.parametrize("label", ["gemma-2b", "gemma3-4b", "gemma-2b microbatches 2"])
+def test_mesh_step_collectives_are_the_declared_count(mesh_runs, label):
+    jobs, results, _ = mesh_runs
+    job = jobs[label]
+    cfg = j_reduced(j_get_config(job["arch"]))
+    n_leaves = len(jax.tree.leaves(job["params"]))
+    want = _per_step_counts(cfg.n_layers, cfg.n_kv_heads % 2 != 0,
+                            job["microbatches"], n_leaves)
+    for res in results[label]:
+        for rec in res["records"]:
+            got = {a: {op: c["calls"] for op, c in ops.items()}
+                   for a, ops in rec["collectives"].items()}
+            assert got == want
+
+
+# ---------------------------------------------------------------------------
+# checkpoints, refusals, the driver
+# ---------------------------------------------------------------------------
+
+def test_a_mesh_checkpoint_restores_in_the_reference_without_a_mesh(mesh_runs):
+    """The lead rank writes the global arrays at step 2; the reference,
+    without a mesh, restores them and its step 3 gives the mesh's loss."""
+    jobs, results, _ = mesh_runs
+    lead = next(r for r in results["ckpt"] if r["lead"])
+    jcfg, jp = _ref_params("gemma-2b", seed=3)       # other weights
+    jtcfg = JTrainConfig(total_steps=STEPS, remat="none", **TCFG)
+    ref = JTrainingRunner(JRunnerConfig(jobs["ckpt"]["ckpt_dir"], checkpoint_every=100),
+                          jax.jit(j_make_train_step(JModel(jcfg), jtcfg)), jp,
+                          j_adamw_init(jp), _batch_fn(jcfg, 4))
+    assert ref.maybe_restore() == 2
+    ref.run(1)
+    np.testing.assert_allclose(ref.metrics_log[0]["loss"], lead["losses"][2], rtol=1e-5)
+    want, _ = _ref("gemma-2b", 4, 1)
+    np.testing.assert_allclose(lead["losses"], want, rtol=1e-5)
+
+
+def test_the_references_checkpoint_restores_on_the_mesh(mesh_runs):
+    """A checkpoint the reference wrote without a mesh restores on the mesh
+    (each rank its blocks) and step 3 follows as on the reference's mesh."""
+    _, results, _ = mesh_runs
+    want_losses, want_params = _ref("gemma-2b", 4, 1)
+    for res in results["restore"]:
+        assert res["resumed"] == 2 and res["final"] == 3
+        np.testing.assert_allclose(res["losses"], want_losses[2:], rtol=1e-5)
+    lead = next(r for r in results["restore"] if r["lead"])
+    for path, want in _flat(want_params):
+        np.testing.assert_allclose(dict(_flat(lead["params"]))[path],
+                                   want.astype(np.float32), atol=1e-4, err_msg=path)
+
+
+@pytest.mark.parametrize("label,match", [
+    ("moe", r"NotImplementedError: .*ROADMAP item 12c"),
+    ("seq_parallel", r"NotImplementedError: .*seq_parallel.*ROADMAP item 12h"),
+    ("mlp_dp", r"NotImplementedError: .*mlp_dp.*ROADMAP item 12h"),
+    ("single", r"ValueError: mesh 'single' \(16, 16\) needs 256 ranks; the "
+               r"process group has 4"),
+])
+def test_mesh_refusals(mesh_runs, label, match):
+    _, results, _ = mesh_runs
+    for res in results[label]:
+        assert re.search(match, res["error"]), res
+
+
+def test_launch_train_mesh_prints_the_references_line(mesh_runs, tmp_path):
+    """``launch.train --mesh tiny --dist-backend gloo --device cpu`` on 4
+    ranks prints the reference driver's ``[train]`` line (times and losses
+    left out: each package draws its own random weights); a MoE config on
+    the mesh is refused before any rank starts."""
+    _, _, drivers = mesh_runs
+    for name, (rc, _, err) in drivers.items():
+        assert rc == 0, (name, err[-2000:])
+
+    def masked(text):
+        text = re.sub(r"in \d+\.\ds", "in Ts", text)
+        return re.sub(r"loss \d+\.\d+ -> \d+\.\d+", "loss A -> B", text).splitlines()
+    assert masked(drivers["port"][1]) == masked(drivers["reference"][1]) == [
+        "[train] gemma-2b steps 0->3 in Ts; loss A -> B"]
+    with pytest.raises(NotImplementedError, match="ROADMAP item 12c"):
+        train.main(["--arch", "grok-1-314b", "--reduced", "--mesh", "tiny",
+                    "--device", "cpu", "--dist-backend", "gloo",
+                    "--ckpt-dir", str(tmp_path / "g")])

@@ -529,8 +529,10 @@ def test_token_pipeline_matches_the_reference(shards):
 def test_launch_train_prints_the_references_line_and_resumes(tmp_path, capsys):
     """``launch.train`` on the CPU: the reference driver's ``[train]`` line
     (times and losses left out: the weights are random in each package),
-    resuming from its checkpoint on a second run; ``--mesh`` waits for
-    mesh training."""
+    resuming from its checkpoint on a second run; ``--mesh tiny`` trains on
+    4 gloo ranks and prints the same line, and refuses a mixture of experts
+    (``tests/test_torch_mesh_training.py`` holds the mesh against the
+    reference's)."""
     import re
     import subprocess
     import sys
@@ -553,5 +555,10 @@ def test_launch_train_prints_the_references_line_and_resumes(tmp_path, capsys):
     train.main(flags[:3] + ["--steps", "2", "--batch", "2", "--seq", "16",
                             "--ckpt-dir", str(tmp_path / "t"), "--device", "cpu"])
     assert "steps 3->5" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        train.main(flags + ["--mesh", "tiny", "--device", "cpu"])
+    train.main(flags + ["--mesh", "tiny", "--device", "cpu", "--dist-backend",
+                        "gloo", "--ckpt-dir", str(tmp_path / "mesh")])
+    assert masked(capsys.readouterr().out) == [
+        "[train] gemma-2b steps 0->3 in Ts; loss A -> B"]
+    with pytest.raises(NotImplementedError, match="ROADMAP item 12c"):
+        train.main(["--arch", "grok-1-314b", "--reduced", "--mesh", "tiny",
+                    "--device", "cpu", "--dist-backend", "gloo"])
