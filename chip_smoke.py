@@ -71,7 +71,8 @@ paths end to end:
   the delta, wgmma + TMA dK/dV, reduction and dQ kernels; float32: FMA
   kernels) against the plain textbook backward and, in bf16, against the
   emulation of its arithmetic at gemma-2b's and gemma3-4b's attention
-  shapes, bit-equal on a second call (``check_flash_attention_bwd``); the
+  shapes and, soft-capped at 30, at grok's training layer, bit-equal on a
+  second call (``check_flash_attention_bwd``); the
   float32 reduced gemma-2b and
   gemma3-4b trained 5 steps on the card and on the CPU from the same
   weights and batches, also with ``remat="full"`` (``run_training_reduced``);
@@ -81,10 +82,14 @@ paths end to end:
   bit for bit,
   18 K6 forward and 18 backward launches a step, the plain attention
   paths made to raise on the card, and step 1 again with the plain
-  attention patched in (``run_training``);
+  attention patched in (``run_training``); grok-1 at full width cut to 1
+  of its 64 layers (B = 2, S = 1,024) the same way, 5 steps with a
+  restore at 3, its MoE's dropped share each step, K6's capped forward
+  and backward once a step (``run_training_grok``);
 * LM training on the reference's tiny mesh, (data, model) = (2, 2), as 4
   gloo ranks sharing the card (``run_mesh_training``): the float32 reduced
-  gemma-2b and gemma3-4b against one CPU process, gemma-2b at full width
+  gemma-2b, gemma3-4b, grok-1 (experts ``tp2d``) and llama4-maverick
+  (``ep``, the all-to-all) against one CPU process, gemma-2b at full width
   with 4 of its 18 layers in bf16 against one rank of the card, a
   TrainingRunner restored on the mesh replaying step 3 bit for bit, K6
   forward and backward once a layer and step on every rank and the
@@ -332,6 +337,17 @@ TRAIN_MESH_BF16_REL = 1e-2
 # 2 model ranks, the one KV head gathered whole
 MESH_RANK = (2, 4, 1, 1024, 256)
 MESH_RANK_SHAPE = "B=2 H=4 Hkv=1 S=1024 D=256 bf16 causal window=0"
+# grok-1 training at full width on one card (run_training_grok): 1 of its
+# 64 layers (a second MoE layer is ~59 GB more with AdamW), bf16, B x S
+# tokens a step, steps (in memory); its attention layer (B, H, Hkv, S, D),
+# K6's capped backward's row in the kernels line
+GROK_B, GROK_S, GROK_STEPS = 2, 1024, 5
+# the reduced float32 configs trained on the tiny mesh against one CPU
+# process (run_mesh_training (a))
+MESH_REDUCED_ARCHS = ("gemma-2b", "gemma3-4b", "grok-1-314b",
+                      "llama4-maverick-400b-a17b")
+GROK_LAYER = (2, 48, 8, 1024, 128)
+GROK_LAYER_SHAPE = "B=2 H=48 Hkv=8 S=1024 D=128 bf16 causal window=0 softcap=30"
 
 
 class SmokeFailure(RuntimeError):
@@ -1153,8 +1169,10 @@ def _stream_slide_checks(what, i, n_blocks, push_l, mine_l, n_expands, level2):
 def run_streams(launches):
     """The sliding-window miner on the card: T10I4D100K and chess streams on
     the ``fused`` and ``ref`` backends, each slide held to the port's batch
-    ``mine()`` of the window, to the ``ref`` stream and to the reference's
-    pinned checksum, with the kernels' launches per push and per mine; then
+    ``mine()`` of the window (run once a slide, in the fused pass: both
+    backends slide the same batches through windows of the same size, so
+    their windows are the same), to the ``ref`` stream and to the
+    reference's pinned checksum, with the kernels' launches per push and per mine; then
     the same streams on 4 gloo ranks sharing the card (tidsharded 1x4, grid
     2x2 and sharded 4 for chess, tidsharded 1x4 for T10I4D100K), every rank
     held to the pinned checksums, zero collectives per push and one
@@ -1185,7 +1203,7 @@ def run_streams(launches):
     for name, n_blocks, block_txns, min_sup, n_batches, drift in STREAMS:
         n_items = stream_spec(name).n_items
         pinned = STREAM_CHECKSUMS[name]
-        sums = {}
+        sums, batch_sums = {}, []
         for backend in ("fused", "ref"):
             what = f"stream {name} {backend}"
             cfg = StreamConfig(min_sup=min_sup, n_blocks=n_blocks,
@@ -1235,12 +1253,15 @@ def run_streams(launches):
                         require(not any(push_l.values()) and not any(mine_l.values()),
                                 f"{what} slide {i}: the ref backend launched "
                                 f"{push_l} {mine_l}")
-                    kernels.reset_launch_counts()
-                    t0 = time.perf_counter()
-                    whole = mine(miner.window_transactions(), n_items,
-                                 EclatConfig(min_sup=min_sup))
-                    batch_s = time.perf_counter() - t0
-                    batch_sum = support_checksum(whole.support_map())
+                    batch_s = None
+                    if backend == "fused":
+                        kernels.reset_launch_counts()
+                        t0 = time.perf_counter()
+                        whole = mine(miner.window_transactions(), n_items,
+                                     EclatConfig(min_sup=min_sup))
+                        batch_s = time.perf_counter() - t0
+                        batch_sums.append(support_checksum(whole.support_map()))
+                    batch_sum = batch_sums[i]
                     phase = st["phase_s"]
                     row = dict(push_s=push_s, level2=phase.get("level2", 0.0),
                                bottom_up=phase.get("bottom_up", 0.0),
@@ -1253,7 +1274,8 @@ def run_streams(launches):
                           f"push_s={push_s:.4f} level2={row['level2']:.4f} "
                           f"bottom_up={row['bottom_up']:.4f} "
                           f"slide_s={row['slide_s']:.4f} "
-                          f"batch_mine_s={batch_s:.4f} "
+                          f"batch_mine_s="
+                          f"{'(the fused pass)' if batch_s is None else f'{batch_s:.4f}'} "
                           f"launches push={ {k: v for k, v in push_l.items() if v} } "
                           f"mine={ {k: v for k, v in mine_l.items() if v} }")
                     require(csum == batch_sum,
@@ -1287,9 +1309,11 @@ def run_streams(launches):
 
     jobs = []
     for label, name, backend, shard, grid in MESH_STREAMS:
-        _, n_blocks, block_txns, min_sup, n_batches, drift = next(
+        _, n_blocks, block_txns, min_sup, _, _ = next(
             st for st in STREAMS if st[0] == name)
-        jobs.append(dict(kind="stream", stream=(name, block_txns, n_batches, 0, drift),
+        # the batches made above, pickled to each rank: generating
+        # T10I4D100K's again on every rank costs more than its slides
+        jobs.append(dict(kind="stream", batches=batches[name],
                          n_items=stream_spec(name).n_items, grid=grid,
                          label=label, name=name, n_blocks=n_blocks,
                          config=dict(min_sup=min_sup, n_blocks=n_blocks,
@@ -1299,8 +1323,8 @@ def run_streams(launches):
     per_rank = run_ranks(run_jobs, 4, backend="gloo", device="cuda",
                          args=(jobs,), timeout=600)
     print(f"e2e stream mesh gloo 4 ranks on one card: {len(jobs)} streams in "
-          f"{time.perf_counter() - t0:.2f}s with spawn, each rank regenerating "
-          f"the streams (a correctness topology: its times are no measure of "
+          f"{time.perf_counter() - t0:.2f}s with spawn, the batches sent to each "
+          f"rank (a correctness topology: its times are no measure of "
           f"a 4-card mesh)")
     for j, job in enumerate(jobs):
         _check_mesh_stream(job, [r[j] for r in per_rank], times)
@@ -2708,9 +2732,11 @@ def check_reduced_models():
 def check_flash_attention_bwd():
     """K6's forward lse and its backward kernels against the plain textbook
     backward at the training shapes: gemma-2b's global layer (bf16 and
-    float32), gemma3-4b's local layer (bf16) and a ragged length; the bf16
-    kernels also against the emulation of their arithmetic; a second call
-    gives the same bits."""
+    float32), gemma3-4b's local layer (bf16) and a ragged length; with
+    grok's soft-cap of 30 (q drawn CAP_Q_SCALE times larger) its training
+    layer (G = 6, bf16), the reduced grok (float32), a windowed layer and
+    G = 1; the bf16 kernels also against the emulation of their
+    arithmetic; a second call gives the same bits."""
     import torch
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention import (attention_bwd_bf16_ref,
@@ -2719,30 +2745,40 @@ def check_flash_attention_bwd():
                                                      bwd_plan,
                                                      flash_attention,
                                                      flash_attention_bwd)
-    # (label, B, H, Hkv, S, D, window, dtypes)
-    cases = [("gemma-2b global", 4, 8, 1, 1024, 256, 0,
+    # (label, B, H, Hkv, S, D, window, softcap, dtypes)
+    cases = [("gemma-2b global", 4, 8, 1, 1024, 256, 0, 0.0,
               (torch.bfloat16, torch.float32)),
-             ("gemma3-4b local", 2, 8, 4, 2048, 256, 1024, (torch.bfloat16,)),
-             ("ragged S=1000 local", 2, 8, 4, 1000, 256, 1024,
-              (torch.bfloat16, torch.float32))]
-    for label, b, h, hkv, s, d, window, dtypes in cases:
+             ("gemma3-4b local", 2, 8, 4, 2048, 256, 1024, 0.0, (torch.bfloat16,)),
+             ("ragged S=1000 local", 2, 8, 4, 1000, 256, 1024, 0.0,
+              (torch.bfloat16, torch.float32)),
+             ("grok-1 training layer capped", *GROK_LAYER, 0, CAP, (torch.bfloat16,)),
+             ("reduced grok capped", 4, 4, 4, 64, 16, 0, CAP, (torch.float32,)),
+             ("capped local S=1000", 2, 12, 2, 1000, 128, 256, CAP,
+              (torch.bfloat16, torch.float32)),
+             ("capped G=1", 2, 8, 8, 512, 128, 0, CAP, (torch.bfloat16,))]
+    for label, b, h, hkv, s, d, window, cap, dtypes in cases:
         for dtype in dtypes:
             what = f"flash_attention_bwd {label} {dtype}"
             q, k, v = attn_inputs(b, h, hkv, s, d, dtype, seed=s + h + d, model_layout=True)
+            if cap:
+                q = (q.float() * CAP_Q_SCALE).to(dtype)
             gen = torch.Generator(device="cuda")
             gen.manual_seed(s)
             dout = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype).transpose(1, 2)
             kernels.reset_launch_counts()
-            out, lse = flash_attention(q, k, v, causal=True, window=window, return_lse=True)
-            got = flash_attention_bwd(q, k, v, out, dout, lse, causal=True, window=window)
-            again = flash_attention_bwd(q, k, v, out, dout, lse, causal=True, window=window)
+            out, lse = flash_attention(q, k, v, causal=True, window=window, softcap=cap,
+                                       return_lse=True)
+            got = flash_attention_bwd(q, k, v, out, dout, lse, causal=True, window=window,
+                                      softcap=cap)
+            again = flash_attention_bwd(q, k, v, out, dout, lse, causal=True, window=window,
+                                        softcap=cap)
             variant = "wgmma_bf16" if dtype == torch.bfloat16 else "fma_f32"
             counts = kernels.variant_counts()
             torch.cuda.synchronize()
             require(counts[f"flash_attention_bwd.{variant}"] == 2 and
                     kernels.launch_counts()["flash_attention_bwd"] == 2,
                     f"{what}: variant launches {counts}")
-            args = dict(causal=True, window=window or None)
+            args = dict(causal=True, window=window or None, softcap=cap)
             want_lse = attention_lse_ref(q.float(), k.float(), **args)
             lse_err = float((lse - want_lse).abs().max())
             require(lse_err <= LSE_TOL, f"{what}: lse off by {lse_err:.3e}")
@@ -2778,7 +2814,7 @@ def check_flash_attention_bwd():
                 plan = (f", {p.heads_per_block} head(s) per dK/dV block, {p.n_split} "
                         f"split(s), {p.dkdv_blocks} dK/dV + {p.dq_blocks} dQ blocks")
             print(f"check {what} B={b} H={h} Hkv={hkv} S={s} D={d} causal window={window} "
-                  f"({variant}{plan}): lse max abs err {lse_err:.3e}; {'; '.join(parts)} "
+                  f"softcap={cap:g} ({variant}{plan}): lse max abs err {lse_err:.3e}; {'; '.join(parts)} "
                   f"(limit {limit}); two calls equal")
             del q, k, v, dout, out, lse, got, again, want, want_lse, emu
             torch.cuda.empty_cache()
@@ -2841,41 +2877,40 @@ def run_training_reduced():
                   f"and backward {n_layers} launches a step ({n_layers} layers)")
 
 
-def run_training():
-    """gemma-2b at full width and depth, bf16, B = 4, S = 1,024: 6 steps,
-    the first 3 through TrainingRunner.run with a checkpoint every 3, then
-    a fresh runner restored from that checkpoint whose steps 4-6 must equal
-    the first run's bit for bit; the plain attention paths raise on the
-    card throughout; then step 1 again with the plain attention patched
-    in.  Returns the backward kernel's launches over the 9 steps."""
+def _train_on_card(cfg, label, batch, seq, steps, every=None):
+    """``cfg`` in bf16 on the card, ``batch`` x ``seq`` tokens a step:
+    ``steps`` steps, the first ``every`` through TrainingRunner.run with a
+    checkpoint at step ``every``, then a fresh runner restored from it
+    whose steps must equal the first run's bit for bit (with no ``every``,
+    the steps in memory and no checkpoint); K6 forward and backward once a
+    layer and step (wgmma_bf16), the plain attention paths raising on the
+    card throughout; then step 1 again with the plain attention patched in.
+    Returns the backward kernel's launches over the kernel steps, and the
+    run's numbers for the timing line."""
     import shutil
-    import statistics
+    import types
     import torch
     import repro_torch.kernels.flash_attention.ops as ops_mod
     import repro_torch.models.attention as attn_mod
     from repro_torch import kernels
-    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.configs import TrainConfig
     from repro_torch.data import TokenPipeline
     from repro_torch.kernels.flash_attention import attention_ref
-    from repro_torch.launch.kernel_timing import nvidia_smi
     from repro_torch.models import Model, init_params, stages_meta
     from repro_torch.training import (RunnerConfig, TrainingRunner, adamw_init,
                                       make_train_step, valid_steps)
     from repro_torch.training.optimizer import tree_leaves
 
-    cfg = get_config("gemma-2b")
     n_layers = sum(c for _, c in stages_meta(cfg))
-    require(n_layers == 18 and cfg.dtype == "bfloat16",
-            f"gemma-2b: {n_layers} layers {cfg.dtype}, expected 18 bfloat16")
     t0 = time.perf_counter()
-    pipe = TokenPipeline(cfg.vocab_size, batch=TRAIN_B, seq_len=TRAIN_S, seed=0)
-    batches = {i: pipe.batch_at(i) for i in range(TRAIN_STEPS)}
-    print(f"train data: {TRAIN_STEPS} batches of {TRAIN_B} x {TRAIN_S} tokens "
+    pipe = TokenPipeline(cfg.vocab_size, batch=batch, seq_len=seq, seed=0)
+    batches = {i: pipe.batch_at(i) for i in range(steps)}
+    print(f"train data {label}: {steps} batches of {batch} x {seq} tokens "
           f"(TokenPipeline seed 0) in {time.perf_counter() - t0:.2f}s")
     # warmup 1: every step after the first (whose scheduled rate is 0, as
     # in the reference) moves the bf16 weights by more than half a unit
-    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1,
-                       total_steps=TRAIN_STEPS, remat="none")
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=steps,
+                       remat="none")
     step = make_train_step(Model(cfg), tcfg)
     records = []
 
@@ -2892,7 +2927,7 @@ def run_training():
         """The runner's state carried on from step ``start`` to the last,
         in memory (no checkpoint written); their metrics."""
         log = []
-        for i in range(start, TRAIN_STEPS):
+        for i in range(start, steps):
             tokens = torch.from_numpy(batches[i]["tokens"]).cuda()
             runner.params, runner.opt_state, m = counted_step(
                 runner.params, runner.opt_state, {"tokens": tokens})
@@ -2915,50 +2950,61 @@ def run_training():
     saved = attn_mod.flash_chunked, ops_mod.attention_ref
     attn_mod.flash_chunked = guard(attn_mod.flash_chunked, "flash_chunked")
     ops_mod.attention_ref = guard(ops_mod.attention_ref, "attention_ref")
-    # one checkpoint of gemma-2b (bf16 params, float32 AdamW moments) is
-    # 25 GB: the run writes one, to keep its disk writes under 45 GiB, and
-    # both runs go on past it in memory
-    directory = tempfile.mkdtemp(prefix="chip_smoke-train-")
+    # with ``every`` the run writes one checkpoint (bf16 params, float32
+    # AdamW moments), and both runs go on past it in memory
+    directory = None if every is None else tempfile.mkdtemp(prefix="chip_smoke-train-")
+    again, wall_b, write_s = [], None, None
     try:
+        torch.cuda.reset_peak_memory_stats()
         params, opt = fresh(0)
         n_params = sum(t.numel() for t in tree_leaves(params))
-        print(f"train init gemma-2b: {n_params} parameters (bf16), AdamW mu/nu "
-              f"float32; {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
-        torch.cuda.reset_peak_memory_stats()
-        runner = TrainingRunner(RunnerConfig(directory, checkpoint_every=TRAIN_EVERY),
-                                counted_step, params, opt, batches.__getitem__)
-        del params, opt
-        t = time.perf_counter()
-        require(runner.run(TRAIN_EVERY) == TRAIN_EVERY, "the runner stopped early")
-        wall_a = time.perf_counter() - t
-        write_s = runner.ckpt.last_write_s
-        steps = valid_steps(directory)
-        require(steps == [TRAIN_EVERY], f"checkpoints at {steps}")
-        first = runner.metrics_log + steps_from(runner, TRAIN_EVERY)
-        peak = torch.cuda.max_memory_allocated()
-        del runner
-        torch.cuda.empty_cache()
-        # a fresh runner (other weights) restores step 3 and replays 4-6
-        params, opt = fresh(1)
-        restored = TrainingRunner(RunnerConfig(directory, checkpoint_every=TRAIN_EVERY),
-                                  counted_step, params, opt, batches.__getitem__)
-        del params, opt
-        t = time.perf_counter()
-        require(restored.maybe_restore() == TRAIN_EVERY, "no restore at step 3")
-        again = steps_from(restored, TRAIN_EVERY)
-        wall_b = time.perf_counter() - t
-        del restored
+        state_gb = torch.cuda.memory_allocated() / 1e9
+        print(f"train init {label}: {n_params} parameters (bf16), AdamW mu/nu "
+              f"float32; {state_gb:.2f} GB on the card")
+        if directory is None:
+            held = types.SimpleNamespace(params=params, opt_state=opt)
+            del params, opt
+            t = time.perf_counter()
+            first = steps_from(held, 0)
+            wall_a = time.perf_counter() - t
+            peak = torch.cuda.max_memory_allocated()
+            del held
+        else:
+            runner = TrainingRunner(RunnerConfig(directory, checkpoint_every=every),
+                                    counted_step, params, opt, batches.__getitem__)
+            del params, opt
+            t = time.perf_counter()
+            require(runner.run(every) == every, "the runner stopped early")
+            wall_a = time.perf_counter() - t
+            write_s = runner.ckpt.last_write_s
+            found = valid_steps(directory)
+            require(found == [every], f"checkpoints at {found}")
+            first = runner.metrics_log + steps_from(runner, every)
+            peak = torch.cuda.max_memory_allocated()
+            del runner
+            torch.cuda.empty_cache()
+            # a fresh runner (other weights) restores step `every` and replays
+            params, opt = fresh(1)
+            restored = TrainingRunner(RunnerConfig(directory, checkpoint_every=every),
+                                      counted_step, params, opt, batches.__getitem__)
+            del params, opt
+            t = time.perf_counter()
+            require(restored.maybe_restore() == every, f"no restore at step {every}")
+            again = steps_from(restored, every)
+            wall_b = time.perf_counter() - t
+            del restored
         torch.cuda.empty_cache()
     finally:
         attn_mod.flash_chunked, ops_mod.attention_ref = saved
-        shutil.rmtree(directory, ignore_errors=True)
-    require(len(first) == TRAIN_STEPS and len(again) == TRAIN_STEPS - TRAIN_EVERY,
+        if directory is not None:
+            shutil.rmtree(directory, ignore_errors=True)
+    require(len(first) == steps and len(again) == (0 if every is None else steps - every),
             f"metrics of {len(first)} and {len(again)} steps")
     for m in first:
         require(all(map(lambda x: x == x and abs(x) != float("inf"),
                         (m["loss"], m["grad_norm"]))), f"non-finite metrics {m}")
-    require(again == first[TRAIN_EVERY:],
-            f"the restored steps differ: {again} against {first[TRAIN_EVERY:]}")
+    require(every is None or again == first[every:],
+            f"the restored steps differ: {again} against {first[every:]}")
     want = {"flash_attention": n_layers, "flash_attention.wgmma_bf16": n_layers,
             "flash_attention_bwd": n_layers, "flash_attention_bwd.wgmma_bf16": n_layers,
             "flash_attention.fma_f32": 0, "flash_attention_bwd.fma_f32": 0,
@@ -2968,7 +3014,7 @@ def run_training():
                 all(counts[k] == n for k, n in want.items()) and
                 all(counts[k] == 0 for k in MINING_KERNELS) and
                 counts["popcount_support"] == 0 and counts["fused_intersect_partial"] == 0,
-                f"training step call {i}: launches {counts}")
+                f"{label} training step call {i}: launches {counts}")
     bwd_launches = sum(c["flash_attention_bwd"] for _, c in records)
 
     # step 1 again, with the plain attention patched in
@@ -2990,29 +3036,94 @@ def run_training():
     rel_loss = abs(plain["loss"] - first[0]["loss"]) / abs(plain["loss"])
     rel_norm = abs(plain["grad_norm"] - first[0]["grad_norm"]) / plain["grad_norm"]
     require(rel_loss <= TRAIN_PLAIN_BF16_REL and rel_norm <= TRAIN_PLAIN_BF16_REL,
-            f"step 1 through the kernels (loss {first[0]['loss']}, grad norm "
+            f"{label} step 1 through the kernels (loss {first[0]['loss']}, grad norm "
             f"{first[0]['grad_norm']}) against the plain attention (loss "
             f"{plain['loss']}, grad norm {plain['grad_norm']})")
-
-    step_s = [t for t, _ in records]
-    median_ms = statistics.median(step_s[1:TRAIN_STEPS]) * 1e3
-    tokens = TRAIN_B * TRAIN_S
-    print(f"train gemma-2b bf16 B={TRAIN_B} S={TRAIN_S} remat=none: losses "
+    how = ("in memory, no checkpoint" if every is None else
+           f"restored at step {every}: steps {every + 1}-{steps} bit-equal")
+    print(f"train {label} bf16 B={batch} S={seq} remat=none: losses "
           f"{[m['loss'] for m in first]} grad norms {[m['grad_norm'] for m in first]}; "
-          f"restored at step {TRAIN_EVERY}: steps {TRAIN_EVERY + 1}-{TRAIN_STEPS} "
-          f"bit-equal; K6 forward {n_layers} (wgmma_bf16) and backward {n_layers} "
+          f"{how}; K6 forward {n_layers} (wgmma_bf16) and backward {n_layers} "
           f"(wgmma_bf16) launches every step, no plain attention on the card")
-    print(f"train gemma-2b: step 1 with the plain attention: loss {plain['loss']} "
+    print(f"train {label}: step 1 with the plain attention: loss {plain['loss']} "
           f"(rel diff {rel_loss:.3e}), grad norm {plain['grad_norm']} (rel diff "
           f"{rel_norm:.3e}), both <= {TRAIN_PLAIN_BF16_REL:.0e}")
-    print(f"train gemma-2b timing ({nvidia_smi('name,power.limit')}): step_ms "
-          f"median of steps 2-{TRAIN_STEPS} {median_ms:.1f} (all: "
-          f"{[round(t * 1e3, 1) for t in step_s]}), tokens_per_s "
-          f"{tokens / median_ms * 1e3:.0f}, peak_mem_GB {peak / 1e9:.2f}, "
-          f"runner wall_s {wall_a:.1f} (3 steps and the step-{TRAIN_EVERY} "
-          f"checkpoint) + {wall_b:.1f} (restore + 3 steps), checkpoint write_s "
-          f"{write_s:.1f}")
-    return bwd_launches
+    return bwd_launches, dict(step_s=[t for t, _ in records], peak=peak,
+                              state_gb=state_gb, wall_a=wall_a, wall_b=wall_b,
+                              write_s=write_s)
+
+
+def _train_timing_line(label, batch, seq, steps, every, run):
+    import statistics
+    from repro_torch.launch.kernel_timing import nvidia_smi
+    median_ms = statistics.median(run["step_s"][1:steps]) * 1e3
+    print(f"train {label} timing ({nvidia_smi('name,power.limit')}): step_ms "
+          f"median of steps 2-{steps} {median_ms:.1f} (all: "
+          f"{[round(t * 1e3, 1) for t in run['step_s']]}), tokens_per_s "
+          f"{batch * seq / median_ms * 1e3:.0f}, peak_mem_GB {run['peak'] / 1e9:.2f} "
+          f"(weights and AdamW state {run['state_gb']:.2f}), " + (
+              f"wall_s {run['wall_a']:.1f} ({steps} steps in memory)" if every is None
+              else f"runner wall_s {run['wall_a']:.1f} ({every} steps and the "
+              f"step-{every} checkpoint) + {run['wall_b']:.1f} (restore + "
+              f"{steps - every} steps), checkpoint write_s {run['write_s']:.1f}"))
+
+
+def run_training():
+    """gemma-2b at full width and depth, bf16, B = 4, S = 1,024: 6 steps
+    with a checkpoint at 3 and a restore replaying 4-6 bit for bit
+    (:func:`_train_on_card`).  Returns the backward kernel's launches over
+    the 9 kernel steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import stages_meta
+    cfg = get_config("gemma-2b")
+    n_layers = sum(c for _, c in stages_meta(cfg))
+    require(n_layers == 18 and cfg.dtype == "bfloat16",
+            f"gemma-2b: {n_layers} layers {cfg.dtype}, expected 18 bfloat16")
+    # one checkpoint of gemma-2b (bf16 params, float32 AdamW moments) is
+    # 25 GB; the card's machine allows 45 GiB of disk writes a call
+    launches, run = _train_on_card(cfg, "gemma-2b", TRAIN_B, TRAIN_S, TRAIN_STEPS,
+                                   TRAIN_EVERY)
+    _train_timing_line("gemma-2b", TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_EVERY, run)
+    return launches
+
+
+@contextlib.contextmanager
+def _moe_stats_printed(label):
+    """Record each MoE call's dropped share and expert load while the block
+    runs (``launch.train.moe_calls``, this process only), then print them
+    in call order."""
+    from repro_torch.launch.train import moe_calls
+    with moe_calls() as calls:
+        yield
+    seen = [(float(d), [round(x, 4) for x in load.tolist()]) for d, load in calls]
+    require(seen, f"{label}: no MoE call")
+    print(f"moe {label}: {len(seen)} MoE calls (one a step); dropped_frac "
+          f"{[round(d, 4) for d, _ in seen]}; expert load of the first "
+          f"{seen[0][1]} and last {seen[-1][1]}")
+
+
+def run_training_grok():
+    """grok-1-314b at its published width cut to 1 of its 64 layers (a MoE
+    of top-2 of 8 experts, attention soft-capped at 30), bf16, B = 2, S =
+    1,024: GROK_STEPS steps in memory, no checkpoint (57 GB of state to
+    write; ``run_training`` holds the runner's checkpoint and restore),
+    K6's capped forward and backward once a step
+    (:func:`_train_on_card`), each step's MoE dropped share printed, the
+    peak memory against the 68.7 GB of weights, gradients and AdamW state
+    the config gives.  Returns the capped backward's launches."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("grok-1-314b"), n_layers=1)
+    require(cfg.dtype == "bfloat16" and cfg.attn_logit_softcap == CAP,
+            f"grok-1-314b: {cfg.dtype}, softcap {cfg.attn_logit_softcap}")
+    with _moe_stats_printed("grok-1-314b train"):
+        launches, run = _train_on_card(cfg, "grok-1-314b (1 of 64 layers)", GROK_B,
+                                       GROK_S, GROK_STEPS)
+    _train_timing_line("grok-1-314b (1 of 64 layers)", GROK_B, GROK_S, GROK_STEPS,
+                       None, run)
+    require(run["peak"] <= torch.cuda.get_device_properties(0).total_memory,
+            f"grok peak {run['peak']}")
+    return launches
 
 
 def mesh_step_collectives(n_layers, mqa, microbatches, n_leaves, chunks):
@@ -3031,6 +3142,31 @@ def mesh_step_collectives(n_layers, mqa, microbatches, n_leaves, chunks):
         model.update(all_gather=microbatches * n_layers,
                      reduce_scatter=microbatches * n_layers)
     return {"data": {"all_reduce": 2 * microbatches + n_leaves}, "model": model}
+
+
+def moe_step_collectives(cfg, n_leaves, n_data_split, chunks):
+    """The collectives one train step of a mixture of experts makes on each
+    rank of the tiny mesh (one microbatch, no MQA gathers): on ``model``
+    the dense count (the experts' input and output take the MLP's two
+    all-reduces a layer) and one more all-reduce of the global norm (the
+    leaves split over both axes); on ``data`` the mask count and the loss,
+    two a MoE layer (its top-1 counts and kept entries, its aux loss),
+    every leaf but the ``n_data_split`` its placement splits over ``data``,
+    and the norm's one; and the experts' exchanges over ``data``: ``ep``
+    two all-to-alls forward and two backward, ``tp2d`` a gather and a
+    reduce-scatter forward and their conjugates backward."""
+    from repro_torch.models import stages_meta
+    n_layers = sum(c for _, c in stages_meta(cfg))
+    n_moe = sum(c for kind, c in stages_meta(cfg) if kind.endswith("+moe"))
+    out = mesh_step_collectives(n_layers, False, 1, n_leaves, chunks)
+    out["model"]["all_reduce"] += 1
+    data = {"all_reduce": 2 + 2 * n_moe + n_leaves - n_data_split + 1}
+    if cfg.expert_sharding == "tp2d":
+        data.update(all_gather=2 * n_moe, reduce_scatter=2 * n_moe)
+    else:
+        data.update(all_to_all=4 * n_moe)
+    out["data"] = data
+    return out
 
 
 def _np_tree(tree):
@@ -3068,12 +3204,34 @@ def _check_mesh_steps(what, per_rank, n_layers, variant, declared):
                     f"{what} rank {r} step {i + 1}: collectives {got}, declared {declared}")
 
 
+def _check_moe_steps(what, got, want, tokens):
+    """Each step's MoE calls (``train_run``'s ``moe_stats``) on the card
+    against the same job's on the host: the same top-1 counts (expert load
+    times ``tokens``) and dropped shares within float32 rounding of a mean
+    taken in another order."""
+    import numpy as np
+    require(len(got) == len(want), f"{what}: {len(got)} steps, host {len(want)}")
+    for i, (a, b) in enumerate(zip(got, want)):
+        require(len(a["moe"]) == len(b["moe"]) > 0,
+                f"{what} step {i + 1}: MoE calls {len(a['moe'])}, host {len(b['moe'])}")
+        for (da, la), (db, lb) in zip(a["moe"], b["moe"]):
+            require(np.array_equal(np.rint(np.asarray(la) * tokens),
+                                   np.rint(np.asarray(lb) * tokens)) and
+                    abs(da - db) <= 1e-6,
+                    f"{what} step {i + 1}: expert load {la} dropped {da}, host "
+                    f"{lb} dropped {db}")
+
+
 def run_mesh_training():
     """Training on the reference's tiny mesh, (data, model) = (2, 2), on 4
     gloo ranks sharing the card (NCCL refuses two ranks on one card), all
     jobs in one start of the ranks: (a) the float32 reduced gemma-2b and
     gemma3-4b, 3 steps, against the same model in one CPU process from the
-    same weights and batches; (b) gemma-2b at full width in bf16, 4 of its
+    same weights and batches, and the reduced grok-1 (tp2d) and
+    llama4-maverick (ep) at their own capacity factors against the same
+    jobs on 4 gloo ranks of the host (the same routing groups per data
+    shard, so the same drops): losses, and each step's expert load and
+    dropped share; (b) gemma-2b at full width in bf16, 4 of its
     18 layers, B = 4, S = 1,024, 3 steps, against the same model on one
     rank of the card; (c) a TrainingRunner restored on the mesh from its
     step-2 checkpoint replaying step 3 bit for bit.  Every step of every
@@ -3089,18 +3247,20 @@ def run_mesh_training():
     from repro_torch.launch.mesh_runs import run_jobs
     from repro_torch.launch.train import train_run
     from repro_torch.models import init_params, stages_meta
+    from repro_torch.dist.sharding import spec_axes, spec_tree
+    from repro_torch.launch.mesh import named_mesh_layout
     from repro_torch.models.convert import param_shapes
     from repro_torch.training.optimizer import tree_leaves
 
     root = tempfile.mkdtemp(prefix="chip_smoke-mesh-train-")
     rate = dict(learning_rate=1e-3, warmup_steps=1, total_steps=3)
     jobs = {}
-    for arch in ("gemma-2b", "gemma3-4b"):
+    for arch in MESH_REDUCED_ARCHS:
         cfg = reduced_config(get_config(arch))
         host = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
         jobs[arch] = dict(kind="train", mesh="tiny", arch=arch, reduced=True,
-                          steps=3, batch=4, seq=64, tcfg=rate,
-                          params=_np_tree(host))
+                          steps=3, batch=4, seq=64, tcfg=rate, params=_np_tree(host),
+                          moe_stats=bool(cfg.n_experts))
     # (c): 2 steps through the runner, a checkpoint at step 2, step 3 in
     # memory; then other weights restored from that checkpoint, step 3
     jobs["ckpt"] = dict(jobs["gemma-2b"], steps=2, ckpt_dir=os.path.join(root, "c"),
@@ -3119,31 +3279,71 @@ def run_mesh_training():
         shutil.rmtree(root, ignore_errors=True)
     wall = time.perf_counter() - t
     res = {k: [r[i] for r in per_rank] for i, k in enumerate(labels)}
-    for k, rs in res.items():
+    # the MoE jobs again on 4 gloo ranks of the host
+    moe_archs = [a for a in MESH_REDUCED_ARCHS if get_config(a).n_experts]
+    t = time.perf_counter()
+    on_host = run_ranks(run_jobs, 4, backend="gloo", device="cpu",
+                        args=([jobs[a] for a in moe_archs],), timeout=600)
+    host_wall = time.perf_counter() - t
+    host_res = {a: [r[i] for r in on_host] for i, a in enumerate(moe_archs)}
+    for k, rs in list(res.items()) + [(f"{a} on the host", x) for a, x in host_res.items()]:
         for r, x in enumerate(rs):
             require("error" not in x, f"mesh training {k} rank {r}: {x.get('error')}")
 
-    # (a) float32 against one CPU process
-    for arch in ("gemma-2b", "gemma3-4b"):
+    # (a) float32 against one CPU process, a MoE against the host's mesh
+    for arch in MESH_REDUCED_ARCHS:
         cfg = reduced_config(get_config(arch))
         n_layers = sum(c for _, c in stages_meta(cfg))
-        host = train_run(dict(jobs[arch], mesh=None), torch.device("cpu"))
+        against = "4 gloo ranks of the host" if cfg.n_experts else "one CPU process"
+        hosts = (host_res[arch] if cfg.n_experts else
+                 [train_run(dict(jobs[arch], mesh=None), torch.device("cpu"))] * 4)
         worst = 0.0
-        for r, x in enumerate(res[arch]):
+        for r, (x, host) in enumerate(zip(res[arch], hosts)):
             for i, (a, b) in enumerate(zip(x["losses"], host["losses"])):
                 worst = max(worst, abs(a - b) / abs(b))
                 require(abs(a - b) <= TRAIN_F32_REL * abs(b),
-                        f"mesh {arch} float32 rank {r} step {i + 1}: loss {a}, CPU {b}")
-        declared = mesh_step_collectives(n_layers, cfg.n_kv_heads % 2 != 0, 1,
-                                         len(tree_leaves(param_shapes(cfg))), 1)
+                        f"mesh {arch} float32 rank {r} step {i + 1}: loss {a}, "
+                        f"{against} {b}")
+            if cfg.n_experts:
+                _check_moe_steps(f"mesh {arch} float32 rank {r}", x["records"],
+                                 host["records"], 4 * 64)
+        n_leaves = len(tree_leaves(param_shapes(cfg)))
+        if cfg.n_experts:
+            specs = tree_leaves(spec_tree(param_shapes(cfg), named_mesh_layout("tiny"),
+                                          cfg.expert_sharding))
+            split = sum("data" in {a for e in sp for a in spec_axes(e)} for sp in specs)
+            declared = moe_step_collectives(cfg, n_leaves, split, 1)
+        else:
+            declared = mesh_step_collectives(n_layers, cfg.n_kv_heads % 2 != 0, 1,
+                                             n_leaves, 1)
         _check_mesh_steps(f"mesh {arch} float32", res[arch], n_layers, "fma_f32",
                           declared)
+        if cfg.n_experts:
+            dropped = [[round(d, 4) for d, _ in rec["moe"]] for rec in res[arch][0]["records"]]
+            require(any(d > 0 for step in dropped for d in step),
+                    f"mesh {arch}: no step dropped an entry {dropped}")
+            print(f"moe mesh {arch} float32, capacity factor {cfg.capacity_factor}: "
+                  f"dropped_frac a step and MoE layer {dropped}, each layer's expert "
+                  f"load and dropped share equal on the card and on the host's mesh "
+                  f"(host ranks started and run in {host_wall:.1f}s)")
         print(f"check mesh training reduced {arch} float32, tiny mesh on 4 gloo "
               f"ranks sharing the card: 3 steps, losses {res[arch][0]['losses']}, "
-              f"largest rel diff from one CPU process {worst:.3e} <= "
+              f"largest rel diff from {against} {worst:.3e} <= "
               f"{TRAIN_F32_REL:.0e} on every rank; K6 fma_f32 forward and backward "
               f"{n_layers} launches a step on every rank; collectives a step "
               f"{declared} on every rank, as declared")
+        if cfg.n_experts:
+            recs = [rec for x in res[arch] for rec in x["records"][1:]]
+            step_ms = statistics.median(rec["s"] for rec in recs) * 1e3
+            share = {a: round(sum(rec["collective_s"].get(a, 0.0) for rec in recs) /
+                              sum(rec["s"] for rec in recs), 3) for a in ("data", "model")}
+            print(f"train mesh {arch} reduced float32 timing "
+                  f"({nvidia_smi('name,power.limit')}): 4 gloo ranks, step_ms median "
+                  f"over ranks and steps 2-3 {step_ms:.1f}, collectives' share of a "
+                  f"step by axis (host time inside them, waits for the card "
+                  f"included) {share}, {cfg.expert_sharding} expert exchanges "
+                  f"{ {op: n for op, n in declared['data'].items() if op != 'all_reduce'} }"
+                  f" a step")
 
     # (c) restore on the mesh: step 3 replayed bit for bit
     lead_a = next(x for x in res["ckpt"] if x["lead"])
@@ -3377,6 +3577,80 @@ def time_flash_attention_bwd(launches):
     for key in ("ms", "plain_ms", "library_ms"):
         require(row["bound_ms"] <= row[key],
                 f"flash_attention_bwd: bound_ms {row['bound_ms']:.5f} exceeds {key}")
+    return row
+
+
+def time_capped_flash_attention_bwd(launches):
+    """K6's soft-capped backward at grok's training layer (GROK_LAYER, cap
+    30, q drawn CAP_Q_SCALE times larger) beside its bound, its plain
+    version, the uncapped backward on the same inputs and the library's
+    capped attention, torch.compile(flex_attention) with the cap as its
+    score_mod (the one PyTorch call that computes a capped gradient; the
+    port never calls it): its backward alone (``library_ms``, the graph of
+    one forward kept), and its forward plus backward beside K6's own.
+    Returns the kernels line's row."""
+    import torch
+    from repro_torch.kernels.flash_attention import (attention_ref_bwd,
+                                                     flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.launch.kernel_timing import device_ms, median_ms, nvidia_smi
+    b, h, hkv, s, d = GROK_LAYER
+    q, k, v = attn_inputs(b, h, hkv, s, d, torch.bfloat16, seed=31, model_layout=True)
+    q = (q.float() * CAP_Q_SCALE).to(torch.bfloat16)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(32)
+    dout = torch.randn((b, s, h, d), generator=gen, device="cuda").to(torch.bfloat16).transpose(1, 2)
+    out, lse = flash_attention(q, k, v, causal=True, window=0, softcap=CAP, return_lse=True)
+    fn = lambda: flash_attention_bwd(q, k, v, out, dout, lse, causal=True, window=0,
+                                     softcap=CAP)
+    uncapped_out, uncapped_lse = flash_attention(q, k, v, causal=True, window=0,
+                                                 return_lse=True)
+    uncapped = lambda: flash_attention_bwd(q, k, v, uncapped_out, dout, uncapped_lse,
+                                           causal=True, window=0)
+
+    def both():
+        o, lse_ = flash_attention(q, k, v, causal=True, window=0, softcap=CAP,
+                                  return_lse=True)
+        return flash_attention_bwd(q, k, v, o, dout, lse_, causal=True, window=0,
+                                   softcap=CAP)
+    plain = lambda: attention_ref_bwd(q, k, v, out, dout, lse, causal=True, softcap=CAP)
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    flex = flex_capped(qs, ks, vs, CAP, causal=True)
+    flex_out = flex()
+    lib = lambda: torch.autograd.grad(flex_out, (qs, ks, vs), dout, retain_graph=True)
+    lib_both = lambda: torch.autograd.grad(flex(), (qs, ks, vs), dout)
+    err = max(float((a.float() - b_.float()).norm() / b_.float().norm())
+              for a, b_ in zip(lib(), fn()))
+    require(err <= SDPA_TOL,
+            f"flex_attention's capped gradient disagrees with the capped backward: "
+            f"rel L2 {err:.3e}")
+    kept = s * (s + 1) // 2
+    nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+    bms, by = bound_attn(nbytes, 10 * d * kept * b * h)
+    row = dict(name="flash_attention_bwd", route="cuda",
+               source="src/repro_torch/csrc/flash_attention_bwd.cu",
+               replaces="src/repro/kernels/flash_attention/flash_attention.py:110",
+               shape=f"{GROK_LAYER_SHAPE} (grok-1 training)",
+               ms=device_ms(fn, reps=20), plain_ms=device_ms(plain, reps=3),
+               library_ms=device_ms(lib, reps=10), call_ms=median_ms(fn, reps=10),
+               bound_ms=bms, bound_by=by, launches=launches, listed=True,
+               also_listed=True)
+    uncapped_ms = device_ms(uncapped, reps=20)
+    both_ms = device_ms(both, reps=20)
+    lib_both_ms = device_ms(lib_both, reps=10)
+    print(f"timing flash_attention_bwd {row['shape']} ({nvidia_smi('name,power.limit')}): "
+          f"ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} bound_ms={row['bound_ms']:.5f} "
+          f"({by}) library_ms={row['library_ms']:.5f} launches_on_main_path={launches}; "
+          f"call_ms={row['call_ms']:.5f}; {row['ms'] / row['bound_ms']:.2f}x the bound; "
+          f"{row['ms'] / row['library_ms']:.2f}x the library's backward; uncapped "
+          f"backward on the same inputs {uncapped_ms:.5f} ms; library: "
+          f"torch.compile(flex_attention) with the cap as score_mod, its backward "
+          f"alone (library_ms) and forward plus backward {lib_both_ms:.5f} ms against "
+          f"K6's capped forward plus backward {both_ms:.5f} ms "
+          f"({both_ms / lib_both_ms:.2f}x), gradients within rel L2 {err:.3e}")
+    for key in ("ms", "plain_ms", "library_ms"):
+        require(row["bound_ms"] <= row[key],
+                f"capped flash_attention_bwd: bound_ms {row['bound_ms']:.5f} exceeds {key}")
     return row
 
 
@@ -3686,10 +3960,12 @@ def main() -> int:
     phase(check_flash_attention_bwd)
     phase(run_training_reduced)
     bwd_launches = phase(run_training)
+    grok_launches = phase(run_training_grok)
     mesh_launches = phase(run_mesh_training)
     rows = (phase(time_kernels, launches, miner, stream_rec) +
             phase(time_attention, serve_counts, model_counts) +
-            [phase(time_flash_attention_bwd, bwd_launches)] +
+            [phase(time_flash_attention_bwd, bwd_launches),
+             phase(time_capped_flash_attention_bwd, grok_launches)] +
             phase(time_mesh_rank_attention, mesh_launches))
     kernels_line = [dict(name=r["name"], route=r["route"], source=r["source"],
                          replaces=r["replaces"], shape=r["shape"],
@@ -3700,10 +3976,10 @@ def main() -> int:
                          library_ms=r["library_ms"])
                     for r in rows
                     if r["listed"] and (r["shape"] == REPORT_SHAPE[r["name"]] or
-                                        r.get("mesh_rank"))]
-    # one row per kernel at its report shape, and K6 forward and backward
-    # at the mesh rank's shape
-    require(len(kernels_line) == len(REPORT_SHAPE) + 2, "a kernel has no timing row")
+                                        r.get("mesh_rank") or r.get("also_listed"))]
+    # one row per kernel at its report shape, K6 forward and backward at
+    # the mesh rank's shape, and K6's capped backward at grok's layer
+    require(len(kernels_line) == len(REPORT_SHAPE) + 3, "a kernel has no timing row")
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,15 +4,26 @@
 // (natural log, float32), it computes, over the pairs (i, j) the masks keep
 // (as in the forward: j <= i when causal, j > i - window when window > 0),
 //
-//   P[i, j]  = exp(q_i . k_j * scale - lse_i)        (recomputed, not stored)
+//   P[i, j]  = exp(c(q_i . k_j * scale) - lse_i)     (recomputed, not stored)
 //   dV[j]    = sum_{h in group, i} P[i, j] do_i
 //   dP[i, j] = do_i . v_j
-//   dS[i, j] = P[i, j] (dP[i, j] - delta_i),  delta_i = do_i . o_i
+//   dS[i, j] = P[i, j] c'[i, j] (dP[i, j] - delta_i),  delta_i = do_i . o_i
 //   dQ[i]    = scale sum_j dS[i, j] k_j
 //   dK[j]    = scale sum_{h in group, i} dS[i, j] q_i
 //
 // in float32 from the inputs' values, the gradients written in the inputs'
-// type.  Tensors are addressed by strides (the head dimension contiguous),
+// type.  c is the forward's: the identity (c' = 1), or with a soft-cap > 0
+// the reference model's logit cap c(x) = cap t, t = tanh(x / cap), whose
+// derivative is c' = 1 - t^2 (the forward's lse is already of the capped
+// scores).  The capped kernels are their own template instances (kCap), so
+// the uncapped ones compile and time as they did: t is formed with tanhf
+// from the scaled score, as the forward forms it, and P c' is one product
+// taken before (dP - delta), so dS = (P c') (dP - delta).  At grok's
+// training layer (B = 2, H = 48, Hkv = 8, S = 1,024, D = 128, causal, cap
+// 30) the bound is 10 D x 50.4 M kept pairs = 64.5 GFLOP, 0.0652 ms; on the
+// H100 a capped call took 0.465 ms against 0.357 uncapped on the same
+// inputs (chip_smoke.py's timing line): the tanh sits on the path of both
+// the dK/dV and the dQ kernels, as in the forward.  Tensors are addressed by strides (the head dimension contiguous),
 // as in the forward; lse is (B, H, S) float32 contiguous.
 //
 // The reference package has no Pallas backward: it differentiates the plain
@@ -226,13 +237,30 @@ constexpr int dkdv_smem_bytes() {
          static_cast<int>(sizeof(float));
 }
 
-template <int kD, typename T>
+// P and P c' of one kept pair from its raw score s = q . k (kCap: the
+// capped score cap tanh(s scale / cap), formed as the float32 forward
+// kernel forms it)
+template <bool kCap>
+__device__ __forceinline__ void prob(float s, float li, float sm_scale, float cap, float& p,
+                                     float& pc) {
+  if (kCap) {
+    const float t = tanhf(s * sm_scale / cap);
+    p = expf(t * cap - li);
+    pc = p * (1.f - t * t);
+  } else {
+    p = expf(s * sm_scale - li);
+    pc = p;
+  }
+}
+
+template <int kD, typename T, bool kCap>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                 const T* __restrict__ v, const T* __restrict__ g,
                                 const float* __restrict__ lse, const float* __restrict__ delta,
                                 T* __restrict__ dk, T* __restrict__ dv, int H, int group, int S,
-                                int D, Strides st, float sm_scale, int causal, int window) {
+                                int D, Strides st, float sm_scale, float cap, int causal,
+                                int window) {
   constexpr int kLd = kD + 4;
   constexpr int kChunks = kD / 32;  // float4 columns per thread row
   extern __shared__ float4 smem4[];
@@ -301,9 +329,11 @@ flash_attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int col = tx + 8 * j;
-        const float p = kept(i, k0 + col, S, causal, window) ? expf(s[j] * sm_scale - li) : 0.f;
+        float p = 0.f, pc = 0.f;
+        if (kept(i, k0 + col, S, causal, window))
+          prob<kCap>(s[j], li, sm_scale, cap, p, pc);
         Ps[ty * kPLd + col] = p;
-        dSs[ty * kPLd + col] = p * (dp[j] - di);
+        dSs[ty * kPLd + col] = pc * (dp[j] - di);
       }
       __syncthreads();
 
@@ -348,13 +378,13 @@ constexpr int dq_smem_bytes() {
          static_cast<int>(sizeof(float));
 }
 
-template <int kD, typename T>
+template <int kD, typename T, bool kCap>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ v, const T* __restrict__ g,
                               const float* __restrict__ lse, const float* __restrict__ delta,
                               T* __restrict__ dq, int group, int S, int D, Strides st,
-                              float sm_scale, int causal, int window) {
+                              float sm_scale, float cap, int causal, int window) {
   constexpr int kLd = kD + 4;
   constexpr int kChunks = kD / 32;
   extern __shared__ float4 smem4[];
@@ -433,9 +463,10 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = tx + 8 * j;
-        const float p =
-            kept(q0 + lrow, k0 + col, S, causal, window) ? expf(s[r][j] * sm_scale - li) : 0.f;
-        dSs[lrow * kSLd + col] = p * (dp[r][j] - di);
+        float p = 0.f, pc = 0.f;
+        if (kept(q0 + lrow, k0 + col, S, causal, window))
+          prob<kCap>(s[r][j], li, sm_scale, cap, p, pc);
+        dSs[lrow * kSLd + col] = pc * (dp[r][j] - di);
       }
     }
     __syncthreads();
@@ -466,11 +497,11 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <int kD, typename T>
+template <int kD, typename T, bool kCap>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* g,
                    const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int H,
-                   int Hkv, int S, int D, const Strides& st, float sm_scale, int causal,
-                   int window, cudaStream_t stream) {
+                   int Hkv, int S, int D, const Strides& st, float sm_scale, float softcap,
+                   int causal, int window, cudaStream_t stream) {
   const T* tq = static_cast<const T*>(q);
   const T* tk = static_cast<const T*>(k);
   const T* tv = static_cast<const T*>(v);
@@ -485,44 +516,56 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
   // above 48 KB, dynamic shared memory must be granted per kernel (and per
   // device, so it is set at every launch: a cheap driver call)
   constexpr int kv_bytes = dkdv_smem_bytes<kD>();
-  err = cudaFuncSetAttribute(flash_attention_bwd_dkdv_kernel<kD, T>,
+  err = cudaFuncSetAttribute(flash_attention_bwd_dkdv_kernel<kD, T, kCap>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, kv_bytes);
   if (err != cudaSuccess) return err;
   const dim3 kv_grid((S + kKvBK - 1) / kKvBK, Hkv, B);
-  flash_attention_bwd_dkdv_kernel<kD, T><<<kv_grid, kThreads, kv_bytes, stream>>>(
+  flash_attention_bwd_dkdv_kernel<kD, T, kCap><<<kv_grid, kThreads, kv_bytes, stream>>>(
       tq, tk, tv, tg, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), H, H / Hkv, S, D,
-      st, sm_scale, causal, window);
+      st, sm_scale, softcap, causal, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   constexpr int q_bytes = dq_smem_bytes<kD>();
-  err = cudaFuncSetAttribute(flash_attention_bwd_dq_kernel<kD, T>,
+  err = cudaFuncSetAttribute(flash_attention_bwd_dq_kernel<kD, T, kCap>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, q_bytes);
   if (err != cudaSuccess) return err;
   const dim3 q_grid((S + kQBQ - 1) / kQBQ, H, B);
-  flash_attention_bwd_dq_kernel<kD, T><<<q_grid, kThreads, q_bytes, stream>>>(
-      tq, tk, tv, tg, lse, delta, static_cast<T*>(dq), H / Hkv, S, D, st, sm_scale, causal,
-      window);
+  flash_attention_bwd_dq_kernel<kD, T, kCap><<<q_grid, kThreads, q_bytes, stream>>>(
+      tq, tk, tv, tg, lse, delta, static_cast<T*>(dq), H / Hkv, S, D, st, sm_scale, softcap,
+      causal, window);
   return cudaGetLastError();
+}
+
+template <typename T, bool kCap>
+cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* o,
+                       const void* g, const float* lse, float* delta, void* dq, void* dk,
+                       void* dv, int B, int H, int Hkv, int S, int D, const Strides& st,
+                       float sm_scale, float softcap, int causal, int window, cudaStream_t s) {
+  // D runs zero-padded in the next size up
+  if (D <= 32)
+    return launch<32, T, kCap>(q, k, v, o, g, lse, delta, dq, dk, dv, B, H, Hkv, S, D, st,
+                               sm_scale, softcap, causal, window, s);
+  if (D <= 64)
+    return launch<64, T, kCap>(q, k, v, o, g, lse, delta, dq, dk, dv, B, H, Hkv, S, D, st,
+                               sm_scale, softcap, causal, window, s);
+  if (D <= 128)
+    return launch<128, T, kCap>(q, k, v, o, g, lse, delta, dq, dk, dv, B, H, Hkv, S, D, st,
+                                sm_scale, softcap, causal, window, s);
+  return launch<256, T, kCap>(q, k, v, o, g, lse, delta, dq, dk, dv, B, H, Hkv, S, D, st,
+                              sm_scale, softcap, causal, window, s);
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, const void* o, const void* g,
                      const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int H,
-                     int Hkv, int S, int D, const Strides& st, float sm_scale, int causal,
-                     int window, cudaStream_t s) {
-  // D runs zero-padded in the next size up
-  if (D <= 32)
-    return launch<32, T>(q, k, v, o, g, lse, delta, dq, dk, dv, B, H, Hkv, S, D, st, sm_scale,
-                         causal, window, s);
-  if (D <= 64)
-    return launch<64, T>(q, k, v, o, g, lse, delta, dq, dk, dv, B, H, Hkv, S, D, st, sm_scale,
-                         causal, window, s);
-  if (D <= 128)
-    return launch<128, T>(q, k, v, o, g, lse, delta, dq, dk, dv, B, H, Hkv, S, D, st, sm_scale,
-                          causal, window, s);
-  return launch<256, T>(q, k, v, o, g, lse, delta, dq, dk, dv, B, H, Hkv, S, D, st, sm_scale,
-                        causal, window, s);
+                     int Hkv, int S, int D, const Strides& st, float sm_scale, float softcap,
+                     int causal, int window, cudaStream_t s) {
+  if (softcap > 0.f)
+    return dispatch_d<T, true>(q, k, v, o, g, lse, delta, dq, dk, dv, B, H, Hkv, S, D, st,
+                               sm_scale, softcap, causal, window, s);
+  return dispatch_d<T, false>(q, k, v, o, g, lse, delta, dq, dk, dv, B, H, Hkv, S, D, st,
+                              sm_scale, softcap, causal, window, s);
 }
 
 }  // namespace bwd
@@ -646,8 +689,12 @@ __device__ __forceinline__ void store_bf16(__nv_bfloat16* base, long long ss, co
 // heads [h0, h0 + hpb) of its group and, for each, the q tiles the masks
 // keep.  Warpgroup 0: S^T = K Q^T, P^T, dV += P^T dO.  Warpgroup 1:
 // dP^T = V dO^T, dS^T = P^T (dP^T - delta), dK += dS^T Q.  Thread 128
-// streams the Q and dO tiles through the ring.
-template <int kD>
+// streams the Q and dO tiles through the ring.  With kCap warpgroup 0
+// hands over (P c')^T in place of P^T: warpgroup 1 needs P only through
+// P c', and warpgroup 0 alone holds t, so no second buffer and no
+// recovery of t from P (c' = 1 - t^2, t = tanh(s scale / cap), with
+// cap_scale = scale / cap and cap_log2 = cap log2 e as in the forward).
+template <int kD, bool kCap>
 __global__ void __launch_bounds__(kKvThreads, 1)
 flash_attention_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                       const __grid_constant__ CUtensorMap tk,
@@ -661,7 +708,8 @@ flash_attention_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                       int H, int Hkv, int group, int hpb, int S, int D,
                                       long long dksb, long long dksh, long long dkss,
                                       long long dvsb, long long dvsh, long long dvss,
-                                      float sm_scale, float scale_log2, int causal, int window) {
+                                      float sm_scale, float scale_log2, float cap_scale,
+                                      float cap_log2, int causal, int window) {
   using L = KvLayout<kD>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -779,15 +827,22 @@ flash_attention_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          float p = exp2f(x[4 * j + e] * scale_log2 - cv[2 * j + (e & 1)]);
+          float p, pc;
+          if (kCap) {
+            const float tc = tanhf(x[4 * j + e] * cap_scale);
+            p = exp2f(tc * cap_log2 - cv[2 * j + (e & 1)]);
+            pc = p * (1.f - tc * tc);
+          } else {
+            p = pc = exp2f(x[4 * j + e] * scale_log2 - cv[2 * j + (e & 1)]);
+          }
           if (edge && !kept(q0 + 8 * j + cq + (e & 1), k0 + (e < 2 ? r0 : r1), S, causal, window))
-            p = 0.f;
+            p = pc = 0.f;
           x[4 * j + e] = p;
-          p_s[(4 * j + e) * 128 + ti] = p;
+          p_s[(4 * j + e) * 128 + ti] = pc;
         }
       named_arrive(1, kKvThreads);
     } else {
-      named_sync(1, kKvThreads);             // warpgroup 0's P^T of this tile is in p_s
+      named_sync(1, kKvThreads);             // warpgroup 0's (P c')^T of this tile is in p_s
 #pragma unroll
       for (int i = 0; i < 32; ++i) x[i] = p_s[i * 128 + ti] * (x[i] - cv[2 * (i / 4) + (i & 1)]);
       if (t + 1 < n_t) named_arrive(2, kKvThreads);
@@ -885,10 +940,10 @@ flash_attention_bwd_reduce_kernel(const float* __restrict__ part_k,
 }
 
 // dQ of one 64-row q tile of head h and batch b over the k tiles the masks
-// keep: S = Q K^T and dP = dO V^T from shared memory, dS = P (dP - delta)
-// in registers, dQ += dS K with K read MN-major.  Thread 0 streams the K
-// and V tiles through the ring.
-template <int kD>
+// keep: S = Q K^T and dP = dO V^T from shared memory, dS = P c' (dP -
+// delta) in registers, dQ += dS K with K read MN-major.  Thread 0 streams
+// the K and V tiles through the ring.
+template <int kD, bool kCap>
 __global__ void __launch_bounds__(kQThreads, 1)
 flash_attention_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                     const __grid_constant__ CUtensorMap tk,
@@ -898,7 +953,8 @@ flash_attention_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                     const float* __restrict__ delta,
                                     __nv_bfloat16* __restrict__ dq, int H, int group, int S,
                                     int D, long long dqsb, long long dqsh, long long dqss,
-                                    float sm_scale, float scale_log2, int causal, int window) {
+                                    float sm_scale, float scale_log2, float cap_scale,
+                                    float cap_log2, int causal, int window) {
   using L = QLayout<kD>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -1007,10 +1063,16 @@ flash_attention_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const bool hi = e >= 2;
-        float p = exp2f(s[4 * j + e] * scale_log2 - (hi ? l1 : l0));
+        float pc;
+        if (kCap) {
+          const float tc = tanhf(s[4 * j + e] * cap_scale);
+          pc = exp2f(tc * cap_log2 - (hi ? l1 : l0)) * (1.f - tc * tc);
+        } else {
+          pc = exp2f(s[4 * j + e] * scale_log2 - (hi ? l1 : l0));
+        }
         if (edge && !kept(hi ? row1 : row0, k0 + 8 * j + cq + (e & 1), S, causal, window))
-          p = 0.f;
-        ds[e] = p * (dp[4 * j + e] - (hi ? d1 : d0));
+          pc = 0.f;
+        ds[e] = pc * (dp[4 * j + e] - (hi ? d1 : d0));
       }
       af[j / 2][(j % 2) * 2] = pack_bf16(ds[0], ds[1]);
       af[j / 2][(j % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
@@ -1036,11 +1098,11 @@ flash_attention_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                  S - q0, D, cq, sm_scale);
 }
 
-template <int kD>
+template <int kD, bool kCap>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* g,
                    const float* lse, float* scratch, void* dq, void* dk, void* dv, int B, int H,
                    int Hkv, int S, int D, const bwd::Strides& st, const Plan& pl,
-                   float sm_scale, int causal, int window, cudaStream_t stream) {
+                   float sm_scale, float softcap, int causal, int window, cudaStream_t stream) {
   using T = __nv_bfloat16;
   float* delta = scratch;
   const long long rows = static_cast<long long>(B) * H * S;
@@ -1059,6 +1121,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
   if (err != cudaSuccess) return err;
   const int group = H / Hkv;
   const float scale_log2 = sm_scale * kLog2e;
+  const float cap_scale = kCap ? sm_scale / softcap : 0.f;
+  const float cap_log2 = softcap * kLog2e;
   float* part_k = scratch + pl.delta_floats;
   float* part_v = part_k + pl.part_floats;
   T* tdk = static_cast<T*>(dk);
@@ -1067,14 +1131,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
   // above 48 KB, dynamic shared memory must be granted per kernel (and per
   // device, so it is set at every launch: a cheap driver call)
   constexpr int kv_bytes = KvLayout<kD>::kBytes;
-  err = cudaFuncSetAttribute(flash_attention_bwd_dkdv_wgmma_kernel<kD>,
+  err = cudaFuncSetAttribute(flash_attention_bwd_dkdv_wgmma_kernel<kD, kCap>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, kv_bytes);
   if (err != cudaSuccess) return err;
   const dim3 kv_grid(Hkv * pl.n_split, B, pl.n_kt);
-  flash_attention_bwd_dkdv_wgmma_kernel<kD><<<kv_grid, kKvThreads, kv_bytes, stream>>>(
+  flash_attention_bwd_dkdv_wgmma_kernel<kD, kCap><<<kv_grid, kKvThreads, kv_bytes, stream>>>(
       mq, mk, mv, mg, lse, delta, tdk, tdv, part_k, part_v, H, Hkv, group, pl.heads_per_block,
       S, D, st.dk[0], st.dk[1], st.dk[2], st.dv[0], st.dv[1], st.dv[2], sm_scale, scale_log2,
-      causal, window);
+      cap_scale, cap_log2, causal, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -1090,29 +1154,42 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
   }
 
   constexpr int q_bytes = QLayout<kD>::kBytes;
-  err = cudaFuncSetAttribute(flash_attention_bwd_dq_wgmma_kernel<kD>,
+  err = cudaFuncSetAttribute(flash_attention_bwd_dq_wgmma_kernel<kD, kCap>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, q_bytes);
   if (err != cudaSuccess) return err;
   const dim3 q_grid(H, B, pl.n_kt);
-  flash_attention_bwd_dq_wgmma_kernel<kD><<<q_grid, kQThreads, q_bytes, stream>>>(
+  flash_attention_bwd_dq_wgmma_kernel<kD, kCap><<<q_grid, kQThreads, q_bytes, stream>>>(
       mq, mk, mv, mg, lse, delta, static_cast<T*>(dq), H, group, S, D, st.dq[0], st.dq[1],
-      st.dq[2], sm_scale, scale_log2, causal, window);
+      st.dq[2], sm_scale, scale_log2, cap_scale, cap_log2, causal, window);
   return cudaGetLastError();
+}
+
+template <bool kCap>
+cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* o,
+                       const void* g, const float* lse, float* scratch, void* dq, void* dk,
+                       void* dv, int B, int H, int Hkv, int S, int D, const bwd::Strides& st,
+                       const Plan& pl, float sm_scale, float softcap, int causal, int window,
+                       cudaStream_t s) {
+  // D runs zero-padded in the next size up (TMA fills the columns past D)
+  if (pl.kd == 64)
+    return launch<64, kCap>(q, k, v, o, g, lse, scratch, dq, dk, dv, B, H, Hkv, S, D, st, pl,
+                            sm_scale, softcap, causal, window, s);
+  if (pl.kd == 128)
+    return launch<128, kCap>(q, k, v, o, g, lse, scratch, dq, dk, dv, B, H, Hkv, S, D, st, pl,
+                             sm_scale, softcap, causal, window, s);
+  return launch<256, kCap>(q, k, v, o, g, lse, scratch, dq, dk, dv, B, H, Hkv, S, D, st, pl,
+                           sm_scale, softcap, causal, window, s);
 }
 
 cudaError_t dispatch(const void* q, const void* k, const void* v, const void* o, const void* g,
                      const float* lse, float* scratch, void* dq, void* dk, void* dv, int B,
                      int H, int Hkv, int S, int D, const bwd::Strides& st, const Plan& pl,
-                     float sm_scale, int causal, int window, cudaStream_t s) {
-  // D runs zero-padded in the next size up (TMA fills the columns past D)
-  if (pl.kd == 64)
-    return launch<64>(q, k, v, o, g, lse, scratch, dq, dk, dv, B, H, Hkv, S, D, st, pl,
-                      sm_scale, causal, window, s);
-  if (pl.kd == 128)
-    return launch<128>(q, k, v, o, g, lse, scratch, dq, dk, dv, B, H, Hkv, S, D, st, pl,
-                       sm_scale, causal, window, s);
-  return launch<256>(q, k, v, o, g, lse, scratch, dq, dk, dv, B, H, Hkv, S, D, st, pl,
-                     sm_scale, causal, window, s);
+                     float sm_scale, float softcap, int causal, int window, cudaStream_t s) {
+  if (softcap > 0.f)
+    return dispatch_d<true>(q, k, v, o, g, lse, scratch, dq, dk, dv, B, H, Hkv, S, D, st, pl,
+                            sm_scale, softcap, causal, window, s);
+  return dispatch_d<false>(q, k, v, o, g, lse, scratch, dq, dk, dv, B, H, Hkv, S, D, st, pl,
+                           sm_scale, softcap, causal, window, s);
 }
 
 }  // namespace wg
@@ -1162,7 +1239,8 @@ long long flash_attention_bwd_plan(int dtype, int B, int H, int Hkv, int S, int 
 // lse: (B, H, S) float32 contiguous.  delta: float32 scratch of
 // flash_attention_bwd_plan(...) floats, written here (delta, then the
 // partial dK and dV).  dtype 0 = float32 (FMA kernels), 1 = bfloat16 (wgmma
-// kernels).  D a multiple of 8 up to 256; window 0 = no window.
+// kernels).  D a multiple of 8 up to 256; window 0 = no window; softcap 0 =
+// none, else the forward's logit soft-cap.
 // heads_per_block: 0 takes the plan's rule; else a divisor of the group
 // (bfloat16 only; it exists to measure the rule against the alternatives).
 // Launches the kernels on `stream`; returns a cudaError_t.
@@ -1170,11 +1248,11 @@ int flash_attention_bwd_launch_split(const void* q, const void* k, const void* v
                                      const void* o, const void* g, const void* lse, void* delta,
                                      void* dq, void* dk, void* dv, int dtype, int B, int H,
                                      int Hkv, int S, int D, const long long* strides,
-                                     float sm_scale, int causal, int window, int device,
-                                     void* stream, int heads_per_block) {
+                                     float sm_scale, float softcap, int causal, int window,
+                                     int device, void* stream, int heads_per_block) {
   if (B <= 0 || H <= 0 || S <= 0) return cudaSuccess;
   if (Hkv <= 0 || H % Hkv != 0 || D <= 0 || D > 256 || D % 8 != 0 || B > 65535 ||
-      H > 65535 || heads_per_block < 0 ||
+      H > 65535 || heads_per_block < 0 || !(softcap >= 0.f) ||
       (heads_per_block > 0 && (H / Hkv) % heads_per_block != 0))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -1187,13 +1265,13 @@ int flash_attention_bwd_launch_split(const void* q, const void* k, const void* v
   float* d = static_cast<float*>(delta);
   if (dtype == 0)
     return bwd::dispatch<float>(q, k, v, o, g, l, d, dq, dk, dv, B, H, Hkv, S, D, st, sm_scale,
-                                causal, window, s);
+                                softcap, causal, window, s);
   if (dtype == 1) {
     const wg::Plan p = wg::plan(B, H, Hkv, S, D, heads_per_block);
     if (p.n_kt > 65535 || static_cast<long long>(Hkv) * p.n_split > 2147483647LL)
       return cudaErrorInvalidValue;
     return wg::dispatch(q, k, v, o, g, l, d, dq, dk, dv, B, H, Hkv, S, D, st, p, sm_scale,
-                        causal, window, s);
+                        softcap, causal, window, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -1201,11 +1279,11 @@ int flash_attention_bwd_launch_split(const void* q, const void* k, const void* v
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v, const void* o,
                                const void* g, const void* lse, void* delta, void* dq, void* dk,
                                void* dv, int dtype, int B, int H, int Hkv, int S, int D,
-                               const long long* strides, float sm_scale, int causal,
-                               int window, int device, void* stream) {
+                               const long long* strides, float sm_scale, float softcap,
+                               int causal, int window, int device, void* stream) {
   return flash_attention_bwd_launch_split(q, k, v, o, g, lse, delta, dq, dk, dv, dtype, B, H,
-                                          Hkv, S, D, strides, sm_scale, causal, window, device,
-                                          stream, 0);
+                                          Hkv, S, D, strides, sm_scale, softcap, causal, window,
+                                          device, stream, 0);
 }
 
 }  // extern "C"

@@ -36,6 +36,11 @@ class TokenPipeline:
         ranks = np.arange(1, self.vocab_size + 1, dtype=np.float64)
         zipf = ranks ** -1.1
         self._emit_base = zipf / zipf.sum()
+        # Generator.choice(p=...)'s own inverse-CDF draw, its CDF made once
+        # here rather than on every call: the same tokens from the same
+        # stream of uniforms, without a pass over the vocabulary per token
+        self._emit_cdf = np.cumsum(self._emit_base)
+        self._emit_cdf /= self._emit_cdf[-1]
         self._emit_shift = rng.integers(0, self.vocab_size, size=n_states)
         self._queue: Optional[queue.Queue] = None
         self._prefetch = prefetch
@@ -52,7 +57,7 @@ class TokenPipeline:
             u = rng.random(b)
             cum = np.cumsum(self._trans[state], axis=1)
             state = (cum < u[:, None]).sum(axis=1)
-            base = rng.choice(self.vocab_size, size=b, p=self._emit_base)
+            base = self._emit_cdf.searchsorted(rng.random(b), side="right")
             toks[:, t] = (base + self._emit_shift[state]) % self.vocab_size
         return {"tokens": toks}
 

@@ -6,9 +6,9 @@ sharding     word-axis sharding of a frontier, ``mesh_descriptor``, the
              ``spec_tree``, ``batch_spec``) and ``shard_tree`` /
              ``gather_tree``
 collectives  the one place that calls ``torch.distributed``: all-reduce,
-             all-gather, reduce-scatter and broadcast over a named mesh
-             axis, with per-axis counters, and the autograd-aware
-             operations of tensor parallelism
+             all-gather, reduce-scatter, all-to-all and broadcast over a
+             named mesh axis, with per-axis counters, and the
+             autograd-aware operations of tensor and expert parallelism
 """
 from .collectives import (all_gather, all_reduce, broadcast,
                           broadcast_from_lead, collective_counts,

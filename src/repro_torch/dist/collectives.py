@@ -19,8 +19,9 @@ card, gloo on the host copy): a bfloat16 sum is a bfloat16 sum.  Over two
 ranks, as on every axis of the ``tiny`` mesh, that is one addition
 rounded once, the same bits as a float32 sum rounded to bfloat16.
 
-Tensor parallelism needs three operations that autograd can differentiate
-through (Megatron's conjugate pairs), each over one mesh axis:
+Tensor and expert parallelism need five operations that autograd can
+differentiate through (Megatron's conjugate pairs), each over one mesh
+axis:
 
   copy_to_axis       identity forward, all-reduce (sum) backward: the input
                      of a column-parallel product, replicated over the axis
@@ -28,11 +29,17 @@ through (Megatron's conjugate pairs), each over one mesh axis:
                      partial sums of a row-parallel product
   gather_over_axis   all-gather along a dim forward, reduce-scatter (sum,
                      then this rank's block) backward
+  reduce_scatter_over_axis  the reverse pair: reduce-scatter forward,
+                     all-gather backward
+  all_to_all_over_axis  block j of the leading dim to the rank at
+                     coordinate j forward; the same exchange backward (it
+                     is its own inverse): the MoE's move of the capacity
+                     buffers between data shards and expert shards
 
 Counters: every call adds one to its (axis, op) count and the bytes of its
 local input to its payload, read with :func:`collective_counts` (as
 ``kernels.launch_counts`` reads the kernel launches); the backward halves
-of the three operations above count like any other call.
+of the five operations above count like any other call.
 :func:`collective_seconds` reads the host time spent inside the calls, by
 (axis, op): on gloo that is the whole exchange, host copies included (a
 copy from the card waits for the work queued before it); on NCCL only the
@@ -47,11 +54,12 @@ from typing import Dict
 import torch
 import torch.distributed as dist
 
-__all__ = ["all_reduce", "all_gather", "reduce_scatter", "broadcast",
+__all__ = ["all_reduce", "all_gather", "reduce_scatter", "all_to_all",
+           "broadcast",
            "broadcast_from_lead", "lead_int", "collective_counts",
            "collective_seconds", "reset_collective_counts", "counts_since",
-           "copy_to_axis",
-           "reduce_over_axis", "gather_over_axis"]
+           "copy_to_axis", "reduce_over_axis", "gather_over_axis",
+           "reduce_scatter_over_axis", "all_to_all_over_axis"]
 
 _COUNTS: Dict[tuple, Dict[str, int]] = defaultdict(lambda: {"calls": 0, "bytes": 0})
 _SECONDS: Dict[tuple, float] = defaultdict(float)
@@ -194,6 +202,32 @@ def all_gather(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     return out
 
 
+def all_to_all(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``t``'s leading dim has one block per rank of ``axis``: block ``j``
+    goes to the rank at coordinate ``j``, and the result's block ``j`` is
+    the block the rank at coordinate ``j`` sent here (a new tensor of
+    ``t``'s shape, on ``t``'s device).  Counted as ``all_to_all``.  On gloo
+    the host copy is exchanged, 2-byte floats as bytes (it moves bits)."""
+    group = mesh.get_group(axis)
+    t0 = _count(axis, "all_to_all", t)
+    n = dist.get_world_size(group)
+    if t.ndim == 0 or t.shape[0] != n:
+        raise ValueError(f"all_to_all over {axis!r} needs a leading dim of "
+                         f"{n} blocks, got {tuple(t.shape)}")
+    t = t.contiguous()
+    if _on_host(group):
+        host = _host_copy(t) if t.device.type != "cpu" else t
+        host = host.view(torch.uint8) if t.dtype in _TWO_BYTE_FLOATS else host
+        out = torch.empty_like(host)
+        dist.all_to_all_single(out, host, group=group)
+        out = out.view(t.dtype).to(t.device)
+    else:
+        out = torch.empty_like(t)
+        dist.all_to_all_single(out, t, group=group)
+    _done(axis, "all_to_all", t0)
+    return out
+
+
 def broadcast(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """Overwrite ``t`` with the value of the rank at coordinate 0 of
     ``axis``, in place; returns ``t``."""
@@ -267,6 +301,29 @@ class _GatherOverAxis(torch.autograd.Function):
         return reduce_scatter(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
 
 
+class _ReduceScatterOverAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return reduce_scatter(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (torch.cat(all_gather(g, ctx.mesh, ctx.axis).unbind(0), dim=ctx.dim),
+                None, None, None)
+
+
+class _AllToAllOverAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return all_to_all(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all(g, ctx.mesh, ctx.axis), None, None
+
+
 def copy_to_axis(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """``x`` unchanged; its gradient is summed over ``axis`` (one
     all-reduce in the backward pass)."""
@@ -284,3 +341,17 @@ def gather_over_axis(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor
     order (one all-gather); the gradient is summed over the axis and each
     rank keeps its block (one reduce-scatter)."""
     return _GatherOverAxis.apply(x, mesh, axis, dim)
+
+
+def reduce_scatter_over_axis(x: torch.Tensor, mesh, axis: str,
+                             dim: int) -> torch.Tensor:
+    """The sum of every rank's ``x`` over ``axis``, this rank's block of it
+    along ``dim`` (one reduce-scatter); the gradient is every rank's block
+    gradient concatenated along ``dim`` (one all-gather)."""
+    return _ReduceScatterOverAxis.apply(x, mesh, axis, dim)
+
+
+def all_to_all_over_axis(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """:func:`all_to_all` of ``x`` (its leading dim one block per rank of
+    ``axis``); the gradient goes back by the same exchange."""
+    return _AllToAllOverAxis.apply(x, mesh, axis)

@@ -54,7 +54,7 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention_launch.restype = ctypes.c_int
         lib.flash_attention_bwd_launch.argtypes = [
             vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, strides,
-            ctypes.c_float, i, i, i, vp]
+            ctypes.c_float, ctypes.c_float, i, i, i, vp]
         lib.flash_attention_bwd_launch.restype = ctypes.c_int
         lib.flash_attention_bwd_launch_split.argtypes = [
             *lib.flash_attention_bwd_launch.argtypes, i]
@@ -217,23 +217,27 @@ def bwd_dkdv_blocks(plan: BwdPlan, b, h, hkv):
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, dout: torch.Tensor,
                         lse: torch.Tensor, *, causal: bool = True,
-                        window: int = 0, sm_scale=None):
+                        window: int = 0, sm_scale=None, softcap: float = 0.0):
     """Gradients of :func:`flash_attention` on the card: q, out, dout
     (B, H, S, D), k/v (B, Hkv, S, D), all float32 or all bfloat16, and the
     forward's ``lse`` (B, H, S) float32 -> ``(dq, dk, dv)`` in the inputs'
     dtype and memory layouts, summed in float32 (dk, dv over the G query
     heads of each KV head).  Pass the q, k, v and out the forward read and
-    wrote.  Masks as in the forward (``window`` 0 = none).  bfloat16: the
-    wgmma kernels, P and dS rounded once to bf16 before their products;
-    float32: the FMA kernels."""
-    return _bwd(q, k, v, out, dout, lse, causal, window, sm_scale, 0)
+    wrote.  Masks and ``softcap`` as in the forward (``window`` 0 = none,
+    ``softcap`` 0 = none; pass the forward's ``lse`` of the capped scores).
+    bfloat16: the wgmma kernels, P and dS rounded once to bf16 before their
+    products; float32: the FMA kernels."""
+    return _bwd(q, k, v, out, dout, lse, causal, window, sm_scale, softcap, 0)
 
 
-def _bwd(q, k, v, out, dout, lse, causal, window, sm_scale, heads_per_block):
+def _bwd(q, k, v, out, dout, lse, causal, window, sm_scale, softcap,
+         heads_per_block):
     """:func:`flash_attention_bwd` with the bf16 plan's ``heads_per_block``
     (0 = the rule; ``launch/bwd_splits.py`` times the alternatives)."""
     _check((("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout)))
     b, h, hkv, s, d = _shapes(q, k, v, window)
+    if not softcap >= 0:
+        raise ValueError(f"softcap must be >= 0 (0 = none), got {softcap}")
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"out {tuple(out.shape)} and dout {tuple(dout.shape)} "
                          f"must have q's shape {tuple(q.shape)}")
@@ -261,7 +265,7 @@ def _bwd(q, k, v, out, dout, lse, causal, window, sm_scale, heads_per_block):
         dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], b, h, hkv, s, d,
         _strides(q, k, v, out, dout, dq, dk, dv), float(sm_scale),
-        int(bool(causal)), int(window), q.device.index, stream,
+        float(softcap), int(bool(causal)), int(window), q.device.index, stream,
         int(heads_per_block))
     variant = _BWD_VARIANTS[q.dtype]
     _build.check(code, f"flash_attention_bwd ({variant})")

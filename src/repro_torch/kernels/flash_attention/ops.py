@@ -5,9 +5,9 @@ kernels run or the call raises.
 :class:`FlashAttentionFunction` makes the kernel differentiable: its
 forward launches the forward kernel with the rows' log-sum-exp when an
 input needs a gradient, and its backward launches the backward kernels.
-On a CPU tensor autograd runs through :func:`.ref.attention_ref`.  The
-backward kernels take no logit soft-cap: a gradient of soft-capped
-attention on the card raises ``NotImplementedError``.
+On a CPU tensor autograd runs through :func:`.ref.attention_ref`.  Both
+directions take the logit soft-cap (grok's 30): the backward kernels'
+capped instances.
 """
 from __future__ import annotations
 
@@ -43,20 +43,15 @@ class FlashAttentionFunction(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, dout):
-        if ctx.softcap:
-            raise NotImplementedError(
-                f"the gradient of soft-capped attention (softcap={ctx.softcap}) "
-                "has no CUDA kernel: K6's backward takes no cap; training the "
-                "soft-capped MoE configs on the card waits for ROADMAP item 12c")
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse, **ctx.attn)
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse,
+                                         softcap=ctx.softcap, **ctx.attn)
         return dq, dk, dv, None, None, None, None, None
 
 
 def multi_head_attention(q, k, v, *, causal=True, window=None, sm_scale=None,
                          softcap=0.0):
-    """q: (B, H, S, D); k/v: (B, Hkv, S, D) -> (B, H, S, D), differentiable
-    (on the card only without a soft-cap).
+    """q: (B, H, S, D); k/v: (B, Hkv, S, D) -> (B, H, S, D), differentiable.
 
     ``window`` 0 and ``None`` both mean no window: the model passes 0 for
     its global layers, the reference kernel tests ``window is not None``.

@@ -101,30 +101,50 @@ def attention_lse_ref(q, k, *, causal=True, window=None, sm_scale=None,
                            dim=-1)
 
 
-def attention_ref_bwd(q, k, v, out, dout, lse, *, causal=True, window=None,
-                      sm_scale=None):
-    """Gradients of :func:`attention_ref` by the textbook formula, the plain
-    version of the backward kernels: P recomputed from ``lse`` (the
-    forward's row log-sum-exp, natural log), then ``dV = P^T dO``,
-    ``dP = dO V^T``, ``dS = P * (dP - rowsum(dO * O))``, ``dQ = dS K *
-    scale``, ``dK = dS^T Q * scale``; dK and dV summed over the G query
-    heads of each KV head.  q, out, dout: (B, H, S, D); k, v: (B, Hkv, S,
-    D) -> ``(dq, dk, dv)`` in float32.  ``window`` as in
-    :func:`attention_ref` (``None`` = none)."""
-    b, h, s, d = q.shape
-    hkv = k.shape[1]
+def _recomputed(q, k, lse, causal, window, sm_scale, softcap):
+    """P = exp(c(s) - lse) of the kept pairs (0 elsewhere), (B, H, S, S)
+    float32, the factor P c' of the chain rule through the cap (c' = 1 -
+    t^2, t = tanh(s / softcap); P itself without a cap), the group size and
+    the scale: what the backward kernels recompute from the forward's
+    ``lse``."""
+    d = q.shape[-1]
     if sm_scale is None:
         sm_scale = d ** -0.5
     scores, mask, group = _scores(q, k, causal, window, sm_scale)
+    zero = torch.zeros((), device=q.device)
+    if softcap:
+        t = torch.tanh(scores / softcap)
+        p = torch.where(mask[None, None],
+                        torch.exp(t * softcap - lse.float()[..., None]), zero)
+        return p, p * (1.0 - t * t), group, sm_scale
     p = torch.where(mask[None, None], torch.exp(scores - lse.float()[..., None]),
-                    torch.zeros((), device=q.device))
+                    zero)
+    return p, p, group, sm_scale
+
+
+def attention_ref_bwd(q, k, v, out, dout, lse, *, causal=True, window=None,
+                      sm_scale=None, softcap=0.0):
+    """Gradients of :func:`attention_ref` by the textbook formula, the plain
+    version of the backward kernels: P recomputed from ``lse`` (the
+    forward's row log-sum-exp, natural log), then ``dV = P^T dO``,
+    ``dP = dO V^T``, ``dS = P c' * (dP - rowsum(dO * O))``, ``dQ = dS K *
+    scale``, ``dK = dS^T Q * scale``; dK and dV summed over the G query
+    heads of each KV head.  ``softcap`` > 0: the scores capped at ``c(x) =
+    softcap tanh(x / softcap)`` as in the forward (``lse`` the forward's of
+    the capped scores) and ``c' = 1 - tanh(x / softcap)^2``; 0: ``c' = 1``.
+    q, out, dout: (B, H, S, D); k, v: (B, Hkv, S, D) -> ``(dq, dk, dv)`` in
+    float32.  ``window`` as in :func:`attention_ref` (``None`` = none)."""
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    p, pc, group, sm_scale = _recomputed(q, k, lse, causal, window, sm_scale,
+                                         softcap)
     qf, gf, of = q.float(), dout.float(), out.float()
     kk = k.float().repeat_interleave(group, dim=1)
     vv = v.float().repeat_interleave(group, dim=1)
     delta = (gf * of).sum(-1)
     dv = torch.einsum("bhqk,bhqd->bhkd", p, gf)
     dp = torch.einsum("bhqd,bhkd->bhqk", gf, vv)
-    ds = p * (dp - delta[..., None])
+    ds = pc * (dp - delta[..., None])
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kk) * sm_scale
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * sm_scale
     dk = dk.reshape(b, hkv, group, s, d).sum(2)
@@ -133,10 +153,12 @@ def attention_ref_bwd(q, k, v, out, dout, lse, *, causal=True, window=None,
 
 
 def attention_bwd_bf16_ref(q, k, v, out, dout, lse, *, causal=True,
-                           window=None, sm_scale=None):
+                           window=None, sm_scale=None, softcap=0.0):
     """The bf16 backward kernels' arithmetic: scores and dP in fp32 from the
-    inputs' values, P = exp(s * scale - lse) in fp32, ``delta`` the fp32
-    rowsum of dout * out, ``dS = P (dP - delta)`` from the fp32 P; then P
+    inputs' values, P = exp(c(s * scale) - lse) in fp32, ``delta`` the fp32
+    rowsum of dout * out, ``dS = (P c') (dP - delta)`` from the fp32 P (the
+    product P c' taken first, as the kernels hand it over; ``softcap`` and
+    c' as in :func:`attention_ref_bwd`); then P
     (for dV) and dS (for dQ and dK) rounded once to bf16 before their
     products, the products summed in fp32, dK and dV summed over the G
     query heads of each KV head in head order (the kernels' split order:
@@ -147,17 +169,14 @@ def attention_bwd_bf16_ref(q, k, v, out, dout, lse, *, causal=True,
     changes P by fp32 roundings only."""
     b, h, s, d = q.shape
     hkv = k.shape[1]
-    if sm_scale is None:
-        sm_scale = d ** -0.5
-    scores, mask, group = _scores(q, k, causal, window, sm_scale)
-    p = torch.where(mask[None, None], torch.exp(scores - lse.float()[..., None]),
-                    torch.zeros((), device=q.device))
+    p, pc, group, sm_scale = _recomputed(q, k, lse, causal, window, sm_scale,
+                                         softcap)
     qf, gf, of = q.float(), dout.float(), out.float()
     kk = k.float().repeat_interleave(group, dim=1)
     vv = v.float().repeat_interleave(group, dim=1)
     delta = (gf * of).sum(-1)
     dp = torch.einsum("bhqd,bhkd->bhqk", gf, vv)
-    ds = (p * (dp - delta[..., None])).to(torch.bfloat16).float()
+    ds = (pc * (dp - delta[..., None])).to(torch.bfloat16).float()
     p = p.to(torch.bfloat16).float()
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kk) * sm_scale
     dk_h = torch.einsum("bhqk,bhqd->bhkd", ds, qf).reshape(b, hkv, group, s, d)

@@ -63,7 +63,7 @@ def main(argv=None) -> int:
         group = h // hkv
         times = {}
         for hpb in (x for x in range(1, group + 1) if group % x == 0):
-            fn = lambda: _bwd(q, k, v, out, dout, lse, True, window, None, hpb)
+            fn = lambda: _bwd(q, k, v, out, dout, lse, True, window, None, 0.0, hpb)
             times[hpb] = min(device_ms(fn, reps=args.reps) for _ in range(3))
         rule = bwd_plan(b, h, hkv, s, d, window).heads_per_block
         best = min(times, key=times.get)
@@ -75,7 +75,7 @@ def main(argv=None) -> int:
         rows.append(dict(shape=shape, ms=times, rule=rule, fastest=best))
         del q, k, v, out, dout, lse
     q, k, v, out, dout, lse = _inputs(*SHAPES[0])
-    fn = lambda: _bwd(q, k, v, out, dout, lse, True, 0, None, 0)
+    fn = lambda: _bwd(q, k, v, out, dout, lse, True, 0, None, 0.0, 0)
     fn()
     torch.cuda.synchronize()
     # CPU and CUDA activities, as launch/train_profile.py traces: a trace of

@@ -60,6 +60,18 @@ driver's flags.  Kinds:
                 returns its record (losses, grad norms, per step the
                 seconds, launches and collectives; ``gather=True`` adds the
                 final params whole on the lead rank)
+``moe``         one MoE layer (``models.moe.moe``) of the config (``arch``,
+                ``reduced``, ``cfg`` as for ``train``) on the named mesh
+                ``mesh``, forward and backward: ``layer`` the layer's
+                weights (numpy, the reference's keys without ``stk_``),
+                ``x`` and ``dout`` the global (B, S, D) input and output
+                weights (numpy); each rank takes its blocks (the batch by
+                ``batch_spec``, whole when the data axis does not divide
+                it); the objective is ``sum(out * dout) + aux_loss``.
+                Returns the rank's ``data`` coordinate, its output block,
+                the global ``expert_load``, ``dropped_frac`` and
+                ``aux_loss``, the input's gradient (this rank's block) and
+                the weights' gradients whole on the lead rank
 
 A job that the port refuses (``ValueError``, ``TypeError``,
 ``NotImplementedError``) returns ``{"error": "<type>: <message>"}``; any
@@ -367,10 +379,56 @@ def _train(rank: _Rank, job: dict) -> dict:
     return train_run(job, rank.device, rank.meshes[key])
 
 
+def _moe(rank: _Rank, job: dict) -> dict:
+    from ..dist.sharding import (axis_index, axis_size, batch_spec,
+                                 gather_tree, shard_tree, spec_axes, spec_tree)
+    from ..models import Model
+    from ..models.moe import moe
+    from .mesh import make_mesh_named
+    from .train import _config
+    key = ("named", job["mesh"])
+    if key not in rank.meshes:
+        rank.meshes[key] = make_mesh_named(job["mesh"])
+    mesh, cfg = rank.meshes[key], _config(job)
+    specs = spec_tree({k: v.shape for k, v in job["layer"].items()}, mesh,
+                      cfg.expert_sharding)
+    host = {k: torch.from_numpy(v) for k, v in job["layer"].items()}
+    p = {k: v.to(rank.device).requires_grad_()
+         for k, v in shard_tree(host, mesh, specs).items()}
+    nd = axis_size(mesh, "data")
+    whole = batch_spec(job["x"].shape[0], mesh) == (None,)
+    xs, gs = (torch.from_numpy(a) for a in (job["x"], job["dout"]))
+    if not whole:
+        xs, gs = (shard_tree({"t": t}, mesh, {"t": ("data",)})["t"] for t in (xs, gs))
+    x = xs.to(rank.device).requires_grad_()
+    out, aux = moe(p, x, cfg, Model(cfg).placement(rank.device), mesh=mesh,
+                   whole_batch=whole)
+    share = (out.float() * gs.to(rank.device)).sum() / (nd if whole else 1)
+    loss = coll.reduce_over_axis(share.reshape(1), mesh, "data")[0] + aux["aux_loss"]
+    *gp, gx = torch.autograd.grad(loss, list(p.values()) + [x])
+    grads = dict(zip(p, gp))
+    # the train step's sums over data: the weights not split over it, and a
+    # whole batch's input (each data rank holds a share of its gradient)
+    for name, g in grads.items():
+        if "data" not in {a for e in specs[name] for a in spec_axes(e)}:
+            coll.all_reduce(g, mesh, "data")
+    if whole:
+        coll.all_reduce(gx, mesh, "data")
+    whole_grads = gather_tree(grads, mesh, specs)
+    return dict(data=axis_index(mesh, "data"), whole=whole,
+                out=out.detach().cpu().numpy(), dx=gx.cpu().numpy(),
+                expert_load=aux["expert_load"].cpu().numpy(),
+                dropped_frac=float(aux["dropped_frac"]),
+                aux_loss=float(aux["aux_loss"].detach()),
+                grads=None if whole_grads is None or any(
+                    v is None for v in whole_grads.values())
+                else {k: v.cpu().numpy() for k, v in whole_grads.items()})
+
+
 _KINDS = {"mine": _mine, "expand": _expand, "accumulate": _accumulate,
           "stream": _stream, "stream_ckpt": _stream_ckpt,
           "stream_restore": _stream_restore, "resume": _resume, "mesh": _mesh,
-          "compressed_psum": _compressed_psum, "train": _train}
+          "compressed_psum": _compressed_psum, "train": _train, "moe": _moe}
 
 
 def run_jobs(device: torch.device, jobs: Sequence[dict]) -> List[dict]:

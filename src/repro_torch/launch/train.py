@@ -24,11 +24,13 @@ mesh has (``launch.mesh.run_ranks``, process-group backend
 ranks on the host or sharing one card, which NCCL refuses).  Every rank
 makes the same weights from the seed and keeps its block of them, so the
 mesh trains the model a single device trains; the lead rank prints the
-lines.  A mixture of experts on a mesh raises ``NotImplementedError``.
+lines.  A mixture of experts trains on a mesh too (its routing groups per
+data shard and the expert all-to-all, ``models.moe``).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import math
 import os
 import statistics
@@ -52,7 +54,7 @@ from ..training import (RunnerConfig, TrainingRunner, adamw_init, latest_step,
                         make_eval_step, make_train_step)
 from ..training.fault_tolerance import batch_block
 
-__all__ = ["train_run", "train_line", "main"]
+__all__ = ["train_run", "train_line", "moe_calls", "main"]
 
 
 def _config(job: dict):
@@ -74,6 +76,26 @@ def _to_numpy(tree):
     return t.numpy()
 
 
+@contextlib.contextmanager
+def moe_calls():
+    """Yields a list that gets each MoE layer call's ``(dropped_frac,
+    expert_load)`` tensors (detached; global on a mesh) while the block
+    runs, in call order: the model's ``moe`` is wrapped in this process
+    meanwhile."""
+    from ..models import transformer
+    seen, real = [], transformer.moe
+
+    def recorded(*args, **kwargs):
+        out, aux = real(*args, **kwargs)
+        seen.append((aux["dropped_frac"].detach(), aux["expert_load"].detach()))
+        return out, aux
+    transformer.moe = recorded
+    try:
+        yield seen
+    finally:
+        transformer.moe = real
+
+
 def train_run(job: dict, device: torch.device, mesh=None) -> dict:
     """One training run on ``device`` (this rank's, on a mesh).  ``job``:
 
@@ -87,7 +109,9 @@ def train_run(job: dict, device: torch.device, mesh=None) -> dict:
     final params whole (as float32 numpy, on the lead rank); ``eval``:
     return ``eval_loss``, the eval step's loss of the starting weights on
     the first batch; ``fail = (rank, step)``: the runner's step ``step``
-    fails on that rank alone (``RunnerConfig.fail_injector``).
+    fails on that rank alone (``RunnerConfig.fail_injector``);
+    ``moe_stats``: record each step's MoE calls (:func:`moe_calls`) as
+    ``moe`` in its record.
 
     Returns the ``[train]`` line's numbers (``name``, ``resumed``,
     ``final``, ``dt``, ``losses``), ``grad_norms``, and per step its
@@ -118,7 +142,8 @@ def train_run(job: dict, device: torch.device, mesh=None) -> dict:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t0 = time.perf_counter()
-        out = step(p, s, b)
+        with (moe_calls() if job.get("moe_stats") else contextlib.nullcontext()) as calls:
+            out = step(p, s, b)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         counts = kernels.launch_counts()
@@ -129,6 +154,8 @@ def train_run(job: dict, device: torch.device, mesh=None) -> dict:
                         "collective_s": {a: sum(sec - coll_s.get(a, {}).get(op, 0.0)
                                                 for op, sec in ops.items())
                                          for a, ops in after.items()}})
+        if calls is not None:
+            records[-1]["moe"] = [(float(d), load.tolist()) for d, load in calls]
         return out
 
     pipe = TokenPipeline(cfg.vocab_size, batch=job["batch"], seq_len=job["seq"],

@@ -80,7 +80,7 @@ def main(argv=None) -> int:
     from ..configs import TrainConfig, get_config
     from ..data import TokenPipeline
     from ..models import Model, init_params
-    from ..training import (adamw_init, adamw_update, clip_by_global_norm,
+    from ..training import (adamw_init, adamw_update, clip_by_global_norm_,
                             lr_schedule, make_train_step)
     from ..training.optimizer import tree_leaves, tree_unflatten
 
@@ -108,7 +108,7 @@ def main(argv=None) -> int:
         st["grads"] = tree_unflatten(params, torch.autograd.grad(st["loss"], st["leaves"]))
 
     def update():
-        grads, _ = clip_by_global_norm(st.pop("grads"), tcfg.grad_clip)
+        grads, _ = clip_by_global_norm_(st.pop("grads"), tcfg.grad_clip)
         lr = lr_schedule(opt["step"], tcfg.learning_rate, tcfg.warmup_steps,
                          tcfg.total_steps)
         st["new"] = adamw_update(params, grads, opt, lr=lr, b1=tcfg.b1,

@@ -2,17 +2,49 @@
 capacity buffers, the expert products, and the Eclat-style expert
 placement.
 
-The port of the reference package's ``models/moe.py`` on one card.
+The port of the reference package's ``models/moe.py``.
 
 **One card means one group.**  The reference groups tokens by data shard
 (``_n_groups``) and moves the capacity buffers between shards with one
 all-to-all; without a mesh ``_n_groups`` returns 1 and its ``constrain`` is
-the identity.  Here every token of the call is routed as that one group,
-so ``moe_dispatch="local"`` and ``"global"`` (the reference's one flat
-sort) give the same capacity and the same function, and both take the one
-path; ``"global"`` keeps the reference's refusal of ``expert_split > 1``.
-The data-shard groups and the all-to-all wait for mesh training (ROADMAP
-item 12a).
+the identity.  Off a mesh every token of the call is routed as that one
+group, so ``moe_dispatch="local"`` and ``"global"`` (the reference's one
+flat sort) give the same capacity and the same function, and both take the
+one path; ``"global"`` keeps the reference's refusal of ``expert_split >
+1``.
+
+**On a mesh** (``mesh`` with one data axis, ``data``, and ``model``) the
+reference's groups are the product of the data axes halved until it divides
+the global token count (``_n_groups``); each group has its own capacity, so
+drops differ from one card's, as in the reference.  A batch split over
+``data`` gives every data rank exactly one group, its own tokens; a batch
+each data rank holds whole (``whole_batch``: one the data axis does not
+divide) gives every rank all the groups.  The expert weights are placed by
+the reference's rule (``dist.sharding.param_spec``):
+
+* ``ep`` (llama4): slots split over ``data``, d_ff over ``model``.  Each
+  rank dispatches its group, one all-to-all over ``data`` takes the
+  buffers from group-sharded to slot-sharded, the slots' products run on
+  this rank's d_ff slice and their partial sums are reduced over
+  ``model``, and a second all-to-all takes them back; the combine is
+  local.  With a whole batch each rank takes its slots of every group's
+  buffers and an all-gather over ``data`` brings the others' outputs.
+* ``tp2d`` (grok): every slot on every rank, d_ff split over ``(data,
+  model)``.  The groups' buffers are gathered over ``data``, each rank runs
+  its d_ff slice on all of them, and the partial sums are reduced over
+  ``model`` and reduce-scattered over ``data`` back to each rank's group
+  (with a whole batch, all-reduced over ``data``).
+* ``moe_dispatch="global"``: the tokens are gathered over ``data`` and
+  routed as one group on every rank, the reference's function (its one
+  flat sort); each rank keeps its rows of the result.
+
+The load-balance loss is global, as the reference takes it: the top-1
+counts are all-reduced over ``data`` (with the kept entries, for
+``dropped_frac``), and each rank's share of ``aux_loss``, its tokens' sum
+of probabilities against the global counts (a whole batch: the loss over
+the data ranks), is summed over ``data`` with an identity backward, so the
+train step's sum of the data ranks' gradients is the gradient of the
+global loss.
 
 Routing, as the reference computes it: the router in float32, softmax over
 the experts, the top ``k`` gates renormalised to sum to 1, expert ids
@@ -42,6 +74,9 @@ import torch
 import torch.nn.functional as F
 
 from ..core.partitioners import greedy_partitioner
+from ..dist import collectives as coll
+from ..dist.sharding import (axis_index, axis_size, data_axes, mesh_axes,
+                             param_spec, spec_axes)
 
 __all__ = ["init_moe", "expert_placement", "moe"]
 
@@ -154,7 +189,13 @@ def _combine_one_group(out_buf, meta, tg, d):
 
 def _experts(p, buf, cfg):
     """The gated FFN of every slot on its buffer: (slots, cap, D) ->
-    (slots, cap, D) in the buffer's dtype."""
+    (slots, cap, D) in the buffer's dtype; (groups, slots, cap, D) buffers
+    run each slot on all its groups' rows in one product."""
+    if buf.ndim == 4:
+        g, slots, cap, d = buf.shape
+        flat = buf.transpose(0, 1).reshape(slots, g * cap, d)
+        out = _experts(p, flat, cfg)
+        return out.reshape(slots, g, cap, -1).transpose(0, 1)
     up = torch.bmm(buf, p["experts_up"])
     if cfg.mlp_act in ("swiglu", "geglu"):
         gate = torch.bmm(buf, p["experts_gate"])
@@ -170,12 +211,36 @@ def _capacity(tokens: int, k: int, cfg) -> int:
     return int(math.ceil(tokens * k / cfg.n_experts * cfg.capacity_factor))
 
 
-def moe(p: dict, x: torch.Tensor, cfg, placement: Optional[torch.Tensor] = None):
+def _n_groups(tokens: int, n_data: int) -> int:
+    """The reference's routing groups: the data axes' size, halved until it
+    divides the token count."""
+    g = n_data
+    while g > 1 and tokens % g:
+        g //= 2
+    return max(g, 1)
+
+
+def _expert_axes(cfg, d, mesh):
+    """(slot axes, d_ff axes) of this config's expert leaves on ``mesh``,
+    by the reference's placement rule."""
+    split = cfg.expert_split
+    spec = param_spec("experts_up", (cfg.n_experts * split, d, cfg.d_ff // split),
+                      mesh, cfg.expert_sharding)
+    return spec_axes(spec[0]), spec_axes(spec[2])
+
+
+def moe(p: dict, x: torch.Tensor, cfg, placement: Optional[torch.Tensor] = None,
+        mesh=None, whole_batch: bool = False):
     """x: (B, S, D) -> ((B, S, D), aux): ``aux`` holds the Switch-style
     load-balance loss ``aux_loss`` (float32), ``expert_load`` (the share of
     tokens whose top-1 is each expert) and ``dropped_frac`` (the share of
     routed entries over capacity).  ``placement``: (E,) int64 expert-id
-    permutation on x's device, or None."""
+    permutation on x's device, or None.  On ``mesh`` (module docstring)
+    ``x`` is this rank's block of the batch, or the whole batch when
+    ``whole_batch``, and ``p`` holds this rank's blocks of the expert
+    weights; the output is this rank's block and the statistics global."""
+    if mesh is not None:
+        return _moe_mesh(p, x, cfg, placement, mesh, whole_batch)
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     t = b * s
@@ -195,3 +260,82 @@ def moe(p: dict, x: torch.Tensor, cfg, placement: Optional[torch.Tensor] = None)
     dropped = 1.0 - meta[3].float().mean()
     out = out.reshape(b, s, d).to(x.dtype)
     return out, {"aux_loss": aux_loss, "expert_load": ce, "dropped_frac": dropped}
+
+
+def _moe_mesh(p, x, cfg, placement, mesh, whole_batch):
+    """:func:`moe` on a mesh (module docstring)."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    if cfg.moe_dispatch == "global" and cfg.expert_split != 1:
+        raise ValueError("moe_dispatch='global' has one slot per expert; "
+                         f"expert_split={cfg.expert_split} needs 'local'")
+    (data,) = data_axes(mesh) or (None,)
+    nd = axis_size(mesh, data) if data else 1
+    model = "model" if mesh_axes(mesh).get("model", 1) > 1 else None
+    xf = x.reshape(b * s, d)
+    # the groups this rank routes: its own one (a split batch), or every
+    # group on every data rank (a whole batch; "global": one, gathered)
+    replicated = whole_batch or cfg.moe_dispatch == "global" or nd == 1
+    if cfg.moe_dispatch == "global":
+        if not whole_batch and nd > 1:
+            xf = coll.gather_over_axis(xf, mesh, data, 0)
+        n_tokens, g = xf.shape[0], 1
+    else:
+        n_tokens = xf.shape[0] * (1 if replicated else nd)
+        g = _n_groups(n_tokens, nd) if replicated else 1
+    groups = xf.reshape(g, -1, d)
+    tg = groups.shape[1]
+    probs = torch.softmax(groups.float() @ p["router"].float(), dim=-1)
+
+    # statistics over every group: the top-1 counts and kept entries summed
+    # over data (a split batch), then each rank's share of the aux loss
+    cap = _capacity(tg, k, cfg)
+    dispatched = [_dispatch_one_group(groups[i], probs[i], k, e, cap, placement,
+                                      split=cfg.expert_split) for i in range(g)]
+    entries = sum(int(m[3].numel()) for _, m in dispatched)
+    stats = torch.cat([_count(probs.argmax(-1).reshape(-1), e),
+                       sum(m[3].long().sum() for _, m in dispatched).reshape(1)])
+    if not replicated:
+        coll.all_reduce(stats, mesh, data)
+        entries *= nd
+    ce = stats[:e].float() / n_tokens
+    share = e * torch.sum(probs.sum((0, 1)) / n_tokens * ce)
+    if data:
+        share = share / nd if replicated else share
+        share = coll.reduce_over_axis(share.reshape(1), mesh, data)[0]
+    dropped = 1.0 - stats[e].float() / entries
+
+    slot_axes, ff_axes = _expert_axes(cfg, d, mesh)
+    bufs = torch.stack([buf for buf, _ in dispatched])     # (g, slots, cap, D)
+    slots = bufs.shape[1]
+    ep = data is not None and data in slot_axes
+    tp2d = data is not None and data in ff_axes
+    if ep and replicated:
+        n = slots // nd
+        bufs = bufs[:, axis_index(mesh, data) * n:(axis_index(mesh, data) + 1) * n]
+    elif ep:        # group-sharded -> slot-sharded: (nd groups, my slots, ...)
+        bufs = coll.all_to_all_over_axis(bufs.reshape(nd, slots // nd, cap, d),
+                                         mesh, data)
+    elif tp2d and not replicated:
+        bufs = coll.gather_over_axis(bufs, mesh, data, 0)
+    if model and model in ff_axes:
+        bufs = coll.copy_to_axis(bufs, mesh, model)
+    out_buf = _experts(p, bufs, cfg)
+    if model and model in ff_axes:
+        out_buf = coll.reduce_over_axis(out_buf, mesh, model)
+    if ep and replicated:
+        out_buf = coll.gather_over_axis(out_buf, mesh, data, 1)
+    elif ep:        # back: (nd slot blocks, my group's rows) -> (1, slots, ...)
+        out_buf = coll.all_to_all_over_axis(out_buf, mesh, data).reshape(
+            1, slots, cap, d)
+    elif tp2d and replicated:
+        out_buf = coll.copy_to_axis(coll.reduce_over_axis(out_buf, mesh, data),
+                                    mesh, data)
+    elif tp2d:
+        out_buf = coll.reduce_scatter_over_axis(out_buf, mesh, data, 0)
+    out = torch.cat([_combine_one_group(out_buf[i], m, tg, d)
+                     for i, (_, m) in enumerate(dispatched)])
+    if cfg.moe_dispatch == "global" and not whole_batch and nd > 1:
+        out = out.narrow(0, axis_index(mesh, data) * b * s, b * s)
+    out = out.reshape(b, s, d).to(x.dtype)
+    return out, {"aux_loss": share, "expert_load": ce, "dropped_frac": dropped}

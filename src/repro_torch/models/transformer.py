@@ -17,7 +17,7 @@ Every other layer kind (SSM, xLSTM, hybrid, encoder-decoder), the vision
 prefix of the loss and the cost-analysis mode wait for ROADMAP item 12 and
 raise ``NotImplementedError``.
 
-``Model(cfg, mesh=mesh)`` trains a dense decoder on a ``("data", "model")``
+``Model(cfg, mesh=mesh)`` trains a decoder on a ``("data", "model")``
 mesh (``launch.mesh.make_mesh_named``) with the parameters placed by the
 reference's rules (``self.specs``, from ``dist.sharding.spec_tree``): each
 rank holds its block of every leaf (``dist.sharding.shard_tree``) and its
@@ -30,8 +30,13 @@ exponentials and the gold logit, never the (B, S, V) logits.  The loss is
 divided by the mask count summed over the data axes, so the sum of the
 data ranks' losses (and of their gradients) is the global loss: a batch
 split over ``data`` and a batch each data rank holds whole (one the data
-axes do not divide) both come out right.  Mixtures of experts,
-``seq_parallel``, ``mlp_dp`` and serving on a mesh raise
+axes do not divide) both come out right.  A mixture of experts routes the
+reference's groups per data shard and moves its buffers between data and
+expert shards (:mod:`.moe`; the batch dict's ``"whole_batch"``, set by
+``training.fault_tolerance.batch_block``, says that each data rank holds
+the whole batch); its load-balance loss is global and the loss adds ``0.01``
+times it once.  ``seq_parallel``, ``mlp_dp``, a mixture of experts over
+more than one data axis and serving on a mesh raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -91,16 +96,16 @@ def _model_axis(mesh) -> int:
 
 
 def check_mesh(cfg, mesh) -> None:
-    """Raise ``NotImplementedError`` for what mesh training does not port:
-    a mixture of experts (its routing groups per data shard and the
-    all-to-all between them, ROADMAP item 12c), ``seq_parallel`` and
-    ``mlp_dp`` (item 12h), and a model axis that does not split the heads,
-    the KV heads, d_ff or the vocab the way the tensor-parallel layers
-    read them (item 12h)."""
-    if cfg.n_experts:
+    """Raise ``NotImplementedError`` for what mesh training does not port
+    (ROADMAP item 12h): ``seq_parallel`` and ``mlp_dp``, a mixture of
+    experts over more than one data axis (the reference's ``pod`` meshes),
+    and a model axis that does not split the heads, the KV heads, d_ff or
+    the vocab the way the tensor-parallel layers read them."""
+    if cfg.n_experts and len(data_axes(mesh)) > 1:
         raise NotImplementedError(
-            f"{cfg.name}: a mixture of experts on a mesh (routing groups per "
-            "data shard, the all-to-all) is not ported (ROADMAP item 12c)")
+            f"{cfg.name}: a mixture of experts over the data axes "
+            f"{data_axes(mesh)} is not ported (one data axis is; ROADMAP "
+            "item 12h)")
     for flag in ("seq_parallel", "mlp_dp"):
         if getattr(cfg, flag, False):
             raise NotImplementedError(
@@ -179,7 +184,8 @@ def _sub(lp: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
 
 
 def _layer_forward(lp: Dict[str, torch.Tensor], x, cfg, kind: str, *,
-                   cache=None, pos=None, placement=None, mesh=None):
+                   cache=None, pos=None, placement=None, mesh=None,
+                   whole_batch=False):
     """One layer.  Returns (x, cache, aux_loss): the MoE's float32
     load-balance loss, None for a dense layer (whose loss the reference
     counts as 0: no tensor is made for it on the decode path)."""
@@ -197,7 +203,8 @@ def _layer_forward(lp: Dict[str, torch.Tensor], x, cfg, kind: str, *,
         x = x + attn_out
         ff_in = norm(_sub(lp, "norm2"), x, cfg.norm)
     if kind.endswith("+moe"):
-        ff_out, aux = moe(lp, ff_in, cfg, placement=placement)
+        ff_out, aux = moe(lp, ff_in, cfg, placement=placement, mesh=mesh,
+                          whole_batch=whole_batch)
         aux_loss = aux["aux_loss"]
     elif cfg.mlp_act != "none":
         ff_out = mlp(lp, ff_in, cfg, mesh=mesh)
@@ -218,13 +225,15 @@ def _dots_policy(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _remat_layer(lp, x, cfg, kind, placement, mesh):
-    x, _, aux = _layer_forward(lp, x, cfg, kind, placement=placement, mesh=mesh)
+def _remat_layer(lp, x, cfg, kind, placement, mesh, whole_batch):
+    x, _, aux = _layer_forward(lp, x, cfg, kind, placement=placement, mesh=mesh,
+                               whole_batch=whole_batch)
     return x, aux
 
 
 def run_stage(stage_params, x, cfg, kind: str, *, cache=None, pos=None,
-              placement=None, remat: str = "none", mesh=None):
+              placement=None, remat: str = "none", mesh=None,
+              whole_batch=False):
     """Run the stacked layers of one stage in order.  Returns (x, cache,
     aux): the sum of the layers' load-balance losses (None for dense
     layers); a given cache is written in place, layer ``i`` into its slice
@@ -239,7 +248,9 @@ def run_stage(stage_params, x, cfg, kind: str, *, cache=None, pos=None,
     count = next(iter(stage_params.values())).shape[0]
     layers: List[Dict[str, torch.Tensor]] = [{} for _ in range(count)]
     for k, v in stage_params.items():
-        for i, t in enumerate(v.unbind(0)):
+        # a stage of one layer takes a view: unbind's backward would stack
+        # the gradient into a copy (3.2 GB for one of grok's expert leaves)
+        for i, t in enumerate(v.unbind(0) if count > 1 else (v.squeeze(0),)):
             layers[i][k[4:]] = t
     kw = ({"context_fn": functools.partial(create_selective_checkpoint_contexts,
                                            _dots_policy)}
@@ -248,11 +259,12 @@ def run_stage(stage_params, x, cfg, kind: str, *, cache=None, pos=None,
     for i, lp in enumerate(layers):
         if cache is None and remat != "none":
             x, aux = checkpoint(_remat_layer, lp, x, cfg, kind, placement,
-                                mesh, use_reentrant=False, **kw)
+                                mesh, whole_batch, use_reentrant=False, **kw)
         else:
             c = None if cache is None else {"k": cache["k"][i], "v": cache["v"][i]}
             x, _, aux = _layer_forward(lp, x, cfg, kind, cache=c, pos=pos,
-                                       placement=placement, mesh=mesh)
+                                       placement=placement, mesh=mesh,
+                                       whole_batch=whole_batch)
         if aux is not None:
             aux_total = aux if aux_total is None else aux_total + aux
     return x, cache, aux_total
@@ -380,11 +392,13 @@ class Model:
         w = w.float()
         return h[:, -1:].float() @ (w.t() if self.cfg.tie_embeddings else w)
 
-    def backbone(self, params, x, *, cache=None, pos=None, remat="none"):
+    def backbone(self, params, x, *, cache=None, pos=None, remat="none",
+                 whole_batch=False):
         """The decoder stack and the final norm.  Returns (x, cache, aux):
         the float32 sum of the MoE layers' load-balance losses, None for a
         dense model (whose loss the reference counts as 0; the dense decode
-        path makes no tensor for it)."""
+        path makes no tensor for it).  ``whole_batch``: on a mesh, each
+        data rank holds the whole batch (:mod:`.moe`)."""
         cfg = self.cfg
         placement = self.placement(x.device)
         aux_total = None
@@ -393,7 +407,7 @@ class Model:
             x, _, aux = run_stage(params["stages"][sname], x, cfg, kind,
                                   cache=None if cache is None else cache[sname],
                                   pos=pos, placement=placement, remat=remat,
-                                  mesh=self.mesh)
+                                  mesh=self.mesh, whole_batch=whole_batch)
             if aux is not None:
                 aux_total = aux if aux_total is None else aux_total + aux
         return norm(params["final_norm"], x, cfg.norm), cache, aux_total
@@ -409,7 +423,10 @@ class Model:
         batch too, its count and its shares each taken once a data rank).
         The gradient of the sum passes back unchanged, so each rank's
         gradients are those of its share: the train step sums them over the
-        data axes."""
+        data axes.  The MoE layers' load-balance loss is global on every
+        rank in the same way (:mod:`.moe`), so ``0.01`` times it is added
+        once; ``batch["whole_batch"]`` (a replicated batch on a mesh) tells
+        their routing that every data rank holds every group."""
         cfg = self.cfg
         if cfg.n_encoder_layers or "enc_embeds" in batch:
             raise NotImplementedError(
@@ -425,7 +442,8 @@ class Model:
         mask = torch.ones(targets.shape, dtype=torch.float32,
                           device=tokens.device)
         mask[:, -1] = 0.0
-        h, _, aux = self.backbone(params, x, remat=remat)
+        h, _, aux = self.backbone(params, x, remat=remat,
+                                  whole_batch=bool(batch.get("whole_batch")))
         loss_sum, mask_sum = self.unembed_chunked(params, h, targets, mask)
         axes = data_axes(self.mesh)
         for a in axes:

@@ -24,7 +24,7 @@ from .fault_tolerance import (Heartbeat, HeartbeatMonitor, RunnerConfig,
                               TrainingRunner, WriterStalledError)
 from .grad_compress import (compressed_psum, int8_roundtrip, make_compressor,
                             topk_mask)
-from .optimizer import (adamw_init, adamw_update, clip_by_global_norm,
+from .optimizer import (adamw_init, adamw_update, clip_by_global_norm_,
                         global_norm, lr_schedule, zero1_spec_tree)
 from .train_step import make_eval_step, make_train_step
 
@@ -35,7 +35,7 @@ __all__ = [
     "RunnerConfig", "TrainingRunner",
     "Heartbeat", "HeartbeatMonitor", "WriterStalledError",
     "compressed_psum", "int8_roundtrip", "make_compressor", "topk_mask",
-    "adamw_init", "adamw_update", "clip_by_global_norm", "global_norm",
+    "adamw_init", "adamw_update", "clip_by_global_norm_", "global_norm",
     "lr_schedule", "zero1_spec_tree",
     "make_eval_step", "make_train_step",
 ]

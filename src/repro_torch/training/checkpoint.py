@@ -138,7 +138,13 @@ def _to_tensor(arr: np.ndarray) -> torch.Tensor:
 
 def save_checkpoint(directory: str, step: int, tree: Any,
                     extra: Optional[dict] = None) -> str:
-    paths, leaves = flatten_with_paths(tree)
+    return _write_leaves(directory, step, *flatten_with_paths(tree), extra)
+
+
+def _write_leaves(directory: str, step: int, paths, leaves, extra) -> str:
+    """Write ``leaves`` (a list, which this empties: each leaf is let go
+    once it is written, so a host tree the size of grok's state is never
+    held twice beside its files) as step ``step`` of ``directory``."""
     os.makedirs(directory, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=directory, prefix=".tmp_ckpt_")
     manifest = {"step": int(step), "leaves": [], "extra": extra or {}}
@@ -146,6 +152,7 @@ def save_checkpoint(directory: str, step: int, tree: Any,
         arr = _to_host(leaf)
         fname = _leaf_name(i)
         np.save(os.path.join(tmp, fname), arr)
+        leaves[i] = None
         manifest["leaves"].append(
             {"path": path, "file": fname, "shape": list(arr.shape),
              "dtype": _dtype_name(arr)})
@@ -207,11 +214,13 @@ def load_checkpoint(directory: str, step: int) -> Tuple[Dict[str, np.ndarray], d
 
 
 def restore_checkpoint(directory: str, step: int, like: Any,
-                       device: Optional[torch.device] = None):
+                       device: Optional[torch.device] = None, into: bool = False):
     """Restore into the structure of ``like``.  Each leaf takes its ``like``
     leaf's dtype; it comes back as a tensor on ``device`` when one is named,
     on the ``like`` leaf's device when that leaf is a tensor, and as a host
-    numpy array otherwise.  Returns ``(tree, manifest)``."""
+    numpy array otherwise.  ``into``: copy each leaf into its ``like``
+    tensor in place, one at a time (a runner's own state: a second tree on
+    the card is never alive).  Returns ``(tree, manifest)``."""
     ckpt_dir = _step_dir(directory, step)
     with open(os.path.join(ckpt_dir, _MANIFEST)) as f:
         manifest = json.load(f)
@@ -226,6 +235,8 @@ def restore_checkpoint(directory: str, step: int, like: Any,
         if tuple(arr.shape) != tuple(want):
             raise ValueError(f"{path}: shape {arr.shape} != {tuple(want)}")
         if isinstance(leaf, torch.Tensor):
+            if into:
+                return leaf.copy_(_to_tensor(arr))
             t = _to_tensor(arr).to(leaf.dtype)
             return t.to(device if device is not None else leaf.device)
         arr = arr.astype(np.asarray(leaf).dtype)
@@ -307,12 +318,13 @@ class AsyncCheckpointer:
 
     def save(self, step: int, tree: Any, extra: Optional[dict] = None):
         self.wait()
-        host_tree = _map_with_paths(tree, lambda _p, leaf: _to_host(leaf))
+        paths, leaves = flatten_with_paths(
+            _map_with_paths(tree, lambda _p, leaf: _to_host(leaf)))
 
         def _write():
             try:
                 t0 = time.perf_counter()
-                save_checkpoint(self.directory, step, host_tree, extra)
+                _write_leaves(self.directory, step, paths, leaves, extra)
                 self._gc(just_wrote=int(step))
                 self.last_write_s = time.perf_counter() - t0
             except BaseException as e:  # surfaced on the next wait()

@@ -8,6 +8,12 @@ steps in the reference's on-disk form (``checkpoint.AsyncCheckpointer``),
 retries a step that raises, restarts from the latest checkpoint when the
 retries run out, and beats a :class:`Heartbeat` per completed step.  It
 runs where its parameters lie: on the card unless they are CPU tensors.
+The train step donates the parameters and optimizer state (AdamW updates
+them in place), so a step is retried only when it failed before touching
+them; one that raises ``train_step.DonatedStateError`` (a failure inside
+the update, e.g. running out of memory part-way) left them part-updated,
+and the runner restores the latest checkpoint at once (with none, the error
+goes up).
 
 On a mesh (``mesh`` and the params' ``specs``) each rank holds its blocks
 and feeds the step its block of ``batch_fn(i)`` (``dist.sharding.
@@ -38,9 +44,11 @@ import numpy as np
 import torch
 
 from ..dist import collectives as coll
-from ..dist.sharding import batch_spec, gather_tree, is_lead_rank, shard_tree
+from ..dist.sharding import (batch_spec, data_axes, gather_tree, is_lead_rank,
+                             shard_tree)
 from .checkpoint import (AsyncCheckpointer, latest_step, restore_checkpoint,
                          restore_sharded)
+from .train_step import DonatedStateError
 
 __all__ = ["RunnerConfig", "TrainingRunner", "Heartbeat", "HeartbeatMonitor",
            "WriterStalledError", "batch_block"]
@@ -155,13 +163,19 @@ def _leaf_device(tree) -> torch.device:
 def batch_block(batch: dict, device, mesh=None) -> dict:
     """A batch (numpy arrays or tensors) as tensors on ``device``; on a mesh
     this rank's block of it (``dist.sharding.batch_spec`` of its leading
-    dim: split over the data axes, or whole when they do not divide it)."""
+    dim: split over the data axes, or whole when they do not divide it,
+    and then marked ``"whole_batch": True`` for the model's MoE routing)."""
     batch = {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor)
                                 else v) for k, v in batch.items()}
+    whole = False
     if mesh is not None:
-        batch = shard_tree(batch, mesh, {k: batch_spec(v.shape[0], mesh)
-                                         for k, v in batch.items()})
-    return {k: v.to(device) for k, v in batch.items()}
+        specs = {k: batch_spec(v.shape[0], mesh) for k, v in batch.items()}
+        batch = shard_tree(batch, mesh, specs)
+        whole = bool(data_axes(mesh)) and all(s == (None,) for s in specs.values())
+    out = {k: v.to(device) for k, v in batch.items()}
+    if whole:
+        out["whole_batch"] = True
+    return out
 
 
 class TrainingRunner:
@@ -232,7 +246,7 @@ class TrainingRunner:
             return 0
         if self.mesh is None:
             restored, manifest = restore_checkpoint(
-                self.cfg.checkpoint_dir, step, self._state())
+                self.cfg.checkpoint_dir, step, self._state(), into=True)
         else:
             restored, manifest = restore_sharded(
                 self.cfg.checkpoint_dir, step, self._state(), self.mesh,
@@ -256,11 +270,12 @@ class TrainingRunner:
                     self.params, self.opt_state, metrics = self.step_fn(
                         self.params, self.opt_state, batch)
                     break
-                except RuntimeError:
+                except RuntimeError as err:
                     if self.mesh is not None:
                         raise   # fail every rank (module docstring)
                     retries += 1
-                    if retries > self.cfg.max_retries_per_step:
+                    if (isinstance(err, DonatedStateError) or
+                            retries > self.cfg.max_retries_per_step):
                         # full restart-from-checkpoint path
                         if self._latest() is None:
                             raise

@@ -8,11 +8,18 @@ the parameters' dtype; the update runs in float32 and casts each parameter
 back to its dtype.  Without a master copy (the reference's default) a bf16
 update below half a bf16 unit is lost, as it is in the reference.
 
-The arithmetic is the reference's, operation for operation.  Where it saves
-memory the port works in place: ``adamw_update`` overwrites the state's
-``mu`` and ``nu`` tensors (the state it returns holds the same tensors) and
-updates leaves of more than ``CHUNK`` elements a slice along their first
-axis at a time, which changes no result (every operation is elementwise).
+The arithmetic is the reference's, operation for operation.  To save
+memory the port works in place, as the reference's compiled train cell
+does with the buffers it donates (``donate_argnums=(0, 1)``):
+``adamw_update`` overwrites the given parameters (and master copy) and the
+state's ``mu`` and ``nu`` tensors, a slice of at most ``CHUNK`` elements at
+a time, which changes no result (every operation is elementwise), so a
+second tree of parameters is never alive (11.5 GB at grok's width).
+:func:`global_norm` takes each leaf's sum of squares a slice at a time (a
+float32 copy of one of grok's stacked expert leaves, 1.6 G elements, would
+be 6.4 GB), and :func:`clip_by_global_norm_` scales the gradients in place
+a slice at a time, with the reference's per-element arithmetic, so no
+second tree of gradients is alive beside the first (+11.5 GB).
 
 On a mesh each rank updates its own block of every leaf (the update is
 elementwise); only the global norm needs the other ranks
@@ -28,12 +35,13 @@ from typing import Any, Callable
 
 import torch
 
-__all__ = ["adamw_init", "adamw_update", "global_norm", "clip_by_global_norm",
-           "lr_schedule", "tree_map", "tree_leaves", "tree_unflatten",
-           "tree_unzip", "zero1_spec_tree", "CHUNK"]
+__all__ = ["adamw_init", "adamw_update", "global_norm", "clip_by_global_norm_",
+           "lr_schedule", "tree_map", "tree_leaves",
+           "tree_unflatten", "tree_unzip", "zero1_spec_tree", "CHUNK"]
 
-# elements per slice of a large leaf in adamw_update (bounds its float32
-# temporaries: the 256,000 x 2,048 embedding of gemma-2b is 524 M elements)
+# elements per slice of a large leaf in adamw_update, global_norm and the
+# clip (bounds their float32 temporaries: the 256,000 x 2,048 embedding of
+# gemma-2b is 524 M elements)
 CHUNK = 1 << 26
 
 
@@ -48,13 +56,16 @@ def tree_leaves(tree) -> list:
 def tree_unflatten(like, flat):
     """A tree shaped like ``like`` holding ``flat`` (in :func:`tree_leaves`
     order)."""
-    it = iter(flat)
+    return _unflatten(like, iter(flat))
 
-    def walk(node):
-        if isinstance(node, dict):
-            return {k: walk(node[k]) for k in sorted(node)}
-        return next(it)
-    return walk(like)
+
+def _unflatten(node, it):
+    # a module-level walk: a recursive closure would hold ``flat`` in a
+    # reference cycle until the garbage collector ran (a train step's whole
+    # gradient tree, 11.5 GB at grok's width, kept into the next step)
+    if isinstance(node, dict):
+        return {k: _unflatten(node[k], it) for k in sorted(node)}
+    return next(it)
 
 
 def tree_map(fn: Callable, tree, *rest) -> Any:
@@ -82,25 +93,37 @@ def adamw_init(params, master: bool = False, moment_dtype=torch.float32):
     return state
 
 
+def _sum_sq(x: torch.Tensor) -> torch.Tensor:
+    """A leaf's float32 sum of squares, over its slices (:func:`_slices`)
+    in order: the whole leaf's sum when it is one slice."""
+    total = None
+    for sl in _slices(x):
+        sq = torch.sum(torch.square(sl.float()))
+        total = sq if total is None else total + sq
+    return total
+
+
 def global_norm(tree, mesh=None, specs=None) -> torch.Tensor:
     """sqrt of the sum over leaves (in tree order) of each leaf's sum of
-    squares, in float32.  On a mesh, ``tree`` holds this rank's blocks
-    under ``specs`` (a tree of placements like it, replicated over every
-    axis they do not name): the norm of the global tree.  The sums of
+    squares, in float32 (a leaf of more than ``CHUNK`` elements summed a
+    slice at a time, the slices' sums added in order).  On a mesh, ``tree``
+    holds this rank's blocks under ``specs`` (a tree of placements like it,
+    replicated over every axis they do not name): the norm of the global
+    tree.  The sums of
     squares of the leaves split over the same axes are added, then
     all-reduced over those axes (one all-reduce per axis and set of axes);
     a replicated leaf is counted once."""
     if mesh is None:
         total = 0
         for x in tree_leaves(tree):
-            total = total + torch.sum(torch.square(x.float()))
+            total = total + _sum_sq(x)
         return torch.sqrt(total)
     from ..dist import collectives as coll
     from ..dist.sharding import spec_axes
     groups: dict = {}
     for x, spec in zip(tree_leaves(tree), tree_leaves(specs)):
         axes = tuple(sorted({a for e in spec for a in spec_axes(e)}))
-        sq = torch.sum(torch.square(x.float()))
+        sq = _sum_sq(x)
         groups[axes] = groups[axes] + sq if axes in groups else sq
     total = 0
     for axes in sorted(groups):
@@ -111,10 +134,18 @@ def global_norm(tree, mesh=None, specs=None) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float, mesh=None, specs=None):
+def clip_by_global_norm_(grads, max_norm: float, mesh=None, specs=None):
+    """Scale ``grads`` in place to a global norm of at most ``max_norm``,
+    each element as the reference computes it, ``(g * scale)`` in float32
+    cast back to ``g``'s dtype, a slice of each leaf at a time; returns
+    ``(grads, norm)`` (the same tree, the norm before the clip): the
+    reference's ``clip_by_global_norm`` done in place."""
     norm = global_norm(grads, mesh, specs)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
+    for g in tree_leaves(grads):
+        for sl in _slices(g):
+            sl.copy_((sl.float() * scale).to(sl.dtype))
+    return grads, norm
 
 
 def lr_schedule(step, base_lr: float, warmup: int, total: int):
@@ -127,19 +158,21 @@ def lr_schedule(step, base_lr: float, warmup: int, total: int):
 
 
 def _slices(t: torch.Tensor):
-    """``t`` as views along its first axis of at most ``CHUNK`` elements
-    each (``t`` itself when it is small or 0-d)."""
+    """Contiguous ``t`` as flat views of at most ``CHUNK`` elements each, in
+    memory order (``t`` itself when it is small or 0-d): a leaf whose first
+    axis is short, such as a one-layer stack of grok's experts (1.6 G
+    elements), is cut too."""
     if t.ndim == 0 or t.numel() <= CHUNK:
         return [t]
-    rows = max(1, CHUNK // max(1, t[0].numel()))
-    return list(torch.split(t, rows, dim=0))
+    return list(torch.split(t.view(-1), CHUNK))
 
 
 def adamw_update(params, grads, state, *, lr, b1=0.9, b2=0.95, eps=1e-8,
                  weight_decay=0.0):
-    """One AdamW step -> ``(new_params, new_state)``.  ``state["mu"]`` and
-    ``state["nu"]`` are updated in place; the new parameters (and master
-    copy) are new tensors."""
+    """One AdamW step -> ``(new_params, new_state)``: the given parameters
+    (and master copy), ``state["mu"]`` and ``state["nu"]`` overwritten a
+    slice at a time (each slice read before it is written); the returned
+    trees hold the same tensors (module docstring)."""
     step = state["step"] + 1
     t = step.float()
     c1 = 1.0 - b1 ** t
@@ -156,17 +189,13 @@ def adamw_update(params, grads, state, *, lr, b1=0.9, b2=0.95, eps=1e-8,
         return pf - lr * (update + weight_decay * pf)
 
     def leaf(p, g, mu, nu, orig):
-        new_f = torch.empty(p.shape, dtype=torch.float32, device=p.device) \
-            if use_master else None
-        new_p = torch.empty_like(orig)
-        for ps, gs, ms, ns, nps, *nfs in zip(
-                _slices(p), _slices(g), _slices(mu), _slices(nu),
-                _slices(new_p), *([_slices(new_f)] if use_master else [])):
+        for ps, gs, ms, ns, os_ in zip(_slices(p), _slices(g), _slices(mu),
+                                       _slices(nu), _slices(orig)):
             pf = upd(ps, gs, ms, ns)
-            nps.copy_(pf.to(nps.dtype))
-            if nfs:
-                nfs[0].copy_(pf)
-        return new_p, new_f
+            if use_master:
+                ps.copy_(pf)
+            os_.copy_(pf.to(os_.dtype))
+        return orig, p if use_master else None
 
     out = tree_map(leaf, ref, grads, state["mu"], state["nu"], params)
     new_state = {"mu": state["mu"], "nu": state["nu"], "step": step}

@@ -10,10 +10,14 @@ hand-written backward (``kernels.flash_attention.FlashAttentionFunction``).
 On a mesh (a ``Model`` built with one) the step is the reference's jitted
 step under its placements: the model's loss is the global one and each
 rank's gradients those of its share of it on its block of the batch
-(microbatches split that block; ``Model.loss``), the gradients are summed
-over the data axes (one all-reduce per leaf and per data axis, before
-clipping), and the global norm is the norm of the global gradient; AdamW
-updates each rank's blocks.
+(microbatches split that block; ``Model.loss``), each gradient leaf is
+summed over the data axes its placement does not name (one all-reduce per
+leaf and per such axis, before clipping; an expert leaf split over ``data``
+holds its own slots' or d_ff slice's whole gradient already, as under
+GSPMD), and the global norm is the norm of the global gradient; AdamW
+updates each rank's blocks.  A mixture of experts on a mesh takes one
+microbatch: the reference routes each microbatch's global rows as groups,
+which a split of the rank's block does not reproduce (ROADMAP item 12h).
 """
 from __future__ import annotations
 
@@ -22,11 +26,19 @@ from typing import Callable
 import torch
 
 from ..dist import collectives as coll
-from ..dist.sharding import data_axes
-from .optimizer import (adamw_update, clip_by_global_norm, lr_schedule,
+from ..dist.sharding import data_axes, spec_axes
+from .optimizer import (adamw_update, clip_by_global_norm_, lr_schedule,
                         tree_leaves, tree_map, tree_unflatten)
 
-__all__ = ["make_train_step", "make_eval_step", "value_and_grad"]
+__all__ = ["make_train_step", "make_eval_step", "value_and_grad",
+           "DonatedStateError"]
+
+
+class DonatedStateError(RuntimeError):
+    """A train step failed after its AdamW update began overwriting the
+    parameters and optimizer state it was given: they are part-updated, and
+    the step cannot be run again on them (``TrainingRunner`` restores the
+    latest checkpoint instead of retrying)."""
 
 
 def value_and_grad(loss_fn: Callable, params, *args):
@@ -43,10 +55,24 @@ def value_and_grad(loss_fn: Callable, params, *args):
 
 def make_train_step(model, tcfg) -> Callable:
     """Returns ``step(params, opt_state, batch) -> (params, opt_state,
-    metrics)``; ``batch`` holds tensors on the parameters' device.  On the
-    model's mesh ``params``, ``opt_state`` and ``batch`` are this rank's
+    metrics)``; ``batch`` holds tensors on the parameters' device.  The
+    step donates ``params`` and ``opt_state``, as the reference's compiled
+    train cell does: it updates their tensors in place and returns them; a
+    failure before the update leaves them as they were, one inside it
+    raises :class:`DonatedStateError`.  On the model's mesh ``params``, ``opt_state`` and ``batch`` are this rank's
     blocks and the ``loss`` and ``grad_norm`` metrics the global ones."""
     mesh = model.mesh
+    if mesh is not None and model.cfg.n_experts and tcfg.microbatches > 1:
+        raise NotImplementedError(
+            f"{model.cfg.name}: microbatches={tcfg.microbatches} with a mixture "
+            "of experts on a mesh (the reference's groups of each "
+            "microbatch's global rows) is not ported (ROADMAP item 12h)")
+    # the data axes each gradient leaf is summed over: those its placement
+    # does not split it over
+    sums = ([] if mesh is None else
+            [tuple(a for a in data_axes(mesh)
+                   if a not in {x for e in spec for x in spec_axes(e)})
+             for spec in tree_leaves(model.specs)])
 
     def loss_fn(params, batch):
         return model.loss(params, batch, remat=tcfg.remat)
@@ -56,30 +82,37 @@ def make_train_step(model, tcfg) -> Callable:
         if m <= 1:
             return value_and_grad(loss_fn, params, batch)
         micro = {k: v.reshape(m, v.shape[0] // m, *v.shape[1:])
-                 for k, v in batch.items()}
+                 for k, v in batch.items() if torch.is_tensor(v)}
+        flags = {k: v for k, v in batch.items() if not torch.is_tensor(v)}
         loss_sum = torch.zeros((), dtype=torch.float32,
                                device=tree_leaves(params)[0].device)
         g_sum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                device=p.device), params)
         for i in range(m):
             loss, g = value_and_grad(loss_fn, params,
-                                     {k: v[i] for k, v in micro.items()})
+                                     {**{k: v[i] for k, v in micro.items()},
+                                      **flags})
             g_sum = tree_map(lambda a, b_: a + b_.float(), g_sum, g)
             loss_sum = loss_sum + loss
         return loss_sum / m, tree_map(lambda g: g / m, g_sum)
 
     def step(params, opt_state, batch):
         loss, grads = grads_of(params, batch)
-        for a in data_axes(mesh):
-            for g in tree_leaves(grads):
+        for g, axes in zip(tree_leaves(grads), sums):
+            for a in axes:
                 coll.all_reduce(g, mesh, a)
-        grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip, mesh,
+        grads, gnorm = clip_by_global_norm_(grads, tcfg.grad_clip, mesh,
                                            model.specs)
         lr = lr_schedule(opt_state["step"], tcfg.learning_rate,
                          tcfg.warmup_steps, tcfg.total_steps)
-        params, opt_state = adamw_update(
-            params, grads, opt_state, lr=lr, b1=tcfg.b1, b2=tcfg.b2,
-            weight_decay=tcfg.weight_decay)
+        try:
+            params, opt_state = adamw_update(
+                params, grads, opt_state, lr=lr, b1=tcfg.b1, b2=tcfg.b2,
+                weight_decay=tcfg.weight_decay)
+        except RuntimeError as err:
+            raise DonatedStateError(
+                f"the AdamW update failed part-way through the donated state: {err}"
+            ) from err
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr,
                    "step": opt_state["step"]}
         return params, opt_state, metrics

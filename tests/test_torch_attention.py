@@ -475,6 +475,82 @@ def test_attention_ref_bwd_matches_autograd_of_attention_ref(b, h, hkv, s, d,
         _close(g_, t.grad.numpy(), tol=1e-5)
 
 
+# the capped bf16 emulation against the capped float32 vjp (below)
+CAP_BWD_EMU_REL = 7e-3
+# soft-capped backward cases: grok's G = 6, G = 1, a window, non-causal
+CAP_BWD_CASES = [(1, 12, 2, 29, 16, True, 0), (2, 4, 4, 33, 16, True, 0),
+                 (1, 6, 1, 40, 16, True, 8), (1, 4, 2, 21, 32, False, 0)]
+
+
+def _capped_vjp(q, k, v, dout, causal, window):
+    """Output and ``jax.vjp`` of the reference model's ``flash_chunked``
+    with ``softcap_val=CAP`` on (B, H, S, D) float32 inputs."""
+    import jax
+    d = q.shape[-1]
+
+    def f(q_, k_, v_):
+        out = j_flash_chunked(q_.transpose(0, 2, 1, 3), k_.transpose(0, 2, 1, 3),
+                              v_.transpose(0, 2, 1, 3), causal=causal,
+                              window=window, sm_scale=d ** -0.5, softcap_val=CAP,
+                              q_chunk=16, k_chunk=16)
+        return out.transpose(0, 2, 1, 3)
+
+    out, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)))
+    return np.array(out), [np.array(g) for g in vjp(jnp.asarray(dout))]
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,causal,window", CAP_BWD_CASES)
+def test_capped_attention_ref_bwd_matches_the_vjp_of_flash_chunked(b, h, hkv, s, d,
+                                                                    causal, window):
+    """``attention_ref_bwd(softcap=30)`` (P from the capped scores' lse,
+    dS through c' = 1 - tanh^2) against ``jax.vjp`` of the reference
+    model's soft-capped ``flash_chunked``, on scores that reach the cap
+    (q 8x a standard normal), float32 within 1e-5 of the largest gradient
+    entry (the gradients reach ~9 with q that large, and float32 roundings
+    scale with them); the cap changes the gradients."""
+    from repro_torch.kernels.flash_attention import (attention_lse_ref,
+                                                     attention_ref_bwd)
+    q, k, v, dout = _bwd_inputs(b, h, hkv, s, d, seed=s + h + d)
+    q = q * CAP_Q
+    out, want = _capped_vjp(q, k, v, dout, causal, window)
+    tq, tk_, tv, tout, tdo = (torch.from_numpy(np.array(x))
+                              for x in (q, k, v, out, dout))
+    args = dict(causal=causal, window=window or None, softcap=CAP)
+    lse = attention_lse_ref(tq, tk_, **args)
+    got = attention_ref_bwd(tq, tk_, tv, tout, tdo, lse, **args)
+    uncapped = attention_ref_bwd(tq, tk_, tv, tout, tdo, lse, causal=causal,
+                                 window=window or None)
+    for g_, w_ in zip(got, want):
+        _close(g_, w_, tol=1e-5 * max(1.0, float(np.abs(w_).max())))
+    assert float((uncapped[0] - got[0]).abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,causal,window", CAP_BWD_CASES)
+def test_capped_bf16_bwd_emulation_matches_the_vjp_of_flash_chunked(
+        b, h, hkv, s, d, causal, window):
+    """The capped bf16 emulation ((P c') and dS rounded as the kernels
+    round them) against the capped float32 vjp on the same bf16 values,
+    each gradient rounded to bf16, within ``CAP_BWD_EMU_REL``: q 8x a
+    standard normal makes the rows' softmax sharp, so a few large P and dS
+    entries carry each gradient and their roundings weigh more; measured
+    worst 5.4e-3 over CAP_BWD_CASES, still under the card's 1e-2 gate."""
+    from repro_torch.kernels.flash_attention import (attention_bwd_bf16_ref,
+                                                     attention_lse_ref)
+    q, k, v, dout = (torch.from_numpy(x).to(torch.bfloat16)
+                     for x in _bwd_inputs(b, h, hkv, s, d, seed=s + h + d))
+    q = (q.float() * CAP_Q).to(torch.bfloat16)
+    out, want = _capped_vjp(*(t.float().numpy() for t in (q, k, v, dout)),
+                            causal, window)
+    out = torch.from_numpy(out).to(torch.bfloat16)
+    args = dict(causal=causal, window=window or None, softcap=CAP)
+    lse = attention_lse_ref(q.float(), k.float(), **args)
+    got = attention_bwd_bf16_ref(q, k, v, out, dout, lse, **args)
+    for g_, w_ in zip(got, want):
+        w_ = torch.from_numpy(w_)
+        rel = float((g_.to(torch.bfloat16).float() - w_).norm() / w_.norm())
+        assert rel <= CAP_BWD_EMU_REL
+
+
 def test_model_attention_is_differentiable_on_the_cpu():
     """The full-sequence path of the model's attention layer (no cache)
     takes the plain ``flash_chunked`` on the CPU and autograd runs through

@@ -627,15 +627,32 @@ def test_flash_attention_f32_runs_the_fma_kernel(cuda, h, hkv, d, causal, window
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_soft_capped_gradient_raises_on_the_card(cuda, dtype):
-    """K6's backward takes no soft-cap: the forward runs (and writes its
-    lse), the backward raises by name rather than fall back."""
+def test_soft_capped_gradient_runs_the_capped_backward(cuda, dtype):
+    """Autograd through soft-capped attention on the card runs K6's forward
+    and its capped backward once each, and the gradients are the plain
+    backward's (float32 within 1e-4, bf16 within rel L2 1e-2)."""
+    from repro_torch.kernels.flash_attention import (attention_lse_ref,
+                                                     attention_ref_bwd)
     q, k, v = _model_layout_qkv(1, 12, 2, 64, 128, dtype, 3, cuda)
+    q = (q.float() * CAP_Q_SCALE).to(dtype)
     for t in (q, k, v):
         t.requires_grad_()
+    kernels.reset_launch_counts()
     out = multi_head_attention(q, k, v, causal=True, window=0, softcap=30.0)
-    with pytest.raises(NotImplementedError, match="soft-capped.*ROADMAP item 12c"):
-        out.float().sum().backward()
+    dout = torch.randn_like(out.float()).to(dtype)
+    out.backward(dout)
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == 1 and counts["flash_attention_bwd"] == 1
+    args = dict(causal=True, softcap=30.0)
+    lse = attention_lse_ref(q.detach().float(), k.detach().float(), **args)
+    want = attention_ref_bwd(q.detach().float(), k.detach().float(),
+                             v.detach().float(), out.detach().float(),
+                             dout.float(), lse, **args)
+    for t, w_ in zip((q, k, v), want):
+        if dtype == torch.float32:
+            torch.testing.assert_close(t.grad, w_, rtol=0, atol=BWD_TOL_F32)
+        else:
+            assert float((t.grad.float() - w_).norm() / w_.norm()) <= BWD_REL_BF16
 
 
 @pytest.mark.parametrize("softcap", [0.0, 30.0])
@@ -688,36 +705,55 @@ BWD_REL_EMU = 1e-3
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,h,hkv,s,d,causal,window", [
-    (2, 8, 1, 200, 256, True, 0),     # G = 8, ragged
-    (1, 8, 4, 130, 256, True, 50),    # a window inside a k tile
-    (2, 4, 2, 64, 16, True, 8),       # the reduced configs' D
-    (1, 4, 4, 97, 64, False, 0),      # non-causal, G = 1
-    (2, 8, 2, 77, 96, True, 0),       # G = 4, D padded to 128
-    (1, 2, 1, 1, 128, True, 0),       # one row
-    (2, 4, 1, 1024, 256, True, 0)])   # a rank of gemma-2b on the tiny mesh
+@pytest.mark.parametrize("b,h,hkv,s,d,causal,window,softcap", [
+    (2, 8, 1, 200, 256, True, 0, 0.0),     # G = 8, ragged
+    (1, 8, 4, 130, 256, True, 50, 0.0),    # a window inside a k tile
+    (2, 4, 2, 64, 16, True, 8, 0.0),       # the reduced configs' D
+    (1, 4, 4, 97, 64, False, 0, 0.0),      # non-causal, G = 1
+    (2, 8, 2, 77, 96, True, 0, 0.0),       # G = 4, D padded to 128
+    (1, 2, 1, 1, 128, True, 0, 0.0),       # one row
+    (2, 4, 1, 1024, 256, True, 0, 0.0),    # a rank of gemma-2b on the tiny mesh
+    (2, 4, 4, 64, 16, True, 0, 30.0),      # the reduced grok, G = 1
+    (1, 12, 2, 130, 128, True, 50, 30.0),  # a cap and a window
+    (1, 4, 4, 97, 64, False, 0, 30.0)])    # a cap, non-causal, G = 1
 def test_flash_attention_bwd_matches_its_plain_version(cuda, b, h, hkv, s, d,
-                                                       causal, window, dtype):
+                                                       causal, window, softcap,
+                                                       dtype):
     """The forward's lse against the plain scores' logsumexp, the backward
     kernels against ``attention_ref_bwd`` in float32 on the same inputs
     and, in bf16, against ``attention_bwd_bf16_ref``; two calls bit-equal
-    (no atomics)."""
+    (no atomics).  Soft-capped cases draw q ``CAP_Q_SCALE`` times larger."""
+    _check_bwd(cuda, b, h, hkv, s, d, causal, window, softcap, dtype)
+
+
+def test_capped_bwd_at_groks_training_layer(cuda):
+    """The capped backward at grok's training layer (B=2 H=48 Hkv=8 S=1,024
+    D=128, G = 6, bf16, the dtype grok trains in; its float32 kernel is
+    held by the capped cases above)."""
+    _check_bwd(cuda, 2, 48, 8, 1024, 128, True, 0, 30.0, torch.bfloat16)
+
+
+def _check_bwd(cuda, b, h, hkv, s, d, causal, window, softcap, dtype):
     from repro_torch.kernels.flash_attention import (attention_bwd_bf16_ref,
                                                      attention_lse_ref,
                                                      attention_ref_bwd,
                                                      flash_attention,
                                                      flash_attention_bwd)
     q, k, v = _model_layout_qkv(b, h, hkv, s, d, dtype, s + d + 1, cuda)
+    if softcap:
+        q = (q.float() * CAP_Q_SCALE).to(dtype)
     gen = torch.Generator(device=cuda).manual_seed(s)
     dout = torch.randn((b, h, s, d), generator=gen, device=cuda).to(dtype)
     kernels.reset_launch_counts()
     out, lse = flash_attention(q, k, v, causal=causal, window=window,
-                               return_lse=True)
-    got = flash_attention_bwd(q, k, v, out, dout, lse, causal=causal, window=window)
-    again = flash_attention_bwd(q, k, v, out, dout, lse, causal=causal, window=window)
+                               softcap=softcap, return_lse=True)
+    got = flash_attention_bwd(q, k, v, out, dout, lse, causal=causal, window=window,
+                              softcap=softcap)
+    again = flash_attention_bwd(q, k, v, out, dout, lse, causal=causal, window=window,
+                                softcap=softcap)
     variant = "wgmma_bf16" if dtype == torch.bfloat16 else "fma_f32"
     assert kernels.variant_counts()[f"flash_attention_bwd.{variant}"] == 2
-    args = dict(causal=causal, window=window or None)
+    args = dict(causal=causal, window=window or None, softcap=softcap)
     want_lse = attention_lse_ref(q.float(), k.float(), **args)
     torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-5)
     want = attention_ref_bwd(q.float(), k.float(), v.float(), out.float(),
@@ -766,9 +802,10 @@ def test_flash_attention_bwd_splits_give_one_result(cuda):
     q, k, v = _model_layout_qkv(2, 8, 1, 256, 256, torch.bfloat16, 5, cuda)
     dout = torch.randn_like(q.float()).to(torch.bfloat16)
     out, lse = flash_attention(q, k, v, causal=True, window=0, return_lse=True)
-    runs = {hpb: _bwd(q, k, v, out, dout, lse, True, 0, None, hpb) for hpb in (1, 2, 8)}
+    runs = {hpb: _bwd(q, k, v, out, dout, lse, True, 0, None, 0.0, hpb)
+            for hpb in (1, 2, 8)}
     for hpb, grads in runs.items():
-        again = _bwd(q, k, v, out, dout, lse, True, 0, None, hpb)
+        again = _bwd(q, k, v, out, dout, lse, True, 0, None, 0.0, hpb)
         assert all(torch.equal(a, b_) for a, b_ in zip(grads, again))
         for g_, w_ in zip(grads, runs[1]):
             assert float((g_.float() - w_.float()).norm() / w_.float().norm()) <= 1e-3
@@ -839,14 +876,18 @@ def _np_tree(tree):
     return tree.numpy()
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "gemma3-4b"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "gemma3-4b", "grok-1-314b",
+                                  "llama4-maverick-400b-a17b"])
 def test_mesh_training_on_four_gloo_ranks_sharing_the_card(cuda, arch, tmp_path):
     """The reduced float32 config on the tiny mesh, (data, model) = (2, 2),
     4 gloo ranks sharing the card (the ``train`` job of launch.mesh_runs),
     against the same model in this process on the CPU from the same
-    weights: losses within 1e-4 relative on every rank; K6's float32
-    forward and backward once per layer and step on every rank; the lead
-    rank's checkpoint restored on the mesh replays step 3 bit for bit."""
+    weights (a MoE at its own capacity factor: against the same job on 4
+    gloo ranks of the host, which routes the same groups per data shard):
+    losses within 1e-4 relative on every rank, a MoE's expert loads and
+    dropped shares equal step by step; K6's float32 forward and backward
+    once per layer and step on every rank; the lead rank's checkpoint
+    restored on the mesh replays step 3 bit for bit."""
     from repro_torch.configs import get_config
     from repro_torch.configs.reduced import reduced_config
     from repro_torch.launch.mesh import run_ranks
@@ -856,25 +897,36 @@ def test_mesh_training_on_four_gloo_ranks_sharing_the_card(cuda, arch, tmp_path)
     cfg = reduced_config(get_config(arch))
     n_layers = sum(c for _, c in stages_meta(cfg))
     rate = dict(learning_rate=1e-3, warmup_steps=1, total_steps=3)
+    moe = bool(cfg.n_experts)
     job = dict(kind="train", mesh="tiny", arch=arch, reduced=True, steps=3,
-               batch=4, seq=32, tcfg=rate, params=_np_tree(init_params(
-                   cfg, torch.Generator().manual_seed(0), "cpu")))
+               batch=4, seq=32, tcfg=rate, moe_stats=moe, params=_np_tree(
+                   init_params(cfg, torch.Generator().manual_seed(0), "cpu")))
     ckpt = dict(job, steps=2, then=1, ckpt_dir=str(tmp_path), ckpt_every=2,
                 gather=True)
     restored = dict(ckpt, steps=1, then=0, params=None, seed=1)
     per_rank = run_ranks(run_jobs, 4, backend="gloo", device="cuda",
                          args=([job, ckpt, restored],), timeout=300)
-    host = train_run(job, torch.device("cpu"))
-    for res, a, b in per_rank:
+    hosts = ([r[0] for r in run_ranks(run_jobs, 4, backend="gloo", device="cpu",
+                                      args=([job],), timeout=300)]
+             if moe else [train_run(job, torch.device("cpu"))] * 4)
+    dropped = 0.0
+    for (res, a, b), host in zip(per_rank, hosts):
         for got, want in zip(res["losses"], host["losses"]):
             assert abs(got - want) <= 1e-4 * abs(want)
-        for rec in res["records"]:
+        for rec, want in zip(res["records"], host["records"]):
             assert rec["launches"]["flash_attention.fma_f32"] == n_layers
             assert rec["launches"]["flash_attention_bwd.fma_f32"] == n_layers
             assert rec["launches"]["flash_attention.wgmma_bf16"] == 0
+            assert len(rec.get("moe", [])) == len(want.get("moe", []))
+            for (d, load), (wd, wload) in zip(rec.get("moe", []), want.get("moe", [])):
+                assert np.array_equal(np.rint(np.asarray(load) * 128),
+                                      np.rint(np.asarray(wload) * 128))
+                assert abs(d - wd) <= 1e-6
+                dropped = max(dropped, d)
         assert b["resumed"] == 2 and b["losses"] == a["losses"][2:]
         if a["lead"]:
             assert _trees_equal(a["params"], b["params"])
+    assert (dropped > 0) == moe
 
 
 def _trees_equal(a, b):

@@ -206,7 +206,9 @@ def mesh_runs(tmp_path_factory):
         # the reference's directory restored on the mesh, then step 3
         jobs["restore"] = _job("gemma-2b", 4, 1, root / "jax", steps=1,
                                params=None, seed=5, tcfg=whole)
-        jobs["moe"] = dict(_job("grok-1-314b", 4, 1, root / "moe"), params=None)
+        # a mixture of experts trains on the mesh (test_torch_moe_mesh.py)
+        # but not with microbatches
+        jobs["moe"] = dict(_job("grok-1-314b", 4, 2, root / "moe"), params=None)
         jobs["seq_parallel"] = dict(jobs["moe"], arch="gemma-2b",
                                     cfg={"seq_parallel": True})
         jobs["mlp_dp"] = dict(jobs["moe"], arch="gemma-2b", cfg={"mlp_dp": True})
@@ -507,7 +509,8 @@ def test_the_references_checkpoint_restores_on_the_mesh(mesh_runs):
 
 
 @pytest.mark.parametrize("label,match", [
-    ("moe", r"NotImplementedError: .*ROADMAP item 12c"),
+    ("moe", r"NotImplementedError: .*microbatches=2 with a mixture of experts.*"
+            r"ROADMAP item 12h"),
     ("seq_parallel", r"NotImplementedError: .*seq_parallel.*ROADMAP item 12h"),
     ("mlp_dp", r"NotImplementedError: .*mlp_dp.*ROADMAP item 12h"),
     ("single", r"ValueError: mesh 'single' \(16, 16\) needs 256 ranks; the "
@@ -523,7 +526,7 @@ def test_launch_train_mesh_prints_the_references_line(mesh_runs, tmp_path):
     """``launch.train --mesh tiny --dist-backend gloo --device cpu`` on 4
     ranks prints the reference driver's ``[train]`` line (times and losses
     left out: each package draws its own random weights); a MoE config on
-    the mesh is refused before any rank starts."""
+    a mesh of two data axes is refused before any rank starts."""
     _, _, drivers = mesh_runs
     for name, (rc, _, err) in drivers.items():
         assert rc == 0, (name, err[-2000:])
@@ -533,7 +536,7 @@ def test_launch_train_mesh_prints_the_references_line(mesh_runs, tmp_path):
         return re.sub(r"loss \d+\.\d+ -> \d+\.\d+", "loss A -> B", text).splitlines()
     assert masked(drivers["port"][1]) == masked(drivers["reference"][1]) == [
         "[train] gemma-2b steps 0->3 in Ts; loss A -> B"]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12c"):
-        train.main(["--arch", "grok-1-314b", "--reduced", "--mesh", "tiny",
+    with pytest.raises(NotImplementedError, match="data axes.*ROADMAP item 12h"):
+        train.main(["--arch", "grok-1-314b", "--reduced", "--mesh", "multi",
                     "--device", "cpu", "--dist-backend", "gloo",
                     "--ckpt-dir", str(tmp_path / "g")])

@@ -44,7 +44,7 @@ from repro_torch.data import TokenPipeline
 from repro_torch.models import Model, opt_state_from_numpy, params_from_numpy
 from repro_torch.models import transformer as t_transformer
 from repro_torch.training import (RunnerConfig, TrainingRunner, adamw_init,
-                                  adamw_update, clip_by_global_norm,
+                                  adamw_update, clip_by_global_norm_,
                                   global_norm, latest_step, lr_schedule,
                                   make_eval_step, make_train_step,
                                   restore_checkpoint, save_checkpoint)
@@ -201,10 +201,40 @@ def _grad_tree(seed, scale):
                   "d": rng.normal(size=(2, 3, 4)).astype(np.float32) * scale}}
 
 
+@pytest.mark.parametrize("chunk", [None, 5])
+@pytest.mark.parametrize("scale", [0.01, 10.0])
+def test_the_in_place_clip_equals_the_copying_clip_bit_for_bit(scale, chunk,
+                                                                monkeypatch):
+    """``clip_by_global_norm_`` scales the gradients in place, a slice at a
+    time, with the per-element arithmetic of the copying clip it replaced
+    (written out here: ``(g.float() * scale).to(g.dtype)`` into a new
+    tree), on float32 and bf16 leaves; with the default ``CHUNK`` every
+    leaf is one slice and the norm is the copying clip's whole-leaf sum bit
+    for bit.  ``chunk`` 5 cuts the leaves into flat slices of 5 elements
+    (the norm then adds the slices' sums in order)."""
+    from repro_torch.training import optimizer as opt_mod
+    if chunk:
+        monkeypatch.setattr(opt_mod, "CHUNK", chunk)
+    tree = tree_map(torch.from_numpy, _grad_tree(1, scale))
+    tree["b"]["d"] = tree["b"]["d"].to(torch.bfloat16)
+    before = tree_map(torch.clone, tree)
+    got, norm = clip_by_global_norm_(tree, 1.0)
+    assert got is tree
+    if chunk is None:
+        old = torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                             for x in opt_mod.tree_leaves(before)))
+        assert torch.equal(norm, old)
+    factor = torch.clamp(1.0 / torch.clamp(norm, min=1e-9), max=1.0)
+    copied = tree_map(lambda x: (x.float() * factor).to(x.dtype), before)
+    for g, x in zip(opt_mod.tree_leaves(got), opt_mod.tree_leaves(copied)):
+        assert g.dtype == x.dtype and torch.equal(g, x)
+
+
 @pytest.mark.parametrize("scale", [0.01, 1.0, 10.0])
 def test_clip_by_global_norm_matches_the_reference(scale):
     tree = _grad_tree(0, scale)
-    got, norm = clip_by_global_norm(tree_map(torch.from_numpy, tree), 1.0)
+    got, norm = clip_by_global_norm_(tree_map(lambda a: torch.from_numpy(a.copy()), tree),
+                                     1.0)
     want, wnorm = j_clip(jax.tree.map(jnp.asarray, tree), 1.0)
     assert abs(float(norm) - float(wnorm)) <= 1e-6 * float(wnorm)
     _assert_trees_close(got, want, atol=1e-7, rtol=1e-6)
@@ -221,7 +251,7 @@ def test_adamw_update_matches_the_reference(master, weight_decay, monkeypatch):
     from repro_torch.training import optimizer
     monkeypatch.setattr(optimizer, "CHUNK", 20)
     params = _grad_tree(1, 1.0)
-    tp = tree_map(torch.from_numpy, params)
+    tp = tree_map(lambda a: torch.from_numpy(a.copy()), params)   # updated in place
     jpar = jax.tree.map(jnp.asarray, params)
     state = adamw_init(tp, master=master)
     jstate = j_adamw_init(jpar, master=master)
@@ -241,6 +271,34 @@ def test_adamw_update_matches_the_reference(master, weight_decay, monkeypatch):
             _assert_trees_close(state["master"], jstate["master"], atol=1e-6)
 
 
+@pytest.mark.parametrize("master", [False, True])
+def test_adamw_update_writes_its_result_in_place_slice_by_slice(master,
+                                                                monkeypatch):
+    """``adamw_update`` writes the new values into the given parameter (and
+    master) tensors, as the train step's donation needs; leaves cut into
+    flat slices (``CHUNK`` 5) give the values of one whole-leaf update bit
+    for bit."""
+    from repro_torch.training import optimizer as opt_mod
+    rng = np.random.default_rng(2)
+    params = {"a": torch.from_numpy(rng.normal(size=(3, 7)).astype(np.float32)),
+              "b": torch.from_numpy(rng.normal(size=(2, 3, 4)).astype(np.float32))
+              .to(torch.bfloat16)}
+    grads = {k: torch.from_numpy(rng.normal(size=tuple(v.shape)).astype(np.float32))
+             .to(v.dtype) for k, v in params.items()}
+    copies = tree_map(torch.clone, params)
+    kw = dict(lr=torch.tensor(1e-2), weight_decay=0.1)
+    want, want_state = adamw_update(copies, grads, adamw_init(copies, master=master), **kw)
+    monkeypatch.setattr(opt_mod, "CHUNK", 5)
+    state = adamw_init(params, master=master)
+    got, got_state = adamw_update(params, grads, state, **kw)
+    for k in params:
+        assert got[k] is params[k] and torch.equal(got[k], want[k])
+        assert torch.equal(got_state["mu"][k], want_state["mu"][k])
+        if master:
+            assert got_state["master"][k] is state["master"][k]
+            assert torch.equal(got_state["master"][k], want_state["master"][k])
+
+
 def test_adamw_keeps_bf16_params_without_a_master_copy():
     """The reference's default on bf16: float32 moments, the update in
     float32 cast back to bf16, so an update below half a bf16 unit is
@@ -251,7 +309,8 @@ def test_adamw_keeps_bf16_params_without_a_master_copy():
     new, state = adamw_update(p, {"w": torch.ones(4, dtype=torch.bfloat16)},
                               state, lr=torch.tensor(1e-4))
     assert new["w"].dtype == torch.bfloat16
-    assert torch.equal(new["w"], p["w"])     # 1 - 1e-4 rounds back to 1
+    # 1 - 1e-4 rounds back to 1
+    assert torch.equal(new["w"], torch.full((4,), 1.0, dtype=torch.bfloat16))
     new, _ = adamw_update(p, {"w": torch.ones(4, dtype=torch.bfloat16)},
                           adamw_init(p), lr=torch.tensor(1e-2))
     assert float(new["w"][0]) < 1.0
@@ -458,6 +517,50 @@ def test_runner_restarts_from_the_latest_checkpoint_when_retries_run_out(tmp_pat
     assert log[2]["loss"] == log[3]["loss"]
 
 
+def test_a_step_failing_inside_its_update_restores_the_checkpoint(tmp_path,
+                                                                   monkeypatch):
+    """A step whose AdamW update fails part-way has overwritten some of the
+    donated parameters: the runner does not retry it on them but restores
+    the newest checkpoint at once and replays from there, ending on the
+    uninterrupted run's parameters bit for bit."""
+    from repro_torch.training import train_step as ts
+    from repro_torch.training.optimizer import tree_leaves
+    cfg, _, params, _ = _both("gemma-2b")
+    pipe = TokenPipeline(cfg.vocab_size, batch=2, seq_len=8, seed=0)
+    clean = TrainingRunner(RunnerConfig(str(tmp_path / "clean"), checkpoint_every=2),
+                           make_train_step(Model(cfg), _tcfg(TrainConfig)),
+                           tree_map(torch.clone, params),
+                           adamw_init(params), pipe.batch_at)
+    assert clean.run(4) == 4
+    real, calls = ts.adamw_update, {"n": 0}
+
+    def update(p, *args, **kwargs):
+        calls["n"] += 1
+        if calls["n"] == 3:       # step 3: one leaf overwritten, then a fault
+            tree_leaves(p)[0].fill_(float("nan"))
+            raise RuntimeError("out of memory part-way")
+        return real(p, *args, **kwargs)
+    monkeypatch.setattr(ts, "adamw_update", update)
+    runner = TrainingRunner(RunnerConfig(str(tmp_path / "faulty"), checkpoint_every=2,
+                                         max_retries_per_step=2),
+                            make_train_step(Model(cfg), _tcfg(TrainConfig)),
+                            tree_map(torch.clone, params), adamw_init(params),
+                            pipe.batch_at)
+    assert runner.run(4) == 4
+    assert calls["n"] == 5     # steps 1-2, the failed 3, then 3-4 again
+    assert [int(m["step"]) for m in runner.metrics_log] == [1, 2, 3, 4]
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(runner.params),
+                                                 tree_leaves(clean.params)))
+    # with no checkpoint to go back to, the error goes up
+    calls["n"] = 2
+    fresh = TrainingRunner(RunnerConfig(str(tmp_path / "none"), checkpoint_every=5),
+                           make_train_step(Model(cfg), _tcfg(TrainConfig)),
+                           tree_map(torch.clone, params), adamw_init(params),
+                           pipe.batch_at)
+    with pytest.raises(ts.DonatedStateError):
+        fresh.run(2)
+
+
 def test_a_run_ending_on_a_checkpoint_writes_it_once(tmp_path, monkeypatch):
     """The last step of a run that was just checkpointed is not saved
     again (the reference saves it twice, the same content)."""
@@ -530,9 +633,9 @@ def test_launch_train_prints_the_references_line_and_resumes(tmp_path, capsys):
     """``launch.train`` on the CPU: the reference driver's ``[train]`` line
     (times and losses left out: the weights are random in each package),
     resuming from its checkpoint on a second run; ``--mesh tiny`` trains on
-    4 gloo ranks and prints the same line, and refuses a mixture of experts
-    (``tests/test_torch_mesh_training.py`` holds the mesh against the
-    reference's)."""
+    4 gloo ranks and prints the same line, for a mixture of experts too
+    (``tests/test_torch_mesh_training.py`` and ``test_torch_moe_mesh.py``
+    hold the mesh against the reference's)."""
     import re
     import subprocess
     import sys
@@ -559,6 +662,7 @@ def test_launch_train_prints_the_references_line_and_resumes(tmp_path, capsys):
                         "gloo", "--ckpt-dir", str(tmp_path / "mesh")])
     assert masked(capsys.readouterr().out) == [
         "[train] gemma-2b steps 0->3 in Ts; loss A -> B"]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12c"):
-        train.main(["--arch", "grok-1-314b", "--reduced", "--mesh", "tiny",
-                    "--device", "cpu", "--dist-backend", "gloo"])
+    train.main(["--arch", "grok-1-314b", *flags[2:], "--mesh", "tiny", "--device",
+                "cpu", "--dist-backend", "gloo", "--ckpt-dir", str(tmp_path / "moe")])
+    assert masked(capsys.readouterr().out) == [
+        "[train] grok-1-314b steps 0->3 in Ts; loss A -> B"]
