@@ -67,6 +67,14 @@ paths end to end:
   the four new configs reduced, in float32, on the card against the CPU,
   also at their own group sizes (``check_reduced_models``); K7 is held at
   every group size from 1 to 8, and K6 and K7 with a soft-cap;
+* the recurrent families served the same way at full width and depth:
+  hymba-1.5b (32 layers, attention with a window of 2,048 beside a
+  selective SSM in every layer; K6 and K7 at D = 64, G = 5) and xlstm-1.3b
+  (48 layers, 42 mLSTM and 6 sLSTM blocks; no attention kernel, so its
+  launch gates are 0), their decode steps making no host sync; hymba's
+  first 2 layers and xlstm's first 8 (its first sLSTM among them) checked
+  as above (xlstm, which launches no kernel, decode-matches-prefill only);
+  both reduced, in float32, on the card against the CPU;
 * LM training: K6's forward ``lse`` and its hand-written backward (bf16:
   the delta, wgmma + TMA dK/dV, reduction and dQ kernels; float32: FMA
   kernels) against the plain textbook backward and, in bf16, against the
@@ -277,17 +285,21 @@ KERNELS_VS_PLAIN_BF16 = 5e-2
 # bends them
 CAP = 30.0
 CAP_Q_SCALE = 16.0
-# the full-width serves of the models this slice adds (their depths:
+# the full-width serves of the models added after gemma3-4b (their depths:
 # launch.serve_profile.SERVE_LAYERS); their kernel-vs-plain and
 # decode-matches-prefill checks run on a depth-cut copy of DEPTH_CUT layers
-# at full width, over a prompt of CUT_PROMPT tokens (CUT_PROMPT - DECODE_K
-# prefilled, then DECODE_K decode steps), an MoE at a capacity that drops
-# nothing (capacity_factor = n_experts, as tests/test_decode_consistency.py
-# sets it: prefill and decode drop other tokens at their own capacities,
-# and a bf16 rounding that flips one router choice moves which tokens the
+# at full width (xlstm: CUT_LAYERS, so that the copy holds an sLSTM), over
+# a prompt of CUT_PROMPT tokens (CUT_PROMPT - DECODE_K prefilled, then
+# DECODE_K decode steps; the prefills span 8 of the mLSTM's 64-position
+# chunks and 4 of the SSM's 128), an MoE at a capacity that drops nothing
+# (capacity_factor = n_experts, as tests/test_decode_consistency.py sets
+# it: prefill and decode drop other tokens at their own capacities, and a
+# bf16 rounding that flips one router choice moves which tokens the
 # capacity drops)
-SERVED_ARCHS = ("internlm2-20b", "grok-1-314b", "llama4-maverick-400b-a17b")
+SERVED_ARCHS = ("internlm2-20b", "grok-1-314b", "llama4-maverick-400b-a17b",
+                "hymba-1.5b", "xlstm-1.3b")
 DEPTH_CUT = 2
+CUT_LAYERS = {"xlstm-1.3b": 8}
 CUT_PROMPT = 512
 # the reduced configs of this slice on the card against the CPU, float32:
 # logits within 1e-4 (sums in another order through a few layers)
@@ -2132,6 +2144,9 @@ def check_flash_attention():
         ("grok layer G=6 soft-cap", 2, 48, 8, 2048, 128, True, 0, True, CAP),
         ("llama4 layer G=5", 2, 40, 8, 2048, 128, True, 0, True, 0.0),
         ("soft-cap ragged window 100", 1, 12, 2, 333, 128, True, 100, False, CAP),
+        ("hymba layer G=5", 2, 25, 5, 2048, 64, True, 2048, True, 0.0),
+        ("hymba layer S=1536", 2, 25, 5, 1536, 64, True, 2048, True, 0.0),
+        ("hymba heads window 1000", 2, 25, 5, 2048, 64, True, 1000, True, 0.0),
     ]
     for dtype in (torch.bfloat16, torch.float32):
         limit = LIMIT_TEXT[str(dtype).split(".")[1]]
@@ -2186,11 +2201,14 @@ def check_decode_attention():
     import torch
     from repro_torch.kernels.decode_attention import (decode_attention_ref,
                                                       grouped_decode_attention)
-    # (B, KV, G, D, lengths, soft-cap)
+    # (B, KV, G, D, lengths, soft-cap[, windows]), windows 0 and 1,024
+    # where a case names none
     # lengths at the kernel's 64-row chunk edges (64, 65, 2,047, 2,080) with
     # every group size from 1 to 8; windows of 1,024 start inside a chunk;
     # the decode shapes of internlm2/grok (KV = 8, G = 6, D = 128) and
-    # llama4 (G = 5), with and without grok's soft-cap
+    # llama4 (G = 5), with and without grok's soft-cap; hymba's (KV = 5,
+    # G = 5, D = 64) at the lengths of its last decode steps, where its
+    # window of 2,048 drops the first rows
     cases = [(2, 4, 2, 256, [1, 2080], 0.0), (2, 4, 2, 256, [2079, 1537], 0.0),
              (4, 1, 8, 256, [1, 777, 2079, 2080], 0.0), (3, 2, 4, 16, [5, 64, 65], 0.0),
              (2, 4, 1, 128, [1000, 3], 0.0), (2, 4, 2, 256, [64, 2047], 0.0),
@@ -2202,11 +2220,13 @@ def check_decode_attention():
              (3, 2, 3, 128, [64, 65, 2047], 0.0), (3, 2, 3, 128, [1, 65, 2080], CAP),
              (4, 1, 7, 256, [1, 777, 2079, 2080], 0.0),
              (4, 1, 7, 128, [65, 64, 2080, 2047], CAP),
-             (2, 4, 2, 256, [2079, 1537], CAP), (4, 1, 8, 128, [1, 777, 2079, 2080], CAP)]
+             (2, 4, 2, 256, [2079, 1537], CAP), (4, 1, 8, 128, [1, 777, 2079, 2080], CAP),
+             (2, 5, 5, 64, [2049, 2079], 0.0, (0, 2048)),
+             (4, 5, 5, 64, [1537, 2064, 2050, 2080], 0.0, (0, 2048))]
     s = 2080
     for dtype in (torch.bfloat16, torch.float32):
         limit = LIMIT_TEXT[str(dtype).split(".")[1]]
-        for b, kv, g, d, lens, cap in cases:
+        for b, kv, g, d, lens, cap, *windows in cases:
             gen = torch.Generator(device="cuda")
             gen.manual_seed(b * 100 + g + d)
             q = torch.randn((b, kv, g, d), generator=gen, device="cuda")
@@ -2216,7 +2236,7 @@ def check_decode_attention():
                                 device="cuda").to(dtype)
             k, v = cache[0, 1], cache[1, 1]
             length = torch.tensor(lens, dtype=torch.int32, device="cuda")
-            for window in (0, 1024):
+            for window in (windows[0] if windows else (0, 1024)):
                 got = grouped_decode_attention(q, k, v, length, window=window, softcap=cap)
                 again = grouped_decode_attention(q, k, v, length, window=window, softcap=cap)
                 want = decode_attention_ref(q.float(), k.float(), v.float(),
@@ -2248,10 +2268,11 @@ def serve_requests(vocab):
 def _serve_twice(cfg, params):
     """ServingEngine.serve of the serving traffic twice on the same weights:
     every request answered in the vocabulary, K6 (its wgmma variant only)
-    once per layer and prefill sub-batch and K7 once per layer and decode
-    step, the same greedy outputs twice.  Prints each serve's prefill s,
-    decode ms a step, tokens/s and peak memory.  Returns the first serve's
-    launch counts."""
+    once per attention layer and prefill sub-batch and K7 once per
+    attention layer and decode step (a gate of 0 for a model with no
+    attention layer, xlstm), the same greedy outputs twice.  Prints each
+    serve's prefill s, decode ms a step, tokens/s and peak memory.  Returns
+    the first serve's launch counts."""
     import numpy as np
     import torch
     from repro_torch import kernels
@@ -2261,6 +2282,7 @@ def _serve_twice(cfg, params):
     from repro_torch.serving import ServingEngine
 
     n_layers = sum(c for _, c in stages_meta(cfg))
+    n_attn = _attention_layers(cfg)
     model = Model(cfg)
     reqs = serve_requests(cfg.vocab_size)
     outputs, first_counts = [], None
@@ -2297,18 +2319,18 @@ def _serve_twice(cfg, params):
                     f"{cfg.name} request {r.rid}: output {o.shape} {o.dtype}")
             require(bool(((o >= 0) & (o < cfg.vocab_size)).all()),
                     f"{cfg.name} request {r.rid}: token out of the vocabulary")
-        require(counts["flash_attention"] == n_layers * n_sub,
+        require(counts["flash_attention"] == n_attn * n_sub,
                 f"{cfg.name}: flash_attention launched {counts['flash_attention']} times, "
-                f"expected {n_layers} per prefill sub-batch x {n_sub}")
-        require(counts["flash_attention.wgmma_bf16"] == n_layers * n_sub and
+                f"expected {n_attn} per prefill sub-batch x {n_sub}")
+        require(counts["flash_attention.wgmma_bf16"] == n_attn * n_sub and
                 counts["flash_attention.fma_f32"] == 0,
                 f"{cfg.name}: the bf16 serve launched the flash_attention variants "
                 f"wgmma_bf16 {counts['flash_attention.wgmma_bf16']} times and "
                 f"fma_f32 {counts['flash_attention.fma_f32']} times, expected "
-                f"{n_layers * n_sub} and 0")
-        require(counts["decode_attention"] == n_layers * steps,
+                f"{n_attn * n_sub} and 0")
+        require(counts["decode_attention"] == n_attn * steps,
                 f"{cfg.name}: decode_attention launched {counts['decode_attention']} "
-                f"times, expected {n_layers} per decode step x {steps}")
+                f"times, expected {n_attn} per decode step x {steps}")
         require(all(counts[k] == 0 for k in MINING_KERNELS),
                 "serving launched a mining kernel")
         outputs.append(results)
@@ -2321,6 +2343,14 @@ def _serve_twice(cfg, params):
           f"(request 0 starts {outputs[0][0][:8].tolist()})")
     _decode_step_syncs(model, params)
     return first_counts
+
+
+def _attention_layers(cfg):
+    """The layers of ``cfg`` that run attention (K6 in a prefill, K7 in a
+    decode step): all but the mLSTM and sLSTM blocks."""
+    from repro_torch.models import stages_meta
+    from repro_torch.models.transformer import has_attention
+    return sum(c for k, c in stages_meta(cfg) if has_attention(k))
 
 
 def _decode_step_syncs(model, params):
@@ -2353,10 +2383,15 @@ def _decode_step_syncs(model, params):
 def _init_served(arch):
     """The served model of ``arch`` (launch.serve_profile's depth) at full
     width, bf16, random weights from a generator seeded 0 on the card,
-    its parameter count held to the config's."""
+    its parameter count held to the config's tree (``param_shapes``) and,
+    but for hymba, to the config's analytic count (which leaves out the
+    final norm's scale and, of hymba's SSM, the conv taps and most of
+    ``a_log``: it is printed there, not held)."""
+    import math
     import torch
     from repro_torch.launch.serve_profile import served_config
     from repro_torch.models import init_params
+    from repro_torch.models.convert import param_shapes
     cfg = served_config(arch)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -2368,9 +2403,10 @@ def _init_served(arch):
     print(f"serve init {cfg.name} ({cfg.n_layers} layers): {n_params} parameters "
           f"({cfg.dtype}, {n_bytes / 1e9:.2f} GB; config param_count "
           f"{cfg.param_count()}) in {time.perf_counter() - t0:.2f}s")
-    # the config's analytic count leaves out the final norm's scale
-    require(n_params == cfg.param_count() + cfg.d_model,
-            f"{cfg.name}: parameter count differs from the config's")
+    require(n_params == sum(math.prod(t) for t in _leaves(param_shapes(cfg))),
+            f"{cfg.name}: parameter count differs from the config's tree")
+    require(cfg.hybrid or n_params == cfg.param_count() + cfg.d_model,
+            f"{cfg.name}: parameter count differs from the config's analytic count")
     return cfg, params
 
 
@@ -2444,24 +2480,26 @@ def _depth_cut(cfg, params, n):
         stages[f"s{i}"] = {k: v[:take].clone() for k, v in params["stages"][f"s{i}"].items()}
         left -= take
     require([c for _, c in stages_meta(cut)] ==
-            [v["stk_wq"].shape[0] for v in stages.values()], f"{cfg.name}: depth cut")
+            [next(iter(v.values())).shape[0] for v in stages.values()],
+            f"{cfg.name}: depth cut")
     return cut, {**{k: v for k, v in params.items() if k != "stages"}, "stages": stages}
 
 
 def run_model_serving(arch):
-    """One of this slice's models at full width (bf16, random weights from a
-    seeded generator, depth cut to fit the card): the serving traffic twice
-    (_serve_twice), the MoE layers' drops and expert load, then on a copy of
-    its first DEPTH_CUT layers at full width the kernel path against the
-    plain path and decode-matches-prefill (_check_cut_model).  Returns the
-    first serve's launch counts."""
+    """One of the models added after gemma3-4b at full width (bf16, random
+    weights from a seeded generator, depth cut to fit the card): the
+    serving traffic twice (_serve_twice), the MoE layers' drops and expert
+    load, then on a copy of its first DEPTH_CUT layers (CUT_LAYERS) at full
+    width the kernel path against the plain path and
+    decode-matches-prefill (_check_cut_model).  Returns the first serve's
+    launch counts."""
     import gc
     import torch
     cfg, params = _init_served(arch)
     counts = _serve_twice(cfg, params)
     if cfg.n_experts:
         _moe_stats(cfg, params)
-    cut_cfg, cut = _depth_cut(cfg, params, DEPTH_CUT)
+    cut_cfg, cut = _depth_cut(cfg, params, CUT_LAYERS.get(arch, DEPTH_CUT))
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2568,43 +2606,34 @@ def _kernel_vs_plain_and_decode(label, cfg, p16, p32, prompt, s_max):
     decode against prefill (float32 within DECODE_TOL_F32; bf16 off float32
     by at most DECODE_BF16_FACTOR times the prefill path's own bf16
     error).  ``p32``: the weights in float32 (an MoE's experts may stay
-    bf16: _experts_in_float32)."""
+    bf16: _experts_in_float32).  A model with no attention layer (xlstm)
+    launches no kernel here, so it is held to that and to
+    decode-matches-prefill only."""
     import torch
     from repro_torch import kernels
-    n_layers = cfg.n_layers
+    n_attn = _attention_layers(cfg)
     with _experts_in_float32():
         kernels.reset_launch_counts()
         full32, dec32 = _both_paths(p32, cfg, prompt, "float32", s_max)
-        _variants_used(f"{label} float32", "fma_f32")
-        with _plain_attention():
-            plain_full32, plain_dec32 = _both_paths(p32, cfg, prompt, "float32", s_max)
+        if n_attn:
+            _variants_used(f"{label} float32", "fma_f32")
+            with _plain_attention():
+                plain32 = _both_paths(p32, cfg, prompt, "float32", s_max)
     torch.cuda.empty_cache()
     kernels.reset_launch_counts()
     full16, dec16 = _both_paths(p16, cfg, prompt, "bfloat16", s_max)
     counts = kernels.launch_counts()
-    _variants_used(f"{label} bfloat16", "wgmma_bf16")
-    require(counts["flash_attention"] == 2 * n_layers and
-            counts["decode_attention"] == DECODE_K * n_layers,
+    require(counts["flash_attention"] == 2 * n_attn and
+            counts["decode_attention"] == DECODE_K * n_attn,
             f"{label}: two prefills and {DECODE_K} decode steps launched {counts}")
-    with _plain_attention():
-        plain_full16, plain_dec16 = _both_paths(p16, cfg, prompt, "bfloat16", s_max)
-
-    kp_full, kp_dec = _rel(full32, plain_full32), _rel(dec32, plain_dec32)
-    print(f"check kernels vs plain path {label} float32: prefill logits rel L2 err "
-          f"{kp_full:.3e}, after {DECODE_K} decode steps {kp_dec:.3e}, both <= "
-          f"{DECODE_TOL_F32:.0e}")
-    require(kp_full <= DECODE_TOL_F32 and kp_dec <= DECODE_TOL_F32,
-            f"{label}: the kernel path and the plain path differ (float32)")
-    kp16_full, kp16_dec = _rel(full16, plain_full16), _rel(dec16, plain_dec16)
-    same = (bool(torch.equal(full16.argmax(-1), plain_full16.argmax(-1))) and
-            bool(torch.equal(dec16.argmax(-1), plain_dec16.argmax(-1))))
-    print(f"check kernels vs plain path {label} bfloat16: prefill logits rel L2 err "
-          f"{kp16_full:.3e}, after {DECODE_K} decode steps {kp16_dec:.3e}, both <= "
-          f"{KERNELS_VS_PLAIN_BF16:.0e}, same argmax {same}; the plain path's own bf16 "
-          f"error vs float32 is {_rel(plain_full16, plain_full32):.3e} (prefill), "
-          f"{_rel(plain_dec16, plain_dec32):.3e} (decode)")
-    require(kp16_full <= KERNELS_VS_PLAIN_BF16 and kp16_dec <= KERNELS_VS_PLAIN_BF16,
-            f"{label}: the kernel path and the plain path differ (bfloat16)")
+    if n_attn:
+        _variants_used(f"{label} bfloat16", "wgmma_bf16")
+        with _plain_attention():
+            plain16 = _both_paths(p16, cfg, prompt, "bfloat16", s_max)
+        _kernels_vs_plain(label, (full32, dec32), plain32, (full16, dec16), plain16)
+    else:
+        print(f"check {label}: no attention layer, no kernel launched by two "
+              f"prefills and {DECODE_K} decode steps in bf16")
 
     r32, r16 = _rel(dec32, full32), _rel(dec16, full16)
     floor, dec_err = _rel(full16, full32), _rel(dec16, full32)
@@ -2627,6 +2656,31 @@ def _kernel_vs_plain_and_decode(label, cfg, p16, p32, prompt, s_max):
     require(dec_err <= DECODE_BF16_FACTOR * floor,
             f"{label}: bf16 decode path off float32 by {dec_err:.3e}, more than "
             f"{DECODE_BF16_FACTOR} x the prefill path's {floor:.3e}")
+
+
+def _kernels_vs_plain(label, kern32, plain32, kern16, plain16):
+    """The kernel path's (prefill, decode) logits against the plain
+    path's: float32 within DECODE_TOL_F32, bf16 within
+    KERNELS_VS_PLAIN_BF16."""
+    import torch
+    (full32, dec32), (plain_full32, plain_dec32) = kern32, plain32
+    (full16, dec16), (plain_full16, plain_dec16) = kern16, plain16
+    kp_full, kp_dec = _rel(full32, plain_full32), _rel(dec32, plain_dec32)
+    print(f"check kernels vs plain path {label} float32: prefill logits rel L2 err "
+          f"{kp_full:.3e}, after {DECODE_K} decode steps {kp_dec:.3e}, both <= "
+          f"{DECODE_TOL_F32:.0e}")
+    require(kp_full <= DECODE_TOL_F32 and kp_dec <= DECODE_TOL_F32,
+            f"{label}: the kernel path and the plain path differ (float32)")
+    kp16_full, kp16_dec = _rel(full16, plain_full16), _rel(dec16, plain_dec16)
+    same = (bool(torch.equal(full16.argmax(-1), plain_full16.argmax(-1))) and
+            bool(torch.equal(dec16.argmax(-1), plain_dec16.argmax(-1))))
+    print(f"check kernels vs plain path {label} bfloat16: prefill logits rel L2 err "
+          f"{kp16_full:.3e}, after {DECODE_K} decode steps {kp16_dec:.3e}, both <= "
+          f"{KERNELS_VS_PLAIN_BF16:.0e}, same argmax {same}; the plain path's own bf16 "
+          f"error vs float32 is {_rel(plain_full16, plain_full32):.3e} (prefill), "
+          f"{_rel(plain_dec16, plain_dec32):.3e} (decode)")
+    require(kp16_full <= KERNELS_VS_PLAIN_BF16 and kp16_dec <= KERNELS_VS_PLAIN_BF16,
+            f"{label}: the kernel path and the plain path differ (bfloat16)")
 
 
 def check_decode_matches_prefill(params, cfg):
@@ -2669,11 +2723,12 @@ def _check_cut_model(cfg, params):
 
 
 def check_reduced_models():
-    """This slice's configs reduced, float32, on the card against the same
-    weights on the CPU: prefill and 4 decode steps' logits within
-    REDUCED_LOGITS_TOL, and a greedy serve token for token; also at the
-    configs' own group sizes (the reduced ones have 4 heads, G = 1 or 2):
-    G = 6 (internlm2, grok with its soft-cap) and G = 5 (llama4)."""
+    """The configs served after gemma3-4b, reduced, float32, on the card
+    against the same weights on the CPU: prefill and 4 decode steps' logits
+    within REDUCED_LOGITS_TOL, and a greedy serve token for token; also at
+    the configs' own group sizes (the reduced ones have 4 heads, G = 1 or
+    2): G = 6 (internlm2, grok with its soft-cap) and G = 5 (llama4,
+    hymba).  K6 and K7 launch once per attention layer (xlstm: none)."""
     import dataclasses
     import numpy as np
     import torch
@@ -2685,7 +2740,8 @@ def check_reduced_models():
     cases = [(a, None) for a in ("internlm2-20b", "command-r-35b", "grok-1-314b",
                                  "llama4-maverick-400b-a17b")]
     cases += [("internlm2-20b", (12, 2)), ("grok-1-314b", (12, 2)),
-              ("llama4-maverick-400b-a17b", (10, 2))]
+              ("llama4-maverick-400b-a17b", (10, 2)), ("hymba-1.5b", None),
+              ("hymba-1.5b", (10, 2)), ("xlstm-1.3b", None)]
     for arch, heads in cases:
         cfg = reduced_config(get_config(arch))
         if heads:
@@ -2708,8 +2764,9 @@ def check_reduced_models():
                 want, wc = model.decode_step(host, nxt, wc, pos)
                 worst = max(worst, float((got.cpu() - want).abs().max()))
         counts = kernels.launch_counts()
-        require(counts["flash_attention"] == cfg.n_layers and
-                counts["decode_attention"] == 4 * cfg.n_layers,
+        n_attn = _attention_layers(cfg)
+        require(counts["flash_attention"] == n_attn and
+                counts["decode_attention"] == 4 * n_attn,
                 f"reduced {arch} {heads}: launches {counts}")
         require(worst <= REDUCED_LOGITS_TOL,
                 f"reduced {arch} {heads}: card logits off the CPU's by {worst:.3e}")
@@ -3857,6 +3914,7 @@ def time_attention(counts, model_counts):
                          **timed(fn, ref, lib, reps=50),
                          bound_ms=bms, bound_by=by,
                          launches=model_counts[arch]["decode_attention"] if arch else 0))
+    rows += _hymba_attention_rows(model_counts["hymba-1.5b"], timed)
     for row in rows:
         row["listed"] = True
         lib_text = ("none" if row["library_ms"] is None else
@@ -3887,10 +3945,82 @@ def time_attention(counts, model_counts):
           "row counts the same 4 D per kept pair, not the cap's one tanh per "
           "pair); launches are the first bf16 serve's of gemma3-4b, "
           "per variant (the float32 variant serves no bf16 model), and of the "
-          "model named in brackets on the D=128 rows; ms, plain_ms and "
+          "model named in brackets on the D=128 and D=64 rows; ms, plain_ms and "
           "library_ms of the attention rows are device time per call "
           "(calls run back to back behind a sleep of the card), call_ms "
           "CUDA events around each call")
+    return rows
+
+
+def _hymba_attention_rows(counts, timed):
+    """K6 at hymba's prefill layer (B=2 H=25 Hkv=5 S=2,048 D=64, G = 5,
+    window 2,048: at S = 2,048 it keeps every causal pair, so SDPA's causal
+    call computes the same function) and K7 at its decode step (B=2 KV=5
+    G=5 D=64, a 2,080-row cache at length 2,079, the window leaving 2,048
+    rows), each beside its bound, its plain version and SDPA; both go
+    into the kernels line, each held to its plain version first.
+    ``counts``: hymba's first
+    serve's launches; ``timed``: time_attention's timer."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (decode_attention_ref,
+                                                      grouped_decode_attention)
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     multi_head_attention)
+    b, h, hkv, s, d, window = 2, 25, 5, 2048, 64, 2048
+    q, k, v = attn_inputs(b, h, hkv, s, d, torch.bfloat16, seed=9, model_layout=True)
+    i = torch.arange(s, device="cuda")
+    kept = int(((i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)).sum())
+    require(kept == s * (s + 1) // 2, "hymba's window keeps every causal pair at S = 2,048")
+    fn = lambda: multi_head_attention(q, k, v, causal=True, window=window)
+    ref = lambda: attention_ref(q, k, v, causal=True, window=window)
+    lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+    compare_attention("flash_attention", fn(),
+                      attention_ref(q.float(), k.float(), v.float(), causal=True,
+                                    window=window),
+                      "flash_attention at hymba's layer")
+    err = float((lib().float() - fn().float()).abs().max())
+    require(err <= SDPA_TOL, f"SDPA yardstick disagrees with flash_attention at "
+            f"hymba's layer: {err:.3e}")
+    bms, by = bound_attn(2 * (q.numel() + k.numel() + v.numel() + q.numel()),
+                         4 * d * kept * b * h)
+    rows = [dict(name="flash_attention", route="cuda",
+                 source="src/repro_torch/csrc/flash_attention.cu",
+                 replaces="src/repro/kernels/flash_attention/flash_attention.py:110",
+                 shape=f"B={b} H={h} Hkv={hkv} S={s} D={d} bf16 causal window={window} "
+                       "(hymba-1.5b)",
+                 **timed(fn, ref, lib, plain_reps=5), bound_ms=bms, bound_by=by,
+                 launches=counts["flash_attention.wgmma_bf16"], also_listed=True)]
+    del q, k, v
+    b, kv, g, smax, n = 2, 5, 5, 2080, 2079
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(10)
+    qd = torch.randn((b, kv, g, d), generator=gen, device="cuda").to(torch.bfloat16)
+    kc, vc = torch.randn((2, b, smax, kv, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    length = torch.full((b,), n, dtype=torch.int32, device="cuda")
+    lo = n - window
+    fn = lambda: grouped_decode_attention(qd, kc, vc, length, window=window)
+    ref = lambda: decode_attention_ref(qd, kc, vc, length, window=window)
+    lib = lambda: F.scaled_dot_product_attention(
+        qd.reshape(b, kv * g, 1, d), kc[:, lo:n].transpose(1, 2),
+        vc[:, lo:n].transpose(1, 2), enable_gqa=True)
+    compare_attention("decode_attention", fn(),
+                      decode_attention_ref(qd.float(), kc.float(), vc.float(), length,
+                                           window=window),
+                      "decode_attention at hymba's decode step")
+    err = float((lib().reshape(b, kv, g, d).float() - fn().float()).abs().max())
+    require(err <= SDPA_TOL, f"SDPA yardstick disagrees with decode_attention at "
+            f"hymba's decode step: {err:.3e}")
+    bms, by = bound_attn(2 * (2 * qd.numel() + 2 * b * window * kv * d) + 4 * b,
+                         4 * d * g * kv * b * window)
+    rows.append(dict(name="decode_attention", route="cuda",
+                     source="src/repro_torch/csrc/decode_attention.cu",
+                     replaces="src/repro/kernels/decode_attention/decode_attention.py:98",
+                     shape=f"B={b} KV={kv} G={g} D={d} S={smax} len={n} bf16 "
+                           f"window={window} (hymba-1.5b)",
+                     **timed(fn, ref, lib, reps=50), bound_ms=bms, bound_by=by,
+                     launches=counts["decode_attention"], also_listed=True))
     return rows
 
 
@@ -3978,8 +4108,9 @@ def main() -> int:
                     if r["listed"] and (r["shape"] == REPORT_SHAPE[r["name"]] or
                                         r.get("mesh_rank") or r.get("also_listed"))]
     # one row per kernel at its report shape, K6 forward and backward at
-    # the mesh rank's shape, and K6's capped backward at grok's layer
-    require(len(kernels_line) == len(REPORT_SHAPE) + 3, "a kernel has no timing row")
+    # the mesh rank's shape, K6's capped backward at grok's layer, and K6
+    # and K7 at hymba's prefill and decode shapes
+    require(len(kernels_line) == len(REPORT_SHAPE) + 5, "a kernel has no timing row")
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,15 @@
 """Architecture registry of the port: the configs whose layer kinds the port
-runs (``attn`` and ``local`` decoder layers, with a dense MLP or a
-mixture of experts), for serving and for training: gemma3-4b, gemma-2b,
-internlm2-20b, command-r-35b, grok-1-314b and llama4-maverick-400b-a17b.
+runs: ``attn`` and ``local`` decoder layers, with a dense MLP or a mixture
+of experts (gemma3-4b, gemma-2b, internlm2-20b, command-r-35b, grok-1-314b
+and llama4-maverick-400b-a17b, for serving and for training), xLSTM's
+``mlstm`` and ``slstm`` blocks (xlstm-1.3b) and hymba's ``hybrid`` layers,
+attention beside a selective SSM (hymba-1.5b).
 
 Every config is importable as ``repro_torch.configs.<module>.CONFIG`` and
 selectable via ``get_config("<arch-id>")`` / ``--arch <id>``.  The modules
 are copies of the reference package's; source citations are in each
-module's docstring.  The reference's other architectures (SSM, xLSTM,
-hybrid, encoder-decoder, vision) wait for ROADMAP item 12.
+module's docstring.  The reference's other architectures (encoder-decoder,
+vision) wait for ROADMAP item 12.
 """
 from __future__ import annotations
 
@@ -26,9 +28,9 @@ def get_config(name: str) -> ModelConfig:
         _load_all()
     if name not in _REGISTRY:
         raise NotImplementedError(
-            f"config {name!r} is not ported to repro_torch (ported, for "
-            f"serving and training: {sorted(_REGISTRY)}); the other "
-            f"architectures wait for ROADMAP item 12")
+            f"config {name!r} is not ported to repro_torch (ported: "
+            f"{sorted(_REGISTRY)}); the other architectures (whisper, "
+            f"phi3-vision) wait for ROADMAP item 12")
     return _REGISTRY[name]
 
 
@@ -40,7 +42,8 @@ def list_configs():
 
 def _load_all():
     from . import (command_r_35b, gemma3_4b, gemma_2b,  # noqa: F401
-                   grok_1_314b, internlm2_20b, llama4_maverick_400b)
+                   grok_1_314b, hymba_1_5b, internlm2_20b,
+                   llama4_maverick_400b, xlstm_1_3b)
 
 
 __all__ = ["ModelConfig", "ShapeConfig", "TrainConfig", "SHAPES",

@@ -10,8 +10,13 @@ traffic's largest sub-batch (2 prompts of 2,048 tokens) and 16 decode
 steps with ``torch.profiler``, each phase in its own window, and prints for
 each: the host wall time (ending in ``torch.cuda.synchronize()``), the
 device busy time (the sum of kernel times; one stream, so kernels do not
-overlap), the device's idle share, the attention kernels' share, and the
-kernels that take the most device time.  The last line is one JSON object
+overlap), the device's idle share, the attention kernels' share (a model
+with no attention layer, xlstm, says so), and the kernels that take the
+most device time.  Then, untraced, each phase once more with the host
+waiting for the card after every stage of layers (``Model.on_stage``):
+the wall time of each
+layer kind (``stage_ms``; xlstm's sLSTM loop, hymba's hybrid layers),
+which the traced windows do not split.  The last line is one JSON object
 with the same numbers.  Needs a card; with none it exits non-zero.
 
 The serving traffic and the served depths are defined here and
@@ -20,6 +25,7 @@ The serving traffic and the served depths are defined here and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import sys
@@ -37,9 +43,11 @@ ARCH = "gemma3-4b"
 # the layers each served model runs on one 80 GB card, at full width, bf16:
 # gemma3-4b and internlm2-20b whole (7.8 and 39.7 GB of weights); grok-1
 # cut to 4 of its 64 layers (41.0 GB: all 314 G parameters take 628 GB)
-# and llama4-maverick to 2 of its 48, one dense and one MoE (36.9 GB)
+# and llama4-maverick to 2 of its 48, one dense and one MoE (36.9 GB);
+# hymba-1.5b and xlstm-1.3b whole (3.18 and 3.63 GB)
 SERVE_LAYERS = {"gemma3-4b": 34, "internlm2-20b": 48, "grok-1-314b": 4,
-                "llama4-maverick-400b-a17b": 2}
+                "llama4-maverick-400b-a17b": 2, "hymba-1.5b": 32,
+                "xlstm-1.3b": 48}
 SERVE_PROMPTS = (2048,) * 4 + (1536,) * 4
 SERVE_MAX_NEW = 32
 SERVE_BATCHES = 2
@@ -87,16 +95,49 @@ def _window(label, fn):
     busy = sum(ms for ms, _ in times.values())
     attn = {name: sum(ms for k, (ms, _) in times.items() if name in k)
             for name in ATTENTION_KERNELS}
+    share = (" ".join(f"{k}_ms={v:.3f} ({v / busy:.1%} of busy)"
+                      for k, v in attn.items()) if any(attn.values())
+             else "no attention kernel launched; its top kernels:")
     print(f"{label}: wall_ms={wall_ms:.3f} (profiled) device_busy_ms={busy:.3f} "
-          f"idle_share={1 - busy / wall_ms:.4f} "
-          + " ".join(f"{k}_ms={v:.3f} ({v / busy:.1%} of busy)"
-                     for k, v in attn.items()))
+          f"idle_share={1 - busy / wall_ms:.4f} " + share)
     ranked = sorted(times.items(), key=lambda kv: -kv[1][0])[:TOP_KERNELS]
     for name, (ms, n) in ranked:
         print(f"  {ms:10.3f} ms  {n:6d} calls  {name[:110]}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "idle_share": 1 - busy / wall_ms, "attention_ms": attn,
             "top": [[name, ms, n] for name, (ms, n) in ranked]}
+
+
+def stage_times(model, fn) -> dict:
+    """Host ms of each layer kind of ``model`` in one call of ``fn``,
+    untraced: the host waits for the card after every stage (the model's
+    ``on_stage`` hook, set for this call only), so a kind's time holds its
+    kernels and the host's launch work between them.  Raises if a kind of
+    the model ran no stage."""
+    from ..models import stages_meta
+    out = {}
+
+    @contextlib.contextmanager
+    def timed(kind):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        out[kind] = out.get(kind, 0.0) + (time.perf_counter() - t0) * 1e3
+
+    model.on_stage = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        model.on_stage = None
+    missing = {k for k, _ in stages_meta(model.cfg)} - set(out)
+    if missing:
+        raise RuntimeError(f"stage_times: no stage of the kinds {sorted(missing)} ran")
+    return {**out, "total": total}
 
 
 def main(argv=None) -> int:
@@ -139,6 +180,10 @@ def main(argv=None) -> int:
         res = {"config": head, "device": torch.cuda.get_device_name(0),
                "prefill": _window(f"prefill {head}", prefill),
                "decode": _window(f"decode {head}", decode)}
+        for phase, fn in (("prefill", prefill), ("decode", decode)):
+            res[phase]["stage_ms"] = stage_times(model, fn)
+            print(f"{phase} by layer kind (host ms, a sync after each stage): "
+                  + " ".join(f"{k}={v:.3f}" for k, v in res[phase]["stage_ms"].items()))
     res["decode"]["ms_per_step"] = res["decode"]["wall_ms"] / PROFILE_STEPS
     print(json.dumps(res))
     return 0

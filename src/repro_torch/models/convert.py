@@ -5,8 +5,9 @@ turned into numpy arrays (``jax.tree.map(np.asarray, params)``) it becomes
 the port's parameter dict, key for key, so both packages can run on the
 same weights.  Every key, shape and dtype is checked against what the
 config asks for; any mismatch raises ``ValueError``.  Every leaf is in the
-config's dtype but an MoE layer's router (``stk_router``), which is float32
-in any model, as the reference keeps it.  The reference's AdamW
+config's dtype but an MoE layer's router (``stk_router``) and the SSM's
+``stk_ssm_a_log`` and ``stk_ssm_d``, which are float32 in any model, as
+the reference keeps them.  The reference's AdamW
 state (``adamw_init``'s ``{"mu", "nu", "step"}``, float32 moments, with an
 optional float32 ``master`` copy) crosses the same way with
 :func:`opt_state_from_numpy`.  With ``mesh`` the params land on a mesh:
@@ -21,7 +22,10 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from .transformer import _check_ported, stages_meta
+from .transformer import _block, _check_ported, has_attention, stages_meta
+
+# the leaves that are float32 in every model dtype
+_FLOAT32_LEAVES = ("/stk_router", "/stk_ssm_a_log", "/stk_ssm_d")
 
 __all__ = ["param_shapes", "params_from_numpy", "opt_state_from_numpy"]
 
@@ -41,9 +45,18 @@ def param_shapes(cfg) -> Dict[str, Any]:
     gated = cfg.mlp_act in ("swiglu", "geglu")
     stages = {}
     for i, (kind, c) in enumerate(stages_meta(cfg)):
-        st = {**norm_shapes("stk_norm1_", (c,)), **norm_shapes("stk_norm2_", (c,)),
-              "stk_wq": (c, d, h * hd), "stk_wk": (c, d, kv * hd),
-              "stk_wv": (c, d, kv * hd), "stk_wo": (c, h * hd, d)}
+        st = stages[f"s{i}"] = norm_shapes("stk_norm1_", (c,))
+        if has_attention(kind):
+            st.update({**norm_shapes("stk_norm2_", (c,)),
+                       "stk_wq": (c, d, h * hd), "stk_wk": (c, d, kv * hd),
+                       "stk_wv": (c, d, kv * hd), "stk_wo": (c, h * hd, d)})
+        if _block(kind) is not None:
+            # the block's leaves as its own init makes them, on no storage
+            st.update({k: tuple(t.shape) for k, t in _block(kind).init(
+                torch.Generator(), cfg, torch.float32, stacked=c,
+                device="meta").items()})
+        if not has_attention(kind):
+            continue
         if kind.endswith("+moe"):
             slots, fs = cfg.n_experts * cfg.expert_split, f // cfg.expert_split
             st["stk_router"] = (c, d, cfg.n_experts)
@@ -56,7 +69,6 @@ def param_shapes(cfg) -> Dict[str, Any]:
                 st["stk_w_gate"] = (c, d, f)
             st["stk_w_up"] = (c, d, f)
             st["stk_w_down"] = (c, f, d)
-        stages[f"s{i}"] = st
     tree = {"embed": (v, d), "stages": stages,
             "final_norm": norm_shapes("", ())}
     if not cfg.tie_embeddings:
@@ -81,8 +93,9 @@ def _leaf(arr, shape: Tuple[int, ...], dtype: str, path: str, device):
 
 
 def _leaf_dtype(path: str, dtype: str) -> str:
-    """The dtype a leaf must have: the router stays float32."""
-    return "float32" if path.endswith("/stk_router") else dtype
+    """The dtype a leaf must have: the router and the SSM's ``a_log`` and
+    ``d`` stay float32."""
+    return "float32" if path.endswith(_FLOAT32_LEAVES) else dtype
 
 
 def _walk(node, spec, path, dtype, device):

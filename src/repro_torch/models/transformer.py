@@ -4,7 +4,10 @@ The port of the reference package's ``models/transformer.py`` for the
 decoders whose layers are ``attn`` or ``local`` attention with a dense MLP
 or, in the ``+moe`` kinds, a mixture of experts (:mod:`.moe`; each layer's
 load-balance loss is summed over the stack and the loss adds ``0.01``
-times it, as the reference does).  The per-layer kind list
+times it, as the reference does); xLSTM's ``mlstm`` and ``slstm`` blocks
+(:mod:`.xlstm`; a norm and the block, no MLP); and hymba's ``hybrid``
+layers, windowed attention and a selective SSM (:mod:`.ssm`) side by side
+on one norm, averaged, then the MLP.  The per-layer kind list
 (``ModelConfig.layer_pattern``) is run-length grouped into *stages*; a
 stage's weights are stacked along a leading axis (``stk_wq`` is
 ``(count, d, h * hd)``), with the reference's parameter keys, and the
@@ -13,9 +16,12 @@ reference's ``lax.scan`` over a stage becomes a Python loop over that axis
 the stacked leaf in one piece).  ``Model.loss`` is the reference's next-token
 loss, its cross-entropy in sequence chunks against the embedding, with the
 reference's ``remat`` modes as ``torch.utils.checkpoint`` per layer.
-Every other layer kind (SSM, xLSTM, hybrid, encoder-decoder), the vision
-prefix of the loss and the cost-analysis mode wait for ROADMAP item 12 and
-raise ``NotImplementedError``.
+The decode cache of a stage holds each layer's state: attention's K/V
+rows, the mLSTM's ``c, n, m``, the sLSTM's ``c, n, m, h``, the SSM's ``h``
+and its causal-conv tail; ``run_stage`` hands each layer its slice of
+every leaf and the layer writes its new state there.  The encoder-decoder
+layers, the vision prefix of the loss and the cost-analysis mode wait for
+ROADMAP item 12 and raise ``NotImplementedError``.
 
 ``Model(cfg, mesh=mesh)`` trains a decoder on a ``("data", "model")``
 mesh (``launch.mesh.make_mesh_named``) with the parameters placed by the
@@ -36,14 +42,15 @@ expert shards (:mod:`.moe`; the batch dict's ``"whole_batch"``, set by
 ``training.fault_tolerance.batch_block``, says that each data rank holds
 the whole batch); its load-balance loss is global and the loss adds ``0.01``
 times it once.  ``seq_parallel``, ``mlp_dp``, a mixture of experts over
-more than one data axis and serving on a mesh raise
-``NotImplementedError``.
+more than one data axis, the recurrent and hybrid layers on a mesh and
+serving on a mesh raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
-from typing import Any, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Tuple
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -56,11 +63,33 @@ from .attention import init_cache as kv_init_cache
 from .layers import init_norm, norm
 from .mlp import init_mlp, mlp
 from .moe import expert_placement, init_moe, moe
+from .ssm import init_ssm, init_ssm_state, ssm_block
+from .xlstm import (init_mlstm, init_mlstm_state, init_slstm,
+                    init_slstm_state, mlstm_block, slstm_block)
 
 __all__ = ["stages_meta", "init_params", "Model", "PORTED_KINDS",
-           "LOSS_CHUNK", "REMAT_MODES", "check_mesh"]
+           "LOSS_CHUNK", "REMAT_MODES", "check_mesh", "has_attention"]
 
-PORTED_KINDS = ("attn", "local", "attn+moe", "local+moe")
+PORTED_KINDS = ("attn", "local", "attn+moe", "local+moe", "hybrid", "mlstm",
+                "slstm")
+
+
+class _Block(NamedTuple):
+    """A layer kind's block beside or instead of attention: its stacked
+    weights' init, its forward (``(params, x, cfg, state=) -> (y, state)``),
+    its decode state's init, and whether attention and the MLP run too."""
+    init: Callable
+    forward: Callable
+    init_state: Callable
+    with_attention: bool
+
+
+# the layer kinds (the part before "+") with a block of their own, each
+# one card only (no tensor-parallel form): the hybrid's SSM sits beside
+# attention, the recurrent blocks take the place of attention and the MLP
+_BLOCKS = {"hybrid": _Block(init_ssm, ssm_block, init_ssm_state, True),
+           "mlstm": _Block(init_mlstm, mlstm_block, init_mlstm_state, False),
+           "slstm": _Block(init_slstm, slstm_block, init_slstm_state, False)}
 LOSS_CHUNK = 512
 REMAT_MODES = ("none", "dots", "full")
 
@@ -95,12 +124,31 @@ def _model_axis(mesh) -> int:
     return mesh_axes(mesh).get("model", 1)
 
 
+def _block(kind: str):
+    """``kind``'s own block (:data:`_BLOCKS`), None for attention's kinds."""
+    return _BLOCKS.get(kind.split("+")[0])
+
+
+def has_attention(kind: str) -> bool:
+    """Whether a layer of ``kind`` runs attention (K6 in a prefill, K7 in a
+    decode step), caches K/V rows and has a norm2 and an MLP."""
+    blk = _block(kind)
+    return blk is None or blk.with_attention
+
+
 def check_mesh(cfg, mesh) -> None:
     """Raise ``NotImplementedError`` for what mesh training does not port
     (ROADMAP item 12h): ``seq_parallel`` and ``mlp_dp``, a mixture of
     experts over more than one data axis (the reference's ``pod`` meshes),
     and a model axis that does not split the heads, the KV heads, d_ff or
-    the vocab the way the tensor-parallel layers read them."""
+    the vocab the way the tensor-parallel layers read them; and (ROADMAP
+    item 12) the recurrent and hybrid layer kinds, whose blocks have no
+    tensor-parallel form in the port."""
+    kinds = sorted({k for k, _ in stages_meta(cfg) if _block(k)})
+    if kinds:
+        raise NotImplementedError(
+            f"{cfg.name}: the layer kinds {kinds} on a mesh are not ported "
+            "(one card only; ROADMAP item 12)")
     if cfg.n_experts and len(data_axes(mesh)) > 1:
         raise NotImplementedError(
             f"{cfg.name}: a mixture of experts over the data axes "
@@ -141,9 +189,15 @@ def _init_layer_stack(generator, cfg, kind: str, count: int,
         for k, v in init_norm(cfg.d_model, cfg.norm, dtype, device).items():
             p[f"stk_{name}_{k}"] = v[None].expand(count, *v.shape).contiguous()
 
+    blk = _block(kind)
     add_norm("norm1")
-    p.update(init_attention(generator, cfg, dtype, stacked=count,
-                            device=device))
+    if has_attention(kind):
+        p.update(init_attention(generator, cfg, dtype, stacked=count,
+                                device=device))
+    if blk is not None:
+        p.update(blk.init(generator, cfg, dtype, stacked=count, device=device))
+    if not has_attention(kind):
+        return p
     add_norm("norm2")
     if kind.endswith("+moe"):
         p.update(init_moe(generator, cfg, dtype, stacked=count, device=device))
@@ -188,13 +242,32 @@ def _layer_forward(lp: Dict[str, torch.Tensor], x, cfg, kind: str, *,
                    whole_batch=False):
     """One layer.  Returns (x, cache, aux_loss): the MoE's float32
     load-balance loss, None for a dense layer (whose loss the reference
-    counts as 0: no tensor is made for it on the decode path)."""
+    counts as 0: no tensor is made for it on the decode path).  ``cache``
+    is the layer's state, the returned one its new state (a recurrent
+    block's may be new tensors: ``run_stage`` writes them into the
+    cache)."""
     if kind not in PORTED_KINDS:
         raise NotImplementedError(
             f"layer kind {kind!r} is not ported (ROADMAP item 12)")
+    blk = _block(kind)
+    h = norm(_sub(lp, "norm1"), x, cfg.norm)
+    if blk is not None and not blk.with_attention:
+        out, state = blk.forward(lp, h, cfg, state=cache)
+        return x + out, (None if cache is None else state), None
+    if blk is not None:
+        # hymba: windowed attention and the block side by side, averaged
+        attn_cache = block_state = None
+        if cache is not None:
+            attn_cache = {k: cache[k] for k in ("k", "v")}
+            block_state = {k: t for k, t in cache.items() if k not in attn_cache}
+        attn_out, _ = attention(lp, h, cfg, window=cfg.window, cache=attn_cache,
+                                pos=pos, mesh=mesh)
+        blk_out, block_state = blk.forward(lp, h, cfg, state=block_state)
+        x = x + 0.5 * (attn_out + blk_out)
+        x = x + mlp(lp, norm(_sub(lp, "norm2"), x, cfg.norm), cfg, mesh=mesh)
+        return x, (None if cache is None else {**attn_cache, **block_state}), None
     window = cfg.window if kind.split("+")[0] == "local" else 0
     aux_loss = None
-    h = norm(_sub(lp, "norm1"), x, cfg.norm)
     attn_out, cache = attention(lp, h, cfg, window=window, cache=cache, pos=pos,
                                 mesh=mesh)
     if cfg.parallel_block:
@@ -237,7 +310,8 @@ def run_stage(stage_params, x, cfg, kind: str, *, cache=None, pos=None,
     """Run the stacked layers of one stage in order.  Returns (x, cache,
     aux): the sum of the layers' load-balance losses (None for dense
     layers); a given cache is written in place, layer ``i`` into its slice
-    ``i``.
+    ``i`` of every leaf (a new state tensor is copied there: a bf16 conv
+    tail into the float32 buffer exactly).
 
     ``remat`` (full-sequence passes only): ``"full"`` keeps only each
     layer's input and recomputes the layer in the backward pass;
@@ -261,10 +335,13 @@ def run_stage(stage_params, x, cfg, kind: str, *, cache=None, pos=None,
             x, aux = checkpoint(_remat_layer, lp, x, cfg, kind, placement,
                                 mesh, whole_batch, use_reentrant=False, **kw)
         else:
-            c = None if cache is None else {"k": cache["k"][i], "v": cache["v"][i]}
-            x, _, aux = _layer_forward(lp, x, cfg, kind, cache=c, pos=pos,
-                                       placement=placement, mesh=mesh,
-                                       whole_batch=whole_batch)
+            c = None if cache is None else {k: t[i] for k, t in cache.items()}
+            x, new, aux = _layer_forward(lp, x, cfg, kind, cache=c, pos=pos,
+                                         placement=placement, mesh=mesh,
+                                         whole_batch=whole_batch)
+            for k, t in (new or {}).items():
+                if t is not c[k]:
+                    c[k].copy_(t)
         if aux is not None:
             aux_total = aux if aux_total is None else aux_total + aux
     return x, cache, aux_total
@@ -285,6 +362,10 @@ class Model:
     # the expert placement on each device it was asked for, built once
     _placements: Dict[torch.device, torch.Tensor] = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False)
+    # None, or a function of a stage's layer kind that returns a context
+    # manager to run that stage in (``launch.serve_profile`` times each
+    # kind with it)
+    on_stage: Any = dataclasses.field(default=None, repr=False, compare=False)
 
     def __post_init__(self):
         _check_ported(self.cfg)
@@ -404,10 +485,11 @@ class Model:
         aux_total = None
         for i, (kind, _) in enumerate(stages_meta(cfg)):
             sname = f"s{i}"
-            x, _, aux = run_stage(params["stages"][sname], x, cfg, kind,
-                                  cache=None if cache is None else cache[sname],
-                                  pos=pos, placement=placement, remat=remat,
-                                  mesh=self.mesh, whole_batch=whole_batch)
+            with (self.on_stage(kind) if self.on_stage else contextlib.nullcontext()):
+                x, _, aux = run_stage(params["stages"][sname], x, cfg, kind,
+                                      cache=None if cache is None else cache[sname],
+                                      pos=pos, placement=placement, remat=remat,
+                                      mesh=self.mesh, whole_batch=whole_batch)
             if aux is not None:
                 aux_total = aux if aux_total is None else aux_total + aux
         return norm(params["final_norm"], x, cfg.norm), cache, aux_total
@@ -455,11 +537,19 @@ class Model:
 
     def init_cache(self, batch: int, s_max: int, dtype=torch.bfloat16,
                    device=None):
-        """Per-stage KV cache: {"s<i>": {"k", "v"}} of
-        (count, batch, s_max, KV, D)."""
-        return {f"s{i}": kv_init_cache(self.cfg, batch, s_max, count, dtype,
-                                       device)
-                for i, (_, count) in enumerate(stages_meta(self.cfg))}
+        """Per-stage decode cache, the reference's tree: attention stages
+        {"k", "v"} of (count, batch, s_max, KV, D) in ``dtype``; a hybrid
+        stage those and the SSM's "h", "conv"; an mLSTM stage "c", "n",
+        "m"; an sLSTM stage "c", "n", "m", "h" (the states float32)."""
+        cfg = self.cfg
+        cache = {}
+        for i, (kind, count) in enumerate(stages_meta(cfg)):
+            c = (kv_init_cache(cfg, batch, s_max, count, dtype, device)
+                 if has_attention(kind) else {})
+            if _block(kind) is not None:
+                c.update(_block(kind).init_state(cfg, batch, count, device))
+            cache[f"s{i}"] = c
+        return cache
 
     def _no_mesh(self, what: str) -> None:
         if self.mesh is not None:

@@ -580,7 +580,9 @@ CAP_Q_SCALE = 16.0
     (2, 12, 2, 300, 128, 0, 30.0),    # grok's soft-cap, G = 6, D = 128
     (1, 12, 2, 129, 128, 64, 30.0),   # a cap and a window
     (1, 8, 4, 77, 256, 0, 30.0),      # a cap at D = 256
-    (2, 4, 1, 1024, 256, 0, 0.0)])    # a rank of gemma-2b on the tiny mesh
+    (2, 4, 1, 1024, 256, 0, 0.0),     # a rank of gemma-2b on the tiny mesh
+    (1, 25, 5, 300, 64, 2048, 0.0),   # hymba: G = 5 over 25 heads, D = 64
+    (1, 25, 5, 2100, 64, 2048, 0.0)])  # hymba's window of 2,048 biting
 def test_flash_attention_wgmma_bf16(cuda, b, h, hkv, s, d, window, softcap):
     """The bf16 tensor-core kernel (and only it) runs bf16 inputs, with or
     without a logit soft-cap, within half a bf16 unit of the float32 plain
@@ -677,6 +679,24 @@ def test_decode_attention_at_chunk_edges(cuda, kv, g, window, dtype, softcap):
     assert torch.equal(got, again)
     _assert_attention_close(got, decode_attention_ref(
         q.float(), k.float(), v.float(), length, window=window, softcap=softcap))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_at_hymbas_decode_shape(cuda, dtype):
+    """K7 at hymba's decode steps (B = 2, KV = 5, G = 5, D = 64, a 2,080-row
+    cache, window 2,048) at the lengths where the window starts to bite,
+    the serving traffic's last steps (2,049 to 2,079 rows), and before it."""
+    gen = torch.Generator(device=cuda).manual_seed(25)
+    k, v = torch.randn((2, 2, 2080, 5, 64), generator=gen, device=cuda).to(dtype)
+    for lens in ([1, 2048], [2049, 2050], [2064, 2079]):
+        q = torch.randn((2, 5, 5, 64), generator=gen, device=cuda).to(dtype)
+        length = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        got = grouped_decode_attention(q, k, v, length, window=2048)
+        _assert_attention_close(got, decode_attention_ref(
+            q.float(), k.float(), v.float(), length, window=2048))
+        if lens[0] > 2048:   # the window changes the result there
+            unwindowed = grouped_decode_attention(q, k, v, length)
+            assert not torch.equal(got, unwindowed)
 
 
 def test_decode_attention_refuses_a_group_above_8(cuda):
@@ -940,23 +960,26 @@ def _trees_equal(a, b):
     ("command-r-35b", None), ("grok-1-314b", None),
     ("llama4-maverick-400b-a17b", None),
     ("internlm2-20b", (12, 2)), ("grok-1-314b", (12, 2)),
-    ("llama4-maverick-400b-a17b", (10, 2))])
+    ("llama4-maverick-400b-a17b", (10, 2)),
+    ("hymba-1.5b", None), ("hymba-1.5b", (10, 2)), ("xlstm-1.3b", None)])
 def test_reduced_serve_on_the_card_runs_the_attention_kernels(cuda, arch, heads):
-    """The reduced config served on the card launches K6 once per layer and
-    prefill sub-batch and K7 once per layer and decode step, and matches
-    the same weights served on the CPU token for token (float32; the
-    random model's logits are far from ties).  ``heads`` (H, KV) restores
-    the config's own group size (the reduced configs have G = 1): G = 6
-    (internlm2, grok with its soft-cap) and 5 (llama4)."""
+    """The reduced config served on the card launches K6 once per attention
+    layer and prefill sub-batch and K7 once per attention layer and decode
+    step (none for xlstm, which has no attention layer), and matches the
+    same weights served on the CPU token for token (float32; the random
+    model's logits are far from ties).  ``heads`` (H, KV) restores the
+    config's own group size (the reduced configs have G = 1): G = 6
+    (internlm2, grok with its soft-cap) and 5 (llama4, hymba)."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.configs.reduced import reduced_config
     from repro_torch.models import Model, init_params, stages_meta
+    from repro_torch.models.transformer import has_attention
     from repro_torch.serving import Request, ServingEngine
     cfg = reduced_config(get_config(arch))
     if heads:
         cfg = dataclasses.replace(cfg, n_heads=heads[0], n_kv_heads=heads[1])
-    n_layers = sum(c for _, c in stages_meta(cfg))
+    n_layers = sum(c for k, c in stages_meta(cfg) if has_attention(k))
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     on_card = _to(params, cuda)
     rng = np.random.default_rng(0)
@@ -977,7 +1000,8 @@ def test_reduced_serve_on_the_card_runs_the_attention_kernels(cuda, arch, heads)
 
 
 @pytest.mark.parametrize("arch", ["grok-1-314b", "llama4-maverick-400b-a17b",
-                                  "internlm2-20b", "gemma3-4b"])
+                                  "internlm2-20b", "gemma3-4b", "hymba-1.5b",
+                                  "xlstm-1.3b"])
 def test_decode_step_reads_nothing_back_to_the_host(cuda, arch):
     """A decode step of the reduced config on the card makes no host sync:
     the MoE layers count their routing into tensors of a fixed length, the

@@ -36,6 +36,9 @@ from repro_torch.models.convert import param_shapes
 
 ARCHS = ["gemma3-4b", "gemma-2b", "internlm2-20b", "command-r-35b",
          "grok-1-314b", "llama4-maverick-400b-a17b"]
+# the recurrent families: xlstm (mLSTM + sLSTM) and hymba (attention beside
+# an SSM); their parity is in tests/test_torch_xlstm.py and test_torch_ssm.py
+RECURRENT = ["xlstm-1.3b", "hymba-1.5b"]
 # (arch, H, KV) at the config's own group size, the head dim left at the
 # reduced 16
 GROUPED = [("internlm2-20b", 12, 2), ("grok-1-314b", 12, 2),
@@ -59,7 +62,7 @@ def _both(arch, seed=1, **changes):
 # configs
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + RECURRENT)
 def test_configs_equal_the_reference(arch):
     assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(j_get_config(arch))
     cfg, jcfg = reduced_config(get_config(arch)), j_reduced(j_get_config(arch))
@@ -70,9 +73,8 @@ def test_configs_equal_the_reference(arch):
 
 
 def test_registry_lists_only_ported_configs_and_raises_on_others():
-    assert list_configs() == sorted(ARCHS)
-    for name in ("hymba-1.5b", "xlstm-1.3b", "whisper-base", "phi-3-vision-4.2b",
-                 "no-such-arch"):
+    assert list_configs() == sorted(ARCHS + RECURRENT)
+    for name in ("whisper-base", "phi-3-vision-4.2b", "no-such-arch"):
         with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
             get_config(name)
 
@@ -81,11 +83,68 @@ def test_registry_lists_only_ported_configs_and_raises_on_others():
     dict(family="ssm", slstm_every=2), dict(hybrid=True, ssm_state=4),
     dict(family="ssm"), dict(n_encoder_layers=2, encoder_len=16)])
 def test_unported_layer_kinds_raise(changes):
+    """The encoder-decoder layers still raise; the recurrent and hybrid
+    kinds (mLSTM + sLSTM, hybrid, mLSTM alone), ported since, build and
+    run a forward, with the reference's layer pattern and tree."""
     cfg = dataclasses.replace(reduced_config(get_config("gemma-2b")), **changes)
+    if cfg.n_encoder_layers:
+        with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+            Model(cfg)
+        with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+            init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        return
+    jcfg = dataclasses.replace(j_reduced(j_get_config("gemma-2b")), **changes)
+    assert {k for k, _ in stages_meta(cfg)} <= {"mlstm", "slstm", "hybrid"}
+    assert stages_meta(cfg) == j_stages_meta(jcfg)
+    model = Model(cfg)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    jp = j_init_params(jax.random.PRNGKey(0), jcfg)
+    assert jax.tree.map(lambda t: tuple(t.shape), params) == \
+        jax.tree.map(lambda a: tuple(a.shape), jp)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 5)))
+    h, _, aux = model.backbone(params, model.embed(params, toks))
+    assert h.shape == (2, 5, cfg.d_model) and aux is None
+    assert bool(torch.isfinite(h).all())
+
+
+@pytest.mark.parametrize("arch,changes", [
+    ("xlstm-1.3b", {}), ("hymba-1.5b", {}),
+    ("gemma-2b", dict(family="ssm"))])
+def test_check_mesh_refuses_the_recurrent_and_hybrid_kinds(arch, changes):
+    """Meshes train the attention decoders only: the mLSTM, sLSTM and
+    hybrid kinds on the tiny mesh raise, naming ROADMAP item 12, both from
+    ``check_mesh`` and from ``Model(cfg, mesh=...)``."""
+    from repro_torch.launch.mesh import named_mesh_layout
+    from repro_torch.models.transformer import check_mesh
+    cfg = dataclasses.replace(reduced_config(get_config(arch)), **changes)
+    kinds = {k for k, _ in stages_meta(cfg)}
+    assert kinds & {"mlstm", "slstm", "hybrid"}
+    with pytest.raises(NotImplementedError, match="ROADMAP item 12") as err:
+        check_mesh(cfg, named_mesh_layout("tiny"))
+    assert all(k in str(err.value) for k in kinds)
     with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        Model(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        Model(cfg, mesh=named_mesh_layout("tiny"))
+
+
+@pytest.mark.parametrize("arch", ["gemma3-4b", "hymba-1.5b", "xlstm-1.3b"])
+def test_on_stage_hook_sees_every_stage_and_has_attention_names_its_layers(arch):
+    """``Model.on_stage`` is entered once per stage, in order, with the
+    stage's kind; ``has_attention`` holds for exactly the stages whose
+    weights and decode cache have attention's leaves."""
+    import contextlib
+    from repro_torch.models.transformer import has_attention
+    cfg = reduced_config(get_config(arch))
+    model = Model(cfg)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    seen = []
+    model.on_stage = lambda kind: contextlib.nullcontext(seen.append(kind))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 4)))
+    model.backbone(params, model.embed(params, toks))
+    assert seen == [k for k, _ in stages_meta(cfg)]
+    cache = model.init_cache(1, 8, device="cpu")
+    for i, (kind, _) in enumerate(stages_meta(cfg)):
+        assert has_attention(kind) == ("stk_wq" in params["stages"][f"s{i}"]) \
+            == ("k" in cache[f"s{i}"])
 
 
 # ---------------------------------------------------------------------------

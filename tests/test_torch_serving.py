@@ -3,8 +3,9 @@
 
 Both engines serve the same requests on the same weights (the reference's,
 carried over with ``params_from_numpy``), reduced gemma-2b, gemma3-4b,
-internlm2-20b and grok-1-314b (a mixture of experts with a soft-cap) in
-float32, greedy: the generated tokens must be equal token for token.
+internlm2-20b, grok-1-314b (a mixture of experts with a soft-cap),
+xlstm-1.3b (mLSTM and sLSTM state) and hymba-1.5b (attention beside an
+SSM) in float32, greedy: the generated tokens must be equal token for token.
 Sampling with a temperature draws from a ``torch.Generator``, which does
 not reproduce ``jax.random``'s bits, so it is checked for determinism only.
 """
@@ -47,7 +48,7 @@ def _prompts(cfg, lens, seed):
 
 
 @pytest.mark.parametrize("arch", ["gemma-2b", "gemma3-4b", "internlm2-20b",
-                                  "grok-1-314b"])
+                                  "grok-1-314b", "xlstm-1.3b", "hymba-1.5b"])
 def test_greedy_serve_equals_reference(arch):
     """Mixed prompt lengths (past the reduced gemma3-4b's window of 8),
     several sub-batches per packed batch, unequal max_new_tokens."""
@@ -128,7 +129,8 @@ def test_serve_cli_runs_on_cpu_and_prints_its_line():
 
 
 @pytest.mark.parametrize("arch", ["internlm2-20b", "command-r-35b", "grok-1-314b",
-                                  "llama4-maverick-400b-a17b"])
+                                  "llama4-maverick-400b-a17b", "xlstm-1.3b",
+                                  "hymba-1.5b"])
 def test_serve_cli_takes_the_new_archs(arch):
     """``launch.serve --arch`` serves each newly ported config on its
     reduced path, as the reference driver does."""
