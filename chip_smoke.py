@@ -75,6 +75,18 @@ paths end to end:
   first 2 layers and xlstm's first 8 (its first sLSTM among them) checked
   as above (xlstm, which launches no kernel, decode-matches-prefill only);
   both reduced, in float32, on the card against the CPU;
+* phi-3-vision-4.2b served the same way at full width and depth (32
+  layers, K6 and K7 at D = 96, G = 1), and whisper-base (6 encoder and 6
+  decoder layers) transcribing 8 clips of 1,500 frame embeddings, 224
+  greedy tokens each, twice (``run_whisper_serving``): K6 once per
+  encoder layer and twice per decoder layer in the prefill (self, then
+  cross-attention over the 1,500 encoder rows at Sk != S), K7 twice per
+  decoder layer and step (self, then over the cross rows), identical
+  outputs, no host sync in a decode step, decode-matches-prefill and the
+  kernel path against the plain one over 64 tokens of a clip; K6 at
+  Sk != S (S = 1, 4, 37, 228 over 1,500 rows) and at D = 96, K7 at D = 96
+  and over the cross rows, against their plain versions
+  (``check_slice_attention``);
 * LM training: K6's forward ``lse`` and its hand-written backward (bf16:
   the delta, wgmma + TMA dK/dV, reduction and dQ kernels; float32: FMA
   kernels) against the plain textbook backward and, in bf16, against the
@@ -93,7 +105,10 @@ paths end to end:
   attention patched in (``run_training``); grok-1 at full width cut to 1
   of its 64 layers (B = 2, S = 1,024) the same way, 5 steps with a
   restore at 3, its MoE's dropped share each step, K6's capped forward
-  and backward once a step (``run_training_grok``);
+  and backward once a step (``run_training_grok``); phi-3-vision-4.2b at
+  full width and depth (B = 4, S = 1,024, the first 256 positions image
+  embeddings) 6 steps in memory, K6's forward and backward at D = 96 once
+  a layer and step (``run_training_phi3``);
 * LM training on the reference's tiny mesh, (data, model) = (2, 2), as 4
   gloo ranks sharing the card (``run_mesh_training``): the float32 reduced
   gemma-2b, gemma3-4b, grok-1 (experts ``tp2d``) and llama4-maverick
@@ -297,7 +312,7 @@ CAP_Q_SCALE = 16.0
 # bf16 rounding that flips one router choice moves which tokens the
 # capacity drops)
 SERVED_ARCHS = ("internlm2-20b", "grok-1-314b", "llama4-maverick-400b-a17b",
-                "hymba-1.5b", "xlstm-1.3b")
+                "hymba-1.5b", "xlstm-1.3b", "phi-3-vision-4.2b")
 DEPTH_CUT = 2
 CUT_LAYERS = {"xlstm-1.3b": 8}
 CUT_PROMPT = 512
@@ -360,6 +375,26 @@ MESH_REDUCED_ARCHS = ("gemma-2b", "gemma3-4b", "grok-1-314b",
                       "llama4-maverick-400b-a17b")
 GROK_LAYER = (2, 48, 8, 1024, 128)
 GROK_LAYER_SHAPE = "B=2 H=48 Hkv=8 S=1024 D=128 bf16 causal window=0 softcap=30"
+# phi-3-vision-4.2b (served above, SERVED_ARCHS) trained at full width and
+# depth (run_training_phi3): B x S positions a step, the first
+# frontend_len = 256 of them the image prefix (embeddings drawn from a
+# generator seeded with the step), the rest text; PHI3_STEPS steps in
+# memory, no checkpoint (run_training holds the checkpoint and restore;
+# phi3's 38.3 GB of weights and AdamW moments would more than double the
+# run's disk writes); no remat: its peak fits the card (60.49 GB on an
+# NVIDIA H100 80GB HBM3, 700 W)
+PHI3_B, PHI3_S, PHI3_STEPS = 4, 1024, 6
+# phi3's training layer (B, H, Hkv, S, D): K6 and its backward at D = 96
+PHI3_LAYER = (4, 32, 32, 1024, 96)
+# whisper-base served (run_whisper_serving; launch.serve_profile's CLIPS
+# and TRANSCRIBE_*): its decode-matches-prefill and kernel-vs-plain checks
+# run over the first WHISPER_CHECK tokens of clip 0's transcript (the
+# prompt and the first tokens the serve generated)
+WHISPER_CHECK = 64
+# K6 over keys that are not the queries: whisper's cross-attention, the
+# decoder's rows (one decode row, the 4-token prompt, a ragged 37, the
+# whole 228-row text context) over the 1,500 encoder rows
+CROSS_ROWS = (1, 4, 37, 228)
 
 
 class SmokeFailure(RuntimeError):
@@ -2255,6 +2290,83 @@ def check_decode_attention():
                       f"{ratio:.3f} x its limit ({limit}); two calls equal")
 
 
+def check_slice_attention():
+    """The attention kernels at this slice's new shapes, against their
+    plain versions, each in its dtype's variant only and the same bits on
+    a second call: K6 over keys that are not the queries (whisper's
+    cross-attention, S in CROSS_ROWS over Sk = 1,500 encoder rows, D = 64,
+    G = 1, non-causal; the cross K/V a layer's slice of ``cross_kv``'s
+    stacked (L, B, Sk, KV, D) tensor) and K6 at phi-3-vision's prefill
+    layer (D = 96, G = 1, causal), bf16 (also against the split-P
+    emulation) and float32; K7 at phi3's decode step (D = 96, G = 1) and
+    over whisper's 1,500 cross rows (length 1,500 for every sequence)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.decode_attention import (decode_attention_ref,
+                                                      grouped_decode_attention)
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     attention_split_p_ref,
+                                                     multi_head_attention)
+    # (label, B, H, Hkv, S, Sk, D, causal)
+    cases = [(f"whisper cross S={s}", 8, 8, 8, s, 1500, 64, False) for s in CROSS_ROWS]
+    cases.append(("phi-3-vision prefill layer", 2, 32, 32, 2048, 2048, 96, True))
+    for dtype in (torch.bfloat16, torch.float32):
+        limit = LIMIT_TEXT[str(dtype).split(".")[1]]
+        name, variant = (("flash_attention", "wgmma_bf16") if dtype == torch.bfloat16
+                         else ("flash_attention_f32", "fma_f32"))
+        for label, b, h, hkv, s, sk, d, causal in cases:
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(s + sk + d)
+            q = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
+            kv = torch.randn((2, 2, b, sk, hkv, d), generator=gen, device="cuda").to(dtype)
+            q, k, v = q.transpose(1, 2), kv[0, 1].transpose(1, 2), kv[1, 1].transpose(1, 2)
+            kernels.reset_launch_counts()
+            got = multi_head_attention(q, k, v, causal=causal)
+            again = multi_head_attention(q, k, v, causal=causal)
+            counts = kernels.variant_counts()
+            want = attention_ref(q.float(), k.float(), v.float(), causal=causal)
+            torch.cuda.synchronize()
+            require(counts[f"flash_attention.{variant}"] == 2 and
+                    kernels.launch_counts()["flash_attention"] == 2,
+                    f"flash_attention {label} {dtype}: variant launches {counts}")
+            require(torch.equal(got, again), f"flash_attention {label} {dtype}: two calls differ")
+            err, ratio = compare_attention(name, got, want, f"flash_attention {label} {dtype}")
+            split = ""
+            if dtype == torch.bfloat16:
+                emu = attention_split_p_ref(q.float(), k.float(), v.float(), causal=causal)
+                _, emu_ratio = compare_attention(name, got, emu,
+                                                 f"flash_attention {label} {dtype} vs split-P")
+                split = f"; vs the split-P emulation at {emu_ratio:.3f} x the limit"
+            print(f"check flash_attention {label} B={b} H={h} Hkv={hkv} S={s} Sk={sk} D={d} "
+                  f"causal={causal} {dtype} ({variant}): max abs err {err:.3e} from the "
+                  f"plain output; error vs float32 at {ratio:.3f} x its limit ({limit})"
+                  f"{split}; two calls equal")
+            del q, k, v, kv, got, again, want
+        # (label, B, KV, D, cache rows, lengths)
+        for label, b, kv, d, rows, lens in (
+                ("phi-3-vision decode", 2, 32, 96, 2080, [1, 2079]),
+                ("phi-3-vision decode ragged", 2, 32, 96, 2080, [2079, 1537]),
+                ("whisper cross rows", 8, 8, 64, 1500, [1500] * 8)):
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(rows + d)
+            q = torch.randn((b, kv, 1, d), generator=gen, device="cuda").to(dtype)
+            cache = torch.randn((2, 2, b, rows, kv, d), generator=gen, device="cuda").to(dtype)
+            k, v = cache[0, 1], cache[1, 1]
+            length = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            got = grouped_decode_attention(q, k, v, length)
+            again = grouped_decode_attention(q, k, v, length)
+            want = decode_attention_ref(q.float(), k.float(), v.float(), length)
+            torch.cuda.synchronize()
+            require(torch.equal(got, again), f"decode_attention {label} {dtype}: two calls differ")
+            err, ratio = compare_attention("decode_attention", got, want,
+                                           f"decode_attention {label} {dtype}")
+            print(f"check decode_attention {label} B={b} KV={kv} G=1 D={d} S={rows} "
+                  f"lengths={lens[:2]}{'...' if len(lens) > 2 else ''} {dtype}: max abs err "
+                  f"{err:.3e} from the plain output; error vs float32 at {ratio:.3f} x its "
+                  f"limit ({limit}); two calls equal")
+        torch.cuda.empty_cache()
+
+
 def serve_requests(vocab):
     import numpy as np
     from repro_torch.launch.serve_profile import SERVE_MAX_NEW, SERVE_PROMPTS
@@ -2353,16 +2465,37 @@ def _attention_layers(cfg):
     return sum(c for k, c in stages_meta(cfg) if has_attention(k))
 
 
-def _decode_step_syncs(model, params):
+def _attention_launches(cfg):
+    """(K6 a prefill, K7 a decode step, K6 an encoding) of ``cfg``: one of
+    each per attention layer; whisper's decoder layers attend twice (self,
+    then cross over the encoder's rows) and its encoder layers once."""
+    if cfg.n_encoder_layers:
+        return 2 * cfg.n_layers, 2 * cfg.n_layers, cfg.n_encoder_layers
+    n = _attention_layers(cfg)
+    return n, n, 0
+
+
+def _cross_kv(model, params, frames):
+    """An encoder-decoder's cross K/V of ``frames`` (``Model.encode`` then
+    ``Model.cross_kv``), None for ``frames`` None."""
+    if frames is None:
+        return None
+    return model.cross_kv(params, model.encode(params, frames))
+
+
+def _decode_step_syncs(model, params, frames=None):
     """Host syncs in one ``Model.decode_step`` of the served model (2
-    sequences after an 8-token prefill), counted by torch's sync-debug mode
-    (one warning per synchronising call); the step must make none, so the
-    engine's one read of the step's tokens is a step's only wait."""
+    sequences after an 8-token prefill; an encoder-decoder over the cross
+    K/V of the first 2 of ``frames``, made before), counted by torch's
+    sync-debug mode (one warning per synchronising call); the step must make
+    none, so the engine's one read of the step's tokens is a step's only
+    wait."""
     import warnings
     import torch
     toks = torch.arange(16, device="cuda").reshape(2, 8) % model.cfg.vocab_size
     with torch.inference_mode():
-        logits, cache = model.prefill(params, {"tokens": toks}, 16)
+        enc = _cross_kv(model, params, None if frames is None else frames[:2])
+        logits, cache = model.prefill(params, {"tokens": toks}, 16, enc_out=enc)
         token = logits.argmax(-1)
         pos = torch.full((2,), 8, dtype=torch.int32, device="cuda")
         torch.cuda.synchronize()
@@ -2370,7 +2503,7 @@ def _decode_step_syncs(model, params):
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
             try:
-                model.decode_step(params, token, cache, pos)
+                model.decode_step(params, token, cache, pos, enc_out=enc)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
     syncs = sum("synchronizing CUDA operation" in str(w.message) for w in seen)
@@ -2384,9 +2517,10 @@ def _init_served(arch):
     """The served model of ``arch`` (launch.serve_profile's depth) at full
     width, bf16, random weights from a generator seeded 0 on the card,
     its parameter count held to the config's tree (``param_shapes``) and,
-    but for hymba, to the config's analytic count (which leaves out the
-    final norm's scale and, of hymba's SSM, the conv taps and most of
-    ``a_log``: it is printed there, not held)."""
+    but for hymba and whisper, to the config's analytic count (which
+    leaves out the final norm's scale and, of hymba's SSM, the conv taps
+    and most of ``a_log``, of whisper ``enc_pos``, the encoder's final
+    norm and the decoder's ``normx``: it is printed there, not held)."""
     import math
     import torch
     from repro_torch.launch.serve_profile import served_config
@@ -2405,7 +2539,8 @@ def _init_served(arch):
           f"{cfg.param_count()}) in {time.perf_counter() - t0:.2f}s")
     require(n_params == sum(math.prod(t) for t in _leaves(param_shapes(cfg))),
             f"{cfg.name}: parameter count differs from the config's tree")
-    require(cfg.hybrid or n_params == cfg.param_count() + cfg.d_model,
+    require(cfg.hybrid or cfg.n_encoder_layers or
+            n_params == cfg.param_count() + cfg.d_model,
             f"{cfg.name}: parameter count differs from the config's analytic count")
     return cfg, params
 
@@ -2510,6 +2645,95 @@ def run_model_serving(arch):
     return counts
 
 
+def run_whisper_serving():
+    """whisper-base at full width and depth (6 encoder and 6 decoder layers,
+    bf16, random weights from a generator seeded 0): its serving traffic
+    (launch.serve_profile: 8 clips of 1,500 frame embeddings, the 4-token
+    start-of-transcript prompt, 224 greedy tokens) through
+    ``serve_profile.transcribe`` twice: ``encode`` -> ``cross_kv`` once,
+    the prefill, the decode steps.  K6 once per encoder layer and twice per
+    decoder layer (self, then cross at Sk = 1,500 != S) in the wgmma
+    variant only, K7 twice per decoder layer and decode step (self, then
+    over the 1,500 cross rows), the same greedy tokens twice, no host sync
+    in a decode step; then decode-matches-prefill and the kernel path
+    against the plain path over the first WHISPER_CHECK tokens of clip 0's
+    transcript.  Returns the first serve's launch counts, with the
+    attention kernels' split by what they attend over
+    (``kernels.shape_counts``)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch.serve_profile import (CLIPS, TRANSCRIBE_NEW,
+                                                  TRANSCRIBE_PROMPT,
+                                                  TRANSCRIBE_S_MAX, clip_embeds,
+                                                  transcribe)
+    from repro_torch.models import Model
+    cfg, params = _init_served("whisper-base")
+    require(cfg.n_layers == 6 and cfg.n_encoder_layers == 6 and cfg.encoder_len == 1500,
+            f"whisper-base: {cfg.n_encoder_layers} + {cfg.n_layers} layers")
+    model = Model(cfg)
+    frames = clip_embeds(cfg, CLIPS, "cuda")
+    prompt = torch.tensor([TRANSCRIBE_PROMPT] * CLIPS, device="cuda")
+    k6_prefill, k7_step, k6_encode = _attention_launches(cfg)
+    outputs, first = [], None
+    for run in range(2):
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, stats = transcribe(model, params, frames, prompt, TRANSCRIBE_NEW,
+                                 TRANSCRIBE_S_MAX)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {**kernels.launch_counts(), **kernels.variant_counts(),
+                  **kernels.shape_counts()}
+        steps = stats["decode_steps"]
+        print(f"serve {cfg.name} ({cfg.n_encoder_layers} encoder + {cfg.n_layers} decoder "
+              f"layers) run {run}: {CLIPS} clips x {cfg.encoder_len} frames, prompt "
+              f"{list(TRANSCRIBE_PROMPT)}, {TRANSCRIBE_NEW} greedy tokens each "
+              f"({steps} decode steps) wall_s={wall:.4f} encode_s={stats['encode_s']:.4f} "
+              f"prefill_s={stats['prefill_s']:.4f} decode_s={stats['decode_s']:.4f} "
+              f"decode_ms_per_step={stats['decode_s'] / steps * 1e3:.3f} "
+              f"generated_tokens={toks.size} tokens_per_s={toks.size / wall:.2f} "
+              f"peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.3f} "
+              f"launches={counts}")
+        require(toks.shape == (CLIPS, TRANSCRIBE_NEW) and toks.dtype == np.int32 and
+                bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+                f"{cfg.name}: tokens {toks.shape} {toks.dtype} out of the vocabulary")
+        want = {"flash_attention": k6_encode + k6_prefill,
+                "flash_attention.wgmma_bf16": k6_encode + k6_prefill,
+                "flash_attention.fma_f32": 0, "decode_attention": k7_step * steps}
+        require(all(counts[k] == n for k, n in want.items()) and
+                all(counts[k] == 0 for k in MINING_KERNELS),
+                f"{cfg.name}: launches {counts}, expected {want}")
+        # the split: the encoder's non-causal layers, the decoder's causal
+        # self-attention and cross-attention in the prefill; each decode
+        # step's self rows (the cache's TRANSCRIBE_S_MAX) and cross rows
+        by_shape = {"flash_attention.full": cfg.n_encoder_layers,
+                    "flash_attention.causal": cfg.n_layers,
+                    "flash_attention.cross": cfg.n_layers,
+                    f"decode_attention.rows={TRANSCRIBE_S_MAX}": cfg.n_layers * steps,
+                    f"decode_attention.rows={cfg.encoder_len}": cfg.n_layers * steps}
+        require(all(counts.get(k) == n for k, n in by_shape.items()),
+                f"{cfg.name}: attention launches by shape {counts}, expected {by_shape}")
+        outputs.append(toks)
+        if first is None:
+            first = counts
+    require(np.array_equal(outputs[0], outputs[1]),
+            f"{cfg.name}: greedy outputs differ between two runs")
+    print(f"serve {cfg.name}: greedy outputs identical across two runs (clip 0 starts "
+          f"{outputs[0][0][:8].tolist()})")
+    _decode_step_syncs(model, params, frames)
+    check = torch.from_numpy(np.concatenate(
+        [np.asarray(TRANSCRIBE_PROMPT, np.int64),
+         outputs[0][0, :WHISPER_CHECK - len(TRANSCRIBE_PROMPT)]]))[None].cuda()
+    _kernel_vs_plain_and_decode(
+        f"{cfg.name} (all {cfg.n_encoder_layers} + {cfg.n_layers} layers, clip 0, "
+        f"{WHISPER_CHECK} tokens)", cfg, params, _cast(params, torch.float32), check,
+        TRANSCRIBE_S_MAX, frames[:1])
+    return first
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2518,21 +2742,26 @@ def _leaves(tree):
         yield tree
 
 
-def _both_paths(p, cfg, prompt, dtype, s_max):
+def _both_paths(p, cfg, prompt, dtype, s_max, frames=None):
     """Last-position logits of ``prompt`` (1, S) prefilled whole, and
     prefilled to S - DECODE_K then decoded DECODE_K steps, by the model of
-    ``cfg`` in ``dtype`` on the weights ``p``; both finite."""
+    ``cfg`` in ``dtype`` on the weights ``p``; both finite.  An
+    encoder-decoder encodes ``frames`` (1, Se, D) once, and both paths read
+    its cross K/V."""
     import dataclasses
     import torch
     from repro_torch.models import Model
     model = Model(dataclasses.replace(cfg, dtype=dtype))
     split = prompt.shape[1] - DECODE_K
     with torch.inference_mode():
-        full, _ = model.prefill(p, {"tokens": prompt}, s_max)
-        logits, cache = model.prefill(p, {"tokens": prompt[:, :split]}, s_max)
+        enc = _cross_kv(model, p, frames)
+        full, _ = model.prefill(p, {"tokens": prompt}, s_max, enc_out=enc)
+        logits, cache = model.prefill(p, {"tokens": prompt[:, :split]}, s_max,
+                                      enc_out=enc)
         for t in range(split, prompt.shape[1]):
             pos = torch.full((1,), t, dtype=torch.int32, device="cuda")
-            logits, cache = model.decode_step(p, prompt[:, t:t + 1], cache, pos)
+            logits, cache = model.decode_step(p, prompt[:, t:t + 1], cache, pos,
+                                              enc_out=enc)
     torch.cuda.synchronize()
     require(bool(torch.isfinite(full).all() and torch.isfinite(logits).all()),
             f"{cfg.name} {dtype}: non-finite logits")
@@ -2599,7 +2828,7 @@ def _variants_used(label, want):
     print(f"check {label} model runs: flash_attention variants {got}")
 
 
-def _kernel_vs_plain_and_decode(label, cfg, p16, p32, prompt, s_max):
+def _kernel_vs_plain_and_decode(label, cfg, p16, p32, prompt, s_max, frames=None):
     """The checks of a full-width model (gemma3-4b whole, the new models on
     a depth-cut copy): the kernel path against the plain path in float32
     (within DECODE_TOL_F32) and bf16 (within KERNELS_VS_PLAIN_BF16), and
@@ -2608,28 +2837,32 @@ def _kernel_vs_plain_and_decode(label, cfg, p16, p32, prompt, s_max):
     error).  ``p32``: the weights in float32 (an MoE's experts may stay
     bf16: _experts_in_float32).  A model with no attention layer (xlstm)
     launches no kernel here, so it is held to that and to
-    decode-matches-prefill only."""
+    decode-matches-prefill only.  An encoder-decoder (whisper) encodes
+    ``frames`` once per path and dtype (``frames`` in float32 for the
+    float32 runs: the bf16 frames cast exactly)."""
     import torch
     from repro_torch import kernels
     n_attn = _attention_layers(cfg)
+    k6_prefill, k7_step, k6_encode = _attention_launches(cfg)
+    f32 = None if frames is None else frames.float()
     with _experts_in_float32():
         kernels.reset_launch_counts()
-        full32, dec32 = _both_paths(p32, cfg, prompt, "float32", s_max)
+        full32, dec32 = _both_paths(p32, cfg, prompt, "float32", s_max, f32)
         if n_attn:
             _variants_used(f"{label} float32", "fma_f32")
             with _plain_attention():
-                plain32 = _both_paths(p32, cfg, prompt, "float32", s_max)
+                plain32 = _both_paths(p32, cfg, prompt, "float32", s_max, f32)
     torch.cuda.empty_cache()
     kernels.reset_launch_counts()
-    full16, dec16 = _both_paths(p16, cfg, prompt, "bfloat16", s_max)
+    full16, dec16 = _both_paths(p16, cfg, prompt, "bfloat16", s_max, frames)
     counts = kernels.launch_counts()
-    require(counts["flash_attention"] == 2 * n_attn and
-            counts["decode_attention"] == DECODE_K * n_attn,
+    require(counts["flash_attention"] == 2 * k6_prefill + k6_encode and
+            counts["decode_attention"] == DECODE_K * k7_step,
             f"{label}: two prefills and {DECODE_K} decode steps launched {counts}")
     if n_attn:
         _variants_used(f"{label} bfloat16", "wgmma_bf16")
         with _plain_attention():
-            plain16 = _both_paths(p16, cfg, prompt, "bfloat16", s_max)
+            plain16 = _both_paths(p16, cfg, prompt, "bfloat16", s_max, frames)
         _kernels_vs_plain(label, (full32, dec32), plain32, (full16, dec16), plain16)
     else:
         print(f"check {label}: no attention layer, no kernel launched by two "
@@ -2741,7 +2974,8 @@ def check_reduced_models():
                                  "llama4-maverick-400b-a17b")]
     cases += [("internlm2-20b", (12, 2)), ("grok-1-314b", (12, 2)),
               ("llama4-maverick-400b-a17b", (10, 2)), ("hymba-1.5b", None),
-              ("hymba-1.5b", (10, 2)), ("xlstm-1.3b", None)]
+              ("hymba-1.5b", (10, 2)), ("xlstm-1.3b", None),
+              ("phi-3-vision-4.2b", None)]
     for arch, heads in cases:
         cfg = reduced_config(get_config(arch))
         if heads:
@@ -2812,7 +3046,9 @@ def check_flash_attention_bwd():
              ("reduced grok capped", 4, 4, 4, 64, 16, 0, CAP, (torch.float32,)),
              ("capped local S=1000", 2, 12, 2, 1000, 128, 256, CAP,
               (torch.bfloat16, torch.float32)),
-             ("capped G=1", 2, 8, 8, 512, 128, 0, CAP, (torch.bfloat16,))]
+             ("capped G=1", 2, 8, 8, 512, 128, 0, CAP, (torch.bfloat16,)),
+             ("phi-3-vision training layer D=96", *PHI3_LAYER, 0, 0.0,
+              (torch.bfloat16, torch.float32))]
     for label, b, h, hkv, s, d, window, cap, dtypes in cases:
         for dtype in dtypes:
             what = f"flash_attention_bwd {label} {dtype}"
@@ -2934,16 +3170,20 @@ def run_training_reduced():
                   f"and backward {n_layers} launches a step ({n_layers} layers)")
 
 
-def _train_on_card(cfg, label, batch, seq, steps, every=None):
+def _train_on_card(cfg, label, batch, seq, steps, every=None, plain_remat=None):
     """``cfg`` in bf16 on the card, ``batch`` x ``seq`` tokens a step:
     ``steps`` steps, the first ``every`` through TrainingRunner.run with a
     checkpoint at step ``every``, then a fresh runner restored from it
     whose steps must equal the first run's bit for bit (with no ``every``,
     the steps in memory and no checkpoint); K6 forward and backward once a
     layer and step (wgmma_bf16), the plain attention paths raising on the
-    card throughout; then step 1 again with the plain attention patched in.
-    Returns the backward kernel's launches over the kernel steps, and the
-    run's numbers for the timing line."""
+    card throughout; then step 1 again with the plain attention patched in
+    (with ``plain_remat``, when given: the plain version holds each
+    layer's (B, H, S, S) float32 scores, which for all layers at once may
+    not fit beside the model's state).  A vision config's batches hold ``frontend_len`` image embeddings
+    (normal, from a generator seeded with the step, bf16) that prefix the
+    text.  Returns the backward kernel's launches over the kernel steps,
+    and the run's numbers for the timing line."""
     import shutil
     import types
     import torch
@@ -2962,8 +3202,20 @@ def _train_on_card(cfg, label, batch, seq, steps, every=None):
     t0 = time.perf_counter()
     pipe = TokenPipeline(cfg.vocab_size, batch=batch, seq_len=seq, seed=0)
     batches = {i: pipe.batch_at(i) for i in range(steps)}
+    images = cfg.frontend_len if cfg.frontend == "vision" else 0
+
+    def on_card(i):
+        """Step ``i``'s batch on the card (its image embeddings made there)."""
+        out = {"tokens": torch.from_numpy(batches[i]["tokens"]).cuda()}
+        if images:
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(i)
+            out["img_embeds"] = torch.randn((batch, images, cfg.d_model), generator=gen,
+                                            device="cuda").to(torch.bfloat16)
+        return out
     print(f"train data {label}: {steps} batches of {batch} x {seq} tokens "
-          f"(TokenPipeline seed 0) in {time.perf_counter() - t0:.2f}s")
+          f"(TokenPipeline seed 0{f'; the first {images} positions image embeddings' if images else ''}) "
+          f"in {time.perf_counter() - t0:.2f}s")
     # warmup 1: every step after the first (whose scheduled rate is 0, as
     # in the reference) moves the bf16 weights by more than half a unit
     tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=steps,
@@ -2985,9 +3237,8 @@ def _train_on_card(cfg, label, batch, seq, steps, every=None):
         in memory (no checkpoint written); their metrics."""
         log = []
         for i in range(start, steps):
-            tokens = torch.from_numpy(batches[i]["tokens"]).cuda()
             runner.params, runner.opt_state, m = counted_step(
-                runner.params, runner.opt_state, {"tokens": tokens})
+                runner.params, runner.opt_state, on_card(i))
             log.append({k: float(v) for k, v in m.items()})
         return log
 
@@ -3027,6 +3278,7 @@ def _train_on_card(cfg, label, batch, seq, steps, every=None):
             peak = torch.cuda.max_memory_allocated()
             del held
         else:
+            require(not images, "the runner's batches hold tokens only")
             runner = TrainingRunner(RunnerConfig(directory, checkpoint_every=every),
                                     counted_step, params, opt, batches.__getitem__)
             del params, opt
@@ -3075,6 +3327,8 @@ def _train_on_card(cfg, label, batch, seq, steps, every=None):
     bwd_launches = sum(c["flash_attention_bwd"] for _, c in records)
 
     # step 1 again, with the plain attention patched in
+    plain_step = step if plain_remat is None else make_train_step(
+        Model(cfg), dataclasses.replace(tcfg, remat=plain_remat))
     params, opt = fresh(0)
     plain_mha = attn_mod.multi_head_attention
     attn_mod.multi_head_attention = lambda q, k, v, *, causal, window, sm_scale, softcap: \
@@ -3082,7 +3336,7 @@ def _train_on_card(cfg, label, batch, seq, steps, every=None):
                       softcap=softcap)
     try:
         kernels.reset_launch_counts()
-        _, _, plain = step(params, opt, {"tokens": torch.from_numpy(batches[0]["tokens"]).cuda()})
+        _, _, plain = plain_step(params, opt, on_card(0))
         torch.cuda.synchronize()
         plain = {k: float(v) for k, v in plain.items()}
     finally:
@@ -3102,7 +3356,8 @@ def _train_on_card(cfg, label, batch, seq, steps, every=None):
           f"{[m['loss'] for m in first]} grad norms {[m['grad_norm'] for m in first]}; "
           f"{how}; K6 forward {n_layers} (wgmma_bf16) and backward {n_layers} "
           f"(wgmma_bf16) launches every step, no plain attention on the card")
-    print(f"train {label}: step 1 with the plain attention: loss {plain['loss']} "
+    print(f"train {label}: step 1 with the plain attention"
+          f"{'' if plain_remat is None else f' (remat={plain_remat})'}: loss {plain['loss']} "
           f"(rel diff {rel_loss:.3e}), grad norm {plain['grad_norm']} (rel diff "
           f"{rel_norm:.3e}), both <= {TRAIN_PLAIN_BF16_REL:.0e}")
     return bwd_launches, dict(step_s=[t for t, _ in records], peak=peak,
@@ -3180,6 +3435,36 @@ def run_training_grok():
                        None, run)
     require(run["peak"] <= torch.cuda.get_device_properties(0).total_memory,
             f"grok peak {run['peak']}")
+    return launches
+
+
+def run_training_phi3():
+    """phi-3-vision-4.2b at full width and depth (32 layers, D = 96, G = 1),
+    bf16, PHI3_B x PHI3_S positions a step with the 256-position image
+    prefix: PHI3_STEPS steps in memory, no remat, K6's forward and
+    backward once a layer and step at D = 96, step 1 within TRAIN_PLAIN_BF16_REL of the plain
+    attention (:func:`_train_on_card`, that step under remat="full"); the
+    peak printed beside the 45.9 GB
+    of weights, gradients and AdamW moments (3.82 G x 12 bytes) and held to
+    the card.  Returns the backward's launches."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config("phi-3-vision-4.2b")
+    require(cfg.n_layers == 32 and cfg.head_dim == 96 and cfg.frontend_len == 256 and
+            cfg.dtype == "bfloat16", f"phi-3-vision-4.2b: {cfg}")
+    label = f"phi-3-vision-4.2b (image prefix {cfg.frontend_len})"
+    # the plain step recomputes each layer: the plain attention's 32
+    # layers of (4, 32, 1,024, 1,024) float32 scores (0.5 GB each, several
+    # kept a layer) do not fit beside the 38 GB of weights and AdamW state
+    launches, run = _train_on_card(cfg, label, PHI3_B, PHI3_S, PHI3_STEPS,
+                                   plain_remat="full")
+    _train_timing_line(label, PHI3_B, PHI3_S, PHI3_STEPS, None, run)
+    print(f"train {label}: remat=none, peak_mem_GB {run['peak'] / 1e9:.2f} of "
+          f"the card's {torch.cuda.get_device_properties(0).total_memory / 1e9:.2f}; "
+          f"weights, gradients and AdamW moments {cfg.param_count() * 12 / 1e9:.2f} GB "
+          f"by the analytic count")
+    require(run["peak"] <= torch.cuda.get_device_properties(0).total_memory,
+            f"phi3 peak {run['peak']}")
     return launches
 
 
@@ -3915,6 +4200,8 @@ def time_attention(counts, model_counts):
                          bound_ms=bms, bound_by=by,
                          launches=model_counts[arch]["decode_attention"] if arch else 0))
     rows += _hymba_attention_rows(model_counts["hymba-1.5b"], timed)
+    rows += _slice_attention_rows(model_counts["phi-3-vision-4.2b"],
+                                  model_counts["whisper-base"], timed)
     for row in rows:
         row["listed"] = True
         lib_text = ("none" if row["library_ms"] is None else
@@ -4024,7 +4311,94 @@ def _hymba_attention_rows(counts, timed):
     return rows
 
 
+def _slice_attention_rows(phi3_counts, whisper_counts, timed):
+    """This slice's five rows of the kernels line, each held to its plain
+    version first and beside its bound, its plain version and SDPA (the
+    port never calls it): K6 at phi-3-vision's prefill layer (B=2 H=32
+    S=2,048 D=96, causal), at whisper's encoder layer (B=8 H=8 S=1,500
+    D=64, non-causal) and over its cross rows (B=8 H=8 S=4 Sk=1,500 D=64,
+    the prompt's prefill); K7 at phi3's decode step (B=2 KV=32 G=1 D=96,
+    length 2,079 of a 2,080-row cache) and over whisper's 1,500 cross rows
+    (B=8 KV=8 G=1 D=64).  ``phi3_counts``: phi3's first serve's launches;
+    ``whisper_counts``: whisper's, split by shape (``run_whisper_serving``);
+    ``timed``: time_attention's timer."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (decode_attention_ref,
+                                                      grouped_decode_attention)
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     multi_head_attention)
+    rows = []
+    # (label, B, H, S, Sk, D, causal, launches)
+    for label, b, h, s, sk, d, causal, launches in (
+            ("phi-3-vision-4.2b prefill", 2, 32, 2048, 2048, 96, True,
+             phi3_counts["flash_attention.wgmma_bf16"]),
+            ("whisper-base encoder", 8, 8, 1500, 1500, 64, False,
+             whisper_counts["flash_attention.full"]),
+            ("whisper-base cross, prompt", 8, 8, 4, 1500, 64, False,
+             whisper_counts["flash_attention.cross"])):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(s + sk + d + 1)
+        q = torch.randn((b, s, h, d), generator=gen, device="cuda").to(
+            torch.bfloat16).transpose(1, 2)
+        k, v = (torch.randn((b, sk, h, d), generator=gen, device="cuda").to(
+            torch.bfloat16).transpose(1, 2) for _ in range(2))
+        fn = lambda: multi_head_attention(q, k, v, causal=causal)
+        ref = lambda: attention_ref(q, k, v, causal=causal)
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+        compare_attention("flash_attention", fn(),
+                          attention_ref(q.float(), k.float(), v.float(), causal=causal),
+                          f"flash_attention at {label}")
+        err = float((lib().float() - fn().float()).abs().max())
+        require(err <= SDPA_TOL, f"SDPA yardstick disagrees with flash_attention at "
+                f"{label}: {err:.3e}")
+        kept = s * (s + 1) // 2 if causal else s * sk
+        bms, by = bound_attn(2 * (2 * q.numel() + k.numel() + v.numel()),
+                             4 * d * kept * b * h)
+        rows.append(dict(name="flash_attention", route="cuda",
+                         source="src/repro_torch/csrc/flash_attention.cu",
+                         replaces="src/repro/kernels/flash_attention/flash_attention.py:110",
+                         shape=f"B={b} H={h} Hkv={h} S={s} Sk={sk} D={d} bf16 "
+                               f"{'causal' if causal else 'non-causal'} window=0 ({label})",
+                         **timed(fn, ref, lib, plain_reps=5), bound_ms=bms, bound_by=by,
+                         launches=launches, also_listed=True))
+        del q, k, v
+    # (label, B, KV, D, cache rows, length, launches)
+    for label, b, kv, d, cache_rows, n, launches in (
+            ("phi-3-vision-4.2b decode", 2, 32, 96, 2080, 2079,
+             phi3_counts["decode_attention"]),
+            ("whisper-base cross rows", 8, 8, 64, 1500, 1500,
+             whisper_counts["decode_attention.rows=1500"])):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(cache_rows + d + 1)
+        qd = torch.randn((b, kv, 1, d), generator=gen, device="cuda").to(torch.bfloat16)
+        kc, vc = torch.randn((2, b, cache_rows, kv, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        length = torch.full((b,), n, dtype=torch.int32, device="cuda")
+        fn = lambda: grouped_decode_attention(qd, kc, vc, length)
+        ref = lambda: decode_attention_ref(qd, kc, vc, length)
+        lib = lambda: F.scaled_dot_product_attention(
+            qd.reshape(b, kv, 1, d), kc[:, :n].transpose(1, 2), vc[:, :n].transpose(1, 2))
+        compare_attention("decode_attention", fn(),
+                          decode_attention_ref(qd.float(), kc.float(), vc.float(), length),
+                          f"decode_attention at {label}")
+        err = float((lib().reshape(b, kv, 1, d).float() - fn().float()).abs().max())
+        require(err <= SDPA_TOL, f"SDPA yardstick disagrees with decode_attention at "
+                f"{label}: {err:.3e}")
+        bms, by = bound_attn(2 * (2 * qd.numel() + 2 * b * n * kv * d) + 4 * b,
+                             4 * d * kv * b * n)
+        rows.append(dict(name="decode_attention", route="cuda",
+                         source="src/repro_torch/csrc/decode_attention.cu",
+                         replaces="src/repro/kernels/decode_attention/decode_attention.py:98",
+                         shape=f"B={b} KV={kv} G=1 D={d} S={cache_rows} len={n} bf16 "
+                               f"window=0 ({label})",
+                         **timed(fn, ref, lib, reps=50), bound_ms=bms, bound_by=by,
+                         launches=launches, also_listed=True))
+    return rows
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     sys.stdout.reconfigure(line_buffering=True)
     import torch
     if not torch.cuda.is_available():
@@ -4081,16 +4455,19 @@ def main() -> int:
     miner = phase(check_miner_pairs)
     phase(check_flash_attention)
     phase(check_decode_attention)
+    phase(check_slice_attention)
     params, cfg, serve_counts = phase(run_serving)
     phase(check_decode_matches_prefill, params, cfg)
     del params
     torch.cuda.empty_cache()
     model_counts = {arch: phase(run_model_serving, arch) for arch in SERVED_ARCHS}
+    model_counts["whisper-base"] = phase(run_whisper_serving)
     phase(check_reduced_models)
     phase(check_flash_attention_bwd)
     phase(run_training_reduced)
     bwd_launches = phase(run_training)
     grok_launches = phase(run_training_grok)
+    phase(run_training_phi3)
     mesh_launches = phase(run_mesh_training)
     rows = (phase(time_kernels, launches, miner, stream_rec) +
             phase(time_attention, serve_counts, model_counts) +
@@ -4108,9 +4485,12 @@ def main() -> int:
                     if r["listed"] and (r["shape"] == REPORT_SHAPE[r["name"]] or
                                         r.get("mesh_rank") or r.get("also_listed"))]
     # one row per kernel at its report shape, K6 forward and backward at
-    # the mesh rank's shape, K6's capped backward at grok's layer, and K6
-    # and K7 at hymba's prefill and decode shapes
-    require(len(kernels_line) == len(REPORT_SHAPE) + 5, "a kernel has no timing row")
+    # the mesh rank's shape, K6's capped backward at grok's layer, K6 and
+    # K7 at hymba's prefill and decode shapes, K6 at phi3's prefill,
+    # whisper's encoder and its cross rows, K7 at phi3's decode and over
+    # whisper's cross rows
+    require(len(kernels_line) == len(REPORT_SHAPE) + 10, "a kernel has no timing row")
+    print(f"chip_smoke wall_s={time.perf_counter() - t_start:.1f} (build included)")
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

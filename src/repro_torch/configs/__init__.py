@@ -1,15 +1,17 @@
-"""Architecture registry of the port: the configs whose layer kinds the port
-runs: ``attn`` and ``local`` decoder layers, with a dense MLP or a mixture
-of experts (gemma3-4b, gemma-2b, internlm2-20b, command-r-35b, grok-1-314b
-and llama4-maverick-400b-a17b, for serving and for training), xLSTM's
-``mlstm`` and ``slstm`` blocks (xlstm-1.3b) and hymba's ``hybrid`` layers,
-attention beside a selective SSM (hymba-1.5b).
+"""Architecture registry of the port, every architecture of the reference
+package: ``attn`` and ``local`` decoder layers, with a dense MLP or a
+mixture of experts (gemma3-4b, gemma-2b, internlm2-20b, command-r-35b,
+grok-1-314b and llama4-maverick-400b-a17b, for serving and for training;
+phi-3-vision-4.2b, whose loss takes an image prefix), xLSTM's ``mlstm``
+and ``slstm`` blocks (xlstm-1.3b), hymba's ``hybrid`` layers, attention
+beside a selective SSM (hymba-1.5b), and whisper's ``enc`` and ``xdec``
+layers, an encoder and a decoder with cross-attention (whisper-base,
+served; its training waits for ROADMAP item 12f).
 
 Every config is importable as ``repro_torch.configs.<module>.CONFIG`` and
 selectable via ``get_config("<arch-id>")`` / ``--arch <id>``.  The modules
 are copies of the reference package's; source citations are in each
-module's docstring.  The reference's other architectures (encoder-decoder,
-vision) wait for ROADMAP item 12.
+module's docstring.
 """
 from __future__ import annotations
 
@@ -27,10 +29,8 @@ def get_config(name: str) -> ModelConfig:
     if not _REGISTRY:
         _load_all()
     if name not in _REGISTRY:
-        raise NotImplementedError(
-            f"config {name!r} is not ported to repro_torch (ported: "
-            f"{sorted(_REGISTRY)}); the other architectures (whisper, "
-            f"phi3-vision) wait for ROADMAP item 12")
+        # a KeyError, as the reference's registry raises
+        raise KeyError(f"no config {name!r} (registered: {sorted(_REGISTRY)})")
     return _REGISTRY[name]
 
 
@@ -43,7 +43,8 @@ def list_configs():
 def _load_all():
     from . import (command_r_35b, gemma3_4b, gemma_2b,  # noqa: F401
                    grok_1_314b, hymba_1_5b, internlm2_20b,
-                   llama4_maverick_400b, xlstm_1_3b)
+                   llama4_maverick_400b, phi3_vision_4_2b, whisper_base,
+                   xlstm_1_3b)
 
 
 __all__ = ["ModelConfig", "ShapeConfig", "TrainConfig", "SHAPES",

@@ -3,8 +3,12 @@
 //
 //   out[b, h, i] = sum_j softmax_j(c(q[b, h, i] . k[b, h / G, j] * scale)) v[b, h / G, j]
 //
-// over the columns j < S that the masks keep (j <= i when causal,
+// over the columns j < Sk that the masks keep (j <= i when causal,
 // j > i - window when window > 0), the output written in the inputs' type.
+// i runs over the S query rows and j over the Sk key rows: Sk = S for
+// self-attention; Sk != S only without causal mask and window (whisper's
+// cross-attention, S decoder rows over Sk = 1,500 encoder rows), which the
+// wrapper alone lets through.
 // c is the identity, or with a soft-cap > 0 the reference model's logit
 // soft-cap c(x) = cap tanh(x / cap) (flash_chunked), formed with tanhf
 // before the mask and the softmax.
@@ -118,7 +122,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
                              __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                             int group, int S, int D,
+                             int group, int S, int Sk, int D,
                              long long osb, long long osh, long long oss,
                              float scale_log2, float cap_scale, float cap_log2,
                              int causal, int window) {
@@ -148,7 +152,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int lo = q0 - window + 1;        // first column row q0 keeps
     kt0 = lo > 0 ? lo / kBN : 0;
   }
-  const int k_rows = causal ? min(S, q0 + kBM) : S;
+  const int k_rows = causal ? min(Sk, q0 + kBM) : Sk;
   const int n_tiles = (k_rows + kBN - 1) / kBN - kt0;
 
   if (tid == 0) {
@@ -223,7 +227,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       fence_regs(s);
 
       // scale (and cap) into the log2 domain and mask
-      const bool edge = k0 + kBN > S || (causal && k0 + kBN - 1 > r_base) ||
+      const bool edge = k0 + kBN > Sk || (causal && k0 + kBN - 1 > r_base) ||
                         (window > 0 && k0 <= r_base + 63 - window);
 #pragma unroll
       for (int j = 0; j < 8; ++j)
@@ -234,7 +238,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           if (edge) {
             const int col = k0 + 8 * j + cq + (e & 1);
             const int row = e < 2 ? row0 : row1;
-            const bool keep = col < S && (!causal || col <= row) &&
+            const bool keep = col < Sk && (!causal || col <= row) &&
                               (window <= 0 || col > row - window);
             x = keep ? x : -INFINITY;
           }
@@ -335,12 +339,12 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
 template <int kD, bool kCap>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                   int H, int Hkv, int S, int D, const long long* st, float sm_scale,
+                   int H, int Hkv, int S, int Sk, int D, const long long* st, float sm_scale,
                    float softcap, int causal, int window, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   cudaError_t err = make_map(&mq, q, B, H, S, D, st[0], st[1], st[2]);
-  if (err == cudaSuccess) err = make_map(&mk, k, B, Hkv, S, D, st[3], st[4], st[5]);
-  if (err == cudaSuccess) err = make_map(&mv, v, B, Hkv, S, D, st[6], st[7], st[8]);
+  if (err == cudaSuccess) err = make_map(&mk, k, B, Hkv, Sk, D, st[3], st[4], st[5]);
+  if (err == cudaSuccess) err = make_map(&mv, v, B, Hkv, Sk, D, st[6], st[7], st[8]);
   if (err != cudaSuccess) return err;
   constexpr int bytes = Layout<kD>::kBytes;
   err = cudaFuncSetAttribute(flash_attention_wgmma_kernel<kD, kCap>,
@@ -348,33 +352,33 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   if (err != cudaSuccess) return err;
   const dim3 grid(H, B, (S + kBM - 1) / kBM);
   flash_attention_wgmma_kernel<kD, kCap><<<grid, kThreads, bytes, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, H / Hkv, S, D, st[9], st[10], st[11],
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, H / Hkv, S, Sk, D, st[9], st[10], st[11],
       sm_scale * kLog2e, kCap ? sm_scale / softcap : 0.f, softcap * kLog2e, causal, window);
   return cudaGetLastError();
 }
 
 template <bool kCap>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, float* lse,
-                       int B, int H, int Hkv, int S, int D, const long long* st,
+                       int B, int H, int Hkv, int S, int Sk, int D, const long long* st,
                        float sm_scale, float softcap, int causal, int window,
                        cudaStream_t stream) {
   if (D <= 64)
-    return launch<64, kCap>(q, k, v, o, lse, B, H, Hkv, S, D, st, sm_scale, softcap, causal,
+    return launch<64, kCap>(q, k, v, o, lse, B, H, Hkv, S, Sk, D, st, sm_scale, softcap, causal,
                             window, stream);
   if (D <= 128)
-    return launch<128, kCap>(q, k, v, o, lse, B, H, Hkv, S, D, st, sm_scale, softcap, causal,
+    return launch<128, kCap>(q, k, v, o, lse, B, H, Hkv, S, Sk, D, st, sm_scale, softcap, causal,
                              window, stream);
-  return launch<256, kCap>(q, k, v, o, lse, B, H, Hkv, S, D, st, sm_scale, softcap, causal,
+  return launch<256, kCap>(q, k, v, o, lse, B, H, Hkv, S, Sk, D, st, sm_scale, softcap, causal,
                            window, stream);
 }
 
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                     int H, int Hkv, int S, int D, const long long* st, float sm_scale,
+                     int H, int Hkv, int S, int Sk, int D, const long long* st, float sm_scale,
                      float softcap, int causal, int window, cudaStream_t stream) {
   if (softcap > 0.f)
-    return dispatch_d<true>(q, k, v, o, lse, B, H, Hkv, S, D, st, sm_scale, softcap, causal,
+    return dispatch_d<true>(q, k, v, o, lse, B, H, Hkv, S, Sk, D, st, sm_scale, softcap, causal,
                             window, stream);
-  return dispatch_d<false>(q, k, v, o, lse, B, H, Hkv, S, D, st, sm_scale, 0.f, causal,
+  return dispatch_d<false>(q, k, v, o, lse, B, H, Hkv, S, Sk, D, st, sm_scale, 0.f, causal,
                            window, stream);
 }
 
@@ -433,7 +437,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
                            float* __restrict__ lse,
-                           int group, int S, int D, long long qsb, long long qsh,
+                           int group, int S, int Sk, int D, long long qsb, long long qsh,
                            long long qss, long long ksb, long long ksh,
                            long long kss, long long vsb, long long vsh,
                            long long vss, long long osb, long long osh,
@@ -474,13 +478,13 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
     const int lo = q0 - window + 1;   // first column row q0 keeps
     k_begin = lo > 0 ? (lo / kBK) * kBK : 0;
   }
-  int k_end = S;
-  if (causal) k_end = min(S, q0 + kBQ);
+  int k_end = Sk;
+  if (causal) k_end = min(Sk, q0 + kBQ);
 
   for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
     __syncthreads();  // the previous tile's K, V and P are consumed
-    load_tile<kD, kBK>(Ks, kb, kss, k0, S, D);
-    load_tile<kD, kBK>(Vs, vb, vss, k0, S, D);
+    load_tile<kD, kBK>(Ks, kb, kss, k0, Sk, D);
+    load_tile<kD, kBK>(Vs, vb, vss, k0, Sk, D);
     __syncthreads();
 
     float s[2][4];
@@ -516,7 +520,7 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx + 8 * j;
-        keep[j] = col < S && (!causal || col <= row) &&
+        keep[j] = col < Sk && (!causal || col <= row) &&
                   (window <= 0 || col > row - window);
         float x = s[i][j] * sm_scale;
         if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
@@ -590,7 +594,7 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
 
 template <int kD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
-                   int B, int H, int Hkv, int S, int D,
+                   int B, int H, int Hkv, int S, int Sk, int D,
                    const long long* st, float sm_scale, float softcap, int causal,
                    int window, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<kD>();
@@ -603,23 +607,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   flash_attention_f32_kernel<kD><<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, H / Hkv, S, D,
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H / Hkv, S, Sk, D,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
       st[9], st[10], st[11], sm_scale, softcap, causal, window);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
-                     int B, int H, int Hkv, int S, int D,
+                     int B, int H, int Hkv, int S, int Sk, int D,
                      const long long* st, float sm_scale, float softcap, int causal,
                      int window, cudaStream_t stream) {
   // the reduced configs' head size 16, and 256 (gemma3-4b, gemma-2b); any
   // other D (128: internlm2, command-r, grok, llama4) runs zero-padded in
   // the next size up: float32 is the checking dtype, not the served one
   if (D <= 32)
-    return launch<32>(q, k, v, o, lse, B, H, Hkv, S, D, st, sm_scale, softcap, causal, window,
+    return launch<32>(q, k, v, o, lse, B, H, Hkv, S, Sk, D, st, sm_scale, softcap, causal, window,
                       stream);
-  return launch<256>(q, k, v, o, lse, B, H, Hkv, S, D, st, sm_scale, softcap, causal, window,
+  return launch<256>(q, k, v, o, lse, B, H, Hkv, S, Sk, D, st, sm_scale, softcap, causal, window,
                      stream);
 }
 
@@ -629,31 +633,33 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float
 
 extern "C" {
 
-// q, out: (B, H, S, D) and k, v: (B, Hkv, S, D), each addressed by the
+// q, out: (B, H, S, D) and k, v: (B, Hkv, Sk, D), each addressed by the
 // strides in `strides` (elements; b, h, s for q, k, v, out in that order)
 // with D contiguous.  dtype 0 = float32 (flash_attention_f32_kernel),
 // 1 = bfloat16 (flash_attention_wgmma_kernel; its strides and base
 // addresses must be multiples of 16 bytes).  D a multiple of 8 up to 256;
 // window 0 = no window; softcap 0 = none.  lse: null, or (B, H, S) float32
-// contiguous, the rows' log-sum-exp.  Returns a cudaError_t.
+// contiguous, the rows' log-sum-exp.  Sk != S only with causal = 0 and
+// window = 0.  Returns a cudaError_t.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int dtype, int B, int H, int Hkv, int S,
-                           int D, const long long* strides, float sm_scale,
+                           int Sk, int D, const long long* strides, float sm_scale,
                            float softcap, int causal, int window, void* lse,
                            int device, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0) return cudaSuccess;
   if (Hkv <= 0 || H % Hkv != 0 || D <= 0 || D > 256 || D % 8 != 0 ||
-      B > 65535 || H > 65535 || !(softcap >= 0.f))
+      B > 65535 || H > 65535 || !(softcap >= 0.f) || Sk <= 0 ||
+      (Sk != S && (causal || window)))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (dtype == 0)
-    return f32::dispatch(q, k, v, o, l, B, H, Hkv, S, D, strides, sm_scale, softcap, causal,
+    return f32::dispatch(q, k, v, o, l, B, H, Hkv, S, Sk, D, strides, sm_scale, softcap, causal,
                          window, s);
   if (dtype == 1)
-    return wg::dispatch(q, k, v, o, l, B, H, Hkv, S, D, strides, sm_scale, softcap, causal,
+    return wg::dispatch(q, k, v, o, l, B, H, Hkv, S, Sk, D, strides, sm_scale, softcap, causal,
                         window, s);
   return cudaErrorInvalidValue;
 }

@@ -30,7 +30,7 @@ from . import (decode_attention, flash_attention, fused_intersect,
 
 __all__ = ["fused_intersect", "trimatrix", "flash_attention",
            "decode_attention", "popcount_support", "launch_counts",
-           "reset_launch_counts", "variant_counts"]
+           "reset_launch_counts", "variant_counts", "shape_counts"]
 
 
 def _counted():
@@ -62,9 +62,26 @@ def variant_counts() -> dict:
             for v, n in fn.variant_launches.items()}
 
 
+def shape_counts() -> dict:
+    """Launches of the attention kernels by what they attend over, since
+    the last reset: ``flash_attention.causal``, ``flash_attention.full``
+    (non-causal over the queries' own rows) and ``flash_attention.cross``
+    (keys that are not the queries), and ``decode_attention.rows=R`` for
+    each cache of R rows a decode launch read."""
+    out = {f"flash_attention.{m}": n
+           for m, n in flash_attention.flash_attention.mask_launches.items()}
+    out.update((f"decode_attention.rows={r}", n)
+               for r, n in decode_attention.decode_attention.rows_launches.items())
+    return out
+
+
 def reset_launch_counts() -> None:
     for fn in _counted().values():
         fn.launches = 0
     for fn in _with_variants().values():
         for v in fn.variant_launches:
             fn.variant_launches[v] = 0
+    mask = flash_attention.flash_attention.mask_launches
+    for m in mask:
+        mask[m] = 0
+    decode_attention.decode_attention.rows_launches.clear()

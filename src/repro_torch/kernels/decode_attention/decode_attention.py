@@ -1,6 +1,8 @@
 """ctypes binding of the grouped decode-attention CUDA kernel
 (``csrc/decode_attention.cu``), with its launch counter
-``decode_attention.launches``.
+``decode_attention.launches`` and ``decode_attention.rows_launches``, the
+launches by the rows of the cache they read (a self-attention cache's
+capacity, or whisper's 1,500 encoder rows in a cross-attention step).
 
 The cache is read through its strides (a layer's slice of the stacked
 per-stage cache is passed as it is); ``length`` stays on the card and the
@@ -124,7 +126,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         float(sm_scale), float(softcap), int(window), q.device.index, stream)
     _build.check(code, "decode_attention_split_kernel")
     decode_attention.launches += 1
+    decode_attention.rows_launches[s] = decode_attention.rows_launches.get(s, 0) + 1
     return out
 
 
 decode_attention.launches = 0
+decode_attention.rows_launches = {}

@@ -7,7 +7,10 @@ and one counter per variant in ``flash_attention.variant_launches``:
 ``wgmma_bf16`` (bfloat16 inputs, the tensor-core kernel the served model
 runs) and ``fma_f32`` (float32 inputs, the CUDA-core kernel).  The dtype
 picks the variant; neither falls back to the other, and a failed launch
-raises.  ``flash_attention(..., return_lse=True)`` also returns each row's
+raises.  ``flash_attention.mask_launches`` splits the launches by what a
+call attends over: ``causal`` (a causal mask, with or without a window),
+``full`` (non-causal over the queries' own rows, whisper's encoder) and
+``cross`` (keys that are not the queries).  ``flash_attention(..., return_lse=True)`` also returns each row's
 log-sum-exp, which the backward reads.
 
 The backward's counters, ``flash_attention_bwd.launches`` and
@@ -17,6 +20,11 @@ launches its kernels (delta, dK/dV, the reduction of the dK/dV partials
 where the plan splits a group, dQ) together.  :func:`bwd_plan` mirrors the
 CUDA plan of the bf16 path (how a group's query heads are split over
 dK/dV blocks, the shared memory per block, the scratch) for the tests.
+
+The forward takes keys that are not the queries (whisper's cross-attention:
+k and v of Sk rows against q of S rows) without a causal mask or a window;
+the backward is self-attention only (whisper's training, ROADMAP item 12f,
+needs it at Sk != S).
 
 The kernel reads q, k and v and writes the output through their strides, so
 a (B, H, S, D) view of the model's (B, S, H, D) activations
@@ -49,7 +57,7 @@ def _lib() -> ctypes.CDLL:
         vp, i = ctypes.c_void_p, ctypes.c_int
         strides = ctypes.POINTER(ctypes.c_longlong)
         lib.flash_attention_launch.argtypes = [
-            vp, vp, vp, vp, i, i, i, i, i, i, strides, ctypes.c_float,
+            vp, vp, vp, vp, i, i, i, i, i, i, i, strides, ctypes.c_float,
             ctypes.c_float, i, i, vp, i, vp]
         lib.flash_attention_launch.restype = ctypes.c_int
         lib.flash_attention_bwd_launch.argtypes = [
@@ -82,21 +90,20 @@ def _check(named):
 
 
 def _shapes(q, k, v, window):
-    """(B, H, Hkv, S, D) of a self-attention call, checked."""
+    """(B, H, Hkv, S, Sk, D) of a call, checked: q (B, H, S, D), k and v
+    (B, Hkv, Sk, D)."""
     b, h, s, d = q.shape
     _, hkv, sk, dk = k.shape
     if (k.shape != v.shape or k.shape[0] != b or dk != d or hkv == 0
-            or h % hkv):
+            or h % hkv or (sk == 0 and s > 0)):
         raise ValueError(f"bad shapes q={tuple(q.shape)} k={tuple(k.shape)} "
                          f"v={tuple(v.shape)}")
-    if sk != s:
-        raise ValueError(f"self-attention only: k has {sk} rows, q {s}")
     if d % 8 or d > 256:
         raise ValueError(f"head_dim {d}: the kernel takes a multiple of 8 up "
                          "to 256")
     if window < 0:
         raise ValueError(f"window must be >= 0 (0 = none), got {window}")
-    return b, h, hkv, s, d
+    return b, h, hkv, s, sk, d
 
 
 def _empty_like(t: torch.Tensor) -> torch.Tensor:
@@ -116,19 +123,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     sm_scale=None, softcap: float = 0.0,
                     return_lse: bool = False):
-    """q: (B, H, S, D); k/v: (B, Hkv, S, D) on the card, float32 or
+    """q: (B, H, S, D); k/v: (B, Hkv, Sk, D) on the card, float32 or
     bfloat16 -> (B, H, S, D) in q's dtype (bfloat16: the wgmma kernel;
     float32: the FMA kernel).  ``window`` 0 means no window
-    (:func:`.ops.multi_head_attention` maps ``None`` to 0).  Self-attention
-    only: k and v have q's sequence length.  ``softcap`` > 0 caps each
-    scaled score x at ``softcap * tanh(x / softcap)`` before the softmax
-    (0 = none).
+    (:func:`.ops.multi_head_attention` maps ``None`` to 0).  Sk != S (keys
+    that are not the queries, whisper's cross-attention) only with
+    ``causal=False`` and no window, the one such call the reference model
+    makes; the other combinations raise ``ValueError``.  ``softcap`` > 0
+    caps each scaled score x at ``softcap * tanh(x / softcap)`` before the
+    softmax (0 = none).
 
     With ``return_lse`` returns ``(out, lse)``: ``lse`` (B, H, S) float32,
     each row's natural log-sum-exp of its kept (capped) scores times
     ``sm_scale`` (+inf for a row that keeps none)."""
+    # the one rule of shapes that reads no device: checked first, so it
+    # holds (and is tested) on a host without a card too
+    if (q.ndim == 4 and k.ndim == 4 and k.shape[2] != q.shape[2]
+            and (causal or window)):
+        raise ValueError(
+            f"k has {k.shape[2]} rows and q {q.shape[2]}: keys that are not "
+            f"the queries take neither a causal mask nor a window (got "
+            f"causal={bool(causal)}, window={window})")
     _check((("q", q), ("k", k), ("v", v)))
-    b, h, hkv, s, d = _shapes(q, k, v, window)
+    b, h, hkv, s, sk, d = _shapes(q, k, v, window)
     if not softcap >= 0:
         raise ValueError(f"softcap must be >= 0 (0 = none), got {softcap}")
     if sm_scale is None:
@@ -142,18 +159,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = _lib().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPES[q.dtype], b, h, hkv, s, d, _strides(q, k, v, out),
+        _DTYPES[q.dtype], b, h, hkv, s, sk, d, _strides(q, k, v, out),
         float(sm_scale), float(softcap), int(bool(causal)), int(window),
         None if lse is None else lse.data_ptr(), q.device.index, stream)
     variant = _VARIANTS[q.dtype]
     _build.check(code, f"flash_attention ({variant})")
     flash_attention.launches += 1
     flash_attention.variant_launches[variant] += 1
+    flash_attention.mask_launches["cross" if sk != s else
+                                  "causal" if causal else "full"] += 1
     return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
 flash_attention.variant_launches = dict.fromkeys(_VARIANTS.values(), 0)
+flash_attention.mask_launches = dict.fromkeys(("causal", "full", "cross"), 0)
 
 
 # the bf16 backward's plan (csrc/flash_attention_bwd.cu, wg::plan and the
@@ -235,7 +255,10 @@ def _bwd(q, k, v, out, dout, lse, causal, window, sm_scale, softcap,
     """:func:`flash_attention_bwd` with the bf16 plan's ``heads_per_block``
     (0 = the rule; ``launch/bwd_splits.py`` times the alternatives)."""
     _check((("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout)))
-    b, h, hkv, s, d = _shapes(q, k, v, window)
+    b, h, hkv, s, sk, d = _shapes(q, k, v, window)
+    if sk != s:
+        raise ValueError(f"the backward is self-attention only: k has {sk} "
+                         f"rows, q {s} (ROADMAP item 12f)")
     if not softcap >= 0:
         raise ValueError(f"softcap must be >= 0 (0 = none), got {softcap}")
     if out.shape != q.shape or dout.shape != q.shape:

@@ -21,10 +21,12 @@ __all__ = ["attention_ref", "attention_split_p_ref", "attention_lse_ref",
            "attention_ref_bwd", "attention_bwd_bf16_ref"]
 
 
-def _mask(s, causal, window, device):
+def _mask(s, sk, causal, window, device):
+    """(S, Sk) bool: the columns each query row keeps (the reference
+    model's ``flash_chunked`` masks)."""
     rows = torch.arange(s, device=device)[:, None]
-    cols = torch.arange(s, device=device)[None, :]
-    mask = torch.ones((s, s), dtype=torch.bool, device=device)
+    cols = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((s, sk), dtype=torch.bool, device=device)
     if causal:
         mask &= cols <= rows
     if window is not None:
@@ -33,7 +35,7 @@ def _mask(s, causal, window, device):
 
 
 def _scores(q, k, causal, window, sm_scale, softcap=0.0):
-    """Masked scores q k^T * scale in fp32, (B, H, S, S) (masked entries
+    """Masked scores q k^T * scale in fp32, (B, H, S, Sk) (masked entries
     -1e30), the mask and the group size H / Hkv.  ``softcap`` > 0 caps the
     scaled scores at ``tanh(x / softcap) * softcap`` before the mask, as the
     reference model's ``flash_chunked`` does."""
@@ -44,14 +46,14 @@ def _scores(q, k, causal, window, sm_scale, softcap=0.0):
     kk = k.repeat_interleave(group, dim=1)
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk.float()) * sm_scale
     scores = _capped(scores, softcap)
-    mask = _mask(s, causal, window, q.device)
+    mask = _mask(s, k.shape[2], causal, window, q.device)
     scores = torch.where(mask[None, None], scores,
                          torch.tensor(-1e30, device=q.device))
     return scores, mask, group
 
 
 def _probabilities(q, k, causal, window, sm_scale, softcap):
-    """Unnormalised softmax numerators exp(s - rowmax) in fp32, (B, H, S, S),
+    """Unnormalised softmax numerators exp(s - rowmax) in fp32, (B, H, S, Sk),
     and the group size H / Hkv."""
     scores, _, group = _scores(q, k, causal, window, sm_scale, softcap)
     return torch.exp(scores - scores.amax(dim=-1, keepdim=True)), group
@@ -59,7 +61,8 @@ def _probabilities(q, k, causal, window, sm_scale, softcap):
 
 def attention_ref(q, k, v, *, causal=True, window=None, sm_scale=None,
                   softcap=0.0):
-    """q: (B, H, S, D); k/v: (B, Hkv, S, D) -> (B, H, S, D), fp32 math.
+    """q: (B, H, S, D); k/v: (B, Hkv, Sk, D) -> (B, H, S, D), fp32 math
+    (Sk = S for self-attention; the kernel takes Sk != S non-causal only).
 
     ``window=None`` means no window; ``window=w`` keeps the columns
     ``j > i - w`` (so ``w=0`` keeps none, as in the reference).

@@ -19,6 +19,12 @@ layer kind (``stage_ms``; xlstm's sLSTM loop, hymba's hybrid layers),
 which the traced windows do not split.  The last line is one JSON object
 with the same numbers.  Needs a card; with none it exits non-zero.
 
+whisper-base, an encoder-decoder, takes its own traffic (8 clips of
+1,500 frame embeddings, a 4-token start-of-transcript prompt, 224 greedy
+tokens; :func:`transcribe`): its prefill window holds the encoder and the
+cross K/V too (``encode`` -> ``cross_kv`` once, then ``prefill``), as the
+reference's dry run lowers its serve step.
+
 The serving traffic and the served depths are defined here and
 ``chip_smoke.py`` serves them.
 """
@@ -44,10 +50,12 @@ ARCH = "gemma3-4b"
 # gemma3-4b and internlm2-20b whole (7.8 and 39.7 GB of weights); grok-1
 # cut to 4 of its 64 layers (41.0 GB: all 314 G parameters take 628 GB)
 # and llama4-maverick to 2 of its 48, one dense and one MoE (36.9 GB);
-# hymba-1.5b and xlstm-1.3b whole (3.18 and 3.63 GB)
+# hymba-1.5b and xlstm-1.3b whole (3.18 and 3.63 GB); phi-3-vision-4.2b
+# and whisper-base whole (7.64 GB; whisper's 6 decoder layers, and its 6
+# encoder layers with them, 0.14 GB)
 SERVE_LAYERS = {"gemma3-4b": 34, "internlm2-20b": 48, "grok-1-314b": 4,
                 "llama4-maverick-400b-a17b": 2, "hymba-1.5b": 32,
-                "xlstm-1.3b": 48}
+                "xlstm-1.3b": 48, "phi-3-vision-4.2b": 32, "whisper-base": 6}
 SERVE_PROMPTS = (2048,) * 4 + (1536,) * 4
 SERVE_MAX_NEW = 32
 SERVE_BATCHES = 2
@@ -61,6 +69,17 @@ TOP_KERNELS = 12
 # the attention kernels' names in the trace: K6's bf16 variant (the served
 # model's) and K7
 ATTENTION_KERNELS = ("flash_attention_wgmma_kernel", "decode_attention_split_kernel")
+# whisper-base's serving traffic: CLIPS clips of 30 s audio, each its
+# encoder_len = 1,500 frame embeddings (the stubbed audio front end's
+# output, drawn from a torch.Generator seeded 0, times 0.05 as the
+# reference's decode test draws them); the 4-token prompt of whisper's
+# tokenizer, <|startoftranscript|> <|en|> <|transcribe|> <|notimestamps|>;
+# TRANSCRIBE_NEW greedy tokens (whisper's default sample_len, half its
+# 448-token text context); a cache of the prompt and the new tokens
+CLIPS = 8
+TRANSCRIBE_PROMPT = (50258, 50259, 50359, 50363)
+TRANSCRIBE_NEW = 224
+TRANSCRIBE_S_MAX = len(TRANSCRIBE_PROMPT) + TRANSCRIBE_NEW
 
 
 def served_config(arch: str):
@@ -70,6 +89,73 @@ def served_config(arch: str):
     if arch not in SERVE_LAYERS:
         raise ValueError(f"no served depth for {arch!r}; served: {sorted(SERVE_LAYERS)}")
     return dataclasses.replace(cfg, n_layers=SERVE_LAYERS[arch])
+
+
+def clip_embeds(cfg, n: int, device) -> torch.Tensor:
+    """(n, encoder_len, d_model) frame embeddings in the config's dtype:
+    normal draws of a ``torch.Generator`` seeded 0 on ``device``, times
+    0.05."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    x = torch.randn((n, cfg.encoder_len, cfg.d_model), generator=gen,
+                    dtype=torch.float32, device=device) * 0.05
+    return x.to(torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32)
+
+
+def encoder_kv(model, params, enc_embeds):
+    """An encoder-decoder's (whisper's) cross K/V of ``enc_embeds``: its
+    ``encode`` then its ``cross_kv``, made once for the whole decode."""
+    return model.cross_kv(params, model.encode(params, enc_embeds))
+
+
+def begin(model, params, prompt, s_max: int, enc=None) -> dict:
+    """Prefill of the prompt (B, P) into a cache of ``s_max`` rows, over the
+    cross K/V ``enc`` (:func:`encoder_kv`; None for a decoder-only model).
+    Returns the decoding state: ``enc``, the cache, each sequence's greedy
+    next token (on the card) and the position it goes to."""
+    logits, cache = model.prefill(params, {"tokens": prompt}, s_max, enc_out=enc)
+    return {"enc": enc, "cache": cache, "tok": logits[:, -1].argmax(-1),
+            "pos": prompt.shape[1]}
+
+
+def decode(model, params, state: dict, n: int) -> list:
+    """``n`` greedy decode steps from ``state`` (:func:`begin`), which they
+    advance, each step's tokens read to the host as the serving engine
+    reads them.  Returns the ``n`` lists of tokens."""
+    b, out = state["tok"].shape[0], []
+    for _ in range(n):
+        pos = torch.full((b,), state["pos"], dtype=torch.int32,
+                         device=state["tok"].device)
+        logits, state["cache"] = model.decode_step(
+            params, state["tok"][:, None], state["cache"], pos, enc_out=state["enc"])
+        state["tok"] = logits[:, -1].argmax(-1)
+        state["pos"] += 1
+        out.append(state["tok"].tolist())
+    return out
+
+
+def transcribe(model, params, enc_embeds, prompt, n_new: int, s_max: int):
+    """Greedy decoding of an encoder-decoder (whisper), as the reference's
+    dry run lowers its serve step: :func:`encoder_kv` once, then the
+    prefill of the prompt (B, P) over those cross K/V (:func:`begin`), then
+    ``n_new - 1`` decode steps (:func:`decode`).  Returns ``(tokens,
+    stats)``: (B, n_new) int32 numpy, and the host seconds of the encoder
+    (with the cross K/V), of the prefill and of the decode steps, and the
+    steps taken."""
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        enc = encoder_kv(model, params, enc_embeds)
+        if prompt.is_cuda:
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state = begin(model, params, prompt, s_max, enc)
+        out = [state["tok"].tolist()]   # the host waits for the prefill here
+        t2 = time.perf_counter()
+        out += decode(model, params, state, n_new - 1)
+        t3 = time.perf_counter()
+    stats = {"decode_steps": n_new - 1, "encode_s": t1 - t0,
+             "prefill_s": t2 - t1, "decode_s": t3 - t2}
+    return np.asarray(out, dtype=np.int32).T, stats
 
 
 def kernel_times(prof) -> dict:
@@ -154,33 +240,37 @@ def main(argv=None) -> int:
     gen.manual_seed(0)
     params = init_params(cfg, gen, "cuda")
     model = Model(cfg)
-    rng = np.random.default_rng(0)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
-                                         (PROFILE_BATCH, PROFILE_PROMPT))).cuda()
+    frames = None
+    if cfg.n_encoder_layers:
+        # whisper's traffic: the prefill window holds the encoder too
+        b, s_max = CLIPS, TRANSCRIBE_S_MAX
+        frames = clip_embeds(cfg, CLIPS, "cuda")
+        toks = torch.tensor([TRANSCRIBE_PROMPT] * CLIPS, device="cuda")
+    else:
+        b, s_max = PROFILE_BATCH, SERVE_S_MAX
+        rng = np.random.default_rng(0)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             (b, PROFILE_PROMPT))).cuda()
     state = {}
 
     def prefill():
-        logits, state["cache"] = model.prefill(params, {"tokens": toks}, SERVE_S_MAX)
-        state["tok"] = logits[:, -1].argmax(-1)
+        enc = None if frames is None else encoder_kv(model, params, frames)
+        state.update(begin(model, params, toks, s_max, enc))
 
-    def decode():
-        for t in range(PROFILE_STEPS):
-            pos = torch.full((PROFILE_BATCH,), PROFILE_PROMPT + t,
-                             dtype=torch.int32, device="cuda")
-            logits, state["cache"] = model.decode_step(
-                params, state["tok"][:, None], state["cache"], pos)
-            state["tok"] = logits[:, -1].argmax(-1)
-            state["tok"].tolist()       # the engine reads every step's tokens
+    def steps():
+        decode(model, params, state, PROFILE_STEPS)
 
     with torch.inference_mode():
         prefill()
-        decode()                        # warm-up: cuBLAS plans, allocator
-        head = (f"{cfg.name} ({cfg.n_layers} layers) bf16 B={PROFILE_BATCH} "
-                f"prompt={PROFILE_PROMPT} decode_steps={PROFILE_STEPS}")
+        steps()                         # warm-up: cuBLAS plans, allocator
+        head = (f"{cfg.name} ({cfg.n_layers} layers) bf16 B={b} "
+                f"prompt={toks.shape[1]}"
+                + (f" frames={cfg.encoder_len}" if frames is not None else "")
+                + f" decode_steps={PROFILE_STEPS}")
         res = {"config": head, "device": torch.cuda.get_device_name(0),
                "prefill": _window(f"prefill {head}", prefill),
-               "decode": _window(f"decode {head}", decode)}
-        for phase, fn in (("prefill", prefill), ("decode", decode)):
+               "decode": _window(f"decode {head}", steps)}
+        for phase, fn in (("prefill", prefill), ("decode", steps)):
             res[phase]["stage_ms"] = stage_times(model, fn)
             print(f"{phase} by layer kind (host ms, a sync after each stage): "
                   + " ".join(f"{k}={v:.3f}" for k, v in res[phase]["stage_ms"].items()))

@@ -24,6 +24,13 @@ with a cap too attention runs only through them on the card.  On the CPU
 the same calls take the reference model's own plain versions,
 :func:`flash_chunked` and :func:`_decode_attend`.
 
+Cross-attention (whisper's decoder over its encoder, ``cross_kv``): the
+``x``-prefixed projections give q, the encoder's precomputed K/V of Sk
+rows are the keys, and neither gets rope, as in the reference.  A prompt
+(S > 1) runs the flash kernel non-causally at Sk != S; a decode step
+(S = 1) runs the decode kernel over all Sk rows (``length`` = Sk for
+every sequence, made on the card) and writes no cache.
+
 The full-sequence path (no cache) is differentiable on both devices: on the
 card through ``FlashAttentionFunction`` (the flash kernel's forward and its
 hand-written backward, which takes no soft-cap: a soft-capped gradient on
@@ -49,12 +56,13 @@ NEG_INF = -1e30
 
 
 def init_attention(generator: torch.Generator, cfg, dtype, stacked: int = 0,
-                   device=None) -> dict:
+                   device=None, cross: bool = False) -> dict:
     """Projection weights with the reference's scales, drawn from
-    ``generator``."""
+    ``generator``; ``cross`` names them ``xwq``, ``xwk``, ``xwv``, ``xwo``
+    (whisper's cross-attention)."""
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     shp = (lambda *s: (stacked, *s)) if stacked else (lambda *s: s)
-    pre = "stk_" if stacked else ""
+    pre = ("stk_" if stacked else "") + ("x" if cross else "")
 
     def normal(shape, scale):
         return (torch.randn(shape, generator=generator, dtype=torch.float32,
@@ -158,7 +166,7 @@ def _decode_attend(q, ck, cv, length, sm_scale, window, cap):
 
 
 def _prefill_attend(q, k, v, *, causal, window, sm_scale, cap):
-    """(B, S, H, D) x (B, S, KV, D)^2 -> (B, S, H, D): the flash kernel on
+    """(B, S, H, D) x (B, Sk, KV, D)^2 -> (B, S, H, D): the flash kernel on
     the card (its backward too, when a gradient is asked for),
     :func:`flash_chunked` on the CPU."""
     if q.device.type != "cuda":
@@ -192,9 +200,29 @@ def _tp_projections(p: dict, x: torch.Tensor, cfg, mesh):
     return q, _split_heads(kvf[0], 1, hd), _split_heads(kvf[1], 1, hd)
 
 
+def _cross_attend(q, k, v, sm_scale, cap):
+    """q (B, S, H, D) over the encoder's k, v (B, Sk, KV, D), every row
+    kept: a decode step (S = 1) through the decode kernel with ``length``
+    Sk for every sequence, a prompt through the flash kernel non-causally
+    (its plain versions on the CPU)."""
+    b, s, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    if s > 1:
+        return _prefill_attend(q, k, v, causal=False, window=0,
+                               sm_scale=sm_scale, cap=cap)
+    if q.device.type != "cuda":
+        return _decode_attend(q, k, v, sk, sm_scale, 0, cap)
+    # made on the card, so the step waits for no copy
+    length = torch.full((b,), sk, dtype=torch.int32, device=q.device)
+    out = grouped_decode_attention(q[:, 0].reshape(b, kv, h // kv, hd), k, v,
+                                   length, sm_scale=sm_scale, softcap=cap)
+    return out.reshape(b, 1, h, hd)
+
+
 def attention(p: dict, x: torch.Tensor, cfg, *, window: int = 0,
               cache: Optional[dict] = None, pos: Optional[torch.Tensor] = None,
-              causal: bool = True, mesh=None):
+              cross_kv: Optional[tuple] = None, causal: bool = True,
+              prefix: str = "", mesh=None):
     """Unified attention layer.
 
     cache: {"k": (B, S_max, KV, D), "v": ...} with ``pos`` (B,) the write
@@ -209,18 +237,30 @@ def attention(p: dict, x: torch.Tensor, cfg, *, window: int = 0,
     which is the same whenever the positions agree, as the serving engine's
     always do.
 
+    cross_kv: the encoder's (k, v), each (B, Sk, KV, D), for whisper's
+    cross-attention with the ``prefix`` ``"x"`` weights: no rope, every
+    key kept, no cache (see the module docstring); returns (out, None).
+
     ``mesh``: full-sequence attention, tensor-parallel over its ``model``
-    axis (see the module docstring); a cache on a mesh raises
-    ``NotImplementedError``.
+    axis (see the module docstring); a cache or ``cross_kv`` on a mesh
+    raises ``NotImplementedError``.
     """
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cap = cfg.attn_logit_softcap
+    sm_scale = hd ** -0.5
     tp = mesh is not None and "model" in (mesh.mesh_dim_names or ())
-    if tp and cache is not None:
+    if tp and (cache is not None or cross_kv is not None):
         raise NotImplementedError(
-            "attention with a KV cache on a mesh (sharded serving) is not "
-            "ported (ROADMAP item 12)")
+            "attention with a KV cache or cross K/V on a mesh (sharded "
+            "serving, the encoder-decoder) is not ported (ROADMAP item 12)")
+    if cross_kv is not None:
+        if cache is not None:
+            raise ValueError("cross-attention reads the encoder's K/V and "
+                             "takes no cache")
+        q = _split_heads(x @ p[prefix + "wq"], h, hd)
+        out = _cross_attend(q, *cross_kv, sm_scale, cap)
+        return out.reshape(b, s, h * hd) @ p[prefix + "wo"], None
     if tp:
         q, k, v = _tp_projections(p, x, cfg, mesh)
     else:
@@ -235,7 +275,6 @@ def attention(p: dict, x: torch.Tensor, cfg, *, window: int = 0,
         cos, sin = rope(positions, hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    sm_scale = hd ** -0.5
 
     if cache is not None:
         k = k.to(cache["k"].dtype)
@@ -259,7 +298,7 @@ def attention(p: dict, x: torch.Tensor, cfg, *, window: int = 0,
                                      sm_scale, window, cap)
         else:
             # prefill: self-attention within the prompt (which starts at
-            # position 0: the flash kernel is self-attention only)
+            # position 0: the kernel's causal mask counts from row 0)
             out = _prefill_attend(q, k, v, causal=causal, window=window,
                                   sm_scale=sm_scale, cap=cap)
         return out.reshape(b, s, h * hd) @ p["wo"], cache

@@ -43,20 +43,25 @@ def param_shapes(cfg) -> Dict[str, Any]:
         return out
 
     gated = cfg.mlp_act in ("swiglu", "geglu")
-    stages = {}
-    for i, (kind, c) in enumerate(stages_meta(cfg)):
-        st = stages[f"s{i}"] = norm_shapes("stk_norm1_", (c,))
+
+    def attn_shapes(c, pre="stk_"):
+        return {f"{pre}wq": (c, d, h * hd), f"{pre}wk": (c, d, kv * hd),
+                f"{pre}wv": (c, d, kv * hd), f"{pre}wo": (c, h * hd, d)}
+
+    def stage(kind, c):
+        st = norm_shapes("stk_norm1_", (c,))
         if has_attention(kind):
-            st.update({**norm_shapes("stk_norm2_", (c,)),
-                       "stk_wq": (c, d, h * hd), "stk_wk": (c, d, kv * hd),
-                       "stk_wv": (c, d, kv * hd), "stk_wo": (c, h * hd, d)})
+            st.update({**norm_shapes("stk_norm2_", (c,)), **attn_shapes(c)})
+        if kind == "xdec":
+            st.update({**norm_shapes("stk_normx_", (c,)),
+                       **attn_shapes(c, "stk_x")})
         if _block(kind) is not None:
             # the block's leaves as its own init makes them, on no storage
             st.update({k: tuple(t.shape) for k, t in _block(kind).init(
                 torch.Generator(), cfg, torch.float32, stacked=c,
                 device="meta").items()})
         if not has_attention(kind):
-            continue
+            return st
         if kind.endswith("+moe"):
             slots, fs = cfg.n_experts * cfg.expert_split, f // cfg.expert_split
             st["stk_router"] = (c, d, cfg.n_experts)
@@ -69,10 +74,18 @@ def param_shapes(cfg) -> Dict[str, Any]:
                 st["stk_w_gate"] = (c, d, f)
             st["stk_w_up"] = (c, d, f)
             st["stk_w_down"] = (c, f, d)
-    tree = {"embed": (v, d), "stages": stages,
+        return st
+
+    tree = {"embed": (v, d),
+            "stages": {f"s{i}": stage(kind, c)
+                       for i, (kind, c) in enumerate(stages_meta(cfg))},
             "final_norm": norm_shapes("", ())}
     if not cfg.tie_embeddings:
         tree["lm_head"] = (d, v)
+    if cfg.n_encoder_layers:
+        tree["enc_stages"] = {"e0": stage("enc", cfg.n_encoder_layers)}
+        tree["enc_final_norm"] = norm_shapes("", ())
+        tree["enc_pos"] = (cfg.encoder_len, d)
     return tree
 
 

@@ -19,9 +19,17 @@ reference's ``remat`` modes as ``torch.utils.checkpoint`` per layer.
 The decode cache of a stage holds each layer's state: attention's K/V
 rows, the mLSTM's ``c, n, m``, the sLSTM's ``c, n, m, h``, the SSM's ``h``
 and its causal-conv tail; ``run_stage`` hands each layer its slice of
-every leaf and the layer writes its new state there.  The encoder-decoder
-layers, the vision prefix of the loss and the cost-analysis mode wait for
-ROADMAP item 12 and raise ``NotImplementedError``.
+every leaf and the layer writes its new state there.  whisper's ``enc``
+layers (non-causal self-attention with rope, then the MLP) run in
+``Model.encode``, after the learned ``enc_pos``; its ``xdec`` layers
+(causal self-attention through the cache, cross-attention over the
+encoder's K/V, which ``Model.cross_kv`` computes once per input and
+``backbone``, ``prefill`` and ``decode_step`` take as ``enc_out``, then
+the MLP) are its decoder.  phi-3-vision's loss prefixes the text with the
+batch's ``img_embeds``, as the reference's early-fusion stub does; its
+prefill and decode take no image, as the reference's.  The loss's encoder
+branch (whisper's training, ROADMAP item 12f) and the cost-analysis mode
+raise ``NotImplementedError``.
 
 ``Model(cfg, mesh=mesh)`` trains a decoder on a ``("data", "model")``
 mesh (``launch.mesh.make_mesh_named``) with the parameters placed by the
@@ -42,8 +50,9 @@ expert shards (:mod:`.moe`; the batch dict's ``"whole_batch"``, set by
 ``training.fault_tolerance.batch_block``, says that each data rank holds
 the whole batch); its load-balance loss is global and the loss adds ``0.01``
 times it once.  ``seq_parallel``, ``mlp_dp``, a mixture of experts over
-more than one data axis, the recurrent and hybrid layers on a mesh and
-serving on a mesh raise ``NotImplementedError``.
+more than one data axis, the recurrent and hybrid layers, the
+encoder-decoder and the vision prefix on a mesh, and serving on a mesh
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -71,7 +80,7 @@ __all__ = ["stages_meta", "init_params", "Model", "PORTED_KINDS",
            "LOSS_CHUNK", "REMAT_MODES", "check_mesh", "has_attention"]
 
 PORTED_KINDS = ("attn", "local", "attn+moe", "local+moe", "hybrid", "mlstm",
-                "slstm")
+                "slstm", "enc", "xdec")
 
 
 class _Block(NamedTuple):
@@ -107,11 +116,10 @@ def stages_meta(cfg) -> List[Tuple[str, int]]:
 
 def _check_ported(cfg) -> None:
     bad = sorted({k for k, _ in stages_meta(cfg) if k not in PORTED_KINDS})
-    if bad or cfg.n_encoder_layers:
+    if bad:
         raise NotImplementedError(
-            f"{cfg.name}: layer kinds {bad or ['enc']} are not ported to "
-            f"repro_torch (it runs {list(PORTED_KINDS)}); the other families "
-            "wait for ROADMAP item 12")
+            f"{cfg.name}: layer kinds {bad} are not ported to repro_torch "
+            f"(it runs {list(PORTED_KINDS)}; ROADMAP item 12)")
 
 
 def _dtype(cfg):
@@ -143,12 +151,17 @@ def check_mesh(cfg, mesh) -> None:
     and a model axis that does not split the heads, the KV heads, d_ff or
     the vocab the way the tensor-parallel layers read them; and (ROADMAP
     item 12) the recurrent and hybrid layer kinds, whose blocks have no
-    tensor-parallel form in the port."""
+    tensor-parallel form in the port, and whisper's encoder-decoder
+    (cross-attention on a mesh, ROADMAP item 12f)."""
     kinds = sorted({k for k, _ in stages_meta(cfg) if _block(k)})
     if kinds:
         raise NotImplementedError(
             f"{cfg.name}: the layer kinds {kinds} on a mesh are not ported "
             "(one card only; ROADMAP item 12)")
+    if cfg.n_encoder_layers:
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder (enc, xdec) on a mesh is not "
+            "ported (one card only; ROADMAP item 12f)")
     if cfg.n_experts and len(data_axes(mesh)) > 1:
         raise NotImplementedError(
             f"{cfg.name}: a mixture of experts over the data axes "
@@ -194,6 +207,10 @@ def _init_layer_stack(generator, cfg, kind: str, count: int,
     if has_attention(kind):
         p.update(init_attention(generator, cfg, dtype, stacked=count,
                                 device=device))
+    if kind == "xdec":   # whisper's decoder: cross-attention on its own norm
+        add_norm("normx")
+        p.update(init_attention(generator, cfg, dtype, stacked=count,
+                                device=device, cross=True))
     if blk is not None:
         p.update(blk.init(generator, cfg, dtype, stacked=count, device=device))
     if not has_attention(kind):
@@ -226,6 +243,13 @@ def init_params(cfg, generator: torch.Generator, device=None) -> Dict[str, Any]:
         params["lm_head"] = (torch.randn(
             (cfg.d_model, cfg.vocab_size), generator=generator,
             dtype=torch.float32, device=device) * cfg.d_model ** -0.5).to(dtype)
+    if cfg.n_encoder_layers:
+        params["enc_stages"] = {"e0": _init_layer_stack(
+            generator, cfg, "enc", cfg.n_encoder_layers, device)}
+        params["enc_final_norm"] = init_norm(cfg.d_model, cfg.norm, dtype, device)
+        params["enc_pos"] = (torch.randn(
+            (cfg.encoder_len, cfg.d_model), generator=generator,
+            dtype=torch.float32, device=device) * 0.02).to(dtype)
     return params
 
 
@@ -238,14 +262,14 @@ def _sub(lp: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
 
 
 def _layer_forward(lp: Dict[str, torch.Tensor], x, cfg, kind: str, *,
-                   cache=None, pos=None, placement=None, mesh=None,
-                   whole_batch=False):
+                   cache=None, pos=None, enc_out=None, placement=None,
+                   mesh=None, whole_batch=False):
     """One layer.  Returns (x, cache, aux_loss): the MoE's float32
     load-balance loss, None for a dense layer (whose loss the reference
     counts as 0: no tensor is made for it on the decode path).  ``cache``
     is the layer's state, the returned one its new state (a recurrent
     block's may be new tensors: ``run_stage`` writes them into the
-    cache)."""
+    cache).  ``enc_out``: an ``xdec`` layer's cross (k, v)."""
     if kind not in PORTED_KINDS:
         raise NotImplementedError(
             f"layer kind {kind!r} is not ported (ROADMAP item 12)")
@@ -266,6 +290,21 @@ def _layer_forward(lp: Dict[str, torch.Tensor], x, cfg, kind: str, *,
         x = x + 0.5 * (attn_out + blk_out)
         x = x + mlp(lp, norm(_sub(lp, "norm2"), x, cfg.norm), cfg, mesh=mesh)
         return x, (None if cache is None else {**attn_cache, **block_state}), None
+    if kind in ("enc", "xdec"):
+        # whisper: the encoder's self-attention sees every frame; the
+        # decoder's is causal, then attends over the encoder's rows
+        attn_out, cache = attention(lp, h, cfg, causal=kind == "xdec",
+                                    cache=cache, pos=pos, mesh=mesh)
+        x = x + attn_out
+        if kind == "xdec":
+            if enc_out is None:
+                raise ValueError(f"{cfg.name}: an xdec layer needs the "
+                                 "encoder's cross K/V (enc_out)")
+            cross, _ = attention(lp, norm(_sub(lp, "normx"), x, cfg.norm), cfg,
+                                 cross_kv=enc_out, prefix="x", mesh=mesh)
+            x = x + cross
+        x = x + mlp(lp, norm(_sub(lp, "norm2"), x, cfg.norm), cfg, mesh=mesh)
+        return x, cache, None
     window = cfg.window if kind.split("+")[0] == "local" else 0
     aux_loss = None
     attn_out, cache = attention(lp, h, cfg, window=window, cache=cache, pos=pos,
@@ -298,20 +337,23 @@ def _dots_policy(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _remat_layer(lp, x, cfg, kind, placement, mesh, whole_batch):
-    x, _, aux = _layer_forward(lp, x, cfg, kind, placement=placement, mesh=mesh,
+def _remat_layer(lp, x, cfg, kind, enc_out, placement, mesh, whole_batch):
+    x, _, aux = _layer_forward(lp, x, cfg, kind, enc_out=enc_out,
+                               placement=placement, mesh=mesh,
                                whole_batch=whole_batch)
     return x, aux
 
 
 def run_stage(stage_params, x, cfg, kind: str, *, cache=None, pos=None,
-              placement=None, remat: str = "none", mesh=None,
+              enc_out=None, placement=None, remat: str = "none", mesh=None,
               whole_batch=False):
     """Run the stacked layers of one stage in order.  Returns (x, cache,
     aux): the sum of the layers' load-balance losses (None for dense
     layers); a given cache is written in place, layer ``i`` into its slice
     ``i`` of every leaf (a new state tensor is copied there: a bf16 conv
-    tail into the float32 buffer exactly).
+    tail into the float32 buffer exactly).  ``enc_out``: an ``xdec``
+    stage's cross (k, v), each (count, B, Sk, KV, D); layer ``i`` reads
+    slice ``i``.
 
     ``remat`` (full-sequence passes only): ``"full"`` keeps only each
     layer's input and recomputes the layer in the backward pass;
@@ -331,14 +373,15 @@ def run_stage(stage_params, x, cfg, kind: str, *, cache=None, pos=None,
           if remat == "dots" else {})
     aux_total = None
     for i, lp in enumerate(layers):
+        e = None if enc_out is None else (enc_out[0][i], enc_out[1][i])
         if cache is None and remat != "none":
-            x, aux = checkpoint(_remat_layer, lp, x, cfg, kind, placement,
+            x, aux = checkpoint(_remat_layer, lp, x, cfg, kind, e, placement,
                                 mesh, whole_batch, use_reentrant=False, **kw)
         else:
             c = None if cache is None else {k: t[i] for k, t in cache.items()}
             x, new, aux = _layer_forward(lp, x, cfg, kind, cache=c, pos=pos,
-                                         placement=placement, mesh=mesh,
-                                         whole_batch=whole_batch)
+                                         enc_out=e, placement=placement,
+                                         mesh=mesh, whole_batch=whole_batch)
             for k, t in (new or {}).items():
                 if t is not c[k]:
                     c[k].copy_(t)
@@ -473,23 +516,57 @@ class Model:
         w = w.float()
         return h[:, -1:].float() @ (w.t() if self.cfg.tie_embeddings else w)
 
-    def backbone(self, params, x, *, cache=None, pos=None, remat="none",
-                 whole_batch=False):
+    def encode(self, params, enc_embeds):
+        """whisper's encoder: (B, Se, D) frame embeddings (the stubbed audio
+        front end's output) plus the learned ``enc_pos``, the ``enc``
+        layers, the encoder's final norm -> (B, Se, D).  The embeddings are
+        cast to the model's dtype (the reference would promote float32
+        embeddings over bf16 weights to float32 activations; the port's
+        products take one dtype)."""
+        cfg = self.cfg
+        pos = params["enc_pos"]
+        x = enc_embeds.to(pos.dtype) + pos[None, : enc_embeds.shape[1]]
+        with (self.on_stage("enc") if self.on_stage else contextlib.nullcontext()):
+            x, _, _ = run_stage(params["enc_stages"]["e0"], x, cfg, "enc")
+        return norm(params["enc_final_norm"], x, cfg.norm)
+
+    def cross_kv(self, params, enc_out):
+        """Each decoder stage's cross K/V from the encoder's output (B, Se,
+        D): ``{stage: (k, v)}``, each (count, B, Se, KV, D), computed once
+        per input and read by every prefill and decode step (``enc_out`` of
+        :meth:`backbone`).  A plain matrix product of the stacked weights,
+        as the reference's einsum."""
+        kv, hd = self.cfg.n_kv_heads, self.cfg.head_dim
+        b, se, _ = enc_out.shape
+        out = {}
+        for sname, sp in params["stages"].items():
+            if "stk_xwk" in sp:
+                xk, xv = (torch.matmul(enc_out[None], sp[w][:, None])
+                          for w in ("stk_xwk", "stk_xwv"))
+                out[sname] = (xk.reshape(-1, b, se, kv, hd),
+                              xv.reshape(-1, b, se, kv, hd))
+        return out
+
+    def backbone(self, params, x, *, cache=None, pos=None, enc_out=None,
+                 remat="none", whole_batch=False):
         """The decoder stack and the final norm.  Returns (x, cache, aux):
         the float32 sum of the MoE layers' load-balance losses, None for a
         dense model (whose loss the reference counts as 0; the dense decode
-        path makes no tensor for it).  ``whole_batch``: on a mesh, each
-        data rank holds the whole batch (:mod:`.moe`)."""
+        path makes no tensor for it).  ``enc_out``: whisper's cross K/V,
+        :meth:`cross_kv`'s dict.  ``whole_batch``: on a mesh, each data rank
+        holds the whole batch (:mod:`.moe`)."""
         cfg = self.cfg
         placement = self.placement(x.device)
         aux_total = None
         for i, (kind, _) in enumerate(stages_meta(cfg)):
             sname = f"s{i}"
+            xkv = enc_out[sname] if kind == "xdec" and enc_out else None
             with (self.on_stage(kind) if self.on_stage else contextlib.nullcontext()):
                 x, _, aux = run_stage(params["stages"][sname], x, cfg, kind,
                                       cache=None if cache is None else cache[sname],
-                                      pos=pos, placement=placement, remat=remat,
-                                      mesh=self.mesh, whole_batch=whole_batch)
+                                      pos=pos, enc_out=xkv, placement=placement,
+                                      remat=remat, mesh=self.mesh,
+                                      whole_batch=whole_batch)
             if aux is not None:
                 aux_total = aux if aux_total is None else aux_total + aux
         return norm(params["final_norm"], x, cfg.norm), cache, aux_total
@@ -498,8 +575,13 @@ class Model:
         """Next-token loss, float32, plus ``0.01`` times the MoE layers'
         load-balance loss, as in the reference.  batch: ``{"tokens": (B,
         S)}``; position ``i`` predicts token ``i + 1`` and the last position
-        is masked, as in the reference.  On a mesh ``batch`` is this rank's
-        block and the result the global loss: each rank's share, its rows'
+        is masked, as in the reference.  A vision config's batch may hold
+        ``img_embeds`` (B, F, D): they take the first F positions, followed
+        by the embedded ``tokens[:, :S - F]``; position ``i`` predicts the
+        sequence's entry ``i + 1``, so the image positions but the last
+        (which predicts the first text token) are masked, as in the
+        reference (another config ignores them, as the reference does).
+        On a mesh ``batch`` is this rank's block and the result the global loss: each rank's share, its rows'
         loss divided by the mask count summed over the data axes, summed
         over the data axes (two all-reduces per data axis; a replicated
         batch too, its count and its shares each taken once a data rank).
@@ -512,17 +594,28 @@ class Model:
         cfg = self.cfg
         if cfg.n_encoder_layers or "enc_embeds" in batch:
             raise NotImplementedError(
-                f"{cfg.name}: the encoder branch of the loss is not ported "
-                "(ROADMAP item 12)")
-        if "img_embeds" in batch:
-            raise NotImplementedError(
-                f"{cfg.name}: the vision prefix of the loss is not ported "
-                "(ROADMAP item 12)")
+                f"{cfg.name}: the encoder branch of the loss (whisper's "
+                "training) is not ported (ROADMAP item 12f)")
         tokens = batch["tokens"]
-        x = self.embed(params, tokens)
-        targets = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
-        mask = torch.ones(targets.shape, dtype=torch.float32,
-                          device=tokens.device)
+        if cfg.frontend == "vision" and "img_embeds" in batch:
+            if self.mesh is not None:
+                raise NotImplementedError(
+                    f"{cfg.name}: the vision prefix of the loss on a mesh is "
+                    "not ported (ROADMAP item 12g)")
+            img = batch["img_embeds"].to(_dtype(cfg))
+            fl = img.shape[1]
+            text = tokens[:, : tokens.shape[1] - fl]
+            x = torch.cat([img, self.embed(params, text)], dim=1)
+            targets = torch.cat([tokens.new_zeros((tokens.shape[0], fl - 1)),
+                                 text, text[:, -1:]], dim=1)
+            mask = torch.ones(targets.shape, dtype=torch.float32,
+                              device=tokens.device)
+            mask[:, : fl - 1] = 0.0
+        else:
+            x = self.embed(params, tokens)
+            targets = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
+            mask = torch.ones(targets.shape, dtype=torch.float32,
+                              device=tokens.device)
         mask[:, -1] = 0.0
         h, _, aux = self.backbone(params, x, remat=remat,
                                   whole_batch=bool(batch.get("whole_batch")))
@@ -538,7 +631,9 @@ class Model:
     def init_cache(self, batch: int, s_max: int, dtype=torch.bfloat16,
                    device=None):
         """Per-stage decode cache, the reference's tree: attention stages
-        {"k", "v"} of (count, batch, s_max, KV, D) in ``dtype``; a hybrid
+        {"k", "v"} of (count, batch, s_max, KV, D) in ``dtype`` (whisper's
+        ``xdec`` stages their self-attention's only: the cross K/V are
+        ``enc_out``, made once by :meth:`cross_kv`); a hybrid
         stage those and the SSM's "h", "conv"; an mLSTM stage "c", "n",
         "m"; an sLSTM stage "c", "n", "m", "h" (the states float32)."""
         cfg = self.cfg
@@ -557,22 +652,30 @@ class Model:
                 f"{what} on a mesh (sharded serving) is not ported "
                 "(ROADMAP item 12)")
 
-    def prefill(self, params, batch, s_max: int):
-        """Encode a full prompt, returning (last-token logits, filled cache)."""
+    def prefill(self, params, batch, s_max: int, enc_out=None):
+        """Encode a full prompt, returning (last-token logits, filled cache).
+        An encoder-decoder reads its cross K/V from ``enc_out``
+        (:meth:`cross_kv`'s dict); without it, it encodes
+        ``batch["enc_embeds"]`` first, as the reference's prefill does."""
         self._no_mesh("prefill")
         tokens = batch["tokens"]
         b = tokens.shape[0]
         device = params["embed"].device
         x = self.embed(params, tokens)
+        if self.cfg.n_encoder_layers and enc_out is None:
+            enc_out = self.cross_kv(params, self.encode(params, batch["enc_embeds"]))
         cache = self.init_cache(b, s_max, _dtype(self.cfg), device)
         pos = torch.zeros((b,), dtype=torch.int32, device=device)
-        h, cache, _ = self.backbone(params, x, cache=cache, pos=pos)
+        h, cache, _ = self.backbone(params, x, cache=cache, pos=pos,
+                                    enc_out=enc_out)
         return self.logits_last(params, h), cache
 
-    def decode_step(self, params, token, cache, pos):
-        """One token step.  token: (B, 1); pos: (B,) current write index.
+    def decode_step(self, params, token, cache, pos, enc_out=None):
+        """One token step.  token: (B, 1); pos: (B,) current write index;
+        ``enc_out``: an encoder-decoder's cross K/V (:meth:`cross_kv`).
         The cache is written in place and returned."""
         self._no_mesh("decode_step")
         x = self.embed(params, token)
-        h, cache, _ = self.backbone(params, x, cache=cache, pos=pos)
+        h, cache, _ = self.backbone(params, x, cache=cache, pos=pos,
+                                    enc_out=enc_out)
         return self.logits_last(params, h), cache

@@ -47,6 +47,12 @@ class ServingEngine:
 
     def __init__(self, model: Model, params, s_max: int,
                  temperature: float = 0.0, seed: int = 0):
+        if model.cfg.n_encoder_layers:
+            # the reference's engine would fail at its first prefill
+            raise ValueError(
+                f"{model.cfg.name}: the serving engine takes token prompts "
+                "only, as the reference's does; an encoder-decoder is served "
+                "by launch.serve_profile.transcribe")
         self.model = model
         self.params = params
         self.s_max = s_max

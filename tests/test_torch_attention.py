@@ -252,6 +252,23 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_count_nothing():
     multi_head_attention(q, k, v)
     grouped_decode_attention(qd, kd, vd, torch.tensor([3], dtype=torch.int32))
     assert not any(tk.launch_counts().values())
+    assert not any(tk.shape_counts().values())
+
+
+def test_reset_launch_counts_clears_the_attention_split_by_shape():
+    """``kernels.shape_counts`` reads the counters K6 and K7 keep where they
+    launch (K6 by its mask, K7 by its cache's rows);
+    ``reset_launch_counts`` zeroes K6's and forgets K7's rows."""
+    tk.reset_launch_counts()
+    assert tk.shape_counts() == {"flash_attention.causal": 0, "flash_attention.full": 0,
+                                 "flash_attention.cross": 0}
+    flash_attention.mask_launches["cross"] = 3
+    decode_attention.rows_launches[1500] = 2
+    assert tk.shape_counts() == {"flash_attention.causal": 0, "flash_attention.full": 0,
+                                 "flash_attention.cross": 3,
+                                 "decode_attention.rows=1500": 2}
+    tk.reset_launch_counts()
+    assert not any(tk.shape_counts().values()) and not decode_attention.rows_launches
 
 
 # ---------------------------------------------------------------------------

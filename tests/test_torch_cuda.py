@@ -710,6 +710,77 @@ def test_decode_attention_refuses_a_group_above_8(cuda):
 # serving and inference launch no backward
 _NO_BWD = {"flash_attention_bwd.wgmma_bf16": 0, "flash_attention_bwd.fma_f32": 0}
 
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,s,sk,d", [
+    (2, 8, 8, 1, 1500, 64), (2, 8, 8, 4, 1500, 64), (1, 8, 8, 37, 1500, 64),
+    (1, 8, 8, 228, 1500, 64),      # whisper's cross-attention, G = 1
+    (1, 8, 2, 130, 65, 64),        # G = 4, keys one row past a tile
+    (2, 4, 4, 200, 77, 96)])       # phi3's head size, fewer keys than queries
+def test_flash_attention_over_keys_that_are_not_the_queries(cuda, b, h, hkv, s,
+                                                            sk, d, dtype):
+    """K6 non-causal at Sk != S (whisper's cross-attention: S decoder rows
+    over Sk encoder rows) against its plain version, in its dtype's variant
+    only, the same bits on a second call; bf16 also against the split-P
+    emulation."""
+    g = torch.Generator(device=cuda).manual_seed(s + sk)
+    q = torch.randn((b, s, h, d), generator=g, device=cuda).to(dtype).transpose(1, 2)
+    k, v = (torch.randn((b, sk, hkv, d), generator=g, device=cuda).to(dtype)
+            .transpose(1, 2) for _ in range(2))
+    kernels.reset_launch_counts()
+    got = multi_head_attention(q, k, v, causal=False)
+    again = multi_head_attention(q, k, v, causal=False)
+    variant = "wgmma_bf16" if dtype == torch.bfloat16 else "fma_f32"
+    assert kernels.variant_counts() == {
+        **{f"flash_attention.{x}": 2 if x == variant else 0
+           for x in ("wgmma_bf16", "fma_f32")}, **_NO_BWD}
+    assert torch.equal(got, again) and got.shape == q.shape
+    want = attention_ref(q.float(), k.float(), v.float(), causal=False)
+    _assert_attention_close(got, want)
+    if dtype == torch.bfloat16:
+        _assert_attention_close(got, attention_split_p_ref(
+            q.float(), k.float(), v.float(), causal=False))
+
+
+def test_cross_attention_gradient_raises_on_the_card(cuda):
+    """K6's backward is self-attention only: a gradient through attention
+    over keys that are not the queries raises before any launch."""
+    q = torch.randn((1, 2, 4, 64), device=cuda, requires_grad=True)
+    k = torch.randn((1, 2, 9, 64), device=cuda)
+    kernels.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="12f"):
+        multi_head_attention(q, k, k, causal=False)
+    assert kernels.launch_counts()["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_at_phi3s_layer(cuda, dtype):
+    """K6 at phi-3-vision's head size D = 96 (G = 1, 32 heads), causal, the
+    head dimension zero-padded to the kernels' 128 (bf16) and 256
+    (float32) columns."""
+    q, k, v = _model_layout_qkv(1, 32, 32, 300, 96, dtype, 96, cuda)
+    got = multi_head_attention(q, k, v, causal=True)
+    _assert_attention_close(got, attention_ref(q.float(), k.float(), v.float()))
+    if dtype == torch.bfloat16:
+        _assert_attention_close(got, attention_split_p_ref(
+            q.float(), k.float(), v.float()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,kv,d,s,lens", [
+    (2, 32, 96, 2080, [1, 2079]),            # phi3's decode, G = 1, D = 96
+    (8, 8, 64, 1500, [1500] * 8)])           # whisper's cross rows
+def test_decode_attention_at_phi3_and_whisper_shapes(cuda, b, kv, d, s, lens, dtype):
+    """K7 at G = 1: phi-3-vision's head size D = 96 (12 of a warp's lanes
+    on a row), and whisper's decode step over all 1,500 encoder rows."""
+    gen = torch.Generator(device=cuda).manual_seed(d + s)
+    q = torch.randn((b, kv, 1, d), generator=gen, device=cuda).to(dtype)
+    k, v = torch.randn((2, b, s, kv, d), generator=gen, device=cuda).to(dtype)
+    length = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    got = grouped_decode_attention(q, k, v, length)
+    _assert_attention_close(got, decode_attention_ref(q.float(), k.float(),
+                                                      v.float(), length))
+
 # K6's backward against its plain version: float32 within 1e-4 absolute
 # (sums in another order); bf16 ||delta|| / ||ref|| within 1e-2 for each
 # gradient (the gradients are rounded once to bf16, 2^-9 relative, and the
@@ -735,7 +806,8 @@ BWD_REL_EMU = 1e-3
     (2, 4, 1, 1024, 256, True, 0, 0.0),    # a rank of gemma-2b on the tiny mesh
     (2, 4, 4, 64, 16, True, 0, 30.0),      # the reduced grok, G = 1
     (1, 12, 2, 130, 128, True, 50, 30.0),  # a cap and a window
-    (1, 4, 4, 97, 64, False, 0, 30.0)])    # a cap, non-causal, G = 1
+    (1, 4, 4, 97, 64, False, 0, 30.0),     # a cap, non-causal, G = 1
+    (1, 32, 32, 257, 96, True, 0, 0.0)])   # phi3's layer: G = 1, D = 96
 def test_flash_attention_bwd_matches_its_plain_version(cuda, b, h, hkv, s, d,
                                                        causal, window, softcap,
                                                        dtype):
@@ -854,11 +926,12 @@ def test_autograd_through_the_kernels_launches_forward_and_backward(cuda, dtype)
     assert kernels.launch_counts()["flash_attention_bwd"] == 0
 
 
-@pytest.mark.parametrize("arch", ["gemma3-4b", "gemma-2b"])
+@pytest.mark.parametrize("arch", ["gemma3-4b", "gemma-2b", "phi-3-vision-4.2b"])
 def test_reduced_training_on_the_card_matches_the_cpu(cuda, arch):
     """Three float32 train steps of the reduced config on the card and on
     the CPU from the same weights and batches: losses within 1e-4
-    relative; K6's float32 forward and backward once per layer and step."""
+    relative; K6's float32 forward and backward once per layer and step.
+    phi-3-vision's batches hold image embeddings that prefix the text."""
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.configs.reduced import reduced_config
     from repro_torch.data import TokenPipeline
@@ -873,14 +946,18 @@ def test_reduced_training_on_the_card_matches_the_cpu(cuda, arch):
     card = _to(host, cuda)
     hs, cs = adamw_init(host), adamw_init(card)
     pipe = TokenPipeline(cfg.vocab_size, batch=4, seq_len=32, seed=0)
+    rng = np.random.default_rng(0)
     for i in range(3):
-        toks = torch.from_numpy(pipe.batch_at(i)["tokens"])
+        batch = {"tokens": torch.from_numpy(pipe.batch_at(i)["tokens"])}
+        if cfg.frontend == "vision":
+            batch["img_embeds"] = torch.from_numpy(rng.normal(
+                size=(4, cfg.frontend_len, cfg.d_model)).astype(np.float32))
         kernels.reset_launch_counts()
-        card, cs, cm = step(card, cs, {"tokens": toks.to(cuda)})
+        card, cs, cm = step(card, cs, _to(batch, cuda))
         counts = kernels.variant_counts()
         assert counts["flash_attention.fma_f32"] == n_layers
         assert counts["flash_attention_bwd.fma_f32"] == n_layers
-        host, hs, hm = step(host, hs, {"tokens": toks})
+        host, hs, hm = step(host, hs, batch)
         assert abs(float(cm["loss"]) - float(hm["loss"])) <= 1e-4 * float(hm["loss"])
 
 
@@ -961,7 +1038,8 @@ def _trees_equal(a, b):
     ("llama4-maverick-400b-a17b", None),
     ("internlm2-20b", (12, 2)), ("grok-1-314b", (12, 2)),
     ("llama4-maverick-400b-a17b", (10, 2)),
-    ("hymba-1.5b", None), ("hymba-1.5b", (10, 2)), ("xlstm-1.3b", None)])
+    ("hymba-1.5b", None), ("hymba-1.5b", (10, 2)), ("xlstm-1.3b", None),
+    ("phi-3-vision-4.2b", None)])
 def test_reduced_serve_on_the_card_runs_the_attention_kernels(cuda, arch, heads):
     """The reduced config served on the card launches K6 once per attention
     layer and prefill sub-batch and K7 once per attention layer and decode
@@ -999,9 +1077,42 @@ def test_reduced_serve_on_the_card_runs_the_attention_kernels(cuda, arch, heads)
         np.testing.assert_array_equal(got[r.rid], want[r.rid])
 
 
+def test_reduced_whisper_on_the_card_matches_the_cpu(cuda):
+    """The reduced whisper transcribes the same tokens on the card as on the
+    CPU from the same weights (float32): K6 once per encoder layer, twice
+    per decoder layer in the prefill (self, then cross at Sk != S), K7
+    twice per decoder layer and decode step (``kernels.shape_counts``: the
+    encoder's non-causal calls, the causal and cross calls, and the decode
+    steps over the 12-row self cache and over the encoder's rows)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import reduced_config
+    from repro_torch.launch.serve_profile import transcribe
+    from repro_torch.models import Model, init_params
+    cfg = reduced_config(get_config("whisper-base"))
+    host = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy((rng.normal(size=(3, cfg.encoder_len, cfg.d_model))
+                               * 0.05).astype(np.float32))
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 4)))
+    kernels.reset_launch_counts()
+    got, stats = transcribe(Model(cfg), _to(host, cuda), frames.to(cuda),
+                            prompt.to(cuda), 8, 12)
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == cfg.n_encoder_layers + 2 * cfg.n_layers
+    assert counts["decode_attention"] == 2 * cfg.n_layers * stats["decode_steps"]
+    steps = cfg.n_layers * stats["decode_steps"]
+    assert kernels.shape_counts() == {
+        "flash_attention.causal": cfg.n_layers, "flash_attention.full": cfg.n_encoder_layers,
+        "flash_attention.cross": cfg.n_layers, "decode_attention.rows=12": steps,
+        f"decode_attention.rows={cfg.encoder_len}": steps}
+    want, _ = transcribe(Model(cfg), host, frames, prompt, 8, 12)
+    np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("arch", ["grok-1-314b", "llama4-maverick-400b-a17b",
                                   "internlm2-20b", "gemma3-4b", "hymba-1.5b",
-                                  "xlstm-1.3b"])
+                                  "xlstm-1.3b", "phi-3-vision-4.2b",
+                                  "whisper-base"])
 def test_decode_step_reads_nothing_back_to_the_host(cuda, arch):
     """A decode step of the reduced config on the card makes no host sync:
     the MoE layers count their routing into tensors of a fixed length, the
@@ -1018,7 +1129,11 @@ def test_decode_step_reads_nothing_back_to_the_host(cuda, arch):
     model = Model(cfg)
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (2, 9))).to(cuda)
-    logits, cache = model.prefill(params, {"tokens": toks}, 16)
+    enc = None
+    if cfg.n_encoder_layers:   # whisper: the cross K/V, made before the step
+        frames = torch.randn((2, cfg.encoder_len, cfg.d_model), device=cuda)
+        enc = model.cross_kv(params, model.encode(params, frames))
+    logits, cache = model.prefill(params, {"tokens": toks}, 16, enc_out=enc)
     token = logits.argmax(-1)
     pos = torch.full((2,), 9, dtype=torch.int32, device=cuda)
     torch.cuda.synchronize()
@@ -1026,7 +1141,7 @@ def test_decode_step_reads_nothing_back_to_the_host(cuda, arch):
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            model.decode_step(params, token, cache, pos)
+            model.decode_step(params, token, cache, pos, enc_out=enc)
         finally:
             torch.cuda.set_sync_debug_mode("default")
     syncs = [str(w.message) for w in seen

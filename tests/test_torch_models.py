@@ -73,36 +73,53 @@ def test_configs_equal_the_reference(arch):
 
 
 def test_registry_lists_only_ported_configs_and_raises_on_others():
-    assert list_configs() == sorted(ARCHS + RECURRENT)
-    for name in ("whisper-base", "phi-3-vision-4.2b", "no-such-arch"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-            get_config(name)
+    """Every architecture of the reference is registered, whisper and
+    phi3-vision (ported since) with them, each equal to the reference's;
+    an unknown name raises a KeyError, as the reference's registry does."""
+    from repro.configs import list_configs as j_list_configs
+    assert list_configs() == sorted(ARCHS + RECURRENT + ["whisper-base",
+                                                         "phi-3-vision-4.2b"])
+    assert list_configs() == j_list_configs()
+    for name in ("whisper-base", "phi-3-vision-4.2b"):
+        assert dataclasses.asdict(get_config(name)) == \
+            dataclasses.asdict(j_get_config(name))
+    with pytest.raises(KeyError, match="no-such-arch"):
+        get_config("no-such-arch")
 
 
 @pytest.mark.parametrize("changes", [
     dict(family="ssm", slstm_every=2), dict(hybrid=True, ssm_state=4),
     dict(family="ssm"), dict(n_encoder_layers=2, encoder_len=16)])
 def test_unported_layer_kinds_raise(changes):
-    """The encoder-decoder layers still raise; the recurrent and hybrid
-    kinds (mLSTM + sLSTM, hybrid, mLSTM alone), ported since, build and
-    run a forward, with the reference's layer pattern and tree."""
+    """The kinds ported to one card only: the recurrent and hybrid kinds
+    (mLSTM + sLSTM, hybrid, mLSTM alone) and the encoder-decoder's ``enc``
+    and ``xdec`` (gemma-2b's reduced decoder given an encoder) raise on
+    the tiny mesh, naming ROADMAP item 12, where they are still unported;
+    on one device they build and run a forward, with the reference's
+    layer pattern and tree, and an ``xdec`` stack reads the encoder's
+    cross K/V (``Model.encode``, ``Model.cross_kv``) and refuses to run
+    without them."""
+    from repro_torch.launch.mesh import named_mesh_layout
     cfg = dataclasses.replace(reduced_config(get_config("gemma-2b")), **changes)
-    if cfg.n_encoder_layers:
-        with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-            Model(cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-            init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-        return
     jcfg = dataclasses.replace(j_reduced(j_get_config("gemma-2b")), **changes)
-    assert {k for k, _ in stages_meta(cfg)} <= {"mlstm", "slstm", "hybrid"}
+    assert {k for k, _ in stages_meta(cfg)} <= {"mlstm", "slstm", "hybrid", "xdec"}
     assert stages_meta(cfg) == j_stages_meta(jcfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+        Model(cfg, mesh=named_mesh_layout("tiny"))
     model = Model(cfg)
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     jp = j_init_params(jax.random.PRNGKey(0), jcfg)
     assert jax.tree.map(lambda t: tuple(t.shape), params) == \
         jax.tree.map(lambda a: tuple(a.shape), jp)
     toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 5)))
-    h, _, aux = model.backbone(params, model.embed(params, toks))
+    enc = None
+    if cfg.n_encoder_layers:
+        with pytest.raises(ValueError, match="cross K/V"):
+            model.backbone(params, model.embed(params, toks))
+        frames = torch.from_numpy(np.random.default_rng(1).normal(
+            size=(2, cfg.encoder_len, cfg.d_model)).astype(np.float32))
+        enc = model.cross_kv(params, model.encode(params, frames))
+    h, _, aux = model.backbone(params, model.embed(params, toks), enc_out=enc)
     assert h.shape == (2, 5, cfg.d_model) and aux is None
     assert bool(torch.isfinite(h).all())
 

@@ -164,12 +164,22 @@ def test_remat_rejects_an_unknown_mode():
 
 
 def test_loss_refuses_the_unported_branches():
-    cfg, _, params, _ = _both("gemma-2b")
-    toks = torch.zeros((1, 8), dtype=torch.int64)
-    for extra in ({"img_embeds": torch.zeros((1, 2, cfg.d_model))},
-                  {"enc_embeds": torch.zeros((1, 4, cfg.d_model))}):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-            Model(cfg).loss(params, {"tokens": toks, **extra})
+    """The loss's encoder branch (whisper's training) still raises, naming
+    ROADMAP item 12f.  The vision prefix is ported
+    (``tests/test_torch_vision.py``): a text-only config ignores
+    ``img_embeds``, as the reference's loss does."""
+    cfg, jcfg, params, jp = _both("gemma-2b")
+    toks = _tokens(cfg.vocab_size, 1, 8)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 12f"):
+        Model(cfg).loss(params, {"tokens": torch.from_numpy(toks),
+                                 "enc_embeds": torch.zeros((1, 4, cfg.d_model))})
+    img = np.ones((1, 2, cfg.d_model), np.float32)
+    got = Model(cfg).loss(params, {"tokens": torch.from_numpy(toks),
+                                   "img_embeds": torch.from_numpy(img)})
+    want = JModel(jcfg).loss(jp, {"tokens": jnp.asarray(toks),
+                                  "img_embeds": jnp.asarray(img)})
+    assert float(got) == float(Model(cfg).loss(params, {"tokens": torch.from_numpy(toks)}))
+    assert abs(float(got) - float(want)) <= 1e-5 * abs(float(want))
 
 
 def test_eval_step_is_the_loss_without_a_graph():
