@@ -32,6 +32,11 @@ paths end to end:
   every rank held to the same checksums with no collective in a push, and
   K2/K3/K1 held on the level-2 pair lists over the ring (universe item ids
   in support order);
+* the non-compacting engine (``compact=False``, ``run_no_compaction``):
+  the three mines above with K1 writing each expansion's whole (Q, W)
+  block, the mask on the host and a row gather, on the pinned checksums
+  with K1 once an expansion and K2 never; the chess stream's first 3
+  slides the same way, each equal to the compacting miner's slide;
 * resilience and the FIM serving front end over the T10I4D100K stream
   (``run_resilience``): kill the checkpointing stream at a kill point,
   ``restore_miner`` and replay on the pinned checksums with the launch
@@ -108,7 +113,15 @@ paths end to end:
   and backward once a step (``run_training_grok``); phi-3-vision-4.2b at
   full width and depth (B = 4, S = 1,024, the first 256 positions image
   embeddings) 6 steps in memory, K6's forward and backward at D = 96 once
-  a layer and step (``run_training_phi3``);
+  a layer and step (``run_training_phi3``); whisper-base at full width and
+  depth (6 + 6 layers, B = 16 clips of S = 448 tokens over 1,500 frame
+  embeddings) 6 steps in memory, the loss's encoder branch, K6 forward and
+  backward once per encoder layer and twice per decoder layer a step (the
+  cross-attention's at Sk = 1,500 != S), counted by shape, step 1 against
+  the plain attention (``run_training_whisper``); K6's backward at
+  whisper's cross and encoder shapes against its plain versions
+  (``check_flash_attention_bwd``) and timed at the cross shape beside
+  SDPA's backward (``time_whisper_cross_bwd``);
 * LM training on the reference's tiny mesh, (data, model) = (2, 2), as 4
   gloo ranks sharing the card (``run_mesh_training``): the float32 reduced
   gemma-2b, gemma3-4b, grok-1 (experts ``tp2d``) and llama4-maverick
@@ -126,7 +139,8 @@ streams' per-push shapes, with a sweep of its word split).  The pair kernels
 (K1, K2, K3) are held and timed on random pair lists and on the pair lists
 of the largest expansion of the fused mines of chess and T10I4D100K,
 recorded on the card (class-ordered, as the miner makes them); the kernels
-line reports K1 and K3 on the latter.
+line reports K1 (with its (Q, W) store, as the non-compacting engine
+launches it) and K3 on the latter.
 
 Output, in order: the device lines (``nvidia-smi`` name and power limit,
 torch and CUDA versions, build time), one line per kernel check, one line
@@ -217,8 +231,10 @@ REPORT_SHAPE = {"fused_intersect": MINER_CHESS,
                 "decode_attention": "B=2 KV=4 G=2 D=256 S=2080 len=2079 bf16 window=0",
                 "flash_attention_bwd": "B=4 H=8 Hkv=1 S=1024 D=256 bf16 causal window=0"}
 MINING_KERNELS = ("fused_intersect", "fused_intersect_compact", "trimatrix")
-# the mining kernels the fused mines launch: K1's arithmetic runs inside
-# K2's one pass, so a mine launches K1 (fused_intersect) no time
+# the mining kernels the compacting fused mines launch: K1's arithmetic
+# runs inside K2's one pass, so such a mine launches K1 (fused_intersect)
+# no time; the non-compacting engine (run_no_compaction) launches K1 and
+# not K2
 MAIN_PATH_MINING = ("fused_intersect_compact", "trimatrix")
 # the kernels of one K2 call, as a profiler trace names them: one pass
 # writes survivors and pad rows
@@ -391,6 +407,20 @@ PHI3_LAYER = (4, 32, 32, 1024, 96)
 # run over the first WHISPER_CHECK tokens of clip 0's transcript (the
 # prompt and the first tokens the serve generated)
 WHISPER_CHECK = 64
+# whisper-base trained at full width and depth (run_training_whisper): B
+# clips a step, each S = 448 decoder tokens (whisper's text context) over
+# the 1,500 encoder frames (embeddings drawn from a generator seeded with
+# the step, x 0.05, as the serve's clip_embeds), WHISPER_STEPS steps in
+# memory, remat="none"; its cross-attention in training (B, H, Hkv, S, Sk,
+# D): K6's backward row in the kernels line
+WHISPER_B, WHISPER_S, WHISPER_STEPS = 16, 448, 6
+WHISPER_CROSS = (WHISPER_B, 8, 8, WHISPER_S, 1500, 64)
+WHISPER_CROSS_SHAPE = (f"B={WHISPER_B} H=8 Hkv=8 S={WHISPER_S} Sk=1500 D=64 bf16 "
+                       "non-causal window=0 (whisper-base training cross)")
+# the non-compacting engine (run_no_compaction): the E2E_RUNS mines with
+# compact=False, and the chess stream's first NO_COMPACT_SLIDES slides with
+# compact=False beside the compacting miner
+NO_COMPACT_SLIDES = 3
 # K6 over keys that are not the queries: whisper's cross-attention, the
 # decoder's rows (one decode row, the 4-token prompt, a ragged 37, the
 # whole 228-row text context) over the 1,500 encoder rows
@@ -1378,6 +1408,96 @@ def run_streams(launches):
     return recorded, times
 
 
+def run_no_compaction(launches):
+    """The non-compacting engine (``compact=False``, the reference's two
+    steps: K1 writes the whole (Q, W) block, the mask comes to the host, a
+    row gather of the survivors follows) on the card: the E2E_RUNS mines
+    on the ``fused`` backend against their pinned checksums, K1 launched
+    once an expansion and K2 never, K4 once; then the chess stream's first
+    NO_COMPACT_SLIDES slides with ``compact=False`` beside the compacting
+    fused miner, each slide's itemsets and supports equal and on the
+    pinned checksum, K1 once an expansion and K2 never.  Adds K1's
+    launches to ``launches``."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import EclatConfig, mine, support_checksum
+    from repro_torch.data import stream_spec
+    from repro_torch.launch.stream_profile import STREAMS
+    from repro_torch.streaming import StreamConfig, StreamingMiner
+
+    for name, min_sup, variant, diffsets, expect in E2E_RUNS:
+        txns, spec = DATA[name]
+        cfg = EclatConfig(min_sup=min_sup, variant=variant, use_diffsets=diffsets,
+                          compact=False)
+        what = f"no-compaction mine {name} min_sup={min_sup} {variant}" + (
+            " diffsets" if diffsets else "")
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = mine(txns, spec.n_items, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        csum = support_checksum(res.support_map())
+        n_exp = len(res.stats.get("pair_padding", {}).get("per_level", []))
+        want_k4 = 1 if res.stats.get("tri_matrix") else 0
+        print(f"e2e {what} backend=fused compact=False: levels={res.counts} "
+              f"total={res.total} checksum={csum} wall_s={wall:.4f} "
+              f"phase_s={ {k: round(v, 4) for k, v in res.stats['phase_s'].items()} } "
+              f"expansions={n_exp} launches={ {k: v for k, v in counts.items() if v} }")
+        require(res.stats["backend"] == "fused" and csum == expect,
+                f"{what}: {res.stats['backend']} checksum {csum} != reference {expect}")
+        require(counts["fused_intersect"] == n_exp > 0 and
+                counts["fused_intersect_compact"] == 0 and counts["trimatrix"] == want_k4,
+                f"{what}: K1 {counts['fused_intersect']}, K2 "
+                f"{counts['fused_intersect_compact']} and K4 {counts['trimatrix']} "
+                f"launches for {n_exp} expansions")
+        others = {k: v for k, v in counts.items()
+                  if v and k not in ("fused_intersect", "trimatrix")}
+        require(not others, f"{what}: launched {others}")
+        launches["fused_intersect"] += counts["fused_intersect"]
+
+    name = "chess"
+    _, n_blocks, block_txns, min_sup, _, _ = next(st for st in STREAMS if st[0] == name)
+    n_items = stream_spec(name).n_items
+    miners = {compact: StreamingMiner(n_items, StreamConfig(
+        min_sup=min_sup, n_blocks=n_blocks, block_txns=block_txns, compact=compact))
+        for compact in (False, True)}
+    require(not miners[False].engine.compact and miners[True].engine.compact,
+            "the stream's engines do not carry compact")
+    for i, batch in enumerate(STREAM_BATCHES[name][:NO_COMPACT_SLIDES]):
+        res, slide_l = {}, {}
+        for compact, miner in miners.items():
+            kernels.reset_launch_counts()
+            miner.push(batch)
+            push_l = kernels.launch_counts()
+            kernels.reset_launch_counts()
+            res[compact] = miner.mine_window()
+            torch.cuda.synchronize()
+            slide_l[compact] = (push_l, kernels.launch_counts())
+        got, want = res[False], res[True]
+        csum = support_checksum(got.support_map())
+        n_exp = len(got.stats.get("pair_padding", {}).get("per_level", []))
+        push_l, mine_l = slide_l[False]
+        print(f"e2e stream {name} compact=False slide {i}: itemsets={got.total} "
+              f"levels={got.counts} checksum={csum} expansions={n_exp} launches "
+              f"push={ {k: v for k, v in push_l.items() if v} } "
+              f"mine={ {k: v for k, v in mine_l.items() if v} }")
+        require(got.support_map() == want.support_map() and got.counts == want.counts,
+                f"stream {name} compact=False slide {i}: differs from the compacting "
+                f"miner's")
+        require(csum == STREAM_CHECKSUMS[name][i],
+                f"stream {name} compact=False slide {i}: checksum {csum}")
+        require(mine_l["fused_intersect"] == n_exp and
+                mine_l["fused_intersect_compact"] == 0 and
+                push_l["trimatrix"] == 1 and sum(push_l.values()) == 1,
+                f"stream {name} compact=False slide {i}: launches push {push_l} "
+                f"mine {mine_l} for {n_exp} expansions")
+        launches["fused_intersect"] += mine_l["fused_intersect"]
+    print(f"e2e stream {name} compact=False: {NO_COMPACT_SLIDES} slides equal the "
+          f"compacting miner's and the pinned checksums; K1 once an expansion, K2 none")
+
+
 def _replay_slides(what, miner, batches, start, n_blocks, pinned, launches):
     """Slide ``batches[start:]`` through ``miner`` on the card, each slide
     held to the pinned checksum and to the launch gates of a fused stream
@@ -1967,21 +2087,22 @@ def time_kernels(launches, miner, stream_rec):
         products = q * w * 32
         flags = fused_intersect_ref(bm, l, r, s, ms, mode=0)[2]
         # (name, function, plain version, TPU call site, bytes in and out,
-        # in the kernels line): K1 store-free (fused_support_pairs; since K2
-        # runs its arithmetic inside its own pass, no main path launches
-        # K1), K1 with its store (the op the reference package exports), K2,
-        # and K2's given-mask front end (the word-sharded backends'
-        # compaction after their all-reduce: it reads the mask, not
-        # sup_left, and writes no supports)
+        # in the kernels line): K1 with its (Q, W) store (the op the
+        # reference package exports, and the call the non-compacting
+        # engine makes each expansion), K1 store-free (fused_support_pairs,
+        # the row PERF.md kept before a main path launched K1), K2, and
+        # K2's given-mask front end (the word-sharded backends' compaction
+        # after their all-reduce: it reads the mask, not sup_left, and
+        # writes no supports)
         for name, fn, ref, replaces, nbytes, listed in (
                 ("fused_intersect",
-                 lambda: fused_support_pairs(bm, l, r, s, ms, mode=0),
-                 lambda: fused_intersect_ref(bm, l, r, s, ms, mode=0)[1:],
-                 f"{tpu_src}:244", in_bytes + 2 * q * 4, True),
-                ("fused_intersect with (Q, W) store",
                  lambda: fused_intersect(bm, l, r, s, ms, mode=0),
                  lambda: fused_intersect_ref(bm, l, r, s, ms, mode=0),
-                 f"{tpu_src}:244", in_bytes + q * w * 4 + 2 * q * 4, False),
+                 f"{tpu_src}:244", in_bytes + q * w * 4 + 2 * q * 4, True),
+                ("fused_intersect store-free",
+                 lambda: fused_support_pairs(bm, l, r, s, ms, mode=0),
+                 lambda: fused_intersect_ref(bm, l, r, s, ms, mode=0)[1:],
+                 f"{tpu_src}:244", in_bytes + 2 * q * 4, False),
                 ("fused_intersect_compact",
                  lambda: fused_intersect_compact(bm, l, r, s, ms, nv, mode=0),
                  lambda: fused_intersect_compact_ref(bm, l, r, s, ms, nv, mode=0),
@@ -2084,11 +2205,13 @@ def time_kernels(launches, miner, stream_rec):
     print("timing note: ms and plain_ms of the mining rows are device "
           "time per call (calls run back to back behind a sleep of the "
           "card; K4's zero fill included where it splits the words), "
-          "call_ms CUDA events around each call; fused_intersect and "
-          "fused_intersect_partial are timed store-free, as the compaction "
-          "and the word-sharded backends use them; no main path launches "
-          "fused_intersect on its own (its arithmetic runs inside "
-          "fused_intersect_compact's pass); fused_intersect_partial "
+          "call_ms CUDA events around each call; fused_intersect is timed "
+          "with its (Q, W) store, as the non-compacting engine launches it "
+          "(its launches are run_no_compaction's; the compacting path runs "
+          "its arithmetic inside fused_intersect_compact's pass), and "
+          "store-free beside it; fused_intersect_partial is timed "
+          "store-free, as the word-sharded backends use it; "
+          "fused_intersect_partial "
           "launches are rank 0's of the tidsharded 1x4 mines; miner pairs "
           "are the pair lists of the largest expansion of the fused mines "
           "of chess and T10I4D100K (fused_intersect_partial: rank 0's word "
@@ -3026,8 +3149,12 @@ def check_flash_attention_bwd():
     float32), gemma3-4b's local layer (bf16) and a ragged length; with
     grok's soft-cap of 30 (q drawn CAP_Q_SCALE times larger) its training
     layer (G = 6, bf16), the reduced grok (float32), a windowed layer and
-    G = 1; the bf16 kernels also against the emulation of their
-    arithmetic; a second call gives the same bits."""
+    G = 1; phi3's layer (D = 96); whisper's training layers, the
+    cross-attention over keys that are not the queries (S = 448 over
+    Sk = 1,500, non-causal; a ragged last k tile) and the encoder's
+    non-causal self-attention (bf16 and float32); the bf16 kernels also
+    against the emulation of their arithmetic; a second call gives the
+    same bits."""
     import torch
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention import (attention_bwd_bf16_ref,
@@ -3036,7 +3163,9 @@ def check_flash_attention_bwd():
                                                      bwd_plan,
                                                      flash_attention,
                                                      flash_attention_bwd)
-    # (label, B, H, Hkv, S, D, window, softcap, dtypes)
+    # (label, B, H, Hkv, S, D, window, softcap, dtypes[, Sk, causal]):
+    # causal self-attention unless the last two say otherwise
+    both = (torch.bfloat16, torch.float32)
     cases = [("gemma-2b global", 4, 8, 1, 1024, 256, 0, 0.0,
               (torch.bfloat16, torch.float32)),
              ("gemma3-4b local", 2, 8, 4, 2048, 256, 1024, 0.0, (torch.bfloat16,)),
@@ -3047,31 +3176,40 @@ def check_flash_attention_bwd():
              ("capped local S=1000", 2, 12, 2, 1000, 128, 256, CAP,
               (torch.bfloat16, torch.float32)),
              ("capped G=1", 2, 8, 8, 512, 128, 0, CAP, (torch.bfloat16,)),
-             ("phi-3-vision training layer D=96", *PHI3_LAYER, 0, 0.0,
-              (torch.bfloat16, torch.float32))]
-    for label, b, h, hkv, s, d, window, cap, dtypes in cases:
+             ("phi-3-vision training layer D=96", *PHI3_LAYER, 0, 0.0, both),
+             ("whisper-base training cross", *WHISPER_CROSS[:4], WHISPER_CROSS[5], 0, 0.0,
+              both, WHISPER_CROSS[4], False),
+             ("whisper-base training encoder", WHISPER_B, 8, 8, 1500, 64, 0, 0.0, both,
+              1500, False)]
+    for label, b, h, hkv, s, d, window, cap, dtypes, *other in cases:
+        sk, causal = other or (s, True)
         for dtype in dtypes:
             what = f"flash_attention_bwd {label} {dtype}"
             q, k, v = attn_inputs(b, h, hkv, s, d, dtype, seed=s + h + d, model_layout=True)
+            if sk != s:
+                _, k, v = attn_inputs(b, hkv, hkv, sk, d, dtype, seed=sk + d,
+                                      model_layout=True)
             if cap:
                 q = (q.float() * CAP_Q_SCALE).to(dtype)
             gen = torch.Generator(device="cuda")
             gen.manual_seed(s)
             dout = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype).transpose(1, 2)
             kernels.reset_launch_counts()
-            out, lse = flash_attention(q, k, v, causal=True, window=window, softcap=cap,
+            out, lse = flash_attention(q, k, v, causal=causal, window=window, softcap=cap,
                                        return_lse=True)
-            got = flash_attention_bwd(q, k, v, out, dout, lse, causal=True, window=window,
+            got = flash_attention_bwd(q, k, v, out, dout, lse, causal=causal, window=window,
                                       softcap=cap)
-            again = flash_attention_bwd(q, k, v, out, dout, lse, causal=True, window=window,
-                                        softcap=cap)
+            again = flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
+                                        window=window, softcap=cap)
             variant = "wgmma_bf16" if dtype == torch.bfloat16 else "fma_f32"
             counts = kernels.variant_counts()
             torch.cuda.synchronize()
+            kind = "cross" if sk != s else "causal" if causal else "full"
             require(counts[f"flash_attention_bwd.{variant}"] == 2 and
-                    kernels.launch_counts()["flash_attention_bwd"] == 2,
-                    f"{what}: variant launches {counts}")
-            args = dict(causal=True, window=window or None, softcap=cap)
+                    kernels.launch_counts()["flash_attention_bwd"] == 2 and
+                    kernels.shape_counts()[f"flash_attention_bwd.{kind}"] == 2,
+                    f"{what}: variant launches {counts}, by shape {kernels.shape_counts()}")
+            args = dict(causal=causal, window=window or None, softcap=cap)
             want_lse = attention_lse_ref(q.float(), k.float(), **args)
             lse_err = float((lse - want_lse).abs().max())
             require(lse_err <= LSE_TOL, f"{what}: lse off by {lse_err:.3e}")
@@ -3103,10 +3241,11 @@ def check_flash_attention_bwd():
                      else f"rel L2 {BWD_REL_BF16:.0e}, emulation {BWD_REL_EMU:.0e}")
             plan = ""
             if dtype == torch.bfloat16:
-                p = bwd_plan(b, h, hkv, s, d, window)
+                p = bwd_plan(b, h, hkv, s, d, window, sk=sk)
                 plan = (f", {p.heads_per_block} head(s) per dK/dV block, {p.n_split} "
                         f"split(s), {p.dkdv_blocks} dK/dV + {p.dq_blocks} dQ blocks")
-            print(f"check {what} B={b} H={h} Hkv={hkv} S={s} D={d} causal window={window} "
+            print(f"check {what} B={b} H={h} Hkv={hkv} S={s} Sk={sk} D={d} "
+                  f"{'causal' if causal else 'non-causal'} window={window} "
                   f"softcap={cap:g} ({variant}{plan}): lse max abs err {lse_err:.3e}; {'; '.join(parts)} "
                   f"(limit {limit}); two calls equal")
             del q, k, v, dout, out, lse, got, again, want, want_lse, emu
@@ -3117,6 +3256,7 @@ def _train_counts():
     from repro_torch import kernels
     counts = kernels.launch_counts()
     counts.update(kernels.variant_counts())
+    counts.update(kernels.shape_counts())
     return counts
 
 
@@ -3182,8 +3322,13 @@ def _train_on_card(cfg, label, batch, seq, steps, every=None, plain_remat=None):
     layer's (B, H, S, S) float32 scores, which for all layers at once may
     not fit beside the model's state).  A vision config's batches hold ``frontend_len`` image embeddings
     (normal, from a generator seeded with the step, bf16) that prefix the
-    text.  Returns the backward kernel's launches over the kernel steps,
-    and the run's numbers for the timing line."""
+    text; an encoder-decoder's hold ``encoder_len`` frame embeddings
+    (normal x 0.05, the same generator), and K6 and its backward run once
+    per encoder layer (non-causal) and twice per decoder layer (causal
+    self, then cross at Sk != S), each split counted by
+    ``kernels.shape_counts``.  Returns the backward kernel's launches over
+    the kernel steps, and the run's numbers for the timing line (with the
+    backward's launches by shape, ``bwd_by_shape``)."""
     import shutil
     import types
     import torch
@@ -3199,23 +3344,35 @@ def _train_on_card(cfg, label, batch, seq, steps, every=None, plain_remat=None):
     from repro_torch.training.optimizer import tree_leaves
 
     n_layers = sum(c for _, c in stages_meta(cfg))
+    n_enc = cfg.n_encoder_layers
+    # K6's calls a step by what they attend over: the encoder's non-causal
+    # layers, the decoder's causal self-attention and its cross-attention
+    by_shape = {"full": n_enc, "causal": n_layers, "cross": n_layers if n_enc else 0}
+    n_attn = sum(by_shape.values())
     t0 = time.perf_counter()
     pipe = TokenPipeline(cfg.vocab_size, batch=batch, seq_len=seq, seed=0)
     batches = {i: pipe.batch_at(i) for i in range(steps)}
     images = cfg.frontend_len if cfg.frontend == "vision" else 0
+    frames = cfg.encoder_len if n_enc else 0
 
     def on_card(i):
-        """Step ``i``'s batch on the card (its image embeddings made there)."""
+        """Step ``i``'s batch on the card (its image or frame embeddings
+        made there)."""
         out = {"tokens": torch.from_numpy(batches[i]["tokens"]).cuda()}
-        if images:
+        if images or frames:
             gen = torch.Generator(device="cuda")
             gen.manual_seed(i)
+        if images:
             out["img_embeds"] = torch.randn((batch, images, cfg.d_model), generator=gen,
                                             device="cuda").to(torch.bfloat16)
+        if frames:
+            out["enc_embeds"] = (torch.randn((batch, frames, cfg.d_model), generator=gen,
+                                             device="cuda") * 0.05).to(torch.bfloat16)
         return out
+    extra = (f"; the first {images} positions image embeddings" if images else
+             f"; {frames} frame embeddings a sequence" if frames else "")
     print(f"train data {label}: {steps} batches of {batch} x {seq} tokens "
-          f"(TokenPipeline seed 0{f'; the first {images} positions image embeddings' if images else ''}) "
-          f"in {time.perf_counter() - t0:.2f}s")
+          f"(TokenPipeline seed 0{extra}) in {time.perf_counter() - t0:.2f}s")
     # warmup 1: every step after the first (whose scheduled rate is 0, as
     # in the reference) moves the bf16 weights by more than half a unit
     tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=steps,
@@ -3314,10 +3471,12 @@ def _train_on_card(cfg, label, batch, seq, steps, every=None, plain_remat=None):
                         (m["loss"], m["grad_norm"]))), f"non-finite metrics {m}")
     require(every is None or again == first[every:],
             f"the restored steps differ: {again} against {first[every:]}")
-    want = {"flash_attention": n_layers, "flash_attention.wgmma_bf16": n_layers,
-            "flash_attention_bwd": n_layers, "flash_attention_bwd.wgmma_bf16": n_layers,
+    want = {"flash_attention": n_attn, "flash_attention.wgmma_bf16": n_attn,
+            "flash_attention_bwd": n_attn, "flash_attention_bwd.wgmma_bf16": n_attn,
             "flash_attention.fma_f32": 0, "flash_attention_bwd.fma_f32": 0,
             "decode_attention": 0}
+    want.update({f"{k}.{kind}": n for kind, n in by_shape.items()
+                 for k in ("flash_attention", "flash_attention_bwd")})
     for i, (_, counts) in enumerate(records):
         require("flash_attention_bwd.fma_bf16" not in counts and
                 all(counts[k] == n for k, n in want.items()) and
@@ -3325,6 +3484,8 @@ def _train_on_card(cfg, label, batch, seq, steps, every=None, plain_remat=None):
                 counts["popcount_support"] == 0 and counts["fused_intersect_partial"] == 0,
                 f"{label} training step call {i}: launches {counts}")
     bwd_launches = sum(c["flash_attention_bwd"] for _, c in records)
+    bwd_by_shape = {kind: sum(c[f"flash_attention_bwd.{kind}"] for _, c in records)
+                    for kind in by_shape}
 
     # step 1 again, with the plain attention patched in
     plain_step = step if plain_remat is None else make_train_step(
@@ -3352,17 +3513,18 @@ def _train_on_card(cfg, label, batch, seq, steps, every=None, plain_remat=None):
             f"{plain['loss']}, grad norm {plain['grad_norm']})")
     how = ("in memory, no checkpoint" if every is None else
            f"restored at step {every}: steps {every + 1}-{steps} bit-equal")
+    split = (f" (by shape: {by_shape})" if n_enc else "")
     print(f"train {label} bf16 B={batch} S={seq} remat=none: losses "
           f"{[m['loss'] for m in first]} grad norms {[m['grad_norm'] for m in first]}; "
-          f"{how}; K6 forward {n_layers} (wgmma_bf16) and backward {n_layers} "
-          f"(wgmma_bf16) launches every step, no plain attention on the card")
+          f"{how}; K6 forward {n_attn} (wgmma_bf16) and backward {n_attn} "
+          f"(wgmma_bf16) launches every step{split}, no plain attention on the card")
     print(f"train {label}: step 1 with the plain attention"
           f"{'' if plain_remat is None else f' (remat={plain_remat})'}: loss {plain['loss']} "
           f"(rel diff {rel_loss:.3e}), grad norm {plain['grad_norm']} (rel diff "
           f"{rel_norm:.3e}), both <= {TRAIN_PLAIN_BF16_REL:.0e}")
     return bwd_launches, dict(step_s=[t for t, _ in records], peak=peak,
                               state_gb=state_gb, wall_a=wall_a, wall_b=wall_b,
-                              write_s=write_s)
+                              write_s=write_s, bwd_by_shape=bwd_by_shape)
 
 
 def _train_timing_line(label, batch, seq, steps, every, run):
@@ -3466,6 +3628,35 @@ def run_training_phi3():
     require(run["peak"] <= torch.cuda.get_device_properties(0).total_memory,
             f"phi3 peak {run['peak']}")
     return launches
+
+
+def run_training_whisper():
+    """whisper-base at full width and depth (6 encoder and 6 decoder
+    layers, bf16), WHISPER_B clips a step of WHISPER_S decoder tokens over
+    the 1,500 encoder frames: WHISPER_STEPS steps in memory, no remat, the
+    loss's encoder branch, K6's forward and backward once per encoder
+    layer (non-causal) and twice per decoder layer (causal self, then
+    cross at Sk = 1,500 != S) a step, step 1 within TRAIN_PLAIN_BF16_REL
+    of the plain attention (under remat="full") (:func:`_train_on_card`);
+    the peak printed and held to the card.  Returns the cross backward's
+    launches over the kernel steps."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config("whisper-base")
+    require(cfg.n_layers == 6 and cfg.n_encoder_layers == 6 and cfg.encoder_len == 1500
+            and (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim) == WHISPER_CROSS[1:3] + (64,)
+            and cfg.dtype == "bfloat16", f"whisper-base: {cfg}")
+    label = (f"whisper-base ({cfg.n_encoder_layers} + {cfg.n_layers} layers, "
+             f"{cfg.encoder_len} frames)")
+    launches, run = _train_on_card(cfg, label, WHISPER_B, WHISPER_S, WHISPER_STEPS,
+                                   plain_remat="full")
+    _train_timing_line(label, WHISPER_B, WHISPER_S, WHISPER_STEPS, None, run)
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"train {label}: remat=none, peak_mem_GB {run['peak'] / 1e9:.2f} of the "
+          f"card's {total / 1e9:.2f}; K6 backward launches over {WHISPER_STEPS} steps "
+          f"{launches}, by shape {run['bwd_by_shape']}")
+    require(run["peak"] <= total, f"whisper peak {run['peak']}")
+    return run["bwd_by_shape"]["cross"]
 
 
 def mesh_step_collectives(n_layers, mqa, microbatches, n_leaves, chunks):
@@ -3996,6 +4187,75 @@ def time_capped_flash_attention_bwd(launches):
     return row
 
 
+def time_whisper_cross_bwd(launches):
+    """K6's backward at whisper's training cross-attention (WHISPER_CROSS:
+    S = 448 decoder rows over Sk = 1,500 encoder rows, non-causal, G = 1)
+    beside its bound, its plain version and the backward of torch's
+    scaled_dot_product_attention on the same inputs (the port never calls
+    it), after the kernel is held to the plain version.  ``launches``: the
+    cross backward's launches in run_training_whisper.  Returns the
+    kernels line's row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (attention_ref_bwd,
+                                                     flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.launch.kernel_timing import device_ms, median_ms, nvidia_smi
+    b, h, hkv, s, sk, d = WHISPER_CROSS
+    q, _, _ = attn_inputs(b, h, hkv, s, d, torch.bfloat16, seed=41, model_layout=True)
+    _, k, v = attn_inputs(b, hkv, hkv, sk, d, torch.bfloat16, seed=42, model_layout=True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(43)
+    dout = torch.randn((b, s, h, d), generator=gen, device="cuda").to(torch.bfloat16).transpose(1, 2)
+    out, lse = flash_attention(q, k, v, causal=False, window=0, return_lse=True)
+    fn = lambda: flash_attention_bwd(q, k, v, out, dout, lse, causal=False, window=0)
+    plain = lambda: attention_ref_bwd(q, k, v, out, dout, lse, causal=False)
+    got = fn()
+    want = attention_ref_bwd(q.float(), k.float(), v.float(), out.float(), dout.float(),
+                             lse, causal=False)
+    rel = max(float((g.float() - w).norm() / w.norm()) for g, w in zip(got, want))
+    require(rel <= BWD_REL_BF16, f"flash_attention_bwd at whisper's cross: rel L2 {rel:.3e}")
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=False)
+    lib = lambda: torch.autograd.grad(lib_out, (qs, ks, vs), dout, retain_graph=True)
+    err = max(float((a.float() - b_.float()).norm() / b_.float().norm())
+              for a, b_ in zip(lib(), got))
+    require(err <= SDPA_TOL,
+            f"SDPA's backward disagrees with flash_attention_bwd at whisper's cross: "
+            f"rel L2 {err:.3e}")
+    # every pair kept: q, out, dout, dq of S rows, k, v, dk, dv of Sk rows
+    # (bf16), lse read once
+    nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+    bms, by = bound_attn(nbytes, 10 * d * s * sk * b * h)
+    row = dict(name="flash_attention_bwd", route="cuda",
+               source="src/repro_torch/csrc/flash_attention_bwd.cu",
+               replaces="src/repro/kernels/flash_attention/flash_attention.py:110",
+               shape=WHISPER_CROSS_SHAPE, ms=device_ms(fn, reps=20),
+               plain_ms=device_ms(plain, reps=3), library_ms=device_ms(lib, reps=20),
+               call_ms=median_ms(fn, reps=10), bound_ms=bms, bound_by=by,
+               launches=launches, listed=True, also_listed=True)
+    MAX_ABS_ERR["flash_attention_bwd"] = max(
+        MAX_ABS_ERR["flash_attention_bwd"],
+        max(float((g.float() - w.to(torch.bfloat16).float()).abs().max())
+            for g, w in zip(got, want)))
+    print(f"timing flash_attention_bwd {row['shape']} ({nvidia_smi('name,power.limit')}): "
+          f"ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} bound_ms={row['bound_ms']:.5f} "
+          f"({by}) library_ms={row['library_ms']:.5f} launches_on_main_path={launches}; "
+          f"call_ms={row['call_ms']:.5f}; {row['ms'] / row['bound_ms']:.2f}x the bound, "
+          f"{row['ms'] / row['library_ms']:.2f}x SDPA's backward; rel L2 from the plain "
+          f"version {rel:.3e}; bound: 10 D operations for each of the B H S Sk pairs "
+          f"(every pair kept) at the dense bf16 tensor-core rate, {nbytes} bytes read and "
+          f"written once; library: the backward of scaled_dot_product_attention, which "
+          f"the port never calls; SDPA's gradients within rel L2 {err:.3e}")
+    for key in ("ms", "plain_ms", "library_ms"):
+        require(row["bound_ms"] <= row[key],
+                f"whisper cross flash_attention_bwd: bound_ms {row['bound_ms']:.5f} "
+                f"exceeds {key}")
+    del q, k, v, out, dout, lse, got, want, qs, ks, vs, lib_out
+    torch.cuda.empty_cache()
+    return row
+
+
 def _cast(tree, dtype, device=None):
     if isinstance(tree, dict):
         return {k: _cast(v, dtype, device) for k, v in tree.items()}
@@ -4449,6 +4709,7 @@ def main() -> int:
     launches["fused_intersect_partial"] = phase(run_mesh_mines, DATA)
     launches["popcount_support"] = 0
     stream_rec, _ = phase(run_streams, launches)
+    phase(run_no_compaction, launches)
     phase(run_resilience, launches)
     phase(run_autotune, launches, empty_cache)
     phase(check_stream_pairs, stream_rec)
@@ -4468,11 +4729,13 @@ def main() -> int:
     bwd_launches = phase(run_training)
     grok_launches = phase(run_training_grok)
     phase(run_training_phi3)
+    whisper_bwd = phase(run_training_whisper)
     mesh_launches = phase(run_mesh_training)
     rows = (phase(time_kernels, launches, miner, stream_rec) +
             phase(time_attention, serve_counts, model_counts) +
             [phase(time_flash_attention_bwd, bwd_launches),
-             phase(time_capped_flash_attention_bwd, grok_launches)] +
+             phase(time_capped_flash_attention_bwd, grok_launches),
+             phase(time_whisper_cross_bwd, whisper_bwd)] +
             phase(time_mesh_rank_attention, mesh_launches))
     kernels_line = [dict(name=r["name"], route=r["route"], source=r["source"],
                          replaces=r["replaces"], shape=r["shape"],
@@ -4488,8 +4751,8 @@ def main() -> int:
     # the mesh rank's shape, K6's capped backward at grok's layer, K6 and
     # K7 at hymba's prefill and decode shapes, K6 at phi3's prefill,
     # whisper's encoder and its cross rows, K7 at phi3's decode and over
-    # whisper's cross rows
-    require(len(kernels_line) == len(REPORT_SHAPE) + 10, "a kernel has no timing row")
+    # whisper's cross rows, K6's backward at whisper's training cross
+    require(len(kernels_line) == len(REPORT_SHAPE) + 11, "a kernel has no timing row")
     print(f"chip_smoke wall_s={time.perf_counter() - t_start:.1f} (build included)")
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,7 @@ phi-3-vision-4.2b, whose loss takes an image prefix), xLSTM's ``mlstm``
 and ``slstm`` blocks (xlstm-1.3b), hymba's ``hybrid`` layers, attention
 beside a selective SSM (hymba-1.5b), and whisper's ``enc`` and ``xdec``
 layers, an encoder and a decoder with cross-attention (whisper-base,
-served; its training waits for ROADMAP item 12f).
+served and trained on one device).
 
 Every config is importable as ``repro_torch.configs.<module>.CONFIG`` and
 selectable via ``get_config("<arch-id>")`` / ``--arch <id>``.  The modules

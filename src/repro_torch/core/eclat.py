@@ -113,6 +113,7 @@ class EclatConfig:
     checkpoint_every_level: bool = False
     block_w: Optional[int] = None       # K2's word tile (kernels.autotune.kernel_block_ws); None = autotune table, else the kernel's rule
     autotune: bool = False              # tune on a miss: measure a shape class's tiles before its first launch
+    compact: bool = True                # survivor compaction inside the intersection call (K2); False = the reference's two steps (K1, host mask, row gather)
 
     def resolve_min_sup(self, n_txn: int) -> int:
         return resolve_min_sup(self.min_sup, n_txn)
@@ -305,7 +306,7 @@ def mine(
     execu = eng.resolve_engine(config.backend, mesh,
                                bucket_min=config.bucket_min,
                                shard=config.shard, block_w=config.block_w,
-                               autotune=config.autotune,
+                               autotune=config.autotune, compact=config.compact,
                                hints=(max(est_q2, 1), max(w, 1)), device=dev)
     stats["backend"] = execu.name
     stats["backend_requested"] = config.backend
@@ -509,7 +510,8 @@ def resume_mine(config: EclatConfig, device: DeviceLike = None,
     execu = eng.resolve_engine(config.backend, mesh,
                                bucket_min=config.bucket_min,
                                shard=config.shard, block_w=config.block_w,
-                               autotune=config.autotune, device=dev)
+                               autotune=config.autotune, compact=config.compact,
+                               device=dev)
     stats["backend"] = execu.name
     stats["backend_requested"] = config.backend
     part_to_dev = np.arange(eff_p, dtype=np.int64) % max(execu.n_devices, 1)

@@ -47,6 +47,15 @@ frontiers that :meth:`prepare_frontier` or :meth:`adopt_frontier` (a slice
 cut elsewhere, such as the streaming miner's ring) or an earlier expand
 produced.
 
+Survivor compaction (``compact``, the reference's knob): by default it
+runs inside the intersection call (K2, or K2's given-mask front end after
+K3), so only the ``(Q,)`` mask and supports cross to the host.  With
+``compact=False`` the reference's two-step path runs instead: K1 (K3 with
+its store on the word-sharded backends) writes the whole ``(Q, W)`` block,
+the mask comes to the host, and a row gather of the survivors follows
+(:meth:`Engine._compact`); the survivors and supports are the compacting
+path's bit for bit.
+
 Tile selection and dispatch (DESIGN.md §6): ``block_w`` names K2's word
 tile (``kernels.autotune``: the words one pair's lanes cover per step;
 ``None`` = the autotune table's pick, else the kernel's rule), and
@@ -78,11 +87,12 @@ from ..dist.sharding import (axis_index, axis_size, mesh_descriptor,
 from ..kernels import autotune as at
 from ..kernels.fused_intersect import (MODE_DIFFSET, MODE_TID_TO_DIFF,
                                        MODE_TIDSET, compact_survivors,
-                                       compact_survivors_ref,
+                                       compact_survivors_ref, fused_intersect,
                                        fused_intersect_compact,
                                        fused_intersect_compact_ref,
                                        fused_intersect_partial,
-                                       fused_intersect_partial_ref)
+                                       fused_intersect_partial_ref,
+                                       fused_intersect_ref)
 
 __all__ = [
     "MODE_TIDSET", "MODE_TID_TO_DIFF", "MODE_DIFFSET",
@@ -132,9 +142,9 @@ class EngineState:
 
     ``block_w``, ``autotune``, ``compact`` and ``interpret`` are the
     reference's kernel knobs.  The port's engines carry ``block_w`` (one of
-    K2's word tiles, :data:`PORT_BLOCK_WS`) and ``autotune``, and hold
-    ``compact`` at True and ``interpret`` at None; a state the port cannot
-    run as recorded is refused on restore (:meth:`check_portable`).
+    K2's word tiles, :data:`PORT_BLOCK_WS`), ``autotune`` and ``compact``,
+    and hold ``interpret`` at None; a state the port cannot run as
+    recorded is refused on restore (:meth:`check_portable`).
     """
     backend: str
     inner: str
@@ -189,14 +199,8 @@ class EngineState:
                                 if dpc is not None else []))
 
     def check_portable(self) -> None:
-        """Refuse, by field, a state this port cannot run as recorded: the
-        port has only the compacting engine (ROADMAP queue 3), and its
+        """Refuse, by field, a state this port cannot run as recorded: its
         ``block_w`` names one of K2's word tiles, not a Pallas tile width."""
-        if not self.compact:
-            raise ValueError(
-                "EngineState.compact=False: the state was taken on the "
-                "reference's non-compacting executor, and the port has only "
-                "the compacting engine (ROADMAP queue 3)")
         _check_block_w(self.block_w, "EngineState.block_w")
 
 
@@ -316,6 +320,11 @@ class Engine:
                   winner (:meth:`_maybe_tune`, :meth:`tune_cooccurrence`).
                   Only an engine whose executor is ``fused`` tunes, and an
                   explicit ``block_w`` overrides K2's table.
+    ``compact``   compact the survivors inside the intersection call (K2;
+                  default), or, ``False``, the reference's two steps: the
+                  whole block (K1, or K3 with its store), the mask on the
+                  host, then a row gather (:meth:`_compact`).  Both give
+                  the same survivors, supports and padding rows.
     """
 
     name = "abstract"
@@ -323,22 +332,29 @@ class Engine:
 
     def __init__(self, bucket_min: int = 128, *,
                  compact_min: int | None = None,
-                 block_w: Optional[int] = None, autotune: bool = False):
+                 block_w: Optional[int] = None, autotune: bool = False,
+                 compact: bool = True):
         _check_block_w(block_w, "block_w")
         self.buffers = PairBuffers(bucket_min)
         self.compact_min = (min(self.buffers.floor, 128)
                             if compact_min is None else max(int(compact_min), 1))
         self.block_w = None if block_w is None else int(block_w)
         self.autotune = bool(autotune)
+        self.compact = bool(compact)
         self.n_intersections = 0
         self.n_padded = 0
         self.level_padding: List[Tuple[int, int]] = []
         self.device_pair_counts: List[np.ndarray] = []
 
-    # the device function a backend supplies
+    # the device functions a backend supplies: the intersection with its
+    # survivor compaction (K2), and without it (K1)
     @staticmethod
     def _intersect_compact(bitmaps, left, right, sup_left, min_sup, n_valid,
                            *, mode, lanes=None):
+        raise NotImplementedError
+
+    @staticmethod
+    def _intersect(bitmaps, left, right, sup_left, min_sup, *, mode):
         raise NotImplementedError
 
     @property
@@ -356,9 +372,11 @@ class Engine:
         """Tune on a miss: time K2's tiles for ``q`` pairs over a frontier
         of the shape of ``bitmaps`` before the shape class's first launch,
         so the launch's table lookup hits.  No-op unless ``autotune`` is
-        on, no explicit ``block_w`` overrides it and the executor is
-        ``fused``."""
-        if not self.autotune or self.block_w is not None or self.executor != "fused":
+        on, no explicit ``block_w`` overrides it, the executor is ``fused``
+        and the engine compacts (K2 is the kernel with tiles; K1 and K3
+        take theirs from their plan)."""
+        if (not self.autotune or self.block_w is not None
+                or self.executor != "fused" or not self.compact):
             return
         p, w = bitmaps.shape
         if at.table_config("compact", q, w, mode, bitmaps.device) is None:
@@ -423,14 +441,18 @@ class Engine:
         self._record_padding(q, qb)
         self._maybe_tune(bitmaps, qb, mode)
         lrs = torch.from_numpy(block).to(bitmaps.device)
-        out, sup, mask_dev, _ = self._intersect_compact(
-            bitmaps, lrs[0], lrs[1], lrs[2], int(min_sup), q, mode=mode,
-            lanes=lanes)
+        if self.compact:
+            out, sup, mask_dev, _ = self._intersect_compact(
+                bitmaps, lrs[0], lrs[1], lrs[2], int(min_sup), q, mode=mode,
+                lanes=lanes)
+        else:
+            out, sup, mask_dev = self._intersect(
+                bitmaps, lrs[0], lrs[1], lrs[2], int(min_sup), mode=mode)
         host = torch.stack((mask_dev[:q], sup[:q])).cpu().numpy()
         mask = host[0].astype(bool)
         return LevelResult(mask=mask,
                            supports=host[1][mask].astype(np.int64),
-                           bitmaps=self._slice_survivors(out, int(mask.sum())))
+                           bitmaps=self._survivors(out, mask))
 
     def _empty(self, bitmaps: torch.Tensor) -> LevelResult:
         return LevelResult(mask=np.zeros(0, bool),
@@ -444,6 +466,38 @@ class Engine:
         survivors and the padding beyond them duplicates row 0."""
         sb = bucket_size(max(int(n_surv), 1), self.compact_min)
         return compact[:sb]
+
+    def _compact(self, block: torch.Tensor, sel: np.ndarray,
+                 rows: Optional[int] = None) -> torch.Tensor:
+        """The non-compacting path's survivors: rows ``sel`` of an
+        uncompacted ``(Q, W)`` block, gathered in order and padded with row
+        0 to the survivor rung (``rows``: to that many rows), the layout K2
+        gives, so the two paths are interchangeable bit for bit (the
+        reference's ``_compact``)."""
+        n = bucket_size(max(int(sel.size), 1), self.compact_min) if rows is None else rows
+        idx = np.zeros(n, np.int64)
+        idx[:sel.size] = sel
+        return self._take(block, torch.from_numpy(idx).to(block.device))
+
+    def _survivors(self, out: torch.Tensor, mask: np.ndarray) -> torch.Tensor:
+        """The survivor block of a single-block expansion, ``mask`` the
+        host mask of its ``q`` pairs: the rung slice of K2's compacted
+        block, or the row gather of the uncompacted one."""
+        if self.compact:
+            return self._slice_survivors(out, int(mask.sum()))
+        return self._compact(out, np.nonzero(mask)[0])
+
+    def _rank_survivors(self, out: torch.Tensor, sups: np.ndarray, count: int,
+                        min_sup: int) -> torch.Tensor:
+        """This rank's survivors of a pair-distributed expansion, in slot
+        order, as :meth:`_MeshEngine._assemble` takes them: ``out`` itself
+        when compacting, else the gather of its rows whose support ``sups``
+        (this rank's block, ``count`` of them real) reaches ``min_sup``,
+        padded with row 0 to the block's length."""
+        if self.compact:
+            return out
+        keep = (sups >= min_sup) & (np.arange(sups.size) < count)
+        return self._compact(out, np.nonzero(keep)[0], rows=sups.size)
 
     def host_rows(self, bitmaps: torch.Tensor, n_rows: int) -> np.ndarray:
         """The first ``n_rows`` rows of a frontier this backend carries, whole
@@ -466,7 +520,7 @@ class Engine:
             inner=getattr(self, "inner",
                           self.name if self.name in INNER else "fused"),
             bucket_min=self.buffers.floor, compact_min=self.compact_min,
-            block_w=self.block_w, compact=True, autotune=self.autotune,
+            block_w=self.block_w, compact=self.compact, autotune=self.autotune,
             interpret=None,
             mesh=mesh_descriptor(getattr(self, "mesh", None)),
             n_intersections=self.n_intersections, n_padded=self.n_padded,
@@ -532,13 +586,16 @@ class RefEngine(Engine):
 
     name = "ref"
     _intersect_compact = staticmethod(fused_intersect_compact_ref)
+    _intersect = staticmethod(fused_intersect_ref)
 
 
 class FusedEngine(Engine):
-    """The CUDA kernels for a frontier on the card (plain torch on the host)."""
+    """The CUDA kernels for a frontier on the card (plain torch on the host):
+    K2, or K1 with ``compact=False``."""
 
     name = "fused"
     _intersect_compact = staticmethod(fused_intersect_compact)
+    _intersect = staticmethod(fused_intersect)
 
 
 # ---------------------------------------------------------------------------
@@ -546,12 +603,12 @@ class FusedEngine(Engine):
 # ---------------------------------------------------------------------------
 
 # inner executor -> (pair block with compaction, partial popcount,
-# compaction from a given mask)
+# compaction from a given mask, pair block without compaction)
 _INNER_FUNCS = {
     "fused": (fused_intersect_compact, fused_intersect_partial,
-              compact_survivors),
+              compact_survivors, fused_intersect),
     "ref": (fused_intersect_compact_ref, fused_intersect_partial_ref,
-            compact_survivors_ref),
+            compact_survivors_ref, fused_intersect_ref),
 }
 
 
@@ -566,7 +623,8 @@ class _MeshEngine(Engine):
             raise ValueError(f"unknown inner executor {inner!r}")
         self.mesh = mesh
         self.inner = inner
-        self._compact_block, self._partial, self._compact_rows = _INNER_FUNCS[inner]
+        (self._compact_block, self._partial, self._compact_rows,
+         self._intersect) = _INNER_FUNCS[inner]
 
     def _assemble(self, sups: np.ndarray, block: torch.Tensor,
                   counts: np.ndarray, slot_of_pair: np.ndarray, min_sup: int,
@@ -601,8 +659,9 @@ class ShardedEngine(_MeshEngine):
     """Executor-task mapping: pairs grouped by the rank their class was
     partitioned to, padded per rank to a common rung, the frontier
     replicated.  Each rank runs the inner executor (the intersection with
-    its survivor compaction, K2) on its block; the supports and the survivor rows are then
-    all-gathered over the pair axis."""
+    its survivor compaction, K2; with ``compact=False`` K1 and a gather of
+    its survivor rows) on its block; the supports and the survivor rows
+    are then all-gathered over the pair axis."""
 
     name = "sharded"
 
@@ -631,10 +690,15 @@ class ShardedEngine(_MeshEngine):
         lanes = self._lanes(w)
         self._maybe_tune(bitmaps, qmax, mode)
         lrs = torch.from_numpy(np.stack((lpad[r], rpad[r], spad[r]))).to(bitmaps.device)
-        out, sup, _, _ = self._compact_block(bitmaps, lrs[0], lrs[1], lrs[2],
-                                             int(min_sup), int(counts[r]),
-                                             mode=mode, lanes=lanes)
+        if self.compact:
+            out, sup, _, _ = self._compact_block(bitmaps, lrs[0], lrs[1], lrs[2],
+                                                 int(min_sup), int(counts[r]),
+                                                 mode=mode, lanes=lanes)
+        else:
+            out, sup, _ = self._intersect(bitmaps, lrs[0], lrs[1], lrs[2],
+                                          int(min_sup), mode=mode)
         sups = coll.all_gather(sup, self.mesh, self.axis).cpu().numpy()
+        out = self._rank_survivors(out, sups[r], int(counts[r]), min_sup)
         return self._assemble(sups, out, counts, slot_of_pair, min_sup, self.axis)
 
 
@@ -694,15 +758,20 @@ class _WordShardedFrontierMixin:
                            min_sup: int):
         """K3 on this rank's slice, one all-reduce of the (Q,) counts over
         the data axis, then support, threshold and the compaction of this
-        slice's survivor rows: ``(compact, sup, mask)``."""
+        slice's survivor rows: ``(compact, sup, mask)``.  With
+        ``compact=False`` K3 stores the slice's intersections and they come
+        back uncompacted, with the mask of every pair (the caller gathers
+        the survivors)."""
         l, r, s = lrs
         w = int(bitmaps.shape[1])
         lanes = self._lanes(w)
         self._maybe_tune(bitmaps, int(l.shape[0]), mode)
-        _, pop = self._partial(bitmaps, l, r, mode=mode, store=False)
+        inter, pop = self._partial(bitmaps, l, r, mode=mode, store=not self.compact)
         total = coll.all_reduce(pop, self.mesh, self.data_axis)
         sup = total if mode == MODE_TIDSET else s - total
         mask = (sup >= int(min_sup)).to(torch.int32)
+        if not self.compact:
+            return inter, sup, mask
         out, mask, _ = self._compact_rows(bitmaps, l, r, mask, int(n_valid),
                                           mode=mode, lanes=lanes)
         return out, sup, mask
@@ -746,7 +815,7 @@ class TidShardedEngine(_WordShardedFrontierMixin, _MeshEngine):
         host = torch.stack((mask[:q], sup[:q])).cpu().numpy()
         m = host[0].astype(bool)
         return LevelResult(mask=m, supports=host[1][m].astype(np.int64),
-                           bitmaps=self._slice_survivors(out, int(m.sum())))
+                           bitmaps=self._survivors(out, m))
 
 
 class GridShardedEngine(_WordShardedFrontierMixin, _MeshEngine):
@@ -806,6 +875,7 @@ class GridShardedEngine(_WordShardedFrontierMixin, _MeshEngine):
         out, sup, _ = self._reduced_survivors(bitmaps, lrs, int(counts[c]),
                                               mode, min_sup)
         sups = coll.all_gather(sup, self.mesh, self.class_axis).cpu().numpy()
+        out = self._rank_survivors(out, sups[c], int(counts[c]), min_sup)
         return self._assemble(sups, out, counts, slot_of_pair, min_sup,
                               self.class_axis)
 
@@ -821,17 +891,17 @@ def available_backends() -> List[str]:
 
 def make_engine(backend: str, *, mesh=None, bucket_min: int = 128,
                 inner: str = "fused", block_w: Optional[int] = None,
-                autotune: bool = False) -> Engine:
+                autotune: bool = False, compact: bool = True) -> Engine:
     """Construct a backend by name; the mesh backends need a mesh (``grid``
     a 2D ``("class", "data")`` one) and run ``inner`` on each rank.
-    ``block_w`` / ``autotune`` are the kernel knobs every backend takes
-    (:class:`Engine`).  ``auto`` and ``batched`` are names of
+    ``block_w`` / ``autotune`` / ``compact`` are the kernel knobs every
+    backend takes (:class:`Engine`).  ``auto`` and ``batched`` are names of
     :func:`resolve_engine`, not backends, as in the reference."""
     cls = BACKENDS.get(backend)
     if cls is None:
         raise ValueError(f"unknown engine backend {backend!r}; "
                          f"available: {available_backends()}")
-    knobs = dict(block_w=block_w, autotune=autotune)
+    knobs = dict(block_w=block_w, autotune=autotune, compact=compact)
     if backend in MESH_BACKENDS:
         if mesh is None:
             raise ValueError(f"{backend} backend requires a mesh")
@@ -849,7 +919,7 @@ def engine_from_state(state: EngineState, mesh=None, *,
     and a mesh backend's state with ``mesh=None`` falls back to its inner
     executor on one device.  ``backend`` overrides the target outright
     (a cross-family move, e.g. ``sharded`` -> ``tidsharded``).  The state's
-    ``block_w`` and ``autotune`` carry over."""
+    ``block_w``, ``autotune`` and ``compact`` carry over."""
     state.check_portable()
     target = state.backend if backend is None else backend
     if target in MESH_BACKENDS and mesh is None:
@@ -857,7 +927,8 @@ def engine_from_state(state: EngineState, mesh=None, *,
     eng = make_engine(target, mesh=mesh if target in MESH_BACKENDS else None,
                       bucket_min=state.bucket_min,
                       inner=state.inner if state.inner in INNER else "fused",
-                      block_w=state.block_w, autotune=state.autotune)
+                      block_w=state.block_w, autotune=state.autotune,
+                      compact=state.compact)
     eng.compact_min = int(state.compact_min)
     return eng.restore_state(state)
 
@@ -947,7 +1018,8 @@ def _on_card(device, mesh) -> bool:
 
 def resolve_engine(backend: str, mesh=None, *, bucket_min: int = 128,
                    shard: str = "pairs", block_w: Optional[int] = None,
-                   autotune: bool = False, auto: Optional[bool] = None,
+                   autotune: bool = False, compact: bool = True,
+                   auto: Optional[bool] = None,
                    hints: Optional[Tuple[int, int]] = None,
                    policy_path: Optional[str] = None,
                    device=None) -> Engine:
@@ -973,7 +1045,7 @@ def resolve_engine(backend: str, mesh=None, *, bucket_min: int = 128,
     the default,
     ``fused`` (``"batched"`` is the reference's alias for it).
     ``engine.dispatch`` records what was asked and which table answered.
-    ``block_w`` / ``autotune`` go to whichever engine wins."""
+    ``block_w`` / ``autotune`` / ``compact`` go to whichever engine wins."""
     shard_to_backend = {"pairs": "sharded", "words": "tidsharded",
                         "grid": "grid"}
     if shard not in shard_to_backend:
@@ -994,7 +1066,8 @@ def resolve_engine(backend: str, mesh=None, *, bucket_min: int = 128,
             if choice in BACKENDS and not (choice == "ref"
                                            and _on_card(device, mesh)):
                 backend = choice
-    knobs = dict(bucket_min=bucket_min, block_w=block_w, autotune=autotune)
+    knobs = dict(bucket_min=bucket_min, block_w=block_w, autotune=autotune,
+                 compact=compact)
     if backend not in BACKENDS:
         return make_engine(backend, **knobs)  # raises
     implied = {"sharded": "pairs", "tidsharded": "words",

@@ -2,7 +2,9 @@
 // and/or sliding window, GQA by head map.  Given q, k, v, the forward's
 // output o, the output's gradient do and the forward's row log-sum-exp lse
 // (natural log, float32), it computes, over the pairs (i, j) the masks keep
-// (as in the forward: j <= i when causal, j > i - window when window > 0),
+// (as in the forward: i < S query rows, j < Sk key rows, j <= i when causal,
+// j > i - window when window > 0; Sk != S only with neither, whisper's
+// cross-attention of S decoder rows over Sk = 1,500 encoder rows),
 //
 //   P[i, j]  = exp(c(q_i . k_j * scale) - lse_i)     (recomputed, not stored)
 //   dV[j]    = sum_{h in group, i} P[i, j] do_i
@@ -93,6 +95,20 @@
 // 181; 64: 155 and 149), the reduction 32; chip_smoke.py prints the build
 // log's counts.  On the H100 at gemma-2b's layer a call takes 0.211 ms
 // (chip_smoke.py's timing line), 4.9x the bound and 0.90x SDPA's backward.
+//
+// Keys that are not the queries (whisper's cross-attention in training: S
+// = 448 decoder rows over Sk = 1,500 encoder rows, non-causal, G = 1): the
+// dK/dV blocks, the K/V TMA maps and the partials follow Sk, the dQ blocks
+// and the delta rows S; kept() reads both lengths.  1,500 = 23 x 64 + 28,
+// so the last k tile is ragged: TMA fills its rows past Sk with zeros and
+// the mask zeroes their P and dS; q rows past S (448 = 7 x 64, none here)
+// read lse and delta as 0 and are masked the same way, so they add nothing
+// to dK/dV.  Bound at that shape (B = 16, H = 8, D = 64): 10 D x 86.0 M
+// pairs = 55.1 GFLOP, 0.0557 ms (operations; 128 MB of bytes, 0.038 ms).
+// On the H100 a call took 0.5946 ms, 10.7x the bound and 2.87x SDPA's
+// backward (chip_smoke.py's timing line): each of the 3,072 dK/dV blocks
+// streams only 7 q tiles past its K/V prologue, and each of the 896 dQ
+// blocks 24 k tiles.
 //
 // float32 (the checking dtype: the reduced-config runs): fp32 FMA on the
 // CUDA cores, since the tensor cores have no fp32 product that holds 1e-4
@@ -200,8 +216,8 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src, int row0
   for (int i = threadIdx.x; i < n; i += kThreads) dst[i] = row0 + i < S ? src[row0 + i] : 0.f;
 }
 
-__device__ __forceinline__ bool kept(int i, int j, int S, int causal, int window) {
-  return i < S && j < S && (!causal || j <= i) && (window <= 0 || j > i - window);
+__device__ __forceinline__ bool kept(int i, int j, int S, int Sk, int causal, int window) {
+  return i < S && j < Sk && (!causal || j <= i) && (window <= 0 || j > i - window);
 }
 
 template <typename T>
@@ -259,7 +275,7 @@ flash_attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k
                                 const T* __restrict__ v, const T* __restrict__ g,
                                 const float* __restrict__ lse, const float* __restrict__ delta,
                                 T* __restrict__ dk, T* __restrict__ dv, int H, int group, int S,
-                                int D, Strides st, float sm_scale, float cap, int causal,
+                                int Sk, int D, Strides st, float sm_scale, float cap, int causal,
                                 int window) {
   constexpr int kLd = kD + 4;
   constexpr int kChunks = kD / 32;  // float4 columns per thread row
@@ -279,8 +295,8 @@ flash_attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k
   const int tx = threadIdx.x % 8;
   const int ty = threadIdx.x / 8;
 
-  load_tile<kD, kKvBK>(Ks, k + b * st.k[0] + hk * st.k[1], st.k[2], k0, S, D);
-  load_tile<kD, kKvBK>(Vs, v + b * st.v[0] + hk * st.v[1], st.v[2], k0, S, D);
+  load_tile<kD, kKvBK>(Ks, k + b * st.k[0] + hk * st.k[1], st.k[2], k0, Sk, D);
+  load_tile<kD, kKvBK>(Vs, v + b * st.v[0] + hk * st.v[1], st.v[2], k0, Sk, D);
 
   float4 dk_acc[2][kChunks], dv_acc[2][kChunks];
 #pragma unroll
@@ -330,7 +346,7 @@ flash_attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k
       for (int j = 0; j < 8; ++j) {
         const int col = tx + 8 * j;
         float p = 0.f, pc = 0.f;
-        if (kept(i, k0 + col, S, causal, window))
+        if (kept(i, k0 + col, S, Sk, causal, window))
           prob<kCap>(s[j], li, sm_scale, cap, p, pc);
         Ps[ty * kPLd + col] = p;
         dSs[ty * kPLd + col] = pc * (dp[j] - di);
@@ -360,7 +376,7 @@ flash_attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = k0 + ty + 32 * r;
-    if (row >= S) continue;
+    if (row >= Sk) continue;
 #pragma unroll
     for (int c = 0; c < kChunks; ++c) {
       const int col = tx * 4 + 32 * c;
@@ -383,7 +399,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ v, const T* __restrict__ g,
                               const float* __restrict__ lse, const float* __restrict__ delta,
-                              T* __restrict__ dq, int group, int S, int D, Strides st,
+                              T* __restrict__ dq, int group, int S, int Sk, int D, Strides st,
                               float sm_scale, float cap, int causal, int window) {
   constexpr int kLd = kD + 4;
   constexpr int kChunks = kD / 32;
@@ -423,12 +439,12 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int lo = q0 - window + 1;  // first column row q0 keeps
     k_begin = lo > 0 ? (lo / kQBK) * kQBK : 0;
   }
-  const int k_end = causal ? min(S, q0 + kQBQ) : S;
+  const int k_end = causal ? min(Sk, q0 + kQBQ) : Sk;
 
   for (int k0 = k_begin; k0 < k_end; k0 += kQBK) {
     __syncthreads();  // the previous tile's K, V and dS are consumed
-    load_tile<kD, kQBK>(Ks, kb, st.k[2], k0, S, D);
-    load_tile<kD, kQBK>(Vs, vb, st.v[2], k0, S, D);
+    load_tile<kD, kQBK>(Ks, kb, st.k[2], k0, Sk, D);
+    load_tile<kD, kQBK>(Vs, vb, st.v[2], k0, Sk, D);
     __syncthreads();
 
     // S and dP at q rows ty, ty + 32 and k columns tx + 8 j
@@ -464,7 +480,7 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const int col = tx + 8 * j;
         float p = 0.f, pc = 0.f;
-        if (kept(q0 + lrow, k0 + col, S, causal, window))
+        if (kept(q0 + lrow, k0 + col, S, Sk, causal, window))
           prob<kCap>(s[r][j], li, sm_scale, cap, p, pc);
         dSs[lrow * kSLd + col] = pc * (dp[r][j] - di);
       }
@@ -500,7 +516,7 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <int kD, typename T, bool kCap>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* g,
                    const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int H,
-                   int Hkv, int S, int D, const Strides& st, float sm_scale, float softcap,
+                   int Hkv, int S, int Sk, int D, const Strides& st, float sm_scale, float softcap,
                    int causal, int window, cudaStream_t stream) {
   const T* tq = static_cast<const T*>(q);
   const T* tk = static_cast<const T*>(k);
@@ -519,10 +535,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
   err = cudaFuncSetAttribute(flash_attention_bwd_dkdv_kernel<kD, T, kCap>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, kv_bytes);
   if (err != cudaSuccess) return err;
-  const dim3 kv_grid((S + kKvBK - 1) / kKvBK, Hkv, B);
+  const dim3 kv_grid((Sk + kKvBK - 1) / kKvBK, Hkv, B);
   flash_attention_bwd_dkdv_kernel<kD, T, kCap><<<kv_grid, kThreads, kv_bytes, stream>>>(
-      tq, tk, tv, tg, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), H, H / Hkv, S, D,
-      st, sm_scale, softcap, causal, window);
+      tq, tk, tv, tg, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), H, H / Hkv, S, Sk,
+      D, st, sm_scale, softcap, causal, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -532,7 +548,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
   if (err != cudaSuccess) return err;
   const dim3 q_grid((S + kQBQ - 1) / kQBQ, H, B);
   flash_attention_bwd_dq_kernel<kD, T, kCap><<<q_grid, kThreads, q_bytes, stream>>>(
-      tq, tk, tv, tg, lse, delta, static_cast<T*>(dq), H / Hkv, S, D, st, sm_scale, softcap,
+      tq, tk, tv, tg, lse, delta, static_cast<T*>(dq), H / Hkv, S, Sk, D, st, sm_scale, softcap,
       causal, window);
   return cudaGetLastError();
 }
@@ -540,31 +556,32 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
 template <typename T, bool kCap>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* o,
                        const void* g, const float* lse, float* delta, void* dq, void* dk,
-                       void* dv, int B, int H, int Hkv, int S, int D, const Strides& st,
-                       float sm_scale, float softcap, int causal, int window, cudaStream_t s) {
+                       void* dv, int B, int H, int Hkv, int S, int Sk, int D,
+                       const Strides& st, float sm_scale, float softcap, int causal, int window,
+                       cudaStream_t s) {
   // D runs zero-padded in the next size up
   if (D <= 32)
-    return launch<32, T, kCap>(q, k, v, o, g, lse, delta, dq, dk, dv, B, H, Hkv, S, D, st,
+    return launch<32, T, kCap>(q, k, v, o, g, lse, delta, dq, dk, dv, B, H, Hkv, S, Sk, D, st,
                                sm_scale, softcap, causal, window, s);
   if (D <= 64)
-    return launch<64, T, kCap>(q, k, v, o, g, lse, delta, dq, dk, dv, B, H, Hkv, S, D, st,
+    return launch<64, T, kCap>(q, k, v, o, g, lse, delta, dq, dk, dv, B, H, Hkv, S, Sk, D, st,
                                sm_scale, softcap, causal, window, s);
   if (D <= 128)
-    return launch<128, T, kCap>(q, k, v, o, g, lse, delta, dq, dk, dv, B, H, Hkv, S, D, st,
+    return launch<128, T, kCap>(q, k, v, o, g, lse, delta, dq, dk, dv, B, H, Hkv, S, Sk, D, st,
                                 sm_scale, softcap, causal, window, s);
-  return launch<256, T, kCap>(q, k, v, o, g, lse, delta, dq, dk, dv, B, H, Hkv, S, D, st,
+  return launch<256, T, kCap>(q, k, v, o, g, lse, delta, dq, dk, dv, B, H, Hkv, S, Sk, D, st,
                               sm_scale, softcap, causal, window, s);
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, const void* o, const void* g,
                      const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int H,
-                     int Hkv, int S, int D, const Strides& st, float sm_scale, float softcap,
-                     int causal, int window, cudaStream_t s) {
+                     int Hkv, int S, int Sk, int D, const Strides& st, float sm_scale,
+                     float softcap, int causal, int window, cudaStream_t s) {
   if (softcap > 0.f)
-    return dispatch_d<T, true>(q, k, v, o, g, lse, delta, dq, dk, dv, B, H, Hkv, S, D, st,
+    return dispatch_d<T, true>(q, k, v, o, g, lse, delta, dq, dk, dv, B, H, Hkv, S, Sk, D, st,
                                sm_scale, softcap, causal, window, s);
-  return dispatch_d<T, false>(q, k, v, o, g, lse, delta, dq, dk, dv, B, H, Hkv, S, D, st,
+  return dispatch_d<T, false>(q, k, v, o, g, lse, delta, dq, dk, dv, B, H, Hkv, S, Sk, D, st,
                               sm_scale, softcap, causal, window, s);
 }
 
@@ -586,12 +603,13 @@ constexpr int kProducer = 128;          // dK/dV: the thread that issues the loa
 constexpr int kTargetBlocks = 256;      // dK/dV blocks wanted: about two waves of 132 SMs
 constexpr float kLog2e = 1.4426950408889634f;
 
-// the split of a call: kd, the padded head size; n_kt, the 64-row k tiles;
-// heads_per_block query heads of one group summed inside a dK/dV block;
-// n_split = group / heads_per_block blocks per (k tile, KV head, b), whose
-// float32 partials the reduction kernel sums in split order
+// the split of a call: kd, the padded head size; n_kt, the 64-row k tiles
+// (of Sk rows); n_qt, the 64-row q tiles (of S rows); heads_per_block query
+// heads of one group summed inside a dK/dV block; n_split = group /
+// heads_per_block blocks per (k tile, KV head, b), whose float32 partials
+// the reduction kernel sums in split order
 struct Plan {
-  int kd, n_kt, heads_per_block, n_split;
+  int kd, n_kt, n_qt, heads_per_block, n_split;
   long long delta_floats, part_floats;  // scratch: delta, then 2 x part_floats
 };
 
@@ -603,11 +621,12 @@ inline int padded_d(int D) { return D <= 64 ? 64 : D <= 128 ? 128 : 256; }
 // on the H100 (launch/bwd_splits.py times every split at six shapes): 256
 // blocks, one per SM, beat 512 (twice the partials to write and sum) and
 // 128 (one wave, a tail of idle SMs) wherever 256 were possible
-inline Plan plan(int B, int H, int Hkv, int S, int D, int heads_per_block) {
+inline Plan plan(int B, int H, int Hkv, int S, int Sk, int D, int heads_per_block) {
   Plan p;
   const int group = H / Hkv;
   p.kd = padded_d(D);
-  p.n_kt = (S + kTile - 1) / kTile;
+  p.n_kt = (Sk + kTile - 1) / kTile;
+  p.n_qt = (S + kTile - 1) / kTile;
   const long long base = static_cast<long long>(p.n_kt) * Hkv * B;
   p.heads_per_block = 1;
   if (heads_per_block > 0) {
@@ -622,7 +641,7 @@ inline Plan plan(int B, int H, int Hkv, int S, int D, int heads_per_block) {
   p.n_split = group / p.heads_per_block;
   // delta rounded up to 64 floats, so the partials start 256-byte aligned
   p.delta_floats = (static_cast<long long>(B) * H * S + 63) / 64 * 64;
-  p.part_floats = p.n_split > 1 ? static_cast<long long>(p.n_split) * B * Hkv * S * D : 0;
+  p.part_floats = p.n_split > 1 ? static_cast<long long>(p.n_split) * B * Hkv * Sk * D : 0;
   return p;
 }
 
@@ -658,8 +677,8 @@ __device__ __forceinline__ void named_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-__device__ __forceinline__ bool kept(int i, int j, int S, int causal, int window) {
-  return i < S && j < S && (!causal || j <= i) && (window <= 0 || j > i - window);
+__device__ __forceinline__ bool kept(int i, int j, int S, int Sk, int causal, int window) {
+  return i < S && j < Sk && (!causal || j <= i) && (window <= 0 || j > i - window);
 }
 
 // kk-th 16-deep slice of a 64 x kD swizzled tile, the K-major operand of an
@@ -705,8 +724,8 @@ flash_attention_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                       __nv_bfloat16* __restrict__ dk,
                                       __nv_bfloat16* __restrict__ dv,
                                       float* __restrict__ part_k, float* __restrict__ part_v,
-                                      int H, int Hkv, int group, int hpb, int S, int D,
-                                      long long dksb, long long dksh, long long dkss,
+                                      int H, int Hkv, int group, int hpb, int S, int Sk,
+                                      int D, long long dksb, long long dksh, long long dkss,
                                       long long dvsb, long long dvsh, long long dvss,
                                       float sm_scale, float scale_log2, float cap_scale,
                                       float cap_log2, int causal, int window) {
@@ -801,7 +820,7 @@ flash_attention_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         cv[2 * j + e] = c < S ? __ldg(rv + c) * rmul : 0.f;
       }
     // does some pair of the tile fall outside the masks?
-    const bool edge = q0 + kTile > S || k0 + kTile > S || (causal && k0 + kTile - 1 > q0) ||
+    const bool edge = q0 + kTile > S || k0 + kTile > Sk || (causal && k0 + kTile - 1 > q0) ||
                       (window > 0 && k0 <= q0 + kTile - 1 - window);
     mbar_wait(&full[stage], parity);
     const uint8_t* qs = smem + L::kQ + stage * L::kTileBytes;
@@ -835,7 +854,8 @@ flash_attention_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           } else {
             p = pc = exp2f(x[4 * j + e] * scale_log2 - cv[2 * j + (e & 1)]);
           }
-          if (edge && !kept(q0 + 8 * j + cq + (e & 1), k0 + (e < 2 ? r0 : r1), S, causal, window))
+          if (edge &&
+              !kept(q0 + 8 * j + cq + (e & 1), k0 + (e < 2 ? r0 : r1), S, Sk, causal, window))
             p = pc = 0.f;
           x[4 * j + e] = p;
           p_s[(4 * j + e) * 128 + ti] = pc;
@@ -878,23 +898,23 @@ flash_attention_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   if (n_split == 1) {
     if (wgi == 0)
       store_bf16<kD>(dv + b * dvsb + hk * dvsh + static_cast<long long>(k0) * dvss, dvss, acc,
-                     r0, S - k0, D, cq, 1.f);
+                     r0, Sk - k0, D, cq, 1.f);
     else
       store_bf16<kD>(dk + b * dksb + hk * dksh + static_cast<long long>(k0) * dkss, dkss, acc,
-                     r0, S - k0, D, cq, sm_scale);
+                     r0, Sk - k0, D, cq, sm_scale);
     return;
   }
-  // float32 partials of this split, (n_split, B, Hkv, S, D) contiguous
+  // float32 partials of this split, (n_split, B, Hkv, Sk, D) contiguous
   float* part = (wgi == 0 ? part_v : part_k) +
-                ((static_cast<long long>(split) * B + b) * Hkv + hk) * S * D;
+                ((static_cast<long long>(split) * B + b) * Hkv + hk) * Sk * D;
 #pragma unroll
   for (int j = 0; j < kD / 8; ++j) {
     const int col = 8 * j + cq;
     if (col < D) {
-      if (k0 + r0 < S)
+      if (k0 + r0 < Sk)
         *reinterpret_cast<float2*>(part + static_cast<long long>(k0 + r0) * D + col) =
             make_float2(acc[4 * j], acc[4 * j + 1]);
-      if (k0 + r1 < S)
+      if (k0 + r1 < Sk)
         *reinterpret_cast<float2*>(part + static_cast<long long>(k0 + r1) * D + col) =
             make_float2(acc[4 * j + 2], acc[4 * j + 3]);
     }
@@ -908,7 +928,7 @@ __global__ void __launch_bounds__(256)
 flash_attention_bwd_reduce_kernel(const float* __restrict__ part_k,
                                   const float* __restrict__ part_v,
                                   __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                                  int n_split, int Hkv, int S, int D, long long per_split,
+                                  int n_split, int Hkv, int Sk, int D, long long per_split,
                                   long long dksb, long long dksh, long long dkss,
                                   long long dvsb, long long dvsh, long long dvss,
                                   float sm_scale) {
@@ -927,8 +947,8 @@ flash_attention_bwd_reduce_kernel(const float* __restrict__ part_k,
   const float mult = is_k ? sm_scale : 1.f;
   const int col = static_cast<int>(e % D);
   const long long r = e / D;
-  const int row = static_cast<int>(r % S);
-  const long long bh = r / S;
+  const int row = static_cast<int>(r % Sk);
+  const long long bh = r / Sk;
   const int hk = static_cast<int>(bh % Hkv);
   const int b = static_cast<int>(bh / Hkv);
   __nv_bfloat16* out = is_k ? dk + b * dksb + hk * dksh + row * dkss + col
@@ -952,7 +972,7 @@ flash_attention_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                     const float* __restrict__ lse,
                                     const float* __restrict__ delta,
                                     __nv_bfloat16* __restrict__ dq, int H, int group, int S,
-                                    int D, long long dqsb, long long dqsh, long long dqss,
+                                    int Sk, int D, long long dqsb, long long dqsh, long long dqss,
                                     float sm_scale, float scale_log2, float cap_scale,
                                     float cap_log2, int causal, int window) {
   using L = QLayout<kD>;
@@ -977,7 +997,7 @@ flash_attention_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int lo = q0 - window + 1;  // first column row q0 keeps
     kt0 = lo > 0 ? lo / kTile : 0;
   }
-  const int k_rows = causal ? min(S, q0 + kTile) : S;
+  const int k_rows = causal ? min(Sk, q0 + kTile) : Sk;
   const int n_tiles = (k_rows + kTile - 1) / kTile - kt0;
 
   if (tid == 0) {
@@ -1054,7 +1074,7 @@ flash_attention_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     fence_regs(s);
     fence_regs(dp);
 
-    const bool edge = k0 + kTile > S || q0 + kTile > S || (causal && k0 + kTile - 1 > q0) ||
+    const bool edge = k0 + kTile > Sk || q0 + kTile > S || (causal && k0 + kTile - 1 > q0) ||
                       (window > 0 && k0 <= q0 + kTile - 1 - window);
     uint32_t af[4][4];
 #pragma unroll
@@ -1070,7 +1090,7 @@ flash_attention_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         } else {
           pc = exp2f(s[4 * j + e] * scale_log2 - (hi ? l1 : l0));
         }
-        if (edge && !kept(hi ? row1 : row0, k0 + 8 * j + cq + (e & 1), S, causal, window))
+        if (edge && !kept(hi ? row1 : row0, k0 + 8 * j + cq + (e & 1), S, Sk, causal, window))
           pc = 0.f;
         ds[e] = pc * (dp[4 * j + e] - (hi ? d1 : d0));
       }
@@ -1101,7 +1121,7 @@ flash_attention_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 template <int kD, bool kCap>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* g,
                    const float* lse, float* scratch, void* dq, void* dk, void* dv, int B, int H,
-                   int Hkv, int S, int D, const bwd::Strides& st, const Plan& pl,
+                   int Hkv, int S, int Sk, int D, const bwd::Strides& st, const Plan& pl,
                    float sm_scale, float softcap, int causal, int window, cudaStream_t stream) {
   using T = __nv_bfloat16;
   float* delta = scratch;
@@ -1115,8 +1135,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
 
   CUtensorMap mq, mk, mv, mg;
   err = make_map(&mq, q, B, H, S, D, st.q[0], st.q[1], st.q[2]);
-  if (err == cudaSuccess) err = make_map(&mk, k, B, Hkv, S, D, st.k[0], st.k[1], st.k[2]);
-  if (err == cudaSuccess) err = make_map(&mv, v, B, Hkv, S, D, st.v[0], st.v[1], st.v[2]);
+  if (err == cudaSuccess) err = make_map(&mk, k, B, Hkv, Sk, D, st.k[0], st.k[1], st.k[2]);
+  if (err == cudaSuccess) err = make_map(&mv, v, B, Hkv, Sk, D, st.v[0], st.v[1], st.v[2]);
   if (err == cudaSuccess) err = make_map(&mg, g, B, H, S, D, st.g[0], st.g[1], st.g[2]);
   if (err != cudaSuccess) return err;
   const int group = H / Hkv;
@@ -1137,17 +1157,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
   const dim3 kv_grid(Hkv * pl.n_split, B, pl.n_kt);
   flash_attention_bwd_dkdv_wgmma_kernel<kD, kCap><<<kv_grid, kKvThreads, kv_bytes, stream>>>(
       mq, mk, mv, mg, lse, delta, tdk, tdv, part_k, part_v, H, Hkv, group, pl.heads_per_block,
-      S, D, st.dk[0], st.dk[1], st.dk[2], st.dv[0], st.dv[1], st.dv[2], sm_scale, scale_log2,
+      S, Sk, D, st.dk[0], st.dk[1], st.dk[2], st.dv[0], st.dv[1], st.dv[2], sm_scale, scale_log2,
       cap_scale, cap_log2, causal, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   if (pl.n_split > 1) {
-    const long long per_split = static_cast<long long>(B) * Hkv * S * D;
+    const long long per_split = static_cast<long long>(B) * Hkv * Sk * D;
     const long long threads = per_split / 4;
     const dim3 r_grid(static_cast<unsigned>((threads + 255) / 256), 2);
     flash_attention_bwd_reduce_kernel<<<r_grid, 256, 0, stream>>>(
-        part_k, part_v, tdk, tdv, pl.n_split, Hkv, S, D, per_split, st.dk[0], st.dk[1],
+        part_k, part_v, tdk, tdv, pl.n_split, Hkv, Sk, D, per_split, st.dk[0], st.dk[1],
         st.dk[2], st.dv[0], st.dv[1], st.dv[2], sm_scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -1157,9 +1177,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
   err = cudaFuncSetAttribute(flash_attention_bwd_dq_wgmma_kernel<kD, kCap>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, q_bytes);
   if (err != cudaSuccess) return err;
-  const dim3 q_grid(H, B, pl.n_kt);
+  const dim3 q_grid(H, B, pl.n_qt);
   flash_attention_bwd_dq_wgmma_kernel<kD, kCap><<<q_grid, kQThreads, q_bytes, stream>>>(
-      mq, mk, mv, mg, lse, delta, static_cast<T*>(dq), H, group, S, D, st.dq[0], st.dq[1],
+      mq, mk, mv, mg, lse, delta, static_cast<T*>(dq), H, group, S, Sk, D, st.dq[0], st.dq[1],
       st.dq[2], sm_scale, scale_log2, cap_scale, cap_log2, causal, window);
   return cudaGetLastError();
 }
@@ -1167,29 +1187,30 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
 template <bool kCap>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* o,
                        const void* g, const float* lse, float* scratch, void* dq, void* dk,
-                       void* dv, int B, int H, int Hkv, int S, int D, const bwd::Strides& st,
-                       const Plan& pl, float sm_scale, float softcap, int causal, int window,
-                       cudaStream_t s) {
+                       void* dv, int B, int H, int Hkv, int S, int Sk, int D,
+                       const bwd::Strides& st, const Plan& pl, float sm_scale, float softcap,
+                       int causal, int window, cudaStream_t s) {
   // D runs zero-padded in the next size up (TMA fills the columns past D)
   if (pl.kd == 64)
-    return launch<64, kCap>(q, k, v, o, g, lse, scratch, dq, dk, dv, B, H, Hkv, S, D, st, pl,
-                            sm_scale, softcap, causal, window, s);
+    return launch<64, kCap>(q, k, v, o, g, lse, scratch, dq, dk, dv, B, H, Hkv, S, Sk, D, st,
+                            pl, sm_scale, softcap, causal, window, s);
   if (pl.kd == 128)
-    return launch<128, kCap>(q, k, v, o, g, lse, scratch, dq, dk, dv, B, H, Hkv, S, D, st, pl,
-                             sm_scale, softcap, causal, window, s);
-  return launch<256, kCap>(q, k, v, o, g, lse, scratch, dq, dk, dv, B, H, Hkv, S, D, st, pl,
-                           sm_scale, softcap, causal, window, s);
+    return launch<128, kCap>(q, k, v, o, g, lse, scratch, dq, dk, dv, B, H, Hkv, S, Sk, D, st,
+                             pl, sm_scale, softcap, causal, window, s);
+  return launch<256, kCap>(q, k, v, o, g, lse, scratch, dq, dk, dv, B, H, Hkv, S, Sk, D, st,
+                           pl, sm_scale, softcap, causal, window, s);
 }
 
 cudaError_t dispatch(const void* q, const void* k, const void* v, const void* o, const void* g,
                      const float* lse, float* scratch, void* dq, void* dk, void* dv, int B,
-                     int H, int Hkv, int S, int D, const bwd::Strides& st, const Plan& pl,
-                     float sm_scale, float softcap, int causal, int window, cudaStream_t s) {
+                     int H, int Hkv, int S, int Sk, int D, const bwd::Strides& st,
+                     const Plan& pl, float sm_scale, float softcap, int causal, int window,
+                     cudaStream_t s) {
   if (softcap > 0.f)
-    return dispatch_d<true>(q, k, v, o, g, lse, scratch, dq, dk, dv, B, H, Hkv, S, D, st, pl,
-                            sm_scale, softcap, causal, window, s);
-  return dispatch_d<false>(q, k, v, o, g, lse, scratch, dq, dk, dv, B, H, Hkv, S, D, st, pl,
-                           sm_scale, softcap, causal, window, s);
+    return dispatch_d<true>(q, k, v, o, g, lse, scratch, dq, dk, dv, B, H, Hkv, S, Sk, D, st,
+                            pl, sm_scale, softcap, causal, window, s);
+  return dispatch_d<false>(q, k, v, o, g, lse, scratch, dq, dk, dv, B, H, Hkv, S, Sk, D, st,
+                           pl, sm_scale, softcap, causal, window, s);
 }
 
 }  // namespace wg
@@ -1199,18 +1220,19 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const void* o,
 extern "C" {
 
 // The split of a call (wgmma path for dtype 1; the FMA path has one split):
-// out[0..7] = padded D, k tiles, heads per block, splits, dK/dV blocks, dQ
-// blocks, dK/dV and dQ dynamic shared memory bytes.  heads_per_block 0 takes
-// the rule.  Returns the float32 scratch the launch needs (delta, then the
-// partials), or -1 for a shape the kernels do not take.
-long long flash_attention_bwd_plan(int dtype, int B, int H, int Hkv, int S, int D, int window,
-                                   int heads_per_block, long long* out) {
+// out[0..7] = padded D, k tiles (of Sk rows), heads per block, splits, dK/dV
+// blocks, dQ blocks (one per 64-row q tile of S rows, head and b), dK/dV and
+// dQ dynamic shared memory bytes.  heads_per_block 0 takes the rule.
+// Returns the float32 scratch the launch needs (delta, then the partials),
+// or -1 for a shape the kernels do not take.
+long long flash_attention_bwd_plan(int dtype, int B, int H, int Hkv, int S, int Sk, int D,
+                                   int window, int heads_per_block, long long* out) {
   (void)window;
-  if (B <= 0 || H <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0 || D <= 0 || D > 256 ||
-      D % 8 != 0 || heads_per_block < 0 ||
+  if (B <= 0 || H <= 0 || S <= 0 || Sk <= 0 || Hkv <= 0 || H % Hkv != 0 || D <= 0 ||
+      D > 256 || D % 8 != 0 || heads_per_block < 0 ||
       (heads_per_block > 0 && (H / Hkv) % heads_per_block != 0) || (dtype != 0 && dtype != 1))
     return -1;
-  wg::Plan p = wg::plan(B, H, Hkv, S, D, dtype == 1 ? heads_per_block : H / Hkv);
+  wg::Plan p = wg::plan(B, H, Hkv, S, Sk, D, dtype == 1 ? heads_per_block : H / Hkv);
   long long kv_smem = 0, q_smem = 0;
   if (p.kd == 64) {
     kv_smem = wg::KvLayout<64>::kBytes;
@@ -1228,31 +1250,33 @@ long long flash_attention_bwd_plan(int dtype, int B, int H, int Hkv, int S, int 
   }
   const long long vals[8] = {p.kd, p.n_kt, p.heads_per_block, p.n_split,
                              static_cast<long long>(p.n_kt) * Hkv * p.n_split * B,
-                             static_cast<long long>(p.n_kt) * H * B, kv_smem, q_smem};
+                             static_cast<long long>(p.n_qt) * H * B, kv_smem, q_smem};
   if (out != nullptr) memcpy(out, vals, sizeof(vals));
   return p.delta_floats + 2 * p.part_floats;
 }
 
-// q, o, do, dq: (B, H, S, D); k, v, dk, dv: (B, Hkv, S, D), each addressed
+// q, o, do, dq: (B, H, S, D); k, v, dk, dv: (B, Hkv, Sk, D), each addressed
 // by the 24 element strides in `strides` (b, h, s for q, k, v, o, do, dq,
 // dk, dv in that order) with D contiguous, rows and bases 16-byte aligned.
-// lse: (B, H, S) float32 contiguous.  delta: float32 scratch of
-// flash_attention_bwd_plan(...) floats, written here (delta, then the
-// partial dK and dV).  dtype 0 = float32 (FMA kernels), 1 = bfloat16 (wgmma
-// kernels).  D a multiple of 8 up to 256; window 0 = no window; softcap 0 =
-// none, else the forward's logit soft-cap.
+// Sk != S (keys that are not the queries) only with causal = 0 and window =
+// 0, as in the forward.  lse: (B, H, S) float32 contiguous.  delta: float32
+// scratch of flash_attention_bwd_plan(...) floats, written here (delta, then
+// the partial dK and dV).  dtype 0 = float32 (FMA kernels), 1 = bfloat16
+// (wgmma kernels).  D a multiple of 8 up to 256; window 0 = no window;
+// softcap 0 = none, else the forward's logit soft-cap.
 // heads_per_block: 0 takes the plan's rule; else a divisor of the group
 // (bfloat16 only; it exists to measure the rule against the alternatives).
 // Launches the kernels on `stream`; returns a cudaError_t.
 int flash_attention_bwd_launch_split(const void* q, const void* k, const void* v,
                                      const void* o, const void* g, const void* lse, void* delta,
                                      void* dq, void* dk, void* dv, int dtype, int B, int H,
-                                     int Hkv, int S, int D, const long long* strides,
+                                     int Hkv, int S, int Sk, int D, const long long* strides,
                                      float sm_scale, float softcap, int causal, int window,
                                      int device, void* stream, int heads_per_block) {
   if (B <= 0 || H <= 0 || S <= 0) return cudaSuccess;
   if (Hkv <= 0 || H % Hkv != 0 || D <= 0 || D > 256 || D % 8 != 0 || B > 65535 ||
-      H > 65535 || heads_per_block < 0 || !(softcap >= 0.f) ||
+      H > 65535 || heads_per_block < 0 || !(softcap >= 0.f) || Sk <= 0 ||
+      (Sk != S && (causal || window)) ||
       (heads_per_block > 0 && (H / Hkv) % heads_per_block != 0))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -1264,13 +1288,14 @@ int flash_attention_bwd_launch_split(const void* q, const void* k, const void* v
   const float* l = static_cast<const float*>(lse);
   float* d = static_cast<float*>(delta);
   if (dtype == 0)
-    return bwd::dispatch<float>(q, k, v, o, g, l, d, dq, dk, dv, B, H, Hkv, S, D, st, sm_scale,
-                                softcap, causal, window, s);
+    return bwd::dispatch<float>(q, k, v, o, g, l, d, dq, dk, dv, B, H, Hkv, S, Sk, D, st,
+                                sm_scale, softcap, causal, window, s);
   if (dtype == 1) {
-    const wg::Plan p = wg::plan(B, H, Hkv, S, D, heads_per_block);
-    if (p.n_kt > 65535 || static_cast<long long>(Hkv) * p.n_split > 2147483647LL)
+    const wg::Plan p = wg::plan(B, H, Hkv, S, Sk, D, heads_per_block);
+    if (p.n_kt > 65535 || p.n_qt > 65535 ||
+        static_cast<long long>(Hkv) * p.n_split > 2147483647LL)
       return cudaErrorInvalidValue;
-    return wg::dispatch(q, k, v, o, g, l, d, dq, dk, dv, B, H, Hkv, S, D, st, p, sm_scale,
+    return wg::dispatch(q, k, v, o, g, l, d, dq, dk, dv, B, H, Hkv, S, Sk, D, st, p, sm_scale,
                         softcap, causal, window, s);
   }
   return cudaErrorInvalidValue;
@@ -1278,12 +1303,12 @@ int flash_attention_bwd_launch_split(const void* q, const void* k, const void* v
 
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v, const void* o,
                                const void* g, const void* lse, void* delta, void* dq, void* dk,
-                               void* dv, int dtype, int B, int H, int Hkv, int S, int D,
+                               void* dv, int dtype, int B, int H, int Hkv, int S, int Sk, int D,
                                const long long* strides, float sm_scale, float softcap,
                                int causal, int window, int device, void* stream) {
   return flash_attention_bwd_launch_split(q, k, v, o, g, lse, delta, dq, dk, dv, dtype, B, H,
-                                          Hkv, S, D, strides, sm_scale, softcap, causal, window,
-                                          device, stream, 0);
+                                          Hkv, S, Sk, D, strides, sm_scale, softcap, causal,
+                                          window, device, stream, 0);
 }
 
 }  // extern "C"

@@ -66,10 +66,12 @@ def shape_counts() -> dict:
     """Launches of the attention kernels by what they attend over, since
     the last reset: ``flash_attention.causal``, ``flash_attention.full``
     (non-causal over the queries' own rows) and ``flash_attention.cross``
-    (keys that are not the queries), and ``decode_attention.rows=R`` for
-    each cache of R rows a decode launch read."""
-    out = {f"flash_attention.{m}": n
-           for m, n in flash_attention.flash_attention.mask_launches.items()}
+    (keys that are not the queries), the same split of the backward's
+    calls (``flash_attention_bwd.causal`` ...), and
+    ``decode_attention.rows=R`` for each cache of R rows a decode launch
+    read."""
+    out = {f"{name}.{m}": n for name, fn in _with_variants().items()
+           for m, n in fn.mask_launches.items()}
     out.update((f"decode_attention.rows={r}", n)
                for r, n in decode_attention.decode_attention.rows_launches.items())
     return out
@@ -81,7 +83,7 @@ def reset_launch_counts() -> None:
     for fn in _with_variants().values():
         for v in fn.variant_launches:
             fn.variant_launches[v] = 0
-    mask = flash_attention.flash_attention.mask_launches
-    for m in mask:
-        mask[m] = 0
+    for fn in _with_variants().values():
+        for m in fn.mask_launches:
+            fn.mask_launches[m] = 0
     decode_attention.decode_attention.rows_launches.clear()

@@ -13,18 +13,20 @@ call attends over: ``causal`` (a causal mask, with or without a window),
 ``cross`` (keys that are not the queries).  ``flash_attention(..., return_lse=True)`` also returns each row's
 log-sum-exp, which the backward reads.
 
-The backward's counters, ``flash_attention_bwd.launches`` and
+The backward's counters, ``flash_attention_bwd.launches``,
 ``flash_attention_bwd.variant_launches`` (``wgmma_bf16``: the tensor-core
-kernels; ``fma_f32``: the CUDA-core kernels), count one per call: a call
+kernels; ``fma_f32``: the CUDA-core kernels) and
+``flash_attention_bwd.mask_launches`` (split as the forward's), count one
+per call: a call
 launches its kernels (delta, dK/dV, the reduction of the dK/dV partials
 where the plan splits a group, dQ) together.  :func:`bwd_plan` mirrors the
 CUDA plan of the bf16 path (how a group's query heads are split over
 dK/dV blocks, the shared memory per block, the scratch) for the tests.
 
-The forward takes keys that are not the queries (whisper's cross-attention:
-k and v of Sk rows against q of S rows) without a causal mask or a window;
-the backward is self-attention only (whisper's training, ROADMAP item 12f,
-needs it at Sk != S).
+Both directions take keys that are not the queries (whisper's
+cross-attention: k and v of Sk rows against q of S rows) without a causal
+mask or a window; the other combinations at Sk != S raise ``ValueError``
+before any card is looked for.
 
 The kernel reads q, k and v and writes the output through their strides, so
 a (B, H, S, D) view of the model's (B, S, H, D) activations
@@ -61,14 +63,14 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_float, i, i, vp, i, vp]
         lib.flash_attention_launch.restype = ctypes.c_int
         lib.flash_attention_bwd_launch.argtypes = [
-            vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, strides,
+            vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, strides,
             ctypes.c_float, ctypes.c_float, i, i, i, vp]
         lib.flash_attention_bwd_launch.restype = ctypes.c_int
         lib.flash_attention_bwd_launch_split.argtypes = [
             *lib.flash_attention_bwd_launch.argtypes, i]
         lib.flash_attention_bwd_launch_split.restype = ctypes.c_int
         lib.flash_attention_bwd_plan.argtypes = [
-            i, i, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong)]
+            i, i, i, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong)]
         lib.flash_attention_bwd_plan.restype = ctypes.c_longlong
         _BOUND = True
     return lib
@@ -87,6 +89,19 @@ def _check(named):
         raise ValueError(f"expected float32 or bfloat16 "
                          f"{', '.join(n for n, _ in named)} of one dtype, got "
                          f"{', '.join(str(x) for x in dtypes)}")
+
+
+def _check_other_keys(q, k, causal, window):
+    """The one rule of shapes that reads no device, checked first by both
+    directions, so it holds (and is tested) on a host without a card too:
+    keys that are not the queries (Sk != S) take neither a causal mask nor
+    a window."""
+    if (q.ndim == 4 and k.ndim == 4 and k.shape[2] != q.shape[2]
+            and (causal or window)):
+        raise ValueError(
+            f"k has {k.shape[2]} rows and q {q.shape[2]}: keys that are not "
+            f"the queries take neither a causal mask nor a window (got "
+            f"causal={bool(causal)}, window={window})")
 
 
 def _shapes(q, k, v, window):
@@ -119,6 +134,11 @@ def _strides(*ts) -> ctypes.Array:
         *(st for t in ts for st in t.stride()[:3]))
 
 
+def _mask_kind(s, sk, causal) -> str:
+    """The key of a call in ``mask_launches``."""
+    return "cross" if sk != s else "causal" if causal else "full"
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     sm_scale=None, softcap: float = 0.0,
@@ -136,14 +156,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     With ``return_lse`` returns ``(out, lse)``: ``lse`` (B, H, S) float32,
     each row's natural log-sum-exp of its kept (capped) scores times
     ``sm_scale`` (+inf for a row that keeps none)."""
-    # the one rule of shapes that reads no device: checked first, so it
-    # holds (and is tested) on a host without a card too
-    if (q.ndim == 4 and k.ndim == 4 and k.shape[2] != q.shape[2]
-            and (causal or window)):
-        raise ValueError(
-            f"k has {k.shape[2]} rows and q {q.shape[2]}: keys that are not "
-            f"the queries take neither a causal mask nor a window (got "
-            f"causal={bool(causal)}, window={window})")
+    _check_other_keys(q, k, causal, window)
     _check((("q", q), ("k", k), ("v", v)))
     b, h, hkv, s, sk, d = _shapes(q, k, v, window)
     if not softcap >= 0:
@@ -166,8 +179,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _build.check(code, f"flash_attention ({variant})")
     flash_attention.launches += 1
     flash_attention.variant_launches[variant] += 1
-    flash_attention.mask_launches["cross" if sk != s else
-                                  "causal" if causal else "full"] += 1
+    flash_attention.mask_launches[_mask_kind(s, sk, causal)] += 1
     return (out, lse) if return_lse else out
 
 
@@ -185,28 +197,31 @@ _TARGET_BLOCKS = 256
 
 class BwdPlan(NamedTuple):
     kd: int               # D padded to 64, 128 or 256
-    n_kt: int             # 64-row k tiles (and q tiles)
+    n_kt: int             # 64-row k tiles, of Sk rows
     heads_per_block: int  # query heads of a group summed inside a dK/dV block
     n_split: int          # dK/dV blocks per (k tile, KV head, b)
     dkdv_blocks: int
-    dq_blocks: int
+    dq_blocks: int        # one per 64-row q tile (of S rows), head and b
     dkdv_smem: int        # dynamic shared memory bytes per block
     dq_smem: int
     scratch_floats: int   # delta, then the float32 partial dK and dV
 
 
-def bwd_plan(b, h, hkv, s, d, window=0, heads_per_block=0) -> BwdPlan:
+def bwd_plan(b, h, hkv, s, d, window=0, heads_per_block=0, sk=None) -> BwdPlan:
     """The split of a bf16 backward call, a function of the shape alone:
     the largest divisor of the group G = H / Hkv that still gives 256
     dK/dV blocks (about two waves on the H100's 132 SMs, one block per SM;
     the fastest of the divisors at the shapes ``launch/bwd_splits.py``
     times), else one head per block.  ``heads_per_block`` > 0 overrides
-    the rule.  ``window`` is part of the signature; this rule does not
+    the rule.  ``sk``: the key rows (``None``: ``s``, self-attention); the
+    dK/dV blocks and the partials follow them, the dQ blocks the ``s``
+    query rows.  ``window`` is part of the signature; this rule does not
     read it."""
     del window
+    sk = s if sk is None else sk
     group = h // hkv
     kd = 64 if d <= 64 else 128 if d <= 128 else 256
-    n_kt = -(-s // _TILE)
+    n_kt = -(-sk // _TILE)
     hpb = heads_per_block or next(
         (x for x in range(group, 0, -1)
          if group % x == 0 and n_kt * hkv * b * (group // x) >= _TARGET_BLOCKS), 1)
@@ -216,9 +231,9 @@ def bwd_plan(b, h, hkv, s, d, window=0, heads_per_block=0) -> BwdPlan:
     dkdv_smem = 2 * tile + 2 * 2 * tile + _TILE * _TILE * 4 + slack
     dq_smem = 2 * tile + 2 * 2 * tile + slack
     delta = -(-(b * h * s) // 64) * 64
-    part = n_split * b * hkv * s * d if n_split > 1 else 0
+    part = n_split * b * hkv * sk * d if n_split > 1 else 0
     return BwdPlan(kd, n_kt, hpb, n_split, n_kt * hkv * n_split * b,
-                   n_kt * h * b, dkdv_smem, dq_smem, delta + 2 * part)
+                   -(-s // _TILE) * h * b, dkdv_smem, dq_smem, delta + 2 * part)
 
 
 def bwd_dkdv_blocks(plan: BwdPlan, b, h, hkv):
@@ -239,12 +254,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         lse: torch.Tensor, *, causal: bool = True,
                         window: int = 0, sm_scale=None, softcap: float = 0.0):
     """Gradients of :func:`flash_attention` on the card: q, out, dout
-    (B, H, S, D), k/v (B, Hkv, S, D), all float32 or all bfloat16, and the
+    (B, H, S, D), k/v (B, Hkv, Sk, D), all float32 or all bfloat16, and the
     forward's ``lse`` (B, H, S) float32 -> ``(dq, dk, dv)`` in the inputs'
     dtype and memory layouts, summed in float32 (dk, dv over the G query
     heads of each KV head).  Pass the q, k, v and out the forward read and
     wrote.  Masks and ``softcap`` as in the forward (``window`` 0 = none,
-    ``softcap`` 0 = none; pass the forward's ``lse`` of the capped scores).
+    ``softcap`` 0 = none; pass the forward's ``lse`` of the capped scores;
+    Sk != S only with ``causal=False`` and no window).
     bfloat16: the wgmma kernels, P and dS rounded once to bf16 before their
     products; float32: the FMA kernels."""
     return _bwd(q, k, v, out, dout, lse, causal, window, sm_scale, softcap, 0)
@@ -254,11 +270,9 @@ def _bwd(q, k, v, out, dout, lse, causal, window, sm_scale, softcap,
          heads_per_block):
     """:func:`flash_attention_bwd` with the bf16 plan's ``heads_per_block``
     (0 = the rule; ``launch/bwd_splits.py`` times the alternatives)."""
+    _check_other_keys(q, k, causal, window)
     _check((("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout)))
     b, h, hkv, s, sk, d = _shapes(q, k, v, window)
-    if sk != s:
-        raise ValueError(f"the backward is self-attention only: k has {sk} "
-                         f"rows, q {s} (ROADMAP item 12f)")
     if not softcap >= 0:
         raise ValueError(f"softcap must be >= 0 (0 = none), got {softcap}")
     if out.shape != q.shape or dout.shape != q.shape:
@@ -276,17 +290,18 @@ def _bwd(q, k, v, out, dout, lse, causal, window, sm_scale, softcap,
     if dq.numel() == 0:
         return dq, dk, dv
     lib = _lib()
-    n = lib.flash_attention_bwd_plan(_DTYPES[q.dtype], b, h, hkv, s, d,
+    n = lib.flash_attention_bwd_plan(_DTYPES[q.dtype], b, h, hkv, s, sk, d,
                                      int(window), int(heads_per_block), None)
     if n < 0:
         raise ValueError(f"flash_attention_bwd: no plan for B={b} H={h} "
-                         f"Hkv={hkv} S={s} D={d} heads_per_block={heads_per_block}")
+                         f"Hkv={hkv} S={s} Sk={sk} D={d} "
+                         f"heads_per_block={heads_per_block}")
     scratch = torch.empty(n, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = lib.flash_attention_bwd_launch_split(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], b, h, hkv, s, d,
+        dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], b, h, hkv, s, sk, d,
         _strides(q, k, v, out, dout, dq, dk, dv), float(sm_scale),
         float(softcap), int(bool(causal)), int(window), q.device.index, stream,
         int(heads_per_block))
@@ -294,8 +309,10 @@ def _bwd(q, k, v, out, dout, lse, causal, window, sm_scale, softcap,
     _build.check(code, f"flash_attention_bwd ({variant})")
     flash_attention_bwd.launches += 1
     flash_attention_bwd.variant_launches[variant] += 1
+    flash_attention_bwd.mask_launches[_mask_kind(s, sk, causal)] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
 flash_attention_bwd.variant_launches = dict.fromkeys(_BWD_VARIANTS.values(), 0)
+flash_attention_bwd.mask_launches = dict.fromkeys(("causal", "full", "cross"), 0)

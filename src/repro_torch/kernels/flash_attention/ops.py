@@ -7,9 +7,8 @@ forward launches the forward kernel with the rows' log-sum-exp when an
 input needs a gradient, and its backward launches the backward kernels.
 On a CPU tensor autograd runs through :func:`.ref.attention_ref`.  Both
 directions take the logit soft-cap (grok's 30): the backward kernels'
-capped instances.  Keys that are not the queries (Sk != S, non-causal:
-whisper's cross-attention) run forward only on the card: their backward
-is not ported (ROADMAP item 12f) and asking for it raises.
+capped instances; and keys that are not the queries (Sk != S, whisper's
+cross-attention), non-causal and without a window, as the forward does.
 """
 from __future__ import annotations
 
@@ -54,7 +53,9 @@ class FlashAttentionFunction(torch.autograd.Function):
 def multi_head_attention(q, k, v, *, causal=True, window=None, sm_scale=None,
                          softcap=0.0):
     """q: (B, H, S, D); k/v: (B, Hkv, Sk, D) -> (B, H, S, D), differentiable
-    where Sk = S (on the card; the plain version on the CPU at any Sk).
+    (Sk != S only with ``causal=False`` and no window: the kernels refuse
+    the rest before they look for a card; the plain version on the CPU
+    takes any).
 
     ``window`` 0 and ``None`` both mean no window: the model passes 0 for
     its global layers, the reference kernel tests ``window is not None``.
@@ -66,12 +67,6 @@ def multi_head_attention(q, k, v, *, causal=True, window=None, sm_scale=None,
         # inside a Function's forward grad mode is off, so it is read here
         train = torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v))
-        if train and k.shape[2] != q.shape[2]:
-            raise NotImplementedError(
-                f"the backward of attention over {k.shape[2]} keys for "
-                f"{q.shape[2]} queries is not ported to the card (K6's "
-                "backward is self-attention only; whisper's training, "
-                "ROADMAP item 12f)")
         return FlashAttentionFunction.apply(q, k, v, bool(causal), window or 0,
                                             sm_scale, float(softcap), train)
     if q.device.type == "cpu":

@@ -105,7 +105,7 @@ def attention_lse_ref(q, k, *, causal=True, window=None, sm_scale=None,
 
 
 def _recomputed(q, k, lse, causal, window, sm_scale, softcap):
-    """P = exp(c(s) - lse) of the kept pairs (0 elsewhere), (B, H, S, S)
+    """P = exp(c(s) - lse) of the kept pairs (0 elsewhere), (B, H, S, Sk)
     float32, the factor P c' of the chain rule through the cap (c' = 1 -
     t^2, t = tanh(s / softcap); P itself without a cap), the group size and
     the scale: what the backward kernels recompute from the forward's
@@ -135,10 +135,12 @@ def attention_ref_bwd(q, k, v, out, dout, lse, *, causal=True, window=None,
     heads of each KV head.  ``softcap`` > 0: the scores capped at ``c(x) =
     softcap tanh(x / softcap)`` as in the forward (``lse`` the forward's of
     the capped scores) and ``c' = 1 - tanh(x / softcap)^2``; 0: ``c' = 1``.
-    q, out, dout: (B, H, S, D); k, v: (B, Hkv, S, D) -> ``(dq, dk, dv)`` in
-    float32.  ``window`` as in :func:`attention_ref` (``None`` = none)."""
+    q, out, dout: (B, H, S, D); k, v: (B, Hkv, Sk, D) -> ``(dq, dk, dv)``
+    in float32 (Sk != S, keys that are not the queries, as the kernels
+    take it: non-causal, no window).  ``window`` as in
+    :func:`attention_ref` (``None`` = none)."""
     b, h, s, d = q.shape
-    hkv = k.shape[1]
+    hkv, sk = k.shape[1], k.shape[2]
     p, pc, group, sm_scale = _recomputed(q, k, lse, causal, window, sm_scale,
                                          softcap)
     qf, gf, of = q.float(), dout.float(), out.float()
@@ -150,8 +152,8 @@ def attention_ref_bwd(q, k, v, out, dout, lse, *, causal=True, window=None,
     ds = pc * (dp - delta[..., None])
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kk) * sm_scale
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * sm_scale
-    dk = dk.reshape(b, hkv, group, s, d).sum(2)
-    dv = dv.reshape(b, hkv, group, s, d).sum(2)
+    dk = dk.reshape(b, hkv, group, sk, d).sum(2)
+    dv = dv.reshape(b, hkv, group, sk, d).sum(2)
     return dq, dk, dv
 
 
@@ -171,7 +173,7 @@ def attention_bwd_bf16_ref(q, k, v, out, dout, lse, *, causal=True,
     stores would.  The kernels take exp2 of log2-scaled values; that
     changes P by fp32 roundings only."""
     b, h, s, d = q.shape
-    hkv = k.shape[1]
+    hkv, sk = k.shape[1], k.shape[2]
     p, pc, group, sm_scale = _recomputed(q, k, lse, causal, window, sm_scale,
                                          softcap)
     qf, gf, of = q.float(), dout.float(), out.float()
@@ -182,8 +184,8 @@ def attention_bwd_bf16_ref(q, k, v, out, dout, lse, *, causal=True,
     ds = (pc * (dp - delta[..., None])).to(torch.bfloat16).float()
     p = p.to(torch.bfloat16).float()
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kk) * sm_scale
-    dk_h = torch.einsum("bhqk,bhqd->bhkd", ds, qf).reshape(b, hkv, group, s, d)
-    dv_h = torch.einsum("bhqk,bhqd->bhkd", p, gf).reshape(b, hkv, group, s, d)
+    dk_h = torch.einsum("bhqk,bhqd->bhkd", ds, qf).reshape(b, hkv, group, sk, d)
+    dv_h = torch.einsum("bhqk,bhqd->bhkd", p, gf).reshape(b, hkv, group, sk, d)
     dk, dv = dk_h[:, :, 0], dv_h[:, :, 0]
     for g in range(1, group):
         dk = dk + dk_h[:, :, g]

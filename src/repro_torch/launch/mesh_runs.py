@@ -21,7 +21,8 @@ driver's flags.  Kinds:
 ``expand``      one ``Engine.expand`` of a level-1 frontier ``bitmaps``
                 (uint32) through ``prepare_frontier``; returns the level
                 result with this rank's survivor rows, the engine's stats and
-                the collectives of that expand alone
+                the collectives of that expand alone (``compact``: the
+                engine's knob, default True)
 ``accumulate``  the v3 mesh accumulator (``build_vertical_accumulated``)
 ``stream``      a ``StreamingMiner`` with ``config`` (the ``StreamConfig``
                 fields) on the rank's mesh, sliding the batches of
@@ -177,7 +178,8 @@ def _expand(rank: _Rank, job: dict) -> dict:
     dev = rank.device
     engine = resolve_engine(job.get("inner", "fused"), mesh,
                             bucket_min=job.get("bucket_min", 128),
-                            shard=job.get("shard", "pairs"))
+                            shard=job.get("shard", "pairs"),
+                            compact=job.get("compact", True))
     frontier = engine.prepare_frontier(words_from_numpy(job["bitmaps"], dev))
     kernels.reset_launch_counts()
     before = coll.collective_counts()

@@ -29,12 +29,13 @@ Cross-attention (whisper's decoder over its encoder, ``cross_kv``): the
 rows are the keys, and neither gets rope, as in the reference.  A prompt
 (S > 1) runs the flash kernel non-causally at Sk != S; a decode step
 (S = 1) runs the decode kernel over all Sk rows (``length`` = Sk for
-every sequence, made on the card) and writes no cache.
+every sequence, made on the card) and writes no cache.  In training the
+prompt's path carries the gradient to q and to the encoder's k and v.
 
 The full-sequence path (no cache) is differentiable on both devices: on the
 card through ``FlashAttentionFunction`` (the flash kernel's forward and its
-hand-written backward, which takes no soft-cap: a soft-capped gradient on
-the card raises), on the CPU through autograd of :func:`flash_chunked`.
+hand-written backward, soft-capped and at Sk != S too), on the CPU through
+autograd of :func:`flash_chunked`.
 Training takes it; serving runs under ``torch.inference_mode``, where the
 kernel writes no log-sum-exp.
 """
@@ -203,8 +204,9 @@ def _tp_projections(p: dict, x: torch.Tensor, cfg, mesh):
 def _cross_attend(q, k, v, sm_scale, cap):
     """q (B, S, H, D) over the encoder's k, v (B, Sk, KV, D), every row
     kept: a decode step (S = 1) through the decode kernel with ``length``
-    Sk for every sequence, a prompt through the flash kernel non-causally
-    (its plain versions on the CPU)."""
+    Sk for every sequence, a prompt (and a training sequence, whose
+    gradient reaches q, k and v through K6's backward) through the flash
+    kernel non-causally (their plain versions on the CPU)."""
     b, s, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
     if s > 1:

@@ -25,11 +25,13 @@ layers (non-causal self-attention with rope, then the MLP) run in
 (causal self-attention through the cache, cross-attention over the
 encoder's K/V, which ``Model.cross_kv`` computes once per input and
 ``backbone``, ``prefill`` and ``decode_step`` take as ``enc_out``, then
-the MLP) are its decoder.  phi-3-vision's loss prefixes the text with the
-batch's ``img_embeds``, as the reference's early-fusion stub does; its
-prefill and decode take no image, as the reference's.  The loss's encoder
-branch (whisper's training, ROADMAP item 12f) and the cost-analysis mode
-raise ``NotImplementedError``.
+the MLP) are its decoder; its loss encodes the batch's ``enc_embeds`` and
+runs the decoder over their cross K/V, as the reference's does, the
+gradient flowing through the cross-attention (K6's backward at Sk != S on
+the card) into the encoder.  phi-3-vision's loss prefixes the text with
+the batch's ``img_embeds``, as the reference's early-fusion stub does; its
+prefill and decode take no image, as the reference's.  The cost-analysis
+mode raises ``NotImplementedError``.
 
 ``Model(cfg, mesh=mesh)`` trains a decoder on a ``("data", "model")``
 mesh (``launch.mesh.make_mesh_named``) with the parameters placed by the
@@ -575,7 +577,11 @@ class Model:
         """Next-token loss, float32, plus ``0.01`` times the MoE layers'
         load-balance loss, as in the reference.  batch: ``{"tokens": (B,
         S)}``; position ``i`` predicts token ``i + 1`` and the last position
-        is masked, as in the reference.  A vision config's batch may hold
+        is masked, as in the reference.  An encoder-decoder's batch holds
+        ``enc_embeds`` (B, Se, D): :meth:`encode`, then :meth:`cross_kv`,
+        and the decoder reads them (``remat`` applies to the decoder's
+        layers, the encoder's run whole, as in the reference); another
+        config ignores them.  A vision config's batch may hold
         ``img_embeds`` (B, F, D): they take the first F positions, followed
         by the embedded ``tokens[:, :S - F]``; position ``i`` predicts the
         sequence's entry ``i + 1``, so the image positions but the last
@@ -592,11 +598,10 @@ class Model:
         once; ``batch["whole_batch"]`` (a replicated batch on a mesh) tells
         their routing that every data rank holds every group."""
         cfg = self.cfg
-        if cfg.n_encoder_layers or "enc_embeds" in batch:
-            raise NotImplementedError(
-                f"{cfg.name}: the encoder branch of the loss (whisper's "
-                "training) is not ported (ROADMAP item 12f)")
         tokens = batch["tokens"]
+        enc = None
+        if cfg.n_encoder_layers:
+            enc = self.cross_kv(params, self.encode(params, batch["enc_embeds"]))
         if cfg.frontend == "vision" and "img_embeds" in batch:
             if self.mesh is not None:
                 raise NotImplementedError(
@@ -617,7 +622,7 @@ class Model:
             mask = torch.ones(targets.shape, dtype=torch.float32,
                               device=tokens.device)
         mask[:, -1] = 0.0
-        h, _, aux = self.backbone(params, x, remat=remat,
+        h, _, aux = self.backbone(params, x, enc_out=enc, remat=remat,
                                   whole_batch=bool(batch.get("whole_batch")))
         loss_sum, mask_sum = self.unembed_chunked(params, h, targets, mask)
         axes = data_axes(self.mesh)

@@ -69,17 +69,11 @@ class StreamConfig:
     bucket_min: int = 128          # engine pair-buffer ladder floor (half-pow2 rungs)
     block_w: Optional[int] = None  # K2's word tile (kernels.autotune.kernel_block_ws); None = autotune table, else the kernel's rule
     autotune: bool = False         # tune on a miss: measure a shape class's tiles before its first launch
-    # the reference's non-compacting engine is not in the port: any value but
-    # True raises NotImplementedError
-    compact: bool = True
+    compact: bool = True           # survivor compaction inside the intersection call (K2); False = the reference's two steps (K1, host mask, row gather)
 
     def resolve_min_sup(self, n_txn: int) -> int:
         return resolve_min_sup(self.min_sup, n_txn)
 
-
-# field -> (its default, the ROADMAP entry that says why it is refused)
-_UNPORTED = {"compact": (True, "queue 3 (the port has only the compacting "
-                               "engine)")}
 
 
 @dataclasses.dataclass
@@ -183,11 +177,6 @@ class StreamingMiner:
 
     def __init__(self, n_items: int, config: StreamConfig, mesh=None,
                  keep_transactions: bool = True, device: DeviceLike = None):
-        for field, (default, item) in _UNPORTED.items():
-            if getattr(config, field) != default:
-                raise NotImplementedError(
-                    f"StreamConfig.{field}={getattr(config, field)!r} is not "
-                    f"ported yet (ROADMAP {item})")
         self.n_items = int(n_items)
         self.config = config
         self.mesh = mesh
@@ -213,6 +202,7 @@ class StreamingMiner:
                                          shard=config.shard,
                                          block_w=config.block_w,
                                          autotune=config.autotune,
+                                         compact=config.compact,
                                          hints=(est_q, est_w),
                                          device=self.device)
         # the count matrix on the engine's executor: the kernel for fused,

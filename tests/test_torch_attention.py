@@ -256,16 +256,19 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_count_nothing():
 
 
 def test_reset_launch_counts_clears_the_attention_split_by_shape():
-    """``kernels.shape_counts`` reads the counters K6 and K7 keep where they
-    launch (K6 by its mask, K7 by its cache's rows);
+    """``kernels.shape_counts`` reads the counters K6, its backward and K7
+    keep where they launch (K6 by its mask, K7 by its cache's rows);
     ``reset_launch_counts`` zeroes K6's and forgets K7's rows."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
     tk.reset_launch_counts()
-    assert tk.shape_counts() == {"flash_attention.causal": 0, "flash_attention.full": 0,
-                                 "flash_attention.cross": 0}
+    zero = {f"{k}.{m}": 0 for k in ("flash_attention", "flash_attention_bwd")
+            for m in ("causal", "full", "cross")}
+    assert tk.shape_counts() == zero
     flash_attention.mask_launches["cross"] = 3
+    flash_attention_bwd.mask_launches["cross"] = 1
     decode_attention.rows_launches[1500] = 2
-    assert tk.shape_counts() == {"flash_attention.causal": 0, "flash_attention.full": 0,
-                                 "flash_attention.cross": 3,
+    assert tk.shape_counts() == {**zero, "flash_attention.cross": 3,
+                                 "flash_attention_bwd.cross": 1,
                                  "decode_attention.rows=1500": 2}
     tk.reset_launch_counts()
     assert not any(tk.shape_counts().values()) and not decode_attention.rows_launches
@@ -703,6 +706,30 @@ def test_bwd_plan_covers_every_k_tile_and_head_once(b, h, hkv, s, d, window):
     assert plan.dq_blocks == plan.n_kt * h * b
     assert plan.scratch_floats >= b * h * s + (
         2 * group * b * hkv * s * d if plan.n_split > 1 else 0) // plan.heads_per_block
+
+
+@pytest.mark.parametrize("b,h,hkv,s,sk,d", [
+    (16, 8, 8, 448, 1500, 64),    # whisper's cross-attention in training
+    (1, 8, 2, 130, 65, 64),       # G = 4, fewer keys, split over blocks
+    (2, 8, 1, 40, 300, 16)])      # G = 8, more keys
+def test_bwd_plan_at_other_keys(b, h, hkv, s, sk, d):
+    """At Sk != S the dK/dV blocks (and the partials) follow the Sk key
+    rows, every (k tile, b, head) once, and the dQ blocks the S query
+    rows; the plan of self-attention is the plan with ``sk=s``."""
+    from collections import Counter
+    from repro_torch.kernels.flash_attention import bwd_dkdv_blocks, bwd_plan
+    plan = bwd_plan(b, h, hkv, s, d, sk=sk)
+    assert bwd_plan(b, h, hkv, s, d) == bwd_plan(b, h, hkv, s, d, sk=s)
+    assert plan.n_kt == -(-sk // 64) and plan.dq_blocks == -(-s // 64) * h * b
+    cover = Counter((kt, bb, head) for kt, bb, heads in bwd_dkdv_blocks(plan, b, h, hkv)
+                    for head in heads)
+    assert set(cover) == {(kt, bb, head) for kt in range(-(-sk // 64))
+                          for bb in range(b) for head in range(h)}
+    assert set(cover.values()) == {1}
+    part = plan.n_split * b * hkv * sk * d if plan.n_split > 1 else 0
+    assert plan.scratch_floats == -(-(b * h * s) // 64) * 64 + 2 * part
+    if (b, s, sk) == (16, 448, 1500):   # 24 k tiles x 8 heads x 16: no split
+        assert (plan.n_split, plan.dkdv_blocks, plan.dq_blocks) == (1, 3072, 896)
 
 
 def test_bwd_plan_fills_the_card_at_mqa():

@@ -438,8 +438,10 @@ def test_a_reference_state_with_a_pallas_tile_is_refused_by_name():
         eng.engine_from_state(_reference_state(block_w=512))
     e = eng.engine_from_state(_reference_state(block_w=256))
     assert e.block_w == 256
-    with pytest.raises(ValueError, match="compact=False"):
-        eng.engine_from_state(_reference_state(compact=False))
+    # a non-compacting reference state (ported) rebuilds a non-compacting
+    # engine, which snapshots as one
+    e = eng.engine_from_state(_reference_state(compact=False))
+    assert (e.name, e.compact, e.snapshot_state().compact) == ("fused", False, False)
 
 
 def test_a_reference_stream_checkpoint_with_autotune_restores(tmp_path):

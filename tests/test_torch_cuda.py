@@ -204,6 +204,43 @@ def test_mine_on_the_card_launches_every_kernel(cuda):
     assert sums["fused"] == sums["ref"] == support_checksum(cpu.support_map())
 
 
+@pytest.mark.parametrize("mode", MODES)
+def test_fused_engine_without_compaction_launches_k1(cuda, mode):
+    """``FusedEngine(compact=False)``: one expansion launches K1 and not
+    K2, and its level result (mask, supports, every row of the survivor
+    block) equals the compacting engine's bit for bit; a mine with
+    ``compact=False`` launches K1 once an expansion and K2 never."""
+    from repro_torch.core import engine as eng
+    rng = np.random.default_rng(mode)
+    words = rng.integers(0, 2**32, (300, 100), dtype=np.uint32)
+    left = rng.integers(0, 300, 5000).astype(np.int32)
+    right = rng.integers(0, 300, 5000).astype(np.int32)
+    sup_left = popcount_np(words[left]).sum(-1).astype(np.int32)
+    ms = int(np.median(popcount_np(words[left] & words[right]).sum(-1)))
+    frontier = words_from_numpy(words, cuda)
+    res = {}
+    for compact in (False, True):
+        e = eng.make_engine("fused", compact=compact)
+        kernels.reset_launch_counts()
+        res[compact] = e.expand(frontier, left, right, sup_left, mode=mode, min_sup=ms)
+        counts = kernels.launch_counts()
+        assert (counts["fused_intersect"], counts["fused_intersect_compact"]) == \
+            ((0, 1) if compact else (1, 0))
+    assert np.array_equal(res[False].mask, res[True].mask)
+    assert np.array_equal(res[False].supports, res[True].supports)
+    assert torch.equal(res[False].bitmaps, res[True].bitmaps)
+    txns = [sorted(set(rng.integers(0, 12, rng.integers(2, 8)).tolist()))
+            for _ in range(400)]
+    cfg = dict(min_sup=20, variant="v6", p=3, use_diffsets=True)
+    kernels.reset_launch_counts()
+    got = mine(txns, 12, EclatConfig(compact=False, **cfg))
+    counts = kernels.launch_counts()
+    n_expands = len(got.stats["pair_padding"]["per_level"])
+    assert counts["fused_intersect"] == n_expands > 0
+    assert counts["fused_intersect_compact"] == 0
+    assert got.support_map() == mine(txns, 12, EclatConfig(**cfg)).support_map()
+
+
 # (P, Ws, Q): a slice of one word, Ws = 25 (chess at 4 word shards), Q = 0
 # and 1, several tiles
 PARTIAL_SHAPES = [(9, 1, 7), (40, 25, 300), (5, 13, 0), (5, 13, 1),
@@ -742,14 +779,35 @@ def test_flash_attention_over_keys_that_are_not_the_queries(cuda, b, h, hkv, s,
             q.float(), k.float(), v.float(), causal=False))
 
 
-def test_cross_attention_gradient_raises_on_the_card(cuda):
-    """K6's backward is self-attention only: a gradient through attention
-    over keys that are not the queries raises before any launch."""
-    q = torch.randn((1, 2, 4, 64), device=cuda, requires_grad=True)
-    k = torch.randn((1, 2, 9, 64), device=cuda)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_attention_gradient_raises_on_the_card(cuda, dtype):
+    """A gradient through attention over keys that are not the queries (no
+    longer refused: K6's backward takes Sk != S) launches the forward with
+    its lse and the backward once each, counted as ``cross``; the
+    gradients reach q, k and v in their layouts and equal autograd of the
+    plain version within the backward's tolerance.  A causal mask at
+    Sk != S is still refused, before any launch."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q = torch.randn((2, 4, 8, 64), generator=g, device=cuda).to(dtype).transpose(1, 2)
+    k, v = (torch.randn((2, 300, 8, 64), generator=g, device=cuda).to(dtype)
+            .transpose(1, 2) for _ in range(2))
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     kernels.reset_launch_counts()
-    with pytest.raises(NotImplementedError, match="12f"):
-        multi_head_attention(q, k, k, causal=False)
+    multi_head_attention(*leaves, causal=False).float().square().sum().backward()
+    assert kernels.launch_counts()["flash_attention"] == 1
+    assert kernels.launch_counts()["flash_attention_bwd"] == 1
+    assert kernels.shape_counts()["flash_attention_bwd.cross"] == 1
+    plain = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    attention_ref(*plain, causal=False).square().sum().backward()
+    for t, w in zip(leaves, plain):
+        assert t.grad.stride() == t.stride() and t.grad.dtype == dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(t.grad, w.grad, rtol=0, atol=BWD_TOL_F32)
+        else:
+            assert float((t.grad.float() - w.grad).norm() / w.grad.norm()) <= BWD_REL_BF16
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="keys that are not the queries"):
+        multi_head_attention(*leaves, causal=True)
     assert kernels.launch_counts()["flash_attention"] == 0
 
 
@@ -818,6 +876,22 @@ def test_flash_attention_bwd_matches_its_plain_version(cuda, b, h, hkv, s, d,
     _check_bwd(cuda, b, h, hkv, s, d, causal, window, softcap, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,s,sk,d", [
+    (2, 8, 8, 448, 1500, 64),    # whisper's cross-attention in training, G = 1
+    (1, 8, 8, 1500, 1500, 64),   # whisper's encoder (non-causal self)
+    (1, 8, 2, 130, 65, 64),      # G = 4 split over blocks, a ragged k tile
+    (2, 4, 4, 200, 77, 96),      # D = 96, fewer keys than queries
+    (1, 4, 1, 1, 300, 64)])      # one query row, G = 4
+def test_flash_attention_bwd_over_other_keys_matches_its_plain_version(
+        cuda, b, h, hkv, s, sk, d, dtype):
+    """K6's backward at Sk != S (non-causal, no window; 1,500 = 23 x 64 +
+    28 keys leave a ragged last k tile): the kernels against
+    ``attention_ref_bwd`` and, in bf16, ``attention_bwd_bf16_ref``; two
+    calls bit-equal; dk and dv of Sk rows."""
+    _check_bwd(cuda, b, h, hkv, s, d, False, 0, 0.0, dtype, sk=sk)
+
+
 def test_capped_bwd_at_groks_training_layer(cuda):
     """The capped backward at grok's training layer (B=2 H=48 Hkv=8 S=1,024
     D=128, G = 6, bf16, the dtype grok trains in; its float32 kernel is
@@ -825,13 +899,15 @@ def test_capped_bwd_at_groks_training_layer(cuda):
     _check_bwd(cuda, 2, 48, 8, 1024, 128, True, 0, 30.0, torch.bfloat16)
 
 
-def _check_bwd(cuda, b, h, hkv, s, d, causal, window, softcap, dtype):
+def _check_bwd(cuda, b, h, hkv, s, d, causal, window, softcap, dtype, sk=None):
     from repro_torch.kernels.flash_attention import (attention_bwd_bf16_ref,
                                                      attention_lse_ref,
                                                      attention_ref_bwd,
                                                      flash_attention,
                                                      flash_attention_bwd)
     q, k, v = _model_layout_qkv(b, h, hkv, s, d, dtype, s + d + 1, cuda)
+    if sk is not None:
+        _, k, v = _model_layout_qkv(b, hkv, hkv, sk, d, dtype, sk + d, cuda)
     if softcap:
         q = (q.float() * CAP_Q_SCALE).to(dtype)
     gen = torch.Generator(device=cuda).manual_seed(s)
@@ -856,7 +932,7 @@ def _check_bwd(cuda, b, h, hkv, s, d, causal, window, softcap, dtype):
         assert torch.equal(g_, a_)
         if dtype == torch.float32:
             torch.testing.assert_close(g_, w_, rtol=0, atol=BWD_TOL_F32)
-        elif s == 1 and name in "qk":
+        elif s == 1 and k.shape[2] == 1 and name in "qk":
             # one key per row: P = 1 and dS = dP - delta = 0 in exact
             # arithmetic, so dq and dk are fp32 rounding noise here and in
             # the plain version, and a relative error means nothing
@@ -879,8 +955,23 @@ def test_flash_attention_bwd_plan_matches_its_mirror(cuda, b, h, hkv, s, d, wind
     from repro_torch.kernels.flash_attention import bwd_plan
     from repro_torch.kernels.flash_attention.flash_attention import _lib
     out = (ctypes.c_longlong * 8)()
-    n = _lib().flash_attention_bwd_plan(1, b, h, hkv, s, d, window, 0, out)
+    n = _lib().flash_attention_bwd_plan(1, b, h, hkv, s, s, d, window, 0, out)
     want = bwd_plan(b, h, hkv, s, d, window)
+    assert list(out) == list(want[:8]) and n == want.scratch_floats
+
+
+@pytest.mark.parametrize("b,h,hkv,s,sk,d", [
+    (16, 8, 8, 448, 1500, 64), (1, 8, 2, 130, 65, 64), (2, 8, 1, 40, 300, 16)])
+def test_flash_attention_bwd_plan_at_other_keys_matches_its_mirror(cuda, b, h, hkv,
+                                                                   s, sk, d):
+    """The CUDA plan at Sk != S (k tiles and partials of Sk rows, dQ blocks
+    of S rows) equals ``bwd_plan(..., sk=)``."""
+    import ctypes
+    from repro_torch.kernels.flash_attention import bwd_plan
+    from repro_torch.kernels.flash_attention.flash_attention import _lib
+    out = (ctypes.c_longlong * 8)()
+    n = _lib().flash_attention_bwd_plan(1, b, h, hkv, s, sk, d, 0, 0, out)
+    want = bwd_plan(b, h, hkv, s, d, sk=sk)
     assert list(out) == list(want[:8]) and n == want.scratch_floats
 
 
@@ -926,12 +1017,15 @@ def test_autograd_through_the_kernels_launches_forward_and_backward(cuda, dtype)
     assert kernels.launch_counts()["flash_attention_bwd"] == 0
 
 
-@pytest.mark.parametrize("arch", ["gemma3-4b", "gemma-2b", "phi-3-vision-4.2b"])
+@pytest.mark.parametrize("arch", ["gemma3-4b", "gemma-2b", "phi-3-vision-4.2b",
+                                  "whisper-base"])
 def test_reduced_training_on_the_card_matches_the_cpu(cuda, arch):
     """Three float32 train steps of the reduced config on the card and on
     the CPU from the same weights and batches: losses within 1e-4
-    relative; K6's float32 forward and backward once per layer and step.
-    phi-3-vision's batches hold image embeddings that prefix the text."""
+    relative; K6's float32 forward and backward once per attention and
+    step.  phi-3-vision's batches hold image embeddings that prefix the
+    text; whisper's hold frame embeddings, and each decoder layer runs two
+    attentions (self, then cross at Sk != S) besides the encoder's."""
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.configs.reduced import reduced_config
     from repro_torch.data import TokenPipeline
@@ -939,6 +1033,7 @@ def test_reduced_training_on_the_card_matches_the_cpu(cuda, arch):
     from repro_torch.training import adamw_init, make_train_step
     cfg = reduced_config(get_config(arch))
     n_layers = sum(c for _, c in stages_meta(cfg))
+    n_attn = n_layers * (2 if cfg.n_encoder_layers else 1) + cfg.n_encoder_layers
     tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=3,
                        remat="none")
     step = make_train_step(Model(cfg), tcfg)
@@ -952,11 +1047,20 @@ def test_reduced_training_on_the_card_matches_the_cpu(cuda, arch):
         if cfg.frontend == "vision":
             batch["img_embeds"] = torch.from_numpy(rng.normal(
                 size=(4, cfg.frontend_len, cfg.d_model)).astype(np.float32))
+        if cfg.n_encoder_layers:
+            batch["enc_embeds"] = torch.from_numpy((rng.normal(
+                size=(4, cfg.encoder_len, cfg.d_model)) * 0.05).astype(np.float32))
         kernels.reset_launch_counts()
         card, cs, cm = step(card, cs, _to(batch, cuda))
         counts = kernels.variant_counts()
-        assert counts["flash_attention.fma_f32"] == n_layers
-        assert counts["flash_attention_bwd.fma_f32"] == n_layers
+        assert counts["flash_attention.fma_f32"] == n_attn
+        assert counts["flash_attention_bwd.fma_f32"] == n_attn
+        if cfg.n_encoder_layers:
+            shapes = kernels.shape_counts()
+            for kind, n in (("full", cfg.n_encoder_layers), ("causal", n_layers),
+                            ("cross", n_layers)):
+                assert shapes[f"flash_attention.{kind}"] == n
+                assert shapes[f"flash_attention_bwd.{kind}"] == n
         host, hs, hm = step(host, hs, batch)
         assert abs(float(cm["loss"]) - float(hm["loss"])) <= 1e-4 * float(hm["loss"])
 
@@ -1104,7 +1208,8 @@ def test_reduced_whisper_on_the_card_matches_the_cpu(cuda):
     assert kernels.shape_counts() == {
         "flash_attention.causal": cfg.n_layers, "flash_attention.full": cfg.n_encoder_layers,
         "flash_attention.cross": cfg.n_layers, "decode_attention.rows=12": steps,
-        f"decode_attention.rows={cfg.encoder_len}": steps}
+        f"decode_attention.rows={cfg.encoder_len}": steps,
+        **{f"flash_attention_bwd.{m}": 0 for m in ("causal", "full", "cross")}}
     want, _ = transcribe(Model(cfg), host, frames, prompt, 8, 12)
     np.testing.assert_array_equal(got, want)
 

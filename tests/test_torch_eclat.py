@@ -60,15 +60,32 @@ def test_mine_matches_reference(variant, mode):
 @pytest.mark.parametrize("variant", ["v4", "v6"])
 def test_ref_backend_and_no_compaction_agree(variant):
     """Both port backends agree with the reference mined with and without
-    its survivor compaction (the port always compacts)."""
+    its survivor compaction, each with the same ``compact``."""
     for compact in (True, False):
         want = j_mine(DB, 10, JConfig(min_sup=35, variant=variant, p=3,
                                       compact=compact))
         for backend in ("fused", "ref"):
             got = mine(DB, 10, EclatConfig(min_sup=35, variant=variant, p=3,
-                                           backend=backend), device="cpu")
+                                           backend=backend, compact=compact),
+                       device="cpu")
             assert got.support_map() == want.support_map()
             assert got.stats["backend"] == backend
+
+
+@pytest.mark.parametrize("variant,diffsets", [
+    ("v1", False), ("v2", False), ("v3", False), ("v4", False), ("v5", False),
+    ("v6", False), ("v6", True)])
+def test_no_compaction_matches_the_reference(variant, diffsets):
+    """``EclatConfig.compact=False`` on the ``ref`` backend against the
+    reference's ``compact=False`` mine: the same itemsets and supports,
+    and the same pair-padding ledger, for every variant."""
+    kw = dict(min_sup=25, variant=variant, p=3, use_diffsets=diffsets,
+              bucket_min=16, compact=False)
+    got = mine(DB, 10, EclatConfig(backend="ref", **kw), device="cpu")
+    want = j_mine(DB, 10, JConfig(backend="jnp", **kw))
+    assert got.support_map() == want.support_map()
+    for key in ("n_intersections", "n_padded", "pair_padding"):
+        assert got.stats.get(key) == want.stats.get(key), key
 
 
 @pytest.mark.parametrize("max_k", [1, 2, 3, None])

@@ -1,16 +1,22 @@
 """whisper-base in the port against the JAX package, on the CPU, at the
 reduced config (2 encoder and 4 decoder layers, 16 encoder frames, 4 heads
 of 16) in float32: the encoder, the cross K/V, prefill and decode logits,
-decode matching prefill, greedy transcription; and flash attention over
-keys that are not the queries (Sk != S), the cross-attention the decoder
-runs, in the port's plain versions against the reference's
-``flash_chunked(causal=False)``.
+decode matching prefill, greedy transcription; the loss (its encoder
+branch) and every gradient, train steps and the runner with the frames in
+the batch; and flash attention over keys that are not the queries
+(Sk != S), the cross-attention the decoder runs, forward and backward, in
+the port's plain versions against the reference's
+``flash_chunked(causal=False)`` and its ``jax.vjp``.
 
 Inputs are made with numpy from a seed and the reference's weights carried
 over with ``params_from_numpy``.  Tolerances: 1e-5 absolute on the encoder
 output, the cross K/V, logits (float32 sums in another order through a few
-layers; the values are below 2 in magnitude) and attention outputs;
-decode-matches-prefill inside the port within the reference test's 2e-3.
+layers; the values are below 2 in magnitude), attention outputs and their
+gradients; decode-matches-prefill inside the port within the reference
+test's 2e-3; the loss, gradients and steps as ``tests/test_torch_training.py``
+holds the decoders (loss 1e-5 relative, every gradient leaf 1e-4 absolute,
+step losses and gradient norms 1e-4 relative); the bf16 emulation of the
+card's backward as ``tests/test_torch_attention.py`` holds it (rel L2 5e-3).
 """
 import dataclasses
 
@@ -20,18 +26,31 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import TrainConfig as JTrainConfig
 from repro.configs import get_config as j_get_config
 from repro.configs.reduced import reduced_config as j_reduced
 from repro.models import Model as JModel
 from repro.models import attention as j_attention
 from repro.models import init_params as j_init_params
-from repro_torch.configs import get_config
+from repro.training import RunnerConfig as JRunnerConfig
+from repro.training import TrainingRunner as JTrainingRunner
+from repro.training import adamw_init as j_adamw_init
+from repro.training import make_train_step as j_make_train_step
+from repro_torch.configs import TrainConfig, get_config
 from repro_torch.configs.reduced import reduced_config
-from repro_torch.kernels.flash_attention import (attention_ref, flash_attention,
+from repro_torch.kernels.flash_attention import (attention_bwd_bf16_ref,
+                                                 attention_lse_ref,
+                                                 attention_ref,
+                                                 attention_ref_bwd,
+                                                 flash_attention,
+                                                 flash_attention_bwd,
                                                  multi_head_attention)
 from repro_torch.models import Model, init_params, params_from_numpy
 from repro_torch.models import attention as t_attention
 from repro_torch.models.convert import param_shapes
+from repro_torch.training import (RunnerConfig, TrainingRunner, adamw_init,
+                                  make_train_step)
+from repro_torch.training.train_step import value_and_grad
 
 ARCH = "whisper-base"
 TOL = 1e-5
@@ -53,6 +72,29 @@ def _inputs(cfg, b=2, s=12, seed=0):
 
 def _close(got, want, tol=TOL):
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=0, atol=tol)
+
+
+def _flat(tree, prefix=()):
+    """{path: numpy} of a port tree or a reference pytree."""
+    if isinstance(tree, dict):
+        return {k: v for key in sorted(tree)
+                for k, v in _flat(tree[key], prefix + (key,)).items()}
+    return {"/".join(prefix): (tree.detach().numpy() if isinstance(tree, torch.Tensor)
+                               else np.asarray(tree))}
+
+
+def _assert_trees_close(got, want, atol):
+    g, w = _flat(got), _flat(want)
+    assert sorted(g) == sorted(w)
+    for k in g:
+        np.testing.assert_allclose(g[k], w[k], rtol=0, atol=atol, err_msg=k)
+
+
+def _batch(cfg, b=2, s=12, seed=0):
+    """(port batch, reference batch) of tokens and frame embeddings."""
+    toks, frames = _inputs(cfg, b=b, s=s, seed=seed)
+    return ({"tokens": torch.from_numpy(toks), "enc_embeds": torch.from_numpy(frames)},
+            {"tokens": jnp.asarray(toks), "enc_embeds": jnp.asarray(frames)})
 
 
 def test_config_and_tree_equal_the_reference():
@@ -242,14 +284,172 @@ def test_flash_kernel_refuses_other_keys_with_a_mask(causal, window):
 
 
 def test_the_encoder_loss_raises_and_the_encoder_on_a_mesh_raises():
-    """whisper's training (the loss's encoder branch) is not ported, nor the
-    encoder-decoder on a mesh: both raise, naming ROADMAP item 12f."""
+    """The encoder-decoder on a mesh is not ported: it raises, naming ROADMAP
+    item 12f (its mesh half).  The loss's encoder branch is ported on one
+    device (``test_loss_and_gradients_match_the_reference``)."""
     from repro_torch.launch.mesh import named_mesh_layout
     from repro_torch.models.transformer import check_mesh
-    cfg, _, params, _ = _both()
-    toks, frames = _inputs(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12f"):
-        Model(cfg).loss(params, {"tokens": torch.from_numpy(toks),
-                                 "enc_embeds": torch.from_numpy(frames)})
+    cfg, _, _, _ = _both()
     with pytest.raises(NotImplementedError, match="ROADMAP item 12f"):
         check_mesh(cfg, named_mesh_layout("tiny"))
+
+
+# ---------------------------------------------------------------------------
+# training: the loss's encoder branch, the steps and the runner
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("remat", ["none", "dots", "full"])
+def test_loss_and_gradients_match_the_reference(remat):
+    """The loss's encoder branch (``encode``, ``cross_kv``, the decoder
+    over them) within 1e-5 relative of the reference's and every gradient
+    leaf, the encoder's and the cross-attention's included, within 1e-4 of
+    ``jax.grad`` (the reference's ``remat="none"``: its modes recompute the
+    same operations), under each of the port's ``remat`` modes."""
+    cfg, jcfg, params, jp = _both(seed=3)
+    batch, jbatch = _batch(cfg, seed=6)
+    want_loss, want_g = jax.value_and_grad(JModel(jcfg).loss)(jp, jbatch)
+    loss, grads = value_and_grad(lambda p, b_: Model(cfg).loss(p, b_, remat=remat),
+                                 params, batch)
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    _assert_trees_close(grads, want_g, atol=1e-4)
+    # the gradient reaches the encoder through the cross-attention
+    assert float(grads["enc_pos"].abs().max()) > 0
+    assert float(grads["enc_stages"]["e0"]["stk_wq"].abs().max()) > 0
+
+
+def _tcfg(cls, **kw):
+    base = dict(learning_rate=1e-3, warmup_steps=2, total_steps=5,
+                remat="none", microbatches=1)
+    base.update(kw)
+    return cls(**base)
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_train_steps_match_the_reference(microbatches):
+    """Three train steps on batches of tokens and frames (``enc_embeds``
+    split with the tokens into microbatches): the port's step against the
+    reference's, loss and gradient norm within 1e-4 relative."""
+    cfg, jcfg, params, jp = _both(seed=4)
+    step = make_train_step(Model(cfg), _tcfg(TrainConfig, microbatches=microbatches))
+    jstep = jax.jit(j_make_train_step(JModel(jcfg), _tcfg(JTrainConfig,
+                                                          microbatches=microbatches)))
+    state, jstate = adamw_init(params), j_adamw_init(jp)
+    for i in range(3):
+        batch, jbatch = _batch(cfg, b=4, s=10, seed=10 + i)
+        params, state, m = step(params, state, batch)
+        jp, jstate, jm = jstep(jp, jstate, jbatch)
+        for key in ("loss", "grad_norm"):
+            assert abs(float(m[key]) - float(jm[key])) <= 1e-4 * abs(float(jm[key])), key
+    assert int(state["step"]) == int(jstate["step"]) == 3
+
+
+def test_runner_carries_the_frames_and_matches_the_reference(tmp_path):
+    """``TrainingRunner`` moves the frames with the tokens to the
+    parameters' device, retries a failed step and checkpoints: the same
+    losses as the reference's runner (1e-5 relative) on the same batches."""
+    cfg, jcfg, params, jp = _both(seed=5)
+
+    def batch_at(i):
+        toks, frames = _inputs(cfg, b=2, s=10, seed=20 + i)
+        return {"tokens": toks, "enc_embeds": frames}
+
+    failed = []
+
+    def inject(step):
+        hit = step == 2 and not failed
+        if hit:
+            failed.append(step)
+        return hit
+
+    runner = TrainingRunner(
+        RunnerConfig(str(tmp_path / "torch"), checkpoint_every=2, fail_injector=inject),
+        make_train_step(Model(cfg), _tcfg(TrainConfig, total_steps=4)), params,
+        adamw_init(params), batch_at)
+    jrunner = JTrainingRunner(
+        JRunnerConfig(str(tmp_path / "jax"), checkpoint_every=2),
+        jax.jit(j_make_train_step(JModel(jcfg), _tcfg(JTrainConfig, total_steps=4))),
+        jp, j_adamw_init(jp),
+        lambda i: {k: jnp.asarray(v) for k, v in batch_at(i).items()})
+    assert runner.run(4) == jrunner.run(4) == 4 and failed == [2]
+    assert len(runner.metrics_log) == len(jrunner.metrics_log) == 4
+    for m, jm in zip(runner.metrics_log, jrunner.metrics_log):
+        np.testing.assert_allclose(m["loss"], jm["loss"], rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K6's backward at Sk != S: the plain versions against the reference's vjp
+# ---------------------------------------------------------------------------
+
+def _vjp_over_other_keys(q, k, v, dout):
+    """Output and ``jax.vjp`` of the reference's ``flash_chunked``
+    (non-causal, 16-row chunks that split both lengths) in the (B, H, S, D)
+    layout of the kernels."""
+    scale = q.shape[-1] ** -0.5
+
+    def f(q_, k_, v_):
+        out = j_attention.flash_chunked(
+            q_.transpose(0, 2, 1, 3), k_.transpose(0, 2, 1, 3), v_.transpose(0, 2, 1, 3),
+            causal=False, window=0, sm_scale=scale, q_chunk=16, k_chunk=16)
+        return out.transpose(0, 2, 1, 3)
+
+    out, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)))
+    return np.array(out), [np.array(g) for g in vjp(jnp.asarray(dout))]
+
+
+def _other_keys_inputs(b, s, sk, h, kv, d):
+    rng = np.random.default_rng(s + sk + h)
+    q = rng.normal(size=(b, h, s, d)).astype(np.float32)
+    k, v = (rng.normal(size=(b, kv, sk, d)).astype(np.float32) for _ in range(2))
+    dout = rng.normal(size=(b, h, s, d)).astype(np.float32)
+    return q, k, v, dout
+
+
+@pytest.mark.parametrize("b,s,sk,h,kv,d", SK_CASES)
+def test_plain_backward_over_other_keys_matches_the_vjp(b, s, sk, h, kv, d):
+    """``attention_ref_bwd`` at Sk != S, non-causal (G = 1 and G = 4, more
+    and fewer keys than queries), against ``jax.vjp`` of the reference's
+    ``flash_chunked``: dq (B, H, S, D), dk and dv (B, Hkv, Sk, D) summed
+    over each group, within 1e-5; and the same gradients as autograd
+    through ``multi_head_attention``, the path a CPU tensor takes."""
+    q, k, v, dout = _other_keys_inputs(b, s, sk, h, kv, d)
+    out, want = _vjp_over_other_keys(q, k, v, dout)
+    tq, tk, tv, tout, tdo = (torch.from_numpy(x) for x in (q, k, v, out, dout))
+    lse = attention_lse_ref(tq, tk, causal=False)
+    got = attention_ref_bwd(tq, tk, tv, tout, tdo, lse, causal=False)
+    for g_, w_, t in zip(got, want, (tq, tk, tv)):
+        assert g_.dtype == torch.float32 and g_.shape == t.shape
+        _close(g_, w_)
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    multi_head_attention(*leaves, causal=False).backward(tdo)
+    for g_, t in zip(got, leaves):
+        _close(g_, t.grad.numpy())
+
+
+@pytest.mark.parametrize("b,s,sk,h,kv,d", SK_CASES)
+def test_bf16_backward_emulation_over_other_keys_matches_the_vjp(b, s, sk, h, kv, d):
+    """``attention_bwd_bf16_ref`` (the card's bf16 arithmetic: P and dS
+    rounded once) at Sk != S on bf16 values against the float32 ``jax.vjp``
+    on the same values, each gradient rounded to bf16 as the kernels store
+    it: rel L2 within 5e-3, as for self-attention."""
+    q, k, v, dout = (torch.from_numpy(x).to(torch.bfloat16)
+                     for x in _other_keys_inputs(b, s, sk, h, kv, d))
+    out, want = _vjp_over_other_keys(*(t.float().numpy() for t in (q, k, v, dout)))
+    out = torch.from_numpy(out).to(torch.bfloat16)
+    lse = attention_lse_ref(q.float(), k.float(), causal=False)
+    got = attention_bwd_bf16_ref(q, k, v, out, dout, lse, causal=False)
+    for g_, w_, t in zip(got, want, (q, k, v)):
+        assert g_.shape == t.shape
+        w_ = torch.from_numpy(w_)
+        assert float((g_.to(torch.bfloat16).float() - w_).norm() / w_.norm()) <= 5e-3
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 8), (True, 8)])
+def test_flash_backward_refuses_other_keys_with_a_mask(causal, window):
+    """The backward takes Sk != S under the forward's rule: a causal mask or
+    a window at Sk != S is refused by name before any card is looked
+    for."""
+    q = torch.zeros((1, 2, 4, 64))
+    k = torch.zeros((1, 2, 9, 64))
+    with pytest.raises(ValueError, match="keys that are not the queries"):
+        flash_attention_bwd(q, k, k, q, q, torch.zeros((1, 2, 4)), causal=causal,
+                            window=window)

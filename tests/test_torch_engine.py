@@ -66,6 +66,32 @@ def test_level_result_matches_jnp_engine(backend, bucket_min, mode, p, w, q,
     assert t_eng.stats()["n_padded"] == j_eng.stats()["n_padded"]
 
 
+@pytest.mark.parametrize("backend", ["fused", "ref"])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("p,w,q", SHAPES)
+@pytest.mark.parametrize("survivors", ["median", "none"])
+def test_no_compaction_gives_the_compacting_result_bit_for_bit(backend, mode, p, w,
+                                                               q, survivors):
+    """``compact=False`` (K1's whole block, the host mask, a row gather):
+    the mask, the supports and every row of the survivor block, the rung
+    padding included, equal the compacting engine's and the reference's
+    ``compact=False`` ``JnpEngine``; the ledger too."""
+    bitmaps, left, right, sup_left = _case(p, w, q, seed=p * 7 + w + q + mode)
+    ms = _min_sup(bitmaps, left, right, survivors)
+    runs = []
+    for compact in (False, True):
+        e = teng.make_engine(backend, bucket_min=8, compact=compact)
+        assert e.compact == compact and e.snapshot_state().compact == compact
+        runs.append((e, e.expand(words_from_numpy(bitmaps, "cpu"), left, right,
+                                 sup_left, mode=mode, min_sup=ms)))
+    j_eng = jeng.make_engine("jnp", bucket_min=8, compact=False)
+    want = j_eng.expand(jnp.asarray(bitmaps), left, right, sup_left, mode=mode,
+                        min_sup=ms)
+    for e, got in runs:
+        _assert_level_equal(got, want)
+        assert e.stats().get("pair_padding") == j_eng.stats().get("pair_padding")
+
+
 def test_pair_padding_ledger_over_many_levels():
     """A sequence of expansions on one engine: the per-level ledger, its
     efficiency and the counters stay equal to the reference's."""

@@ -369,10 +369,40 @@ def test_port_checkpoint_restores_in_the_reference(backend, tmp_path):
 
 
 def test_a_non_compacting_reference_state_is_refused_by_name(tmp_path):
+    """A checkpoint of the reference's non-compacting stream (``compact=
+    False``, ported) is no longer refused: it restores in the port as a
+    non-compacting ``ref`` miner, its state leaf for leaf the reference's
+    own restore, and the replay reaches the uninterrupted map."""
     j_crashed_run(N_ITEMS, JStreamConfig(backend="jnp", compact=False, **KW),
                   BATCHES, str(tmp_path), "miner:mid_append", KILL_SLIDE)
-    with pytest.raises(ValueError, match="EngineState.compact=False"):
-        restore_miner(str(tmp_path), device="cpu")
+    miner, start = restore_miner(str(tmp_path), device="cpu")
+    j_miner, j_start = j_restore_miner(str(tmp_path))
+    assert start == j_start == KILL_SLIDE
+    assert (miner.config.compact, miner.engine.compact, miner.engine.name) == \
+        (False, False, "ref")
+    got, want = miner.snapshot_state(), j_miner.snapshot_state()
+    assert got.engine.compact is want.engine.compact is False
+    np.testing.assert_array_equal(got.ring.words, want.ring.words)
+    np.testing.assert_array_equal(got.cooc, want.cooc)
+    assert resume_run(BATCHES, str(tmp_path)).support_map() == _reference()
+
+
+@pytest.mark.parametrize("backend", ["ref", "fused"])
+def test_a_non_compacting_port_checkpoint_restores_in_the_reference(backend, tmp_path):
+    """The reverse: a port checkpoint of a ``compact=False`` stream records
+    ``compact`` false and restores in the reference as a non-compacting
+    engine that replays to the uninterrupted map."""
+    crashed_run(StreamConfig(backend=backend, compact=False, **KW), BATCHES,
+                str(tmp_path), "miner:mid_append", KILL_SLIDE)
+    path = os.path.join(tmp_path, f"step_{KILL_SLIDE:08d}", "manifest.json")
+    extra = json.load(open(path))["extra"]
+    assert extra["config"]["compact"] is extra["engine"]["compact"] is False
+    j_miner, start = j_restore_miner(str(tmp_path), keep_transactions=False)
+    assert j_miner.engine.compact is False
+    res = None
+    for batch in BATCHES[start:]:
+        res = j_miner.advance(batch)
+    assert res.support_map() == _reference()
 
 
 def test_reference_mesh_state_restores_on_one_device(tmp_path):

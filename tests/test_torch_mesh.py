@@ -25,7 +25,12 @@ assert on what each rank returned:
   churn, co-occurrence counts and engine accounting equal the reference's
   streaming miner on the same mesh, each rank's ring is ``shard_words`` of
   the reference ring's host mirror (block spans that straddle two ranks,
-  zero pad words past ``n_words``), and a push makes no collective call.
+  zero pad words past ``n_words``), and a push makes no collective call;
+* the non-compacting engine (``compact=False``) on ``pairs`` 4, ``words``
+  1x4 and 2 and ``grid`` 2x2: ``mine()`` for v1-v6 equals the reference's
+  ``compact=False`` mesh mine, one expand per backend and mode gives every
+  rank the compacting engine's result bit for bit (the padding rows too),
+  and a stream slides as the compacting one does.
 """
 import dataclasses
 import functools
@@ -155,6 +160,29 @@ for _label in STREAM_MESHES:
                   grid=_grid, support_map=True, cooc=True,
                   config=_stream_config(*_geo[:2], backend=_backend,
                                         shard=_shard)))
+# the non-compacting engine: mines, expands and one stream a mesh
+NO_COMPACT_MESHES = ("pairs4", "words1x4", "words2", "grid2x2")
+for _label in NO_COMPACT_MESHES:
+    _world, _backend, _shard, _grid = MESHES[_label][:4]
+    for _v, _d in VARIANTS:
+        _add(("mine", _label, _v, _d, "no-compact"), _world,
+             dict(kind="mine", txns=DB, n_items=10, grid=_grid,
+                  support_map=True,
+                  config=_config(_v, _d, backend=_backend, shard=_shard,
+                                 compact=False)))
+    _geo = STREAM_GEOMETRIES[_world][0]
+    _add(("stream", _label, _geo, "no-compact"), _world,
+         dict(kind="stream", batches=_stream_batches(*_geo), n_items=12,
+              grid=_grid, support_map=True, cooc=True,
+              config=_stream_config(*_geo[:2], backend=_backend, shard=_shard,
+                                    compact=False)))
+for _label, (_mesh, _name) in ENGINES.items():
+    _world, _backend, _shard, _grid = MESHES[_mesh][:4]
+    for _mode in MODES:
+        _add(("expand", _label, _mode, "no-compact"), _world,
+             dict(kind="expand", backend=_backend, shard=_shard, grid=_grid,
+                  inner="ref", bucket_min=8, compact=False,
+                  **_expand_case(_label, _mode)))
 # errors, on 4 ranks: the grid engine on a 1-D mesh, class ids outside the
 # class axis, grids that do not fit the ranks
 _add(("error", "grid on 1-D"), 4,
@@ -189,11 +217,11 @@ def _j_mesh(label):
 
 
 @functools.lru_cache(maxsize=None)
-def _j_mine(label, variant, diffsets):
+def _j_mine(label, variant, diffsets, compact=True):
     backend, shard = MESHES[label][1:3]
     cfg = JConfig(**_config(variant, diffsets,
                             backend="pallas" if backend == "fused" else backend,
-                            shard=shard))
+                            shard=shard, compact=compact))
     return j_mine(DB, 10, cfg, mesh=_j_mesh(label))
 
 
@@ -549,3 +577,58 @@ def test_mesh_stream_push_makes_no_collective(ranks, label, geo):
             assert got == n_exp
             if backend == "tidsharded":
                 assert set(coll) <= {"data"}
+
+
+# ---------------------------------------------------------------------------
+# the non-compacting engine on the mesh
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("variant,diffsets", VARIANTS,
+                         ids=[v + ("-diffsets" if d else "") for v, d in VARIANTS])
+@pytest.mark.parametrize("label", NO_COMPACT_MESHES)
+def test_mesh_mine_without_compaction_matches_reference(ranks, label, variant, diffsets):
+    """``compact=False`` on the mesh (K1 or K3 with its store, the host
+    mask, a row gather on each rank) against the reference's
+    ``compact=False`` mesh mine: the support map, its checksum, the levels
+    and the engine's accounting, on every rank."""
+    want = _j_mine(label, variant, diffsets, compact=False)
+    assert want.support_map() == _j_mine(label, variant, diffsets).support_map()
+    for res in _per_rank(ranks, ("mine", label, variant, diffsets, "no-compact")):
+        assert res["support_map"] == want.support_map()
+        assert res["checksum"] == support_checksum(want.support_map())
+        assert res["counts"] == want.counts
+        for key in STATS_KEYS:
+            assert res["stats"].get(key) == want.stats.get(key), key
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("label", list(ENGINES))
+def test_expand_without_compaction_equals_the_compacting_expand(ranks, label, mode):
+    """One expand with ``compact=False`` gives each rank the compacting
+    engine's level result bit for bit: mask, supports, and every row of its
+    survivor block (the rung padding too)."""
+    plain = _per_rank(ranks, ("expand", label, mode, "no-compact"))
+    for got, want in zip(plain, _per_rank(ranks, ("expand", label, mode))):
+        assert np.array_equal(got["mask"], want["mask"])
+        assert np.array_equal(got["supports"], want["supports"])
+        assert got["survivors"].shape == want["survivors"].shape
+        assert np.array_equal(got["survivors"], want["survivors"])
+        assert got["stats"]["pair_padding"] == want["stats"]["pair_padding"]
+
+
+@pytest.mark.parametrize("label", NO_COMPACT_MESHES)
+def test_mesh_stream_without_compaction_slides_as_the_compacting_one(ranks, label):
+    """A ``compact=False`` stream on the mesh: every slide's support map,
+    counts, co-occurrence matrix and accounting equal the compacting
+    stream's on the same ranks."""
+    geo = STREAM_GEOMETRIES[MESHES[label][0]][0]
+    plain = _per_rank(ranks, ("stream", label, geo, "no-compact"))
+    for got, want in zip(plain, _per_rank(ranks, ("stream", label, geo))):
+        assert got["engine"] == want["engine"]
+        assert len(got["slides"]) == len(want["slides"])
+        for i, (a, b) in enumerate(zip(got["slides"], want["slides"])):
+            assert a["support_map"] == b["support_map"], f"slide {i}"
+            assert a["counts"] == b["counts"]
+            assert np.array_equal(a["cooc"], b["cooc"])
+            for key in STREAM_STATS:
+                assert a["stats"].get(key) == b["stats"].get(key), (i, key)

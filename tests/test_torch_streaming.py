@@ -547,10 +547,16 @@ def tune_caches(tmp_path, monkeypatch):
                                          ("compact", False)])
 def test_unported_config_raises(field, value, tune_caches):
     if field == "compact":
-        cfg = StreamConfig(min_sup=2, **{field: value})
-        with pytest.raises(NotImplementedError,
-                           match=f"StreamConfig.{field}.*ROADMAP"):
-            StreamingMiner(N_ITEMS, cfg, device="cpu")
+        # ported: the non-compacting engine (K1, the host mask, a row
+        # gather) slides as the reference's miner with the same knob does,
+        # on both backends
+        for backend in ("ref", "fused"):
+            got, want = _pair(N_ITEMS, backend, min_sup=0.05, n_blocks=2,
+                              block_txns=64, **{field: value})
+            assert got.engine.compact is want.engine.compact is False
+            for i, batch in enumerate(_batches(4, 64, seed=13)):
+                _assert_same_slide(got.advance(batch), want.advance(batch),
+                                   f"{backend} slide {i}")
         return
     # ported with tile selection: the same slides as the reference's miner
     # with the same knob (256 words is one of K2's tiles at every width)

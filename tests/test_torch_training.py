@@ -164,15 +164,19 @@ def test_remat_rejects_an_unknown_mode():
 
 
 def test_loss_refuses_the_unported_branches():
-    """The loss's encoder branch (whisper's training) still raises, naming
-    ROADMAP item 12f.  The vision prefix is ported
-    (``tests/test_torch_vision.py``): a text-only config ignores
-    ``img_embeds``, as the reference's loss does."""
+    """Both branches are ported: the encoder's (whisper's training, held to
+    the reference in ``tests/test_torch_encdec.py``) and the vision prefix
+    (``tests/test_torch_vision.py``).  A text-only config ignores
+    ``enc_embeds`` and ``img_embeds``, as the reference's loss does."""
     cfg, jcfg, params, jp = _both("gemma-2b")
     toks = _tokens(cfg.vocab_size, 1, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12f"):
-        Model(cfg).loss(params, {"tokens": torch.from_numpy(toks),
-                                 "enc_embeds": torch.zeros((1, 4, cfg.d_model))})
+    frames = np.ones((1, 4, cfg.d_model), np.float32)
+    got = Model(cfg).loss(params, {"tokens": torch.from_numpy(toks),
+                                   "enc_embeds": torch.from_numpy(frames)})
+    want = JModel(jcfg).loss(jp, {"tokens": jnp.asarray(toks),
+                                  "enc_embeds": jnp.asarray(frames)})
+    assert float(got) == float(Model(cfg).loss(params, {"tokens": torch.from_numpy(toks)}))
+    assert abs(float(got) - float(want)) <= 1e-5 * abs(float(want))
     img = np.ones((1, 2, cfg.d_model), np.float32)
     got = Model(cfg).loss(params, {"tokens": torch.from_numpy(toks),
                                    "img_embeds": torch.from_numpy(img)})
