@@ -121,17 +121,27 @@ paths end to end:
   the plain attention (``run_training_whisper``); K6's backward at
   whisper's cross and encoder shapes against its plain versions
   (``check_flash_attention_bwd``) and timed at the cross shape beside
-  SDPA's backward (``time_whisper_cross_bwd``);
+  SDPA's backward (``time_whisper_cross_bwd``); hymba-1.5b and xlstm-1.3b
+  at full width and depth (B = 4, S = 1,024, ``remat="full"``) 4 steps in
+  memory, hymba's K6 forward twice and backward once per layer a step
+  (xlstm launches none), step 1 against the plain attention (xlstm:
+  against itself run again) (``run_training_recurrent``); K6's backward at
+  hymba's training layer (D = 64, G = 5) in both of its plans against its
+  plain versions and timed beside SDPA's backward
+  (``time_hymba_training_bwd``);
 * LM training on the reference's tiny mesh, (data, model) = (2, 2), as 4
   gloo ranks sharing the card (``run_mesh_training``): the float32 reduced
-  gemma-2b, gemma3-4b, grok-1 (experts ``tp2d``) and llama4-maverick
-  (``ep``, the all-to-all) against one CPU process, gemma-2b at full width
-  with 4 of its 18 layers in bf16 against one rank of the card, a
-  TrainingRunner restored on the mesh replaying step 3 bit for bit, K6
-  forward and backward once a layer and step on every rank and the
+  gemma-2b, gemma3-4b, grok-1 (experts ``tp2d``), llama4-maverick
+  (``ep``, the all-to-all), xlstm-1.3b and hymba-1.5b (the mLSTM, sLSTM
+  and SSM blocks tensor-parallel) against one CPU process, gemma-2b at
+  full width with 4 of its 18 layers and xlstm-1.3b at full width with 8
+  of its 48 in bf16 against one rank of the card, a TrainingRunner
+  restored on the mesh replaying step 3 bit for bit, K6 forward and
+  backward once per attention layer and step on every rank and the
   collectives a step equal to the count the config gives
-  (``mesh_step_collectives``); K6 at a rank's shape against its plain
-  versions and timed (``time_mesh_rank_attention``);
+  (``mesh_step_collectives``, ``recurrent_step_collectives``); K6 at a
+  rank's shape against its plain versions and timed
+  (``time_mesh_rank_attention``);
 
 and times each kernel beside its bound, its plain version and, where one
 exists, a PyTorch call that computes the same function (K4 also at the
@@ -388,7 +398,7 @@ GROK_B, GROK_S, GROK_STEPS = 2, 1024, 5
 # the reduced float32 configs trained on the tiny mesh against one CPU
 # process (run_mesh_training (a))
 MESH_REDUCED_ARCHS = ("gemma-2b", "gemma3-4b", "grok-1-314b",
-                      "llama4-maverick-400b-a17b")
+                      "llama4-maverick-400b-a17b", "xlstm-1.3b", "hymba-1.5b")
 GROK_LAYER = (2, 48, 8, 1024, 128)
 GROK_LAYER_SHAPE = "B=2 H=48 Hkv=8 S=1024 D=128 bf16 causal window=0 softcap=30"
 # phi-3-vision-4.2b (served above, SERVED_ARCHS) trained at full width and
@@ -417,6 +427,28 @@ WHISPER_B, WHISPER_S, WHISPER_STEPS = 16, 448, 6
 WHISPER_CROSS = (WHISPER_B, 8, 8, WHISPER_S, 1500, 64)
 WHISPER_CROSS_SHAPE = (f"B={WHISPER_B} H=8 Hkv=8 S={WHISPER_S} Sk=1500 D=64 bf16 "
                        "non-causal window=0 (whisper-base training cross)")
+# xlstm-1.3b and hymba-1.5b trained at full width and depth
+# (run_training_recurrent): bf16, B x S tokens a step, RECURRENT_STEPS steps
+# in memory, remat="full" (the reference's TrainConfig.remat): without it
+# xlstm's 42 mLSTM layers keep their 16 chunks' (B, H, 1,024, 1,024)
+# float32 states each and hymba's 32 SSM scans their (B, 128, 3,200, 16)
+# log steps, far beyond the card
+RECURRENT_B, RECURRENT_S, RECURRENT_STEPS = 4, 1024, 4
+# hymba's training layer (B, H, Hkv, S, D, window): K6's backward row in the
+# kernels line; the window of 2,048 keeps every causal pair at S = 1,024
+HYMBA_TRAIN = (RECURRENT_B, 25, 5, RECURRENT_S, 64, 2048)
+HYMBA_TRAIN_SHAPE = (f"B={RECURRENT_B} H=25 Hkv=5 S={RECURRENT_S} D=64 bf16 causal "
+                     "window=2048 (hymba-1.5b training layer)")
+# the collectives over ``model`` a layer of each recurrent kind makes per
+# microbatch on the tiny mesh, (all_reduce, all_gather, reduce_scatter):
+# mLSTM the in-projection, q/k/v and the gates gathered (their gradients
+# reduce-scattered), the output all-reduced and the input's gradient
+# summed; sLSTM the in-projection gathered; hybrid attention's and the
+# MLP's two all-reduces each, the SSM's output and input, the gradients of
+# its three replicated leaves (conv, bc_proj, a_log) summed, and its
+# in-projection gathered
+RECURRENT_LAYER_COLLECTIVES = {"mlstm": (2, 3, 3), "slstm": (2, 1, 1),
+                               "hybrid": (9, 1, 1)}
 # the non-compacting engine (run_no_compaction): the E2E_RUNS mines with
 # compact=False, and the chess stream's first NO_COMPACT_SLIDES slides with
 # compact=False beside the compacting miner
@@ -3152,9 +3184,12 @@ def check_flash_attention_bwd():
     G = 1; phi3's layer (D = 96); whisper's training layers, the
     cross-attention over keys that are not the queries (S = 448 over
     Sk = 1,500, non-causal; a ragged last k tile) and the encoder's
-    non-causal self-attention (bf16 and float32); the bf16 kernels also
-    against the emulation of their arithmetic; a second call gives the
-    same bits."""
+    non-causal self-attention (bf16 and float32); hymba's training layer
+    (D = 64, G = 5, window 2,048) at B = 4 (each group's 5 heads in one
+    dK/dV block) and at B = 2 (one head a block, a 5-way split summed by
+    the reduction kernel), bf16 and float32, and its heads at S = 2,100,
+    where the window bites; the bf16 kernels also against the emulation of
+    their arithmetic; a second call gives the same bits."""
     import torch
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention import (attention_bwd_bf16_ref,
@@ -3180,7 +3215,18 @@ def check_flash_attention_bwd():
              ("whisper-base training cross", *WHISPER_CROSS[:4], WHISPER_CROSS[5], 0, 0.0,
               both, WHISPER_CROSS[4], False),
              ("whisper-base training encoder", WHISPER_B, 8, 8, 1500, 64, 0, 0.0, both,
-              1500, False)]
+              1500, False),
+             ("hymba-1.5b training layer", *HYMBA_TRAIN[:5], HYMBA_TRAIN[5], 0.0, both),
+             ("hymba-1.5b training layer at B=2 (5-way split)", 2, *HYMBA_TRAIN[1:5],
+              HYMBA_TRAIN[5], 0.0, both),
+             ("hymba-1.5b heads, the window biting at S=2100", 1, 25, 5, 2100, 64,
+              HYMBA_TRAIN[5], 0.0, (torch.bfloat16,))]
+    # hymba's layer takes both plans: at B = 4 all 5 heads of a group in one
+    # dK/dV block (320 blocks), at B = 2 one head a block, 5 float32 partials
+    for b, split in ((HYMBA_TRAIN[0], 1), (2, 5)):
+        p = bwd_plan(b, *HYMBA_TRAIN[1:])
+        require(p.n_split == split and p.heads_per_block == 5 // split,
+                f"hymba's backward plan at B={b}: {p}")
     for label, b, h, hkv, s, d, window, cap, dtypes, *other in cases:
         sk, causal = other or (s, True)
         for dtype in dtypes:
@@ -3310,7 +3356,8 @@ def run_training_reduced():
                   f"and backward {n_layers} launches a step ({n_layers} layers)")
 
 
-def _train_on_card(cfg, label, batch, seq, steps, every=None, plain_remat=None):
+def _train_on_card(cfg, label, batch, seq, steps, every=None, plain_remat=None,
+                   remat="none"):
     """``cfg`` in bf16 on the card, ``batch`` x ``seq`` tokens a step:
     ``steps`` steps, the first ``every`` through TrainingRunner.run with a
     checkpoint at step ``every``, then a fresh runner restored from it
@@ -3326,9 +3373,13 @@ def _train_on_card(cfg, label, batch, seq, steps, every=None, plain_remat=None):
     (normal x 0.05, the same generator), and K6 and its backward run once
     per encoder layer (non-causal) and twice per decoder layer (causal
     self, then cross at Sk != S), each split counted by
-    ``kernels.shape_counts``.  Returns the backward kernel's launches over
-    the kernel steps, and the run's numbers for the timing line (with the
-    backward's launches by shape, ``bwd_by_shape``)."""
+    ``kernels.shape_counts``.  Only the layers with attention launch
+    (xlstm's none: its "plain" step 1 is the same step run again).  With
+    ``remat="full"`` each layer's forward runs twice (the backward pass
+    recomputes it), so K6's forward launches twice a layer.  Returns the
+    backward kernel's launches over the kernel steps, and the run's
+    numbers for the timing line (with the backward's launches by shape,
+    ``bwd_by_shape``)."""
     import shutil
     import types
     import torch
@@ -3338,17 +3389,18 @@ def _train_on_card(cfg, label, batch, seq, steps, every=None, plain_remat=None):
     from repro_torch.configs import TrainConfig
     from repro_torch.data import TokenPipeline
     from repro_torch.kernels.flash_attention import attention_ref
-    from repro_torch.models import Model, init_params, stages_meta
+    from repro_torch.models import Model, init_params
     from repro_torch.training import (RunnerConfig, TrainingRunner, adamw_init,
                                       make_train_step, valid_steps)
     from repro_torch.training.optimizer import tree_leaves
 
-    n_layers = sum(c for _, c in stages_meta(cfg))
+    n_layers = _attention_layers(cfg)
     n_enc = cfg.n_encoder_layers
     # K6's calls a step by what they attend over: the encoder's non-causal
     # layers, the decoder's causal self-attention and its cross-attention
     by_shape = {"full": n_enc, "causal": n_layers, "cross": n_layers if n_enc else 0}
     n_attn = sum(by_shape.values())
+    fwd = 2 if remat == "full" else 1
     t0 = time.perf_counter()
     pipe = TokenPipeline(cfg.vocab_size, batch=batch, seq_len=seq, seed=0)
     batches = {i: pipe.batch_at(i) for i in range(steps)}
@@ -3376,7 +3428,7 @@ def _train_on_card(cfg, label, batch, seq, steps, every=None, plain_remat=None):
     # warmup 1: every step after the first (whose scheduled rate is 0, as
     # in the reference) moves the bf16 weights by more than half a unit
     tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=steps,
-                       remat="none")
+                       remat=remat)
     step = make_train_step(Model(cfg), tcfg)
     records = []
 
@@ -3471,12 +3523,12 @@ def _train_on_card(cfg, label, batch, seq, steps, every=None, plain_remat=None):
                         (m["loss"], m["grad_norm"]))), f"non-finite metrics {m}")
     require(every is None or again == first[every:],
             f"the restored steps differ: {again} against {first[every:]}")
-    want = {"flash_attention": n_attn, "flash_attention.wgmma_bf16": n_attn,
+    want = {"flash_attention": fwd * n_attn, "flash_attention.wgmma_bf16": fwd * n_attn,
             "flash_attention_bwd": n_attn, "flash_attention_bwd.wgmma_bf16": n_attn,
             "flash_attention.fma_f32": 0, "flash_attention_bwd.fma_f32": 0,
             "decode_attention": 0}
-    want.update({f"{k}.{kind}": n for kind, n in by_shape.items()
-                 for k in ("flash_attention", "flash_attention_bwd")})
+    want.update({f"flash_attention.{kind}": fwd * n for kind, n in by_shape.items()})
+    want.update({f"flash_attention_bwd.{kind}": n for kind, n in by_shape.items()})
     for i, (_, counts) in enumerate(records):
         require("flash_attention_bwd.fma_bf16" not in counts and
                 all(counts[k] == n for k, n in want.items()) and
@@ -3507,21 +3559,24 @@ def _train_on_card(cfg, label, batch, seq, steps, every=None, plain_remat=None):
     torch.cuda.empty_cache()
     rel_loss = abs(plain["loss"] - first[0]["loss"]) / abs(plain["loss"])
     rel_norm = abs(plain["grad_norm"] - first[0]["grad_norm"]) / plain["grad_norm"]
+    against = "the plain attention" if n_attn else "the same step run again"
     require(rel_loss <= TRAIN_PLAIN_BF16_REL and rel_norm <= TRAIN_PLAIN_BF16_REL,
             f"{label} step 1 through the kernels (loss {first[0]['loss']}, grad norm "
-            f"{first[0]['grad_norm']}) against the plain attention (loss "
+            f"{first[0]['grad_norm']}) against {against} (loss "
             f"{plain['loss']}, grad norm {plain['grad_norm']})")
     how = ("in memory, no checkpoint" if every is None else
            f"restored at step {every}: steps {every + 1}-{steps} bit-equal")
     split = (f" (by shape: {by_shape})" if n_enc else "")
-    print(f"train {label} bf16 B={batch} S={seq} remat=none: losses "
+    print(f"train {label} bf16 B={batch} S={seq} remat={remat}: losses "
           f"{[m['loss'] for m in first]} grad norms {[m['grad_norm'] for m in first]}; "
-          f"{how}; K6 forward {n_attn} (wgmma_bf16) and backward {n_attn} "
+          f"{how}; K6 forward {fwd * n_attn} (wgmma_bf16) and backward {n_attn} "
           f"(wgmma_bf16) launches every step{split}, no plain attention on the card")
-    print(f"train {label}: step 1 with the plain attention"
+    same = plain["loss"] == first[0]["loss"] and plain["grad_norm"] == first[0]["grad_norm"]
+    print(f"train {label}: step 1 with {against}"
           f"{'' if plain_remat is None else f' (remat={plain_remat})'}: loss {plain['loss']} "
           f"(rel diff {rel_loss:.3e}), grad norm {plain['grad_norm']} (rel diff "
-          f"{rel_norm:.3e}), both <= {TRAIN_PLAIN_BF16_REL:.0e}")
+          f"{rel_norm:.3e}), both <= {TRAIN_PLAIN_BF16_REL:.0e}"
+          f"{'' if n_attn else f'; bit-equal: {same}'}")
     return bwd_launches, dict(step_s=[t for t, _ in records], peak=peak,
                               state_gb=state_gb, wall_a=wall_a, wall_b=wall_b,
                               write_s=write_s, bwd_by_shape=bwd_by_shape)
@@ -3659,6 +3714,54 @@ def run_training_whisper():
     return run["bwd_by_shape"]["cross"]
 
 
+def run_training_recurrent():
+    """xlstm-1.3b (48 layers: 42 mLSTM, 6 sLSTM) and hymba-1.5b (32 hybrid
+    layers: K6 at D = 64, G = 5 beside the SSM) at full width and depth,
+    bf16, RECURRENT_B x RECURRENT_S tokens a step, RECURRENT_STEPS steps in
+    memory under remat="full" (:func:`_train_on_card`): hymba's K6 forward
+    twice (the backward pass recomputes each layer) and its backward once
+    per layer a step, step 1 within TRAIN_PLAIN_BF16_REL of the plain
+    attention; xlstm no attention kernel, step 1 held against the same
+    step run again; each peak printed and held to the card.  Returns
+    hymba's backward launches over its steps."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import stages_meta
+    total = torch.cuda.get_device_properties(0).total_memory
+    launches = None
+    for arch, layers in (("hymba-1.5b", [("hybrid", 32)]),
+                         ("xlstm-1.3b", [("mlstm", 7), ("slstm", 1)] * 6)):
+        cfg = get_config(arch)
+        require(stages_meta(cfg) == layers and cfg.dtype == "bfloat16",
+                f"{arch}: stages {stages_meta(cfg)} {cfg.dtype}")
+        n, run = _train_on_card(cfg, arch, RECURRENT_B, RECURRENT_S, RECURRENT_STEPS,
+                                remat="full")
+        _train_timing_line(arch, RECURRENT_B, RECURRENT_S, RECURRENT_STEPS, None, run)
+        print(f"train {arch}: remat=full, peak_mem_GB {run['peak'] / 1e9:.2f} of the "
+              f"card's {total / 1e9:.2f}; weights, gradients and AdamW moments "
+              f"{cfg.param_count() * 12 / 1e9:.2f} GB by the analytic count")
+        require(run["peak"] <= total, f"{arch} peak {run['peak']}")
+        if arch == "hymba-1.5b":
+            launches = n
+    return launches
+
+
+def recurrent_step_collectives(cfg, n_leaves, chunks):
+    """The collectives one train step of a recurrent or hybrid config makes
+    on each rank of the tiny mesh (one microbatch): on ``model`` each
+    layer's (RECURRENT_LAYER_COLLECTIVES), the embedding's all-reduce, a
+    loss chunk's max and sums, the hidden state's gradient and the global
+    norm's; on ``data`` the mask count, the loss and every leaf."""
+    from repro_torch.models import stages_meta
+    per_kind = [tuple(c * n for n in RECURRENT_LAYER_COLLECTIVES[k])
+                for k, c in stages_meta(cfg)]
+    reduces, gathers, scatters = (sum(col) for col in zip(*per_kind))
+    return {"data": {"all_reduce": 2 + n_leaves},
+            "model": {"all_reduce": 1 + reduces + chunks + 1 + 1,
+                      "all_reduce_max": chunks, "all_gather": gathers,
+                      "reduce_scatter": scatters}}
+
+
 def mesh_step_collectives(n_layers, mqa, microbatches, n_leaves, chunks):
     """The collectives one train step makes on each rank of the tiny mesh,
     worked out from the config: on ``model``, a microbatch's embedding
@@ -3717,8 +3820,8 @@ def _tree_equal(a, b):
 
 def _check_mesh_steps(what, per_rank, n_layers, variant, declared):
     """Every step of every rank launched K6's ``variant`` forward and
-    backward once a layer and nothing else of the package, and made the
-    declared collectives."""
+    backward once per attention layer (``n_layers`` of them) and nothing
+    else of the package, and made the declared collectives."""
     other = "fma_f32" if variant == "wgmma_bf16" else "wgmma_bf16"
     want = {f"flash_attention.{variant}": n_layers,
             f"flash_attention_bwd.{variant}": n_layers,
@@ -3764,12 +3867,16 @@ def run_mesh_training():
     llama4-maverick (ep) at their own capacity factors against the same
     jobs on 4 gloo ranks of the host (the same routing groups per data
     shard, so the same drops): losses, and each step's expert load and
-    dropped share; (b) gemma-2b at full width in bf16, 4 of its
+    dropped share; the float32 reduced xlstm-1.3b and hymba-1.5b (their
+    mLSTM, sLSTM and SSM blocks tensor-parallel) against one CPU process;
+    (b) gemma-2b at full width in bf16, 4 of its
     18 layers, B = 4, S = 1,024, 3 steps, against the same model on one
     rank of the card; (c) a TrainingRunner restored on the mesh from its
-    step-2 checkpoint replaying step 3 bit for bit.  Every step of every
-    rank launches K6 forward and backward once a layer and makes the
-    declared collectives.  Returns the lead rank's K6 launches in (b)."""
+    step-2 checkpoint replaying step 3 bit for bit; (d) xlstm-1.3b at full
+    width, 8 of its 48 layers, bf16, the same way as (b)
+    (:func:`_check_full_width_mesh`).  Every step of every rank launches K6
+    forward and backward once per attention layer and makes the declared
+    collectives.  Returns the lead rank's K6 launches in (b)."""
     import shutil
     import statistics
     import torch
@@ -3802,6 +3909,10 @@ def run_mesh_training():
     jobs["full"] = dict(kind="train", mesh="tiny", arch="gemma-2b",
                         cfg={"n_layers": MESH_LAYERS}, steps=MESH_STEPS,
                         batch=MESH_B, seq=MESH_S, tcfg=dict(rate, total_steps=MESH_STEPS))
+    # (d): xlstm-1.3b at full width, its first CUT_LAYERS layers (7 mLSTM
+    # and an sLSTM), bf16
+    jobs["xlstm full"] = dict(jobs["full"], arch="xlstm-1.3b",
+                              cfg={"n_layers": CUT_LAYERS["xlstm-1.3b"]})
     labels = list(jobs)
     torch.cuda.empty_cache()
     t = time.perf_counter()
@@ -3826,7 +3937,8 @@ def run_mesh_training():
     # (a) float32 against one CPU process, a MoE against the host's mesh
     for arch in MESH_REDUCED_ARCHS:
         cfg = reduced_config(get_config(arch))
-        n_layers = sum(c for _, c in stages_meta(cfg))
+        n_layers = _attention_layers(cfg)
+        recurrent = any(k in RECURRENT_LAYER_COLLECTIVES for k, _ in stages_meta(cfg))
         against = "4 gloo ranks of the host" if cfg.n_experts else "one CPU process"
         hosts = (host_res[arch] if cfg.n_experts else
                  [train_run(dict(jobs[arch], mesh=None), torch.device("cpu"))] * 4)
@@ -3846,6 +3958,8 @@ def run_mesh_training():
                                           cfg.expert_sharding))
             split = sum("data" in {a for e in sp for a in spec_axes(e)} for sp in specs)
             declared = moe_step_collectives(cfg, n_leaves, split, 1)
+        elif recurrent:
+            declared = recurrent_step_collectives(cfg, n_leaves, 1)
         else:
             declared = mesh_step_collectives(n_layers, cfg.n_kv_heads % 2 != 0, 1,
                                              n_leaves, 1)
@@ -3896,51 +4010,74 @@ def run_mesh_training():
     # (b) full width, bf16, against one rank of the card
     cfg = get_config("gemma-2b")
     require(cfg.dtype == "bfloat16", f"gemma-2b dtype {cfg.dtype}")
-    one = train_run(dict(jobs["full"], mesh=None), torch.device("cuda"))
-    torch.cuda.empty_cache()
     declared = mesh_step_collectives(MESH_LAYERS, True, 1,
                                      len(tree_leaves(param_shapes(cfg))),
                                      -(-MESH_S // 512))
-    _check_mesh_steps("mesh gemma-2b bf16", res["full"], MESH_LAYERS, "wgmma_bf16",
-                      declared)
+    lead = _check_full_width_mesh(
+        f"gemma-2b bf16 full width, {MESH_LAYERS} of 18 layers", res["full"],
+        jobs["full"], MESH_LAYERS, declared,
+        f"K6 wgmma_bf16 forward and backward {MESH_LAYERS} launches a step on every "
+        f"rank (rank shape {MESH_RANK_SHAPE})")
+    print(f"mesh training: ranks started and all jobs run in {wall:.1f}s")
+    # (d) xlstm-1.3b at full width, bf16, against one rank of the card
+    n = CUT_LAYERS["xlstm-1.3b"]
+    cfg = dataclasses.replace(get_config("xlstm-1.3b"), n_layers=n)
+    declared = recurrent_step_collectives(cfg, len(tree_leaves(param_shapes(cfg))),
+                                          -(-MESH_S // 512))
+    _check_full_width_mesh(f"xlstm-1.3b bf16 full width, {n} of 48 layers (7 mLSTM, "
+                           "1 sLSTM)", res["xlstm full"], jobs["xlstm full"], 0,
+                           declared, "no kernel launched")
+    return {k: sum(rec["launches"][f"{k}.wgmma_bf16"] for rec in lead["records"])
+            for k in ("flash_attention", "flash_attention_bwd")}
+
+
+def _check_full_width_mesh(label, per_rank, job, n_attn, declared, launched):
+    """A full-width bf16 job of run_mesh_training (each rank a data half of
+    the batch and a model half of the heads and channels) against the same
+    job on one rank of the card: losses and grad norms within
+    TRAIN_MESH_BF16_REL every step, K6 launched once per attention layer
+    (``n_attn``) and the declared collectives every step and rank.
+    Prints the check and the timing; returns the lead rank's record."""
+    import statistics
+    import torch
+    from repro_torch.launch.kernel_timing import nvidia_smi
+    from repro_torch.launch.train import train_run
+    one = train_run(dict(job, mesh=None), torch.device("cuda"))
+    torch.cuda.empty_cache()
+    _check_mesh_steps(f"mesh {label}", per_rank, n_attn, "wgmma_bf16", declared)
     worst = 0.0
-    for r, x in enumerate(res["full"]):
+    for r, x in enumerate(per_rank):
         for i in range(MESH_STEPS):
             for key in ("losses", "grad_norms"):
                 a, b = x[key][i], one[key][i]
                 require(a == a and abs(a) != float("inf"), f"non-finite {key} {a}")
                 worst = max(worst, abs(a - b) / abs(b))
                 require(abs(a - b) <= TRAIN_MESH_BF16_REL * abs(b),
-                        f"mesh gemma-2b bf16 rank {r} step {i + 1}: {key} {a}, one rank {b}")
-    lead = next(x for x in res["full"] if x["lead"])
+                        f"mesh {label} rank {r} step {i + 1}: {key} {a}, one rank {b}")
+    lead = next(x for x in per_rank if x["lead"])
     step_ms = [statistics.median([rec["s"] for rec in x["records"][1:]]) * 1e3
-               for x in res["full"]]
+               for x in per_rank]
     coll_share = [{a: round(sum(rec["collective_s"].get(a, 0.0) for rec in x["records"][1:]) /
                             sum(rec["s"] for rec in x["records"][1:]), 3)
-                   for a in ("data", "model")} for x in res["full"]]
-    peaks = [x["peak_bytes"] / 1e9 for x in res["full"]]
+                   for a in ("data", "model")} for x in per_rank]
+    peaks = [x["peak_bytes"] / 1e9 for x in per_rank]
     one_ms = statistics.median([rec["s"] for rec in one["records"][1:]]) * 1e3
     tokens = MESH_B * MESH_S
-    print(f"check mesh training gemma-2b bf16 full width, {MESH_LAYERS} of 18 layers, "
-          f"B={MESH_B} S={MESH_S}, tiny mesh on 4 gloo ranks sharing the card: "
-          f"{MESH_STEPS} steps, losses {lead['losses']} grad norms "
-          f"{lead['grad_norms']}; one rank: losses {one['losses']} grad norms "
+    print(f"check mesh training {label}, B={MESH_B} S={MESH_S}, tiny mesh on 4 gloo "
+          f"ranks sharing the card: {MESH_STEPS} steps, losses {lead['losses']} grad "
+          f"norms {lead['grad_norms']}; one rank: losses {one['losses']} grad norms "
           f"{one['grad_norms']}; largest rel diff {worst:.3e} <= "
-          f"{TRAIN_MESH_BF16_REL:.0e} on every rank; K6 wgmma_bf16 forward and "
-          f"backward {MESH_LAYERS} launches a step on every rank (rank shape "
-          f"{MESH_RANK_SHAPE}); collectives a step {declared} on every rank, as "
-          f"declared")
-    print(f"train mesh gemma-2b timing ({nvidia_smi('name,power.limit')}): 4 gloo "
-          f"ranks, step_ms per rank (median of steps 2-{MESH_STEPS}) "
+          f"{TRAIN_MESH_BF16_REL:.0e} on every rank; {launched}; collectives a step "
+          f"{declared} on every rank, as declared")
+    print(f"train mesh {label.split()[0]} timing ({nvidia_smi('name,power.limit')}): "
+          f"4 gloo ranks, step_ms per rank (median of steps 2-{MESH_STEPS}) "
           f"{[round(v, 1) for v in step_ms]}, tokens_per_s "
           f"{tokens / max(step_ms) * 1e3:.0f}, collectives' share of a step per "
           f"rank and axis (host time inside them) {coll_share}, peak_mem_GB per rank "
           f"{[round(v, 2) for v in peaks]} (card {sum(peaks):.2f} + contexts); one "
           f"rank of the same model: step_ms {one_ms:.1f}, tokens_per_s "
-          f"{tokens / one_ms * 1e3:.0f}, peak_mem_GB {one['peak_bytes'] / 1e9:.2f}; "
-          f"ranks started and all jobs run in {wall:.1f}s")
-    return {k: sum(rec["launches"][f"{k}.wgmma_bf16"] for rec in lead["records"])
-            for k in ("flash_attention", "flash_attention_bwd")}
+          f"{tokens / one_ms * 1e3:.0f}, peak_mem_GB {one['peak_bytes'] / 1e9:.2f}")
+    return lead
 
 
 def time_mesh_rank_attention(launches):
@@ -4189,48 +4326,76 @@ def time_capped_flash_attention_bwd(launches):
 
 def time_whisper_cross_bwd(launches):
     """K6's backward at whisper's training cross-attention (WHISPER_CROSS:
-    S = 448 decoder rows over Sk = 1,500 encoder rows, non-causal, G = 1)
-    beside its bound, its plain version and the backward of torch's
-    scaled_dot_product_attention on the same inputs (the port never calls
-    it), after the kernel is held to the plain version.  ``launches``: the
-    cross backward's launches in run_training_whisper.  Returns the
-    kernels line's row."""
+    S = 448 decoder rows over Sk = 1,500 encoder rows, non-causal, G = 1;
+    :func:`_time_training_bwd`).  ``launches``: the cross backward's
+    launches in run_training_whisper."""
+    b, h, hkv, s, sk, d = WHISPER_CROSS
+    return _time_training_bwd(WHISPER_CROSS_SHAPE, b, h, hkv, s, sk, d, False, 0,
+                              launches, seed=41)
+
+
+def time_hymba_training_bwd(launches):
+    """K6's backward at hymba's training layer (HYMBA_TRAIN: B = 4, 25
+    heads over 5 KV heads, S = 1,024, D = 64, causal under the window of
+    2,048, which keeps every causal pair; each group's 5 heads in one
+    dK/dV block; :func:`_time_training_bwd`).  ``launches``: the
+    backward's launches in run_training_recurrent."""
+    b, h, hkv, s, d, window = HYMBA_TRAIN
+    return _time_training_bwd(HYMBA_TRAIN_SHAPE, b, h, hkv, s, s, d, True, window,
+                              launches, seed=51)
+
+
+def _time_training_bwd(shape, b, h, hkv, s, sk, d, causal, window, launches, seed):
+    """K6's backward at a training shape beside its bound, its plain
+    version and the backward of torch's scaled_dot_product_attention on
+    the same inputs (the port never calls it; its causal mask stands for
+    the window only where the window keeps every causal pair), after the
+    kernel is held to the plain version.  Returns the kernels line's
+    row."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (attention_ref_bwd,
                                                      flash_attention,
                                                      flash_attention_bwd)
     from repro_torch.launch.kernel_timing import device_ms, median_ms, nvidia_smi
-    b, h, hkv, s, sk, d = WHISPER_CROSS
-    q, _, _ = attn_inputs(b, h, hkv, s, d, torch.bfloat16, seed=41, model_layout=True)
-    _, k, v = attn_inputs(b, hkv, hkv, sk, d, torch.bfloat16, seed=42, model_layout=True)
+    q, k, v = attn_inputs(b, h, hkv, s, d, torch.bfloat16, seed=seed, model_layout=True)
+    if sk != s:
+        _, k, v = attn_inputs(b, hkv, hkv, sk, d, torch.bfloat16, seed=seed + 1,
+                              model_layout=True)
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(43)
+    gen.manual_seed(seed + 2)
     dout = torch.randn((b, s, h, d), generator=gen, device="cuda").to(torch.bfloat16).transpose(1, 2)
-    out, lse = flash_attention(q, k, v, causal=False, window=0, return_lse=True)
-    fn = lambda: flash_attention_bwd(q, k, v, out, dout, lse, causal=False, window=0)
-    plain = lambda: attention_ref_bwd(q, k, v, out, dout, lse, causal=False)
+    out, lse = flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    fn = lambda: flash_attention_bwd(q, k, v, out, dout, lse, causal=causal, window=window)
+    mask = dict(causal=causal, window=window or None)
+    plain = lambda: attention_ref_bwd(q, k, v, out, dout, lse, **mask)
     got = fn()
     want = attention_ref_bwd(q.float(), k.float(), v.float(), out.float(), dout.float(),
-                             lse, causal=False)
+                             lse, **mask)
     rel = max(float((g.float() - w).norm() / w.norm()) for g, w in zip(got, want))
-    require(rel <= BWD_REL_BF16, f"flash_attention_bwd at whisper's cross: rel L2 {rel:.3e}")
+    require(rel <= BWD_REL_BF16, f"flash_attention_bwd at {shape}: rel L2 {rel:.3e}")
+    # the pairs each query row keeps: all Sk keys, or the causal ones within
+    # the window
+    kept = (s * sk if not causal else
+            sum(min(i + 1, window or i + 1) for i in range(s)))
+    require(not causal or kept == s * (s + 1) // 2,
+            f"{shape}: SDPA's causal mask would not stand for the window")
     qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=False)
+    lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
+                                             enable_gqa=h != hkv)
     lib = lambda: torch.autograd.grad(lib_out, (qs, ks, vs), dout, retain_graph=True)
     err = max(float((a.float() - b_.float()).norm() / b_.float().norm())
               for a, b_ in zip(lib(), got))
     require(err <= SDPA_TOL,
-            f"SDPA's backward disagrees with flash_attention_bwd at whisper's cross: "
+            f"SDPA's backward disagrees with flash_attention_bwd at {shape}: "
             f"rel L2 {err:.3e}")
-    # every pair kept: q, out, dout, dq of S rows, k, v, dk, dv of Sk rows
-    # (bf16), lse read once
+    # q, out, dout, dq of S rows, k, v, dk, dv of Sk rows (bf16), lse read once
     nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
-    bms, by = bound_attn(nbytes, 10 * d * s * sk * b * h)
+    bms, by = bound_attn(nbytes, 10 * d * kept * b * h)
     row = dict(name="flash_attention_bwd", route="cuda",
                source="src/repro_torch/csrc/flash_attention_bwd.cu",
                replaces="src/repro/kernels/flash_attention/flash_attention.py:110",
-               shape=WHISPER_CROSS_SHAPE, ms=device_ms(fn, reps=20),
+               shape=shape, ms=device_ms(fn, reps=20),
                plain_ms=device_ms(plain, reps=3), library_ms=device_ms(lib, reps=20),
                call_ms=median_ms(fn, reps=10), bound_ms=bms, bound_by=by,
                launches=launches, listed=True, also_listed=True)
@@ -4243,13 +4408,13 @@ def time_whisper_cross_bwd(launches):
           f"({by}) library_ms={row['library_ms']:.5f} launches_on_main_path={launches}; "
           f"call_ms={row['call_ms']:.5f}; {row['ms'] / row['bound_ms']:.2f}x the bound, "
           f"{row['ms'] / row['library_ms']:.2f}x SDPA's backward; rel L2 from the plain "
-          f"version {rel:.3e}; bound: 10 D operations for each of the B H S Sk pairs "
-          f"(every pair kept) at the dense bf16 tensor-core rate, {nbytes} bytes read and "
-          f"written once; library: the backward of scaled_dot_product_attention, which "
-          f"the port never calls; SDPA's gradients within rel L2 {err:.3e}")
+          f"version {rel:.3e}; bound: 10 D operations for each of the {kept * b * h} kept "
+          f"pairs at the dense bf16 tensor-core rate, {nbytes} bytes read and written "
+          f"once; library: the backward of scaled_dot_product_attention, which the port "
+          f"never calls; SDPA's gradients within rel L2 {err:.3e}")
     for key in ("ms", "plain_ms", "library_ms"):
         require(row["bound_ms"] <= row[key],
-                f"whisper cross flash_attention_bwd: bound_ms {row['bound_ms']:.5f} "
+                f"flash_attention_bwd at {shape}: bound_ms {row['bound_ms']:.5f} "
                 f"exceeds {key}")
     del q, k, v, out, dout, lse, got, want, qs, ks, vs, lib_out
     torch.cuda.empty_cache()
@@ -4730,12 +4895,14 @@ def main() -> int:
     grok_launches = phase(run_training_grok)
     phase(run_training_phi3)
     whisper_bwd = phase(run_training_whisper)
+    hymba_bwd = phase(run_training_recurrent)
     mesh_launches = phase(run_mesh_training)
     rows = (phase(time_kernels, launches, miner, stream_rec) +
             phase(time_attention, serve_counts, model_counts) +
             [phase(time_flash_attention_bwd, bwd_launches),
              phase(time_capped_flash_attention_bwd, grok_launches),
-             phase(time_whisper_cross_bwd, whisper_bwd)] +
+             phase(time_whisper_cross_bwd, whisper_bwd),
+             phase(time_hymba_training_bwd, hymba_bwd)] +
             phase(time_mesh_rank_attention, mesh_launches))
     kernels_line = [dict(name=r["name"], route=r["route"], source=r["source"],
                          replaces=r["replaces"], shape=r["shape"],
@@ -4751,8 +4918,9 @@ def main() -> int:
     # the mesh rank's shape, K6's capped backward at grok's layer, K6 and
     # K7 at hymba's prefill and decode shapes, K6 at phi3's prefill,
     # whisper's encoder and its cross rows, K7 at phi3's decode and over
-    # whisper's cross rows, K6's backward at whisper's training cross
-    require(len(kernels_line) == len(REPORT_SHAPE) + 11, "a kernel has no timing row")
+    # whisper's cross rows, K6's backward at whisper's training cross and at
+    # hymba's training layer
+    require(len(kernels_line) == len(REPORT_SHAPE) + 12, "a kernel has no timing row")
     print(f"chip_smoke wall_s={time.perf_counter() - t_start:.1f} (build included)")
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {

@@ -71,11 +71,11 @@ def _mesh_device_type() -> str:
     return "cuda" if dist.get_backend() == dist.Backend.NCCL else "cpu"
 
 
-def make_data_mesh() -> DeviceMesh:
-    """One ``("data",)`` axis over every rank of the process group."""
+def make_data_mesh(axis: str = "data") -> DeviceMesh:
+    """One axis, ``(axis,)``, over every rank of the process group."""
     n = _world()
     return DeviceMesh(_mesh_device_type(), torch.arange(n),
-                      mesh_dim_names=("data",))
+                      mesh_dim_names=(axis,))
 
 
 def factor_grid(n: int) -> Tuple[int, int]:

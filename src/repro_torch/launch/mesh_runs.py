@@ -73,6 +73,17 @@ driver's flags.  Kinds:
                 the global ``expert_load``, ``dropped_frac`` and
                 ``aux_loss``, the input's gradient (this rank's block) and
                 the weights' gradients whole on the lead rank
+``block``       one recurrent block of the config (``arch``, ``reduced``,
+                ``cfg`` as for ``train``; ``block`` ``"mlstm"``,
+                ``"slstm"`` or ``"ssm"``) on a mesh of one ``model`` axis
+                over every rank, forward and backward: ``layer`` the
+                block's stacked weights (numpy, ``stk_`` keys, a stack of
+                one), placed by ``spec_tree``; ``x`` and ``dout`` the
+                (B, S, D) input and output weights (numpy, replicated);
+                the objective is ``sum(out * dout)``.  Returns the output,
+                the input's gradient, the weights' specs and this rank's
+                gradients of its blocks (``local``), the gradients whole on
+                the lead rank, and the collectives of the call
 
 A job that the port refuses (``ValueError``, ``TypeError``,
 ``NotImplementedError``) returns ``{"error": "<type>: <message>"}``; any
@@ -427,10 +438,41 @@ def _moe(rank: _Rank, job: dict) -> dict:
                 else {k: v.cpu().numpy() for k, v in whole_grads.items()})
 
 
+def _block(rank: _Rank, job: dict) -> dict:
+    from ..dist.sharding import gather_tree, is_lead_rank, shard_tree, spec_tree
+    from ..models.ssm import ssm_block
+    from ..models.xlstm import mlstm_block, slstm_block
+    from .mesh import make_data_mesh
+    from .train import _config
+    key = ("axis", "model")
+    if key not in rank.meshes:
+        rank.meshes[key] = make_data_mesh("model")
+    mesh, cfg = rank.meshes[key], _config(job)
+    specs = spec_tree({k: v.shape for k, v in job["layer"].items()}, mesh)
+    host = {k: torch.from_numpy(v) for k, v in job["layer"].items()}
+    p = {k: v.to(rank.device).requires_grad_()
+         for k, v in shard_tree(host, mesh, specs).items()}
+    x = torch.from_numpy(job["x"]).to(rank.device).requires_grad_()
+    forward = {"mlstm": mlstm_block, "slstm": slstm_block, "ssm": ssm_block}[job["block"]]
+    before = coll.collective_counts()
+    out, _ = forward({k[4:]: v[0] for k, v in p.items()}, x, cfg, mesh=mesh)
+    loss = (out.float() * torch.from_numpy(job["dout"]).to(rank.device)).sum()
+    *gp, gx = torch.autograd.grad(loss, list(p.values()) + [x])
+    calls = {a: {op: c["calls"] for op, c in ops.items()}
+             for a, ops in coll.counts_since(before).items()}
+    grads = gather_tree(dict(zip(p, gp)), mesh, specs)
+    lead = is_lead_rank(mesh)
+    return dict(lead=lead, out=out.detach().cpu().numpy(), dx=gx.cpu().numpy(),
+                collectives=calls, specs=specs,
+                local={k: g.cpu().numpy() for k, g in zip(p, gp)},
+                grads={k: v.cpu().numpy() for k, v in grads.items()} if lead else None)
+
+
 _KINDS = {"mine": _mine, "expand": _expand, "accumulate": _accumulate,
           "stream": _stream, "stream_ckpt": _stream_ckpt,
           "stream_restore": _stream_restore, "resume": _resume, "mesh": _mesh,
-          "compressed_psum": _compressed_psum, "train": _train, "moe": _moe}
+          "compressed_psum": _compressed_psum, "train": _train, "moe": _moe,
+          "block": _block}
 
 
 def run_jobs(device: torch.device, jobs: Sequence[dict]) -> List[dict]:

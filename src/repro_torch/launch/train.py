@@ -25,7 +25,13 @@ ranks on the host or sharing one card, which NCCL refuses).  Every rank
 makes the same weights from the seed and keeps its block of them, so the
 mesh trains the model a single device trains; the lead rank prints the
 lines.  A mixture of experts trains on a mesh too (its routing groups per
-data shard and the expert all-to-all, ``models.moe``).
+data shard and the expert all-to-all, ``models.moe``), and so do the
+recurrent and hybrid kinds (xlstm's mLSTM and sLSTM, hymba's SSM beside
+attention: each block tensor-parallel over ``model``, ``models.xlstm``,
+``models.ssm``); a model axis that does not split a config's heads or
+channels is refused before any rank starts (hymba-1.5b's 25 heads on
+``tiny``).  xlstm-1.3b and hymba-1.5b train on one card at full width
+under ``--remat full``, as ``chip_smoke.py`` runs them.
 """
 from __future__ import annotations
 

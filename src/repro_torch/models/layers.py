@@ -1,4 +1,5 @@
-"""Shared model layers: norms, rotary embeddings, logit soft-capping.
+"""Shared model layers: norms, rotary embeddings, logit soft-capping, and
+the two helpers of the recurrent blocks' tensor-parallel forms.
 
 Float32 internals exactly as the reference package's ``models/layers.py``:
 each function computes in float32 and casts back to its input's dtype.
@@ -7,10 +8,12 @@ from __future__ import annotations
 
 import torch
 
+from ..dist import collectives as coll
+from ..dist.sharding import axis_index, axis_size
 from ..kernels._softcap import softcap
 
 __all__ = ["rms_norm", "layer_norm", "norm", "rope", "apply_rope", "init_norm",
-           "softcap"]
+           "softcap", "model_split", "gather_columns"]
 
 
 def init_norm(d: int, kind: str, dtype, device=None) -> dict:
@@ -68,3 +71,21 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     xf1, xf2 = x1.float(), x2.float()
     return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin],
                      dim=-1).to(x.dtype)
+
+
+def model_split(mesh, state, block: str) -> tuple:
+    """(m, r): the size of ``mesh``'s ``model`` axis and this rank's
+    coordinate on it, (1, 0) without one; a decode state on a mesh raises."""
+    if mesh is None or "model" not in (mesh.mesh_dim_names or ()):
+        return 1, 0
+    if state is not None:
+        raise NotImplementedError(
+            f"the {block} with a decode state on a mesh (sharded serving) is "
+            "not ported (ROADMAP item 12)")
+    return axis_size(mesh, "model"), axis_index(mesh, "model")
+
+
+def gather_columns(t: torch.Tensor, mesh, ranks: int) -> torch.Tensor:
+    """``t``'s last dim gathered over ``model`` (``t`` itself when
+    ``ranks`` is 1): one all-gather, its gradient reduce-scattered."""
+    return t if ranks == 1 else coll.gather_over_axis(t, mesh, "model", dim=-1)

@@ -13,11 +13,27 @@ built a chunk at a time (hymba's prefill at B = 2, S = 2,048: 52 MB each a
 chunk, 839 MB for the whole sequence); the function computed is the
 reference's.  ``ssm_a_log`` and ``ssm_d`` are float32 in every model dtype,
 as the reference keeps them, and so is the state.
+
+On a mesh with a ``model`` axis of ``m`` ranks (training only) the block is
+tensor-parallel under the reference's placements: ``ssm_in_proj``'s
+columns are split (with m = 2, xs on rank 0 and z on rank 1), so the
+in-projection is gathered over ``model``; the depthwise conv and
+``ssm_bc_proj`` (both replicated) run on the full ``Din`` on every rank;
+the scan runs on the rank's ``Din / m`` channels, with their rows of the
+replicated ``ssm_a_log`` and the rank's slice of ``ssm_d``; the
+row-parallel ``ssm_out_proj``'s partial sums are all-reduced over
+``model``.  Each rank's gradient of a replicated leaf covers its own
+channels only, so ``ssm_conv``, ``ssm_bc_proj`` and ``ssm_a_log`` enter
+through ``copy_to_axis`` (their gradients summed over ``model``) and the
+ranks' copies stay equal.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..dist import collectives as coll
+from .layers import gather_columns, model_split
 
 __all__ = ["CHUNK", "init_ssm", "ssm_block", "init_ssm_state"]
 
@@ -84,17 +100,24 @@ def _scan(dec, drv):
 
 
 def ssm_block(p: dict, x: torch.Tensor, cfg, *, state: dict | None = None,
-              prefix: str = ""):
+              prefix: str = "", mesh=None):
     """x: (B, S, D) -> ((B, S, D), state); state {"h": (B, Din, N), "conv":
-    (B, K-1, Din)} enables stateful decode."""
+    (B, K-1, Din)} enables stateful decode.  ``mesh``: tensor-parallel over
+    its ``model`` axis, the scan on the rank's Din / m channels (the module
+    docstring)."""
     b, s, d = x.shape
     din = cfg.ssm_expand * d
     n = cfg.ssm_state
+    ranks, r = model_split(mesh, state, "SSM")
 
     def g(name):
-        return p[prefix + name]
+        w = p[prefix + name]
+        replicated = name in ("ssm_conv", "ssm_bc_proj", "ssm_a_log")
+        return coll.copy_to_axis(w, mesh, "model") if ranks > 1 and replicated else w
 
-    xs, z = (x @ g("ssm_in_proj")).split(din, dim=-1)
+    if ranks > 1:
+        x = coll.copy_to_axis(x, mesh, "model")
+    xs, z = gather_columns(x @ g("ssm_in_proj"), mesh, ranks).split(din, dim=-1)
     xs, new_conv = _causal_conv(xs, g("ssm_conv"),
                                 None if state is None else state["conv"])
     xs = F.silu(xs)
@@ -103,7 +126,11 @@ def ssm_block(p: dict, x: torch.Tensor, cfg, *, state: dict | None = None,
     b_t = bcd[..., :n].float()                        # (B, S, N)
     c_t = bcd[..., n: 2 * n].float()
     dt = F.softplus(bcd[..., -1:].float())            # (B, S, 1)
-    a = -torch.exp(g("ssm_a_log"))                    # (Din, N)
+    # this rank's channels (all of them off a mesh)
+    din //= ranks
+    mine = slice(r * din, (r + 1) * din)
+    xs, z = xs[..., mine], z[..., mine]
+    a = -torch.exp(g("ssm_a_log")[mine])              # (Din, N)
     u = dt * xs.float()                               # (B, S, Din)
 
     h = (torch.zeros((b, din, n), dtype=torch.float32, device=x.device)
@@ -124,8 +151,10 @@ def ssm_block(p: dict, x: torch.Tensor, cfg, *, state: dict | None = None,
         y = torch.cat(ys, dim=1)
 
     y = y.to(x.dtype) + xs * g("ssm_d").to(x.dtype)[None, None]
-    y = y * F.silu(z)
-    return y @ g("ssm_out_proj"), {"h": h, "conv": new_conv}
+    y = (y * F.silu(z)) @ g("ssm_out_proj")
+    if ranks > 1:
+        y = coll.reduce_over_axis(y, mesh, "model")
+    return y, {"h": h, "conv": new_conv}
 
 
 def init_ssm_state(cfg, batch: int, n_layers: int, device=None) -> dict:

@@ -51,10 +51,14 @@ reference's groups per data shard and moves its buffers between data and
 expert shards (:mod:`.moe`; the batch dict's ``"whole_batch"``, set by
 ``training.fault_tolerance.batch_block``, says that each data rank holds
 the whole batch); its load-balance loss is global and the loss adds ``0.01``
-times it once.  ``seq_parallel``, ``mlp_dp``, a mixture of experts over
-more than one data axis, the recurrent and hybrid layers, the
-encoder-decoder and the vision prefix on a mesh, and serving on a mesh
-raise ``NotImplementedError``.
+times it once.  The recurrent and hybrid layers are tensor-parallel too
+(:mod:`.xlstm`, :mod:`.ssm`: each gathers its column-split projections
+over ``model``, runs its recurrence on the rank's heads or channels and
+all-reduces its row-parallel output).  ``seq_parallel``, ``mlp_dp``, a
+mixture of experts over more than one data axis, a model axis that does
+not split the heads or a block's channels, the encoder-decoder and the
+vision prefix on a mesh, and serving on a mesh raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -75,7 +79,7 @@ from .layers import init_norm, norm
 from .mlp import init_mlp, mlp
 from .moe import expert_placement, init_moe, moe
 from .ssm import init_ssm, init_ssm_state, ssm_block
-from .xlstm import (init_mlstm, init_mlstm_state, init_slstm,
+from .xlstm import (PROJ_FACTOR, init_mlstm, init_mlstm_state, init_slstm,
                     init_slstm_state, mlstm_block, slstm_block)
 
 __all__ = ["stages_meta", "init_params", "Model", "PORTED_KINDS",
@@ -96,8 +100,8 @@ class _Block(NamedTuple):
 
 
 # the layer kinds (the part before "+") with a block of their own, each
-# one card only (no tensor-parallel form): the hybrid's SSM sits beside
-# attention, the recurrent blocks take the place of attention and the MLP
+# tensor-parallel on a mesh: the hybrid's SSM sits beside attention, the
+# recurrent blocks take the place of attention and the MLP
 _BLOCKS = {"hybrid": _Block(init_ssm, ssm_block, init_ssm_state, True),
            "mlstm": _Block(init_mlstm, mlstm_block, init_mlstm_state, False),
            "slstm": _Block(init_slstm, slstm_block, init_slstm_state, False)}
@@ -151,15 +155,12 @@ def check_mesh(cfg, mesh) -> None:
     (ROADMAP item 12h): ``seq_parallel`` and ``mlp_dp``, a mixture of
     experts over more than one data axis (the reference's ``pod`` meshes),
     and a model axis that does not split the heads, the KV heads, d_ff or
-    the vocab the way the tensor-parallel layers read them; and (ROADMAP
-    item 12) the recurrent and hybrid layer kinds, whose blocks have no
-    tensor-parallel form in the port, and whisper's encoder-decoder
+    the vocab the way the tensor-parallel layers read them, nor, for the
+    recurrent and hybrid kinds, the mLSTM's head width, the sLSTM's
+    channels or the SSM's inner channels (hymba-1.5b's 25 heads over a
+    model axis of 2, for one); and whisper's encoder-decoder
     (cross-attention on a mesh, ROADMAP item 12f)."""
-    kinds = sorted({k for k, _ in stages_meta(cfg) if _block(k)})
-    if kinds:
-        raise NotImplementedError(
-            f"{cfg.name}: the layer kinds {kinds} on a mesh are not ported "
-            "(one card only; ROADMAP item 12)")
+    kinds = {k.split("+")[0] for k, _ in stages_meta(cfg)}
     if cfg.n_encoder_layers:
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder (enc, xdec) on a mesh is not "
@@ -184,6 +185,13 @@ def check_mesh(cfg, mesh) -> None:
         bad.append(f"d_ff {cfg.d_ff}")
     if cfg.vocab_size % m:
         bad.append(f"vocab {cfg.vocab_size}")
+    d = cfg.d_model
+    if "mlstm" in kinds and (PROJ_FACTOR * d // h) % m:
+        bad.append(f"the mLSTM head width {PROJ_FACTOR * d // h}")
+    if "slstm" in kinds and d % m:
+        bad.append(f"the sLSTM's {d} channels")
+    if "hybrid" in kinds and (cfg.ssm_expand * d) % m:
+        bad.append(f"the SSM's {cfg.ssm_expand * d} channels")
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: a model axis of {m} does not split {', '.join(bad)} "
@@ -278,7 +286,7 @@ def _layer_forward(lp: Dict[str, torch.Tensor], x, cfg, kind: str, *,
     blk = _block(kind)
     h = norm(_sub(lp, "norm1"), x, cfg.norm)
     if blk is not None and not blk.with_attention:
-        out, state = blk.forward(lp, h, cfg, state=cache)
+        out, state = blk.forward(lp, h, cfg, state=cache, mesh=mesh)
         return x + out, (None if cache is None else state), None
     if blk is not None:
         # hymba: windowed attention and the block side by side, averaged
@@ -288,7 +296,8 @@ def _layer_forward(lp: Dict[str, torch.Tensor], x, cfg, kind: str, *,
             block_state = {k: t for k, t in cache.items() if k not in attn_cache}
         attn_out, _ = attention(lp, h, cfg, window=cfg.window, cache=attn_cache,
                                 pos=pos, mesh=mesh)
-        blk_out, block_state = blk.forward(lp, h, cfg, state=block_state)
+        blk_out, block_state = blk.forward(lp, h, cfg, state=block_state,
+                                           mesh=mesh)
         x = x + 0.5 * (attn_out + blk_out)
         x = x + mlp(lp, norm(_sub(lp, "norm2"), x, cfg.norm), cfg, mesh=mesh)
         return x, (None if cache is None else {**attn_cache, **block_state}), None

@@ -19,11 +19,28 @@ dtype.  With a state, the mLSTM step writes the new state into the given
 tensors in place (the serving cache's slices: xlstm-1.3b's ``c`` is 33.5 MB
 a layer at B = 2) and returns them; the chunkwise form and the sLSTM return
 new tensors, which ``transformer.run_stage`` copies into the cache.
+
+On a mesh with a ``model`` axis of ``m`` ranks (training only) both blocks
+are tensor-parallel under the reference's placements, which split the
+projections' columns (``m_in_proj``, ``m_wq``/``m_wk``/``m_wv``' last dim,
+``m_wif``, ``s_w_in``) and the rows of the output projections: a rank's
+column block is not its heads or channels (with m = 2, ``m_in_proj``'s
+block on rank 0 is xs and on rank 1 z), so each rank gathers the
+projections over ``model`` (``dist.collectives.gather_over_axis``: the
+gradient summed back and cut to the rank's block).  The recurrence then
+runs on the rank's ``H / m`` heads (mLSTM; a rank carries ``1 / m`` of the
+``c`` state) or ``D / m`` channels (sLSTM, elementwise per channel, with
+the rank's slice of ``s_r_gate``), and the row-parallel output projection's
+partial sums are all-reduced over ``model``.  The input is replicated over
+``model`` and its gradient summed over it (``copy_to_axis``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..dist import collectives as coll
+from .layers import gather_columns, model_split
 
 __all__ = ["CHUNK", "PROJ_FACTOR", "init_mlstm", "mlstm_block", "init_slstm",
            "slstm_block", "init_mlstm_state", "init_slstm_state"]
@@ -71,7 +88,9 @@ def _mlstm_chunk(qb, kb, vb, li, lf, c_in, n_in, m_in, tril):
     b_log = lf_cum[:, :, None] - lf_cum[:, None, :] + li[:, None]  # (B, t, j, H)
     m_new = torch.maximum(a_log, torch.where(tril, b_log, float("-inf")).amax(dim=2))
     scale_old = torch.exp(a_log - m_new)                      # (B, c, H)
-    w_in = torch.where(tril, torch.exp(b_log - m_new[:, :, None]), 0.0)
+    # masked before the exponential: above the diagonal b_log - m_new may
+    # overflow, and a where after the exp would pass 0 * inf = nan back
+    w_in = torch.exp(torch.where(tril, b_log - m_new[:, :, None], float("-inf")))
     scores = torch.einsum("bthd,bjhd->btjh", qb, kb) * w_in
     num_intra = torch.einsum("btjh,bjhd->bthd", scores, vb)
     num_inter = torch.einsum("bthd,bhde->bthe", qb, c_in) * scale_old[..., None]
@@ -89,23 +108,35 @@ def _mlstm_chunk(qb, kb, vb, li, lf, c_in, n_in, m_in, tril):
     return y, c_out, n_out, m_end
 
 
-def mlstm_block(p: dict, x: torch.Tensor, cfg, *, state: dict | None = None):
+def mlstm_block(p: dict, x: torch.Tensor, cfg, *, state: dict | None = None,
+                mesh=None):
     """x: (B, S, D) -> ((B, S, D), state); state {"c": (B, H, hd, hd), "n":
     (B, H, hd), "m": (B, H)}, float32, enables stateful decode.  The step
-    (S = 1) updates a given state in place."""
+    (S = 1) updates a given state in place.  ``mesh``: tensor-parallel
+    over its ``model`` axis (the module docstring; the returned state is
+    the rank's heads')."""
     b, s, d = x.shape
-    h = cfg.n_heads
     din = PROJ_FACTOR * d
-    hd = din // h
+    hd = din // cfg.n_heads
+    ranks, r = model_split(mesh, state, "mLSTM")
+    if ranks > 1:
+        x = coll.copy_to_axis(x, mesh, "model")
 
-    xs, z = (x @ p["m_in_proj"]).split(din, dim=-1)
-    xh = xs.reshape(b, s, h, hd)
-    q = torch.einsum("bshd,hde->bshe", xh, p["m_wq"]).float() * hd ** -0.5
-    k = torch.einsum("bshd,hde->bshe", xh, p["m_wk"]).float() * hd ** -0.5
-    v = torch.einsum("bshd,hde->bshe", xh, p["m_wv"]).float()
-    gates = (xs @ p["m_wif"]).float()                         # (B, S, 2H)
-    log_i = F.logsigmoid(gates[..., :h])
-    log_f = F.logsigmoid(gates[..., h:])
+    xs, z = gather_columns(x @ p["m_in_proj"], mesh, ranks).split(din, dim=-1)
+    xh = xs.reshape(b, s, cfg.n_heads, hd)
+    qkv = torch.stack([torch.einsum("bshd,hde->bshe", xh, p[w])
+                       for w in ("m_wq", "m_wk", "m_wv")])   # (3, B, S, H, hd)
+    qkv = gather_columns(qkv, mesh, ranks)
+    gates = gather_columns(xs @ p["m_wif"], mesh, ranks).float()     # (B, S, 2H)
+    # this rank's heads (all of them off a mesh) and their columns of z
+    h = cfg.n_heads // ranks
+    heads = slice(r * h, (r + 1) * h)
+    qkv = qkv[:, :, :, heads].float()
+    q, k, v = qkv[0] * hd ** -0.5, qkv[1] * hd ** -0.5, qkv[2]
+    log_i = F.logsigmoid(gates[..., heads])
+    log_f = F.logsigmoid(gates[..., cfg.n_heads:][..., heads])
+    din //= ranks
+    z = z[..., r * din: (r + 1) * din]
 
     if state is None:
         c0 = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=x.device)
@@ -150,8 +181,10 @@ def mlstm_block(p: dict, x: torch.Tensor, cfg, *, state: dict | None = None):
         y = torch.cat(ys, dim=1)[:, :s].reshape(b, s, din)
         new_state = {"c": c_in, "n": n_in, "m": m_in}
 
-    y = y.to(x.dtype) * F.silu(z)
-    return y @ p["m_out_proj"], new_state
+    y = (y.to(x.dtype) * F.silu(z)) @ p["m_out_proj"]
+    if ranks > 1:
+        y = coll.reduce_over_axis(y, mesh, "model")
+    return y, new_state
 
 
 def init_slstm(generator: torch.Generator, cfg, dtype, stacked: int = 0,
@@ -169,16 +202,31 @@ def init_slstm(generator: torch.Generator, cfg, dtype, stacked: int = 0,
     }
 
 
-def slstm_block(p: dict, x: torch.Tensor, cfg, *, state: dict | None = None):
+def slstm_block(p: dict, x: torch.Tensor, cfg, *, state: dict | None = None,
+                mesh=None):
     """Sequential scalar-memory LSTM with exponential gating (sLSTM).
 
     state {"c", "n", "m", "h"}: (B, D) each, float32.  A Python loop over
     the positions, one step's elementwise ops at a time (a plain version:
-    the reference has no kernel here either)."""
+    the reference has no kernel here either).  ``mesh``: tensor-parallel
+    over its ``model`` axis, the rank's D / m channels (the module
+    docstring)."""
     b, s, d = x.shape
-    pre = (x @ p["s_w_in"]).float().transpose(0, 1).contiguous()  # (S, B, 4D)
+    ranks, rank = model_split(mesh, state, "sLSTM")
+    if ranks > 1:
+        x = coll.copy_to_axis(x, mesh, "model")
+    pre = gather_columns(x @ p["s_w_in"], mesh, ranks)        # (B, S, 4D)
+    if ranks > 1:
+        # z, i, f and o of this rank's channels
+        d //= ranks
+        pre = pre.unflatten(-1, (4, ranks, d))[..., rank, :].flatten(-2)
+    pre = pre.float().transpose(0, 1).contiguous()            # (S, B, 4D)
     z_in, i_in, f_in, o_in = pre.split(d, dim=-1)
-    o_sig = torch.sigmoid(o_in)
+    # each position's rows as views made at once: an index per position
+    # would be an autograd node of its own whose backward writes a zero
+    # tensor of the whole sequence (1,024 of them a gate and layer)
+    z_in, i_in, f_in, o_sig = (t.unbind(0) for t in (z_in, i_in, f_in,
+                                                     torch.sigmoid(o_in)))
     r = p["s_r_gate"].float()
 
     if state is None:
@@ -202,8 +250,10 @@ def slstm_block(p: dict, x: torch.Tensor, cfg, *, state: dict | None = None):
         h = o_sig[t] * c / torch.clamp(n, min=1.0)
         m = m_new
         hs.append(h)
-    y = torch.stack(hs, dim=1).to(x.dtype)                    # (B, S, D)
-    return y @ p["s_out_proj"], {"c": c, "n": n, "m": m, "h": h}
+    y = torch.stack(hs, dim=1).to(x.dtype) @ p["s_out_proj"]  # (B, S, D)
+    if ranks > 1:
+        y = coll.reduce_over_axis(y, mesh, "model")
+    return y, {"c": c, "n": n, "m": m, "h": h}
 
 
 def init_mlstm_state(cfg, batch: int, n_layers: int, device=None) -> dict:

@@ -865,7 +865,10 @@ BWD_REL_EMU = 1e-3
     (2, 4, 4, 64, 16, True, 0, 30.0),      # the reduced grok, G = 1
     (1, 12, 2, 130, 128, True, 50, 30.0),  # a cap and a window
     (1, 4, 4, 97, 64, False, 0, 30.0),     # a cap, non-causal, G = 1
-    (1, 32, 32, 257, 96, True, 0, 0.0)])   # phi3's layer: G = 1, D = 96
+    (1, 32, 32, 257, 96, True, 0, 0.0),    # phi3's layer: G = 1, D = 96
+    (2, 25, 5, 300, 64, True, 2048, 0.0),  # hymba's heads: G = 5 split 5 ways
+    (4, 25, 5, 1024, 64, True, 2048, 0.0),  # hymba's training layer, no split
+    (1, 25, 5, 2100, 64, True, 2048, 0.0)])  # hymba's window bites
 def test_flash_attention_bwd_matches_its_plain_version(cuda, b, h, hkv, s, d,
                                                        causal, window, softcap,
                                                        dtype):
@@ -946,7 +949,7 @@ def _check_bwd(cuda, b, h, hkv, s, d, causal, window, softcap, dtype, sk=None):
 @pytest.mark.parametrize("b,h,hkv,s,d,window", [
     (4, 8, 1, 1024, 256, 0), (2, 8, 4, 2048, 256, 1024), (2, 8, 1, 200, 256, 0),
     (2, 4, 2, 64, 16, 8), (1, 2, 1, 1, 128, 0), (16, 8, 1, 4096, 256, 0),
-    (2, 4, 1, 1024, 256, 0)])
+    (2, 4, 1, 1024, 256, 0), (4, 25, 5, 1024, 64, 2048), (2, 25, 5, 1024, 64, 2048)])
 def test_flash_attention_bwd_plan_matches_its_mirror(cuda, b, h, hkv, s, d, window):
     """The CUDA plan of the bf16 backward (flash_attention_bwd_plan) equals
     its Python mirror, which the CPU tests check for coverage and shared

@@ -15,7 +15,14 @@ Tolerances, each with its reason:
   log-sum-exp, the data ranks' gradients);
 * the gathered parameters after 3 steps within 1e-4 absolute: the same
   sums, carried through AdamW at a rate of 1e-3;
-* placements, checkpoints and refusals exactly.
+* each recurrent block (mLSTM, sLSTM, SSM) on 2 ranks of one model axis
+  against the same block alone, outputs and gradients within 1e-5
+  absolute: float32 sums in another order in one layer;
+* placements, checkpoints, collective counts and refusals exactly.
+
+The configs are the dense and MoE decoders and the recurrent ones
+(xlstm-1.3b's mLSTM and sLSTM, hymba-1.5b's SSM beside attention), whose
+blocks are tensor-parallel over ``model``.
 """
 
 import multiprocessing as mp
@@ -45,23 +52,34 @@ from repro.training import adamw_init as j_adamw_init
 from repro.training import make_train_step as j_make_train_step
 from repro.training.optimizer import zero1_spec_tree as j_zero1
 from repro_torch.configs import get_config
+from repro_torch.configs.reduced import reduced_config
 from repro_torch.dist import sharding
 from repro_torch.launch import train
 from repro_torch.launch.mesh import named_mesh_layout, run_ranks
 from repro_torch.launch.mesh_runs import run_jobs
 from repro_torch.models.convert import param_shapes
+from repro_torch.models.ssm import init_ssm, ssm_block
+from repro_torch.models.xlstm import (init_mlstm, init_slstm, mlstm_block,
+                                      slstm_block)
 from repro_torch.training import zero1_spec_tree
 
 DENSE = ["gemma-2b", "gemma3-4b", "internlm2-20b", "command-r-35b"]
-PORTED = DENSE + ["grok-1-314b", "llama4-maverick-400b-a17b"]
+# the recurrent (mLSTM, sLSTM) and hybrid (attention beside the SSM) kinds
+RECURRENT = ["xlstm-1.3b", "hymba-1.5b"]
+PORTED = DENSE + ["grok-1-314b", "llama4-maverick-400b-a17b"] + RECURRENT
 STEPS, SEQ = 3, 16
 # the rate the comparisons train at: warmup 1 so steps 2 and 3 move the
 # weights (the default schedule's first 3 steps move them by < 1e-5)
 TCFG = dict(learning_rate=1e-3, warmup_steps=1)
 # (label, arch, batch, microbatches): every dense config, then a batch the
-# data axis does not divide and two microbatches
+# data axis does not divide and two microbatches, then the recurrent ones
 CASES = [(a, a, 4, 1) for a in DENSE] + [("gemma-2b batch 3", "gemma-2b", 3, 1),
-                                         ("gemma-2b microbatches 2", "gemma-2b", 4, 2)]
+                                         ("gemma-2b microbatches 2", "gemma-2b", 4, 2)] + \
+    [(a, a, 4, 1) for a in RECURRENT]
+# the recurrent blocks, each alone on 2 ranks of one model axis:
+# (block, arch whose reduced config it takes, its init)
+BLOCKS = [("mlstm", "xlstm-1.3b", init_mlstm), ("slstm", "xlstm-1.3b", init_slstm),
+          ("ssm", "hymba-1.5b", init_ssm)]
 
 
 class FakeMesh:
@@ -145,16 +163,36 @@ def _job(arch, batch, microbatches, ckpt_dir, **kw):
     return job
 
 
+def _block_job(block, arch, init):
+    """One recurrent block of the reduced ``arch``, its weights from the
+    port's init (seed 0, a stack of one), x and the output weights from a
+    numpy seed: B = 2, S = 20 (one ragged mLSTM chunk at its default
+    width)."""
+    import torch
+    cfg = reduced_config(get_config(arch))
+    layer = init(torch.Generator().manual_seed(0), cfg, torch.float32, stacked=1)
+    rng = np.random.default_rng(1)
+    x, dout = rng.normal(size=(2, 2, 20, cfg.d_model)).astype(np.float32)
+    return dict(kind="block", arch=arch, reduced=True, block=block,
+                layer={k: v.numpy() for k, v in layer.items()}, x=x, dout=dout)
+
+
 CLI_FLAGS = ["--arch", "gemma-2b", "--reduced", "--mesh", "tiny", "--steps", "3",
              "--batch", "4", "--seq", "16"]
 
 
-def _cli(module, ckpt_dir, *extra):
-    """``python -m <module> CLI_FLAGS`` started in the background (the
+def _recurrent_flags(arch):
+    """The command-line flags for a recurrent config: CLI_FLAGS' run under
+    ``remat="full"``, as the card trains them."""
+    return ["--arch", arch, *CLI_FLAGS[2:], "--remat", "full"]
+
+
+def _cli(module, ckpt_dir, *extra, flags=CLI_FLAGS):
+    """``python -m <module> flags`` started in the background (the
     reference's on 4 XLA host devices)."""
     env = {**os.environ, "PYTHONPATH": "src",
            "XLA_FLAGS": "--xla_force_host_platform_device_count=4"}
-    return subprocess.Popen([sys.executable, "-m", module, *CLI_FLAGS,
+    return subprocess.Popen([sys.executable, "-m", module, *flags,
                              "--ckpt-dir", str(ckpt_dir), *extra],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True, env=env)
@@ -181,10 +219,16 @@ def mesh_runs(tmp_path_factory):
     clis = {"port": _cli("repro_torch.launch.train", root / "cli_t", "--device",
                          "cpu", "--dist-backend", "gloo"),
             "reference": _cli("repro.launch.train", root / "cli_j")}
+    for arch in RECURRENT:
+        clis[f"port {arch}"] = _cli("repro_torch.launch.train", root / f"cli_t_{arch}",
+                                    "--device", "cpu", "--dist-backend", "gloo",
+                                    flags=_recurrent_flags(arch))
+        clis[f"reference {arch}"] = _cli("repro.launch.train", root / f"cli_j_{arch}",
+                                         flags=_recurrent_flags(arch))
     # the reference's mesh runs, meanwhile, in 3 processes (spawned: they
     # inherit the 4 host devices' flag and import this module)
     pool = ProcessPoolExecutor(3, mp_context=mp.get_context("spawn"))
-    threads = ThreadPoolExecutor(1)
+    threads = ThreadPoolExecutor(2)
     keys = [(arch, b, mb) for _, arch, b, mb in CASES]
     refs = [pool.submit(_ref_mesh_run, *k) for k in keys]
     try:
@@ -218,10 +262,14 @@ def mesh_runs(tmp_path_factory):
         # meanwhile (the failure ends that start)
         failing = threads.submit(_failed_run, _job(
             "gemma-2b", 4, 1, root / "fail", ckpt_every=1, fail=(1, 1)))
+        # each recurrent block alone on 2 ranks of one model axis, meanwhile
+        blocks = threads.submit(run_ranks, run_jobs, 2, backend="gloo", device="cpu",
+                                args=([_block_job(*b) for b in BLOCKS],), timeout=300)
         per_rank = run_ranks(run_jobs, 4, backend="gloo", device="cpu",
                              args=([jobs[k] for k in labels],), timeout=300)
         _REF.update(zip(keys, (f.result() for f in refs)))
         failed = failing.result()
+        per_block = blocks.result()
     except BaseException:
         for proc in clis.values():
             proc.kill()
@@ -231,6 +279,8 @@ def mesh_runs(tmp_path_factory):
         threads.shutdown()
     results = {k: [r[i] for r in per_rank] for i, k in enumerate(labels)}
     results["one rank fails"] = failed
+    for i, (name, _, _) in enumerate(BLOCKS):
+        results[f"block {name}"] = [r[i] for r in per_block]
     drivers = {}
     for name, proc in clis.items():
         stdout, stderr = proc.communicate(timeout=600)
@@ -473,6 +523,92 @@ def test_mesh_step_collectives_are_the_declared_count(mesh_runs, label):
             assert got == want
 
 
+# the collectives over ``model`` a layer of each recurrent kind makes per
+# microbatch: (all_reduce, all_gather, reduce_scatter).  mLSTM: the
+# in-projection, q/k/v and the gates gathered (their gradients
+# reduce-scattered), the output all-reduced, the input's gradient summed;
+# sLSTM: the one in-projection gathered; hybrid: attention's and the MLP's
+# two all-reduces each, the SSM's output and input, and the gradients of
+# its three replicated leaves (conv, bc_proj, a_log) summed, and its
+# in-projection gathered
+RECURRENT_LAYER_COLLECTIVES = {"mlstm": (2, 3, 3), "slstm": (2, 1, 1),
+                               "hybrid": (9, 1, 1)}
+
+
+def _recurrent_step_counts(cfg, n_leaves, chunks=1):
+    """The collectives of one step of a recurrent config on a rank of the
+    tiny mesh (one microbatch): the layers' (above), the embedding's, the
+    loss's and the global norm's on ``model``; the mask count, the loss and
+    every leaf on ``data``."""
+    from repro_torch.models import stages_meta
+    per_kind = [tuple(c * n for n in RECURRENT_LAYER_COLLECTIVES[k])
+                for k, c in stages_meta(cfg)]
+    reduces, gathers, scatters = (sum(col) for col in zip(*per_kind))
+    return {"data": {"all_reduce": 2 + n_leaves},
+            "model": {"all_reduce": 1 + reduces + chunks + 1 + 1,
+                      "all_reduce_max": chunks, "all_gather": gathers,
+                      "reduce_scatter": scatters}}
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_step_collectives_are_the_declared_count(mesh_runs, arch):
+    jobs, results, _ = mesh_runs
+    cfg = reduced_config(get_config(arch))
+    want = _recurrent_step_counts(cfg, len(jax.tree.leaves(jobs[arch]["params"])))
+    for res in results[arch]:
+        for rec in res["records"]:
+            got = {a: {op: c["calls"] for op, c in ops.items()}
+                   for a, ops in rec["collectives"].items()}
+            assert got == want
+
+
+@pytest.mark.parametrize("block,arch,init", BLOCKS)
+def test_recurrent_block_on_a_model_axis_equals_the_block_alone(mesh_runs, block,
+                                                                arch, init):
+    """Each recurrent block tensor-parallel on 2 ranks of one model axis
+    (the reference's placements: column-split projections gathered, the
+    recurrence on the rank's heads or channels, the row-parallel output
+    all-reduced) against the same block without a mesh: the output, the
+    input's gradient and every weight's gradient within 1e-5 absolute
+    (float32 sums in another order), the gradients of the replicated
+    leaves equal on both ranks (summed over the model axis), and the
+    declared collectives."""
+    import torch
+    _, results, _ = mesh_runs
+    job = _block_job(block, arch, init)
+    cfg = reduced_config(get_config(arch))
+    forward = {"mlstm": mlstm_block, "slstm": slstm_block, "ssm": ssm_block}[block]
+    p = {k: torch.from_numpy(v).requires_grad_() for k, v in job["layer"].items()}
+    x = torch.from_numpy(job["x"]).requires_grad_()
+    out, _ = forward({k[4:]: v[0] for k, v in p.items()}, x, cfg)
+    *gp, gx = torch.autograd.grad((out * torch.from_numpy(job["dout"])).sum(),
+                                  list(p.values()) + [x])
+    want = dict(zip(p, (g.numpy() for g in gp)))
+    kind = {"ssm": "hybrid"}.get(block, block)
+    reduces, gathers, scatters = RECURRENT_LAYER_COLLECTIVES[kind]
+    if kind == "hybrid":
+        reduces -= 4                   # attention's and the MLP's, not the block's
+    per_rank = results[f"block {block}"]
+    assert sorted(r["lead"] for r in per_rank) == [False, True]
+    for res in per_rank:
+        assert "error" not in res, res
+        np.testing.assert_allclose(res["out"], out.detach().numpy(), rtol=0, atol=1e-5)
+        np.testing.assert_allclose(res["dx"], gx.numpy(), rtol=0, atol=1e-5)
+        assert res["collectives"] == {"model": {
+            "all_reduce": reduces, "all_gather": gathers, "reduce_scatter": scatters}}
+        for k, spec in res["specs"].items():
+            if all(e is None for e in spec):
+                np.testing.assert_allclose(res["local"][k], want[k], rtol=0, atol=1e-5,
+                                           err_msg=k)
+        if res["lead"]:
+            assert sorted(res["grads"]) == sorted(want)
+            for k in want:
+                np.testing.assert_allclose(res["grads"][k], want[k], rtol=0, atol=1e-5,
+                                           err_msg=k)
+    split = {k for k, spec in per_rank[0]["specs"].items() if any(spec)}
+    assert split == {k for k in want if not k.endswith(("conv", "bc_proj", "a_log"))}
+
+
 # ---------------------------------------------------------------------------
 # checkpoints, refusals, the driver
 # ---------------------------------------------------------------------------
@@ -522,6 +658,26 @@ def test_mesh_refusals(mesh_runs, label, match):
         assert re.search(match, res["error"]), res
 
 
+def _masked(text):
+    """A launcher's output with the times and losses left out (each package
+    draws its own random weights)."""
+    text = re.sub(r"in \d+\.\ds", "in Ts", text)
+    return re.sub(r"loss \d+\.\d+ -> \d+\.\d+", "loss A -> B", text).splitlines()
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_launch_train_mesh_trains_the_recurrent_kinds(mesh_runs, arch):
+    """``launch.train --arch <recurrent> --reduced --mesh tiny --remat full``
+    on 4 gloo ranks prints the reference launcher's ``[train]`` line (the
+    reference's run on its tiny mesh of 4 host devices)."""
+    _, _, drivers = mesh_runs
+    for name in (f"port {arch}", f"reference {arch}"):
+        assert drivers[name][0] == 0, (name, drivers[name][2][-2000:])
+    assert _masked(drivers[f"port {arch}"][1]) == \
+        _masked(drivers[f"reference {arch}"][1]) == [
+            f"[train] {arch} steps 0->3 in Ts; loss A -> B"]
+
+
 def test_launch_train_mesh_prints_the_references_line(mesh_runs, tmp_path):
     """``launch.train --mesh tiny --dist-backend gloo --device cpu`` on 4
     ranks prints the reference driver's ``[train]`` line (times and losses
@@ -530,11 +686,7 @@ def test_launch_train_mesh_prints_the_references_line(mesh_runs, tmp_path):
     _, _, drivers = mesh_runs
     for name, (rc, _, err) in drivers.items():
         assert rc == 0, (name, err[-2000:])
-
-    def masked(text):
-        text = re.sub(r"in \d+\.\ds", "in Ts", text)
-        return re.sub(r"loss \d+\.\d+ -> \d+\.\d+", "loss A -> B", text).splitlines()
-    assert masked(drivers["port"][1]) == masked(drivers["reference"][1]) == [
+    assert _masked(drivers["port"][1]) == _masked(drivers["reference"][1]) == [
         "[train] gemma-2b steps 0->3 in Ts; loss A -> B"]
     with pytest.raises(NotImplementedError, match="data axes.*ROADMAP item 12h"):
         train.main(["--arch", "grok-1-314b", "--reduced", "--mesh", "multi",

@@ -91,21 +91,24 @@ def test_registry_lists_only_ported_configs_and_raises_on_others():
     dict(family="ssm", slstm_every=2), dict(hybrid=True, ssm_state=4),
     dict(family="ssm"), dict(n_encoder_layers=2, encoder_len=16)])
 def test_unported_layer_kinds_raise(changes):
-    """The kinds ported to one card only: the recurrent and hybrid kinds
-    (mLSTM + sLSTM, hybrid, mLSTM alone) and the encoder-decoder's ``enc``
-    and ``xdec`` (gemma-2b's reduced decoder given an encoder) raise on
-    the tiny mesh, naming ROADMAP item 12, where they are still unported;
-    on one device they build and run a forward, with the reference's
-    layer pattern and tree, and an ``xdec`` stack reads the encoder's
-    cross K/V (``Model.encode``, ``Model.cross_kv``) and refuses to run
-    without them."""
+    """The kinds beyond attention's, on gemma-2b's reduced decoder: the
+    recurrent and hybrid kinds (mLSTM + sLSTM, hybrid, mLSTM alone) build
+    on the tiny mesh (their blocks are tensor-parallel; before, they
+    raised there); the encoder-decoder's ``enc`` and ``xdec`` still raise
+    there, naming ROADMAP item 12f.  On one device each builds and runs a
+    forward, with the reference's layer pattern and tree, and an ``xdec``
+    stack reads the encoder's cross K/V (``Model.encode``,
+    ``Model.cross_kv``) and refuses to run without them."""
     from repro_torch.launch.mesh import named_mesh_layout
     cfg = dataclasses.replace(reduced_config(get_config("gemma-2b")), **changes)
     jcfg = dataclasses.replace(j_reduced(j_get_config("gemma-2b")), **changes)
     assert {k for k, _ in stages_meta(cfg)} <= {"mlstm", "slstm", "hybrid", "xdec"}
     assert stages_meta(cfg) == j_stages_meta(jcfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        Model(cfg, mesh=named_mesh_layout("tiny"))
+    if cfg.n_encoder_layers:
+        with pytest.raises(NotImplementedError, match="ROADMAP item 12f"):
+            Model(cfg, mesh=named_mesh_layout("tiny"))
+    else:
+        assert Model(cfg, mesh=named_mesh_layout("tiny")).specs is not None
     model = Model(cfg)
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     jp = j_init_params(jax.random.PRNGKey(0), jcfg)
@@ -128,18 +131,39 @@ def test_unported_layer_kinds_raise(changes):
     ("xlstm-1.3b", {}), ("hymba-1.5b", {}),
     ("gemma-2b", dict(family="ssm"))])
 def test_check_mesh_refuses_the_recurrent_and_hybrid_kinds(arch, changes):
-    """Meshes train the attention decoders only: the mLSTM, sLSTM and
-    hybrid kinds on the tiny mesh raise, naming ROADMAP item 12, both from
-    ``check_mesh`` and from ``Model(cfg, mesh=...)``."""
+    """The mLSTM, sLSTM and hybrid kinds train on a mesh since their blocks
+    are tensor-parallel: ``check_mesh`` and ``Model(cfg, mesh=...)`` take
+    the three reduced configs on the tiny mesh (``Model.specs`` places
+    every leaf), where before they raised naming ROADMAP item 12 (the name
+    kept from then); a model axis the heads or channels do not split is
+    still refused (next test)."""
     from repro_torch.launch.mesh import named_mesh_layout
     from repro_torch.models.transformer import check_mesh
     cfg = dataclasses.replace(reduced_config(get_config(arch)), **changes)
     kinds = {k for k, _ in stages_meta(cfg)}
     assert kinds & {"mlstm", "slstm", "hybrid"}
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12") as err:
+    check_mesh(cfg, named_mesh_layout("tiny"))
+    model = Model(cfg, mesh=named_mesh_layout("tiny"))
+    assert sorted(model.specs["stages"]) == [f"s{i}" for i in range(len(stages_meta(cfg)))]
+
+
+@pytest.mark.parametrize("arch,changes,match", [
+    ("hymba-1.5b", {}, "25 heads"),
+    ("xlstm-1.3b", dict(d_model=2050), "the mLSTM head width 1025"),
+    ("hymba-1.5b", dict(n_heads=24, n_kv_heads=6, d_model=1601, ssm_expand=1,
+                        vocab_size=32000), "the SSM's 1601 channels")])
+def test_check_mesh_refuses_a_model_axis_the_heads_or_channels_do_not_split(
+        arch, changes, match):
+    """hymba-1.5b at full width: its 25 heads (and its vocabulary of
+    32,001) do not split over the tiny mesh's model axis of 2, so it stays
+    refused, naming ROADMAP item 12h; so does a head width or an SSM width
+    the axis does not divide."""
+    from repro_torch.launch.mesh import named_mesh_layout
+    from repro_torch.models.transformer import check_mesh
+    cfg = dataclasses.replace(get_config(arch), **changes)
+    with pytest.raises(NotImplementedError, match=f"{match}.*ROADMAP item 12h"):
         check_mesh(cfg, named_mesh_layout("tiny"))
-    assert all(k in str(err.value) for k in kinds)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 12h"):
         Model(cfg, mesh=named_mesh_layout("tiny"))
 
 

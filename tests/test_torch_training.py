@@ -399,6 +399,32 @@ def test_remat_train_step_matches_no_remat(remat):
     _assert_trees_close(params1, params0, atol=1e-6)
 
 
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "hymba-1.5b"])
+def test_recurrent_train_steps_match_the_reference_with_and_without_remat(arch):
+    """The reduced xlstm (mLSTM and sLSTM) and hymba (attention beside the
+    SSM): 2 steps under ``remat="none"`` and under ``"full"`` (each layer
+    recomputed in the backward pass, as the card trains them) against the
+    reference's steps under the same mode, with the tolerances of the
+    dense steps above; the two modes within 1e-6 of each other."""
+    runs = {remat: _run_steps(arch, 2, remat=remat) for remat in ("none", "full")}
+    for remat, (out, params, jp, _, _) in runs.items():
+        lrs = 0.0
+        for m, jm in out:
+            assert abs(float(m["loss"]) - float(jm["loss"])) <= 1e-4 * abs(float(jm["loss"]))
+            assert abs(float(m["grad_norm"]) - float(jm["grad_norm"])) <= \
+                1e-4 * float(jm["grad_norm"])
+            lrs += float(jm["lr"])
+        g, w = _flat_np(params), _flat_np(jp)
+        assert sorted(g) == sorted(w)
+        for k in g:
+            diff = np.abs(g[k] - w[k])
+            assert diff.max() <= 2 * lrs, (remat, k, diff.max())
+            assert (diff > 1e-5).mean() <= 0.01, (remat, k, (diff > 1e-5).mean())
+    for (m, _), (b, _) in zip(runs["full"][0], runs["none"][0]):
+        assert abs(float(m["loss"]) - float(b["loss"])) <= 1e-6 * float(b["loss"])
+    _assert_trees_close(runs["full"][1], runs["none"][1], atol=1e-6)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_steps_continue_from_the_references_optimizer_state(arch):
     """Two reference steps, then its params and AdamW state carried over

@@ -119,6 +119,28 @@ def test_mlstm_block_matches_reference(s, chunk, with_state):
         _close(state[k], jstate[k], 1e-5)
 
 
+def test_mlstm_gradient_stays_finite_where_the_masked_weights_overflow():
+    """Gates 60 times larger than the init's (as a full-width model's can
+    be): the forget gates' logs summed over a 64-position chunk pass the
+    float32 exponent, so above the diagonal exp(b_log - m_new) overflows.
+    The reference takes the exp before its mask and its gradient is nan;
+    the port masks first: the same output (within 1e-4: the larger gates
+    make larger sums, taken in another order) and every gradient finite."""
+    cfg, jcfg, tp, jp = _block_params(jx.init_mlstm, seed=3)
+    tp["m_wif"] = tp["m_wif"] * 60.0
+    jp = dict(jp, m_wif=jp["m_wif"] * 60.0)
+    x = _x(cfg, 2, 64, seed=4)
+    with _chunk(64):
+        tp = {k: v.requires_grad_() for k, v in tp.items()}
+        y, _ = tx.mlstm_block(tp, torch.from_numpy(x), cfg)
+        grads = torch.autograd.grad(y.sum(), list(tp.values()))
+        jy, _ = jx.mlstm_block(jp, jnp.asarray(x), jcfg)
+        jg = jax.grad(lambda p: jx.mlstm_block(p, jnp.asarray(x), jcfg)[0].sum())(jp)
+    _close(y, jy, 1e-4)
+    assert not all(bool(jnp.isfinite(g).all()) for g in jax.tree.leaves(jg))
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
 def test_mlstm_step_updates_the_given_state_in_place():
     cfg, _, tp, _ = _block_params(jx.init_mlstm, seed=3)
     st = {k: torch.from_numpy(v) for k, v in _mlstm_state(cfg, 2, seed=6).items()}
