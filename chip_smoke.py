@@ -139,8 +139,13 @@ paths end to end:
   restored on the mesh replaying step 3 bit for bit, K6 forward and
   backward once per attention layer and step on every rank and the
   collectives a step equal to the count the config gives
-  (``mesh_step_collectives``, ``recurrent_step_collectives``); K6 at a
-  rank's shape against its plain versions and timed
+  (``step_collectives``); whisper-base (encoder, cross-attention,
+  vocabulary of 51,865 replicated), phi-3-vision-4.2b (its 256 image rows;
+  4 of 32 layers) and hymba-1.5b (25 heads all on every rank, vocabulary of
+  32,001 replicated; 8 of 32 layers, ``remat="full"``) at full width in
+  bf16 against one rank of the card, with their reduced configs (and a
+  vocabulary of 257, hymba with 5 heads) in float32 against one CPU
+  process; K6 at the ranks' shapes against its plain versions and timed
   (``time_mesh_rank_attention``);
 
 and times each kernel beside its bound, its plain version and, where one
@@ -386,19 +391,51 @@ MESH_B, MESH_S, MESH_STEPS, MESH_LAYERS = 4, 1024, 3, 4
 # summed; K6 over 4 heads a rank, its backward split otherwise), which
 # moves both by about the model's own bf16 error
 TRAIN_MESH_BF16_REL = 1e-2
-# K6 at a rank's shape in that run: B = 4 over 2 data ranks, 8 heads over
-# 2 model ranks, the one KV head gathered whole
-MESH_RANK = (2, 4, 1, 1024, 256)
-MESH_RANK_SHAPE = "B=2 H=4 Hkv=1 S=1024 D=256 bf16 causal window=0"
 # grok-1 training at full width on one card (run_training_grok): 1 of its
 # 64 layers (a second MoE layer is ~59 GB more with AdamW), bf16, B x S
 # tokens a step, steps (in memory); its attention layer (B, H, Hkv, S, D),
 # K6's capped backward's row in the kernels line
 GROK_B, GROK_S, GROK_STEPS = 2, 1024, 5
 # the reduced float32 configs trained on the tiny mesh against one CPU
-# process (run_mesh_training (a))
+# process (run_mesh_training (a)), by label; MESH_REDUCED_CFG gives a
+# label's config and the fields it replaces: a vocabulary of 257, which the
+# model axis does not divide (replicated), and hymba with 5 heads of 16
+# (the axis cuts wq's 80 columns mid-head: every head on every rank)
 MESH_REDUCED_ARCHS = ("gemma-2b", "gemma3-4b", "grok-1-314b",
-                      "llama4-maverick-400b-a17b", "xlstm-1.3b", "hymba-1.5b")
+                      "llama4-maverick-400b-a17b", "xlstm-1.3b", "hymba-1.5b",
+                      "whisper-base", "whisper-base vocab 257", "phi-3-vision-4.2b",
+                      "hymba-1.5b 5 heads")
+MESH_REDUCED_CFG = {"whisper-base vocab 257": ("whisper-base", {"vocab_size": 257}),
+                    "hymba-1.5b 5 heads": ("hymba-1.5b", {
+                        "n_heads": 5, "n_kv_heads": 5, "d_head": 16, "vocab_size": 257})}
+# the full-width bf16 jobs on the tiny mesh beside gemma-2b's and xlstm's
+# (run_mesh_training (e)), each against one rank of the card: whisper-base
+# at full width and depth over its 1,500 frames; phi-3-vision-4.2b with its
+# 256 image rows, 4 of its 32 layers (at full depth its ~45.9 GB of
+# weights, gradients and moments, halved over model, come to ~92 GB over
+# the 4 ranks on one 80 GB card); hymba-1.5b, 8 of its 32 layers under
+# remat="full" (its one-card step is 5.7 s at 32 layers, and the check
+# runs the job on one rank too), its 25 heads all on every rank and its
+# vocabulary of 32,001 replicated: arch -> (layers or None for all, B, S,
+# remat)
+MESH_FULL = {"whisper-base": (None, 16, 448, "none"),
+             "phi-3-vision-4.2b": (4, 4, 1024, "none"),
+             "hymba-1.5b": (8, 4, 1024, "full")}
+# K6 at a rank's shapes in the full-width mesh jobs, forward and backward
+# against their plain versions, timed beside SDPA and its backward: label
+# -> (B, H, Hkv, S, Sk, D, causal, window, the mask its launches are
+# counted under, the job).  B over 2 data ranks; gemma-2b's 8 heads over 2
+# model ranks, its one KV head gathered whole; whisper's and phi3's heads
+# over 2 model ranks; hymba's 25 all on every rank
+MESH_RANKS = {
+    "gemma-2b": (2, 4, 1, 1024, 1024, 256, True, 0, "causal", "gemma-2b"),
+    "whisper-base encoder": (8, 4, 4, 1500, 1500, 64, False, 0, "full", "whisper-base"),
+    "whisper-base decoder": (8, 4, 4, 448, 448, 64, True, 0, "causal", "whisper-base"),
+    "whisper-base cross": (8, 4, 4, 448, 1500, 64, False, 0, "cross", "whisper-base"),
+    "phi-3-vision-4.2b": (2, 16, 16, 1024, 1024, 96, True, 0, "causal",
+                          "phi-3-vision-4.2b"),
+    "hymba-1.5b, every head": (2, 25, 5, 1024, 1024, 64, True, 2048, "causal",
+                               "hymba-1.5b")}
 GROK_LAYER = (2, 48, 8, 1024, 128)
 GROK_LAYER_SHAPE = "B=2 H=48 Hkv=8 S=1024 D=128 bf16 causal window=0 softcap=30"
 # phi-3-vision-4.2b (served above, SERVED_ARCHS) trained at full width and
@@ -439,16 +476,19 @@ RECURRENT_B, RECURRENT_S, RECURRENT_STEPS = 4, 1024, 4
 HYMBA_TRAIN = (RECURRENT_B, 25, 5, RECURRENT_S, 64, 2048)
 HYMBA_TRAIN_SHAPE = (f"B={RECURRENT_B} H=25 Hkv=5 S={RECURRENT_S} D=64 bf16 causal "
                      "window=2048 (hymba-1.5b training layer)")
-# the collectives over ``model`` a layer of each recurrent kind makes per
-# microbatch on the tiny mesh, (all_reduce, all_gather, reduce_scatter):
-# mLSTM the in-projection, q/k/v and the gates gathered (their gradients
-# reduce-scattered), the output all-reduced and the input's gradient
-# summed; sLSTM the in-projection gathered; hybrid attention's and the
-# MLP's two all-reduces each, the SSM's output and input, the gradients of
-# its three replicated leaves (conv, bc_proj, a_log) summed, and its
-# in-projection gathered
-RECURRENT_LAYER_COLLECTIVES = {"mlstm": (2, 3, 3), "slstm": (2, 1, 1),
-                               "hybrid": (9, 1, 1)}
+# the collectives over ``model`` a layer of each kind makes per microbatch
+# on the tiny mesh when the axis gives each rank its own heads:
+# (all-reduces forward, all-reduces backward, gathers; a gather is one
+# all_gather forward and one reduce_scatter backward).  attn, local, enc:
+# the attention's and the MLP's outputs forward, their inputs' gradients
+# backward; xdec: the cross-attention's two on top; hybrid: those and the
+# SSM's output and input, the gradients of its three replicated leaves
+# (conv, bc_proj, a_log) summed, its in-projection gathered; mLSTM: the
+# in-projection, q/k/v and the gates gathered, the output all-reduced, the
+# input's gradient summed; sLSTM: the in-projection gathered
+LAYER_COLLECTIVES = {"attn": (2, 2, 0), "local": (2, 2, 0), "enc": (2, 2, 0),
+                     "xdec": (3, 3, 0), "hybrid": (3, 6, 1), "mlstm": (1, 1, 3),
+                     "slstm": (1, 1, 1)}
 # the non-compacting engine (run_no_compaction): the E2E_RUNS mines with
 # compact=False, and the chess stream's first NO_COMPACT_SLIDES slides with
 # compact=False beside the compacting miner
@@ -3746,38 +3786,37 @@ def run_training_recurrent():
     return launches
 
 
-def recurrent_step_collectives(cfg, n_leaves, chunks):
-    """The collectives one train step of a recurrent or hybrid config makes
-    on each rank of the tiny mesh (one microbatch): on ``model`` each
-    layer's (RECURRENT_LAYER_COLLECTIVES), the embedding's all-reduce, a
-    loss chunk's max and sums, the hidden state's gradient and the global
-    norm's; on ``data`` the mask count, the loss and every leaf."""
+def step_collectives(cfg, n_leaves, chunks, remat="none"):
+    """The collectives one train step makes on each rank of the tiny mesh
+    (one microbatch), worked out from the config: on ``model`` each layer's
+    (LAYER_COLLECTIVES; an attention layer gathers q, k, v, or its one KV
+    head (MQA), once more when the axis does not give each rank its own
+    heads, ``models.attention.head_split``), under ``remat="full"`` each
+    decoder layer's forward ones again but the last (the recompute stops
+    after the last tensor the backward reads, before the MLP's or the
+    block's output all-reduce), the sum of an encoder output's gradient,
+    the vocab-parallel embedding's all-reduce, a loss chunk's max and sums
+    and the hidden state's gradient (none of these for a vocabulary the
+    axis does not divide, replicated), and the global norm's; on ``data``
+    the mask count, the loss and every leaf."""
     from repro_torch.models import stages_meta
-    per_kind = [tuple(c * n for n in RECURRENT_LAYER_COLLECTIVES[k])
-                for k, c in stages_meta(cfg)]
-    reduces, gathers, scatters = (sum(col) for col in zip(*per_kind))
-    return {"data": {"all_reduce": 2 + n_leaves},
-            "model": {"all_reduce": 1 + reduces + chunks + 1 + 1,
-                      "all_reduce_max": chunks, "all_gather": gathers,
-                      "reduce_scatter": scatters}}
-
-
-def mesh_step_collectives(n_layers, mqa, microbatches, n_leaves, chunks):
-    """The collectives one train step makes on each rank of the tiny mesh,
-    worked out from the config: on ``model``, a microbatch's embedding
-    (one all-reduce), two all-reduces a layer forward (the row-parallel
-    attention and MLP outputs) and two backward (their inputs' gradients),
-    a loss chunk's max and sums (one all_reduce_max, one all_reduce), the
-    hidden state's gradient into the loss (one), and the global norm's once
-    a step; an MQA layer gathers its KV slices (one all_gather forward, one
-    reduce_scatter backward); on ``data``, a microbatch's mask count and
-    loss, and every gradient leaf once a step."""
-    model = {"all_reduce": microbatches * (1 + 4 * n_layers + chunks + 1) + 1,
-             "all_reduce_max": microbatches * chunks}
-    if mqa:
-        model.update(all_gather=microbatches * n_layers,
-                     reduce_scatter=microbatches * n_layers)
-    return {"data": {"all_reduce": 2 * microbatches + n_leaves}, "model": model}
+    from repro_torch.models.attention import head_split
+    reduces = gathers = again = 0
+    heads = int(head_split(cfg, 2) != "heads")
+    enc = [("enc", cfg.n_encoder_layers)] if cfg.n_encoder_layers else []
+    for kind, count in stages_meta(cfg) + enc:
+        f, b, g = LAYER_COLLECTIVES[kind.split("+")[0]]
+        g += heads if kind not in ("mlstm", "slstm") else 0
+        reduces, gathers = reduces + count * (f + b), gathers + count * g
+        if remat == "full" and kind != "enc":
+            reduces, again = reduces + count * (f - 1), again + count * g
+    split_vocab = cfg.vocab_size % 2 == 0
+    model = {"all_reduce": reduces + len(enc) + (2 + chunks if split_vocab else 0) + 1}
+    if split_vocab:
+        model["all_reduce_max"] = chunks
+    if gathers:
+        model.update(all_gather=gathers + again, reduce_scatter=gathers)
+    return {"data": {"all_reduce": 2 + n_leaves}, "model": model}
 
 
 def moe_step_collectives(cfg, n_leaves, n_data_split, chunks):
@@ -3792,9 +3831,8 @@ def moe_step_collectives(cfg, n_leaves, n_data_split, chunks):
     two all-to-alls forward and two backward, ``tp2d`` a gather and a
     reduce-scatter forward and their conjugates backward."""
     from repro_torch.models import stages_meta
-    n_layers = sum(c for _, c in stages_meta(cfg))
     n_moe = sum(c for kind, c in stages_meta(cfg) if kind.endswith("+moe"))
-    out = mesh_step_collectives(n_layers, False, 1, n_leaves, chunks)
+    out = step_collectives(cfg, n_leaves, chunks)
     out["model"]["all_reduce"] += 1
     data = {"all_reduce": 2 + 2 * n_moe + n_leaves - n_data_split + 1}
     if cfg.expert_sharding == "tp2d":
@@ -3818,16 +3856,37 @@ def _tree_equal(a, b):
     return np.array_equal(a, b)
 
 
-def _check_mesh_steps(what, per_rank, n_layers, variant, declared):
+def _k6_step_launches(cfg, remat="none"):
+    """K6's launches in one train step of ``cfg`` on one rank, by what they
+    attend over (``kernels.shape_counts``): an encoder's non-causal layers
+    (``full``), the decoder's attention layers (``causal``) and an
+    encoder-decoder's cross-attention (``cross``), forward and backward;
+    under ``remat="full"`` the decoder's forward twice (the backward
+    recomputes it)."""
+    dec = _attention_layers(cfg)
+    enc = cfg.n_encoder_layers
+    again = 2 if remat == "full" else 1
+    fwd = {"full": enc, "causal": again * dec, "cross": again * dec if enc else 0}
+    bwd = {"full": enc, "causal": dec, "cross": dec if enc else 0}
+    return ({f"flash_attention.{m}": n for m, n in fwd.items()} |
+            {f"flash_attention_bwd.{m}": n for m, n in bwd.items()})
+
+
+def _check_mesh_steps(what, per_rank, n_layers, variant, declared, shapes=None):
     """Every step of every rank launched K6's ``variant`` forward and
-    backward once per attention layer (``n_layers`` of them) and nothing
-    else of the package, and made the declared collectives."""
+    backward once per attention layer (``n_layers`` of them; or ``shapes``,
+    :func:`_k6_step_launches`' counts by mask, summed) and nothing else of
+    the package, and made the declared collectives."""
     other = "fma_f32" if variant == "wgmma_bf16" else "wgmma_bf16"
-    want = {f"flash_attention.{variant}": n_layers,
-            f"flash_attention_bwd.{variant}": n_layers,
+    fwd = bwd = n_layers
+    if shapes is not None:
+        fwd = sum(n for k, n in shapes.items() if k.startswith("flash_attention."))
+        bwd = sum(n for k, n in shapes.items() if k.startswith("flash_attention_bwd."))
+    want = {f"flash_attention.{variant}": fwd,
+            f"flash_attention_bwd.{variant}": bwd,
             f"flash_attention.{other}": 0, f"flash_attention_bwd.{other}": 0,
             "decode_attention": 0, "popcount_support": 0,
-            "fused_intersect_partial": 0}
+            "fused_intersect_partial": 0, **(shapes or {})}
     for r, res in enumerate(per_rank):
         for i, rec in enumerate(res["records"]):
             counts = rec["launches"]
@@ -3868,15 +3927,21 @@ def run_mesh_training():
     jobs on 4 gloo ranks of the host (the same routing groups per data
     shard, so the same drops): losses, and each step's expert load and
     dropped share; the float32 reduced xlstm-1.3b and hymba-1.5b (their
-    mLSTM, sLSTM and SSM blocks tensor-parallel) against one CPU process;
+    mLSTM, sLSTM and SSM blocks tensor-parallel), whisper-base (its encoder
+    and cross-attention; a vocabulary of 257 too, replicated),
+    phi-3-vision-4.2b (its image prefix) and hymba-1.5b with 5 heads (every
+    head on every rank) against one CPU process (MESH_REDUCED_ARCHS);
     (b) gemma-2b at full width in bf16, 4 of its
     18 layers, B = 4, S = 1,024, 3 steps, against the same model on one
     rank of the card; (c) a TrainingRunner restored on the mesh from its
     step-2 checkpoint replaying step 3 bit for bit; (d) xlstm-1.3b at full
     width, 8 of its 48 layers, bf16, the same way as (b)
-    (:func:`_check_full_width_mesh`).  Every step of every rank launches K6
-    forward and backward once per attention layer and makes the declared
-    collectives.  Returns the lead rank's K6 launches in (b)."""
+    (:func:`_check_full_width_mesh`); (e) whisper-base, phi-3-vision-4.2b
+    and hymba-1.5b at full width (MESH_FULL) the same way.  Every step of
+    every rank launches K6 forward and backward once per attention layer
+    (the decoder's forward twice under remat="full") and makes the
+    declared collectives.  Returns the lead rank's K6 launches in (b) and
+    (e), by job and mask (``shape_counts``' keys)."""
     import shutil
     import statistics
     import torch
@@ -3885,8 +3950,8 @@ def run_mesh_training():
     from repro_torch.launch.kernel_timing import nvidia_smi
     from repro_torch.launch.mesh import run_ranks
     from repro_torch.launch.mesh_runs import run_jobs
-    from repro_torch.launch.train import train_run
-    from repro_torch.models import init_params, stages_meta
+    from repro_torch.launch.train import step_embeds, train_run
+    from repro_torch.models import init_params
     from repro_torch.dist.sharding import spec_axes, spec_tree
     from repro_torch.launch.mesh import named_mesh_layout
     from repro_torch.models.convert import param_shapes
@@ -3895,12 +3960,18 @@ def run_mesh_training():
     root = tempfile.mkdtemp(prefix="chip_smoke-mesh-train-")
     rate = dict(learning_rate=1e-3, warmup_steps=1, total_steps=3)
     jobs = {}
-    for arch in MESH_REDUCED_ARCHS:
-        cfg = reduced_config(get_config(arch))
+    for label in MESH_REDUCED_ARCHS:
+        arch, over = MESH_REDUCED_CFG.get(label, (label, {}))
+        cfg = dataclasses.replace(reduced_config(get_config(arch)), **over)
         host = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-        jobs[arch] = dict(kind="train", mesh="tiny", arch=arch, reduced=True,
-                          steps=3, batch=4, seq=64, tcfg=rate, params=_np_tree(host),
-                          moe_stats=bool(cfg.n_experts))
+        # the image or frame embeddings made on the host, so that the card's
+        # ranks and the CPU process read the same numbers
+        embeds = [{k: v.numpy() for k, v in step_embeds(cfg, i, 4, "cpu").items()}
+                  for i in range(3)]
+        jobs[label] = dict(kind="train", mesh="tiny", arch=arch, reduced=True, cfg=over,
+                           steps=3, batch=4, seq=64, tcfg=rate, params=_np_tree(host),
+                           embeds=embeds if embeds[0] else None,
+                           moe_stats=bool(cfg.n_experts))
     # (c): 2 steps through the runner, a checkpoint at step 2, step 3 in
     # memory; then other weights restored from that checkpoint, step 3
     jobs["ckpt"] = dict(jobs["gemma-2b"], steps=2, ckpt_dir=os.path.join(root, "c"),
@@ -3913,6 +3984,11 @@ def run_mesh_training():
     # and an sLSTM), bf16
     jobs["xlstm full"] = dict(jobs["full"], arch="xlstm-1.3b",
                               cfg={"n_layers": CUT_LAYERS["xlstm-1.3b"]})
+    # (e): whisper-base, phi-3-vision-4.2b and hymba-1.5b at full width, bf16
+    for arch, (layers, b, seq, remat) in MESH_FULL.items():
+        jobs[f"{arch} full"] = dict(jobs["full"], arch=arch, batch=b, seq=seq,
+                                    remat=remat,
+                                    cfg={} if layers is None else {"n_layers": layers})
     labels = list(jobs)
     torch.cuda.empty_cache()
     t = time.perf_counter()
@@ -3924,7 +4000,7 @@ def run_mesh_training():
     wall = time.perf_counter() - t
     res = {k: [r[i] for r in per_rank] for i, k in enumerate(labels)}
     # the MoE jobs again on 4 gloo ranks of the host
-    moe_archs = [a for a in MESH_REDUCED_ARCHS if get_config(a).n_experts]
+    moe_archs = [a for a in MESH_REDUCED_ARCHS if get_config(jobs[a]["arch"]).n_experts]
     t = time.perf_counter()
     on_host = run_ranks(run_jobs, 4, backend="gloo", device="cpu",
                         args=([jobs[a] for a in moe_archs],), timeout=600)
@@ -3936,9 +4012,9 @@ def run_mesh_training():
 
     # (a) float32 against one CPU process, a MoE against the host's mesh
     for arch in MESH_REDUCED_ARCHS:
-        cfg = reduced_config(get_config(arch))
+        cfg = dataclasses.replace(reduced_config(get_config(jobs[arch]["arch"])),
+                                  **jobs[arch]["cfg"])
         n_layers = _attention_layers(cfg)
-        recurrent = any(k in RECURRENT_LAYER_COLLECTIVES for k, _ in stages_meta(cfg))
         against = "4 gloo ranks of the host" if cfg.n_experts else "one CPU process"
         hosts = (host_res[arch] if cfg.n_experts else
                  [train_run(dict(jobs[arch], mesh=None), torch.device("cpu"))] * 4)
@@ -3958,13 +4034,11 @@ def run_mesh_training():
                                           cfg.expert_sharding))
             split = sum("data" in {a for e in sp for a in spec_axes(e)} for sp in specs)
             declared = moe_step_collectives(cfg, n_leaves, split, 1)
-        elif recurrent:
-            declared = recurrent_step_collectives(cfg, n_leaves, 1)
         else:
-            declared = mesh_step_collectives(n_layers, cfg.n_kv_heads % 2 != 0, 1,
-                                             n_leaves, 1)
+            declared = step_collectives(cfg, n_leaves, 1)
+        k6 = _k6_step_launches(cfg)
         _check_mesh_steps(f"mesh {arch} float32", res[arch], n_layers, "fma_f32",
-                          declared)
+                          declared, k6)
         if cfg.n_experts:
             dropped = [[round(d, 4) for d, _ in rec["moe"]] for rec in res[arch][0]["records"]]
             require(any(d > 0 for step in dropped for d in step),
@@ -3977,7 +4051,8 @@ def run_mesh_training():
               f"ranks sharing the card: 3 steps, losses {res[arch][0]['losses']}, "
               f"largest rel diff from {against} {worst:.3e} <= "
               f"{TRAIN_F32_REL:.0e} on every rank; K6 fma_f32 forward and backward "
-              f"{n_layers} launches a step on every rank; collectives a step "
+              f"{sum(n for k, n in k6.items() if k.startswith('flash_attention.'))} "
+              f"launches a step on every rank; collectives a step "
               f"{declared} on every rank, as declared")
         if cfg.n_experts:
             recs = [rec for x in res[arch] for rec in x["records"][1:]]
@@ -4008,46 +4083,65 @@ def run_mesh_training():
           f"gathered parameter equal")
 
     # (b) full width, bf16, against one rank of the card
-    cfg = get_config("gemma-2b")
+    cfg = dataclasses.replace(get_config("gemma-2b"), n_layers=MESH_LAYERS)
     require(cfg.dtype == "bfloat16", f"gemma-2b dtype {cfg.dtype}")
-    declared = mesh_step_collectives(MESH_LAYERS, True, 1,
-                                     len(tree_leaves(param_shapes(cfg))),
-                                     -(-MESH_S // 512))
+    declared = step_collectives(cfg, len(tree_leaves(param_shapes(cfg))),
+                                -(-MESH_S // 512))
     lead = _check_full_width_mesh(
         f"gemma-2b bf16 full width, {MESH_LAYERS} of 18 layers", res["full"],
         jobs["full"], MESH_LAYERS, declared,
         f"K6 wgmma_bf16 forward and backward {MESH_LAYERS} launches a step on every "
-        f"rank (rank shape {MESH_RANK_SHAPE})")
+        f"rank (B=2 H=4 Hkv=1 S=1024 D=256 causal)")
     print(f"mesh training: ranks started and all jobs run in {wall:.1f}s")
     # (d) xlstm-1.3b at full width, bf16, against one rank of the card
     n = CUT_LAYERS["xlstm-1.3b"]
     cfg = dataclasses.replace(get_config("xlstm-1.3b"), n_layers=n)
-    declared = recurrent_step_collectives(cfg, len(tree_leaves(param_shapes(cfg))),
-                                          -(-MESH_S // 512))
+    declared = step_collectives(cfg, len(tree_leaves(param_shapes(cfg))),
+                                -(-MESH_S // 512))
     _check_full_width_mesh(f"xlstm-1.3b bf16 full width, {n} of 48 layers (7 mLSTM, "
                            "1 sLSTM)", res["xlstm full"], jobs["xlstm full"], 0,
                            declared, "no kernel launched")
-    return {k: sum(rec["launches"][f"{k}.wgmma_bf16"] for rec in lead["records"])
-            for k in ("flash_attention", "flash_attention_bwd")}
+    # (e) whisper-base, phi-3-vision-4.2b, hymba-1.5b at full width, bf16
+    leads = {"gemma-2b": lead}
+    for arch, (layers, b, seq, remat) in MESH_FULL.items():
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        shapes = _k6_step_launches(cfg, remat)
+        declared = step_collectives(cfg, len(tree_leaves(param_shapes(cfg))),
+                                    -(-seq // 512), remat)
+        depth = ("full depth" if layers is None else
+                 f"{layers} of {get_config(arch).n_layers} layers")
+        leads[arch] = _check_full_width_mesh(
+            f"{arch} bf16 full width, {depth}, remat={remat}", res[f"{arch} full"],
+            jobs[f"{arch} full"], None, declared,
+            f"K6 wgmma_bf16 launches a step on every rank by mask {shapes}", shapes)
+    return {arch: {k: sum(rec["launches"][k] for rec in x["records"])
+                   for k in _k6_step_launches(get_config("gemma-2b"))}
+            for arch, x in leads.items()}
 
 
-def _check_full_width_mesh(label, per_rank, job, n_attn, declared, launched):
+def _check_full_width_mesh(label, per_rank, job, n_attn, declared, launched,
+                           shapes=None):
     """A full-width bf16 job of run_mesh_training (each rank a data half of
-    the batch and a model half of the heads and channels) against the same
-    job on one rank of the card: losses and grad norms within
-    TRAIN_MESH_BF16_REL every step, K6 launched once per attention layer
-    (``n_attn``) and the declared collectives every step and rank.
-    Prints the check and the timing; returns the lead rank's record."""
+    the batch and a model half of the heads and channels, or every head
+    where the axis does not divide them) against the same job on one rank
+    of the card: losses and grad norms within TRAIN_MESH_BF16_REL every
+    step, K6 launched once per attention layer (``n_attn``, or ``shapes``
+    by mask: :func:`_check_mesh_steps`) and the declared collectives every
+    step and rank.  Prints the check and the timing; returns the lead
+    rank's record."""
     import statistics
     import torch
     from repro_torch.launch.kernel_timing import nvidia_smi
     from repro_torch.launch.train import train_run
     one = train_run(dict(job, mesh=None), torch.device("cuda"))
     torch.cuda.empty_cache()
-    _check_mesh_steps(f"mesh {label}", per_rank, n_attn, "wgmma_bf16", declared)
+    _check_mesh_steps(f"mesh {label}", per_rank, n_attn, "wgmma_bf16", declared, shapes)
+    steps, batch, seq = job["steps"], job["batch"], job["seq"]
     worst = 0.0
     for r, x in enumerate(per_rank):
-        for i in range(MESH_STEPS):
+        for i in range(steps):
             for key in ("losses", "grad_norms"):
                 a, b = x[key][i], one[key][i]
                 require(a == a and abs(a) != float("inf"), f"non-finite {key} {a}")
@@ -4062,15 +4156,15 @@ def _check_full_width_mesh(label, per_rank, job, n_attn, declared, launched):
                    for a in ("data", "model")} for x in per_rank]
     peaks = [x["peak_bytes"] / 1e9 for x in per_rank]
     one_ms = statistics.median([rec["s"] for rec in one["records"][1:]]) * 1e3
-    tokens = MESH_B * MESH_S
-    print(f"check mesh training {label}, B={MESH_B} S={MESH_S}, tiny mesh on 4 gloo "
-          f"ranks sharing the card: {MESH_STEPS} steps, losses {lead['losses']} grad "
+    tokens = batch * seq
+    print(f"check mesh training {label}, B={batch} S={seq}, tiny mesh on 4 gloo "
+          f"ranks sharing the card: {steps} steps, losses {lead['losses']} grad "
           f"norms {lead['grad_norms']}; one rank: losses {one['losses']} grad norms "
           f"{one['grad_norms']}; largest rel diff {worst:.3e} <= "
           f"{TRAIN_MESH_BF16_REL:.0e} on every rank; {launched}; collectives a step "
           f"{declared} on every rank, as declared")
     print(f"train mesh {label.split()[0]} timing ({nvidia_smi('name,power.limit')}): "
-          f"4 gloo ranks, step_ms per rank (median of steps 2-{MESH_STEPS}) "
+          f"4 gloo ranks, step_ms per rank (median of steps 2-{steps}) "
           f"{[round(v, 1) for v in step_ms]}, tokens_per_s "
           f"{tokens / max(step_ms) * 1e3:.0f}, collectives' share of a step per "
           f"rank and axis (host time inside them) {coll_share}, peak_mem_GB per rank "
@@ -4081,90 +4175,63 @@ def _check_full_width_mesh(label, per_rank, job, n_attn, declared, launched):
 
 
 def time_mesh_rank_attention(launches):
-    """K6 forward and backward at a rank's shape of the mesh run (gemma-2b
-    over (data, model) = (2, 2): B = 2, 4 query heads, the one KV head
-    gathered whole) against their plain versions, then timed beside their
-    plain versions and SDPA; rows for the kernels line."""
+    """K6 forward and backward at the ranks' shapes of run_mesh_training's
+    full-width jobs (MESH_RANKS), each held to its plain version and timed
+    beside its bound, its plain version and SDPA (its backward:
+    :func:`_time_training_bwd`); rows for the kernels line.  ``launches``:
+    the lead rank's launches in those jobs by job and mask."""
     import torch
     import torch.nn.functional as F
-    from repro_torch import kernels
-    from repro_torch.kernels.flash_attention import (attention_ref,
-                                                     attention_ref_bwd,
-                                                     flash_attention,
-                                                     flash_attention_bwd,
-                                                     multi_head_attention)
+    from repro_torch.kernels.flash_attention import attention_ref, multi_head_attention
     from repro_torch.launch.kernel_timing import device_ms, median_ms, nvidia_smi
-    b, h, hkv, s, d = MESH_RANK
-    q, k, v = attn_inputs(b, h, hkv, s, d, torch.bfloat16, seed=21, model_layout=True)
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(22)
-    dout = torch.randn((b, s, h, d), generator=gen, device="cuda").to(torch.bfloat16).transpose(1, 2)
-    kernels.reset_launch_counts()
-    out, lse = flash_attention(q, k, v, causal=True, window=0, return_lse=True)
-    grads = flash_attention_bwd(q, k, v, out, dout, lse, causal=True, window=0)
-    counts = kernels.variant_counts()
-    require(counts["flash_attention.wgmma_bf16"] == 1 and
-            counts["flash_attention_bwd.wgmma_bf16"] == 1,
-            f"K6 at the mesh rank's shape: variant launches {counts}")
-    want = attention_ref(q.float(), k.float(), v.float(), causal=True)
-    err, ratio = compare_attention("flash_attention", out, want,
-                                   f"flash_attention mesh rank {MESH_RANK_SHAPE}")
-    want_g = attention_ref_bwd(q.float(), k.float(), v.float(), out.float(),
-                               dout.float(), lse, causal=True)
-    rels = []
-    for name, g, w in zip(("dq", "dk", "dv"), grads, want_g):
-        require(bool(torch.isfinite(g.float()).all()), f"mesh rank bwd: non-finite {name}")
-        rel = float((g.float() - w).norm() / w.norm())
-        MAX_ABS_ERR["flash_attention_bwd"] = max(
-            MAX_ABS_ERR["flash_attention_bwd"], float((g.float() - w.to(g.dtype).float()).abs().max()))
-        require(rel <= BWD_REL_BF16, f"flash_attention_bwd mesh rank: {name} rel L2 {rel:.3e}")
-        rels.append(rel)
-    print(f"check flash_attention mesh rank {MESH_RANK_SHAPE} (wgmma_bf16): max abs "
-          f"err {err:.3e} from the plain output, {ratio:.3f} x its limit; backward "
-          f"rel L2 dq {rels[0]:.3e} dk {rels[1]:.3e} dv {rels[2]:.3e} <= "
-          f"{BWD_REL_BF16:.0e}")
-    kept = s * (s + 1) // 2
-    fwd = lambda: multi_head_attention(q, k, v, causal=True, window=0)
-    lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-    bms, by = bound_attn(nbytes, 4 * d * kept * b * h)
-    rows = [dict(name="flash_attention", route="cuda",
-                 source="src/repro_torch/csrc/flash_attention.cu",
-                 replaces="src/repro/kernels/flash_attention/flash_attention.py:110",
-                 shape=f"{MESH_RANK_SHAPE} (mesh rank)",
-                 ms=device_ms(fwd, reps=20), plain_ms=device_ms(
-                     lambda: attention_ref(q, k, v, causal=True), reps=5),
-                 library_ms=device_ms(lib, reps=20), call_ms=median_ms(fwd, reps=10),
-                 bound_ms=bms, bound_by=by, launches=launches["flash_attention"])]
-    qs, ks, vs = (t_.detach().clone().requires_grad_() for t_ in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
-    bwd = lambda: flash_attention_bwd(q, k, v, out, dout, lse, causal=True, window=0)
-    nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
-    bms, by = bound_attn(nbytes, 10 * d * kept * b * h)
-    rows.append(dict(name="flash_attention_bwd", route="cuda",
-                     source="src/repro_torch/csrc/flash_attention_bwd.cu",
-                     replaces="src/repro/kernels/flash_attention/flash_attention.py:110",
-                     shape=f"{MESH_RANK_SHAPE} (mesh rank)",
-                     ms=device_ms(bwd, reps=20), plain_ms=device_ms(
-                         lambda: attention_ref_bwd(q, k, v, out, dout, lse, causal=True),
-                         reps=3),
-                     library_ms=device_ms(lambda: torch.autograd.grad(
-                         lib_out, (qs, ks, vs), dout, retain_graph=True), reps=20),
-                     call_ms=median_ms(bwd, reps=10), bound_ms=bms, bound_by=by,
-                     launches=launches["flash_attention_bwd"]))
-    for row in rows:
-        row["listed"] = True
-        row["mesh_rank"] = True
-        print(f"timing {row['name']} {row['shape']} ({nvidia_smi('name,power.limit')}): "
+    rows = []
+    for i, (label, (b, h, hkv, s, sk, d, causal, window, mask, job)) in enumerate(
+            MESH_RANKS.items()):
+        shape = (f"B={b} H={h} Hkv={hkv} S={s}{f' Sk={sk}' if sk != s else ''} D={d} "
+                 f"bf16 {'causal' if causal else 'non-causal'} window={window} "
+                 f"({label}, a tiny-mesh rank)")
+        seed = 61 + 10 * i
+        q, k, v = attn_inputs(b, h, hkv, s, d, torch.bfloat16, seed=seed, model_layout=True)
+        if sk != s:
+            _, k, v = attn_inputs(b, hkv, hkv, sk, d, torch.bfloat16, seed=seed + 1,
+                                  model_layout=True)
+        fn = lambda: multi_head_attention(q, k, v, causal=causal, window=window)
+        plain = lambda: attention_ref(q, k, v, causal=causal, window=window or None)
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                     enable_gqa=h != hkv)
+        got = fn()
+        compare_attention("flash_attention", got, attention_ref(
+            q.float(), k.float(), v.float(), causal=causal, window=window or None),
+            f"flash_attention at {shape}")
+        err = float((lib().float() - got.float()).abs().max())
+        require(err <= SDPA_TOL, f"SDPA yardstick disagrees with flash_attention at "
+                f"{shape}: {err:.3e}")
+        kept = s * (s + 1) // 2 if causal else s * sk
+        require(not window or window >= s, f"{shape}: SDPA's causal mask would not "
+                "stand for the window")
+        bms, by = bound_attn(2 * (2 * q.numel() + k.numel() + v.numel()),
+                             4 * d * kept * b * h)
+        n = launches[job][f"flash_attention.{mask}"]
+        row = dict(name="flash_attention", route="cuda",
+                   source="src/repro_torch/csrc/flash_attention.cu",
+                   replaces="src/repro/kernels/flash_attention/flash_attention.py:110",
+                   shape=shape, ms=device_ms(fn, reps=20), plain_ms=device_ms(plain, reps=3),
+                   library_ms=device_ms(lib, reps=20), call_ms=median_ms(fn, reps=10),
+                   bound_ms=bms, bound_by=by, launches=n, listed=True, also_listed=True)
+        print(f"timing flash_attention {shape} ({nvidia_smi('name,power.limit')}): "
               f"ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} "
-              f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}) "
-              f"library_ms={row['library_ms']:.5f} launches_on_main_path={row['launches']} "
-              f"(the lead rank's, {MESH_STEPS} steps of {MESH_LAYERS} layers); "
-              f"call_ms={row['call_ms']:.5f}; {row['ms'] / row['bound_ms']:.2f}x the "
-              f"bound, {row['ms'] / row['library_ms']:.2f}x SDPA")
+              f"bound_ms={bms:.5f} ({by}) library_ms={row['library_ms']:.5f} "
+              f"launches_on_main_path={n} (the lead rank's, {mask}); call_ms="
+              f"{row['call_ms']:.5f}; {row['ms'] / bms:.2f}x the bound, "
+              f"{row['ms'] / row['library_ms']:.2f}x SDPA")
         for key in ("ms", "plain_ms", "library_ms"):
-            require(row["bound_ms"] <= row[key],
-                    f"{row['name']} mesh rank: bound_ms {row['bound_ms']:.5f} exceeds {key}")
+            require(bms <= row[key], f"flash_attention at {shape}: bound_ms {bms:.5f} "
+                    f"exceeds {key}")
+        del q, k, v, got
+        torch.cuda.empty_cache()
+        rows += [row, _time_training_bwd(
+            shape, b, h, hkv, s, sk, d, causal, window,
+            launches[job][f"flash_attention_bwd.{mask}"], seed=seed + 5)]
     return rows
 
 
@@ -4913,14 +4980,16 @@ def main() -> int:
                          library_ms=r["library_ms"])
                     for r in rows
                     if r["listed"] and (r["shape"] == REPORT_SHAPE[r["name"]] or
-                                        r.get("mesh_rank") or r.get("also_listed"))]
-    # one row per kernel at its report shape, K6 forward and backward at
-    # the mesh rank's shape, K6's capped backward at grok's layer, K6 and
+                                        r.get("also_listed"))]
+    # one row per kernel at its report shape, K6's capped backward at
+    # grok's layer, K6 and
     # K7 at hymba's prefill and decode shapes, K6 at phi3's prefill,
     # whisper's encoder and its cross rows, K7 at phi3's decode and over
     # whisper's cross rows, K6's backward at whisper's training cross and at
-    # hymba's training layer
-    require(len(kernels_line) == len(REPORT_SHAPE) + 12, "a kernel has no timing row")
+    # hymba's training layer, K6 forward and backward at the full-width mesh
+    # jobs' rank shapes
+    require(len(kernels_line) == len(REPORT_SHAPE) + 10 + 2 * len(MESH_RANKS),
+            "a kernel has no timing row")
     print(f"chip_smoke wall_s={time.perf_counter() - t_start:.1f} (build included)")
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {

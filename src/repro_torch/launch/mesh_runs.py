@@ -73,9 +73,11 @@ driver's flags.  Kinds:
                 the global ``expert_load``, ``dropped_frac`` and
                 ``aux_loss``, the input's gradient (this rank's block) and
                 the weights' gradients whole on the lead rank
-``block``       one recurrent block of the config (``arch``, ``reduced``,
-                ``cfg`` as for ``train``; ``block`` ``"mlstm"``,
-                ``"slstm"`` or ``"ssm"``) on a mesh of one ``model`` axis
+``block``       one recurrent block or attention layer of the config
+                (``arch``, ``reduced``, ``cfg`` as for ``train``; ``block``
+                ``"mlstm"``, ``"slstm"``, ``"ssm"`` or ``"attention"``,
+                the latter with the config's window) on a mesh of one
+                ``model`` axis
                 over every rank, forward and backward: ``layer`` the
                 block's stacked weights (numpy, ``stk_`` keys, a stack of
                 one), placed by ``spec_tree``; ``x`` and ``dout`` the
@@ -440,6 +442,7 @@ def _moe(rank: _Rank, job: dict) -> dict:
 
 def _block(rank: _Rank, job: dict) -> dict:
     from ..dist.sharding import gather_tree, is_lead_rank, shard_tree, spec_tree
+    from ..models.attention import attention
     from ..models.ssm import ssm_block
     from ..models.xlstm import mlstm_block, slstm_block
     from .mesh import make_data_mesh
@@ -453,7 +456,9 @@ def _block(rank: _Rank, job: dict) -> dict:
     p = {k: v.to(rank.device).requires_grad_()
          for k, v in shard_tree(host, mesh, specs).items()}
     x = torch.from_numpy(job["x"]).to(rank.device).requires_grad_()
-    forward = {"mlstm": mlstm_block, "slstm": slstm_block, "ssm": ssm_block}[job["block"]]
+    forward = {"mlstm": mlstm_block, "slstm": slstm_block, "ssm": ssm_block,
+               "attention": lambda p, x, cfg, mesh: attention(
+                   p, x, cfg, window=cfg.window, mesh=mesh)}[job["block"]]
     before = coll.collective_counts()
     out, _ = forward({k[4:]: v[0] for k, v in p.items()}, x, cfg, mesh=mesh)
     loss = (out.float() * torch.from_numpy(job["dout"]).to(rank.device)).sum()

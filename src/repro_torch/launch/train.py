@@ -10,8 +10,9 @@ device or on a mesh of ranks (the port of the reference's
         --reduced --mesh tiny --dist-backend gloo [--device cpu]
 
 Random weights from a ``torch.Generator`` seeded 0, batches from
-``data.TokenPipeline`` (batch ``i`` a pure function of the seed and ``i``),
-checkpoints every ``--ckpt-every`` steps; a run in a directory that holds a
+``data.TokenPipeline`` (batch ``i`` a pure function of the seed and ``i``;
+a vision config's image embeddings and an encoder-decoder's frame
+embeddings beside the tokens, :func:`step_embeds`), checkpoints every ``--ckpt-every`` steps; a run in a directory that holds a
 checkpoint resumes from it.  The default device is CUDA, and with no card it
 raises rather than fall back.  It prints the reference's ``[train]`` line
 and, on the card, a second one with the median step time (steps after the
@@ -22,16 +23,20 @@ first), tokens/s and peak memory.
 mesh has (``launch.mesh.run_ranks``, process-group backend
 ``--dist-backend``: ``nccl`` for ranks on distinct cards, ``gloo`` for
 ranks on the host or sharing one card, which NCCL refuses).  Every rank
-makes the same weights from the seed and keeps its block of them, so the
-mesh trains the model a single device trains; the lead rank prints the
-lines.  A mixture of experts trains on a mesh too (its routing groups per
-data shard and the expert all-to-all, ``models.moe``), and so do the
-recurrent and hybrid kinds (xlstm's mLSTM and sLSTM, hymba's SSM beside
-attention: each block tensor-parallel over ``model``, ``models.xlstm``,
-``models.ssm``); a model axis that does not split a config's heads or
-channels is refused before any rank starts (hymba-1.5b's 25 heads on
-``tiny``).  xlstm-1.3b and hymba-1.5b train on one card at full width
-under ``--remat full``, as ``chip_smoke.py`` runs them.
+makes the same weights from the seed and the same global batch, and keeps
+its block of both, so the mesh trains the model a single device trains;
+the lead rank prints the lines.  A mixture of experts trains on a mesh too
+(its routing groups per data shard and the expert all-to-all,
+``models.moe``), and so do the recurrent and hybrid kinds (xlstm's mLSTM
+and sLSTM, hymba's SSM beside attention: each block tensor-parallel over
+``model``, ``models.xlstm``, ``models.ssm``), whisper-base's encoder and
+cross-attention, and phi-3-vision-4.2b's image prefix.  What the model
+axis does not divide the ranks run whole, as the reference replicates it:
+hymba-1.5b's 25 heads and vocabulary of 32,001 and whisper's 51,865 on
+``tiny``.  A model axis that does not split a config's d_ff or a block's
+channels is refused before any rank starts.  xlstm-1.3b and hymba-1.5b
+train on one card at full width under ``--remat full``, as
+``chip_smoke.py`` runs them.
 """
 from __future__ import annotations
 
@@ -60,7 +65,7 @@ from ..training import (RunnerConfig, TrainingRunner, adamw_init, latest_step,
                         make_eval_step, make_train_step)
 from ..training.fault_tolerance import batch_block
 
-__all__ = ["train_run", "train_line", "moe_calls", "main"]
+__all__ = ["train_run", "train_line", "moe_calls", "step_embeds", "main"]
 
 
 def _config(job: dict):
@@ -102,6 +107,27 @@ def moe_calls():
         transformer.moe = real
 
 
+def step_embeds(cfg, step: int, batch: int, device) -> dict:
+    """Step ``step``'s stubbed front-end outputs for a global batch of
+    ``batch`` rows, made on ``device`` from a ``torch.Generator`` seeded with
+    the step, in the model's dtype: a vision config's ``img_embeds`` (B,
+    ``frontend_len``, D), normal draws; an encoder-decoder's ``enc_embeds``
+    (B, ``encoder_len``, D), normal draws x 0.05 (the scale of the serve's
+    frames).  ``{}`` for a tokens-only config."""
+    images = cfg.frontend_len if cfg.frontend == "vision" else 0
+    frames = cfg.encoder_len if cfg.n_encoder_layers else 0
+    if not (images or frames):
+        return {}
+    dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    gen = torch.Generator(device=device)
+    gen.manual_seed(step)
+    if images:
+        return {"img_embeds": torch.randn((batch, images, cfg.d_model), generator=gen,
+                                          device=device).to(dtype)}
+    return {"enc_embeds": (torch.randn((batch, frames, cfg.d_model), generator=gen,
+                                       device=device) * 0.05).to(dtype)}
+
+
 def train_run(job: dict, device: torch.device, mesh=None) -> dict:
     """One training run on ``device`` (this rank's, on a mesh).  ``job``:
 
@@ -112,7 +138,9 @@ def train_run(job: dict, device: torch.device, mesh=None) -> dict:
     ``ckpt_dir`` the steps run alone and write nothing); the weights from
     ``seed`` (default 0) or ``params`` (the reference's tree as numpy);
     ``then``: steps run on afterwards, in memory; ``gather``: return the
-    final params whole (as float32 numpy, on the lead rank); ``eval``:
+    final params whole (as float32 numpy, on the lead rank); ``embeds``:
+    each step's image or frame embeddings (a list of dicts of numpy arrays
+    of the global batch; default :func:`step_embeds`); ``eval``:
     return ``eval_loss``, the eval step's loss of the starting weights on
     the first batch; ``fail = (rank, step)``: the runner's step ``step``
     fails on that rank alone (``RunnerConfig.fail_injector``);
@@ -121,8 +149,8 @@ def train_run(job: dict, device: torch.device, mesh=None) -> dict:
 
     Returns the ``[train]`` line's numbers (``name``, ``resumed``,
     ``final``, ``dt``, ``losses``), ``grad_norms``, and per step its
-    seconds, kernel launches (``kernels.launch_counts`` and
-    ``variant_counts``), collectives and the host seconds inside them by
+    seconds, kernel launches (``kernels.launch_counts``, ``variant_counts``
+    and ``shape_counts``), collectives and the host seconds inside them by
     axis (``collective_s``); on the card the peak memory."""
     cfg = _config(job)
     model = Model(cfg, mesh=mesh)
@@ -154,6 +182,7 @@ def train_run(job: dict, device: torch.device, mesh=None) -> dict:
             torch.cuda.synchronize(device)
         counts = kernels.launch_counts()
         counts.update(kernels.variant_counts())
+        counts.update(kernels.shape_counts())
         after = coll.collective_seconds()
         records.append({"s": time.perf_counter() - t0, "launches": counts,
                         "collectives": coll.counts_since(before),
@@ -166,11 +195,17 @@ def train_run(job: dict, device: torch.device, mesh=None) -> dict:
 
     pipe = TokenPipeline(cfg.vocab_size, batch=job["batch"], seq_len=job["seq"],
                          seed=tcfg.seed)
+
+    def batch_at(i):
+        """Step ``i``'s global batch (every rank makes the same one)."""
+        extra = (job["embeds"][i] if job.get("embeds") is not None
+                 else step_embeds(cfg, i, job["batch"], device))
+        return {**pipe.batch_at(i), **extra}
     ckpt_dir = job.get("ckpt_dir")
     eval_loss = None
     if job.get("eval"):
         eval_loss = float(make_eval_step(model)(
-            params, batch_block(pipe.batch_at(0), device, mesh)))
+            params, batch_block(batch_at(0), device, mesh)))
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     if ckpt_dir is None:
@@ -178,7 +213,7 @@ def train_run(job: dict, device: torch.device, mesh=None) -> dict:
         resumed, log, t0 = 0, [], time.perf_counter()
         for i in range(job["steps"]):
             params, opt, m = timed_step(params, opt,
-                                        batch_block(pipe.batch_at(i), device, mesh))
+                                        batch_block(batch_at(i), device, mesh))
             log.append({k: float(v) for k, v in m.items()})
         final, dt = job["steps"], time.perf_counter() - t0
     else:
@@ -188,7 +223,7 @@ def train_run(job: dict, device: torch.device, mesh=None) -> dict:
         runner = TrainingRunner(
             RunnerConfig(ckpt_dir, checkpoint_every=job.get("ckpt_every", 25),
                          fail_injector=injector),
-            timed_step, params, opt, pipe.batch_at, mesh=mesh, specs=model.specs)
+            timed_step, params, opt, batch_at, mesh=mesh, specs=model.specs)
         del params, opt   # the runner holds them; the first step replaces them
         resumed = latest_step(ckpt_dir) or 0
         t0 = time.perf_counter()
@@ -199,7 +234,7 @@ def train_run(job: dict, device: torch.device, mesh=None) -> dict:
         del runner
     for i in range(final, final + job.get("then", 0)):
         params, opt, m = timed_step(params, opt,
-                                    batch_block(pipe.batch_at(i), device, mesh))
+                                    batch_block(batch_at(i), device, mesh))
         log.append({k: float(v) for k, v in m.items()})
     out = dict(name=cfg.name, resumed=resumed, final=final, dt=dt,
                losses=[m["loss"] for m in log],

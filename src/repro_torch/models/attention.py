@@ -3,16 +3,28 @@
 The port of the reference package's ``models/attention.py``.  On one
 device its sharding constraints are the identity and are dropped.  On a
 mesh with a ``model`` axis (training only) the layer is tensor-parallel, as
-the reference's placements make GSPMD run it: ``wq`` is column-split, so
+the reference's placements make GSPMD run it (:func:`head_split` names the
+three forms): ``wq`` is column-split, so when the axis divides the heads
 each rank owns ``H / m`` contiguous query heads; ``wk``/``wv`` are
 column-split too, and when the KV heads split over the ranks each rank's
-KV heads are exactly those its query heads use.  When they do not (MQA: one
-KV head, its dims cut in two), the rank's k and v slices are all-gathered
+KV heads are exactly those its query heads use (``"heads"``).  When they do
+not but a rank's query heads share one KV head (``"group"``; MQA: one KV
+head, its dims cut in two), the rank's k and v slices are all-gathered
 over ``model`` before RoPE (which pairs dim ``i`` with ``i + hd / 2``), and
-their gradient is summed back over the ranks.  ``wo`` is row-parallel:
-each rank's partial product is all-reduced over ``model``.  The input is
-replicated over ``model`` and its gradient summed over it
-(``dist.collectives.copy_to_axis``).
+their gradient is summed back over the ranks.  When the axis does not
+divide the heads (``"all"``; hymba-1.5b's 25 heads over 2 ranks: the
+reference cuts ``wq``'s 1,600 columns at 800, mid-head), each rank's column
+products of q, k and v are all-gathered over ``model`` (one all-gather,
+its backward one reduce-scatter), every head runs on every rank, and the
+rank keeps the output columns of its rows of ``wo``: the attention itself
+is duplicated on each model rank, the price of the reference's placement.
+``wo`` is row-parallel: each rank's partial product is all-reduced over
+``model``.  The input is replicated over ``model`` and its gradient summed
+over it (``dist.collectives.copy_to_axis``).  Cross-attention on a mesh
+takes the ``"heads"`` form only (``transformer.check_mesh`` refuses the
+rest): the rank's query heads of ``xwq`` over the rank's KV heads of the
+encoder's K/V (``Model.cross_kv`` projects them with its columns of
+``xwk``/``xwv``), then its rows of ``xwo``.
 
 On the card, full-sequence (prefill) attention runs the hand-written flash
 kernel (:func:`..kernels.flash_attention.multi_head_attention`) and decode
@@ -51,7 +63,7 @@ from ..kernels.decode_attention import grouped_decode_attention
 from ..kernels.flash_attention import multi_head_attention
 from .layers import apply_rope, rope, softcap
 
-__all__ = ["init_attention", "attention", "flash_chunked", "init_cache"]
+__all__ = ["init_attention", "attention", "flash_chunked", "init_cache", "head_split"]
 
 NEG_INF = -1e30
 
@@ -181,24 +193,50 @@ def _prefill_attend(q, k, v, *, causal, window, sm_scale, cap):
     return out.transpose(1, 2)
 
 
+def head_split(cfg, m: int) -> str:
+    """How a model axis of ``m`` ranks runs the heads: ``"heads"``, each
+    rank its ``H / m`` query heads and their KV heads; ``"group"``, its
+    query heads sharing one KV head that is gathered whole (MQA); ``"all"``,
+    every head on every rank (the axis does not divide the heads, or a
+    rank's heads span KV heads it does not hold)."""
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if h % m:
+        return "all"
+    if kv % m == 0:
+        return "heads"
+    return "group" if (h // kv) % (h // m) == 0 and (kv * hd) % m == 0 else "all"
+
+
 def _tp_projections(p: dict, x: torch.Tensor, cfg, mesh):
-    """q, k, v of this rank's query heads and the KV heads they use, on a
-    mesh whose ``model`` axis splits the projections (the split the model
-    checks at construction, ``transformer.check_mesh``)."""
+    """q, k, v on a mesh whose ``model`` axis splits the projections'
+    columns, and the output columns this rank's rows of ``wo`` take (None:
+    all of ``out``, the rank's own heads): the module docstring's three
+    forms (:func:`head_split`)."""
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     m, r = axis_size(mesh, "model"), axis_index(mesh, "model")
     x = coll.copy_to_axis(x, mesh, "model")
-    hl = h // m
-    q = _split_heads(x @ p["wq"], hl, hd)
-    k, v = x @ p["wk"], x @ p["wv"]
-    if kv % m == 0:
-        return q, _split_heads(k, kv // m, hd), _split_heads(v, kv // m, hd)
-    # the KV heads do not split: gather each whole, keep the one this
-    # rank's query heads share (a group holds all of them)
-    kvf = coll.gather_over_axis(torch.stack([k, v]), mesh, "model", dim=-1)
-    lo = (r * hl) // (h // kv) * hd
-    kvf = kvf[..., lo: lo + hd]
-    return q, _split_heads(kvf[0], 1, hd), _split_heads(kvf[1], 1, hd)
+    form = head_split(cfg, m)
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if form == "heads":
+        return (_split_heads(q, h // m, hd), _split_heads(k, kv // m, hd),
+                _split_heads(v, kv // m, hd), None)
+    if form == "group":
+        # gather each KV head whole, keep the one this rank's query heads
+        # share (a group holds all of them)
+        kvf = coll.gather_over_axis(torch.stack([k, v]), mesh, "model", dim=-1)
+        lo = (r * (h // m)) // (h // kv) * hd
+        kvf = kvf[..., lo: lo + hd]
+        return (_split_heads(q, h // m, hd), _split_heads(kvf[0], 1, hd),
+                _split_heads(kvf[1], 1, hd), None)
+    # every head on every rank: the ranks' q, k, v columns in one gather,
+    # (B, S, m, local q | k | v) reassembled into whole q, k, v
+    qw, kw = q.shape[-1], k.shape[-1]
+    cols = coll.gather_over_axis(torch.cat([q, k, v], dim=-1), mesh, "model", dim=-1)
+    cols = cols.reshape(*cols.shape[:-1], m, qw + 2 * kw)
+    q, k, v = (cols[..., lo: lo + w].flatten(-2) for lo, w in
+               ((0, qw), (qw, kw), (qw + kw, kw)))
+    return (_split_heads(q, h, hd), _split_heads(k, kv, hd), _split_heads(v, kv, hd),
+            slice(r * qw, (r + 1) * qw))
 
 
 def _cross_attend(q, k, v, sm_scale, cap):
@@ -243,28 +281,34 @@ def attention(p: dict, x: torch.Tensor, cfg, *, window: int = 0,
     cross-attention with the ``prefix`` ``"x"`` weights: no rope, every
     key kept, no cache (see the module docstring); returns (out, None).
 
-    ``mesh``: full-sequence attention, tensor-parallel over its ``model``
-    axis (see the module docstring); a cache or ``cross_kv`` on a mesh
-    raises ``NotImplementedError``.
+    ``mesh``: full-sequence attention and cross-attention, tensor-parallel
+    over its ``model`` axis (see the module docstring; ``cross_kv`` then
+    holds the rank's KV heads); a cache on a mesh raises
+    ``NotImplementedError``.
     """
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cap = cfg.attn_logit_softcap
     sm_scale = hd ** -0.5
     tp = mesh is not None and "model" in (mesh.mesh_dim_names or ())
-    if tp and (cache is not None or cross_kv is not None):
+    if tp and cache is not None:
         raise NotImplementedError(
-            "attention with a KV cache or cross K/V on a mesh (sharded "
-            "serving, the encoder-decoder) is not ported (ROADMAP item 12)")
+            "attention with a KV cache on a mesh (sharded serving) is not "
+            "ported (ROADMAP item 12)")
     if cross_kv is not None:
         if cache is not None:
             raise ValueError("cross-attention reads the encoder's K/V and "
                              "takes no cache")
-        q = _split_heads(x @ p[prefix + "wq"], h, hd)
+        if tp:
+            x = coll.copy_to_axis(x, mesh, "model")
+        q = x @ p[prefix + "wq"]
+        q = _split_heads(q, q.shape[-1] // hd, hd)
         out = _cross_attend(q, *cross_kv, sm_scale, cap)
-        return out.reshape(b, s, h * hd) @ p[prefix + "wo"], None
+        out = out.reshape(b, s, -1) @ p[prefix + "wo"]
+        return (coll.reduce_over_axis(out, mesh, "model") if tp else out), None
+    cols = None
     if tp:
-        q, k, v = _tp_projections(p, x, cfg, mesh)
+        q, k, v, cols = _tp_projections(p, x, cfg, mesh)
     else:
         q = _split_heads(x @ p["wq"], h, hd)
         k = _split_heads(x @ p["wk"], kv, hd)
@@ -307,7 +351,8 @@ def attention(p: dict, x: torch.Tensor, cfg, *, window: int = 0,
 
     out = _prefill_attend(q, k, v, causal=causal, window=window,
                           sm_scale=sm_scale, cap=cap)
-    out = out.reshape(b, s, q.shape[2] * hd) @ p["wo"]
+    out = out.reshape(b, s, q.shape[2] * hd)
+    out = (out if cols is None else out[..., cols]) @ p["wo"]
     if tp:
         out = coll.reduce_over_axis(out, mesh, "model")
     return out, None

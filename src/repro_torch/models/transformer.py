@@ -54,11 +54,17 @@ the whole batch); its load-balance loss is global and the loss adds ``0.01``
 times it once.  The recurrent and hybrid layers are tensor-parallel too
 (:mod:`.xlstm`, :mod:`.ssm`: each gathers its column-split projections
 over ``model``, runs its recurrence on the rank's heads or channels and
-all-reduces its row-parallel output).  ``seq_parallel``, ``mlp_dp``, a
-mixture of experts over more than one data axis, a model axis that does
-not split the heads or a block's channels, the encoder-decoder and the
-vision prefix on a mesh, and serving on a mesh raise
-``NotImplementedError``.
+all-reduces its row-parallel output).  What the placement replicates,
+because the model axis does not divide it, the layers run whole: a
+vocabulary (whisper's 51,865, hymba's 32,001) is looked up and its logits
+computed on every model rank with no collective, and heads the axis does
+not divide (hymba's 25) all run on every rank (:mod:`.attention`).
+whisper's encoder runs tensor-parallel too, and its cross K/V are each
+rank's KV heads; phi-3-vision's image rows are each data rank's rows of
+the batch.  ``seq_parallel``, ``mlp_dp``, a mixture of experts over more
+than one data axis, a model axis that does not split d_ff, the attention
+projections or a recurrent block's channels, and serving on a mesh raise
+``NotImplementedError`` (``check_mesh``).
 """
 from __future__ import annotations
 
@@ -73,7 +79,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..dist import collectives as coll
 from ..dist.sharding import axis_index, data_axes, mesh_axes, spec_tree
-from .attention import attention, init_attention
+from .attention import attention, head_split, init_attention
 from .attention import init_cache as kv_init_cache
 from .layers import init_norm, norm
 from .mlp import init_mlp, mlp
@@ -154,17 +160,15 @@ def check_mesh(cfg, mesh) -> None:
     """Raise ``NotImplementedError`` for what mesh training does not port
     (ROADMAP item 12h): ``seq_parallel`` and ``mlp_dp``, a mixture of
     experts over more than one data axis (the reference's ``pod`` meshes),
-    and a model axis that does not split the heads, the KV heads, d_ff or
-    the vocab the way the tensor-parallel layers read them, nor, for the
-    recurrent and hybrid kinds, the mLSTM's head width, the sLSTM's
-    channels or the SSM's inner channels (hymba-1.5b's 25 heads over a
-    model axis of 2, for one); and whisper's encoder-decoder
-    (cross-attention on a mesh, ROADMAP item 12f)."""
+    a model axis that does not split d_ff, the attention projections'
+    columns or, for the recurrent and hybrid kinds, the mLSTM's head width,
+    the sLSTM's channels or the SSM's inner channels, and an
+    encoder-decoder whose model axis does not give each rank its own query
+    and KV heads (cross-attention takes that form only).  Heads, KV heads
+    and a vocabulary the axis does not divide are taken: the reference
+    replicates such a leaf, and the layers follow (every head on every rank,
+    :func:`.attention.head_split`; the whole vocabulary on every rank)."""
     kinds = {k.split("+")[0] for k, _ in stages_meta(cfg)}
-    if cfg.n_encoder_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder (enc, xdec) on a mesh is not "
-            "ported (one card only; ROADMAP item 12f)")
     if cfg.n_experts and len(data_axes(mesh)) > 1:
         raise NotImplementedError(
             f"{cfg.name}: a mixture of experts over the data axes "
@@ -177,14 +181,10 @@ def check_mesh(cfg, mesh) -> None:
     m = _model_axis(mesh)
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     bad = []
-    if h % m:
-        bad.append(f"{h} heads")
-    elif kv % m and ((h // kv) % (h // m) or (kv * hd) % m):
-        bad.append(f"{kv} KV heads of {hd} dims for {h // m} query heads a rank")
+    if (h * hd) % m or (kv * hd) % m:
+        bad.append(f"the attention projections' {h * hd} and {kv * hd} columns")
     if cfg.mlp_act != "none" and cfg.d_ff % m:
         bad.append(f"d_ff {cfg.d_ff}")
-    if cfg.vocab_size % m:
-        bad.append(f"vocab {cfg.vocab_size}")
     d = cfg.d_model
     if "mlstm" in kinds and (PROJ_FACTOR * d // h) % m:
         bad.append(f"the mLSTM head width {PROJ_FACTOR * d // h}")
@@ -192,11 +192,13 @@ def check_mesh(cfg, mesh) -> None:
         bad.append(f"the sLSTM's {d} channels")
     if "hybrid" in kinds and (cfg.ssm_expand * d) % m:
         bad.append(f"the SSM's {cfg.ssm_expand * d} channels")
+    if cfg.n_encoder_layers and head_split(cfg, m) != "heads":
+        bad.append(f"the cross-attention's {h} heads and {kv} KV heads")
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: a model axis of {m} does not split {', '.join(bad)} "
-            "as the tensor-parallel layers need (replicated fallbacks are "
-            "not ported, ROADMAP item 12h)")
+            "as the tensor-parallel layers need (replicated fallbacks of "
+            "these are not ported, ROADMAP item 12h)")
 
 
 # ---------------------------------------------------------------------------
@@ -430,11 +432,19 @@ class Model:
             self.specs = spec_tree(param_shapes(self.cfg), self.mesh,
                                    self.cfg.expert_sharding)
 
-    def _model_rank(self):
-        """(model-axis size, this rank's coordinate on it): (1, 0) off a
-        mesh or without a model axis."""
-        m = _model_axis(self.mesh)
-        return m, axis_index(self.mesh, "model") if m > 1 else 0
+    def _vocab_rank(self):
+        """(the number of vocabulary slices, this rank's slice): the
+        placement of ``embed`` (``lm_head`` for an untied config) splits the
+        vocabulary over ``model`` when the axis divides it, and replicates
+        it otherwise (whisper's 51,865, hymba's 32,001): (1, 0) then, as
+        off a mesh."""
+        if self.specs is None:
+            return 1, 0
+        spec = (self.specs["embed"][0] if self.cfg.tie_embeddings
+                else self.specs["lm_head"][-1])
+        if spec != "model":
+            return 1, 0
+        return _model_axis(self.mesh), axis_index(self.mesh, "model")
 
     def placement(self, device):
         """The config's expert placement, (E,) int64 on ``device``, or None
@@ -451,7 +461,11 @@ class Model:
         return self._placements[device]
 
     def embed(self, params, tokens):
-        m, r = self._model_rank()
+        """Token embeddings; on a mesh a vocab-parallel lookup when the
+        placement splits ``embed``, else the plain lookup of the whole
+        table (its gradient whole on every model rank: nothing is summed
+        over ``model``)."""
+        m, r = self._vocab_rank()
         if m > 1:
             # vocab-parallel: this rank's rows, zeros elsewhere, summed
             w = params["embed"]
@@ -473,11 +487,14 @@ class Model:
         ``(sum_loss, sum_mask)``, the chunks' sums added in order as the
         reference's scan does.  The logits product is ``torch.matmul`` (the
         reference leaves it to XLA); the embedding is cast to float32 once
-        per call.  On a mesh each rank holds a vocab slice: the row maxima
-        are all-reduced (max) and the sums of exponentials and the gold
-        logits (summed) over ``model``, each chunk's in one call."""
+        per call.  On a mesh whose placement splits the vocabulary each rank
+        holds a vocab slice: the row maxima are all-reduced (max) and the
+        sums of exponentials and the gold logits (summed) over ``model``,
+        each chunk's in one call.  A replicated vocabulary's logits are
+        computed whole on every model rank, with no collective: ``h`` and
+        the leaf's gradients are then whole on each rank already."""
         cfg = self.cfg
-        m, r = self._model_rank()
+        m, r = self._vocab_rank()
         w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
         b, s, d = h.shape
         c = min(LOSS_CHUNK, s)
@@ -538,7 +555,8 @@ class Model:
         pos = params["enc_pos"]
         x = enc_embeds.to(pos.dtype) + pos[None, : enc_embeds.shape[1]]
         with (self.on_stage("enc") if self.on_stage else contextlib.nullcontext()):
-            x, _, _ = run_stage(params["enc_stages"]["e0"], x, cfg, "enc")
+            x, _, _ = run_stage(params["enc_stages"]["e0"], x, cfg, "enc",
+                                mesh=self.mesh)
         return norm(params["enc_final_norm"], x, cfg.norm)
 
     def cross_kv(self, params, enc_out):
@@ -546,16 +564,21 @@ class Model:
         D): ``{stage: (k, v)}``, each (count, B, Se, KV, D), computed once
         per input and read by every prefill and decode step (``enc_out`` of
         :meth:`backbone`).  A plain matrix product of the stacked weights,
-        as the reference's einsum."""
-        kv, hd = self.cfg.n_kv_heads, self.cfg.head_dim
+        as the reference's einsum.  On a mesh each rank's columns of
+        ``stk_xwk``/``stk_xwv`` give its KV heads (KV / m); ``enc_out``
+        passes through ``copy_to_axis`` first, so the encoder's gradient
+        sums every rank's heads' shares and the ranks' copies stay equal."""
+        hd = self.cfg.head_dim
         b, se, _ = enc_out.shape
+        if _model_axis(self.mesh) > 1:
+            enc_out = coll.copy_to_axis(enc_out, self.mesh, "model")
         out = {}
         for sname, sp in params["stages"].items():
             if "stk_xwk" in sp:
                 xk, xv = (torch.matmul(enc_out[None], sp[w][:, None])
                           for w in ("stk_xwk", "stk_xwv"))
-                out[sname] = (xk.reshape(-1, b, se, kv, hd),
-                              xv.reshape(-1, b, se, kv, hd))
+                out[sname] = (xk.reshape(-1, b, se, xk.shape[-1] // hd, hd),
+                              xv.reshape(-1, b, se, xv.shape[-1] // hd, hd))
         return out
 
     def backbone(self, params, x, *, cache=None, pos=None, enc_out=None,
@@ -596,7 +619,8 @@ class Model:
         sequence's entry ``i + 1``, so the image positions but the last
         (which predicts the first text token) are masked, as in the
         reference (another config ignores them, as the reference does).
-        On a mesh ``batch`` is this rank's block and the result the global loss: each rank's share, its rows'
+        On a mesh ``batch`` is this rank's block (its rows' images and
+        frames too, ``training.fault_tolerance.batch_block``) and the result the global loss: each rank's share, its rows'
         loss divided by the mask count summed over the data axes, summed
         over the data axes (two all-reduces per data axis; a replicated
         batch too, its count and its shares each taken once a data rank).
@@ -612,10 +636,6 @@ class Model:
         if cfg.n_encoder_layers:
             enc = self.cross_kv(params, self.encode(params, batch["enc_embeds"]))
         if cfg.frontend == "vision" and "img_embeds" in batch:
-            if self.mesh is not None:
-                raise NotImplementedError(
-                    f"{cfg.name}: the vision prefix of the loss on a mesh is "
-                    "not ported (ROADMAP item 12g)")
             img = batch["img_embeds"].to(_dtype(cfg))
             fl = img.shape[1]
             text = tokens[:, : tokens.shape[1] - fl]

@@ -15,7 +15,11 @@ summed over the data axes its placement does not name (one all-reduce per
 leaf and per such axis, before clipping; an expert leaf split over ``data``
 holds its own slots' or d_ff slice's whole gradient already, as under
 GSPMD), and the global norm is the norm of the global gradient; AdamW
-updates each rank's blocks.  A mixture of experts on a mesh takes one
+updates each rank's blocks.  No leaf is summed over ``model``: a leaf the
+placement replicates there (a norm, a vocabulary the axis does not
+divide, the SSM's conv) holds its whole gradient on every model rank
+already, because the layers compute with it whole there or take it
+through ``copy_to_axis`` where a rank reads only its part.  A mixture of experts on a mesh takes one
 microbatch: the reference routes each microbatch's global rows as groups,
 which a split of the rank's block does not reproduce (ROADMAP item 12h).
 """

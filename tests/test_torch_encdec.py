@@ -284,14 +284,21 @@ def test_flash_kernel_refuses_other_keys_with_a_mask(causal, window):
 
 
 def test_the_encoder_loss_raises_and_the_encoder_on_a_mesh_raises():
-    """The encoder-decoder on a mesh is not ported: it raises, naming ROADMAP
-    item 12f (its mesh half).  The loss's encoder branch is ported on one
-    device (``test_loss_and_gradients_match_the_reference``)."""
+    """The encoder-decoder trains on the tiny mesh (its encoder and
+    cross-attention tensor-parallel; ``tests/test_torch_mesh_training.py``
+    holds it against the reference's mesh), so ``check_mesh`` takes the
+    reduced whisper; cross-attention takes each rank's own query and KV
+    heads only, so a model axis that does not divide them is refused,
+    naming ROADMAP item 12h."""
     from repro_torch.launch.mesh import named_mesh_layout
     from repro_torch.models.transformer import check_mesh
     cfg, _, _, _ = _both()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12f"):
-        check_mesh(cfg, named_mesh_layout("tiny"))
+    check_mesh(cfg, named_mesh_layout("tiny"))
+    for heads in (dict(n_heads=5, n_kv_heads=5, d_head=16),
+                  dict(n_heads=4, n_kv_heads=1)):
+        with pytest.raises(NotImplementedError,
+                           match="cross-attention.*ROADMAP item 12h"):
+            check_mesh(dataclasses.replace(cfg, **heads), named_mesh_layout("tiny"))
 
 
 # ---------------------------------------------------------------------------

@@ -15,16 +15,22 @@ Tolerances, each with its reason:
   log-sum-exp, the data ranks' gradients);
 * the gathered parameters after 3 steps within 1e-4 absolute: the same
   sums, carried through AdamW at a rate of 1e-3;
-* each recurrent block (mLSTM, sLSTM, SSM) on 2 ranks of one model axis
-  against the same block alone, outputs and gradients within 1e-5
-  absolute: float32 sums in another order in one layer;
+* each recurrent block (mLSTM, sLSTM, SSM), and attention with heads the
+  axis does not divide, on 2 ranks of one model axis against the same
+  block alone, outputs and gradients within 1e-5 absolute: float32 sums in
+  another order in one layer;
 * placements, checkpoints, collective counts and refusals exactly.
 
-The configs are the dense and MoE decoders and the recurrent ones
+The configs are the dense and MoE decoders, the recurrent ones
 (xlstm-1.3b's mLSTM and sLSTM, hymba-1.5b's SSM beside attention), whose
-blocks are tensor-parallel over ``model``.
+blocks are tensor-parallel over ``model``, whisper-base's encoder-decoder
+(its frame embeddings, and phi-3-vision-4.2b's image prefix, drawn with
+numpy from a seed and given to both packages), and the leaves the model
+axis does not divide, which the reference replicates: a vocabulary of 257
+and hymba's attention with 5 heads (every head on every rank).
 """
 
+import dataclasses
 import multiprocessing as mp
 import os
 import re
@@ -57,6 +63,7 @@ from repro_torch.dist import sharding
 from repro_torch.launch import train
 from repro_torch.launch.mesh import named_mesh_layout, run_ranks
 from repro_torch.launch.mesh_runs import run_jobs
+from repro_torch.models.attention import attention, head_split, init_attention
 from repro_torch.models.convert import param_shapes
 from repro_torch.models.ssm import init_ssm, ssm_block
 from repro_torch.models.xlstm import (init_mlstm, init_slstm, mlstm_block,
@@ -66,7 +73,9 @@ from repro_torch.training import zero1_spec_tree
 DENSE = ["gemma-2b", "gemma3-4b", "internlm2-20b", "command-r-35b"]
 # the recurrent (mLSTM, sLSTM) and hybrid (attention beside the SSM) kinds
 RECURRENT = ["xlstm-1.3b", "hymba-1.5b"]
-PORTED = DENSE + ["grok-1-314b", "llama4-maverick-400b-a17b"] + RECURRENT
+# the encoder-decoder and the vision prefix
+FRONTENDS = ["whisper-base", "phi-3-vision-4.2b"]
+PORTED = DENSE + ["grok-1-314b", "llama4-maverick-400b-a17b"] + RECURRENT + FRONTENDS
 STEPS, SEQ = 3, 16
 # the rate the comparisons train at: warmup 1 so steps 2 and 3 move the
 # weights (the default schedule's first 3 steps move them by < 1e-5)
@@ -75,11 +84,25 @@ TCFG = dict(learning_rate=1e-3, warmup_steps=1)
 # data axis does not divide and two microbatches, then the recurrent ones
 CASES = [(a, a, 4, 1) for a in DENSE] + [("gemma-2b batch 3", "gemma-2b", 3, 1),
                                          ("gemma-2b microbatches 2", "gemma-2b", 4, 2)] + \
-    [(a, a, 4, 1) for a in RECURRENT]
+    [(a, a, 4, 1) for a in RECURRENT] + [(a, a, 4, 1) for a in FRONTENDS] + \
+    [("whisper-base vocab 257", "whisper-base", 4, 1),
+     ("hymba-1.5b 5 heads", "hymba-1.5b", 4, 1)]
+# the reduced config's fields a case replaces: a vocabulary the model axis
+# does not divide (replicated), and 5 heads of 16 over 5 KV heads (the
+# axis cuts wq's 80 columns mid-head: every head on every rank)
+OVERRIDES = {"whisper-base vocab 257": {"vocab_size": 257},
+             "hymba-1.5b 5 heads": {"n_heads": 5, "n_kv_heads": 5, "d_head": 16,
+                                    "vocab_size": 257}}
 # the recurrent blocks, each alone on 2 ranks of one model axis:
 # (block, arch whose reduced config it takes, its init)
 BLOCKS = [("mlstm", "xlstm-1.3b", init_mlstm), ("slstm", "xlstm-1.3b", init_slstm),
           ("ssm", "hymba-1.5b", init_ssm)]
+# hymba's attention layer (window 8) with heads the model axis does not
+# divide, alone on 2 ranks of one model axis: (label, the reduced config's
+# fields it replaces)
+ATTENTION_BLOCKS = [("attention 5 heads", {"n_heads": 5, "n_kv_heads": 5, "d_head": 16}),
+                    ("attention 5 heads 1 KV head",
+                     {"n_heads": 5, "n_kv_heads": 1, "d_head": 16})]
 
 
 class FakeMesh:
@@ -102,8 +125,9 @@ class PodMesh:
     shape = {"pod": 2, "data": 4, "model": 4}
 
 
-def _ref_params(arch, seed=0):
-    jcfg = j_reduced(j_get_config(arch))
+def _ref_params(arch, seed=0, label=None):
+    jcfg = dataclasses.replace(j_reduced(j_get_config(arch)),
+                               **OVERRIDES.get(label, {}))
     return jcfg, j_init_params(jax.random.PRNGKey(seed), jcfg)
 
 
@@ -111,9 +135,31 @@ def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
+def _embeds(jcfg, batch):
+    """Each step's image (normal) or frame (normal x 0.05) embeddings of
+    the global batch, float32, from a numpy seed; None for a tokens-only
+    config."""
+    images = jcfg.frontend_len if jcfg.frontend == "vision" else 0
+    frames = jcfg.encoder_len if jcfg.n_encoder_layers else 0
+    if not (images or frames):
+        return None
+    out = []
+    for i in range(STEPS):
+        rng = np.random.default_rng(100 + i)
+        if images:
+            out.append({"img_embeds": rng.normal(
+                size=(batch, images, jcfg.d_model)).astype(np.float32)})
+        else:
+            out.append({"enc_embeds": (rng.normal(
+                size=(batch, frames, jcfg.d_model)) * 0.05).astype(np.float32)})
+    return out
+
+
 def _batch_fn(jcfg, batch):
     pipe = JTokenPipeline(jcfg.vocab_size, batch=batch, seq_len=SEQ, seed=0)
-    return lambda i: {k: jnp.asarray(v) for k, v in pipe.batch_at(i).items()}
+    embeds = _embeds(jcfg, batch)
+    return lambda i: {k: jnp.asarray(v) for k, v in
+                      {**pipe.batch_at(i), **(embeds[i] if embeds else {})}.items()}
 
 
 def _ref_mesh_step(jcfg, microbatches):
@@ -129,9 +175,9 @@ def _ref_mesh_step(jcfg, microbatches):
                    out_shardings=(pshard, None, None)), pshard
 
 
-def _ref_mesh_run(arch, batch, microbatches):
+def _ref_mesh_run(label, arch, batch, microbatches):
     """3 steps of the reference on its tiny mesh: (losses, final params)."""
-    jcfg, jp = _ref_params(arch)
+    jcfg, jp = _ref_params(arch, label=label)
     j_sharding.set_mesh(j_make_mesh_named("tiny"))
     try:
         step, pshard = _ref_mesh_step(jcfg, microbatches)
@@ -145,36 +191,41 @@ def _ref_mesh_run(arch, batch, microbatches):
         j_sharding.reset_mesh()
 
 
-# the reference's mesh runs by (arch, batch, microbatches), made by the
+# the reference's mesh runs by the label of their case, made by the
 # fixture in worker processes (their compiles take most of this file's time)
 _REF = {}
 
 
-def _ref(arch, batch, microbatches):
-    return _REF[(arch, batch, microbatches)]
+def _ref(label):
+    return _REF[label]
 
 
-def _job(arch, batch, microbatches, ckpt_dir, **kw):
-    _, jp = _ref_params(arch)
+def _job(arch, batch, microbatches, ckpt_dir, label=None, **kw):
+    jcfg, jp = _ref_params(arch, label=label)
     job = dict(kind="train", mesh="tiny", arch=arch, reduced=True,
-               steps=STEPS, batch=batch, seq=SEQ, microbatches=microbatches,
-               tcfg=TCFG, params=_np(jp), ckpt_dir=str(ckpt_dir), gather=True)
+               cfg=OVERRIDES.get(label, {}), steps=STEPS, batch=batch, seq=SEQ,
+               microbatches=microbatches, tcfg=TCFG, params=_np(jp),
+               embeds=_embeds(jcfg, batch), ckpt_dir=str(ckpt_dir), gather=True)
     job.update(kw)
     return job
 
 
-def _block_job(block, arch, init):
-    """One recurrent block of the reduced ``arch``, its weights from the
-    port's init (seed 0, a stack of one), x and the output weights from a
-    numpy seed: B = 2, S = 20 (one ragged mLSTM chunk at its default
-    width)."""
+def _block_job(block, arch, init, changes=None):
+    """One recurrent block (or attention layer) of the reduced ``arch``
+    with ``changes`` to its fields, its weights from the port's init (seed
+    0, a stack of one), x and the output weights from a numpy seed: B = 2,
+    S = 20 (one ragged mLSTM chunk at its default width)."""
     import torch
-    cfg = reduced_config(get_config(arch))
+    cfg = dataclasses.replace(reduced_config(get_config(arch)), **(changes or {}))
     layer = init(torch.Generator().manual_seed(0), cfg, torch.float32, stacked=1)
     rng = np.random.default_rng(1)
     x, dout = rng.normal(size=(2, 2, 20, cfg.d_model)).astype(np.float32)
-    return dict(kind="block", arch=arch, reduced=True, block=block,
+    return dict(kind="block", arch=arch, reduced=True, cfg=changes or {}, block=block,
                 layer={k: v.numpy() for k, v in layer.items()}, x=x, dout=dout)
+
+
+def _attention_job(changes):
+    return _block_job("attention", "hymba-1.5b", init_attention, changes)
 
 
 CLI_FLAGS = ["--arch", "gemma-2b", "--reduced", "--mesh", "tiny", "--steps", "3",
@@ -225,12 +276,16 @@ def mesh_runs(tmp_path_factory):
                                     flags=_recurrent_flags(arch))
         clis[f"reference {arch}"] = _cli("repro.launch.train", root / f"cli_j_{arch}",
                                          flags=_recurrent_flags(arch))
+    for arch in FRONTENDS:
+        clis[f"port {arch}"] = _cli("repro_torch.launch.train", root / f"cli_t_{arch}",
+                                    "--device", "cpu", "--dist-backend", "gloo",
+                                    flags=["--arch", arch, *CLI_FLAGS[2:]])
     # the reference's mesh runs, meanwhile, in 3 processes (spawned: they
     # inherit the 4 host devices' flag and import this module)
     pool = ProcessPoolExecutor(3, mp_context=mp.get_context("spawn"))
     threads = ThreadPoolExecutor(2)
-    keys = [(arch, b, mb) for _, arch, b, mb in CASES]
-    refs = [pool.submit(_ref_mesh_run, *k) for k in keys]
+    keys = [label for label, _, _, _ in CASES]
+    refs = [pool.submit(_ref_mesh_run, *case) for case in CASES]
     try:
         # a reference checkpoint at step 2, written without a mesh, which a
         # mesh job restores
@@ -241,8 +296,13 @@ def mesh_runs(tmp_path_factory):
             jax.jit(j_make_train_step(JModel(jcfg), jtcfg)), jp,
             j_adamw_init(jp), _batch_fn(jcfg, 4))
         jrunner.run(2)
-        jobs = {label: _job(arch, b, mb, root / label.replace(" ", "_"), eval=True)
+        jobs = {label: _job(arch, b, mb, root / label.replace(" ", "_"), label=label,
+                            eval=True)
                 for label, arch, b, mb in CASES}
+        # hymba's 5 heads under remat="full", as the card trains it (the
+        # collectives of its recompute)
+        jobs[REMAT_LABEL] = _job("hymba-1.5b", 4, 1, root / "remat",
+                                 label="hymba-1.5b 5 heads", remat="full")
         whole = dict(TCFG, total_steps=STEPS)   # the 3-step schedule
         # 2 steps with a checkpoint at 2, then step 3 in memory
         jobs["ckpt"] = _job("gemma-2b", 4, 1, root / "torch", steps=2,
@@ -264,7 +324,9 @@ def mesh_runs(tmp_path_factory):
             "gemma-2b", 4, 1, root / "fail", ckpt_every=1, fail=(1, 1)))
         # each recurrent block alone on 2 ranks of one model axis, meanwhile
         blocks = threads.submit(run_ranks, run_jobs, 2, backend="gloo", device="cpu",
-                                args=([_block_job(*b) for b in BLOCKS],), timeout=300)
+                                args=([_block_job(*b) for b in BLOCKS] +
+                                      [_attention_job(c) for _, c in ATTENTION_BLOCKS],),
+                                timeout=300)
         per_rank = run_ranks(run_jobs, 4, backend="gloo", device="cpu",
                              args=([jobs[k] for k in labels],), timeout=300)
         _REF.update(zip(keys, (f.result() for f in refs)))
@@ -279,7 +341,8 @@ def mesh_runs(tmp_path_factory):
         threads.shutdown()
     results = {k: [r[i] for r in per_rank] for i, k in enumerate(labels)}
     results["one rank fails"] = failed
-    for i, (name, _, _) in enumerate(BLOCKS):
+    for i, name in enumerate([b[0] for b in BLOCKS] +
+                             [label for label, _ in ATTENTION_BLOCKS]):
         results[f"block {name}"] = [r[i] for r in per_block]
     drivers = {}
     for name, proc in clis.items():
@@ -457,7 +520,7 @@ def test_shard_and_gather_trees_round_trip_without_ranks():
 def test_mesh_training_matches_the_references_mesh(mesh_runs, label, arch, batch,
                                                    microbatches):
     _, results, _ = mesh_runs
-    want_losses, want_params = _ref(arch, batch, microbatches)
+    want_losses, want_params = _ref(label)
     per_rank = results[label]
     for res in per_rank:
         assert "error" not in res, res
@@ -480,7 +543,7 @@ def test_the_eval_step_on_a_mesh_gives_the_global_loss(mesh_runs, label, arch,
     global loss of the whole batch: the reference mesh's first step's loss
     at the same weights (a replicated batch and two microbatches too)."""
     _, results, _ = mesh_runs
-    want_losses, _ = _ref(arch, batch, microbatches)
+    want_losses, _ = _ref(label)
     for res in results[label]:
         np.testing.assert_allclose(res["eval_loss"], want_losses[0], rtol=1e-5)
 
@@ -609,6 +672,109 @@ def test_recurrent_block_on_a_model_axis_equals_the_block_alone(mesh_runs, block
     assert split == {k for k in want if not k.endswith(("conv", "bc_proj", "a_log"))}
 
 
+@pytest.mark.parametrize("label,changes", ATTENTION_BLOCKS)
+def test_attention_with_heads_the_axis_does_not_divide_equals_the_layer_alone(
+        mesh_runs, label, changes):
+    """hymba's attention layer (window 8) with 5 heads of 16 on 2 ranks of
+    one model axis, whose placement cuts wq's 80 columns at 40, mid-head
+    (the reference's): each rank's q, k, v column products are gathered in
+    one all-gather, every head runs on every rank, and each rank takes the
+    output columns of its rows of wo before the all-reduce.  Against the
+    layer alone: the output, the input's gradient and every weight's
+    gradient within 1e-5 absolute; one all-gather and the output's
+    all-reduce forward, one reduce-scatter and the input's all-reduce
+    backward."""
+    import torch
+    _, results, _ = mesh_runs
+    job = _attention_job(changes)
+    cfg = dataclasses.replace(reduced_config(get_config("hymba-1.5b")), **changes)
+    assert head_split(cfg, 2) == "all"
+    p = {k: torch.from_numpy(v).requires_grad_() for k, v in job["layer"].items()}
+    x = torch.from_numpy(job["x"]).requires_grad_()
+    out, _ = attention({k[4:]: v[0] for k, v in p.items()}, x, cfg, window=cfg.window)
+    *gp, gx = torch.autograd.grad((out * torch.from_numpy(job["dout"])).sum(),
+                                  list(p.values()) + [x])
+    want = dict(zip(p, (g.numpy() for g in gp)))
+    per_rank = results[f"block {label}"]
+    assert sorted(r["lead"] for r in per_rank) == [False, True]
+    for res in per_rank:
+        assert "error" not in res, res
+        np.testing.assert_allclose(res["out"], out.detach().numpy(), rtol=0, atol=1e-5)
+        np.testing.assert_allclose(res["dx"], gx.numpy(), rtol=0, atol=1e-5)
+        assert res["collectives"] == {"model": {
+            "all_reduce": 2, "all_gather": 1, "reduce_scatter": 1}}
+        assert all(any(spec) for spec in res["specs"].values())
+        if res["lead"]:
+            for k in want:
+                np.testing.assert_allclose(res["grads"][k], want[k], rtol=0, atol=1e-5,
+                                           err_msg=k)
+
+
+# the collectives over ``model`` a layer of each kind makes per microbatch
+# when the axis gives each rank its own heads: (all-reduces forward,
+# all-reduces backward, gathers; a gather is one all_gather forward and
+# one reduce_scatter backward).  attn, local, enc: the attention's and the
+# MLP's outputs forward, their inputs' gradients backward; xdec: the
+# cross-attention's two on top; the hybrid's, mLSTM's and sLSTM's as
+# RECURRENT_LAYER_COLLECTIVES counts them
+LAYER_COLLECTIVES = {"attn": (2, 2, 0), "local": (2, 2, 0), "enc": (2, 2, 0),
+                     "xdec": (3, 3, 0), "hybrid": (3, 6, 1), "mlstm": (1, 1, 3),
+                     "slstm": (1, 1, 1)}
+
+
+def _step_counts(cfg, n_leaves, remat="none", chunks=1):
+    """The collectives of one step on a rank of the tiny mesh (one
+    microbatch, no MoE): on ``model`` each layer's (LAYER_COLLECTIVES, and
+    one more gather of q, k, v when the axis does not divide the heads:
+    ``head_split``), under ``remat="full"`` each decoder layer's forward
+    ones again but the last (the recompute stops after the last tensor the
+    backward reads, before the MLP's all-reduce), the sum of the encoder
+    output's gradient, the vocab-parallel embedding's and loss's (none for
+    a replicated vocabulary), and the global norm's; on ``data`` the mask
+    count, the loss and every leaf."""
+    from repro_torch.models import stages_meta
+    reduces = gathers = again = 0
+    # the gather of q, k, v, or of the one KV head (MQA), a layer
+    heads = int(head_split(cfg, 2) != "heads")
+    enc = [("enc", cfg.n_encoder_layers)] if cfg.n_encoder_layers else []
+    for kind, count in stages_meta(cfg) + enc:
+        f, b, g = LAYER_COLLECTIVES[kind.split("+")[0]]
+        g += heads if kind not in ("mlstm", "slstm") else 0
+        reduces, gathers = reduces + count * (f + b), gathers + count * g
+        if remat == "full" and kind != "enc":
+            reduces, again = reduces + count * (f - 1), again + count * g
+    split_vocab = cfg.vocab_size % 2 == 0
+    model = {"all_reduce": reduces + len(enc) + (2 + chunks if split_vocab else 0) + 1}
+    if split_vocab:
+        model["all_reduce_max"] = chunks
+    if gathers:
+        model.update(all_gather=gathers + again, reduce_scatter=gathers)
+    return {"data": {"all_reduce": 2 + n_leaves}, "model": model}
+
+
+REMAT_LABEL = "hymba-1.5b 5 heads remat full"
+
+
+@pytest.mark.parametrize("label", FRONTENDS + list(OVERRIDES) + [REMAT_LABEL])
+def test_frontend_and_replicated_step_collectives_are_the_declared_count(mesh_runs,
+                                                                         label):
+    """whisper-base (its encoder, cross-attention and the sum of the
+    encoder output's gradient), phi-3-vision-4.2b, a replicated vocabulary
+    (no collective for the embedding or the loss) and hymba's 5 heads (one
+    gather a layer; under remat="full" the recompute's too): every step of
+    every rank makes the declared count."""
+    jobs, results, _ = mesh_runs
+    job = jobs[label]
+    cfg = dataclasses.replace(reduced_config(get_config(job["arch"])), **job["cfg"])
+    want = _step_counts(cfg, len(jax.tree.leaves(job["params"])),
+                        remat=job.get("remat", "none"))
+    for res in results[label]:
+        for rec in res["records"]:
+            got = {a: {op: c["calls"] for op, c in ops.items()}
+                   for a, ops in rec["collectives"].items()}
+            assert got == want
+
+
 # ---------------------------------------------------------------------------
 # checkpoints, refusals, the driver
 # ---------------------------------------------------------------------------
@@ -626,7 +792,7 @@ def test_a_mesh_checkpoint_restores_in_the_reference_without_a_mesh(mesh_runs):
     assert ref.maybe_restore() == 2
     ref.run(1)
     np.testing.assert_allclose(ref.metrics_log[0]["loss"], lead["losses"][2], rtol=1e-5)
-    want, _ = _ref("gemma-2b", 4, 1)
+    want, _ = _ref("gemma-2b")
     np.testing.assert_allclose(lead["losses"], want, rtol=1e-5)
 
 
@@ -634,7 +800,7 @@ def test_the_references_checkpoint_restores_on_the_mesh(mesh_runs):
     """A checkpoint the reference wrote without a mesh restores on the mesh
     (each rank its blocks) and step 3 follows as on the reference's mesh."""
     _, results, _ = mesh_runs
-    want_losses, want_params = _ref("gemma-2b", 4, 1)
+    want_losses, want_params = _ref("gemma-2b")
     for res in results["restore"]:
         assert res["resumed"] == 2 and res["final"] == 3
         np.testing.assert_allclose(res["losses"], want_losses[2:], rtol=1e-5)
@@ -676,6 +842,19 @@ def test_launch_train_mesh_trains_the_recurrent_kinds(mesh_runs, arch):
     assert _masked(drivers[f"port {arch}"][1]) == \
         _masked(drivers[f"reference {arch}"][1]) == [
             f"[train] {arch} steps 0->3 in Ts; loss A -> B"]
+
+
+@pytest.mark.parametrize("arch", FRONTENDS)
+def test_launch_train_mesh_trains_the_frontends(mesh_runs, arch):
+    """``launch.train --arch whisper-base|phi-3-vision-4.2b --reduced --mesh
+    tiny`` on 4 gloo ranks trains with each step's frame or image
+    embeddings (``launch.train.step_embeds``) and prints the ``[train]``
+    line (the reference's launcher feeds tokens only, so there is no line
+    of its to compare)."""
+    _, _, drivers = mesh_runs
+    rc, out, err = drivers[f"port {arch}"]
+    assert rc == 0, err[-2000:]
+    assert _masked(out) == [f"[train] {arch} steps 0->3 in Ts; loss A -> B"]
 
 
 def test_launch_train_mesh_prints_the_references_line(mesh_runs, tmp_path):

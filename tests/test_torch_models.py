@@ -92,10 +92,13 @@ def test_registry_lists_only_ported_configs_and_raises_on_others():
     dict(family="ssm"), dict(n_encoder_layers=2, encoder_len=16)])
 def test_unported_layer_kinds_raise(changes):
     """The kinds beyond attention's, on gemma-2b's reduced decoder: the
-    recurrent and hybrid kinds (mLSTM + sLSTM, hybrid, mLSTM alone) build
-    on the tiny mesh (their blocks are tensor-parallel; before, they
-    raised there); the encoder-decoder's ``enc`` and ``xdec`` still raise
-    there, naming ROADMAP item 12f.  On one device each builds and runs a
+    recurrent and hybrid kinds (mLSTM + sLSTM, hybrid, mLSTM alone) and the
+    encoder-decoder's ``enc`` and ``xdec`` build on the tiny mesh (their
+    blocks, the encoder and the cross-attention are tensor-parallel;
+    before, they raised there), the encoder-decoder once its KV heads split
+    over the model axis (gemma-2b's one KV head is refused there, naming
+    ROADMAP item 12h: cross-attention takes each rank's own KV heads only).
+    On one device each builds and runs a
     forward, with the reference's layer pattern and tree, and an ``xdec``
     stack reads the encoder's cross K/V (``Model.encode``,
     ``Model.cross_kv``) and refuses to run without them."""
@@ -105,8 +108,12 @@ def test_unported_layer_kinds_raise(changes):
     assert {k for k, _ in stages_meta(cfg)} <= {"mlstm", "slstm", "hybrid", "xdec"}
     assert stages_meta(cfg) == j_stages_meta(jcfg)
     if cfg.n_encoder_layers:
-        with pytest.raises(NotImplementedError, match="ROADMAP item 12f"):
+        with pytest.raises(NotImplementedError, match="cross-attention.*ROADMAP item 12h"):
             Model(cfg, mesh=named_mesh_layout("tiny"))
+        specs = Model(dataclasses.replace(cfg, n_kv_heads=4),
+                      mesh=named_mesh_layout("tiny")).specs
+        assert specs["enc_pos"] == (None, None)
+        assert specs["stages"]["s0"]["stk_xwk"] == (None, None, "model")
     else:
         assert Model(cfg, mesh=named_mesh_layout("tiny")).specs is not None
     model = Model(cfg)
@@ -148,16 +155,16 @@ def test_check_mesh_refuses_the_recurrent_and_hybrid_kinds(arch, changes):
 
 
 @pytest.mark.parametrize("arch,changes,match", [
-    ("hymba-1.5b", {}, "25 heads"),
+    ("hymba-1.5b", dict(d_ff=5505), "d_ff 5505"),
     ("xlstm-1.3b", dict(d_model=2050), "the mLSTM head width 1025"),
     ("hymba-1.5b", dict(n_heads=24, n_kv_heads=6, d_model=1601, ssm_expand=1,
                         vocab_size=32000), "the SSM's 1601 channels")])
 def test_check_mesh_refuses_a_model_axis_the_heads_or_channels_do_not_split(
         arch, changes, match):
-    """hymba-1.5b at full width: its 25 heads (and its vocabulary of
-    32,001) do not split over the tiny mesh's model axis of 2, so it stays
-    refused, naming ROADMAP item 12h; so does a head width or an SSM width
-    the axis does not divide."""
+    """A d_ff, an mLSTM head width or an SSM width the tiny mesh's model
+    axis of 2 does not divide stays refused, naming ROADMAP item 12h (their
+    replicated fallbacks are not ported).  Heads and a vocabulary it does
+    not divide are taken (hymba-1.5b at full width, next test)."""
     from repro_torch.launch.mesh import named_mesh_layout
     from repro_torch.models.transformer import check_mesh
     cfg = dataclasses.replace(get_config(arch), **changes)
@@ -165,6 +172,28 @@ def test_check_mesh_refuses_a_model_axis_the_heads_or_channels_do_not_split(
         check_mesh(cfg, named_mesh_layout("tiny"))
     with pytest.raises(NotImplementedError, match="ROADMAP item 12h"):
         Model(cfg, mesh=named_mesh_layout("tiny"))
+
+
+@pytest.mark.parametrize("arch,replicated", [
+    ("whisper-base", ["embed"]), ("phi-3-vision-4.2b", []),
+    ("hymba-1.5b", ["embed"])])
+def test_full_width_configs_build_on_the_tiny_mesh(arch, replicated):
+    """whisper-base, phi-3-vision-4.2b and hymba-1.5b at full width build on
+    the tiny mesh: the leaves the model axis of 2 does not divide are
+    replicated, as the reference places them (whisper's vocabulary of
+    51,865, hymba's 32,001), and hymba's 25 heads run whole on every rank
+    (wq's 1,600 columns cut at 800, mid-head)."""
+    from repro_torch.launch.mesh import named_mesh_layout
+    from repro_torch.models.attention import head_split
+    from repro_torch.models.transformer import check_mesh
+    cfg = get_config(arch)
+    check_mesh(cfg, named_mesh_layout("tiny"))
+    specs = Model(cfg, mesh=named_mesh_layout("tiny")).specs
+    for name in ("embed", "lm_head"):
+        if name in specs:
+            assert (specs[name] == (None, None)) == (name in replicated), name
+    assert specs["stages"]["s0"]["stk_wq"] == (None, None, "model")
+    assert head_split(cfg, 2) == ("all" if arch == "hymba-1.5b" else "heads")
 
 
 @pytest.mark.parametrize("arch", ["gemma3-4b", "hymba-1.5b", "xlstm-1.3b"])

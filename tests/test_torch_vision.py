@@ -148,12 +148,33 @@ def test_prefill_and_decode_take_no_image_and_match_the_reference():
 
 
 def test_the_image_prefix_on_a_mesh_raises():
-    """The vision prefix on a (data, model) mesh is not ported: the loss
-    refuses it by name before any collective."""
-    from repro_torch.launch.mesh import named_mesh_layout
-    cfg, _, params, _ = _both()
-    toks, img = _batch(cfg, 2, 24, seed=1)
-    model = Model(cfg, mesh=named_mesh_layout("tiny"))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12g"):
-        model.loss(params, {"tokens": torch.from_numpy(toks),
-                            "img_embeds": torch.from_numpy(img)})
+    """The vision prefix trains on the tiny mesh
+    (``tests/test_torch_mesh_training.py`` holds it against the reference's
+    mesh): each data rank's block of the batch holds its rows' images
+    beside its rows' tokens (``batch_block``, a stand-in mesh of
+    coordinates), and a batch the data axis does not divide is held whole,
+    images too, marked ``whole_batch``."""
+    from repro_torch.training.fault_tolerance import batch_block
+    cfg, _, _, _ = _both()
+    assert Model(cfg).cfg.frontend == "vision"
+
+    class Stub:
+        mesh_dim_names = ("data", "model")
+
+        def __init__(self, d):
+            self.d = d
+
+        def size(self, i):
+            return 2
+
+        def get_local_rank(self, axis):
+            return self.d if axis == "data" else 0
+
+    for rows in (4, 3):
+        toks, img = _batch(cfg, rows, 24, seed=1)
+        for d in range(2):
+            got = batch_block({"tokens": toks, "img_embeds": img}, "cpu", Stub(d))
+            lo, hi = (2 * d, 2 * d + 2) if rows == 4 else (0, rows)
+            assert np.array_equal(got["tokens"].numpy(), toks[lo:hi])
+            assert np.array_equal(got["img_embeds"].numpy(), img[lo:hi])
+            assert got.get("whole_batch", False) == (rows == 3)
