@@ -55,6 +55,17 @@ paths end to end:
   and ``backend="auto"``, and the chess stream with ``autotune=True``, on
   the pinned checksums with the launch gates (the tuner's own launches
   counted apart);
+* the mining path's steady-state guard (``repro_torch.staticcheck``,
+  ``run_staticcheck``): the port's lint (RS001-RS005, every RS005
+  suppression a declared sync); a warm ``mine()`` level by level and 5
+  warm stream slides on the fused backend, ``compact=True`` (K2, K4) and
+  ``compact=False`` (K1, K4), every host sync counted by torch's
+  sync-debug mode equal to its declared ``SYNC_BUDGET`` entry, no kernel
+  build and no new allocator segment after warm-up, every padding on the
+  bucket ladder; the shape fixture tripping SH001, SH002 and SH003; the
+  collective contracts of every backend and of the ring write on 4 gloo
+  ranks sharing the card (K3 on the word-sharded ranks), each of the four
+  contract fixtures rejected;
 * LM serving of gemma3-4b at full width and depth (bf16, random weights
   from a seeded generator): ``ServingEngine.serve`` of 8 requests, twice,
   with the flash- and decode-attention kernels' launch counts and
@@ -62,7 +73,10 @@ paths end to end:
   layers, and the model through the kernels against the same model with
   their plain versions in their place, in float32 and in bf16;
 * the same traffic served, the same way, by internlm2-20b at full width and
-  depth (48 layers, G = 6, D = 128), grok-1 at full width cut to 4 of its
+  depth (48 layers, G = 6, D = 128), command-r-35b at full width and depth
+  (40 layers, a parallel block, layernorm, G = 8, D = 128, a tied
+  vocabulary of 256,000; 60.6 GB of bf16 weights drawn a layer at a time,
+  the peak memory printed), grok-1 at full width cut to 4 of its
   64 layers (a mixture of top-2 of 8 experts, attention soft-capped at 30
   in both kernels) and llama4-maverick at full width cut to 2 of its 48
   (one dense layer, one MoE of top-1 of 128 experts, greedy placement,
@@ -342,8 +356,9 @@ CAP_Q_SCALE = 16.0
 # it: prefill and decode drop other tokens at their own capacities, and a
 # bf16 rounding that flips one router choice moves which tokens the
 # capacity drops)
-SERVED_ARCHS = ("internlm2-20b", "grok-1-314b", "llama4-maverick-400b-a17b",
-                "hymba-1.5b", "xlstm-1.3b", "phi-3-vision-4.2b")
+SERVED_ARCHS = ("internlm2-20b", "command-r-35b", "grok-1-314b",
+                "llama4-maverick-400b-a17b", "hymba-1.5b", "xlstm-1.3b",
+                "phi-3-vision-4.2b")
 DEPTH_CUT = 2
 CUT_LAYERS = {"xlstm-1.3b": 8}
 CUT_PROMPT = 512
@@ -2088,6 +2103,36 @@ def check_stream_pairs(recorded):
               f"rows, {outside_p} operands outside")
 
 
+def run_staticcheck():
+    """The mining path's guard on the card: the gate of
+    ``repro_torch.staticcheck`` (its ``full_gate``), which prints each
+    layer's lines (the audits' declared and counted host syncs per level
+    and per slide) and returns 1 on any finding or rotted fixture.  Layer 1:
+    the port's lint and its fixtures.  Layer 3: a warm ``mine()`` and 5
+    warm stream slides on the fused backend, with and without compaction,
+    every host sync at its declared budget, no new allocator segment, no
+    build, the paddings on the ladder; the shape fixture giving SH001,
+    SH002 and SH003.  Layer 2: the collective contracts of every backend
+    and the ring write on 4 gloo ranks sharing the card, and the four
+    contract fixtures.  The audited runs must have launched K2, K1 (without
+    compaction) and K4 in this process."""
+    from repro_torch import kernels
+    from repro_torch.staticcheck.__main__ import full_gate
+    kernels.reset_launch_counts()
+    report = os.path.join(tempfile.mkdtemp(prefix="chip_smoke-static-"), "findings.json")
+    require(full_gate(report, "cuda") == 0,
+            "the staticcheck gate found violations (the static: lines above)")
+    counts = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    require(all(counts[k] > 0 for k in ("fused_intersect_compact", "fused_intersect",
+                                        "trimatrix")),
+            f"the staticcheck audits did not run the mining kernels: {counts}")
+    print(f"staticcheck: gate clean on the card; the audits launched "
+          f"fused_intersect_compact={counts['fused_intersect_compact']} "
+          f"fused_intersect={counts['fused_intersect']} "
+          f"trimatrix={counts['trimatrix']}")
+
+
 def bound(nbytes, products):
     """Least time in ms for work that moves ``nbytes`` and holds ``products``
     one-bit multiply-adds, and which of the two bounds it.  The fastest
@@ -2713,9 +2758,10 @@ def _init_served(arch):
     width, bf16, random weights from a generator seeded 0 on the card,
     its parameter count held to the config's tree (``param_shapes``) and,
     but for hymba and whisper, to the config's analytic count (which
-    leaves out the final norm's scale and, of hymba's SSM, the conv taps
-    and most of ``a_log``, of whisper ``enc_pos``, the encoder's final
-    norm and the decoder's ``normx``: it is printed there, not held)."""
+    leaves out the final norm and every layernorm's bias and, of hymba's
+    SSM, the conv taps and most of ``a_log``, of whisper ``enc_pos``, the
+    encoder's final norm and the decoder's ``normx``: it is printed there,
+    not held)."""
     import math
     import torch
     from repro_torch.launch.serve_profile import served_config
@@ -2724,6 +2770,7 @@ def _init_served(arch):
     cfg = served_config(arch)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, gen, "cuda")
     torch.cuda.synchronize()
@@ -2731,11 +2778,14 @@ def _init_served(arch):
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     print(f"serve init {cfg.name} ({cfg.n_layers} layers): {n_params} parameters "
           f"({cfg.dtype}, {n_bytes / 1e9:.2f} GB; config param_count "
-          f"{cfg.param_count()}) in {time.perf_counter() - t0:.2f}s")
+          f"{cfg.param_count()}) in {time.perf_counter() - t0:.2f}s, "
+          f"peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.3f}")
     require(n_params == sum(math.prod(t) for t in _leaves(param_shapes(cfg))),
             f"{cfg.name}: parameter count differs from the config's tree")
+    # the final norm, and with layernorm its bias and the layers' 2 biases
+    norms = cfg.d_model * (2 * cfg.n_layers + 2 if cfg.norm == "layernorm" else 1)
     require(cfg.hybrid or cfg.n_encoder_layers or
-            n_params == cfg.param_count() + cfg.d_model,
+            n_params == cfg.param_count() + norms,
             f"{cfg.name}: parameter count differs from the config's analytic count")
     return cfg, params
 
@@ -4692,6 +4742,7 @@ def time_attention(counts, model_counts):
                          bound_ms=bms, bound_by=by,
                          launches=model_counts[arch]["decode_attention"] if arch else 0))
     rows += _hymba_attention_rows(model_counts["hymba-1.5b"], timed)
+    rows += _command_r_attention_rows(model_counts["command-r-35b"], timed)
     rows += _slice_attention_rows(model_counts["phi-3-vision-4.2b"],
                                   model_counts["whisper-base"], timed)
     for row in rows:
@@ -4798,6 +4849,71 @@ def _hymba_attention_rows(counts, timed):
                      replaces="src/repro/kernels/decode_attention/decode_attention.py:98",
                      shape=f"B={b} KV={kv} G={g} D={d} S={smax} len={n} bf16 "
                            f"window={window} (hymba-1.5b)",
+                     **timed(fn, ref, lib, reps=50), bound_ms=bms, bound_by=by,
+                     launches=counts["decode_attention"], also_listed=True))
+    return rows
+
+
+def _command_r_attention_rows(counts, timed):
+    """K6 at command-r-35b's prefill layer (B=2 H=64 Hkv=8 S=2,048 D=128,
+    causal, G = 8) and K7 at its decode step (B=2 KV=8 G=8 D=128, a
+    2,080-row cache at length 2,079), each held to its float32 plain
+    version first, then beside its bound, its plain version and SDPA; both
+    go into the kernels line.  ``counts``: command-r's first serve's
+    launches; ``timed``: time_attention's timer."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (decode_attention_ref,
+                                                      grouped_decode_attention)
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     multi_head_attention)
+    b, h, hkv, s, d = 2, 64, 8, 2048, 128
+    q, k, v = attn_inputs(b, h, hkv, s, d, torch.bfloat16, seed=11, model_layout=True)
+    kept = s * (s + 1) // 2
+    fn = lambda: multi_head_attention(q, k, v, causal=True, window=0)
+    ref = lambda: attention_ref(q, k, v, causal=True)
+    lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+    compare_attention("flash_attention", fn(),
+                      attention_ref(q.float(), k.float(), v.float(), causal=True),
+                      "flash_attention at command-r's layer")
+    err = float((lib().float() - fn().float()).abs().max())
+    require(err <= SDPA_TOL, f"SDPA yardstick disagrees with flash_attention at "
+            f"command-r's layer: {err:.3e}")
+    bms, by = bound_attn(2 * (q.numel() + k.numel() + v.numel() + q.numel()),
+                         4 * d * kept * b * h)
+    rows = [dict(name="flash_attention", route="cuda",
+                 source="src/repro_torch/csrc/flash_attention.cu",
+                 replaces="src/repro/kernels/flash_attention/flash_attention.py:110",
+                 shape=f"B={b} H={h} Hkv={hkv} S={s} D={d} bf16 causal window=0 "
+                       "(command-r-35b)",
+                 **timed(fn, ref, lib, plain_reps=3), bound_ms=bms, bound_by=by,
+                 launches=counts["flash_attention.wgmma_bf16"], also_listed=True)]
+    del q, k, v
+    kv, g, smax, n = 8, 8, 2080, 2079
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    qd = torch.randn((b, kv, g, d), generator=gen, device="cuda").to(torch.bfloat16)
+    kc, vc = torch.randn((2, b, smax, kv, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    length = torch.full((b,), n, dtype=torch.int32, device="cuda")
+    fn = lambda: grouped_decode_attention(qd, kc, vc, length)
+    ref = lambda: decode_attention_ref(qd, kc, vc, length)
+    lib = lambda: F.scaled_dot_product_attention(
+        qd.reshape(b, kv * g, 1, d), kc[:, :n].transpose(1, 2),
+        vc[:, :n].transpose(1, 2), enable_gqa=True)
+    compare_attention("decode_attention", fn(),
+                      decode_attention_ref(qd.float(), kc.float(), vc.float(), length),
+                      "decode_attention at command-r's decode step")
+    err = float((lib().reshape(b, kv, g, d).float() - fn().float()).abs().max())
+    require(err <= SDPA_TOL, f"SDPA yardstick disagrees with decode_attention at "
+            f"command-r's decode step: {err:.3e}")
+    bms, by = bound_attn(2 * (2 * qd.numel() + 2 * b * n * kv * d) + 4 * b,
+                         4 * d * g * kv * b * n)
+    rows.append(dict(name="decode_attention", route="cuda",
+                     source="src/repro_torch/csrc/decode_attention.cu",
+                     replaces="src/repro/kernels/decode_attention/decode_attention.py:98",
+                     shape=f"B={b} KV={kv} G={g} D={d} S={smax} len={n} bf16 "
+                           "window=0 (command-r-35b)",
                      **timed(fn, ref, lib, reps=50), bound_ms=bms, bound_by=by,
                      launches=counts["decode_attention"], also_listed=True))
     return rows
@@ -4946,6 +5062,7 @@ def main() -> int:
     phase(run_autotune, launches, empty_cache)
     phase(check_stream_pairs, stream_rec)
     miner = phase(check_miner_pairs)
+    phase(run_staticcheck)
     phase(check_flash_attention)
     phase(check_decode_attention)
     phase(check_slice_attention)
@@ -4983,12 +5100,12 @@ def main() -> int:
                                         r.get("also_listed"))]
     # one row per kernel at its report shape, K6's capped backward at
     # grok's layer, K6 and
-    # K7 at hymba's prefill and decode shapes, K6 at phi3's prefill,
+    # K7 at hymba's and command-r's prefill and decode shapes, K6 at phi3's prefill,
     # whisper's encoder and its cross rows, K7 at phi3's decode and over
     # whisper's cross rows, K6's backward at whisper's training cross and at
     # hymba's training layer, K6 forward and backward at the full-width mesh
     # jobs' rank shapes
-    require(len(kernels_line) == len(REPORT_SHAPE) + 10 + 2 * len(MESH_RANKS),
+    require(len(kernels_line) == len(REPORT_SHAPE) + 12 + 2 * len(MESH_RANKS),
             "a kernel has no timing row")
     print(f"chip_smoke wall_s={time.perf_counter() - t_start:.1f} (build included)")
     print(json.dumps({"kernels": kernels_line}))

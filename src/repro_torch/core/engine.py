@@ -440,6 +440,7 @@ class Engine:
         qb, block = self.buffers.fill(left, right, sup_left)
         self._record_padding(q, qb)
         self._maybe_tune(bitmaps, qb, mode)
+        # staticcheck: sync=engine.pairs_upload
         lrs = torch.from_numpy(block).to(bitmaps.device)
         if self.compact:
             out, sup, mask_dev, _ = self._intersect_compact(
@@ -448,6 +449,8 @@ class Engine:
         else:
             out, sup, mask_dev = self._intersect(
                 bitmaps, lrs[0], lrs[1], lrs[2], int(min_sup), mode=mode)
+        # the level's one read: the host builds the next level's pairs from it
+        # staticcheck: disable=RS005 sync=engine.mask_supports
         host = torch.stack((mask_dev[:q], sup[:q])).cpu().numpy()
         mask = host[0].astype(bool)
         return LevelResult(mask=mask,
@@ -477,6 +480,7 @@ class Engine:
         n = bucket_size(max(int(sel.size), 1), self.compact_min) if rows is None else rows
         idx = np.zeros(n, np.int64)
         idx[:sel.size] = sel
+        # staticcheck: sync=engine.gather_upload
         return self._take(block, torch.from_numpy(idx).to(block.device))
 
     def _survivors(self, out: torch.Tensor, mask: np.ndarray) -> torch.Tensor:
@@ -651,6 +655,7 @@ class _MeshEngine(Engine):
         idx = np.zeros(sb, np.int64)
         idx[:sel.size] = dev * smax + pos[dev, slot]
         surv = self._take(rows.reshape(d * smax, -1),
+                          # staticcheck: sync=mesh.survivor_upload
                           torch.from_numpy(idx).to(block.device))
         return LevelResult(mask=mask, supports=supports, bitmaps=surv)
 
@@ -689,6 +694,7 @@ class ShardedEngine(_MeshEngine):
         w = int(bitmaps.shape[1])
         lanes = self._lanes(w)
         self._maybe_tune(bitmaps, qmax, mode)
+        # staticcheck: sync=sharded.pairs_upload
         lrs = torch.from_numpy(np.stack((lpad[r], rpad[r], spad[r]))).to(bitmaps.device)
         if self.compact:
             out, sup, _, _ = self._compact_block(bitmaps, lrs[0], lrs[1], lrs[2],
@@ -697,6 +703,8 @@ class ShardedEngine(_MeshEngine):
         else:
             out, sup, _ = self._intersect(bitmaps, lrs[0], lrs[1], lrs[2],
                                           int(min_sup), mode=mode)
+        # every rank's supports, read once: the host assembles the level
+        # staticcheck: disable=RS005 sync=sharded.supports_gather
         sups = coll.all_gather(sup, self.mesh, self.axis).cpu().numpy()
         out = self._rank_survivors(out, sups[r], int(counts[r]), min_sup)
         return self._assemble(sups, out, counts, slot_of_pair, min_sup, self.axis)
@@ -810,8 +818,11 @@ class TidShardedEngine(_WordShardedFrontierMixin, _MeshEngine):
         self.n_intersections += q
         qb, block = self.buffers.fill(left, right, sup_left)
         self._record_padding(q, qb)
+        # staticcheck: sync=tidsharded.pairs_upload
         lrs = torch.from_numpy(block).to(bitmaps.device)
         out, sup, mask = self._reduced_survivors(bitmaps, lrs, q, mode, min_sup)
+        # the level's one read after the all-reduce, as on one device
+        # staticcheck: disable=RS005 sync=tidsharded.mask_supports
         host = torch.stack((mask[:q], sup[:q])).cpu().numpy()
         m = host[0].astype(bool)
         return LevelResult(mask=m, supports=host[1][m].astype(np.int64),
@@ -871,9 +882,12 @@ class GridShardedEngine(_WordShardedFrontierMixin, _MeshEngine):
         self.n_intersections += q
         self.device_pair_counts.append(counts)
         self._record_padding(q, d * qmax)
+        # staticcheck: sync=grid.pairs_upload
         lrs = torch.from_numpy(np.stack((lpad[c], rpad[c], spad[c]))).to(bitmaps.device)
         out, sup, _ = self._reduced_survivors(bitmaps, lrs, int(counts[c]),
                                               mode, min_sup)
+        # every class block's supports, read once, as the sharded backend's
+        # staticcheck: disable=RS005 sync=grid.supports_gather
         sups = coll.all_gather(sup, self.mesh, self.class_axis).cpu().numpy()
         out = self._rank_survivors(out, sups[c], int(counts[c]), min_sup)
         return self._assemble(sups, out, counts, slot_of_pair, min_sup,

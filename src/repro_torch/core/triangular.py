@@ -26,6 +26,8 @@ def cooccurrence_counts(bitmaps: torch.Tensor, *, backend: str = "fused") -> np.
     if bitmaps.shape[0] == 0:
         return np.zeros((0, 0), np.int32)
     fn = trimatrix_ref if backend == "ref" else cooccurrence
+    # the counts land in the host matrix the miner thresholds and keeps
+    # staticcheck: disable=RS005 sync=triangular.counts_readback
     return fn(bitmaps).cpu().numpy()
 
 

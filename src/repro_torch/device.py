@@ -41,6 +41,7 @@ def words_from_numpy(words: np.ndarray, device: DeviceLike = None) -> torch.Tens
     """``uint32`` words (a ``VerticalDB.bitmaps`` array or a frontier) ->
     an ``int32`` tensor with the same bits, on ``device`` (a copy)."""
     arr = np.ascontiguousarray(words, dtype=np.uint32).view(np.int32)
+    # staticcheck: sync=device.words_upload
     return torch.from_numpy(arr).to(resolve_device(device), copy=True)
 
 

@@ -40,6 +40,8 @@ Counters: every call adds one to its (axis, op) count and the bytes of its
 local input to its payload, read with :func:`collective_counts` (as
 ``kernels.launch_counts`` reads the kernel launches); the backward halves
 of the five operations above count like any other call.
+:func:`collective_widths` reads the ranks each (axis, op)'s calls spanned
+(the width of the group the call ran over).
 :func:`collective_seconds` reads the host time spent inside the calls, by
 (axis, op): on gloo that is the whole exchange, host copies included (a
 copy from the card waits for the work queued before it); on NCCL only the
@@ -57,19 +59,23 @@ import torch.distributed as dist
 __all__ = ["all_reduce", "all_gather", "reduce_scatter", "all_to_all",
            "broadcast",
            "broadcast_from_lead", "lead_int", "collective_counts",
-           "collective_seconds", "reset_collective_counts", "counts_since",
+           "collective_seconds", "collective_widths", "reset_collective_counts",
+           "counts_since",
            "copy_to_axis", "reduce_over_axis", "gather_over_axis",
            "reduce_scatter_over_axis", "all_to_all_over_axis"]
 
 _COUNTS: Dict[tuple, Dict[str, int]] = defaultdict(lambda: {"calls": 0, "bytes": 0})
 _SECONDS: Dict[tuple, float] = defaultdict(float)
+_WIDTHS: Dict[tuple, set] = defaultdict(set)
 
 
-def _count(axis: str, op: str, t: torch.Tensor) -> float:
-    """Count a call; returns its start on the host clock (for :func:`_done`)."""
+def _count(axis: str, op: str, t: torch.Tensor, group) -> float:
+    """Count a call over ``group``; returns its start on the host clock (for
+    :func:`_done`)."""
     c = _COUNTS[(axis, op)]
     c["calls"] += 1
     c["bytes"] += t.numel() * t.element_size()
+    _WIDTHS[(axis, op)].add(dist.get_world_size(group))
     return time.perf_counter()
 
 
@@ -94,6 +100,15 @@ def collective_counts() -> dict:
     return out
 
 
+def collective_widths() -> dict:
+    """``{axis: {op: [ranks, ...]}}``: the group widths each (axis, op)'s
+    calls spanned since the last reset, sorted."""
+    out: dict = {}
+    for (axis, op), widths in sorted(_WIDTHS.items()):
+        out.setdefault(axis, {})[op] = sorted(widths)
+    return out
+
+
 def counts_since(before: dict) -> dict:
     """The calls and bytes added since ``before`` (an earlier
     :func:`collective_counts`), in the same form, zero entries left out."""
@@ -111,6 +126,7 @@ def counts_since(before: dict) -> dict:
 def reset_collective_counts() -> None:
     _COUNTS.clear()
     _SECONDS.clear()
+    _WIDTHS.clear()
 
 
 def _on_host(group) -> bool:
@@ -140,7 +156,7 @@ def all_reduce(t: torch.Tensor, mesh, axis: str, op: str = "sum") -> torch.Tenso
     or ``all_reduce_max``, in ``t``'s dtype."""
     group = mesh.get_group(axis)
     reduce_op, name = _REDUCE_OPS[op]
-    t0 = _count(axis, name, t)
+    t0 = _count(axis, name, t, group)
     work = t if t.is_contiguous() else t.contiguous()
     if _on_host(group) and t.device.type != "cpu":
         work = _host_copy(t)
@@ -157,7 +173,7 @@ def reduce_scatter(t: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     Counted as ``reduce_scatter``.  On gloo (which has no reduce-scatter)
     it is an all-reduce of the host copy, then the block."""
     group = mesh.get_group(axis)
-    t0 = _count(axis, "reduce_scatter", t)
+    t0 = _count(axis, "reduce_scatter", t, group)
     n = dist.get_world_size(group)
     dim = dim % t.ndim
     if t.shape[dim] % n:
@@ -185,7 +201,7 @@ def all_gather(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """``(n, *t.shape)`` stack of every rank's ``t`` along ``axis``, in
     axis-coordinate order, on ``t``'s device."""
     group = mesh.get_group(axis)
-    t0 = _count(axis, "all_gather", t)
+    t0 = _count(axis, "all_gather", t, group)
     t = t.contiguous()
     n = dist.get_world_size(group)
     if _on_host(group):
@@ -209,7 +225,7 @@ def all_to_all(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     ``t``'s shape, on ``t``'s device).  Counted as ``all_to_all``.  On gloo
     the host copy is exchanged, 2-byte floats as bytes (it moves bits)."""
     group = mesh.get_group(axis)
-    t0 = _count(axis, "all_to_all", t)
+    t0 = _count(axis, "all_to_all", t, group)
     n = dist.get_world_size(group)
     if t.ndim == 0 or t.shape[0] != n:
         raise ValueError(f"all_to_all over {axis!r} needs a leading dim of "
@@ -232,7 +248,7 @@ def broadcast(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """Overwrite ``t`` with the value of the rank at coordinate 0 of
     ``axis``, in place; returns ``t``."""
     group = mesh.get_group(axis)
-    t0 = _count(axis, "broadcast", t)
+    t0 = _count(axis, "broadcast", t, group)
     src = dist.get_global_rank(group, 0)
     if _on_host(group) and t.device.type != "cpu":
         host = _host_copy(t)

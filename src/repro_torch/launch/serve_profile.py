@@ -52,9 +52,9 @@ ARCH = "gemma3-4b"
 # and llama4-maverick to 2 of its 48, one dense and one MoE (36.9 GB);
 # hymba-1.5b and xlstm-1.3b whole (3.18 and 3.63 GB); phi-3-vision-4.2b
 # and whisper-base whole (7.64 GB; whisper's 6 decoder layers, and its 6
-# encoder layers with them, 0.14 GB)
-SERVE_LAYERS = {"gemma3-4b": 34, "internlm2-20b": 48, "grok-1-314b": 4,
-                "llama4-maverick-400b-a17b": 2, "hymba-1.5b": 32,
+# encoder layers with them, 0.14 GB); command-r-35b whole (60.6 GB)
+SERVE_LAYERS = {"gemma3-4b": 34, "internlm2-20b": 48, "command-r-35b": 40,
+                "grok-1-314b": 4, "llama4-maverick-400b-a17b": 2, "hymba-1.5b": 32,
                 "xlstm-1.3b": 48, "phi-3-vision-4.2b": 32, "whisper-base": 6}
 SERVE_PROMPTS = (2048,) * 4 + (1536,) * 4
 SERVE_MAX_NEW = 32

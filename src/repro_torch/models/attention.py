@@ -61,7 +61,7 @@ from ..dist import collectives as coll
 from ..dist.sharding import axis_index, axis_size
 from ..kernels.decode_attention import grouped_decode_attention
 from ..kernels.flash_attention import multi_head_attention
-from .layers import apply_rope, rope, softcap
+from .layers import apply_rope, draw_normal, rope, softcap
 
 __all__ = ["init_attention", "attention", "flash_chunked", "init_cache", "head_split"]
 
@@ -78,8 +78,7 @@ def init_attention(generator: torch.Generator, cfg, dtype, stacked: int = 0,
     pre = ("stk_" if stacked else "") + ("x" if cross else "")
 
     def normal(shape, scale):
-        return (torch.randn(shape, generator=generator, dtype=torch.float32,
-                            device=device) * scale).to(dtype)
+        return draw_normal(generator, shape, scale, dtype, device)
 
     scale = d ** -0.5
     return {

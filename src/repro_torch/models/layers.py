@@ -13,7 +13,29 @@ from ..dist.sharding import axis_index, axis_size
 from ..kernels._softcap import softcap
 
 __all__ = ["rms_norm", "layer_norm", "norm", "rope", "apply_rope", "init_norm",
-           "softcap", "model_split", "gather_columns"]
+           "softcap", "model_split", "gather_columns", "draw_normal"]
+
+# a weight of more elements than this is drawn one slice of its leading
+# (layer) axis at a time
+DRAW_WHOLE_MAX = 1 << 30
+
+
+def draw_normal(generator: torch.Generator, shape, scale: float, dtype,
+                device=None) -> torch.Tensor:
+    """``randn(shape) * scale`` in ``dtype``, drawn in float32 from
+    ``generator``.  A leaf of more than ``DRAW_WHOLE_MAX`` elements is drawn
+    one slice of its leading axis at a time, so the float32 draw never holds
+    the whole leaf (a stacked MLP leaf of command-r-35b is 29.5 GB in
+    float32, twice that with its scaled copy, beside 60.6 GB of bf16
+    weights on an 80 GB card)."""
+    if len(shape) < 2 or torch.Size(shape).numel() <= DRAW_WHOLE_MAX:
+        return (torch.randn(shape, generator=generator, dtype=torch.float32,
+                            device=device) * scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for part in out:
+        part.copy_(torch.randn(tuple(shape[1:]), generator=generator,
+                               dtype=torch.float32, device=device) * scale)
+    return out
 
 
 def init_norm(d: int, kind: str, dtype, device=None) -> dict:

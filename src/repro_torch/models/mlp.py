@@ -10,6 +10,7 @@ import torch
 import torch.nn.functional as F
 
 from ..dist import collectives as coll
+from .layers import draw_normal
 
 __all__ = ["init_mlp", "mlp"]
 
@@ -22,8 +23,7 @@ def init_mlp(generator: torch.Generator, cfg, dtype, stacked: int = 0,
     pre = "stk_" if stacked else ""
 
     def normal(shape, scale):
-        return (torch.randn(shape, generator=generator, dtype=torch.float32,
-                            device=device) * scale).to(dtype)
+        return draw_normal(generator, shape, scale, dtype, device)
 
     p = {}
     if cfg.mlp_act in ("swiglu", "geglu"):

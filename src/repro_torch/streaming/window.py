@@ -194,6 +194,7 @@ class WindowRing:
             return
         part = np.ascontiguousarray(block[:, lo - start: hi - start]).view(np.int32)
         self.device[:, lo - self.word_lo: hi - self.word_lo].copy_(
+            # staticcheck: sync=window.block_upload
             torch.from_numpy(part).to(self.dev))
 
     def push(self, batch: Sequence[Sequence[int]]):

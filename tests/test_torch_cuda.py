@@ -1381,3 +1381,54 @@ def test_auto_and_autotune_mines_on_the_card(cuda, tune_cache, monkeypatch):
         if "backend" in kw:
             assert res.stats["dispatch"]["policy"] == str(table)
     assert any(k.startswith("compact") for k in autotune.load_table().entries)
+
+
+# ---------------------------------------------------------------------------
+# the mining path's steady-state guard (repro_torch.staticcheck, Layer 3 and 2)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("compact", [True, False])
+def test_warm_mine_makes_exactly_its_declared_syncs(cuda, compact):
+    """A warm mine() on the fused backend: every level's host syncs equal
+    its SYNC_BUDGET entry, the rest of the run those of one co-occurrence
+    count, no new allocator segment, every padding on the ladder."""
+    from repro_torch.staticcheck.shapes import audit_mine
+    findings, summary = audit_mine("fused", compact=compact)
+    assert findings == [], [f.format() for f in findings]
+    assert summary["levels"] >= 3 and summary["checks"] == ["SH001", "SH002", "SH003"]
+    for lv in summary["syncs"]["per_level"]:
+        assert lv["counted"] == lv["declared"]
+    out = summary["syncs"]["outside_levels"]
+    assert out["counted"] == out["declared"] == {"device.words_upload": 1,
+                                                 "triangular.counts_readback": 1}
+    assert summary["allocator"] == {"segments_added": 0, "alloc_retries": 0}
+
+
+@pytest.mark.parametrize("compact", [True, False])
+def test_warm_stream_slides_make_exactly_their_declared_syncs(cuda, compact):
+    """Five audited slides of the fused stream: each level's and each
+    slide's syncs equal their SYNC_BUDGET entries."""
+    from repro_torch.staticcheck.shapes import audit_streaming
+    findings, summary = audit_streaming("fused", compact=compact)
+    assert findings == [], [f.format() for f in findings]
+    assert summary["audited_slides"] == 5
+    for slide in summary["syncs"]:
+        assert slide["counted"]["outside_levels"] == slide["declared"]["outside_levels"]
+        assert slide["levels"] >= 3
+        for got in slide["counted"]["per_level"]:
+            assert got == slide["declared"]["per_level"]
+
+
+def test_shape_fixture_trips_every_rule_on_the_card(cuda):
+    from repro_torch.staticcheck.shapes import check_shape_fixture
+    assert {f.rule for f in check_shape_fixture("cuda")} == {"SH001", "SH002", "SH003"}
+
+
+def test_collective_contracts_on_ranks_sharing_the_card(cuda):
+    """Layer 2 on 4 gloo ranks sharing the card: every backend and the ring
+    write within their budgets, each contract fixture rejected."""
+    from repro_torch.staticcheck import contracts
+    findings, summary = contracts.check_all_contracts(
+        "cuda", tuple(contracts.CONTRACT_FIXTURES))
+    assert findings == [], [f.format() for f in findings]
+    assert all(summary["fixtures"].values()), summary["fixtures"]
