@@ -60,9 +60,12 @@ paths end to end:
   suppression a declared sync); a warm ``mine()`` level by level and 5
   warm stream slides on the fused backend, ``compact=True`` (K2, K4) and
   ``compact=False`` (K1, K4), every host sync counted by torch's
-  sync-debug mode equal to its declared ``SYNC_BUDGET`` entry, no kernel
-  build and no new allocator segment after warm-up, every padding on the
-  bucket ladder; the shape fixture tripping SH001, SH002 and SH003; the
+  sync-debug mode equal to its declared ``SYNC_BUDGET`` entry and what
+  the card synchronised on (``torch.profiler``'s CUDA runtime calls) within
+  the budget's total, no kernel build and no new allocator segment after
+  warm-up, every padding on the bucket ladder; the shape fixture tripping
+  SH001, SH002 and SH003, the card-sync fixture (a
+  ``cudaEventSynchronize`` the sync-debug mode misses) SH002; the
   collective contracts of every backend and of the ring write on 4 gloo
   ranks sharing the card (K3 on the word-sharded ranks), each of the four
   contract fixtures rejected;
@@ -136,7 +139,7 @@ paths end to end:
   whisper's cross and encoder shapes against its plain versions
   (``check_flash_attention_bwd``) and timed at the cross shape beside
   SDPA's backward (``time_whisper_cross_bwd``); hymba-1.5b and xlstm-1.3b
-  at full width and depth (B = 4, S = 1,024, ``remat="full"``) 4 steps in
+  at full width and depth (B = 4, S = 1,024, ``remat="full"``) 3 steps in
   memory, hymba's K6 forward twice and backward once per layer a step
   (xlstm launches none), step 1 against the plain attention (xlstm:
   against itself run again) (``run_training_recurrent``); K6's backward at
@@ -160,7 +163,12 @@ paths end to end:
   bf16 against one rank of the card, with their reduced configs (and a
   vocabulary of 257, hymba with 5 heads) in float32 against one CPU
   process; K6 at the ranks' shapes against its plain versions and timed
-  (``time_mesh_rank_attention``);
+  (``time_mesh_rank_attention``); the reduced float32 grok-1 (``tp2d``)
+  and llama4-maverick (``ep``) with two microbatches on tiny, on (pod,
+  data, model) = (2, 2, 1) and llama4 with both, against the same jobs on
+  4 gloo ranks of the host (``MESH_MOE_JOBS``), and K6's float32 backward
+  timed at the float32 forward row's shape and a reduced rank's
+  (``time_f32_flash_attention_bwd``);
 
 and times each kernel beside its bound, its plain version and, where one
 exists, a PyTorch call that computes the same function (K4 also at the
@@ -423,6 +431,19 @@ MESH_REDUCED_ARCHS = ("gemma-2b", "gemma3-4b", "grok-1-314b",
 MESH_REDUCED_CFG = {"whisper-base vocab 257": ("whisper-base", {"vocab_size": 257}),
                     "hymba-1.5b 5 heads": ("hymba-1.5b", {
                         "n_heads": 5, "n_kv_heads": 5, "d_head": 16, "vocab_size": 257})}
+# the reduced float32 mixtures of experts with microbatches and on a mesh of
+# two data axes (run_mesh_training (f)), each against the same job on 4
+# gloo ranks of the host, at their own capacity factor: label -> (arch,
+# global batch, microbatches, mesh: a name or (shape, axes))
+POD_MESH = ((2, 2, 1), ("pod", "data", "model"))
+MESH_MOE_JOBS = {
+    "grok-1-314b microbatches 2": ("grok-1-314b", 4, 2, "tiny"),
+    "llama4-maverick-400b-a17b microbatches 2": ("llama4-maverick-400b-a17b", 4, 2,
+                                                 "tiny"),
+    "grok-1-314b pod data": ("grok-1-314b", 4, 1, POD_MESH),
+    "llama4-maverick-400b-a17b pod data": ("llama4-maverick-400b-a17b", 4, 1, POD_MESH),
+    "llama4-maverick-400b-a17b pod data microbatches 2": (
+        "llama4-maverick-400b-a17b", 8, 2, POD_MESH)}
 # the full-width bf16 jobs on the tiny mesh beside gemma-2b's and xlstm's
 # (run_mesh_training (e)), each against one rank of the card: whisper-base
 # at full width and depth over its 1,500 frames; phi-3-vision-4.2b with its
@@ -481,11 +502,12 @@ WHISPER_CROSS_SHAPE = (f"B={WHISPER_B} H=8 Hkv=8 S={WHISPER_S} Sk=1500 D=64 bf16
                        "non-causal window=0 (whisper-base training cross)")
 # xlstm-1.3b and hymba-1.5b trained at full width and depth
 # (run_training_recurrent): bf16, B x S tokens a step, RECURRENT_STEPS steps
-# in memory, remat="full" (the reference's TrainConfig.remat): without it
+# in memory (3, for the script's time limit),
+# remat="full" (the reference's TrainConfig.remat): without it
 # xlstm's 42 mLSTM layers keep their 16 chunks' (B, H, 1,024, 1,024)
 # float32 states each and hymba's 32 SSM scans their (B, 128, 3,200, 16)
 # log steps, far beyond the card
-RECURRENT_B, RECURRENT_S, RECURRENT_STEPS = 4, 1024, 4
+RECURRENT_B, RECURRENT_S, RECURRENT_STEPS = 4, 1024, 3
 # hymba's training layer (B, H, Hkv, S, D, window): K6's backward row in the
 # kernels line; the window of 2,048 keeps every causal pair at S = 1,024
 HYMBA_TRAIN = (RECURRENT_B, 25, 5, RECURRENT_S, 64, 2048)
@@ -2107,7 +2129,9 @@ def run_staticcheck():
     """The mining path's guard on the card: the gate of
     ``repro_torch.staticcheck`` (its ``full_gate``), which prints each
     layer's lines (the audits' declared and counted host syncs per level
-    and per slide) and returns 1 on any finding or rotted fixture.  Layer 1:
+    and per slide, and the profiler's count of what the card synchronised
+    on) and returns 1 on any finding or rotted fixture (the card-sync
+    fixture among them).  Layer 1:
     the port's lint and its fixtures.  Layer 3: a warm ``mine()`` and 5
     warm stream slides on the fused backend, with and without compaction,
     every host sync at its declared budget, no new allocator segment, no
@@ -3869,27 +3893,56 @@ def step_collectives(cfg, n_leaves, chunks, remat="none"):
     return {"data": {"all_reduce": 2 + n_leaves}, "model": model}
 
 
-def moe_step_collectives(cfg, n_leaves, n_data_split, chunks):
+def moe_step_collectives(cfg, microbatches=1, mesh="tiny"):
     """The collectives one train step of a mixture of experts makes on each
-    rank of the tiny mesh (one microbatch, no MQA gathers): on ``model``
-    the dense count (the experts' input and output take the MLP's two
-    all-reduces a layer) and one more all-reduce of the global norm (the
-    leaves split over both axes); on ``data`` the mask count and the loss,
-    two a MoE layer (its top-1 counts and kept entries, its aux loss),
-    every leaf but the ``n_data_split`` its placement splits over ``data``,
-    and the norm's one; and the experts' exchanges over ``data``: ``ep``
-    two all-to-alls forward and two backward, ``tp2d`` a gather and a
-    reduce-scatter forward and their conjugates backward."""
+    rank of ``mesh`` (a name or (shape, axes)) whose data axes split every
+    microbatch, worked out from the config and the placement (no MQA
+    gathers; one loss chunk).  On ``model``, per microbatch, two a layer
+    forward and backward for attention and two for its MLP (the experts'
+    only when the axis has more than one rank), and the vocab-parallel
+    embedding's, loss sum's and hidden gradient's with a loss chunk's max
+    (a vocabulary split over more than one rank); then the global norm's.
+    On each data axis, per microbatch, the mask count and the loss, two a
+    MoE layer (its top-1 counts and kept entries, its aux loss) and the
+    experts' exchanges: ``ep`` two all-to-alls forward and two backward
+    over ``data`` alone (the experts are replicated over ``pod``), ``tp2d``
+    a gather and a reduce-scatter forward and their conjugates backward
+    over each data axis; then one all-gather of the batch's tokens with two
+    microbatches or more (each microbatch is the reference's global rows),
+    every leaf its placement does not split over the axis, and the norm's
+    (one all-reduce an axis for each set of axes leaves are split over)."""
+    from repro_torch.dist.sharding import data_axes, spec_axes, spec_tree
+    from repro_torch.launch.mesh import mesh_layout, named_mesh_layout
     from repro_torch.models import stages_meta
-    n_moe = sum(c for kind, c in stages_meta(cfg) if kind.endswith("+moe"))
-    out = step_collectives(cfg, n_leaves, chunks)
-    out["model"]["all_reduce"] += 1
-    data = {"all_reduce": 2 + 2 * n_moe + n_leaves - n_data_split + 1}
-    if cfg.expert_sharding == "tp2d":
-        data.update(all_gather=2 * n_moe, reduce_scatter=2 * n_moe)
-    else:
-        data.update(all_to_all=4 * n_moe)
-    out["data"] = data
+    from repro_torch.models.convert import param_shapes
+    from repro_torch.training.optimizer import tree_leaves
+    layout = (named_mesh_layout(mesh) if isinstance(mesh, str) else mesh_layout(*mesh))
+    m = microbatches
+    meta = stages_meta(cfg)
+    layers = sum(n for _, n in meta)
+    n_moe = sum(n for kind, n in meta if kind.endswith("+moe"))
+    named = [{a for e in sp for a in spec_axes(e)} for sp in tree_leaves(
+        spec_tree(param_shapes(cfg), layout, cfg.expert_sharding))]
+    norm_sets = {tuple(sorted(axes)) for axes in named if axes}
+    out = {}
+    for a in data_axes(layout):
+        per = {"all_reduce": m * (2 + 2 * n_moe)}
+        if cfg.expert_sharding == "tp2d":
+            per.update(all_gather=m * 2 * n_moe, reduce_scatter=m * 2 * n_moe)
+        elif a == "data":
+            per["all_to_all"] = m * 4 * n_moe
+        if m > 1:
+            per["all_gather"] = per.get("all_gather", 0) + 1
+        per["all_reduce"] += (sum(a not in axes for axes in named)
+                              + sum(a in axes for axes in norm_sets))
+        out[a] = per
+    size = layout.shape.get("model", 1)
+    split_vocab = size > 1 and cfg.vocab_size % size == 0
+    ffn = 2 * (layers - n_moe) + (2 * n_moe if size > 1 else 0)
+    out["model"] = {"all_reduce": m * (2 * layers + ffn + (3 if split_vocab else 0))
+                    + sum("model" in axes for axes in norm_sets)}
+    if split_vocab:
+        out["model"]["all_reduce_max"] = m
     return out
 
 
@@ -3949,11 +4002,11 @@ def _check_mesh_steps(what, per_rank, n_layers, variant, declared, shapes=None):
                     f"{what} rank {r} step {i + 1}: collectives {got}, declared {declared}")
 
 
-def _check_moe_steps(what, got, want, tokens):
+def _check_moe_steps(what, got, want, tokens, tol=1e-6):
     """Each step's MoE calls (``train_run``'s ``moe_stats``) on the card
     against the same job's on the host: the same top-1 counts (expert load
-    times ``tokens``) and dropped shares within float32 rounding of a mean
-    taken in another order."""
+    times ``tokens``, the global tokens of a microbatch) and dropped shares
+    within ``tol`` (float32 rounding of a mean taken in another order)."""
     import numpy as np
     require(len(got) == len(want), f"{what}: {len(got)} steps, host {len(want)}")
     for i, (a, b) in enumerate(zip(got, want)):
@@ -3962,7 +4015,7 @@ def _check_moe_steps(what, got, want, tokens):
         for (da, la), (db, lb) in zip(a["moe"], b["moe"]):
             require(np.array_equal(np.rint(np.asarray(la) * tokens),
                                    np.rint(np.asarray(lb) * tokens)) and
-                    abs(da - db) <= 1e-6,
+                    abs(da - db) <= tol,
                     f"{what} step {i + 1}: expert load {la} dropped {da}, host "
                     f"{lb} dropped {db}")
 
@@ -4022,6 +4075,9 @@ def run_mesh_training():
                            steps=3, batch=4, seq=64, tcfg=rate, params=_np_tree(host),
                            embeds=embeds if embeds[0] else None,
                            moe_stats=bool(cfg.n_experts))
+    # (f): the mixtures of experts with microbatches and over (pod, data)
+    for label, (arch, b, m, mesh) in MESH_MOE_JOBS.items():
+        jobs[label] = dict(jobs[arch], mesh=mesh, batch=b, microbatches=m)
     # (c): 2 steps through the runner, a checkpoint at step 2, step 3 in
     # memory; then other weights restored from that checkpoint, step 3
     jobs["ckpt"] = dict(jobs["gemma-2b"], steps=2, ckpt_dir=os.path.join(root, "c"),
@@ -4050,7 +4106,8 @@ def run_mesh_training():
     wall = time.perf_counter() - t
     res = {k: [r[i] for r in per_rank] for i, k in enumerate(labels)}
     # the MoE jobs again on 4 gloo ranks of the host
-    moe_archs = [a for a in MESH_REDUCED_ARCHS if get_config(jobs[a]["arch"]).n_experts]
+    moe_archs = [a for a in MESH_REDUCED_ARCHS
+                 if get_config(jobs[a]["arch"]).n_experts] + list(MESH_MOE_JOBS)
     t = time.perf_counter()
     on_host = run_ranks(run_jobs, 4, backend="gloo", device="cpu",
                         args=([jobs[a] for a in moe_archs],), timeout=600)
@@ -4079,13 +4136,8 @@ def run_mesh_training():
                 _check_moe_steps(f"mesh {arch} float32 rank {r}", x["records"],
                                  host["records"], 4 * 64)
         n_leaves = len(tree_leaves(param_shapes(cfg)))
-        if cfg.n_experts:
-            specs = tree_leaves(spec_tree(param_shapes(cfg), named_mesh_layout("tiny"),
-                                          cfg.expert_sharding))
-            split = sum("data" in {a for e in sp for a in spec_axes(e)} for sp in specs)
-            declared = moe_step_collectives(cfg, n_leaves, split, 1)
-        else:
-            declared = step_collectives(cfg, n_leaves, 1)
+        declared = (moe_step_collectives(cfg) if cfg.n_experts else
+                    step_collectives(cfg, n_leaves, 1))
         k6 = _k6_step_launches(cfg)
         _check_mesh_steps(f"mesh {arch} float32", res[arch], n_layers, "fma_f32",
                           declared, k6)
@@ -4116,6 +4168,10 @@ def run_mesh_training():
                   f"included) {share}, {cfg.expert_sharding} expert exchanges "
                   f"{ {op: n for op, n in declared['data'].items() if op != 'all_reduce'} }"
                   f" a step")
+
+    # (f) microbatches and two data axes against the host's ranks
+    for label, (arch, b, m, mesh) in MESH_MOE_JOBS.items():
+        _check_moe_mesh_job(label, jobs[label], res[label], host_res[label], host_wall)
 
     # (c) restore on the mesh: step 3 replayed bit for bit
     lead_a = next(x for x in res["ckpt"] if x["lead"])
@@ -4166,9 +4222,62 @@ def run_mesh_training():
             f"{arch} bf16 full width, {depth}, remat={remat}", res[f"{arch} full"],
             jobs[f"{arch} full"], None, declared,
             f"K6 wgmma_bf16 launches a step on every rank by mask {shapes}", shapes)
-    return {arch: {k: sum(rec["launches"][k] for rec in x["records"])
-                   for k in _k6_step_launches(get_config("gemma-2b"))}
-            for arch, x in leads.items()}
+    out = {arch: {k: sum(rec["launches"][k] for rec in x["records"])
+                  for k in _k6_step_launches(get_config("gemma-2b"))}
+           for arch, x in leads.items()}
+    # (f)'s float32 backward launches on the lead rank, for the kernels line
+    out["moe f32"] = sum(rec["launches"]["flash_attention_bwd.fma_f32"]
+                         for label in MESH_MOE_JOBS
+                         for x in res[label] if x["lead"] for rec in x["records"])
+    return out
+
+
+def _check_moe_mesh_job(label, job, per_rank, host, host_wall):
+    """A reduced float32 mixture of experts with microbatches or on a mesh
+    of two data axes (MESH_MOE_JOBS) on 4 gloo ranks sharing the card
+    against the same job on 4 gloo ranks of the host: each step's loss
+    within TRAIN_F32_REL, each MoE call's top-1 counts exactly and its
+    dropped share within 1e-7, some entry dropped; every step of every rank
+    launches K6's float32 forward and backward once per attention layer
+    per microbatch and makes the declared collectives.  Prints the step ms
+    per rank with the card's name and power limit."""
+    import dataclasses
+    import statistics
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import reduced_config
+    from repro_torch.launch.kernel_timing import nvidia_smi
+    cfg = dataclasses.replace(reduced_config(get_config(job["arch"])), **job["cfg"])
+    m = job["microbatches"]
+    worst = 0.0
+    for r, (x, h) in enumerate(zip(per_rank, host)):
+        for i, (a, b) in enumerate(zip(x["losses"], h["losses"])):
+            worst = max(worst, abs(a - b) / abs(b))
+            require(abs(a - b) <= TRAIN_F32_REL * abs(b),
+                    f"mesh {label} rank {r} step {i + 1}: loss {a}, host ranks {b}")
+        _check_moe_steps(f"mesh {label} rank {r}", x["records"], h["records"],
+                         job["batch"] // m * job["seq"], tol=1e-7)
+    declared = moe_step_collectives(cfg, m, job["mesh"])
+    k6 = {k: m * n for k, n in _k6_step_launches(cfg).items()}
+    _check_mesh_steps(f"mesh {label} float32", per_rank, None, "fma_f32", declared, k6)
+    dropped = [[round(d, 4) for d, _ in rec["moe"]] for rec in per_rank[0]["records"]]
+    require(any(d > 0 for step in dropped for d in step),
+            f"mesh {label}: no step dropped an entry {dropped}")
+    mesh = job["mesh"] if isinstance(job["mesh"], str) else dict(zip(*reversed(job["mesh"])))
+    step_ms = [statistics.median(rec["s"] for rec in x["records"][1:]) * 1e3
+               for x in per_rank]
+    print(f"check mesh training reduced {label} float32 ({cfg.expert_sharding}, "
+          f"mesh {mesh}, B={job['batch']}, microbatches {m}, capacity factor "
+          f"{cfg.capacity_factor}) on 4 gloo ranks sharing the card: 3 steps, losses "
+          f"{per_rank[0]['losses']}, largest rel diff from the host's 4 ranks "
+          f"{worst:.3e} <= {TRAIN_F32_REL:.0e}; each MoE call's top-1 counts equal "
+          f"and dropped shares within 1e-7 (dropped_frac a step and call {dropped}); "
+          f"K6 fma_f32 forward and backward "
+          f"{sum(n for k, n in k6.items() if k.startswith('flash_attention.'))} "
+          f"launches a step on every rank; collectives a step {declared} on every "
+          f"rank, as declared (host ranks started and run in {host_wall:.1f}s)")
+    print(f"train mesh {label} reduced float32 timing ({nvidia_smi('name,power.limit')}): "
+          f"4 gloo ranks sharing one card (no 4-card mesh), step_ms median of steps "
+          f"2-3 by rank {[round(t, 1) for t in step_ms]}")
 
 
 def _check_full_width_mesh(label, per_rank, job, n_attn, declared, launched,
@@ -4365,6 +4474,90 @@ def time_flash_attention_bwd(launches):
         require(row["bound_ms"] <= row[key],
                 f"flash_attention_bwd: bound_ms {row['bound_ms']:.5f} exceeds {key}")
     return row
+
+
+# K6's float32 backward (its FMA kernels) timed at the float32 forward row's
+# shape and at a tiny-mesh rank's attention in the reduced MoE jobs
+# (reduced grok and llama4: 4 heads of 16, 2 a rank, B = 2 of 4 rows, S =
+# 64): (B, H, Hkv, S, D)
+F32_BWD_SHAPES = ((2, 8, 4, 2048, 256), (2, 2, 2, 64, 16))
+# its gradients against the plain version at those shapes, by relative L2
+# (float32 sums in another order over up to 2,048 keys)
+BWD_REL_F32 = 1e-4
+
+
+def time_f32_flash_attention_bwd(launches):
+    """K6's float32 backward (``flash_attention_bwd.fma_f32``) at
+    F32_BWD_SHAPES, each held to its plain version, beside its bound (10 D
+    operations a kept pair at the float32 rate, q, k, v, out, dout and dq,
+    dk, dv moved once), its plain version and the float32 backward of
+    torch's scaled_dot_product_attention (the port never calls it); rows
+    for the kernels line.  ``launches``: the lead rank's in the reduced MoE
+    mesh jobs of run_mesh_training (f)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels
+    from repro_torch.analysis import roofline as rl
+    from repro_torch.kernels.flash_attention import (attention_ref_bwd,
+                                                     flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.launch.kernel_timing import device_ms, median_ms, nvidia_smi
+    rows = []
+    for i, (b, h, hkv, s, d) in enumerate(F32_BWD_SHAPES):
+        where = ("the float32 forward row's shape" if i == 0 else
+                 "a tiny-mesh rank of the reduced MoE jobs")
+        shape = f"B={b} H={h} Hkv={hkv} S={s} D={d} f32 causal window=0 ({where})"
+        q, k, v = attn_inputs(b, h, hkv, s, d, torch.float32, seed=91 + i,
+                              model_layout=True)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(95 + i)
+        dout = torch.randn((b, s, h, d), generator=gen, device="cuda").transpose(1, 2)
+        out, lse = flash_attention(q, k, v, causal=True, window=0, return_lse=True)
+        fn = lambda: flash_attention_bwd(q, k, v, out, dout, lse, causal=True, window=0)
+        plain = lambda: attention_ref_bwd(q, k, v, out, dout, lse, causal=True)
+        kernels.reset_launch_counts()
+        got = fn()
+        require(kernels.variant_counts()["flash_attention_bwd.fma_f32"] == 1,
+                f"flash_attention_bwd at {shape}: variants {kernels.variant_counts()}")
+        want = plain()
+        rel = max(float((g - w).norm() / w.norm()) for g, w in zip(got, want))
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        require(rel <= BWD_REL_F32, f"flash_attention_bwd at {shape}: rel L2 {rel:.3e}")
+        MAX_ABS_ERR["flash_attention_bwd"] = max(MAX_ABS_ERR["flash_attention_bwd"], err)
+        qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                 enable_gqa=h != hkv)
+        lib = lambda: torch.autograd.grad(lib_out, (qs, ks, vs), dout, retain_graph=True)
+        lib_err = max(float((a - g).norm() / g.norm()) for a, g in zip(lib(), got))
+        require(lib_err <= SDPA_TOL, f"SDPA's float32 backward disagrees with "
+                f"flash_attention_bwd at {shape}: rel L2 {lib_err:.3e}")
+        kept = s * (s + 1) // 2
+        nbytes = 4 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+        bms, by = bound_attn(nbytes, 10 * d * kept * b * h, rl.FP32_FLOPS)
+        row = dict(name="flash_attention_bwd", route="cuda",
+                   source="src/repro_torch/csrc/flash_attention_bwd.cu",
+                   replaces="src/repro/kernels/flash_attention/flash_attention.py:110",
+                   shape=shape, ms=device_ms(fn, reps=10), plain_ms=device_ms(plain, reps=3),
+                   library_ms=device_ms(lib, reps=10), call_ms=median_ms(fn, reps=5),
+                   bound_ms=bms, bound_by=by, launches=launches, listed=True,
+                   also_listed=True)
+        print(f"timing flash_attention_bwd {shape} ({nvidia_smi('name,power.limit')}): "
+              f"ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} bound_ms={bms:.5f} "
+              f"({by}) library_ms={row['library_ms']:.5f} launches_on_main_path="
+              f"{launches} (the lead rank's fma_f32 backward in the MoE mesh jobs' "
+              f"steps); call_ms={row['call_ms']:.5f}; {row['ms'] / bms:.2f}x the "
+              f"bound, {row['ms'] / row['library_ms']:.2f}x SDPA's float32 backward; "
+              f"rel L2 from the plain version {rel:.3e} (max abs {err:.3e}); bound: "
+              f"10 D operations for each of the {kept * b * h} kept pairs at the "
+              f"float32 rate, {nbytes} bytes read and written once; SDPA's gradients "
+              f"within rel L2 {lib_err:.3e}")
+        for key in ("ms", "plain_ms", "library_ms"):
+            require(bms <= row[key], f"flash_attention_bwd at {shape}: bound_ms "
+                    f"{bms:.5f} exceeds {key}")
+        rows.append(row)
+        del q, k, v, dout, out, lse, got, want, qs, ks, vs, lib_out
+        torch.cuda.empty_cache()
+    return rows
 
 
 def time_capped_flash_attention_bwd(launches):
@@ -5087,6 +5280,7 @@ def main() -> int:
              phase(time_capped_flash_attention_bwd, grok_launches),
              phase(time_whisper_cross_bwd, whisper_bwd),
              phase(time_hymba_training_bwd, hymba_bwd)] +
+            phase(time_f32_flash_attention_bwd, mesh_launches.pop("moe f32")) +
             phase(time_mesh_rank_attention, mesh_launches))
     kernels_line = [dict(name=r["name"], route=r["route"], source=r["source"],
                          replaces=r["replaces"], shape=r["shape"],
@@ -5103,9 +5297,10 @@ def main() -> int:
     # K7 at hymba's and command-r's prefill and decode shapes, K6 at phi3's prefill,
     # whisper's encoder and its cross rows, K7 at phi3's decode and over
     # whisper's cross rows, K6's backward at whisper's training cross and at
-    # hymba's training layer, K6 forward and backward at the full-width mesh
-    # jobs' rank shapes
-    require(len(kernels_line) == len(REPORT_SHAPE) + 12 + 2 * len(MESH_RANKS),
+    # hymba's training layer, K6's float32 backward at F32_BWD_SHAPES, K6
+    # forward and backward at the full-width mesh jobs' rank shapes
+    require(len(kernels_line) == len(REPORT_SHAPE) + 12 + len(F32_BWD_SHAPES)
+            + 2 * len(MESH_RANKS),
             "a kernel has no timing row")
     print(f"chip_smoke wall_s={time.perf_counter() - t_start:.1f} (build included)")
     print(json.dumps({"kernels": kernels_line}))

@@ -48,8 +48,8 @@ import torch
 
 __all__ = ["padded_word_count", "shard_words", "axis_size", "axis_index",
            "is_lead_rank", "mesh_descriptor", "mesh_axes", "DP_AXIS_NAMES",
-           "dp_axes", "data_axes", "param_spec", "batch_spec", "spec_tree",
-           "spec_axes", "shard_tree", "gather_tree"]
+           "dp_axes", "data_axes", "data_rank", "param_spec", "batch_spec",
+           "spec_tree", "spec_axes", "shard_tree", "gather_tree"]
 
 # axis names that count as gradient-reduction ("data-parallel") axes
 DP_AXIS_NAMES = ("pod", "data")
@@ -141,6 +141,13 @@ def data_axes(mesh) -> Tuple[str, ...]:
     """The gradient-reduction axes the mesh has (none without a mesh): the
     axes a batch's rows, the loss and the gradients are summed over."""
     return tuple(a for a in dp_axes(mesh) if a in mesh_axes(mesh))
+
+
+def data_rank(mesh) -> Tuple[int, int]:
+    """(this rank's index over the mesh's data axes, their rank count): the
+    index flattened pod-major, the order in which :func:`batch_spec` gives
+    the data ranks their rows; ``(0, 1)`` without data axes."""
+    return _block(mesh, data_axes(mesh)) if mesh is not None else (0, 1)
 
 
 def spec_axes(entry) -> Tuple[str, ...]:

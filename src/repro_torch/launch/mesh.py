@@ -43,9 +43,9 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 __all__ = ["factor_grid", "parse_grid_arg", "make_data_mesh",
-           "make_grid_mesh", "mesh_for_mining", "make_mesh_named",
-           "named_mesh_layout", "MeshLayout", "NAMED_MESHES", "process_group",
-           "run_ranks", "DIST_BACKENDS"]
+           "make_grid_mesh", "mesh_for_mining", "make_mesh", "make_mesh_named",
+           "named_mesh_layout", "mesh_layout", "MeshLayout", "NAMED_MESHES",
+           "process_group", "run_ranks", "DIST_BACKENDS"]
 
 DIST_BACKENDS = ("nccl", "gloo")
 
@@ -172,13 +172,40 @@ class MeshLayout:
     shape: Dict[str, int]
 
 
+def mesh_layout(shape: Sequence[int], axes: Sequence[str]) -> MeshLayout:
+    """The layout of a mesh of ``shape`` over ``axes`` (no process group
+    needed)."""
+    shape, axes = tuple(int(n) for n in shape), tuple(str(a) for a in axes)
+    if len(shape) != len(axes) or len(set(axes)) != len(axes) or min(shape) < 1:
+        raise ValueError(f"a mesh needs one size >= 1 for each of its distinct "
+                         f"axes; got shape {shape} over {axes}")
+    return MeshLayout(axes, dict(zip(axes, shape)))
+
+
 def named_mesh_layout(name: str) -> MeshLayout:
     """The layout of a named mesh (no process group needed)."""
     if name not in NAMED_MESHES:
         raise ValueError(f"unknown mesh {name!r}; expected one of "
                          f"{sorted(NAMED_MESHES)}")
-    shape, axes = NAMED_MESHES[name]
-    return MeshLayout(tuple(axes), dict(zip(axes, shape)))
+    return mesh_layout(*NAMED_MESHES[name])
+
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str],
+              what: Optional[str] = None) -> DeviceMesh:
+    """A mesh of ``shape`` over ``axes`` on the ranks of the process group,
+    as the reference's ``make_mesh(shape, axes)`` builds one: rank ``r`` at
+    its row-major coordinate, the first axis major (``(2, 2, 1)`` over
+    ``("pod", "data", "model")`` puts ranks 0, 1 in pod 0).  Raises
+    ``ValueError`` when the process group does not hold exactly its ranks."""
+    layout = mesh_layout(shape, axes)
+    shape = tuple(layout.shape[a] for a in layout.axis_names)
+    need, n = math.prod(shape), _world()
+    if n != need:
+        name = f"{what!r} {shape}" if what else f"{shape} over {layout.axis_names}"
+        raise ValueError(f"mesh {name} needs {need} ranks; the process group "
+                         f"has {n}")
+    return DeviceMesh(_mesh_device_type(), torch.arange(n).reshape(shape),
+                      mesh_dim_names=layout.axis_names)
 
 
 def make_mesh_named(name: str) -> DeviceMesh:
@@ -188,13 +215,8 @@ def make_mesh_named(name: str) -> DeviceMesh:
     "model")``, ``pipeline`` (2, 2, 8, 16).  Raises ``ValueError`` when the
     process group does not hold exactly the ranks the mesh needs."""
     layout = named_mesh_layout(name)
-    shape = tuple(layout.shape[a] for a in layout.axis_names)
-    need, n = math.prod(shape), _world()
-    if n != need:
-        raise ValueError(f"mesh {name!r} {shape} needs {need} ranks; the "
-                         f"process group has {n}")
-    return DeviceMesh(_mesh_device_type(), torch.arange(n).reshape(shape),
-                      mesh_dim_names=layout.axis_names)
+    return make_mesh([layout.shape[a] for a in layout.axis_names],
+                     layout.axis_names, what=name)
 
 
 # ---------------------------------------------------------------------------

@@ -56,20 +56,23 @@ driver's flags.  Kinds:
 ``compressed_psum``  ``training.compressed_psum`` over the ``data`` axis of
                 a 1D mesh of every rank: rank ``r`` contributes ``x[r]`` (a
                 numpy array) with ``method``; returns the result as numpy
-``train``       ``launch.train.train_run`` of the job on the named mesh
-                ``mesh`` (``launch.mesh.make_mesh_named``; e.g. ``"tiny"``);
+``train``       ``launch.train.train_run`` of the job on the mesh ``mesh``:
+                a name (``launch.mesh.make_mesh_named``; e.g. ``"tiny"``)
+                or ``(shape, axes)`` (``launch.mesh.make_mesh``; e.g.
+                ``((2, 2, 1), ("pod", "data", "model"))``);
                 returns its record (losses, grad norms, per step the
                 seconds, launches and collectives; ``gather=True`` adds the
                 final params whole on the lead rank)
 ``moe``         one MoE layer (``models.moe.moe``) of the config (``arch``,
-                ``reduced``, ``cfg`` as for ``train``) on the named mesh
-                ``mesh``, forward and backward: ``layer`` the layer's
+                ``reduced``, ``cfg`` as for ``train``) on the mesh ``mesh``
+                (as for ``train``), forward and backward: ``layer`` the layer's
                 weights (numpy, the reference's keys without ``stk_``),
                 ``x`` and ``dout`` the global (B, S, D) input and output
                 weights (numpy); each rank takes its blocks (the batch by
-                ``batch_spec``, whole when the data axis does not divide
+                ``batch_spec``, whole when the data axes do not divide
                 it); the objective is ``sum(out * dout) + aux_loss``.
-                Returns the rank's ``data`` coordinate, its output block,
+                Returns the rank's index over the data axes (``data``,
+                pod-major) and their rank count (``n_data``), its output block,
                 the global ``expert_load``, ``dropped_frac`` and
                 ``aux_loss``, the input's gradient (this rank's block) and
                 the weights' gradients whole on the lead rank
@@ -385,52 +388,62 @@ def _compressed_psum(rank: _Rank, job: dict) -> dict:
     return dict(out=out.cpu().numpy(), collectives=coll.collective_counts())
 
 
-def _train(rank: _Rank, job: dict) -> dict:
-    from .mesh import make_mesh_named
-    from .train import train_run
-    key = ("named", job["mesh"])
+def _job_mesh(rank: _Rank, spec):
+    """The mesh a ``train`` or ``moe`` job names (a name, or ``(shape,
+    axes)``), built once a rank."""
+    from .mesh import make_mesh, make_mesh_named
+    named = isinstance(spec, str)
+    key = ("named", spec if named else (tuple(spec[0]), tuple(spec[1])))
     if key not in rank.meshes:
-        rank.meshes[key] = make_mesh_named(job["mesh"])
-    return train_run(job, rank.device, rank.meshes[key])
+        rank.meshes[key] = make_mesh_named(spec) if named else make_mesh(*spec)
+    return rank.meshes[key]
+
+
+def _train(rank: _Rank, job: dict) -> dict:
+    from .train import train_run
+    return train_run(job, rank.device, _job_mesh(rank, job["mesh"]))
 
 
 def _moe(rank: _Rank, job: dict) -> dict:
-    from ..dist.sharding import (axis_index, axis_size, batch_spec,
-                                 gather_tree, shard_tree, spec_axes, spec_tree)
+    from ..dist.sharding import (batch_spec, data_axes, data_rank, gather_tree,
+                                 shard_tree, spec_axes, spec_tree)
     from ..models import Model
     from ..models.moe import moe
-    from .mesh import make_mesh_named
     from .train import _config
-    key = ("named", job["mesh"])
-    if key not in rank.meshes:
-        rank.meshes[key] = make_mesh_named(job["mesh"])
-    mesh, cfg = rank.meshes[key], _config(job)
+    mesh, cfg = _job_mesh(rank, job["mesh"]), _config(job)
     specs = spec_tree({k: v.shape for k, v in job["layer"].items()}, mesh,
                       cfg.expert_sharding)
     host = {k: torch.from_numpy(v) for k, v in job["layer"].items()}
     p = {k: v.to(rank.device).requires_grad_()
          for k, v in shard_tree(host, mesh, specs).items()}
-    nd = axis_size(mesh, "data")
-    whole = batch_spec(job["x"].shape[0], mesh) == (None,)
+    axes = data_axes(mesh)
+    index, nd = data_rank(mesh)
+    rows = batch_spec(job["x"].shape[0], mesh)
+    whole = rows == (None,)
     xs, gs = (torch.from_numpy(a) for a in (job["x"], job["dout"]))
     if not whole:
-        xs, gs = (shard_tree({"t": t}, mesh, {"t": ("data",)})["t"] for t in (xs, gs))
+        xs, gs = (shard_tree({"t": t}, mesh, {"t": rows})["t"] for t in (xs, gs))
     x = xs.to(rank.device).requires_grad_()
     out, aux = moe(p, x, cfg, Model(cfg).placement(rank.device), mesh=mesh,
                    whole_batch=whole)
-    share = (out.float() * gs.to(rank.device)).sum() / (nd if whole else 1)
-    loss = coll.reduce_over_axis(share.reshape(1), mesh, "data")[0] + aux["aux_loss"]
+    loss = ((out.float() * gs.to(rank.device)).sum() / (nd if whole else 1)).reshape(1)
+    for a in axes:
+        loss = coll.reduce_over_axis(loss, mesh, a)
+    loss = loss[0] + aux["aux_loss"]
     *gp, gx = torch.autograd.grad(loss, list(p.values()) + [x])
     grads = dict(zip(p, gp))
-    # the train step's sums over data: the weights not split over it, and a
-    # whole batch's input (each data rank holds a share of its gradient)
+    # the train step's sums over the data axes: each weight over those it
+    # is not split over, and a whole batch's input (each data rank holds a
+    # share of its gradient)
     for name, g in grads.items():
-        if "data" not in {a for e in specs[name] for a in spec_axes(e)}:
-            coll.all_reduce(g, mesh, "data")
+        for a in axes:
+            if a not in {ax for e in specs[name] for ax in spec_axes(e)}:
+                coll.all_reduce(g, mesh, a)
     if whole:
-        coll.all_reduce(gx, mesh, "data")
+        for a in axes:
+            coll.all_reduce(gx, mesh, a)
     whole_grads = gather_tree(grads, mesh, specs)
-    return dict(data=axis_index(mesh, "data"), whole=whole,
+    return dict(data=index, n_data=nd, whole=whole,
                 out=out.detach().cpu().numpy(), dx=gx.cpu().numpy(),
                 expert_load=aux["expert_load"].cpu().numpy(),
                 dropped_frac=float(aux["dropped_frac"]),

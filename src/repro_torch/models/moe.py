@@ -13,37 +13,41 @@ flat sort) give the same capacity and the same function, and both take the
 one path; ``"global"`` keeps the reference's refusal of ``expert_split >
 1``.
 
-**On a mesh** (``mesh`` with one data axis, ``data``, and ``model``) the
-reference's groups are the product of the data axes halved until it divides
-the global token count (``_n_groups``); each group has its own capacity, so
-drops differ from one card's, as in the reference.  A batch split over
-``data`` gives every data rank exactly one group, its own tokens; a batch
-each data rank holds whole (``whole_batch``: one the data axis does not
+**On a mesh** (``mesh`` with one data axis, ``data``, or two, ``pod`` and
+``data``, and ``model``) the reference's groups are the product of the
+data axes halved until it divides the global token count (``_n_groups``);
+each group has its own capacity, so drops differ from one card's, as in the
+reference.  A batch split over the data axes gives every data rank exactly
+one group, its own tokens (data rank ``r`` the index over the data axes,
+``pod`` major, as ``dist.sharding.batch_spec`` orders the rows); a batch
+each data rank holds whole (``whole_batch``: one the data axes do not
 divide) gives every rank all the groups.  The expert weights are placed by
 the reference's rule (``dist.sharding.param_spec``):
 
-* ``ep`` (llama4): slots split over ``data``, d_ff over ``model``.  Each
-  rank dispatches its group, one all-to-all over ``data`` takes the
-  buffers from group-sharded to slot-sharded, the slots' products run on
+* ``ep`` (llama4): slots split over ``data`` (the last data axis) and
+  replicated over ``pod``, d_ff over ``model``.  Each rank dispatches its
+  group, one all-to-all over ``data`` takes the buffers of its pod's groups
+  from group-sharded to slot-sharded (no buffer crosses ``pod``: a group's
+  products do not depend on another group's), the slots' products run on
   this rank's d_ff slice and their partial sums are reduced over
   ``model``, and a second all-to-all takes them back; the combine is
   local.  With a whole batch each rank takes its slots of every group's
   buffers and an all-gather over ``data`` brings the others' outputs.
-* ``tp2d`` (grok): every slot on every rank, d_ff split over ``(data,
-  model)``.  The groups' buffers are gathered over ``data``, each rank runs
-  its d_ff slice on all of them, and the partial sums are reduced over
-  ``model`` and reduce-scattered over ``data`` back to each rank's group
-  (with a whole batch, all-reduced over ``data``).
-* ``moe_dispatch="global"``: the tokens are gathered over ``data`` and
+* ``tp2d`` (grok): every slot on every rank, d_ff split over ``(pod, data,
+  model)``.  The groups' buffers are gathered over the data axes, each
+  rank runs its d_ff slice on all of them, and the partial sums are reduced
+  over ``model`` and reduce-scattered over the data axes back to each
+  rank's group (with a whole batch, all-reduced over them).
+* ``moe_dispatch="global"``: the tokens are gathered over the data axes and
   routed as one group on every rank, the reference's function (its one
   flat sort); each rank keeps its rows of the result.
 
 The load-balance loss is global, as the reference takes it: the top-1
-counts are all-reduced over ``data`` (with the kept entries, for
+counts are all-reduced over the data axes (with the kept entries, for
 ``dropped_frac``), and each rank's share of ``aux_loss``, its tokens' sum
 of probabilities against the global counts (a whole batch: the loss over
-the data ranks), is summed over ``data`` with an identity backward, so the
-train step's sum of the data ranks' gradients is the gradient of the
+the data ranks), is summed over the data axes with an identity backward, so
+the train step's sum of the data ranks' gradients is the gradient of the
 global loss.
 
 Routing, as the reference computes it: the router in float32, softmax over
@@ -75,8 +79,8 @@ import torch.nn.functional as F
 
 from ..core.partitioners import greedy_partitioner
 from ..dist import collectives as coll
-from ..dist.sharding import (axis_index, axis_size, data_axes, mesh_axes,
-                             param_spec, spec_axes)
+from ..dist.sharding import (axis_index, axis_size, data_axes, data_rank,
+                             mesh_axes, param_spec, spec_axes)
 
 __all__ = ["init_moe", "expert_placement", "moe"]
 
@@ -262,6 +266,15 @@ def moe(p: dict, x: torch.Tensor, cfg, placement: Optional[torch.Tensor] = None,
     return out, {"aux_loss": aux_loss, "expert_load": ce, "dropped_frac": dropped}
 
 
+def _gather(t, mesh, axes, dim):
+    """``t`` of every rank over ``axes`` concatenated along ``dim`` in the
+    flattened order, the first axis major (one all-gather an axis, the
+    last first)."""
+    for a in reversed(axes):
+        t = coll.gather_over_axis(t, mesh, a, dim)
+    return t
+
+
 def _moe_mesh(p, x, cfg, placement, mesh, whole_batch):
     """:func:`moe` on a mesh (module docstring)."""
     b, s, d = x.shape
@@ -269,8 +282,8 @@ def _moe_mesh(p, x, cfg, placement, mesh, whole_batch):
     if cfg.moe_dispatch == "global" and cfg.expert_split != 1:
         raise ValueError("moe_dispatch='global' has one slot per expert; "
                          f"expert_split={cfg.expert_split} needs 'local'")
-    (data,) = data_axes(mesh) or (None,)
-    nd = axis_size(mesh, data) if data else 1
+    daxes = data_axes(mesh)
+    rank, nd = data_rank(mesh)
     model = "model" if mesh_axes(mesh).get("model", 1) > 1 else None
     xf = x.reshape(b * s, d)
     # the groups this rank routes: its own one (a split batch), or every
@@ -278,7 +291,7 @@ def _moe_mesh(p, x, cfg, placement, mesh, whole_batch):
     replicated = whole_batch or cfg.moe_dispatch == "global" or nd == 1
     if cfg.moe_dispatch == "global":
         if not whole_batch and nd > 1:
-            xf = coll.gather_over_axis(xf, mesh, data, 0)
+            xf = _gather(xf, mesh, daxes, 0)
         n_tokens, g = xf.shape[0], 1
     else:
         n_tokens = xf.shape[0] * (1 if replicated else nd)
@@ -288,7 +301,8 @@ def _moe_mesh(p, x, cfg, placement, mesh, whole_batch):
     probs = torch.softmax(groups.float() @ p["router"].float(), dim=-1)
 
     # statistics over every group: the top-1 counts and kept entries summed
-    # over data (a split batch), then each rank's share of the aux loss
+    # over the data axes (a split batch), then each rank's share of the aux
+    # loss
     cap = _capacity(tg, k, cfg)
     dispatched = [_dispatch_one_group(groups[i], probs[i], k, e, cap, placement,
                                       split=cfg.expert_split) for i in range(g)]
@@ -296,46 +310,55 @@ def _moe_mesh(p, x, cfg, placement, mesh, whole_batch):
     stats = torch.cat([_count(probs.argmax(-1).reshape(-1), e),
                        sum(m[3].long().sum() for _, m in dispatched).reshape(1)])
     if not replicated:
-        coll.all_reduce(stats, mesh, data)
+        for a in daxes:
+            coll.all_reduce(stats, mesh, a)
         entries *= nd
     ce = stats[:e].float() / n_tokens
     share = e * torch.sum(probs.sum((0, 1)) / n_tokens * ce)
-    if data:
-        share = share / nd if replicated else share
-        share = coll.reduce_over_axis(share.reshape(1), mesh, data)[0]
+    if daxes:
+        share = (share / nd if replicated else share).reshape(1)
+        for a in daxes:
+            share = coll.reduce_over_axis(share, mesh, a)
+        share = share[0]
     dropped = 1.0 - stats[e].float() / entries
 
     slot_axes, ff_axes = _expert_axes(cfg, d, mesh)
     bufs = torch.stack([buf for buf, _ in dispatched])     # (g, slots, cap, D)
     slots = bufs.shape[1]
-    ep = data is not None and data in slot_axes
-    tp2d = data is not None and data in ff_axes
+    # ep: the slots split over one data axis (the last), replicated over the
+    # others; tp2d: d_ff split over every data axis (and model)
+    ep = next((a for a in daxes if a in slot_axes), None)
+    ff_data = tuple(a for a in daxes if a in ff_axes)
+    n_ep = axis_size(mesh, ep) if ep else 1
     if ep and replicated:
-        n = slots // nd
-        bufs = bufs[:, axis_index(mesh, data) * n:(axis_index(mesh, data) + 1) * n]
-    elif ep:        # group-sharded -> slot-sharded: (nd groups, my slots, ...)
-        bufs = coll.all_to_all_over_axis(bufs.reshape(nd, slots // nd, cap, d),
-                                         mesh, data)
-    elif tp2d and not replicated:
-        bufs = coll.gather_over_axis(bufs, mesh, data, 0)
+        n = slots // n_ep
+        bufs = bufs[:, axis_index(mesh, ep) * n:(axis_index(mesh, ep) + 1) * n]
+    elif ep:        # group-sharded -> slot-sharded: (n_ep groups, my slots, ...)
+        bufs = coll.all_to_all_over_axis(bufs.reshape(n_ep, slots // n_ep, cap, d),
+                                         mesh, ep)
+    elif ff_data and not replicated:
+        bufs = _gather(bufs, mesh, ff_data, 0)
     if model and model in ff_axes:
         bufs = coll.copy_to_axis(bufs, mesh, model)
     out_buf = _experts(p, bufs, cfg)
     if model and model in ff_axes:
         out_buf = coll.reduce_over_axis(out_buf, mesh, model)
     if ep and replicated:
-        out_buf = coll.gather_over_axis(out_buf, mesh, data, 1)
-    elif ep:        # back: (nd slot blocks, my group's rows) -> (1, slots, ...)
-        out_buf = coll.all_to_all_over_axis(out_buf, mesh, data).reshape(
+        out_buf = coll.gather_over_axis(out_buf, mesh, ep, 1)
+    elif ep:        # back: (n_ep slot blocks, my group's rows) -> (1, slots, ...)
+        out_buf = coll.all_to_all_over_axis(out_buf, mesh, ep).reshape(
             1, slots, cap, d)
-    elif tp2d and replicated:
-        out_buf = coll.copy_to_axis(coll.reduce_over_axis(out_buf, mesh, data),
-                                    mesh, data)
-    elif tp2d:
-        out_buf = coll.reduce_scatter_over_axis(out_buf, mesh, data, 0)
+    elif ff_data and replicated:
+        for a in ff_data:
+            out_buf = coll.reduce_over_axis(out_buf, mesh, a)
+        for a in ff_data:
+            out_buf = coll.copy_to_axis(out_buf, mesh, a)
+    elif ff_data:   # each group's sum back to its data rank, the first axis major
+        for a in ff_data:
+            out_buf = coll.reduce_scatter_over_axis(out_buf, mesh, a, 0)
     out = torch.cat([_combine_one_group(out_buf[i], m, tg, d)
                      for i, (_, m) in enumerate(dispatched)])
     if cfg.moe_dispatch == "global" and not whole_batch and nd > 1:
-        out = out.narrow(0, axis_index(mesh, data) * b * s, b * s)
+        out = out.narrow(0, rank * b * s, b * s)
     out = out.reshape(b, s, d).to(x.dtype)
     return out, {"aux_loss": share, "expert_load": ce, "dropped_frac": dropped}

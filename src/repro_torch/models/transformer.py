@@ -34,7 +34,8 @@ prefill and decode take no image, as the reference's.  The cost-analysis
 mode raises ``NotImplementedError``.
 
 ``Model(cfg, mesh=mesh)`` trains a decoder on a ``("data", "model")``
-mesh (``launch.mesh.make_mesh_named``) with the parameters placed by the
+or ``("pod", "data", "model")`` mesh (``launch.mesh.make_mesh_named``,
+``launch.mesh.make_mesh``) with the parameters placed by the
 reference's rules (``self.specs``, from ``dist.sharding.spec_tree``): each
 rank holds its block of every leaf (``dist.sharding.shard_tree``) and its
 block of the batch.  Attention and the MLP are tensor-parallel over
@@ -61,8 +62,10 @@ computed on every model rank with no collective, and heads the axis does
 not divide (hymba's 25) all run on every rank (:mod:`.attention`).
 whisper's encoder runs tensor-parallel too, and its cross K/V are each
 rank's KV heads; phi-3-vision's image rows are each data rank's rows of
-the batch.  ``seq_parallel``, ``mlp_dp``, a mixture of experts over more
-than one data axis, a model axis that does not split d_ff, the attention
+the batch.  A mesh may have two data axes, the reference's ``pod`` and
+``data``: the batch, the loss and the gradients are summed over both, and a
+mixture of experts routes their product of groups.  ``seq_parallel``,
+``mlp_dp``, a model axis that does not split d_ff, the attention
 projections or a recurrent block's channels, and serving on a mesh raise
 ``NotImplementedError`` (``check_mesh``).
 """
@@ -158,10 +161,9 @@ def has_attention(kind: str) -> bool:
 
 def check_mesh(cfg, mesh) -> None:
     """Raise ``NotImplementedError`` for what mesh training does not port
-    (ROADMAP item 12h): ``seq_parallel`` and ``mlp_dp``, a mixture of
-    experts over more than one data axis (the reference's ``pod`` meshes),
-    a model axis that does not split d_ff, the attention projections'
-    columns or, for the recurrent and hybrid kinds, the mLSTM's head width,
+    (ROADMAP item 12h): ``seq_parallel`` and ``mlp_dp``, a model axis that
+    does not split d_ff, the attention projections' columns or, for the
+    recurrent and hybrid kinds, the mLSTM's head width,
     the sLSTM's channels or the SSM's inner channels, and an
     encoder-decoder whose model axis does not give each rank its own query
     and KV heads (cross-attention takes that form only).  Heads, KV heads
@@ -169,11 +171,6 @@ def check_mesh(cfg, mesh) -> None:
     replicates such a leaf, and the layers follow (every head on every rank,
     :func:`.attention.head_split`; the whole vocabulary on every rank)."""
     kinds = {k.split("+")[0] for k, _ in stages_meta(cfg)}
-    if cfg.n_experts and len(data_axes(mesh)) > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: a mixture of experts over the data axes "
-            f"{data_axes(mesh)} is not ported (one data axis is; ROADMAP "
-            "item 12h)")
     for flag in ("seq_parallel", "mlp_dp"):
         if getattr(cfg, flag, False):
             raise NotImplementedError(

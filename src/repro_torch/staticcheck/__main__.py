@@ -18,12 +18,13 @@
   3. audit       a warm mine() level by level and >= 5 stream slides,
                  compact=True and compact=False, on the fused backend (on
                  the host: ref and fused): the declared host syncs exactly,
-                 no build and no new allocator segment, every padding on
-                 the bucket ladder
+                 what the card synchronised on (the profiler's CUDA
+                 runtime calls) within their total, no build and no new
+                 allocator segment, every padding on the bucket ladder
 
 The gate also self-tests its teeth: every must-fail fixture (the lint's,
-the four contract programs, the shape fixture) must still produce its
-findings, or the gate fails.  It writes a JSON report (default
+the four contract programs, the shape fixture, the card-sync fixture)
+must still produce its findings, or the gate fails.  It writes a JSON report (default
 ``reports/torch_static_findings.json``, git-ignored) and exits 1 on any
 error finding; a ``--contract-fixture`` or ``--shape-fixture`` run exits 1
 when it finds what it must.  Without ``--device cpu`` it runs on the card,
@@ -110,11 +111,13 @@ def _print_syncs(summary: dict) -> None:
     if isinstance(syncs, dict):                   # a mine: level by level
         for lv in syncs["per_level"]:
             print(f"static: {target} level {lv['level']}: declared syncs "
-                  f"{lv['declared']} counted {lv['counted']}")
+                  f"{lv['declared']} counted {lv['counted']}; the card "
+                  f"synchronised {lv['card']}")
         out = syncs["outside_levels"]
         if out["declared"] is not None:
             print(f"static: {target} outside the levels: declared "
-                  f"{out['declared']} counted {out['counted']}")
+                  f"{out['declared']} counted {out['counted']}; the card "
+                  f"synchronised {out['card']}")
         return
     for sl in syncs:                              # a stream: slide by slide
         per_level = sl["counted"]["per_level"]
@@ -123,7 +126,18 @@ def _print_syncs(summary: dict) -> None:
               f"declared syncs a level {sl['declared']['per_level']}, counted "
               f"{'the same in each' if same else per_level}; outside the levels "
               f"declared {sl['declared']['outside_levels']} counted "
-              f"{sl['counted']['outside_levels']}")
+              f"{sl['counted']['outside_levels']}; the card synchronised "
+              f"{_card_line(sl['card'])}")
+
+
+def _card_line(card) -> str:
+    """A slide's card count, its levels' totals folded when they agree."""
+    if card is None:
+        return "(not cut)"
+    totals = {lv["total"] for lv in card["levels"]}
+    per_level = (f"{totals.pop()} a level" if len(totals) == 1 else
+                 f"{[lv['total'] for lv in card['levels']]} by level")
+    return f"{per_level}, {card['outside']} outside them"
 
 
 def run_shapes(report: Report, device: str) -> int:
@@ -151,7 +165,7 @@ def run_shapes(report: Report, device: str) -> int:
 
 
 def run_shape_fixture(report: Report, device: str) -> int:
-    from .shapes import check_shape_fixture
+    from .shapes import check_card_sync_fixture, check_shape_fixture
     rules = sorted({f.rule for f in check_shape_fixture(device)})
     want = {"SH001", "SH002", "SH003"} if device == "cuda" else {"SH003"}
     rotted = 0 if want <= set(rules) else 1
@@ -160,7 +174,24 @@ def run_shape_fixture(report: Report, device: str) -> int:
               f"expected {sorted(want)}", file=sys.stderr)
     report.summary["shape_fixture"] = {"rules": rules, "rotted": rotted}
     print(f"static: shape fixture trips {rules}")
-    return rotted
+    # the sync only the profiler sees: a card finding, no warn-mode sync
+    findings, seen = check_card_sync_fixture(device)
+    if device == "cuda":
+        card_rotted = int(not findings or bool(seen["warn_mode"]))
+        if card_rotted:
+            print(f"static: FIXTURE ROTTED — card-sync fixture: profiler count "
+                  f"{seen['card']}, warn mode {seen['warn_mode']} (expected a "
+                  f"finding from the profiler alone)", file=sys.stderr)
+        print(f"static: card-sync fixture trips {sorted({f.rule for f in findings})}"
+              f" through the profiler's count {seen['card']}; the warn mode "
+              f"counted {seen['warn_mode'] or '{}'}")
+    else:
+        card_rotted = int(bool(findings))
+        print(f"static: card-sync fixture {seen['not_checked']}")
+    report.summary["card_sync_fixture"] = {
+        "rules": sorted({f.rule for f in findings}), "rotted": card_rotted,
+        **{k: v for k, v in seen.items()}}
+    return rotted + card_rotted
 
 
 def full_gate(report_path: str, device: str) -> int:
@@ -192,8 +223,9 @@ def main(argv: List[str]) -> int:
                     help="run one contract fixture; exit 1 when it violates "
                          "its contract (the committed ones must)")
     ap.add_argument("--shape-fixture", action="store_true",
-                    help="run the shape fixture; exit 1 when it produces "
-                         "findings (the committed one must)")
+                    help="run the shape fixtures (the one of each rule, and "
+                         "the sync only the profiler counts); exit 1 when they "
+                         "produce findings (the committed ones must)")
     ap.add_argument("--report", default=DEFAULT_REPORT, metavar="PATH",
                     help="findings report path (default "
                          "reports/torch_static_findings.json)")
@@ -223,8 +255,8 @@ def main(argv: List[str]) -> int:
         return 1 if findings else 0
 
     if args.shape_fixture:
-        from .shapes import check_shape_fixture
-        findings = check_shape_fixture(device)
+        from .shapes import check_card_sync_fixture, check_shape_fixture
+        findings = check_shape_fixture(device) + check_card_sync_fixture(device)[0]
         _print(findings, "shape")
         print(f"static: {len(findings)} finding(s)")
         return 1 if findings else 0

@@ -20,6 +20,16 @@ they read:
            that site's ``# staticcheck: sync=`` marker), and each site's count
            equals its declared one exactly.  A host-to-device copy that
            waits shows up in the same count and is declared the same way.
+           That mode "does not yet detect all synchronizing operations"
+           (torch's words; ``torch.cuda.Event.synchronize`` is one it
+           misses), so the audit also reads what the card really
+           synchronised on: ``torch.profiler``'s CUDA runtime calls
+           ``cudaStreamSynchronize``, ``cudaDeviceSynchronize`` and
+           ``cudaEventSynchronize``, and each device-to-host
+           ``cudaMemcpy*`` that no such call follows (a copy and its wait
+           are one sync), cut into levels and slides by
+           ``record_function`` ranges at the same marks.  That count may
+           not exceed the total of the unit's :data:`SYNC_BUDGET` sites.
     SH003  every recorded ``level_padding`` entry sits on a rung of
            ``core.engine.bucket_size``.
 
@@ -28,7 +38,9 @@ level by level; ``audit_streaming`` fills the window, runs warm-up slides
 over a periodic stream and audits >= 5 more.  On the host (``device="cpu"``)
 only SH003 and the static part of SH001 can fire; the summary says so.
 ``check_shape_fixture`` is the must-fail self-test: one finding of each
-rule on the card, SH003 on the host.
+rule on the card, SH003 on the host; ``check_card_sync_fixture`` makes one
+sync the warn mode misses inside a level, which only the profiler's count
+finds (on the host it is not counted).
 """
 from __future__ import annotations
 
@@ -43,8 +55,10 @@ import numpy as np
 
 from .report import Finding
 
-__all__ = ["SyncSite", "SYNC_BUDGET", "declared_syncs",
-           "audit_mine", "audit_streaming", "check_shape_fixture",
+__all__ = ["SyncSite", "SYNC_BUDGET", "declared_syncs", "budget_total",
+           "CardEvent", "card_events", "cut_card_syncs", "cut_card_slides",
+           "card_sync_findings", "audit_mine", "audit_streaming",
+           "check_shape_fixture", "check_card_sync_fixture",
            "compile_findings", "SHAPE_FIXTURES"]
 
 
@@ -136,6 +150,12 @@ def _expected(units: Dict[str, int]) -> Dict[str, int]:
     return out
 
 
+def budget_total(units: Dict[str, int]) -> int:
+    """How many syncs :data:`SYNC_BUDGET` declares for ``units`` in all:
+    what the card may synchronise on in that much work."""
+    return sum(_expected(units).values())
+
+
 def compile_findings() -> List[Finding]:
     """SH001's static part: no ``torch.compile`` (or ``torch._dynamo``)
     anywhere in the port's source, so nothing the mining path runs is ever
@@ -163,21 +183,130 @@ def compile_findings() -> List[Finding]:
 
 
 # ---------------------------------------------------------------------------
+# what the card synchronised on: the profiler's CUDA runtime calls
+# ---------------------------------------------------------------------------
+
+# the runtime calls that hold the host until the card has caught up
+_SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+               "cudaEventSynchronize")
+# the record_function marks that cut the trace: the audited region, each
+# level (an ``Engine.expand``) and each stream slide
+REGION, LEVEL, SLIDE = "staticcheck::region", "staticcheck::level", "staticcheck::slide"
+
+
+@dataclasses.dataclass(frozen=True)
+class CardEvent:
+    """One entry of a profiler trace that the card's count reads, on the
+    host clock (microseconds): a ``record_function`` range (``kind``
+    ``"range"``, ``name`` its mark), a synchronising runtime call
+    (``"sync"``) or a runtime copy whose device copy runs device to host
+    (``"d2h"``)."""
+
+    kind: str
+    name: str
+    start: float
+    end: float
+
+
+def card_events(prof) -> List[CardEvent]:
+    """The marks, synchronising calls and device-to-host copy calls of a
+    ``torch.profiler.profile`` run with the CUDA activity, in start order.
+    A runtime copy call is matched to its device copy (``Memcpy DtoH``) by
+    the correlation id the profiler gives both."""
+    evs = list(prof.events())
+    d2h = {e.id for e in evs
+           if str(e.device_type).endswith("CUDA") and "DtoH" in e.name}
+    out = []
+    for e in evs:
+        if not str(e.device_type).endswith("CPU"):
+            continue
+        if e.name in (REGION, LEVEL, SLIDE):
+            kind = "range"
+        elif e.name in _SYNC_CALLS:
+            kind = "sync"
+        elif e.name.startswith("cudaMemcpy") and e.id in d2h:
+            kind = "d2h"
+        else:
+            continue
+        out.append(CardEvent(kind, e.name, float(e.time_range.start),
+                             float(e.time_range.end)))
+    return sorted(out, key=lambda c: (c.start, c.kind != "range"))
+
+
+def _ranges(events: Sequence[CardEvent], name: str, lo: float = float("-inf"),
+            hi: float = float("inf")) -> List[Tuple[float, float]]:
+    return [(e.start, e.end) for e in events
+            if e.kind == "range" and e.name == name and lo <= e.start < hi]
+
+
+def _count_card(events: Sequence[CardEvent], lo: float, hi: float,
+                skip: Sequence[Tuple[float, float]] = ()) -> Dict[str, int]:
+    """The syncs that start in ``[lo, hi)`` outside the ``skip`` ranges:
+    ``syncs`` (the runtime calls), ``d2h`` (device-to-host copies no such
+    call follows next) and their ``total``."""
+    sel = [e for e in events if e.kind != "range" and lo <= e.start < hi
+           and not any(a <= e.start < b for a, b in skip)]
+    syncs = sum(e.kind == "sync" for e in sel)
+    lone = sum(e.kind == "d2h" and not (i + 1 < len(sel) and sel[i + 1].kind == "sync")
+               for i, e in enumerate(sel))
+    return {"syncs": syncs, "d2h": lone, "total": syncs + lone}
+
+
+def cut_card_syncs(events: Sequence[CardEvent]) -> dict:
+    """A region's card syncs cut at its level marks: ``{"levels": [per
+    level], "outside": the rest of the region}``, each :func:`_count_card`'s
+    dict."""
+    (lo, hi), = _ranges(events, REGION)
+    levels = _ranges(events, LEVEL, lo, hi)
+    return {"levels": [_count_card(events, a, b) for a, b in levels],
+            "outside": _count_card(events, lo, hi, levels)}
+
+
+def cut_card_slides(events: Sequence[CardEvent]) -> List[dict]:
+    """A stream region's card syncs cut at its slide marks, each slide's at
+    its level marks: one :func:`cut_card_syncs` dict per slide."""
+    out = []
+    for lo, hi in _ranges(events, SLIDE):
+        levels = _ranges(events, LEVEL, lo, hi)
+        out.append({"levels": [_count_card(events, a, b) for a, b in levels],
+                    "outside": _count_card(events, lo, hi, levels)})
+    return out
+
+
+def card_sync_findings(target: str, what: str, units: Dict[str, int],
+                       counted: Dict[str, int]) -> List[Finding]:
+    """SH002 on the card's count: ``counted`` (a :func:`_count_card` dict)
+    may not exceed :data:`SYNC_BUDGET`'s total for ``units``."""
+    declared = budget_total(units)
+    if counted["total"] <= declared:
+        return []
+    return [Finding(rule="SH002", path=target, line=0,
+                    message=f"{what}: the card synchronised {counted['total']} "
+                            f"times (profiler: {counted['syncs']} synchronising "
+                            f"calls, {counted['d2h']} device-to-host copies "
+                            f"without one) > the {declared} declared for {units} "
+                            f"(shapes.SYNC_BUDGET)")]
+
+
+# ---------------------------------------------------------------------------
 # the audited region
 # ---------------------------------------------------------------------------
 
 class _Region:
     """Counts what a block of work does on the card: the synchronising
-    calls (torch's sync-debug warnings, each with its source line), the
-    caching allocator's new segments and retries, and any build or reload of
-    the kernel library.  ``mark()`` is an index into the calls, to cut them
-    into levels and slides.  On the host it counts nothing."""
+    calls (torch's sync-debug warnings, each with its source line), what
+    the card synchronised on (``card``: the profiler's :class:`CardEvent`
+    list, the region marked :data:`REGION`), the caching allocator's new
+    segments and retries, and any build or reload of the kernel library.
+    ``mark()`` is an index into the calls, to cut them into levels and
+    slides.  On the host it counts nothing."""
 
     def __init__(self, device):
         import torch
         self.device = torch.device(device)
         self.on_card = self.device.type == "cuda"
         self.calls: list = []
+        self.card: List[CardEvent] = []
         self.segments = self.retries = 0
         self.rebuilt = False
 
@@ -191,17 +320,22 @@ class _Region:
             return
         import torch
         from ..kernels import _build
+        from torch.profiler import ProfilerActivity, profile, record_function
         torch.cuda.synchronize(self.device)
         lib, info = _build._LIB, _build.build_info()
         before = torch.cuda.memory_stats(self.device)
-        with warnings.catch_warnings(record=True) as seen:
-            warnings.simplefilter("always")
-            self.calls = seen
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                yield self
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
+        # the profiler outside the warn mode: its own stop synchronises
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                self.calls = seen
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    with record_function(REGION):
+                        yield self
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+        self.card = card_events(prof)
         torch.cuda.synchronize(self.device)
         after = torch.cuda.memory_stats(self.device)
         self.segments = (after.get("segment.all.allocated", 0)
@@ -257,14 +391,18 @@ def _sync_finding(target: str, what: str, declared: Dict[str, int],
 
 def _mark_levels(engine, region: _Region, spans: List[Tuple[int, int]]) -> None:
     """Mark every ``engine.expand`` call in ``region``: ``spans`` receives
-    one ``(lo, hi)`` pair of call indices per level (an instance attribute
-    over the method, dropped by :func:`_unmark`)."""
+    one ``(lo, hi)`` pair of call indices per level, and the profiler a
+    :data:`LEVEL` range (an instance attribute over the method, dropped by
+    :func:`_unmark`)."""
     real = engine.expand
+
+    from torch.profiler import record_function
 
     def expand(*args, **kwargs):
         lo = region.mark()
         try:
-            return real(*args, **kwargs)
+            with record_function(LEVEL):
+                return real(*args, **kwargs)
         finally:
             spans.append((lo, region.mark()))
 
@@ -347,8 +485,9 @@ def _checks(on_card: bool) -> dict:
     if on_card:
         return {"checks": ["SH001", "SH002", "SH003"], "not_checked": None}
     return {"checks": ["SH001 (static: no torch.compile)", "SH003"],
-            "not_checked": "SH002 and SH001's build and allocator checks read "
-                           "the card: on the host there is no sync, segment or "
+            "not_checked": "SH002 (the warn mode's and the profiler's counts) "
+                           "and SH001's build and allocator checks read the "
+                           "card: on the host there is no sync, segment or "
                            "kernel build to count"}
 
 
@@ -387,16 +526,32 @@ def audit_mine(backend: str = "fused", *, compact: bool = True, device=None,
     findings: List[Finding] = list(compile_findings())
     per_level = []
     level_units = {"level": 1, "level without compaction": 0 if compact else 1}
+    card_out = None
     if region.on_card:
         want = _expected(level_units)
+        card = cut_card_syncs(region.card)
+        if len(card["levels"]) != len(level_spans):
+            findings.append(Finding(
+                rule="SH002", path=target, line=0,
+                message=f"the profiler marked {len(card['levels'])} levels, the "
+                        f"audit {len(level_spans)}: the card's count cannot be cut"))
         for i, (lo, hi) in enumerate(level_spans):
             got = region.sites(range(lo, hi), declared)
-            per_level.append({"level": i + 2, "declared": want, "counted": got})
+            on_card = card["levels"][i] if i < len(card["levels"]) else None
+            per_level.append({"level": i + 2, "declared": want, "counted": got,
+                              "card": on_card})
             findings += _sync_finding(target, f"level {i + 2}", want, got)
-        want_out = _expected({"co-occurrence count": 1})
+            if on_card is not None:
+                findings += card_sync_findings(target, f"level {i + 2}",
+                                               level_units, on_card)
+        outside_units = {"co-occurrence count": 1}
+        want_out = _expected(outside_units)
         got_out = region.sites(_outside(0, len(region.calls), level_spans),
                                declared)
         findings += _sync_finding(target, "outside the levels", want_out, got_out)
+        card_out = card["outside"]
+        findings += card_sync_findings(target, "outside the levels", outside_units,
+                                       card_out)
         findings += region.sh001(target)
     else:
         want_out = got_out = None
@@ -414,7 +569,8 @@ def audit_mine(backend: str = "fused", *, compact: bool = True, device=None,
         "itemsets": res.total, "counts": list(res.counts),
         "level_padding": [list(p) for p in engine.level_padding],
         "syncs": {"per_level": per_level,
-                  "outside_levels": {"declared": want_out, "counted": got_out}},
+                  "outside_levels": {"declared": want_out, "counted": got_out,
+                                     "card": card_out}},
         "allocator": ({"segments_added": region.segments,
                        "alloc_retries": region.retries} if region.on_card else None),
         "findings": len(findings), **_checks(region.on_card),
@@ -453,6 +609,7 @@ def audit_streaming(backend: str = "fused", shard: str = "pairs", mesh=None,
     for b in batches[: n_blocks + warmup]:
         miner.advance(b)
 
+    from torch.profiler import record_function
     declared = declared_syncs()
     region = _Region(dev)
     per_slide, counts, bounds = [], [], []
@@ -463,7 +620,8 @@ def audit_streaming(backend: str = "fused", shard: str = "pairs", mesh=None,
             for b in batches[n_blocks + warmup:]:
                 evicts = miner.ring.full
                 lo, first = region.mark(), len(spans)
-                res = miner.advance(b)
+                with record_function(SLIDE):
+                    res = miner.advance(b)
                 bounds.append((lo, region.mark(), first, len(spans), evicts))
                 counts.append(list(res.counts))
     finally:
@@ -472,22 +630,38 @@ def audit_streaming(backend: str = "fused", shard: str = "pairs", mesh=None,
     if region.on_card:
         level_units = {"level": 1, "level without compaction": 0 if compact else 1}
         want_level = _expected(level_units)
+        card = cut_card_slides(region.card)
+        if [len(c["levels"]) for c in card] != [last - first for _, _, first, last, _
+                                                 in bounds]:
+            findings.append(Finding(
+                rule="SH002", path=target, line=0,
+                message="the profiler's slide and level marks differ from the "
+                        "audit's: the card's count cannot be cut"))
+            card = [None] * len(bounds)
         for i, (lo, hi, first, last, evicts) in enumerate(bounds):
             lspans = spans[first:last]
             levels = [region.sites(range(a, z), declared) for a, z in lspans]
             got_out = region.sites(_outside(lo, hi, lspans), declared)
-            want_out = _expected({"push": 1,
-                                  "co-occurrence count": 2 if evicts else 1})
+            out_units = {"push": 1, "co-occurrence count": 2 if evicts else 1}
+            want_out = _expected(out_units)
             per_slide.append({"slide": i, "levels": len(lspans),
                               "declared": {"per_level": want_level,
                                            "outside_levels": want_out},
                               "counted": {"per_level": levels,
-                                          "outside_levels": got_out}})
+                                          "outside_levels": got_out},
+                              "card": card[i]})
             findings += _sync_finding(target, f"audited slide {i} outside its "
                                       f"levels", want_out, got_out)
             for k, got in enumerate(levels):
                 findings += _sync_finding(target, f"audited slide {i} level "
                                           f"{k + 2}", want_level, got)
+            if card[i] is None:
+                continue
+            findings += card_sync_findings(target, f"audited slide {i} outside its "
+                                           f"levels", out_units, card[i]["outside"])
+            for k, got in enumerate(card[i]["levels"]):
+                findings += card_sync_findings(target, f"audited slide {i} level "
+                                               f"{k + 2}", level_units, got)
         findings += region.sh001(target)
     findings.extend(_ladder_findings(
         miner.engine.level_padding, miner.engine.buffers.floor,
@@ -552,4 +726,41 @@ def check_shape_fixture(device=None) -> List[Finding]:
     return findings
 
 
-SHAPE_FIXTURES = ("shapes",)
+def check_card_sync_fixture(device=None) -> Tuple[List[Finding], dict]:
+    """Make one sync the warn mode misses inside a level; MUST return a
+    finding, and only through the profiler's count.
+
+    Inside a :data:`LEVEL` range of an audited region it records a CUDA
+    event and waits for it (``torch.cuda.Event.synchronize``, which calls
+    ``cudaEventSynchronize`` without torch's sync-debug hook).  A level of
+    this fixture declares no sync.  Returns the card's findings and what
+    each count saw: ``warn_mode`` (the sync-debug warnings by site, which
+    must stay empty) and ``card`` (the profiler's count in the level).  On
+    the host nothing is counted there: no finding, and the summary says
+    so."""
+    import torch
+    from torch.profiler import record_function
+    from ..device import resolve_device
+
+    dev = resolve_device(device)
+    target = "<fixture:card_sync>"
+    region = _Region(dev)
+    if not region.on_card:
+        return [], {"warn_mode": None, "card": None,
+                    "not_checked": "not counted there: the host has no card to "
+                                   "synchronise with"}
+    x = torch.ones(1 << 20, device=dev)
+    with region.active():
+        with record_function(LEVEL):
+            y = x * 2
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()              # cudaEventSynchronize, unwarned
+    del y
+    warned = region.sites(range(len(region.calls)), declared_syncs())
+    (level,) = cut_card_syncs(region.card)["levels"]
+    findings = card_sync_findings(target, "fixture level", {}, level)
+    return findings, {"warn_mode": warned, "card": level, "not_checked": None}
+
+
+SHAPE_FIXTURES = ("shapes", "card_sync")

@@ -10,7 +10,7 @@ hand-written backward (``kernels.flash_attention.FlashAttentionFunction``).
 On a mesh (a ``Model`` built with one) the step is the reference's jitted
 step under its placements: the model's loss is the global one and each
 rank's gradients those of its share of it on its block of the batch
-(microbatches split that block; ``Model.loss``), each gradient leaf is
+(``Model.loss``), each gradient leaf is
 summed over the data axes its placement does not name (one all-reduce per
 leaf and per such axis, before clipping; an expert leaf split over ``data``
 holds its own slots' or d_ff slice's whole gradient already, as under
@@ -19,9 +19,18 @@ updates each rank's blocks.  No leaf is summed over ``model``: a leaf the
 placement replicates there (a norm, a vocabulary the axis does not
 divide, the SSM's conv) holds its whole gradient on every model rank
 already, because the layers compute with it whole there or take it
-through ``copy_to_axis`` where a rank reads only its part.  A mixture of experts on a mesh takes one
-microbatch: the reference routes each microbatch's global rows as groups,
-which a split of the rank's block does not reproduce (ROADMAP item 12h).
+through ``copy_to_axis`` where a rank reads only its part.
+
+Microbatches split the *global* batch, as the reference's scan over the
+jitted step's global batch does: microbatch ``i`` is the global rows
+``[i B / m, (i + 1) B / m)``.  On a mesh the step gathers the batch's
+tensors over the data axes (one all-gather of each tensor an axis), and
+data rank ``r`` (pod-major, as ``dist.sharding.batch_spec`` orders the
+rows) takes the ``r``-th contiguous slice of each microbatch when the data
+axes divide its rows, or the microbatch whole otherwise (marked
+``"whole_batch"``).  So a mixture of experts routes each microbatch's
+groups as the reference does: its aux loss and each group's capacity
+depend on which rows a microbatch holds.
 """
 from __future__ import annotations
 
@@ -30,12 +39,12 @@ from typing import Callable
 import torch
 
 from ..dist import collectives as coll
-from ..dist.sharding import data_axes, spec_axes
+from ..dist.sharding import data_axes, data_rank, spec_axes
 from .optimizer import (adamw_update, clip_by_global_norm_, lr_schedule,
                         tree_leaves, tree_map, tree_unflatten)
 
 __all__ = ["make_train_step", "make_eval_step", "value_and_grad",
-           "DonatedStateError"]
+           "microbatches", "DonatedStateError"]
 
 
 class DonatedStateError(RuntimeError):
@@ -57,6 +66,36 @@ def value_and_grad(loss_fn: Callable, params, *args):
     return loss.detach(), tree_unflatten(params, grads)
 
 
+def microbatches(batch: dict, m: int, mesh=None) -> list:
+    """The ``m`` microbatches of ``batch`` (this rank's block of it on
+    ``mesh``) that this rank computes: microbatch ``i`` holds the global
+    rows ``[i B / m, (i + 1) B / m)``, on a mesh this data rank's
+    contiguous slice of them, or all of them (``"whole_batch"``) when the
+    data axes do not divide them (module docstring).  The batch's other
+    entries (flags) carry over."""
+    tensors = {k: v for k, v in batch.items() if torch.is_tensor(v)}
+    flags = {k: v for k, v in batch.items() if not torch.is_tensor(v)}
+    rank, nd = data_rank(mesh)
+    if nd > 1 and not flags.get("whole_batch"):
+        # the global batch: each tensor gathered over the data axes, the
+        # last axis first, so the rows come pod-major
+        for a in reversed(data_axes(mesh)):
+            tensors = {k: torch.cat(coll.all_gather(v, mesh, a).unbind(0))
+                       for k, v in tensors.items()}
+    rows = next(iter(tensors.values())).shape[0]
+    if rows % m:
+        raise ValueError(f"a batch of {rows} rows does not split into {m} "
+                         "microbatches")
+    per = rows // m
+    split = per % nd == 0
+    part, first = (per // nd, rank * (per // nd)) if split else (per, 0)
+    flags = {k: v for k, v in flags.items() if k != "whole_batch"}
+    if not split:
+        flags["whole_batch"] = True
+    return [{**{k: v.narrow(0, i * per + first, part) for k, v in tensors.items()},
+             **flags} for i in range(m)]
+
+
 def make_train_step(model, tcfg) -> Callable:
     """Returns ``step(params, opt_state, batch) -> (params, opt_state,
     metrics)``; ``batch`` holds tensors on the parameters' device.  The
@@ -66,11 +105,6 @@ def make_train_step(model, tcfg) -> Callable:
     raises :class:`DonatedStateError`.  On the model's mesh ``params``, ``opt_state`` and ``batch`` are this rank's
     blocks and the ``loss`` and ``grad_norm`` metrics the global ones."""
     mesh = model.mesh
-    if mesh is not None and model.cfg.n_experts and tcfg.microbatches > 1:
-        raise NotImplementedError(
-            f"{model.cfg.name}: microbatches={tcfg.microbatches} with a mixture "
-            "of experts on a mesh (the reference's groups of each "
-            "microbatch's global rows) is not ported (ROADMAP item 12h)")
     # the data axes each gradient leaf is summed over: those its placement
     # does not split it over
     sums = ([] if mesh is None else
@@ -85,17 +119,12 @@ def make_train_step(model, tcfg) -> Callable:
         m = tcfg.microbatches
         if m <= 1:
             return value_and_grad(loss_fn, params, batch)
-        micro = {k: v.reshape(m, v.shape[0] // m, *v.shape[1:])
-                 for k, v in batch.items() if torch.is_tensor(v)}
-        flags = {k: v for k, v in batch.items() if not torch.is_tensor(v)}
         loss_sum = torch.zeros((), dtype=torch.float32,
                                device=tree_leaves(params)[0].device)
         g_sum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                device=p.device), params)
-        for i in range(m):
-            loss, g = value_and_grad(loss_fn, params,
-                                     {**{k: v[i] for k, v in micro.items()},
-                                      **flags})
+        for micro in microbatches(batch, m, mesh):
+            loss, g = value_and_grad(loss_fn, params, micro)
             g_sum = tree_map(lambda a, b_: a + b_.float(), g_sum, g)
             loss_sum = loss_sum + loss
         return loss_sum / m, tree_map(lambda g: g / m, g_sum)

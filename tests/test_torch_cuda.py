@@ -1424,6 +1424,30 @@ def test_shape_fixture_trips_every_rule_on_the_card(cuda):
     assert {f.rule for f in check_shape_fixture("cuda")} == {"SH001", "SH002", "SH003"}
 
 
+def test_card_sync_fixture_fails_only_through_the_profiler(cuda):
+    """The fixture's cudaEventSynchronize inside a level: the warn mode
+    counts nothing, the profiler one sync over the level's budget of 0."""
+    from repro_torch.staticcheck.shapes import check_card_sync_fixture
+    findings, seen = check_card_sync_fixture("cuda")
+    assert seen["warn_mode"] == {}
+    assert seen["card"] == {"syncs": 1, "d2h": 0, "total": 1}
+    assert [f.rule for f in findings] == ["SH002"] and "profiler" in findings[0].message
+
+
+@pytest.mark.parametrize("compact", [True, False])
+def test_the_card_synchronises_within_the_budget(cuda, compact):
+    """A warm mine's levels and the rest of its run: the profiler's count
+    of what the card synchronised on equals each unit's budget total."""
+    from repro_torch.staticcheck.shapes import audit_mine, budget_total
+    findings, summary = audit_mine("fused", compact=compact)
+    assert findings == [], [f.format() for f in findings]
+    per_level = budget_total({"level": 1, "level without compaction": int(not compact)})
+    for lv in summary["syncs"]["per_level"]:
+        assert lv["card"]["total"] == per_level
+    assert summary["syncs"]["outside_levels"]["card"]["total"] == budget_total(
+        {"co-occurrence count": 1})
+
+
 def test_collective_contracts_on_ranks_sharing_the_card(cuda):
     """Layer 2 on 4 gloo ranks sharing the card: every backend and the ring
     write within their budgets, each contract fixture rejected."""

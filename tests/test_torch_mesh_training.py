@@ -49,6 +49,7 @@ from repro.configs import get_config as j_get_config
 from repro.configs.reduced import reduced_config as j_reduced
 from repro.data import TokenPipeline as JTokenPipeline
 from repro.dist import sharding as j_sharding
+from repro.dist.compat import make_mesh as j_make_mesh
 from repro.launch.mesh import make_mesh_named as j_make_mesh_named
 from repro.models import Model as JModel
 from repro.models import init_params as j_init_params
@@ -86,7 +87,14 @@ CASES = [(a, a, 4, 1) for a in DENSE] + [("gemma-2b batch 3", "gemma-2b", 3, 1),
                                          ("gemma-2b microbatches 2", "gemma-2b", 4, 2)] + \
     [(a, a, 4, 1) for a in RECURRENT] + [(a, a, 4, 1) for a in FRONTENDS] + \
     [("whisper-base vocab 257", "whisper-base", 4, 1),
-     ("hymba-1.5b 5 heads", "hymba-1.5b", 4, 1)]
+     ("hymba-1.5b 5 heads", "hymba-1.5b", 4, 1),
+     ("gemma-2b pod data", "gemma-2b", 4, 1),
+     ("gemma-2b pod data microbatches 2", "gemma-2b", 8, 2)]
+# the cases on a mesh of two data axes, (pod, data, model) = (2, 2, 1), as a
+# train job names it (the others run on tiny): the dense control of the path
+# the mixture of experts takes there (test_torch_moe_mesh.py)
+POD = ((2, 2, 1), ("pod", "data", "model"))
+MESHES = {"gemma-2b pod data": POD, "gemma-2b pod data microbatches 2": POD}
 # the reduced config's fields a case replaces: a vocabulary the model axis
 # does not divide (replicated), and 5 heads of 16 over 5 KV heads (the
 # axis cuts wq's 80 columns mid-head: every head on every rank)
@@ -162,10 +170,16 @@ def _batch_fn(jcfg, batch):
                       {**pipe.batch_at(i), **(embeds[i] if embeds else {})}.items()}
 
 
-def _ref_mesh_step(jcfg, microbatches):
-    """The reference driver's jitted step under its tiny-mesh placements
+def _ref_mesh(label):
+    """The reference's mesh of a case: tiny, or (shape, axes) in MESHES."""
+    spec = MESHES.get(label, "tiny")
+    return j_make_mesh_named(spec) if isinstance(spec, str) else j_make_mesh(*spec)
+
+
+def _ref_mesh_step(jcfg, microbatches, label=None):
+    """The reference launcher's jitted step under its mesh placements
     (``launch/train.py``), and the placements."""
-    mesh = j_make_mesh_named("tiny")
+    mesh = _ref_mesh(label)
     tcfg = JTrainConfig(total_steps=STEPS, microbatches=microbatches,
                         remat="none", **TCFG)
     step = j_make_train_step(JModel(jcfg), tcfg)
@@ -176,11 +190,11 @@ def _ref_mesh_step(jcfg, microbatches):
 
 
 def _ref_mesh_run(label, arch, batch, microbatches):
-    """3 steps of the reference on its tiny mesh: (losses, final params)."""
+    """3 steps of the reference on its mesh: (losses, final params)."""
     jcfg, jp = _ref_params(arch, label=label)
-    j_sharding.set_mesh(j_make_mesh_named("tiny"))
+    j_sharding.set_mesh(_ref_mesh(label))
     try:
-        step, pshard = _ref_mesh_step(jcfg, microbatches)
+        step, pshard = _ref_mesh_step(jcfg, microbatches, label)
         params, opt = jax.device_put(jp, pshard), j_adamw_init(jp)
         fn, losses = _batch_fn(jcfg, batch), []
         for i in range(STEPS):
@@ -202,7 +216,7 @@ def _ref(label):
 
 def _job(arch, batch, microbatches, ckpt_dir, label=None, **kw):
     jcfg, jp = _ref_params(arch, label=label)
-    job = dict(kind="train", mesh="tiny", arch=arch, reduced=True,
+    job = dict(kind="train", mesh=MESHES.get(label, "tiny"), arch=arch, reduced=True,
                cfg=OVERRIDES.get(label, {}), steps=STEPS, batch=batch, seq=SEQ,
                microbatches=microbatches, tcfg=TCFG, params=_np(jp),
                embeds=_embeds(jcfg, batch), ckpt_dir=str(ckpt_dir), gather=True)
@@ -310,13 +324,13 @@ def mesh_runs(tmp_path_factory):
         # the reference's directory restored on the mesh, then step 3
         jobs["restore"] = _job("gemma-2b", 4, 1, root / "jax", steps=1,
                                params=None, seed=5, tcfg=whole)
-        # a mixture of experts trains on the mesh (test_torch_moe_mesh.py)
-        # but not with microbatches
-        jobs["moe"] = dict(_job("grok-1-314b", 4, 2, root / "moe"), params=None)
-        jobs["seq_parallel"] = dict(jobs["moe"], arch="gemma-2b",
-                                    cfg={"seq_parallel": True})
-        jobs["mlp_dp"] = dict(jobs["moe"], arch="gemma-2b", cfg={"mlp_dp": True})
-        jobs["single"] = dict(jobs["moe"], arch="gemma-2b", mesh="single")
+        # what the mesh still refuses (ROADMAP item 12h): a d_ff the model
+        # axis does not split, seq_parallel, mlp_dp; and a mesh of more ranks
+        refused = dict(_job("gemma-2b", 4, 2, root / "refused"), params=None)
+        jobs["d_ff"] = dict(refused, cfg={"d_ff": 129})
+        jobs["seq_parallel"] = dict(refused, cfg={"seq_parallel": True})
+        jobs["mlp_dp"] = dict(refused, cfg={"mlp_dp": True})
+        jobs["single"] = dict(refused, mesh="single")
         labels = list(jobs)
         # a run whose step 1 fails on rank 1 alone, in 4 ranks of its own
         # meanwhile (the failure ends that start)
@@ -562,13 +576,18 @@ def _per_step_counts(cfg_layers, mqa, microbatches, n_leaves, chunks=1):
     chip_smoke.py declares): per microbatch the embedding's, two per layer
     forward and backward, the loss's (the max and the sums a chunk, h's
     gradient), the gathers of an MQA layer; per step the global norm's; on
-    ``data`` the mask count and the loss a microbatch, and every leaf."""
+    ``data`` the mask count and the loss a microbatch, and every leaf, and
+    with two microbatches or more the gather of the batch's tokens (each
+    microbatch is the reference's global rows)."""
     model = {"all_reduce": microbatches * (1 + 4 * cfg_layers + chunks + 1) + 1,
              "all_reduce_max": microbatches * chunks}
     if mqa:
         model.update(all_gather=microbatches * cfg_layers,
                      reduce_scatter=microbatches * cfg_layers)
-    return {"data": {"all_reduce": 2 * microbatches + n_leaves}, "model": model}
+    data = {"all_reduce": 2 * microbatches + n_leaves}
+    if microbatches > 1:
+        data["all_gather"] = 1
+    return {"data": data, "model": model}
 
 
 @pytest.mark.parametrize("label", ["gemma-2b", "gemma3-4b", "gemma-2b microbatches 2"])
@@ -811,8 +830,7 @@ def test_the_references_checkpoint_restores_on_the_mesh(mesh_runs):
 
 
 @pytest.mark.parametrize("label,match", [
-    ("moe", r"NotImplementedError: .*microbatches=2 with a mixture of experts.*"
-            r"ROADMAP item 12h"),
+    ("d_ff", r"NotImplementedError: .*d_ff 129.*ROADMAP item 12h"),
     ("seq_parallel", r"NotImplementedError: .*seq_parallel.*ROADMAP item 12h"),
     ("mlp_dp", r"NotImplementedError: .*mlp_dp.*ROADMAP item 12h"),
     ("single", r"ValueError: mesh 'single' \(16, 16\) needs 256 ranks; the "
@@ -857,17 +875,27 @@ def test_launch_train_mesh_trains_the_frontends(mesh_runs, arch):
     assert _masked(out) == [f"[train] {arch} steps 0->3 in Ts; loss A -> B"]
 
 
-def test_launch_train_mesh_prints_the_references_line(mesh_runs, tmp_path):
+def test_launch_train_mesh_prints_the_references_line(mesh_runs, tmp_path,
+                                                     monkeypatch):
     """``launch.train --mesh tiny --dist-backend gloo --device cpu`` on 4
     ranks prints the reference driver's ``[train]`` line (times and losses
     left out: each package draws its own random weights); a MoE config on
-    a mesh of two data axes is refused before any rank starts."""
+    a mesh of two data axes is taken and asks for the mesh's ranks (the
+    multi-pod mesh's 512: the start of the ranks is stubbed here)."""
+    from repro_torch.launch import mesh as port_mesh
     _, _, drivers = mesh_runs
     for name, (rc, _, err) in drivers.items():
         assert rc == 0, (name, err[-2000:])
     assert _masked(drivers["port"][1]) == _masked(drivers["reference"][1]) == [
         "[train] gemma-2b steps 0->3 in Ts; loss A -> B"]
-    with pytest.raises(NotImplementedError, match="data axes.*ROADMAP item 12h"):
+    asked = []
+
+    def no_ranks(fn, world, **kw):
+        asked.append((world, kw["args"][0][0]["mesh"]))
+        raise RuntimeError("not started")
+    monkeypatch.setattr(port_mesh, "run_ranks", no_ranks)
+    with pytest.raises(RuntimeError, match="not started"):
         train.main(["--arch", "grok-1-314b", "--reduced", "--mesh", "multi",
                     "--device", "cpu", "--dist-backend", "gloo",
                     "--ckpt-dir", str(tmp_path / "g")])
+    assert asked == [(512, "multi")]

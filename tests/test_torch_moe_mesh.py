@@ -1,6 +1,7 @@
 """The port's mixture of experts on the reference's ``tiny`` mesh,
-``("data", "model") = (2, 2)``, against the JAX package's GSPMD runs, on
-the CPU: grok-1 (``expert_sharding="tp2d"``: every expert on every rank,
+``("data", "model") = (2, 2)``, and on a mesh of two data axes,
+``("pod", "data", "model") = (2, 2, 1)``, against the JAX package's GSPMD
+runs, on the CPU: grok-1 (``expert_sharding="tp2d"``: every expert on every rank,
 d_ff over (data, model)) and llama4-maverick (``"ep"``: experts over
 ``data``, d_ff over ``model``, greedy placement), both at ``reduced_config``
 width in float32.
@@ -12,7 +13,14 @@ conftest's 4 host devices, from the same weights (the reference's
 ``init_params``, carried over as numpy).  Cases: a batch the data axis
 splits (one routing group a data rank, the all-to-all), a batch it does not
 split with an even token count (each data rank holds every group: 2) and
-an odd one (the group count halves to 1), and ``moe_dispatch="global"``.
+an odd one (the group count halves to 1), and ``moe_dispatch="global"``;
+then two microbatches (each the reference's global rows, split over the
+data ranks, or whole on each when they do not divide it: B = 6), the
+(2, 2, 1) mesh (4 groups: a split batch, a whole one and ``global``) and
+both together.  Each of those new cases can tell groupings apart: the
+reference drops entries in at least one of its layers (grok at a capacity
+factor of 0.5), so another grouping gives other drops, and the port's top-1
+counts and dropped shares of every MoE call equal the reference's.
 Tolerances, each with its reason:
 
 * each step's loss within 1e-5 relative, the gathered parameters after 3
@@ -30,6 +38,7 @@ Tolerances, each with its reason:
   within 1e-5 relative.
 """
 
+import contextlib
 import dataclasses
 import multiprocessing as mp
 import shutil
@@ -45,17 +54,19 @@ from repro.configs import get_config as j_get_config
 from repro.configs.reduced import reduced_config as j_reduced
 from repro.data import TokenPipeline as JTokenPipeline
 from repro.dist import sharding as j_sharding
+from repro.dist.compat import make_mesh as j_make_mesh
 from repro.launch.mesh import make_mesh_named as j_make_mesh_named
 from repro.models import Model as JModel
 from repro.models import init_params as j_init_params
 from repro.models import moe as j_moe
+from repro.models import transformer as j_transformer
 from repro.training import RunnerConfig as JRunnerConfig
 from repro.training import TrainingRunner as JTrainingRunner
 from repro.training import adamw_init as j_adamw_init
 from repro.training import make_train_step as j_make_train_step
 from repro_torch.configs import get_config
 from repro_torch.configs.reduced import reduced_config
-from repro_torch.launch.mesh import named_mesh_layout, run_ranks
+from repro_torch.launch.mesh import mesh_layout, named_mesh_layout, run_ranks
 from repro_torch.launch.mesh_runs import run_jobs
 from repro_torch.models import Model
 from repro_torch.models.convert import param_shapes
@@ -73,6 +84,29 @@ TRAIN_CASES = [("grok tp2d", GROK, 4, 16, {}),
                ("grok global", GROK, 4, 16, {"moe_dispatch": "global"}),
                ("grok batch 3 seq 15 (1 group)", GROK, 3, 15, {}),
                ("llama4 batch 3 seq 16 (2 groups)", LLAMA4, 3, 16, {})]
+# the mesh of two data axes, (pod, data, model) = (2, 2, 1), as a train or
+# moe job names it
+POD = ((2, 2, 1), ("pod", "data", "model"))
+# grok drops too little at its own capacity factor for every grouping to show
+LOW = {"capacity_factor": 0.5}
+# (label, arch, batch, seq, config changes, microbatches, mesh): the cases
+# of microbatches and of two data axes, each of which must tell groupings
+# apart
+GROUPED_CASES = [
+    ("grok microbatches 2", GROK, 4, 16, LOW, 2, "tiny"),
+    ("llama4 microbatches 2", LLAMA4, 4, 16, {}, 2, "tiny"),
+    ("grok microbatches 2 batch 6 (whole)", GROK, 6, 16, LOW, 2, "tiny"),
+    ("llama4 microbatches 2 batch 6 (whole)", LLAMA4, 6, 16, {}, 2, "tiny"),
+    ("grok pod data", GROK, 4, 16, LOW, 1, POD),
+    ("llama4 pod data", LLAMA4, 4, 16, {}, 1, POD),
+    ("grok pod data batch 6 (whole)", GROK, 6, 16, LOW, 1, POD),
+    ("llama4 pod data batch 6 (whole)", LLAMA4, 6, 16, {}, 1, POD),
+    ("grok pod data global", GROK, 4, 16, dict(LOW, moe_dispatch="global"), 1, POD),
+    ("llama4 pod data global", LLAMA4, 4, 16, {"moe_dispatch": "global"}, 1, POD),
+    ("llama4 pod data microbatches 2", LLAMA4, 8, 16, {}, 2, POD)]
+TRAIN_CASES += [c[:5] for c in GROUPED_CASES]
+MICRO = {c[0]: c[5] for c in GROUPED_CASES}
+MESH = {c[0]: c[6] for c in GROUPED_CASES}
 # (label, arch, MoE layer, batch, seq, config changes): every MoE layer of
 # both configs on a split batch, then the whole-batch and global cases
 LAYER_CASES = ([(f"{a} layer {i}", a, i, 4, 16, {})
@@ -83,7 +117,11 @@ LAYER_CASES = ([(f"{a} layer {i}", a, i, 4, 16, {})
                                         ("batch 3 seq 16", 3, 16, {}),
                                         ("global", 4, 16, {"moe_dispatch": "global"}),
                                         ("global batch 3", 3, 16,
-                                         {"moe_dispatch": "global"}))])
+                                         {"moe_dispatch": "global"}))] +
+               [("grok pod data layer 0", GROK, 0, 4, 16, LOW),
+                ("llama4 pod data layer 0", LLAMA4, 0, 4, 16, {}),
+                ("llama4 pod data batch 3 seq 16", LLAMA4, 0, 3, 16, {})])
+MESH.update({c[0]: POD for c in LAYER_CASES[-3:]})
 
 
 def _jcfg(arch, changes):
@@ -112,10 +150,38 @@ def _batch_fn(jcfg, batch, seq):
     return lambda i: {k: jnp.asarray(v) for k, v in pipe.batch_at(i).items()}
 
 
-def _ref_mesh_step(jcfg):
-    """The reference driver's jitted step under its tiny-mesh placements."""
-    mesh = j_make_mesh_named("tiny")
-    tcfg = JTrainConfig(total_steps=STEPS, remat="none", **TCFG)
+def _ref_mesh(spec):
+    """The reference's mesh of a job's ``mesh``: a name or (shape, axes)."""
+    return (j_make_mesh_named(spec) if isinstance(spec, str)
+            else j_make_mesh(*spec))
+
+
+@contextlib.contextmanager
+def _ref_moe_calls():
+    """Yields a list that gets each reference MoE call's ``(dropped_frac,
+    expert_load)`` as numpy while the block runs (a ``jax.debug.callback``
+    in a wrapper of the reference's ``moe``, traced by the jits made
+    meanwhile)."""
+    seen, real = [], j_transformer.moe
+
+    def recorded(*args, **kwargs):
+        out, aux = real(*args, **kwargs)
+        jax.debug.callback(lambda d, load: seen.append((float(d), np.array(load))),
+                           aux["dropped_frac"], aux["expert_load"])
+        return out, aux
+    j_transformer.moe = recorded
+    try:
+        yield seen
+        jax.effects_barrier()
+    finally:
+        j_transformer.moe = real
+
+
+def _ref_mesh_step(jcfg, microbatches=1, mesh="tiny"):
+    """The reference launcher's jitted step under its mesh placements."""
+    mesh = _ref_mesh(mesh)
+    tcfg = JTrainConfig(total_steps=STEPS, remat="none",
+                        microbatches=microbatches, **TCFG)
     step = j_make_train_step(JModel(jcfg), tcfg)
     shapes = jax.eval_shape(lambda: j_init_params(jax.random.PRNGKey(0), jcfg))
     pshard = j_sharding.sharding_tree(shapes, mesh, jcfg.expert_sharding)
@@ -123,18 +189,20 @@ def _ref_mesh_step(jcfg):
                    out_shardings=(pshard, None, None)), pshard
 
 
-def _ref_train(arch, batch, seq, changes):
-    """3 steps of the reference on its tiny mesh: (losses, final params)."""
+def _ref_train(arch, batch, seq, changes, microbatches=1, mesh="tiny"):
+    """3 steps of the reference on its mesh: (losses, final params, each
+    MoE call's ``(dropped_frac, expert_load)``)."""
     jcfg, jp = _ref_params(arch, changes)
-    j_sharding.set_mesh(j_make_mesh_named("tiny"))
+    j_sharding.set_mesh(_ref_mesh(mesh))
     try:
-        step, pshard = _ref_mesh_step(jcfg)
-        params, opt = jax.device_put(jp, pshard), j_adamw_init(jp)
-        fn, losses = _batch_fn(jcfg, batch, seq), []
-        for i in range(STEPS):
-            params, opt, m = step(params, opt, fn(i))
-            losses.append(float(m["loss"]))
-        return losses, _np(params)
+        with _ref_moe_calls() as calls:
+            step, pshard = _ref_mesh_step(jcfg, microbatches, mesh)
+            params, opt = jax.device_put(jp, pshard), j_adamw_init(jp)
+            fn, losses = _batch_fn(jcfg, batch, seq), []
+            for i in range(STEPS):
+                params, opt, m = step(params, opt, fn(i))
+                losses.append(float(m["loss"]))
+        return losses, _np(params), calls
     finally:
         j_sharding.reset_mesh()
 
@@ -174,13 +242,13 @@ def _layer_inputs(arch, layer, batch, seq, changes):
     return jcfg, lp, x, dout
 
 
-def _ref_layer(arch, layer, batch, seq, changes):
-    """The reference's ``moe`` on its tiny mesh, forward and the gradient
-    of ``sum(out * dout) + aux_loss``."""
+def _ref_layer(arch, layer, batch, seq, changes, mesh="tiny"):
+    """The reference's ``moe`` on its mesh, forward and the gradient of
+    ``sum(out * dout) + aux_loss``."""
     jcfg, lp, x, dout = _layer_inputs(arch, layer, batch, seq, changes)
     placement = (None if jcfg.expert_placement == "default"
                  else jnp.asarray(j_moe.expert_placement(jcfg)))
-    j_sharding.set_mesh(j_make_mesh_named("tiny"))
+    j_sharding.set_mesh(_ref_mesh(mesh))
     try:
         def f(p, x):
             out, aux = j_moe.moe(p, x, jcfg, placement=placement)
@@ -199,12 +267,16 @@ def _train_job(arch, batch, seq, changes, ckpt_dir, **kw):
     _, jp = _ref_params(arch, changes)
     job = dict(kind="train", mesh="tiny", arch=arch, reduced=True, cfg=changes,
                steps=STEPS, batch=batch, seq=seq, tcfg=TCFG, params=_np(jp),
-               ckpt_dir=str(ckpt_dir), gather=True)
+               ckpt_dir=str(ckpt_dir), gather=True, moe_stats=True)
     job.update(kw)
     return job
 
 
 _REF = {}
+
+
+def _dirname(label):
+    return "".join(c if c.isalnum() else "_" for c in label)
 
 
 @pytest.fixture(scope="module")
@@ -218,20 +290,23 @@ def runs(tmp_path_factory):
         # a checkpoint the reference writes on its mesh at step 2 (llama4)
         jdir = str(root / "jax")
         ref_ckpt = pool.submit(_ref_runner, LLAMA4, jdir, 2, 0)
-        train_refs = {c[0]: pool.submit(_ref_train, *c[1:]) for c in TRAIN_CASES}
-        layer_refs = {c[0]: pool.submit(_ref_layer, *c[1:]) for c in LAYER_CASES}
-        jobs = {c[0]: _train_job(*c[1:], root / c[0].replace(" ", "_"))
+        train_refs = {c[0]: pool.submit(_ref_train, *c[1:], MICRO.get(c[0], 1),
+                                        MESH.get(c[0], "tiny"))
+                      for c in TRAIN_CASES}
+        layer_refs = {c[0]: pool.submit(_ref_layer, *c[1:], MESH.get(c[0], "tiny"))
+                      for c in LAYER_CASES}
+        jobs = {c[0]: _train_job(*c[1:], root / _dirname(c[0]),
+                                 microbatches=MICRO.get(c[0], 1),
+                                 mesh=MESH.get(c[0], "tiny"))
                 for c in TRAIN_CASES}
         for label, arch, layer, b, s, changes in LAYER_CASES:
             jcfg, lp, x, dout = _layer_inputs(arch, layer, b, s, changes)
-            jobs[label] = dict(kind="moe", mesh="tiny", arch=arch, reduced=True,
-                               cfg=changes, layer=lp, x=x, dout=dout)
+            jobs[label] = dict(kind="moe", mesh=MESH.get(label, "tiny"), arch=arch,
+                               reduced=True, cfg=changes, layer=lp, x=x, dout=dout)
         # grok: 2 steps with a checkpoint at 2, then step 3 in memory
         jobs["ckpt"] = _train_job(GROK, 4, 16, {}, root / "torch", steps=2,
                                   ckpt_every=2, then=1,
                                   tcfg=dict(TCFG, total_steps=STEPS))
-        jobs["micro"] = dict(_train_job(GROK, 4, 16, {}, root / "micro"),
-                             microbatches=2)
         ref_ckpt.result()
         # the reference's llama4 checkpoint restored on the port's mesh (a
         # copy: each runner writes its own step 3) and on the reference's
@@ -259,7 +334,7 @@ def runs(tmp_path_factory):
 def test_moe_training_matches_the_references_mesh(runs, label, arch, batch, seq,
                                                   changes):
     _, results = runs
-    want_losses, want_params = _REF[label]
+    want_losses, want_params, _ = _REF[label]
     per_rank = results[label]
     for res in per_rank:
         assert "error" not in res, res
@@ -285,9 +360,11 @@ def test_moe_layer_matches_the_references_mesh(runs, label, arch, layer, batch,
     per_rank = results[label]
     for res in per_rank:
         assert "error" not in res, res
+        nd = res["n_data"]
         rows = slice(None) if res["whole"] else slice(
-            res["data"] * batch // 2, (res["data"] + 1) * batch // 2)
-        assert res["whole"] == (batch % 2 == 1)
+            res["data"] * batch // nd, (res["data"] + 1) * batch // nd)
+        assert nd == (2 if MESH.get(label, "tiny") == "tiny" else 4)
+        assert res["whole"] == (batch % nd != 0)
         np.testing.assert_allclose(res["out"], want["out"][rows], rtol=0, atol=1e-5)
         np.testing.assert_allclose(res["dx"], want["dx"][rows], rtol=0, atol=1e-5)
         tokens = batch * seq
@@ -327,7 +404,7 @@ def test_a_port_moe_checkpoint_restores_on_the_references_mesh(runs):
     losses, resumed = _REF["from port"]
     assert resumed == 2
     np.testing.assert_allclose(losses[-1], lead["losses"][2], rtol=1e-5)
-    want, _ = _REF["grok tp2d"]
+    want, _, _ = _REF["grok tp2d"]
     np.testing.assert_allclose(lead["losses"], want, rtol=1e-5)
 
 
@@ -344,44 +421,118 @@ def test_the_references_moe_checkpoint_restores_on_the_mesh(runs):
         np.testing.assert_allclose(res["losses"], losses[-1:], rtol=1e-5)
 
 
-def test_moe_microbatches_on_a_mesh_are_refused(runs):
-    _, results = runs
-    for res in results["micro"]:
-        assert "NotImplementedError" in res["error"] and "12h" in res["error"], res
+def _calls_by_step(calls, per_step):
+    """A run's MoE calls cut into steps, each step's as a sorted list of
+    (top-1 counts, dropped share): the reference's callbacks need not come
+    in call order within a step."""
+    steps = [calls[i:i + per_step] for i in range(0, len(calls), per_step)]
+    return [sorted(steps_calls, key=lambda c: (c[0], c[1])) for steps_calls in steps]
 
 
-def _per_step_counts(cfg):
-    """The collectives of one MoE train step on a rank of the tiny mesh
-    (the count chip_smoke.py declares): on ``model`` the embedding's, two
-    a layer forward and backward (attention's and the MLP's or the
-    experts'), the loss's, and the global norm's two (the leaves split over
-    ``model`` alone, and over both axes); on ``data`` the mask count and
-    the loss, two a MoE layer (the top-1 counts, the aux loss), every leaf
-    its placement does not split over ``data``, and the norm's; and the
-    experts' exchanges over ``data``: two all-to-alls forward and two
-    backward (``ep``), or a gather and a reduce-scatter forward and their
-    conjugates backward (``tp2d``)."""
-    from repro_torch.dist.sharding import spec_tree
-    layers = sum(n for _, n in stages_meta(cfg))
+@pytest.mark.parametrize("label", [c[0] for c in GROUPED_CASES])
+def test_grouped_cases_tell_the_groupings_apart(runs, label):
+    """The microbatch and two-data-axis cases: the reference drops entries
+    in at least one MoE layer (so a grouping other than its own gives
+    other drops and another loss), and every step of every rank routes as
+    the reference does: each MoE call's top-1 counts equal exactly, its
+    dropped share within 1e-7."""
+    jobs, results = runs
+    _, arch, batch, seq, changes, m, _ = next(c for c in GROUPED_CASES if c[0] == label)
+    _, _, calls = _REF[label]
+    cfg = dataclasses.replace(reduced_config(get_config(arch)), **changes)
     n_moe = sum(n for kind, n in stages_meta(cfg) if kind.endswith("+moe"))
-    specs = tree_leaves(spec_tree(param_shapes(cfg), named_mesh_layout("tiny"),
-                                  cfg.expert_sharding))
-    summed = sum("data" not in {a for e in sp for a in (e if isinstance(e, tuple)
-                                                        else (e,))} for sp in specs)
-    data = {"all_reduce": 2 + 2 * n_moe + summed + 1}
-    if cfg.expert_sharding == "tp2d":
-        data.update(all_gather=2 * n_moe, reduce_scatter=2 * n_moe)
-    else:
-        data.update(all_to_all=4 * n_moe)
-    return {"data": data,
-            "model": {"all_reduce": 1 + 4 * layers + 1 + 1 + 2, "all_reduce_max": 1}}
+    tokens = batch // m * seq
+    assert len(calls) == STEPS * m * n_moe
+    assert max(d for d, _ in calls) > 0, calls
+
+    def counted(step_calls):
+        return [(tuple(int(c) for c in np.rint(np.asarray(load) * tokens)), d)
+                for d, load in step_calls]
+    want = _calls_by_step(counted(calls), m * n_moe)
+    for res in results[label]:
+        got = _calls_by_step(counted([c for rec in res["records"] for c in rec["moe"]]),
+                             m * n_moe)
+        assert len(got) == len(want) == STEPS
+        for g_step, w_step in zip(got, want):
+            assert [c for c, _ in g_step] == [c for c, _ in w_step], label
+            for (_, dg), (_, dw) in zip(g_step, w_step):
+                assert abs(dg - dw) <= 1e-7, (label, dg, dw)
+
+
+@pytest.mark.parametrize("label", [c[0] for c in LAYER_CASES if c[0] in MESH])
+def test_two_data_axis_layer_cases_drop_entries(runs, label):
+    """Each MoE layer case on (pod, data, model) = (2, 2, 1) routes 4
+    groups: the reference drops entries there, so the tiny mesh's 2 groups
+    or one group would give another output."""
+    assert _REF[label]["dropped_frac"] > 0, _REF[label]["dropped_frac"]
+
+
+def _layout(spec):
+    return (named_mesh_layout(spec) if isinstance(spec, str)
+            else mesh_layout(*spec))
+
+
+def _per_step_counts(cfg, microbatches=1, mesh="tiny"):
+    """The collectives of one MoE train step on a rank of ``mesh`` whose
+    data axes split every microbatch (the count chip_smoke.py declares).
+    On ``model``, per microbatch, two a layer forward and backward for
+    attention and two for its MLP (the experts' only when the axis has
+    more than one rank), and the vocab-parallel embedding's, loss sum's
+    and hidden gradient's with a loss chunk's max (a vocabulary split over
+    more than one rank); then the global norm's.  On each data axis, per
+    microbatch, the mask count and the loss, two a MoE layer (the top-1
+    counts, the aux loss) and the experts' exchanges: ``ep`` two
+    all-to-alls forward and two backward over ``data`` alone, ``tp2d`` a
+    gather and a reduce-scatter forward and their conjugates backward over
+    each data axis; then one all-gather of the batch's tokens with two
+    microbatches or more, every leaf its placement does not split over the
+    axis, and the norm's.  The norm all-reduces each set of axes that
+    leaves are split over once an axis of it."""
+    from repro_torch.dist.sharding import data_axes, spec_axes, spec_tree
+    layout = _layout(mesh)
+    m = microbatches
+    meta = stages_meta(cfg)
+    layers = sum(n for _, n in meta)
+    n_moe = sum(n for kind, n in meta if kind.endswith("+moe"))
+    specs = tree_leaves(spec_tree(param_shapes(cfg), layout, cfg.expert_sharding))
+    named = [{a for e in sp for a in spec_axes(e)} for sp in specs]
+    norm_sets = {tuple(sorted(axes)) for axes in named if axes}
+    out = {}
+    for a in data_axes(layout):
+        per = {"all_reduce": m * (2 + 2 * n_moe)}
+        if cfg.expert_sharding == "tp2d":
+            per.update(all_gather=m * 2 * n_moe, reduce_scatter=m * 2 * n_moe)
+        elif a == "data":
+            per["all_to_all"] = m * 4 * n_moe
+        if m > 1:
+            per["all_gather"] = per.get("all_gather", 0) + 1
+        per["all_reduce"] += (sum(a not in axes for axes in named)
+                              + sum(a in axes for axes in norm_sets))
+        out[a] = per
+    size = layout.shape.get("model", 1)
+    split_vocab = size > 1 and cfg.vocab_size % size == 0
+    ffn = 2 * (layers - n_moe) + (2 * n_moe if size > 1 else 0)
+    model = {"all_reduce": m * (2 * layers + ffn + (3 if split_vocab else 0))
+             + sum("model" in axes for axes in norm_sets)}
+    if split_vocab:
+        model["all_reduce_max"] = m
+    out["model"] = model
+    return out
+
+
+# the train cases whose every microbatch the data axes split, with their
+# declared collectives
+COUNTED = ["grok tp2d", "llama4 ep", "grok microbatches 2", "llama4 microbatches 2",
+           "grok pod data", "llama4 pod data", "llama4 pod data microbatches 2"]
 
 
 def test_moe_step_collectives_are_the_declared_count(runs):
     """Every step of every rank makes the declared collectives."""
     jobs, results = runs
-    for label in ("grok tp2d", "llama4 ep"):
-        want = _per_step_counts(reduced_config(get_config(jobs[label]["arch"])))
+    for label in COUNTED:
+        job = jobs[label]
+        cfg = dataclasses.replace(reduced_config(get_config(job["arch"])), **job["cfg"])
+        want = _per_step_counts(cfg, job.get("microbatches", 1), job["mesh"])
         for res in results[label]:
             for rec in res["records"]:
                 got = {a: {op: c["calls"] for op, c in ops.items()}
@@ -394,7 +545,69 @@ def test_check_mesh_takes_a_mixture_of_experts_and_keeps_the_other_refusals(arch
     cfg = get_config(arch)
     check_mesh(cfg, named_mesh_layout("tiny"))
     Model(reduced_config(cfg))
+    # two data axes: the reference's multi-pod mesh and the (2, 2, 1) one
+    check_mesh(cfg, named_mesh_layout("multi"))
+    check_mesh(reduced_config(cfg), mesh_layout(*POD))
     with pytest.raises(NotImplementedError, match="seq_parallel.*12h"):
         check_mesh(dataclasses.replace(cfg, seq_parallel=True), named_mesh_layout("tiny"))
-    with pytest.raises(NotImplementedError, match="data axes.*12h"):
-        check_mesh(cfg, named_mesh_layout("multi"))
+    with pytest.raises(NotImplementedError, match="mlp_dp.*12h"):
+        check_mesh(dataclasses.replace(cfg, mlp_dp=True), named_mesh_layout("multi"))
+
+
+class _FakeMesh:
+    """The mesh API ``train_step.microbatches`` reads, for one rank at
+    ``coord`` of data axes ``sizes`` (no process group)."""
+
+    def __init__(self, sizes, coord):
+        self.mesh_dim_names = tuple(sizes)
+        self._sizes, self._coord = dict(sizes), dict(coord)
+
+    def size(self, dim):
+        return self._sizes[self.mesh_dim_names[dim]]
+
+    def get_local_rank(self, axis):
+        return self._coord[axis]
+
+
+@pytest.mark.parametrize("sizes,batch,m", [
+    ({"data": 2}, 4, 2), ({"data": 2}, 6, 2), ({"pod": 2, "data": 2}, 8, 2),
+    ({"pod": 2, "data": 2}, 4, 2), ({"pod": 2, "data": 2}, 6, 2),
+    ({"pod": 2, "data": 2}, 16, 4)])
+def test_microbatches_are_the_references_global_rows(monkeypatch, sizes, batch, m):
+    """Each rank's microbatch ``i`` is its contiguous slice of the global
+    rows ``[i B / m, (i + 1) B / m)`` (data rank pod-major), or those rows
+    whole, marked, when the data axes do not divide them; the gathers over
+    the data axes are stubbed with the global batch's blocks."""
+    import torch
+    from repro_torch.dist.sharding import batch_spec, shard_tree
+    from repro_torch.training import train_step
+    glob = torch.arange(batch * 3).reshape(batch, 3)
+    n_data = sizes["data"]
+    nd = int(np.prod(list(sizes.values())))
+    for rank in range(nd):
+        coord = dict(zip(sizes, np.unravel_index(rank, tuple(sizes.values()))))
+        mesh = _FakeMesh(sizes, {a: int(c) for a, c in coord.items()})
+
+        def gather(t, mesh_, axis, coord=coord):
+            blocks = glob.reshape(-1, *t.shape)
+            if axis == "data" and "pod" in sizes:     # this pod's data ranks
+                p = int(coord["pod"])
+                return blocks[p * n_data:(p + 1) * n_data]
+            return blocks
+        monkeypatch.setattr(train_step.coll, "all_gather", gather)
+        spec = batch_spec(batch, mesh)
+        whole = spec == (None,)
+        block = {"tokens": glob if whole else
+                 shard_tree({"t": glob}, mesh, {"t": spec})["t"]}
+        if whole:
+            block["whole_batch"] = True
+        per = batch // m
+        for i, micro in enumerate(train_step.microbatches(block, m, mesh)):
+            rows = glob[i * per:(i + 1) * per]
+            if per % nd:
+                assert micro.get("whole_batch") is True
+                assert torch.equal(micro["tokens"], rows)
+            else:
+                assert "whole_batch" not in micro
+                part = per // nd
+                assert torch.equal(micro["tokens"], rows[rank * part:(rank + 1) * part])

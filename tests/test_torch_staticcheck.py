@@ -175,6 +175,115 @@ def test_shape_fixture_on_the_host_gives_sh003():
     assert {f.rule for f in shapes.check_shape_fixture("cpu")} == {"SH003"}
 
 
+# one audit_mine region recorded on the card (fused, compact=True): its
+# record_function ranges, synchronising runtime calls and device-to-host
+# copy calls as shapes.card_events gives them
+RECORDED = os.path.join(ROOT, "tests", "data", "card_sync_events_mine.json")
+
+
+def _recorded():
+    import json
+    with open(RECORDED) as fh:
+        return [shapes.CardEvent(**e) for e in json.load(fh)["events"]]
+
+
+def test_the_card_count_cuts_a_recorded_mine_region_at_its_levels():
+    """The recorded region: each of its 3 levels synchronised twice (the
+    pair upload's wait; the mask and supports' copy and its wait, one
+    sync), the rest of the region twice, within SYNC_BUDGET's totals; the
+    profiler's own device sync after the region is not counted."""
+    events = _recorded()
+    cut = shapes.cut_card_syncs(events)
+    assert cut["levels"] == [{"syncs": 2, "d2h": 0, "total": 2}] * 3
+    assert cut["outside"] == {"syncs": 2, "d2h": 0, "total": 2}
+    assert any(e.name == "cudaDeviceSynchronize" for e in events)
+    assert shapes.budget_total({"level": 1}) == 2
+    for i, lv in enumerate(cut["levels"]):
+        assert shapes.card_sync_findings("t", f"level {i + 2}", {"level": 1}, lv) == []
+    assert shapes.card_sync_findings("t", "outside", {"co-occurrence count": 1},
+                                     cut["outside"]) == []
+
+
+@pytest.mark.parametrize("kind,name", [("sync", "cudaEventSynchronize"),
+                                       ("sync", "cudaDeviceSynchronize"),
+                                       ("d2h", "cudaMemcpyAsync")])
+def test_a_sync_beyond_the_budget_in_a_level_is_a_finding(kind, name):
+    """One more synchronising call, or a device-to-host copy no wait
+    follows, inside the recorded region's second level: that level's count
+    exceeds its budget total, an SH002 finding through the profiler's
+    count; the other levels and the rest of the region are unchanged."""
+    events = _recorded()
+    levels = [e for e in events if e.kind == "range" and e.name == shapes.LEVEL]
+    t = (levels[1].start + levels[1].end) / 2
+    planted = sorted(events + [shapes.CardEvent(kind, name, t, t + 1.0)],
+                     key=lambda e: (e.start, e.kind != "range"))
+    cut = shapes.cut_card_syncs(planted)
+    assert [lv["total"] for lv in cut["levels"]] == [2, 3, 2]
+    assert cut["outside"]["total"] == 2
+    found = shapes.card_sync_findings("t", "level 3", {"level": 1}, cut["levels"][1])
+    assert [f.rule for f in found] == ["SH002"] and "profiler" in found[0].message
+
+
+def test_the_card_count_cuts_slides_and_pairs_a_copy_with_its_wait():
+    """Two slides, each with a level: a device-to-host copy followed by a
+    wait is one sync, a copy with no wait after it one, an event wait one;
+    what lies between the slides is no slide's."""
+    E = shapes.CardEvent
+    events = [E("range", shapes.SLIDE, 0, 100), E("range", shapes.LEVEL, 10, 50),
+              E("d2h", "cudaMemcpyAsync", 20, 21), E("sync", "cudaStreamSynchronize", 22, 23),
+              E("d2h", "cudaMemcpyAsync", 60, 61),
+              E("sync", "cudaStreamSynchronize", 150, 151),
+              E("range", shapes.SLIDE, 200, 300), E("range", shapes.LEVEL, 210, 250),
+              E("range", shapes.LEVEL, 260, 290), E("sync", "cudaEventSynchronize", 270, 271)]
+    slides = shapes.cut_card_slides(events)
+    assert slides == [
+        {"levels": [{"syncs": 1, "d2h": 0, "total": 1}],
+         "outside": {"syncs": 0, "d2h": 1, "total": 1}},
+        {"levels": [{"syncs": 0, "d2h": 0, "total": 0},
+                    {"syncs": 1, "d2h": 0, "total": 1}],
+         "outside": {"syncs": 0, "d2h": 0, "total": 0}}]
+    units = {"push": 1, "co-occurrence count": 2}
+    assert shapes.budget_total(units) == 5
+    assert shapes.card_sync_findings("t", "slide", units, slides[0]["outside"]) == []
+
+
+def test_card_events_read_a_profiler_trace():
+    """The profiler's events as the card gave them (names, device types and
+    correlation ids of torch 2.11's trace): the marks, the synchronising
+    calls, and the copy calls whose device copy runs device to host."""
+    from types import SimpleNamespace as NS
+
+    def ev(name, device, id_, start):
+        return NS(name=name, device_type=f"DeviceType.{device}", id=id_,
+                  time_range=NS(start=start, end=start + 1))
+
+    class Prof:
+        def events(self):
+            return [ev(shapes.REGION, "CPU", 1, 0), ev("cudaLaunchKernel", "CPU", 18, 2),
+                    ev("cudaMemcpyAsync", "CPU", 26, 3),
+                    ev("Memcpy HtoD (Pageable -> Device)", "CUDA", 26, 4),
+                    ev("cudaMemcpyAsync", "CPU", 30, 5),
+                    ev("Memcpy DtoH (Device -> Pinned)", "CUDA", 30, 6),
+                    ev("cudaStreamSynchronize", "CPU", 31, 7),
+                    ev("aten::_local_scalar_dense", "CPU", 30, 5)]
+    assert [(e.kind, e.name) for e in shapes.card_events(Prof())] == [
+        ("range", shapes.REGION), ("d2h", "cudaMemcpyAsync"),
+        ("sync", "cudaStreamSynchronize")]
+
+
+def test_the_card_sync_fixture_is_not_counted_on_the_host():
+    findings, seen = shapes.check_card_sync_fixture("cpu")
+    assert findings == [] and seen["card"] is None and seen["warn_mode"] is None
+    assert seen["not_checked"].startswith("not counted there")
+
+
+def test_the_audits_count_no_card_sync_on_the_host():
+    _, summary = shapes.audit_mine("ref", device="cpu")
+    assert summary["syncs"]["per_level"] == []
+    assert summary["syncs"]["outside_levels"]["card"] is None
+    assert "profiler" in summary["not_checked"]
+
+
 def test_budget_units_compose_the_declared_syncs():
     assert shapes._expected({"level": 1}) == {"engine.pairs_upload": 1,
                                               "engine.mask_supports": 1}
