@@ -3309,7 +3309,7 @@ def check_flash_attention_bwd():
     from repro_torch.kernels.flash_attention import (attention_bwd_bf16_ref,
                                                      attention_lse_ref,
                                                      attention_ref_bwd,
-                                                     bwd_plan,
+                                                     bwd_plan, f32_plan,
                                                      flash_attention,
                                                      flash_attention_bwd)
     # (label, B, H, Hkv, S, D, window, softcap, dtypes[, Sk, causal]):
@@ -3399,11 +3399,16 @@ def check_flash_attention_bwd():
                              f"emulation rel L2 {rel_emu:.3e}")
             limit = (f"{BWD_TOL_F32:.0e} abs" if dtype == torch.float32
                      else f"rel L2 {BWD_REL_BF16:.0e}, emulation {BWD_REL_EMU:.0e}")
-            plan = ""
             if dtype == torch.bfloat16:
                 p = bwd_plan(b, h, hkv, s, d, window, sk=sk)
                 plan = (f", {p.heads_per_block} head(s) per dK/dV block, {p.n_split} "
                         f"split(s), {p.dkdv_blocks} dK/dV + {p.dq_blocks} dQ blocks")
+            else:
+                p = f32_plan(b, h, hkv, s, d, window, sk=sk, causal=causal)
+                plan = (f", instance D={p.kd}, {p.ds_blocks} P/dS blocks, "
+                        f"{p.dkdv_blocks} dK/dV + {p.dq_blocks} dQ blocks, "
+                        f"{p.tiles_per_head} kept tiles a head, "
+                        f"{4 * p.scratch_floats / 2 ** 20:.1f} MiB of scratch")
             print(f"check {what} B={b} H={h} Hkv={hkv} S={s} Sk={sk} D={d} "
                   f"{'causal' if causal else 'non-causal'} window={window} "
                   f"softcap={cap:g} ({variant}{plan}): lse max abs err {lse_err:.3e}; {'; '.join(parts)} "
@@ -4229,6 +4234,9 @@ def run_mesh_training():
     out["moe f32"] = sum(rec["launches"]["flash_attention_bwd.fma_f32"]
                          for label in MESH_MOE_JOBS
                          for x in res[label] if x["lead"] for rec in x["records"])
+    out["moe f32 fwd"] = sum(rec["launches"]["flash_attention.fma_f32"]
+                             for label in MESH_MOE_JOBS
+                             for x in res[label] if x["lead"] for rec in x["records"])
     return out
 
 
@@ -4771,14 +4779,16 @@ def flex_capped(q, k, v, cap, causal):
                         enable_gqa=True)
 
 
-def time_attention(counts, model_counts):
+def time_attention(counts, model_counts, rank_f32_launches):
     """K6 and K7 at gemma3-4b's serving shapes (the kernels line's rows),
-    then at the shapes of this slice's served models: K6 at D = 128, G = 6
-    (internlm2's and grok's layer) with and without grok's soft-cap, K7 at
-    their decode shapes, G = 6 and G = 5 (llama4), with and without it.
-    ``counts``: gemma3-4b's first serve's launches; ``model_counts``: each
-    new model's.  The library time of a capped row is :func:`flex_capped`'s,
-    SDPA's of every other row."""
+    K6's float32 forward there and at a reduced MoE job's mesh rank
+    (F32_BWD_SHAPES[1]), then at the shapes of this slice's served models:
+    K6 at D = 128, G = 6 (internlm2's and grok's layer) with and without
+    grok's soft-cap, K7 at their decode shapes, G = 6 and G = 5 (llama4),
+    with and without it.  ``counts``: gemma3-4b's first serve's launches;
+    ``model_counts``: each new model's; ``rank_f32_launches``: the lead
+    rank's float32 forward launches in the MoE mesh jobs.  The library time
+    of a capped row is :func:`flex_capped`'s, SDPA's of every other row."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (decode_attention_ref,
@@ -4849,6 +4859,27 @@ def time_attention(counts, model_counts):
                              bound_ms=bms32, bound_by=by32,
                              launches=counts["flash_attention.fma_f32"]))
             del q32, k32, v32
+    # K6's float32 forward where the mesh jobs run it: a reduced MoE rank
+    b, h, hkv, s, d = F32_BWD_SHAPES[1]
+    q32, k32, v32 = attn_inputs(b, h, hkv, s, d, torch.float32, seed=93, model_layout=True)
+    fn32 = lambda: multi_head_attention(q32, k32, v32, causal=True, window=0)
+    lib32 = lambda: F.scaled_dot_product_attention(q32, k32, v32, is_causal=True,
+                                                   enable_gqa=h != hkv)
+    err = float((lib32() - fn32()).abs().max())
+    require(err <= SDPA_TOL,
+            f"SDPA yardstick disagrees with flash_attention float32 at D={d}: {err:.3e}")
+    bms32, by32 = bound_attn(4 * (2 * q32.numel() + 2 * k32.numel()),
+                             4 * d * (s * (s + 1) // 2) * b * h, rl.FP32_FLOPS)
+    rows.append(dict(name="flash_attention_f32", route="cuda",
+                     source="src/repro_torch/csrc/flash_attention.cu",
+                     replaces="src/repro/kernels/flash_attention/flash_attention.py:110",
+                     shape=f"B={b} H={h} Hkv={hkv} S={s} D={d} f32 causal window=0 "
+                           "(a reduced MoE job's mesh rank)",
+                     **timed(fn32, lambda: attention_ref(q32, k32, v32, causal=True,
+                                                         window=None), lib32),
+                     bound_ms=bms32, bound_by=by32, launches=rank_f32_launches,
+                     also_listed=True))
+    del q32, k32, v32
     b, kv, g, d, smax = 2, 4, 2, 256, 2080
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
@@ -5198,6 +5229,34 @@ def _slice_attention_rows(phi3_counts, whisper_counts, timed):
     return rows
 
 
+def f32_instances(log):
+    """(instance, registers, spill-store bytes) of K6's float32 kernels
+    (the forward, flash_attention_bwd_ds_kernel and
+    flash_attention_bwd_grad_kernel at each head size, capped or not) from
+    the build's ptxas report."""
+    import re
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?(flash_attention_f32_kernel|"
+                      r"flash_attention_bwd_ds_kernel|flash_attention_bwd_grad_kernel)"
+                      r"ILi(\d+)E(Lb([01])E)?", line)
+        if m:
+            name = f"{m.group(1)}<{m.group(2)}" + (
+                f", {'true' if m.group(4) == '1' else 'false'}>" if m.group(3) else ">")
+            spills = None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spills = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.append((name, int(m.group(1)), spills))
+            name = None
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     sys.stdout.reconfigure(line_buffering=True)
@@ -5226,6 +5285,8 @@ def main() -> int:
     for line in info["ptxas_log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"ptxas: {line.strip()}")
+    for name, regs, spills in f32_instances(info["ptxas_log"]):
+        print(f"ptxas float32 K6: {name}: {regs} registers, {spills} bytes spill stores")
 
     def phase(fn, *args):
         t = time.perf_counter()
@@ -5275,7 +5336,8 @@ def main() -> int:
     hymba_bwd = phase(run_training_recurrent)
     mesh_launches = phase(run_mesh_training)
     rows = (phase(time_kernels, launches, miner, stream_rec) +
-            phase(time_attention, serve_counts, model_counts) +
+            phase(time_attention, serve_counts, model_counts,
+                  mesh_launches.pop("moe f32 fwd")) +
             [phase(time_flash_attention_bwd, bwd_launches),
              phase(time_capped_flash_attention_bwd, grok_launches),
              phase(time_whisper_cross_bwd, whisper_bwd),
@@ -5293,13 +5355,13 @@ def main() -> int:
                     if r["listed"] and (r["shape"] == REPORT_SHAPE[r["name"]] or
                                         r.get("also_listed"))]
     # one row per kernel at its report shape, K6's capped backward at
-    # grok's layer, K6 and
+    # grok's layer, K6's float32 forward at a reduced MoE rank, K6 and
     # K7 at hymba's and command-r's prefill and decode shapes, K6 at phi3's prefill,
     # whisper's encoder and its cross rows, K7 at phi3's decode and over
     # whisper's cross rows, K6's backward at whisper's training cross and at
     # hymba's training layer, K6's float32 backward at F32_BWD_SHAPES, K6
     # forward and backward at the full-width mesh jobs' rank shapes
-    require(len(kernels_line) == len(REPORT_SHAPE) + 12 + len(F32_BWD_SHAPES)
+    require(len(kernels_line) == len(REPORT_SHAPE) + 13 + len(F32_BWD_SHAPES)
             + 2 * len(MESH_RANKS),
             "a kernel has no timing row")
     print(f"chip_smoke wall_s={time.perf_counter() - t_start:.1f} (build included)")

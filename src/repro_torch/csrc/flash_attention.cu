@@ -69,13 +69,52 @@
 // the store.  The capped wgmma kernel is its own instance (kCap), so the
 // uncapped one compiles as it did.
 //
-// float32, flash_attention_f32_kernel: fp32 FMA on the CUDA cores.  The
-// tensor cores have no fp32 product that holds 1e-4 absolute (TF32 keeps
-// 10 bits), and float32 is the checking dtype, not the served one.  One
-// block of 256 threads per (b, h, 64-row q tile), a loop over 32-row k
-// tiles with the 64 x D fp32 accumulator in registers (64 floats per
-// thread) and the q, k and v tiles in 140 KB of shared memory; its own
-// ceiling is the fp32 FMA rate (67 TFLOP/s on the data sheet).
+// float32, flash_attention_f32_kernel<D, cap> (the checking dtype: the
+// reduced configs trained and served against the CPU, the float32 mesh jobs,
+// every float32 gate of chip_smoke.py): outer products in fp32 FMA on the
+// CUDA cores.  One TF32 pass keeps 10 mantissa bits and breaks the 1e-4
+// float32 limits; a three-pass split TF32 needs a hi and a lo copy of every
+// shared-memory operand (K and V resident at D = 256 would be 4 x 64 KB,
+// over the 227 KB a block may have), and wgmma reads TF32 only K-major, so
+// V would be transposed in shared memory.  So the CUDA cores' own route, as
+// SGEMM takes it: shared memory, cp.async rings and register micro-tiles.
+// Bound at (B, H, Hkv, S, D) = (2, 8, 4, 2,048, 256), causal: the same
+// 34.4 GFLOP at the fp32 rate (67 TFLOP/s), 0.513 ms: operations.
+// One block per (head, b, 64-row q tile), the q tile on the grid's slowest
+// axis and, causal, last first (the tiles with the most keys start in the
+// first wave).  Instances D = 16, 32, 64, 128 and 256; another multiple of
+// 8 runs in the next one up, its columns past D zero (96 in 128).  The
+// block's q rows arrive once by 16-byte cp.async.cg; the K and V tiles of
+// the k tiles the block keeps arrive in turn into a ring of kSlots slots
+// (2 at D >= 128, 4 below), each slot's copies in flight while the tile
+// before it is multiplied: at D >= 128 K of tile t + 1 lands during P V of
+// tile t and V of tile t during Q K^T, below two tiles ahead.  Rows past S
+// or Sk and columns past D are zero-filled by the copy (src-size 0).  Every
+// product is an outer product from registers: Q K^T gives a thread 8 rows
+// x 4 keys (12 loads of 16 bytes for 128 FMAs), P V 8 rows x 4 kOC columns
+// through P^T in shared memory (at D = 256 6 loads for 128 FMAs, at
+// D <= 64 3 for 32).  Tiles are swizzled (f32attn::at: a chunk XORed with
+// its row / 4), so a warp's loads broadcast or touch 8 bank groups.
+// Threads: 8 row groups x 16 key groups (128) at D >= 64, x 8 (64) at 32,
+// x 4 (32) at 16; a k tile is 4 keys a key group.  The softmax is online in
+// base 2: the tile's max by shuffles across the row's key groups, the sums
+// per thread until the end.  Shared memory per block: D = 256 212,992 B
+// (the q rows 64 KB, one K and one V tile 64 KB each, P^T 16 KB), so one
+// block of 4 warps per SM: the q rows and one K and one V tile are already
+// 192 KB; D = 128 114,688 B and D = 64 98,304 B, two blocks per SM.
+// Registers (ptxas, sm_90a, chip_smoke.py's build log): 255 at D = 256
+// (the capped instance spills 8 bytes), 248 and 246 at 128, 202-208 at 64
+// and 32, 168 and 196 at 16; no other spill.
+// On the H100 (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py's timing
+// line) the (2, 8, 4, 2,048, 256) causal call takes 1.17983 ms, 43% of
+// the fp32 rate, against SDPA's float32 2.47260 ms.  What holds it back is
+// the one block of 4 warps a shared memory of 213 KB allows: one warp per
+// SM sub-partition, every load's latency exposed where the 255 registers
+// leave no room for more loads in flight.  Splitting the head's columns
+// over two warpgroups (8 warps, the scores summed from two halves) ran
+// faster but summed q . k in another order, and against the float32 plain
+// version the capped D = 256 backward then left its 1e-4 gate, so it is not
+// taken.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -83,6 +122,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_f32.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -385,246 +425,279 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float
 }  // namespace wg
 
 // ---------------------------------------------------------------------------
-// float32: FMA on the CUDA cores
+// float32: outer products on the CUDA cores
 // ---------------------------------------------------------------------------
 
 namespace f32 {
 
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 32;        // key rows per k tile
-constexpr int kThreads = 256;  // 32 row groups x 8 column lanes
-constexpr int kPLd = kBK + 8;  // P tile row stride: conflict-free writes
-constexpr float kNegInf = -1e30f;
+using namespace f32attn;
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
 
-__device__ __forceinline__ void load8(const float* p, float* out) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-}
+constexpr int kBQ = 64;  // query rows per block: 8 row groups x 8 rows
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-// rows x kD elements (strided rows, D valid columns) -> shared tile with row
-// stride kD + 4; rows at or past S and columns at or past D are 0.
-template <int kD, int kRows>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          long long row_stride, int row0,
-                                          int S, int D) {
-  constexpr int kLd = kD + 4;
-  constexpr int kChunks = kRows * kD / 8;
-  for (int c = threadIdx.x; c < kChunks; c += kThreads) {
-    const int r = c / (kD / 8);
-    const int col = (c % (kD / 8)) * 8;
-    float vals[8];
-    if (row0 + r < S && col < D) {
-      load8(src + static_cast<long long>(row0 + r) * row_stride + col, vals);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) vals[e] = 0.f;
-    }
-    float* d = dst + r * kLd + col;
-    *reinterpret_cast<float4*>(d) = make_float4(vals[0], vals[1], vals[2], vals[3]);
-    *reinterpret_cast<float4*>(d + 4) = make_float4(vals[4], vals[5], vals[6], vals[7]);
-  }
-}
-
+// The tiles of the instance for head size kD (see the file's header).
 template <int kD>
-constexpr int smem_bytes() {
-  return ((kBQ + 2 * kBK) * (kD + 4) + kBQ * kPLd) * static_cast<int>(sizeof(float));
-}
+struct Fwd {
+  static constexpr int kCG = kD >= 64 ? 16 : kD / 4;  // key (and column) groups
+  static constexpr int kThreads = 8 * kCG;            // x 8 row groups
+  static constexpr int kBK = 4 * kCG;                 // keys per k tile
+  static constexpr int kOC = kD / (4 * kCG);          // 16-byte output chunks a thread
+  static constexpr int kSlots = kD >= 128 ? 2 : 4;    // ring: K and V tiles in turn
+  static constexpr int kCpr = kD / 4;                 // 16-byte chunks a row
+  static constexpr int kSlot = kBK * kD;              // floats
+  static constexpr int kRing = kBQ * kD;              // after the resident Q
+  static constexpr int kP = kRing + kSlots * kSlot;   // P^T, kBK x 64
+  static constexpr int kBytes = (kP + kBK * kBQ) * 4;
+  static constexpr int kMinBlocks = kD >= 256 ? 1 : 2;
+};
 
-template <int kD>
-__global__ void __launch_bounds__(kThreads)
+// rows of a thread: 4 rg + i and 32 + 4 rg + i, i < 4
+__device__ __forceinline__ int frow(int rg, int i) { return 4 * rg + (i & 3) + 32 * (i >> 2); }
+
+// scale_log2 = sm_scale log2 e; with kCap, cap_scale = sm_scale / cap and
+// cap_log2 = cap log2 e (the cap formed first, log2 e folded in after)
+template <int kD, bool kCap>
+__global__ void __launch_bounds__(Fwd<kD>::kThreads, Fwd<kD>::kMinBlocks)
 flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
-                           float* __restrict__ lse,
-                           int group, int S, int Sk, int D, long long qsb, long long qsh,
-                           long long qss, long long ksb, long long ksh,
-                           long long kss, long long vsb, long long vsh,
-                           long long vss, long long osb, long long osh,
-                           long long oss, float sm_scale, float softcap, int causal,
+                           float* __restrict__ lse, int group, int S, int Sk, int D,
+                           long long qsb, long long qsh, long long qss, long long ksb,
+                           long long ksh, long long kss, long long vsb, long long vsh,
+                           long long vss, long long osb, long long osh, long long oss,
+                           float scale_log2, float cap_scale, float cap_log2, int causal,
                            int window) {
-  constexpr int kLd = kD + 4;
-  constexpr int kChunksPerRow = kD / 32;  // float4 output chunks per thread row
+  using L = Fwd<kD>;
+  constexpr int kCG = L::kCG, kBK = L::kBK, kCpr = L::kCpr, kSlots = L::kSlots;
+  // the products' loops unrolled by 4, by 2 at D = 256, where the 128
+  // accumulators leave no room for more loads in flight (unrolled by 4,
+  // ptxas spills there)
+  constexpr int kUnroll = kD >= 256 ? 2 : 4;
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + kBQ * kLd;
-  float* Vs = Ks + kBK * kLd;
-  float* Ps = Vs + kBK * kLd;
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* Qs = smem;
+  float* Pt = smem + L::kP;
 
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int qt = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;  // heaviest first
+  const int q0 = qt * kBQ;
   const int hk = h / group;
-  const float* qb = q + b * qsb + h * qsh;
   const float* kb = k + b * ksb + hk * ksh;
   const float* vb = v + b * vsb + hk * vsh;
-  float* ob = o + b * osb + h * osh;
-  const int tx = threadIdx.x % 8;   // column lane
-  const int ty = threadIdx.x / 8;   // rows ty and ty + 32
+  const int tid = threadIdx.x;
+  const int rg = tid / kCG;
+  const int cg = tid % kCG;
+  const int kt0 = tile_lo(qt, kBQ, kBK, window);
+  const int n_items = 2 * (tile_hi(qt, kBQ, kBK, S, Sk, causal) - kt0 + 1);
 
-  load_tile<kD, kBQ>(Qs, qb, qss, q0, S, D);
-
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};
-  float4 acc[2][kChunksPerRow];
+  // the block's q rows once, then item n = the K (n even) or V (n odd) tile
+  // of k tile kt0 + n / 2 into ring slot n % kSlots; every call commits one
+  // group, empty past the last item, so the wait below counts groups alike
+  load_tile<kBQ, kD, L::kThreads, true>(Qs, q + b * qsb + h * qsh, qss, q0, S, 0, D);
+  cp_async_commit();
+  auto issue = [&](int n) {
+    if (n < n_items) {
+      const bool is_v = n & 1;
+      load_tile<kBK, kD, L::kThreads, true>(smem + L::kRing + (n % kSlots) * L::kSlot,
+                                            is_v ? vb : kb, is_v ? vss : kss,
+                                            (kt0 + n / 2) * kBK, Sk, 0, D);
+    }
+    cp_async_commit();
+  };
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int c = 0; c < kChunksPerRow; ++c) acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int n = 0; n < kSlots - 1; ++n) issue(n);
 
-  // k tiles that some row of this q tile can see
-  int k_begin = 0;
-  if (window > 0) {
-    const int lo = q0 - window + 1;   // first column row q0 keeps
-    k_begin = lo > 0 ? (lo / kBK) * kBK : 0;
+  float4 acc[8][L::kOC];
+  float m[8], l[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < L::kOC; ++c) acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  int k_end = Sk;
-  if (causal) k_end = min(Sk, q0 + kBQ);
 
-  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
-    __syncthreads();  // the previous tile's K, V and P are consumed
-    load_tile<kD, kBK>(Ks, kb, kss, k0, Sk, D);
-    load_tile<kD, kBK>(Vs, vb, vss, k0, Sk, D);
-    __syncthreads();
-
-    float s[2][4];
+  for (int n = 0; n < n_items; ++n) {
+    cp_async_wait<kSlots - 2>();  // item n has landed (for this thread's copies)
+    __syncthreads();              // ... for all, and item n - 1's slot is free
+    issue(n + kSlots - 1);
+    const float* tile = smem + L::kRing + (n % kSlots) * L::kSlot;
+    const int k0 = (kt0 + n / 2) * kBK;
+    if ((n & 1) == 0) {
+      // S = Q K^T: 8 rows x 4 keys a thread, 12 loads of 16 bytes for 128 FMAs
+      float s[8][4];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < kD; d += 4) {
-      float4 qa[2], kv[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        qa[i] = *reinterpret_cast<const float4*>(Qs + (ty + 32 * i) * kLd + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(Ks + (tx + 8 * j) * kLd + d);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
+        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll(kUnroll)
+      for (int c = 0; c < kCpr; ++c) {
+        float4 kf[4];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qa[i].x, kv[j].x, s[i][j]);
-          s[i][j] = fmaf(qa[i].y, kv[j].y, s[i][j]);
-          s[i][j] = fmaf(qa[i].z, kv[j].z, s[i][j]);
-          s[i][j] = fmaf(qa[i].w, kv[j].w, s[i][j]);
+          const int key = 4 * cg + j;
+          kf[j] = ld4(tile + key * kD + 4 * swz<kCpr>(key, c));
         }
-    }
-
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = q0 + ty + 32 * i;
-      bool keep[4];
-      float tmax = kNegInf;
+        for (int i = 0; i < 8; ++i) {
+          const int row = frow(rg, i);
+          const float4 qf = ld4(Qs + row * kD + 4 * swz<kCpr>(row, c));
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] = dot4(qf, kf[j], s[i][j]);
+        }
+      }
+      // scale (and cap) into the log2 domain, mask, online softmax
+      const bool edge = k0 + kBK > Sk || (causal && k0 + kBK - 1 > q0) ||
+                        (window > 0 && k0 <= q0 + kBQ - 1 - window);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float t = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float x = kCap ? tanhf(s[i][j] * cap_scale) * cap_log2 : s[i][j] * scale_log2;
+          if (edge && !kept(q0 + frow(rg, i), k0 + 4 * cg + j, S, Sk, causal, window))
+            x = -INFINITY;
+          s[i][j] = x;
+          t = fmaxf(t, x);
+        }
+        // the kCG lanes of a row group are neighbours
+#pragma unroll
+        for (int off = 1; off < kCG; off *= 2) t = fmaxf(t, __shfl_xor_sync(0xffffffffu, t, off));
+        const float mn = fmaxf(m[i], t);
+        // a row with nothing kept so far keeps max -inf: subtract 0
+        // instead, so no exp(-inf - -inf) is formed
+        const float u = mn == -INFINITY ? 0.f : mn;
+        const float alpha = exp2f(m[i] - u);
+        m[i] = mn;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = exp2f(s[i][j] - u);
+          sum += s[i][j];
+        }
+        l[i] = l[i] * alpha + sum;  // this thread's keys; summed over the group at the end
+#pragma unroll
+        for (int c = 0; c < L::kOC; ++c) {
+          acc[i][c].x *= alpha;
+          acc[i][c].y *= alpha;
+          acc[i][c].z *= alpha;
+          acc[i][c].w *= alpha;
+        }
+      }
+      // P^T (keys x 64 rows) for the P V product
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 8 * j;
-        keep[j] = col < Sk && (!causal || col <= row) &&
-                  (window <= 0 || col > row - window);
-        float x = s[i][j] * sm_scale;
-        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-        s[i][j] = keep[j] ? x : kNegInf;
-        tmax = fmaxf(tmax, s[i][j]);
+        const int key = 4 * cg + j;
+        float* pr = Pt + key * kBQ;
+        st4(pr + 4 * swz<16>(key, rg), make_float4(s[0][j], s[1][j], s[2][j], s[3][j]));
+        st4(pr + 4 * swz<16>(key, 8 + rg), make_float4(s[4][j], s[5][j], s[6][j], s[7][j]));
       }
-      // the 8 lanes of one row are consecutive: reduce within them
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 4));
-      const float m_new = fmaxf(m[i], tmax);
-      const float alpha = expf(m[i] - m_new);
-      float psum = 0.f;
+    } else {
+      // O += P V: 8 rows x 4 kOC columns a thread
+#pragma unroll(kUnroll)
+      for (int key = 0; key < kBK; ++key) {
+        const float* pr = Pt + key * kBQ;
+        const float4 pa = ld4(pr + 4 * swz<16>(key, rg));
+        const float4 pb = ld4(pr + 4 * swz<16>(key, 8 + rg));
+        const float p[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = keep[j] ? expf(s[i][j] - m_new) : 0.f;
-        psum += p;
-        Ps[(ty + 32 * i) * kPLd + tx + 8 * j] = p;
-      }
-      psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-      psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-      psum += __shfl_xor_sync(0xffffffffu, psum, 4);
-      l[i] = l[i] * alpha + psum;
-      m[i] = m_new;
+        for (int c = 0; c < L::kOC; ++c) {
+          const float4 vf = ld4(tile + key * kD + 4 * swz<kCpr>(key, cg + kCG * c));
 #pragma unroll
-      for (int c = 0; c < kChunksPerRow; ++c) {
-        acc[i][c].x *= alpha; acc[i][c].y *= alpha;
-        acc[i][c].z *= alpha; acc[i][c].w *= alpha;
-      }
-    }
-    __syncthreads();  // P complete
-
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float p0 = Ps[ty * kPLd + kk];
-      const float p1 = Ps[(ty + 32) * kPLd + kk];
-#pragma unroll
-      for (int c = 0; c < kChunksPerRow; ++c) {
-        const float4 vv = *reinterpret_cast<const float4*>(Vs + kk * kLd + tx * 4 + 32 * c);
-        acc[0][c].x = fmaf(p0, vv.x, acc[0][c].x);
-        acc[0][c].y = fmaf(p0, vv.y, acc[0][c].y);
-        acc[0][c].z = fmaf(p0, vv.z, acc[0][c].z);
-        acc[0][c].w = fmaf(p0, vv.w, acc[0][c].w);
-        acc[1][c].x = fmaf(p1, vv.x, acc[1][c].x);
-        acc[1][c].y = fmaf(p1, vv.y, acc[1][c].y);
-        acc[1][c].z = fmaf(p1, vv.z, acc[1][c].z);
-        acc[1][c].w = fmaf(p1, vv.w, acc[1][c].w);
+          for (int i = 0; i < 8; ++i) axpy4(p[i], vf, acc[i][c]);
+        }
       }
     }
   }
 
+  float* ob = o + b * osb + h * osh;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + ty + 32 * i;
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int off = 1; off < kCG; off *= 2) l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    const int row = q0 + frow(rg, i);
     if (row >= S) continue;
-    if (lse != nullptr && tx == 0)
-      lse[(static_cast<long long>(b) * gridDim.y + h) * S + row] =
-          l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
+    if (lse != nullptr && cg == 0)
+      lse[(static_cast<long long>(b) * gridDim.x + h) * S + row] =
+          l[i] > 0.f ? (m[i] + log2f(l[i])) * kLn2 : INFINITY;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < kChunksPerRow; ++c) {
-      const int col = tx * 4 + 32 * c;
-      if (col < D) {
-        *reinterpret_cast<float4*>(ob + static_cast<long long>(row) * oss + col) =
-            make_float4(acc[i][c].x * inv, acc[i][c].y * inv,
-                        acc[i][c].z * inv, acc[i][c].w * inv);
-      }
+    for (int c = 0; c < L::kOC; ++c) {
+      const int col = 4 * (cg + kCG * c);
+      if (col < D)
+        st4(ob + static_cast<long long>(row) * oss + col,
+            make_float4(acc[i][c].x * inv, acc[i][c].y * inv, acc[i][c].z * inv,
+                        acc[i][c].w * inv));
     }
   }
 }
 
-template <int kD>
+template <int kD, bool kCap>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
                    int B, int H, int Hkv, int S, int Sk, int D,
                    const long long* st, float sm_scale, float softcap, int causal,
                    int window, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<kD>();
-  // above 48 KB, dynamic shared memory must be granted per kernel (and
-  // per device, so it is set at every launch: a cheap driver call)
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_f32_kernel<kD>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  using L = Fwd<kD>;
+  cudaError_t err = allow_smem<&flash_attention_f32_kernel<kD, kCap>>(L::kBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_attention_f32_kernel<kD><<<grid, kThreads, bytes, stream>>>(
+  const dim3 grid(H, B, (S + kBQ - 1) / kBQ);
+  flash_attention_f32_kernel<kD, kCap><<<grid, L::kThreads, L::kBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, H / Hkv, S, Sk, D,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11], sm_scale, softcap, causal, window);
+      st[9], st[10], st[11], sm_scale * kLog2e, kCap ? sm_scale / softcap : 0.f,
+      softcap * kLog2e, causal, window);
   return cudaGetLastError();
+}
+
+template <bool kCap>
+cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, float* lse,
+                       int B, int H, int Hkv, int S, int Sk, int D, const long long* st,
+                       float sm_scale, float softcap, int causal, int window,
+                       cudaStream_t s) {
+  switch (instance_d(D)) {
+    case 16:
+      return launch<16, kCap>(q, k, v, o, lse, B, H, Hkv, S, Sk, D, st, sm_scale, softcap,
+                              causal, window, s);
+    case 32:
+      return launch<32, kCap>(q, k, v, o, lse, B, H, Hkv, S, Sk, D, st, sm_scale, softcap,
+                              causal, window, s);
+    case 64:
+      return launch<64, kCap>(q, k, v, o, lse, B, H, Hkv, S, Sk, D, st, sm_scale, softcap,
+                              causal, window, s);
+    case 128:
+      return launch<128, kCap>(q, k, v, o, lse, B, H, Hkv, S, Sk, D, st, sm_scale, softcap,
+                               causal, window, s);
+    default:
+      return launch<256, kCap>(q, k, v, o, lse, B, H, Hkv, S, Sk, D, st, sm_scale, softcap,
+                               causal, window, s);
+  }
 }
 
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
                      int B, int H, int Hkv, int S, int Sk, int D,
                      const long long* st, float sm_scale, float softcap, int causal,
                      int window, cudaStream_t stream) {
-  // the reduced configs' head size 16, and 256 (gemma3-4b, gemma-2b); any
-  // other D (128: internlm2, command-r, grok, llama4) runs zero-padded in
-  // the next size up: float32 is the checking dtype, not the served one
-  if (D <= 32)
-    return launch<32>(q, k, v, o, lse, B, H, Hkv, S, Sk, D, st, sm_scale, softcap, causal, window,
-                      stream);
-  return launch<256>(q, k, v, o, lse, B, H, Hkv, S, Sk, D, st, sm_scale, softcap, causal, window,
-                     stream);
+  if (softcap > 0.f)
+    return dispatch_d<true>(q, k, v, o, lse, B, H, Hkv, S, Sk, D, st, sm_scale, softcap, causal,
+                            window, stream);
+  return dispatch_d<false>(q, k, v, o, lse, B, H, Hkv, S, Sk, D, st, sm_scale, 0.f, causal,
+                           window, stream);
+}
+
+// the plan of an instance: threads, keys per k tile, ring slots, dynamic
+// shared memory bytes
+template <int kD>
+void plan_of(long long* out) {
+  using L = Fwd<kD>;
+  out[0] = kD;
+  out[1] = L::kThreads;
+  out[2] = L::kBK;
+  out[3] = L::kSlots;
+  out[4] = L::kBytes;
 }
 
 }  // namespace f32
@@ -662,6 +735,21 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
     return wg::dispatch(q, k, v, o, l, B, H, Hkv, S, Sk, D, strides, sm_scale, softcap, causal,
                         window, s);
   return cudaErrorInvalidValue;
+}
+
+// The float32 kernel's instance for head size D (a multiple of 8 up to
+// 256): out[0..4] = instance D, threads, keys per k tile, ring slots,
+// dynamic shared memory bytes per block.  Returns 0, or -1 for another D.
+int flash_attention_f32_plan(int D, long long* out) {
+  if (D <= 0 || D > 256 || D % 8 != 0 || out == nullptr) return -1;
+  switch (f32attn::instance_d(D)) {
+    case 16: f32::plan_of<16>(out); break;
+    case 32: f32::plan_of<32>(out); break;
+    case 64: f32::plan_of<64>(out); break;
+    case 128: f32::plan_of<128>(out); break;
+    default: f32::plan_of<256>(out); break;
+  }
+  return 0;
 }
 
 }  // extern "C"

@@ -6,7 +6,7 @@
 // j > i - window when window > 0; Sk != S only with neither, whisper's
 // cross-attention of S decoder rows over Sk = 1,500 encoder rows),
 //
-//   P[i, j]  = exp(c(q_i . k_j * scale) - lse_i)     (recomputed, not stored)
+//   P[i, j]  = exp(c(q_i . k_j * scale) - lse_i)     (recomputed from lse)
 //   dV[j]    = sum_{h in group, i} P[i, j] do_i
 //   dP[i, j] = do_i . v_j
 //   dS[i, j] = P[i, j] c'[i, j] (dP[i, j] - delta_i),  delta_i = do_i . o_i
@@ -110,17 +110,60 @@
 // streams only 7 q tiles past its K/V prologue, and each of the 896 dQ
 // blocks 24 k tiles.
 //
-// float32 (the checking dtype: the reduced-config runs): fp32 FMA on the
-// CUDA cores, since the tensor cores have no fp32 product that holds 1e-4
-// (TF32 keeps 10 bits).  Three kernels: the delta kernel;
-// flash_attention_bwd_dkdv_kernel, one block per (64-row k tile, KV head,
-// b) looping over the G query heads and their 32-row q tiles, the group's
-// sum taken inside the block in a fixed order; and
-// flash_attention_bwd_dq_kernel, one block per (64-row q tile, head, b)
-// over 32-row k tiles.  256 threads as 32 row groups x 8 column lanes, every
-// tile converted to float32 in shared memory (rows padded to D + 4 floats):
-// dK/dV 218,368 B, dQ 210,432 B at D = 256; ptxas gave 254 and 168
-// registers and no spill.
+// float32 (the checking dtype: the reduced configs trained against the CPU,
+// the float32 mesh jobs, chip_smoke.py's float32 gates): outer products in
+// fp32 FMA on the CUDA cores, for the reasons the forward's header gives
+// (no TF32 in any form: one pass breaks 1e-4, three do not fit).  Bound at
+// (B, H, Hkv, S, D) = (2, 8, 4, 2,048, 256), causal: 10 D x 33.57 M kept
+// pairs = 86 GFLOP, 1.283 ms at 67 TFLOP/s: operations.  Two kernels, no
+// delta kernel and no atomics:
+//
+// flash_attention_bwd_ds_kernel<D, cap>: one block of 128 threads per (64-row
+//   q tile, head, b), causal the last q tile first.  Its 64 rows' delta_i =
+//   do_i . o_i and lse come first, read while the first items land; then,
+//   for each 64-row k tile the q tile keeps, the Q, dO, K and V tiles stream
+//   through a three-slot cp.async ring in items of 32 head columns (16 at
+//   D = 16), and each thread keeps 8 rows x 4 keys of S = Q K^T and of
+//   dP = dO V^T (24 loads of 16 bytes for 256 FMAs), summed over the head
+//   in order as the forward sums.  At a k tile's end it forms
+//   P = exp(c(s scale) - lse) and dS = P c' (dP - delta) and writes both,
+//   a 64 x 64 tile each, with zeros where a mask drops a pair or a row is
+//   past S, to the float32 scratch: every kept tile of every head once, in
+//   q-tile order (tiles_before gives a tile's place).
+// flash_attention_bwd_grad_kernel<D>: one launch of two kinds of block.  A
+//   dK/dV block (64-row k tile, KV head, b) reads, for each head of its
+//   group in order and each q tile that keeps the k tile, 16-row items of
+//   that tile's P and dS with the same rows of dO and Q, and accumulates
+//   dV += P^T dO and dK += dS^T Q: 8 keys x 8 columns of each a thread at
+//   D >= 128 (8 loads for 128 FMAs), 8 x 4 below (6 for 64); the group's sum
+//   in a fixed order inside the block.  A dQ block (64-row q tile, head, b)
+//   reads 32-key items of its consecutive dS tiles with those rows of K
+//   and accumulates dQ += dS K: 8 rows x 8 columns a thread at D >= 128 (16
+//   loads for 256 FMAs), 8 x 4 below (12 for 128).  Causal, rank r runs the
+//   dK/dV blocks of k tile r, then the dQ blocks of q tile nqt - 1 - r, each
+//   the heaviest left of its kind; otherwise every dK/dV block, then every
+//   dQ block.
+//
+// The dQ route: dS of the kept tiles is written once and read once, where
+// recomputing S and dP in a dQ kernel costs 14 D operations a kept pair
+// against 10 D.  The P/dS route also keeps any operand from having to sit
+// in shared memory for a whole k tile's loop: at D = 256 one 64-row float32
+// tile is 64 KB, and a dK/dV block that held K and V (128 KB) would leave no
+// room for a two-stage ring of Q and dO tiles large enough for 8 x 4
+// micro-tiles.  The scratch is 2 x 4,096 floats a kept tile: 277 MB at the
+// shape above (528 tiles a head).  A call is two launches at every shape,
+// the reduced MoE rank's (2, 2, 2, 64, 16) too.  Shared memory per block:
+// the P/dS kernel 98,816 B at D >= 32 (two blocks per SM), the dK/dV and
+// dQ kernel 122,880 B at D = 256, 73,728 B at D = 128.  Registers (ptxas,
+// sm_90a, chip_smoke.py's build log): the P/dS kernel 254 at every D, the
+// dK/dV and dQ kernel 232 at D >= 128 and 167 below; no spill.  On the H100
+// (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py's timing line) a call at
+// the shape above takes 2.67994 ms, 48% of the fp32 rate, against SDPA's
+// float32 backward 3.45222 ms; at (2, 2, 2, 64, 16) 0.01676 ms against
+// 0.02378.  A thread's
+// accumulators and one group of loads in flight fill its 254 (232)
+// registers; 8 x 8 tiles in the P/dS kernel spilled and ran slower, and
+// three blocks an SM at fewer registers ran slower too.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -129,30 +172,24 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "attention_f32.cuh"
 #include "hopper.cuh"
 
 namespace {
 
 namespace bwd {
 
-constexpr int kThreads = 256;
-constexpr int kKvBK = 64;          // dK/dV: k rows per block
-constexpr int kKvBQ = 32;          // dK/dV: q rows per step
-constexpr int kPLd = kKvBK + 8;    // dK/dV: P and dS tile row stride
-constexpr int kQBQ = 64;           // dQ: q rows per block
-constexpr int kQBK = 32;           // dQ: k rows per step
-constexpr int kSLd = kQBK + 8;     // dQ: dS tile row stride
+using namespace f32attn;
+using hopper::cp_async16;
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
+
+constexpr int kThreads = 256;      // the delta kernel (bf16 path)
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Strides {
   long long q[3], k[3], v[3], o[3], g[3], dq[3], dk[3], dv[3];  // (b, h, s)
 };
-
-__device__ __forceinline__ void load8(const float* p, float* out) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-}
 
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
   const uint4 raw = *reinterpret_cast<const uint4*>(p);
@@ -165,61 +202,7 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
   }
 }
 
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ void axpy4(float s, float4 x, float4& y) {
-  y.x = fmaf(s, x.x, y.x);
-  y.y = fmaf(s, x.y, y.y);
-  y.z = fmaf(s, x.z, y.z);
-  y.w = fmaf(s, x.w, y.w);
-}
-
-__device__ __forceinline__ float4 scale4(float4 v, float s) {
-  return make_float4(v.x * s, v.y * s, v.z * s, v.w * s);
-}
-
-// kRows x kD elements (strided rows, D valid columns) -> float32 shared
-// tile with row stride kD + 4; rows at or past S and columns at or past D
-// are 0.
-template <int kD, int kRows, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, long long row_stride,
-                                          int row0, int S, int D) {
-  constexpr int kLd = kD + 4;
-  constexpr int kChunks = kRows * kD / 8;
-  for (int c = threadIdx.x; c < kChunks; c += kThreads) {
-    const int r = c / (kD / 8);
-    const int col = (c % (kD / 8)) * 8;
-    float vals[8];
-    if (row0 + r < S && col < D) {
-      load8(src + static_cast<long long>(row0 + r) * row_stride + col, vals);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) vals[e] = 0.f;
-    }
-    float* d = dst + r * kLd + col;
-    *reinterpret_cast<float4*>(d) = make_float4(vals[0], vals[1], vals[2], vals[3]);
-    *reinterpret_cast<float4*>(d + 4) = make_float4(vals[4], vals[5], vals[6], vals[7]);
-  }
-}
-
-// n entries of a (S,) row vector from row0 on; 0 past S
-__device__ __forceinline__ void load_rows(float* dst, const float* src, int row0, int n, int S) {
-  for (int i = threadIdx.x; i < n; i += kThreads) dst[i] = row0 + i < S ? src[row0 + i] : 0.f;
-}
-
-__device__ __forceinline__ bool kept(int i, int j, int S, int Sk, int causal, int window) {
-  return i < S && j < Sk && (!causal || j <= i) && (window <= 0 || j > i - window);
-}
-
+// delta = rowsum(do * o), one warp per row (the bf16 path's first kernel)
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ g,
@@ -247,342 +230,548 @@ flash_attention_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ 
   if (lane == 0) delta[row] = acc;
 }
 
+// ---------------------------------------------------------------------------
+// float32: outer products on the CUDA cores (see the file's header)
+// ---------------------------------------------------------------------------
+
+constexpr int kTile = 64;                     // q rows and k rows of a scratch tile
+constexpr int kTileFloats = kTile * kTile;    // a P or a dS tile
+
+// the rows of a thread in a 64-row tile: 4 g + i and 32 + 4 g + i, i < 4
+__device__ __forceinline__ int frow(int g, int i) { return 4 * g + (i & 3) + 32 * (i >> 2); }
+
+// flash_attention_bwd_ds_kernel: one block of 128 threads (8 row groups x
+// 16 key groups, 8 rows x 4 keys a thread) per (q tile, head, b); an item
+// is kDC columns of the Q, dO, K and V tiles of one kept k tile
 template <int kD>
-constexpr int dkdv_smem_bytes() {
-  return ((2 * kKvBK + 2 * kKvBQ) * (kD + 4) + 2 * kKvBQ * kPLd + 2 * kKvBQ) *
-         static_cast<int>(sizeof(float));
-}
+struct DsLayout {
+  static constexpr int kThreads = 128;
+  static constexpr int kDC = kD < 32 ? kD : 32;   // head columns per item
+  static constexpr int kCpr = kDC / 4;
+  static constexpr int kItems = kD / kDC;         // items per k tile
+  static constexpr int kSlots = 3;
+  static constexpr int kPart = kTile * kDC;       // one operand's columns
+  static constexpr int kSlot = 4 * kPart;         // Q, dO, K, V
+  static constexpr int kRows = kSlots * kSlot;    // then lse (log2) and delta
+  static constexpr int kBytes = (kRows + 2 * kTile) * 4;
+};
 
-// P and P c' of one kept pair from its raw score s = q . k (kCap: the
-// capped score cap tanh(s scale / cap), formed as the float32 forward
-// kernel forms it)
-template <bool kCap>
-__device__ __forceinline__ void prob(float s, float li, float sm_scale, float cap, float& p,
-                                     float& pc) {
-  if (kCap) {
-    const float t = tanhf(s * sm_scale / cap);
-    p = expf(t * cap - li);
-    pc = p * (1.f - t * t);
-  } else {
-    p = expf(s * sm_scale - li);
-    pc = p;
-  }
-}
-
-template <int kD, typename T, bool kCap>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                                const T* __restrict__ v, const T* __restrict__ g,
-                                const float* __restrict__ lse, const float* __restrict__ delta,
-                                T* __restrict__ dk, T* __restrict__ dv, int H, int group, int S,
-                                int Sk, int D, Strides st, float sm_scale, float cap, int causal,
-                                int window) {
-  constexpr int kLd = kD + 4;
-  constexpr int kChunks = kD / 32;  // float4 columns per thread row
+// P = exp(c(q k scale) - lse) and dS = P c' (dP - delta) of every kept pair
+// of the block's q tile, one 64 x 64 tile of each per kept k tile, written
+// to the scratch (zeros where the masks drop a pair or a row is past S).
+// scale_log2 = sm_scale log2 e; with kCap, cap_scale = sm_scale / cap and
+// cap_log2 = cap log2 e, as in the forward.
+template <int kD, bool kCap>
+__global__ void __launch_bounds__(DsLayout<kD>::kThreads, 2)
+flash_attention_bwd_ds_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, const float* __restrict__ o,
+                              const float* __restrict__ g, const float* __restrict__ lse,
+                              float* __restrict__ scratch, int H, int group, int S, int Sk,
+                              int D, Strides st, float scale_log2, float cap_scale,
+                              float cap_log2, int causal, int window,
+                              long long tiles_per_head) {
+  using L = DsLayout<kD>;
+  constexpr int kDC = L::kDC, kCpr = L::kCpr, kSlots = L::kSlots;
   extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + kKvBK * kLd;
-  float* Qs = Vs + kKvBK * kLd;
-  float* Gs = Qs + kKvBQ * kLd;
-  float* Ps = Gs + kKvBQ * kLd;
-  float* dSs = Ps + kKvBQ * kPLd;
-  float* lse_s = dSs + kKvBQ * kPLd;
-  float* delta_s = lse_s + kKvBQ;
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* lse_s = smem + L::kRows;
+  float* delta_s = lse_s + kTile;
 
-  const int k0 = blockIdx.x * kKvBK;
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tx = threadIdx.x % 8;
-  const int ty = threadIdx.x / 8;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int qt = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;  // heaviest first
+  const int q0 = qt * kTile;
+  const int hk = h / group;
+  const float* qb = q + b * st.q[0] + h * st.q[1];
+  const float* gb = g + b * st.g[0] + h * st.g[1];
+  const float* kb = k + b * st.k[0] + hk * st.k[1];
+  const float* vb = v + b * st.v[0] + hk * st.v[1];
+  const int tid = threadIdx.x;
+  const int rg = tid / 16;
+  const int cg = tid % 16;
+  const int lo = tile_lo(qt, kTile, kTile, window);
+  const int n_items = (tile_hi(qt, kTile, kTile, S, Sk, causal) - lo + 1) * L::kItems;
 
-  load_tile<kD, kKvBK>(Ks, k + b * st.k[0] + hk * st.k[1], st.k[2], k0, Sk, D);
-  load_tile<kD, kKvBK>(Vs, v + b * st.v[0] + hk * st.v[1], st.v[2], k0, Sk, D);
-
-  float4 dk_acc[2][kChunks], dv_acc[2][kChunks];
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      dk_acc[r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
-      dv_acc[r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  auto issue = [&](int n) {
+    if (n < n_items) {
+      float* slot = smem + (n % kSlots) * L::kSlot;
+      const int k0 = (lo + n / L::kItems) * kTile;
+      const int d0 = (n % L::kItems) * kDC;
+      load_tile<kTile, kDC, L::kThreads, true>(slot, qb, st.q[2], q0, S, d0, D);
+      load_tile<kTile, kDC, L::kThreads, true>(slot + L::kPart, gb, st.g[2], q0, S, d0, D);
+      load_tile<kTile, kDC, L::kThreads, true>(slot + 2 * L::kPart, kb, st.k[2], k0, Sk, d0, D);
+      load_tile<kTile, kDC, L::kThreads, true>(slot + 3 * L::kPart, vb, st.v[2], k0, Sk, d0, D);
     }
-
-  // q rows that keep some column of [k0, k0 + 64): i >= k0 when causal,
-  // i < k_last + window with a window
-  const int q_begin = causal ? (k0 / kKvBQ) * kKvBQ : 0;
-  const int q_end = window > 0 ? min(S, k0 + kKvBK - 1 + window) : S;
-
-  for (int gi = 0; gi < group; ++gi) {
-    const int h = hk * group + gi;
-    const T* qb = q + b * st.q[0] + h * st.q[1];
-    const T* gb = g + b * st.g[0] + h * st.g[1];
-    const float* lb = lse + (static_cast<long long>(b) * H + h) * S;
-    const float* db = delta + (static_cast<long long>(b) * H + h) * S;
-    for (int q0 = q_begin; q0 < q_end; q0 += kKvBQ) {
-      __syncthreads();  // the previous step's Q, dO, P and dS are consumed
-      load_tile<kD, kKvBQ>(Qs, qb, st.q[2], q0, S, D);
-      load_tile<kD, kKvBQ>(Gs, gb, st.g[2], q0, S, D);
-      load_rows(lse_s, lb, q0, kKvBQ, S);
-      load_rows(delta_s, db, q0, kKvBQ, S);
-      __syncthreads();
-
-      // S = Q K^T and dP = dO V^T at q row ty, k columns tx + 8 j
-      float s[8], dp[8];
+    cp_async_commit();
+  };
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s[j] = dp[j] = 0.f;
+  for (int n = 0; n < kSlots - 1; ++n) issue(n);
+
+  // while they land: delta_i = do_i . o_i (two threads a row) and lse in
+  // the log2 domain, for the block's 64 rows
+  {
+    const int r = tid / 2;
+    const int row = q0 + r;
+    float acc = 0.f;
+    if (row < S) {
+      const float* orow = o + b * st.o[0] + h * st.o[1] + static_cast<long long>(row) * st.o[2];
+      const float* grow = gb + static_cast<long long>(row) * st.g[2];
+      for (int col = 4 * (tid % 2); col < D; col += 8)
+        acc = dot4(__ldg(reinterpret_cast<const float4*>(orow + col)),
+                   __ldg(reinterpret_cast<const float4*>(grow + col)), acc);
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (tid % 2 == 0) {
+      delta_s[r] = acc;
+      lse_s[r] = row < S ? lse[(static_cast<long long>(b) * H + h) * S + row] * kLog2e
+                         : INFINITY;
+    }
+  }
+
+  float* tiles = scratch + (((static_cast<long long>(b) * H + h) * tiles_per_head +
+                             tiles_before(qt, S, Sk, causal, window)) *
+                            2 * kTileFloats);
+  float s[8][4], dp[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+
+  for (int n = 0; n < n_items; ++n) {
+    cp_async_wait<kSlots - 2>();
+    __syncthreads();
+    issue(n + kSlots - 1);
+    const float* Qs = smem + (n % kSlots) * L::kSlot;
+    const float* Gs = Qs + L::kPart;
+    const float* Ks = Gs + L::kPart;
+    const float* Vs = Ks + L::kPart;
+    // S = Q K^T and dP = dO V^T over the item's columns: 8 rows x 4 keys
+    // each, 24 loads of 16 bytes for 256 FMAs
 #pragma unroll 2
-      for (int d = 0; d < kD; d += 4) {
-        const float4 qa = *reinterpret_cast<const float4*>(Qs + ty * kLd + d);
-        const float4 ga = *reinterpret_cast<const float4*>(Gs + ty * kLd + d);
+    for (int c = 0; c < kCpr; ++c) {
+      float4 kf[4], vf[4];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          s[j] = dot4(qa, *reinterpret_cast<const float4*>(Ks + (tx + 8 * j) * kLd + d), s[j]);
-          dp[j] = dot4(ga, *reinterpret_cast<const float4*>(Vs + (tx + 8 * j) * kLd + d), dp[j]);
+      for (int j = 0; j < 4; ++j) {
+        const int key = 4 * cg + j;
+        kf[j] = ld4(Ks + key * kDC + 4 * swz<kCpr>(key, c));
+        vf[j] = ld4(Vs + key * kDC + 4 * swz<kCpr>(key, c));
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int row = frow(rg, i);
+        const float4 qf = ld4(Qs + row * kDC + 4 * swz<kCpr>(row, c));
+        const float4 gf = ld4(Gs + row * kDC + 4 * swz<kCpr>(row, c));
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = dot4(qf, kf[j], s[i][j]);
+          dp[i][j] = dot4(gf, vf[j], dp[i][j]);
         }
       }
-      const int i = q0 + ty;
-      const float li = lse_s[ty], di = delta_s[ty];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = tx + 8 * j;
-        float p = 0.f, pc = 0.f;
-        if (kept(i, k0 + col, S, Sk, causal, window))
-          prob<kCap>(s[j], li, sm_scale, cap, p, pc);
-        Ps[ty * kPLd + col] = p;
-        dSs[ty * kPLd + col] = pc * (dp[j] - di);
-      }
-      __syncthreads();
+    }
+    if (n % L::kItems != L::kItems - 1) continue;
 
-      // dV += P^T dO, dK += dS^T Q at k rows ty, ty + 32
-#pragma unroll 2
-      for (int r = 0; r < kKvBQ; ++r) {
-        const float p0 = Ps[r * kPLd + ty], p1 = Ps[r * kPLd + ty + 32];
-        const float s0 = dSs[r * kPLd + ty], s1 = dSs[r * kPLd + ty + 32];
+    // the k tile is complete: its P and dS tiles into the scratch
+    const int t = n / L::kItems;
+    const int k0 = (lo + t) * kTile;
+    float* tp = tiles + static_cast<long long>(t) * 2 * kTileFloats;
+    float* td = tp + kTileFloats;
+    const bool edge = k0 + kTile > Sk || q0 + kTile > S || (causal && k0 + kTile - 1 > q0) ||
+                      (window > 0 && k0 <= q0 + kTile - 1 - window);
 #pragma unroll
-        for (int c = 0; c < kChunks; ++c) {
-          const float4 gr = *reinterpret_cast<const float4*>(Gs + r * kLd + tx * 4 + 32 * c);
-          const float4 qr = *reinterpret_cast<const float4*>(Qs + r * kLd + tx * 4 + 32 * c);
-          axpy4(p0, gr, dv_acc[0][c]);
-          axpy4(p1, gr, dv_acc[1][c]);
-          axpy4(s0, qr, dk_acc[0][c]);
-          axpy4(s1, qr, dk_acc[1][c]);
+    for (int i = 0; i < 8; ++i) {
+      const int r = frow(rg, i);
+      const float li = lse_s[r], di = delta_s[r];
+      float p[4], ds[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float x, dc = 1.f;
+        if (kCap) {
+          const float tt = tanhf(s[i][j] * cap_scale);
+          x = tt * cap_log2;
+          dc = 1.f - tt * tt;
+        } else {
+          x = s[i][j] * scale_log2;
+        }
+        float pij = exp2f(x - li);
+        if (edge && !kept(q0 + r, k0 + 4 * cg + j, S, Sk, causal, window)) pij = 0.f;
+        p[j] = pij;
+        ds[j] = pij * dc * (dp[i][j] - di);
+        s[i][j] = dp[i][j] = 0.f;
+      }
+      st4(tp + r * kTile + 4 * cg, make_float4(p[0], p[1], p[2], p[3]));
+      st4(td + r * kTile + 4 * cg, make_float4(ds[0], ds[1], ds[2], ds[3]));
+    }
+  }
+}
+
+// flash_attention_bwd_grad_kernel: 8 x kNCG threads, kTC output columns
+// each; a dK/dV block keeps 8 keys x kTC columns of dK and of dV a thread,
+// a dQ block 8 rows x kTC columns of dQ
+template <int kD>
+struct GradLayout {
+  static constexpr int kTC = kD >= 128 ? 8 : 4;   // output columns a thread
+  static constexpr int kNCG = kD / kTC;           // column groups
+  static constexpr int kThreads = 8 * kNCG;
+  static constexpr int kBQC = 16;                  // q rows per dK/dV item
+  static constexpr int kBKC = 32;                  // k rows per dQ item
+  static constexpr int kSlots = 3;
+  // dK/dV item: P and dS (kBQC x 64), dO and Q (kBQC x kD); dQ item: dS
+  // (64 x kBKC), K (kBKC x kD): the same floats at every kD
+  static constexpr int kSlot = kBQC * (2 * kTile + 2 * kD);
+  static_assert(kSlot == kTile * kBKC + kBKC * kD, "the two items fill one slot");
+  static constexpr int kBytes = kSlots * kSlot * 4;
+  static constexpr int kMinBlocks = kD >= 256 ? 1 : 2;
+};
+
+// dK and dV of 64 keys (k tile kt, KV head hk, batch b) from the scratch
+// tiles of the q tiles that keep them, over the group's heads in order
+template <int kD>
+__device__ __forceinline__ void dkdv_block(float* smem, const float* __restrict__ q,
+                                           const float* __restrict__ g,
+                                           const float* __restrict__ scratch,
+                                           float* __restrict__ dk, float* __restrict__ dv,
+                                           int kt, int hk, int b, int H, int group, int S,
+                                           int Sk, int D, const Strides& st, float sm_scale,
+                                           int causal, int window, long long tiles_per_head) {
+  using L = GradLayout<kD>;
+  constexpr int kTC = L::kTC, kNCG = L::kNCG, kBQC = L::kBQC, kSlots = L::kSlots;
+  constexpr int kPer = kTile / kBQC;   // items per (head, q tile)
+  const int tid = threadIdx.x;
+  const int kg = tid / kNCG;
+  const int cg = tid % kNCG;
+  const int nqt = (S + kTile - 1) / kTile;
+
+  // the q tiles that keep k tile kt: [qa, qb], and the kept tiles before qa
+  int qa = 0;
+  long long pre_qa = 0;
+  while (qa < nqt && tile_hi(qa, kTile, kTile, S, Sk, causal) < kt) {
+    pre_qa += tile_hi(qa, kTile, kTile, S, Sk, causal) - tile_lo(qa, kTile, kTile, window) + 1;
+    ++qa;
+  }
+  int qb = qa;
+  while (qb + 1 < nqt && tile_lo(qb + 1, kTile, kTile, window) <= kt) ++qb;
+  const int n_items = group * (qb - qa + 1) * kPer;
+
+  // the producer's cursor: head gi of the group, q tile qt (pre: its first
+  // kept tile's index in the head), item r of it
+  int gi = 0, qt = qa, r = 0;
+  long long pre = pre_qa;
+  auto issue = [&](int n) {
+    if (n < n_items) {
+      float* slot = smem + (n % kSlots) * L::kSlot;
+      const int h = hk * group + gi;
+      const long long tile = (static_cast<long long>(b) * H + h) * tiles_per_head + pre + kt -
+                             tile_lo(qt, kTile, kTile, window);
+      const float* src = scratch + tile * 2 * kTileFloats + r * kBQC * kTile;
+      // P rows then dS rows of the tile: contiguous
+      for (int i = tid; i < 2 * kBQC * kTile / 4; i += L::kThreads) {
+        const int part = i / (kBQC * kTile / 4);
+        const int j = i % (kBQC * kTile / 4);
+        cp_async16(slot + part * kBQC * kTile + 4 * j, src + part * kTileFloats + 4 * j);
+      }
+      const int row0 = qt * kTile + r * kBQC;
+      float* gs = slot + 2 * kBQC * kTile;
+      load_tile<kBQC, kD, L::kThreads, false>(gs, g + b * st.g[0] + h * st.g[1], st.g[2], row0,
+                                              S, 0, D);
+      load_tile<kBQC, kD, L::kThreads, false>(gs + kBQC * kD, q + b * st.q[0] + h * st.q[1],
+                                              st.q[2], row0, S, 0, D);
+      if (++r == kPer) {
+        r = 0;
+        pre += tile_hi(qt, kTile, kTile, S, Sk, causal) - tile_lo(qt, kTile, kTile, window) + 1;
+        if (++qt > qb) {
+          qt = qa;
+          pre = pre_qa;
+          ++gi;
+        }
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int n = 0; n < kSlots - 1; ++n) issue(n);
+
+  float4 acc_v[8][kTC / 4], acc_k[8][kTC / 4];
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+#pragma unroll
+    for (int c = 0; c < kTC / 4; ++c)
+      acc_v[e][c] = acc_k[e][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int n = 0; n < n_items; ++n) {
+    cp_async_wait<kSlots - 2>();
+    __syncthreads();
+    issue(n + kSlots - 1);
+    const float* Ps = smem + (n % kSlots) * L::kSlot;
+    const float* dSs = Ps + kBQC * kTile;
+    const float* Gs = dSs + kBQC * kTile;
+    const float* Qs = Gs + kBQC * kD;
+    // dV += P^T dO, dK += dS^T Q: per q row 4 + kTC / 2 loads of 16 bytes
+    // for 16 kTC FMAs; keys 4 kg + e and 32 + 4 kg + e
+#pragma unroll 4
+    for (int rq = 0; rq < kBQC; ++rq) {
+      const float4 pa = ld4(Ps + rq * kTile + 4 * kg), pb = ld4(Ps + rq * kTile + 32 + 4 * kg);
+      const float4 sa = ld4(dSs + rq * kTile + 4 * kg), sb = ld4(dSs + rq * kTile + 32 + 4 * kg);
+      const float p[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+      const float ds[8] = {sa.x, sa.y, sa.z, sa.w, sb.x, sb.y, sb.z, sb.w};
+#pragma unroll
+      for (int c = 0; c < kTC / 4; ++c) {
+        const float4 gf = ld4(Gs + rq * kD + 4 * (cg + kNCG * c));
+        const float4 qf = ld4(Qs + rq * kD + 4 * (cg + kNCG * c));
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          axpy4(p[e], gf, acc_v[e][c]);
+          axpy4(ds[e], qf, acc_k[e][c]);
         }
       }
     }
   }
 
-  T* dkb = dk + b * st.dk[0] + hk * st.dk[1];
-  T* dvb = dv + b * st.dv[0] + hk * st.dv[1];
+  float* dkb = dk + b * st.dk[0] + hk * st.dk[1];
+  float* dvb = dv + b * st.dv[0] + hk * st.dv[1];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = k0 + ty + 32 * r;
+  for (int e = 0; e < 8; ++e) {
+    const int row = kt * kTile + frow(kg, e);
     if (row >= Sk) continue;
 #pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      const int col = tx * 4 + 32 * c;
-      if (col < D) {
-        store4(dkb + row * st.dk[2] + col, scale4(dk_acc[r][c], sm_scale));
-        store4(dvb + row * st.dv[2] + col, dv_acc[r][c]);
-      }
+    for (int c = 0; c < kTC / 4; ++c) {
+      const int col = 4 * (cg + kNCG * c);
+      if (col >= D) continue;
+      const float4 a = acc_k[e][c];
+      st4(dkb + static_cast<long long>(row) * st.dk[2] + col,
+          make_float4(a.x * sm_scale, a.y * sm_scale, a.z * sm_scale, a.w * sm_scale));
+      st4(dvb + static_cast<long long>(row) * st.dv[2] + col, acc_v[e][c]);
     }
   }
 }
 
+// dQ of 64 query rows (q tile qt, head h, batch b): scale dS K over the
+// block's kept k tiles, their dS tiles consecutive in the scratch
 template <int kD>
-constexpr int dq_smem_bytes() {
-  return ((2 * kQBQ + 2 * kQBK) * (kD + 4) + kQBQ * kSLd + 2 * kQBQ) *
-         static_cast<int>(sizeof(float));
-}
+__device__ __forceinline__ void dq_block(float* smem, const float* __restrict__ k,
+                                         const float* __restrict__ scratch,
+                                         float* __restrict__ dq, int qt, int h, int b, int H,
+                                         int group, int S, int Sk, int D, const Strides& st,
+                                         float sm_scale, int causal, int window,
+                                         long long tiles_per_head) {
+  using L = GradLayout<kD>;
+  constexpr int kTC = L::kTC, kNCG = L::kNCG, kBKC = L::kBKC, kSlots = L::kSlots;
+  constexpr int kPer = kTile / kBKC;   // items per k tile
+  constexpr int kCpr = kBKC / 4;
+  const int tid = threadIdx.x;
+  const int qg = tid / kNCG;
+  const int cg = tid % kNCG;
+  const int lo = tile_lo(qt, kTile, kTile, window);
+  const int n_items = (tile_hi(qt, kTile, kTile, S, Sk, causal) - lo + 1) * kPer;
+  const float* tiles = scratch + ((static_cast<long long>(b) * H + h) * tiles_per_head +
+                                  tiles_before(qt, S, Sk, causal, window)) *
+                                     2 * kTileFloats;
+  const float* kb = k + b * st.k[0] + (h / group) * st.k[1];
 
-template <int kD, typename T, bool kCap>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                              const T* __restrict__ v, const T* __restrict__ g,
-                              const float* __restrict__ lse, const float* __restrict__ delta,
-                              T* __restrict__ dq, int group, int S, int Sk, int D, Strides st,
-                              float sm_scale, float cap, int causal, int window) {
-  constexpr int kLd = kD + 4;
-  constexpr int kChunks = kD / 32;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Gs = Qs + kQBQ * kLd;
-  float* Ks = Gs + kQBQ * kLd;
-  float* Vs = Ks + kQBK * kLd;
-  float* dSs = Vs + kQBK * kLd;
-  float* lse_s = dSs + kQBQ * kSLd;
-  float* delta_s = lse_s + kQBQ;
-
-  const int q0 = blockIdx.x * kQBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / group;
-  const int tx = threadIdx.x % 8;
-  const int ty = threadIdx.x / 8;
-  const long long row_base = (static_cast<long long>(b) * gridDim.y + h) * S;
-
-  load_tile<kD, kQBQ>(Qs, q + b * st.q[0] + h * st.q[1], st.q[2], q0, S, D);
-  load_tile<kD, kQBQ>(Gs, g + b * st.g[0] + h * st.g[1], st.g[2], q0, S, D);
-  load_rows(lse_s, lse + row_base, q0, kQBQ, S);
-  load_rows(delta_s, delta + row_base, q0, kQBQ, S);
-  const T* kb = k + b * st.k[0] + hk * st.k[1];
-  const T* vb = v + b * st.v[0] + hk * st.v[1];
-
-  float4 acc[2][kChunks];
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c) acc[r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  // k tiles that some row of this q tile keeps (the forward's range)
-  int k_begin = 0;
-  if (window > 0) {
-    const int lo = q0 - window + 1;  // first column row q0 keeps
-    k_begin = lo > 0 ? (lo / kQBK) * kQBK : 0;
-  }
-  const int k_end = causal ? min(Sk, q0 + kQBQ) : Sk;
-
-  for (int k0 = k_begin; k0 < k_end; k0 += kQBK) {
-    __syncthreads();  // the previous tile's K, V and dS are consumed
-    load_tile<kD, kQBK>(Ks, kb, st.k[2], k0, Sk, D);
-    load_tile<kD, kQBK>(Vs, vb, st.v[2], k0, Sk, D);
-    __syncthreads();
-
-    // S and dP at q rows ty, ty + 32 and k columns tx + 8 j
-    float s[2][4], dp[2][4];
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[r][j] = dp[r][j] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < kD; d += 4) {
-      float4 qa[2], ga[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        qa[r] = *reinterpret_cast<const float4*>(Qs + (ty + 32 * r) * kLd + d);
-        ga[r] = *reinterpret_cast<const float4*>(Gs + (ty + 32 * r) * kLd + d);
+  auto issue = [&](int n) {
+    if (n < n_items) {
+      float* slot = smem + (n % kSlots) * L::kSlot;
+      const int t = n / kPer;
+      const int c0 = (n % kPer) * kBKC;
+      // kBKC columns of the tile's dS, 64 rows, swizzled
+      const float* src = tiles + static_cast<long long>(t) * 2 * kTileFloats + kTileFloats + c0;
+      for (int i = tid; i < kTile * kCpr; i += L::kThreads) {
+        const int row = i / kCpr;
+        const int c = i % kCpr;
+        cp_async16(slot + row * kBKC + 4 * swz<kCpr>(row, c), src + row * kTile + 4 * c);
       }
+      load_tile<kBKC, kD, L::kThreads, false>(slot + kTile * kBKC, kb, st.k[2],
+                                              (lo + t) * kTile + c0, Sk, 0, D);
+    }
+    cp_async_commit();
+  };
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float4 kk = *reinterpret_cast<const float4*>(Ks + (tx + 8 * j) * kLd + d);
-        const float4 vv = *reinterpret_cast<const float4*>(Vs + (tx + 8 * j) * kLd + d);
+  for (int n = 0; n < kSlots - 1; ++n) issue(n);
+
+  float4 acc[8][kTC / 4];
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          s[r][j] = dot4(qa[r], kk, s[r][j]);
-          dp[r][j] = dot4(ga[r], vv, dp[r][j]);
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < kTC / 4; ++c) acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int n = 0; n < n_items; ++n) {
+    cp_async_wait<kSlots - 2>();
+    __syncthreads();
+    issue(n + kSlots - 1);
+    const float* dSs = smem + (n % kSlots) * L::kSlot;
+    const float* Ks = dSs + kTile * kBKC;
+    // dQ += dS K: per 4 keys 8 + kTC loads of 16 bytes for 32 kTC FMAs
+#pragma unroll 4
+    for (int c = 0; c < kCpr; ++c) {
+      float4 kf[4][kTC / 4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int cc = 0; cc < kTC / 4; ++cc)
+          kf[kk][cc] = ld4(Ks + (4 * c + kk) * kD + 4 * (cg + kNCG * cc));
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int row = frow(qg, i);
+        const float4 d4 = ld4(dSs + row * kBKC + 4 * swz<kCpr>(row, c));
+#pragma unroll
+        for (int cc = 0; cc < kTC / 4; ++cc) {
+          axpy4(d4.x, kf[0][cc], acc[i][cc]);
+          axpy4(d4.y, kf[1][cc], acc[i][cc]);
+          axpy4(d4.z, kf[2][cc], acc[i][cc]);
+          axpy4(d4.w, kf[3][cc], acc[i][cc]);
         }
       }
     }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int lrow = ty + 32 * r;
-      const float li = lse_s[lrow], di = delta_s[lrow];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = tx + 8 * j;
-        float p = 0.f, pc = 0.f;
-        if (kept(q0 + lrow, k0 + col, S, Sk, causal, window))
-          prob<kCap>(s[r][j], li, sm_scale, cap, p, pc);
-        dSs[lrow * kSLd + col] = pc * (dp[r][j] - di);
-      }
-    }
-    __syncthreads();
-
-    // dQ += dS K
-#pragma unroll 4
-    for (int kk = 0; kk < kQBK; ++kk) {
-      const float d0 = dSs[ty * kSLd + kk], d1 = dSs[(ty + 32) * kSLd + kk];
-#pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        const float4 kr = *reinterpret_cast<const float4*>(Ks + kk * kLd + tx * 4 + 32 * c);
-        axpy4(d0, kr, acc[0][c]);
-        axpy4(d1, kr, acc[1][c]);
-      }
-    }
   }
 
-  T* dqb = dq + b * st.dq[0] + h * st.dq[1];
+  float* dqb = dq + b * st.dq[0] + h * st.dq[1];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + ty + 32 * r;
+  for (int i = 0; i < 8; ++i) {
+    const int row = qt * kTile + frow(qg, i);
     if (row >= S) continue;
 #pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      const int col = tx * 4 + 32 * c;
-      if (col < D) store4(dqb + row * st.dq[2] + col, scale4(acc[r][c], sm_scale));
+    for (int c = 0; c < kTC / 4; ++c) {
+      const int col = 4 * (cg + kNCG * c);
+      if (col >= D) continue;
+      const float4 a = acc[i][c];
+      st4(dqb + static_cast<long long>(row) * st.dq[2] + col,
+          make_float4(a.x * sm_scale, a.y * sm_scale, a.z * sm_scale, a.w * sm_scale));
     }
   }
 }
 
-template <int kD, typename T, bool kCap>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* g,
-                   const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int H,
-                   int Hkv, int S, int Sk, int D, const Strides& st, float sm_scale, float softcap,
-                   int causal, int window, cudaStream_t stream) {
-  const T* tq = static_cast<const T*>(q);
-  const T* tk = static_cast<const T*>(k);
-  const T* tv = static_cast<const T*>(v);
-  const T* tg = static_cast<const T*>(g);
-  const long long rows = static_cast<long long>(B) * H * S;
-  flash_attention_bwd_delta_kernel<T>
-      <<<static_cast<unsigned>((rows + kThreads / 32 - 1) / (kThreads / 32)), kThreads, 0,
-         stream>>>(static_cast<const T*>(o), tg, delta, H, S, D, rows, st);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+// the block's role and tile: causal, rank r = 0, 1, ... holds the dK/dV
+// blocks of k tile r, then the dQ blocks of q tile nqt - 1 - r (each the
+// heaviest left of its kind); otherwise every dK/dV block, then every dQ
+// block (all alike within a kind)
+struct GradBlock {
+  bool kv;
+  int tile, head, b;
+};
 
-  // above 48 KB, dynamic shared memory must be granted per kernel (and per
-  // device, so it is set at every launch: a cheap driver call)
-  constexpr int kv_bytes = dkdv_smem_bytes<kD>();
-  err = cudaFuncSetAttribute(flash_attention_bwd_dkdv_kernel<kD, T, kCap>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, kv_bytes);
+__host__ __device__ __forceinline__ GradBlock grad_block(long long idx, int B, int H, int Hkv,
+                                                         int nqt, int nkt, int causal) {
+  const long long n_kv = static_cast<long long>(Hkv) * B, n_q = static_cast<long long>(H) * B;
+  GradBlock gb;
+  long long j;
+  if (causal) {
+    const long long r = idx / (n_kv + n_q);
+    j = idx % (n_kv + n_q);
+    gb.kv = j < n_kv;
+    if (!gb.kv) j -= n_kv;
+    gb.tile = static_cast<int>(gb.kv ? r : nqt - 1 - r);
+  } else if (idx < nkt * n_kv) {
+    gb.kv = true;
+    gb.tile = static_cast<int>(idx / n_kv);
+    j = idx % n_kv;
+  } else {
+    gb.kv = false;
+    idx -= nkt * n_kv;
+    gb.tile = static_cast<int>(idx / n_q);
+    j = idx % n_q;
+  }
+  const int heads = gb.kv ? Hkv : H;
+  gb.head = static_cast<int>(j % heads);
+  gb.b = static_cast<int>(j / heads);
+  return gb;
+}
+
+template <int kD>
+__global__ void __launch_bounds__(GradLayout<kD>::kThreads, GradLayout<kD>::kMinBlocks)
+flash_attention_bwd_grad_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ g, const float* __restrict__ scratch,
+                                float* __restrict__ dq, float* __restrict__ dk,
+                                float* __restrict__ dv, int B, int H, int Hkv, int S, int Sk,
+                                int D, Strides st, float sm_scale, int causal, int window,
+                                long long tiles_per_head) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int group = H / Hkv;
+  const GradBlock gb = grad_block(blockIdx.x, B, H, Hkv, (S + kTile - 1) / kTile,
+                                  (Sk + kTile - 1) / kTile, causal);
+  if (gb.kv)
+    dkdv_block<kD>(smem, q, g, scratch, dk, dv, gb.tile, gb.head, gb.b, H, group, S, Sk, D, st,
+                   sm_scale, causal, window, tiles_per_head);
+  else
+    dq_block<kD>(smem, k, scratch, dq, gb.tile, gb.head, gb.b, H, group, S, Sk, D, st, sm_scale,
+                 causal, window, tiles_per_head);
+}
+
+inline long long tiles_per_head(int S, int Sk, int causal, int window) {
+  return tiles_before((S + kTile - 1) / kTile, S, Sk, causal, window);
+}
+
+template <int kD, bool kCap>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* g,
+                   const float* lse, float* scratch, void* dq, void* dk, void* dv, int B, int H,
+                   int Hkv, int S, int Sk, int D, const Strides& st, float sm_scale,
+                   float softcap, int causal, int window, cudaStream_t stream) {
+  const long long tph = tiles_per_head(S, Sk, causal, window);
+  const int nqt = (S + kTile - 1) / kTile, nkt = (Sk + kTile - 1) / kTile;
+  const float* tq = static_cast<const float*>(q);
+  const float* tk = static_cast<const float*>(k);
+  const float* tg = static_cast<const float*>(g);
+  cudaError_t err = allow_smem<&flash_attention_bwd_ds_kernel<kD, kCap>>(DsLayout<kD>::kBytes);
   if (err != cudaSuccess) return err;
-  const dim3 kv_grid((Sk + kKvBK - 1) / kKvBK, Hkv, B);
-  flash_attention_bwd_dkdv_kernel<kD, T, kCap><<<kv_grid, kThreads, kv_bytes, stream>>>(
-      tq, tk, tv, tg, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), H, H / Hkv, S, Sk,
-      D, st, sm_scale, softcap, causal, window);
+  flash_attention_bwd_ds_kernel<kD, kCap>
+      <<<dim3(H, B, nqt), DsLayout<kD>::kThreads, DsLayout<kD>::kBytes, stream>>>(
+          tq, tk, static_cast<const float*>(v), static_cast<const float*>(o), tg, lse, scratch,
+          H, H / Hkv, S, Sk, D, st, sm_scale * kLog2e, kCap ? sm_scale / softcap : 0.f,
+          softcap * kLog2e, causal, window, tph);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-
-  constexpr int q_bytes = dq_smem_bytes<kD>();
-  err = cudaFuncSetAttribute(flash_attention_bwd_dq_kernel<kD, T, kCap>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, q_bytes);
+  using G = GradLayout<kD>;
+  err = allow_smem<&flash_attention_bwd_grad_kernel<kD>>(G::kBytes);
   if (err != cudaSuccess) return err;
-  const dim3 q_grid((S + kQBQ - 1) / kQBQ, H, B);
-  flash_attention_bwd_dq_kernel<kD, T, kCap><<<q_grid, kThreads, q_bytes, stream>>>(
-      tq, tk, tv, tg, lse, delta, static_cast<T*>(dq), H / Hkv, S, Sk, D, st, sm_scale, softcap,
-      causal, window);
+  const long long blocks = static_cast<long long>(nkt) * Hkv * B + static_cast<long long>(nqt) * H * B;
+  flash_attention_bwd_grad_kernel<kD><<<static_cast<unsigned>(blocks), G::kThreads, G::kBytes,
+                                        stream>>>(
+      tq, tk, tg, scratch, static_cast<float*>(dq), static_cast<float*>(dk),
+      static_cast<float*>(dv), B, H, Hkv, S, Sk, D, st, sm_scale, causal, window, tph);
   return cudaGetLastError();
 }
 
-template <typename T, bool kCap>
+template <bool kCap>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* o,
-                       const void* g, const float* lse, float* delta, void* dq, void* dk,
+                       const void* g, const float* lse, float* scratch, void* dq, void* dk,
                        void* dv, int B, int H, int Hkv, int S, int Sk, int D,
                        const Strides& st, float sm_scale, float softcap, int causal, int window,
                        cudaStream_t s) {
-  // D runs zero-padded in the next size up
-  if (D <= 32)
-    return launch<32, T, kCap>(q, k, v, o, g, lse, delta, dq, dk, dv, B, H, Hkv, S, Sk, D, st,
-                               sm_scale, softcap, causal, window, s);
-  if (D <= 64)
-    return launch<64, T, kCap>(q, k, v, o, g, lse, delta, dq, dk, dv, B, H, Hkv, S, Sk, D, st,
-                               sm_scale, softcap, causal, window, s);
-  if (D <= 128)
-    return launch<128, T, kCap>(q, k, v, o, g, lse, delta, dq, dk, dv, B, H, Hkv, S, Sk, D, st,
-                                sm_scale, softcap, causal, window, s);
-  return launch<256, T, kCap>(q, k, v, o, g, lse, delta, dq, dk, dv, B, H, Hkv, S, Sk, D, st,
+  switch (instance_d(D)) {
+    case 16:
+      return launch<16, kCap>(q, k, v, o, g, lse, scratch, dq, dk, dv, B, H, Hkv, S, Sk, D, st,
                               sm_scale, softcap, causal, window, s);
+    case 32:
+      return launch<32, kCap>(q, k, v, o, g, lse, scratch, dq, dk, dv, B, H, Hkv, S, Sk, D, st,
+                              sm_scale, softcap, causal, window, s);
+    case 64:
+      return launch<64, kCap>(q, k, v, o, g, lse, scratch, dq, dk, dv, B, H, Hkv, S, Sk, D, st,
+                              sm_scale, softcap, causal, window, s);
+    case 128:
+      return launch<128, kCap>(q, k, v, o, g, lse, scratch, dq, dk, dv, B, H, Hkv, S, Sk, D, st,
+                               sm_scale, softcap, causal, window, s);
+    default:
+      return launch<256, kCap>(q, k, v, o, g, lse, scratch, dq, dk, dv, B, H, Hkv, S, Sk, D, st,
+                               sm_scale, softcap, causal, window, s);
+  }
 }
 
-template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, const void* o, const void* g,
-                     const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int H,
-                     int Hkv, int S, int Sk, int D, const Strides& st, float sm_scale,
+                     const float* lse, float* scratch, void* dq, void* dk, void* dv, int B,
+                     int H, int Hkv, int S, int Sk, int D, const Strides& st, float sm_scale,
                      float softcap, int causal, int window, cudaStream_t s) {
   if (softcap > 0.f)
-    return dispatch_d<T, true>(q, k, v, o, g, lse, delta, dq, dk, dv, B, H, Hkv, S, Sk, D, st,
-                               sm_scale, softcap, causal, window, s);
-  return dispatch_d<T, false>(q, k, v, o, g, lse, delta, dq, dk, dv, B, H, Hkv, S, Sk, D, st,
-                              sm_scale, softcap, causal, window, s);
+    return dispatch_d<true>(q, k, v, o, g, lse, scratch, dq, dk, dv, B, H, Hkv, S, Sk, D, st,
+                            sm_scale, softcap, causal, window, s);
+  return dispatch_d<false>(q, k, v, o, g, lse, scratch, dq, dk, dv, B, H, Hkv, S, Sk, D, st,
+                           sm_scale, softcap, causal, window, s);
+}
+
+// threads and dynamic shared memory of the two kernels of instance kD
+template <int kD>
+void sizes_of(long long* grad_threads, long long* grad_bytes, long long* ds_bytes) {
+  *grad_threads = GradLayout<kD>::kThreads;
+  *grad_bytes = GradLayout<kD>::kBytes;
+  *ds_bytes = DsLayout<kD>::kBytes;
 }
 
 }  // namespace bwd
@@ -1219,20 +1408,39 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const void* o,
 
 extern "C" {
 
-// The split of a call (wgmma path for dtype 1; the FMA path has one split):
-// out[0..7] = padded D, k tiles (of Sk rows), heads per block, splits, dK/dV
-// blocks, dQ blocks (one per 64-row q tile of S rows, head and b), dK/dV and
-// dQ dynamic shared memory bytes.  heads_per_block 0 takes the rule.
-// Returns the float32 scratch the launch needs (delta, then the partials),
-// or -1 for a shape the kernels do not take.
+// The split of a call.  bfloat16 (dtype 1): out[0..7] = padded D, k tiles
+// (of Sk rows), heads per block, splits, dK/dV blocks, dQ blocks (one per
+// 64-row q tile of S rows, head and b), dK/dV and dQ dynamic shared memory
+// bytes; heads_per_block 0 takes the rule.  float32 (dtype 0): instance D,
+// k tiles, heads per block (the group: a dK/dV block sums all its heads),
+// 1, dK/dV blocks, dQ blocks, then the dynamic shared memory bytes of
+// flash_attention_bwd_grad_kernel (which runs both kinds of block) and of
+// flash_attention_bwd_ds_kernel.  Returns the float32 scratch the launch
+// needs (bfloat16: delta, then the partials; float32: a P and a dS tile for
+// every kept 64 x 64 tile, which depend on causal and window), or -1 for a
+// shape the kernels do not take.
 long long flash_attention_bwd_plan(int dtype, int B, int H, int Hkv, int S, int Sk, int D,
-                                   int window, int heads_per_block, long long* out) {
-  (void)window;
+                                   int causal, int window, int heads_per_block,
+                                   long long* out) {
   if (B <= 0 || H <= 0 || S <= 0 || Sk <= 0 || Hkv <= 0 || H % Hkv != 0 || D <= 0 ||
       D > 256 || D % 8 != 0 || heads_per_block < 0 ||
       (heads_per_block > 0 && (H / Hkv) % heads_per_block != 0) || (dtype != 0 && dtype != 1))
     return -1;
-  wg::Plan p = wg::plan(B, H, Hkv, S, Sk, D, dtype == 1 ? heads_per_block : H / Hkv);
+  if (dtype == 0) {
+    const int nqt = (S + 63) / 64, nkt = (Sk + 63) / 64;
+    long long threads = 0, grad_bytes = 0, ds_bytes = 0;
+    const int kd = f32attn::instance_d(D);
+    if (kd == 16) bwd::sizes_of<16>(&threads, &grad_bytes, &ds_bytes);
+    else if (kd == 32) bwd::sizes_of<32>(&threads, &grad_bytes, &ds_bytes);
+    else if (kd == 64) bwd::sizes_of<64>(&threads, &grad_bytes, &ds_bytes);
+    else if (kd == 128) bwd::sizes_of<128>(&threads, &grad_bytes, &ds_bytes);
+    else bwd::sizes_of<256>(&threads, &grad_bytes, &ds_bytes);
+    const long long vals[8] = {kd, nkt, H / Hkv, 1, static_cast<long long>(nkt) * Hkv * B,
+                               static_cast<long long>(nqt) * H * B, grad_bytes, ds_bytes};
+    if (out != nullptr) memcpy(out, vals, sizeof(vals));
+    return 2LL * bwd::kTileFloats * B * H * bwd::tiles_per_head(S, Sk, causal, window);
+  }
+  wg::Plan p = wg::plan(B, H, Hkv, S, Sk, D, heads_per_block);
   long long kv_smem = 0, q_smem = 0;
   if (p.kd == 64) {
     kv_smem = wg::KvLayout<64>::kBytes;
@@ -1243,10 +1451,6 @@ long long flash_attention_bwd_plan(int dtype, int B, int H, int Hkv, int S, int 
   } else {
     kv_smem = wg::KvLayout<256>::kBytes;
     q_smem = wg::QLayout<256>::kBytes;
-  }
-  if (dtype == 0) {
-    p.kd = D <= 32 ? 32 : p.kd;
-    kv_smem = q_smem = 0;  // not reported for the FMA path
   }
   const long long vals[8] = {p.kd, p.n_kt, p.heads_per_block, p.n_split,
                              static_cast<long long>(p.n_kt) * Hkv * p.n_split * B,
@@ -1260,10 +1464,10 @@ long long flash_attention_bwd_plan(int dtype, int B, int H, int Hkv, int S, int 
 // dk, dv in that order) with D contiguous, rows and bases 16-byte aligned.
 // Sk != S (keys that are not the queries) only with causal = 0 and window =
 // 0, as in the forward.  lse: (B, H, S) float32 contiguous.  delta: float32
-// scratch of flash_attention_bwd_plan(...) floats, written here (delta, then
-// the partial dK and dV).  dtype 0 = float32 (FMA kernels), 1 = bfloat16
-// (wgmma kernels).  D a multiple of 8 up to 256; window 0 = no window;
-// softcap 0 = none, else the forward's logit soft-cap.
+// scratch of flash_attention_bwd_plan(...) floats (with this call's causal
+// and window), written here.  dtype 0 = float32 (two FMA kernels), 1 =
+// bfloat16 (wgmma kernels).  D a multiple of 8 up to 256; window 0 = no
+// window; softcap 0 = none, else the forward's logit soft-cap.
 // heads_per_block: 0 takes the plan's rule; else a divisor of the group
 // (bfloat16 only; it exists to measure the rule against the alternatives).
 // Launches the kernels on `stream`; returns a cudaError_t.
@@ -1287,9 +1491,12 @@ int flash_attention_bwd_launch_split(const void* q, const void* k, const void* v
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* d = static_cast<float*>(delta);
-  if (dtype == 0)
-    return bwd::dispatch<float>(q, k, v, o, g, l, d, dq, dk, dv, B, H, Hkv, S, Sk, D, st,
-                                sm_scale, softcap, causal, window, s);
+  if (dtype == 0) {
+    const long long nqt = (S + 63) / 64, nkt = (Sk + 63) / 64;
+    if (nqt > 65535 || nkt * Hkv * B + nqt * H * B > 2147483647LL) return cudaErrorInvalidValue;
+    return bwd::dispatch(q, k, v, o, g, l, d, dq, dk, dv, B, H, Hkv, S, Sk, D, st, sm_scale,
+                         softcap, causal, window, s);
+  }
   if (dtype == 1) {
     const wg::Plan p = wg::plan(B, H, Hkv, S, Sk, D, heads_per_block);
     if (p.n_kt > 65535 || p.n_qt > 65535 ||

@@ -1,9 +1,9 @@
-// Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (flash_attention.cu, flash_attention_bwd.cu, trimatrix.cu): shared-memory
-// addresses, mbarriers, wgmma shared-memory descriptors, the wgmma ordering
-// instructions, the bf16 wgmma products with fp32 accumulators, TMA tile
-// loads and the host's tensor-map encoding.  Header only; every function is
-// inlined into its caller.
+// Hopper (sm_90a) building blocks shared by the kernels (flash_attention.cu,
+// flash_attention_bwd.cu, decode_attention.cu, trimatrix.cu): shared-memory
+// addresses, 16-byte cp.async copies and their groups, mbarriers, wgmma
+// shared-memory descriptors, the wgmma ordering instructions, the bf16 wgmma
+// products with fp32 accumulators, TMA tile loads and the host's tensor-map
+// encoding.  Header only; every function is inlined into its caller.
 
 #pragma once
 
@@ -16,6 +16,31 @@ namespace hopper {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, cached in L2 only (cp.async.cg); both
+// addresses 16-byte aligned
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+// as cp_async16, but 16 zero bytes (and nothing read) when !valid; src must
+// still be a mapped address
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {

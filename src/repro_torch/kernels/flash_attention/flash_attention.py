@@ -17,11 +17,13 @@ The backward's counters, ``flash_attention_bwd.launches``,
 ``flash_attention_bwd.variant_launches`` (``wgmma_bf16``: the tensor-core
 kernels; ``fma_f32``: the CUDA-core kernels) and
 ``flash_attention_bwd.mask_launches`` (split as the forward's), count one
-per call: a call
-launches its kernels (delta, dK/dV, the reduction of the dK/dV partials
-where the plan splits a group, dQ) together.  :func:`bwd_plan` mirrors the
-CUDA plan of the bf16 path (how a group's query heads are split over
-dK/dV blocks, the shared memory per block, the scratch) for the tests.
+per call: a call launches its kernels together (bf16: delta, dK/dV, the
+reduction of the dK/dV partials where the plan splits a group, dQ;
+float32: the P/dS kernel, then the dK/dV and dQ kernel).  :func:`bwd_plan`
+mirrors the CUDA plan of the bf16 path (how a group's query heads are
+split over dK/dV blocks, the shared memory per block, the scratch) and
+:func:`f32_plan` that of both float32 kernels (instances, blocks and
+their order, shared memory, the scratch of kept tiles) for the tests.
 
 Both directions take keys that are not the queries (whisper's
 cross-attention: k and v of Sk rows against q of S rows) without a causal
@@ -44,7 +46,8 @@ from .. import _build
 from .._layout import rows_of_16_bytes
 
 __all__ = ["flash_attention", "flash_attention_bwd", "bwd_plan", "BwdPlan",
-           "bwd_dkdv_blocks"]
+           "bwd_dkdv_blocks", "f32_plan", "F32Plan", "f32_fwd_blocks",
+           "f32_ds_blocks", "f32_grad_blocks", "f32_tile_index"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANTS = {torch.float32: "fma_f32", torch.bfloat16: "wgmma_bf16"}
@@ -70,8 +73,10 @@ def _lib() -> ctypes.CDLL:
             *lib.flash_attention_bwd_launch.argtypes, i]
         lib.flash_attention_bwd_launch_split.restype = ctypes.c_int
         lib.flash_attention_bwd_plan.argtypes = [
-            i, i, i, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong)]
+            i, i, i, i, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong)]
         lib.flash_attention_bwd_plan.restype = ctypes.c_longlong
+        lib.flash_attention_f32_plan.argtypes = [i, ctypes.POINTER(ctypes.c_longlong)]
+        lib.flash_attention_f32_plan.restype = ctypes.c_int
         _BOUND = True
     return lib
 
@@ -249,6 +254,161 @@ def bwd_dkdv_blocks(plan: BwdPlan, b, h, hkv):
                 yield z, y, tuple(range(h0, h0 + plan.heads_per_block))
 
 
+# the float32 kernels' plan (csrc/flash_attention.cu f32::Fwd;
+# csrc/flash_attention_bwd.cu bwd::DsLayout, bwd::GradLayout, grad_block;
+# csrc/attention_f32.cuh tile_lo, tile_hi), mirrored for the tests
+_F32_TILE = 64          # q rows of a forward block; the backward's tiles
+
+
+class F32Plan(NamedTuple):
+    b: int
+    h: int
+    hkv: int
+    s: int
+    sk: int
+    d: int
+    causal: bool
+    window: int
+    kd: int               # the instance: D rounded up to 16, 32, 64, 128 or 256
+    fwd_threads: int      # 8 row groups x key groups
+    fwd_bk: int           # keys per forward k tile (64 q rows a block)
+    fwd_slots: int        # ring slots the K and V tiles take in turn
+    fwd_smem: int         # dynamic shared memory bytes per block
+    fwd_blocks: int       # one per (64-row q tile, head, b)
+    ds_threads: int       # flash_attention_bwd_ds_kernel
+    ds_smem: int
+    ds_blocks: int        # one per (64-row q tile, head, b)
+    grad_threads: int     # flash_attention_bwd_grad_kernel: dK/dV and dQ blocks
+    grad_smem: int
+    dkdv_blocks: int      # one per (64-row k tile, KV head, b), the group inside
+    dq_blocks: int        # one per (64-row q tile, head, b)
+    tiles_per_head: int   # kept 64 x 64 (q, k) tiles of one head
+    scratch_floats: int   # a P and a dS tile of floats for each
+    fwd_launches: int     # kernels a forward call launches
+    bwd_launches: int     # kernels a backward call launches
+
+
+def _f32_instance(d):
+    return 16 if d <= 16 else 32 if d <= 32 else 64 if d <= 64 else 128 if d <= 128 else 256
+
+
+def _tile_lo(qt, bq, bk, window):
+    """The first k tile (of ``bk`` keys) q tile ``qt`` (of ``bq`` rows)
+    keeps a pair of (csrc/attention_f32.cuh tile_lo)."""
+    first = qt * bq - window + 1
+    return first // bk if window > 0 and first > 0 else 0
+
+
+def _tile_hi(qt, bq, bk, s, sk, causal):
+    """The last k tile q tile ``qt`` keeps a pair of (tile_hi)."""
+    last_tile = -(-sk // bk) - 1
+    if not causal:
+        return last_tile
+    return min(min(qt * bq + bq - 1, s - 1) // bk, last_tile)
+
+
+def _tiles_before(qt, s, sk, causal, window):
+    return sum(_tile_hi(t, _F32_TILE, _F32_TILE, s, sk, causal)
+               - _tile_lo(t, _F32_TILE, _F32_TILE, window) + 1 for t in range(qt))
+
+
+def f32_plan(b, h, hkv, s, d, window=0, sk=None, causal=True) -> F32Plan:
+    """The float32 forward's and backward's tiles, instance, blocks, shared
+    memory, scratch and launches of a call, a function of the shape alone
+    (``sk``: the key rows, ``None`` for ``s``; ``causal`` and ``window`` as
+    in the call: they decide which 64 x 64 tiles the backward keeps)."""
+    sk = s if sk is None else sk
+    kd = _f32_instance(d)
+    groups = 16 if kd >= 64 else kd // 4
+    bk, slots = 4 * groups, 2 if kd >= 128 else 4
+    nqt, nkt = -(-s // _F32_TILE), -(-sk // _F32_TILE)
+    cols = min(32, kd)                      # head columns per ds-kernel item
+    tc = 8 if kd >= 128 else 4              # output columns a grad-kernel thread
+    tph = _tiles_before(nqt, s, sk, causal, window)
+    return F32Plan(
+        b, h, hkv, s, sk, d, bool(causal), window, kd,
+        fwd_threads=8 * groups, fwd_bk=bk, fwd_slots=slots,
+        fwd_smem=(_F32_TILE * kd + slots * bk * kd + bk * _F32_TILE) * 4,
+        fwd_blocks=nqt * h * b,
+        ds_threads=128, ds_smem=(3 * 4 * _F32_TILE * cols + 2 * _F32_TILE) * 4,
+        ds_blocks=nqt * h * b,
+        grad_threads=8 * (kd // tc), grad_smem=3 * 16 * (2 * _F32_TILE + 2 * kd) * 4,
+        dkdv_blocks=nkt * hkv * b, dq_blocks=nqt * h * b,
+        tiles_per_head=tph, scratch_floats=2 * _F32_TILE * _F32_TILE * b * h * tph,
+        fwd_launches=1, bwd_launches=2)
+
+
+def _f32_q_blocks(plan: F32Plan, bk):
+    """(b, head, q tile, k tiles of ``bk`` keys) of every block of a grid
+    (H, B, q tiles) in launch order: the q tile slowest and, causal, the
+    last (heaviest) first."""
+    nqt = -(-plan.s // _F32_TILE)
+    for z in range(nqt):
+        qt = nqt - 1 - z if plan.causal else z
+        kts = range(_tile_lo(qt, _F32_TILE, bk, plan.window),
+                    _tile_hi(qt, _F32_TILE, bk, plan.s, plan.sk, plan.causal) + 1)
+        for bb in range(plan.b):
+            for head in range(plan.h):
+                yield bb, head, qt, kts
+
+
+def f32_fwd_blocks(plan: F32Plan):
+    """The forward's blocks, as ``_f32_q_blocks``: k tiles of
+    ``plan.fwd_bk`` keys."""
+    return _f32_q_blocks(plan, plan.fwd_bk)
+
+
+def f32_ds_blocks(plan: F32Plan):
+    """flash_attention_bwd_ds_kernel's blocks, as ``_f32_q_blocks``: 64-key
+    tiles; each writes the P and dS tiles ``f32_tile_index`` names."""
+    return _f32_q_blocks(plan, _F32_TILE)
+
+
+def f32_tile_index(plan: F32Plan, bb, head, qt, kt):
+    """The index of kept tile (qt, kt) of head ``head`` of batch ``bb`` in
+    the backward's scratch (its P tile at 2 x 4,096 floats times it)."""
+    return ((bb * plan.h + head) * plan.tiles_per_head
+            + _tiles_before(qt, plan.s, plan.sk, plan.causal, plan.window)
+            + kt - _tile_lo(qt, _F32_TILE, _F32_TILE, plan.window))
+
+
+def f32_grad_blocks(plan: F32Plan):
+    """Every flash_attention_bwd_grad_kernel block in launch order (the
+    kernel's grad_block): ``("dkdv", k tile, KV head, b, [(head, q tile),
+    ...])``, the q tiles that keep the k tile for each head of the group
+    in order, or ``("dq", q tile, head, b, k tiles)``.  Causal: rank r
+    holds the dK/dV blocks of k tile r, then the dQ blocks of q tile
+    nqt - 1 - r; otherwise every dK/dV block, then every dQ block."""
+    b, h, hkv = plan.b, plan.h, plan.hkv
+    group = h // hkv
+    nqt, nkt = -(-plan.s // _F32_TILE), -(-plan.sk // _F32_TILE)
+    lo = [_tile_lo(t, _F32_TILE, _F32_TILE, plan.window) for t in range(nqt)]
+    hi = [_tile_hi(t, _F32_TILE, _F32_TILE, plan.s, plan.sk, plan.causal)
+          for t in range(nqt)]
+
+    def dkdv(kt):
+        qts = [t for t in range(nqt) if lo[t] <= kt <= hi[t]]
+        for j in range(hkv * b):
+            hk, bb = j % hkv, j // hkv
+            yield ("dkdv", kt, hk, bb,
+                   [(hk * group + gi, t) for gi in range(group) for t in qts])
+
+    def dq(qt):
+        for j in range(h * b):
+            head, bb = j % h, j // h
+            yield "dq", qt, head, bb, range(lo[qt], hi[qt] + 1)
+
+    if plan.causal:
+        for r in range(nqt):
+            yield from dkdv(r)
+            yield from dq(nqt - 1 - r)
+    else:
+        for kt in range(nkt):
+            yield from dkdv(kt)
+        for qt in range(nqt):
+            yield from dq(qt)
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, dout: torch.Tensor,
                         lse: torch.Tensor, *, causal: bool = True,
@@ -262,7 +422,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``softcap`` 0 = none; pass the forward's ``lse`` of the capped scores;
     Sk != S only with ``causal=False`` and no window).
     bfloat16: the wgmma kernels, P and dS rounded once to bf16 before their
-    products; float32: the FMA kernels."""
+    products; float32: two FMA kernels through a scratch of the kept
+    tiles' P and dS (:func:`f32_plan`)."""
     return _bwd(q, k, v, out, dout, lse, causal, window, sm_scale, softcap, 0)
 
 
@@ -291,7 +452,8 @@ def _bwd(q, k, v, out, dout, lse, causal, window, sm_scale, softcap,
         return dq, dk, dv
     lib = _lib()
     n = lib.flash_attention_bwd_plan(_DTYPES[q.dtype], b, h, hkv, s, sk, d,
-                                     int(window), int(heads_per_block), None)
+                                     int(bool(causal)), int(window),
+                                     int(heads_per_block), None)
     if n < 0:
         raise ValueError(f"flash_attention_bwd: no plan for B={b} H={h} "
                          f"Hkv={hkv} S={s} Sk={sk} D={d} "

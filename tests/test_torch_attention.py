@@ -746,3 +746,214 @@ def test_bwd_plan_fills_the_card_at_mqa():
     assert bwd_plan(1, 8, 1, 1024, 256).heads_per_block == 1
     assert bwd_plan(16, 8, 1, 4096, 256).heads_per_block == 8
     assert bwd_plan(4, 8, 1, 1024, 256, heads_per_block=2).n_split == 4
+
+
+# K6's float32 kernels (the forward, flash_attention_bwd_ds_kernel and
+# flash_attention_bwd_grad_kernel), mirrored by f32_plan: (B, H, Hkv, S, Sk,
+# causal, window) over causal and not, windows, keys that are not the
+# queries (448 over 1,500), ragged S (150) and G = 1, 2, 5, 8; each at every
+# head size of F32_PLAN_DS (96 rounds up to the 128 instance)
+F32_PLAN_SHAPES = [
+    (1, 1, 1, 150, None, True, 0),      # G = 1, ragged
+    (2, 2, 1, 150, None, True, 0),      # G = 2, two batches
+    (1, 5, 1, 300, None, True, 64),     # G = 5, a window
+    (1, 8, 1, 200, None, False, 0),     # G = 8, non-causal
+    (1, 8, 4, 150, None, True, 50),     # G = 2, a window inside a k tile
+    (1, 2, 2, 448, 1500, False, 0),     # keys that are not the queries, G = 1
+    (1, 8, 1, 448, 1500, False, 0),     # the same at G = 8
+    (2, 5, 1, 130, None, False, 40),    # a window without causal, G = 5
+    (1, 2, 1, 1, None, True, 0),        # one row
+    (1, 2, 1, 2048, None, True, 0),     # the timed layer's length
+]
+F32_PLAN_DS = [16, 64, 96, 128, 256]
+SM_SMEM = 233_472          # an H100 SM's shared memory for its blocks
+BLOCK_RESERVED = 1_024     # what the card keeps back per block
+
+
+def _keep(s, sk, causal, window):
+    i, j = np.arange(s)[:, None], np.arange(sk)[None, :]
+    keep = np.ones((s, sk), bool)
+    if causal:
+        keep &= j <= i
+    if window:
+        keep &= j > i - window
+    return keep
+
+
+@pytest.mark.parametrize("d", F32_PLAN_DS)
+@pytest.mark.parametrize("b,h,hkv,s,sk,causal,window", F32_PLAN_SHAPES)
+def test_f32_plan_covers_every_kept_pair_once(b, h, hkv, s, sk, causal, window, d):
+    """The mirror of the float32 kernels' plan: every kept (i, j) pair of
+    every (b, head) is covered exactly once by the forward's blocks, by the
+    backward's P/dS blocks, by its dK/dV blocks and by its dQ blocks; the
+    scratch holds one P and one dS tile for each kept 64 x 64 tile, and no
+    other; causal blocks run heaviest first within each kernel and kind
+    (q tiles run last first, so with a window a ragged last q tile, whose
+    window is cut short, may lead with fewer k tiles than the next);
+    shared memory fits the card (two blocks an SM where D <= 128); the plan
+    is a function of the shape alone."""
+    from repro_torch.kernels.flash_attention import (f32_ds_blocks, f32_fwd_blocks,
+                                                     f32_grad_blocks, f32_plan,
+                                                     f32_tile_index)
+    plan = f32_plan(b, h, hkv, s, d, window, sk=sk, causal=causal)
+    assert plan == f32_plan(b, h, hkv, s, d, window, sk=sk, causal=causal)
+    if sk is None:
+        assert plan == f32_plan(b, h, hkv, s, d, window, sk=s, causal=causal)
+    sk = plan.sk
+    assert plan.kd >= d and plan.kd in (16, 32, 64, 128, 256) and plan.kd // 2 < max(d, 9)
+    keep = _keep(s, sk, causal, window)
+    group = h // hkv
+
+    def covered(blocks_of_pairs):
+        cover = np.zeros((b, h, s, sk), np.int32)
+        for bb, head, rows, cols in blocks_of_pairs:
+            cover[bb, head, rows.start:min(rows.stop, s), cols.start:min(cols.stop, sk)] += 1
+        return cover[:, :, keep]
+
+    tile = lambda t, n=64: range(t * n, (t + 1) * n)   # noqa: E731
+    fwd = list(f32_fwd_blocks(plan))
+    assert len(fwd) == plan.fwd_blocks
+    assert (covered((bb, head, tile(qt), range(kts.start * plan.fwd_bk,
+                                               kts.stop * plan.fwd_bk))
+                    for bb, head, qt, kts in fwd) == 1).all()
+    ds = list(f32_ds_blocks(plan))
+    assert len(ds) == plan.ds_blocks
+    assert (covered((bb, head, tile(qt), tile(kt)) for bb, head, qt, kts in ds
+                    for kt in kts) == 1).all()
+    index = [f32_tile_index(plan, bb, head, qt, kt) for bb, head, qt, kts in ds
+             for kt in kts]
+    assert sorted(index) == list(range(b * h * plan.tiles_per_head))
+    assert plan.scratch_floats == 2 * 64 * 64 * len(index)
+    # only tiles that keep a pair: the count from the mask itself
+    kept_tiles = sum(keep[i:i + 64, j:j + 64].any() for i in range(0, s, 64)
+                     for j in range(0, sk, 64))
+    assert plan.tiles_per_head == kept_tiles
+    grad = list(f32_grad_blocks(plan))
+    dkdv = [blk[1:] for blk in grad if blk[0] == "dkdv"]
+    dq = [blk[1:] for blk in grad if blk[0] == "dq"]
+    assert (len(dkdv), len(dq)) == (plan.dkdv_blocks, plan.dq_blocks)
+    assert len({(kt, hk, bb) for kt, hk, bb, _ in dkdv}) == len(dkdv)
+    for kt, hk, bb, pairs in dkdv:   # a block sums its whole group, in order
+        assert [head for head, _ in pairs] == sorted(head for head, _ in pairs)
+        assert {head // group for head, _ in pairs} <= {hk}
+        assert len({head for head, _ in pairs}) == group
+    assert (covered((bb, head, tile(qt), tile(kt)) for kt, hk, bb, pairs in dkdv
+                    for head, qt in pairs) == 1).all()
+    assert (covered((bb, head, tile(qt), tile(kt)) for qt, head, bb, kts in dq
+                    for kt in kts) == 1).all()
+    if causal:   # heaviest first, by the tiles each block runs
+        ragged = b * h if window and s % 64 else 0
+        for work in ([len(kts) for *_, kts in fwd][ragged:],
+                     [len(kts) for *_, kts in ds][ragged:],
+                     [len(pairs) for *_, pairs in dkdv],
+                     [len(kts) for *_, kts in dq][ragged:]):
+            assert work == sorted(work, reverse=True)
+    for smem in (plan.fwd_smem, plan.ds_smem, plan.grad_smem):
+        assert smem <= SMEM_PER_BLOCK
+        assert plan.kd > 128 or 2 * (smem + BLOCK_RESERVED) <= SM_SMEM
+    assert (plan.fwd_launches, plan.bwd_launches) == (1, 2)
+
+
+def test_f32_plan_tiles_at_the_timed_shapes():
+    """The tiles of the H100 rows: at (2, 8, 4, 2,048, 256) one forward block
+    of 128 threads per SM (213 KB: the resident Q and one K and one V tile of
+    64 rows), 528 kept tiles a head (277 MB of scratch), 256 dK/dV and 512
+    dQ blocks; at the reduced rank's (2, 2, 2, 64, 16) one warp a forward
+    block over 16-key tiles, and one kept tile a head."""
+    from repro_torch.kernels.flash_attention import f32_plan
+    big = f32_plan(2, 8, 4, 2048, 256)
+    assert (big.kd, big.fwd_threads, big.fwd_bk, big.fwd_slots) == (256, 128, 64, 2)
+    assert big.fwd_smem == 212_992 and big.tiles_per_head == 32 * 33 // 2
+    assert big.scratch_floats * 4 == 276_824_064
+    assert (big.dkdv_blocks, big.dq_blocks, big.grad_threads) == (256, 512, 256)
+    tiny = f32_plan(2, 2, 2, 64, 16)
+    assert (tiny.kd, tiny.fwd_threads, tiny.fwd_bk, tiny.fwd_slots) == (16, 32, 16, 4)
+    assert (tiny.tiles_per_head, tiny.dkdv_blocks, tiny.dq_blocks) == (1, 4, 4)
+    assert f32_plan(1, 32, 32, 1024, 96).kd == 128
+    assert f32_plan(1, 4, 4, 64, 8).kd == 16
+
+
+def _emulate_f32_bwd(plan, q, k, v, out, dout, lse, cap):
+    """The float32 backward's arithmetic, block by block as its plan runs
+    it: the P/dS blocks fill the scratch tiles (each written once, every
+    one written), then the dK/dV and dQ blocks read them."""
+    t, group = 64, plan.h // plan.hkv
+    scale = plan.d ** -0.5
+    pad = lambda x, n: torch.nn.functional.pad(x, (0, 0, 0, n - x.shape[2]))  # noqa: E731
+    sp, skp = -(-plan.s // t) * t, -(-plan.sk // t) * t
+    qp, dop, outp = pad(q, sp), pad(dout, sp), pad(out, sp)
+    kp, vp = pad(k, skp), pad(v, skp)
+    lsep = torch.nn.functional.pad(lse, (0, sp - plan.s), value=float("inf"))
+    delta = (dop * outp).sum(-1)
+    keep = torch.from_numpy(_keep(plan.s, plan.sk, plan.causal, plan.window))
+    keep = torch.nn.functional.pad(keep, (0, skp - plan.sk, 0, sp - plan.s))
+    scratch = torch.full((plan.b * plan.h * plan.tiles_per_head, 2, t, t), float("nan"))
+    from repro_torch.kernels.flash_attention import (f32_ds_blocks, f32_grad_blocks,
+                                                     f32_tile_index)
+    for bb, head, qt, kts in f32_ds_blocks(plan):
+        rows = slice(qt * t, qt * t + t)
+        for kt in kts:
+            cols = slice(kt * t, kt * t + t)
+            s_ = qp[bb, head, rows] @ kp[bb, head // group, cols].T * scale
+            tt = torch.tanh(s_ / cap) if cap else None
+            x = cap * tt if cap else s_
+            p = torch.where(keep[rows, cols], torch.exp(x - lsep[bb, head, rows, None]), 0.0)
+            dp = dop[bb, head, rows] @ vp[bb, head // group, cols].T
+            dc = 1 - tt * tt if cap else 1.0
+            idx = f32_tile_index(plan, bb, head, qt, kt)
+            assert bool(scratch[idx].isnan().all())
+            scratch[idx, 0] = p
+            scratch[idx, 1] = p * dc * (dp - delta[bb, head, rows, None])
+    assert not bool(scratch.isnan().any())
+    dq, dk, dv = torch.zeros_like(qp), torch.zeros_like(kp), torch.zeros_like(vp)
+    for kind, tile_, head, bb, work in f32_grad_blocks(plan):
+        if kind == "dkdv":
+            cols = slice(tile_ * t, tile_ * t + t)
+            for h_, qt in work:
+                rows = slice(qt * t, qt * t + t)
+                idx = f32_tile_index(plan, bb, h_, qt, tile_)
+                dv[bb, head, cols] += scratch[idx, 0].T @ dop[bb, h_, rows]
+                dk[bb, head, cols] += scratch[idx, 1].T @ qp[bb, h_, rows]
+        else:
+            rows = slice(tile_ * t, tile_ * t + t)
+            for kt in work:
+                idx = f32_tile_index(plan, bb, head, tile_, kt)
+                dq[bb, head, rows] += scratch[idx, 1] @ kp[bb, head // group,
+                                                           kt * t:kt * t + t]
+    return (dq[:, :, :plan.s] * scale, dk[:, :, :plan.sk] * scale, dv[:, :, :plan.sk])
+
+
+@pytest.mark.parametrize("b,h,hkv,s,sk,d,causal,window,cap", [
+    (1, 4, 2, 150, None, 16, True, 0, 0.0),     # G = 2, ragged: three q tiles
+    (1, 5, 1, 130, None, 32, True, 40, 0.0),    # G = 5, a window
+    (1, 2, 2, 70, 200, 16, False, 0, 0.0),      # keys that are not the queries
+    (1, 6, 1, 70, None, 16, True, 0, CAP),      # grok's cap, G = 6
+    (2, 8, 1, 65, None, 16, False, 30, 0.0)])   # G = 8, a window, not causal
+def test_f32_plan_emulation_matches_the_vjp_of_flash_chunked(b, h, hkv, s, sk, d,
+                                                             causal, window, cap):
+    """The float32 backward's arithmetic run through its plan (scratch
+    tiles by ``f32_tile_index``, the dK/dV blocks' group sums and the dQ
+    blocks' k tiles by ``f32_grad_blocks``) against ``jax.vjp`` of the
+    reference model's ``flash_chunked`` on the same numpy inputs, 1e-5."""
+    import jax
+    from repro_torch.kernels.flash_attention import attention_lse_ref, f32_plan
+    sk_ = s if sk is None else sk
+    rng = np.random.default_rng(s + h + d)
+    q = _normal(rng, (b, h, s, d)) * (CAP_Q if cap else 1.0)
+    k, v = _normal(rng, (b, hkv, sk_, d)), _normal(rng, (b, hkv, sk_, d))
+    dout = _normal(rng, (b, h, s, d))
+
+    def f(q_, k_, v_):
+        o = j_flash_chunked(q_.transpose(0, 2, 1, 3), k_.transpose(0, 2, 1, 3),
+                            v_.transpose(0, 2, 1, 3), causal=causal, window=window,
+                            sm_scale=d ** -0.5, softcap_val=cap, q_chunk=16, k_chunk=16)
+        return o.transpose(0, 2, 1, 3)
+
+    out, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)))
+    want = vjp(jnp.asarray(dout))
+    tq, tk_, tv, tout, tdo = (torch.from_numpy(np.array(x)) for x in (q, k, v, out, dout))
+    lse = attention_lse_ref(tq, tk_, causal=causal, window=window or None, softcap=cap)
+    plan = f32_plan(b, h, hkv, s, d, window, sk=sk, causal=causal)
+    got = _emulate_f32_bwd(plan, tq, tk_, tv, tout, tdo, lse, cap)
+    for g_, w_ in zip(got, want):   # capped: 1e-5 of the largest, as above
+        _close(g_, w_, tol=1e-5 * (max(1.0, float(np.abs(w_).max())) if cap else 1.0))

@@ -958,7 +958,7 @@ def test_flash_attention_bwd_plan_matches_its_mirror(cuda, b, h, hkv, s, d, wind
     from repro_torch.kernels.flash_attention import bwd_plan
     from repro_torch.kernels.flash_attention.flash_attention import _lib
     out = (ctypes.c_longlong * 8)()
-    n = _lib().flash_attention_bwd_plan(1, b, h, hkv, s, s, d, window, 0, out)
+    n = _lib().flash_attention_bwd_plan(1, b, h, hkv, s, s, d, 1, window, 0, out)
     want = bwd_plan(b, h, hkv, s, d, window)
     assert list(out) == list(want[:8]) and n == want.scratch_floats
 
@@ -973,9 +973,107 @@ def test_flash_attention_bwd_plan_at_other_keys_matches_its_mirror(cuda, b, h, h
     from repro_torch.kernels.flash_attention import bwd_plan
     from repro_torch.kernels.flash_attention.flash_attention import _lib
     out = (ctypes.c_longlong * 8)()
-    n = _lib().flash_attention_bwd_plan(1, b, h, hkv, s, sk, d, 0, 0, out)
+    n = _lib().flash_attention_bwd_plan(1, b, h, hkv, s, sk, d, 0, 0, 0, out)
     want = bwd_plan(b, h, hkv, s, d, sk=sk)
     assert list(out) == list(want[:8]) and n == want.scratch_floats
+
+
+# K6's float32 kernels at every instance (D = 16, 32, 64, 128, 256; 24 and
+# 96 round up to 32 and 128), ragged S, G = 1, 2, 5, 8, windows, keys that
+# are not the queries and the soft-cap: (B, H, Hkv, S, Sk, D, causal,
+# window, softcap)
+F32_CASES = [
+    (2, 2, 2, 64, 64, 16, True, 0, 0.0),      # a reduced MoE job's mesh rank
+    (2, 4, 2, 150, 150, 16, True, 8, 0.0),    # G = 2, ragged, a window
+    (1, 5, 1, 150, 150, 24, True, 0, 0.0),    # G = 5, D = 24 in the 32 instance
+    (1, 8, 1, 200, 200, 32, False, 0, 0.0),   # G = 8, non-causal
+    (1, 4, 4, 130, 130, 64, True, 50, 30.0),  # G = 1, a window and the cap
+    (2, 8, 8, 150, 448, 64, False, 0, 0.0),   # more keys than queries, ragged
+    (1, 10, 2, 257, 257, 96, True, 0, 0.0),   # G = 5, D = 96 in the 128 instance
+    (1, 12, 2, 300, 300, 128, True, 64, 30.0),  # G = 6, window and cap
+    (1, 8, 1, 150, 77, 128, False, 0, 0.0),   # G = 8, fewer keys than queries
+    (1, 8, 4, 300, 300, 256, True, 0, 0.0),   # G = 2 at D = 256
+    (1, 8, 1, 150, 150, 256, False, 40, 30.0),  # G = 8, window without causal, cap
+]
+
+
+@pytest.mark.parametrize("b,h,hkv,s,sk,d,causal,window,softcap", F32_CASES)
+def test_f32_kernels_at_every_instance(cuda, b, h, hkv, s, sk, d, causal, window,
+                                       softcap):
+    """K6's float32 forward, its lse and its backward against the plain
+    versions within the unchanged 1e-4 (lse 1e-5), two calls of each
+    bit-equal (no atomics), each call counted once as ``fma_f32``."""
+    from repro_torch.kernels.flash_attention import (attention_lse_ref,
+                                                     attention_ref_bwd,
+                                                     flash_attention,
+                                                     flash_attention_bwd)
+    q, k, v = _model_layout_qkv(b, h, hkv, s, d, torch.float32, s + d, cuda)
+    if sk != s:
+        _, k, v = _model_layout_qkv(b, hkv, hkv, sk, d, torch.float32, sk + d, cuda)
+    if softcap:
+        q = q * CAP_Q_SCALE
+    dout = torch.randn((b, h, s, d), generator=torch.Generator(device=cuda).manual_seed(d),
+                       device=cuda)
+    args = dict(causal=causal, window=window, softcap=softcap)
+    kernels.reset_launch_counts()
+    out, lse = flash_attention(q, k, v, return_lse=True, **args)
+    out2, lse2 = flash_attention(q, k, v, return_lse=True, **args)
+    grads = flash_attention_bwd(q, k, v, out, dout, lse, **args)
+    again = flash_attention_bwd(q, k, v, out, dout, lse, **args)
+    assert kernels.variant_counts() == {"flash_attention.wgmma_bf16": 0,
+                                        "flash_attention.fma_f32": 2,
+                                        "flash_attention_bwd.wgmma_bf16": 0,
+                                        "flash_attention_bwd.fma_f32": 2}
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    ref = dict(causal=causal, window=window or None, softcap=softcap)
+    _assert_attention_close(out, attention_ref(q, k, v, **ref))
+    want_lse = attention_lse_ref(q, k, **ref)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-5)
+    want = attention_ref_bwd(q, k, v, out, dout, want_lse, **ref)
+    for g_, a_, w_, t in zip(grads, again, want, (q, k, v)):
+        assert g_.dtype == torch.float32 and g_.shape == t.shape
+        assert torch.equal(g_, a_)
+        torch.testing.assert_close(g_, w_, rtol=0, atol=BWD_TOL_F32)
+
+
+def test_f32_launch_the_kernel_refuses_raises(cuda):
+    """A float32 call the kernels refuse (B above the grid's 65,535) raises
+    from the forward and from the backward, counts nothing and does not
+    fall back to the plain version."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    q = torch.randn((65536, 1, 2, 8), device=cuda)
+    lse = torch.zeros((65536, 1, 2), device=cuda)
+    kernels.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="fma_f32"):
+        flash_attention(q, q, q, causal=True)
+    with pytest.raises(RuntimeError, match="fma_f32"):
+        flash_attention_bwd(q, q, q, q, q, lse, causal=True)
+    assert kernels.launch_counts()["flash_attention"] == 0
+    assert kernels.launch_counts()["flash_attention_bwd"] == 0
+
+
+@pytest.mark.parametrize("b,h,hkv,s,sk,d,causal,window", [
+    (2, 8, 4, 2048, 2048, 256, True, 0), (2, 2, 2, 64, 64, 16, True, 0),
+    (1, 5, 1, 300, 300, 96, True, 64), (1, 8, 8, 448, 1500, 64, False, 0),
+    (2, 4, 2, 150, 150, 32, False, 40), (1, 2, 1, 1, 1, 128, True, 0)])
+def test_f32_plan_matches_its_mirror(cuda, b, h, hkv, s, sk, d, causal, window):
+    """The C side's float32 plan (flash_attention_f32_plan for the forward,
+    flash_attention_bwd_plan with dtype 0 for the backward) equals
+    ``f32_plan``, which the CPU tests hold to coverage, order and shared
+    memory."""
+    import ctypes
+    from repro_torch.kernels.flash_attention import f32_plan
+    from repro_torch.kernels.flash_attention.flash_attention import _lib
+    want = f32_plan(b, h, hkv, s, d, window, sk=sk, causal=causal)
+    fwd = (ctypes.c_longlong * 5)()
+    assert _lib().flash_attention_f32_plan(d, fwd) == 0
+    assert list(fwd) == [want.kd, want.fwd_threads, want.fwd_bk, want.fwd_slots,
+                         want.fwd_smem]
+    out = (ctypes.c_longlong * 8)()
+    n = _lib().flash_attention_bwd_plan(0, b, h, hkv, s, sk, d, int(causal), window, 0, out)
+    assert n == want.scratch_floats
+    assert list(out) == [want.kd, -(-sk // 64), h // hkv, 1, want.dkdv_blocks,
+                         want.dq_blocks, want.grad_smem, want.ds_smem]
 
 
 def test_flash_attention_bwd_splits_give_one_result(cuda):
