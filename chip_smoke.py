@@ -168,7 +168,14 @@ paths end to end:
   data, model) = (2, 2, 1) and llama4 with both, against the same jobs on
   4 gloo ranks of the host (``MESH_MOE_JOBS``), and K6's float32 backward
   timed at the float32 forward row's shape and a reduced rank's
-  (``time_f32_flash_attention_bwd``);
+  (``time_f32_flash_attention_bwd``); ``seq_parallel`` (the residual's
+  sequence split over ``model``), ``mlp_dp`` and layers the model axis does
+  not split (run whole on every rank) in float32 reduced jobs against one
+  CPU process (grok against the host's ranks), and gemma-2b at full width
+  (4 of 18 layers) with ``seq_parallel`` and ``mlp_dp`` against the same
+  model without them and against one rank, its step ms, peak GB a rank and
+  collectives' calls and bytes by axis printed (``MESH_SP_JOBS``,
+  ``_check_sequence_parallel_mesh``);
 
 and times each kernel beside its bound, its plain version and, where one
 exists, a PyTorch call that computes the same function (K4 also at the
@@ -431,6 +438,27 @@ MESH_REDUCED_ARCHS = ("gemma-2b", "gemma3-4b", "grok-1-314b",
 MESH_REDUCED_CFG = {"whisper-base vocab 257": ("whisper-base", {"vocab_size": 257}),
                     "hymba-1.5b 5 heads": ("hymba-1.5b", {
                         "n_heads": 5, "n_kv_heads": 5, "d_head": 16, "vocab_size": 257})}
+# (g): sequence parallelism (the residual's sequence split over model),
+# mlp_dp (the dense FFN replicated, run on the rank's rows) and leaves the
+# model axis does not split (replicated, their layers run whole on every
+# rank), reduced float32 on the tiny mesh against one CPU process (grok
+# against the same job on 4 gloo ranks of the host): label -> (arch, the
+# fields it replaces); hymba under remat="full", as the card trains it
+SP = {"seq_parallel": True}
+MESH_SP_JOBS = {
+    "gemma-2b seq_parallel": ("gemma-2b", SP),
+    "gemma-2b seq_parallel mlp_dp": ("gemma-2b", dict(SP, mlp_dp=True)),
+    "gemma-2b d_ff 129": ("gemma-2b", {"d_ff": 129}),
+    "command-r-35b seq_parallel": ("command-r-35b", SP),
+    "grok-1-314b seq_parallel": ("grok-1-314b", SP),
+    "hymba-1.5b seq_parallel": ("hymba-1.5b", SP),
+    "xlstm-1.3b d_model 66 seq_parallel": ("xlstm-1.3b", dict(SP, d_model=66)),
+    "whisper-base seq_parallel": ("whisper-base", SP),
+    "whisper-base 1 KV head": ("whisper-base", {"n_kv_heads": 1}),
+    "whisper-base 5 heads": ("whisper-base", {"n_heads": 5, "n_kv_heads": 5})}
+MESH_REDUCED_ARCHS += tuple(MESH_SP_JOBS)
+MESH_REDUCED_CFG.update(MESH_SP_JOBS)
+MESH_REDUCED_REMAT = {"hymba-1.5b seq_parallel": "full"}
 # the reduced float32 mixtures of experts with microbatches and on a mesh of
 # two data axes (run_mesh_training (f)), each against the same job on 4
 # gloo ranks of the host, at their own capacity factor: label -> (arch,
@@ -513,19 +541,25 @@ RECURRENT_B, RECURRENT_S, RECURRENT_STEPS = 4, 1024, 3
 HYMBA_TRAIN = (RECURRENT_B, 25, 5, RECURRENT_S, 64, 2048)
 HYMBA_TRAIN_SHAPE = (f"B={RECURRENT_B} H=25 Hkv=5 S={RECURRENT_S} D=64 bf16 causal "
                      "window=2048 (hymba-1.5b training layer)")
-# the collectives over ``model`` a layer of each kind makes per microbatch
-# on the tiny mesh when the axis gives each rank its own heads:
-# (all-reduces forward, all-reduces backward, gathers; a gather is one
-# all_gather forward and one reduce_scatter backward).  attn, local, enc:
-# the attention's and the MLP's outputs forward, their inputs' gradients
-# backward; xdec: the cross-attention's two on top; hybrid: those and the
-# SSM's output and input, the gradients of its three replicated leaves
-# (conv, bc_proj, a_log) summed, its in-projection gathered; mLSTM: the
-# in-projection, q/k/v and the gates gathered, the output all-reduced, the
-# input's gradient summed; sLSTM: the in-projection gathered
-LAYER_COLLECTIVES = {"attn": (2, 2, 0), "local": (2, 2, 0), "enc": (2, 2, 0),
-                     "xdec": (3, 3, 0), "hybrid": (3, 6, 1), "mlstm": (1, 1, 3),
-                     "slstm": (1, 1, 1)}
+# the collectives over ``model`` of the parts of a layer on the tiny mesh,
+# each a (forward, backward) pair of op lists (step_collectives): a
+# tensor-parallel part enters by a copy (its gradient all-reduced) or, under
+# sequence parallelism, a gather of the sequence (all-gather, its gradient
+# reduce-scattered), and leaves by an all-reduce or a reduce-scatter (its
+# gradient all-gathered); inside it a gather of columns (q, k, v, or MQA's
+# one KV head, when the axis does not give each rank its own heads; the
+# recurrent blocks' column-split projections) is an all-gather and its
+# gradient a reduce-scatter, and the SSM's three replicated leaves (conv,
+# bc_proj, a_log) have their gradients summed; a part run whole on every
+# rank gathers its split weights (all-gather, no backward) and, under
+# sequence parallelism, the sequence (all-gather), and cuts its output back
+# to the rank's rows (its gradient all-gathered)
+TP_ENTER = {False: ([], ["all_reduce"]), True: (["all_gather"], ["reduce_scatter"])}
+TP_LEAVE = {False: (["all_reduce"], []), True: (["reduce_scatter"], ["all_gather"])}
+COL_GATHER = (["all_gather"], ["reduce_scatter"])
+GRAD_SUM = ([], ["all_reduce"])
+UNSPLIT = (["all_gather"], [])
+SPLIT = ([], ["all_gather"])
 # the non-compacting engine (run_no_compaction): the E2E_RUNS mines with
 # compact=False, and the chess stream's first NO_COMPACT_SLIDES slides with
 # compact=False beside the compacting miner
@@ -3865,37 +3899,138 @@ def run_training_recurrent():
     return launches
 
 
+def _stage_of(cfg, kind, tree):
+    """The stacked leaves of a layer of ``kind`` in ``tree`` (the parameter
+    tree's shapes, or its placements)."""
+    from repro_torch.models import stages_meta
+    if kind == "enc":
+        return tree["enc_stages"]["e0"]
+    return tree["stages"][next(f"s{i}" for i, (k, _) in enumerate(stages_meta(cfg))
+                               if k.split("+")[0] == kind)]
+
+
+def _split_leaves(cfg, names, kind):
+    """How many of a layer's ``names`` the tiny mesh's placement splits over
+    ``model``."""
+    from repro_torch.dist.sharding import spec_tree
+    from repro_torch.launch.mesh import named_mesh_layout
+    from repro_torch.models.convert import param_shapes
+    specs = _stage_of(cfg, kind, spec_tree(param_shapes(cfg), named_mesh_layout("tiny"),
+                                           cfg.expert_sharding, cfg.mlp_dp))
+    return sum(any(e == "model" for e in specs[f"stk_{n}"])
+               for n in names if f"stk_{n}" in specs)
+
+
+def _layer_parts(cfg, kind, sp):
+    """The model-axis parts of one layer of ``kind`` on the tiny mesh, in
+    forward order, and whether its last op is the output of a
+    tensor-parallel part (which the recompute of remat="full" stops
+    before)."""
+    from repro_torch.models.attention import head_split
+    from repro_torch.models.convert import param_shapes
+    from repro_torch.models.mlp import mlp_split
+    from repro_torch.models.ssm import ssm_split
+    from repro_torch.models.xlstm import mlstm_split, slstm_split
+    tp = (cfg.n_kv_heads * cfg.head_dim) % 2 == 0
+    form = head_split(cfg, 2)
+
+    def tp_part(*inner):
+        return [TP_ENTER[sp], *inner, TP_LEAVE[sp]]
+
+    def whole(n_weights):
+        return ([UNSPLIT] * (n_weights + 1) + [SPLIT]) if sp else [UNSPLIT] * n_weights
+
+    attn = (tp_part(*([COL_GATHER] if form != "heads" else [])) if tp else
+            whole(_split_leaves(cfg, ("wq", "wk", "wv", "wo"), kind)))
+    cross = (tp_part(*([COL_GATHER] if form == "all" else [])) if tp else
+             whole(_split_leaves(cfg, ("xwq", "xwo"), kind)))
+    if mlp_split(cfg, 2):
+        ffn = tp_part()
+    else:
+        ffn = [SPLIT, UNSPLIT] if cfg.mlp_dp and not sp else []
+    blocks = {"hybrid": (ssm_split, "ssm_", [COL_GATHER] + [GRAD_SUM] * 3),
+              "mlstm": (mlstm_split, "m_", [COL_GATHER] * 3),
+              "slstm": (slstm_split, "s_", [COL_GATHER])}
+    block = []
+    if kind in blocks:
+        split, prefix, inner = blocks[kind]
+        names = [k[4:] for k in _stage_of(cfg, kind, param_shapes(cfg))
+                 if k.startswith("stk_" + prefix)]
+        block = tp_part(*inner) if split(cfg, 2) else whole(_split_leaves(cfg, names, kind))
+    parts = {"attn": attn + ffn, "local": attn + ffn, "enc": attn + ffn,
+             "xdec": attn + cross + ffn, "hybrid": attn + block + ffn,
+             "mlstm": block, "slstm": block}[kind]
+    last = (ffn if kind not in ("mlstm", "slstm") else block)[-1:] == [TP_LEAVE[sp]]
+    return parts, last
+
+
 def step_collectives(cfg, n_leaves, chunks, remat="none"):
     """The collectives one train step makes on each rank of the tiny mesh
-    (one microbatch), worked out from the config: on ``model`` each layer's
-    (LAYER_COLLECTIVES; an attention layer gathers q, k, v, or its one KV
-    head (MQA), once more when the axis does not give each rank its own
-    heads, ``models.attention.head_split``), under ``remat="full"`` each
-    decoder layer's forward ones again but the last (the recompute stops
-    after the last tensor the backward reads, before the MLP's or the
-    block's output all-reduce), the sum of an encoder output's gradient,
-    the vocab-parallel embedding's all-reduce, a loss chunk's max and sums
-    and the hidden state's gradient (none of these for a vocabulary the
-    axis does not divide, replicated), and the global norm's; on ``data``
-    the mask count, the loss and every leaf."""
+    (one microbatch, no MoE), worked out from the config, with or without
+    ``seq_parallel`` and ``mlp_dp``, whatever the model axis splits: on
+    ``model`` each layer's parts (:func:`_layer_parts`; under remat="full"
+    each decoder layer's forward ops again but a last tensor-parallel
+    output, which the recompute stops before), the embedding's (an
+    all-reduce of the vocab-parallel lookup, a reduce-scatter under
+    sequence parallelism, or the cut of a replicated lookup to the rank's
+    rows), an encoder's frames cut to the rank's rows, the cross K/V's input
+    and their gathers (an MQA or every-head form), the loss's (the hidden
+    state's gradient summed, or its rows gathered whole; a chunk's max and
+    sums), the global norm's and one all-reduce of every leaf a rank
+    computes with on its own rows (the norms' under sequence parallelism, a
+    replicated FFN's under it or ``mlp_dp``); on ``data`` the mask count,
+    the loss and every leaf."""
     from repro_torch.models import stages_meta
     from repro_torch.models.attention import head_split
-    reduces = gathers = again = 0
-    heads = int(head_split(cfg, 2) != "heads")
-    enc = [("enc", cfg.n_encoder_layers)] if cfg.n_encoder_layers else []
-    for kind, count in stages_meta(cfg) + enc:
-        f, b, g = LAYER_COLLECTIVES[kind.split("+")[0]]
-        g += heads if kind not in ("mlstm", "slstm") else 0
-        reduces, gathers = reduces + count * (f + b), gathers + count * g
+    from repro_torch.models.convert import param_shapes
+    from repro_torch.models.mlp import mlp_split
+    sp = cfg.seq_parallel
+    ops = {}
+
+    def add(pairs, times=1):
+        for f, b in pairs:
+            for op in f + b:
+                ops[op] = ops.get(op, 0) + times
+
+    per_step = []
+    if cfg.vocab_size % 2 == 0:
+        per_step.append((["reduce_scatter"], ["all_gather"]) if sp else (["all_reduce"], []))
+        per_step.append(COL_GATHER if sp else GRAD_SUM)
+        per_step += [(["all_reduce_max", "all_reduce"], [])] * chunks
+    elif sp:
+        per_step += [SPLIT, UNSPLIT]
+    stages = stages_meta(cfg)
+    if cfg.n_encoder_layers:
+        stages = stages + [("enc", cfg.n_encoder_layers)]
+        tp = (cfg.n_kv_heads * cfg.head_dim) % 2 == 0
+        per_step += ([SPLIT] if sp else []) + (
+            [TP_ENTER[sp]] if tp else [UNSPLIT] if sp else [])
+        if tp and head_split(cfg, 2) != "heads":
+            per_step += [COL_GATHER] * sum(1 for k, _ in stages_meta(cfg) if k == "xdec")
+    add(per_step)
+    for kind, count in stages:
+        parts, last = _layer_parts(cfg, kind.split("+")[0], sp)
+        add(parts, count)
         if remat == "full" and kind != "enc":
-            reduces, again = reduces + count * (f - 1), again + count * g
-    split_vocab = cfg.vocab_size % 2 == 0
-    model = {"all_reduce": reduces + len(enc) + (2 + chunks if split_vocab else 0) + 1}
-    if split_vocab:
-        model["all_reduce_max"] = chunks
-    if gathers:
-        model.update(all_gather=gathers + again, reduce_scatter=gathers)
-    return {"data": {"all_reduce": 2 + n_leaves}, "model": model}
+            again = [op for f, _ in parts for op in f]
+            add([(again[:-1] if last else again, [])], count)
+    sums = 0
+    for path, _ in _flat_leaves(param_shapes(cfg)):
+        name = path.split("/")[-1].removeprefix("stk_")
+        ffn = name in ("w_up", "w_gate", "w_down") and not mlp_split(cfg, 2)
+        sums += (sp and ("norm" in path or ffn)) or (cfg.mlp_dp and ffn)
+    ops["all_reduce"] = ops.get("all_reduce", 0) + 1 + sums
+    return {"data": {"all_reduce": 2 + n_leaves}, "model": ops}
+
+
+def _flat_leaves(tree, path=()):
+    """(the '/'-joined path, leaf) of every leaf of a tree of dicts, in
+    sorted-key order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flat_leaves(tree[k], path + (k,))
+    else:
+        yield "/".join(path), tree
 
 
 def moe_step_collectives(cfg, microbatches=1, mesh="tiny"):
@@ -3915,7 +4050,15 @@ def moe_step_collectives(cfg, microbatches=1, mesh="tiny"):
     over each data axis; then one all-gather of the batch's tokens with two
     microbatches or more (each microbatch is the reference's global rows),
     every leaf its placement does not split over the axis, and the norm's
-    (one all-reduce an axis for each set of axes leaves are split over)."""
+    (one all-reduce an axis for each set of axes leaves are split over).
+    Under ``seq_parallel`` each tensor-parallel part on ``model`` gathers the
+    sequence in front and reduce-scatters after (an all-gather and a
+    reduce-scatter each way for its two all-reduces), the embedding
+    reduce-scatters its sum and the loss gathers the hidden rows, a MoE
+    layer gathers its data shard's sequence whole (an all-gather forward,
+    one backward for the cut back to the rank's rows), and every norm's
+    leaf and, with ``mlp_dp``, the replicated dense FFN's are summed over
+    ``model`` a step; ``mlp_dp`` runs that FFN on the rank's rows."""
     from repro_torch.dist.sharding import data_axes, spec_axes, spec_tree
     from repro_torch.launch.mesh import mesh_layout, named_mesh_layout
     from repro_torch.models import stages_meta
@@ -3926,8 +4069,8 @@ def moe_step_collectives(cfg, microbatches=1, mesh="tiny"):
     meta = stages_meta(cfg)
     layers = sum(n for _, n in meta)
     n_moe = sum(n for kind, n in meta if kind.endswith("+moe"))
-    named = [{a for e in sp for a in spec_axes(e)} for sp in tree_leaves(
-        spec_tree(param_shapes(cfg), layout, cfg.expert_sharding))]
+    tree = spec_tree(param_shapes(cfg), layout, cfg.expert_sharding, cfg.mlp_dp)
+    named = [{a for e in sp for a in spec_axes(e)} for sp in tree_leaves(tree)]
     norm_sets = {tuple(sorted(axes)) for axes in named if axes}
     out = {}
     for a in data_axes(layout):
@@ -3943,11 +4086,28 @@ def moe_step_collectives(cfg, microbatches=1, mesh="tiny"):
         out[a] = per
     size = layout.shape.get("model", 1)
     split_vocab = size > 1 and cfg.vocab_size % size == 0
-    ffn = 2 * (layers - n_moe) + (2 * n_moe if size > 1 else 0)
-    out["model"] = {"all_reduce": m * (2 * layers + ffn + (3 if split_vocab else 0))
-                    + sum("model" in axes for axes in norm_sets)}
+    experts = 2 * n_moe if size > 1 else 0
+    dense = 0 if cfg.mlp_dp else 2 * (layers - n_moe)
+    norm = sum("model" in axes for axes in norm_sets)
+    sp = cfg.seq_parallel and size > 1
+    summed = 0
+    if size > 1:
+        for (path, _), axes in zip(_flat_leaves(tree), named):
+            ffn = path.endswith(("w_up", "w_gate", "w_down"))
+            summed += "model" not in axes and ((sp and ("norm" in path or ffn))
+                                               or (cfg.mlp_dp and ffn))
+    if sp:
+        tp = 2 * layers + dense + (2 if split_vocab else 0)
+        model = {"all_reduce": m * (experts + (1 if split_vocab else 0)) + norm + summed,
+                 "all_gather": m * (tp + 2 * n_moe), "reduce_scatter": m * tp}
+    else:
+        model = {"all_reduce": m * (2 * layers + dense + experts
+                                    + (3 if split_vocab else 0)) + norm + summed}
+        if cfg.mlp_dp and size > 1:
+            model["all_gather"] = m * 2 * (layers - n_moe)
     if split_vocab:
-        out["model"]["all_reduce_max"] = m
+        model["all_reduce_max"] = m
+    out["model"] = model
     return out
 
 
@@ -4049,7 +4209,14 @@ def run_mesh_training():
     every rank launches K6 forward and backward once per attention layer
     (the decoder's forward twice under remat="full") and makes the
     declared collectives.  Returns the lead rank's K6 launches in (b) and
-    (e), by job and mask (``shape_counts``' keys)."""
+    (e), by job and mask (``shape_counts``' keys), (h)'s added to (b)'s,
+    and the float32 ones of (f) and (g).
+
+    (g) the float32 reduced jobs of MESH_SP_JOBS, the same way as (a):
+    ``seq_parallel``, ``mlp_dp`` and the parts of a layer the model axis
+    does not split; (h) (b)'s model, weights and batches with
+    ``seq_parallel`` and ``mlp_dp``, against (b) and (b)'s one rank
+    (:func:`_check_sequence_parallel_mesh`)."""
     import shutil
     import statistics
     import torch
@@ -4079,7 +4246,8 @@ def run_mesh_training():
         jobs[label] = dict(kind="train", mesh="tiny", arch=arch, reduced=True, cfg=over,
                            steps=3, batch=4, seq=64, tcfg=rate, params=_np_tree(host),
                            embeds=embeds if embeds[0] else None,
-                           moe_stats=bool(cfg.n_experts))
+                           moe_stats=bool(cfg.n_experts),
+                           remat=MESH_REDUCED_REMAT.get(label, "none"))
     # (f): the mixtures of experts with microbatches and over (pod, data)
     for label, (arch, b, m, mesh) in MESH_MOE_JOBS.items():
         jobs[label] = dict(jobs[arch], mesh=mesh, batch=b, microbatches=m)
@@ -4091,6 +4259,9 @@ def run_mesh_training():
     jobs["full"] = dict(kind="train", mesh="tiny", arch="gemma-2b",
                         cfg={"n_layers": MESH_LAYERS}, steps=MESH_STEPS,
                         batch=MESH_B, seq=MESH_S, tcfg=dict(rate, total_steps=MESH_STEPS))
+    # (h): (b)'s model, weights and batches with seq_parallel and mlp_dp
+    jobs["full sp"] = dict(jobs["full"], cfg=dict(jobs["full"]["cfg"], seq_parallel=True,
+                                                  mlp_dp=True))
     # (d): xlstm-1.3b at full width, its first CUT_LAYERS layers (7 mLSTM
     # and an sLSTM), bf16
     jobs["xlstm full"] = dict(jobs["full"], arch="xlstm-1.3b",
@@ -4141,9 +4312,10 @@ def run_mesh_training():
                 _check_moe_steps(f"mesh {arch} float32 rank {r}", x["records"],
                                  host["records"], 4 * 64)
         n_leaves = len(tree_leaves(param_shapes(cfg)))
+        remat = jobs[arch]["remat"]
         declared = (moe_step_collectives(cfg) if cfg.n_experts else
-                    step_collectives(cfg, n_leaves, 1))
-        k6 = _k6_step_launches(cfg)
+                    step_collectives(cfg, n_leaves, 1, remat))
+        k6 = _k6_step_launches(cfg, remat)
         _check_mesh_steps(f"mesh {arch} float32", res[arch], n_layers, "fma_f32",
                           declared, k6)
         if cfg.n_experts:
@@ -4198,11 +4370,14 @@ def run_mesh_training():
     require(cfg.dtype == "bfloat16", f"gemma-2b dtype {cfg.dtype}")
     declared = step_collectives(cfg, len(tree_leaves(param_shapes(cfg))),
                                 -(-MESH_S // 512))
-    lead = _check_full_width_mesh(
+    lead, one = _check_full_width_mesh(
         f"gemma-2b bf16 full width, {MESH_LAYERS} of 18 layers", res["full"],
         jobs["full"], MESH_LAYERS, declared,
         f"K6 wgmma_bf16 forward and backward {MESH_LAYERS} launches a step on every "
         f"rank (B=2 H=4 Hkv=1 S=1024 D=256 causal)")
+    # (h) the same with seq_parallel and mlp_dp, against (b) and its one rank
+    lead_sp = _check_sequence_parallel_mesh(res["full sp"], jobs["full sp"], res["full"],
+                                            one)
     print(f"mesh training: ranks started and all jobs run in {wall:.1f}s")
     # (d) xlstm-1.3b at full width, bf16, against one rank of the card
     n = CUT_LAYERS["xlstm-1.3b"]
@@ -4223,20 +4398,24 @@ def run_mesh_training():
                                     -(-seq // 512), remat)
         depth = ("full depth" if layers is None else
                  f"{layers} of {get_config(arch).n_layers} layers")
-        leads[arch] = _check_full_width_mesh(
+        leads[arch], _ = _check_full_width_mesh(
             f"{arch} bf16 full width, {depth}, remat={remat}", res[f"{arch} full"],
             jobs[f"{arch} full"], None, declared,
             f"K6 wgmma_bf16 launches a step on every rank by mask {shapes}", shapes)
     out = {arch: {k: sum(rec["launches"][k] for rec in x["records"])
                   for k in _k6_step_launches(get_config("gemma-2b"))}
            for arch, x in leads.items()}
-    # (f)'s float32 backward launches on the lead rank, for the kernels line
-    out["moe f32"] = sum(rec["launches"]["flash_attention_bwd.fma_f32"]
-                         for label in MESH_MOE_JOBS
+    # (h) runs K6 at (b)'s rank shapes: its launches join (b)'s row
+    for k in out["gemma-2b"]:
+        out["gemma-2b"][k] += sum(rec["launches"][k] for rec in lead_sp["records"])
+    # (f)'s and (g)'s float32 launches on the lead rank, for the kernels line
+    f32_jobs = list(MESH_MOE_JOBS) + list(MESH_SP_JOBS)
+    out["f32 bwd"] = sum(rec["launches"]["flash_attention_bwd.fma_f32"]
+                         for label in f32_jobs
                          for x in res[label] if x["lead"] for rec in x["records"])
-    out["moe f32 fwd"] = sum(rec["launches"]["flash_attention.fma_f32"]
-                             for label in MESH_MOE_JOBS
-                             for x in res[label] if x["lead"] for rec in x["records"])
+    out["f32 fwd"] = sum(rec["launches"]["flash_attention.fma_f32"]
+                         for label in f32_jobs
+                         for x in res[label] if x["lead"] for rec in x["records"])
     return out
 
 
@@ -4297,7 +4476,7 @@ def _check_full_width_mesh(label, per_rank, job, n_attn, declared, launched,
     step, K6 launched once per attention layer (``n_attn``, or ``shapes``
     by mask: :func:`_check_mesh_steps`) and the declared collectives every
     step and rank.  Prints the check and the timing; returns the lead
-    rank's record."""
+    rank's record and the one rank's."""
     import statistics
     import torch
     from repro_torch.launch.kernel_timing import nvidia_smi
@@ -4338,6 +4517,66 @@ def _check_full_width_mesh(label, per_rank, job, n_attn, declared, launched,
           f"{[round(v, 2) for v in peaks]} (card {sum(peaks):.2f} + contexts); one "
           f"rank of the same model: step_ms {one_ms:.1f}, tokens_per_s "
           f"{tokens / one_ms * 1e3:.0f}, peak_mem_GB {one['peak_bytes'] / 1e9:.2f}")
+    return lead, one
+
+
+def _check_sequence_parallel_mesh(per_rank, job, plain, one):
+    """Job (h) of run_mesh_training, (b)'s model, weights and batches with
+    ``seq_parallel`` and ``mlp_dp``: K6 launched once per layer forward and
+    backward and the declared collectives every step and rank, and each
+    step's loss and global grad norm within TRAIN_MESH_BF16_REL of (b)'s
+    (``plain``, per rank) and of the one rank's (``one``).  Prints the check,
+    then the step ms, the peak GB a rank beside (b)'s and the collectives'
+    calls and bytes a step by axis and op, with the card's name and power
+    limit; returns the lead rank's record."""
+    import statistics
+    from repro_torch.configs import get_config
+    from repro_torch.launch.kernel_timing import nvidia_smi
+    from repro_torch.models.convert import param_shapes
+    from repro_torch.training.optimizer import tree_leaves
+    cfg = dataclasses.replace(get_config("gemma-2b"), **job["cfg"])
+    declared = step_collectives(cfg, len(tree_leaves(param_shapes(cfg))),
+                                -(-job["seq"] // 512))
+    label = (f"gemma-2b bf16 full width seq_parallel mlp_dp, {MESH_LAYERS} of 18 "
+             f"layers")
+    _check_mesh_steps(f"mesh {label}", per_rank, MESH_LAYERS, "wgmma_bf16", declared)
+    worst = {"(b)": 0.0, "one rank": 0.0}
+    for r, (x, b_x) in enumerate(zip(per_rank, plain)):
+        for i in range(job["steps"]):
+            for key in ("losses", "grad_norms"):
+                a = x[key][i]
+                require(a == a and abs(a) != float("inf"), f"non-finite {key} {a}")
+                for name, want in (("(b)", b_x[key][i]), ("one rank", one[key][i])):
+                    worst[name] = max(worst[name], abs(a - want) / abs(want))
+                    require(abs(a - want) <= TRAIN_MESH_BF16_REL * abs(want),
+                            f"mesh {label} rank {r} step {i + 1}: {key} {a}, {name} {want}")
+    lead = next(x for x in per_rank if x["lead"])
+    print(f"check mesh training {label}, B={job['batch']} S={job['seq']}, tiny mesh on "
+          f"4 gloo ranks sharing the card: {job['steps']} steps, losses "
+          f"{lead['losses']} grad norms {lead['grad_norms']}; largest rel diff from "
+          f"(b) {worst['(b)']:.3e}, from one rank {worst['one rank']:.3e}, <= "
+          f"{TRAIN_MESH_BF16_REL:.0e} on every rank; K6 wgmma_bf16 forward and backward "
+          f"{MESH_LAYERS} launches a step on every rank (B=2 H=4 Hkv=1 S=1024 D=256 "
+          f"causal, the sequence gathered); collectives a step {declared} on every "
+          f"rank, as declared")
+    step_ms = [statistics.median([rec["s"] for rec in x["records"][1:]]) * 1e3
+               for x in per_rank]
+    plain_ms = [statistics.median([rec["s"] for rec in x["records"][1:]]) * 1e3
+                for x in plain]
+    peaks = [x["peak_bytes"] / 1e9 for x in per_rank]
+    plain_peaks = [x["peak_bytes"] / 1e9 for x in plain]
+    bytes_by = {a: {op: (c["calls"], c["bytes"]) for op, c in ops.items()}
+                for a, ops in lead["records"][-1]["collectives"].items()}
+    plain_by = {a: {op: (c["calls"], c["bytes"]) for op, c in ops.items()}
+                for a, ops in next(x for x in plain if x["lead"])["records"][-1][
+                    "collectives"].items()}
+    print(f"train mesh gemma-2b seq_parallel mlp_dp timing "
+          f"({nvidia_smi('name,power.limit')}): 4 gloo ranks, step_ms per rank (median "
+          f"of steps 2-{job['steps']}) {[round(v, 1) for v in step_ms]} ((b): "
+          f"{[round(v, 1) for v in plain_ms]}), peak_mem_GB per rank "
+          f"{[round(v, 2) for v in peaks]} ((b): {[round(v, 2) for v in plain_peaks]})")
+    print(f"train mesh gemma-2b seq_parallel mlp_dp collectives a step on the lead rank "
+          f"(axis -> op -> (calls, bytes)): {bytes_by}; (b): {plain_by}")
     return lead
 
 
@@ -4500,8 +4739,8 @@ def time_f32_flash_attention_bwd(launches):
     operations a kept pair at the float32 rate, q, k, v, out, dout and dq,
     dk, dv moved once), its plain version and the float32 backward of
     torch's scaled_dot_product_attention (the port never calls it); rows
-    for the kernels line.  ``launches``: the lead rank's in the reduced MoE
-    mesh jobs of run_mesh_training (f)."""
+    for the kernels line.  ``launches``: the lead rank's in the reduced
+    float32 mesh jobs of run_mesh_training (f) and (g)."""
     import torch
     import torch.nn.functional as F
     from repro_torch import kernels
@@ -4552,8 +4791,8 @@ def time_f32_flash_attention_bwd(launches):
         print(f"timing flash_attention_bwd {shape} ({nvidia_smi('name,power.limit')}): "
               f"ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} bound_ms={bms:.5f} "
               f"({by}) library_ms={row['library_ms']:.5f} launches_on_main_path="
-              f"{launches} (the lead rank's fma_f32 backward in the MoE mesh jobs' "
-              f"steps); call_ms={row['call_ms']:.5f}; {row['ms'] / bms:.2f}x the "
+              f"{launches} (the lead rank's fma_f32 backward in the reduced mesh jobs' "
+              f"steps, (f) and (g)); call_ms={row['call_ms']:.5f}; {row['ms'] / bms:.2f}x the "
               f"bound, {row['ms'] / row['library_ms']:.2f}x SDPA's float32 backward; "
               f"rel L2 from the plain version {rel:.3e} (max abs {err:.3e}); bound: "
               f"10 D operations for each of the {kept * b * h} kept pairs at the "
@@ -4787,7 +5026,8 @@ def time_attention(counts, model_counts, rank_f32_launches):
     grok's soft-cap, K7 at their decode shapes, G = 6 and G = 5 (llama4),
     with and without it.  ``counts``: gemma3-4b's first serve's launches;
     ``model_counts``: each new model's; ``rank_f32_launches``: the lead
-    rank's float32 forward launches in the MoE mesh jobs.  The library time
+    rank's float32 forward launches in the reduced mesh jobs of
+    run_mesh_training (f) and (g).  The library time
     of a capped row is :func:`flex_capped`'s, SDPA's of every other row."""
     import torch
     import torch.nn.functional as F
@@ -5337,12 +5577,12 @@ def main() -> int:
     mesh_launches = phase(run_mesh_training)
     rows = (phase(time_kernels, launches, miner, stream_rec) +
             phase(time_attention, serve_counts, model_counts,
-                  mesh_launches.pop("moe f32 fwd")) +
+                  mesh_launches.pop("f32 fwd")) +
             [phase(time_flash_attention_bwd, bwd_launches),
              phase(time_capped_flash_attention_bwd, grok_launches),
              phase(time_whisper_cross_bwd, whisper_bwd),
              phase(time_hymba_training_bwd, hymba_bwd)] +
-            phase(time_f32_flash_attention_bwd, mesh_launches.pop("moe f32")) +
+            phase(time_f32_flash_attention_bwd, mesh_launches.pop("f32 bwd")) +
             phase(time_mesh_rank_attention, mesh_launches))
     kernels_line = [dict(name=r["name"], route=r["route"], source=r["source"],
                          replaces=r["replaces"], shape=r["shape"],

@@ -19,9 +19,9 @@ card, gloo on the host copy): a bfloat16 sum is a bfloat16 sum.  Over two
 ranks, as on every axis of the ``tiny`` mesh, that is one addition
 rounded once, the same bits as a float32 sum rounded to bfloat16.
 
-Tensor and expert parallelism need five operations that autograd can
-differentiate through (Megatron's conjugate pairs), each over one mesh
-axis:
+Tensor, sequence and expert parallelism need seven operations that
+autograd can differentiate through (Megatron's conjugate pairs), each over
+one mesh axis:
 
   copy_to_axis       identity forward, all-reduce (sum) backward: the input
                      of a column-parallel product, replicated over the axis
@@ -31,6 +31,11 @@ axis:
                      then this rank's block) backward
   reduce_scatter_over_axis  the reverse pair: reduce-scatter forward,
                      all-gather backward
+  split_over_axis    this rank's block along a dim forward (no
+                     collective), all-gather of the blocks' gradients
+                     backward: a replicated tensor cut into the ranks' rows
+  unsplit_over_axis  the reverse pair: all-gather forward, this rank's
+                     block of the (replicated) gradient backward
   all_to_all_over_axis  block j of the leading dim to the rank at
                      coordinate j forward; the same exchange backward (it
                      is its own inverse): the MoE's move of the capacity
@@ -39,7 +44,7 @@ axis:
 Counters: every call adds one to its (axis, op) count and the bytes of its
 local input to its payload, read with :func:`collective_counts` (as
 ``kernels.launch_counts`` reads the kernel launches); the backward halves
-of the five operations above count like any other call.
+of the seven operations above count like any other call.
 :func:`collective_widths` reads the ranks each (axis, op)'s calls spanned
 (the width of the group the call ran over).
 :func:`collective_seconds` reads the host time spent inside the calls, by
@@ -56,13 +61,16 @@ from typing import Dict
 import torch
 import torch.distributed as dist
 
+from .sharding import axis_index, axis_size
+
 __all__ = ["all_reduce", "all_gather", "reduce_scatter", "all_to_all",
            "broadcast",
            "broadcast_from_lead", "lead_int", "collective_counts",
            "collective_seconds", "collective_widths", "reset_collective_counts",
            "counts_since",
            "copy_to_axis", "reduce_over_axis", "gather_over_axis",
-           "reduce_scatter_over_axis", "all_to_all_over_axis"]
+           "reduce_scatter_over_axis", "split_over_axis", "unsplit_over_axis",
+           "all_to_all_over_axis"]
 
 _COUNTS: Dict[tuple, Dict[str, int]] = defaultdict(lambda: {"calls": 0, "bytes": 0})
 _SECONDS: Dict[tuple, float] = defaultdict(float)
@@ -283,6 +291,20 @@ def lead_int(value: int, mesh) -> int:
 # autograd-aware operations for tensor parallelism
 # ---------------------------------------------------------------------------
 
+def _gathered(t: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    return torch.cat(all_gather(t, mesh, axis).unbind(0), dim=dim)
+
+
+def _own_block(t: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """This rank's block of ``t`` along ``dim`` (no collective)."""
+    n = axis_size(mesh, axis)
+    if t.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split over "
+                         f"{n} ranks")
+    size = t.shape[dim] // n
+    return t.narrow(dim, axis_index(mesh, axis) * size, size)
+
+
 class _CopyToAxis(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis):
@@ -310,7 +332,7 @@ class _GatherOverAxis(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis, dim):
         ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
-        return torch.cat(all_gather(x, mesh, axis).unbind(0), dim=dim)
+        return _gathered(x, mesh, axis, dim)
 
     @staticmethod
     def backward(ctx, g):
@@ -325,7 +347,29 @@ class _ReduceScatterOverAxis(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return (torch.cat(all_gather(g, ctx.mesh, ctx.axis).unbind(0), dim=ctx.dim),
+        return _gathered(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+class _SplitOverAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _own_block(x, mesh, axis, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gathered(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+class _UnsplitOverAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _gathered(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_own_block(g, ctx.mesh, ctx.axis, ctx.dim).contiguous(),
                 None, None, None)
 
 
@@ -365,6 +409,23 @@ def reduce_scatter_over_axis(x: torch.Tensor, mesh, axis: str,
     along ``dim`` (one reduce-scatter); the gradient is every rank's block
     gradient concatenated along ``dim`` (one all-gather)."""
     return _ReduceScatterOverAxis.apply(x, mesh, axis, dim)
+
+
+def split_over_axis(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` (``x`` the same on every
+    rank of ``axis``; no collective); the gradient is every rank's block
+    gradient concatenated along ``dim`` (one all-gather), so it is whole on
+    every rank."""
+    return _SplitOverAxis.apply(x, mesh, axis, dim)
+
+
+def unsplit_over_axis(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` over ``axis`` concatenated along ``dim`` (one
+    all-gather), for a result every rank then computes with whole: its
+    gradient, the same on every rank, is cut to this rank's block (no
+    collective).  :func:`gather_over_axis` is the form for a result whose
+    gradient is each rank's part."""
+    return _UnsplitOverAxis.apply(x, mesh, axis, dim)
 
 
 def all_to_all_over_axis(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:

@@ -412,7 +412,7 @@ def _moe(rank: _Rank, job: dict) -> dict:
     from .train import _config
     mesh, cfg = _job_mesh(rank, job["mesh"]), _config(job)
     specs = spec_tree({k: v.shape for k, v in job["layer"].items()}, mesh,
-                      cfg.expert_sharding)
+                      cfg.expert_sharding, cfg.mlp_dp)
     host = {k: torch.from_numpy(v) for k, v in job["layer"].items()}
     p = {k: v.to(rank.device).requires_grad_()
          for k, v in shard_tree(host, mesh, specs).items()}
@@ -464,7 +464,8 @@ def _block(rank: _Rank, job: dict) -> dict:
     if key not in rank.meshes:
         rank.meshes[key] = make_data_mesh("model")
     mesh, cfg = rank.meshes[key], _config(job)
-    specs = spec_tree({k: v.shape for k, v in job["layer"].items()}, mesh)
+    specs = spec_tree({k: v.shape for k, v in job["layer"].items()}, mesh,
+                      cfg.expert_sharding, cfg.mlp_dp)
     host = {k: torch.from_numpy(v) for k, v in job["layer"].items()}
     p = {k: v.to(rank.device).requires_grad_()
          for k, v in shard_tree(host, mesh, specs).items()}

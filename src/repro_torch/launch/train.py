@@ -8,6 +8,8 @@ device or on a mesh of ranks (the port of the reference's
         --steps 6 --batch 4 --seq 1024          # full width, on the card
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \
         --reduced --mesh tiny --dist-backend gloo [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \
+        --reduced --mesh tiny --dist-backend gloo --seq-parallel --mlp-dp
 
 Random weights from a ``torch.Generator`` seeded 0, batches from
 ``data.TokenPipeline`` (batch ``i`` a pure function of the seed and ``i``;
@@ -33,10 +35,12 @@ and sLSTM, hymba's SSM beside attention: each block tensor-parallel over
 cross-attention, and phi-3-vision-4.2b's image prefix.  What the model
 axis does not divide the ranks run whole, as the reference replicates it:
 hymba-1.5b's 25 heads and vocabulary of 32,001 and whisper's 51,865 on
-``tiny``.  A model axis that does not split a config's d_ff or a block's
-channels is refused before any rank starts.  xlstm-1.3b and hymba-1.5b
-train on one card at full width under ``--remat full``, as
-``chip_smoke.py`` runs them.
+``tiny``, and a d_ff, projection or block the axis does not split.
+``--seq-parallel`` and ``--mlp-dp`` set the config's ``seq_parallel``
+(the residual's sequence split over ``model``) and ``mlp_dp`` (the dense
+FFN replicated, run on the rank's rows); without a mesh they change
+nothing.  xlstm-1.3b and hymba-1.5b train on one card at full width under
+``--remat full``, as ``chip_smoke.py`` runs them.
 """
 from __future__ import annotations
 
@@ -291,6 +295,13 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--remat", default="none", choices=list(REMAT_MODES))
+    ap.add_argument("--seq-parallel", action="store_true",
+                    help="the config's seq_parallel: on a mesh, the residual's "
+                         "sequence split over its model axis")
+    ap.add_argument("--mlp-dp", action="store_true",
+                    help="the config's mlp_dp: on a mesh, the dense FFN "
+                         "replicated over its model axis and run on the "
+                         "rank's rows of the sequence")
     ap.add_argument("--ckpt-dir",
                     default=os.path.join(tempfile.gettempdir(), "repro_torch_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=25)
@@ -299,7 +310,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    job = dict(kind="train", arch=args.arch, reduced=args.reduced,
+    flags = {k: True for k, on in (("seq_parallel", args.seq_parallel),
+                                   ("mlp_dp", args.mlp_dp)) if on}
+    job = dict(kind="train", arch=args.arch, reduced=args.reduced, cfg=flags,
                steps=args.steps, batch=args.batch, seq=args.seq,
                microbatches=args.microbatches, remat=args.remat,
                ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)

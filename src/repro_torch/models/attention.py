@@ -20,11 +20,17 @@ rank keeps the output columns of its rows of ``wo``: the attention itself
 is duplicated on each model rank, the price of the reference's placement.
 ``wo`` is row-parallel: each rank's partial product is all-reduced over
 ``model``.  The input is replicated over ``model`` and its gradient summed
-over it (``dist.collectives.copy_to_axis``).  Cross-attention on a mesh
-takes the ``"heads"`` form only (``transformer.check_mesh`` refuses the
-rest): the rank's query heads of ``xwq`` over the rank's KV heads of the
-encoder's K/V (``Model.cross_kv`` projects them with its columns of
-``xwk``/``xwv``), then its rows of ``xwo``.
+over it (``dist.collectives.copy_to_axis``); under sequence parallelism
+(``layers.SeqShard``) the input is instead gathered from the ranks' rows,
+so RoPE and the causal mask see global positions, and the output is
+reduce-scattered back to them (``layers.tp_enter``, ``layers.tp_leave``).
+Cross-attention takes the same three forms: the rank's query heads of
+``xwq`` (every head, its columns gathered, in the ``"all"`` form) over the
+encoder's K/V that ``Model.cross_kv`` hands the rank (its KV heads, the
+one its query heads share, or every one: :func:`kv_of_form`), then its rows
+of ``xwo``.  A model axis that does not split the KV projections' columns
+(:func:`projections_split`) leaves the layer to ``transformer``, which runs
+it whole on every rank.
 
 On the card, full-sequence (prefill) attention runs the hand-written flash
 kernel (:func:`..kernels.flash_attention.multi_head_attention`) and decode
@@ -61,9 +67,10 @@ from ..dist import collectives as coll
 from ..dist.sharding import axis_index, axis_size
 from ..kernels.decode_attention import grouped_decode_attention
 from ..kernels.flash_attention import multi_head_attention
-from .layers import apply_rope, draw_normal, rope, softcap
+from .layers import apply_rope, draw_normal, rope, softcap, tp_enter, tp_leave
 
-__all__ = ["init_attention", "attention", "flash_chunked", "init_cache", "head_split"]
+__all__ = ["init_attention", "attention", "flash_chunked", "init_cache", "head_split",
+           "projections_split", "kv_of_form"]
 
 NEG_INF = -1e30
 
@@ -206,27 +213,46 @@ def head_split(cfg, m: int) -> str:
     return "group" if (h // kv) % (h // m) == 0 and (kv * hd) % m == 0 else "all"
 
 
-def _tp_projections(p: dict, x: torch.Tensor, cfg, mesh):
+def projections_split(cfg, m: int) -> bool:
+    """Whether the placement splits every projection over a model axis of
+    ``m`` ranks (``dist.sharding.param_spec``: the KV columns divided, and
+    with them the query columns, a multiple of theirs): the layer is then
+    tensor-parallel in one of :func:`head_split`'s forms."""
+    return (cfg.n_kv_heads * cfg.head_dim) % m == 0
+
+
+def kv_of_form(k: torch.Tensor, v: torch.Tensor, cfg, mesh, form: str) -> tuple:
+    """The K/V columns this rank's query heads read, from its column
+    products ``k``, ``v`` (``(..., KV / m * D)``, any leading dims): its own
+    (``"heads"``); the one KV head its query heads share, gathered whole
+    (``"group"``); every KV head (``"all"``).  One all-gather of both over
+    ``model`` in the last two forms, its gradient summed back and cut to the
+    rank's columns."""
+    if form == "heads":
+        return k, v
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    m, r = axis_size(mesh, "model"), axis_index(mesh, "model")
+    kvf = coll.gather_over_axis(torch.stack([k, v]), mesh, "model", dim=-1)
+    if form == "group":
+        lo = (r * (h // m)) // (h // kv) * hd
+        kvf = kvf[..., lo: lo + hd]
+    return kvf[0], kvf[1]
+
+
+def _tp_projections(p: dict, x: torch.Tensor, cfg, mesh, seq):
     """q, k, v on a mesh whose ``model`` axis splits the projections'
     columns, and the output columns this rank's rows of ``wo`` take (None:
     all of ``out``, the rank's own heads): the module docstring's three
-    forms (:func:`head_split`)."""
+    forms (:func:`head_split`).  ``x`` enters through ``layers.tp_enter``."""
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     m, r = axis_size(mesh, "model"), axis_index(mesh, "model")
-    x = coll.copy_to_axis(x, mesh, "model")
+    x = tp_enter(x, mesh, seq)
     form = head_split(cfg, m)
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
-    if form == "heads":
-        return (_split_heads(q, h // m, hd), _split_heads(k, kv // m, hd),
-                _split_heads(v, kv // m, hd), None)
-    if form == "group":
-        # gather each KV head whole, keep the one this rank's query heads
-        # share (a group holds all of them)
-        kvf = coll.gather_over_axis(torch.stack([k, v]), mesh, "model", dim=-1)
-        lo = (r * (h // m)) // (h // kv) * hd
-        kvf = kvf[..., lo: lo + hd]
-        return (_split_heads(q, h // m, hd), _split_heads(kvf[0], 1, hd),
-                _split_heads(kvf[1], 1, hd), None)
+    if form != "all":
+        k, v = kv_of_form(k, v, cfg, mesh, form)
+        return (_split_heads(q, h // m, hd), _split_heads(k, k.shape[-1] // hd, hd),
+                _split_heads(v, v.shape[-1] // hd, hd), None)
     # every head on every rank: the ranks' q, k, v columns in one gather,
     # (B, S, m, local q | k | v) reassembled into whole q, k, v
     qw, kw = q.shape[-1], k.shape[-1]
@@ -261,7 +287,7 @@ def _cross_attend(q, k, v, sm_scale, cap):
 def attention(p: dict, x: torch.Tensor, cfg, *, window: int = 0,
               cache: Optional[dict] = None, pos: Optional[torch.Tensor] = None,
               cross_kv: Optional[tuple] = None, causal: bool = True,
-              prefix: str = "", mesh=None):
+              prefix: str = "", mesh=None, seq=None):
     """Unified attention layer.
 
     cache: {"k": (B, S_max, KV, D), "v": ...} with ``pos`` (B,) the write
@@ -282,10 +308,10 @@ def attention(p: dict, x: torch.Tensor, cfg, *, window: int = 0,
 
     ``mesh``: full-sequence attention and cross-attention, tensor-parallel
     over its ``model`` axis (see the module docstring; ``cross_kv`` then
-    holds the rank's KV heads); a cache on a mesh raises
-    ``NotImplementedError``.
+    holds what :func:`kv_of_form` gives the rank); ``seq`` (a
+    ``layers.SeqShard``): ``x`` is the rank's rows of the sequence and so is
+    the output.  A cache on a mesh raises ``NotImplementedError``.
     """
-    b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cap = cfg.attn_logit_softcap
     sm_scale = hd ** -0.5
@@ -298,20 +324,28 @@ def attention(p: dict, x: torch.Tensor, cfg, *, window: int = 0,
         if cache is not None:
             raise ValueError("cross-attention reads the encoder's K/V and "
                              "takes no cache")
+        cols = None
         if tp:
-            x = coll.copy_to_axis(x, mesh, "model")
+            x = tp_enter(x, mesh, seq)
         q = x @ p[prefix + "wq"]
-        q = _split_heads(q, q.shape[-1] // hd, hd)
-        out = _cross_attend(q, *cross_kv, sm_scale, cap)
-        out = out.reshape(b, s, -1) @ p[prefix + "wo"]
-        return (coll.reduce_over_axis(out, mesh, "model") if tp else out), None
+        if tp and head_split(cfg, axis_size(mesh, "model")) == "all":
+            # every head on every rank: the ranks' query columns gathered
+            cols = slice(axis_index(mesh, "model") * q.shape[-1],
+                         (axis_index(mesh, "model") + 1) * q.shape[-1])
+            q = coll.gather_over_axis(q, mesh, "model", dim=-1)
+        b, s, _ = x.shape
+        out = _cross_attend(_split_heads(q, q.shape[-1] // hd, hd), *cross_kv,
+                            sm_scale, cap).reshape(b, s, -1)
+        out = (out if cols is None else out[..., cols]) @ p[prefix + "wo"]
+        return (tp_leave(out, mesh, seq) if tp else out), None
     cols = None
     if tp:
-        q, k, v, cols = _tp_projections(p, x, cfg, mesh)
+        q, k, v, cols = _tp_projections(p, x, cfg, mesh, seq)
     else:
         q = _split_heads(x @ p["wq"], h, hd)
         k = _split_heads(x @ p["wk"], kv, hd)
         v = _split_heads(x @ p["wv"], kv, hd)
+    b, s = q.shape[:2]
     if cfg.rope_theta:
         if pos is None:
             positions = torch.arange(s, device=x.device)
@@ -352,9 +386,7 @@ def attention(p: dict, x: torch.Tensor, cfg, *, window: int = 0,
                           sm_scale=sm_scale, cap=cap)
     out = out.reshape(b, s, q.shape[2] * hd)
     out = (out if cols is None else out[..., cols]) @ p["wo"]
-    if tp:
-        out = coll.reduce_over_axis(out, mesh, "model")
-    return out, None
+    return (tp_leave(out, mesh, seq) if tp else out), None
 
 
 def init_cache(cfg, batch: int, s_max: int, n_layers: int,

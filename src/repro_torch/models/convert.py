@@ -143,7 +143,8 @@ def params_from_numpy(tree, cfg, device=None, mesh=None) -> Dict[str, Any]:
     from ..dist.sharding import shard_tree, spec_tree
     host = _walk(tree, param_shapes(cfg), "", cfg.dtype, "cpu")
     return _to(shard_tree(host, mesh, spec_tree(param_shapes(cfg), mesh,
-                                                cfg.expert_sharding)), device)
+                                                cfg.expert_sharding, cfg.mlp_dp)),
+               device)
 
 
 def opt_state_from_numpy(state, cfg, device=None) -> Dict[str, Any]:

@@ -1,18 +1,22 @@
 """Dense MLP blocks: SwiGLU / GeGLU / GELU (the reference's
 ``models/mlp.py``).  On one device its sharding constraints are the
-identity.  On a mesh with a ``model`` axis the block is tensor-parallel:
-``w_up``/``w_gate`` are column-split (the input replicated over ``model``,
-its gradient summed over it) and ``w_down`` is row-parallel (each rank's
-partial product all-reduced over ``model``)."""
+identity.  On a mesh with a ``model`` axis that splits d_ff (and without
+``mlp_dp``: :func:`mlp_split`) the block is tensor-parallel: ``w_up``/
+``w_gate`` are column-split (the input replicated over ``model``, its
+gradient summed over it) and ``w_down`` is row-parallel (each rank's
+partial product all-reduced over ``model``); under sequence parallelism the
+input is gathered from the ranks' rows instead and the output
+reduce-scattered back to them (``layers.tp_enter``, ``layers.tp_leave``).
+Where the placement replicates the FFN (``mlp_dp``, or a d_ff the axis does
+not divide) ``transformer`` runs it with no mesh, on the rows it is given."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ..dist import collectives as coll
-from .layers import draw_normal
+from .layers import draw_normal, tp_enter, tp_leave
 
-__all__ = ["init_mlp", "mlp"]
+__all__ = ["init_mlp", "mlp", "mlp_split"]
 
 
 def init_mlp(generator: torch.Generator, cfg, dtype, stacked: int = 0,
@@ -33,11 +37,19 @@ def init_mlp(generator: torch.Generator, cfg, dtype, stacked: int = 0,
     return p
 
 
-def mlp(p: dict, x: torch.Tensor, cfg, mesh=None) -> torch.Tensor:
+def mlp_split(cfg, m: int) -> bool:
+    """Whether the placement splits the FFN over a model axis of ``m``
+    ranks (``dist.sharding.param_spec``: d_ff divided, no ``mlp_dp``)."""
+    return not cfg.mlp_dp and cfg.d_ff % m == 0
+
+
+def mlp(p: dict, x: torch.Tensor, cfg, mesh=None, seq=None) -> torch.Tensor:
+    """``mesh``: tensor-parallel over its ``model`` axis; ``seq`` (a
+    ``layers.SeqShard``): ``x`` is the rank's rows of the sequence."""
     act = cfg.mlp_act
     tp = mesh is not None and "model" in (mesh.mesh_dim_names or ())
     if tp:
-        x = coll.copy_to_axis(x, mesh, "model")
+        x = tp_enter(x, mesh, seq)
     up = x @ p["w_up"]
     if act == "swiglu":
         hidden = F.silu(x @ p["w_gate"]) * up
@@ -47,4 +59,4 @@ def mlp(p: dict, x: torch.Tensor, cfg, mesh=None) -> torch.Tensor:
     else:
         hidden = F.gelu(up, approximate="tanh")
     out = hidden @ p["w_down"]
-    return coll.reduce_over_axis(out, mesh, "model") if tp else out
+    return tp_leave(out, mesh, seq) if tp else out

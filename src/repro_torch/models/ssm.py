@@ -25,7 +25,11 @@ row-parallel ``ssm_out_proj``'s partial sums are all-reduced over
 ``model``.  Each rank's gradient of a replicated leaf covers its own
 channels only, so ``ssm_conv``, ``ssm_bc_proj`` and ``ssm_a_log`` enter
 through ``copy_to_axis`` (their gradients summed over ``model``) and the
-ranks' copies stay equal.
+ranks' copies stay equal.  Under sequence parallelism the block gathers the
+sequence from the ranks' rows in front and reduce-scatters its output back
+to them (``layers.tp_enter``, ``layers.tp_leave``).  Channels the axis does
+not divide (:func:`ssm_split`) leave the block to ``transformer``, which
+runs it whole on every rank.
 """
 from __future__ import annotations
 
@@ -33,11 +37,18 @@ import torch
 import torch.nn.functional as F
 
 from ..dist import collectives as coll
-from .layers import gather_columns, model_split
+from .layers import gather_columns, model_split, tp_enter, tp_leave
 
-__all__ = ["CHUNK", "init_ssm", "ssm_block", "init_ssm_state"]
+__all__ = ["CHUNK", "init_ssm", "ssm_block", "init_ssm_state", "ssm_split"]
 
 CHUNK = 128
+
+
+def ssm_split(cfg, m: int) -> bool:
+    """Whether a model axis of ``m`` ranks splits the SSM's inner channels
+    and leaves ``ssm_bc_proj`` replicated, the placement the block's
+    tensor-parallel form takes (``dist.sharding.param_spec``)."""
+    return (cfg.ssm_expand * cfg.d_model) % m == 0 and (2 * cfg.ssm_state + 1) % m != 0
 
 
 def init_ssm(generator: torch.Generator, cfg, dtype, stacked: int = 0,
@@ -100,23 +111,24 @@ def _scan(dec, drv):
 
 
 def ssm_block(p: dict, x: torch.Tensor, cfg, *, state: dict | None = None,
-              prefix: str = "", mesh=None):
+              prefix: str = "", mesh=None, seq=None):
     """x: (B, S, D) -> ((B, S, D), state); state {"h": (B, Din, N), "conv":
     (B, K-1, Din)} enables stateful decode.  ``mesh``: tensor-parallel over
     its ``model`` axis, the scan on the rank's Din / m channels (the module
-    docstring)."""
+    docstring); ``seq`` (a ``layers.SeqShard``): ``x`` is the rank's rows
+    of the sequence and so is the output."""
+    ranks, r = model_split(mesh, state, "SSM")
+    if ranks > 1:
+        x = tp_enter(x, mesh, seq)
     b, s, d = x.shape
     din = cfg.ssm_expand * d
     n = cfg.ssm_state
-    ranks, r = model_split(mesh, state, "SSM")
 
     def g(name):
         w = p[prefix + name]
         replicated = name in ("ssm_conv", "ssm_bc_proj", "ssm_a_log")
         return coll.copy_to_axis(w, mesh, "model") if ranks > 1 and replicated else w
 
-    if ranks > 1:
-        x = coll.copy_to_axis(x, mesh, "model")
     xs, z = gather_columns(x @ g("ssm_in_proj"), mesh, ranks).split(din, dim=-1)
     xs, new_conv = _causal_conv(xs, g("ssm_conv"),
                                 None if state is None else state["conv"])
@@ -153,7 +165,7 @@ def ssm_block(p: dict, x: torch.Tensor, cfg, *, state: dict | None = None,
     y = y.to(x.dtype) + xs * g("ssm_d").to(x.dtype)[None, None]
     y = (y * F.silu(z)) @ g("ssm_out_proj")
     if ranks > 1:
-        y = coll.reduce_over_axis(y, mesh, "model")
+        y = tp_leave(y, mesh, seq)
     return y, {"h": h, "conv": new_conv}
 
 

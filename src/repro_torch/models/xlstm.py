@@ -32,18 +32,23 @@ runs on the rank's ``H / m`` heads (mLSTM; a rank carries ``1 / m`` of the
 ``c`` state) or ``D / m`` channels (sLSTM, elementwise per channel, with
 the rank's slice of ``s_r_gate``), and the row-parallel output projection's
 partial sums are all-reduced over ``model``.  The input is replicated over
-``model`` and its gradient summed over it (``copy_to_axis``).
+``model`` and its gradient summed over it (``copy_to_axis``); under
+sequence parallelism the block gathers the sequence from the ranks' rows in
+front and reduce-scatters its output back to them (``layers.tp_enter``,
+``layers.tp_leave``).  A head width, head count or channel count the axis
+does not divide (:func:`mlstm_split`, :func:`slstm_split`) leaves the
+block to ``transformer``, which runs it whole on every rank.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ..dist import collectives as coll
-from .layers import gather_columns, model_split
+from .layers import gather_columns, model_split, tp_enter, tp_leave
 
 __all__ = ["CHUNK", "PROJ_FACTOR", "init_mlstm", "mlstm_block", "init_slstm",
-           "slstm_block", "init_mlstm_state", "init_slstm_state"]
+           "slstm_block", "init_mlstm_state", "init_slstm_state", "mlstm_split",
+           "slstm_split"]
 
 CHUNK = 64
 PROJ_FACTOR = 2
@@ -57,6 +62,19 @@ def _shp(stacked):
 def _normal(generator, shape, scale, dtype, device):
     return (torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=device) * scale).to(dtype)
+
+
+def mlstm_split(cfg, m: int) -> bool:
+    """Whether a model axis of ``m`` ranks splits the mLSTM's heads and its
+    head width (and with them every projection the placement splits): the
+    block is then tensor-parallel."""
+    hd = PROJ_FACTOR * cfg.d_model // cfg.n_heads
+    return cfg.n_heads % m == 0 and hd % m == 0
+
+
+def slstm_split(cfg, m: int) -> bool:
+    """Whether a model axis of ``m`` ranks splits the sLSTM's channels."""
+    return cfg.d_model % m == 0
 
 
 def init_mlstm(generator: torch.Generator, cfg, dtype, stacked: int = 0,
@@ -109,18 +127,19 @@ def _mlstm_chunk(qb, kb, vb, li, lf, c_in, n_in, m_in, tril):
 
 
 def mlstm_block(p: dict, x: torch.Tensor, cfg, *, state: dict | None = None,
-                mesh=None):
+                mesh=None, seq=None):
     """x: (B, S, D) -> ((B, S, D), state); state {"c": (B, H, hd, hd), "n":
     (B, H, hd), "m": (B, H)}, float32, enables stateful decode.  The step
     (S = 1) updates a given state in place.  ``mesh``: tensor-parallel
     over its ``model`` axis (the module docstring; the returned state is
-    the rank's heads')."""
+    the rank's heads'); ``seq`` (a ``layers.SeqShard``): ``x`` is the
+    rank's rows of the sequence and so is the output."""
+    ranks, r = model_split(mesh, state, "mLSTM")
+    if ranks > 1:
+        x = tp_enter(x, mesh, seq)
     b, s, d = x.shape
     din = PROJ_FACTOR * d
     hd = din // cfg.n_heads
-    ranks, r = model_split(mesh, state, "mLSTM")
-    if ranks > 1:
-        x = coll.copy_to_axis(x, mesh, "model")
 
     xs, z = gather_columns(x @ p["m_in_proj"], mesh, ranks).split(din, dim=-1)
     xh = xs.reshape(b, s, cfg.n_heads, hd)
@@ -183,7 +202,7 @@ def mlstm_block(p: dict, x: torch.Tensor, cfg, *, state: dict | None = None,
 
     y = (y.to(x.dtype) * F.silu(z)) @ p["m_out_proj"]
     if ranks > 1:
-        y = coll.reduce_over_axis(y, mesh, "model")
+        y = tp_leave(y, mesh, seq)
     return y, new_state
 
 
@@ -203,18 +222,18 @@ def init_slstm(generator: torch.Generator, cfg, dtype, stacked: int = 0,
 
 
 def slstm_block(p: dict, x: torch.Tensor, cfg, *, state: dict | None = None,
-                mesh=None):
+                mesh=None, seq=None):
     """Sequential scalar-memory LSTM with exponential gating (sLSTM).
 
     state {"c", "n", "m", "h"}: (B, D) each, float32.  A Python loop over
     the positions, one step's elementwise ops at a time (a plain version:
     the reference has no kernel here either).  ``mesh``: tensor-parallel
     over its ``model`` axis, the rank's D / m channels (the module
-    docstring)."""
-    b, s, d = x.shape
+    docstring); ``seq`` as for :func:`mlstm_block`."""
     ranks, rank = model_split(mesh, state, "sLSTM")
     if ranks > 1:
-        x = coll.copy_to_axis(x, mesh, "model")
+        x = tp_enter(x, mesh, seq)
+    b, s, d = x.shape
     pre = gather_columns(x @ p["s_w_in"], mesh, ranks)        # (B, S, 4D)
     if ranks > 1:
         # z, i, f and o of this rank's channels
@@ -252,7 +271,7 @@ def slstm_block(p: dict, x: torch.Tensor, cfg, *, state: dict | None = None,
         hs.append(h)
     y = torch.stack(hs, dim=1).to(x.dtype) @ p["s_out_proj"]  # (B, S, D)
     if ranks > 1:
-        y = coll.reduce_over_axis(y, mesh, "model")
+        y = tp_leave(y, mesh, seq)
     return y, {"c": c, "n": n, "m": m, "h": h}
 
 

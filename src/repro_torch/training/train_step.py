@@ -15,11 +15,16 @@ summed over the data axes its placement does not name (one all-reduce per
 leaf and per such axis, before clipping; an expert leaf split over ``data``
 holds its own slots' or d_ff slice's whole gradient already, as under
 GSPMD), and the global norm is the norm of the global gradient; AdamW
-updates each rank's blocks.  No leaf is summed over ``model``: a leaf the
-placement replicates there (a norm, a vocabulary the axis does not
-divide, the SSM's conv) holds its whole gradient on every model rank
-already, because the layers compute with it whole there or take it
-through ``copy_to_axis`` where a rank reads only its part.
+updates each rank's blocks.  A leaf the placement replicates over
+``model`` (a norm, a vocabulary the axis does not divide, the SSM's conv)
+holds its whole gradient on every model rank when the layers compute with
+it whole there or take it through ``copy_to_axis`` where a rank reads only
+its part.  Where a rank computes with it on its own rows of the sequence
+only, its gradient is that rows' part and is summed over ``model`` too
+(:func:`grad_sum_axes`): under ``seq_parallel`` every norm's scale and bias
+and a replicated FFN (``mlp_dp``, or a d_ff the axis does not divide),
+under ``mlp_dp`` alone the FFN.  The global norm then counts each such leaf
+once, as it counts every replicated leaf.
 
 Microbatches split the *global* batch, as the reference's scan over the
 jitted step's global batch does: microbatch ``i`` is the global rows
@@ -39,12 +44,16 @@ from typing import Callable
 import torch
 
 from ..dist import collectives as coll
-from ..dist.sharding import data_axes, data_rank, spec_axes
+from ..dist.sharding import data_axes, data_rank, mesh_axes, spec_axes
 from .optimizer import (adamw_update, clip_by_global_norm_, lr_schedule,
                         tree_leaves, tree_map, tree_unflatten)
 
 __all__ = ["make_train_step", "make_eval_step", "value_and_grad",
-           "microbatches", "DonatedStateError"]
+           "microbatches", "grad_sum_axes", "DonatedStateError"]
+
+# the dense FFN's leaves: replicated over ``model`` under ``mlp_dp`` or for
+# a d_ff the axis does not divide
+_FFN_LEAVES = ("w_up", "w_gate", "w_down")
 
 
 class DonatedStateError(RuntimeError):
@@ -96,6 +105,38 @@ def microbatches(batch: dict, m: int, mesh=None) -> list:
              **flags} for i in range(m)]
 
 
+def _leaf_paths(tree, path=()):
+    """The '/'-joined paths of a tree's leaves, in :func:`tree_leaves`
+    order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _leaf_paths(tree[k], path + (k,))]
+    return ["/".join(path)]
+
+
+def grad_sum_axes(cfg, specs, mesh) -> list:
+    """The mesh axes each gradient leaf is summed over before the clip, one
+    tuple a leaf in :func:`tree_leaves` order of ``specs`` (the model's
+    placements on ``mesh``, a ``DeviceMesh`` or a layout): the data axes its
+    placement does not split it over, then ``model`` for a leaf replicated
+    there whose rank computes with it on the rank's rows of the sequence
+    only: under ``seq_parallel`` (the residual's rows split over a model
+    axis of more than one rank) the norms' and a replicated FFN's leaves;
+    under ``mlp_dp`` the FFN's."""
+    sizes = mesh_axes(mesh)
+    split_model = sizes.get("model", 1) > 1
+    sums = []
+    for path, spec in zip(_leaf_paths(specs), tree_leaves(specs)):
+        named = {a for e in spec for a in spec_axes(e)}
+        axes = [a for a in data_axes(mesh) if a not in named]
+        name = path.split("/")[-1].removeprefix("stk_")
+        rows = ((cfg.seq_parallel and ("norm" in path or name in _FFN_LEAVES))
+                or (cfg.mlp_dp and name in _FFN_LEAVES))
+        if split_model and rows and "model" not in named:
+            axes.append("model")
+        sums.append(tuple(axes))
+    return sums
+
+
 def make_train_step(model, tcfg) -> Callable:
     """Returns ``step(params, opt_state, batch) -> (params, opt_state,
     metrics)``; ``batch`` holds tensors on the parameters' device.  The
@@ -105,12 +146,7 @@ def make_train_step(model, tcfg) -> Callable:
     raises :class:`DonatedStateError`.  On the model's mesh ``params``, ``opt_state`` and ``batch`` are this rank's
     blocks and the ``loss`` and ``grad_norm`` metrics the global ones."""
     mesh = model.mesh
-    # the data axes each gradient leaf is summed over: those its placement
-    # does not split it over
-    sums = ([] if mesh is None else
-            [tuple(a for a in data_axes(mesh)
-                   if a not in {x for e in spec for x in spec_axes(e)})
-             for spec in tree_leaves(model.specs)])
+    sums = [] if mesh is None else grad_sum_axes(model.cfg, model.specs, mesh)
 
     def loss_fn(params, batch):
         return model.loss(params, batch, remat=tcfg.remat)

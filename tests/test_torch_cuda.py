@@ -1231,6 +1231,46 @@ def test_mesh_training_on_four_gloo_ranks_sharing_the_card(cuda, arch, tmp_path)
     assert (dropped > 0) == moe
 
 
+@pytest.mark.parametrize("arch,changes", [
+    ("gemma-2b", {"seq_parallel": True, "mlp_dp": True}),
+    ("gemma-2b", {"seq_parallel": True, "d_ff": 129})])
+def test_sequence_parallel_mesh_training_on_the_card(cuda, arch, changes):
+    """The reduced float32 config with ``seq_parallel`` and a replicated FFN
+    (``mlp_dp``, or a d_ff of 129 the model axis does not divide) on the
+    tiny mesh, 4 gloo ranks sharing the card, against the same model in
+    this process on the CPU from the same weights: losses and global grad
+    norms within 1e-4 relative on every rank, K6's float32 forward and
+    backward once per layer and step (attention runs on the sequence
+    gathered whole), and no step on the card makes another collective than
+    the same job's on 4 gloo ranks of the host."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import reduced_config
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.mesh_runs import run_jobs
+    from repro_torch.launch.train import train_run
+    from repro_torch.models import init_params, stages_meta
+    cfg = dataclasses.replace(reduced_config(get_config(arch)), **changes)
+    n_layers = sum(c for _, c in stages_meta(cfg))
+    job = dict(kind="train", mesh="tiny", arch=arch, reduced=True, cfg=changes, steps=3,
+               batch=4, seq=30, tcfg=dict(learning_rate=1e-3, warmup_steps=1,
+                                          total_steps=3),
+               params=_np_tree(init_params(cfg, torch.Generator().manual_seed(0), "cpu")))
+    per_rank = run_ranks(run_jobs, 4, backend="gloo", device="cuda", args=([job],),
+                         timeout=300)
+    on_host = run_ranks(run_jobs, 4, backend="gloo", device="cpu", args=([job],),
+                        timeout=300)
+    one = train_run(dict(job, mesh=None), torch.device("cpu"))
+    for (res,), (host,) in zip(per_rank, on_host):
+        for key in ("losses", "grad_norms"):
+            for got, want in zip(res[key], one[key]):
+                assert abs(got - want) <= 1e-4 * abs(want), key
+        for rec, want in zip(res["records"], host["records"]):
+            assert rec["launches"]["flash_attention.fma_f32"] == n_layers
+            assert rec["launches"]["flash_attention_bwd.fma_f32"] == n_layers
+            assert rec["collectives"] == want["collectives"]
+
+
 def _trees_equal(a, b):
     if isinstance(a, dict):
         return sorted(a) == sorted(b) and all(_trees_equal(a[k], b[k]) for k in a)

@@ -283,22 +283,30 @@ def test_flash_kernel_refuses_other_keys_with_a_mask(causal, window):
         flash_attention(q, k, k, causal=causal, window=window)
 
 
-def test_the_encoder_loss_raises_and_the_encoder_on_a_mesh_raises():
+@pytest.mark.parametrize("heads,form", [
+    ({}, "heads"), (dict(n_heads=5, n_kv_heads=5, d_head=16), "all"),
+    (dict(n_heads=4, n_kv_heads=1), "group")])
+def test_the_encoder_decoder_builds_on_the_tiny_mesh_in_every_head_form(heads, form):
     """The encoder-decoder trains on the tiny mesh (its encoder and
     cross-attention tensor-parallel; ``tests/test_torch_mesh_training.py``
-    holds it against the reference's mesh), so ``check_mesh`` takes the
-    reduced whisper; cross-attention takes each rank's own query and KV
-    heads only, so a model axis that does not divide them is refused,
-    naming ROADMAP item 12h."""
+    holds it against the reference's mesh) in each of the three head forms
+    of ``attention.head_split``: ``check_mesh`` takes the reduced whisper
+    with its own heads, with 5 heads the model axis does not divide (every
+    head on every rank) and with one KV head (each rank's query heads share
+    it), and the cross K/V projections are column-split as self-attention's
+    are."""
     from repro_torch.launch.mesh import named_mesh_layout
+    from repro_torch.models import Model
+    from repro_torch.models.attention import head_split
     from repro_torch.models.transformer import check_mesh
     cfg, _, _, _ = _both()
+    cfg = dataclasses.replace(cfg, **heads)
     check_mesh(cfg, named_mesh_layout("tiny"))
-    for heads in (dict(n_heads=5, n_kv_heads=5, d_head=16),
-                  dict(n_heads=4, n_kv_heads=1)):
-        with pytest.raises(NotImplementedError,
-                           match="cross-attention.*ROADMAP item 12h"):
-            check_mesh(dataclasses.replace(cfg, **heads), named_mesh_layout("tiny"))
+    assert head_split(cfg, 2) == form
+    specs = Model(cfg, mesh=named_mesh_layout("tiny")).specs
+    xdec = next(s for s, sp in specs["stages"].items() if "stk_xwk" in sp)
+    for name in ("stk_xwq", "stk_xwk", "stk_xwv"):
+        assert specs["stages"][xdec][name] == (None, None, "model"), name
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,18 @@ blocks are tensor-parallel over ``model``, whisper-base's encoder-decoder
 (its frame embeddings, and phi-3-vision-4.2b's image prefix, drawn with
 numpy from a seed and given to both packages), and the leaves the model
 axis does not divide, which the reference replicates: a vocabulary of 257
-and hymba's attention with 5 heads (every head on every rank).
+and hymba's attention with 5 heads (every head on every rank).  Then
+``seq_parallel`` (the residual's sequence split over ``model``; the
+parallel block, the hybrid under remat="full", the encoder-decoder, a
+sequence of 15 the axis does not divide, two microbatches, and a model axis
+of one rank, where it changes nothing bit for bit), ``mlp_dp`` with and
+without it, and the parts of a layer the model axis does not split, which
+run whole on every rank: a d_ff of 129, whisper's cross-attention with 5
+heads and with one KV head, the mLSTM's head width of 33, 15-wide heads
+(attention) and 65 SSM channels.  Each of these is held to the reference
+with the tolerances above; its collectives to the count
+:func:`_declared_counts` works out from the config, exactly.  On one
+process the flags leave the loss and the gradients bit-equal.
 """
 
 import dataclasses
@@ -65,6 +76,7 @@ from repro_torch.launch import train
 from repro_torch.launch.mesh import named_mesh_layout, run_ranks
 from repro_torch.launch.mesh_runs import run_jobs
 from repro_torch.models.attention import attention, head_split, init_attention
+from repro_torch.models import stages_meta
 from repro_torch.models.convert import param_shapes
 from repro_torch.models.ssm import init_ssm, ssm_block
 from repro_torch.models.xlstm import (init_mlstm, init_slstm, mlstm_block,
@@ -90,17 +102,55 @@ CASES = [(a, a, 4, 1) for a in DENSE] + [("gemma-2b batch 3", "gemma-2b", 3, 1),
      ("hymba-1.5b 5 heads", "hymba-1.5b", 4, 1),
      ("gemma-2b pod data", "gemma-2b", 4, 1),
      ("gemma-2b pod data microbatches 2", "gemma-2b", 8, 2)]
+# sequence parallelism, mlp_dp and the leaves the model axis does not split
+# (replicated, their layers run whole on every rank), each against the
+# reference's run of the same config on its tiny mesh
+SP = {"seq_parallel": True}
+SP_CASES = [
+    ("gemma-2b seq_parallel", "gemma-2b", SP),
+    ("gemma-2b seq_parallel mlp_dp", "gemma-2b", dict(SP, mlp_dp=True)),
+    ("gemma-2b mlp_dp", "gemma-2b", {"mlp_dp": True}),
+    ("gemma-2b d_ff 129", "gemma-2b", {"d_ff": 129}),
+    ("gemma-2b seq_parallel seq 15", "gemma-2b", SP),
+    ("gemma-2b seq_parallel microbatches 2", "gemma-2b", SP),
+    ("gemma-2b seq_parallel pod data", "gemma-2b", SP),
+    ("command-r-35b seq_parallel", "command-r-35b", SP),
+    ("hymba-1.5b seq_parallel", "hymba-1.5b", SP),
+    ("whisper-base seq_parallel", "whisper-base", SP),
+    ("whisper-base 5 heads", "whisper-base", {"n_heads": 5, "n_kv_heads": 5}),
+    ("whisper-base 1 KV head", "whisper-base", {"n_kv_heads": 1}),
+    ("whisper-base 1 KV head seq_parallel", "whisper-base", dict(SP, n_kv_heads=1)),
+    ("xlstm-1.3b d_model 66", "xlstm-1.3b", {"d_model": 66}),
+    ("xlstm-1.3b d_model 66 seq_parallel", "xlstm-1.3b", dict(SP, d_model=66)),
+    # 15-wide heads without RoPE: the axis splits wq's 60 columns but not
+    # the one KV head's 15, so attention runs whole on every rank
+    ("gemma-2b 15-wide heads", "gemma-2b", {"rope_theta": 0.0, "d_head": 15}),
+    ("gemma-2b 15-wide heads seq_parallel", "gemma-2b",
+     dict(SP, rope_theta=0.0, d_head=15)),
+    # 65 SSM channels: the SSM runs whole on every rank
+    ("hymba-1.5b 65 SSM channels seq_parallel", "hymba-1.5b",
+     dict(SP, d_model=65, ssm_expand=1))]
+CASES += [(label, arch, 4, 2 if "microbatches" in label else 1)
+          for label, arch, _ in SP_CASES]
 # the cases on a mesh of two data axes, (pod, data, model) = (2, 2, 1), as a
 # train job names it (the others run on tiny): the dense control of the path
 # the mixture of experts takes there (test_torch_moe_mesh.py)
 POD = ((2, 2, 1), ("pod", "data", "model"))
-MESHES = {"gemma-2b pod data": POD, "gemma-2b pod data microbatches 2": POD}
+MESHES = {"gemma-2b pod data": POD, "gemma-2b pod data microbatches 2": POD,
+          "gemma-2b seq_parallel pod data": POD}
+# a sequence the model axis does not divide (padded to 16 and cut back)
+SEQS = {"gemma-2b seq_parallel seq 15": 15}
+# hymba with sequence parallelism under remat="full", as the card trains it
+# (the reference's run, remat="none", computes the same numbers)
+REMATS = {"hymba-1.5b seq_parallel": "full"}
 # the reduced config's fields a case replaces: a vocabulary the model axis
 # does not divide (replicated), and 5 heads of 16 over 5 KV heads (the
 # axis cuts wq's 80 columns mid-head: every head on every rank)
 OVERRIDES = {"whisper-base vocab 257": {"vocab_size": 257},
              "hymba-1.5b 5 heads": {"n_heads": 5, "n_kv_heads": 5, "d_head": 16,
                                     "vocab_size": 257}}
+# every case's fields replaced
+CHANGES = {**OVERRIDES, **{label: changes for label, _, changes in SP_CASES}}
 # the recurrent blocks, each alone on 2 ranks of one model axis:
 # (block, arch whose reduced config it takes, its init)
 BLOCKS = [("mlstm", "xlstm-1.3b", init_mlstm), ("slstm", "xlstm-1.3b", init_slstm),
@@ -135,7 +185,7 @@ class PodMesh:
 
 def _ref_params(arch, seed=0, label=None):
     jcfg = dataclasses.replace(j_reduced(j_get_config(arch)),
-                               **OVERRIDES.get(label, {}))
+                               **CHANGES.get(label, {}))
     return jcfg, j_init_params(jax.random.PRNGKey(seed), jcfg)
 
 
@@ -163,8 +213,8 @@ def _embeds(jcfg, batch):
     return out
 
 
-def _batch_fn(jcfg, batch):
-    pipe = JTokenPipeline(jcfg.vocab_size, batch=batch, seq_len=SEQ, seed=0)
+def _batch_fn(jcfg, batch, seq=SEQ):
+    pipe = JTokenPipeline(jcfg.vocab_size, batch=batch, seq_len=seq, seed=0)
     embeds = _embeds(jcfg, batch)
     return lambda i: {k: jnp.asarray(v) for k, v in
                       {**pipe.batch_at(i), **(embeds[i] if embeds else {})}.items()}
@@ -178,13 +228,15 @@ def _ref_mesh(label):
 
 def _ref_mesh_step(jcfg, microbatches, label=None):
     """The reference launcher's jitted step under its mesh placements
-    (``launch/train.py``), and the placements."""
+    (``launch/train.py``; ``mlp_dp`` passed on, as ``launch/specs.py`` and
+    the port place it), and the placements."""
     mesh = _ref_mesh(label)
     tcfg = JTrainConfig(total_steps=STEPS, microbatches=microbatches,
                         remat="none", **TCFG)
     step = j_make_train_step(JModel(jcfg), tcfg)
     shapes = jax.eval_shape(lambda: j_init_params(jax.random.PRNGKey(0), jcfg))
-    pshard = j_sharding.sharding_tree(shapes, mesh, jcfg.expert_sharding)
+    pshard = j_sharding.sharding_tree(shapes, mesh, jcfg.expert_sharding,
+                                      jcfg.mlp_dp)
     return jax.jit(step, in_shardings=(pshard, None, None),
                    out_shardings=(pshard, None, None)), pshard
 
@@ -196,7 +248,7 @@ def _ref_mesh_run(label, arch, batch, microbatches):
     try:
         step, pshard = _ref_mesh_step(jcfg, microbatches, label)
         params, opt = jax.device_put(jp, pshard), j_adamw_init(jp)
-        fn, losses = _batch_fn(jcfg, batch), []
+        fn, losses = _batch_fn(jcfg, batch, SEQS.get(label, SEQ)), []
         for i in range(STEPS):
             params, opt, m = step(params, opt, fn(i))
             losses.append(float(m["loss"]))
@@ -217,8 +269,9 @@ def _ref(label):
 def _job(arch, batch, microbatches, ckpt_dir, label=None, **kw):
     jcfg, jp = _ref_params(arch, label=label)
     job = dict(kind="train", mesh=MESHES.get(label, "tiny"), arch=arch, reduced=True,
-               cfg=OVERRIDES.get(label, {}), steps=STEPS, batch=batch, seq=SEQ,
-               microbatches=microbatches, tcfg=TCFG, params=_np(jp),
+               cfg=CHANGES.get(label, {}), steps=STEPS, batch=batch,
+               seq=SEQS.get(label, SEQ), microbatches=microbatches,
+               remat=REMATS.get(label, "none"), tcfg=TCFG, params=_np(jp),
                embeds=_embeds(jcfg, batch), ckpt_dir=str(ckpt_dir), gather=True)
     job.update(kw)
     return job
@@ -283,6 +336,9 @@ def mesh_runs(tmp_path_factory):
     root = tmp_path_factory.mktemp("mesh_training")
     clis = {"port": _cli("repro_torch.launch.train", root / "cli_t", "--device",
                          "cpu", "--dist-backend", "gloo"),
+            "port flags": _cli("repro_torch.launch.train", root / "cli_t_flags",
+                               "--device", "cpu", "--dist-backend", "gloo",
+                               "--seq-parallel", "--mlp-dp"),
             "reference": _cli("repro.launch.train", root / "cli_j")}
     for arch in RECURRENT:
         clis[f"port {arch}"] = _cli("repro_torch.launch.train", root / f"cli_t_{arch}",
@@ -324,12 +380,8 @@ def mesh_runs(tmp_path_factory):
         # the reference's directory restored on the mesh, then step 3
         jobs["restore"] = _job("gemma-2b", 4, 1, root / "jax", steps=1,
                                params=None, seed=5, tcfg=whole)
-        # what the mesh still refuses (ROADMAP item 12h): a d_ff the model
-        # axis does not split, seq_parallel, mlp_dp; and a mesh of more ranks
+        # what the mesh refuses: a mesh of more ranks than the group has
         refused = dict(_job("gemma-2b", 4, 2, root / "refused"), params=None)
-        jobs["d_ff"] = dict(refused, cfg={"d_ff": 129})
-        jobs["seq_parallel"] = dict(refused, cfg={"seq_parallel": True})
-        jobs["mlp_dp"] = dict(refused, cfg={"mlp_dp": True})
         jobs["single"] = dict(refused, mesh="single")
         labels = list(jobs)
         # a run whose step 1 fails on rank 1 alone, in 4 ranks of its own
@@ -794,6 +846,298 @@ def test_frontend_and_replicated_step_collectives_are_the_declared_count(mesh_ru
             assert got == want
 
 
+# the collectives over ``model`` of the parts of a layer, each a (forward,
+# backward) pair of op lists: a tensor-parallel part enters by a copy (its
+# gradient all-reduced) or, under sequence parallelism, a gather of the
+# sequence (all-gather, its gradient reduce-scattered), and leaves by an
+# all-reduce or a reduce-scatter (its gradient all-gathered); a part run
+# whole on every rank gathers its split weights (all-gather, no backward)
+# and, under sequence parallelism, the sequence (all-gather) and cuts its
+# output back to the rank's rows (its gradient all-gathered)
+ENTER = {False: ([], ["all_reduce"]), True: (["all_gather"], ["reduce_scatter"])}
+LEAVE = {False: (["all_reduce"], []), True: (["reduce_scatter"], ["all_gather"])}
+GATHER = (["all_gather"], ["reduce_scatter"])
+COPY = ([], ["all_reduce"])
+UNSPLIT = (["all_gather"], [])
+SPLIT = ([], ["all_gather"])
+
+
+def _stage_of(cfg, kind, tree):
+    """The stacked leaves of a layer of ``kind`` in ``tree`` (the
+    parameter tree's shape, or its placements)."""
+    if kind == "enc":
+        return tree["enc_stages"]["e0"]
+    return tree["stages"][next(f"s{i}" for i, (k, _) in enumerate(stages_meta(cfg))
+                               if k.split("+")[0] == kind)]
+
+
+def _split_leaves(cfg, names, kind):
+    """How many of a layer's ``names`` the tiny mesh's placement splits
+    over ``model`` (the port's rules, held to the reference's by the
+    placement tests)."""
+    specs = _stage_of(cfg, kind, sharding.spec_tree(
+        param_shapes(cfg), named_mesh_layout("tiny"), cfg.expert_sharding, cfg.mlp_dp))
+    return sum(any(e == "model" for e in specs[f"stk_{n}"])
+               for n in names if f"stk_{n}" in specs)
+
+
+def _whole(sp, n_weights):
+    return ([UNSPLIT] + [UNSPLIT] * n_weights + [SPLIT]) if sp else [UNSPLIT] * n_weights
+
+
+def _parts(cfg, kind, sp):
+    """The model-axis parts of one layer of ``kind`` in forward order, and
+    whether its last op is the output of a tensor-parallel part (which the
+    recompute of remat="full" stops before)."""
+    from repro_torch.models.mlp import mlp_split
+    from repro_torch.models.ssm import ssm_split
+    from repro_torch.models.xlstm import mlstm_split, slstm_split
+    tp = (cfg.n_kv_heads * cfg.head_dim) % 2 == 0
+    form = head_split(cfg, 2)
+
+    def tp_part(*inner):
+        return [ENTER[sp], *inner, LEAVE[sp]]
+
+    attn = (tp_part(*([GATHER] if form != "heads" else [])) if tp else
+            _whole(sp, _split_leaves(cfg, ("wq", "wk", "wv", "wo"), kind)))
+    cross = (tp_part(*([GATHER] if form == "all" else [])) if tp else
+             _whole(sp, _split_leaves(cfg, ("xwq", "xwo"), kind)))
+    if mlp_split(cfg, 2):
+        ffn = tp_part()
+    else:
+        ffn = [SPLIT, UNSPLIT] if cfg.mlp_dp and not sp else []
+    blocks = {"hybrid": (ssm_split, "ssm_", [GATHER, COPY, COPY, COPY]),
+              "mlstm": (mlstm_split, "m_", [GATHER] * 3),
+              "slstm": (slstm_split, "s_", [GATHER])}
+    block = []
+    if kind in blocks:
+        split, prefix, inner = blocks[kind]
+        names = [k[4:] for k in _stage_of(cfg, kind, param_shapes(cfg))
+                 if k.startswith("stk_" + prefix)]
+        block = tp_part(*inner) if split(cfg, 2) else _whole(sp, _split_leaves(
+            cfg, names, kind))
+    parts = {"attn": attn + ffn, "local": attn + ffn, "enc": attn + ffn,
+             "xdec": attn + cross + ffn, "hybrid": attn + block + ffn,
+             "mlstm": block, "slstm": block}[kind]
+    last_leaves = (ffn if kind not in ("mlstm", "slstm") else block)[-1:] == [LEAVE[sp]]
+    return parts, last_leaves
+
+
+def _declared_counts(cfg, n_leaves, microbatches=1, remat="none", chunks=1):
+    """The collectives of one step on a rank of the tiny mesh of a dense,
+    recurrent, hybrid, vision or encoder-decoder config, with or without
+    ``seq_parallel`` and ``mlp_dp``, whatever the model axis splits: per
+    microbatch on ``model`` the layers' parts (:func:`_parts`; under
+    remat="full" each decoder layer's forward ops again, but a last
+    tensor-parallel output), the embedding's (an all-reduce of the
+    vocab-parallel lookup, a reduce-scatter under sequence parallelism, or
+    the cut of a replicated lookup to the rank's rows), the encoder's
+    frames cut to the rank's rows, the cross K/V's input and their gathers
+    (an MQA or every-head form), and the loss's (the hidden state's
+    gradient summed, or its rows gathered whole, and a chunk's max and
+    sums); per step the global norm's and one all-reduce of every leaf a
+    rank computes with on its own rows (the norms' under sequence
+    parallelism, a replicated FFN's under it or ``mlp_dp``); on ``data``
+    the mask count and the loss a microbatch, every leaf, and the batch's
+    gather with two microbatches."""
+    from repro_torch.models.mlp import mlp_split
+    sp = cfg.seq_parallel
+    ops: dict = {}
+
+    def add(pairs, times=1, fwd_only=False):
+        for f, b in pairs:
+            for op in f + ([] if fwd_only else b):
+                ops[op] = ops.get(op, 0) + times
+
+    split_vocab = cfg.vocab_size % 2 == 0
+    per_mb = []
+    if split_vocab:
+        per_mb.append((["reduce_scatter"], ["all_gather"]) if sp else (["all_reduce"], []))
+        per_mb.append(GATHER if sp else COPY)
+        per_mb += [(["all_reduce_max", "all_reduce"], [])] * chunks
+    elif sp:
+        per_mb += [SPLIT, UNSPLIT]
+    stages = stages_meta(cfg)
+    if cfg.n_encoder_layers:
+        stages = stages + [("enc", cfg.n_encoder_layers)]
+        tp = (cfg.n_kv_heads * cfg.head_dim) % 2 == 0
+        per_mb += [SPLIT] if sp else []
+        per_mb += ([ENTER[sp]] if tp else [UNSPLIT] if sp else [])
+        if tp and head_split(cfg, 2) != "heads":
+            per_mb += [GATHER] * sum(1 for k, _ in stages_meta(cfg) if k == "xdec")
+    add(per_mb, microbatches)
+    for kind, count in stages:
+        parts, last_leaves = _parts(cfg, kind.split("+")[0], sp)
+        add(parts, count * microbatches)
+        if remat == "full" and kind != "enc":
+            again = [op for f, _ in parts for op in f]
+            if last_leaves:
+                again = again[:-1]
+            add([(again, [])], count * microbatches)
+    sums = 0
+    for path, _ in _flat(param_shapes(cfg)):
+        name = path.split("/")[-1].removeprefix("stk_")
+        ffn = name in ("w_up", "w_gate", "w_down") and not mlp_split(cfg, 2)
+        sums += (sp and ("norm" in path or ffn)) or (cfg.mlp_dp and ffn)
+    ops["all_reduce"] = ops.get("all_reduce", 0) + 1 + sums
+    data = {"all_reduce": 2 * microbatches + n_leaves}
+    if microbatches > 1:
+        data["all_gather"] = 1
+    return {"data": data, "model": ops}
+
+
+SP_COUNTED = [label for label, _, _ in SP_CASES if label not in MESHES]
+
+
+@pytest.mark.parametrize("label", SP_COUNTED)
+def test_sequence_parallel_and_replicated_step_collectives_are_the_declared_count(
+        mesh_runs, label):
+    """Every step of every rank of the sequence-parallel, mlp_dp and
+    replicated-fallback cases makes the collectives
+    :func:`_declared_counts` works out from the config."""
+    jobs, results, _ = mesh_runs
+    job = jobs[label]
+    cfg = dataclasses.replace(reduced_config(get_config(job["arch"])), **job["cfg"])
+    want = _declared_counts(cfg, len(jax.tree.leaves(job["params"])),
+                            job["microbatches"], job["remat"])
+    for res in results[label]:
+        for rec in res["records"]:
+            got = {a: {op: c["calls"] for op, c in ops.items()}
+                   for a, ops in rec["collectives"].items()}
+            assert got == want
+
+
+@pytest.mark.parametrize("label", ["gemma-2b", "gemma3-4b", "gemma-2b microbatches 2",
+                                   *RECURRENT, *FRONTENDS, *OVERRIDES, REMAT_LABEL])
+def test_the_declared_count_covers_the_earlier_cases(mesh_runs, label):
+    """:func:`_declared_counts` gives the earlier cases, without the
+    flags, the counts their steps make (and the earlier declarations
+    give)."""
+    jobs, results, _ = mesh_runs
+    job = jobs[label]
+    cfg = dataclasses.replace(reduced_config(get_config(job["arch"])), **job["cfg"])
+    want = _declared_counts(cfg, len(jax.tree.leaves(job["params"])),
+                            job["microbatches"], job["remat"])
+    for res in results[label]:
+        got = {a: {op: c["calls"] for op, c in ops.items()}
+               for a, ops in res["records"][0]["collectives"].items()}
+        assert got == want
+
+
+def test_seq_parallel_on_a_model_axis_of_one_rank_changes_nothing(mesh_runs):
+    """On (pod, data, model) = (2, 2, 1) ``seq_parallel`` splits nothing:
+    the losses, the collectives and the final parameters are those of the
+    run without it, bit for bit."""
+    _, results, _ = mesh_runs
+    for res, plain in zip(results["gemma-2b seq_parallel pod data"],
+                          results["gemma-2b pod data"]):
+        assert res["losses"] == plain["losses"]
+        assert [r["collectives"] for r in res["records"]] == \
+            [r["collectives"] for r in plain["records"]]
+        if res["lead"]:
+            for (path, a), (_, b) in zip(_flat(res["params"]), _flat(plain["params"])):
+                assert np.array_equal(a, b), path
+
+
+@pytest.mark.parametrize("arch,changes", [
+    ("gemma-2b", dict(SP, mlp_dp=True)), ("command-r-35b", SP),
+    ("hymba-1.5b", dict(SP, mlp_dp=True)), ("whisper-base", dict(SP, mlp_dp=True)),
+    ("xlstm-1.3b", SP), ("phi-3-vision-4.2b", dict(SP, mlp_dp=True)),
+    ("grok-1-314b", dict(SP, mlp_dp=True))])
+def test_the_flags_change_nothing_without_a_mesh(arch, changes):
+    """On one process (no mesh) ``seq_parallel`` and ``mlp_dp`` leave the
+    loss and every gradient bit-equal to a run without them, as the
+    reference's ``constrain`` without a mesh is the identity."""
+    import torch
+    from repro_torch.launch.train import step_embeds
+    from repro_torch.models import Model, init_params
+    from repro_torch.training.train_step import value_and_grad
+    cfg = reduced_config(get_config(arch))
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 16))).int()
+    batch = {"tokens": tokens, **step_embeds(cfg, 0, 2, "cpu")}
+    got = [value_and_grad(Model(c).loss, params, batch)
+           for c in (cfg, dataclasses.replace(cfg, **changes))]
+    assert torch.equal(got[0][0], got[1][0])
+    for (path, a), (_, b) in zip(_flat(got[0][1]), _flat(got[1][1])):
+        assert torch.equal(a, b), path
+
+
+@pytest.mark.parametrize("mesh_name", ["tiny", "multi"])
+@pytest.mark.parametrize("arch", PORTED)
+def test_mlp_dp_placements_equal_the_references_on_every_leaf(arch, mesh_name):
+    """spec_tree with ``mlp_dp`` (the dense FFN replicated over ``model``)
+    equals the reference's on every leaf of the config at full shapes."""
+    jcfg, shapes = _ref_shapes(arch)
+    mesh = named_mesh_layout(mesh_name)
+    want = dict(_flat(j_sharding.spec_tree(shapes, mesh, jcfg.expert_sharding,
+                                           mlp_dp=True)))
+    got = dict(_flat(sharding.spec_tree(param_shapes(get_config(arch)), mesh,
+                                        jcfg.expert_sharding, mlp_dp=True)))
+    assert sorted(got) == sorted(want)
+    for path in want:
+        assert got[path] == tuple(want[path]), path
+
+
+class FakeMesh2:
+    axis_names = ("data", "model")
+    shape = {"data": 2, "model": 2}
+
+
+class FakePodMesh1:
+    axis_names = ("pod", "data", "model")
+    shape = {"pod": 2, "data": 2, "model": 1}
+
+
+@pytest.mark.parametrize("changes,mesh_cls,want", [
+    # no flag: only the data axes, as before
+    ({}, FakeMesh2, {"final_norm/scale": ("data",),
+                     "stages/s0/stk_norm1_scale": ("data",),
+                     "stages/s0/stk_w_up": ("data",), "stages/s0/stk_wq": ("data",),
+                     "embed": ("data",)}),
+    # seq_parallel: the norms also over model; the split FFN and
+    # projections, and the embedding, whole already
+    (SP, FakeMesh2, {"final_norm/scale": ("data", "model"),
+                     "stages/s0/stk_norm1_scale": ("data", "model"),
+                     "stages/s0/stk_norm2_scale": ("data", "model"),
+                     "stages/s0/stk_w_up": ("data",), "stages/s0/stk_wq": ("data",),
+                     "embed": ("data",)}),
+    # mlp_dp alone: the replicated FFN over model, the norms not
+    ({"mlp_dp": True}, FakeMesh2, {"final_norm/scale": ("data",),
+                                   "stages/s0/stk_w_up": ("data", "model"),
+                                   "stages/s0/stk_w_gate": ("data", "model"),
+                                   "stages/s0/stk_w_down": ("data", "model"),
+                                   "stages/s0/stk_wq": ("data",)}),
+    (dict(SP, mlp_dp=True), FakeMesh2, {"final_norm/scale": ("data", "model"),
+                                        "stages/s0/stk_w_down": ("data", "model"),
+                                        "stages/s0/stk_wo": ("data",)}),
+    # a d_ff the axis does not divide: whole without seq_parallel, the
+    # rank's rows with it
+    ({"d_ff": 129}, FakeMesh2, {"stages/s0/stk_w_up": ("data",),
+                                "stages/s0/stk_norm1_scale": ("data",)}),
+    (dict(SP, d_ff=129), FakeMesh2, {"stages/s0/stk_w_up": ("data", "model"),
+                                     "stages/s0/stk_norm1_scale": ("data", "model")}),
+    # a model axis of one rank: the flags sum nothing over it
+    (dict(SP, mlp_dp=True), FakePodMesh1, {
+        "final_norm/scale": ("pod", "data"), "stages/s0/stk_w_up": ("pod", "data")}),
+])
+def test_grad_sum_axes_follow_the_placement_and_the_flags(changes, mesh_cls, want):
+    """The axes each gradient leaf is summed over before the clip
+    (``training.train_step.grad_sum_axes``), from the placement and the
+    config on meshes with no ranks: the data axes a leaf is not split over,
+    and ``model`` for a replicated leaf a rank computes with on its own rows
+    only."""
+    from repro_torch.training.train_step import grad_sum_axes, _leaf_paths
+    cfg = dataclasses.replace(reduced_config(get_config("gemma-2b")), **changes)
+    mesh = mesh_cls()
+    specs = sharding.spec_tree(param_shapes(cfg), mesh, cfg.expert_sharding, cfg.mlp_dp)
+    got = dict(zip(_leaf_paths(specs), grad_sum_axes(cfg, specs, mesh)))
+    assert sorted(got) == sorted(p for p, _ in _flat(specs))
+    for path, axes in want.items():
+        assert got[path] == axes, path
+
+
 # ---------------------------------------------------------------------------
 # checkpoints, refusals, the driver
 # ---------------------------------------------------------------------------
@@ -830,9 +1174,6 @@ def test_the_references_checkpoint_restores_on_the_mesh(mesh_runs):
 
 
 @pytest.mark.parametrize("label,match", [
-    ("d_ff", r"NotImplementedError: .*d_ff 129.*ROADMAP item 12h"),
-    ("seq_parallel", r"NotImplementedError: .*seq_parallel.*ROADMAP item 12h"),
-    ("mlp_dp", r"NotImplementedError: .*mlp_dp.*ROADMAP item 12h"),
     ("single", r"ValueError: mesh 'single' \(16, 16\) needs 256 ranks; the "
                r"process group has 4"),
 ])
@@ -860,6 +1201,17 @@ def test_launch_train_mesh_trains_the_recurrent_kinds(mesh_runs, arch):
     assert _masked(drivers[f"port {arch}"][1]) == \
         _masked(drivers[f"reference {arch}"][1]) == [
             f"[train] {arch} steps 0->3 in Ts; loss A -> B"]
+
+
+def test_launch_train_flags_give_the_same_training(mesh_runs):
+    """``launch.train --mesh tiny --seq-parallel --mlp-dp`` trains the same
+    model from the same seed as the run without the flags: the ``[train]``
+    line is the same, losses included (to their printed 3 decimals)."""
+    _, _, drivers = mesh_runs
+    rc, out, err = drivers["port flags"]
+    assert rc == 0, err[-2000:]
+    assert re.sub(r"in \d+\.\ds", "in Ts", out) == \
+        re.sub(r"in \d+\.\ds", "in Ts", drivers["port"][1])
 
 
 @pytest.mark.parametrize("arch", FRONTENDS)

@@ -95,10 +95,9 @@ def test_unported_layer_kinds_raise(changes):
     recurrent and hybrid kinds (mLSTM + sLSTM, hybrid, mLSTM alone) and the
     encoder-decoder's ``enc`` and ``xdec`` build on the tiny mesh (their
     blocks, the encoder and the cross-attention are tensor-parallel;
-    before, they raised there), the encoder-decoder once its KV heads split
-    over the model axis (gemma-2b's one KV head is refused there, naming
-    ROADMAP item 12h: cross-attention takes each rank's own KV heads only).
-    On one device each builds and runs a
+    before, they raised there), the encoder-decoder with gemma-2b's one KV
+    head too (each rank's query heads share it, the cross K/V columns
+    gathered).  On one device each builds and runs a
     forward, with the reference's layer pattern and tree, and an ``xdec``
     stack reads the encoder's cross K/V (``Model.encode``,
     ``Model.cross_kv``) and refuses to run without them."""
@@ -108,10 +107,7 @@ def test_unported_layer_kinds_raise(changes):
     assert {k for k, _ in stages_meta(cfg)} <= {"mlstm", "slstm", "hybrid", "xdec"}
     assert stages_meta(cfg) == j_stages_meta(jcfg)
     if cfg.n_encoder_layers:
-        with pytest.raises(NotImplementedError, match="cross-attention.*ROADMAP item 12h"):
-            Model(cfg, mesh=named_mesh_layout("tiny"))
-        specs = Model(dataclasses.replace(cfg, n_kv_heads=4),
-                      mesh=named_mesh_layout("tiny")).specs
+        specs = Model(cfg, mesh=named_mesh_layout("tiny")).specs
         assert specs["enc_pos"] == (None, None)
         assert specs["stages"]["s0"]["stk_xwk"] == (None, None, "model")
     else:
@@ -154,24 +150,31 @@ def test_check_mesh_refuses_the_recurrent_and_hybrid_kinds(arch, changes):
     assert sorted(model.specs["stages"]) == [f"s{i}" for i in range(len(stages_meta(cfg)))]
 
 
-@pytest.mark.parametrize("arch,changes,match", [
-    ("hymba-1.5b", dict(d_ff=5505), "d_ff 5505"),
-    ("xlstm-1.3b", dict(d_model=2050), "the mLSTM head width 1025"),
+@pytest.mark.parametrize("arch,changes,leaf,split", [
+    ("hymba-1.5b", dict(d_ff=5505), "stk_w_up", "mlp"),
+    ("xlstm-1.3b", dict(d_model=2050), "stk_m_wq", "mlstm"),
     ("hymba-1.5b", dict(n_heads=24, n_kv_heads=6, d_model=1601, ssm_expand=1,
-                        vocab_size=32000), "the SSM's 1601 channels")])
-def test_check_mesh_refuses_a_model_axis_the_heads_or_channels_do_not_split(
-        arch, changes, match):
+                        vocab_size=32000), "stk_ssm_out_proj", "ssm")])
+def test_check_mesh_takes_a_model_axis_the_heads_or_channels_do_not_split(
+        arch, changes, leaf, split):
     """A d_ff, an mLSTM head width or an SSM width the tiny mesh's model
-    axis of 2 does not divide stays refused, naming ROADMAP item 12h (their
-    replicated fallbacks are not ported).  Heads and a vocabulary it does
-    not divide are taken (hymba-1.5b at full width, next test)."""
+    axis of 2 does not divide is taken (before, it was refused): the
+    placement replicates the leaf, as the reference's does, and the part
+    of the layer that holds it is not split (its layer runs it whole on
+    every rank; ``tests/test_torch_mesh_training.py`` trains such configs
+    against the reference's mesh)."""
     from repro_torch.launch.mesh import named_mesh_layout
+    from repro_torch.models.mlp import mlp_split
+    from repro_torch.models.ssm import ssm_split
     from repro_torch.models.transformer import check_mesh
+    from repro_torch.models.xlstm import mlstm_split
     cfg = dataclasses.replace(get_config(arch), **changes)
-    with pytest.raises(NotImplementedError, match=f"{match}.*ROADMAP item 12h"):
-        check_mesh(cfg, named_mesh_layout("tiny"))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12h"):
-        Model(cfg, mesh=named_mesh_layout("tiny"))
+    check_mesh(cfg, named_mesh_layout("tiny"))
+    specs = Model(cfg, mesh=named_mesh_layout("tiny")).specs
+    assert all(e is None for e in specs["stages"]["s0"][leaf]), leaf
+    splits = {"mlp": mlp_split, "mlstm": mlstm_split, "ssm": ssm_split}
+    assert not splits[split](cfg, 2)
+    assert splits[split](get_config(arch), 2)
 
 
 @pytest.mark.parametrize("arch,replicated", [

@@ -16,8 +16,8 @@ split with an even token count (each data rank holds every group: 2) and
 an odd one (the group count halves to 1), and ``moe_dispatch="global"``;
 then two microbatches (each the reference's global rows, split over the
 data ranks, or whole on each when they do not divide it: B = 6), the
-(2, 2, 1) mesh (4 groups: a split batch, a whole one and ``global``) and
-both together.  Each of those new cases can tell groupings apart: the
+(2, 2, 1) mesh (4 groups: a split batch, a whole one and ``global``),
+both together, and ``seq_parallel`` (grok; llama4 with ``mlp_dp`` too).  Each of those new cases can tell groupings apart: the
 reference drops entries in at least one of its layers (grok at a capacity
 factor of 0.5), so another grouping gives other drops, and the port's top-1
 counts and dropped shares of every MoE call equal the reference's.
@@ -103,7 +103,12 @@ GROUPED_CASES = [
     ("llama4 pod data batch 6 (whole)", LLAMA4, 6, 16, {}, 1, POD),
     ("grok pod data global", GROK, 4, 16, dict(LOW, moe_dispatch="global"), 1, POD),
     ("llama4 pod data global", LLAMA4, 4, 16, {"moe_dispatch": "global"}, 1, POD),
-    ("llama4 pod data microbatches 2", LLAMA4, 8, 16, {}, 2, POD)]
+    ("llama4 pod data microbatches 2", LLAMA4, 8, 16, {}, 2, POD),
+    # sequence parallelism: each MoE layer gathers its data shard's
+    # sequence whole, so the groups (and the drops) are the plain mesh's
+    ("grok seq_parallel", GROK, 4, 16, dict(LOW, seq_parallel=True), 1, "tiny"),
+    ("llama4 seq_parallel mlp_dp", LLAMA4, 4, 16,
+     {"seq_parallel": True, "mlp_dp": True}, 1, "tiny")]
 TRAIN_CASES += [c[:5] for c in GROUPED_CASES]
 MICRO = {c[0]: c[5] for c in GROUPED_CASES}
 MESH = {c[0]: c[6] for c in GROUPED_CASES}
@@ -184,7 +189,8 @@ def _ref_mesh_step(jcfg, microbatches=1, mesh="tiny"):
                         microbatches=microbatches, **TCFG)
     step = j_make_train_step(JModel(jcfg), tcfg)
     shapes = jax.eval_shape(lambda: j_init_params(jax.random.PRNGKey(0), jcfg))
-    pshard = j_sharding.sharding_tree(shapes, mesh, jcfg.expert_sharding)
+    pshard = j_sharding.sharding_tree(shapes, mesh, jcfg.expert_sharding,
+                                      jcfg.mlp_dp)
     return jax.jit(step, in_shardings=(pshard, None, None),
                    out_shardings=(pshard, None, None)), pshard
 
@@ -487,14 +493,24 @@ def _per_step_counts(cfg, microbatches=1, mesh="tiny"):
     each data axis; then one all-gather of the batch's tokens with two
     microbatches or more, every leaf its placement does not split over the
     axis, and the norm's.  The norm all-reduces each set of axes that
-    leaves are split over once an axis of it."""
+    leaves are split over once an axis of it.  Under ``seq_parallel`` each
+    tensor-parallel part on ``model`` gathers the sequence in front and
+    reduce-scatters after (an all-gather and a reduce-scatter each way for
+    its two all-reduces), the embedding reduce-scatters its sum and the
+    loss gathers the hidden rows (an all-gather and a reduce-scatter each
+    for their two all-reduces), a MoE layer gathers its data shard's
+    sequence whole (an all-gather forward, one backward for the cut back to
+    the rank's rows), and every norm's leaf and, with ``mlp_dp``, the
+    replicated dense FFN's are summed over ``model`` per step; ``mlp_dp``
+    runs that FFN on the rank's rows with no collective."""
     from repro_torch.dist.sharding import data_axes, spec_axes, spec_tree
     layout = _layout(mesh)
     m = microbatches
     meta = stages_meta(cfg)
     layers = sum(n for _, n in meta)
     n_moe = sum(n for kind, n in meta if kind.endswith("+moe"))
-    specs = tree_leaves(spec_tree(param_shapes(cfg), layout, cfg.expert_sharding))
+    tree = spec_tree(param_shapes(cfg), layout, cfg.expert_sharding, cfg.mlp_dp)
+    specs = tree_leaves(tree)
     named = [{a for e in sp for a in spec_axes(e)} for sp in specs]
     norm_sets = {tuple(sorted(axes)) for axes in named if axes}
     out = {}
@@ -511,9 +527,25 @@ def _per_step_counts(cfg, microbatches=1, mesh="tiny"):
         out[a] = per
     size = layout.shape.get("model", 1)
     split_vocab = size > 1 and cfg.vocab_size % size == 0
-    ffn = 2 * (layers - n_moe) + (2 * n_moe if size > 1 else 0)
-    model = {"all_reduce": m * (2 * layers + ffn + (3 if split_vocab else 0))
-             + sum("model" in axes for axes in norm_sets)}
+    experts = 2 * n_moe if size > 1 else 0
+    dense = 0 if cfg.mlp_dp else 2 * (layers - n_moe)
+    norm = sum("model" in axes for axes in norm_sets)
+    sp = cfg.seq_parallel and size > 1
+    summed = 0
+    if size > 1:
+        for (path, _), axes in zip(_flat(tree), named):
+            ffn = path.endswith(("w_up", "w_gate", "w_down"))
+            summed += "model" not in axes and ((sp and ("norm" in path or ffn))
+                                               or (cfg.mlp_dp and ffn))
+    if sp:
+        tp = 2 * layers + dense + (2 if split_vocab else 0)
+        model = {"all_reduce": m * (experts + (1 if split_vocab else 0)) + norm + summed,
+                 "all_gather": m * (tp + 2 * n_moe), "reduce_scatter": m * tp}
+    else:
+        model = {"all_reduce": m * (2 * layers + dense + experts
+                                    + (3 if split_vocab else 0)) + norm + summed}
+        if cfg.mlp_dp and size > 1:
+            model["all_gather"] = m * 2 * (layers - n_moe)
     if split_vocab:
         model["all_reduce_max"] = m
     out["model"] = model
@@ -523,7 +555,8 @@ def _per_step_counts(cfg, microbatches=1, mesh="tiny"):
 # the train cases whose every microbatch the data axes split, with their
 # declared collectives
 COUNTED = ["grok tp2d", "llama4 ep", "grok microbatches 2", "llama4 microbatches 2",
-           "grok pod data", "llama4 pod data", "llama4 pod data microbatches 2"]
+           "grok pod data", "llama4 pod data", "llama4 pod data microbatches 2",
+           "grok seq_parallel", "llama4 seq_parallel mlp_dp"]
 
 
 def test_moe_step_collectives_are_the_declared_count(runs):
@@ -541,17 +574,25 @@ def test_moe_step_collectives_are_the_declared_count(runs):
 
 
 @pytest.mark.parametrize("arch", [GROK, LLAMA4])
-def test_check_mesh_takes_a_mixture_of_experts_and_keeps_the_other_refusals(arch):
+def test_check_mesh_takes_a_mixture_of_experts_with_every_flag(arch):
+    """``check_mesh`` takes both mixtures of experts on the tiny mesh, on
+    two data axes (the reference's multi-pod mesh and the (2, 2, 1) one),
+    and with ``seq_parallel`` and ``mlp_dp`` (before, it refused the
+    flags); ``mlp_dp`` replicates llama4's dense FFN and no expert leaf."""
     cfg = get_config(arch)
     check_mesh(cfg, named_mesh_layout("tiny"))
     Model(reduced_config(cfg))
-    # two data axes: the reference's multi-pod mesh and the (2, 2, 1) one
     check_mesh(cfg, named_mesh_layout("multi"))
     check_mesh(reduced_config(cfg), mesh_layout(*POD))
-    with pytest.raises(NotImplementedError, match="seq_parallel.*12h"):
-        check_mesh(dataclasses.replace(cfg, seq_parallel=True), named_mesh_layout("tiny"))
-    with pytest.raises(NotImplementedError, match="mlp_dp.*12h"):
-        check_mesh(dataclasses.replace(cfg, mlp_dp=True), named_mesh_layout("multi"))
+    check_mesh(dataclasses.replace(cfg, seq_parallel=True), named_mesh_layout("tiny"))
+    flagged = dataclasses.replace(cfg, mlp_dp=True, seq_parallel=True)
+    check_mesh(flagged, named_mesh_layout("multi"))
+    specs = Model(flagged, mesh=named_mesh_layout("tiny")).specs
+    plain = Model(cfg, mesh=named_mesh_layout("tiny")).specs
+    for s, sp in specs["stages"].items():
+        for name, spec in sp.items():
+            dense = name in ("stk_w_up", "stk_w_gate", "stk_w_down")
+            assert spec == ((None,) * len(spec) if dense else plain["stages"][s][name])
 
 
 class _FakeMesh:
