@@ -47,12 +47,19 @@ paths end to end:
   writer thread slides, every answer verified, and the front end restored
   from a checkpoint answering the same storm identically;
 * tile selection and dispatch (``run_autotune``): every lanes candidate
-  of the survivor compaction (K2) and every word split of the
-  co-occurrence kernel (K4) exactly against their plain versions; the
-  ``launch.kerneltune`` sweep (each shape class's candidates timed, the
-  ref-vs-fused crossover table, tuned against default tiles); mines of
-  T10I4D100K and chess with ``autotune=True``, each ``block_w`` candidate
-  and ``backend="auto"``, and the chess stream with ``autotune=True``, on
+  of the survivor compaction (K2), every word split of the co-occurrence
+  kernel (K4) and every window plan of K1 and K3 (at their main-path
+  classes and edge shapes, with and without their stores, the library's
+  plan equal to the Python mirror's; refused plans raising before any
+  launch) exactly against their plain versions; the ``launch.kerneltune``
+  sweep (each shape class's candidates timed, K1's and K3's tuned plans
+  against their rule and bound, the ref-vs-fused crossover table, tuned
+  against default tiles); mines of T10I4D100K and chess with
+  ``autotune=True``, each ``block_w`` candidate and ``backend="auto"``,
+  the same mines with ``compact=False`` tuning K1 and with each
+  ``block_w`` naming one of K1's chunks, the chess stream with
+  ``autotune=True``, and a tidsharded chess mine and stream with
+  ``autotune=True`` on 4 gloo ranks (K3 tuned at each rank's slice), on
   the pinned checksums with the launch gates (the tuner's own launches
   counted apart);
 * the mining path's steady-state guard (``repro_torch.staticcheck``,
@@ -250,6 +257,27 @@ PARTIAL_SHAPES = [(60038, 25, 393216), (852, 782, 4096)]
 # 1 word shard (the NCCL rank holds the whole rows) and 2 (grid 2x2)
 PARTIAL_CHECKED = PARTIAL_SHAPES + [(60038, 100, 393216), (852, 3125, 4096),
                                     (60038, 50, 393216), (852, 1563, 4096)]
+# K1's and K3's window plans (run_autotune): edge shapes beside the main
+# path's classes (launch.kerneltune.K1_SHAPES, K3_SHAPES), each held at every
+# plan of autotune.window_candidates: (label, P, W, Q, pairs), pairs
+# "class" (class-ordered, a 10% pad tail) or "random"
+WINDOW_EDGES = [("Q=1001 W=100 (no multiple of a tile)", 300, 100, 1001, "class"),
+                ("Q=4097 W=3125", 64, 3125, 4097, "random"),
+                ("W=131 (W % 4 != 0)", 300, 131, 1001, "class"),
+                ("W=7 (W % 4 != 0)", 40, 7, 300, "random"),
+                ("Q=1 W=100", 5, 100, 1, "random"),
+                ("Q=0 W=100", 5, 100, 0, "random")]
+# plans the check must refuse, at (W, plan): a tile that is no power of two,
+# too small, too large; no window rows, too many; a chunk off its tile's
+# bank skew, or none; stages or whole rows past the shared memory a block
+# may take
+WINDOW_REFUSED = [(100, (12, 24, 100)), (100, (4, 8, 100)), (100, (512, 256, 100)),
+                  (100, (256, 0, 100)), (100, (256, 257, 100)),
+                  (3125, (16, 32, 100)), (3125, (16, 32, 0)),
+                  (3125, (8, 256, 1020)), (3125, (256, 256, 3125))]
+# the compact=False mines run_autotune drives with tuned and named plans,
+# by dataset: the K1 class whose chunk candidates name its block_w arms
+WINDOW_MINE_CLASS = {"chess": (393216, 100), "T10I4D100K": (4096, 3125)}
 # K5 shapes (M, W): the row pairs of T10I4D100K level 3 and of chess level
 # 5, pre-gathered (no mining path calls K5)
 PS_SHAPES = [(4096, 3125), (393216, 100)]
@@ -859,13 +887,135 @@ def run_apriori(launches):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def check_window_plans(kind):
+    """K1's and K3's window plans on the card: at each main-path class
+    (``kerneltune.K1_SHAPES``, ``K3_SHAPES``) and edge shape
+    (``WINDOW_EDGES``; K3 also on the 26-word slices of a 101-word frontier
+    cut over 4 shards) every plan of ``autotune.window_candidates``, the
+    library's report of it (``window_plan_check``) equal to the Python
+    mirror's, and K1 (with and without its (Q, W) store) or K3 (with and
+    without its (Q, Ws) store) under it exactly equal to the plain version
+    in every mode; then each plan of ``WINDOW_REFUSED`` refused by the
+    mirror and by the library with the same text, and by a launch of
+    either kernel, which launches nothing.  Returns the kernel calls
+    checked."""
+    import torch
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels.fused_intersect import (
+        fused_intersect_pairs, fused_intersect_partial_pairs,
+        fused_intersect_partial_ref, fused_intersect_ref, fused_support_pairs)
+    from repro_torch.kernels.fused_intersect.fused_intersect import (
+        cuda_window_plan, window_plan)
+    from repro_torch.launch import kerneltune
+    from repro_torch.launch.kernel_timing import class_pair_inputs, pair_inputs
+
+    def inputs(p, w, q, family, seed):
+        if family == "class":
+            sizes = [p] if p <= 75 else None   # a ring's level 2: one class
+            return class_pair_inputs(p, w, q, q - q // 10, seed, sizes=sizes)
+        return pair_inputs(p, w, q, seed=seed)
+
+    cases = ([("K1", label, p, w, q, "class") for label, p, w, q in kerneltune.K1_SHAPES]
+             + [("K3", label, p, w, q, "class") for label, p, w, q in kerneltune.K3_SHAPES]
+             + [(k, label, p, w, q, fam) for label, p, w, q, fam in WINDOW_EDGES
+                for k in ("K1", "K3")])
+    n_checks = 0
+    for kernel, label, p, w, q, family in cases:
+        bm, l, r, s, ms = inputs(p, w, q, family, seed=p + w + q)
+        plans = at.window_candidates(q, w, kind)
+        for plan in plans:
+            lib = cuda_window_plan(q, w, plan[:3])
+            require(lib == window_plan(q, w, plan[:3]) == plan,
+                    f"{kernel} {label}: plan {tuple(plan)}: the library reports {lib}")
+        for mode in (0, 1, 2):
+            if kernel == "K1":
+                want = fused_intersect_ref(bm, l, r, s, ms, mode=mode)
+            else:
+                want = fused_intersect_partial_ref(bm, l, r, mode=mode)
+            for plan in plans:
+                what = f"{kernel} {label} plan {tuple(plan[:3])} mode {mode}"
+                if kernel == "K1":
+                    got = fused_intersect_pairs(bm, l, r, s, ms, mode=mode, plan=plan[:3])
+                    free = fused_support_pairs(bm, l, r, s, ms, mode=mode, plan=plan[:3])
+                    torch.cuda.synchronize()
+                    for g, e, part in zip((*got, *free), (*want, *want[1:]),
+                                          ("inter", "sup", "mask", "sup (no store)",
+                                           "mask (no store)")):
+                        compare("fused_intersect", g, e, f"{what}: {part}")
+                else:
+                    got = fused_intersect_partial_pairs(bm, l, r, mode=mode, plan=plan[:3])
+                    _, pop = fused_intersect_partial_pairs(bm, l, r, mode=mode,
+                                                           store=False, plan=plan[:3])
+                    torch.cuda.synchronize()
+                    for g, e, part in zip((*got, pop), (*want, want[1]),
+                                          ("inter", "pop", "pop (no store)")):
+                        compare("fused_intersect_partial", g, e, f"{what}: {part}")
+                n_checks += 2
+        print(f"check {kernel} plans {[tuple(p[:3]) for p in plans]} at {label} "
+              f"P={p} W={w} Q={q} ({family} pairs): library plan == mirror, with and "
+              f"without store, modes 0-2, equal to ref (exact)")
+    # K3 on the slices of a frontier whose width the shards do not divide
+    p, w, q, n = 300, 101, 1001, 4
+    full, l, r, _, _ = class_pair_inputs(p, w, q, q - q // 10, seed=5)
+    ws = -(-w // n)
+    padded = torch.nn.functional.pad(full, (0, ws * n - w))
+    for i in (0, n - 1):
+        part = padded[:, i * ws:(i + 1) * ws].contiguous()
+        plans = at.window_candidates(q, ws, kind)
+        for mode in (0, 1, 2):
+            want = fused_intersect_partial_ref(part, l, r, mode=mode)
+            for plan in plans:
+                got = fused_intersect_partial_pairs(part, l, r, mode=mode, plan=plan[:3])
+                torch.cuda.synchronize()
+                for g, e, what in zip(got, want, ("inter", "pop")):
+                    compare("fused_intersect_partial", g, e,
+                            f"K3 W={w} slice {i}/{n} plan {tuple(plan[:3])} mode {mode}: {what}")
+                n_checks += 1
+        print(f"check K3 plans {[tuple(p[:3]) for p in plans]} on slice {i} of "
+              f"{n} (Ws={ws} of W={w}): equal to ref (exact)")
+    # refused plans: a ValueError from the mirror, the library and a launch
+    bm, l, r, s, ms = pair_inputs(40, 100, 50, seed=1)
+    for w, plan in WINDOW_REFUSED:
+        msgs = {}
+        for where, fn in (("mirror", lambda: window_plan(50, w, plan)),
+                          ("library", lambda: cuda_window_plan(50, w, plan))):
+            try:
+                fn()
+            except ValueError as e:
+                msgs[where] = msg = str(e)
+            else:
+                raise SmokeFailure(f"plan {plan} at W={w}: the {where} took it")
+        require(msgs["mirror"] == msgs["library"],
+                f"plan {plan} at W={w}: the mirror says {msgs['mirror']!r}, the "
+                f"library {msgs['library']!r}")
+        wide = bm if w == 100 else pair_inputs(40, w, 50, seed=2)[0]
+        before = (fused_intersect_pairs.launches, fused_intersect_partial_pairs.launches)
+        for name, fn in (("K1", lambda: fused_intersect_pairs(wide, l, r, s, ms, mode=0,
+                                                              plan=plan)),
+                         ("K3", lambda: fused_intersect_partial_pairs(wide, l, r, mode=0,
+                                                                      plan=plan))):
+            try:
+                fn()
+            except ValueError:
+                pass
+            else:
+                raise SmokeFailure(f"plan {plan} at W={w}: {name} launched it")
+        require(before == (fused_intersect_pairs.launches,
+                           fused_intersect_partial_pairs.launches),
+                f"plan {plan} at W={w}: a refused launch was counted")
+        print(f"check refused plan {plan} at W={w}: mirror, library, K1 and K3 "
+              f"raise ValueError ({msg.split(': ', 1)[-1]})")
+    return n_checks
+
+
 def run_autotune(launches, empty_cache):
     """Tile selection and dispatch on the card, in a temporary directory:
     (a) every K2 lanes candidate (8, 16, 32: 128-, 64- and 8-pair tiles)
     exactly against the plain version at the main path's K2 shapes and at
     edge shapes (pad tails, Q not a multiple of a tile, W % 4 != 0), both
     front ends, all modes; every K4 split candidate exactly against the
-    plain version at the main path's K4 shapes;
+    plain version at the main path's K4 shapes; every K1 and K3 window
+    plan (``check_window_plans``);
     (b) ``launch.kerneltune.sweep``: ``tune_shape`` at each shape class
     (device ms of every candidate, the pick, the default's ms), the
     ref-vs-fused crossover table and the mines with tuned against default
@@ -876,8 +1026,12 @@ def run_autotune(launches, empty_cache):
     the pinned checksums with the launch gates (the tuner's own launches
     counted apart, in ``autotune.launches``);
     (d) the chess stream with ``StreamConfig(autotune=True)``, every slide
-    on ``STREAM_CHECKSUMS`` with the stream's launch gates.
-    Then the process's table is ``empty_cache`` again."""
+    on ``STREAM_CHECKSUMS`` with the stream's launch gates; then the
+    ``compact=False`` mines (``_window_mines``) and the mesh runs with
+    ``autotune=True`` (``_window_mesh_runs``).  The sweep prints a timing
+    line per K1 and K3 class: the tuned plan's device ms against the
+    rule's and the bound.  Then the process's table is ``empty_cache``
+    again."""
     import shutil
     import tempfile
     import torch
@@ -961,8 +1115,10 @@ def run_autotune(launches, empty_cache):
             n_checks += 1
         print(f"check K4 {label} N={n} W={w}: splits {splits} (split_plan "
               f"{split_plan(n, w)}) equal to ref (exact)")
+    t_plans = time.perf_counter()
+    n_checks += check_window_plans(kind)
     print(f"check autotune candidates: {n_checks} kernel calls equal to their "
-          f"plain versions")
+          f"plain versions; K1/K3 plans {time.perf_counter() - t_plans:.1f}s")
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_tune-")
     cache = os.path.join(tmp, "autotune.json")
@@ -981,8 +1137,20 @@ def run_autotune(launches, empty_cache):
                   f"rows={rec['rows']}: device ms {cands}; pick {rec['tuned']} "
                   f"{rec['ms']:.4f} ms, default {rec['default']} "
                   f"{rec['default_ms']:.4f} ms, model's pick {rec['model_pick']}")
+            if rec["kernel"] in at.WINDOW_KERNELS:
+                # (d) the tuned plan against the rule and the bound: each of
+                # the class's rows read once, the pair indices, the outputs
+                p, q, w = rec["rows"], rec["q"], rec["w"]
+                out = (q * w * 4 if rec["store"] else 0) + (2 if rec["kernel"] == "pairs" else 1) * q * 4
+                bms, by = bound(p * w * 4 + 2 * q * 4 + out, q * w * 32)
+                k = "K1" if rec["kernel"] == "pairs" else "K3"
+                print(f"timing {k} plan {rec['label']} P={p} W={w} Q={q} "
+                      f"{'with' if rec['store'] else 'without'} store, class-ordered "
+                      f"pairs: tuned {tuple(rec['tuned'])} {rec['ms']:.5f} ms, rule "
+                      f"{tuple(rec['default'])} {rec['default_ms']:.5f} ms, bound "
+                      f"{bms:.5f} ms ({by}); tuned/rule {rec['ms'] / rec['default_ms']:.3f}")
             entry = at.load_table().entries.get(rec["key"], {})
-            require(at.KernelConfig.from_dict(entry) == at.KernelConfig(**rec["config"])
+            require(at.KernelConfig.from_dict(entry) == at.KernelConfig.from_dict(rec["config"])
                     and entry.get("measured_ms") == rec["ms"]
                     and entry.get("clock") == "cuda_events",
                     f"tune {rec['key']}: the table holds {entry}, the sweep "
@@ -1091,9 +1259,115 @@ def run_autotune(launches, empty_cache):
               f"{sorted(slides[1:])[len(slides[1:]) // 2]:.4f}; "
               f"{at.launches - tuner_before} tuner launches; K4 (75, 16) split "
               f"{entry.split if entry else None}")
+        t0 = time.perf_counter()
+        _window_mines(launches, pinned, kind)
+        print(f"phase run_autotune compact=False mines: {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        _window_mesh_runs(launches)
+        print(f"phase run_autotune mesh autotune runs: {time.perf_counter() - t0:.1f}s")
     finally:
         use_tables(empty_cache)
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _window_mines(launches, pinned, kind):
+    """(b) of run_autotune: ``compact=False`` mines of T10I4D100K and chess
+    with ``autotune=True`` (tuning the misses, then with the table warm) and
+    with each ``block_w`` that names a chunk candidate of the dataset's K1
+    class (``WINDOW_MINE_CLASS``), on the pinned checksums: K1 once an
+    expansion, K2 never, K4 once, the tuner's launches counted apart (none
+    with the table warm or a ``block_w``)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import EclatConfig, mine, support_checksum
+    from repro_torch.kernels import autotune as at
+    for name in APRIORI_RUNS:
+        min_sup, variant, expect = pinned[name]
+        txns, spec = DATA[name]
+        base = EclatConfig(min_sup=min_sup, variant=variant, compact=False)
+        q, w = WINDOW_MINE_CLASS[name]
+        arms = [("compact=False autotune=True (tuning the misses)", dict(autotune=True), False),
+                ("compact=False autotune=True, table warm", dict(autotune=True), True)]
+        arms += [(f"compact=False block_w={bw}", dict(block_w=bw), True)
+                 for bw in at.window_chunk_candidates(q, w, kind)]
+        for label, kw, gated in arms:
+            cfg = dataclasses.replace(base, **kw)
+            tuner_before = at.launches
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = mine(txns, spec.n_items, cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            csum = support_checksum(res.support_map())
+            tuned = at.launches - tuner_before
+            n_exp = len(res.stats["pair_padding"]["per_level"])
+            require(csum == expect, f"{name} {label}: checksum {csum} != {expect}")
+            if gated:
+                require(tuned == 0, f"{name} {label}: tuned {tuned} launches with a "
+                                    f"warm table or a named plan")
+            require(counts["fused_intersect"] == n_exp > 0 and
+                    counts["fused_intersect_compact"] == 0,
+                    f"{name} {label}: K1 {counts['fused_intersect']}, K2 "
+                    f"{counts['fused_intersect_compact']} launches for {n_exp} expansions")
+            want_k4 = 1 if res.stats.get("tri_matrix") else 0
+            others = {k: v for k, v in counts.items()
+                      if v and k not in ("fused_intersect", "trimatrix")}
+            require(counts["trimatrix"] == want_k4 and not others,
+                    f"{name} {label}: launched {counts}")
+            for k in MINING_KERNELS:
+                launches[k] += counts[k]
+            print(f"e2e mine {name} min_sup={min_sup} {variant} {label}: "
+                  f"checksum={csum} wall_s={wall:.4f} launches="
+                  f"{ {k: v for k, v in counts.items() if v} } tuner launches {tuned}")
+    plans = {k: v.get("plan") for k, v in at.load_table().entries.items()
+             if k.startswith("pairs_")}
+    require(plans, "the compact=False mines tuned no K1 class")
+    print(f"e2e compact=False tuned K1 classes: {plans}")
+
+
+def _window_mesh_runs(launches):
+    """(c) of run_autotune: a tidsharded 1x4 chess mine and the chess stream
+    (tidsharded 1x4) with ``autotune=True`` on 4 gloo ranks sharing the card,
+    each rank tuning K3 and K2 at its own slice with no collective: the
+    pinned checksums, the launch gates of ``_check_mesh_run`` and
+    ``_check_mesh_stream``, the tuner's launches counted apart."""
+    from repro_torch.data import stream_spec
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.mesh_runs import run_jobs
+    from repro_torch.launch.stream_profile import STREAMS
+    name, min_sup, variant, diffsets, expect = E2E_RUNS[1]
+    txns, spec = DATA[name]
+    mine_job = dict(kind="mine", txns=txns, n_items=spec.n_items, grid=None,
+                    label="tidsharded 1x4 autotune=True", expect=expect,
+                    run=f"{name} min_sup={min_sup} {variant}",
+                    config=dict(min_sup=min_sup, variant=variant, backend="fused",
+                                shard="words", autotune=True))
+    _, n_blocks, block_txns, s_min_sup, _, _ = next(st for st in STREAMS
+                                                    if st[0] == "chess")
+    stream_job = dict(kind="stream", batches=STREAM_BATCHES["chess"],
+                      n_items=stream_spec("chess").n_items, grid=None,
+                      label="tidsharded 1x4 autotune=True", name="chess",
+                      n_blocks=n_blocks,
+                      config=dict(min_sup=s_min_sup, n_blocks=n_blocks,
+                                  block_txns=block_txns, backend="fused",
+                                  shard="words", autotune=True))
+    per_rank = run_ranks(run_jobs, 4, backend="gloo", device="cuda",
+                         args=([mine_job, stream_job],), timeout=600)
+    _check_mesh_run(mine_job, [r[0] for r in per_rank], 4,
+                    "gloo, 4 ranks sharing the card")
+    _check_mesh_stream(stream_job, [r[1] for r in per_rank], {})
+    tuners = [(r[0].get("tuner_launches"), r[1].get("tuner_launches")) for r in per_rank]
+    require(all(m > 0 and st >= 0 for m, st in tuners),
+            f"mesh autotune runs: tuner launches by rank (mine, stream) {tuners}")
+    for k in MINING_KERNELS + ("fused_intersect_partial",):
+        if k in launches:
+            launches[k] += per_rank[0][0]["launches"][k]
+    print(f"e2e mesh autotune=True on 4 gloo ranks: chess tidsharded mine and "
+          f"chess stream on the pinned checksums with the launch gates; tuner "
+          f"launches by rank (mine, stream) {tuners}, none counted as the "
+          f"kernels' own")
 
 
 def check_partial_kernel():

@@ -25,8 +25,9 @@ backend and mesh.
 
 ``backend="auto"`` picks the backend from the measured crossover table
 (``core.engine.DispatchPolicy``) for the level-2 shape; ``block_w`` names
-K2's word tile and ``autotune`` tunes the kernels' tiles on a miss
-(``kernels.autotune``).
+the word tile of the fused-intersect kernel an expansion launches (K2's, or
+the chunk K1 and K3 stage) and ``autotune`` tunes the kernels' tiles on a
+miss (``kernels.autotune``).
 """
 from __future__ import annotations
 
@@ -111,7 +112,7 @@ class EclatConfig:
     chunk_pairs: int = 1 << 18          # level-2 chunking when tri-matrix off
     checkpoint_dir: Optional[str] = None      # per-level mining checkpoints (lead rank writes)
     checkpoint_every_level: bool = False
-    block_w: Optional[int] = None       # K2's word tile (kernels.autotune.kernel_block_ws); None = autotune table, else the kernel's rule
+    block_w: Optional[int] = None       # K2's word tile or K1's/K3's chunk (core.engine.PORT_BLOCK_WS); None = autotune table, else the kernel's rule
     autotune: bool = False              # tune on a miss: measure a shape class's tiles before its first launch
     compact: bool = True                # survivor compaction inside the intersection call (K2); False = the reference's two steps (K1, host mask, row gather)
 

@@ -56,11 +56,14 @@ the mask comes to the host, and a row gather of the survivors follows
 (:meth:`Engine._compact`); the survivors and supports are the compacting
 path's bit for bit.
 
-Tile selection and dispatch (DESIGN.md §6): ``block_w`` names K2's word
-tile (``kernels.autotune``: the words one pair's lanes cover per step;
-``None`` = the autotune table's pick, else the kernel's rule), and
+Tile selection and dispatch (DESIGN.md §6): ``block_w`` names the word
+tile of whichever fused-intersect kernel an expansion launches
+(``kernels.autotune``): K2's, the words one pair's lanes cover per step;
+K1's and K3's, the words of a row their windows stage at once (the plan's
+chunk); ``None`` = the autotune table's pick, else the kernel's rule.
 ``autotune`` measures a shape class's tiles on the card before its first
-launch (tune on a miss).  ``resolve_engine("auto", hints=...)`` picks the
+launch (tune on a miss), for every one of K1, K2 and K3 that the engine
+launches.  ``resolve_engine("auto", hints=...)`` picks the
 backend from the crossover table ``launch.kerneltune`` measured
 (:class:`DispatchPolicy`).
 
@@ -106,8 +109,10 @@ __all__ = [
 
 MESH_BACKENDS = ("sharded", "tidsharded", "grid")
 INNER = ("ref", "fused")
-# every word tile K2 has, for rows of 16-byte and of 4-byte elements
-PORT_BLOCK_WS = sorted(set(at.kernel_block_ws(4)) | set(at.kernel_block_ws(1)))
+# every word tile K2 has, for rows of 16-byte and of 4-byte elements, and
+# every chunk K1's and K3's windows are offered
+PORT_BLOCK_WS = sorted(set(at.kernel_block_ws(4)) | set(at.kernel_block_ws(1))
+                       | set(at.window_block_ws()))
 
 
 @dataclasses.dataclass
@@ -142,9 +147,10 @@ class EngineState:
 
     ``block_w``, ``autotune``, ``compact`` and ``interpret`` are the
     reference's kernel knobs.  The port's engines carry ``block_w`` (one of
-    K2's word tiles, :data:`PORT_BLOCK_WS`), ``autotune`` and ``compact``,
-    and hold ``interpret`` at None; a state the port cannot run as
-    recorded is refused on restore (:meth:`check_portable`).
+    K2's word tiles or K1's and K3's chunks, :data:`PORT_BLOCK_WS`),
+    ``autotune`` and ``compact``, and hold ``interpret`` at None; a state
+    the port cannot run as recorded is refused on restore
+    (:meth:`check_portable`).
     """
     backend: str
     inner: str
@@ -200,7 +206,8 @@ class EngineState:
 
     def check_portable(self) -> None:
         """Refuse, by field, a state this port cannot run as recorded: its
-        ``block_w`` names one of K2's word tiles, not a Pallas tile width."""
+        ``block_w`` names one of K2's word tiles or K1's and K3's chunks,
+        not a Pallas tile width."""
         _check_block_w(self.block_w, "EngineState.block_w")
 
 
@@ -208,8 +215,10 @@ def _check_block_w(block_w, what: str) -> None:
     if block_w is not None and int(block_w) not in PORT_BLOCK_WS:
         raise ValueError(
             f"{what}={block_w!r} is not a word tile of the port's fused "
-            f"kernel; its tiles are {PORT_BLOCK_WS} (the words a pair's lanes "
-            f"cover a step; which of them a row takes depends on its width)")
+            f"kernels; their tiles are {PORT_BLOCK_WS} (K2's, the words a "
+            f"pair's lanes cover a step, and K1's and K3's, the words of a row "
+            f"staged at once; which of them a launch takes depends on the "
+            f"row's width)")
 
 
 def bucket_size(n: int, floor: int) -> int:
@@ -311,15 +320,20 @@ class Engine:
     Kernel knobs, shared by every backend (``EclatConfig`` /
     ``StreamConfig`` thread them through :func:`resolve_engine`):
 
-    ``block_w``   K2's word tile (``kernels.autotune.kernel_block_ws`` of the
+    ``block_w``   the word tile of each fused-intersect kernel launched:
+                  K2's (``kernels.autotune.kernel_block_ws`` of the
                   frontier's width; another value raises ``ValueError`` at
-                  the first expansion); ``None`` = the autotune table's pick
-                  for the shape, else the kernel's rule.
+                  the first expansion), and the chunk of K1's and K3's
+                  window plan (``kernels.autotune.plan_for_block_w``; one of
+                  at least the row's width stages whole rows); ``None`` =
+                  the autotune table's pick for the shape, else the
+                  kernel's rule.
     ``autotune``  tune on a miss: before the first launch of a shape class
                   the table has no entry for, time its tiles and store the
-                  winner (:meth:`_maybe_tune`, :meth:`tune_cooccurrence`).
-                  Only an engine whose executor is ``fused`` tunes, and an
-                  explicit ``block_w`` overrides K2's table.
+                  winner (:meth:`_maybe_tune`, :meth:`tune_cooccurrence`):
+                  K2's lanes, K1's and K3's plans (K3 at the rank's slice
+                  width).  Only an engine whose executor is ``fused``
+                  tunes, and an explicit ``block_w`` overrides the table.
     ``compact``   compact the survivors inside the intersection call (K2;
                   default), or, ``False``, the reference's two steps: the
                   whole block (K1, or K3 with its store), the mask on the
@@ -354,7 +368,7 @@ class Engine:
         raise NotImplementedError
 
     @staticmethod
-    def _intersect(bitmaps, left, right, sup_left, min_sup, *, mode):
+    def _intersect(bitmaps, left, right, sup_left, min_sup, *, mode, plan=None):
         raise NotImplementedError
 
     @property
@@ -368,20 +382,34 @@ class Engine:
         (the table's pick, else the rule)."""
         return None if self.block_w is None else at.lanes_for_block_w(w, self.block_w)
 
-    def _maybe_tune(self, bitmaps: torch.Tensor, q: int, mode: int) -> None:
-        """Tune on a miss: time K2's tiles for ``q`` pairs over a frontier
-        of the shape of ``bitmaps`` before the shape class's first launch,
-        so the launch's table lookup hits.  No-op unless ``autotune`` is
-        on, no explicit ``block_w`` overrides it, the executor is ``fused``
-        and the engine compacts (K2 is the kernel with tiles; K1 and K3
-        take theirs from their plan)."""
+    def _plan(self, kernel: str, q: int, w: int, mode: int,
+              device) -> Optional[tuple]:
+        """K1's (``kernel="pairs"``) or K3's (``"partial"``) plan for ``q``
+        pairs of ``w``-word rows: the one ``block_w`` names as its chunk, or
+        None (the table's plan, else the rule)."""
+        if self.block_w is None:
+            return None
+        return tuple(at.plan_for_block_w(kernel, q, w, mode, self.block_w,
+                                         at.device_kind(device))[:3])
+
+    def _maybe_tune(self, bitmaps: torch.Tensor, q: int, mode: int,
+                    kernels: Tuple[str, ...]) -> None:
+        """Tune on a miss: time the tiles of each of ``kernels``
+        (``"compact"``: K2's lanes; ``"pairs"``, ``"partial"``: K1's and
+        K3's plans) for ``q`` pairs over a frontier of the shape of
+        ``bitmaps`` before the shape class's first launch, so the launch's
+        table lookup hits.  No-op unless ``autotune`` is on, no explicit
+        ``block_w`` overrides it and the executor is ``fused``.  K3 is
+        timed with its store where the engine stores (``compact=False``)."""
         if (not self.autotune or self.block_w is not None
-                or self.executor != "fused" or not self.compact):
+                or self.executor != "fused"):
             return
         p, w = bitmaps.shape
-        if at.table_config("compact", q, w, mode, bitmaps.device) is None:
-            at.tune_shape("compact", q, w, mode, device=bitmaps.device,
-                          rows=p, reps=10)
+        for kernel in kernels:
+            if at.table_config(kernel, q, w, mode, bitmaps.device) is None:
+                at.tune_shape(kernel, q, w, mode, device=bitmaps.device,
+                              rows=p, reps=10,
+                              store=kernel != "partial" or not self.compact)
 
     def tune_cooccurrence(self, bitmaps: torch.Tensor) -> None:
         """Tune on a miss for the co-occurrence kernel (K4) at the shape of
@@ -435,20 +463,25 @@ class Engine:
             return self._empty(bitmaps)
         self._check_pairs(bitmaps, left, right)
         w = int(bitmaps.shape[1])
-        lanes = self._lanes(w)
+        qb = bucket_size(q, self.buffers.floor)
+        if self.compact:
+            tile = dict(lanes=self._lanes(w))
+        else:
+            tile = dict(plan=self._plan("pairs", qb, w, mode, bitmaps.device))
         self.n_intersections += q
         qb, block = self.buffers.fill(left, right, sup_left)
         self._record_padding(q, qb)
-        self._maybe_tune(bitmaps, qb, mode)
+        self._maybe_tune(bitmaps, qb, mode, ("compact",) if self.compact else ("pairs",))
         # staticcheck: sync=engine.pairs_upload
         lrs = torch.from_numpy(block).to(bitmaps.device)
         if self.compact:
             out, sup, mask_dev, _ = self._intersect_compact(
                 bitmaps, lrs[0], lrs[1], lrs[2], int(min_sup), q, mode=mode,
-                lanes=lanes)
+                **tile)
         else:
             out, sup, mask_dev = self._intersect(
-                bitmaps, lrs[0], lrs[1], lrs[2], int(min_sup), mode=mode)
+                bitmaps, lrs[0], lrs[1], lrs[2], int(min_sup), mode=mode,
+                **tile)
         # the level's one read: the host builds the next level's pairs from it
         # staticcheck: disable=RS005 sync=engine.mask_supports
         host = torch.stack((mask_dev[:q], sup[:q])).cpu().numpy()
@@ -692,8 +725,11 @@ class ShardedEngine(_MeshEngine):
         self.device_pair_counts.append(counts)
         self._record_padding(q, d * qmax)
         w = int(bitmaps.shape[1])
-        lanes = self._lanes(w)
-        self._maybe_tune(bitmaps, qmax, mode)
+        if self.compact:
+            lanes = self._lanes(w)
+        else:
+            plan = self._plan("pairs", qmax, w, mode, bitmaps.device)
+        self._maybe_tune(bitmaps, qmax, mode, ("compact",) if self.compact else ("pairs",))
         # staticcheck: sync=sharded.pairs_upload
         lrs = torch.from_numpy(np.stack((lpad[r], rpad[r], spad[r]))).to(bitmaps.device)
         if self.compact:
@@ -702,7 +738,7 @@ class ShardedEngine(_MeshEngine):
                                                  mode=mode, lanes=lanes)
         else:
             out, sup, _ = self._intersect(bitmaps, lrs[0], lrs[1], lrs[2],
-                                          int(min_sup), mode=mode)
+                                          int(min_sup), mode=mode, plan=plan)
         # every rank's supports, read once: the host assembles the level
         # staticcheck: disable=RS005 sync=sharded.supports_gather
         sups = coll.all_gather(sup, self.mesh, self.axis).cpu().numpy()
@@ -769,12 +805,17 @@ class _WordShardedFrontierMixin:
         slice's survivor rows: ``(compact, sup, mask)``.  With
         ``compact=False`` K3 stores the slice's intersections and they come
         back uncompacted, with the mask of every pair (the caller gathers
-        the survivors)."""
+        the survivors).  K3's plan and K2's lanes are each resolved at the
+        slice width (an explicit ``block_w`` names K3's chunk and K2's
+        tile), and each rank tunes its own slice with no collective."""
         l, r, s = lrs
-        w = int(bitmaps.shape[1])
-        lanes = self._lanes(w)
-        self._maybe_tune(bitmaps, int(l.shape[0]), mode)
-        inter, pop = self._partial(bitmaps, l, r, mode=mode, store=not self.compact)
+        q, w = int(l.shape[0]), int(bitmaps.shape[1])
+        plan = self._plan("partial", q, w, mode, bitmaps.device)
+        lanes = self._lanes(w) if self.compact else None
+        self._maybe_tune(bitmaps, q, mode,
+                         ("partial", "compact") if self.compact else ("partial",))
+        inter, pop = self._partial(bitmaps, l, r, mode=mode, store=not self.compact,
+                                   plan=plan)
         total = coll.all_reduce(pop, self.mesh, self.data_axis)
         sup = total if mode == MODE_TIDSET else s - total
         mask = (sup >= int(min_sup)).to(torch.int32)

@@ -69,10 +69,15 @@
 // the chunks in a register; the pair's lanes add them with shuffles once.
 // Staged rows are read with ld.shared from 32-bit addresses (16 bytes at a
 // time where W is a multiple of 4).  The grid is persistent (the SMs x the
-// blocks that fit on one), each block walking tiles, and a tile's indices
-// are loaded while the tile before it is counted.  The plan (TP, R, C) is
-// window_plan below, mirrored in Python beside the binding.  Nothing
-// returns to the host and no memset runs.
+// blocks of the plan's shared memory that fit on one, counted at each
+// launch), each block walking tiles, and a tile's indices are loaded while
+// the tile before it is counted.  The plan (TP, R, C) is a launch argument:
+// all zeros takes window_plan below, the rule; a given plan is checked on
+// the host (given_plan) and refused with a negative code where the kernel
+// cannot run it.  Both are mirrored in Python beside the binding, and the
+// caller picks a plan from a table measured on the card
+// (kernels/autotune.py); every plan gives the same bits.  Nothing returns
+// to the host and no memset runs.
 //
 // The compacting path is one launch of compact_pairs_kernel (K2): it
 // gathers each pair's rows once and writes each output row once.  One
@@ -511,6 +516,16 @@ constexpr int kWinSms = 132;                      // SMs of an H100 SXM
 constexpr long long kWinWholeLimit = 100 * 1024;  // bytes of whole rows staged
 constexpr int kWinStageBytes = 48 * 1024;         // bytes of a stage of row chunks
 constexpr int kWinUnroll = 4;                     // elements in flight per lane and row
+// dynamic shared memory a given plan may take: the 227 KB a block of 256
+// threads may have on the H100, less room for the static arrays
+constexpr long long kWinSmemMax = 223 * 1024;
+
+// A given plan the kernel cannot run is refused with one of these codes
+// (negative, so never a cudaError_t; cuda_error_string names them).
+constexpr int kPlanBadTile = -1;    // not a power of two from 8 to 256 pairs
+constexpr int kPlanBadRows = -2;    // not 1 to 256 window rows
+constexpr int kPlanBadChunk = -3;   // breaks the pitch skew (or is not positive)
+constexpr int kPlanBadSmem = -4;    // more shared memory than a block may take
 
 // TP pairs a tile (the block's 256 threads in groups of G = 256 / TP lanes,
 // a pair per group), the window's capacity R in rows, C words of each row
@@ -521,6 +536,18 @@ struct WindowPlan {
   int tile, rows, chunk, stages, smem;
 };
 
+// A staged row's pitch C + 4 is G words (4 at least) past a multiple of 32,
+// G = 256 / TP the lanes per pair, so the 32 / G rows a warp reads at once
+// start in different banks.
+int window_skew(int tile) {
+  const int lanes = kWinThreads / tile;
+  return (lanes < 4 ? 4 : lanes) & 31;
+}
+
+// The rule: a thread per pair for rows of at most 128 words, 16 lanes per
+// pair for wider ones, tiles halved while they are fewer than the SMs; a
+// window of twice the tile in rows; whole rows while they fit 100 KB, else
+// two 48 KB stages of skewed chunks.
 WindowPlan window_plan(long long Q, int W) {
   WindowPlan p;
   int tile = W <= kWinNarrow ? kWinTileNarrow : kWinTileWide;
@@ -532,16 +559,50 @@ WindowPlan window_plan(long long Q, int W) {
     p.stages = 1;
     p.smem = p.rows * W * 4 + 16;   // the window starts 0-3 words into its slot
   } else {
-    // a row's pitch C + 4 is G words (4 at least) past a multiple of 32, so
-    // the 32 / G rows a warp reads at once start in different banks
-    const int lanes = kWinThreads / tile;
-    const int skew = (lanes < 4 ? 4 : lanes) & 31;
     const int pitch = kWinStageBytes / (p.rows * 4);
-    p.chunk = pitch - 4 - ((pitch - skew) & 31);
+    p.chunk = pitch - 4 - ((pitch - window_skew(tile)) & 31);
     p.stages = 2;
     p.smem = p.stages * p.rows * (p.chunk + 4) * 4;
   }
   return p;
+}
+
+// The plan of a launch: all zeros, the rule; else the given (tile, rows,
+// chunk), a chunk of at least W words staging whole rows (reported as W).
+// Returns 0, or the code of the first thing the kernel cannot run: a tile
+// outside 8-256 pairs or not a power of two (lanes per pair stay at most a
+// warp), window rows outside 1-256 (each of the block's 256 threads
+// starts one row's copies), a chunk whose pitch breaks the skew (every skew
+// is a multiple of 4 words, so a chunk that keeps it keeps the staged rows'
+// 16-byte loads where W is a multiple of 4), or more dynamic shared memory
+// than kWinSmemMax.  Nothing depends on Q:
+// a plan that holds for one pair count holds for every one.
+int given_plan(long long Q, int W, int tile, int rows, int chunk, WindowPlan* out) {
+  if (tile == 0 && rows == 0 && chunk == 0) {
+    *out = window_plan(Q, W);
+    return 0;
+  }
+  if (tile < kWinTileMin || tile > kWinTileNarrow || (tile & (tile - 1)) != 0) return kPlanBadTile;
+  if (rows < 1 || rows > kWinRowsMax) return kPlanBadRows;
+  if (chunk < 1) return kPlanBadChunk;
+  WindowPlan p;
+  p.tile = tile;
+  p.rows = rows;
+  long long smem;
+  if (chunk >= W) {
+    p.chunk = W;
+    p.stages = 1;
+    smem = static_cast<long long>(rows) * W * 4 + 16;
+  } else {
+    if ((chunk + 4) % 32 != window_skew(tile)) return kPlanBadChunk;
+    p.chunk = chunk;
+    p.stages = 2;
+    smem = 2LL * rows * (chunk + 4) * 4;
+  }
+  if (smem > kWinSmemMax) return kPlanBadSmem;
+  p.smem = static_cast<int>(smem);
+  *out = p;
+  return 0;
 }
 
 struct WindowArgs {
@@ -955,10 +1016,14 @@ WindowKernel window_kernel(bool fused, bool store, bool vec) {
 }
 
 // One launch of K1 (fused) or K3 on the persistent grid: the SMs times the
-// blocks of the plan's shared memory that fit on one, at most one per tile.
-cudaError_t launch_window(bool fused, int mode, WindowArgs args, int device, cudaStream_t st) {
+// blocks of the plan's shared memory that fit on one (counted for this
+// plan), at most one per tile.  args.tile, rows and chunk hold the given
+// plan (all zeros: the rule); a cudaError_t, or a refusal code.
+int launch_window(bool fused, int mode, WindowArgs args, int device, cudaStream_t st) {
   if (mode < 0 || mode > 2 || args.W < 0) return cudaErrorInvalidValue;
-  const WindowPlan p = window_plan(args.Q, args.W);
+  WindowPlan p;
+  const int refused = given_plan(args.Q, args.W, args.tile, args.rows, args.chunk, &p);
+  if (refused != 0) return refused;
   args.tile = p.tile;
   args.rows = p.rows;
   args.chunk = p.chunk;
@@ -987,22 +1052,26 @@ cudaError_t launch_window(bool fused, int mode, WindowArgs args, int device, cud
 
 extern "C" {
 
-// K1: inter may be null (supports and mask only).  Returns a cudaError_t.
+// K1: inter may be null (supports and mask only); (tile, rows, chunk) the
+// plan, all zeros for the rule.  Returns a cudaError_t, or a negative code
+// for a plan the kernel cannot run (window_plan_check), checked before any
+// launch.
 int fused_pairs_launch(const void* frontier, const void* left,
                        const void* right, const void* sup_left, void* inter,
                        void* sup, void* mask, long long Q, int W, int mode,
-                       int min_sup, int device, void* stream) {
+                       int min_sup, int tile, int rows, int chunk, int device,
+                       void* stream) {
   if (Q <= 0) return cudaSuccess;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   WindowArgs a{static_cast<const unsigned*>(frontier), static_cast<const int*>(left),
                static_cast<const int*>(right), static_cast<const int*>(sup_left),
                static_cast<unsigned*>(inter), static_cast<int*>(sup), static_cast<int*>(mask),
-               Q, W, min_sup, 0, 0, 0};
+               Q, W, min_sup, tile, rows, chunk};
   return launch_window(true, mode, a, device, static_cast<cudaStream_t>(stream));
 }
 
-// The plan of a K1 or K3 launch for Q pairs of W-word rows:
+// The rule's plan of a K1 or K3 launch for Q pairs of W-word rows:
 // out = {TP, R, C, stages, dynamic shared memory bytes}.
 void window_plan_of(long long Q, int W, int* out) {
   const WindowPlan p = window_plan(Q, W);
@@ -1011,6 +1080,21 @@ void window_plan_of(long long Q, int W, int* out) {
   out[2] = p.chunk;
   out[3] = p.stages;
   out[4] = p.smem;
+}
+
+// The plan a launch with (tile, rows, chunk) runs, as window_plan_of
+// reports it; returns 0, or the negative code a launch would return for a
+// plan the kernel cannot run (out untouched).
+int window_plan_check(long long Q, int W, int tile, int rows, int chunk, int* out) {
+  WindowPlan p;
+  const int refused = given_plan(Q, W, tile, rows, chunk, &p);
+  if (refused != 0) return refused;
+  out[0] = p.tile;
+  out[1] = p.rows;
+  out[2] = p.chunk;
+  out[3] = p.stages;
+  out[4] = p.smem;
+  return 0;
 }
 
 // Words of look-back state compact_pairs_launch needs for Q pairs: the tile
@@ -1075,22 +1159,35 @@ int compact_pairs_launch(const void* frontier, const void* left, const void* rig
 }
 
 
-// K3: inter may be null (partial popcounts only).  Returns a cudaError_t.
+// K3: inter may be null (partial popcounts only); the plan as for K1.
+// Returns a cudaError_t, or a negative code for a refused plan.
 int partial_pairs_launch(const void* frontier, const void* left,
                          const void* right, void* inter, void* pop,
-                         long long Q, int W, int mode, int device,
-                         void* stream) {
+                         long long Q, int W, int mode, int tile, int rows,
+                         int chunk, int device, void* stream) {
   if (Q <= 0) return cudaSuccess;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   WindowArgs a{static_cast<const unsigned*>(frontier), static_cast<const int*>(left),
                static_cast<const int*>(right), nullptr, static_cast<unsigned*>(inter),
-               static_cast<int*>(pop), nullptr, Q, W, 0, 0, 0, 0};
+               static_cast<int*>(pop), nullptr, Q, W, 0, tile, rows, chunk};
   return launch_window(false, mode, a, device, static_cast<cudaStream_t>(stream));
 }
 
+// The text of a launch's return code: a CUDA error, or a refused plan.
 const char* cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  switch (code) {
+    case kPlanBadTile: return "plan refused: the tile is not a power of two from 8 to 256 pairs";
+    case kPlanBadRows: return "plan refused: the window's rows are not from 1 to 256";
+    case kPlanBadChunk:
+      return "plan refused: the chunk is not a positive word count whose row pitch "
+             "(chunk + 4) lies the tile's bank skew past a multiple of 32 words "
+             "(which keeps the staged rows' 16-byte loads)";
+    case kPlanBadSmem:
+      return "plan refused: the plan's shared memory passes the 223 KB a block of 256 "
+             "threads may take";
+    default: return cudaGetErrorString(static_cast<cudaError_t>(code));
+  }
 }
 
 }  // extern "C"

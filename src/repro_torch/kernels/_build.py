@@ -138,7 +138,11 @@ def build_info() -> dict:
 
 
 def check(code: int, what: str) -> None:
-    """Raise if a launch function returned a CUDA error."""
+    """Raise if a launch function returned an error: ``ValueError`` for a
+    negative code (a launch argument the kernel refuses before launching,
+    such as a plan it cannot run), ``RuntimeError`` for a CUDA error."""
+    if code < 0:
+        raise ValueError(f"{what}: {library().cuda_error_string(code).decode()}")
     if code != 0:
         msg = library().cuda_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

@@ -29,7 +29,11 @@ gathered from the frontier.  The miner's pair lists are class-ordered
 and each is read about once per tile, not twice per pair.  Rows too wide
 for the window are staged in word chunks, two in flight; a tile whose
 operands mostly lie outside its window (random pairs) stages nothing.
-:func:`window_plan` is the plan, the same function as the CUDA source's.
+The plan ``(tile, rows, chunk)`` is a launch argument of both: ``plan=None``
+takes the autotune table's plan for the shape class on this card, else the
+rule; ``(0, 0, 0)`` the rule.  :func:`window_plan` is the rule and the check
+of a given plan, the same functions as the CUDA source's; a plan the kernel
+cannot run raises ``ValueError`` before any launch.
 
 The caller guarantees ``0 <= left, right < P``: checking that here would
 copy the indices back to the host and stall the stream, so the engine checks
@@ -47,8 +51,9 @@ from .. import _build
 __all__ = ["MODE_TIDSET", "MODE_TID_TO_DIFF", "MODE_DIFFSET",
            "fused_intersect_pairs", "fused_support_pairs",
            "fused_intersect_compact_pairs", "compact_survivors_pairs",
-           "fused_intersect_partial_pairs", "launch_compact", "WindowPlan",
-           "window_plan", "COMPACT_LANES", "COMPACT_TILE_PAIRS",
+           "fused_intersect_partial_pairs", "launch_compact", "launch_pairs",
+           "launch_partial", "WindowPlan", "window_plan", "window_skew",
+           "RULE_PLAN", "COMPACT_LANES", "COMPACT_TILE_PAIRS",
            "COMPACT_UNROLL", "elem_words", "rule_lanes", "compact_shape"]
 
 MODE_TIDSET = 0
@@ -67,6 +72,20 @@ WINDOW_ROWS_MAX = 256         # window rows
 WINDOW_SMS = 132              # SMs of an H100 SXM
 WINDOW_WHOLE_LIMIT = 100 * 1024   # bytes of whole rows staged
 WINDOW_STAGE_BYTES = 48 * 1024    # bytes of a stage of row chunks
+WINDOW_SMEM_MAX = 223 * 1024      # dynamic shared memory a given plan may take
+RULE_PLAN = (0, 0, 0)             # the launch argument that takes the rule
+
+# a given plan the kernel refuses: csrc/fused_intersect.cu kPlanBad* and
+# the text cuda_error_string gives each
+WINDOW_PLAN_ERRORS = {
+    -1: "plan refused: the tile is not a power of two from 8 to 256 pairs",
+    -2: "plan refused: the window's rows are not from 1 to 256",
+    -3: ("plan refused: the chunk is not a positive word count whose row pitch "
+         "(chunk + 4) lies the tile's bank skew past a multiple of 32 words "
+         "(which keeps the staged rows' 16-byte loads)"),
+    -4: ("plan refused: the plan's shared memory passes the 223 KB a block of 256 "
+         "threads may take"),
+}
 
 
 class WindowPlan(NamedTuple):
@@ -83,25 +102,76 @@ class WindowPlan(NamedTuple):
     smem: int
 
 
-def window_plan(q: int, w: int) -> WindowPlan:
-    """The plan for ``q`` pairs of ``w``-word rows, as
-    ``csrc/fused_intersect.cu`` ``window_plan`` computes it: a thread per
-    pair (256-pair tiles) for rows of at most 128 words, 16 lanes per pair
-    (16-pair tiles) for wider ones, tiles halved (down to 8 pairs) while
-    they are fewer than the card's SMs; a window of twice the tile's pairs
-    in rows, at most 256; whole rows while the window's rows fit 100 KB,
-    else two 48 KB stages of row chunks whose pitch is skewed by the lanes
-    per pair (at least 4 words) past a multiple of 32 words."""
-    tile = WINDOW_TILE_NARROW if w <= WINDOW_NARROW else WINDOW_TILE_WIDE
-    while tile > WINDOW_TILE_MIN and -(-q // tile) < WINDOW_SMS:
-        tile //= 2
+def window_skew(tile: int) -> int:
+    """The words past a multiple of 32 that a staged row's pitch
+    ``chunk + 4`` lies at ``tile`` pairs a block: the lanes per pair
+    ``256 // tile``, at least 4 (0 for a warp per pair), so the rows a warp
+    reads at once start in different banks."""
+    return max(WINDOW_THREADS // int(tile), 4) & 31
+
+
+def skewed_chunk(pitch: int, tile: int) -> int:
+    """The largest chunk whose row pitch ``chunk + 4`` is at most ``pitch``
+    words and lies :func:`window_skew` past a multiple of 32."""
+    return pitch - 4 - ((pitch - window_skew(tile)) & 31)
+
+
+def rule_at_tile(w: int, tile: int) -> tuple:
+    """The rule's ``(tile, rows, chunk)`` for ``w``-word rows once it has
+    its tile: a window of twice the tile's pairs in rows, at most 256;
+    whole rows while they fit 100 KB, else the skewed chunk of a 48 KB
+    stage."""
     rows = min(2 * tile, WINDOW_ROWS_MAX)
     if rows * w * 4 <= WINDOW_WHOLE_LIMIT:
-        return WindowPlan(tile, rows, w, 1, rows * w * 4 + 16)
-    skew = max(WINDOW_THREADS // tile, 4) & 31
-    pitch = WINDOW_STAGE_BYTES // (rows * 4)
-    chunk = pitch - 4 - ((pitch - skew) & 31)
-    return WindowPlan(tile, rows, chunk, 2, 2 * rows * (chunk + 4) * 4)
+        return tile, rows, w
+    return tile, rows, skewed_chunk(WINDOW_STAGE_BYTES // (rows * 4), tile)
+
+
+def window_plan(q: int, w: int, plan=None) -> WindowPlan:
+    """The plan of a K1 or K3 launch for ``q`` pairs of ``w``-word rows, as
+    ``csrc/fused_intersect.cu`` computes it.
+
+    ``plan=None`` or ``(0, 0, 0)``: the rule, ``window_plan`` there: a
+    thread per pair (256-pair tiles) for rows of at most 128 words, 16 lanes
+    per pair (16-pair tiles) for wider ones, tiles halved (down to 8 pairs)
+    while they are fewer than the card's SMs; a window of twice the tile's
+    pairs in rows, at most 256; whole rows while the window's rows fit 100
+    KB, else two 48 KB stages of row chunks whose pitch is skewed by the
+    lanes per pair (:func:`window_skew`) past a multiple of 32 words.
+
+    A given ``(tile, rows, chunk)`` is checked as ``given_plan`` there
+    checks it and reported the same way (a chunk of at least ``w`` words
+    stages whole rows and is reported as ``w``); one the kernel cannot run
+    raises ``ValueError`` with the library's text (:data:`WINDOW_PLAN_ERRORS`).
+    No check depends on ``q``."""
+    tile, rows, chunk = RULE_PLAN if plan is None else (int(x) for x in tuple(plan)[:3])
+    if (tile, rows, chunk) == RULE_PLAN:
+        tile = WINDOW_TILE_NARROW if w <= WINDOW_NARROW else WINDOW_TILE_WIDE
+        while tile > WINDOW_TILE_MIN and -(-q // tile) < WINDOW_SMS:
+            tile //= 2
+        tile, rows, chunk = rule_at_tile(w, tile)
+        if chunk >= w:
+            return WindowPlan(tile, rows, w, 1, rows * w * 4 + 16)
+        return WindowPlan(tile, rows, chunk, 2, 2 * rows * (chunk + 4) * 4)
+    code = 0
+    if not (WINDOW_TILE_MIN <= tile <= WINDOW_TILE_NARROW and tile & (tile - 1) == 0):
+        code = -1
+    elif not 1 <= rows <= WINDOW_ROWS_MAX:
+        code = -2
+    elif chunk < 1:
+        code = -3
+    elif chunk >= w:
+        out = WindowPlan(tile, rows, w, 1, rows * w * 4 + 16)
+    elif (chunk + 4) % 32 != window_skew(tile):
+        code = -3
+    else:
+        out = WindowPlan(tile, rows, chunk, 2, 2 * rows * (chunk + 4) * 4)
+    if code == 0 and out.smem > WINDOW_SMEM_MAX:
+        code = -4
+    if code:
+        raise ValueError(f"{(tile, rows, chunk)} for {w}-word rows: "
+                         f"{WINDOW_PLAN_ERRORS[code]}")
+    return out
 
 
 _BOUND = False
@@ -114,7 +184,8 @@ def _lib() -> ctypes.CDLL:
     if not _BOUND:
         lib.fused_pairs_launch.argtypes = [
             _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, _P]
         lib.fused_pairs_launch.restype = ctypes.c_int
         lib.compact_state_words.argtypes = [ctypes.c_longlong]
         lib.compact_state_words.restype = ctypes.c_longlong
@@ -128,10 +199,14 @@ def _lib() -> ctypes.CDLL:
         lib.compact_shape_of.restype = ctypes.c_int
         lib.partial_pairs_launch.argtypes = [
             _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, _P]
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
         lib.partial_pairs_launch.restype = ctypes.c_int
         lib.window_plan_of.argtypes = [ctypes.c_longlong, ctypes.c_int, _P]
         lib.window_plan_of.restype = None
+        lib.window_plan_check.argtypes = [ctypes.c_longlong, ctypes.c_int,
+                                          ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_int, _P]
+        lib.window_plan_check.restype = ctypes.c_int
         _BOUND = True
     return lib
 
@@ -181,12 +256,35 @@ def cuda_compact_shape(lanes: int, w: int) -> tuple:
     return tuple(out)
 
 
-def cuda_window_plan(q: int, w: int) -> WindowPlan:
-    """The plan as the built CUDA library computes it (for the tests that
-    hold it to :func:`window_plan`)."""
+def cuda_window_plan(q: int, w: int, plan=None) -> WindowPlan:
+    """The plan as the built CUDA library computes it: the rule
+    (``window_plan_of``) for ``plan=None``, else the check of a given
+    ``(tile, rows, chunk)`` (``window_plan_check``; a refusal raises
+    ``ValueError`` with the library's text).  For the checks that hold it
+    to :func:`window_plan`."""
     out = (ctypes.c_int * 5)()
-    _lib().window_plan_of(int(q), int(w), ctypes.cast(out, _P))
+    if plan is None:
+        _lib().window_plan_of(int(q), int(w), ctypes.cast(out, _P))
+        return WindowPlan(*out)
+    tile, rows, chunk = (int(x) for x in tuple(plan)[:3])
+    code = _lib().window_plan_check(int(q), int(w), tile, rows, chunk,
+                                    ctypes.cast(out, _P))
+    if code:
+        raise ValueError(f"{(tile, rows, chunk)} for {w}-word rows: "
+                         f"{_build.library().cuda_error_string(code).decode()}")
     return WindowPlan(*out)
+
+
+def _plan(plan, kernel, q, w, mode, device) -> tuple:
+    """The ``(tile, rows, chunk)`` of a K1 or K3 launch: ``plan`` as given
+    (``(0, 0, 0)`` = the rule; the library checks it), or for ``None`` the
+    autotune table's plan for this shape class on this card, else the rule.
+    A host lookup, no synchronisation."""
+    if plan is None:
+        from .. import autotune
+        cfg = autotune.table_config(kernel, q, w, mode, device)
+        return tuple(cfg.plan) if cfg is not None else RULE_PLAN
+    return tuple(int(x) for x in tuple(plan)[:3])
 
 
 def _check_args(bitmaps, left, right, sup_left, mode, **more):
@@ -217,37 +315,50 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr()) if t is not None else ctypes.c_void_p(0)
 
 
-def _launch_pairs(bitmaps, left, right, sup_left, inter, sup, mask, min_sup, mode):
+def launch_pairs(bitmaps, left, right, sup_left, min_sup: int, *, mode: int,
+                 plan=RULE_PLAN, store: bool = True):
+    """One launch of K1 with ``plan`` (``(tile, rows, chunk)``; ``(0, 0,
+    0)`` = the rule), counted on no wrapper: the tuner's launches
+    (``kernels.autotune``, which counts them itself) and the wrappers'.
+    Returns ``(inter or None, sup, mask)``; a refused plan raises
+    ``ValueError`` and launches nothing."""
+    _check_args(bitmaps, left, right, sup_left, mode)
     q, w = left.shape[0], bitmaps.shape[1]
-    if not -2**31 <= int(min_sup) < 2**31:
-        raise ValueError(f"min_sup {min_sup} does not fit the kernel's int32")
-    stream = torch.cuda.current_stream(bitmaps.device).cuda_stream
-    code = _lib().fused_pairs_launch(
-        _ptr(bitmaps), _ptr(left), _ptr(right), _ptr(sup_left), _ptr(inter),
-        _ptr(sup), _ptr(mask), q, w, int(mode), int(min_sup),
-        bitmaps.device.index, ctypes.c_void_p(stream))
-    _build.check(code, "fused_pairs_kernel")
-    fused_intersect_pairs.launches += 1
+    dev = bitmaps.device
+    inter = torch.empty((q, w), dtype=torch.int32, device=dev) if store else None
+    sup = torch.empty(q, dtype=torch.int32, device=dev)
+    mask = torch.empty(q, dtype=torch.int32, device=dev)
+    if q:
+        if not -2**31 <= int(min_sup) < 2**31:
+            raise ValueError(f"min_sup {min_sup} does not fit the kernel's int32")
+        tile, rows, chunk = (int(x) for x in tuple(plan)[:3])
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = _lib().fused_pairs_launch(
+            _ptr(bitmaps), _ptr(left), _ptr(right), _ptr(sup_left), _ptr(inter),
+            _ptr(sup), _ptr(mask), q, w, int(mode), int(min_sup), tile, rows,
+            chunk, dev.index, ctypes.c_void_p(stream))
+        _build.check(code, "fused_pairs_kernel")
+    return inter, sup, mask
 
 
 def fused_intersect_pairs(bitmaps: torch.Tensor, left: torch.Tensor,
                           right: torch.Tensor, sup_left: torch.Tensor,
-                          min_sup: int, *, mode: int):
+                          min_sup: int, *, mode: int, plan=None):
     """(P, W) int32 frontier x (Q,) int32 pair indices ->
     ((Q, W) int32 intersections, (Q,) int32 supports, (Q,) int32 mask).
 
     ``min_sup`` is a host integer and a runtime argument of the kernel.
+    ``plan``: ``(tile, rows, chunk)``, ``(0, 0, 0)`` for the rule, ``None``
+    for the autotune table's plan of this shape on this card, else the
+    rule; every plan gives the same bits.
     """
     _check_args(bitmaps, left, right, sup_left, mode)
     q, w = left.shape[0], bitmaps.shape[1]
-    dev = bitmaps.device
-    inter = torch.empty((q, w), dtype=torch.int32, device=dev)
-    sup = torch.empty(q, dtype=torch.int32, device=dev)
-    mask = torch.empty(q, dtype=torch.int32, device=dev)
+    res = launch_pairs(bitmaps, left, right, sup_left, min_sup, mode=mode,
+                       plan=_plan(plan, "pairs", q, w, mode, bitmaps.device))
     if q:
-        _launch_pairs(bitmaps, left, right, sup_left, inter, sup, mask,
-                      min_sup, mode)
-    return inter, sup, mask
+        fused_intersect_pairs.launches += 1
+    return res
 
 
 fused_intersect_pairs.launches = 0
@@ -255,16 +366,16 @@ fused_intersect_pairs.launches = 0
 
 def fused_support_pairs(bitmaps: torch.Tensor, left: torch.Tensor,
                         right: torch.Tensor, sup_left: torch.Tensor,
-                        min_sup: int, *, mode: int):
+                        min_sup: int, *, mode: int, plan=None):
     """:func:`fused_intersect_pairs` without the ``(Q, W)`` store:
-    ``((Q,) int32 supports, (Q,) int32 mask)``."""
+    ``((Q,) int32 supports, (Q,) int32 mask)``; ``plan`` as there."""
     _check_args(bitmaps, left, right, sup_left, mode)
-    q = left.shape[0]
-    sup = torch.empty(q, dtype=torch.int32, device=bitmaps.device)
-    mask = torch.empty(q, dtype=torch.int32, device=bitmaps.device)
+    q, w = left.shape[0], bitmaps.shape[1]
+    _, sup, mask = launch_pairs(bitmaps, left, right, sup_left, min_sup,
+                                mode=mode, store=False,
+                                plan=_plan(plan, "pairs", q, w, mode, bitmaps.device))
     if q:
-        _launch_pairs(bitmaps, left, right, sup_left, None, sup, mask,
-                      min_sup, mode)
+        fused_intersect_pairs.launches += 1
     return sup, mask
 
 
@@ -392,30 +503,47 @@ def compact_survivors_pairs(bitmaps: torch.Tensor, left: torch.Tensor,
 fused_intersect_compact_pairs.launches = 0
 
 
-def fused_intersect_partial_pairs(bitmaps: torch.Tensor, left: torch.Tensor,
-                                  right: torch.Tensor, *, mode: int,
-                                  store: bool = True):
-    """(P, Ws) int32 frontier word slice x (Q,) int32 pair indices ->
-    ``((Q, Ws) int32 intersections or None, (Q,) int32 partial popcounts)``.
-
-    The shard-local half of :func:`fused_intersect_pairs`: it stops at the
-    raw popcount of this slice (no support conversion, no threshold), which
-    the caller sums over the ranks that hold the other slices.  With
-    ``store=False`` the (Q, Ws) intersections are not written.
-    """
+def launch_partial(bitmaps, left, right, *, mode: int, plan=RULE_PLAN,
+                   store: bool = True):
+    """One launch of K3 with ``plan`` (``(0, 0, 0)`` = the rule), counted
+    on no wrapper, as :func:`launch_pairs`.  Returns what
+    :func:`fused_intersect_partial_pairs` returns."""
     _check_args(bitmaps, left, right, None, mode)
     q, w = left.shape[0], bitmaps.shape[1]
     dev = bitmaps.device
     inter = torch.empty((q, w), dtype=torch.int32, device=dev) if store else None
     pop = torch.empty(q, dtype=torch.int32, device=dev)
     if q:
+        tile, rows, chunk = (int(x) for x in tuple(plan)[:3])
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = _lib().partial_pairs_launch(
             _ptr(bitmaps), _ptr(left), _ptr(right), _ptr(inter), _ptr(pop),
-            q, w, int(mode), dev.index, ctypes.c_void_p(stream))
+            q, w, int(mode), tile, rows, chunk, dev.index,
+            ctypes.c_void_p(stream))
         _build.check(code, "partial_pairs_kernel")
-        fused_intersect_partial_pairs.launches += 1
     return inter, pop
+
+
+def fused_intersect_partial_pairs(bitmaps: torch.Tensor, left: torch.Tensor,
+                                  right: torch.Tensor, *, mode: int,
+                                  store: bool = True, plan=None):
+    """(P, Ws) int32 frontier word slice x (Q,) int32 pair indices ->
+    ``((Q, Ws) int32 intersections or None, (Q,) int32 partial popcounts)``.
+
+    The shard-local half of :func:`fused_intersect_pairs`: it stops at the
+    raw popcount of this slice (no support conversion, no threshold), which
+    the caller sums over the ranks that hold the other slices.  With
+    ``store=False`` the (Q, Ws) intersections are not written.  ``plan`` as
+    for :func:`fused_intersect_pairs`, from the ``partial`` shape class of
+    the table for ``None``.
+    """
+    _check_args(bitmaps, left, right, None, mode)
+    q, w = left.shape[0], bitmaps.shape[1]
+    res = launch_partial(bitmaps, left, right, mode=mode, store=store,
+                         plan=_plan(plan, "partial", q, w, mode, bitmaps.device))
+    if q:
+        fused_intersect_partial_pairs.launches += 1
+    return res
 
 
 fused_intersect_partial_pairs.launches = 0

@@ -25,14 +25,18 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no fused-intersect path for device {t.device}")
 
 
-def fused_intersect(bitmaps, left, right, sup_left, min_sup: int, *, mode: int):
+def fused_intersect(bitmaps, left, right, sup_left, min_sup: int, *, mode: int,
+                    plan=None):
     """Gather + intersect + popcount + threshold:
-    ``((Q, W) inter, (Q,) sup, (Q,) mask)``."""
+    ``((Q, W) inter, (Q,) sup, (Q,) mask)``.  ``plan``: the kernel's
+    ``(tile, rows, chunk)`` (``(0, 0, 0)`` = its rule; ``None`` = the
+    autotune table's plan for the shape, else the rule); the plain version
+    has no tile."""
     if _on_cuda(bitmaps):
         return fused_intersect_pairs(bitmaps, left, right, sup_left,
-                                            min_sup, mode=mode)
+                                     min_sup, mode=mode, plan=plan)
     return fused_intersect_ref(bitmaps, left, right, sup_left, min_sup,
-                                   mode=mode)
+                               mode=mode)
 
 
 def fused_intersect_compact(bitmaps, left, right, sup_left, min_sup: int,
@@ -51,13 +55,13 @@ def fused_intersect_compact(bitmaps, left, right, sup_left, min_sup: int,
 
 
 def fused_intersect_partial(bitmaps, left, right, *, mode: int,
-                            store: bool = True):
+                            store: bool = True, plan=None):
     """Gather + intersect + raw popcount of a frontier word slice:
     ``((Q, W) inter or None, (Q,) partial popcount)``; ``store=False``
-    leaves the intersections out."""
+    leaves the intersections out; ``plan`` as above."""
     if _on_cuda(bitmaps):
         return fused_intersect_partial_pairs(bitmaps, left, right, mode=mode,
-                                             store=store)
+                                             store=store, plan=plan)
     return fused_intersect_partial_ref(bitmaps, left, right, mode=mode,
                                        store=store)
 

@@ -30,10 +30,11 @@ def _intersect(a: torch.Tensor, b: torch.Tensor, mode: int) -> torch.Tensor:
 
 def fused_intersect_partial_ref(bitmaps: torch.Tensor, left: torch.Tensor,
                                 right: torch.Tensor, *, mode: int,
-                                store: bool = True):
+                                store: bool = True, plan=None):
     """(P, W) frontier (or a word slice of one) x (Q,) ->
     ``((Q, W) int32 intersections, or None with store=False; (Q,) int32
-    raw popcounts)``: no support conversion and no threshold."""
+    raw popcounts)``: no support conversion and no threshold.  ``plan`` is
+    the kernel's tile; the plain version has none and ignores it."""
     a = bitmaps.index_select(0, left.long())
     b = bitmaps.index_select(0, right.long())
     inter = _intersect(a, b, mode)
@@ -43,8 +44,9 @@ def fused_intersect_partial_ref(bitmaps: torch.Tensor, left: torch.Tensor,
 
 def fused_intersect_ref(bitmaps: torch.Tensor, left: torch.Tensor,
                         right: torch.Tensor, sup_left: torch.Tensor,
-                        min_sup, *, mode: int):
-    """(P, W) x (Q,) -> ((Q, W) int32, (Q,) int32 sup, (Q,) int32 mask)."""
+                        min_sup, *, mode: int, plan=None):
+    """(P, W) x (Q,) -> ((Q, W) int32, (Q,) int32 sup, (Q,) int32 mask);
+    ``plan`` is ignored, as above."""
     inter, pop = fused_intersect_partial_ref(bitmaps, left, right, mode=mode)
     sup = pop if mode == MODE_TIDSET else sup_left.to(torch.int32) - pop
     mask = (sup >= min_sup).to(torch.int32)

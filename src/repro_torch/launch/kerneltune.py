@@ -12,10 +12,14 @@ The counterpart of the tune and crossover sections of the reference's
     ``kernels.autotune.tune_shape`` at each shape class the main path
     launches: K2 (lanes per pair) at chess level 5, T10I4D100K level 3 and
     the two stream rings; K4 (word split) at T10I4D100K's Phase 2, the
-    tri-matrix item cap and the two streams' pushes.  Each record holds
-    every candidate's device ms, the pick, the cost model's pick and the
-    default tile's ms.  The winners go into the autotune cache
-    (``REPRO_TORCH_AUTOTUNE_CACHE``).
+    tri-matrix item cap and the two streams' pushes; K1 (window plan, with
+    its (Q, W) store, as ``compact=False`` launches it) at chess level 4,
+    T10I4D100K level 3 and the two stream rings; K3 (window plan, without
+    its store, as the compacting word-sharded mines launch it) at chess
+    and T10I4D100K at 4 word shards and the T10I4D100K ring at 4.  Each
+    record holds every candidate's device ms, the pick, the cost model's
+    pick and the default tile's (the rule's) ms.  The winners go into the
+    autotune cache (``REPRO_TORCH_AUTOTUNE_CACHE``).
 ``crossover``
     The ``ref`` and ``fused`` backends' ``expand`` (host clock around a
     call that ends in its host read) over a Q x W grid, and each cell's
@@ -42,7 +46,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["K2_SHAPES", "K4_SHAPES", "CROSSOVER_CELLS", "MINES",
+__all__ = ["K2_SHAPES", "K4_SHAPES", "K1_SHAPES", "K3_SHAPES",
+           "CROSSOVER_CELLS", "MINES",
            "tune_shapes", "crossover", "tuned_vs_default", "sweep",
            "use_tables", "main"]
 
@@ -56,6 +61,16 @@ K4_SHAPES = [("T10I4D100K Phase 2", 187, 3125),
              ("tri-matrix item cap", 4096, 3125),
              ("T10I4D100K stream push", 870, 256),
              ("chess stream push", 75, 16)]
+# K1 shape classes of the non-compacting mines and streams: (label, P, W, Q)
+K1_SHAPES = [("chess 0.7 level 4", 65536, 100, 393216),
+             ("T10I4D100K 0.01 level 3", 1024, 3125, 4096),
+             ("T10I4D100K stream ring, level 2", 870, 4096, 1024),
+             ("chess stream ring, level 2", 75, 128, 768)]
+# K3 shape classes of the word-sharded mines and streams at 4 word shards:
+# (label, P, Ws, Q)
+K3_SHAPES = [("chess 0.7 level 4, 4 shards", 65536, 25, 393216),
+             ("T10I4D100K 0.01 level 3, 4 shards", 1024, 782, 4096),
+             ("T10I4D100K stream ring, 4 shards", 870, 1024, 1024)]
 # the crossover grid (Q pairs, W words): the reference's cells, and the two
 # mines' largest expansions
 CROSSOVER_CELLS = [(256, 32), (1024, 128), (4096, 512), (16384, 128),
@@ -65,8 +80,9 @@ MINES = [("T10I4D100K", 0.01, "v4"), ("chess", 0.7, "v4")]
 
 
 def tune_shapes(reps: int = 20) -> list:
-    """``tune_shape`` at every shape class of :data:`K2_SHAPES` and
-    :data:`K4_SHAPES` (mode 0), on the current card; the records, labelled."""
+    """``tune_shape`` at every shape class of :data:`K2_SHAPES`,
+    :data:`K4_SHAPES`, :data:`K1_SHAPES` and :data:`K3_SHAPES` (mode 0), on
+    the current card; the records, labelled."""
     from ..kernels import autotune as at
     out = []
     for label, p, w, q in K2_SHAPES:
@@ -75,6 +91,12 @@ def tune_shapes(reps: int = 20) -> list:
     for label, n, w in K4_SHAPES:
         rec = at.tune_shape("trimatrix", n, w, 0, device="cuda", reps=reps)
         out.append({"label": label, **rec})
+    for kernel, shapes, store in (("pairs", K1_SHAPES, True),
+                                  ("partial", K3_SHAPES, False)):
+        for label, p, w, q in shapes:
+            rec = at.tune_shape(kernel, q, w, 0, device="cuda", rows=p,
+                                reps=reps, store=store)
+            out.append({"label": label, "store": store, **rec})
     return out
 
 

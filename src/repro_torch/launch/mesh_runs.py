@@ -102,6 +102,7 @@ from typing import Dict, List, Sequence
 import torch
 
 from .. import kernels
+from ..kernels import autotune
 from ..core import (EclatConfig, build_vertical_accumulated, mine, resume_mine,
                     support_checksum)
 from ..core.engine import resolve_engine
@@ -167,6 +168,7 @@ def _mine(rank: _Rank, job: dict) -> dict:
     txns, n_items = rank.transactions(job)
     dev = rank.device
     walls = []
+    tuner_before = autotune.launches
     for _ in range(int(job.get("reps", 1))):
         kernels.reset_launch_counts()
         _sync(dev)
@@ -177,6 +179,7 @@ def _mine(rank: _Rank, job: dict) -> dict:
     st = res.stats
     out = dict(checksum=support_checksum(res.support_map()), counts=res.counts,
                total=res.total, launches=kernels.launch_counts(),
+               tuner_launches=autotune.launches - tuner_before,
                wall_s=walls, mesh=mesh_descriptor(mesh),
                n_expands=len(st.get("pair_padding", {}).get("per_level", [])),
                stats={k: st[k] for k in (
@@ -234,10 +237,12 @@ def _stream(rank: _Rank, job: dict) -> dict:
     mesh = rank.mesh(dict(job, backend=cfg.backend, shard=cfg.shard))
     dev = rank.device
     miner = StreamingMiner(job["n_items"], cfg, mesh=mesh, device=dev)
+    tuner_before = autotune.launches
     slides = [_slide_record(miner, batch, dev, job) for batch in rank.batches(job)]
     valid = _validate(miner)
     ring = miner.ring
     return dict(slides=slides, ring=words_to_numpy(ring.device),
+                tuner_launches=autotune.launches - tuner_before,
                 ring_geometry=dict(n_words=ring.n_words,
                                    n_words_dev=ring.n_words_dev,
                                    local_words=ring.local_words,

@@ -19,7 +19,9 @@ this invocation's ``--backend``/``--shard``/``--grid``/``--ranks``, which
 may differ from the original run's (DESIGN.md §10).  ``--fimi FILE.dat``
 mines a FIMI-format transaction file instead of a generated dataset.
 ``--backend auto`` picks the backend from the measured crossover table
-(``BENCH_torch_kerneltune.json``), ``--block-w`` sets K2's word tile and
+(``BENCH_torch_kerneltune.json``), ``--block-w`` sets the word tile of
+the fused-intersect kernel an expansion launches (K2's; K1's or K3's staged
+chunk without compaction or on the word-sharded backends) and
 ``--autotune`` tunes the kernels' tiles on a miss (``kernels.autotune``).
 ``--top-k K`` replaces the threshold with the adaptive min_sup ladder
 (``core.top_k_mine``) and prints the ladder and the first 10 itemsets;
@@ -172,8 +174,9 @@ def main(argv=None):
     ap.add_argument("--max-k", type=int, default=None,
                     help="deepest itemset length to mine")
     ap.add_argument("--block-w", type=int, default=None, metavar="WORDS",
-                    help="the fused kernel's word tile (default: the "
-                         "autotune table, else the kernel's rule)")
+                    help="the fused kernels' word tile: K2's, or the "
+                         "chunk K1/K3 stage (default: the autotune table, "
+                         "else the kernel's rule)")
     ap.add_argument("--autotune", action="store_true",
                     help="tune on a miss: measure a kernel shape class's "
                          "tiles before its first launch (winners persist in "

@@ -36,8 +36,9 @@ that stops beating its heartbeat for ``--stall-timeout`` seconds is
 *reported* (exit code 4) instead of hanging the readers.
 
 ``--backend auto`` picks the backend from the measured crossover table,
-``--block-w`` sets K2's word tile and ``--autotune`` tunes the kernels'
-tiles on a miss, as in the reference's command line.
+``--block-w`` sets the fused kernels' word tile (K2's, or the chunk K1
+and K3 stage) and ``--autotune`` tunes the kernels' tiles on a miss, as in
+the reference's command line.
 """
 from __future__ import annotations
 
@@ -327,8 +328,9 @@ def main(argv=None):
                          "disables); a stalled writer is reported, readers "
                          "keep answering from the last published window")
     ap.add_argument("--block-w", type=int, default=None, metavar="WORDS",
-                    help="the fused kernel's word tile (default: the "
-                         "autotune table, else the kernel's rule)")
+                    help="the fused kernels' word tile: K2's, or the "
+                         "chunk K1/K3 stage (default: the autotune table, "
+                         "else the kernel's rule)")
     ap.add_argument("--autotune", action="store_true",
                     help="tune on a miss: measure a kernel shape class's "
                          "tiles before its first launch")

@@ -40,10 +40,11 @@ from typing import List
 from . import Report, check_sync_markers, iter_python_files, lint_file, lint_paths, rule_ids
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "..", ".."))
-FIXTURES = {rid: os.path.join(ROOT, "src", "repro", "staticcheck", "fixtures",
+# each rule's must-fail fixture, the port's own copies (never a path of the
+# reference's tree)
+FIXTURES = {rid: os.path.join(os.path.dirname(__file__), "fixtures",
                               f"{rid.lower()}_bad.py")
-            for rid in ("RS001", "RS002", "RS003", "RS004")}
-FIXTURES["RS005"] = os.path.join(os.path.dirname(__file__), "fixtures", "rs005_bad.py")
+            for rid in ("RS001", "RS002", "RS003", "RS004", "RS005")}
 STRICT_DIRS = (os.path.join("src", "repro_torch"),)
 DEFAULT_REPORT = os.path.join(ROOT, "reports", "torch_static_findings.json")
 

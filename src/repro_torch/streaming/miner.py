@@ -67,7 +67,7 @@ class StreamConfig:
     p: int = 10                    # partitions for the class table
     max_k: Optional[int] = None    # deepest itemset length to mine (>= 1); None = unbounded
     bucket_min: int = 128          # engine pair-buffer ladder floor (half-pow2 rungs)
-    block_w: Optional[int] = None  # K2's word tile (kernels.autotune.kernel_block_ws); None = autotune table, else the kernel's rule
+    block_w: Optional[int] = None  # K2's word tile or K1's/K3's chunk (core.engine.PORT_BLOCK_WS); None = autotune table, else the kernel's rule
     autotune: bool = False         # tune on a miss: measure a shape class's tiles before its first launch
     compact: bool = True           # survivor compaction inside the intersection call (K2); False = the reference's two steps (K1, host mask, row gather)
 

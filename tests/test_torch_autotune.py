@@ -68,7 +68,7 @@ def test_shape_class_buckets():
     # kernel, mode and card split classes
     keys = {at.shape_class(k, 1000, 100, m, kind)
             for k in at.KERNELS for m in (0, 1) for kind in ("cpu", CARD)}
-    assert len(keys) == 8
+    assert len(keys) == 4 * len(at.KERNELS) == 16
     with pytest.raises(ValueError, match="unknown kernel"):
         at.shape_class("pallas", 1, 1)
 
@@ -86,7 +86,11 @@ def test_candidates_on_a_card_are_the_kernels_instantiations():
     assert at.block_w_candidates(7, CARD) == [32, 64, 256]
     assert at.block_w_candidates(3125, CARD) == [32, 64, 256]
     assert at.kernel_block_ws(4096) == [128, 256, 1024]
-    assert eng.PORT_BLOCK_WS == [32, 64, 128, 256, 1024]
+    # the engines' names: K2's tiles and K1's and K3's chunks, no Pallas
+    # tile width the port cannot run (512, 2048)
+    assert eng.PORT_BLOCK_WS == sorted({32, 64, 128, 256, 1024}
+                                       | set(at.window_block_ws()))
+    assert 512 not in eng.PORT_BLOCK_WS and 2048 not in eng.PORT_BLOCK_WS
     assert at.split_candidates(75, 16, CARD) == [1, 2]
     cands = at.split_candidates(187, 3125, CARD)
     assert split_plan(187, 3125)[0] in cands and 1 in cands
@@ -601,3 +605,335 @@ def test_k2_occupancy_reads_ptxas_registers():
                                             "16 lanes given": 64}
     assert k2_occupancy._flags("2,4") == ["-DK2_G16_MIN_BLOCKS_FUSED=2",
                                           "-DK2_G16_MIN_BLOCKS_GIVEN=4"]
+
+
+# ---------------------------------------------------------------------------
+# K1's and K3's window plans
+# ---------------------------------------------------------------------------
+
+from repro.data.synthetic import quest  # noqa: E402
+
+from repro_torch.kernels.fused_intersect.fused_intersect import (  # noqa: E402
+    RULE_PLAN, WINDOW_PLAN_ERRORS, WindowPlan, window_plan, window_skew)
+
+# the main path's K1 and K3 classes (launch.kerneltune) and edge shapes: (Q, W)
+WINDOW_CLASSES = [(393216, 100), (4096, 3125), (1024, 4096), (768, 128),
+                  (393216, 25), (4096, 782), (1024, 1024),
+                  (1001, 100), (4097, 3125), (1001, 131), (300, 7), (1, 100),
+                  (0, 100), (1001, 26)]
+# a database whose rows are wide enough for staged chunks: 4,000
+# transactions (125-word rows) of 24 items
+WIDE = quest(4000, 24, 8, 4, seed=3)
+WIDE_ITEMS = 24
+WIDE_MIN_SUP = 0.08
+
+
+@pytest.mark.parametrize("q,w", WINDOW_CLASSES)
+def test_window_candidates_hold_the_rule_in_cost_order(q, w):
+    """On a card: the rule's plan always, at most 8 plans, each one the
+    check takes as it is, distinct, ordered by the cost model."""
+    rule = window_plan(q, w)
+    cands = at.window_candidates(q, w, CARD)
+    assert rule in cands and 1 <= len(cands) <= at.MAX_WINDOW_CANDIDATES
+    assert len({c[:3] for c in cands}) == len(cands)
+    for c in cands:
+        assert window_plan(q, w, c[:3]) == c
+        lanes = 256 // c.tile
+        assert c.chunk == w or (c.chunk + 4) % 32 == max(lanes, 4) % 32
+    costs = [roofline.intersect_cost(q, w, plan=c) for c in cands]
+    assert [(k.bound_s, k.model) for k in costs] == sorted(
+        (k.bound_s, k.model) for k in costs)
+
+
+def test_a_plan_class_keeps_its_word_width():
+    """K1's and K3's classes key the exact width: a plan tuned for 25-word
+    slices (whole rows, chunk 25) is never applied to 32-word ones, where
+    a chunk of 25 would be a staged chunk off its tile's skew."""
+    assert at.shape_class("partial", 393216, 25, 0, CARD) != at.shape_class(
+        "partial", 393216, 32, 0, CARD)
+    assert at.shape_class("pairs", 300, 100, 0, "cpu") == "pairs_q512_w100_m0_cpu"
+    assert at.shape_class("compact", 300, 100, 0, "cpu") == "compact_q512_w128_m0_cpu"
+    with pytest.raises(ValueError):
+        window_plan(768, 32, (256, 256, 25))
+    assert window_plan(768, 25, (256, 256, 25)).stages == 1
+
+
+@pytest.mark.parametrize("q,w", WINDOW_CLASSES)
+def test_window_candidates_collapse_on_the_cpu(q, w):
+    assert at.window_candidates(q, w, "cpu") == [window_plan(q, w)]
+    assert at.lookup("pairs", q, w, 0, "cpu").plan == tuple(window_plan(q, w)[:3])
+
+
+def test_window_candidates_at_the_main_path():
+    """chess level 4 keeps whole rows (its tile halved, and two staged
+    chunks); T10I4D100K level 3 adds 8-pair tiles, 32-pair tiles and the
+    skewed chunks under each power-of-two pitch shorter than its rows."""
+    got = {c[:3] for c in at.window_candidates(393216, 100, CARD)}
+    assert got == {(256, 256, 100), (128, 256, 100), (256, 256, 32), (256, 256, 96)}
+    got = {c[:3] for c in at.window_candidates(4096, 3125, CARD)}
+    assert (16, 32, 364) in got and (8, 16, 764) in got and (32, 64, 164) in got
+    assert {c for _, _, c in got} >= {108, 236, 492, 1004}
+
+
+# (W, plan, code): a tile no power of two, too small, too large; window rows
+# 0 and 257; a chunk off its tile's skew, a chunk of 0; stages and whole
+# rows past the shared memory a block may take
+REFUSED = [(100, (12, 24, 100), -1), (100, (4, 8, 100), -1),
+           (100, (512, 256, 100), -1), (100, (256, 0, 100), -2),
+           (100, (256, 257, 100), -2), (3125, (16, 32, 100), -3),
+           (3125, (16, 32, 0), -3), (3125, (64, 128, 30), -3),
+           (3125, (8, 256, 1020), -4), (3125, (256, 256, 3125), -4)]
+
+
+@pytest.mark.parametrize("w,plan,code", REFUSED)
+def test_the_plan_check_refuses_each_bad_plan(w, plan, code):
+    with pytest.raises(ValueError) as e:
+        window_plan(50, w, plan)
+    assert WINDOW_PLAN_ERRORS[code] in str(e.value)
+
+
+def test_the_plan_check_reports_a_given_plan():
+    """All zeros is the rule; a chunk of at least the row stages whole rows,
+    reported as the row; a staged chunk takes two stages of its pitch."""
+    assert window_plan(4096, 3125, RULE_PLAN) == window_plan(4096, 3125)
+    assert window_plan(10, 100, (64, 128, 4092)) == WindowPlan(64, 128, 100, 1,
+                                                               128 * 400 + 16)
+    assert window_plan(10, 3125, (16, 28, 1004)) == WindowPlan(
+        16, 28, 1004, 2, 2 * 28 * 1008 * 4)
+    assert window_skew(8) == 0 and window_skew(16) == 16 and window_skew(32) == 8
+    assert {window_skew(t) for t in (64, 128, 256)} == {4}
+
+
+def test_window_block_ws_are_chunks_of_some_tile():
+    """Every name keeps the bank skew of some tile, the rule's chunks are
+    among them, and no power of two of 512 or more (a Pallas tile width)
+    is."""
+    names = at.window_block_ws()
+    for c in names:
+        assert any((c + 4) % 32 == window_skew(t) for t in at.WINDOW_TILES), c
+    for q, w in [(4096, 3125), (1024, 4096), (16896, 3125), (8448, 1563)]:
+        assert window_plan(q, w).chunk in names
+    assert not {512, 1024 * 2, 4096} & set(names)
+    assert set(eng.PORT_BLOCK_WS) == set(names) | {32, 64, 128, 256, 1024}
+
+
+def test_plan_for_block_w_names_the_chunk(tune_caches):
+    """An explicit block_w is the chunk; the tile is the table's, else the
+    rule's, moved to the nearest tile that keeps the chunk's skew; a
+    block_w of at least the row stages whole rows; any other is refused
+    naming this shape's chunks."""
+    p = at.plan_for_block_w("pairs", 4096, 3125, 0, 1004, CARD)
+    assert p[:3] == (16, 28, 1004)
+    p = at.plan_for_block_w("pairs", 4096, 3125, 0, 764, CARD)
+    assert p[:3] == (8, 16, 764)
+    p = at.plan_for_block_w("partial", 393216, 100, 0, 1024, CARD)
+    assert p[:3] == (256, 256, 100)
+    at.load_table().put(at.shape_class("pairs", 393216, 100, 0, CARD),
+                        at.KernelConfig(plan=(128, 256, 100)))
+    assert at.plan_for_block_w("pairs", 393216, 100, 0, 96, CARD)[:3] == (128, 256, 96)
+    assert at.plan_for_block_w("pairs", 393216, 100, 0, 60, CARD)[:3] == (8, 16, 60)
+    assert at.plan_for_block_w("pairs", 393216, 100, 0, 124, CARD)[:3] == (128, 256, 100)
+    with pytest.raises(ValueError, match=r"block_w=50 is not a chunk fused_pairs_kernel "
+                                         r"\(K1\) can stage for 100-word rows; its chunks"):
+        at.plan_for_block_w("pairs", 393216, 100, 0, 50, CARD)
+    with pytest.raises(ValueError, match=r"partial_pairs_kernel \(K3\)"):
+        at.plan_for_block_w("partial", 4096, 782, 0, 30, CARD)
+    with pytest.raises(ValueError, match="no window plan"):
+        at.plan_for_block_w("compact", 10, 10, 0, 32, CARD)
+
+
+def test_a_table_written_before_window_plans_still_loads(tune_caches):
+    """A table file of K2's and K4's entries only (no ``plan`` key) loads,
+    its entries mean what they meant, and an entry with a plan roundtrips."""
+    path = tune_caches / "port.json"
+    path.write_text(json.dumps({"version": 1, "shapes": {
+        "compact_q64_w128_m0_cpu": {"lanes": 16, "split": 0, "source": "measured",
+                                    "measured_ms": 0.1, "clock": "host"},
+        "trimatrix_q128_w16_m0_cpu": {"lanes": 0, "split": 2, "source": "manual"}}}))
+    t = at.load_table(refresh=True)
+    assert t.get("compact_q64_w128_m0_cpu") == at.KernelConfig(lanes=16)
+    assert t.get("trimatrix_q128_w16_m0_cpu") == at.KernelConfig(split=2)
+    assert t.get("compact_q64_w128_m0_cpu").plan == RULE_PLAN
+    assert at.table_config("compact", 64, 128, 0, "cpu").lanes == 16
+    t.put("pairs_q4096_w4096_m0_cpu", at.KernelConfig(plan=(8, 16, 764)))
+    t.save()
+    data = json.loads(path.read_text())["shapes"]
+    assert data["pairs_q4096_w4096_m0_cpu"]["plan"] == [8, 16, 764]
+    assert "plan" not in data["compact_q64_w128_m0_cpu"]
+    assert at.load_table(refresh=True).get("pairs_q4096_w4096_m0_cpu").plan == (8, 16, 764)
+
+
+@pytest.mark.parametrize("kernel,q,w", [("pairs", 300, 100), ("partial", 40, 7),
+                                        ("pairs", 64, 3125)])
+def test_tune_shape_of_a_plan_on_the_cpu_caches_the_rule(tune_caches, kernel, q, w):
+    before = at.launches
+    rec = at.tune_shape(kernel, q, w, 0, device="cpu", reps=1)
+    assert at.launches == before
+    rule = list(window_plan(q, w)[:3])
+    assert rec["tuned"] == rec["default"] == rec["model_pick"] == rule
+    assert list(rec["candidates"]) == ["/".join(map(str, rule))]
+    assert at.table_config(kernel, q, w, 0, "cpu") == at.KernelConfig(plan=tuple(rule))
+
+
+def _plan_spies(monkeypatch):
+    """Recording stubs for K1 and K3 behind the engines: each resolves the
+    plan the way the wrapper does on the card (``plan=None``: the table's
+    plan for the shape class, else the rule) and records it, then runs the
+    plain version."""
+    import sys
+    fi = sys.modules["repro_torch.kernels.fused_intersect.fused_intersect"]
+    from repro_torch.kernels.fused_intersect import (fused_intersect_partial_ref,
+                                                     fused_intersect_ref)
+    seen = []
+
+    def k1(bm, l, r, s, ms, *, mode, plan=None):
+        seen.append(("pairs", int(l.shape[0]), int(bm.shape[1]),
+                     fi._plan(plan, "pairs", l.shape[0], bm.shape[1], mode, bm.device)))
+        return fused_intersect_ref(bm, l, r, s, ms, mode=mode)
+
+    def k3(bm, l, r, *, mode, store=True, plan=None):
+        seen.append(("partial", int(l.shape[0]), int(bm.shape[1]),
+                     fi._plan(plan, "partial", l.shape[0], bm.shape[1], mode, bm.device)))
+        return fused_intersect_partial_ref(bm, l, r, mode=mode, store=store)
+
+    monkeypatch.setattr(eng.FusedEngine, "_intersect", staticmethod(k1))
+    monkeypatch.setitem(eng._INNER_FUNCS, "fused", (
+        eng._INNER_FUNCS["fused"][0], k3, eng._INNER_FUNCS["fused"][2], k1))
+    return seen
+
+
+def test_k1_receives_the_tables_plan_and_a_named_chunk(monkeypatch, tune_caches):
+    seen = _plan_spies(monkeypatch)
+    got = mine(WIDE, WIDE_ITEMS, EclatConfig(min_sup=WIDE_MIN_SUP, compact=False),
+               device="cpu")
+    want = j_mine(WIDE, WIDE_ITEMS, JConfig(min_sup=WIDE_MIN_SUP, compact=False))
+    assert got.support_map() == want.support_map()
+    assert seen and all(k == "pairs" and p == RULE_PLAN for k, _, _, p in seen)
+    # the table's plan for every class the mine launched
+    table = at.load_table()
+    for _, q, w, _ in seen:
+        table.put(at.shape_class("pairs", q, w, 0, "cpu"),
+                  at.KernelConfig(plan=(16, 32, w)))
+    seen.clear()
+    mine(WIDE, WIDE_ITEMS, EclatConfig(min_sup=WIDE_MIN_SUP, compact=False), device="cpu")
+    assert seen and all(p == (16, 32, w) for _, _, w, p in seen)
+    # an explicit block_w: its chunk, at the tile that keeps its skew
+    seen.clear()
+    mine(WIDE, WIDE_ITEMS, EclatConfig(min_sup=WIDE_MIN_SUP, compact=False, block_w=60),
+         device="cpu")
+    assert seen and all(p == (8, 16, 60) for _, _, _, p in seen)
+
+
+def test_k3_receives_the_tables_plan_and_a_named_chunk(monkeypatch, tune_caches, tmp_path):
+    """The word-sharded engine (one gloo rank) passes K3 the plan of an
+    explicit block_w at its slice width, or leaves it to the table; with
+    compact=True K2's given-mask front end takes block_w as its own tile
+    (32 words is one of K2's tiles for 125-word rows, and a chunk of K3's
+    at 64-pair tiles)."""
+    from repro_torch.launch.mesh import make_data_mesh, process_group
+    seen = _plan_spies(monkeypatch)
+    with process_group("gloo", 1, 0, f"file://{tmp_path}/rdv", device="cpu"):
+        mesh = make_data_mesh()
+        for compact in (False, True):
+            for block_w in (None, 32):
+                seen.clear()
+                got = mine(WIDE, WIDE_ITEMS,
+                           EclatConfig(min_sup=WIDE_MIN_SUP, compact=compact,
+                                       block_w=block_w, backend="fused", shard="words"),
+                           device="cpu", mesh=mesh)
+                assert got.stats["backend"] == "tidsharded"
+                want = (RULE_PLAN if block_w is None else (64, 128, 32))
+                assert seen and all(k == "partial" and p == want for k, _, _, p in seen), (
+                    compact, block_w, seen[:3])
+        assert got.support_map() == j_mine(WIDE, WIDE_ITEMS,
+                                           JConfig(min_sup=WIDE_MIN_SUP)).support_map()
+
+
+def test_an_invalid_block_w_is_refused_by_name():
+    with pytest.raises(ValueError, match="block_w=50"):
+        eng.make_engine("fused", block_w=50, compact=False)
+    with pytest.raises(ValueError, match="block_w=512"):
+        EclatConfig(min_sup=1, block_w=512, compact=False) and eng.resolve_engine(
+            "fused", block_w=512, compact=False)
+    # a chunk of K1's that is no tile of K2's, on a compacting engine
+    e = eng.make_engine("fused", block_w=364)
+    bm = words_from_numpy(np.zeros((6, 5), np.uint32), "cpu")
+    with pytest.raises(ValueError, match=r"candidates: \[32, 64, 256\]"):
+        e.expand(bm, np.array([0], np.int32), np.array([1], np.int32),
+                 np.array([9], np.int32), mode=0, min_sup=1)
+
+
+# ---------------------------------------------------------------------------
+# mines of the window plans against the reference
+# ---------------------------------------------------------------------------
+
+def _wide_reference(**kw):
+    return j_mine(WIDE, WIDE_ITEMS, JConfig(min_sup=WIDE_MIN_SUP, **kw))
+
+
+@pytest.mark.parametrize("variant,diffsets", [("v4", False), ("v6", True)])
+def test_non_compacting_autotune_mines_match_the_reference(tune_caches, variant, diffsets):
+    from repro_torch.core import support_checksum
+    cfg = dict(variant=variant, use_diffsets=diffsets, compact=False, autotune=True)
+    got = mine(WIDE, WIDE_ITEMS, EclatConfig(min_sup=WIDE_MIN_SUP, **cfg), device="cpu")
+    want = _wide_reference(**cfg)
+    assert got.support_map() == want.support_map()
+    assert support_checksum(got.support_map()) == support_checksum(want.support_map())
+    entries = at.load_table().entries
+    # every K1 class of the mine was tuned on the host, and no K2 class
+    assert sum(k.startswith("pairs") for k in entries) >= 1
+    assert not any(k.startswith("compact") for k in entries)
+    again = mine(WIDE, WIDE_ITEMS, EclatConfig(min_sup=WIDE_MIN_SUP, **cfg), device="cpu")
+    assert again.support_map() == want.support_map()
+    assert at.load_table().entries.keys() == entries.keys()
+
+
+@pytest.mark.parametrize("block_w", [60, 124, 164])
+def test_each_chunk_candidate_mines_the_references_itemsets(block_w):
+    """125-word rows: the chunks of K1's candidates (164 names whole rows)."""
+    assert block_w in at.window_chunk_candidates(1001, 125, CARD)
+    got = mine(WIDE, WIDE_ITEMS, EclatConfig(min_sup=WIDE_MIN_SUP, compact=False,
+                                             block_w=block_w), device="cpu")
+    assert got.support_map() == _wide_reference(compact=False).support_map()
+
+
+def test_a_tidsharded_autotune_mine_matches_the_reference(tune_caches, tmp_path):
+    from repro_torch.launch.mesh import make_data_mesh, process_group
+    with process_group("gloo", 1, 0, f"file://{tmp_path}/rdv", device="cpu"):
+        mesh = make_data_mesh()
+        for compact in (True, False):
+            got = mine(WIDE, WIDE_ITEMS,
+                       EclatConfig(min_sup=WIDE_MIN_SUP, autotune=True, compact=compact,
+                                   backend="fused", shard="words"),
+                       device="cpu", mesh=mesh)
+            assert got.stats["backend"] == "tidsharded"
+            assert got.support_map() == _wide_reference(compact=compact).support_map()
+    entries = at.load_table().entries
+    assert any(k.startswith("partial") for k in entries)
+    assert any(k.startswith("compact") for k in entries)
+
+
+def test_the_chess_stream_without_compaction_autotunes_as_the_reference(tune_caches):
+    """The chess stream's shape (512-transaction blocks, min_sup 0.7) on a
+    window of 2 blocks, 4 slides, ``compact=False`` and ``autotune=True``:
+    the same slides as the reference's miner, K1's classes tuned."""
+    from repro.data import transaction_stream as j_stream
+    batches = list(j_stream("chess", 512, 4, seed=0, drift_every=10))
+    cfg = dict(min_sup=0.7, n_blocks=2, block_txns=512, compact=False, autotune=True)
+    from repro.data.synthetic import PAPER_DATASETS
+    n_items = PAPER_DATASETS["chess"].n_items
+    got = StreamingMiner(n_items, StreamConfig(**cfg), device="cpu")
+    want = JMiner(n_items, JStreamConfig(backend="pallas", **cfg))
+    for batch in batches:
+        g, w = got.advance(batch), want.advance(batch)
+        assert g.support_map() == w.support_map() and g.counts == w.counts
+    assert any(k.startswith("pairs") for k in at.load_table().entries)
+
+
+def test_a_reference_state_without_compaction_with_autotune_restores():
+    state = _reference_state(autotune=True, compact=False)
+    assert (state.autotune, state.compact) == (True, False)
+    e = eng.engine_from_state(state)
+    assert (e.name, e.autotune, e.compact, e.block_w) == ("fused", True, False, None)
+    snap = e.snapshot_state()
+    assert (snap.autotune, snap.compact) == (True, False)

@@ -540,6 +540,37 @@ def test_window_plan_matches_cuda(cuda):
             assert cuda_window_plan(q, w) == window_plan(q, w), (q, w)
 
 
+def test_window_plan_candidates_match_cuda(cuda):
+    """Every K1/K3 plan candidate the tuner offers, and a given plan the
+    check refuses, reported alike by the library and the mirror; K1 and K3
+    under each candidate equal the plain versions."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.fused_intersect.fused_intersect import (cuda_window_plan,
+                                                                     window_plan)
+    kind = torch.cuda.get_device_name(0)
+    for q, w in [(393_216, 100), (4096, 3125), (1024, 4096), (768, 128), (4096, 782),
+                 (1001, 131), (300, 7)]:
+        for plan in autotune.window_candidates(q, w, kind):
+            assert cuda_window_plan(q, w, plan[:3]) == window_plan(q, w, plan[:3]) == plan
+    for w, plan in [(100, (12, 24, 100)), (100, (256, 0, 100)), (3125, (16, 32, 100)),
+                    (3125, (8, 256, 1020))]:
+        with pytest.raises(ValueError) as lib:
+            cuda_window_plan(50, w, plan)
+        with pytest.raises(ValueError) as mirror:
+            window_plan(50, w, plan)
+        assert str(lib.value) == str(mirror.value)
+    from repro_torch.launch.kernel_timing import class_pair_inputs
+    bm, l, r, s, ms = class_pair_inputs(300, 131, 1001, 901, seed=4, device=cuda)
+    for plan in autotune.window_candidates(1001, 131, kind):
+        for mode in (0, 1, 2):
+            want = fused_intersect_ref(bm, l, r, s, ms, mode=mode)
+            for g, e in zip(fused_intersect(bm, l, r, s, ms, mode=mode, plan=plan[:3]), want):
+                assert torch.equal(g, e), (plan, mode)
+            got = fused_intersect_partial(bm, l, r, mode=mode, plan=plan[:3])
+            for g, e in zip(got, fused_intersect_partial_ref(bm, l, r, mode=mode)):
+                assert torch.equal(g, e), (plan, mode)
+
+
 # attention kernels vs their plain versions run in float32 on the same
 # inputs: float32 outputs agree to 1e-4 (sums in another order); bfloat16
 # outputs are the float32 value rounded once to nearest, so within half a

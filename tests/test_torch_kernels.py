@@ -3,6 +3,8 @@ plain torch versions (``ref.py``, reached through ``ops`` for CPU tensors)
 equal the Pallas kernels run in interpret mode and their jnp oracles, bit
 for bit; and the CPU path never touches a launch counter.  The CUDA kernels
 against the plain versions on the card are in ``test_torch_cuda.py``."""
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -627,6 +629,100 @@ def test_window_plan_at_the_main_path_shapes():
     for w in (1563, 3125):
         plan = window_plan(4096, w)
         assert plan.tile == 16 and plan.stages == 2 and plan.chunk < w
+
+
+# K1's and K3's shape classes on the main path (launch.kerneltune.K1_SHAPES,
+# K3_SHAPES) and edge shapes: (Q, W); their plan candidates are emulated
+WINDOW_PLAN_CLASSES = [(393216, 100), (4096, 3125), (1024, 4096), (768, 128),
+                       (393216, 25), (4096, 782), (1024, 1024), (1001, 100),
+                       (1001, 131), (300, 7), (1, 100), (1001, 26)]
+
+
+def _plan_coverage(q, w, plan):
+    """How often the walk of ``plan`` visits each (pair, word): tiles of
+    ``plan.tile`` consecutive pairs, each over the row's chunks of
+    ``plan.chunk`` words (one chunk for whole rows)."""
+    seen = np.zeros((q, w), np.int64)
+    whole = plan.chunk >= w
+    n_chunks = 1 if whole else -(-w // plan.chunk)
+    for q0 in range(0, q, plan.tile):
+        n = min(plan.tile, q - q0)
+        for c in range(n_chunks):
+            c0 = 0 if whole else c * plan.chunk
+            cw = w if whole else min(plan.chunk, w - c0)
+            seen[q0:q0 + n, c0:c0 + cw] += 1
+    return seen
+
+
+@pytest.mark.parametrize("q,w", WINDOW_PLAN_CLASSES)
+def test_window_candidates_emulated(q, w):
+    """Every plan of ``autotune.window_candidates`` at a main-path class or
+    edge shape: its walk of tiles and chunks covers each pair and word
+    exactly once, and the emulated K3 (its rows and raw popcounts) and K1
+    (supports and mask) under it equal the plain versions, on class-ordered
+    pairs with a pad tail at the class's width (two and a half tiles of
+    them, or Q where fewer), a mode and a frontier alignment per plan."""
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels.fused_intersect import fused_intersect_partial_ref
+    from repro_torch.launch.kernel_timing import class_pair_inputs
+    plans = at.window_candidates(q, w, "NVIDIA H100 80GB HBM3")
+    assert len(plans) >= 2
+    for i, plan in enumerate(plans):
+        qe = min(q, 2 * plan.tile + plan.tile // 2 + 1)
+        assert (_plan_coverage(qe, w, plan) == 1).all()
+        assert (_plan_coverage(min(q, 3 * plan.tile), w, plan) == 1).all()
+        nv = qe - qe // 10
+        bm, l, r, s, ms = class_pair_inputs(200, w, qe, nv, seed=i + w, device="cpu")
+        mode, mis = MODES[i % 3], i % 4
+        inter, pop, _, _, _ = _emulate_window_pairs(words_to_numpy(bm), l.numpy(),
+                                                    r.numpy(), mode, plan, mis)
+        want_inter, want_pop = fused_intersect_partial_ref(bm, l, r, mode=mode)
+        assert np.array_equal(inter, words_to_numpy(want_inter)), plan
+        assert np.array_equal(pop, want_pop.numpy()), plan
+        want = fused_intersect_ref(bm, l, r, s, ms, mode=mode)
+        sup = pop if mode == 0 else s.numpy() - pop
+        assert np.array_equal(sup, want[1].numpy()), plan
+        assert np.array_equal((sup >= ms).astype(np.int32), want[2].numpy()), plan
+
+
+def test_window_plan_refusals_name_the_rule_broken():
+    """The mirror of the library's check refuses a tile, rows, a chunk and
+    shared memory each with its own text, and reports the rule's plan for
+    all zeros: the plan every launch without one takes."""
+    from repro_torch.kernels.fused_intersect.fused_intersect import (
+        RULE_PLAN, WINDOW_PLAN_ERRORS, window_plan)
+    for w, plan, code in [(100, (24, 48, 100), -1), (100, (8, 300, 100), -2),
+                          (3125, (8, 16, 1000), -3), (3125, (8, 200, 1020), -4)]:
+        with pytest.raises(ValueError, match=WINDOW_PLAN_ERRORS[code].split(":")[1][:30]):
+            window_plan(4096, w, plan)
+    for q, w in WINDOW_PLAN_CLASSES + [(5, 0), (0, 0)]:
+        assert window_plan(q, w, RULE_PLAN) == window_plan(q, w) == window_plan(q, w, None)
+    # rows of no words: the rule stages whole (empty) rows; a given chunk of
+    # 0 words is refused as the library refuses it
+    assert window_plan(5, 0)[2:4] == (0, 1)
+    with pytest.raises(ValueError, match="chunk"):
+        window_plan(5, 0, (8, 16, 0))
+
+
+def test_window_plan_refusals_are_the_librarys_text():
+    """The mirror's refusal texts and shared-memory limit are the CUDA
+    source's (``cuda_error_string``'s cases, ``kWinSmemMax``), read from
+    the source here; on the card chip_smoke.py holds the two raised
+    messages equal."""
+    import re
+    from repro_torch.kernels.fused_intersect.fused_intersect import (
+        WINDOW_PLAN_ERRORS, WINDOW_SMEM_MAX)
+    src = open(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                            "src", "repro_torch", "csrc", "fused_intersect.cu")).read()
+    codes = dict(re.findall(r"constexpr int (kPlanBad\w+) = (-\d+);", src))
+    assert sorted(int(c) for c in codes.values()) == sorted(WINDOW_PLAN_ERRORS)
+    body = src[src.index("const char* cuda_error_string"):]
+    cases = re.findall(r"case (kPlanBad\w+):\s*return ((?:\"[^\"]*\"\s*)+);", body)
+    assert len(cases) == len(WINDOW_PLAN_ERRORS)
+    for name, lit in cases:
+        assert "".join(re.findall(r'"([^"]*)"', lit)) == WINDOW_PLAN_ERRORS[int(codes[name])]
+    m = re.search(r"kWinSmemMax = (\d+) \* 1024;", src)
+    assert int(m.group(1)) * 1024 == WINDOW_SMEM_MAX
 
 
 def test_miner_inputs_record_the_largest_expansion():

@@ -55,6 +55,45 @@ def test_lint_matches_the_reference_on_its_fixtures(rid):
     assert got == want and any(r == rid for r, _ in got)
 
 
+def test_the_gates_fixtures_are_the_ports_own():
+    """Every must-fail fixture the port's gate lints lies under
+    src/repro_torch, none under the reference's tree, and the gate's own
+    fixture check finds each rule on its fixture."""
+    port = os.path.join(ROOT, "src", "repro_torch") + os.sep
+    assert sorted(gate.FIXTURES) == ["RS001", "RS002", "RS003", "RS004", "RS005"]
+    for rid, path in gate.FIXTURES.items():
+        assert os.path.abspath(path).startswith(port), (rid, path)
+        assert os.path.isfile(path), path
+    from repro_torch.staticcheck import Report
+    report = Report()
+    assert gate.run_lint_fixtures(report) == 0
+    assert report.summary["lint_fixtures"] == {"checked": 5, "rotted": 0}
+
+
+@pytest.mark.parametrize("rid", ["RS001", "RS002", "RS003", "RS004"])
+def test_the_ports_fixture_copies_lint_as_the_references(rid):
+    """The port's copy of a reference fixture gives the findings, rules and
+    lines, that the reference's lint gives on the reference's file."""
+    got = [(f.rule, f.line) for f in lint_file(gate.FIXTURES[rid], root=ROOT)]
+    path = os.path.join(REF_FIXTURES, f"{rid.lower()}_bad.py")
+    want = [(f.rule, f.line) for f in j_lint_file(path, root=ROOT)]
+    assert got == want and any(r == rid for r, _ in got)
+
+
+@pytest.mark.parametrize("rid", ["RS001", "RS002", "RS003", "RS004", "RS005"])
+def test_the_gate_reports_each_rule_on_its_fixture(rid):
+    """``python -m repro_torch.staticcheck --lint-target`` on a rule's
+    fixture exits 1 and reports that rule."""
+    import subprocess
+    import sys
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    res = subprocess.run([sys.executable, "-m", "repro_torch.staticcheck",
+                          "--lint-target", gate.FIXTURES[rid]], env=env,
+                         capture_output=True, text=True, timeout=120, cwd=ROOT)
+    assert res.returncode == 1, res.stdout + res.stderr
+    assert f": {rid} [error]" in res.stderr, res.stderr
+
+
 def test_torch_rs005_flags_the_planted_item_and_cpu():
     found = lint_file(PORT_FIXTURE, root=ROOT)
     lines = open(PORT_FIXTURE).read().splitlines()
